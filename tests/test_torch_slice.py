@@ -1,0 +1,241 @@
+"""The port's static search slice against the JAX package, end to end.
+
+A toy corpus (the verify-skill drive plus a few hundred random Zipf
+sentences) goes through both packages on the CPU: the carried state must be
+identical, the [V, T] similarity tables agree to GEMM summation order, and
+find/find_batch return the same slices with scores within 1e-6 relative
+(ids may differ only inside bands of tied scores).  Inside the port, find
+and find_batch are byte-identical.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import vectorian_tpu as vj
+import vectorian_tpu_torch as vt
+from vectorian_tpu.alignment import AffineGapCost as JaxAffine
+from vectorian_tpu.alignment import GlobalAlignment as JaxGlobal
+from vectorian_tpu.alignment import LocalAlignment as JaxLocal
+from vectorian_tpu.metrics import EmbeddingTokenSim as JaxTokenSim
+from vectorian_tpu.metrics import OptimizedSpanSim as JaxSpanSim
+from vectorian_tpu.ops.simmatrix import compile_similarity as jax_compile_similarity
+from vectorian_tpu_torch.alignment import AffineGapCost, GlobalAlignment, LocalAlignment
+from vectorian_tpu_torch.convert import state_from_numpy
+from vectorian_tpu_torch.metrics import EmbeddingTokenSim, OptimizedSpanSim
+from vectorian_tpu_torch.ops.simmatrix import compile_similarity
+
+torch.set_num_threads(2)
+
+REL = 1e-6  # scores: the similarity GEMM sums in another order
+
+
+def _corpus(seed=1):
+    rng = np.random.default_rng(seed)
+    words = ["sun", "moon", "shines", "over", "the", "sea"] + [
+        "".join(chr(97 + int(c)) for c in rng.integers(0, 26, size=4 + i % 3))
+        for i in range(54)
+    ]
+    mat = rng.normal(size=(len(words), 16)).astype(np.float32)
+    p = 1.0 / np.arange(1, len(words) + 1) ** 1.1
+    p /= p.sum()
+    texts = ["The sun shines over the sea. Stars at night."]
+    for _ in range(4):
+        sents = [
+            " ".join(rng.choice(words, size=int(rng.integers(1, 12)), p=p)) + "."
+            for _ in range(60)
+        ]
+        texts.append(" ".join(sents))
+    queries = ["the sun shines over the sea"] + [
+        " ".join(rng.choice(words, size=int(rng.integers(1, 9)), p=p))
+        for _ in range(5)
+    ]
+    return words, mat, texts, queries
+
+
+@pytest.fixture(scope="module")
+def both():
+    words, mat, texts, queries = _corpus()
+    sj = vj.Session(
+        [vj.StringImporter()(t, title=f"d{i}") for i, t in enumerate(texts)],
+        embeddings=[vj.KeyedVectors("toy", words, mat)],
+    )
+    st = vt.Session(
+        [vt.StringImporter()(t, title=f"d{i}") for i, t in enumerate(texts)],
+        embeddings=[vt.KeyedVectors("toy", words, mat)],
+        device="cpu",
+    )
+    return sj, st, queries
+
+
+def _indexes(sj, st, locality):
+    if locality == "local":
+        opt_j, opt_t = JaxLocal(), LocalAlignment()
+    else:
+        opt_j = JaxGlobal(JaxAffine(0.37, 0.113))
+        opt_t = GlobalAlignment(AffineGapCost(0.37, 0.113))
+    ij = sj.partition("sentence").index(
+        JaxSpanSim(JaxTokenSim(sj.embeddings[0]), opt_j)
+    )
+    it = st.partition("sentence").index(
+        OptimizedSpanSim(EmbeddingTokenSim(st.embeddings[0]), opt_t)
+    )
+    return ij, it
+
+
+def _pairs(result):
+    return [(m.slice_id, m.score) for m in result]
+
+
+def _assert_same_ranking(want, got, min_score):
+    """Same slices and scores within REL, except inside tied bands: ids may
+    swap where scores tie, and at the cut or at min_score a tied slice may
+    be in one list only."""
+
+    def tol(s):
+        return REL * max(1.0, abs(s))
+
+    for (_, a), (_, b) in zip(want, got):
+        assert abs(a - b) <= tol(a)
+    smap_w, smap_g = dict(want), dict(got)
+    for sid in smap_w.keys() & smap_g.keys():
+        assert abs(smap_w[sid] - smap_g[sid]) <= tol(smap_w[sid])
+    for mine, other in ((want, got), (got, want)):
+        ids_other = {sid for sid, _ in other}
+        edge = other[-1][1] if other else min_score
+        for sid, s in mine:
+            if sid not in ids_other:
+                assert abs(s - edge) <= tol(s) or abs(s - min_score) <= tol(s)
+
+
+def test_carried_state_is_identical(both):
+    sj, st, _ = both
+    spec = sj.partition("sentence").spec
+    pj = sj.packed_corpus(spec)
+    arrays = {
+        "vocab": list(sj.vocab.tokens.strings),
+        "embeddings": {
+            name: np.asarray(ce.unmodified)
+            for name, ce in sj.compiled_embeddings.items()
+        },
+        "buckets": [
+            {
+                "capacity": b.capacity, "tokens": b.token_ids, "pos": b.pos_ids,
+                "tag": b.tag_ids, "lengths": b.lengths,
+                "slice_index": b.slice_index,
+            }
+            for b in pj.buckets
+        ],
+        "slice_doc": pj.slice_doc, "slice_idx": pj.slice_idx,
+        "slice_start": pj.slice_start, "slice_len": pj.slice_len,
+        "partition": (spec.level, spec.window_size, spec.window_step),
+        "n_docs": pj.n_docs,
+    }
+    packed, compiled = state_from_numpy(arrays, device="cpu")
+    assert list(st.vocab.tokens.strings) == arrays["vocab"]
+    own = st.packed_corpus(st.partition("sentence").spec)
+    for p in (packed, own):
+        assert len(p.buckets) == len(pj.buckets)
+        for b, bj in zip(p.buckets, pj.buckets):
+            assert b.capacity == bj.capacity
+            for f in ("token_ids", "pos_ids", "tag_ids", "lengths", "slice_index"):
+                assert np.array_equal(getattr(b, f), getattr(bj, f)), f
+        for f in ("slice_doc", "slice_idx", "slice_start", "slice_len"):
+            assert np.array_equal(getattr(p, f), getattr(pj, f)), f
+    for name, ce in compiled.items():
+        mine = st.compiled_embeddings[name]
+        for f in ("unmodified", "normalized", "magnitudes"):
+            assert torch.equal(getattr(ce, f), getattr(mine, f)), f
+
+
+def test_similarity_matrix_matches(both):
+    sj, st, queries = both
+    tsj = JaxTokenSim(sj.embeddings[0])
+    tst = EmbeddingTokenSim(st.embeddings[0])
+    for q in queries:
+        toks = q.split() + ["unknownword"]
+        ids_j = sj.vocab.tokens.lookup_many(toks)
+        ids_t = st.vocab.tokens.lookup_many(toks)
+        assert np.array_equal(ids_j, ids_t)
+        want = np.asarray(
+            jax_compile_similarity(tsj, sj.compiled_embeddings, ids_j, toks)[
+                "similarity"
+            ]
+        )
+        got = compile_similarity(tst, st.compiled_embeddings, ids_t, toks)[
+            "similarity"
+        ].numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("locality", ["local", "global"])
+def test_find_and_find_batch_match_jax(both, locality):
+    sj, st, queries = both
+    ij, it = _indexes(sj, st, locality)
+    n, min_score = 5, 0.1
+    port_find = []
+    for q in queries:
+        want = _pairs(ij.find(q, n=n, min_score=min_score))
+        got = _pairs(it.find(q, n=n, min_score=min_score))
+        assert got, q
+        _assert_same_ranking(want, got, min_score)
+        port_find.append(got)
+    want_b = ij.find_batch(queries, n=n, min_score=min_score, sim_precision="float32")
+    got_b = it.find_batch(queries, n=n, min_score=min_score)
+    for w, g in zip(want_b, got_b):
+        _assert_same_ranking(_pairs(w), _pairs(g), min_score)
+    # inside the port: find and find_batch are byte-identical
+    assert [_pairs(r) for r in got_b] == port_find
+
+
+def _assert_json_close(a, b):
+    """Equal JSON, floats within REL (flow distances are 1 - similarity,
+    which carries the GEMM's last-bit differences)."""
+    if isinstance(a, dict):
+        assert isinstance(b, dict) and a.keys() == b.keys()
+        for k in a:
+            _assert_json_close(a[k], b[k])
+    elif isinstance(a, (list, tuple)):
+        assert isinstance(b, (list, tuple)) and len(a) == len(b)
+        for x, y in zip(a, b):
+            _assert_json_close(x, y)
+    elif isinstance(a, float):
+        assert abs(a - b) <= REL * max(1.0, abs(a))
+    else:
+        assert a == b
+
+
+def test_match_json_matches_jax(both):
+    sj, st, queries = both
+    ij, it = _indexes(sj, st, "local")
+    for q in queries:
+        mj = ij.find(q, n=3, min_score=0.1)
+        mt = it.find(q, n=3, min_score=0.1)
+        for a, b in zip(mj, mt):
+            if a.slice_id != b.slice_id:
+                continue  # a tied band swapped them
+            _assert_json_close(a.to_json(), b.to_json())
+
+
+def test_unported_options_raise(both):
+    _, st, queries = both
+    it = st.partition("sentence").index(
+        OptimizedSpanSim(EmbeddingTokenSim(st.embeddings[0]), LocalAlignment())
+    )
+    with pytest.raises(NotImplementedError):
+        it.find_batch(queries[:2], sim_precision="int8")
+    for opt in ({"bidirectional": True}, {"submatch_weight": 0.5},
+                {"pos_filter": ["DET"]}, {"mesh": object()}):
+        with pytest.raises(NotImplementedError):
+            it.find(queries[0], **opt)
+    with pytest.raises(NotImplementedError):
+        vt.Session([], device="cpu", paged=True)
+    from vectorian_tpu_torch.alignment import ExponentialGapCost
+
+    with pytest.raises(NotImplementedError):
+        st.partition("sentence").index(
+            OptimizedSpanSim(
+                EmbeddingTokenSim(st.embeddings[0]),
+                LocalAlignment(ExponentialGapCost(0.5)),
+            )
+        )

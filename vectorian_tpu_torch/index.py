@@ -1,0 +1,875 @@
+"""Query construction, indexes and matches.
+
+Reference: vectorian/index.py — Query/PreparedQuery (:25-106), Match ABC +
+to_json (:249-292), CoreMatch region reconstruction (:295-379) and
+BruteForceIndex thread fan-out (:509-560).
+
+Port mapping (static affine slice of vectorian_tpu/index.py): the
+per-document ThreadPool disappears — the packed corpus is scored in one
+batched device pass per bucket (ops/search.BruteForceEngine); the bounded
+top-k heap becomes a device top-k fused with the exact rescore of the
+selected rows; flows are recomputed for the global top-k only.  ``find`` is
+``find_batch`` with one query: both run the same corpus pass and the same
+finalizer, so their (slice_id, score) lists are byte-identical.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import namedtuple
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from vectorian_tpu_torch.alignment import resolve_affine_gaps
+from vectorian_tpu_torch.ops.alignment import AffineGapParams
+from vectorian_tpu_torch.ops.search import (
+    BruteForceEngine,
+    batch_tracebacks,
+    edge_sims_of,
+    order_by_score,
+)
+from vectorian_tpu_torch.ops.simmatrix import compile_plan
+from vectorian_tpu_torch.session import Result
+from vectorian_tpu_torch.utils import trace
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to vectorian_tpu_torch yet (ROADMAP.md port "
+        f"queue item {item})"
+    )
+
+
+_OPTIONS_ITEM = "4: general gaps and query options"
+# per-query options of the JAX package that this slice does not serve yet;
+# each raises when set to anything but its neutral default
+UNPORTED_OPTIONS = (
+    "submatch_weight", "bidirectional", "booster", "pos_filter",
+    "tag_filter", "token_filter", "debug",
+)
+
+
+def _check_options(options: dict) -> None:
+    for key in UNPORTED_OPTIONS:
+        if options.get(key):
+            raise _not_ported(f"query option {key!r}", _OPTIONS_ITEM)
+
+
+def _pad_needle(query: "PreparedQuery"):
+    """Pad the needle to a multiple of 4 tokens (at least 4): padded ids
+    are -1, strings empty.  Plans of one padded width give find() and
+    find_batch() the same GEMM shape, hence the same bits.  Returns
+    (token_ids, strings, Tpad)."""
+    T = query.n_tokens
+    Tpad = max(4, -(-T // 4) * 4)
+    pad_n = Tpad - T
+    tok_ids = np.concatenate(
+        [np.asarray(query.token_ids, np.int32), np.full((pad_n,), -1, np.int32)]
+    )
+    strings = list(query.token_strings) + [""] * pad_n
+    return tok_ids, strings, Tpad
+
+
+class Query:
+    """An unprepared query (reference index.py:25-54)."""
+
+    def __init__(self, index, text: str, options: dict):
+        self._index = index
+        self._text = text
+        self._options = options
+        self._aborted = False
+
+    def abort(self):
+        """Cooperative cancellation (reference Query::abort, query.h:183-189;
+        checked after the corpus pass here)."""
+        self._aborted = True
+
+    @property
+    def aborted(self):
+        return self._aborted
+
+    @property
+    def index(self):
+        return self._index
+
+    @property
+    def text(self):
+        return self._text
+
+    @property
+    def options(self):
+        return self._options
+
+    def prepare(self, nlp):
+        return PreparedQuery(self, nlp)
+
+
+class PreparedQuery:
+    """NLP-parsed, normalized query bound to the session vocabulary
+    (reference index.py:56-106 + core Query::initialize query.cpp:32-154)."""
+
+    def __init__(self, query: Query, nlp):
+        self._query = query
+        session = query.index.session
+        doc = nlp(query.text)
+        j = doc.to_json() if hasattr(doc, "to_json") else doc
+
+        tokens = j["tokens"]
+        table = {
+            "text": [query.text[t["start"] : t["end"]] for t in tokens],
+            "pos": [t.get("pos", "X") for t in tokens],
+            "tag": [t.get("tag", "XX") for t in tokens],
+        }
+        char_spans = [(t["start"], t["end"]) for t in tokens]
+        mask = session.normalization.apply(table)
+
+        keep = np.flatnonzero(mask)
+        self.token_strings = [table["text"][i] for i in keep]
+        self.token_pos = [table["pos"][i] for i in keep]
+        self.token_tag = [table["tag"][i] for i in keep]
+        self.char_spans = [char_spans[i] for i in keep]
+        self.all_char_spans = char_spans
+        self.kept = keep
+        # corpus vocab ids (-1 if OOV — the reference's incremental query
+        # vocab; OOV tokens still get metric rows via their own vectors)
+        self.token_ids = session.vocab.tokens.lookup_many(self.token_strings)
+        self.pos_ids = np.asarray(
+            [session.vocab.pos_id(p) for p in self.token_pos], np.int8
+        )
+
+    @property
+    def query(self):
+        return self._query
+
+    @property
+    def text(self):
+        return self._query.text
+
+    @property
+    def options(self):
+        return self._query.options
+
+    @property
+    def n_tokens(self):
+        return len(self.token_strings)
+
+
+Region = namedtuple("Region", ["s", "match", "gap_penalty"])
+TokenMatch = namedtuple("TokenMatch", ["pos_s", "edges"])
+TokenMatchEdge = namedtuple("TokenMatchEdge", ["t", "flow", "distance", "metric"])
+TokenMatchT = namedtuple("TokenMatchT", ["text", "index", "pos"])
+
+
+class _FlowResolver:
+    """Deferred flow extraction for one query's top-n matches.
+
+    Serving batches report exact scores from the fused fetch; the flow
+    MAPPINGS of matches whose payload did not ride the transfer are only
+    needed when a consumer actually reads regions/edges.  The first access
+    to any member's mapping runs ONE batched rescore for the whole group
+    and injects every member's flows — same rescore_many arithmetic, so
+    resolved mappings are byte-identical to eager ones (the reference's
+    finalizer computes flows for the top-k eagerly,
+    matcher_impl.h:172-174; deferring to first access is a latency
+    trade)."""
+
+    def __init__(self, index, plan, len_t, gaps, locality):
+        self._index = index
+        self._plan = plan
+        self._len_t = len_t
+        self._gaps = gaps
+        self._locality = locality
+        self._members = []  # (match, sid)
+        self._done = False
+
+    def add(self, match, sid: int) -> None:
+        self._members.append((match, sid))
+
+    def resolve(self) -> None:
+        if self._done:
+            return
+        self._done = True
+        if not self._members:
+            return
+        (res,) = self._index._engine.rescore_many(
+            [
+                {
+                    "slice_ids": [sid for _, sid in self._members],
+                    "qp": self._plan,
+                    "len_t": self._len_t,
+                    "want_flows": True,
+                }
+            ],
+            self._gaps,
+            self._locality,
+        )
+        mappings, edge_sims, _raw = res
+        for (m, _sid), mp, es in zip(self._members, mappings, edge_sims):
+            m._set_flows(mp, es)
+
+
+class Match:
+    """A single search hit; JSON shape mirrors reference index.py:249-292."""
+
+    def __init__(
+        self,
+        index: "Index",
+        query: PreparedQuery,
+        slice_id: int,
+        score: float,
+        metric: str = "",
+        mapping: Optional[np.ndarray] = None,
+        similarities: Optional[np.ndarray] = None,
+        edge_list: Optional[list] = None,  # [(t, s, flow, distance)]
+        level: str = "word",
+        flow_resolver: Optional[_FlowResolver] = None,
+    ):
+        self._index = index
+        self._query = query
+        self._slice_id = int(slice_id)
+        self._score = float(score)
+        self._metric = metric
+        self._mapping_v = mapping
+        self._similarities_v = similarities
+        self._edge_list = edge_list
+        self._level = level
+        self._flow_resolver = flow_resolver
+
+    @property
+    def _mapping(self):
+        if self._mapping_v is None and self._flow_resolver is not None:
+            self._flow_resolver.resolve()
+        return self._mapping_v
+
+    @property
+    def _similarities(self):
+        if self._similarities_v is None and self._flow_resolver is not None:
+            self._flow_resolver.resolve()
+        return self._similarities_v
+
+    def _set_flows(self, mapping, similarities) -> None:
+        self._mapping_v = np.asarray(mapping, np.int32)
+        self._similarities_v = similarities
+        self._flow_resolver = None
+
+    @property
+    def index(self):
+        return self._index
+
+    @property
+    def query(self):
+        return self._query
+
+    @property
+    def slice_id(self):
+        return self._slice_id
+
+    @property
+    def score(self):
+        return self._score
+
+    @property
+    def metric(self):
+        return self._metric
+
+    @property
+    def level(self):
+        return self._level
+
+    @property
+    def prepared_doc(self):
+        packed = self._index.packed
+        return self._index.session.documents[int(packed.slice_doc[self._slice_id])]
+
+    @property
+    def doc(self):
+        return self.prepared_doc.doc
+
+    @property
+    def slice_span(self):
+        """(token_start, token_len) of the matched slice in filtered space."""
+        packed = self._index.packed
+        return (
+            int(packed.slice_start[self._slice_id]),
+            int(packed.slice_len[self._slice_id]),
+        )
+
+    @property
+    def span(self):
+        """The matched slice as a browsable :class:`corpus.document.Span`
+        of original document tokens (reference Span browsing objects,
+        corpus/document.py:575-623)."""
+        s, ln = self.slice_span
+        return self.prepared_doc.span_from_filtered(s, s + ln)
+
+    @property
+    def flow(self):
+        """Flow dict: injective (reference InjectiveFlow.to_py,
+        match/flow.cpp:191-216) for alignments, sparse edge list (SparseFlow
+        flow.cpp:243-258) for transport metrics."""
+        if self._edge_list is not None:
+            return {
+                "type": "sparse",
+                "edges": [
+                    {"t": t, "s": s, "flow": f, "distance": d}
+                    for (t, s, f, d) in self._edge_list
+                ],
+            }
+        if self._mapping is None:
+            return None
+        t = np.asarray(self._mapping, np.int32)
+        flow = (t >= 0).astype(np.float32)
+        dist = np.where(
+            t >= 0,
+            1.0 - (self._similarities if self._similarities is not None else 0.0),
+            1.0,
+        ).astype(np.float32)
+        return {"type": "injective", "target": t, "flow": flow, "distance": dist}
+
+    def _edges_by_s(self) -> Dict[int, list]:
+        """s offset -> [(t, flow, distance)] from whichever flow repr."""
+        out: Dict[int, list] = {}
+        if self._edge_list is not None:
+            for t, s, f, d in self._edge_list:
+                out.setdefault(int(s), []).append((int(t), float(f), float(d)))
+        elif self._mapping is not None:
+            for jt, s in enumerate(self._mapping):
+                if s >= 0:
+                    sim = (
+                        float(self._similarities[jt])
+                        if self._similarities is not None
+                        else 0.0
+                    )
+                    out.setdefault(int(s), []).append((jt, 1.0, 1.0 - sim))
+        return out
+
+    @property
+    def omitted(self) -> List[str]:
+        matched_t = set()
+        if self._edge_list is not None:
+            matched_t = {t for (t, s, f, d) in self._edge_list}
+        elif self._mapping is not None:
+            matched_t = {jt for jt, s in enumerate(self._mapping) if s >= 0}
+        else:
+            return []
+        out = []
+        for jt in range(len(self._query.char_spans)):
+            if jt not in matched_t:
+                c0, c1 = self._query.char_spans[jt]
+                out.append(self._query.text[c0:c1])
+        return out
+
+    def regions(self, context_size: int = 10) -> List[Region]:
+        """Reconstruct text regions (reference Flow::py_regions,
+        match/flow.cpp:8-167): context, gap runs with penalties, matched
+        tokens with query-token edges."""
+        pd = self.prepared_doc
+        doc = pd.doc
+        start, length = self.slice_span
+        s_to_t = self._edges_by_s()  # s offset -> [(t, flow, distance)]
+
+        def char_range(f_lo, f_hi):
+            # filtered token positions [f_lo, f_hi) -> char range in doc text
+            o_lo = pd.orig_index[start + f_lo]
+            o_hi = pd.orig_index[start + f_hi - 1]
+            c0 = int(doc.idx[o_lo])
+            c1 = int(doc.idx[o_hi] + doc.len_[o_hi])
+            return c0, c1
+
+        regions: List[Region] = []
+        text = doc.text
+        if length == 0:
+            return regions
+
+        # leading context: context_size is measured in TOKENS (reference
+        # py_regions last_anchor arithmetic, flow.cpp:44 + 157-164)
+        c0, _ = char_range(0, 1)
+        lead = min(context_size, start)
+        if lead > 0:
+            o_ctx = pd.orig_index[start - lead]
+            ctx0 = int(doc.idx[o_ctx])
+            if ctx0 < c0:
+                regions.append(
+                    Region(s=text[ctx0:c0], match=None, gap_penalty=0.0)
+                )
+
+        gaps = self._index.gap_costs()
+        i = 0
+        while i < length:
+            if i in s_to_t:
+                edges = []
+                for jt, fl, dist in s_to_t[i]:
+                    c0q, c1q = self._query.char_spans[jt]
+                    edges.append(
+                        TokenMatchEdge(
+                            t=TokenMatchT(
+                                text=self._query.text[c0q:c1q],
+                                index=jt,
+                                pos=self._query.token_pos[jt],
+                            ),
+                            flow=fl,
+                            distance=dist,
+                            metric=self._metric,
+                        )
+                    )
+                c0, c1 = char_range(i, i + 1)
+                o = pd.orig_index[start + i]
+                pos_s = doc.pos[o]
+                regions.append(
+                    Region(
+                        s=text[c0:c1],
+                        match=TokenMatch(pos_s=pos_s, edges=edges),
+                        gap_penalty=0.0,
+                    )
+                )
+                i += 1
+            else:
+                i0 = i
+                while i < length and i not in s_to_t:
+                    i += 1
+                c0, c1 = char_range(i0, i)
+                gap_len = i - i0
+                # a run counts as a PENALIZED gap only between matched
+                # anchors (reference flow.cpp:103-112: p = 0 unless
+                # last_matched); leading/trailing runs are plain context
+                between = i0 > 0 and i < length
+                penalty = (
+                    float(gaps["s"].costs(gap_len + 1)[gap_len])
+                    if gaps and between
+                    else 0.0
+                )
+                regions.append(Region(s=text[c0:c1], match=None, gap_penalty=penalty))
+
+        # trailing context, also token-measured
+        _, c1 = char_range(length - 1, length)
+        n_filtered = len(pd.orig_index)
+        trail = min(context_size, n_filtered - (start + length))
+        if trail > 0:
+            o_ctx = pd.orig_index[start + length + trail - 1]
+            ctx1 = int(doc.idx[o_ctx] + doc.len_[o_ctx])
+            if c1 < ctx1:
+                regions.append(
+                    Region(s=text[c1:ctx1], match=None, gap_penalty=0.0)
+                )
+        return regions
+
+    def to_json(self, context_size: int = 10) -> dict:
+        packed = self._index.packed
+        pd = self.prepared_doc
+        slice_idx = int(packed.slice_idx[self._slice_id])
+        location = dict(pd.doc.metadata)
+        location.pop("locations", None)
+        locations = pd.doc.metadata.get("locations")
+        if locations and self._index.partition.level == "sentence":
+            # importers record one location per SENTENCE; a windowed
+            # partition's slice i starts at sentence i * window_step (the
+            # window's location = its first sentence's, like the
+            # reference's span metadata)
+            sent_idx = slice_idx * self._index.partition.window_step
+            if sent_idx < len(locations):
+                location.update(locations[sent_idx])
+        location["slice_start"] = int(packed.slice_start[self._slice_id])
+        location["slice_len"] = int(packed.slice_len[self._slice_id])
+
+        regions = []
+        for region in self.regions(context_size):
+            if region.match:
+                regions.append(
+                    dict(
+                        s=region.s,
+                        pos_s=region.match.pos_s,
+                        edges=[
+                            {
+                                "t": {
+                                    "text": e.t.text,
+                                    "index": e.t.index,
+                                    "pos": e.t.pos,
+                                },
+                                "flow": e.flow,
+                                "distance": e.distance,
+                                "metric": e.metric,
+                            }
+                            for e in region.match.edges
+                        ],
+                    )
+                )
+            else:
+                regions.append(dict(s=region.s, gap_penalty=region.gap_penalty))
+
+        return dict(
+            slice=slice_idx,
+            location=location,
+            score=self._score,
+            metric=self._metric,
+            regions=regions,
+            omitted=self.omitted,
+            level=self._level,
+        )
+
+
+class Index:
+    """Base index (reference index.py:406-506)."""
+
+    def __init__(self, partition, nlp=None):
+        self._partition = partition
+        self._session = partition.session
+        self._nlp = nlp if nlp is not None else self._session.nlp
+
+    @property
+    def partition(self):
+        return self._partition
+
+    @property
+    def session(self):
+        return self._session
+
+    @property
+    def packed(self):
+        return self._session.packed_corpus(self._partition.spec)
+
+    def make_query(self, text: str, n: int = 100, min_score: float = 0.2, **kwargs):
+        """reference index.py:461-477: n -> max_matches."""
+        options = dict(kwargs)
+        options["max_matches"] = n
+        options["min_score"] = min_score
+        options["partition"] = self._partition.to_args()
+        return Query(self, text, options)
+
+    def find(
+        self,
+        text: str,
+        n: int = 100,
+        min_score: float = 0.2,
+        debug=None,
+        disable_progress=False,
+        run_task=None,
+        mesh=None,
+        **kwargs,
+    ) -> Result:
+        """reference index.py:479-501."""
+        if mesh is not None:
+            raise _not_ported("find(mesh=...)", "7: multi-device serving")
+        start_time = time.time()
+        with trace.span("find.prep"):
+            query = self.make_query(
+                text, n=n, min_score=min_score, debug=debug, **kwargs
+            )
+            prepared = query.prepare(self._nlp)
+        matches = self._find(prepared)
+        return Result(self, matches, time.time() - start_time)
+
+    def _find(self, query: PreparedQuery) -> List[Match]:
+        raise NotImplementedError()
+
+    def gap_costs(self):
+        return None
+
+
+class BruteForceIndex(Index):
+    """Index-free brute-force search over all slices — the reference's
+    flagship path (index.py:509-560), executed as one batched device pass
+    per length bucket through the affine-DP kernel."""
+
+    # floor on the normalized-score slack of the cut proof: absorbs f32
+    # drift between the device ranking scores and the exact rescore
+    QUANT_SCORE_EPS = 1e-4
+
+    def __init__(self, partition, span_sim, nlp=None, **kwargs):
+        super().__init__(partition, nlp=nlp)
+        self._span_sim = span_sim
+        self._engine: BruteForceEngine = self._session.engine(partition.spec)
+        args = span_sim.to_args(self)
+        self._args = args
+        alignment = args["alignment"]
+        if alignment["algorithm"] != "alignment":
+            raise _not_ported(
+                f"the {alignment['algorithm']!r} metric", "6: transport metrics"
+            )
+        if args.get("tag_weights"):
+            raise _not_ported("tag weights", _OPTIONS_ITEM)
+        self._locality = alignment.get("locality", "local")
+        self._gap_s = alignment.get("gap_s")
+        self._gap_t = alignment.get("gap_t")
+        affine = resolve_affine_gaps(self._gap_s, self._gap_t)
+        if affine is None:
+            raise _not_ported("a non-affine gap model", _OPTIONS_ITEM)
+        self._gaps = AffineGapParams.of(*affine)
+
+    @property
+    def span_sim(self):
+        return self._span_sim
+
+    def gap_costs(self):
+        return {"s": self._gap_s, "t": self._gap_t}
+
+    def _compile_plan(self, pq: PreparedQuery):
+        tok_ids_p, strings_p, _ = _pad_needle(pq)
+        return compile_plan(
+            self._args["metric"]["token_sim"],
+            self._session.compiled_embeddings,
+            tok_ids_p,
+            strings_p,
+        )
+
+    def _find(self, query: PreparedQuery) -> List[Match]:
+        opts = query.options
+        _check_options(opts)
+        if query.n_tokens == 0:
+            return []
+        n = int(opts.get("max_matches", 100))
+        min_score = float(opts.get("min_score", 0.2))
+        T = query.n_tokens
+        with trace.span("find.plan"):
+            qp = self._compile_plan(query)
+        # the serving machinery with Q=1: the fused top-k step returns
+        # candidates WITH their exact f32 raw scores and flow payloads;
+        # boundary ties resolve through tie-bounded device column selects.
+        # find_batch runs the same pass and finalizer, so the two are
+        # byte-identical by construction.
+        with trace.span("find.topk"):
+            src = self._engine.score_topk_multi(
+                [qp], [T], self._gaps, self._locality, [float(T)], n + 32
+            )
+        if query.query.aborted:
+            return []
+        with trace.span("find.finalize"):
+            return self._finalize_quantized_many(
+                [(src.qview(0), qp, query, float(T))],
+                self._gaps, self._metric_name, n, min_score, 0.0,
+            )[0]
+
+    @property
+    def _metric_name(self) -> str:
+        return self._args["metric"]["token_sim"].name
+
+    def find_batch(
+        self,
+        texts: List[str],
+        n: int = 100,
+        min_score: float = 0.2,
+        sim_precision: Optional[str] = None,
+        mesh=None,
+        **kwargs,
+    ) -> List[Result]:
+        """Batched search: score Q queries in one corpus pass — the Q
+        needle tables stack into one [V, Tpad, Q] table, so each bucket is
+        one kernel launch for all of them.
+
+        ``sim_precision``: only ``"float32"`` (or None, meaning it) in this
+        slice; the quantized int8/bfloat16 ranking tables of the JAX
+        package wait for a later slice.  Every query reports the
+        finalizer's exact f32 scores under the provable cut, so results
+        are byte-identical to ``find()``."""
+        if mesh is not None:
+            raise _not_ported("find_batch(mesh=...)", "7: multi-device serving")
+        if sim_precision not in (None, "float32"):
+            raise _not_ported(
+                f"sim_precision={sim_precision!r}", "2: int8/bfloat16 ranking tables"
+            )
+        _check_options(kwargs)
+        start_time = time.time()
+        with trace.span("batch.prepare"):
+            prepared, plans, len_ts, norm_totals = self._prepare_static_batch(
+                texts, n, min_score, kwargs
+            )
+        with trace.span("batch.topk"):
+            src = self._engine.score_topk_multi(
+                plans, len_ts, self._gaps, self._locality, norm_totals, n + 32
+            )
+        items, item_qis = [], []
+        for qi, pq in enumerate(prepared):
+            if pq.n_tokens == 0:
+                continue
+            items.append((src.qview(qi), plans[qi], pq, norm_totals[qi]))
+            item_qis.append(qi)
+        per_q = self._finalize_quantized_many(
+            items, self._gaps, self._metric_name, n, min_score, 0.0
+        )
+        matches_by_qi = dict(zip(item_qis, per_q))
+        elapsed = time.time() - start_time
+        return [
+            Result(self, matches_by_qi[qi], elapsed)
+            if qi in matches_by_qi
+            else Result(self, [], 0.0)
+            for qi in range(len(prepared))
+        ]
+
+    def _prepare_static_batch(self, texts, n, min_score, kwargs):
+        """find_batch front half: prepare Q queries and compile each plan
+        at the SAME padded needle width find() uses (so find()/find_batch()
+        gather identical bits).  Returns (prepared, plans, len_ts,
+        norm_totals)."""
+        prepared, plans, len_ts, norm_totals = [], [], [], []
+        for text in texts:
+            pq = self.make_query(text, n=n, min_score=min_score, **kwargs).prepare(
+                self._nlp
+            )
+            prepared.append(pq)
+            plans.append(self._compile_plan(pq))
+            len_ts.append(max(pq.n_tokens, 1))
+            norm_totals.append(float(max(pq.n_tokens, 1)))
+        return prepared, plans, len_ts, norm_totals
+
+    def _quant_eps(self, entry_err: float, pq, norm_total: float) -> float:
+        return max(
+            2.0 * entry_err * max(pq.n_tokens, 1) / max(norm_total, 1e-9),
+            self.QUANT_SCORE_EPS,
+        )
+
+    def _finalize_quantized_many(
+        self, items, gaps, metric_name, n: int, min_score: float,
+        entry_err: float,
+    ) -> List[List["Match"]]:
+        """Batched finalizer: ``items`` is one (source view, plan, pq,
+        norm_total) tuple per query; every device round runs ONCE for the
+        whole batch.
+
+        The cut is provable: the best device score OUTSIDE the candidate set
+        must sit below the exact n-th score minus the drift slack ``eps``
+        (``entry_err`` bounds per-entry table rounding; 0.0 for f32 tables,
+        where the loop only guards (doc, slice) tie-breaks).  Rounds: (1)
+        candidates with their exact raw scores from the fused top-k step,
+        (2) tie-bounded extras for queries whose cut is unsafe — selected
+        and rescored on the device, a score-only rescore for any the select
+        could not rescore, (3) flows for ONLY the final top-n (fetched
+        payloads, else a deferred rescore on first access)."""
+        engine = self._engine
+        packed = engine.packed
+
+        def key_of(sid, score):
+            return (
+                -score,
+                int(packed.slice_doc[sid]),
+                int(packed.slice_idx[sid]),
+            )
+
+        # round 1: candidates with exact raw scores
+        meta = []
+        _t_fin = time.perf_counter()
+        for src, plan, pq, norm_total in items:
+            eps = self._quant_eps(entry_err, pq, norm_total)
+            cand, rest_max, raw = src.initial_exact(n + 32, min_score - eps)
+            exact = raw / max(norm_total, 1e-9)
+            order = order_by_score(packed, cand, exact)
+            keep = [j for j in order if exact[j] > min_score][:n]
+            meta.append(
+                {
+                    "eps": eps,
+                    "cand": cand,
+                    "rest_max": rest_max,
+                    "src": src,
+                    "first_entries": [(cand[j], float(exact[j])) for j in keep],
+                }
+            )
+        trace.add("fin.r1", time.perf_counter() - _t_fin)
+        _t_fin = time.perf_counter()
+
+        # round 2: cut-safety per query; unsafe cuts are tie-BOUNDED — the
+        # source covers every slice reaching the exact n-th minus the slack
+        above_calls = []  # (qi, view, thresh, seen)
+        for qi, m in enumerate(meta):
+            ents = m["first_entries"]
+            s_n = ents[n - 1][1] if len(ents) >= n else min_score
+            thresh = s_n - m["eps"]
+            if m["src"].covers_all(n + 32) or m["rest_max"] < thresh:
+                continue
+            above_calls.append((qi, m["src"], thresh, set(m["cand"])))
+        extra_reqs, extra_qis = [], []
+        by_parent = {}
+        for call in above_calls:
+            by_parent.setdefault(id(call[1].parent), []).append(call)
+        for calls in by_parent.values():
+            found = calls[0][1].parent.above_exact_many(
+                [(src, thresh, seen) for _, src, thresh, seen in calls]
+            )
+            for (qi, _, _, _), (ids, rmap) in zip(calls, found):
+                if not ids:
+                    continue
+                _, plan, pq, _ = items[qi]
+                meta[qi]["extra"] = ids
+                meta[qi]["extra_raws"] = rmap
+                missing = [e for e in ids if e not in rmap]
+                if missing:
+                    meta[qi]["extra_missing"] = missing
+                    extra_reqs.append(
+                        {
+                            "slice_ids": missing,
+                            "qp": plan,
+                            "len_t": pq.n_tokens,
+                            "want_flows": False,
+                        }
+                    )
+                    extra_qis.append(qi)
+        res2 = (
+            engine.rescore_many(extra_reqs, gaps, self._locality)
+            if extra_reqs
+            else []
+        )
+        trace.add("fin.r2", time.perf_counter() - _t_fin)
+        _t_fin = time.perf_counter()
+
+        # round 3: merge extras by exact score; flows for ONLY the entries
+        # of a final top-n
+        for qi, res in zip(extra_qis, res2):
+            meta[qi]["extra_raws"].update(
+                zip(meta[qi]["extra_missing"], res[2])
+            )
+        for qi, m in enumerate(meta):
+            entries = [(key_of(sid, s), sid, s) for sid, s in m["first_entries"]]
+            if "extra" in m:
+                _, _, _, norm_total = items[qi]
+                extra = m["extra"]
+                raw_extra = np.asarray(
+                    [m["extra_raws"][e] for e in extra], np.float32
+                )
+                exact_extra = raw_extra / max(norm_total, 1e-9)
+                entries += [
+                    (key_of(e, float(exact_extra[i])), e, float(exact_extra[i]))
+                    for i, e in enumerate(extra)
+                    if exact_extra[i] > min_score
+                ]
+                entries.sort(key=lambda t: t[0])
+            m["entries"] = entries[:n]
+
+        out = []
+        for (src, plan, pq, _), m in zip(items, meta):
+            # fused sources shipped flow payloads (H/S) with the initial
+            # fetch — traceback host-side, no extra round trip; flows of
+            # the others are DEFERRED to one shared resolver per query
+            resolver = None
+            merged = []
+            for _, sid, score in m["entries"]:
+                pay = src.flows_payload(sid)
+                if pay is not None:
+                    mp, es = self._flows_from_payload(*pay, pq.n_tokens, gaps)
+                    merged.append(
+                        Match(
+                            self, pq, slice_id=sid, score=score,
+                            metric=metric_name, mapping=mp, similarities=es,
+                        )
+                    )
+                    continue
+                if resolver is None:
+                    resolver = _FlowResolver(
+                        self, plan, pq.n_tokens, gaps, self._locality
+                    )
+                mt = Match(
+                    self, pq, slice_id=sid, score=score, metric=metric_name,
+                    flow_resolver=resolver,
+                )
+                resolver.add(mt, sid)
+                merged.append(mt)
+            out.append(merged)
+        trace.add("fin.r3", time.perf_counter() - _t_fin)
+        return out
+
+    def _flows_from_payload(self, H, S, ln: int, len_t: int, gaps):
+        """(mapping, edge_sims) from a fused-fetch flow payload — shares
+        rescore_many's unpack helpers (batch_tracebacks/edge_sims_of), so
+        payload and rescored flows are byte-identical."""
+        (mapping,) = batch_tracebacks(
+            H[None], S[None], np.asarray([ln], np.int32),
+            np.asarray([len_t], np.int32), gaps, self._locality,
+        )
+        return np.asarray(mapping, np.int32), edge_sims_of(mapping, S, len_t)

@@ -1,0 +1,627 @@
+"""Brute-force batched search: similarity table -> affine DP -> top-k.
+
+Counterpart of vectorian_tpu/ops/search.py for the static affine path
+(resident buckets, f32 tables).  The reference's matcher loop
+(MatcherImpl::match, vectorian/core/cpp/match/matcher_impl.h:66-176 +
+ThreadPool fan-out index.py:530-560) becomes, per length bucket, ONE launch
+of the affine-DP kernel (ops/dp_kernels.py), which gathers the stacked
+[V, Tpad, Q] query table by slice token ids and runs the DP for all Q
+queries; a device top-k fused with the exact f32 rescore of the selected
+rows then replaces the bounded min-heap (result_set.h:40-60).  The kernel
+serves every corpus pass, Q=1 ``find`` included.
+
+Score normalization follows the reference (metric/alignment.h:84-106 +
+match.h:295-336) with the default submatch_weight 0:
+``score = raw / total`` where ``total`` is the needle length.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from vectorian_tpu_torch import native
+from vectorian_tpu_torch.ops.alignment import (
+    align_matrices_scores,
+    align_scores,
+    traceback,
+)
+from vectorian_tpu_torch.ops.dp_kernels import affine_dp_scores
+from vectorian_tpu_torch.utils import trace
+
+NEG_SCORE = -1e30
+
+
+def stack_query_tables(plans, len_ts):
+    """Stack Q static query plans into the serving table [V, Tpad, Q]
+    ((T, Q)-minor: a warp of the DP kernel reads one table row's Q
+    consecutive floats).  Tpad is the longest needle rounded up to 8;
+    narrower plans are zero-padded (the DP masks columns past each
+    query's len_t).  Returns (table, Tpad)."""
+    Tmax = max(len_ts)
+    Tpad = -(-Tmax // 8) * 8
+    mats = [qp.matrix for qp in plans]
+    table = torch.stack(
+        [F.pad(m, (0, Tpad - int(m.shape[1]))) for m in mats], dim=2
+    )
+    return table.contiguous(), Tpad
+
+
+def order_by_score(packed, ids, scores) -> np.ndarray:
+    """Positions of ``ids`` in the reference's deterministic match order:
+    score desc, then doc id asc, then slice idx asc (match_impl.h:8-42).
+    The single home of this tie-break — every top-k/merge path uses it."""
+    # an empty candidate set must order to empty — np.asarray([]) is
+    # float64 and would crash the integer indexing below
+    ids = np.asarray(ids, np.int64)
+    if ids.size == 0:
+        return np.empty((0,), np.int64)
+    return np.lexsort(
+        (
+            packed.slice_idx[ids],
+            packed.slice_doc[ids],
+            -np.asarray(scores).astype(np.float64),
+        )
+    )
+
+
+def _bucket_scores_multiquery(
+    tokens, lengths, sim_multi, len_t, gaps, norm_total, locality
+):
+    """[n, Q] normalized scores of one bucket — Q queries in one corpus
+    pass, one kernel launch (the gather of ``sim_multi`` by ``tokens`` is
+    fused into the DP kernel)."""
+    raw = affine_dp_scores(sim_multi, tokens, lengths, len_t, gaps, locality)
+    scores = raw / torch.clamp_min(norm_total, 1e-9)[None, :]
+    return scores.masked_fill(lengths[:, None] <= 0, NEG_SCORE)
+
+
+def _mq_similarity(tok, qidx, table, V: int):
+    """Gather of multi-query rescore rows from the stacked [Q * V, Tmax]
+    plan table (shared by the fused top-k rescore, the select-with-rescore
+    and the stacked rescore, so their bits agree)."""
+    return table[qidx[:, None].long() * V + tok.long()]  # [g, L, Tmax]
+
+
+def _mq_matrices_scores(S, ln, lt, gaps, locality):
+    """H + raw for multi-query rescore rows.  Zero-length rows report
+    NEG_SCORE (a local-DP 0.0 would otherwise surface as a fake match at
+    negative min_score)."""
+    H, _, _, raw = align_matrices_scores(S, ln, lt, gaps, locality)
+    return H, raw.masked_fill(ln <= 0, NEG_SCORE)
+
+
+def _mq_scores(S, ln, lt, gaps, locality):
+    """Score-only variant of _mq_matrices_scores (same NEG_SCORE mask)."""
+    raw = align_scores(S, ln, lt, gaps, locality)
+    return raw.masked_fill(ln <= 0, NEG_SCORE)
+
+
+def _topk_exact_rescore(scores, tokens, ln_all, ec, n: int, kk: int, kd: int):
+    """Per-bucket device top-k FUSED with the exact f32 rescore and the
+    traceback DP matrices of the selected rows: candidates reach the host
+    already carrying their exact raw scores and flow payloads (H and the
+    similarity block S).  ``kd`` >= kk deepens the (vals, ids, exact-raw)
+    fetch past the payload depth, so boundary tie groups resolve host-side.
+
+    ``torch.topk`` promises no order among ties; the design does not need
+    one: the (kd+1)-th value bounds every unfetched slice, and
+    ``order_by_score`` alone breaks ties."""
+    vals, idx = torch.topk(scores[:n].T, kd + 1, dim=1)  # [Q, kd+1]
+    Q = idx.shape[0]
+    rows = idx[:, :kd].reshape(-1)
+    qidx = torch.arange(Q, device=idx.device).repeat_interleave(kd)
+    S = _mq_similarity(tokens[rows], qidx, ec["table"], ec["V"])
+    H, raw = _mq_matrices_scores(
+        S, ln_all[rows], ec["lt_q"][qidx], ec["gaps"], ec["locality"]
+    )
+    if kd > kk:
+        # flow payloads ship only to the kk payload depth; the deep tail
+        # carries (score, id, raw) triples only
+        H = H.reshape(Q, kd, *H.shape[1:])[:, :kk].reshape(Q * kk, *H.shape[1:])
+        S = S.reshape(Q, kd, *S.shape[1:])[:, :kk].reshape(Q * kk, *S.shape[1:])
+    return vals, idx, raw.reshape(Q, kd), H, S
+
+
+def _full_exact_rescore(scores, tokens, ln_all, ec, n: int):
+    """Exact rescore + flow payloads for EVERY row of a small
+    (fully-fetched) bucket for all Q queries."""
+    Q = ec["lt_q"].shape[0]
+    dev = tokens.device
+    rows = torch.arange(n, device=dev).repeat(Q)
+    qidx = torch.arange(Q, device=dev).repeat_interleave(n)
+    S = _mq_similarity(tokens[rows], qidx, ec["table"], ec["V"])
+    H, raw = _mq_matrices_scores(
+        S, ln_all[rows], ec["lt_q"][qidx], ec["gaps"], ec["locality"]
+    )
+    return scores[:n].T, raw.reshape(Q, n), H, S
+
+
+def _col_above_exact(scores, qi, thresh, tokens, ln_all, ec, n: int, size: int):
+    """Rows of one bucket whose score for query ``qi`` is >= ``thresh``
+    (ascending), their count, and — when the count fits ``size`` — the
+    exact f32 raw DP scores of those rows (else None: the caller reads the
+    whole column)."""
+    idx = torch.nonzero(scores[:n, qi] >= thresh).flatten()
+    cnt = int(idx.numel())
+    if cnt > size:
+        return idx, cnt, None
+    qvec = torch.full_like(idx, qi)
+    S = _mq_similarity(tokens[idx], qvec, ec["table"], ec["V"])
+    raw = _mq_scores(S, ln_all[idx], ec["lt_q"][qvec], ec["gaps"], ec["locality"])
+    return idx, cnt, raw
+
+
+def _host(t) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+class BucketTopKSource:
+    """Device-side per-bucket top-k candidate source for a multi-query
+    corpus pass: fetches only [Q, k+1] (value, id) pairs per bucket with
+    their exact raw scores (the full [n_slices, Q] score matrix stays on the
+    device).  The (k+1)-th value bounds every unfetched slice, and
+    unsafe-cut extras select single score COLUMNS on demand.
+
+    Candidate selection never decides the final order (the finalizer
+    exactly rescores and ``order_by_score`` owns the tie-break), and the
+    boundary bound covers truncated ties: a tied slice left unfetched keeps
+    rest_max >= thresh, forcing the tie-bounded extras round that reads the
+    column and recovers it."""
+
+    # flow payloads (H/S) ride the initial fetch only up to this size;
+    # bigger batches defer flows to the final-round rescore instead
+    PAYLOAD_MAX_BYTES = 8 << 20
+    # deep (score, id, raw) fetch depth at latency-serving Q (<=8): covers
+    # Zipf boundary tie groups so the cut proves safe without a second
+    # select round
+    DEEP_K = 512
+    # reduced depth for serving batches (the tail's rescore and transfer
+    # scale with Q x depth)
+    DEEP_K_LARGE_Q = 128
+    # cap on the thresholded column select: extras are tie-bounded and
+    # usually small; beyond it the whole column is read
+    ABOVE_CAP = 8192
+
+    def __init__(self, engine, pending, Q: int, k: int, exact_ctx):
+        """``exact_ctx``: {table, V, Tmax, lt_q, gaps, locality} — the top-k
+        step also computes each selected row's exact f32 raw DP score."""
+        self._engine = engine
+        self._pending = pending
+        self.Q = Q
+        self.k = k
+        self.exact_ctx = ec = exact_ctx
+        refs = []
+        metas = []
+        pay_budget = self.PAYLOAD_MAX_BYTES  # WHOLE-FETCH budget
+        t_loop0 = time.perf_counter()
+        deep = self.DEEP_K if Q <= 8 else self.DEEP_K_LARGE_Q
+        for db, scores in pending:
+            n = db["n"]
+            kk = min(k, n)
+            kd = max(kk, min(deep, n - 1))
+            pay_bytes = Q * kk * 4 * (
+                (db["capacity"] + 1) * (ec["Tmax"] + 1)
+                + db["capacity"] * ec["Tmax"]
+            )
+            with_pay = pay_bytes <= pay_budget
+            if with_pay:
+                pay_budget -= pay_bytes
+            if kd < n:
+                vals, idx, raw, H, S = _topk_exact_rescore(
+                    scores, db["tokens"], db["lengths"], ec, n, kk, kd
+                )
+                metas.append({"db": db, "kk": kd, "full": False, "pay": with_pay})
+                refs.extend((vals, idx, raw))
+            else:
+                vals, raw, H, S = _full_exact_rescore(
+                    scores, db["tokens"], db["lengths"], ec, n
+                )
+                metas.append({"db": db, "kk": kk, "full": True, "pay": with_pay})
+                refs.extend((vals, raw))
+            if with_pay:
+                refs.extend((H, S))
+        trace.add("topk.rescore_dispatch", time.perf_counter() - t_loop0)
+        with trace.span("topk.fetch"):
+            fetched = [_host(r) for r in refs]
+        self._buckets = []
+        pos = 0
+        for m in metas:
+            db = m["db"]
+            if m["full"]:
+                vals = fetched[pos]
+                pos += 1
+                m["vals"] = vals  # [Q, n]
+                m["sids"] = np.broadcast_to(db["slice_index"][None, :], vals.shape)
+                m["bound"] = np.full((self.Q,), -np.inf, np.float32)
+            else:
+                vals, idx = fetched[pos], fetched[pos + 1]
+                pos += 2
+                kk = m["kk"]
+                m["vals"] = vals[:, :kk]
+                m["sids"] = db["slice_index"][idx[:, :kk]]
+                m["bound"] = vals[:, kk].astype(np.float32)
+            m["exact"] = fetched[pos]  # [Q, kk] raw f32
+            pos += 1
+            if m["pay"]:
+                m["H"] = fetched[pos].reshape(self.Q, -1, *fetched[pos].shape[1:])
+                m["S"] = fetched[pos + 1].reshape(
+                    self.Q, -1, *fetched[pos + 1].shape[1:]
+                )
+                pos += 2
+            self._buckets.append(m)
+        self._col_cache = {}
+
+    def flows_payload(self, qi: int, sid: int):
+        """(H [S1, T1], S [L, Tmax], slice_len) for a candidate that was
+        fetched with flow payloads, else None (caller rescores)."""
+        for m in self._buckets:
+            if not m["pay"]:
+                continue
+            hit = np.flatnonzero(m["sids"][qi] == sid)
+            if hit.size:
+                p = int(hit[0])
+                if p >= m["H"].shape[1]:
+                    # deep-fetched tail candidate: its flow payload did not
+                    # ride the transfer
+                    return None
+                ln = int(self._engine.packed.slice_len[sid])
+                return m["H"][qi, p], m["S"][qi, p], ln
+        return None
+
+    def qview(self, qi: int) -> "TopKView":
+        return TopKView(self, qi)
+
+    def covers_all(self, m: int) -> bool:
+        # full buckets alone are NOT enough: ``initial`` truncates the
+        # merged candidate list to m, so slices can be dropped whenever the
+        # total fetched count exceeds m (they stay covered by rest_max and
+        # the extras round)
+        return all(b["full"] for b in self._buckets) and (
+            sum(b["db"]["n"] for b in self._buckets) <= m
+        )
+
+    def initial(self, qi: int, m: int, thresh: float):
+        """(candidate ids >= thresh among the m best, upper bound on every
+        score outside them, their exact raw scores)."""
+        vals = np.concatenate([b["vals"][qi] for b in self._buckets])
+        sids = np.concatenate([b["sids"][qi] for b in self._buckets])
+        exact = np.concatenate([b["exact"][qi] for b in self._buckets])
+        bound = max(
+            (float(b["bound"][qi]) for b in self._buckets),
+            default=float("-inf"),
+        )
+        keep = vals >= thresh
+        vk, ik, ek = vals[keep], sids[keep], exact[keep]
+        rest_max = bound
+        if len(vals) > len(vk):
+            rest_max = max(rest_max, float(np.max(vals[~keep])))
+        if len(vk) > m:
+            ap = np.argpartition(-vk, m)
+            rest_max = max(rest_max, float(vk[ap[m]]))
+            vk, ik, ek = vk[ap[:m]], ik[ap[:m]], ek[ap[:m]]
+        return [int(c) for c in ik], rest_max, ek
+
+    def _column(self, bi: int, qi: int):
+        key = (bi, qi)
+        if key not in self._col_cache:
+            db, scores = self._pending[bi]
+            self._col_cache[key] = _host(scores[: db["n"], qi])
+        return self._col_cache[key]
+
+    def above_exact_many(self, reqs):
+        """Per request (view, thresh, exclude): the ids with device score
+        >= thresh not in ``exclude``, and {sid: exact raw f32 DP score} for
+        the ids the select rescored.  Ids missing from the map (tie groups
+        past ABOVE_CAP) still need the finalizer's rescore."""
+        with trace.span("above.exact"):
+            return self._above_exact_many(reqs)
+
+    def _above_exact_many(self, reqs):
+        ec = self.exact_ctx
+        sel, raws = {}, {}
+        for view, thresh, _ in reqs:
+            qi = view.qi
+            for bi, b in enumerate(self._buckets):
+                if (
+                    b["full"]
+                    or float(b["bound"][qi]) < thresh
+                    or (bi, qi) in self._col_cache
+                    or (bi, qi) in sel
+                ):
+                    continue
+                db, scores = self._pending[bi]
+                idx, cnt, raw = _col_above_exact(
+                    scores, qi, float(np.float32(thresh)), db["tokens"],
+                    db["lengths"], ec, db["n"], min(self.ABOVE_CAP, db["n"]),
+                )
+                if raw is None:
+                    self._column(bi, qi)
+                else:
+                    sel[(bi, qi)] = _host(idx)
+                    raws[(bi, qi)] = _host(raw)
+        out = []
+        for view, thresh, excl in reqs:
+            qi = view.qi
+            seen = set(excl)
+            ids = []
+            rmap = {}
+            for bi, b in enumerate(self._buckets):
+                hit_raws = None
+                if not b["full"] and float(b["bound"][qi]) >= thresh:
+                    db = self._pending[bi][0]
+                    if (bi, qi) in sel:
+                        hit = db["slice_index"][sel[(bi, qi)]]
+                        hit_raws = raws[(bi, qi)]
+                    else:
+                        col = self._column(bi, qi)
+                        hit = db["slice_index"][np.flatnonzero(col >= thresh)]
+                else:
+                    keep = b["vals"][qi] >= thresh
+                    hit = b["sids"][qi][keep]
+                    hit_raws = b["exact"][qi][keep]
+                for p, c in enumerate(hit):
+                    c = int(c)
+                    if c not in seen:
+                        seen.add(c)
+                        ids.append(c)
+                        if hit_raws is not None:
+                            rmap[c] = float(hit_raws[p])
+            out.append((ids, rmap))
+        return out
+
+
+class TopKView:
+    """Per-query view over a shared BucketTopKSource (the finalizer's
+    items are per query; column selects batch through the parent)."""
+
+    def __init__(self, src: BucketTopKSource, qi: int):
+        self._src = src
+        self.qi = qi
+
+    @property
+    def parent(self):
+        return self._src
+
+    def covers_all(self, m: int) -> bool:
+        return self._src.covers_all(m)
+
+    def initial_exact(self, m: int, thresh: float):
+        """(cand, rest_max, exact raw scores) — the exact scores arrive
+        with the fused top-k step."""
+        return self._src.initial(self.qi, m, thresh)
+
+    def flows_payload(self, sid: int):
+        return self._src.flows_payload(self.qi, sid)
+
+
+def batch_tracebacks(H, Sw, lens, lts, gaps, locality):
+    """Native batched DP traceback with the per-row python fallback — the
+    ONE home for flow extraction (payload and rescore paths must share it
+    bit-for-bit).  Returns a [B] list of mappings, each [lts[i]] int32."""
+    nat = native.traceback_affine_batch(H, Sw, lens, lts, gaps, locality)
+    if nat is not None:
+        return [nat[i, : int(lts[i])] for i in range(len(lens))]
+    return [
+        traceback(H[i], Sw[i], int(lens[i]), int(lts[i]), gaps, locality)
+        for i in range(len(lens))
+    ]
+
+
+def edge_sims_of(mapping, Su, len_t: int) -> np.ndarray:
+    """Per-edge unmodified similarity for an injective mapping
+    (ScoreComputer, metric/alignment.h:307-352)."""
+    return np.where(
+        mapping >= 0,
+        Su[np.maximum(mapping, 0), np.arange(len_t)],
+        np.float32(0.0),
+    ).astype(np.float32)
+
+
+def _stacked_rescore(tokens, rows, qidx, table, ln, lt, gaps, V, locality,
+                     want_flows):
+    """Similarity gather + affine DP for the rescore rows of MANY queries
+    in one pass.  Bit-exact vs the per-query arithmetic: the table rows are
+    copies of each query's compiled plan matrix, and the DP recurrence is
+    column-prefix-causal with (len_s, len_t)-masked reductions, so the pad
+    columns of narrower queries never perturb a real cell's bits."""
+    S = _mq_similarity(tokens[rows], qidx, table, V)
+    if want_flows:
+        H, raw = _mq_matrices_scores(S, ln, lt, gaps, locality)
+        return raw, H, S
+    return _mq_scores(S, ln, lt, gaps, locality), None, None
+
+
+class BruteForceEngine:
+    """Scores a PackedCorpus against compiled query plans; the bucket
+    arrays live on ``device`` (resident mode)."""
+
+    def __init__(self, packed, device="cpu"):
+        self._packed = packed
+        self.device = torch.device(device)
+        self._device_buckets = []
+        # slice id -> (bucket index, row) for O(1) rescore lookups
+        self._slice_loc = np.full((packed.n_slices, 2), -1, np.int32)
+        for bi, b in enumerate(packed.buckets):
+            self._slice_loc[b.slice_index, 0] = bi
+            self._slice_loc[b.slice_index, 1] = np.arange(b.n, dtype=np.int32)
+            self._device_buckets.append(
+                {
+                    "capacity": b.capacity,
+                    "slice_index": b.slice_index,
+                    "n": b.n,
+                    "tokens": self._put(b.token_ids),
+                    "lengths": self._put(b.lengths),
+                }
+            )
+
+    def _put(self, arr) -> torch.Tensor:
+        return torch.as_tensor(
+            np.ascontiguousarray(arr, np.int32), device=self.device
+        )
+
+    @property
+    def packed(self):
+        return self._packed
+
+    @property
+    def n_slices(self):
+        return self._packed.n_slices
+
+    def _dispatch_multi(self, plans, len_ts, gaps, locality, norm_totals):
+        """Dispatch half of the multi-query corpus pass: [(bucket, scores
+        [n, Q] left on the device)], one kernel launch per bucket."""
+        with trace.span("topk.tables"):
+            sim_multi, _ = stack_query_tables(plans, len_ts)
+        lt_arr = torch.as_tensor(
+            np.asarray(len_ts, np.int32), device=self.device
+        )
+        nt_arr = torch.as_tensor(
+            np.asarray(norm_totals, np.float32), device=self.device
+        )
+        t_disp0 = time.perf_counter()
+        pending = [
+            (
+                db,
+                _bucket_scores_multiquery(
+                    db["tokens"], db["lengths"], sim_multi, lt_arr, gaps,
+                    nt_arr, locality,
+                ),
+            )
+            for db in self._device_buckets
+            if db["n"] > 0
+        ]
+        trace.add("topk.dispatch", time.perf_counter() - t_disp0)
+        return pending
+
+    def score_topk_multi(
+        self, plans, len_ts: List[int], gaps, locality: str,
+        norm_totals: List[float], k: int,
+    ) -> BucketTopKSource:
+        """Multi-query corpus pass with DEVICE-SIDE per-bucket top-k: only
+        O(buckets * Q * k) (score, id, exact raw) triples reach the host.
+        Returns the ``BucketTopKSource`` the finalizer consumes."""
+        pending = self._dispatch_multi(plans, len_ts, gaps, locality, norm_totals)
+        table, V, Tmax = self._stacked_plan_tables(plans)
+        exact_ctx = {
+            "table": table,
+            "V": V,
+            "Tmax": Tmax,
+            "lt_q": torch.as_tensor(
+                np.asarray(len_ts, np.int64), device=self.device
+            ),
+            "gaps": gaps,
+            "locality": locality,
+        }
+        return BucketTopKSource(self, pending, len(plans), k, exact_ctx)
+
+    @staticmethod
+    def _stacked_plan_tables(qps):
+        """Stack the plans' [V, T] matrices into one flat [Q * V, Tmax]
+        gather table (row ``slot * V + token``, slot = position in
+        ``qps``); a single plan of the full width IS the table.  Pure
+        copies, so gathered values are bit-identical to per-query gathers.
+        Returns (table, V, Tmax)."""
+        mats = [qp.matrix for qp in qps]
+        V = int(mats[0].shape[0])
+        if any(int(m.shape[0]) != V for m in mats):
+            raise ValueError("query plans of different vocabularies")
+        Tmax = max(int(m.shape[1]) for m in mats)
+        if len(mats) == 1:
+            return mats[0], V, Tmax
+        table = torch.stack(
+            [F.pad(m, (0, Tmax - int(m.shape[1]))) for m in mats], dim=0
+        ).reshape(len(mats) * V, Tmax)
+        return table, V, Tmax
+
+    def rescore_many(self, requests: List[dict], gaps, locality: str,
+                     chunk: int = 8192):
+        with trace.span("rescore_many"):
+            return self._rescore_many(requests, gaps, locality, chunk)
+
+    def _rescore_many(self, requests, gaps, locality, chunk):
+        """Exact f32 rescore for MANY independent candidate sets (one per
+        query): one gather + DP per touched bucket for the whole batch.
+
+        Each request: {slice_ids, qp, len_t, want_flows}.  Returns
+        per-request (mappings, edge_sims, raw_scores); mappings/edge_sims
+        are -1/0 placeholders for score-only requests."""
+        slot = {}  # request index -> stacked table slot (live requests)
+        states = []
+        pairs = []  # (request index, candidate position, slice id)
+        for ri, req in enumerate(requests):
+            slice_ids = [int(s) for s in req["slice_ids"]]
+            len_t = req["len_t"]
+            k = len(slice_ids)
+            states.append(
+                {
+                    "len_t": len_t,
+                    "want_flows": req.get("want_flows", True),
+                    "mappings": [np.full((len_t,), -1, np.int32) for _ in range(k)],
+                    "edge_sims": [np.zeros((len_t,), np.float32) for _ in range(k)],
+                    "raw": np.full((k,), NEG_SCORE, np.float32),
+                }
+            )
+            if k == 0:
+                continue
+            slot[ri] = len(slot)
+            pairs.extend((ri, j, sid) for j, sid in enumerate(slice_ids))
+        if not pairs:
+            return [(st["mappings"], st["edge_sims"], st["raw"]) for st in states]
+        table, V, _ = self._stacked_plan_tables(
+            [requests[ri]["qp"] for ri in slot]
+        )
+        want_flows = any(states[ri]["want_flows"] for ri in slot)
+        by_bucket: Dict[int, list] = {}
+        for ri, j, sid in pairs:
+            bi = int(self._slice_loc[sid, 0])
+            if bi < 0:
+                raise KeyError(sid)
+            by_bucket.setdefault(bi, []).append((ri, j, sid))
+        slice_len = self._packed.slice_len
+        groups = []
+        for bi, plist in by_bucket.items():
+            db = self._device_buckets[bi]
+            for c0 in range(0, len(plist), chunk):
+                pc = plist[c0 : c0 + chunk]
+                cols = {
+                    "rows": [self._slice_loc[sid, 1] for _, _, sid in pc],
+                    "qix": [slot[ri] for ri, _, _ in pc],
+                    "ln": [slice_len[sid] for _, _, sid in pc],
+                    "lt": [requests[ri]["len_t"] for ri, _, _ in pc],
+                }
+                rows, qix, ln, lt = (
+                    torch.as_tensor(np.asarray(cols[c], np.int64), device=self.device)
+                    for c in ("rows", "qix", "ln", "lt")
+                )
+                out = _stacked_rescore(
+                    db["tokens"], rows, qix, table, ln, lt, gaps, V,
+                    locality, want_flows,
+                )
+                groups.append((pc, out))
+
+        with trace.span("rescore.fetch"):
+            fetched = [
+                (pc, *(None if t is None else _host(t) for t in out))
+                for pc, out in groups
+            ]
+        for pc, raw_np, H_np, Sw_np in fetched:
+            maps = None
+            if want_flows:
+                lens = np.asarray([slice_len[sid] for _, _, sid in pc], np.int32)
+                lts = np.asarray([states[ri]["len_t"] for ri, _, _ in pc], np.int32)
+                maps = batch_tracebacks(H_np, Sw_np, lens, lts, gaps, locality)
+            for pos_i, (ri, j, sid) in enumerate(pc):
+                st = states[ri]
+                st["raw"][j] = raw_np[pos_i]
+                if not st["want_flows"]:
+                    continue
+                st["mappings"][j] = np.asarray(maps[pos_i], np.int32)
+                st["edge_sims"][j] = edge_sims_of(
+                    maps[pos_i], Sw_np[pos_i], st["len_t"]
+                )
+        return [(st["mappings"], st["edge_sims"], st["raw"]) for st in states]

@@ -1,0 +1,437 @@
+"""Session: binds corpus + embeddings + normalization; owns compiled state.
+
+Reference: vectorian/session.py — Session.__init__ prepares all documents,
+builds the core Vocabulary/EmbeddingManager and compiles static embeddings
+once (session.py:165-198); Partition carries (level, window_size,
+window_step) with frequencies and index construction (session.py:85-145).
+
+Port mapping: "compiling" an embedding materializes its (vocab x dim)
+matrix as tensors on the session's device (ops/simmatrix.CompiledEmbedding);
+"preparing" a partition packs the corpus into length-bucketed arrays
+(corpus/packing) plus a BruteForceEngine holding them on the device — both
+cached per (level, window_size, window_step).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from vectorian_tpu_torch.corpus.document import Document, PreparedDocument, prepare_document
+from vectorian_tpu_torch.corpus.packing import Partition as PartitionSpec
+from vectorian_tpu_torch.corpus.packing import PackedCorpus, pack_corpus
+from vectorian_tpu_torch.normalization import VanillaNormalization
+from vectorian_tpu_torch.ops.search import BruteForceEngine
+from vectorian_tpu_torch.ops.simmatrix import CompiledEmbedding
+from vectorian_tpu_torch.utils.nlp import SimpleNLP
+from vectorian_tpu_torch.utils.progress import progress as _progress
+from vectorian_tpu_torch.vocabulary import Vocabulary
+
+
+class Result:
+    """An ordered list of matches (reference session.py:24-55)."""
+
+    def __init__(self, index, matches, duration: float):
+        self._index = index
+        self._matches = list(matches)
+        self._duration = duration
+
+    @property
+    def index(self):
+        return self._index
+
+    @property
+    def matches(self):
+        return self._matches
+
+    @property
+    def duration(self):
+        return self._duration
+
+    def __len__(self):
+        return len(self._matches)
+
+    def __iter__(self):
+        return iter(self._matches)
+
+    def __getitem__(self, i):
+        return self._matches[i]
+
+    def extend(self, other: "Result", n: Optional[int] = None):
+        """Merge matches from another result (the reference's
+        ResultSet.extend seam for externally computed matches,
+        result_set.h:70-93 + ExternalMatcher matcher.h:114-139); keeps the
+        reference ordering (score desc, doc asc, slice asc)."""
+        self._matches.extend(other._matches)
+        self._matches.sort(key=lambda m: (-m.score, getattr(m, "slice_id", 0)))
+        if n is not None:
+            self._matches = self._matches[:n]
+        return self
+
+    def precision(self, relevant) -> float:
+        """Fraction of returned matches that are relevant (reference
+        GroundTruth/precision stubs, result_set.h:8-15, 106-112);
+        ``relevant`` is a set of slice ids or (doc_index, slice_idx)."""
+        if not self._matches:
+            return 0.0
+        hits = sum(1 for m in self._matches if self._is_relevant(m, relevant))
+        return hits / len(self._matches)
+
+    def recall(self, relevant) -> float:
+        if not relevant:
+            return 0.0
+        hits = sum(1 for m in self._matches if self._is_relevant(m, relevant))
+        return hits / len(relevant)
+
+    def ndcg(self, gains, n: Optional[int] = None) -> float:
+        """Normalized discounted cumulative gain over the match ranking —
+        the reference's de-facto regression metric (its companion notebook
+        suite validated releases by NDCG on known queries; see the h5py
+        regression note, reference __init__.py:29-31).
+
+        ``gains`` maps slice ids (or (doc_index, slice_idx) pairs, as in
+        ``precision``) to graded relevance; a set/list counts as gain 1.0.
+        Standard NDCG@k with k = ``n`` (or the number of returned matches):
+        the ideal ranking is the k best gains, so a missed relevant slice
+        lowers the score whenever its gain would have made that ideal cut —
+        pass ``n`` >= len(gains) to penalize every miss (pure recall holes
+        among equal top grades are invisible at smaller k, as usual for
+        NDCG@k; use ``recall`` for those)."""
+        if not isinstance(gains, dict):
+            gains = {k: 1.0 for k in gains}
+        if not gains:
+            return 0.0
+        matches = self._matches if n is None else self._matches[:n]
+        k = len(matches) if n is None else n
+
+        def gain(m):
+            sid = getattr(m, "slice_id", None)
+            if sid in gains:
+                return float(gains[sid])
+            idx = getattr(m, "index", None)
+            if idx is not None and hasattr(idx, "packed"):
+                packed = idx.packed
+                key = (
+                    int(packed.slice_doc[m.slice_id]),
+                    int(packed.slice_idx[m.slice_id]),
+                )
+                return float(gains.get(key, 0.0))
+            return 0.0
+
+        dcg = sum(
+            g / np.log2(i + 2.0)
+            for i, g in enumerate(gain(m) for m in matches)
+        )
+        ideal = sorted((float(g) for g in gains.values()), reverse=True)[:k]
+        idcg = sum(g / np.log2(i + 2.0) for i, g in enumerate(ideal))
+        return float(dcg / idcg) if idcg > 0 else 0.0
+
+    def _is_relevant(self, m, relevant) -> bool:
+        if getattr(m, "slice_id", None) in relevant:
+            return True
+        idx = getattr(m, "index", None)
+        if idx is not None and hasattr(idx, "packed"):
+            packed = idx.packed
+            key = (
+                int(packed.slice_doc[m.slice_id]),
+                int(packed.slice_idx[m.slice_id]),
+            )
+            return key in relevant
+        return False
+
+    def to_json(self, context_size=10):
+        return [m.to_json(context_size) for m in self._matches]
+
+
+class Frequencies:
+    """Per-PARTITION tf/df/tf-idf statistics (reference vocabulary.h:439-497
+    + Frequencies::add vocabulary.cpp:97-126: the unit of 'document' is one
+    SLICE of the partition — df counts slices containing the token and
+    n_docs is the slice count)."""
+
+    def __init__(self, session: "Session", partition: "Partition"):
+        self._session = session
+        self._partition = partition
+        V = len(session.vocab)
+        packed = session.packed_corpus(partition.spec)
+        tf = np.zeros((V,), np.float64)
+        df = np.zeros((V,), np.float64)
+        n_slices = 0
+        tok_by_doc = {
+            d_i: pd.token_ids for d_i, pd in enumerate(session.documents)
+        }
+        for d_i, pd in enumerate(session.documents):
+            sel = np.flatnonzero(packed.slice_doc == d_i)
+            if sel.size == 0:
+                continue
+            ids = tok_by_doc[d_i]
+            starts = packed.slice_start[sel]
+            lens = packed.slice_len[sel]
+            n_slices += int(sel.size)
+            # (slice, token) pairs: tf per occurrence, df once per slice
+            keys = []
+            for s0, ln, sid in zip(starts, lens, sel):
+                toks = ids[s0 : s0 + ln]
+                tf += np.bincount(toks, minlength=V)
+                keys.append(np.unique(toks))
+            for u in keys:
+                df[u] += 1.0
+        self._tf = tf
+        self._df = df
+        self._n_docs = max(n_slices, 1)
+        self._tf_idf = None
+
+    @property
+    def tf(self) -> np.ndarray:
+        return self._tf
+
+    @property
+    def df(self) -> np.ndarray:
+        return self._df
+
+    @property
+    def tf_idf(self) -> np.ndarray:
+        """tf * log(n_docs / (1 + df)) — vocabulary.cpp:72-81 (cached like
+        the reference's m_tf_idf_valid)."""
+        if self._tf_idf is None:
+            with np.errstate(divide="ignore"):
+                self._tf_idf = self._tf * np.log(
+                    self._n_docs / (1.0 + self._df)
+                )
+        return self._tf_idf
+
+    def _token_id(self, token: str) -> int:
+        # the session's normalization flavor applies, like word_vec
+        w = self._session.normalization.normalize_word(token)
+        return self._session.vocab.tokens.get(w) if w is not None else -1
+
+    def token_tf(self, token: str) -> float:
+        i = self._token_id(token)
+        return float(self._tf[i]) if i >= 0 else 0.0
+
+    def token_tf_idf(self, token: str) -> float:
+        i = self._token_id(token)
+        return float(self.tf_idf[i]) if i >= 0 else 0.0
+
+
+class Partition:
+    """A partition bound to a session (reference session.py:85-145)."""
+
+    def __init__(self, session: "Session", level: str, window_size: int, window_step: int):
+        self._session = session
+        self._spec = PartitionSpec(level, window_size, window_step)
+
+    @property
+    def session(self):
+        return self._session
+
+    @property
+    def spec(self) -> PartitionSpec:
+        return self._spec
+
+    @property
+    def level(self):
+        return self._spec.level
+
+    @property
+    def window_size(self):
+        return self._spec.window_size
+
+    @property
+    def window_step(self):
+        return self._spec.window_step
+
+    @property
+    def contiguous(self):
+        return self._spec.contiguous
+
+    @property
+    def freq(self) -> Frequencies:
+        # cached on the SESSION keyed by spec: session.partition() returns
+        # a fresh Partition each call, so an instance cache never hits
+        cache = getattr(self._session, "_freq_cache", None)
+        if cache is None:
+            cache = self._session._freq_cache = {}
+        key = self.spec
+        if key not in cache:
+            cache[key] = Frequencies(self._session, self)
+        return cache[key]
+
+    def index(self, span_sim, nlp=None, **kwargs):
+        """Create a searchable index over this partition (reference
+        session.py:134-142)."""
+        from vectorian_tpu_torch.sim.span import SpanSim
+        from vectorian_tpu_torch.sim.token import TokenSim
+        from vectorian_tpu_torch.sim.span import OptimizedSpanSim
+
+        if isinstance(span_sim, TokenSim):
+            span_sim = OptimizedSpanSim(span_sim)
+        if not isinstance(span_sim, SpanSim):
+            raise TypeError(f"expected SpanSim or TokenSim, got {span_sim!r}")
+        return span_sim.create_index(self, nlp=nlp, **kwargs)
+
+    def to_args(self):
+        return {
+            "level": self.level,
+            "window_size": self.window_size,
+            "window_step": self.window_step,
+        }
+
+
+class Session:
+    """An interactive search session (reference session.py:165-198).
+
+    ``device``: where the compiled embeddings, the packed corpus and every
+    corpus pass live — ``"cuda"`` (the default) needs a CUDA card and
+    raises without one; pass ``device="cpu"`` to run on the CPU.  The
+    buckets stay resident on the device (``paged`` mode is not ported)."""
+
+    def __init__(
+        self,
+        docs: Sequence[Document],
+        embeddings=(),
+        normalization=None,
+        nlp=None,
+        device="cuda",
+        paged=None,
+    ):
+        if paged:
+            raise NotImplementedError(
+                "paged mode is not ported yet (ROADMAP.md port queue item 8: "
+                "paged mode)"
+            )
+        self._device = torch.device(device)
+        if self._device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "Session(device='cuda') needs a CUDA device and none is "
+                "available; pass device='cpu' to run on the CPU"
+            )
+        if normalization is None:
+            normalization = VanillaNormalization()
+        self._normalization = normalization
+        self._nlp = nlp if nlp is not None else SimpleNLP()
+        self._vocab = Vocabulary()
+
+        self._embeddings = list(embeddings)
+        for emb in self._embeddings:
+            if not emb.is_static:
+                raise NotImplementedError(
+                    f"contextual embedding {emb.name!r}: not ported yet "
+                    "(ROADMAP.md port queue item 5: contextual, tree and "
+                    "span-embedding metrics)"
+                )
+
+        self._documents: List[PreparedDocument] = []
+        for i, doc in enumerate(_progress(list(docs), desc="preparing docs")):
+            self._documents.append(
+                prepare_document(doc, i, normalization, self._vocab)
+            )
+        self._reorder_vocab_by_frequency()
+
+        self._compiled: Dict[str, CompiledEmbedding] = {}
+        vocab_strings = self._vocab.tokens.strings
+        for emb in _progress(self._embeddings, desc="compiling embeddings"):
+            encoder = emb.create_encoder(normalization)
+            self._compiled[emb.name] = CompiledEmbedding(
+                emb.name, encoder, vocab_strings, device=self._device
+            )
+
+        self._packed_cache: Dict[PartitionSpec, PackedCorpus] = {}
+        self._engine_cache: Dict[PartitionSpec, BruteForceEngine] = {}
+
+    def _reorder_vocab_by_frequency(self):
+        """Assign token ids by descending corpus frequency (PAD stays 0):
+        a frequency-major id space keeps the corpus pass's table reads in a
+        small hot region of the similarity table on Zipf corpora.  Purely
+        an id relabeling — scores are unaffected."""
+        n = len(self._vocab.tokens)
+        if n <= 2:
+            return
+        counts = np.zeros((n,), np.int64)
+        for pd in self._documents:
+            if len(pd.token_ids):
+                counts += np.bincount(pd.token_ids, minlength=n)
+        old = np.arange(1, n)
+        # stable: count desc, then first-seen order
+        order = old[np.lexsort((old, -counts[1:]))]
+        perm = np.empty((n,), np.int32)
+        perm[0] = 0
+        perm[order] = np.arange(1, n, dtype=np.int32)
+        for pd in self._documents:
+            pd.token_ids = perm[pd.token_ids].astype(np.int32)
+        self._vocab.tokens.reorder(perm)
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    @property
+    def documents(self) -> List[PreparedDocument]:
+        return self._documents
+
+    @property
+    def vocab(self) -> Vocabulary:
+        return self._vocab
+
+    @property
+    def nlp(self):
+        return self._nlp
+
+    @property
+    def normalization(self):
+        return self._normalization
+
+    @property
+    def embeddings(self):
+        return self._embeddings
+
+    @property
+    def compiled_embeddings(self) -> Dict[str, CompiledEmbedding]:
+        return self._compiled
+
+    def partition(self, level: str = "sentence", window_size: int = 1, window_step: int = 1) -> Partition:
+        return Partition(self, level, window_size, window_step)
+
+    def packed_corpus(self, spec: PartitionSpec) -> PackedCorpus:
+        packed = self._packed_cache.get(spec)
+        if packed is None:
+            packed = pack_corpus(self._documents, spec)
+            self._packed_cache[spec] = packed
+        return packed
+
+    def engine(self, spec: PartitionSpec) -> BruteForceEngine:
+        eng = self._engine_cache.get(spec)
+        if eng is None:
+            eng = BruteForceEngine(self.packed_corpus(spec), self._device)
+            self._engine_cache[spec] = eng
+        return eng
+
+    # ---- introspection helpers (reference session.py:263-325) ----
+
+    def word_vec(self, embedding, word: str) -> np.ndarray:
+        comp = self._compiled.get(embedding.name)
+        if comp is None:
+            encoder = embedding.create_encoder(self._normalization)
+            return encoder.word_vec(word)
+        w = self._normalization.normalize_word(word)
+        return np.asarray(comp.encoder.word_vec(w if w else word))
+
+    def similarity(self, token_sim, a: str, b: str) -> float:
+        """Similarity of two words under a token sim spec."""
+        from vectorian_tpu_torch.embedding.vectors import Vectors
+        from vectorian_tpu_torch.sim.token import EmbeddingTokenSim
+
+        if isinstance(token_sim, EmbeddingTokenSim):
+            va = self.word_vec(token_sim.embedding, a)[None]
+            vb = self.word_vec(token_sim.embedding, b)[None]
+            out = token_sim.metric.compute(Vectors(va), Vectors(vb))
+            return float(out[0, 0])
+        raise TypeError(token_sim)
+
+    def run_query(self, find, query):
+        start = time.time()
+        matches = find(query)
+        return Result(None, matches, time.time() - start)
