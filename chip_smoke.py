@@ -7,22 +7,30 @@ Phases, each of which raises on failure:
 
 1. Device: a CUDA card must be present; prints its name and power limit.
 2. Build: compiles every kernel of the port from the checkout's sources
-   (csrc/*.cu, one nvcc per source, all started together) and the native
-   host library (native/, used by the traceback).
-3. Kernels against their plain torch versions on the card, at main-path
-   shapes (random tables and tokens from a seeded generator): the affine
-   DP kernel must match bit for bit (max |diff| == 0).
+   (csrc/*.cu, one nvcc per source, all started together; prints each
+   ptxas report) and the native host library (native/, the traceback).
+3. Kernels against their plain torch versions on the card (random tables,
+   tokens and costs from a seeded generator), bit for bit (torch.equal):
+   the affine corpus kernel, the WSB corpus kernel (shared-memory rows and,
+   at one long bucket, the scratch route), and the two flat-batch kernels
+   of the score-only rescore, each in 3 localities and 2 gap models.
 4. Main path at real size: a 1,000,000-sentence Zipf corpus (9 tokens a
    sentence over 5,000 words, a 5,000 x 300 KeyedVectors), Session(device=
    "cuda") -> partition("sentence") -> index; find_batch of 32 queries and
-   21 find() calls.  The kernel launch counts are set to 0 right before and
-   read right after; find and find_batch must be byte-identical.  Then the
-   port on the card is held against the port on the CPU on a small corpus.
+   21 find() calls, under an affine index (4) and, on the same packing,
+   under LocalAlignment(ExponentialGapCost(3.0)) (4b).  The launch counts
+   are set to 0 right before each and read right after; find and
+   find_batch must be byte-identical.  4c: a small corpus of repeated
+   sentences whose ties make every cut unsafe, so the finalizer's extras
+   round runs the flat kernels (affine and general index), held against
+   the port on the CPU.
+5. The port on the card against the port on the CPU on a small corpus,
+   affine and general-gap indexes.
 
 Prints one JSON line per phase, the card's name and power limit, the
 kernels' line ({"kernels": [...]}) and, last, {"ok": true, "device": ...}.
-A torch.profiler trace of one find_batch and one find reports the device
-busy time, idle share and top kernels.
+torch.profiler traces of one find_batch and one find per main path report
+the device busy time, idle share and top kernels.
 """
 
 import concurrent.futures
@@ -41,6 +49,13 @@ PEAK_BYTES = 3.35e12
 SEED = 0
 DEVICE = "cuda"
 SENTENCES = 1_000_000  # the bench.py e2e corpus size
+# phase 3 sizes of the general-gap kernels: problems a corpus-pass shape,
+# slices of the long (scratch-route) bucket, and flat batch size — the
+# plain versions finish in seconds on the card at these
+WSB_PROBLEMS = 262_144
+WSB_LONG_SLICES = 256
+FLAT_B = 65_536
+LOCALITIES = ("local", "global", "semiglobal")
 
 
 def log(msg):
@@ -70,11 +85,12 @@ def phase_build():
 
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        kernel = pool.submit(dp_kernels.build, True)  # prints the ptxas report
+        kernels = pool.submit(dp_kernels.build, True)  # prints ptxas reports
         host = pool.submit(native.available)
-        lib = kernel.result()
+        libs = kernels.result()
         native_ok = host.result()
-    emit({"phase": "build", "library": str(lib.relative_to(ROOT)),
+    emit({"phase": "build",
+          "libraries": {k: str(v.relative_to(ROOT)) for k, v in libs.items()},
           "native_traceback": bool(native_ok),
           "seconds": time.perf_counter() - t0})
 
@@ -92,12 +108,25 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def _bound(nbytes, ops):
+    """(ms, "bytes" | "operations"): the larger of bytes over the HBM rate
+    and f32 operations over the f32 peak."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_F32_OPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _affine_row_ops(lt):
+    """f32 operations of one affine DP row against a needle of ``lt``
+    tokens: 8 + 2 * ceil(log2(columns)) per cell."""
+    return (lt + 1) * (8 + 2 * math.ceil(math.log2(lt + 1)))
+
+
 def dp_bound_ms(tokens, len_s, len_t, table):
-    """Least time for the affine DP on these inputs: bytes (each input read
-    once, the [n, Q] output written once) over the HBM rate, against the
-    f32 operations the data needs — rows up to each slice's length, columns
-    up to each needle's length, 8 + 2 * ceil(log2(columns)) per cell —
-    over the f32 peak.  Returns (ms, "bytes" | "operations")."""
+    """Least time for the affine corpus DP on these inputs: bytes (each
+    input read once, the [n, Q] output written once) against the f32
+    operations the data needs — rows up to each slice's length, columns up
+    to each needle's length."""
     n, L = tokens.shape
     Q = table.shape[2]
     nbytes = (
@@ -105,12 +134,80 @@ def dp_bound_ms(tokens, len_s, len_t, table):
         + table.numel() * 4 + n * Q * 4
     )
     rows = int(len_s.clamp(1, L).sum())
-    per_row = sum(
-        (lt + 1) * (8 + 2 * math.ceil(math.log2(lt + 1))) for lt in len_t.tolist()
+    per_row = sum(_affine_row_ops(lt) for lt in len_t.tolist())
+    return _bound(nbytes, rows * per_row)
+
+
+def affine_flat_bound_ms(S, len_s, len_t):
+    """The same reckoning for the flat affine DP: S [B, L, T] read once."""
+    import torch
+
+    B, L, _ = S.shape
+    nbytes = S.numel() * 4 + B * 12
+    rows = len_s.clamp(0, L).double()
+    lt = len_t.double()
+    per_row = (lt + 1) * (8 + 2 * torch.ceil(torch.log2(lt + 1)))
+    return _bound(nbytes, float((rows * per_row).sum()))
+
+
+def _wsb_ops(rows, lt):
+    """f32 operations of WSB problems with ``rows`` DP rows against needles
+    of ``lt`` tokens: the cell at row i, column j pays 2 * i vertical and
+    2 * j horizontal candidates and ~4 for the diagonal, the clamp and the
+    row max."""
+    return lt * rows * (rows + 1) + rows * lt * (lt + 1) + 4 * rows * lt
+
+
+def wsb_bound_ms(tokens, len_s, len_t, table):
+    """Least time for the WSB corpus DP on these inputs (bytes: token ids,
+    lengths and table in, [n, Q] scores out)."""
+    n, L = tokens.shape
+    Q = table.shape[2]
+    nbytes = (
+        tokens.numel() * 4 + len_s.numel() * 4 + len_t.numel() * 4
+        + table.numel() * 4 + n * Q * 4
     )
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = rows * per_row / PEAK_F32_OPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    rows = len_s.clamp(1, L).double()
+    lt = len_t.double()
+    ops = (
+        float((rows * (rows + 1)).sum()) * float(lt.sum())
+        + float(rows.sum()) * float((lt * (lt + 1)).sum())
+        + 4 * float(rows.sum()) * float(lt.sum())
+    )
+    return _bound(nbytes, ops)
+
+
+def wsb_flat_bound_ms(S, len_s, len_t):
+    B, L, _ = S.shape
+    nbytes = S.numel() * 4 + B * 12
+    ops = float(_wsb_ops(len_s.clamp(0, L).double(), len_t.double()).sum())
+    return _bound(nbytes, ops)
+
+
+def _gap_models(rng):
+    """The two WSB cost models of phase 3: ExponentialGapCost(3.0) and a
+    seeded random non-decreasing CustomGapCost."""
+    import numpy as np
+
+    from vectorian_tpu_torch.alignment import CustomGapCost, ExponentialGapCost
+
+    steps = np.cumsum(rng.uniform(0.0, 0.35, size=2048)).astype(np.float32)
+    return {
+        "exponential": ExponentialGapCost(3.0),
+        "custom": CustomGapCost(lambda k: float(steps[int(k)])),
+    }
+
+
+def _check_equal(name, got, want, shape):
+    import torch
+
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: non-finite scores at {shape}")
+    diff = float((got - want).abs().max()) if got.numel() else 0.0
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name} != plain at {shape}: max |diff| {diff}")
+    return diff
 
 
 def phase_kernels():
@@ -138,21 +235,14 @@ def phase_kernels():
                 lt = rng.integers(1, Tpad + 1, size=Q).astype(np.int32)
                 lt[0] = Tpad
                 len_t = torch.as_tensor(lt, device=dev)
-                for loc in ("local", "global", "semiglobal"):
+                for loc in LOCALITIES:
                     for gs in gapsets:
                         gaps = AffineGapParams.of(*gs)
                         got = dp_kernels.affine_dp_scores(table, tokens, len_s, len_t, gaps, loc)
                         want = dp_kernels.affine_dp_scores_reference(
                             table, tokens, len_s, len_t, gaps, loc)
-                        torch.cuda.synchronize()
-                        if not bool(torch.isfinite(got).all()):
-                            raise AssertionError(f"non-finite scores {L} {Tpad} {Q} {loc}")
-                        diff = float((got - want).abs().max())
-                        if not torch.equal(got, want):
-                            raise AssertionError(
-                                f"affine_dp != plain at L={L} Tpad={Tpad} Q={Q} "
-                                f"{loc} gaps={gs}: max |diff| {diff}")
-                        worst = max(worst, diff)
+                        worst = max(worst, _check_equal(
+                            "affine_dp", got, want, (L, Tpad, Q, loc, gs)))
                 gaps = AffineGapParams.of(*gapsets[1])
                 ms = cuda_ms(lambda: dp_kernels.affine_dp_scores(
                     table, tokens, len_s, len_t, gaps, "local"), 10)
@@ -163,6 +253,106 @@ def phase_kernels():
                       "Tpad": Tpad, "Q": Q, "localities": 3, "gapsets": len(gapsets),
                       "max_abs_diff": 0.0, "kernel_ms": ms, "plain_ms": plain_ms,
                       "bound_ms": bound, "bound_by": by})
+    return worst
+
+
+def _wsb_vectors(gap_cost, L, T):
+    import torch
+
+    from vectorian_tpu_torch.ops.search import GeneralGaps
+
+    gg = GeneralGaps((gap_cost, gap_cost), T + 1, torch.device(DEVICE))
+    return gg.vecs(L)
+
+
+def phase_kernels_general():
+    """wsb_dp (corpus entry) and the two flat-batch kernels against their
+    plain versions; returns {name: worst |diff|}."""
+    import numpy as np
+    import torch
+
+    from vectorian_tpu_torch.ops import dp_kernels
+    from vectorian_tpu_torch.ops.alignment import AffineGapParams
+
+    rng = np.random.default_rng(SEED + 2)
+    models = _gap_models(rng)
+    worst = {"wsb_dp": 0.0, "wsb_dp_flat": 0.0, "affine_dp_flat": 0.0}
+    V = 5_000
+    # ~262k problems a shape keeps the plain scan to seconds; the last shape
+    # is a long bucket whose rows take the scratch route
+    shapes = [(L, T, Q) for L in (16, 32, 64) for T in (8, 16) for Q in (1, 32)]
+    shapes.append((256, 64, 32))
+    for L, Tpad, Q in shapes:
+        n = WSB_LONG_SLICES if L >= 256 else max(WSB_PROBLEMS // Q, 1)
+        table = torch.as_tensor(
+            rng.uniform(-0.4, 1.0, size=(V, Tpad, Q)).astype(np.float32), device=DEVICE)
+        tokens = torch.as_tensor(rng.integers(0, V, size=(n, L)).astype(np.int32), device=DEVICE)
+        ln = rng.integers(0, L + 1, size=n).astype(np.int32)
+        ln[:2] = (0, L)
+        len_s = torch.as_tensor(ln, device=DEVICE)
+        lt = rng.integers(1, Tpad + 1, size=Q).astype(np.int32)
+        lt[0] = Tpad
+        len_t = torch.as_tensor(lt, device=DEVICE)
+        _, _, smem, floats = dp_kernels.wsb_launch_plan(n * Q, L, Tpad)
+        for name, model in models.items():
+            vecs = _wsb_vectors(model, L, Tpad)
+            for loc in LOCALITIES:
+                got = dp_kernels.wsb_dp_scores(table, tokens, len_s, len_t, *vecs, loc)
+                want = dp_kernels.wsb_dp_scores_reference(
+                    table, tokens, len_s, len_t, *vecs, loc)
+                worst["wsb_dp"] = max(worst["wsb_dp"], _check_equal(
+                    "wsb_dp", got, want, (n, L, Tpad, Q, loc, name)))
+        vecs = _wsb_vectors(models["exponential"], L, Tpad)
+        ms = cuda_ms(lambda: dp_kernels.wsb_dp_scores(
+            table, tokens, len_s, len_t, *vecs, "local"), 5)
+        plain_ms = cuda_ms(lambda: dp_kernels.wsb_dp_scores_reference(
+            table, tokens, len_s, len_t, *vecs, "local"), 1)
+        bound, by = wsb_bound_ms(tokens, len_s, len_t, table)
+        emit({"phase": "kernel", "name": "wsb_dp", "n": n, "L": L, "Tpad": Tpad,
+              "Q": Q, "rows_in": "scratch" if floats else "shared",
+              "shared_bytes": smem, "localities": 3, "gap_models": len(models),
+              "max_abs_diff": 0.0, "kernel_ms": ms, "plain_ms": plain_ms,
+              "bound_ms": bound, "bound_by": by})
+
+    B = FLAT_B
+    gapsets = [(0.0, 0.0, 0.0, 0.0), (0.37, 0.113, 0.29, 0.071)]
+    for L in (16, 32):
+        for T in (8, 16):
+            S = torch.as_tensor(
+                rng.uniform(-0.4, 1.0, size=(B, L, T)).astype(np.float32), device=DEVICE)
+            ln = rng.integers(0, L + 1, size=B).astype(np.int32)
+            ln[:2] = (0, L)  # len_s == 0 passes unclamped, as the rescore does
+            len_s = torch.as_tensor(ln, device=DEVICE)
+            len_t = torch.as_tensor(rng.integers(1, T + 1, size=B).astype(np.int32), device=DEVICE)
+            for loc in LOCALITIES:
+                for name, model in models.items():
+                    vecs = _wsb_vectors(model, L, T)
+                    got = dp_kernels.wsb_dp_scores_flat(S, len_s, len_t, *vecs, loc)
+                    want = dp_kernels.wsb_dp_scores_flat_reference(S, len_s, len_t, *vecs, loc)
+                    worst["wsb_dp_flat"] = max(worst["wsb_dp_flat"], _check_equal(
+                        "wsb_dp_flat", got, want, (B, L, T, loc, name)))
+                for gs in gapsets:
+                    gaps = AffineGapParams.of(*gs)
+                    got = dp_kernels.affine_dp_scores_flat(S, len_s, len_t, gaps, loc)
+                    want = dp_kernels.affine_dp_scores_flat_reference(S, len_s, len_t, gaps, loc)
+                    worst["affine_dp_flat"] = max(worst["affine_dp_flat"], _check_equal(
+                        "affine_dp_flat", got, want, (B, L, T, loc, gs)))
+            vecs = _wsb_vectors(models["exponential"], L, T)
+            gaps = AffineGapParams.of(*gapsets[1])
+            for name, run, plain, bound in (
+                ("wsb_dp_flat",
+                 lambda: dp_kernels.wsb_dp_scores_flat(S, len_s, len_t, *vecs, "local"),
+                 lambda: dp_kernels.wsb_dp_scores_flat_reference(S, len_s, len_t, *vecs, "local"),
+                 wsb_flat_bound_ms(S, len_s, len_t)),
+                ("affine_dp_flat",
+                 lambda: dp_kernels.affine_dp_scores_flat(S, len_s, len_t, gaps, "local"),
+                 lambda: dp_kernels.affine_dp_scores_flat_reference(S, len_s, len_t, gaps, "local"),
+                 affine_flat_bound_ms(S, len_s, len_t)),
+            ):
+                emit({"phase": "kernel", "name": name, "B": B, "L": L, "T": T,
+                      "localities": 3, "max_abs_diff": 0.0,
+                      "kernel_ms": cuda_ms(run, 10), "plain_ms": cuda_ms(plain, 1),
+                      "bound_ms": bound[0], "bound_by": bound[1]})
     return worst
 
 
@@ -193,14 +383,25 @@ def zipf_corpus(n_sents, rng):
     return words, texts, query
 
 
-def build_index(texts, words, vectors, device):
+def build_session(texts, words, vectors, device):
     import vectorian_tpu_torch as vt
-    from vectorian_tpu_torch.metrics import EmbeddingTokenSim
 
     emb = vt.KeyedVectors("syn", words, vectors)
     docs = [vt.StringImporter()(t, title=f"d{i}") for i, t in enumerate(texts)]
-    session = vt.Session(docs, embeddings=[emb], device=device)
-    return session.partition("sentence").index(EmbeddingTokenSim(emb))
+    return vt.Session(docs, embeddings=[emb], device=device)
+
+
+def make_index(session, gap=None):
+    """Local alignment over the session's sentences: zero affine gaps (the
+    default) or the given gap cost model."""
+    from vectorian_tpu_torch.alignment import LocalAlignment
+    from vectorian_tpu_torch.metrics import EmbeddingTokenSim, OptimizedSpanSim
+
+    emb = session.embeddings[0]
+    if gap is None:
+        return session.partition("sentence").index(EmbeddingTokenSim(emb))
+    return session.partition("sentence").index(
+        OptimizedSpanSim(EmbeddingTokenSim(emb), LocalAlignment(gap)))
 
 
 def pairs(result):
@@ -237,58 +438,51 @@ def profile_calls(label, fn):
               [e.key[:70], e.self_device_time_total / 1e3, e.count] for e in top]})
 
 
-def phase_main_path(n_sents, card):
+def drive_main_path(index, queries, finds, kernel, label, card, n_sents):
+    """find_batch of the queries and one find per ``finds`` entry, with the
+    launch counts set to 0 right before and read right after; ``kernel``
+    must launch in find_batch and in every find.  Then the warm
+    find_batch timings, find == find_batch, and the two profiles."""
     import numpy as np
-    import torch
 
     from vectorian_tpu_torch.ops import dp_kernels
-    from vectorian_tpu_torch.ops.search import stack_query_tables
 
-    rng = np.random.default_rng(SEED)
-    words, texts, query = zipf_corpus(n_sents, rng)
-    vectors = rng.normal(size=(len(words), 300)).astype(np.float32)
-    t0 = time.perf_counter()
-    index = build_index(texts, words, vectors, DEVICE)
+    Q, n, min_score = len(queries), 10, 0.2
     n_slices = index.packed.n_slices
-    t_build = time.perf_counter() - t0
-    log(f"host build {t_build:.1f} s, {n_slices} slices")
-    Q, n, min_score = 32, 10, 0.2
-    queries = [query() for _ in range(Q)]
-    finds = [query() for _ in range(21)]
-
     # ---- the main path: launch counts from 0, read right after ----
     dp_kernels.reset_launches()
     batch = index.find_batch(queries, n=n, min_score=min_score, sim_precision="float32")
-    launches_batch = dp_kernels.LAUNCHES["affine_dp"]
+    launches_batch = dp_kernels.LAUNCHES[kernel]
     if launches_batch == 0:
-        raise AssertionError("find_batch launched no affine_dp kernel")
+        raise AssertionError(f"{label}: find_batch launched no {kernel} kernel")
     lats = []
     for q in finds:
+        before = dp_kernels.LAUNCHES[kernel]
         t = time.perf_counter()
         r = index.find(q, n=n, min_score=min_score)
         lats.append(time.perf_counter() - t)
+        if dp_kernels.LAUNCHES[kernel] == before:
+            raise AssertionError(f"{label}: a find launched no {kernel} kernel")
         check_results([r], n, min_score)
-    launches_find = dp_kernels.LAUNCHES["affine_dp"] - launches_batch
-    if launches_find == 0:
-        raise AssertionError("find launched no affine_dp kernel")
+    launches_find = dp_kernels.LAUNCHES[kernel] - launches_batch
     pass_times = []
     for _ in range(3):
         t = time.perf_counter()
         batch = index.find_batch(queries, n=n, min_score=min_score, sim_precision="float32")
         pass_times.append(time.perf_counter() - t)
     singles = [pairs(index.find(q, n=n, min_score=min_score)) for q in queries[:8]]
-    launches = dp_kernels.LAUNCHES["affine_dp"]
+    launches = dict(dp_kernels.LAUNCHES)
     # ---- end of the main path ----
 
     check_results(batch, n, min_score)
     if not any(len(r) for r in batch):
-        raise AssertionError("find_batch returned no matches at all")
+        raise AssertionError(f"{label}: find_batch returned no matches at all")
     if singles != [pairs(r) for r in batch[:8]]:
-        raise AssertionError("find and find_batch differ")
+        raise AssertionError(f"{label}: find and find_batch differ")
     dt_batch = float(np.median(pass_times))
     emit({
-        "phase": "main_path", "card": card, "sentences": n_sents,
-        "slices": n_slices, "host_build_s": t_build,
+        "phase": label, "card": card, "sentences": n_sents,
+        "slices": n_slices,
         "find_p50_ms": float(np.percentile(np.asarray(lats) * 1e3, 50)),
         "find_batch_Q": Q, "find_batch_s": dt_batch,
         "alignments_per_s": n_slices * Q / dt_batch,
@@ -297,57 +491,179 @@ def phase_main_path(n_sents, card):
         "launches": launches,
         "find_equals_find_batch": True,
     })
-    profile_calls("find_batch_Q32", lambda: index.find_batch(
+    profile_calls(f"{label}:find_batch_Q{Q}", lambda: index.find_batch(
         queries, n=n, min_score=min_score, sim_precision="float32"))
-    profile_calls("find", lambda: index.find(finds[0], n=n, min_score=min_score))
+    profile_calls(f"{label}:find", lambda: index.find(finds[0], n=n, min_score=min_score))
+    return launches[kernel]
 
-    # kernel vs plain at the shapes the main path gave the kernel (the
-    # Q=32 batch over every bucket); these launches are not counted
+
+def phase_main_path(session, gap, label, queries, finds, card, n_sents):
+    """4 (``gap`` None: zero affine gaps, affine_dp) and 4b (a non-affine
+    ``gap``, wsb_dp) on the session's packing; returns the kernel's numbers
+    at the shapes the main path gave it (the Q=32 batch over every
+    bucket)."""
+    import numpy as np
+    import torch
+
+    from vectorian_tpu_torch.ops import dp_kernels
+    from vectorian_tpu_torch.ops.search import GeneralGaps, stack_query_tables
+
+    index = make_index(session, gap)
+    kernel = "affine_dp" if gap is None else "wsb_dp"
+    launches = drive_main_path(index, queries, finds, kernel, label, card, n_sents)
     engine = index._engine
-    _, plans, len_ts, _ = index._prepare_static_batch(queries, n, min_score, {})
-    table, _ = stack_query_tables(plans, len_ts)
+    _, plans, len_ts, _ = index._prepare_static_batch(queries, 10, 0.2, {})
+    table, Tpad = stack_query_tables(plans, len_ts)
     lt = torch.as_tensor(np.asarray(len_ts, np.int32), device=DEVICE)
+    if gap is None:
+        run, plain = dp_kernels.affine_dp_scores, dp_kernels.affine_dp_scores_reference
+        bound_fn, reps = dp_bound_ms, 20
+    else:
+        general = GeneralGaps(index._gap_costs, Tpad + 1, torch.device(DEVICE))
+        run, plain = dp_kernels.wsb_dp_scores, dp_kernels.wsb_dp_scores_reference
+        bound_fn, reps = wsb_bound_ms, 5
     ms = plain_ms = bound = 0.0
     worst = 0.0
     by = "operations"
     for db in engine._device_buckets:
-        args = (table, db["tokens"], db["lengths"], lt, index._gaps, "local")
-        got = dp_kernels.affine_dp_scores(*args)
-        want = dp_kernels.affine_dp_scores_reference(*args)
-        if not torch.equal(got, want):
-            raise AssertionError("affine_dp != plain at the main-path shapes")
-        worst = max(worst, float((got - want).abs().max()))
-        ms += cuda_ms(lambda: dp_kernels.affine_dp_scores(*args), 20)
-        plain_ms += cuda_ms(lambda: dp_kernels.affine_dp_scores_reference(*args), 1)
-        b, by = dp_bound_ms(db["tokens"], db["lengths"], lt, table)
+        costs = ((index._gaps,) if gap is None
+                 else general.vecs(db["capacity"]))
+        args = (table, db["tokens"], db["lengths"], lt, *costs, "local")
+        worst = max(worst, _check_equal(kernel, run(*args), plain(*args), "main-path shapes"))
+        ms += cuda_ms(lambda: run(*args), reps)
+        plain_ms += cuda_ms(lambda: plain(*args), 1)
+        b, by = bound_fn(db["tokens"], db["lengths"], lt, table)
         bound += b
-    shapes = [[int(db["n"]), int(db["capacity"]), int(table.shape[1]), Q]
+    shapes = [[int(db["n"]), int(db["capacity"]), int(table.shape[1]), len(queries)]
               for db in engine._device_buckets]
-    return launches, worst, ms, plain_ms, bound, by, shapes
+    return {"launches": launches, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "shapes_n_L_Tpad_Q": shapes}
+
+
+def compare_with_cpu(label, a, b):
+    """Card results ``a`` against CPU results ``b``: the same matches, the
+    scores within 1e-6 relative (the [V, T] GEMM sums in another order on
+    the card), ids swapped only inside that tolerance."""
+    worst = 0.0
+    for ra, rb in zip(a, b):
+        if len(ra) != len(rb):
+            raise AssertionError(f"{label}: card and CPU return different match counts")
+        for (ia, sa), (ib, sb) in zip(ra, rb):
+            err = abs(sa - sb)
+            worst = max(worst, err)
+            if err > 1e-6 * max(1.0, abs(sb)) or (ia != ib and err > 1e-6):
+                raise AssertionError(f"{label}: card {ra} != CPU {rb}")
+    return worst
+
+
+def duplicates_corpus(rng):
+    """3,000 sentences of the Zipf vocabulary, 1,400 of them copies of two
+    sentences: every query near them ties far past the fused top-k's deep
+    fetch, so its cut is unsafe and the extras round runs."""
+    words, _, query = zipf_corpus(2_000, rng)
+    a = " ".join(words[i] for i in (3, 17, 5, 40, 8, 2, 99, 11, 6))
+    b = " ".join(words[i] for i in (7, 1, 13, 4, 250, 9, 12, 0, 31))
+    sents = [a] * 700 + [b] * 700 + [query() for _ in range(1_600)]
+    rng.shuffle(sents)
+    texts = [". ".join(sents[i : i + 500]) + "." for i in range(0, len(sents), 500)]
+    queries = [a, b, " ".join(a.split()[:5]), " ".join(b.split()[2:])] + [
+        query() for _ in range(8)]
+    return words, texts, queries
+
+
+def phase_rescore(card):
+    """4c: the finalizer's score-only rescore on the card (flat kernels)
+    under an affine and a general-gap index, against the port on the CPU;
+    returns per flat kernel its launches and the inputs the path gave it."""
+    import numpy as np
+
+    from vectorian_tpu_torch.alignment import ExponentialGapCost
+    from vectorian_tpu_torch.ops import dp_kernels, search
+
+    rng = np.random.default_rng(SEED + 3)
+    words, texts, queries = duplicates_corpus(rng)
+    vectors = rng.normal(size=(len(words), 300)).astype(np.float32)
+    on_card = build_session(texts, words, vectors, DEVICE)
+    on_cpu = build_session(texts, words, vectors, "cpu")
+    out = {}
+    for kernel, wrapper, gap in (
+        ("affine_dp_flat", "affine_dp_scores_flat", None),
+        ("wsb_dp_flat", "wsb_dp_scores_flat", ExponentialGapCost(3.0)),
+    ):
+        idx_card, idx_cpu = make_index(on_card, gap), make_index(on_cpu, gap)
+        real = getattr(search, wrapper)
+        seen = []
+
+        def record(*args, real=real, seen=seen):
+            seen.append(args)
+            return real(*args)
+
+        n, min_score = 10, 0.1
+        setattr(search, wrapper, record)
+        try:
+            # ---- the main path: launch counts from 0, read right after ----
+            dp_kernels.reset_launches()
+            got_f = [pairs(idx_card.find(q, n=n, min_score=min_score)) for q in queries[:4]]
+            got_b = [pairs(r) for r in idx_card.find_batch(queries, n=n, min_score=min_score)]
+            launches = dp_kernels.LAUNCHES[kernel]
+            # ---- end of the main path ----
+        finally:
+            setattr(search, wrapper, real)
+        if launches == 0:
+            raise AssertionError(f"rescore: the extras round launched no {kernel} kernel")
+        want_f = [pairs(idx_cpu.find(q, n=n, min_score=min_score)) for q in queries[:4]]
+        want_b = [pairs(r) for r in idx_cpu.find_batch(queries, n=n, min_score=min_score)]
+        worst = max(compare_with_cpu(f"rescore {kernel}", got_f, want_f),
+                    compare_with_cpu(f"rescore {kernel}", got_b, want_b))
+        if got_b[:4] != got_f:
+            raise AssertionError(f"rescore {kernel}: find and find_batch differ")
+        emit({"phase": "rescore", "kernel": kernel, "launches": launches,
+              "calls": len(seen), "batch_shapes": [list(a[0].shape) for a in seen],
+              "max_abs_score_diff_vs_cpu": worst, "card": card})
+        out[kernel] = (launches, seen)
+    return out
+
+
+def time_flat_calls(kernel, calls):
+    """Kernel vs plain on the card at the inputs the main path gave a flat
+    kernel: (max |diff|, ms, plain ms, bound ms, bound_by), summed over the
+    calls."""
+    from vectorian_tpu_torch.ops import dp_kernels
+
+    run = getattr(dp_kernels, "wsb_dp_scores_flat" if kernel == "wsb_dp_flat"
+                  else "affine_dp_scores_flat")
+    plain = getattr(dp_kernels, run.__name__ + "_reference")
+    bound_fn = wsb_flat_bound_ms if kernel == "wsb_dp_flat" else affine_flat_bound_ms
+    worst = ms = plain_ms = bound = 0.0
+    by = "operations"
+    for args in calls:
+        worst = max(worst, _check_equal(kernel, run(*args), plain(*args), "main-path shapes"))
+        ms += cuda_ms(lambda: run(*args), 20)
+        plain_ms += cuda_ms(lambda: plain(*args), 1)
+        b, by = bound_fn(*args[:3])
+        bound += b
+    return worst, ms, plain_ms, bound, by
 
 
 def phase_small_reference():
-    """The port on the card against the port on the CPU, small corpus."""
+    """The port on the card against the port on the CPU, small corpus,
+    affine and general-gap indexes."""
     import numpy as np
+
+    from vectorian_tpu_torch.alignment import ExponentialGapCost
 
     rng = np.random.default_rng(SEED + 1)
     words, texts, query = zipf_corpus(4_000, rng)
     vectors = rng.normal(size=(len(words), 300)).astype(np.float32)
     qs = [query() for _ in range(8)]
-    on_card = build_index(texts, words, vectors, DEVICE)
-    on_cpu = build_index(texts, words, vectors, "cpu")
-    a = [pairs(r) for r in on_card.find_batch(qs, n=10, min_score=0.1)]
-    b = [pairs(r) for r in on_cpu.find_batch(qs, n=10, min_score=0.1)]
-    worst = 0.0
-    for ra, rb in zip(a, b):
-        if len(ra) != len(rb):
-            raise AssertionError("card and CPU return different match counts")
-        for (ia, sa), (ib, sb) in zip(ra, rb):
-            err = abs(sa - sb)
-            worst = max(worst, err)
-            # the [V, T] GEMM sums in another order on the card: 1e-6 relative
-            if err > 1e-6 * max(1.0, abs(sb)) or (ia != ib and err > 1e-6):
-                raise AssertionError(f"card {ra} != CPU {rb}")
+    on_card = build_session(texts, words, vectors, DEVICE)
+    on_cpu = build_session(texts, words, vectors, "cpu")
+    worst = {}
+    for label, gap in (("affine", None), ("general", ExponentialGapCost(3.0))):
+        a = [pairs(r) for r in make_index(on_card, gap).find_batch(qs, n=10, min_score=0.1)]
+        b = [pairs(r) for r in make_index(on_cpu, gap).find_batch(qs, n=10, min_score=0.1)]
+        worst[label] = compare_with_cpu(f"small reference {label}", a, b)
     emit({"phase": "small_reference", "queries": len(qs),
           "max_abs_score_diff_vs_cpu": worst})
 
@@ -356,8 +672,10 @@ def main():
     if not (ROOT / "vectorian_tpu_torch" / "csrc" / "affine_dp.cu").exists():
         raise SystemExit("chip_smoke: run from a checkout of the repository")
     sys.path.insert(0, str(ROOT))
+    import numpy as np
     import torch
 
+    t_start = time.perf_counter()
     card = phase_device()
     kind = torch.cuda.get_device_name(0)
     log(f"device {card}")
@@ -366,19 +684,64 @@ def main():
     phase_build()
     log("built")
     worst = phase_kernels()
+    worst_general = phase_kernels_general()
     log("kernels match their plain versions")
-    launches, worst_mp, ms, plain_ms, bound, by, shapes = phase_main_path(
-        SENTENCES, card)
+
+    rng = np.random.default_rng(SEED)
+    words, texts, query = zipf_corpus(SENTENCES, rng)
+    vectors = rng.normal(size=(len(words), 300)).astype(np.float32)
+    t0 = time.perf_counter()
+    session = build_session(texts, words, vectors, DEVICE)
+    n_slices = make_index(session).packed.n_slices
+    t_build = time.perf_counter() - t0
+    emit({"phase": "host_build", "sentences": SENTENCES, "slices": n_slices,
+          "host_build_s": t_build})
+    log(f"host build {t_build:.1f} s, {n_slices} slices")
+    queries = [query() for _ in range(32)]
+    finds = [query() for _ in range(21)]
+    from vectorian_tpu_torch.alignment import ExponentialGapCost
+
+    affine = phase_main_path(session, None, "main_path", queries, finds, card, SENTENCES)
     log("main path done")
+    general = phase_main_path(session, ExponentialGapCost(3.0), "general_path",
+                              queries, finds, card, SENTENCES)
+    log("general-gap main path done")
+    del session
+    rescore = phase_rescore(card)
+    log("rescore path done")
     phase_small_reference()
-    emit({"kernels": [{
-        "name": "affine_dp", "route": "cuda",
-        "source": "vectorian_tpu_torch/csrc/affine_dp.cu",
-        "replaces": "vectorian_tpu/ops/pallas_dp.py:369",
-        "launches": launches, "max_abs_err": max(worst, worst_mp),
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-        "library_ms": None, "shapes_n_L_Tpad_Q": shapes, "card": card,
-    }]})
+
+    kernels = []
+    for name, source, replaces, res, worst_p3 in (
+        ("affine_dp", "affine_dp.cu", "vectorian_tpu/ops/pallas_dp.py:369",
+         affine, worst),
+        ("wsb_dp", "wsb_dp.cu", "vectorian_tpu/ops/pallas_dp.py:155",
+         general, worst_general["wsb_dp"]),
+    ):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"vectorian_tpu_torch/csrc/{source}", "replaces": replaces,
+            "launches": res["launches"], "max_abs_err": max(worst_p3, res["max_abs_err"]),
+            "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"], "library_ms": None,
+            "shapes_n_L_Tpad_Q": res["shapes_n_L_Tpad_Q"], "card": card,
+        })
+    for name, source, replaces in (
+        ("affine_dp_flat", "affine_dp.cu", "vectorian_tpu/ops/pallas_dp.py:44"),
+        ("wsb_dp_flat", "wsb_dp.cu", "vectorian_tpu/ops/pallas_dp.py:155"),
+    ):
+        launches, calls = rescore[name]
+        err, ms, plain_ms, bound, by = time_flat_calls(name, calls)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"vectorian_tpu_torch/csrc/{source}", "replaces": replaces,
+            "launches": launches, "max_abs_err": max(err, worst_general[name]),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None,
+            "shapes_B_L_T": [list(a[0].shape) for a in calls], "card": card,
+        })
+    log(f"done in {time.perf_counter() - t_start:.0f} s")
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
 

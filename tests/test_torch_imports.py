@@ -43,6 +43,12 @@ r = index.find("the sun shines over the sea", n=3)
 j = r[0].to_json()
 assert j["slice"] == 0 and j["score"] > 0.8, j
 assert [m.slice_id for m in index.find_batch(["the sun shines"], n=3)[0]] == [0]
+from vectorian_tpu_torch.alignment import ExponentialGapCost
+general = session.partition("sentence").index(
+    OptimizedSpanSim(EmbeddingTokenSim(emb), LocalAlignment(ExponentialGapCost(3.0)))
+)
+jg = general.find("the sun over the sea", n=3)[0].to_json()
+assert jg["slice"] == 0 and any("gap_penalty" in r for r in jg["regions"]), jg
 assert not [k for k in sys.modules if k == "jax" or k.startswith("jax.")
             if sys.modules[k] is not None]
 print("DRIVE_OK", j["score"])

@@ -4,8 +4,9 @@ A toy corpus (the verify-skill drive plus a few hundred random Zipf
 sentences) goes through both packages on the CPU: the carried state must be
 identical, the [V, T] similarity tables agree to GEMM summation order, and
 find/find_batch return the same slices with scores within 1e-6 relative
-(ids may differ only inside bands of tied scores).  Inside the port, find
-and find_batch are byte-identical.
+(ids may differ only inside bands of tied scores), under affine and general
+(Waterman-Smith-Beyer) gap models.  Inside the port, find and find_batch
+are byte-identical.
 """
 
 import numpy as np
@@ -15,12 +16,23 @@ import torch
 import vectorian_tpu as vj
 import vectorian_tpu_torch as vt
 from vectorian_tpu.alignment import AffineGapCost as JaxAffine
+from vectorian_tpu.alignment import CustomGapCost as JaxCustom
+from vectorian_tpu.alignment import ExponentialGapCost as JaxExponential
 from vectorian_tpu.alignment import GlobalAlignment as JaxGlobal
 from vectorian_tpu.alignment import LocalAlignment as JaxLocal
+from vectorian_tpu.alignment import SemiGlobalAlignment as JaxSemiGlobal
 from vectorian_tpu.metrics import EmbeddingTokenSim as JaxTokenSim
 from vectorian_tpu.metrics import OptimizedSpanSim as JaxSpanSim
 from vectorian_tpu.ops.simmatrix import compile_similarity as jax_compile_similarity
-from vectorian_tpu_torch.alignment import AffineGapCost, GlobalAlignment, LocalAlignment
+from vectorian_tpu_torch.alignment import (
+    AffineGapCost,
+    CustomGapCost,
+    ExponentialGapCost,
+    GlobalAlignment,
+    LocalAlignment,
+    SemiGlobalAlignment,
+)
+from vectorian_tpu_torch.ops import dp_kernels
 from vectorian_tpu_torch.convert import state_from_numpy
 from vectorian_tpu_torch.metrics import EmbeddingTokenSim, OptimizedSpanSim
 from vectorian_tpu_torch.ops.simmatrix import compile_similarity
@@ -230,12 +242,146 @@ def test_unported_options_raise(both):
             it.find(queries[0], **opt)
     with pytest.raises(NotImplementedError):
         vt.Session([], device="cpu", paged=True)
-    from vectorian_tpu_torch.alignment import ExponentialGapCost
-
-    with pytest.raises(NotImplementedError):
-        st.partition("sentence").index(
-            OptimizedSpanSim(
-                EmbeddingTokenSim(st.embeddings[0]),
-                LocalAlignment(ExponentialGapCost(0.5)),
-            )
+    # a non-affine gap model is served (the general-gap WSB path); the
+    # query options stay unported on it too
+    ig = st.partition("sentence").index(
+        OptimizedSpanSim(
+            EmbeddingTokenSim(st.embeddings[0]),
+            LocalAlignment(ExponentialGapCost(0.5)),
         )
+    )
+    assert _pairs(ig.find(queries[0], n=3, min_score=0.1))
+    for opt in ({"bidirectional": True}, {"token_filter": ["sun"]}):
+        with pytest.raises(NotImplementedError, match="4b"):
+            ig.find(queries[0], **opt)
+
+
+LOCALITY_CLASSES = {
+    "local": (JaxLocal, LocalAlignment),
+    "global": (JaxGlobal, GlobalAlignment),
+    "semiglobal": (JaxSemiGlobal, SemiGlobalAlignment),
+}
+GENERAL_GAPS = {
+    "exponential": (lambda: JaxExponential(3.0), lambda: ExponentialGapCost(3.0)),
+    "custom": (
+        lambda: JaxCustom(lambda k: 0.1 * k ** 0.5),
+        lambda: CustomGapCost(lambda k: 0.1 * k ** 0.5),
+    ),
+}
+
+
+def _general_indexes(sj, st, locality, gap_model):
+    opt_j, opt_t = LOCALITY_CLASSES[locality]
+    gap_j, gap_t = GENERAL_GAPS[gap_model]
+    ij = sj.partition("sentence").index(
+        JaxSpanSim(JaxTokenSim(sj.embeddings[0]), opt_j(gap_j()))
+    )
+    it = st.partition("sentence").index(
+        OptimizedSpanSim(EmbeddingTokenSim(st.embeddings[0]), opt_t(gap_t()))
+    )
+    return ij, it
+
+
+@pytest.mark.parametrize("gap_model", sorted(GENERAL_GAPS))
+@pytest.mark.parametrize("locality", sorted(LOCALITY_CLASSES))
+def test_general_gaps_find_and_find_batch_match_jax(both, locality, gap_model):
+    """Non-affine gap models (the WSB DP): find/find_batch agree with the
+    JAX package, find == find_batch byte for byte inside the port, and
+    Match.to_json agrees (gap penalties come from GapCost.costs)."""
+    sj, st, queries = both
+    ij, it = _general_indexes(sj, st, locality, gap_model)
+    n = 5
+    # global scores go negative: keep every slice in play
+    min_score = -10.0 if locality == "global" else 0.1
+    dp_kernels.reset_launches()
+    port_find = []
+    for q in queries:
+        want = _pairs(ij.find(q, n=n, min_score=min_score))
+        got = _pairs(it.find(q, n=n, min_score=min_score))
+        assert got, q
+        _assert_same_ranking(want, got, min_score)
+        port_find.append(got)
+    want_b = ij.find_batch(queries, n=n, min_score=min_score, sim_precision="float32")
+    got_b = it.find_batch(queries, n=n, min_score=min_score)
+    for w, g in zip(want_b, got_b):
+        _assert_same_ranking(_pairs(w), _pairs(g), min_score)
+    assert [_pairs(r) for r in got_b] == port_find
+    # tensors on the CPU take the plain versions: no kernel launch counted
+    assert not any(dp_kernels.LAUNCHES.values())
+    # "the sun over the sea" aligns to slice 0 around the unmatched
+    # "shines": a gap between matched anchors, priced by GapCost.costs
+    penalties = []
+    for q in ["the sun over the sea"] + queries[:3]:
+        mj = ij.find(q, n=3, min_score=min_score)
+        mt = it.find(q, n=3, min_score=min_score)
+        for a, b in zip(mj, mt):
+            if a.slice_id != b.slice_id:
+                continue  # a tied band swapped them
+            ja, jb = a.to_json(), b.to_json()
+            _assert_json_close(ja, jb)
+            penalties += [r.get("gap_penalty", 0.0) for r in jb["regions"]]
+    assert max(penalties) > 0.0
+
+
+@pytest.fixture(scope="module")
+def duplicates():
+    """A corpus where one sentence repeats 600 times: the top score ties
+    far past the fused top-k's deep fetch, so every query's cut is unsafe
+    and the finalizer's extras round (column select + score-only rescore)
+    runs."""
+    words, mat, _, _ = _corpus()
+    rng = np.random.default_rng(5)
+    sents = ["the sun shines over the sea."] * 600 + [
+        " ".join(rng.choice(words, size=int(rng.integers(2, 9)))) + "."
+        for _ in range(200)
+    ]
+    rng.shuffle(sents)
+    texts = [" ".join(sents[i : i + 100]) for i in range(0, len(sents), 100)]
+    sj = vj.Session(
+        [vj.StringImporter()(t, title=f"d{i}") for i, t in enumerate(texts)],
+        embeddings=[vj.KeyedVectors("toy", words, mat)],
+    )
+    st = vt.Session(
+        [vt.StringImporter()(t, title=f"d{i}") for i, t in enumerate(texts)],
+        embeddings=[vt.KeyedVectors("toy", words, mat)],
+        device="cpu",
+    )
+    queries = ["the sun shines over the sea", "sun shines", "the sea"] + [
+        " ".join(rng.choice(words, size=4)) for _ in range(9)
+    ]
+    return sj, st, queries
+
+
+@pytest.mark.parametrize("gap_model", ["affine", "exponential"])
+def test_unsafe_cut_extras_match_jax(duplicates, gap_model, monkeypatch):
+    """The tie-bounded extras round runs the score-only rescore (the
+    flat-batch DP entry of the gap model) in find and find_batch, and the
+    results still match the JAX package."""
+    from vectorian_tpu_torch.ops import search
+
+    sj, st, queries = duplicates
+    if gap_model == "affine":
+        ij, it = _indexes(sj, st, "local")
+        flat = "affine_dp_scores_flat"
+    else:
+        ij, it = _general_indexes(sj, st, "local", gap_model)
+        flat = "wsb_dp_scores_flat"
+    calls = []
+    real = getattr(search, flat)
+    monkeypatch.setattr(
+        search, flat, lambda *a: calls.append(a[0].shape) or real(*a)
+    )
+    n, min_score = 10, 0.1
+    got_f = [_pairs(it.find(q, n=n, min_score=min_score)) for q in queries[:3]]
+    calls_find = len(calls)
+    got_b = [_pairs(r) for r in it.find_batch(queries, n=n, min_score=min_score)]
+    assert calls_find > 0 and len(calls) > calls_find
+    want_f = [_pairs(ij.find(q, n=n, min_score=min_score)) for q in queries[:3]]
+    want_b = ij.find_batch(queries, n=n, min_score=min_score, sim_precision="float32")
+    # 600 tied copies: the top-n are n copies of one score
+    assert len(got_f[0]) == n and len({s for _, s in got_f[0]}) == 1
+    for w, g in zip(want_f, got_f):
+        _assert_same_ranking(w, g, min_score)
+    for w, g in zip(want_b, got_b):
+        _assert_same_ranking(_pairs(w), g, min_score)
+    assert got_b[:3] == got_f

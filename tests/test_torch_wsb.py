@@ -1,0 +1,220 @@
+"""The port's general-gap (Waterman-Smith-Beyer) DP and the flat-batch DP
+entries against the JAX package.
+
+Inputs come from a seeded numpy generator and go through both packages.
+The WSB DP is adds, subtractions and maxes only, so the port is held to BIT
+equality: its scans against the jnp scans, and the plain versions of the
+kernel wrappers (their CPU path) against the Pallas kernels in interpret
+mode and the jnp scans.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from vectorian_tpu.ops.alignment import AffineGapParams as JaxGaps
+from vectorian_tpu.ops.alignment import align_matrices_general as jax_amg
+from vectorian_tpu.ops.alignment import align_matrices_scores_general as jax_amsg
+from vectorian_tpu.ops.alignment import align_scores as jax_align_scores
+from vectorian_tpu.ops.alignment import align_scores_general as jax_asg
+from vectorian_tpu.ops.alignment import gap_cost_closure as jax_closure
+from vectorian_tpu.ops.alignment import traceback_general as jax_traceback_general
+from vectorian_tpu.ops.pallas_dp import pallas_align_scores, pallas_align_scores_general
+from vectorian_tpu_torch.ops import dp_kernels
+from vectorian_tpu_torch.ops.alignment import (
+    AffineGapParams,
+    align_matrices_general,
+    align_matrices_scores_general,
+    align_scores_general,
+    gap_cost_closure,
+    traceback_general,
+)
+
+torch.set_num_threads(2)
+
+LOCALITIES = ["local", "global", "semiglobal"]
+KINDS = ["exp", "rand"]
+AFFINE_GAPSETS = [(0.0, 0.0, 0.0, 0.0), (0.37, 0.113, 0.29, 0.071)]
+
+
+def _gap_vec(rng, n1, kind):
+    """ExponentialGapCost(3.0)'s costs, or a seeded random non-decreasing
+    vector (not subadditive: its closure differs from it)."""
+    if kind == "exp":
+        k = np.arange(n1, dtype=np.float32)
+        return (1.0 - np.power(2.0, -k / 3.0)).astype(np.float32)
+    w = np.sort(rng.uniform(0, 1.5, size=n1)).astype(np.float32)
+    w[0] = 0.0
+    return w
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _flat_inputs(seed, B, L, T):
+    rng = np.random.default_rng(seed)
+    S = rng.uniform(-0.4, 1.0, size=(B, L, T)).astype(np.float32)
+    len_s = rng.integers(0, L + 1, size=B).astype(np.int32)
+    len_s[0], len_s[1] = 0, L  # a zero-length problem and a full one
+    len_t = rng.integers(1, T + 1, size=B).astype(np.int32)
+    len_t[2] = T
+    return rng, S, len_s, len_t
+
+
+@pytest.mark.parametrize("widths", [(5, 9), (9, 33), (256, 257)])
+def test_gap_cost_closure_bit_equal_and_prefix_stable(widths):
+    a, b = widths
+    rng = np.random.default_rng(a)
+    base = np.cumsum(rng.uniform(0, 0.3, size=b + 1)).astype(np.float32)
+    base[0] = 0.0
+    base[3::4] += 1.0  # not subadditive: the closure tightens entries
+    got_a = gap_cost_closure(_t(base[: a + 1])).numpy()
+    got_b = gap_cost_closure(_t(base[: b + 1])).numpy()
+    assert np.array_equal(got_a, np.asarray(jax_closure(jnp.asarray(base[: a + 1]))))
+    assert np.array_equal(got_b, np.asarray(jax_closure(jnp.asarray(base[: b + 1]))))
+    assert np.array_equal(got_a, got_b[: a + 1])
+    assert (got_b <= base[: b + 1]).all() and (got_b < base[: b + 1]).any()
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("locality", LOCALITIES)
+def test_align_scores_general_bit_equal(locality, kind):
+    rng, S, len_s, len_t = _flat_inputs(11, 13, 9, 6)
+    w_s, w_t = _gap_vec(rng, 10, kind), _gap_vec(rng, 7, kind)
+    args_j = (S, len_s, len_t, jnp.asarray(w_s), jnp.asarray(w_t), locality)
+    args_t = (_t(S), _t(len_s), _t(len_t), _t(w_s), _t(w_t), locality)
+    raw, pos = align_scores_general(*args_t, with_position=True)
+    raw_j, pos_j = jax_asg(*args_j, with_position=True)
+    assert np.array_equal(raw.numpy(), np.asarray(raw_j))
+    assert np.array_equal(pos.numpy(), np.asarray(pos_j))
+    H, raw2 = align_matrices_scores_general(*args_t)
+    H_j, raw2_j = jax_amsg(*args_j)
+    assert np.array_equal(H.numpy(), np.asarray(H_j))
+    assert np.array_equal(raw2.numpy(), np.asarray(raw2_j))
+    assert np.array_equal(raw2.numpy(), raw.numpy())
+    assert np.array_equal(
+        align_matrices_general(_t(S), _t(w_s), _t(w_t), locality).numpy(),
+        np.asarray(jax_amg(S, jnp.asarray(w_s), jnp.asarray(w_t), locality)),
+    )
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("locality", LOCALITIES)
+def test_wsb_flat_plain_bit_equal_to_pallas_and_jnp(locality, kind):
+    # B = 60: not a multiple of the Pallas kernel's 128-problem block
+    B, L, T = 60, 7, 8
+    rng, S, len_s, len_t = _flat_inputs(3, B, L, T)
+    w_s, w_t = _gap_vec(rng, L + 1, kind), _gap_vec(rng, T + 1, kind)
+    got = dp_kernels.wsb_dp_scores_flat(
+        _t(S), _t(len_s), _t(len_t), _t(w_s), _t(w_t),
+        gap_cost_closure(_t(w_t)), locality,
+    ).numpy()
+    assert got.shape == (B,) and got.dtype == np.float32
+    args = (jnp.asarray(S), jnp.asarray(len_s), jnp.asarray(len_t),
+            jnp.asarray(w_s), jnp.asarray(w_t), locality)
+    assert np.array_equal(got, np.asarray(pallas_align_scores_general(*args, interpret=True)))
+    assert np.array_equal(got, np.asarray(jax_asg(*args)))
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("locality", LOCALITIES)
+def test_wsb_gather_plain_bit_equal_to_pallas_and_jnp(locality, kind):
+    """The corpus-pass entry: the JAX corpus pass gathers table[tok],
+    flattens it to [c * Q, L, Tp] and runs the WSB DP on it (Pallas on the
+    TPU, the jnp scan on the CPU), len_s clamped to >= 1."""
+    V, L, c, Tp, Q = 23, 7, 20, 8, 3
+    rng = np.random.default_rng(17)
+    table = rng.uniform(-0.4, 1.0, size=(V, Tp, Q)).astype(np.float32)
+    tok = rng.integers(0, V, size=(c, L)).astype(np.int32)
+    len_s = rng.integers(0, L + 1, size=c).astype(np.int32)
+    len_s[0], len_s[1] = 0, L
+    len_t = np.asarray([Tp, 3, 1], np.int32)
+    w_s, w_t = _gap_vec(rng, L + 1, kind), _gap_vec(rng, Tp + 1, kind)
+    got = dp_kernels.wsb_dp_scores(
+        _t(table), _t(tok), _t(len_s), _t(len_t), _t(w_s), _t(w_t),
+        gap_cost_closure(_t(w_t)), locality,
+    ).numpy()
+    assert got.shape == (c, Q)
+    S2 = np.transpose(table[tok], (0, 3, 1, 2)).reshape(c * Q, L, Tp)
+    args = (jnp.asarray(S2), jnp.asarray(np.repeat(np.maximum(len_s, 1), Q)),
+            jnp.asarray(np.tile(len_t, c)), jnp.asarray(w_s), jnp.asarray(w_t),
+            locality)
+    want_p = np.asarray(pallas_align_scores_general(*args, interpret=True))
+    assert np.array_equal(got, want_p.reshape(c, Q))
+    assert np.array_equal(got, np.asarray(jax_asg(*args)).reshape(c, Q))
+    # a w_t* longer than the table's width (a wider batch's vector) is a
+    # prefix-stable closure: same bits
+    w_t_wide = np.concatenate([w_t, w_t[-1] + np.arange(1, 9, dtype=np.float32)])
+    got_wide = dp_kernels.wsb_dp_scores(
+        _t(table), _t(tok), _t(len_s), _t(len_t), _t(w_s), _t(w_t_wide),
+        gap_cost_closure(_t(w_t_wide)), locality,
+    ).numpy()
+    assert np.array_equal(got, got_wide)
+
+
+@pytest.mark.parametrize("gapset", AFFINE_GAPSETS)
+@pytest.mark.parametrize("locality", LOCALITIES)
+def test_affine_flat_plain_bit_equal_to_pallas_and_jnp(locality, gapset):
+    # B = 300: not a multiple of the Pallas kernel's 256-problem block
+    B, L, T = 300, 7, 8
+    _, S, len_s, len_t = _flat_inputs(5, B, L, T)
+    got = dp_kernels.affine_dp_scores_flat(
+        _t(S), _t(len_s), _t(len_t), AffineGapParams.of(*gapset), locality
+    ).numpy()
+    assert got.shape == (B,) and got.dtype == np.float32
+    gaps = JaxGaps.of(*gapset)
+    args = (jnp.asarray(S), jnp.asarray(len_s), jnp.asarray(len_t))
+    assert np.array_equal(got, np.asarray(
+        pallas_align_scores(*args, gaps, locality, interpret=True)))
+    assert np.array_equal(got, np.asarray(jax_align_scores(*args, gaps, locality)))
+
+
+@pytest.mark.parametrize("locality", LOCALITIES)
+def test_traceback_general_matches_jax(locality):
+    rng = np.random.default_rng(29)
+    B, Ls, Lt = 8, 9, 5
+    S = rng.uniform(-0.3, 1.0, size=(B, Ls, Lt)).astype(np.float32)
+    w_s, w_t = _gap_vec(rng, Ls + 1, "rand"), _gap_vec(rng, Lt + 1, "exp")
+    H = align_matrices_general(_t(S), _t(w_s), _t(w_t), locality).numpy()
+    for b in range(B):
+        ls, lt = int(rng.integers(1, Ls + 1)), int(rng.integers(1, Lt + 1))
+        got = traceback_general(H[b], S[b], ls, lt, w_s, w_t, locality)
+        want = jax_traceback_general(H[b], S[b], ls, lt, w_s, w_t, locality)
+        assert np.array_equal(got, want)
+        assert (np.diff(got[got >= 0]) > 0).all()  # injective, in order
+
+
+def test_wsb_launch_plan_serves_every_bucket_shape():
+    """Shared memory where a block of rows fits, else a scratch buffer
+    sized to the threads in flight — never sized to all problems."""
+    blocks, threads, smem, floats = dp_kernels.wsb_launch_plan(1_000_000 * 32, 16, 8)
+    assert floats == 0 and threads * 17 * 9 * 4 <= smem <= dp_kernels.WSB_SMEM_MAX
+    assert blocks * threads >= 32_000_000
+    for L, T in ((256, 64), (1024, 128)):
+        per = (L + 1) * (T + 1) * 4
+        blocks, threads, smem, floats = dp_kernels.wsb_launch_plan(1_000_000, L, T)
+        assert smem == 0 and floats == blocks * threads * per // 4
+        assert floats * 4 <= dp_kernels.WSB_SCRATCH_MAX and blocks >= 1
+
+
+def test_wrappers_check_their_inputs():
+    S = torch.zeros((4, 5, 3))
+    ln = torch.ones(4, dtype=torch.int32)
+    w = torch.zeros(6)
+    with pytest.raises(ValueError, match="w_s"):
+        dp_kernels.wsb_dp_scores_flat(S, ln, ln, w[:5], w, w, "local")
+    with pytest.raises(ValueError, match="w_t"):
+        dp_kernels.wsb_dp_scores_flat(S, ln, ln, w, w[:3], w, "local")
+    with pytest.raises(ValueError, match="locality"):
+        dp_kernels.wsb_dp_scores_flat(S, ln, ln, w, w, w, "sideways")
+    # a tensor on neither the CPU nor a card never takes the plain version
+    meta = S.to("meta")
+    with pytest.raises(ValueError, match="device"):
+        dp_kernels.wsb_dp_scores_flat(meta, ln, ln, w, w, w, "local")
+    with pytest.raises(ValueError, match="device"):
+        dp_kernels.affine_dp_scores_flat(
+            meta, ln, ln, AffineGapParams.of(0, 0, 0, 0), "local"
+        )

@@ -5,12 +5,14 @@ interactive searches over word embeddings with sequence alignment.  This
 package mirrors vectorian_tpu's module layout and public API, runs on an
 NVIDIA H100 (``Session(device="cuda")``, the default) or the CPU
 (``device="cpu"``), and scores every corpus pass with a hand-written CUDA
-affine-DP kernel (ops/dp_kernels.py, csrc/affine_dp.cu).
+DP kernel (ops/dp_kernels.py: csrc/affine_dp.cu for affine gap models,
+csrc/wsb_dp.cu for any other).
 
 Served so far: static embeddings, token similarity metrics and modifier
-trees, affine-gap local/global/semiglobal alignment, ``find`` and
-``find_batch`` (f32 tables).  Everything else raises NotImplementedError
-naming its ROADMAP.md port queue item.
+trees, local/global/semiglobal alignment with affine or general
+(Waterman-Smith-Beyer) gap models, ``find`` and ``find_batch`` (f32
+tables).  Everything else raises NotImplementedError naming its ROADMAP.md
+port queue item.
 """
 
 import sys as _sys

@@ -1,9 +1,12 @@
-// Affine-gap (Gotoh) alignment DP scores with the similarity-table gather
-// fused in: raw[s, q] = best cell of the DP of slice s against query q,
-// where S[i, j] = table[tokens[s, i], j, q].
+// Affine-gap (Gotoh) alignment DP scores, two entries:
+//   gather: raw[s, q] = best cell of the DP of slice s against query q, where
+//           S[i, j] = table[tokens[s, i], j, q] (the gather is fused in);
+//   flat:   raw[b] = best cell of the DP of S[b] ([B, L, T], one problem a
+//           thread, per-problem len_s and len_t), the score-only rescore.
 //
 // Replaces: _make_multiq_kernel / _dp_one_slice / pallas_align_scores_multi_nt
-// in vectorian_tpu/ops/pallas_dp.py.  On the TPU the gather stayed in XLA
+// (gather) and _make_kernel / _pallas_call_scores / pallas_align_scores
+// (flat) in vectorian_tpu/ops/pallas_dp.py.  On the TPU the gather stayed in XLA
 // (Mosaic cannot gather inside VMEM) and the kernel read the [L, c, Tp, Q]
 // gather output; here each thread loads its own table rows, so the gathered
 // stream never touches device memory.
@@ -23,7 +26,9 @@
 // H/F/E rows live in registers (T1P is a template parameter, fully
 // unrolled); rows past the slice's length are skipped (no cell past len_s
 // can change the score).  A warp per slice, shared-memory table tiles and
-// cp.async prefetch are later work.
+// cp.async prefetch are later work.  The flat entry is the same kernel with
+// row i of problem b read from S[b, i, :] (a thread's T floats are
+// contiguous; the rescore batches it serves are small).
 //
 // Exactness contract: every add, subtract and multiply happens in the JAX
 // reference's order (vectorian_tpu/ops/pallas_dp.py _dp_one_slice), so the
@@ -44,12 +49,12 @@ namespace {
 constexpr float NEG = -1e30f;
 enum Locality { LOCAL = 0, GLOBAL = 1, SEMIGLOBAL = 2 };
 
-template <int T1P, int LOC>
+template <int T1P, int LOC, bool FLAT>
 __global__ void __launch_bounds__(128) affine_dp_kernel(
-    const float* __restrict__ table,      // [V, Tpad, Q]
-    const int32_t* __restrict__ tokens,   // [n, L]
-    const int32_t* __restrict__ len_s,    // [n], >= 1
-    const int32_t* __restrict__ len_t,    // [Q], 1 <= len_t <= Tpad
+    const float* __restrict__ table,      // gather: [V, Tpad, Q]; flat: [n, L, Tpad]
+    const int32_t* __restrict__ tokens,   // gather: [n, L]; flat: unused
+    const int32_t* __restrict__ len_s,    // [n], >= 0
+    const int32_t* __restrict__ len_t,    // gather: [Q]; flat: [n]; 1 <= len_t <= Tpad
     float* __restrict__ out,              // [n, Q]
     int64_t n, int L, int Tpad, int Q,
     float open_s, float ext_s, float open_t, float ext_t) {
@@ -58,7 +63,7 @@ __global__ void __launch_bounds__(128) affine_dp_kernel(
   const int64_t s = p / Q;
   const int q = (int)(p - s * Q);
   const int ln = len_s[s];
-  const int lt = len_t[q];
+  const int lt = len_t[FLAT ? s : q];
   const float decay = fminf(open_t, ext_t);
   const int64_t row_stride = (int64_t)Tpad * Q;
 
@@ -74,10 +79,11 @@ __global__ void __launch_bounds__(128) affine_dp_kernel(
   float best = (LOC == GLOBAL) ? NEG : 0.0f;
 
   const int rows = min(ln, L);
-  const int32_t* tok_row = tokens + s * (int64_t)L;
+  const int32_t* tok_row = FLAT ? nullptr : tokens + s * (int64_t)L;
   for (int i = 0; i < rows; ++i) {
     const int dp_i = i + 1;
-    const float* srow = table + (int64_t)tok_row[i] * row_stride + q;
+    const int64_t row = FLAT ? s * (int64_t)L + i : (int64_t)tok_row[i];
+    const float* srow = table + row * row_stride + q;
     float init_col = 0.0f;
     if (LOC == GLOBAL)
       init_col = -__fmaf_rn((float)dp_i - 1.0f, ext_s, open_s);
@@ -127,36 +133,32 @@ __global__ void __launch_bounds__(128) affine_dp_kernel(
   out[p] = best;
 }
 
-template <int T1P>
+template <int T1P, bool FLAT>
 void launch(int locality, dim3 grid, dim3 block, cudaStream_t stream,
             const float* table, const int32_t* tokens, const int32_t* len_s,
             const int32_t* len_t, float* out, int64_t n, int L, int Tpad, int Q,
             float open_s, float ext_s, float open_t, float ext_t) {
   switch (locality) {
     case LOCAL:
-      affine_dp_kernel<T1P, LOCAL><<<grid, block, 0, stream>>>(
+      affine_dp_kernel<T1P, LOCAL, FLAT><<<grid, block, 0, stream>>>(
           table, tokens, len_s, len_t, out, n, L, Tpad, Q, open_s, ext_s, open_t, ext_t);
       break;
     case GLOBAL:
-      affine_dp_kernel<T1P, GLOBAL><<<grid, block, 0, stream>>>(
+      affine_dp_kernel<T1P, GLOBAL, FLAT><<<grid, block, 0, stream>>>(
           table, tokens, len_s, len_t, out, n, L, Tpad, Q, open_s, ext_s, open_t, ext_t);
       break;
     default:
-      affine_dp_kernel<T1P, SEMIGLOBAL><<<grid, block, 0, stream>>>(
+      affine_dp_kernel<T1P, SEMIGLOBAL, FLAT><<<grid, block, 0, stream>>>(
           table, tokens, len_s, len_t, out, n, L, Tpad, Q, open_s, ext_s, open_t, ext_t);
       break;
   }
 }
 
-}  // namespace
-
-// Returns the cudaError_t of the launch (0 on success), or -1 when the
-// arguments are outside what the kernel takes.
-extern "C" int vt_affine_dp_scores(
-    const float* table, const int32_t* tokens, const int32_t* len_s,
-    const int32_t* len_t, float* out, int64_t n, int L, int Tpad, int Q,
-    float open_s, float ext_s, float open_t, float ext_t, int locality,
-    void* stream) {
+template <bool FLAT>
+int dispatch(const float* S, const int32_t* tokens, const int32_t* len_s,
+             const int32_t* len_t, float* out, int64_t n, int L, int Tpad,
+             int Q, float open_s, float ext_s, float open_t, float ext_t,
+             int locality, void* stream) {
   if (n <= 0 || L <= 0 || Q <= 0 || Tpad <= 0 || locality < 0 || locality > 2)
     return -1;
   const int64_t problems = n * (int64_t)Q;
@@ -166,16 +168,37 @@ extern "C" int vt_affine_dp_scores(
   dim3 grid((unsigned)blocks), block(threads);
   cudaStream_t st = (cudaStream_t)stream;
   if (Tpad <= 8)
-    launch<9>(locality, grid, block, st, table, tokens, len_s, len_t, out, n, L, Tpad, Q, open_s, ext_s, open_t, ext_t);
+    launch<9, FLAT>(locality, grid, block, st, S, tokens, len_s, len_t, out, n, L, Tpad, Q, open_s, ext_s, open_t, ext_t);
   else if (Tpad <= 16)
-    launch<17>(locality, grid, block, st, table, tokens, len_s, len_t, out, n, L, Tpad, Q, open_s, ext_s, open_t, ext_t);
+    launch<17, FLAT>(locality, grid, block, st, S, tokens, len_s, len_t, out, n, L, Tpad, Q, open_s, ext_s, open_t, ext_t);
   else if (Tpad <= 32)
-    launch<33>(locality, grid, block, st, table, tokens, len_s, len_t, out, n, L, Tpad, Q, open_s, ext_s, open_t, ext_t);
+    launch<33, FLAT>(locality, grid, block, st, S, tokens, len_s, len_t, out, n, L, Tpad, Q, open_s, ext_s, open_t, ext_t);
   else if (Tpad <= 64)
-    launch<65>(locality, grid, block, st, table, tokens, len_s, len_t, out, n, L, Tpad, Q, open_s, ext_s, open_t, ext_t);
+    launch<65, FLAT>(locality, grid, block, st, S, tokens, len_s, len_t, out, n, L, Tpad, Q, open_s, ext_s, open_t, ext_t);
   else if (Tpad <= 128)
-    launch<129>(locality, grid, block, st, table, tokens, len_s, len_t, out, n, L, Tpad, Q, open_s, ext_s, open_t, ext_t);
+    launch<129, FLAT>(locality, grid, block, st, S, tokens, len_s, len_t, out, n, L, Tpad, Q, open_s, ext_s, open_t, ext_t);
   else
     return -1;
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Both entries return the cudaError_t of the launch (0 on success), or -1
+// when the arguments are outside what the kernel takes.
+extern "C" int vt_affine_dp_scores(
+    const float* table, const int32_t* tokens, const int32_t* len_s,
+    const int32_t* len_t, float* out, int64_t n, int L, int Tpad, int Q,
+    float open_s, float ext_s, float open_t, float ext_t, int locality,
+    void* stream) {
+  return dispatch<false>(table, tokens, len_s, len_t, out, n, L, Tpad, Q,
+                         open_s, ext_s, open_t, ext_t, locality, stream);
+}
+
+extern "C" int vt_affine_dp_scores_flat(
+    const float* S, const int32_t* len_s, const int32_t* len_t, float* out,
+    int64_t B, int L, int T, float open_s, float ext_s, float open_t,
+    float ext_t, int locality, void* stream) {
+  return dispatch<true>(S, nullptr, len_s, len_t, out, B, L, T, 1, open_s,
+                        ext_s, open_t, ext_t, locality, stream);
 }

@@ -4,8 +4,8 @@ Reference: vectorian/index.py — Query/PreparedQuery (:25-106), Match ABC +
 to_json (:249-292), CoreMatch region reconstruction (:295-379) and
 BruteForceIndex thread fan-out (:509-560).
 
-Port mapping (static affine slice of vectorian_tpu/index.py): the
-per-document ThreadPool disappears — the packed corpus is scored in one
+Port mapping (static slice of vectorian_tpu/index.py, affine and general
+gap models): the per-document ThreadPool disappears — the packed corpus is scored in one
 batched device pass per bucket (ops/search.BruteForceEngine); the bounded
 top-k heap becomes a device top-k fused with the exact rescore of the
 selected rows; flows are recomputed for the global top-k only.  ``find`` is
@@ -27,6 +27,7 @@ from vectorian_tpu_torch.ops.search import (
     BruteForceEngine,
     batch_tracebacks,
     edge_sims_of,
+    gap_vec,
     order_by_score,
 )
 from vectorian_tpu_torch.ops.simmatrix import compile_plan
@@ -41,7 +42,7 @@ def _not_ported(what: str, item: str):
     )
 
 
-_OPTIONS_ITEM = "4: general gaps and query options"
+_OPTIONS_ITEM = "4b: query options"
 # per-query options of the JAX package that this slice does not serve yet;
 # each raises when set to anything but its neutral default
 UNPORTED_OPTIONS = (
@@ -174,12 +175,13 @@ class _FlowResolver:
     matcher_impl.h:172-174; deferring to first access is a latency
     trade)."""
 
-    def __init__(self, index, plan, len_t, gaps, locality):
+    def __init__(self, index, plan, len_t, gaps, locality, gap_costs):
         self._index = index
         self._plan = plan
         self._len_t = len_t
         self._gaps = gaps
         self._locality = locality
+        self._gap_costs = gap_costs
         self._members = []  # (match, sid)
         self._done = False
 
@@ -203,6 +205,7 @@ class _FlowResolver:
             ],
             self._gaps,
             self._locality,
+            gap_costs=self._gap_costs,
         )
         mappings, edge_sims, _raw = res
         for (m, _sid), mp, es in zip(self._members, mappings, edge_sims):
@@ -569,7 +572,8 @@ class Index:
 class BruteForceIndex(Index):
     """Index-free brute-force search over all slices — the reference's
     flagship path (index.py:509-560), executed as one batched device pass
-    per length bucket through the affine-DP kernel."""
+    per length bucket through the affine-DP kernel, or the WSB kernel for a
+    non-affine gap model."""
 
     # floor on the normalized-score slack of the cut proof: absorbs f32
     # drift between the device ranking scores and the exact rescore
@@ -591,10 +595,25 @@ class BruteForceIndex(Index):
         self._locality = alignment.get("locality", "local")
         self._gap_s = alignment.get("gap_s")
         self._gap_t = alignment.get("gap_t")
+        gaps = self._affine_gaps()
+        if gaps is None:
+            # non-affine gap model: the general-gap WSB DP takes per-length
+            # cost vectors (one pair — the index's gap model is shared by
+            # every query); the affine params become an unused placeholder
+            # (reference alignment.py:54-55)
+            self._gap_costs = (self._gap_s, self._gap_t)
+            gaps = AffineGapParams.of(0, 0, 0, 0)
+        else:
+            self._gap_costs = None
+        self._gaps = gaps
+
+    def _affine_gaps(self) -> Optional[AffineGapParams]:
+        """Affine params when the gap model is exactly affine (the Gotoh
+        kernel), else None — the engine then runs the general-gap WSB DP."""
         affine = resolve_affine_gaps(self._gap_s, self._gap_t)
         if affine is None:
-            raise _not_ported("a non-affine gap model", _OPTIONS_ITEM)
-        self._gaps = AffineGapParams.of(*affine)
+            return None
+        return AffineGapParams.of(*affine)
 
     @property
     def span_sim(self):
@@ -629,7 +648,8 @@ class BruteForceIndex(Index):
         # byte-identical by construction.
         with trace.span("find.topk"):
             src = self._engine.score_topk_multi(
-                [qp], [T], self._gaps, self._locality, [float(T)], n + 32
+                [qp], [T], self._gaps, self._locality, [float(T)], n + 32,
+                gap_costs=self._gap_costs,
             )
         if query.query.aborted:
             return []
@@ -675,7 +695,8 @@ class BruteForceIndex(Index):
             )
         with trace.span("batch.topk"):
             src = self._engine.score_topk_multi(
-                plans, len_ts, self._gaps, self._locality, norm_totals, n + 32
+                plans, len_ts, self._gaps, self._locality, norm_totals, n + 32,
+                gap_costs=self._gap_costs,
             )
         items, item_qis = [], []
         for qi, pq in enumerate(prepared):
@@ -802,7 +823,9 @@ class BruteForceIndex(Index):
                     )
                     extra_qis.append(qi)
         res2 = (
-            engine.rescore_many(extra_reqs, gaps, self._locality)
+            engine.rescore_many(
+                extra_reqs, gaps, self._locality, gap_costs=self._gap_costs
+            )
             if extra_reqs
             else []
         )
@@ -852,7 +875,8 @@ class BruteForceIndex(Index):
                     continue
                 if resolver is None:
                     resolver = _FlowResolver(
-                        self, plan, pq.n_tokens, gaps, self._locality
+                        self, plan, pq.n_tokens, gaps, self._locality,
+                        self._gap_costs,
                     )
                 mt = Match(
                     self, pq, slice_id=sid, score=score, metric=metric_name,
@@ -867,9 +891,16 @@ class BruteForceIndex(Index):
     def _flows_from_payload(self, H, S, ln: int, len_t: int, gaps):
         """(mapping, edge_sims) from a fused-fetch flow payload — shares
         rescore_many's unpack helpers (batch_tracebacks/edge_sims_of), so
-        payload and rescored flows are byte-identical."""
+        payload and rescored flows are byte-identical.  General gap models
+        pass the index-level cost vectors (prefix-stable under the
+        payload's padded widths)."""
+        w_s = w_t = None
+        if self._gap_costs is not None:
+            w_s = gap_vec(self._gap_costs[0], S.shape[0] + 1)
+            w_t = gap_vec(self._gap_costs[1], S.shape[1] + 1)
         (mapping,) = batch_tracebacks(
             H[None], S[None], np.asarray([ln], np.int32),
             np.asarray([len_t], np.int32), gaps, self._locality,
+            w_s=w_s, w_t=w_t,
         )
         return np.asarray(mapping, np.int32), edge_sims_of(mapping, S, len_t)

@@ -2,14 +2,23 @@
 vectorian_tpu/ops/pallas_dp.py), their plain torch versions and launch
 counts.
 
-``affine_dp_scores`` is the corpus-pass scorer: the gather of the stacked
-serving table ``[V, Tpad, Q]`` by each slice's token ids fused with the
-affine Gotoh DP (csrc/affine_dp.cu).  A CUDA tensor always goes to the
-kernel — a build or launch failure raises, nothing falls back; only tensors
-on the CPU take the plain version, ``affine_dp_scores_reference`` (the
-gather, then the torch scan of ops/alignment.py).
+- ``affine_dp_scores``: the affine corpus pass, the gather of the stacked
+  serving table ``[V, Tpad, Q]`` by each slice's token ids fused with the
+  Gotoh DP (csrc/affine_dp.cu; replaces ``pallas_align_scores_multi_nt``).
+- ``affine_dp_scores_flat``: the affine DP of a flat [B, L, T] batch, scores
+  only (csrc/affine_dp.cu; replaces ``pallas_align_scores``).
+- ``wsb_dp_scores``: the general-gap (Waterman-Smith-Beyer) corpus pass,
+  gather fused as above (csrc/wsb_dp.cu; replaces the corpus-pass use of
+  ``pallas_align_scores_general``).
+- ``wsb_dp_scores_flat``: the WSB DP of a flat [B, L, T] batch, scores only
+  (csrc/wsb_dp.cu; replaces ``pallas_align_scores_general``).
 
-The kernel is built at first use with ``nvcc`` into a shared library with a
+A CUDA tensor always goes to the kernel — a build or launch failure raises,
+nothing falls back; only tensors on the CPU take the plain version (the
+``*_reference`` function beside each wrapper: the torch scans of
+ops/alignment.py).
+
+Each source is built at first use with ``nvcc`` into a shared library with a
 plain C interface (loaded with ctypes) under ``vectorian_tpu_torch/_build``,
 named by a hash of its source and flags so an edit never loads a stale
 build.
@@ -17,32 +26,70 @@ build.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Optional
+from typing import Dict
 
 import torch
 
-from vectorian_tpu_torch.ops.alignment import LOCALITIES, align_scores
+from vectorian_tpu_torch.ops.alignment import (
+    LOCALITIES,
+    align_scores,
+    align_scores_general,
+)
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "affine_dp.cu"
+SOURCES = {
+    "affine_dp": _PKG / "csrc" / "affine_dp.cu",
+    "wsb_dp": _PKG / "csrc" / "wsb_dp.cu",
+}
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
 )
-# the largest padded needle width the kernel's register rows take
+# the largest padded needle width the affine kernel's register rows take
 MAX_TPAD = 128
+# shared memory of an H100 SM (1 KB of it reserved a resident block) and
+# the most one block can have
+SM_SMEM = 228 * 1024
+WSB_SMEM_MAX = 227 * 1024
+# WSB rows stay in shared memory while at least this many threads an SM fit
+# there; past it they live in a device scratch buffer sized to the threads
+# in flight, at most WSB_SCRATCH_MAX bytes
+WSB_MIN_RESIDENT = 256
+WSB_SCRATCH_MAX = 256 << 20
+WSB_SCRATCH_THREADS = 64
 
-# kernel launches since the last reset (one per launched bucket pass)
-LAUNCHES = {"affine_dp": 0}
+# kernel launches since the last reset (one per launch of each kernel)
+LAUNCHES = {"affine_dp": 0, "affine_dp_flat": 0, "wsb_dp": 0, "wsb_dp_flat": 0}
 
-_lib: Optional[ctypes.CDLL] = None
+_P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+_SIGNATURES = {
+    "affine_dp": {
+        "vt_affine_dp_scores": [
+            _P, _P, _P, _P, _P, _I64, _I, _I, _I, _F, _F, _F, _F, _I, _P,
+        ],
+        "vt_affine_dp_scores_flat": [
+            _P, _P, _P, _P, _I64, _I, _I, _F, _F, _F, _F, _I, _P,
+        ],
+    },
+    "wsb_dp": {
+        "vt_wsb_dp_scores": [
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I,
+            _I, _P,
+        ],
+        "vt_wsb_dp_scores_flat": [
+            _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _P,
+        ],
+    },
+}
+_libs: Dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
@@ -57,53 +104,95 @@ def _nvcc() -> str:
     default = Path("/usr/local/cuda/bin/nvcc")
     if default.exists():
         return str(default)
-    raise RuntimeError("nvcc not found: the affine DP kernel cannot be built")
+    raise RuntimeError("nvcc not found: the DP kernels cannot be built")
 
 
-def _library_path() -> Path:
+def _library_path(name: str) -> Path:
     digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
-    return BUILD_DIR / f"libaffine_dp_{digest}.so"
+    return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile csrc/affine_dp.cu (no-op when this source is already built);
-    returns the library path.  ``verbose`` adds ``-Xptxas -v`` and returns
-    after printing the compiler's register and spill report."""
-    out = _library_path()
+def _build_one(name: str, verbose: bool) -> Path:
+    out = _library_path(name)
     if out.exists() and not verbose:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
     if verbose:
         cmd[1:1] = ["-Xptxas", "-v"]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
+            f"nvcc failed on {SOURCES[name].name} ({res.returncode}):\n"
+            f"{res.stdout}\n{res.stderr}"
         )
     if verbose:
-        print(res.stderr, end="")
+        print(f"--- ptxas report, {SOURCES[name].name}", flush=True)
+        print(res.stderr, end="", flush=True)
     os.replace(tmp, out)
     return out
 
 
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.vt_affine_dp_scores
-        fn.restype = ctypes.c_int
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-        ]
-        _lib = lib
-    return _lib
+def build(verbose: bool = False) -> Dict[str, Path]:
+    """Compile every csrc/*.cu of the port (one nvcc per source, all
+    started together; a source already built is a no-op); returns
+    {name: library path}.  ``verbose`` adds ``-Xptxas -v``, rebuilds and
+    prints the compiler's register and spill report of each source."""
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+        futs = {n: pool.submit(_build_one, n, verbose) for n in SOURCES}
+        return {n: f.result() for n, f in futs.items()}
+
+
+def _load(name: str) -> ctypes.CDLL:
+    lib = _libs.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(_build_one(name, False)))
+        for fn_name, argtypes in _SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = argtypes
+        _libs[name] = lib
+    return lib
+
+
+def _check_locality(locality):
+    if locality not in LOCALITIES:
+        raise ValueError(f"unknown locality {locality!r}")
+
+
+def _check_cuda(fn: str, dev, **tensors):
+    """Device, contiguity and type checks of a kernel launch's tensors
+    (``name=(tensor, dtype)``)."""
+    if dev.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {dev}")
+    for name, (t, dtype) in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"{fn}: {name} is on {t.device}, not {dev}")
+        if t.dtype != dtype:
+            raise ValueError(f"{fn}: {name} must be {dtype}, not {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be contiguous")
+
+
+def _check_gap_vecs(L: int, T: int, w_s, w_t, w_t_star):
+    if w_s.dim() != 1 or w_s.shape[0] < L + 1:
+        raise ValueError(f"w_s must hold at least L + 1 = {L + 1} costs")
+    for name, w in (("w_t", w_t), ("w_t_star", w_t_star)):
+        if w.dim() != 1 or w.shape[0] < T + 1:
+            raise ValueError(f"{name} must hold at least T + 1 = {T + 1} costs")
+
+
+def _raise_on(rc: int, name: str):
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed (error {rc})")
+
+
+# ---------------------------------------------------------------------------
+# affine DP
+# ---------------------------------------------------------------------------
 
 
 def affine_dp_scores_reference(
@@ -141,31 +230,23 @@ def affine_dp_scores(table, tokens, len_s, len_t, gaps, locality):
     >= 1, like the JAX corpus pass), len_t [Q] i32 (1 <= len_t <= Tpad),
     ``gaps`` an AffineGapParams of host floats (passed by value: changing
     them rebuilds and uploads nothing)."""
-    if locality not in LOCALITIES:
-        raise ValueError(f"unknown locality {locality!r}")
+    _check_locality(locality)
     dev = table.device
     if dev.type == "cpu":
         return affine_dp_scores_reference(
             table, tokens, len_s, len_t, gaps, locality
         )
-    if dev.type != "cuda":
-        raise ValueError(f"affine_dp_scores: unsupported device {dev}")
-    if table.dtype != torch.float32 or table.dim() != 3:
-        raise ValueError("table must be a [V, Tpad, Q] float32 tensor")
-    if tokens.dtype != torch.int32 or tokens.dim() != 2:
-        raise ValueError("tokens must be an [n, L] int32 tensor")
+    if table.dim() != 3 or tokens.dim() != 2:
+        raise ValueError("table must be [V, Tpad, Q] and tokens [n, L]")
     n, L = tokens.shape
     _, Tpad, Q = table.shape
-    if len_s.dtype != torch.int32 or tuple(len_s.shape) != (n,):
-        raise ValueError("len_s must be an [n] int32 tensor")
-    if len_t.dtype != torch.int32 or tuple(len_t.shape) != (Q,):
-        raise ValueError("len_t must be a [Q] int32 tensor")
-    for name, t in (("table", table), ("tokens", tokens), ("len_s", len_s),
-                    ("len_t", len_t)):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, table on {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    if tuple(len_s.shape) != (n,) or tuple(len_t.shape) != (Q,):
+        raise ValueError("len_s must be [n] and len_t [Q]")
+    _check_cuda(
+        "affine_dp_scores", dev, table=(table, torch.float32),
+        tokens=(tokens, torch.int32), len_s=(len_s, torch.int32),
+        len_t=(len_t, torch.int32),
+    )
     if Tpad > MAX_TPAD:
         raise ValueError(
             f"needles padded to {Tpad} > {MAX_TPAD} tokens exceed the "
@@ -175,7 +256,7 @@ def affine_dp_scores(table, tokens, len_s, len_t, gaps, locality):
     if n == 0:
         return out
     ln1 = torch.clamp_min(len_s, 1)
-    lib = _load()
+    lib = _load("affine_dp")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.vt_affine_dp_scores(
@@ -184,7 +265,223 @@ def affine_dp_scores(table, tokens, len_s, len_t, gaps, locality):
             float(gaps[0]), float(gaps[1]), float(gaps[2]), float(gaps[3]),
             LOCALITIES.index(locality), stream,
         )
-    if rc != 0:
-        raise RuntimeError(f"affine_dp kernel launch failed (error {rc})")
+    _raise_on(rc, "affine_dp")
     LAUNCHES["affine_dp"] += 1
+    return out
+
+
+def affine_dp_scores_flat_reference(S, len_s, len_t, gaps, locality):
+    """Plain torch version of ``affine_dp_scores_flat``: the torch scan."""
+    return align_scores(S, len_s, len_t, gaps, locality)
+
+
+def affine_dp_scores_flat(S, len_s, len_t, gaps, locality):
+    """Raw affine-DP scores [B] f32 of a flat batch of problems.
+
+    S [B, L, T] f32 (T <= MAX_TPAD), len_s [B] i32 (0 <= len_s <= L: a
+    zero-length problem scores its initial value, as the JAX kernel does),
+    len_t [B] i32 (1 <= len_t <= T), ``gaps`` an AffineGapParams."""
+    _check_locality(locality)
+    dev = S.device
+    if dev.type == "cpu":
+        return affine_dp_scores_flat_reference(S, len_s, len_t, gaps, locality)
+    if S.dim() != 3:
+        raise ValueError("S must be a [B, L, T] tensor")
+    B, L, T = S.shape
+    if tuple(len_s.shape) != (B,) or tuple(len_t.shape) != (B,):
+        raise ValueError("len_s and len_t must be [B]")
+    _check_cuda(
+        "affine_dp_scores_flat", dev, S=(S, torch.float32),
+        len_s=(len_s, torch.int32), len_t=(len_t, torch.int32),
+    )
+    if T > MAX_TPAD:
+        raise ValueError(
+            f"needles of {T} > {MAX_TPAD} tokens exceed the affine DP "
+            "kernel's register rows"
+        )
+    out = torch.empty((B,), dtype=torch.float32, device=dev)
+    if B == 0:
+        return out
+    lib = _load("affine_dp")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.vt_affine_dp_scores_flat(
+            S.data_ptr(), len_s.data_ptr(), len_t.data_ptr(), out.data_ptr(),
+            B, L, T,
+            float(gaps[0]), float(gaps[1]), float(gaps[2]), float(gaps[3]),
+            LOCALITIES.index(locality), stream,
+        )
+    _raise_on(rc, "affine_dp_flat")
+    LAUNCHES["affine_dp_flat"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# general-gap (WSB) DP
+# ---------------------------------------------------------------------------
+
+
+def wsb_launch_plan(problems: int, L: int, T: int):
+    """(blocks, threads, shared bytes, scratch floats) of a WSB launch: a
+    problem's (L + 1) x (T + 1) rows go to shared memory when blocks of 32,
+    64 or 128 threads keep at least WSB_MIN_RESIDENT threads resident an SM
+    (the block size that keeps the most), else to a device scratch buffer
+    sized to the threads in flight (the grid then walks over the
+    problems)."""
+    per = (L + 1) * (T + 1) * 4
+    best = (0, 0)  # (resident threads an SM, threads a block)
+    for threads in (128, 64, 32):
+        if threads * per <= WSB_SMEM_MAX:
+            resident = min(SM_SMEM // (threads * per + 1024), 32) * threads
+            best = max(best, (min(resident, 2048), threads))
+    resident, threads = best
+    if resident >= max(WSB_MIN_RESIDENT, 1):
+        return -(-problems // threads), threads, threads * per, 0
+    threads = WSB_SCRATCH_THREADS
+    blocks = max(1, min(-(-problems // threads),
+                        WSB_SCRATCH_MAX // (threads * per)))
+    return blocks, threads, 0, blocks * threads * per // 4
+
+
+def _wsb_scratch(dev, floats: int):
+    if floats == 0:
+        return None, 0
+    buf = torch.empty((floats,), dtype=torch.float32, device=dev)
+    return buf, buf.data_ptr()
+
+
+def wsb_dp_scores_reference(
+    table, tokens, len_s, len_t, w_s, w_t, w_t_star, locality,
+    max_bytes: int = 1 << 28,
+):
+    """Plain torch version of ``wsb_dp_scores``: ``table[tokens]`` and the
+    torch WSB scan, chunked over slices so the scan's resident rows
+    ([L + 1, c * Q, Tpad + 1] f32, about as large as its temporaries) stay
+    under ``max_bytes``."""
+    n, L = tokens.shape
+    _, Tpad, Q = table.shape
+    ln1 = torch.clamp_min(len_s, 1)
+    out = torch.empty((n, Q), dtype=torch.float32, device=table.device)
+    chunk = max(1, max_bytes // max((L + 1) * (Tpad + 1) * Q * 4, 1))
+    for c0 in range(0, n, chunk):
+        tok = tokens[c0 : c0 + chunk].long()
+        c = tok.shape[0]
+        S2 = table[tok].permute(0, 3, 1, 2).reshape(c * Q, L, Tpad)
+        raw = align_scores_general(
+            S2,
+            ln1[c0 : c0 + c].repeat_interleave(Q),
+            len_t.repeat(c),
+            w_s[: L + 1],
+            w_t[: Tpad + 1],
+            locality,
+            w_t_star=w_t_star[: Tpad + 1],
+        )
+        out[c0 : c0 + c] = raw.reshape(c, Q)
+    return out
+
+
+def wsb_dp_scores(table, tokens, len_s, len_t, w_s, w_t, w_t_star, locality):
+    """Raw WSB-DP scores [n, Q] f32 of every slice against every query.
+
+    table [V, Tpad, Q] f32, tokens [n, L] i32 (< V), len_s [n] i32 (clamped
+    to >= 1, like the JAX corpus pass), len_t [Q] i32 (1 <= len_t <= Tpad);
+    w_s [>= L + 1] raw document-side gap costs, w_t [>= Tpad + 1] raw
+    needle-side costs (the global row 0) and w_t_star their min-plus closure
+    (ops/alignment.gap_cost_closure), all f32 on the table's device.  Any
+    bucket capacity and needle width is served: rows past the shared-memory
+    budget live in a scratch buffer."""
+    _check_locality(locality)
+    dev = table.device
+    if table.dim() != 3 or tokens.dim() != 2:
+        raise ValueError("table must be [V, Tpad, Q] and tokens [n, L]")
+    n, L = tokens.shape
+    _, Tpad, Q = table.shape
+    _check_gap_vecs(L, Tpad, w_s, w_t, w_t_star)
+    if dev.type == "cpu":
+        return wsb_dp_scores_reference(
+            table, tokens, len_s, len_t, w_s, w_t, w_t_star, locality
+        )
+    if tuple(len_s.shape) != (n,) or tuple(len_t.shape) != (Q,):
+        raise ValueError("len_s must be [n] and len_t [Q]")
+    _check_cuda(
+        "wsb_dp_scores", dev, table=(table, torch.float32),
+        tokens=(tokens, torch.int32), len_s=(len_s, torch.int32),
+        len_t=(len_t, torch.int32), w_s=(w_s, torch.float32),
+        w_t=(w_t, torch.float32), w_t_star=(w_t_star, torch.float32),
+    )
+    out = torch.empty((n, Q), dtype=torch.float32, device=dev)
+    if n == 0 or Q == 0:
+        return out
+    ln1 = torch.clamp_min(len_s, 1)
+    blocks, threads, smem, floats = wsb_launch_plan(n * Q, L, Tpad)
+    scratch, scratch_ptr = _wsb_scratch(dev, floats)
+    lib = _load("wsb_dp")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.vt_wsb_dp_scores(
+            table.data_ptr(), tokens.data_ptr(), ln1.data_ptr(),
+            len_t.data_ptr(), w_s.data_ptr(), w_t.data_ptr(),
+            w_t_star.data_ptr(), out.data_ptr(), scratch_ptr, n, L, Tpad, Q,
+            LOCALITIES.index(locality), blocks, threads, smem, stream,
+        )
+    _raise_on(rc, "wsb_dp")
+    LAUNCHES["wsb_dp"] += 1
+    # the caching allocator orders any reuse of the freed scratch after this
+    # launch on the same stream
+    del scratch
+    return out
+
+
+def wsb_dp_scores_flat_reference(S, len_s, len_t, w_s, w_t, w_t_star,
+                                 locality):
+    """Plain torch version of ``wsb_dp_scores_flat``: the torch WSB scan."""
+    L, T = S.shape[1], S.shape[2]
+    return align_scores_general(
+        S, len_s, len_t, w_s[: L + 1], w_t[: T + 1], locality,
+        w_t_star=w_t_star[: T + 1],
+    )
+
+
+def wsb_dp_scores_flat(S, len_s, len_t, w_s, w_t, w_t_star, locality):
+    """Raw WSB-DP scores [B] f32 of a flat batch of problems (the port of
+    ``pallas_align_scores_general``).
+
+    S [B, L, T] f32, len_s [B] i32 (0 <= len_s <= L: a zero-length problem
+    scores its initial value, as the JAX kernel does), len_t [B] i32
+    (1 <= len_t <= T), cost vectors as in ``wsb_dp_scores``."""
+    _check_locality(locality)
+    dev = S.device
+    if S.dim() != 3:
+        raise ValueError("S must be a [B, L, T] tensor")
+    B, L, T = S.shape
+    _check_gap_vecs(L, T, w_s, w_t, w_t_star)
+    if dev.type == "cpu":
+        return wsb_dp_scores_flat_reference(
+            S, len_s, len_t, w_s, w_t, w_t_star, locality
+        )
+    if tuple(len_s.shape) != (B,) or tuple(len_t.shape) != (B,):
+        raise ValueError("len_s and len_t must be [B]")
+    _check_cuda(
+        "wsb_dp_scores_flat", dev, S=(S, torch.float32),
+        len_s=(len_s, torch.int32), len_t=(len_t, torch.int32),
+        w_s=(w_s, torch.float32), w_t=(w_t, torch.float32),
+        w_t_star=(w_t_star, torch.float32),
+    )
+    out = torch.empty((B,), dtype=torch.float32, device=dev)
+    if B == 0:
+        return out
+    blocks, threads, smem, floats = wsb_launch_plan(B, L, T)
+    scratch, scratch_ptr = _wsb_scratch(dev, floats)
+    lib = _load("wsb_dp")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.vt_wsb_dp_scores_flat(
+            S.data_ptr(), len_s.data_ptr(), len_t.data_ptr(), w_s.data_ptr(),
+            w_t.data_ptr(), w_t_star.data_ptr(), out.data_ptr(), scratch_ptr,
+            B, L, T, LOCALITIES.index(locality), blocks, threads, smem,
+            stream,
+        )
+    _raise_on(rc, "wsb_dp_flat")
+    LAUNCHES["wsb_dp_flat"] += 1
+    del scratch
     return out

@@ -42,7 +42,7 @@ class CompiledEmbedding:
     """
 
     def __init__(self, name: str, encoder, vocab_strings: Sequence[str],
-                 device="cpu"):
+                 device="cuda"):
         self.name = name
         self.encoder = encoder
         self.device = torch.device(device)
