@@ -9,18 +9,26 @@ Phases, each of which raises on failure:
 2. Build: compiles every kernel of the port from the checkout's sources
    (csrc/*.cu, one nvcc per source, all started together; prints each
    ptxas report) and the native host library (native/, the traceback).
+   Fails if an affine template up to T1P = 33 or any kernel of the WSB
+   register route has a stack frame or spills.
 3. Kernels against their plain torch versions on the card (random tables,
    tokens and costs from a seeded generator), bit for bit (torch.equal):
-   the affine corpus kernel, the WSB corpus kernel (shared-memory rows and,
-   at one long bucket, the scratch route), and the two flat-batch kernels
-   of the score-only rescore, each in 3 localities and 2 gap models.
+   the affine corpus kernel, the WSB corpus kernel (the register route at
+   every bucket capacity and needle width it takes, Q 1, 3 and 32; the
+   one-thread-a-problem routes, shared-memory rows and scratch, at their
+   shapes), and the two flat-batch kernels of the score-only rescore, each
+   in 3 localities and 2 gap models.
 4. Main path at real size: a 1,000,000-sentence Zipf corpus (9 tokens a
    sentence over 5,000 words, a 5,000 x 300 KeyedVectors), Session(device=
    "cuda") -> partition("sentence") -> index; find_batch of 32 queries and
    21 find() calls, under an affine index (4) and, on the same packing,
    under LocalAlignment(ExponentialGapCost(3.0)) (4b).  The launch counts
    are set to 0 right before each and read right after; find and
-   find_batch must be byte-identical.  4c: a small corpus of repeated
+   find_batch must be byte-identical, and every WSB launch of 4b must take
+   the register route.  At the main path's shapes (Q=32 and the Q=1 of a
+   find) each corpus kernel is held against its plain version and timed;
+   the WSB register route against the one-thread-a-problem route in turns
+   (new, old, old, new).  4c: a small corpus of repeated
    sentences whose ties make every cut unsafe, so the finalizer's extras
    round runs the flat kernels (affine and general index), held against
    the port on the CPU.
@@ -36,23 +44,31 @@ the device busy time, idle share and top kernels.
 import concurrent.futures
 import json
 import math
+import re
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-# f32 peak outside the tensor cores and HBM rate of an H100 SXM (NVIDIA
-# data sheet, dense, at the 700 W power limit)
-PEAK_F32_OPS = 67e12
+# HBM rate of an H100 SXM (NVIDIA data sheet, at the 700 W power limit)
 PEAK_BYTES = 3.35e12
+# The DP's f32 work is adds, subtracts and maxes, one instruction each and
+# no FMA.  The data sheet's 67 TFLOP/s counts an FMA as two operations, so
+# the card issues at most half of that in single f32 instructions: SMs x 128
+# f32 lanes x the SM clock (~33.5e12/s at 132 SMs and 1.98 GHz).  Phase 1
+# reads the SM count and the clock (nvidia-smi clocks.max.sm) from the card.
+F32_LANES_PER_SM = 128
+F32_INSTR_RATE = None
 SEED = 0
 DEVICE = "cuda"
 SENTENCES = 1_000_000  # the bench.py e2e corpus size
 # phase 3 sizes of the general-gap kernels: problems a corpus-pass shape,
 # slices of the long (scratch-route) bucket, and flat batch size — the
 # plain versions finish in seconds on the card at these
-WSB_PROBLEMS = 262_144
+AFFINE_N = 65_536
+WSB_PROBLEMS = 65_536
+WSB_REG_PROBLEMS = 16_384
 WSB_LONG_SLICES = 256
 FLAT_B = 65_536
 LOCALITIES = ("local", "global", "semiglobal")
@@ -66,17 +82,62 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
+def _smi(query):
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
 def phase_device():
+    global F32_INSTR_RATE
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    card = _smi("name,power.limit")
     print(card, flush=True)
+    mhz = float(_smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    F32_INSTR_RATE = sms * F32_LANES_PER_SM * mhz * 1e6
+    emit({"phase": "device", "card": card, "sms": sms, "max_sm_mhz": mhz,
+          "f32_instructions_per_s": F32_INSTR_RATE})
     return card
+
+
+_AFFINE_TEMPLATE = re.compile(r"affine_dp_kernelILi(\d+)ELi(\d)ELb([01])ELb([01])E")
+_WSB_REGS_TEMPLATE = re.compile(r"wsb_regs_kernelILi(\d+)ELi(\d+)ELi(\d)E")
+
+
+def ptxas_gate(reports):
+    """Each kernel template's registers, stack frame and spills from the
+    ptxas reports; raises if an affine template up to T1P = 33 or a kernel
+    of the WSB register route has a stack frame or spills."""
+    from vectorian_tpu_torch.ops.dp_kernels import ptxas_entries
+
+    rows, bad = [], []
+    for source, text in reports.items():
+        for name, e in ptxas_entries(text).items():
+            a, w = _AFFINE_TEMPLATE.search(name), _WSB_REGS_TEMPLATE.search(name)
+            if a:
+                label = (f"affine T1P={a[1]} loc={a[2]} "
+                         f"{'flat' if a[3] == '1' else 'gather'}{' vec' if a[4] == '1' else ''}")
+                gated = int(a[1]) <= 33
+            elif w:
+                label = f"wsb_regs L={w[1]} G={w[2]} loc={w[3]}"
+                gated = True
+            else:
+                label, gated = f"{source}: {name[:60]}", False
+            rows.append([label, e["registers"], e["stack"], e["spill_stores"],
+                         e["spill_loads"]])
+            if gated and (e["stack"] or e["spill_stores"] or e["spill_loads"]):
+                bad.append(label)
+    if not any(r[0].startswith("wsb_regs") for r in rows) or not any(
+            r[0].startswith("affine") for r in rows):
+        raise AssertionError("ptxas gate: the reports name no affine or WSB register kernel")
+    emit({"phase": "ptxas", "kernels_registers_stack_spill_st_ld": sorted(rows)})
+    if bad:
+        raise AssertionError(f"ptxas gate: stack frame or spills in {bad}")
 
 
 def phase_build():
@@ -93,6 +154,7 @@ def phase_build():
           "libraries": {k: str(v.relative_to(ROOT)) for k, v in libs.items()},
           "native_traceback": bool(native_ok),
           "seconds": time.perf_counter() - t0})
+    ptxas_gate(dp_kernels.PTXAS_REPORTS)
 
 
 def cuda_ms(fn, reps):
@@ -110,9 +172,10 @@ def cuda_ms(fn, reps):
 
 def _bound(nbytes, ops):
     """(ms, "bytes" | "operations"): the larger of bytes over the HBM rate
-    and f32 operations over the f32 peak."""
+    and f32 operations (single instructions) over the card's f32
+    instruction rate."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = ops / PEAK_F32_OPS * 1e3
+    t_ops = ops / F32_INSTR_RATE * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -219,12 +282,12 @@ def phase_kernels():
     from vectorian_tpu_torch.ops.alignment import AffineGapParams
 
     rng = np.random.default_rng(SEED)
-    V, n = 5_000, 65_536
+    V, n = 5_000, AFFINE_N
     gapsets = [(0.0, 0.0, 0.0, 0.0), (0.37, 0.113, 0.29, 0.071)]
     worst = 0.0
     for L in (16, 32):
         for Tpad in (8, 16):
-            for Q in (1, 32, 512):
+            for Q in (1, 3, 32, 512):
                 dev = DEVICE
                 table = torch.as_tensor(
                     rng.uniform(-0.4, 1.0, size=(V, Tpad, Q)).astype(np.float32), device=dev)
@@ -256,18 +319,38 @@ def phase_kernels():
     return worst
 
 
-def _wsb_vectors(gap_cost, L, T):
+def _wsb_general(gap_cost, T):
+    """GeneralGaps of ``gap_cost`` on both sides at needle width T."""
     import torch
 
     from vectorian_tpu_torch.ops.search import GeneralGaps
 
-    gg = GeneralGaps((gap_cost, gap_cost), T + 1, torch.device(DEVICE))
-    return gg.vecs(L)
+    return GeneralGaps((gap_cost, gap_cost), T + 1, torch.device(DEVICE))
+
+
+
+def _wsb_inputs(rng, n, L, Tpad, Q, V=5_000):
+    """Random table, tokens and lengths of a WSB corpus-pass shape; len_s
+    holds 0, 1 and L, len_t 1 and Tpad."""
+    import numpy as np
+    import torch
+
+    table = torch.as_tensor(
+        rng.uniform(-0.4, 1.0, size=(V, Tpad, Q)).astype(np.float32), device=DEVICE)
+    tokens = torch.as_tensor(rng.integers(0, V, size=(n, L)).astype(np.int32), device=DEVICE)
+    ln = rng.integers(0, L + 1, size=n).astype(np.int32)
+    ln[:3] = (0, 1, L)[: min(n, 3)]
+    lt = rng.integers(1, Tpad + 1, size=Q).astype(np.int32)
+    lt[0] = Tpad
+    if Q > 1:
+        lt[1] = 1
+    return (table, tokens, torch.as_tensor(ln, device=DEVICE),
+            torch.as_tensor(lt, device=DEVICE))
 
 
 def phase_kernels_general():
-    """wsb_dp (corpus entry) and the two flat-batch kernels against their
-    plain versions; returns {name: worst |diff|}."""
+    """wsb_dp (corpus entry, every route) and the two flat-batch kernels
+    against their plain versions; returns {name: worst |diff|}."""
     import numpy as np
     import torch
 
@@ -277,42 +360,64 @@ def phase_kernels_general():
     rng = np.random.default_rng(SEED + 2)
     models = _gap_models(rng)
     worst = {"wsb_dp": 0.0, "wsb_dp_flat": 0.0, "affine_dp_flat": 0.0}
-    V = 5_000
-    # ~262k problems a shape keeps the plain scan to seconds; the last shape
-    # is a long bucket whose rows take the scratch route
-    shapes = [(L, T, Q) for L in (16, 32, 64) for T in (8, 16) for Q in (1, 32)]
-    shapes.append((256, 64, 32))
-    for L, Tpad, Q in shapes:
-        n = WSB_LONG_SLICES if L >= 256 else max(WSB_PROBLEMS // Q, 1)
-        table = torch.as_tensor(
-            rng.uniform(-0.4, 1.0, size=(V, Tpad, Q)).astype(np.float32), device=DEVICE)
-        tokens = torch.as_tensor(rng.integers(0, V, size=(n, L)).astype(np.int32), device=DEVICE)
-        ln = rng.integers(0, L + 1, size=n).astype(np.int32)
-        ln[:2] = (0, L)
-        len_s = torch.as_tensor(ln, device=DEVICE)
-        lt = rng.integers(1, Tpad + 1, size=Q).astype(np.int32)
-        lt[0] = Tpad
-        len_t = torch.as_tensor(lt, device=DEVICE)
-        _, _, smem, floats = dp_kernels.wsb_launch_plan(n * Q, L, Tpad)
+    # the register route at every bucket capacity and needle width it
+    # takes; Q = 3 puts problems of two slices (row loops of different
+    # lengths) in one warp
+    shapes = [(L, T, Q, None) for L in (8, 16, 32) for T in (8, 16, 24, 32)
+              for Q in (1, 3, 32)]
+    # the one-thread-a-problem routes: what their rule picks at two
+    # register-route shapes (shared rows at the main path's, scratch), and
+    # the buckets and needles the register route does not take (scratch)
+    shapes += [(16, 8, 32, "rows"), (32, 16, 1, "rows"), (64, 8, 32, None),
+               (64, 16, 3, None), (16, 40, 3, None), (256, 64, 32, None)]
+    for L, Tpad, Q, route in shapes:
+        if L >= 256:
+            n = WSB_LONG_SLICES
+        else:
+            n = max((WSB_PROBLEMS if route else WSB_REG_PROBLEMS) // Q, 8)
+        table, tokens, len_s, len_t = _wsb_inputs(rng, n, L, Tpad, Q)
+        forced = (dp_kernels.wsb_launch_plan(n * Q, L, Tpad, registers=False).route
+                  if route else None)
+        plan = dp_kernels.wsb_launch_plan(n * Q, L, Tpad, route=forced, Q=Q)
+        if route is None and L <= 32 and Tpad <= 32 and plan.route != "registers":
+            raise AssertionError(f"wsb_dp: ({L}, {Tpad}) left the register route")
         for name, model in models.items():
-            vecs = _wsb_vectors(model, L, Tpad)
+            gg = _wsb_general(model, Tpad)
+            vecs, host = gg.vecs(L), gg.host_vecs(L)
             for loc in LOCALITIES:
-                got = dp_kernels.wsb_dp_scores(table, tokens, len_s, len_t, *vecs, loc)
+                got = dp_kernels.wsb_dp_scores(table, tokens, len_s, len_t, *vecs, loc,
+                                               host_costs=host, _route=forced)
                 want = dp_kernels.wsb_dp_scores_reference(
                     table, tokens, len_s, len_t, *vecs, loc)
                 worst["wsb_dp"] = max(worst["wsb_dp"], _check_equal(
-                    "wsb_dp", got, want, (n, L, Tpad, Q, loc, name)))
-        vecs = _wsb_vectors(models["exponential"], L, Tpad)
+                    "wsb_dp", got, want, (n, L, Tpad, Q, plan.route, loc, name)))
+        gg = _wsb_general(models["exponential"], Tpad)
+        vecs, host = gg.vecs(L), gg.host_vecs(L)
         ms = cuda_ms(lambda: dp_kernels.wsb_dp_scores(
-            table, tokens, len_s, len_t, *vecs, "local"), 5)
-        plain_ms = cuda_ms(lambda: dp_kernels.wsb_dp_scores_reference(
-            table, tokens, len_s, len_t, *vecs, "local"), 1)
+            table, tokens, len_s, len_t, *vecs, "local", host_costs=host,
+            _route=forced), 5)
         bound, by = wsb_bound_ms(tokens, len_s, len_t, table)
         emit({"phase": "kernel", "name": "wsb_dp", "n": n, "L": L, "Tpad": Tpad,
-              "Q": Q, "rows_in": "scratch" if floats else "shared",
-              "shared_bytes": smem, "localities": 3, "gap_models": len(models),
-              "max_abs_diff": 0.0, "kernel_ms": ms, "plain_ms": plain_ms,
-              "bound_ms": bound, "bound_by": by})
+              "Q": Q, "route": plan.route, "shared_bytes": plan.smem,
+              "localities": 3, "gap_models": len(models), "max_abs_diff": 0.0,
+              "kernel_ms": ms, "bound_ms": bound, "bound_by": by})
+    # a closure with a negative cost (a gap bonus) leaves the register
+    # route for the one-thread-a-problem kernel, and stays exact
+    from vectorian_tpu_torch.alignment import CustomGapCost
+
+    L, Tpad, Q = 16, 8, 3
+    table, tokens, len_s, len_t = _wsb_inputs(rng, WSB_REG_PROBLEMS // Q, L, Tpad, Q)
+    gg = _wsb_general(CustomGapCost(lambda k: -0.05 * k), Tpad)
+    before = dict(dp_kernels.WSB_ROUTE_LAUNCHES)
+    for loc in LOCALITIES:
+        got = dp_kernels.wsb_dp_scores(table, tokens, len_s, len_t, *gg.vecs(L), loc,
+                                       host_costs=gg.host_vecs(L))
+        want = dp_kernels.wsb_dp_scores_reference(table, tokens, len_s, len_t,
+                                                  *gg.vecs(L), loc)
+        worst["wsb_dp"] = max(worst["wsb_dp"], _check_equal(
+            "wsb_dp", got, want, (L, Tpad, Q, loc, "gap bonus")))
+    if dp_kernels.WSB_ROUTE_LAUNCHES["registers"] != before["registers"]:
+        raise AssertionError("wsb_dp: a negative closure took the register route")
 
     B = FLAT_B
     gapsets = [(0.0, 0.0, 0.0, 0.0), (0.37, 0.113, 0.29, 0.071)]
@@ -326,7 +431,7 @@ def phase_kernels_general():
             len_t = torch.as_tensor(rng.integers(1, T + 1, size=B).astype(np.int32), device=DEVICE)
             for loc in LOCALITIES:
                 for name, model in models.items():
-                    vecs = _wsb_vectors(model, L, T)
+                    vecs = _wsb_general(model, T).vecs(L)
                     got = dp_kernels.wsb_dp_scores_flat(S, len_s, len_t, *vecs, loc)
                     want = dp_kernels.wsb_dp_scores_flat_reference(S, len_s, len_t, *vecs, loc)
                     worst["wsb_dp_flat"] = max(worst["wsb_dp_flat"], _check_equal(
@@ -337,7 +442,7 @@ def phase_kernels_general():
                     want = dp_kernels.affine_dp_scores_flat_reference(S, len_s, len_t, gaps, loc)
                     worst["affine_dp_flat"] = max(worst["affine_dp_flat"], _check_equal(
                         "affine_dp_flat", got, want, (B, L, T, loc, gs)))
-            vecs = _wsb_vectors(models["exponential"], L, T)
+            vecs = _wsb_general(models["exponential"], T).vecs(L)
             gaps = AffineGapParams.of(*gapsets[1])
             for name, run, plain, bound in (
                 ("wsb_dp_flat",
@@ -472,6 +577,7 @@ def drive_main_path(index, queries, finds, kernel, label, card, n_sents):
         pass_times.append(time.perf_counter() - t)
     singles = [pairs(index.find(q, n=n, min_score=min_score)) for q in queries[:8]]
     launches = dict(dp_kernels.LAUNCHES)
+    routes = dict(dp_kernels.WSB_ROUTE_LAUNCHES)
     # ---- end of the main path ----
 
     check_results(batch, n, min_score)
@@ -489,19 +595,21 @@ def drive_main_path(index, queries, finds, kernel, label, card, n_sents):
         "launches_per_find": launches_find / len(finds),
         "launches_per_find_batch": launches_batch,
         "launches": launches,
+        "wsb_route_launches": routes,
         "find_equals_find_batch": True,
     })
     profile_calls(f"{label}:find_batch_Q{Q}", lambda: index.find_batch(
         queries, n=n, min_score=min_score, sim_precision="float32"))
     profile_calls(f"{label}:find", lambda: index.find(finds[0], n=n, min_score=min_score))
-    return launches[kernel]
+    return launches[kernel], routes
 
 
 def phase_main_path(session, gap, label, queries, finds, card, n_sents):
     """4 (``gap`` None: zero affine gaps, affine_dp) and 4b (a non-affine
     ``gap``, wsb_dp) on the session's packing; returns the kernel's numbers
-    at the shapes the main path gave it (the Q=32 batch over every
-    bucket)."""
+    at the shapes the main path gave it: the Q=32 batch and the Q=1 of a
+    find over every bucket.  wsb_dp is timed on its register route against
+    the one-thread-a-problem route, in turns (new, old, old, new)."""
     import numpy as np
     import torch
 
@@ -510,35 +618,60 @@ def phase_main_path(session, gap, label, queries, finds, card, n_sents):
 
     index = make_index(session, gap)
     kernel = "affine_dp" if gap is None else "wsb_dp"
-    launches = drive_main_path(index, queries, finds, kernel, label, card, n_sents)
+    launches, routes = drive_main_path(index, queries, finds, kernel, label, card, n_sents)
+    if gap is not None and routes["registers"] != launches:
+        raise AssertionError(f"{label}: wsb_dp left the register route: {routes}")
     engine = index._engine
-    _, plans, len_ts, _ = index._prepare_static_batch(queries, 10, 0.2, {})
-    table, Tpad = stack_query_tables(plans, len_ts)
-    lt = torch.as_tensor(np.asarray(len_ts, np.int32), device=DEVICE)
-    if gap is None:
-        run, plain = dp_kernels.affine_dp_scores, dp_kernels.affine_dp_scores_reference
-        bound_fn, reps = dp_bound_ms, 20
-    else:
-        general = GeneralGaps(index._gap_costs, Tpad + 1, torch.device(DEVICE))
-        run, plain = dp_kernels.wsb_dp_scores, dp_kernels.wsb_dp_scores_reference
-        bound_fn, reps = wsb_bound_ms, 5
-    ms = plain_ms = bound = 0.0
-    worst = 0.0
-    by = "operations"
-    for db in engine._device_buckets:
-        costs = ((index._gaps,) if gap is None
-                 else general.vecs(db["capacity"]))
-        args = (table, db["tokens"], db["lengths"], lt, *costs, "local")
-        worst = max(worst, _check_equal(kernel, run(*args), plain(*args), "main-path shapes"))
-        ms += cuda_ms(lambda: run(*args), reps)
-        plain_ms += cuda_ms(lambda: plain(*args), 1)
-        b, by = bound_fn(db["tokens"], db["lengths"], lt, table)
-        bound += b
-    shapes = [[int(db["n"]), int(db["capacity"]), int(table.shape[1]), len(queries)]
-              for db in engine._device_buckets]
-    return {"launches": launches, "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "shapes_n_L_Tpad_Q": shapes}
+    res = {"launches": launches, "max_abs_err": 0.0,
+           "launch_route": "registers" if gap is not None else "thread_per_problem"}
+    for key, qs in (("", queries), ("_find", finds[:1])):
+        _, plans, len_ts, _ = index._prepare_static_batch(qs, 10, 0.2, {})
+        table, Tpad = stack_query_tables(plans, len_ts)
+        lt = torch.as_tensor(np.asarray(len_ts, np.int32), device=DEVICE)
+        general = (None if gap is None
+                   else GeneralGaps(index._gap_costs, Tpad + 1, torch.device(DEVICE)))
+        ms = plain_ms = bound = 0.0
+        ab = []
+        by = "operations"
+        for db in engine._device_buckets:
+            L, n = db["capacity"], int(db["n"])
+            if gap is None:
+                args = (table, db["tokens"], db["lengths"], lt, index._gaps, "local")
+                run = lambda: dp_kernels.affine_dp_scores(*args)  # noqa: E731
+                plain = lambda: dp_kernels.affine_dp_scores_reference(*args)  # noqa: E731
+                bound_fn, reps = dp_bound_ms, 20
+            else:
+                args = (table, db["tokens"], db["lengths"], lt, *general.vecs(L), "local")
+                host = general.host_vecs(L)
+                old = dp_kernels.wsb_launch_plan(n * len(qs), L, Tpad, registers=False).route
+                run = lambda: dp_kernels.wsb_dp_scores(*args, host_costs=host)  # noqa: E731
+                run_old = lambda: dp_kernels.wsb_dp_scores(  # noqa: E731
+                    *args, host_costs=host, _route=old)
+                plain = lambda: dp_kernels.wsb_dp_scores_reference(*args)  # noqa: E731
+                bound_fn, reps = wsb_bound_ms, 5
+            want = plain()
+            res["max_abs_err"] = max(res["max_abs_err"], _check_equal(
+                kernel, run(), want, f"main-path shapes{key}"))
+            if gap is None:
+                ms += cuda_ms(run, reps)
+            else:
+                _check_equal(kernel, run_old(), want, f"main-path shapes{key}, {old} route")
+                turns = [cuda_ms(run, reps), cuda_ms(run_old, reps),
+                         cuda_ms(run_old, reps), cuda_ms(run, reps)]
+                ab.append({"L": L, "new_old_old_new_ms": turns, "old_route": old})
+                ms += (turns[0] + turns[3]) / 2
+            plain_ms += cuda_ms(plain, 1)
+            b, by = bound_fn(db["tokens"], db["lengths"], lt, table)
+            bound += b
+        res.update({f"ms{key}": ms, f"plain_ms{key}": plain_ms,
+                    f"bound_ms{key}": bound, f"bound_by{key}": by})
+        if ab:
+            res[f"ab{key}"] = ab
+        res[f"shapes_n_L_Tpad_Q{key}"] = [
+            [int(db["n"]), int(db["capacity"]), int(table.shape[1]), len(qs)]
+            for db in engine._device_buckets]
+    emit({"phase": f"{label}_kernel", **res})
+    return res
 
 
 def compare_with_cpu(label, a, b):
@@ -675,6 +808,8 @@ def main():
     import numpy as np
     import torch
 
+    from vectorian_tpu_torch.ops import dp_kernels
+
     t_start = time.perf_counter()
     card = phase_device()
     kind = torch.cuda.get_device_name(0)
@@ -719,12 +854,15 @@ def main():
          general, worst_general["wsb_dp"]),
     ):
         kernels.append({
-            "name": name, "route": "cuda",
+            "name": name, "route": "cuda", "launch_route": res["launch_route"],
             "source": f"vectorian_tpu_torch/csrc/{source}", "replaces": replaces,
             "launches": res["launches"], "max_abs_err": max(worst_p3, res["max_abs_err"]),
             "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"], "library_ms": None,
-            "shapes_n_L_Tpad_Q": res["shapes_n_L_Tpad_Q"], "card": card,
+            "ms_find": res["ms_find"], "plain_ms_find": res["plain_ms_find"],
+            "bound_ms_find": res["bound_ms_find"],
+            "shapes_n_L_Tpad_Q": res["shapes_n_L_Tpad_Q"],
+            "shapes_n_L_Tpad_Q_find": res["shapes_n_L_Tpad_Q_find"], "card": card,
         })
     for name, source, replaces in (
         ("affine_dp_flat", "affine_dp.cu", "vectorian_tpu/ops/pallas_dp.py:44"),
@@ -734,6 +872,9 @@ def main():
         err, ms, plain_ms, bound, by = time_flat_calls(name, calls)
         kernels.append({
             "name": name, "route": "cuda",
+            "launch_route": ",".join(sorted({
+                dp_kernels.wsb_launch_plan(*a[0].shape, registers=False).route
+                for a in calls})) if name == "wsb_dp_flat" else "thread_per_problem",
             "source": f"vectorian_tpu_torch/csrc/{source}", "replaces": replaces,
             "launches": launches, "max_abs_err": max(err, worst_general[name]),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,

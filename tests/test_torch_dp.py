@@ -138,3 +138,32 @@ def test_matrices_and_traceback_vs_oracle(locality):
             if dj:
                 implied -= ot + (dj - 1) * min(ot, et)
         assert implied == pytest.approx(score, abs=1e-5)
+
+
+_PTXAS_REPORT = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116affine_dp_kernelILi9ELi0ELb0ELb1EEEvPKf' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116affine_dp_kernelILi9ELi0ELb0ELb1EEEvPKf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 72 registers, used 0 barriers, 428 bytes cmem[0]
+ptxas info    : Compile time = 12.345 ms
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116affine_dp_kernelILi129ELi2ELb1ELb0EEEvPKf' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116affine_dp_kernelILi129ELi2ELb1ELb0EEEvPKf
+    952 bytes stack frame, 1604 bytes spill stores, 952 bytes spill loads
+ptxas info    : Used 255 registers, used 0 barriers, 428 bytes cmem[0]
+"""
+
+
+def test_ptxas_entries_reads_registers_stack_and_spills():
+    """The report parser chip_smoke.py's stack-frame and spill gate reads."""
+    got = dp_kernels.ptxas_entries(_PTXAS_REPORT)
+    assert got == {
+        "_ZN12_GLOBAL__N_116affine_dp_kernelILi9ELi0ELb0ELb1EEEvPKf": {
+            "registers": 72, "stack": 0, "spill_stores": 0, "spill_loads": 0,
+        },
+        "_ZN12_GLOBAL__N_116affine_dp_kernelILi129ELi2ELb1ELb0EEEvPKf": {
+            "registers": 255, "stack": 952, "spill_stores": 1604,
+            "spill_loads": 952,
+        },
+    }
+    assert dp_kernels.ptxas_entries("") == {}

@@ -22,7 +22,11 @@ from vectorian_tpu.ops.alignment import align_scores_general as jax_asg
 from vectorian_tpu.ops.alignment import gap_cost_closure as jax_closure
 from vectorian_tpu.ops.alignment import traceback_general as jax_traceback_general
 from vectorian_tpu.ops.pallas_dp import pallas_align_scores, pallas_align_scores_general
+from vectorian_tpu.ops.search import gap_vec as jax_gap_vec
+from vectorian_tpu_torch.alignment import CustomGapCost, ExponentialGapCost
+from vectorian_tpu_torch.corpus.packing import DEFAULT_BUCKETS
 from vectorian_tpu_torch.ops import dp_kernels
+from vectorian_tpu_torch.ops.search import GeneralGaps
 from vectorian_tpu_torch.ops.alignment import (
     AffineGapParams,
     align_matrices_general,
@@ -133,9 +137,10 @@ def test_wsb_gather_plain_bit_equal_to_pallas_and_jnp(locality, kind):
     len_s[0], len_s[1] = 0, L
     len_t = np.asarray([Tp, 3, 1], np.int32)
     w_s, w_t = _gap_vec(rng, L + 1, kind), _gap_vec(rng, Tp + 1, kind)
+    vecs = (_t(w_s), _t(w_t), gap_cost_closure(_t(w_t)))
     got = dp_kernels.wsb_dp_scores(
-        _t(table), _t(tok), _t(len_s), _t(len_t), _t(w_s), _t(w_t),
-        gap_cost_closure(_t(w_t)), locality,
+        _t(table), _t(tok), _t(len_s), _t(len_t), *vecs, locality,
+        host_costs=vecs,
     ).numpy()
     assert got.shape == (c, Q)
     S2 = np.transpose(table[tok], (0, 3, 1, 2)).reshape(c * Q, L, Tp)
@@ -187,17 +192,82 @@ def test_traceback_general_matches_jax(locality):
         assert (np.diff(got[got >= 0]) > 0).all()  # injective, in order
 
 
-def test_wsb_launch_plan_serves_every_bucket_shape():
-    """Shared memory where a block of rows fits, else a scratch buffer
-    sized to the threads in flight — never sized to all problems."""
-    blocks, threads, smem, floats = dp_kernels.wsb_launch_plan(1_000_000 * 32, 16, 8)
-    assert floats == 0 and threads * 17 * 9 * 4 <= smem <= dp_kernels.WSB_SMEM_MAX
-    assert blocks * threads >= 32_000_000
-    for L, T in ((256, 64), (1024, 128)):
-        per = (L + 1) * (T + 1) * 4
-        blocks, threads, smem, floats = dp_kernels.wsb_launch_plan(1_000_000, L, T)
-        assert smem == 0 and floats == blocks * threads * per // 4
-        assert floats * 4 <= dp_kernels.WSB_SCRATCH_MAX and blocks >= 1
+@pytest.mark.parametrize("T", [8, 16, 24, 32, 64, 128])
+@pytest.mark.parametrize("L", list(DEFAULT_BUCKETS))
+def test_wsb_launch_plan_serves_every_bucket_shape(L, T):
+    """Each (capacity, width) has exactly one route: "registers" for the
+    gather entry where its templates take the shape (every default bucket
+    up to WSB_REG_MAX_L x needles up to WSB_REG_MAX_T), else shared memory
+    where a block of rows fits, else a scratch buffer sized to the threads
+    in flight — never sized to all problems."""
+    problems = 1_000_000 * 32 if L <= 32 else 1_000_000
+    plan = dp_kernels.wsb_launch_plan(problems, L, T)
+    rows = dp_kernels.wsb_launch_plan(problems, L, T, registers=False)
+    per = (L + 1) * (T + 1) * 4
+    assert rows.route in ("shared", "scratch")
+    if L <= dp_kernels.WSB_REG_MAX_L and T <= dp_kernels.WSB_REG_MAX_T:
+        G = dp_kernels.wsb_group_width(T)
+        assert G in (8, 16, 32) and T <= G
+        threads = dp_kernels.WSB_REG_THREADS
+        assert plan == ("registers", -(-problems * G // threads), threads, 0, 0)
+        assert dp_kernels.wsb_launch_plan(problems, L, T, route="registers") == plan
+        # even Q: two queries of a slice a group, half the groups
+        for Q in (2, 32):
+            paired = dp_kernels.wsb_launch_plan(problems + Q, L, T, Q=Q)
+            assert paired.blocks == -(-(problems + Q) // 2 * G // threads)
+            assert paired.blocks * (threads // G) * 2 >= problems + Q
+    else:
+        assert plan == rows
+        with pytest.raises(ValueError, match="register route"):
+            dp_kernels.wsb_launch_plan(problems, L, T, route="registers")
+    if rows.route == "shared":
+        assert rows.floats == 0 and per * rows.threads == rows.smem
+        assert rows.smem <= dp_kernels.WSB_SMEM_MAX
+        assert rows.blocks * rows.threads >= problems
+    else:
+        assert rows.smem == 0 and rows.floats == rows.blocks * rows.threads * per // 4
+        assert rows.floats * 4 <= dp_kernels.WSB_SCRATCH_MAX and rows.blocks >= 1
+    scratch = dp_kernels.wsb_launch_plan(problems, L, T, route="scratch")
+    assert scratch.route == "scratch" and scratch.floats > 0
+    if per * 32 > dp_kernels.WSB_SMEM_MAX:
+        with pytest.raises(ValueError, match="shared memory"):
+            dp_kernels.wsb_launch_plan(problems, L, T, route="shared")
+
+
+@pytest.mark.parametrize("capacity", [8, 16, 32])
+@pytest.mark.parametrize("kind", ["exp", "custom"])
+def test_general_gaps_host_vecs_match_device_and_jax(kind, capacity):
+    """The host copies the register route passes by value are the device
+    vectors' bits, and the JAX package's gap_vec / gap_cost_closure."""
+    rng = np.random.default_rng(capacity)
+    steps = np.cumsum(rng.uniform(0.0, 0.35, size=64)).astype(np.float32)
+    cost = (ExponentialGapCost(3.0) if kind == "exp"
+            else CustomGapCost(lambda k: float(steps[int(k)])))
+    Tpad = 8 if capacity == 8 else 24
+    gg = GeneralGaps((cost, cost), Tpad + 1, torch.device("cpu"))
+    host, dev = gg.host_vecs(capacity), gg.vecs(capacity)
+    for h, d in zip(host, dev):
+        assert h.device.type == "cpu" and h.dtype == torch.float32
+        assert np.array_equal(h.numpy(), d.cpu().numpy())
+    w_s, w_t, w_t_star = (h.numpy() for h in host)
+    assert w_s.shape == (capacity + 1,) and w_t.shape == (Tpad + 1,)
+    assert np.array_equal(w_s, jax_gap_vec(cost, capacity + 1))
+    assert np.array_equal(w_t, jax_gap_vec(cost, Tpad + 1))
+    assert np.array_equal(w_t_star, np.asarray(jax_closure(jnp.asarray(w_t))))
+
+
+@pytest.mark.parametrize("Q", [1, 3, 32])
+def test_wsb_register_table_layout(Q):
+    """The register route reads [V, Q, Tpad]: element (v, q, j) is the
+    stacked table's (v, j, q), contiguous; at Q = 1 the same memory."""
+    table = torch.from_numpy(
+        np.random.default_rng(Q).uniform(size=(11, 8, Q)).astype(np.float32)
+    )
+    got = dp_kernels.wsb_register_table(table)
+    assert got.shape == (11, Q, 8) and got.is_contiguous()
+    assert torch.equal(got, table.permute(0, 2, 1))
+    assert float(got[4, Q - 1, 5]) == float(table[4, 5, Q - 1])
+    assert (got.data_ptr() == table.data_ptr()) == (Q == 1)
 
 
 def test_wrappers_check_their_inputs():

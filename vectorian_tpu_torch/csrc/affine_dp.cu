@@ -20,15 +20,26 @@
 // at 1M slices of 9 tokens and Q=32 that is ~190 MB against ~40 GFLOP, so
 // the kernel is bound by f32 operations, not bytes.
 //
-// What the simple design does about it: one thread per (slice, query)
-// problem; threadIdx walks q fastest, so a warp's table reads
-// table[tok, j, q..q+31] coalesce and the token id is a broadcast; the
-// H/F/E rows live in registers (T1P is a template parameter, fully
-// unrolled); rows past the slice's length are skipped (no cell past len_s
-// can change the score).  A warp per slice, shared-memory table tiles and
-// cp.async prefetch are later work.  The flat entry is the same kernel with
-// row i of problem b read from S[b, i, :] (a thread's T floats are
-// contiguous; the rescore batches it serves are small).
+// What the design does about it: one thread per (slice, query) problem;
+// threadIdx walks q fastest, so a warp's table reads table[tok, j,
+// q..q+31] coalesce and the token id is a broadcast.  The H/F/E rows live
+// in registers and nowhere else: T1P is a template parameter, every loop
+// over columns is fully unrolled, and each doubling step is its own
+// template instantiation (a loop over the steps, with the inner loop's
+// bound depending on the step, stayed rolled and put E on the stack: a
+// (4 T1P + 4)-byte frame and ~80 local loads and stores a row).  At T1P =
+// 9 (needles up to 8 tokens) the similarity rows are double-buffered in
+// registers: row i + 1's table loads and row i + 2's token id are issued
+// before row i's arithmetic, so no row starts with a dependent token ->
+// table load; wider rows load theirs with the token id one row ahead.
+// Where a row's Tpad floats are contiguous (Q = 1, the `find` pass, and
+// the flat entry) they load as float4.  Problems split into (slice, query)
+// with a 32-bit division while they fit.  Rows past the slice's length are
+// skipped (no cell past len_s can change the score).  Blocks of 128
+// threads: at the 64-87 registers ptxas reports for T1P = 9 an SM keeps
+// 5-8 of them (20-32 warps), and the small block keeps the tail of a
+// launch short.  The flat entry is the same kernel with row i of problem b read
+// from S[b, i, :].
 //
 // Exactness contract: every add, subtract and multiply happens in the JAX
 // reference's order (vectorian_tpu/ops/pallas_dp.py _dp_one_slice), so the
@@ -47,27 +58,128 @@
 namespace {
 
 constexpr float NEG = -1e30f;
+constexpr int THREADS = 128;
 enum Locality { LOCAL = 0, GLOBAL = 1, SEMIGLOBAL = 2 };
 
-template <int T1P, int LOC, bool FLAT>
-__global__ void __launch_bounds__(128) affine_dp_kernel(
+// The doubling steps of a T1P-wide row, shift = SHIFT, 2 * SHIFT, ... <
+// T1P: one instantiation a step, so every loop has a constant trip count
+// and every E[j - shift] a constant index (nested loops whose inner bound
+// depends on the outer induction variable are not fully unrolled, and E
+// then goes to the stack).
+template <int T1P, int SHIFT>
+__device__ __forceinline__ void doubling(float (&E)[T1P], float decay) {
+  if constexpr (SHIFT < T1P) {
+    const float d = decay * (float)SHIFT;
+#pragma unroll
+    for (int j = T1P - 1; j >= SHIFT; --j) E[j] = fmaxf(E[j], E[j - SHIFT] - d);
+    doubling<T1P, 2 * SHIFT>(E, decay);
+  }
+}
+
+// problem p -> (slice s, query q), in 32 bits while the problems fit
+__device__ __forceinline__ void split_problem(int64_t p, int Q, bool small,
+                                              int64_t& s, int& q) {
+  if (small) {
+    const uint32_t pp = (uint32_t)p, ss = pp / (uint32_t)Q;
+    s = ss;
+    q = (int)(pp - ss * (uint32_t)Q);
+  } else {
+    s = p / Q;
+    q = (int)(p - s * Q);
+  }
+}
+
+// One similarity row: v[j] = src[j * cs] for j < Tpad, 0 past it.  VEC:
+// cs == 1, src 16-byte aligned and Tpad % 4 == 0 (float4 loads).
+template <int T1P, bool VEC>
+__device__ __forceinline__ void load_row(float (&v)[T1P - 1],
+                                         const float* __restrict__ src,
+                                         int64_t cs, int Tpad) {
+  if (VEC) {
+#pragma unroll
+    for (int c = 0; c < (T1P - 1) / 4; ++c) {
+      const float4 x = (4 * c < Tpad)
+                           ? __ldg(reinterpret_cast<const float4*>(src) + c)
+                           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      v[4 * c] = x.x;
+      v[4 * c + 1] = x.y;
+      v[4 * c + 2] = x.z;
+      v[4 * c + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < T1P - 1; ++j)
+      v[j] = (j < Tpad) ? __ldg(src + (int64_t)j * cs) : 0.0f;
+  }
+}
+
+// DP row dp_i (1-based) from similarity row sv (column j at sv[j - 1]).
+template <int T1P, int LOC>
+__device__ __forceinline__ void dp_row(float (&H)[T1P], float (&Fv)[T1P],
+                                       const float (&sv)[T1P - 1], int dp_i,
+                                       int ln, int lt, float open_s,
+                                       float ext_s, float open_t, float decay,
+                                       float& best) {
+  float init_col = 0.0f;
+  if (LOC == GLOBAL) init_col = -__fmaf_rn((float)dp_i - 1.0f, ext_s, open_s);
+
+  // C (kept in H): diagonal, vertical gap, local floor, boundary column.
+  // Descending j reads H[j - 1] of the previous row before it is replaced.
+#pragma unroll
+  for (int j = T1P - 1; j >= 0; --j) {
+    const float m = (j >= 1 ? H[j - 1] + sv[j - 1] : NEG + 0.0f);
+    const float f = fmaxf(H[j] - open_s, Fv[j] - ext_s);
+    float c = fmaxf(m, f);
+    if (LOC == LOCAL) c = fmaxf(c, 0.0f);
+    if (j == 0) c = init_col;
+    Fv[j] = f;
+    H[j] = c;
+  }
+  // Horizontal gap: E = shift_down(C, 1) - open_t, then the decayed prefix
+  // max by doubling (descending j reads the previous step's E).
+  float E[T1P];
+#pragma unroll
+  for (int j = T1P - 1; j >= 1; --j) E[j] = H[j - 1] - open_t;
+  E[0] = NEG - open_t;
+  doubling<T1P, 1>(E, decay);
+  float colmax = NEG, h_end = NEG;
+#pragma unroll
+  for (int j = 0; j < T1P; ++j) {
+    const float h = fmaxf(H[j], E[j]);
+    H[j] = h;
+    if (j >= 1 && j <= lt) colmax = fmaxf(colmax, h);
+    if (j == lt) h_end = h;
+  }
+  // Every row has dp_i <= len_s.
+  if (LOC == LOCAL) {
+    best = fmaxf(best, colmax);
+  } else if (LOC == GLOBAL) {
+    if (dp_i == ln) best = h_end;
+  } else {
+    best = fmaxf(best, h_end);
+    if (dp_i == ln) best = fmaxf(best, colmax);
+  }
+}
+
+template <int T1P, int LOC, bool FLAT, bool VEC>
+__global__ void __launch_bounds__(THREADS) affine_dp_kernel(
     const float* __restrict__ table,      // gather: [V, Tpad, Q]; flat: [n, L, Tpad]
     const int32_t* __restrict__ tokens,   // gather: [n, L]; flat: unused
     const int32_t* __restrict__ len_s,    // [n], >= 0
     const int32_t* __restrict__ len_t,    // gather: [Q]; flat: [n]; 1 <= len_t <= Tpad
     float* __restrict__ out,              // [n, Q]
     int64_t n, int L, int Tpad, int Q,
-    float open_s, float ext_s, float open_t, float ext_t) {
-  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    float open_s, float ext_s, float open_t, float ext_t, bool small) {
+  const int64_t p = (int64_t)blockIdx.x * THREADS + threadIdx.x;
   if (p >= n * (int64_t)Q) return;
-  const int64_t s = p / Q;
-  const int q = (int)(p - s * Q);
+  int64_t s;
+  int q;
+  split_problem(p, Q, small, s, q);
   const int ln = len_s[s];
   const int lt = len_t[FLAT ? s : q];
   const float decay = fminf(open_t, ext_t);
-  const int64_t row_stride = (int64_t)Tpad * Q;
 
-  float H[T1P], Fv[T1P], E[T1P];
+  float H[T1P], Fv[T1P];
 #pragma unroll
   for (int j = 0; j < T1P; ++j) {
     float h0 = 0.0f;
@@ -78,80 +190,86 @@ __global__ void __launch_bounds__(128) affine_dp_kernel(
   }
   float best = (LOC == GLOBAL) ? NEG : 0.0f;
 
+  // Similarity row i: gather table[tokens[s, i], :, q] (column stride Q),
+  // flat S[s, i, :] (contiguous).
   const int rows = min(ln, L);
   const int32_t* tok_row = FLAT ? nullptr : tokens + s * (int64_t)L;
-  for (int i = 0; i < rows; ++i) {
-    const int dp_i = i + 1;
-    const int64_t row = FLAT ? s * (int64_t)L + i : (int64_t)tok_row[i];
-    const float* srow = table + row * row_stride + q;
-    float init_col = 0.0f;
-    if (LOC == GLOBAL)
-      init_col = -__fmaf_rn((float)dp_i - 1.0f, ext_s, open_s);
+  const float* base = FLAT ? table + s * (int64_t)L * Tpad : table + q;
+  const int64_t rstride = FLAT ? (int64_t)Tpad : (int64_t)Tpad * Q;
+  const int64_t cs = FLAT ? 1 : Q;
 
-    // C (kept in H): diagonal, vertical gap, local floor, boundary column.
-    // Descending j reads H[j - 1] of the previous row before it is replaced.
-#pragma unroll
-    for (int j = T1P - 1; j >= 0; --j) {
-      const float sv = (j >= 1 && j <= Tpad) ? __ldg(srow + (int64_t)(j - 1) * Q) : 0.0f;
-      const float m = (j >= 1 ? H[j - 1] : NEG) + sv;
-      const float f = fmaxf(H[j] - open_s, Fv[j] - ext_s);
-      float c = fmaxf(m, f);
-      if (LOC == LOCAL) c = fmaxf(c, 0.0f);
-      if (j == 0) c = init_col;
-      Fv[j] = f;
-      H[j] = c;
+  // Rows of 9 columns are double-buffered in registers: row i + 1's loads
+  // (and row i + 2's token id) are issued before row i's arithmetic.
+  // Wider rows load as they go, with the token id one row ahead: at T1P =
+  // 17 the second buffer took ptxas past its 128-register choice into
+  // spills.
+  if constexpr (T1P <= 9) {
+    float a[T1P - 1], b[T1P - 1];
+    int tok_next = 0;  // token id of the row after the one being loaded
+    if (rows > 0)
+      load_row<T1P, VEC>(a, base + (FLAT ? 0 : (int64_t)__ldg(tok_row)) * rstride,
+                         cs, Tpad);
+    if (!FLAT && rows > 1) tok_next = __ldg(tok_row + 1);
+    for (int i = 0; i < rows; i += 2) {
+      if (i + 1 < rows) {
+        load_row<T1P, VEC>(b, base + (FLAT ? i + 1 : (int64_t)tok_next) * rstride,
+                           cs, Tpad);
+        if (!FLAT && i + 2 < rows) tok_next = __ldg(tok_row + i + 2);
+      }
+      dp_row<T1P, LOC>(H, Fv, a, i + 1, ln, lt, open_s, ext_s, open_t, decay, best);
+      if (i + 1 >= rows) break;
+      if (i + 2 < rows) {
+        load_row<T1P, VEC>(a, base + (FLAT ? i + 2 : (int64_t)tok_next) * rstride,
+                           cs, Tpad);
+        if (!FLAT && i + 3 < rows) tok_next = __ldg(tok_row + i + 3);
+      }
+      dp_row<T1P, LOC>(H, Fv, b, i + 2, ln, lt, open_s, ext_s, open_t, decay, best);
     }
-    // Horizontal gap: E = shift_down(C, 1) - open_t, then the decayed
-    // prefix max by doubling (descending j reads the previous step's E).
-#pragma unroll
-    for (int j = T1P - 1; j >= 1; --j) E[j] = H[j - 1] - open_t;
-    E[0] = NEG - open_t;
-#pragma unroll
-    for (int shift = 1; shift < T1P; shift *= 2) {
-      const float d = decay * (float)shift;
-#pragma unroll
-      for (int j = T1P - 1; j >= shift; --j) E[j] = fmaxf(E[j], E[j - shift] - d);
-    }
-    float colmax = NEG, h_end = NEG;
-#pragma unroll
-    for (int j = 0; j < T1P; ++j) {
-      const float h = fmaxf(H[j], E[j]);
-      H[j] = h;
-      if (j >= 1 && j <= lt) colmax = fmaxf(colmax, h);
-      if (j == lt) h_end = h;
-    }
-    // Every row of this loop has dp_i <= len_s.
-    if (LOC == LOCAL) {
-      best = fmaxf(best, colmax);
-    } else if (LOC == GLOBAL) {
-      if (dp_i == ln) best = h_end;
-    } else {
-      best = fmaxf(best, h_end);
-      if (dp_i == ln) best = fmaxf(best, colmax);
+  } else {
+    int tok = (!FLAT && rows > 0) ? __ldg(tok_row) : 0;
+    for (int i = 0; i < rows; ++i) {
+      float sv[T1P - 1];
+      load_row<T1P, VEC>(sv, base + (FLAT ? i : (int64_t)tok) * rstride, cs, Tpad);
+      if (!FLAT && i + 1 < rows) tok = __ldg(tok_row + i + 1);
+      dp_row<T1P, LOC>(H, Fv, sv, i + 1, ln, lt, open_s, ext_s, open_t, decay, best);
     }
   }
   out[p] = best;
 }
 
-template <int T1P, bool FLAT>
-void launch(int locality, dim3 grid, dim3 block, cudaStream_t stream,
-            const float* table, const int32_t* tokens, const int32_t* len_s,
-            const int32_t* len_t, float* out, int64_t n, int L, int Tpad, int Q,
-            float open_s, float ext_s, float open_t, float ext_t) {
+template <int T1P, bool FLAT, bool VEC>
+void launch(int locality, dim3 grid, cudaStream_t stream, const float* table,
+            const int32_t* tokens, const int32_t* len_s, const int32_t* len_t,
+            float* out, int64_t n, int L, int Tpad, int Q, float open_s,
+            float ext_s, float open_t, float ext_t, bool small) {
   switch (locality) {
     case LOCAL:
-      affine_dp_kernel<T1P, LOCAL, FLAT><<<grid, block, 0, stream>>>(
-          table, tokens, len_s, len_t, out, n, L, Tpad, Q, open_s, ext_s, open_t, ext_t);
+      affine_dp_kernel<T1P, LOCAL, FLAT, VEC><<<grid, THREADS, 0, stream>>>(
+          table, tokens, len_s, len_t, out, n, L, Tpad, Q, open_s, ext_s, open_t, ext_t, small);
       break;
     case GLOBAL:
-      affine_dp_kernel<T1P, GLOBAL, FLAT><<<grid, block, 0, stream>>>(
-          table, tokens, len_s, len_t, out, n, L, Tpad, Q, open_s, ext_s, open_t, ext_t);
+      affine_dp_kernel<T1P, GLOBAL, FLAT, VEC><<<grid, THREADS, 0, stream>>>(
+          table, tokens, len_s, len_t, out, n, L, Tpad, Q, open_s, ext_s, open_t, ext_t, small);
       break;
     default:
-      affine_dp_kernel<T1P, SEMIGLOBAL, FLAT><<<grid, block, 0, stream>>>(
-          table, tokens, len_s, len_t, out, n, L, Tpad, Q, open_s, ext_s, open_t, ext_t);
+      affine_dp_kernel<T1P, SEMIGLOBAL, FLAT, VEC><<<grid, THREADS, 0, stream>>>(
+          table, tokens, len_s, len_t, out, n, L, Tpad, Q, open_s, ext_s, open_t, ext_t, small);
       break;
   }
+}
+
+template <int T1P, bool FLAT>
+void launch_vec(bool vec, int locality, dim3 grid, cudaStream_t stream,
+                const float* table, const int32_t* tokens, const int32_t* len_s,
+                const int32_t* len_t, float* out, int64_t n, int L, int Tpad,
+                int Q, float open_s, float ext_s, float open_t, float ext_t,
+                bool small) {
+  if (vec)
+    launch<T1P, FLAT, true>(locality, grid, stream, table, tokens, len_s, len_t, out,
+                            n, L, Tpad, Q, open_s, ext_s, open_t, ext_t, small);
+  else
+    launch<T1P, FLAT, false>(locality, grid, stream, table, tokens, len_s, len_t, out,
+                             n, L, Tpad, Q, open_s, ext_s, open_t, ext_t, small);
 }
 
 template <bool FLAT>
@@ -162,21 +280,25 @@ int dispatch(const float* S, const int32_t* tokens, const int32_t* len_s,
   if (n <= 0 || L <= 0 || Q <= 0 || Tpad <= 0 || locality < 0 || locality > 2)
     return -1;
   const int64_t problems = n * (int64_t)Q;
-  const int threads = 128;
-  const int64_t blocks = (problems + threads - 1) / threads;
+  const int64_t blocks = (problems + THREADS - 1) / THREADS;
   if (blocks > 0x7fffffffLL) return -1;
-  dim3 grid((unsigned)blocks), block(threads);
+  dim3 grid((unsigned)blocks);
   cudaStream_t st = (cudaStream_t)stream;
+  const bool small = problems <= 0xffffffffLL;
+  // a row's Tpad floats are contiguous (flat, or a gather at Q = 1): float4
+  // loads when they stay 16-byte aligned
+  const bool vec = (FLAT || Q == 1) && Tpad % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(S) % 16 == 0;
   if (Tpad <= 8)
-    launch<9, FLAT>(locality, grid, block, st, S, tokens, len_s, len_t, out, n, L, Tpad, Q, open_s, ext_s, open_t, ext_t);
+    launch_vec<9, FLAT>(vec, locality, grid, st, S, tokens, len_s, len_t, out, n, L, Tpad, Q, open_s, ext_s, open_t, ext_t, small);
   else if (Tpad <= 16)
-    launch<17, FLAT>(locality, grid, block, st, S, tokens, len_s, len_t, out, n, L, Tpad, Q, open_s, ext_s, open_t, ext_t);
+    launch_vec<17, FLAT>(vec, locality, grid, st, S, tokens, len_s, len_t, out, n, L, Tpad, Q, open_s, ext_s, open_t, ext_t, small);
   else if (Tpad <= 32)
-    launch<33, FLAT>(locality, grid, block, st, S, tokens, len_s, len_t, out, n, L, Tpad, Q, open_s, ext_s, open_t, ext_t);
+    launch_vec<33, FLAT>(vec, locality, grid, st, S, tokens, len_s, len_t, out, n, L, Tpad, Q, open_s, ext_s, open_t, ext_t, small);
   else if (Tpad <= 64)
-    launch<65, FLAT>(locality, grid, block, st, S, tokens, len_s, len_t, out, n, L, Tpad, Q, open_s, ext_s, open_t, ext_t);
+    launch_vec<65, FLAT>(vec, locality, grid, st, S, tokens, len_s, len_t, out, n, L, Tpad, Q, open_s, ext_s, open_t, ext_t, small);
   else if (Tpad <= 128)
-    launch<129, FLAT>(locality, grid, block, st, S, tokens, len_s, len_t, out, n, L, Tpad, Q, open_s, ext_s, open_t, ext_t);
+    launch_vec<129, FLAT>(vec, locality, grid, st, S, tokens, len_s, len_t, out, n, L, Tpad, Q, open_s, ext_s, open_t, ext_t, small);
   else
     return -1;
   return (int)cudaGetLastError();

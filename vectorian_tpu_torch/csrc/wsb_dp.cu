@@ -21,7 +21,35 @@
 // operations (and, in this simple form, by the loads of the stored rows that
 // feed them).
 //
-// What the simple design does about it: one thread per problem; the rows of
+// Two designs, picked per launch by ops/dp_kernels.wsb_launch_plan:
+//
+// "registers" (gather entry, bucket capacity L <= 32 and needle width
+// Tpad <= 32: every corpus pass of the default buckets up to 32 tokens).
+// A group of G lanes (G = 8, 16 or 32, the power of two >= Tpad) is one
+// problem; lane k holds needle column k + 1, and column 0 is a closed form
+// (0, or -w_s[i] under global).  Each lane keeps its column's history
+// H[0..L] in registers: L is a template constant and the row loop is fully
+// unrolled (uniform exit at the warp's longest slice), so the vertical
+// candidates max_r H[r] - w_s[i - r] have compile-time indices and read
+// their cost from the kernel's parameter bank — no shared or local memory,
+// no row buffer.  The diagonal is one shuffle up; the horizontal gaps are
+// one shuffle per gap length g against w_t*[g] (the exact one-pass form:
+// each candidate one rounding), unconditional and branch-free, so the
+// shuffles of a row issue back to back (models whose closure has a
+// negative cost take the shared / scratch route).  The
+// best cell is a per-lane running max, reduced across the group once at
+// the end.  With q fastest, a warp holds 32 / G consecutive queries of one
+// slice (Q >= 32 / G), so its row loop does not diverge.  Where Q is even
+// a group takes two consecutive queries of one slice: their token ids,
+// table row addresses and row loop are shared, which takes ~15 of the ~50
+// instructions a lane spends a problem-row off one of the two problems.  Table rows are
+// read from a [V, Q, Tpad] layout (the wrapper transposes the [V, Tpad, Q]
+// table once per call; the same memory at Q = 1), so a warp's reads are
+// one contiguous segment; a row's token id and table value are loaded a
+// row ahead of their use.
+//
+// "shared" / "scratch" (the flat entry, and the gather entry's longer
+// buckets or wider needles): one thread per problem; the rows of
 // a problem live in shared memory when enough threads a block fit there,
 // else in a device scratch buffer the wrapper allocates for the threads in
 // flight (the grid then walks over the problems).  Both go through one
@@ -167,6 +195,223 @@ __global__ void __launch_bounds__(128) wsb_dp_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// register route (gather entry only)
+// ---------------------------------------------------------------------------
+
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int REG_THREADS = 128;
+
+// The cost vectors, passed by value: indexed with compile-time constants,
+// each cost is an operand from the parameter bank.  Entries past the
+// bucket's L + 1 or the needle's T + 1 are zero and never reach a cell that
+// counts.
+template <int LT, int G>
+struct RegCosts {
+  float w_s[LT + 1];  // raw s-side costs
+  float w_t[G + 1];   // raw t-side costs (global row 0)
+  float w_ts[G + 1];  // closure of w_t
+};
+
+// problem p -> (slice s, query q), in 32 bits while the problems fit
+__device__ __forceinline__ void split_problem(int64_t p, int Q, bool small,
+                                              int64_t& s, int& q) {
+  if (small) {
+    const uint32_t pp = (uint32_t)p, ss = pp / (uint32_t)Q;
+    s = ss;
+    q = (int)(pp - ss * (uint32_t)Q);
+  } else {
+    s = p / Q;
+    q = (int)(p - s * Q);
+  }
+}
+
+template <int LT, int G, int LOC, int P>
+__global__ void __launch_bounds__(REG_THREADS) wsb_regs_kernel(
+    const RegCosts<LT, G> costs,
+    const float* __restrict__ table,     // [V, Q, T], fewer than 2^32 floats
+    const int32_t* __restrict__ tokens,  // [n, L]
+    const int32_t* __restrict__ len_s,   // [n], >= 1
+    const int32_t* __restrict__ len_t,   // [Q], 1 <= len_t <= T
+    float* __restrict__ out,             // [n * Q]
+    int64_t problems, int L, int T, int Q, bool small) {
+  // P consecutive problems a group: queries q .. q + P - 1 of one slice
+  // (P = 2 only where Q % 2 == 0), sharing its token ids, table row
+  // addresses and row loop
+  const int64_t gthread = (int64_t)blockIdx.x * REG_THREADS + threadIdx.x;
+  const int k = threadIdx.x & (G - 1);  // this lane's column is j = k + 1
+  const int j = k + 1;
+  const int64_t p_raw = (gthread / G) * P;
+  const bool valid = p_raw < problems;
+  const int64_t p = valid ? p_raw : 0;  // a tail group computes, stores nothing
+  int64_t s;
+  int q;
+  split_problem(p, Q, small, s, q);
+  const int ln = len_s[s];
+  int lt[P];
+#pragma unroll
+  for (int u = 0; u < P; ++u) lt[u] = len_t[q + u];
+  const int rows = valid ? min(ln, L) : 0;
+  // uniform bound of the warp: its longest slice
+  const int rows_warp = __reduce_max_sync(FULL, rows);
+
+  // this lane's own costs
+  float wt_lane = 0.0f, wts_lane = 0.0f;
+#pragma unroll
+  for (int g = 1; g <= G; ++g) {
+    if (j == g) {
+      wt_lane = costs.w_t[g];
+      wts_lane = costs.w_ts[g];
+    }
+  }
+  // horizontal candidate from column 0 (C[i][0] = 0) outside global
+  const float e0 = 0.0f - wts_lane;
+
+  float hist[P][LT + 1];  // H[r][j] of each problem, r = 0..i
+  float acc[P];
+  int last[P];  // rows whose cell counts (local)
+#pragma unroll
+  for (int u = 0; u < P; ++u) {
+    hist[u][0] = (LOC == GLOBAL) ? -wt_lane : 0.0f;
+    acc[u] = (LOC == GLOBAL) ? NEG : 0.0f;
+    last[u] = (j <= lt[u]) ? rows : 0;
+  }
+
+  // a row's token id is loaded two rows ahead, its table values one row
+  // ahead; table offsets fit 32 bits
+  const int32_t* trow = tokens + s * (int64_t)L;
+  const uint32_t vstride = (uint32_t)Q * (uint32_t)T;
+  const float* tcol = table + ((uint32_t)q * (uint32_t)T + (uint32_t)k);
+  const bool col_in = k < T;
+  int tok_n = (rows >= 2) ? __ldg(trow + 1) : 0;
+  float sv_n[P];
+  {
+    const float* r0 = tcol + (uint32_t)__ldg(trow) * vstride;
+#pragma unroll
+    for (int u = 0; u < P; ++u)
+      sv_n[u] = (rows >= 1 && col_in) ? __ldg(r0 + u * T) : 0.0f;
+  }
+
+#pragma unroll
+  for (int i = 1; i <= LT; ++i) {
+    if (i > rows_warp) break;
+    float sv[P];
+#pragma unroll
+    for (int u = 0; u < P; ++u) sv[u] = sv_n[u];
+    if (i < LT) {
+      const float* rn = tcol + (uint32_t)tok_n * vstride;
+#pragma unroll
+      for (int u = 0; u < P; ++u)
+        sv_n[u] = (i + 1 <= rows && col_in) ? __ldg(rn + u * T) : 0.0f;
+      if (i + 1 < LT) tok_n = (i + 2 <= rows) ? __ldg(trow + i + 1) : 0;
+    }
+    const float h_prev0 = (LOC == GLOBAL && i > 1) ? -costs.w_s[i - 1] : 0.0f;
+#pragma unroll
+    for (int u = 0; u < P; ++u) {
+      // diagonal: H[i - 1][j - 1] + S[i - 1][j - 1]
+      const float up = __shfl_up_sync(FULL, hist[u][i - 1], 1, G);
+      const float m = ((k == 0) ? h_prev0 : up) + sv[u];
+      // vertical gaps over every earlier row of this column
+      float v = hist[u][0] - costs.w_s[i];
+#pragma unroll
+      for (int r = 1; r < i; ++r) v = fmaxf(v, hist[u][r] - costs.w_s[i - r]);
+      float c = fmaxf(m, v);
+      if (LOC == LOCAL) c = fmaxf(c, 0.0f);
+      // horizontal gaps: C[i][j - g] - w_t*[g], and g = j from column 0.  A
+      // lane below g gets its own C back: c - w_t*[g] <= c (the wrapper
+      // sends only w_t* >= 0 here) never changes max(c, e).
+      float e = (LOC == GLOBAL) ? -costs.w_s[i] - wts_lane : e0;
+#pragma unroll
+      for (int g = 1; g < G; ++g)
+        e = fmaxf(e, __shfl_up_sync(FULL, c, g, G) - costs.w_ts[g]);
+      const float h = fmaxf(c, e);
+      hist[u][i] = h;
+      if (LOC == LOCAL) {
+        if (i <= last[u]) acc[u] = fmaxf(acc[u], h);
+      } else if (LOC == GLOBAL) {
+        if (i == ln && j == lt[u]) acc[u] = h;
+      } else {
+        if (i <= rows && j == lt[u]) acc[u] = fmaxf(acc[u], h);
+        if (i == ln && j <= lt[u]) acc[u] = fmaxf(acc[u], h);
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < P; ++u) {
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1)
+      acc[u] = fmaxf(acc[u], __shfl_xor_sync(FULL, acc[u], off, G));
+    if (valid && k == 0) out[p + u] = acc[u];
+  }
+}
+
+template <int LT, int G, int LOC>
+int launch_regs(const float* w_s, int n_ws, const float* w_t,
+                const float* w_ts, int n_wt, int blocks, cudaStream_t stream,
+                const float* table, const int32_t* tokens,
+                const int32_t* len_s, const int32_t* len_t, float* out,
+                int64_t problems, int L, int T, int Q) {
+  // costs past T only reach columns past the needle, or a lane's own C
+  // (c - 0 = c): zero
+  RegCosts<LT, G> c;
+  for (int i = 0; i <= LT; ++i) c.w_s[i] = (i < n_ws) ? w_s[i] : 0.0f;
+  for (int g = 0; g <= G; ++g) {
+    c.w_t[g] = (g <= T) ? w_t[g] : 0.0f;
+    c.w_ts[g] = (g <= T) ? w_ts[g] : 0.0f;
+  }
+  // two problems a group where Q is even; the grid must cover every group
+  const int P = (Q % 2 == 0) ? 2 : 1;
+  if ((int64_t)blocks * (REG_THREADS / G) * P < problems) return -1;
+  const bool small = problems <= 0xffffffffLL;
+  if (P == 2)
+    wsb_regs_kernel<LT, G, LOC, 2><<<blocks, REG_THREADS, 0, stream>>>(
+        c, table, tokens, len_s, len_t, out, problems, L, T, Q, small);
+  else
+    wsb_regs_kernel<LT, G, LOC, 1><<<blocks, REG_THREADS, 0, stream>>>(
+        c, table, tokens, len_s, len_t, out, problems, L, T, Q, small);
+  return (int)cudaGetLastError();
+}
+
+template <int LT, int G>
+int regs_locality(int locality, const float* w_s, int n_ws, const float* w_t,
+                  const float* w_ts, int n_wt, int blocks, cudaStream_t stream,
+                  const float* table, const int32_t* tokens,
+                  const int32_t* len_s, const int32_t* len_t, float* out,
+                  int64_t problems, int L, int T, int Q) {
+  switch (locality) {
+    case LOCAL:
+      return launch_regs<LT, G, LOCAL>(w_s, n_ws, w_t, w_ts, n_wt, blocks, stream, table,
+                                       tokens, len_s, len_t, out, problems, L, T, Q);
+    case GLOBAL:
+      return launch_regs<LT, G, GLOBAL>(w_s, n_ws, w_t, w_ts, n_wt, blocks, stream, table,
+                                        tokens, len_s, len_t, out, problems, L, T, Q);
+    default:
+      return launch_regs<LT, G, SEMIGLOBAL>(w_s, n_ws, w_t, w_ts, n_wt, blocks, stream,
+                                            table, tokens, len_s, len_t, out,
+                                            problems, L, T, Q);
+  }
+}
+
+template <int LT>
+int regs_width(int locality, const float* w_s, int n_ws, const float* w_t,
+               const float* w_ts, int n_wt, int blocks, cudaStream_t stream,
+               const float* table, const int32_t* tokens, const int32_t* len_s,
+               const int32_t* len_t, float* out, int64_t problems, int L, int T,
+               int Q) {
+  if (T <= 8)
+    return regs_locality<LT, 8>(locality, w_s, n_ws, w_t, w_ts, n_wt, blocks, stream, table,
+                                tokens, len_s, len_t, out, problems, L, T, Q);
+  if (T <= 16)
+    return regs_locality<LT, 16>(locality, w_s, n_ws, w_t, w_ts, n_wt, blocks, stream, table,
+                                 tokens, len_s, len_t, out, problems, L, T, Q);
+  return regs_locality<LT, 32>(locality, w_s, n_ws, w_t, w_ts, n_wt, blocks, stream, table,
+                               tokens, len_s, len_t, out, problems, L, T, Q);
+}
+
+// ---------------------------------------------------------------------------
+// shared / scratch route
+// ---------------------------------------------------------------------------
+
 using KernelFn = void (*)(const float*, const int32_t*, const int32_t*,
                          const int32_t*, const float*, const float*,
                          const float*, float*, float*, int64_t, int, int, int);
@@ -233,6 +478,34 @@ extern "C" int vt_wsb_dp_scores(
   return launch<true>(locality, blocks, threads, smem_bytes,
                       (cudaStream_t)stream, table, tokens, len_s, len_t, w_s,
                       w_t, w_ts, out, scratch, problems, L, T, Q);
+}
+
+// The register route of the gather entry (``blocks`` of REG_THREADS
+// threads, G lanes a group, two problems a group where Q is even):
+// ``table`` is [V, Q, T]; w_s
+// (n_ws >= L + 1 floats), w_t and w_ts (n_wt >= T + 1 floats each) are HOST
+// pointers, copied into the launch's parameters (the buffers may be freed
+// once this returns).  L <= 32, T <= 32, w_ts[1..T - 1] >= 0, and the
+// table holds fewer than 2^32 floats.
+extern "C" int vt_wsb_dp_scores_regs(
+    const float* table, const int32_t* tokens, const int32_t* len_s,
+    const int32_t* len_t, const float* w_s, int n_ws, const float* w_t,
+    const float* w_ts, int n_wt, float* out, int64_t n, int L, int T, int Q,
+    int locality, int blocks, void* stream) {
+  if (n <= 0 || Q <= 0 || L <= 0 || L > 32 || T <= 0 || T > 32 ||
+      locality < 0 || locality > 2 || n_ws < L + 1 || n_wt < T + 1 ||
+      blocks <= 0)
+    return -1;
+  const int64_t problems = n * (int64_t)Q;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (L <= 8)
+    return regs_width<8>(locality, w_s, n_ws, w_t, w_ts, n_wt, blocks, st, table,
+                         tokens, len_s, len_t, out, problems, L, T, Q);
+  if (L <= 16)
+    return regs_width<16>(locality, w_s, n_ws, w_t, w_ts, n_wt, blocks, st, table,
+                          tokens, len_s, len_t, out, problems, L, T, Q);
+  return regs_width<32>(locality, w_s, n_ws, w_t, w_ts, n_wt, blocks, st, table,
+                        tokens, len_s, len_t, out, problems, L, T, Q);
 }
 
 extern "C" int vt_wsb_dp_scores_flat(

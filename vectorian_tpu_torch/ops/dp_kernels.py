@@ -9,7 +9,11 @@ counts.
   only (csrc/affine_dp.cu; replaces ``pallas_align_scores``).
 - ``wsb_dp_scores``: the general-gap (Waterman-Smith-Beyer) corpus pass,
   gather fused as above (csrc/wsb_dp.cu; replaces the corpus-pass use of
-  ``pallas_align_scores_general``).
+  ``pallas_align_scores_general``).  Three routes (``wsb_launch_plan``):
+  "registers" (one lane a needle column, column histories in registers)
+  for buckets up to WSB_REG_MAX_L tokens and needles up to WSB_REG_MAX_T
+  (gap models whose closure is non-negative), else one thread a problem
+  with its rows in "shared" memory or in a "scratch" buffer.
 - ``wsb_dp_scores_flat``: the WSB DP of a flat [B, L, T] batch, scores only
   (csrc/wsb_dp.cu; replaces ``pallas_align_scores_general``).
 
@@ -30,10 +34,11 @@ import concurrent.futures
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import torch
 
@@ -65,9 +70,18 @@ WSB_SMEM_MAX = 227 * 1024
 WSB_MIN_RESIDENT = 256
 WSB_SCRATCH_MAX = 256 << 20
 WSB_SCRATCH_THREADS = 64
+# the register route of the WSB gather entry: bucket capacities and padded
+# needle widths its templates take (csrc/wsb_dp.cu), and its block size
+WSB_REG_MAX_L = 32
+WSB_REG_MAX_T = 32
+WSB_REG_THREADS = 128
 
-# kernel launches since the last reset (one per launch of each kernel)
+# kernel launches since the last reset (one per launch of each kernel), and
+# the launches of the WSB gather entry by route
 LAUNCHES = {"affine_dp": 0, "affine_dp_flat": 0, "wsb_dp": 0, "wsb_dp_flat": 0}
+WSB_ROUTE_LAUNCHES = {"registers": 0, "shared": 0, "scratch": 0}
+# the ptxas report of each source's last verbose build
+PTXAS_REPORTS: Dict[str, str] = {}
 
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
@@ -84,6 +98,10 @@ _SIGNATURES = {
             _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I,
             _I, _P,
         ],
+        "vt_wsb_dp_scores_regs": [
+            _P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _I64, _I, _I, _I, _I, _I,
+            _P,
+        ],
         "vt_wsb_dp_scores_flat": [
             _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _P,
         ],
@@ -93,8 +111,9 @@ _libs: Dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, WSB_ROUTE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _nvcc() -> str:
@@ -130,6 +149,7 @@ def _build_one(name: str, verbose: bool) -> Path:
             f"{res.stdout}\n{res.stderr}"
         )
     if verbose:
+        PTXAS_REPORTS[name] = res.stderr
         print(f"--- ptxas report, {SOURCES[name].name}", flush=True)
         print(res.stderr, end="", flush=True)
     os.replace(tmp, out)
@@ -144,6 +164,33 @@ def build(verbose: bool = False) -> Dict[str, Path]:
     with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
         futs = {n: pool.submit(_build_one, n, verbose) for n in SOURCES}
         return {n: f.result() for n, f in futs.items()}
+
+
+_PTXAS_ENTRY = re.compile(
+    r"Compiling entry function '(\S+)'(.*?)(?=Compiling entry function|\Z)", re.S
+)
+_PTXAS_FRAME = re.compile(
+    r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads"
+)
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_entries(report: str) -> Dict[str, dict]:
+    """{mangled kernel name: {"registers", "stack", "spill_stores",
+    "spill_loads"}} of every entry function in a ``-Xptxas -v`` report."""
+    out: Dict[str, dict] = {}
+    for m in _PTXAS_ENTRY.finditer(report):
+        frame = _PTXAS_FRAME.search(m.group(2))
+        regs = _PTXAS_REGS.search(m.group(2))
+        if frame is None or regs is None:
+            continue
+        out[m.group(1)] = {
+            "registers": int(regs.group(1)),
+            "stack": int(frame.group(1)),
+            "spill_stores": int(frame.group(2)),
+            "spill_loads": int(frame.group(3)),
+        }
+    return out
 
 
 def _load(name: str) -> ctypes.CDLL:
@@ -321,13 +368,52 @@ def affine_dp_scores_flat(S, len_s, len_t, gaps, locality):
 # ---------------------------------------------------------------------------
 
 
-def wsb_launch_plan(problems: int, L: int, T: int):
-    """(blocks, threads, shared bytes, scratch floats) of a WSB launch: a
-    problem's (L + 1) x (T + 1) rows go to shared memory when blocks of 32,
-    64 or 128 threads keep at least WSB_MIN_RESIDENT threads resident an SM
-    (the block size that keeps the most), else to a device scratch buffer
-    sized to the threads in flight (the grid then walks over the
-    problems)."""
+class WsbPlan(NamedTuple):
+    """A WSB launch: its route ("registers", "shared" or "scratch"), grid,
+    block, shared bytes a block and scratch floats."""
+
+    route: str
+    blocks: int
+    threads: int
+    smem: int
+    floats: int
+
+
+def wsb_group_width(T: int) -> int:
+    """Lanes a problem takes on the register route: the power of two >= T
+    (at least 8)."""
+    return 8 if T <= 8 else 16 if T <= 16 else 32
+
+
+def wsb_register_shape(L: int, T: int) -> bool:
+    """Whether the register route takes a bucket of capacity L against
+    needles padded to T."""
+    return 1 <= L <= WSB_REG_MAX_L and 1 <= T <= WSB_REG_MAX_T
+
+
+def wsb_launch_plan(problems: int, L: int, T: int, registers: bool = True,
+                    route=None, Q: int = 1) -> WsbPlan:
+    """The launch of a WSB DP of ``problems`` problems (``Q`` queries a
+    slice), bucket capacity L, needles padded to T.  ``route`` None picks:
+    "registers" where ``registers`` allows it (the gather entry, with a
+    closure of non-negative costs and a table under 2^32 floats) and
+    ``wsb_register_shape`` holds (a group of G = ``wsb_group_width(T)``
+    lanes takes one problem, or two consecutive queries of a slice where Q
+    is even; WSB_REG_THREADS threads a block); else a problem's (L + 1) x
+    (T + 1) rows go to "shared" memory when blocks of 32, 64 or 128 threads
+    keep at least WSB_MIN_RESIDENT threads resident an SM (the block size
+    that keeps the most), else to a "scratch" buffer sized to the threads
+    in flight (the grid then walks over the problems).  A named ``route``
+    forces that one (ValueError where it cannot run)."""
+    if route is None and registers and wsb_register_shape(L, T):
+        route = "registers"
+    if route == "registers":
+        if not (registers and wsb_register_shape(L, T)):
+            raise ValueError(f"the register route does not take L={L}, T={T}")
+        threads = WSB_REG_THREADS
+        groups = -(-problems // (2 if Q % 2 == 0 else 1))
+        blocks = -(-groups * wsb_group_width(T) // threads)
+        return WsbPlan("registers", blocks, threads, 0, 0)
     per = (L + 1) * (T + 1) * 4
     best = (0, 0)  # (resident threads an SM, threads a block)
     for threads in (128, 64, 32):
@@ -335,12 +421,24 @@ def wsb_launch_plan(problems: int, L: int, T: int):
             resident = min(SM_SMEM // (threads * per + 1024), 32) * threads
             best = max(best, (min(resident, 2048), threads))
     resident, threads = best
-    if resident >= max(WSB_MIN_RESIDENT, 1):
-        return -(-problems // threads), threads, threads * per, 0
+    if route not in (None, "shared", "scratch"):
+        raise ValueError(f"unknown WSB route {route!r}")
+    if route == "shared" and resident == 0:
+        raise ValueError(f"rows of L={L}, T={T} do not fit in shared memory")
+    if route == "shared" or (route is None and resident >= max(WSB_MIN_RESIDENT, 1)):
+        return WsbPlan("shared", -(-problems // threads), threads,
+                       threads * per, 0)
     threads = WSB_SCRATCH_THREADS
     blocks = max(1, min(-(-problems // threads),
                         WSB_SCRATCH_MAX // (threads * per)))
-    return blocks, threads, 0, blocks * threads * per // 4
+    return WsbPlan("scratch", blocks, threads, 0, blocks * threads * per // 4)
+
+
+def wsb_register_table(table: torch.Tensor) -> torch.Tensor:
+    """The register route's table layout: [V, Tpad, Q] -> [V, Q, Tpad], so
+    the G lanes of a problem (and a warp's consecutive queries) read one
+    contiguous segment.  At Q = 1 it is the same memory, not a copy."""
+    return table.transpose(1, 2).contiguous()
 
 
 def _wsb_scratch(dev, floats: int):
@@ -380,16 +478,21 @@ def wsb_dp_scores_reference(
     return out
 
 
-def wsb_dp_scores(table, tokens, len_s, len_t, w_s, w_t, w_t_star, locality):
+def wsb_dp_scores(table, tokens, len_s, len_t, w_s, w_t, w_t_star, locality,
+                  host_costs=None, _route=None):
     """Raw WSB-DP scores [n, Q] f32 of every slice against every query.
 
     table [V, Tpad, Q] f32, tokens [n, L] i32 (< V), len_s [n] i32 (clamped
     to >= 1, like the JAX corpus pass), len_t [Q] i32 (1 <= len_t <= Tpad);
     w_s [>= L + 1] raw document-side gap costs, w_t [>= Tpad + 1] raw
     needle-side costs (the global row 0) and w_t_star their min-plus closure
-    (ops/alignment.gap_cost_closure), all f32 on the table's device.  Any
-    bucket capacity and needle width is served: rows past the shared-memory
-    budget live in a scratch buffer."""
+    (ops/alignment.gap_cost_closure), all f32 on the table's device.
+    ``host_costs``: the same three vectors on the host (``GeneralGaps.
+    host_vecs``); the register route passes the costs by value, and without
+    them it copies the device vectors back first, which waits for the
+    stream.  Any bucket capacity and needle width is served
+    (``wsb_launch_plan`` picks the route; ``_route`` forces one, for
+    comparing the routes)."""
     _check_locality(locality)
     dev = table.device
     if table.dim() != 3 or tokens.dim() != 2:
@@ -413,22 +516,49 @@ def wsb_dp_scores(table, tokens, len_s, len_t, w_s, w_t, w_t_star, locality):
     if n == 0 or Q == 0:
         return out
     ln1 = torch.clamp_min(len_s, 1)
-    blocks, threads, smem, floats = wsb_launch_plan(n * Q, L, Tpad)
-    scratch, scratch_ptr = _wsb_scratch(dev, floats)
+    hs = None
+    if wsb_register_shape(L, Tpad):
+        hs = host_costs if host_costs is not None else (w_s, w_t, w_t_star)
+        hs = [w.detach().to("cpu", torch.float32).contiguous() for w in hs]
+        _check_gap_vecs(L, Tpad, *hs)
+    # the register route's shuffles need w_t*[1..Tpad] >= 0, its offsets
+    # 32 bits
+    registers = (
+        hs is not None and table.numel() < 2**32
+        and bool((hs[2][1 : Tpad + 1] >= 0).all())
+    )
+    plan = wsb_launch_plan(n * Q, L, Tpad, registers=registers, route=_route,
+                           Q=Q)
     lib = _load("wsb_dp")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.vt_wsb_dp_scores(
-            table.data_ptr(), tokens.data_ptr(), ln1.data_ptr(),
-            len_t.data_ptr(), w_s.data_ptr(), w_t.data_ptr(),
-            w_t_star.data_ptr(), out.data_ptr(), scratch_ptr, n, L, Tpad, Q,
-            LOCALITIES.index(locality), blocks, threads, smem, stream,
-        )
+    if plan.route == "registers":
+        n_wt = min(hs[1].numel(), hs[2].numel())
+        tq = wsb_register_table(table)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.vt_wsb_dp_scores_regs(
+                tq.data_ptr(), tokens.data_ptr(), ln1.data_ptr(),
+                len_t.data_ptr(), hs[0].data_ptr(), hs[0].numel(),
+                hs[1].data_ptr(), hs[2].data_ptr(), n_wt, out.data_ptr(),
+                n, L, Tpad, Q, LOCALITIES.index(locality), plan.blocks, stream,
+            )
+        # the costs were copied into the launch; the caching allocator
+        # orders any reuse of a transposed table after it on this stream
+        del tq
+    else:
+        scratch, scratch_ptr = _wsb_scratch(dev, plan.floats)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.vt_wsb_dp_scores(
+                table.data_ptr(), tokens.data_ptr(), ln1.data_ptr(),
+                len_t.data_ptr(), w_s.data_ptr(), w_t.data_ptr(),
+                w_t_star.data_ptr(), out.data_ptr(), scratch_ptr, n, L, Tpad,
+                Q, LOCALITIES.index(locality), plan.blocks, plan.threads,
+                plan.smem, stream,
+            )
+        del scratch
     _raise_on(rc, "wsb_dp")
     LAUNCHES["wsb_dp"] += 1
-    # the caching allocator orders any reuse of the freed scratch after this
-    # launch on the same stream
-    del scratch
+    WSB_ROUTE_LAUNCHES[plan.route] += 1
     return out
 
 
@@ -470,16 +600,16 @@ def wsb_dp_scores_flat(S, len_s, len_t, w_s, w_t, w_t_star, locality):
     out = torch.empty((B,), dtype=torch.float32, device=dev)
     if B == 0:
         return out
-    blocks, threads, smem, floats = wsb_launch_plan(B, L, T)
-    scratch, scratch_ptr = _wsb_scratch(dev, floats)
+    plan = wsb_launch_plan(B, L, T, registers=False)
+    scratch, scratch_ptr = _wsb_scratch(dev, plan.floats)
     lib = _load("wsb_dp")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.vt_wsb_dp_scores_flat(
             S.data_ptr(), len_s.data_ptr(), len_t.data_ptr(), w_s.data_ptr(),
             w_t.data_ptr(), w_t_star.data_ptr(), out.data_ptr(), scratch_ptr,
-            B, L, T, LOCALITIES.index(locality), blocks, threads, smem,
-            stream,
+            B, L, T, LOCALITIES.index(locality), plan.blocks, plan.threads,
+            plan.smem, stream,
         )
     _raise_on(rc, "wsb_dp_flat")
     LAUNCHES["wsb_dp_flat"] += 1

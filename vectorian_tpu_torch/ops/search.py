@@ -59,29 +59,37 @@ def gap_vec(gap_cost_side, n1: int) -> np.ndarray:
 
 
 class GeneralGaps:
-    """Device cost vectors of a general (non-affine) gap model, built once
-    per corpus pass or rescore: the needle side at one padded width (raw
+    """Cost vectors of a general (non-affine) gap model, built once per
+    corpus pass or rescore: the needle side at one padded width (raw
     ``w_t`` for the global row 0, and its min-plus closure ``w_t_star``,
-    computed once on the host), the document side per bucket capacity."""
+    computed once on the host), the document side per bucket capacity.
+    Each is kept on the host, where it is built, and on ``device``: the
+    WSB kernel's register route takes the host copies by value (reading
+    the device copies back would wait for the stream)."""
 
     def __init__(self, gap_costs, n1_t: int, device):
         self.gap_costs = gap_costs
         self.device = device
-        w_t = torch.from_numpy(gap_vec(gap_costs[1], n1_t))
-        self.w_t = w_t.to(device)
-        self.w_t_star = gap_cost_closure(w_t).to(device)
-        self._w_s = {}
+        self.w_t_host = torch.from_numpy(gap_vec(gap_costs[1], n1_t))
+        self.w_t_star_host = gap_cost_closure(self.w_t_host)
+        self.w_t = self.w_t_host.to(device)
+        self.w_t_star = self.w_t_star_host.to(device)
+        self._w_s = {}  # capacity -> (host, device)
 
-    def w_s(self, capacity: int) -> torch.Tensor:
+    def _w_s_pair(self, capacity: int):
         if capacity not in self._w_s:
-            self._w_s[capacity] = torch.from_numpy(
-                gap_vec(self.gap_costs[0], capacity + 1)
-            ).to(self.device)
+            host = torch.from_numpy(gap_vec(self.gap_costs[0], capacity + 1))
+            self._w_s[capacity] = (host, host.to(self.device))
         return self._w_s[capacity]
 
     def vecs(self, capacity: int):
-        """(w_s, w_t, w_t_star) for a bucket of ``capacity`` tokens."""
-        return self.w_s(capacity), self.w_t, self.w_t_star
+        """(w_s, w_t, w_t_star) on the device for a bucket of ``capacity``
+        tokens."""
+        return self._w_s_pair(capacity)[1], self.w_t, self.w_t_star
+
+    def host_vecs(self, capacity: int):
+        """The same three vectors on the host."""
+        return self._w_s_pair(capacity)[0], self.w_t_host, self.w_t_star_host
 
 
 def stack_query_tables(plans, len_ts):
@@ -123,12 +131,16 @@ def _bucket_scores_multiquery(
 ):
     """[n, Q] normalized scores of one bucket — Q queries in one corpus
     pass, one kernel launch (the gather of ``sim_multi`` by ``tokens`` is
-    fused into the DP kernel).  ``general``: the bucket's (w_s, w_t,
-    w_t_star) of a non-affine gap model (WSB kernel), else None (affine)."""
+    fused into the DP kernel).  ``general``: the GeneralGaps of a
+    non-affine gap model (WSB kernel), else None (affine)."""
     if general is None:
         raw = affine_dp_scores(sim_multi, tokens, lengths, len_t, gaps, locality)
     else:
-        raw = wsb_dp_scores(sim_multi, tokens, lengths, len_t, *general, locality)
+        capacity = int(tokens.shape[1])
+        raw = wsb_dp_scores(
+            sim_multi, tokens, lengths, len_t, *general.vecs(capacity),
+            locality, host_costs=general.host_vecs(capacity),
+        )
     scores = raw / torch.clamp_min(norm_total, 1e-9)[None, :]
     return scores.masked_fill(lengths[:, None] <= 0, NEG_SCORE)
 
@@ -591,8 +603,7 @@ class BruteForceEngine:
                 db,
                 _bucket_scores_multiquery(
                     db["tokens"], db["lengths"], sim_multi, lt_arr, gaps,
-                    nt_arr, locality,
-                    None if general is None else general.vecs(db["capacity"]),
+                    nt_arr, locality, general,
                 ),
             )
             for db in self._device_buckets
