@@ -9,15 +9,20 @@ Phases, each of which raises on failure:
 2. Build: compiles every kernel of the port from the checkout's sources
    (csrc/*.cu, one nvcc per source, all started together; prints each
    ptxas report) and the native host library (native/, the traceback).
-   Fails if an affine template up to T1P = 33 or any kernel of the WSB
-   register route has a stack frame or spills.
+   Fails if an affine template up to T1P = 33 (gather and row-gather) or
+   any kernel of the WSB register route (gather and row-gather) has a
+   stack frame or spills.
 3. Kernels against their plain torch versions on the card (random tables,
    tokens and costs from a seeded generator), bit for bit (torch.equal):
    the affine corpus kernel, the WSB corpus kernel (the register route at
    every bucket capacity and needle width it takes, Q 1, 3 and 32; the
    one-thread-a-problem routes, shared-memory rows and scratch, at their
-   shapes), and the two flat-batch kernels of the score-only rescore, each
-   in 3 localities and 2 gap models.
+   shapes), the row-gather entries of the score-only rescore (B 700, 8,192
+   and 65,536 problems, L 16 and 32, T 8 and 16, 1 and 12 query slots,
+   plus L=64 and L=256 buckets; every route), each timed against the
+   gather + flat-batch form it replaces and against its bound, and the
+   flat-batch wrappers, each in 3 localities and 2 affine gap sets or 3
+   general gap models.
 4. Main path at real size: a 1,000,000-sentence Zipf corpus (9 tokens a
    sentence over 5,000 words, a 5,000 x 300 KeyedVectors), Session(device=
    "cuda") -> partition("sentence") -> index; find_batch of 32 queries and
@@ -30,8 +35,10 @@ Phases, each of which raises on failure:
    the WSB register route against the one-thread-a-problem route in turns
    (new, old, old, new).  4c: a small corpus of repeated
    sentences whose ties make every cut unsafe, so the finalizer's extras
-   round runs the flat kernels (affine and general index), held against
-   the port on the CPU.
+   round runs the row-gather kernels (affine and general index; one launch
+   a bucket a round), held against the port on the CPU; prints the
+   launches a round and the round's device ms against the per-column
+   gather + flat-batch form it replaced.
 5. The port on the card against the port on the CPU on a small corpus,
    affine and general-gap indexes.
 
@@ -60,6 +67,7 @@ PEAK_BYTES = 3.35e12
 # reads the SM count and the clock (nvidia-smi clocks.max.sm) from the card.
 F32_LANES_PER_SM = 128
 F32_INSTR_RATE = None
+SM_HZ = None  # the SM clock (phase 1), for the sleep of ``device_ms``
 SEED = 0
 DEVICE = "cuda"
 SENTENCES = 1_000_000  # the bench.py e2e corpus size
@@ -71,6 +79,9 @@ WSB_PROBLEMS = 65_536
 WSB_REG_PROBLEMS = 16_384
 WSB_LONG_SLICES = 256
 FLAT_B = 65_536
+# phase 3 row-gather cases: problems a launch, and the bucket rows they index
+ROWS_BATCHES = (700, 8_192, 65_536)
+ROWS_BUCKET = 65_536
 LOCALITIES = ("local", "global", "semiglobal")
 
 
@@ -90,7 +101,7 @@ def _smi(query):
 
 
 def phase_device():
-    global F32_INSTR_RATE
+    global F32_INSTR_RATE, SM_HZ
     import torch
 
     if not torch.cuda.is_available():
@@ -99,20 +110,23 @@ def phase_device():
     print(card, flush=True)
     mhz = float(_smi("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    F32_INSTR_RATE = sms * F32_LANES_PER_SM * mhz * 1e6
+    SM_HZ = mhz * 1e6
+    F32_INSTR_RATE = sms * F32_LANES_PER_SM * SM_HZ
     emit({"phase": "device", "card": card, "sms": sms, "max_sm_mhz": mhz,
           "f32_instructions_per_s": F32_INSTR_RATE})
     return card
 
 
 _AFFINE_TEMPLATE = re.compile(r"affine_dp_kernelILi(\d+)ELi(\d)ELb([01])ELb([01])E")
-_WSB_REGS_TEMPLATE = re.compile(r"wsb_regs_kernelILi(\d+)ELi(\d+)ELi(\d)E")
+_WSB_REGS_TEMPLATE = re.compile(
+    r"wsb_regs_kernelILi(\d+)ELi(\d+)ELi(\d)ELi(\d)ELb([01])E")
 
 
 def ptxas_gate(reports):
     """Each kernel template's registers, stack frame and spills from the
     ptxas reports; raises if an affine template up to T1P = 33 or a kernel
-    of the WSB register route has a stack frame or spills."""
+    of the WSB register route (either entry) has a stack frame or spills,
+    or if the reports lack the gather or row-gather kernels."""
     from vectorian_tpu_torch.ops.dp_kernels import ptxas_entries
 
     rows, bad = [], []
@@ -120,11 +134,12 @@ def ptxas_gate(reports):
         for name, e in ptxas_entries(text).items():
             a, w = _AFFINE_TEMPLATE.search(name), _WSB_REGS_TEMPLATE.search(name)
             if a:
-                label = (f"affine T1P={a[1]} loc={a[2]} "
-                         f"{'flat' if a[3] == '1' else 'gather'}{' vec' if a[4] == '1' else ''}")
+                label = (f"affine {'rows' if a[3] == '1' else 'gather'} T1P={a[1]} "
+                         f"loc={a[2]}{' vec' if a[4] == '1' else ''}")
                 gated = int(a[1]) <= 33
             elif w:
-                label = f"wsb_regs L={w[1]} G={w[2]} loc={w[3]}"
+                label = (f"wsb_regs {'rows' if w[5] == '1' else 'gather'} L={w[1]} "
+                         f"G={w[2]} loc={w[3]} P={w[4]}")
                 gated = True
             else:
                 label, gated = f"{source}: {name[:60]}", False
@@ -132,9 +147,9 @@ def ptxas_gate(reports):
                          e["spill_loads"]])
             if gated and (e["stack"] or e["spill_stores"] or e["spill_loads"]):
                 bad.append(label)
-    if not any(r[0].startswith("wsb_regs") for r in rows) or not any(
-            r[0].startswith("affine") for r in rows):
-        raise AssertionError("ptxas gate: the reports name no affine or WSB register kernel")
+    for kind in ("affine gather", "affine rows", "wsb_regs gather", "wsb_regs rows"):
+        if not any(r[0].startswith(kind) for r in rows):
+            raise AssertionError(f"ptxas gate: the reports name no {kind} kernel")
     emit({"phase": "ptxas", "kernels_registers_stack_spill_st_ld": sorted(rows)})
     if bad:
         raise AssertionError(f"ptxas gate: stack frame or spills in {bad}")
@@ -167,6 +182,30 @@ def cuda_ms(fn, reps):
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps, sleep_s=0.05):
+    """Mean device time of ``fn`` over ``reps`` runs with the host's
+    enqueue hidden: a sleep kernel holds the stream while the host queues
+    the runs, so the events time the queued work alone (``cuda_ms`` of a
+    call of a few microseconds of device work times the host instead).
+    Raises if the host took longer to queue than the sleep lasted."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(sleep_s * SM_HZ))
+    t = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    host_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    if host_s > sleep_s:
+        raise AssertionError(f"device_ms: queueing took {host_s:.4f} s > the {sleep_s} s sleep")
     return start.elapsed_time(end) / reps
 
 
@@ -244,6 +283,30 @@ def wsb_flat_bound_ms(S, len_s, len_t):
     B, L, _ = S.shape
     nbytes = S.numel() * 4 + B * 12
     ops = float(_wsb_ops(len_s.clamp(0, L).double(), len_t.double()).sum())
+    return _bound(nbytes, ops)
+
+
+def rows_bound_ms(kernel, tokens, rows, qslot, table, V, len_s, len_t):
+    """Least time for a row-gather DP on these inputs: bytes of the distinct
+    table rows the problems read (each problem's first len_s rows), the
+    token ids of the bucket rows they touch, rows, qslot, len_s, len_t and
+    the [B] output, against the f32 operations of the DP (``kernel``
+    "affine_dp_flat" or "wsb_dp_flat")."""
+    import torch
+
+    L, T = tokens.shape[1], table.shape[1]
+    B = rows.shape[0]
+    r = len_s.clamp(0, L).long()
+    valid = torch.arange(L, device=r.device)[None, :] < r[:, None]
+    ids = (qslot.long()[:, None] * V + tokens[rows.long()].long())[valid]
+    nbytes = (torch.unique(ids).numel() * T * 4
+              + torch.unique(rows).numel() * L * 4 + B * 4 * 4 + B * 4)
+    lt = len_t.double()
+    if kernel == "affine_dp_flat":
+        per_row = (lt + 1) * (8 + 2 * torch.ceil(torch.log2(lt + 1)))
+        ops = float((r.double() * per_row).sum())
+    else:
+        ops = float(_wsb_ops(r.double(), lt).sum())
     return _bound(nbytes, ops)
 
 
@@ -349,17 +412,15 @@ def _wsb_inputs(rng, n, L, Tpad, Q, V=5_000):
 
 
 def phase_kernels_general():
-    """wsb_dp (corpus entry, every route) and the two flat-batch kernels
-    against their plain versions; returns {name: worst |diff|}."""
+    """wsb_dp (corpus entry, every route) against its plain version;
+    returns {"wsb_dp": worst |diff|}."""
     import numpy as np
-    import torch
 
     from vectorian_tpu_torch.ops import dp_kernels
-    from vectorian_tpu_torch.ops.alignment import AffineGapParams
 
     rng = np.random.default_rng(SEED + 2)
     models = _gap_models(rng)
-    worst = {"wsb_dp": 0.0, "wsb_dp_flat": 0.0, "affine_dp_flat": 0.0}
+    worst = {"wsb_dp": 0.0}
     # the register route at every bucket capacity and needle width it
     # takes; Q = 3 puts problems of two slices (row loops of different
     # lengths) in one warp
@@ -419,20 +480,141 @@ def phase_kernels_general():
     if dp_kernels.WSB_ROUTE_LAUNCHES["registers"] != before["registers"]:
         raise AssertionError("wsb_dp: a negative closure took the register route")
 
-    B = FLAT_B
+    return worst
+
+
+def _rows_inputs(rng, B, L, T, slots, n=ROWS_BUCKET, V=5_000):
+    """Row-gather inputs: a stacked [slots * V, T] table, a bucket's [n, L]
+    token ids and B (row, slot) problems; len_s holds 0, 1 and L, len_t T
+    and 1.  Returns (tokens, rows, qslot, table, V, len_s, len_t)."""
+    import numpy as np
+    import torch
+
+    def put(x):
+        return torch.as_tensor(x, device=DEVICE)
+
+    ln = rng.integers(0, L + 1, size=B).astype(np.int32)
+    ln[:3] = (0, 1, L)
+    lt = rng.integers(1, T + 1, size=B).astype(np.int32)
+    lt[3:5] = (T, 1)
+    return (put(rng.integers(0, V, size=(n, L)).astype(np.int32)),
+            put(rng.integers(0, n, size=B).astype(np.int32)),
+            put(rng.integers(0, slots, size=B).astype(np.int32)),
+            put(rng.uniform(-0.4, 1.0, size=(slots * V, T)).astype(np.float32)),
+            V, put(ln), put(lt))
+
+
+def _with_route(fn):
+    """(fn(), the WSB route names it launched)."""
+    from vectorian_tpu_torch.ops import dp_kernels
+
+    before = dict(dp_kernels.WSB_ROUTE_LAUNCHES)
+    out = fn()
+    return out, ",".join(k for k, v in dp_kernels.WSB_ROUTE_LAUNCHES.items()
+                         if v != before[k])
+
+
+def phase_kernels_rows():
+    """The row-gather entries of the score-only rescore and the flat-batch
+    wrappers against their plain versions (every route: the register route
+    at L 16 and 32, shared rows and scratch for the gap-bonus model and at
+    L=64 and L=256); each row-gather case timed against the gather +
+    flat-batch form it replaces (the WSB flat entry forced onto the
+    one-thread-a-problem route it took before it had a register route)
+    and against its bound.  Returns {name: worst |diff|}."""
+    import numpy as np
+    import torch
+
+    from vectorian_tpu_torch.alignment import CustomGapCost
+    from vectorian_tpu_torch.ops import dp_kernels
+    from vectorian_tpu_torch.ops.alignment import AffineGapParams
+    from vectorian_tpu_torch.ops.search import _mq_similarity
+
+    rng = np.random.default_rng(SEED + 4)
+    models = _gap_models(rng)
+    models["gap_bonus"] = CustomGapCost(lambda k: -0.05 * k)
     gapsets = [(0.0, 0.0, 0.0, 0.0), (0.37, 0.113, 0.29, 0.071)]
+    aff = AffineGapParams.of(*gapsets[1])
+    worst = {"wsb_dp_flat": 0.0, "affine_dp_flat": 0.0}
+    cases = [(B, L, T, slots) for B in ROWS_BATCHES for L in (16, 32)
+             for T in (8, 16) for slots in (1, 12)]
+    cases += [(8_192, 64, 8, 12), (512, 256, 64, 12)]
+    for B, L, T, slots in cases:
+        args = _rows_inputs(rng, B, L, T, slots)
+        tokens, rows, qslot, table, V, len_s, len_t = args
+        shape = (B, L, T, slots)
+        routes = {}
+        for loc in LOCALITIES:
+            for gs in gapsets:
+                gaps = AffineGapParams.of(*gs)
+                got = dp_kernels.affine_dp_scores_rows(*args, gaps, loc)
+                want = dp_kernels.affine_dp_scores_rows_reference(*args, gaps, loc)
+                worst["affine_dp_flat"] = max(worst["affine_dp_flat"], _check_equal(
+                    "affine_dp_scores_rows", got, want, (*shape, loc, gs)))
+            for name, model in models.items():
+                gg = _wsb_general(model, T)
+                vecs, host = gg.vecs(L), gg.host_vecs(L)
+                got, routes[name] = _with_route(lambda: dp_kernels.wsb_dp_scores_rows(
+                    *args, *vecs, loc, host_costs=host))
+                want = dp_kernels.wsb_dp_scores_rows_reference(*args, *vecs, loc)
+                worst["wsb_dp_flat"] = max(worst["wsb_dp_flat"], _check_equal(
+                    "wsb_dp_scores_rows", got, want, (*shape, loc, name, routes[name])))
+        register = dp_kernels.wsb_register_shape(L, T)
+        if (routes["exponential"] == "rows_registers") != register or (
+                routes["gap_bonus"] == "rows_registers"):
+            raise AssertionError(f"wsb_dp_scores_rows: wrong routes {routes} at {shape}")
+        gg = _wsb_general(models["exponential"], T)
+        vecs, host = gg.vecs(L), gg.host_vecs(L)
+        old = dp_kernels.wsb_launch_plan(B, L, T, registers=False).route
+        tok = tokens[rows.long()]
+        S = _mq_similarity(tok, qslot, table, V)
+        for kernel, run, flat, before, plain in (
+            ("affine_dp_flat",
+             lambda: dp_kernels.affine_dp_scores_rows(*args, aff, "local"),
+             lambda: dp_kernels.affine_dp_scores_flat(S, len_s, len_t, aff, "local"),
+             lambda: dp_kernels.affine_dp_scores_flat(
+                 _mq_similarity(tok, qslot, table, V), len_s, len_t, aff, "local"),
+             lambda: dp_kernels.affine_dp_scores_rows_reference(*args, aff, "local")),
+            ("wsb_dp_flat",
+             lambda: dp_kernels.wsb_dp_scores_rows(*args, *vecs, "local", host_costs=host),
+             lambda: dp_kernels.wsb_dp_scores_flat(S, len_s, len_t, *vecs, "local",
+                                                   host_costs=host, _route=old),
+             lambda: dp_kernels.wsb_dp_scores_flat(
+                 _mq_similarity(tok, qslot, table, V), len_s, len_t, *vecs, "local",
+                 host_costs=host, _route=old),
+             lambda: dp_kernels.wsb_dp_scores_rows_reference(*args, *vecs, "local")),
+        ):
+            bound, by = rows_bound_ms(kernel, *args)
+            emit({"phase": "kernel", "name": kernel, "entry": "rows", "B": B, "L": L,
+                  "T": T, "slots": slots,
+                  "route": routes["exponential"] if kernel == "wsb_dp_flat" else "thread_per_problem",
+                  "routes_by_model": routes if kernel == "wsb_dp_flat" else None,
+                  "flat_route": old if kernel == "wsb_dp_flat" else "thread_per_problem",
+                  "localities": 3, "max_abs_diff": 0.0,
+                  "kernel_ms": cuda_ms(run, 10), "flat_ms": cuda_ms(flat, 10),
+                  "gather_plus_flat_ms": cuda_ms(before, 10),
+                  "queued_kernel_ms": device_ms(run, 10),
+                  "queued_gather_plus_flat_ms": device_ms(before, 10),
+                  "plain_ms": cuda_ms(plain, 1), "bound_ms": bound, "bound_by": by})
+        del S, tok, args, tokens, table
+
+    # the flat-batch wrappers (the literal counterparts of the Pallas
+    # kernels): the same kernels reading S as their table
+    B = FLAT_B
     for L in (16, 32):
         for T in (8, 16):
             S = torch.as_tensor(
                 rng.uniform(-0.4, 1.0, size=(B, L, T)).astype(np.float32), device=DEVICE)
             ln = rng.integers(0, L + 1, size=B).astype(np.int32)
-            ln[:2] = (0, L)  # len_s == 0 passes unclamped, as the rescore does
+            ln[:2] = (0, L)  # len_s == 0 passes unclamped and unmasked
             len_s = torch.as_tensor(ln, device=DEVICE)
             len_t = torch.as_tensor(rng.integers(1, T + 1, size=B).astype(np.int32), device=DEVICE)
             for loc in LOCALITIES:
                 for name, model in models.items():
-                    vecs = _wsb_general(model, T).vecs(L)
-                    got = dp_kernels.wsb_dp_scores_flat(S, len_s, len_t, *vecs, loc)
+                    gg = _wsb_general(model, T)
+                    vecs = gg.vecs(L)
+                    got = dp_kernels.wsb_dp_scores_flat(S, len_s, len_t, *vecs, loc,
+                                                        host_costs=gg.host_vecs(L))
                     want = dp_kernels.wsb_dp_scores_flat_reference(S, len_s, len_t, *vecs, loc)
                     worst["wsb_dp_flat"] = max(worst["wsb_dp_flat"], _check_equal(
                         "wsb_dp_flat", got, want, (B, L, T, loc, name)))
@@ -442,21 +624,32 @@ def phase_kernels_general():
                     want = dp_kernels.affine_dp_scores_flat_reference(S, len_s, len_t, gaps, loc)
                     worst["affine_dp_flat"] = max(worst["affine_dp_flat"], _check_equal(
                         "affine_dp_flat", got, want, (B, L, T, loc, gs)))
-            vecs = _wsb_general(models["exponential"], T).vecs(L)
-            gaps = AffineGapParams.of(*gapsets[1])
-            for name, run, plain, bound in (
+            gg = _wsb_general(models["exponential"], T)
+            vecs, host = gg.vecs(L), gg.host_vecs(L)
+            old = dp_kernels.wsb_launch_plan(B, L, T, registers=False).route
+            route = _with_route(lambda: dp_kernels.wsb_dp_scores_flat(
+                S, len_s, len_t, *vecs, "local", host_costs=host))[1]
+            for name, run, run_old, plain, bound in (
                 ("wsb_dp_flat",
-                 lambda: dp_kernels.wsb_dp_scores_flat(S, len_s, len_t, *vecs, "local"),
+                 lambda: dp_kernels.wsb_dp_scores_flat(S, len_s, len_t, *vecs, "local",
+                                                       host_costs=host),
+                 lambda: dp_kernels.wsb_dp_scores_flat(S, len_s, len_t, *vecs, "local",
+                                                       host_costs=host, _route=old),
                  lambda: dp_kernels.wsb_dp_scores_flat_reference(S, len_s, len_t, *vecs, "local"),
                  wsb_flat_bound_ms(S, len_s, len_t)),
                 ("affine_dp_flat",
-                 lambda: dp_kernels.affine_dp_scores_flat(S, len_s, len_t, gaps, "local"),
-                 lambda: dp_kernels.affine_dp_scores_flat_reference(S, len_s, len_t, gaps, "local"),
+                 lambda: dp_kernels.affine_dp_scores_flat(S, len_s, len_t, aff, "local"),
+                 None,
+                 lambda: dp_kernels.affine_dp_scores_flat_reference(S, len_s, len_t, aff, "local"),
                  affine_flat_bound_ms(S, len_s, len_t)),
             ):
-                emit({"phase": "kernel", "name": name, "B": B, "L": L, "T": T,
+                emit({"phase": "kernel", "name": name, "entry": "flat", "B": B, "L": L,
+                      "T": T, "route": route if run_old else "thread_per_problem",
                       "localities": 3, "max_abs_diff": 0.0,
-                      "kernel_ms": cuda_ms(run, 10), "plain_ms": cuda_ms(plain, 1),
+                      "kernel_ms": cuda_ms(run, 10),
+                      "thread_route_ms": cuda_ms(run_old, 10) if run_old else None,
+                      "thread_route": old if run_old else None,
+                      "plain_ms": cuda_ms(plain, 1),
                       "bound_ms": bound[0], "bound_by": bound[1]})
     return worst
 
@@ -706,9 +899,10 @@ def duplicates_corpus(rng):
 
 
 def phase_rescore(card):
-    """4c: the finalizer's score-only rescore on the card (flat kernels)
-    under an affine and a general-gap index, against the port on the CPU;
-    returns per flat kernel its launches and the inputs the path gave it."""
+    """4c: the finalizer's score-only rescore on the card (the row-gather
+    kernels) under an affine and a general-gap index, against the port on
+    the CPU; returns per kernel its launches, the extras rounds, the calls
+    (round, args, kwargs) and the WSB routes the path gave it."""
     import numpy as np
 
     from vectorian_tpu_torch.alignment import ExponentialGapCost
@@ -719,30 +913,38 @@ def phase_rescore(card):
     vectors = rng.normal(size=(len(words), 300)).astype(np.float32)
     on_card = build_session(texts, words, vectors, DEVICE)
     on_cpu = build_session(texts, words, vectors, "cpu")
+    real_round = search.BucketTopKSource.above_exact_many
     out = {}
     for kernel, wrapper, gap in (
-        ("affine_dp_flat", "affine_dp_scores_flat", None),
-        ("wsb_dp_flat", "wsb_dp_scores_flat", ExponentialGapCost(3.0)),
+        ("affine_dp_flat", "affine_dp_scores_rows", None),
+        ("wsb_dp_flat", "wsb_dp_scores_rows", ExponentialGapCost(3.0)),
     ):
         idx_card, idx_cpu = make_index(on_card, gap), make_index(on_cpu, gap)
         real = getattr(search, wrapper)
-        seen = []
+        seen, rounds = [], [0]
 
-        def record(*args, real=real, seen=seen):
-            seen.append(args)
-            return real(*args)
+        def record(*args, real=real, seen=seen, rounds=rounds, **kwargs):
+            seen.append((rounds[0], args, kwargs))
+            return real(*args, **kwargs)
+
+        def count_round(self, reqs, rounds=rounds):
+            rounds[0] += 1
+            return real_round(self, reqs)
 
         n, min_score = 10, 0.1
         setattr(search, wrapper, record)
+        search.BucketTopKSource.above_exact_many = count_round
         try:
             # ---- the main path: launch counts from 0, read right after ----
             dp_kernels.reset_launches()
             got_f = [pairs(idx_card.find(q, n=n, min_score=min_score)) for q in queries[:4]]
             got_b = [pairs(r) for r in idx_card.find_batch(queries, n=n, min_score=min_score)]
             launches = dp_kernels.LAUNCHES[kernel]
+            routes = {k: v for k, v in dp_kernels.WSB_ROUTE_LAUNCHES.items() if v}
             # ---- end of the main path ----
         finally:
             setattr(search, wrapper, real)
+            search.BucketTopKSource.above_exact_many = real_round
         if launches == 0:
             raise AssertionError(f"rescore: the extras round launched no {kernel} kernel")
         want_f = [pairs(idx_cpu.find(q, n=n, min_score=min_score)) for q in queries[:4]]
@@ -751,32 +953,94 @@ def phase_rescore(card):
                     compare_with_cpu(f"rescore {kernel}", got_b, want_b))
         if got_b[:4] != got_f:
             raise AssertionError(f"rescore {kernel}: find and find_batch differ")
+        per_round = [sum(1 for r, _, _ in seen if r == i) for i in range(1, rounds[0] + 1)]
         emit({"phase": "rescore", "kernel": kernel, "launches": launches,
-              "calls": len(seen), "batch_shapes": [list(a[0].shape) for a in seen],
+              "rounds": rounds[0], "launches_per_round": per_round,
+              "calls": len(seen), "wsb_route_launches": routes,
+              "problems_per_call": [int(a[1].shape[0]) for _, a, _ in seen],
               "max_abs_score_diff_vs_cpu": worst, "card": card})
-        out[kernel] = (launches, seen)
+        if max(per_round, default=0) > len(idx_card.packed.buckets):
+            raise AssertionError(f"rescore {kernel}: more than one launch a bucket a round")
+        out[kernel] = {"launches": launches, "rounds": rounds[0],
+                       "per_round": per_round, "calls": seen,
+                       "routes": sorted(routes)}
     return out
 
 
-def time_flat_calls(kernel, calls):
-    """Kernel vs plain on the card at the inputs the main path gave a flat
-    kernel: (max |diff|, ms, plain ms, bound ms, bound_by), summed over the
-    calls."""
+def _per_column_call(kernel, args, kwargs, sel):
+    """The form a row-gather call replaced, for the problems ``sel`` of one
+    query column: gather the column's similarity block, then the
+    flat-batch entry (WSB on its one-thread-a-problem route) and the
+    empty-slice mask."""
+    from vectorian_tpu_torch.ops import dp_kernels
+    from vectorian_tpu_torch.ops.search import NEG_SCORE, _mq_similarity
+
+    tokens, rows, qslot, table, V, len_s, len_t, *rest = args
+    r, q, ln, lt = rows[sel], qslot[sel], len_s[sel], len_t[sel]
+    if kernel == "affine_dp_flat":
+        return lambda: dp_kernels.affine_dp_scores_flat(
+            _mq_similarity(tokens[r.long()], q, table, V), ln, lt, *rest
+        ).masked_fill(ln <= 0, NEG_SCORE)
+    old = dp_kernels.wsb_launch_plan(len(sel), tokens.shape[1], table.shape[1],
+                                     registers=False).route
+    return lambda: dp_kernels.wsb_dp_scores_flat(
+        _mq_similarity(tokens[r.long()], q, table, V), ln, lt, *rest,
+        host_costs=kwargs.get("host_costs"), _route=old,
+    ).masked_fill(ln <= 0, NEG_SCORE)
+
+
+def time_row_calls(kernel, res):
+    """Kernel vs plain on the card at the inputs the main path gave a
+    row-gather kernel, and each extras round's device ms against the
+    per-column gather + flat-batch form it replaced (one call a column,
+    held bit for bit against the kernel).  Returns (max |diff|, ms, plain
+    ms, bound ms, bound_by, per-round ms, per-round ms before, columns a
+    round)."""
+    import torch
+
     from vectorian_tpu_torch.ops import dp_kernels
 
-    run = getattr(dp_kernels, "wsb_dp_scores_flat" if kernel == "wsb_dp_flat"
-                  else "affine_dp_scores_flat")
-    plain = getattr(dp_kernels, run.__name__ + "_reference")
-    bound_fn = wsb_flat_bound_ms if kernel == "wsb_dp_flat" else affine_flat_bound_ms
+    entry = "wsb_dp_scores_rows" if kernel == "wsb_dp_flat" else "affine_dp_scores_rows"
+    run = getattr(dp_kernels, entry)
+    plain = getattr(dp_kernels, entry + "_reference")
     worst = ms = plain_ms = bound = 0.0
     by = "operations"
-    for args in calls:
-        worst = max(worst, _check_equal(kernel, run(*args), plain(*args), "main-path shapes"))
-        ms += cuda_ms(lambda: run(*args), 20)
+    after = [0.0] * res["rounds"]
+    before = [0.0] * res["rounds"]
+    q_after = [0.0] * res["rounds"]
+    q_before = [0.0] * res["rounds"]
+    columns = [0] * res["rounds"]
+    for rnd, args, kwargs in res["calls"]:
+        got = run(*args, **kwargs)
+        worst = max(worst, _check_equal(kernel, got, plain(*args), "main-path shapes"))
+        t = cuda_ms(lambda: run(*args, **kwargs), 20)
+        q_t = device_ms(lambda: run(*args, **kwargs), 20)
+        ms += t
         plain_ms += cuda_ms(lambda: plain(*args), 1)
-        b, by = bound_fn(*args[:3])
+        b, by = rows_bound_ms(kernel, *args[:7])
         bound += b
-    return worst, ms, plain_ms, bound, by
+        qslot = args[2]
+        t_cols = q_cols = 0.0
+        for q in sorted(set(qslot.tolist())):
+            sel = torch.nonzero(qslot == q).flatten()
+            col = _per_column_call(kernel, args, kwargs, sel)
+            _check_equal(kernel, got[sel], col(), "per-column form")
+            t_cols += cuda_ms(col, 20)
+            q_cols += device_ms(col, 20)
+            if rnd:
+                columns[rnd - 1] += 1
+        if rnd:
+            after[rnd - 1] += t
+            before[rnd - 1] += t_cols
+            q_after[rnd - 1] += q_t
+            q_before[rnd - 1] += q_cols
+    emit({"phase": "rescore_rounds", "kernel": kernel,
+          "launches_per_round": res["per_round"], "columns_per_round": columns,
+          "round_ms": after, "round_ms_before": before,
+          "sum_ms": sum(after), "sum_ms_before": sum(before),
+          "queued_round_ms": q_after, "queued_round_ms_before": q_before,
+          "queued_sum_ms": sum(q_after), "queued_sum_ms_before": sum(q_before)})
+    return worst, ms, plain_ms, bound, by, after, before, columns, q_after, q_before
 
 
 def phase_small_reference():
@@ -820,6 +1084,7 @@ def main():
     log("built")
     worst = phase_kernels()
     worst_general = phase_kernels_general()
+    worst_rows = phase_kernels_rows()
     log("kernels match their plain versions")
 
     rng = np.random.default_rng(SEED)
@@ -868,18 +1133,24 @@ def main():
         ("affine_dp_flat", "affine_dp.cu", "vectorian_tpu/ops/pallas_dp.py:44"),
         ("wsb_dp_flat", "wsb_dp.cu", "vectorian_tpu/ops/pallas_dp.py:155"),
     ):
-        launches, calls = rescore[name]
-        err, ms, plain_ms, bound, by = time_flat_calls(name, calls)
+        res = rescore[name]
+        (err, ms, plain_ms, bound, by, after, before, columns, q_after,
+         q_before) = time_row_calls(name, res)
         kernels.append({
             "name": name, "route": "cuda",
-            "launch_route": ",".join(sorted({
-                dp_kernels.wsb_launch_plan(*a[0].shape, registers=False).route
-                for a in calls})) if name == "wsb_dp_flat" else "thread_per_problem",
+            "launch_route": (",".join(r for r in res["routes"] if r.startswith("rows_"))
+                             if name == "wsb_dp_flat" else "thread_per_problem"),
+            "entry": name.replace("_flat", "_scores_rows"),
             "source": f"vectorian_tpu_torch/csrc/{source}", "replaces": replaces,
-            "launches": launches, "max_abs_err": max(err, worst_general[name]),
+            "launches": res["launches"], "max_abs_err": max(err, worst_rows[name]),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": None,
-            "shapes_B_L_T": [list(a[0].shape) for a in calls], "card": card,
+            "rounds": res["rounds"], "launches_per_round": res["per_round"],
+            "round_ms": after, "round_ms_before": before,
+            "queued_round_ms": q_after, "queued_round_ms_before": q_before,
+            "columns_per_round": columns,
+            "problems_per_call": [int(a[1].shape[0]) for _, a, _ in res["calls"]],
+            "card": card,
         })
     log(f"done in {time.perf_counter() - t_start:.0f} s")
     emit({"kernels": kernels})

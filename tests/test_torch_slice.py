@@ -355,21 +355,22 @@ def duplicates():
 @pytest.mark.parametrize("gap_model", ["affine", "exponential"])
 def test_unsafe_cut_extras_match_jax(duplicates, gap_model, monkeypatch):
     """The tie-bounded extras round runs the score-only rescore (the
-    flat-batch DP entry of the gap model) in find and find_batch, and the
+    row-gather DP entry of the gap model) in find and find_batch, and the
     results still match the JAX package."""
     from vectorian_tpu_torch.ops import search
 
     sj, st, queries = duplicates
     if gap_model == "affine":
         ij, it = _indexes(sj, st, "local")
-        flat = "affine_dp_scores_flat"
+        entry = "affine_dp_scores_rows"
     else:
         ij, it = _general_indexes(sj, st, "local", gap_model)
-        flat = "wsb_dp_scores_flat"
+        entry = "wsb_dp_scores_rows"
     calls = []
-    real = getattr(search, flat)
+    real = getattr(search, entry)
     monkeypatch.setattr(
-        search, flat, lambda *a: calls.append(a[0].shape) or real(*a)
+        search, entry,
+        lambda *a, **k: calls.append(a[1].shape) or real(*a, **k),
     )
     n, min_score = 10, 0.1
     got_f = [_pairs(it.find(q, n=n, min_score=min_score)) for q in queries[:3]]

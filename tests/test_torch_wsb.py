@@ -227,6 +227,16 @@ def test_wsb_launch_plan_serves_every_bucket_shape(L, T):
     else:
         assert rows.smem == 0 and rows.floats == rows.blocks * rows.threads * per // 4
         assert rows.floats * 4 <= dp_kernels.WSB_SCRATCH_MAX and rows.blocks >= 1
+    # the row-gather entry: the same routes under "rows_" names, one problem
+    # a register group whatever Q (each has its own needle length)
+    for Q in (1, 2, 32):
+        got = dp_kernels.wsb_launch_plan(problems, L, T, Q=Q, rows=True)
+        if plan.route == "registers":
+            assert got == ("rows_registers", plan.blocks, *plan[2:])
+        else:
+            assert got == ("rows_" + rows.route, *rows[1:])
+    assert dp_kernels.wsb_launch_plan(problems, L, T, registers=False, rows=True) == (
+        "rows_" + rows.route, *rows[1:])
     scratch = dp_kernels.wsb_launch_plan(problems, L, T, route="scratch")
     assert scratch.route == "scratch" and scratch.floats > 0
     if per * 32 > dp_kernels.WSB_SMEM_MAX:

@@ -1,15 +1,21 @@
 // Affine-gap (Gotoh) alignment DP scores, two entries:
 //   gather: raw[s, q] = best cell of the DP of slice s against query q, where
 //           S[i, j] = table[tokens[s, i], j, q] (the gather is fused in);
-//   flat:   raw[b] = best cell of the DP of S[b] ([B, L, T], one problem a
-//           thread, per-problem len_s and len_t), the score-only rescore.
+//   rows:   raw[b] = best cell of the DP of problem b = (bucket row r =
+//           rows[b], table slot k = qslot[b]), where S[i, j] =
+//           table[k * V + tokens[r, i], j] (the stacked [slots * V, Tmax]
+//           plan table, read row by row: the gathered S never reaches
+//           device memory), per-problem len_s (0 allowed) and len_t; the
+//           score-only rescore.  A null ``tokens`` reads the table itself
+//           as S ([B * L, Tmax]: row r * L + i), the flat [B, L, T] batch.
 //
 // Replaces: _make_multiq_kernel / _dp_one_slice / pallas_align_scores_multi_nt
 // (gather) and _make_kernel / _pallas_call_scores / pallas_align_scores
-// (flat) in vectorian_tpu/ops/pallas_dp.py.  On the TPU the gather stayed in XLA
-// (Mosaic cannot gather inside VMEM) and the kernel read the [L, c, Tp, Q]
-// gather output; here each thread loads its own table rows, so the gathered
-// stream never touches device memory.
+// (rows; the flat batch is its identity case) in
+// vectorian_tpu/ops/pallas_dp.py.  On the TPU the gather stayed in XLA
+// (Mosaic cannot gather inside VMEM) and the kernel read the gathered block;
+// here each thread loads its own table rows, so the gathered stream never
+// touches device memory.
 //
 // What bounds it on an H100: the bytes it must move are the token ids in and
 // the [n, Q] f32 scores out (the [V, Tpad, Q] table, 5 MB at V=5,000,
@@ -20,8 +26,8 @@
 // at 1M slices of 9 tokens and Q=32 that is ~190 MB against ~40 GFLOP, so
 // the kernel is bound by f32 operations, not bytes.
 //
-// What the design does about it: one thread per (slice, query) problem;
-// threadIdx walks q fastest, so a warp's table reads table[tok, j,
+// What the design does about it: one thread per problem; in the gather
+// entry threadIdx walks q fastest, so a warp's table reads table[tok, j,
 // q..q+31] coalesce and the token id is a broadcast.  The H/F/E rows live
 // in registers and nowhere else: T1P is a template parameter, every loop
 // over columns is fully unrolled, and each doubling step is its own
@@ -33,13 +39,12 @@
 // before row i's arithmetic, so no row starts with a dependent token ->
 // table load; wider rows load theirs with the token id one row ahead.
 // Where a row's Tpad floats are contiguous (Q = 1, the `find` pass, and
-// the flat entry) they load as float4.  Problems split into (slice, query)
-// with a 32-bit division while they fit.  Rows past the slice's length are
-// skipped (no cell past len_s can change the score).  Blocks of 128
-// threads: at the 64-87 registers ptxas reports for T1P = 9 an SM keeps
-// 5-8 of them (20-32 warps), and the small block keeps the tail of a
-// launch short.  The flat entry is the same kernel with row i of problem b read
-// from S[b, i, :].
+// every row-gather problem) they load as float4.  Problems split into
+// (slice, query) with a 32-bit division while they fit.  Rows past the
+// slice's length are skipped (no cell past len_s can change the score).
+// Blocks of 128 threads: at the 64-87 registers ptxas reports for T1P = 9
+// an SM keeps 5-8 of them (20-32 warps), and the small block keeps the tail
+// of a launch short.
 //
 // Exactness contract: every add, subtract and multiply happens in the JAX
 // reference's order (vectorian_tpu/ops/pallas_dp.py _dp_one_slice), so the
@@ -161,42 +166,74 @@ __device__ __forceinline__ void dp_row(float (&H)[T1P], float (&Fv)[T1P],
   }
 }
 
-template <int T1P, int LOC, bool FLAT, bool VEC>
-__global__ void __launch_bounds__(THREADS) affine_dp_kernel(
-    const float* __restrict__ table,      // gather: [V, Tpad, Q]; flat: [n, L, Tpad]
-    const int32_t* __restrict__ tokens,   // gather: [n, L]; flat: unused
-    const int32_t* __restrict__ len_s,    // [n], >= 0
-    const int32_t* __restrict__ len_t,    // gather: [Q]; flat: [n]; 1 <= len_t <= Tpad
-    float* __restrict__ out,              // [n, Q]
-    int64_t n, int L, int Tpad, int Q,
-    float open_s, float ext_s, float open_t, float ext_t, bool small) {
+// The arguments of a launch (both entries); passed by value into the
+// kernel's parameter bank.
+struct Args {
+  const float* table;     // gather: [V, Tpad, Q]; rows: [slots * V, Tpad]
+  const int32_t* tokens;  // [n, L]; rows: null = S itself (row r * L + i)
+  const int32_t* prow;    // rows: [B] bucket row of each problem
+  const int32_t* pslot;   // rows: [B] table slot of each problem
+  const int32_t* len_s;   // gather: [n], >= 1; rows: [B], >= 0
+  const int32_t* len_t;   // gather: [Q]; rows: [B]; 1 <= len_t <= Tpad
+  float* out;             // gather: [n, Q]; rows: [B]
+  int64_t n;              // gather: slices; rows: problems
+  int L, Tpad, Q;         // rows: Q = 1
+  int64_t V;              // rows: table rows a slot
+  float open_s, ext_s, open_t, ext_t;
+  bool small;             // gather: problems fit 32 bits
+  bool mask_empty;        // rows: len_s <= 0 scores NEG
+};
+
+template <int T1P, int LOC, bool ROWS, bool VEC>
+__global__ void __launch_bounds__(THREADS) affine_dp_kernel(const Args a) {
   const int64_t p = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  if (p >= n * (int64_t)Q) return;
+  if (p >= a.n * (int64_t)a.Q) return;
+  // Similarity row i is table + tok(i) * rstride, column j at j * cs:
+  // gather table[tokens[s, i], :, q] (column stride Q), rows
+  // table[slot * V + tokens[r, i], :] (contiguous).
   int64_t s;
-  int q;
-  split_problem(p, Q, small, s, q);
-  const int ln = len_s[s];
-  const int lt = len_t[FLAT ? s : q];
-  const float decay = fminf(open_t, ext_t);
+  int ln, lt;
+  const float* base;
+  int64_t rstride, cs;
+  if (ROWS) {
+    s = (a.prow != nullptr) ? (int64_t)a.prow[p] : p;
+    ln = a.len_s[p];
+    lt = a.len_t[p];
+    rstride = a.Tpad;
+    cs = 1;
+    base = a.table + (a.pslot != nullptr ? (int64_t)a.pslot[p] * a.V : 0) * rstride;
+    // no token ids: the problem's own L rows of S
+    if (a.tokens == nullptr) base += s * (int64_t)a.L * rstride;
+  } else {
+    int q;
+    split_problem(p, a.Q, a.small, s, q);
+    ln = a.len_s[s];
+    lt = a.len_t[q];
+    rstride = (int64_t)a.Tpad * a.Q;
+    cs = a.Q;
+    base = a.table + q;
+  }
+  const int32_t* __restrict__ tok_row =
+      (a.tokens != nullptr) ? a.tokens + s * (int64_t)a.L : nullptr;
+  // token id of similarity row i
+  auto tok_at = [&](int i) -> int {
+    return (ROWS && tok_row == nullptr) ? i : __ldg(tok_row + i);
+  };
+  const int Tpad = a.Tpad;
+  const float open_s = a.open_s, ext_s = a.ext_s, open_t = a.open_t;
+  const float decay = fminf(a.open_t, a.ext_t);
 
   float H[T1P], Fv[T1P];
 #pragma unroll
   for (int j = 0; j < T1P; ++j) {
     float h0 = 0.0f;
     if (LOC == GLOBAL && j > 0)
-      h0 = -__fmaf_rn((float)j - 1.0f, ext_t, open_t);
+      h0 = -__fmaf_rn((float)j - 1.0f, a.ext_t, a.open_t);
     H[j] = (j <= lt) ? h0 : NEG;
     Fv[j] = NEG;
   }
   float best = (LOC == GLOBAL) ? NEG : 0.0f;
-
-  // Similarity row i: gather table[tokens[s, i], :, q] (column stride Q),
-  // flat S[s, i, :] (contiguous).
-  const int rows = min(ln, L);
-  const int32_t* tok_row = FLAT ? nullptr : tokens + s * (int64_t)L;
-  const float* base = FLAT ? table + s * (int64_t)L * Tpad : table + q;
-  const int64_t rstride = FLAT ? (int64_t)Tpad : (int64_t)Tpad * Q;
-  const int64_t cs = FLAT ? 1 : Q;
+  const int rows = min(ln, a.L);
 
   // Rows of 9 columns are double-buffered in registers: row i + 1's loads
   // (and row i + 2's token id) are issued before row i's arithmetic.
@@ -204,101 +241,84 @@ __global__ void __launch_bounds__(THREADS) affine_dp_kernel(
   // 17 the second buffer took ptxas past its 128-register choice into
   // spills.
   if constexpr (T1P <= 9) {
-    float a[T1P - 1], b[T1P - 1];
+    float ra[T1P - 1], rb[T1P - 1];
     int tok_next = 0;  // token id of the row after the one being loaded
-    if (rows > 0)
-      load_row<T1P, VEC>(a, base + (FLAT ? 0 : (int64_t)__ldg(tok_row)) * rstride,
-                         cs, Tpad);
-    if (!FLAT && rows > 1) tok_next = __ldg(tok_row + 1);
+    if (rows > 0) load_row<T1P, VEC>(ra, base + (int64_t)tok_at(0) * rstride, cs, Tpad);
+    if (rows > 1) tok_next = tok_at(1);
     for (int i = 0; i < rows; i += 2) {
       if (i + 1 < rows) {
-        load_row<T1P, VEC>(b, base + (FLAT ? i + 1 : (int64_t)tok_next) * rstride,
-                           cs, Tpad);
-        if (!FLAT && i + 2 < rows) tok_next = __ldg(tok_row + i + 2);
+        load_row<T1P, VEC>(rb, base + (int64_t)tok_next * rstride, cs, Tpad);
+        if (i + 2 < rows) tok_next = tok_at(i + 2);
       }
-      dp_row<T1P, LOC>(H, Fv, a, i + 1, ln, lt, open_s, ext_s, open_t, decay, best);
+      dp_row<T1P, LOC>(H, Fv, ra, i + 1, ln, lt, open_s, ext_s, open_t, decay, best);
       if (i + 1 >= rows) break;
       if (i + 2 < rows) {
-        load_row<T1P, VEC>(a, base + (FLAT ? i + 2 : (int64_t)tok_next) * rstride,
-                           cs, Tpad);
-        if (!FLAT && i + 3 < rows) tok_next = __ldg(tok_row + i + 3);
+        load_row<T1P, VEC>(ra, base + (int64_t)tok_next * rstride, cs, Tpad);
+        if (i + 3 < rows) tok_next = tok_at(i + 3);
       }
-      dp_row<T1P, LOC>(H, Fv, b, i + 2, ln, lt, open_s, ext_s, open_t, decay, best);
+      dp_row<T1P, LOC>(H, Fv, rb, i + 2, ln, lt, open_s, ext_s, open_t, decay, best);
     }
   } else {
-    int tok = (!FLAT && rows > 0) ? __ldg(tok_row) : 0;
+    int tok = (rows > 0) ? tok_at(0) : 0;
     for (int i = 0; i < rows; ++i) {
       float sv[T1P - 1];
-      load_row<T1P, VEC>(sv, base + (FLAT ? i : (int64_t)tok) * rstride, cs, Tpad);
-      if (!FLAT && i + 1 < rows) tok = __ldg(tok_row + i + 1);
+      load_row<T1P, VEC>(sv, base + (int64_t)tok * rstride, cs, Tpad);
+      if (i + 1 < rows) tok = tok_at(i + 1);
       dp_row<T1P, LOC>(H, Fv, sv, i + 1, ln, lt, open_s, ext_s, open_t, decay, best);
     }
   }
-  out[p] = best;
+  a.out[p] = (ROWS && a.mask_empty && ln <= 0) ? NEG : best;
 }
 
-template <int T1P, bool FLAT, bool VEC>
-void launch(int locality, dim3 grid, cudaStream_t stream, const float* table,
-            const int32_t* tokens, const int32_t* len_s, const int32_t* len_t,
-            float* out, int64_t n, int L, int Tpad, int Q, float open_s,
-            float ext_s, float open_t, float ext_t, bool small) {
+template <int T1P, bool ROWS, bool VEC>
+void launch(int locality, dim3 grid, cudaStream_t stream, const Args& a) {
   switch (locality) {
     case LOCAL:
-      affine_dp_kernel<T1P, LOCAL, FLAT, VEC><<<grid, THREADS, 0, stream>>>(
-          table, tokens, len_s, len_t, out, n, L, Tpad, Q, open_s, ext_s, open_t, ext_t, small);
+      affine_dp_kernel<T1P, LOCAL, ROWS, VEC><<<grid, THREADS, 0, stream>>>(a);
       break;
     case GLOBAL:
-      affine_dp_kernel<T1P, GLOBAL, FLAT, VEC><<<grid, THREADS, 0, stream>>>(
-          table, tokens, len_s, len_t, out, n, L, Tpad, Q, open_s, ext_s, open_t, ext_t, small);
+      affine_dp_kernel<T1P, GLOBAL, ROWS, VEC><<<grid, THREADS, 0, stream>>>(a);
       break;
     default:
-      affine_dp_kernel<T1P, SEMIGLOBAL, FLAT, VEC><<<grid, THREADS, 0, stream>>>(
-          table, tokens, len_s, len_t, out, n, L, Tpad, Q, open_s, ext_s, open_t, ext_t, small);
+      affine_dp_kernel<T1P, SEMIGLOBAL, ROWS, VEC><<<grid, THREADS, 0, stream>>>(a);
       break;
   }
 }
 
-template <int T1P, bool FLAT>
+template <int T1P, bool ROWS>
 void launch_vec(bool vec, int locality, dim3 grid, cudaStream_t stream,
-                const float* table, const int32_t* tokens, const int32_t* len_s,
-                const int32_t* len_t, float* out, int64_t n, int L, int Tpad,
-                int Q, float open_s, float ext_s, float open_t, float ext_t,
-                bool small) {
+                const Args& a) {
   if (vec)
-    launch<T1P, FLAT, true>(locality, grid, stream, table, tokens, len_s, len_t, out,
-                            n, L, Tpad, Q, open_s, ext_s, open_t, ext_t, small);
+    launch<T1P, ROWS, true>(locality, grid, stream, a);
   else
-    launch<T1P, FLAT, false>(locality, grid, stream, table, tokens, len_s, len_t, out,
-                             n, L, Tpad, Q, open_s, ext_s, open_t, ext_t, small);
+    launch<T1P, ROWS, false>(locality, grid, stream, a);
 }
 
-template <bool FLAT>
-int dispatch(const float* S, const int32_t* tokens, const int32_t* len_s,
-             const int32_t* len_t, float* out, int64_t n, int L, int Tpad,
-             int Q, float open_s, float ext_s, float open_t, float ext_t,
-             int locality, void* stream) {
-  if (n <= 0 || L <= 0 || Q <= 0 || Tpad <= 0 || locality < 0 || locality > 2)
+template <bool ROWS>
+int dispatch(Args a, int locality, void* stream) {
+  if (a.n <= 0 || a.L <= 0 || a.Q <= 0 || a.Tpad <= 0 || locality < 0 ||
+      locality > 2)
     return -1;
-  const int64_t problems = n * (int64_t)Q;
+  const int64_t problems = a.n * (int64_t)a.Q;
   const int64_t blocks = (problems + THREADS - 1) / THREADS;
   if (blocks > 0x7fffffffLL) return -1;
   dim3 grid((unsigned)blocks);
   cudaStream_t st = (cudaStream_t)stream;
-  const bool small = problems <= 0xffffffffLL;
-  // a row's Tpad floats are contiguous (flat, or a gather at Q = 1): float4
+  a.small = problems <= 0xffffffffLL;
+  // a row's Tpad floats are contiguous (rows, or a gather at Q = 1): float4
   // loads when they stay 16-byte aligned
-  const bool vec = (FLAT || Q == 1) && Tpad % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(S) % 16 == 0;
-  if (Tpad <= 8)
-    launch_vec<9, FLAT>(vec, locality, grid, st, S, tokens, len_s, len_t, out, n, L, Tpad, Q, open_s, ext_s, open_t, ext_t, small);
-  else if (Tpad <= 16)
-    launch_vec<17, FLAT>(vec, locality, grid, st, S, tokens, len_s, len_t, out, n, L, Tpad, Q, open_s, ext_s, open_t, ext_t, small);
-  else if (Tpad <= 32)
-    launch_vec<33, FLAT>(vec, locality, grid, st, S, tokens, len_s, len_t, out, n, L, Tpad, Q, open_s, ext_s, open_t, ext_t, small);
-  else if (Tpad <= 64)
-    launch_vec<65, FLAT>(vec, locality, grid, st, S, tokens, len_s, len_t, out, n, L, Tpad, Q, open_s, ext_s, open_t, ext_t, small);
-  else if (Tpad <= 128)
-    launch_vec<129, FLAT>(vec, locality, grid, st, S, tokens, len_s, len_t, out, n, L, Tpad, Q, open_s, ext_s, open_t, ext_t, small);
+  const bool vec = (ROWS || a.Q == 1) && a.Tpad % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(a.table) % 16 == 0;
+  if (a.Tpad <= 8)
+    launch_vec<9, ROWS>(vec, locality, grid, st, a);
+  else if (a.Tpad <= 16)
+    launch_vec<17, ROWS>(vec, locality, grid, st, a);
+  else if (a.Tpad <= 32)
+    launch_vec<33, ROWS>(vec, locality, grid, st, a);
+  else if (a.Tpad <= 64)
+    launch_vec<65, ROWS>(vec, locality, grid, st, a);
+  else if (a.Tpad <= 128)
+    launch_vec<129, ROWS>(vec, locality, grid, st, a);
   else
     return -1;
   return (int)cudaGetLastError();
@@ -313,14 +333,22 @@ extern "C" int vt_affine_dp_scores(
     const int32_t* len_t, float* out, int64_t n, int L, int Tpad, int Q,
     float open_s, float ext_s, float open_t, float ext_t, int locality,
     void* stream) {
-  return dispatch<false>(table, tokens, len_s, len_t, out, n, L, Tpad, Q,
-                         open_s, ext_s, open_t, ext_t, locality, stream);
+  if (tokens == nullptr) return -1;
+  const Args a{table, tokens, nullptr, nullptr, len_s, len_t, out, n, L,
+               Tpad, Q, 0, open_s, ext_s, open_t, ext_t, false, false};
+  return dispatch<false>(a, locality, stream);
 }
 
-extern "C" int vt_affine_dp_scores_flat(
-    const float* S, const int32_t* len_s, const int32_t* len_t, float* out,
-    int64_t B, int L, int T, float open_s, float ext_s, float open_t,
-    float ext_t, int locality, void* stream) {
-  return dispatch<true>(S, nullptr, len_s, len_t, out, B, L, T, 1, open_s,
-                        ext_s, open_t, ext_t, locality, stream);
+// ``table`` [slots * V, Tmax]; ``tokens`` [n, L] or null (the table is S,
+// [B * L, Tmax]); ``rows`` / ``qslot`` [B] or null (b / 0); ``mask_empty``
+// nonzero: a problem with len_s <= 0 scores -1e30.
+extern "C" int vt_affine_dp_scores_rows(
+    const float* table, const int32_t* tokens, const int32_t* rows,
+    const int32_t* qslot, const int32_t* len_s, const int32_t* len_t,
+    float* out, int64_t B, int L, int Tmax, int64_t V, float open_s,
+    float ext_s, float open_t, float ext_t, int locality, int mask_empty,
+    void* stream) {
+  const Args a{table, tokens, rows, qslot, len_s, len_t, out, B, L, Tmax, 1,
+               V, open_s, ext_s, open_t, ext_t, false, mask_empty != 0};
+  return dispatch<true>(a, locality, stream);
 }

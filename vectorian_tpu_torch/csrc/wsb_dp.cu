@@ -1,16 +1,21 @@
 // Waterman-Smith-Beyer (general gap cost) alignment DP scores, two entries:
 //   gather: raw[s, q] = best cell of the DP of slice s against query q, where
 //           S[i, j] = table[tokens[s, i], j, q] (the gather is fused in);
-//   flat:   raw[b] = best cell of the DP of S[b] ([B, L, T]).
+//   rows:   raw[b] = best cell of the DP of problem b = (bucket row r =
+//           rows[b], table slot k = qslot[b]), where S[i, j] =
+//           table[k * V + tokens[r, i], j] (the stacked [slots * V, Tmax]
+//           plan table, read row by row), per-problem len_s (0 allowed) and
+//           len_t; the score-only rescore.  A null ``tokens`` reads the
+//           table itself as S ([B * L, T]: row r * L + i), the flat batch.
 // H[i, j] = max(H[i-1, j-1] + S[i-1, j-1], max_g H[i-g, j] - w_s[g],
 //               max_g H[i, j-g] - w_t[g] [, 0 local]).
 //
 // Replaces: _make_general_kernel / _pallas_call_scores_general /
 // pallas_align_scores_general in vectorian_tpu/ops/pallas_dp.py.  On the
 // TPU the corpus pass gathered the similarity block in XLA and flattened it
-// to [c*Q, L, T] before the kernel; here the gather entry reads the stacked
-// table itself (q fastest, as csrc/affine_dp.cu), so the gathered block never
-// reaches device memory.
+// to [c*Q, L, T] before the kernel, and the rescore gathered its [B, L, T]
+// block the same way; here both entries read the tables themselves, so the
+// gathered block never reaches device memory.
 //
 // What bounds it on an H100: WSB keeps every DP row of a problem, and each
 // cell maxes over all earlier rows of its column (vertical gaps) and all
@@ -23,11 +28,11 @@
 //
 // Two designs, picked per launch by ops/dp_kernels.wsb_launch_plan:
 //
-// "registers" (gather entry, bucket capacity L <= 32 and needle width
-// Tpad <= 32: every corpus pass of the default buckets up to 32 tokens).
-// A group of G lanes (G = 8, 16 or 32, the power of two >= Tpad) is one
-// problem; lane k holds needle column k + 1, and column 0 is a closed form
-// (0, or -w_s[i] under global).  Each lane keeps its column's history
+// "registers" (bucket capacity L <= 32 and needle width T <= 32, closure
+// w_t* >= 0: every corpus pass and rescore of the default buckets up to 32
+// tokens).  A group of G lanes (G = 8, 16 or 32, the power of two >= T) is
+// one problem; lane k holds needle column k + 1, and column 0 is a closed
+// form (0, or -w_s[i] under global).  Each lane keeps its column's history
 // H[0..L] in registers: L is a template constant and the row loop is fully
 // unrolled (uniform exit at the warp's longest slice), so the vertical
 // candidates max_r H[r] - w_s[i - r] have compile-time indices and read
@@ -36,32 +41,32 @@
 // one shuffle per gap length g against w_t*[g] (the exact one-pass form:
 // each candidate one rounding), unconditional and branch-free, so the
 // shuffles of a row issue back to back (models whose closure has a
-// negative cost take the shared / scratch route).  The
-// best cell is a per-lane running max, reduced across the group once at
-// the end.  With q fastest, a warp holds 32 / G consecutive queries of one
-// slice (Q >= 32 / G), so its row loop does not diverge.  Where Q is even
-// a group takes two consecutive queries of one slice: their token ids,
+// negative cost take the shared / scratch route).  The best cell is a
+// per-lane running max, reduced across the group once at the end.  In the
+// gather entry q walks fastest, so a warp holds 32 / G consecutive queries
+// of one slice (Q >= 32 / G) and its row loop does not diverge; where Q is
+// even a group takes two consecutive queries of one slice: their token ids,
 // table row addresses and row loop are shared, which takes ~15 of the ~50
-// instructions a lane spends a problem-row off one of the two problems.  Table rows are
-// read from a [V, Q, Tpad] layout (the wrapper transposes the [V, Tpad, Q]
-// table once per call; the same memory at Q = 1), so a warp's reads are
-// one contiguous segment; a row's token id and table value are loaded a
-// row ahead of their use.
+// instructions a lane spends a problem-row off one of the two problems.
+// Gather table rows are read from a [V, Q, T] layout (the wrapper
+// transposes the [V, T, Q] table once per call; the same memory at Q = 1);
+// a row-gather problem's row is already contiguous, lane k reading its
+// element k.  A row's token id and table value are loaded a row ahead of
+// their use.
 //
-// "shared" / "scratch" (the flat entry, and the gather entry's longer
-// buckets or wider needles): one thread per problem; the rows of
-// a problem live in shared memory when enough threads a block fit there,
-// else in a device scratch buffer the wrapper allocates for the threads in
-// flight (the grid then walks over the problems).  Both go through one
-// pointer and stride, with the thread index fastest, so a warp's row reads
-// are conflict-free (shared) or coalesced (scratch); the block size is a
-// template constant, so shared rows take 32-bit shared-memory addresses
-// with immediate column offsets.  Columns are processed in
-// register tiles of CH: per stored row one uniform cost load serves CH
-// candidates.  Rows stop at the slice's length and columns at the needle's
-// (no cell past them can change the score), so the work is what the data
-// needs.  Horizontal gaps run in place over the row, highest tile first, so
-// every tile reads C values not yet replaced by H.
+// "shared" / "scratch" (longer buckets, wider needles, negative closures):
+// one thread per problem; the rows of a problem live in shared memory when
+// enough threads a block fit there, else in a device scratch buffer the
+// wrapper allocates for the threads in flight (the grid then walks over the
+// problems).  Both go through one pointer and stride, with the thread index
+// fastest, so a warp's row reads are conflict-free (shared) or coalesced
+// (scratch); the block size is a template constant, so shared rows take
+// 32-bit shared-memory addresses with immediate column offsets.  Columns
+// are processed in register tiles of CH: per stored row one uniform cost
+// load serves CH candidates.  Rows stop at the slice's length and columns at
+// the needle's (no cell past them can change the score), so the work is
+// what the data needs.  Horizontal gaps run in place over the row, highest
+// tile first, so every tile reads C values not yet replaced by H.
 //
 // Exactness contract: the DP is adds, subtractions and maxes only, each
 // candidate one rounding (Hall - w, H_prev + S), so the scores are bit-equal
@@ -79,35 +84,64 @@ constexpr float NEG = -1e30f;
 constexpr int CH = 8;  // columns per register tile
 enum Locality { LOCAL = 0, GLOBAL = 1, SEMIGLOBAL = 2 };
 
+// The arguments of a launch (every entry and route); passed by value into
+// the kernel's parameter bank.
+struct Args {
+  const float* table;     // gather: [V, T, Q] (registers: [V, Q, T]); rows: [slots * V, T]
+  const int32_t* tokens;  // [n, L]; rows: null = the table is S (row r * L + i)
+  const int32_t* prow;    // rows: [B] bucket row of each problem, null = b
+  const int32_t* pslot;   // rows: [B] table slot of each problem, null = 0
+  const int32_t* len_s;   // gather: [n], >= 1; rows: [B], >= 0
+  const int32_t* len_t;   // gather: [Q]; rows: [B]; 0 <= len_t <= T
+  const float* w_s;       // [L + 1] raw s-side costs (shared / scratch)
+  const float* w_t;       // [T + 1] raw t-side costs (global row 0)
+  const float* w_ts;      // [T + 1] closure of w_t
+  float* out;             // [problems]
+  float* scratch;         // rows in device memory, or null: shared
+  int64_t problems;
+  int L, T, Q;            // rows: Q = 1
+  int64_t V;              // rows: table rows a slot
+  bool small;             // problems fit 32 bits
+  bool mask_empty;        // rows: len_s <= 0 scores NEG
+};
+
 // THREADS > 0: a block of THREADS threads keeps its rows in shared memory;
 // THREADS == 0: the rows live in ``scratch`` (one slot per thread of the grid).
 template <int LOC, bool GATHER, int THREADS>
-__global__ void __launch_bounds__(128) wsb_dp_kernel(
-    const float* __restrict__ S,         // gather: table [V, T, Q]; flat: [B, L, T]
-    const int32_t* __restrict__ tokens,  // gather: [n, L]; flat: unused
-    const int32_t* __restrict__ len_s,   // [n] / [B]
-    const int32_t* __restrict__ len_t,   // [Q] / [B], 0 <= len_t <= T
-    const float* __restrict__ w_s,       // [L + 1] raw s-side costs
-    const float* __restrict__ w_t,       // [T + 1] raw t-side costs (global row 0)
-    const float* __restrict__ w_ts,      // [T + 1] closure of w_t
-    float* __restrict__ out,             // [problems]
-    float* scratch,                      // rows in device memory, or null: shared
-    int64_t problems, int L, int T, int Q) {
+__global__ void __launch_bounds__(128) wsb_dp_kernel(const Args a) {
   // cell (r, j) of this thread's problem at base[r * rs + j * cs]
   using I = typename std::conditional<(THREADS > 0), int, int64_t>::type;
   extern __shared__ float smem[];
+  const float* __restrict__ S = a.table;
+  const int32_t* __restrict__ tokens = a.tokens;
+  const float* __restrict__ w_s = a.w_s;
+  const float* __restrict__ w_t = a.w_t;
+  const float* __restrict__ w_ts = a.w_ts;
+  const int L = a.L, T = a.T, Q = a.Q;
   const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t nthreads = (int64_t)gridDim.x * blockDim.x;
-  float* const base = (THREADS > 0) ? smem + threadIdx.x : scratch + tid;
+  float* const base = (THREADS > 0) ? smem + threadIdx.x : a.scratch + tid;
   const I cs = (THREADS > 0) ? (I)THREADS : (I)nthreads;
   const I rs = (I)(T + 1) * cs;
   auto at = [&](int r, int j) -> float& { return base[(I)r * rs + (I)j * cs]; };
 
-  for (int64_t p = tid; p < problems; p += nthreads) {
-    const int64_t s = GATHER ? p / Q : p;
-    const int q = GATHER ? (int)(p - s * Q) : 0;
-    const int ln = len_s[s];
-    const int lt = GATHER ? len_t[q] : len_t[p];
+  for (int64_t p = tid; p < a.problems; p += nthreads) {
+    int64_t s;
+    int q, ln, lt;
+    const float* tbase;  // rows: row 0 of the problem's table slot
+    if (GATHER) {
+      s = p / Q;
+      q = (int)(p - s * Q);
+      ln = a.len_s[s];
+      lt = a.len_t[q];
+      tbase = S + q;
+    } else {
+      s = (a.prow != nullptr) ? (int64_t)a.prow[p] : p;
+      q = (a.pslot != nullptr) ? a.pslot[p] : 0;
+      ln = a.len_s[p];
+      lt = a.len_t[p];
+      tbase = S + ((int64_t)q * a.V + (tokens != nullptr ? 0 : s * L)) * T;
+    }
 
     for (int j = 0; j <= lt; ++j)
       at(0, j) = (LOC == GLOBAL && j > 0) ? -w_t[j] : 0.0f;
@@ -119,10 +153,10 @@ __global__ void __launch_bounds__(128) wsb_dp_kernel(
       const float* srow;
       int64_t scs;
       if (GATHER) {
-        srow = S + (int64_t)tokens[s * L + i - 1] * T * Q + q;
+        srow = tbase + (int64_t)tokens[s * L + i - 1] * T * Q;
         scs = Q;
       } else {
-        srow = S + (s * L + i - 1) * (int64_t)T;
+        srow = tbase + (int64_t)(tokens != nullptr ? tokens[s * L + i - 1] : i - 1) * T;
         scs = 1;
       }
 
@@ -191,12 +225,12 @@ __global__ void __launch_bounds__(128) wsb_dp_kernel(
         if (i == ln) best = fmaxf(best, colmax);
       }
     }
-    out[p] = best;
+    a.out[p] = (!GATHER && a.mask_empty && ln <= 0) ? NEG : best;
   }
 }
 
 // ---------------------------------------------------------------------------
-// register route (gather entry only)
+// register route
 // ---------------------------------------------------------------------------
 
 constexpr unsigned FULL = 0xffffffffu;
@@ -213,6 +247,14 @@ struct RegCosts {
   float w_ts[G + 1];  // closure of w_t
 };
 
+// The cost vectors on the host, as the entries receive them.
+struct HostCosts {
+  const float* w_s;  // n_ws floats
+  int n_ws;
+  const float* w_t;  // T + 1 floats or more
+  const float* w_ts;
+};
+
 // problem p -> (slice s, query q), in 32 bits while the problems fit
 __device__ __forceinline__ void split_problem(int64_t p, int Q, bool small,
                                               int64_t& s, int& q) {
@@ -226,32 +268,35 @@ __device__ __forceinline__ void split_problem(int64_t p, int Q, bool small,
   }
 }
 
-template <int LT, int G, int LOC, int P>
+// P consecutive problems a group.  Gather (ROWS false): queries q .. q + P
+// - 1 of one slice (P = 2 only where Q % 2 == 0), sharing its token ids,
+// table row addresses and row loop.  Rows: one problem a group (each has
+// its own len_t), its row read from table slot q.
+template <int LT, int G, int LOC, int P, bool ROWS>
 __global__ void __launch_bounds__(REG_THREADS) wsb_regs_kernel(
-    const RegCosts<LT, G> costs,
-    const float* __restrict__ table,     // [V, Q, T], fewer than 2^32 floats
-    const int32_t* __restrict__ tokens,  // [n, L]
-    const int32_t* __restrict__ len_s,   // [n], >= 1
-    const int32_t* __restrict__ len_t,   // [Q], 1 <= len_t <= T
-    float* __restrict__ out,             // [n * Q]
-    int64_t problems, int L, int T, int Q, bool small) {
-  // P consecutive problems a group: queries q .. q + P - 1 of one slice
-  // (P = 2 only where Q % 2 == 0), sharing its token ids, table row
-  // addresses and row loop
+    const RegCosts<LT, G> costs, const Args a) {
+  static_assert(!ROWS || P == 1, "a row-gather group takes one problem");
   const int64_t gthread = (int64_t)blockIdx.x * REG_THREADS + threadIdx.x;
   const int k = threadIdx.x & (G - 1);  // this lane's column is j = k + 1
   const int j = k + 1;
   const int64_t p_raw = (gthread / G) * P;
-  const bool valid = p_raw < problems;
+  const bool valid = p_raw < a.problems;
   const int64_t p = valid ? p_raw : 0;  // a tail group computes, stores nothing
   int64_t s;
-  int q;
-  split_problem(p, Q, small, s, q);
-  const int ln = len_s[s];
+  int q, ln;
   int lt[P];
+  if (ROWS) {
+    s = (a.prow != nullptr) ? (int64_t)a.prow[p] : p;
+    q = (a.pslot != nullptr) ? a.pslot[p] : 0;
+    ln = a.len_s[p];
+    lt[0] = a.len_t[p];
+  } else {
+    split_problem(p, a.Q, a.small, s, q);
+    ln = a.len_s[s];
 #pragma unroll
-  for (int u = 0; u < P; ++u) lt[u] = len_t[q + u];
-  const int rows = valid ? min(ln, L) : 0;
+    for (int u = 0; u < P; ++u) lt[u] = a.len_t[q + u];
+  }
+  const int rows = valid ? min(ln, a.L) : 0;
   // uniform bound of the warp: its longest slice
   const int rows_warp = __reduce_max_sync(FULL, rows);
 
@@ -279,14 +324,26 @@ __global__ void __launch_bounds__(REG_THREADS) wsb_regs_kernel(
 
   // a row's token id is loaded two rows ahead, its table values one row
   // ahead; table offsets fit 32 bits
-  const int32_t* trow = tokens + s * (int64_t)L;
-  const uint32_t vstride = (uint32_t)Q * (uint32_t)T;
-  const float* tcol = table + ((uint32_t)q * (uint32_t)T + (uint32_t)k);
-  const bool col_in = k < T;
-  int tok_n = (rows >= 2) ? __ldg(trow + 1) : 0;
+  const uint32_t T = (uint32_t)a.T;
+  const int32_t* trow = (a.tokens != nullptr) ? a.tokens + s * (int64_t)a.L : nullptr;
+  auto tok_at = [&](int i) -> uint32_t {
+    return (ROWS && trow == nullptr) ? (uint32_t)i : (uint32_t)__ldg(trow + i);
+  };
+  uint32_t vstride, off;
+  if (ROWS) {
+    vstride = T;
+    off = ((uint32_t)q * (uint32_t)a.V +
+           (trow == nullptr ? (uint32_t)(s * a.L) : 0u)) * T + (uint32_t)k;
+  } else {
+    vstride = (uint32_t)a.Q * T;
+    off = (uint32_t)q * T + (uint32_t)k;
+  }
+  const float* tcol = a.table + off;
+  const bool col_in = k < a.T;
+  uint32_t tok_n = (rows >= 2) ? tok_at(1) : 0;
   float sv_n[P];
   {
-    const float* r0 = tcol + (uint32_t)__ldg(trow) * vstride;
+    const float* r0 = tcol + tok_at(0) * vstride;
 #pragma unroll
     for (int u = 0; u < P; ++u)
       sv_n[u] = (rows >= 1 && col_in) ? __ldg(r0 + u * T) : 0.0f;
@@ -299,11 +356,11 @@ __global__ void __launch_bounds__(REG_THREADS) wsb_regs_kernel(
 #pragma unroll
     for (int u = 0; u < P; ++u) sv[u] = sv_n[u];
     if (i < LT) {
-      const float* rn = tcol + (uint32_t)tok_n * vstride;
+      const float* rn = tcol + tok_n * vstride;
 #pragma unroll
       for (int u = 0; u < P; ++u)
         sv_n[u] = (i + 1 <= rows && col_in) ? __ldg(rn + u * T) : 0.0f;
-      if (i + 1 < LT) tok_n = (i + 2 <= rows) ? __ldg(trow + i + 1) : 0;
+      if (i + 1 < LT) tok_n = (i + 2 <= rows) ? tok_at(i + 1) : 0;
     }
     const float h_prev0 = (LOC == GLOBAL && i > 1) ? -costs.w_s[i - 1] : 0.0f;
 #pragma unroll
@@ -339,82 +396,74 @@ __global__ void __launch_bounds__(REG_THREADS) wsb_regs_kernel(
 #pragma unroll
   for (int u = 0; u < P; ++u) {
 #pragma unroll
-    for (int off = G / 2; off > 0; off >>= 1)
-      acc[u] = fmaxf(acc[u], __shfl_xor_sync(FULL, acc[u], off, G));
-    if (valid && k == 0) out[p + u] = acc[u];
+    for (int off2 = G / 2; off2 > 0; off2 >>= 1)
+      acc[u] = fmaxf(acc[u], __shfl_xor_sync(FULL, acc[u], off2, G));
+    if (valid && k == 0)
+      a.out[p + u] = (ROWS && a.mask_empty && ln <= 0) ? NEG : acc[u];
   }
 }
 
-template <int LT, int G, int LOC>
-int launch_regs(const float* w_s, int n_ws, const float* w_t,
-                const float* w_ts, int n_wt, int blocks, cudaStream_t stream,
-                const float* table, const int32_t* tokens,
-                const int32_t* len_s, const int32_t* len_t, float* out,
-                int64_t problems, int L, int T, int Q) {
+template <int LT, int G, int LOC, bool ROWS>
+int launch_regs(const HostCosts& h, int blocks, cudaStream_t stream,
+                const Args& a) {
   // costs past T only reach columns past the needle, or a lane's own C
   // (c - 0 = c): zero
   RegCosts<LT, G> c;
-  for (int i = 0; i <= LT; ++i) c.w_s[i] = (i < n_ws) ? w_s[i] : 0.0f;
+  for (int i = 0; i <= LT; ++i) c.w_s[i] = (i < h.n_ws) ? h.w_s[i] : 0.0f;
   for (int g = 0; g <= G; ++g) {
-    c.w_t[g] = (g <= T) ? w_t[g] : 0.0f;
-    c.w_ts[g] = (g <= T) ? w_ts[g] : 0.0f;
+    c.w_t[g] = (g <= a.T) ? h.w_t[g] : 0.0f;
+    c.w_ts[g] = (g <= a.T) ? h.w_ts[g] : 0.0f;
   }
-  // two problems a group where Q is even; the grid must cover every group
-  const int P = (Q % 2 == 0) ? 2 : 1;
-  if ((int64_t)blocks * (REG_THREADS / G) * P < problems) return -1;
-  const bool small = problems <= 0xffffffffLL;
-  if (P == 2)
-    wsb_regs_kernel<LT, G, LOC, 2><<<blocks, REG_THREADS, 0, stream>>>(
-        c, table, tokens, len_s, len_t, out, problems, L, T, Q, small);
+  // gather: two problems a group where Q is even; the grid must cover
+  // every group
+  const int P = (!ROWS && a.Q % 2 == 0) ? 2 : 1;
+  if ((int64_t)blocks * (REG_THREADS / G) * P < a.problems) return -1;
+  if (ROWS)
+    wsb_regs_kernel<LT, G, LOC, 1, true><<<blocks, REG_THREADS, 0, stream>>>(c, a);
+  else if (P == 2)
+    wsb_regs_kernel<LT, G, LOC, 2, false><<<blocks, REG_THREADS, 0, stream>>>(c, a);
   else
-    wsb_regs_kernel<LT, G, LOC, 1><<<blocks, REG_THREADS, 0, stream>>>(
-        c, table, tokens, len_s, len_t, out, problems, L, T, Q, small);
+    wsb_regs_kernel<LT, G, LOC, 1, false><<<blocks, REG_THREADS, 0, stream>>>(c, a);
   return (int)cudaGetLastError();
 }
 
-template <int LT, int G>
-int regs_locality(int locality, const float* w_s, int n_ws, const float* w_t,
-                  const float* w_ts, int n_wt, int blocks, cudaStream_t stream,
-                  const float* table, const int32_t* tokens,
-                  const int32_t* len_s, const int32_t* len_t, float* out,
-                  int64_t problems, int L, int T, int Q) {
+template <int LT, int G, bool ROWS>
+int regs_locality(int locality, const HostCosts& h, int blocks,
+                  cudaStream_t stream, const Args& a) {
   switch (locality) {
-    case LOCAL:
-      return launch_regs<LT, G, LOCAL>(w_s, n_ws, w_t, w_ts, n_wt, blocks, stream, table,
-                                       tokens, len_s, len_t, out, problems, L, T, Q);
-    case GLOBAL:
-      return launch_regs<LT, G, GLOBAL>(w_s, n_ws, w_t, w_ts, n_wt, blocks, stream, table,
-                                        tokens, len_s, len_t, out, problems, L, T, Q);
-    default:
-      return launch_regs<LT, G, SEMIGLOBAL>(w_s, n_ws, w_t, w_ts, n_wt, blocks, stream,
-                                            table, tokens, len_s, len_t, out,
-                                            problems, L, T, Q);
+    case LOCAL: return launch_regs<LT, G, LOCAL, ROWS>(h, blocks, stream, a);
+    case GLOBAL: return launch_regs<LT, G, GLOBAL, ROWS>(h, blocks, stream, a);
+    default: return launch_regs<LT, G, SEMIGLOBAL, ROWS>(h, blocks, stream, a);
   }
 }
 
-template <int LT>
-int regs_width(int locality, const float* w_s, int n_ws, const float* w_t,
-               const float* w_ts, int n_wt, int blocks, cudaStream_t stream,
-               const float* table, const int32_t* tokens, const int32_t* len_s,
-               const int32_t* len_t, float* out, int64_t problems, int L, int T,
-               int Q) {
-  if (T <= 8)
-    return regs_locality<LT, 8>(locality, w_s, n_ws, w_t, w_ts, n_wt, blocks, stream, table,
-                                tokens, len_s, len_t, out, problems, L, T, Q);
-  if (T <= 16)
-    return regs_locality<LT, 16>(locality, w_s, n_ws, w_t, w_ts, n_wt, blocks, stream, table,
-                                 tokens, len_s, len_t, out, problems, L, T, Q);
-  return regs_locality<LT, 32>(locality, w_s, n_ws, w_t, w_ts, n_wt, blocks, stream, table,
-                               tokens, len_s, len_t, out, problems, L, T, Q);
+template <int LT, bool ROWS>
+int regs_width(int locality, const HostCosts& h, int blocks,
+               cudaStream_t stream, const Args& a) {
+  if (a.T <= 8) return regs_locality<LT, 8, ROWS>(locality, h, blocks, stream, a);
+  if (a.T <= 16) return regs_locality<LT, 16, ROWS>(locality, h, blocks, stream, a);
+  return regs_locality<LT, 32, ROWS>(locality, h, blocks, stream, a);
+}
+
+template <bool ROWS>
+int regs_dispatch(Args a, const HostCosts& h, int n_wt, int locality,
+                  int blocks, void* stream) {
+  if (a.problems <= 0 || a.Q <= 0 || a.L <= 0 || a.L > 32 || a.T <= 0 ||
+      a.T > 32 || locality < 0 || locality > 2 || h.n_ws < a.L + 1 ||
+      n_wt < a.T + 1 || blocks <= 0)
+    return -1;
+  a.small = a.problems <= 0xffffffffLL;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (a.L <= 8) return regs_width<8, ROWS>(locality, h, blocks, st, a);
+  if (a.L <= 16) return regs_width<16, ROWS>(locality, h, blocks, st, a);
+  return regs_width<32, ROWS>(locality, h, blocks, st, a);
 }
 
 // ---------------------------------------------------------------------------
 // shared / scratch route
 // ---------------------------------------------------------------------------
 
-using KernelFn = void (*)(const float*, const int32_t*, const int32_t*,
-                         const int32_t*, const float*, const float*,
-                         const float*, float*, float*, int64_t, int, int, int);
+using KernelFn = void (*)(const Args);
 
 template <bool GATHER, int THREADS>
 KernelFn pick(int locality) {
@@ -425,14 +474,23 @@ KernelFn pick(int locality) {
   }
 }
 
+// ``scratch`` is null for rows in shared memory (smem_bytes per block of
+// 32, 64 or 128 threads), else a buffer of blocks * threads * (L + 1) *
+// (T + 1) floats.
 template <bool GATHER>
-int launch(int locality, int blocks, int threads, int smem_bytes,
-           cudaStream_t stream, const float* S, const int32_t* tokens,
-           const int32_t* len_s, const int32_t* len_t, const float* w_s,
-           const float* w_t, const float* w_ts, float* out, float* scratch,
-           int64_t problems, int L, int T, int Q) {
+int launch(const Args& a, int locality, int blocks, int threads,
+           int smem_bytes, void* stream) {
+  if (a.problems <= 0 || a.L <= 0 || a.T <= 0 || a.Q <= 0 || locality < 0 ||
+      locality > 2)
+    return -1;
+  if (blocks <= 0 || threads <= 0 || threads > 128 || smem_bytes < 0)
+    return -1;
+  // shared rows need every thread's (L + 1) x (T + 1) floats
+  if (a.scratch == nullptr &&
+      (int64_t)smem_bytes < (int64_t)(a.L + 1) * (a.T + 1) * threads * 4)
+    return -1;
   KernelFn kernel;
-  if (scratch != nullptr) kernel = pick<GATHER, 0>(locality);
+  if (a.scratch != nullptr) kernel = pick<GATHER, 0>(locality);
   else if (threads == 32) kernel = pick<GATHER, 32>(locality);
   else if (threads == 64) kernel = pick<GATHER, 64>(locality);
   else if (threads == 128) kernel = pick<GATHER, 128>(locality);
@@ -442,80 +500,71 @@ int launch(int locality, int blocks, int threads, int smem_bytes,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return (int)err;
   }
-  kernel<<<blocks, threads, smem_bytes, stream>>>(
-      S, tokens, len_s, len_t, w_s, w_t, w_ts, out, scratch, problems, L, T, Q);
+  kernel<<<blocks, threads, smem_bytes, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
-}
-
-bool bad_args(int64_t problems, int L, int T, int locality, int blocks,
-              int threads, int smem_bytes, const float* scratch) {
-  if (problems <= 0 || L <= 0 || T <= 0 || locality < 0 || locality > 2)
-    return true;
-  if (blocks <= 0 || threads <= 0 || threads > 128 || smem_bytes < 0)
-    return true;
-  // shared rows need every thread's (L + 1) x (T + 1) floats
-  if (scratch == nullptr &&
-      (int64_t)smem_bytes < (int64_t)(L + 1) * (T + 1) * threads * 4)
-    return true;
-  return false;
 }
 
 }  // namespace
 
-// Both entries return the cudaError_t of the launch (0 on success), or -1
-// when the arguments are outside what the kernel takes.  ``scratch`` is null
-// for rows in shared memory (smem_bytes per block of 32, 64 or 128
-// threads), else a buffer of blocks * threads * (L + 1) * (T + 1) floats.
+// Every entry returns the cudaError_t of the launch (0 on success), or -1
+// when the arguments are outside what the kernel takes.
+
+// Gather entry, shared / scratch route (``scratch`` as in ``launch``).
 extern "C" int vt_wsb_dp_scores(
     const float* table, const int32_t* tokens, const int32_t* len_s,
     const int32_t* len_t, const float* w_s, const float* w_t, const float* w_ts,
     float* out, float* scratch, int64_t n, int L, int T, int Q, int locality,
     int blocks, int threads, int smem_bytes, void* stream) {
-  if (Q <= 0) return -1;
-  const int64_t problems = n * (int64_t)Q;
-  if (bad_args(problems, L, T, locality, blocks, threads, smem_bytes, scratch))
-    return -1;
-  return launch<true>(locality, blocks, threads, smem_bytes,
-                      (cudaStream_t)stream, table, tokens, len_s, len_t, w_s,
-                      w_t, w_ts, out, scratch, problems, L, T, Q);
+  if (Q <= 0 || tokens == nullptr) return -1;
+  const Args a{table, tokens, nullptr, nullptr, len_s, len_t, w_s, w_t, w_ts,
+               out, scratch, n * (int64_t)Q, L, T, Q, 0, false, false};
+  return launch<true>(a, locality, blocks, threads, smem_bytes, stream);
 }
 
-// The register route of the gather entry (``blocks`` of REG_THREADS
-// threads, G lanes a group, two problems a group where Q is even):
-// ``table`` is [V, Q, T]; w_s
-// (n_ws >= L + 1 floats), w_t and w_ts (n_wt >= T + 1 floats each) are HOST
-// pointers, copied into the launch's parameters (the buffers may be freed
-// once this returns).  L <= 32, T <= 32, w_ts[1..T - 1] >= 0, and the
+// Gather entry, register route (``blocks`` of REG_THREADS threads, G lanes
+// a group, two problems a group where Q is even): ``table`` is [V, Q, T];
+// w_s (n_ws >= L + 1 floats), w_t and w_ts (n_wt >= T + 1 floats each) are
+// HOST pointers, copied into the launch's parameters (the buffers may be
+// freed once this returns).  L <= 32, T <= 32, w_ts[1..T - 1] >= 0, and the
 // table holds fewer than 2^32 floats.
 extern "C" int vt_wsb_dp_scores_regs(
     const float* table, const int32_t* tokens, const int32_t* len_s,
     const int32_t* len_t, const float* w_s, int n_ws, const float* w_t,
     const float* w_ts, int n_wt, float* out, int64_t n, int L, int T, int Q,
     int locality, int blocks, void* stream) {
-  if (n <= 0 || Q <= 0 || L <= 0 || L > 32 || T <= 0 || T > 32 ||
-      locality < 0 || locality > 2 || n_ws < L + 1 || n_wt < T + 1 ||
-      blocks <= 0)
-    return -1;
-  const int64_t problems = n * (int64_t)Q;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (L <= 8)
-    return regs_width<8>(locality, w_s, n_ws, w_t, w_ts, n_wt, blocks, st, table,
-                         tokens, len_s, len_t, out, problems, L, T, Q);
-  if (L <= 16)
-    return regs_width<16>(locality, w_s, n_ws, w_t, w_ts, n_wt, blocks, st, table,
-                          tokens, len_s, len_t, out, problems, L, T, Q);
-  return regs_width<32>(locality, w_s, n_ws, w_t, w_ts, n_wt, blocks, st, table,
-                        tokens, len_s, len_t, out, problems, L, T, Q);
+  if (n <= 0 || Q <= 0 || tokens == nullptr) return -1;
+  const Args a{table, tokens, nullptr, nullptr, len_s, len_t, nullptr,
+               nullptr, nullptr, out, nullptr, n * (int64_t)Q, L, T, Q, 0,
+               false, false};
+  return regs_dispatch<false>(a, HostCosts{w_s, n_ws, w_t, w_ts}, n_wt,
+                              locality, blocks, stream);
 }
 
-extern "C" int vt_wsb_dp_scores_flat(
-    const float* S, const int32_t* len_s, const int32_t* len_t,
+// Row-gather entry, shared / scratch route: ``table`` [slots * V, T];
+// ``tokens`` [n, L] or null (the table is S, [B * L, T]); ``rows`` /
+// ``qslot`` [B] or null (b / 0); ``mask_empty`` nonzero: a problem with
+// len_s <= 0 scores -1e30.
+extern "C" int vt_wsb_dp_scores_rows(
+    const float* table, const int32_t* tokens, const int32_t* rows,
+    const int32_t* qslot, const int32_t* len_s, const int32_t* len_t,
     const float* w_s, const float* w_t, const float* w_ts, float* out,
-    float* scratch, int64_t B, int L, int T, int locality, int blocks,
-    int threads, int smem_bytes, void* stream) {
-  if (bad_args(B, L, T, locality, blocks, threads, smem_bytes, scratch))
-    return -1;
-  return launch<false>(locality, blocks, threads, smem_bytes,
-                       (cudaStream_t)stream, S, nullptr, len_s, len_t, w_s,
-                       w_t, w_ts, out, scratch, B, L, T, 1);
+    float* scratch, int64_t B, int L, int T, int64_t V, int locality,
+    int mask_empty, int blocks, int threads, int smem_bytes, void* stream) {
+  const Args a{table, tokens, rows, qslot, len_s, len_t, w_s, w_t, w_ts, out,
+               scratch, B, L, T, 1, V, false, mask_empty != 0};
+  return launch<false>(a, locality, blocks, threads, smem_bytes, stream);
+}
+
+// Row-gather entry, register route (one problem a group; costs on the host
+// as in vt_wsb_dp_scores_regs; the table holds fewer than 2^32 floats).
+extern "C" int vt_wsb_dp_scores_rows_regs(
+    const float* table, const int32_t* tokens, const int32_t* rows,
+    const int32_t* qslot, const int32_t* len_s, const int32_t* len_t,
+    const float* w_s, int n_ws, const float* w_t, const float* w_ts, int n_wt,
+    float* out, int64_t B, int L, int T, int64_t V, int locality,
+    int mask_empty, int blocks, void* stream) {
+  const Args a{table, tokens, rows, qslot, len_s, len_t, nullptr, nullptr,
+               nullptr, out, nullptr, B, L, T, 1, V, false, mask_empty != 0};
+  return regs_dispatch<true>(a, HostCosts{w_s, n_ws, w_t, w_ts}, n_wt,
+                             locality, blocks, stream);
 }

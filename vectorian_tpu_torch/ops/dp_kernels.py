@@ -5,8 +5,11 @@ counts.
 - ``affine_dp_scores``: the affine corpus pass, the gather of the stacked
   serving table ``[V, Tpad, Q]`` by each slice's token ids fused with the
   Gotoh DP (csrc/affine_dp.cu; replaces ``pallas_align_scores_multi_nt``).
-- ``affine_dp_scores_flat``: the affine DP of a flat [B, L, T] batch, scores
-  only (csrc/affine_dp.cu; replaces ``pallas_align_scores``).
+- ``affine_dp_scores_rows``: the affine score-only rescore of (bucket row,
+  query slot) problems, each reading its similarity rows from the stacked
+  ``[slots * V, Tmax]`` plan table (csrc/affine_dp.cu; replaces
+  ``pallas_align_scores`` on the gathered block);
+  ``affine_dp_scores_flat`` runs the same kernel on a flat [B, L, T] batch.
 - ``wsb_dp_scores``: the general-gap (Waterman-Smith-Beyer) corpus pass,
   gather fused as above (csrc/wsb_dp.cu; replaces the corpus-pass use of
   ``pallas_align_scores_general``).  Three routes (``wsb_launch_plan``):
@@ -14,8 +17,10 @@ counts.
   for buckets up to WSB_REG_MAX_L tokens and needles up to WSB_REG_MAX_T
   (gap models whose closure is non-negative), else one thread a problem
   with its rows in "shared" memory or in a "scratch" buffer.
-- ``wsb_dp_scores_flat``: the WSB DP of a flat [B, L, T] batch, scores only
-  (csrc/wsb_dp.cu; replaces ``pallas_align_scores_general``).
+- ``wsb_dp_scores_rows``: the WSB score-only rescore of (bucket row, query
+  slot) problems, on the same three routes ("rows_registers", ...);
+  ``wsb_dp_scores_flat`` runs it on a flat [B, L, T] batch (both replace
+  ``pallas_align_scores_general``).
 
 A CUDA tensor always goes to the kernel — a build or launch failure raises,
 nothing falls back; only tensors on the CPU take the plain version (the
@@ -44,6 +49,7 @@ import torch
 
 from vectorian_tpu_torch.ops.alignment import (
     LOCALITIES,
+    NEG,
     align_scores,
     align_scores_general,
 )
@@ -70,16 +76,20 @@ WSB_SMEM_MAX = 227 * 1024
 WSB_MIN_RESIDENT = 256
 WSB_SCRATCH_MAX = 256 << 20
 WSB_SCRATCH_THREADS = 64
-# the register route of the WSB gather entry: bucket capacities and padded
+# the register route of the WSB entries: bucket capacities and padded
 # needle widths its templates take (csrc/wsb_dp.cu), and its block size
 WSB_REG_MAX_L = 32
 WSB_REG_MAX_T = 32
 WSB_REG_THREADS = 128
 
-# kernel launches since the last reset (one per launch of each kernel), and
-# the launches of the WSB gather entry by route
+# kernel launches since the last reset (one per launch of each kernel: the
+# row-gather entries and their flat-batch wrappers count as "*_flat"), and
+# the launches of the WSB entries by route
 LAUNCHES = {"affine_dp": 0, "affine_dp_flat": 0, "wsb_dp": 0, "wsb_dp_flat": 0}
-WSB_ROUTE_LAUNCHES = {"registers": 0, "shared": 0, "scratch": 0}
+WSB_ROUTE_LAUNCHES = {
+    "registers": 0, "shared": 0, "scratch": 0,
+    "rows_registers": 0, "rows_shared": 0, "rows_scratch": 0,
+}
 # the ptxas report of each source's last verbose build
 PTXAS_REPORTS: Dict[str, str] = {}
 
@@ -89,8 +99,9 @@ _SIGNATURES = {
         "vt_affine_dp_scores": [
             _P, _P, _P, _P, _P, _I64, _I, _I, _I, _F, _F, _F, _F, _I, _P,
         ],
-        "vt_affine_dp_scores_flat": [
-            _P, _P, _P, _P, _I64, _I, _I, _F, _F, _F, _F, _I, _P,
+        "vt_affine_dp_scores_rows": [
+            _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I64, _F, _F, _F, _F,
+            _I, _I, _P,
         ],
     },
     "wsb_dp": {
@@ -102,8 +113,13 @@ _SIGNATURES = {
             _P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _I64, _I, _I, _I, _I, _I,
             _P,
         ],
-        "vt_wsb_dp_scores_flat": [
-            _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _P,
+        "vt_wsb_dp_scores_rows": [
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I64,
+            _I, _I, _I, _I, _I, _P,
+        ],
+        "vt_wsb_dp_scores_rows_regs": [
+            _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _I64, _I, _I,
+            _I64, _I, _I, _I, _P,
         ],
     },
 }
@@ -317,13 +333,98 @@ def affine_dp_scores(table, tokens, len_s, len_t, gaps, locality):
     return out
 
 
+def _gather_rows(tokens, rows, qslot, table, V: int):
+    """The similarity blocks [B, L, Tmax] of row-gather problems:
+    ``table[qslot * V + tokens[rows]]`` (the plain versions' gather)."""
+    return table[qslot.long()[:, None] * V + tokens[rows.long()].long()]
+
+
+def _check_rows(fn, tokens, rows, qslot, table, len_s, len_t):
+    """Shapes of a row-gather launch; returns (B, L, Tmax)."""
+    if table.dim() != 2 or tokens.dim() != 2:
+        raise ValueError(f"{fn}: table must be [slots * V, Tmax] and tokens [n, L]")
+    B = rows.shape[0]
+    for name, t in (("rows", rows), ("qslot", qslot), ("len_s", len_s),
+                    ("len_t", len_t)):
+        if tuple(t.shape) != (B,):
+            raise ValueError(f"{fn}: {name} must be [B] = [{B}]")
+    return B, tokens.shape[1], table.shape[1]
+
+
+def _rows_ptrs(tokens, rows, qslot):
+    """Pointers of a row-gather launch; None (null) for the flat batch."""
+    return tuple(None if t is None else t.data_ptr() for t in (tokens, rows, qslot))
+
+
+def affine_dp_scores_rows_reference(tokens, rows, qslot, table, V, len_s,
+                                    len_t, gaps, locality):
+    """Plain torch version of ``affine_dp_scores_rows``: the gather and the
+    torch scan, then the empty-slice mask."""
+    S = _gather_rows(tokens, rows, qslot, table, V)
+    return align_scores(S, len_s, len_t, gaps, locality).masked_fill(len_s <= 0, NEG)
+
+
+def _affine_rows_launch(table, tokens, rows, qslot, V, L, len_s, len_t, gaps,
+                        locality, mask_empty):
+    B, T = len_s.shape[0], table.shape[1]
+    if T > MAX_TPAD:
+        raise ValueError(
+            f"needles of {T} > {MAX_TPAD} tokens exceed the affine DP "
+            "kernel's register rows"
+        )
+    dev = table.device
+    out = torch.empty((B,), dtype=torch.float32, device=dev)
+    if B == 0:
+        return out
+    lib = _load("affine_dp")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.vt_affine_dp_scores_rows(
+            table.data_ptr(), *_rows_ptrs(tokens, rows, qslot),
+            len_s.data_ptr(), len_t.data_ptr(), out.data_ptr(), B, L, T, V,
+            float(gaps[0]), float(gaps[1]), float(gaps[2]), float(gaps[3]),
+            LOCALITIES.index(locality), int(mask_empty), stream,
+        )
+    _raise_on(rc, "affine_dp_flat")
+    LAUNCHES["affine_dp_flat"] += 1
+    return out
+
+
+def affine_dp_scores_rows(tokens, rows, qslot, table, V, len_s, len_t, gaps,
+                          locality):
+    """Raw affine-DP scores [B] f32 of (bucket row, query slot) problems,
+    the gather fused in: problem b aligns bucket row ``rows[b]`` of
+    ``tokens`` [n, L] i32 against table slot ``qslot[b]`` of ``table``
+    [slots * V, Tmax] f32 (similarity row i = table[qslot[b] * V +
+    tokens[rows[b], i]]); rows, qslot, len_s (0 allowed) and len_t (1 <=
+    len_t <= Tmax) [B] i32.  A problem with len_s <= 0 scores -1e30 (the
+    rescore's empty-slice mask)."""
+    _check_locality(locality)
+    _, L, _ = _check_rows("affine_dp_scores_rows", tokens, rows, qslot, table,
+                          len_s, len_t)
+    if table.device.type == "cpu":
+        return affine_dp_scores_rows_reference(
+            tokens, rows, qslot, table, V, len_s, len_t, gaps, locality
+        )
+    _check_cuda(
+        "affine_dp_scores_rows", table.device, table=(table, torch.float32),
+        tokens=(tokens, torch.int32), rows=(rows, torch.int32),
+        qslot=(qslot, torch.int32), len_s=(len_s, torch.int32),
+        len_t=(len_t, torch.int32),
+    )
+    return _affine_rows_launch(table, tokens, rows, qslot, V, L, len_s, len_t,
+                               gaps, locality, True)
+
+
 def affine_dp_scores_flat_reference(S, len_s, len_t, gaps, locality):
     """Plain torch version of ``affine_dp_scores_flat``: the torch scan."""
     return align_scores(S, len_s, len_t, gaps, locality)
 
 
 def affine_dp_scores_flat(S, len_s, len_t, gaps, locality):
-    """Raw affine-DP scores [B] f32 of a flat batch of problems.
+    """Raw affine-DP scores [B] f32 of a flat batch of problems (the port
+    of ``pallas_align_scores``): the row-gather kernel reading S as its
+    table, row b * L + i.
 
     S [B, L, T] f32 (T <= MAX_TPAD), len_s [B] i32 (0 <= len_s <= L: a
     zero-length problem scores its initial value, as the JAX kernel does),
@@ -341,26 +442,8 @@ def affine_dp_scores_flat(S, len_s, len_t, gaps, locality):
         "affine_dp_scores_flat", dev, S=(S, torch.float32),
         len_s=(len_s, torch.int32), len_t=(len_t, torch.int32),
     )
-    if T > MAX_TPAD:
-        raise ValueError(
-            f"needles of {T} > {MAX_TPAD} tokens exceed the affine DP "
-            "kernel's register rows"
-        )
-    out = torch.empty((B,), dtype=torch.float32, device=dev)
-    if B == 0:
-        return out
-    lib = _load("affine_dp")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.vt_affine_dp_scores_flat(
-            S.data_ptr(), len_s.data_ptr(), len_t.data_ptr(), out.data_ptr(),
-            B, L, T,
-            float(gaps[0]), float(gaps[1]), float(gaps[2]), float(gaps[3]),
-            LOCALITIES.index(locality), stream,
-        )
-    _raise_on(rc, "affine_dp_flat")
-    LAUNCHES["affine_dp_flat"] += 1
-    return out
+    return _affine_rows_launch(S.view(B * L, T), None, None, None, B * L, L,
+                               len_s, len_t, gaps, locality, False)
 
 
 # ---------------------------------------------------------------------------
@@ -369,8 +452,9 @@ def affine_dp_scores_flat(S, len_s, len_t, gaps, locality):
 
 
 class WsbPlan(NamedTuple):
-    """A WSB launch: its route ("registers", "shared" or "scratch"), grid,
-    block, shared bytes a block and scratch floats."""
+    """A WSB launch: its route ("registers", "shared" or "scratch", with a
+    "rows_" prefix for the row-gather entry), grid, block, shared bytes a
+    block and scratch floats."""
 
     route: str
     blocks: int
@@ -392,28 +476,32 @@ def wsb_register_shape(L: int, T: int) -> bool:
 
 
 def wsb_launch_plan(problems: int, L: int, T: int, registers: bool = True,
-                    route=None, Q: int = 1) -> WsbPlan:
+                    route=None, Q: int = 1, rows: bool = False) -> WsbPlan:
     """The launch of a WSB DP of ``problems`` problems (``Q`` queries a
-    slice), bucket capacity L, needles padded to T.  ``route`` None picks:
-    "registers" where ``registers`` allows it (the gather entry, with a
-    closure of non-negative costs and a table under 2^32 floats) and
-    ``wsb_register_shape`` holds (a group of G = ``wsb_group_width(T)``
-    lanes takes one problem, or two consecutive queries of a slice where Q
-    is even; WSB_REG_THREADS threads a block); else a problem's (L + 1) x
-    (T + 1) rows go to "shared" memory when blocks of 32, 64 or 128 threads
-    keep at least WSB_MIN_RESIDENT threads resident an SM (the block size
-    that keeps the most), else to a "scratch" buffer sized to the threads
-    in flight (the grid then walks over the problems).  A named ``route``
-    forces that one (ValueError where it cannot run)."""
+    slice), bucket capacity L, needles padded to T; ``rows``: the
+    row-gather entry (its routes are named "rows_registers", "rows_shared"
+    and "rows_scratch").  ``route`` None picks: "registers" where
+    ``registers`` allows it (a closure of non-negative costs and a table
+    under 2^32 floats) and ``wsb_register_shape`` holds (a group of G =
+    ``wsb_group_width(T)`` lanes takes one problem — two consecutive
+    queries of a slice in the gather entry where Q is even;
+    WSB_REG_THREADS threads a block); else a problem's (L + 1) x (T + 1)
+    rows go to "shared" memory when blocks of 32, 64 or 128 threads keep at
+    least WSB_MIN_RESIDENT threads resident an SM (the block size that keeps
+    the most), else to a "scratch" buffer sized to the threads in flight
+    (the grid then walks over the problems).  A named ``route`` ("registers",
+    "shared" or "scratch") forces that one (ValueError where it cannot
+    run)."""
+    prefix = "rows_" if rows else ""
     if route is None and registers and wsb_register_shape(L, T):
         route = "registers"
     if route == "registers":
         if not (registers and wsb_register_shape(L, T)):
             raise ValueError(f"the register route does not take L={L}, T={T}")
         threads = WSB_REG_THREADS
-        groups = -(-problems // (2 if Q % 2 == 0 else 1))
+        groups = -(-problems // (2 if Q % 2 == 0 and not rows else 1))
         blocks = -(-groups * wsb_group_width(T) // threads)
-        return WsbPlan("registers", blocks, threads, 0, 0)
+        return WsbPlan(prefix + "registers", blocks, threads, 0, 0)
     per = (L + 1) * (T + 1) * 4
     best = (0, 0)  # (resident threads an SM, threads a block)
     for threads in (128, 64, 32):
@@ -426,12 +514,13 @@ def wsb_launch_plan(problems: int, L: int, T: int, registers: bool = True,
     if route == "shared" and resident == 0:
         raise ValueError(f"rows of L={L}, T={T} do not fit in shared memory")
     if route == "shared" or (route is None and resident >= max(WSB_MIN_RESIDENT, 1)):
-        return WsbPlan("shared", -(-problems // threads), threads,
+        return WsbPlan(prefix + "shared", -(-problems // threads), threads,
                        threads * per, 0)
     threads = WSB_SCRATCH_THREADS
     blocks = max(1, min(-(-problems // threads),
                         WSB_SCRATCH_MAX // (threads * per)))
-    return WsbPlan("scratch", blocks, threads, 0, blocks * threads * per // 4)
+    return WsbPlan(prefix + "scratch", blocks, threads, 0,
+                   blocks * threads * per // 4)
 
 
 def wsb_register_table(table: torch.Tensor) -> torch.Tensor:
@@ -446,6 +535,21 @@ def _wsb_scratch(dev, floats: int):
         return None, 0
     buf = torch.empty((floats,), dtype=torch.float32, device=dev)
     return buf, buf.data_ptr()
+
+
+def _register_costs(L: int, T: int, table, vecs, host_costs):
+    """The host cost vectors the register route passes by value, or None
+    where the route cannot take the launch: a shape its templates do not
+    take, a table of 2^32 floats or more, or a closure w_t*[1..T] with a
+    negative cost (its shuffles need w_t* >= 0).  Without ``host_costs`` the
+    device vectors are copied back, which waits for the stream."""
+    if not wsb_register_shape(L, T) or table.numel() >= 2**32:
+        return None
+    hs = host_costs if host_costs is not None else vecs
+    hs = [w.detach().to("cpu", torch.float32).contiguous() for w in hs]
+    _check_gap_vecs(L, T, *hs)
+    # numpy: a few microseconds less host time a launch than torch ops
+    return hs if hs[2].numpy()[1 : T + 1].min() >= 0 else None
 
 
 def wsb_dp_scores_reference(
@@ -516,19 +620,9 @@ def wsb_dp_scores(table, tokens, len_s, len_t, w_s, w_t, w_t_star, locality,
     if n == 0 or Q == 0:
         return out
     ln1 = torch.clamp_min(len_s, 1)
-    hs = None
-    if wsb_register_shape(L, Tpad):
-        hs = host_costs if host_costs is not None else (w_s, w_t, w_t_star)
-        hs = [w.detach().to("cpu", torch.float32).contiguous() for w in hs]
-        _check_gap_vecs(L, Tpad, *hs)
-    # the register route's shuffles need w_t*[1..Tpad] >= 0, its offsets
-    # 32 bits
-    registers = (
-        hs is not None and table.numel() < 2**32
-        and bool((hs[2][1 : Tpad + 1] >= 0).all())
-    )
-    plan = wsb_launch_plan(n * Q, L, Tpad, registers=registers, route=_route,
-                           Q=Q)
+    hs = _register_costs(L, Tpad, table, (w_s, w_t, w_t_star), host_costs)
+    plan = wsb_launch_plan(n * Q, L, Tpad, registers=hs is not None,
+                           route=_route, Q=Q)
     lib = _load("wsb_dp")
     if plan.route == "registers":
         n_wt = min(hs[1].numel(), hs[2].numel())
@@ -562,9 +656,7 @@ def wsb_dp_scores(table, tokens, len_s, len_t, w_s, w_t, w_t_star, locality,
     return out
 
 
-def wsb_dp_scores_flat_reference(S, len_s, len_t, w_s, w_t, w_t_star,
-                                 locality):
-    """Plain torch version of ``wsb_dp_scores_flat``: the torch WSB scan."""
+def _wsb_general_scores(S, len_s, len_t, w_s, w_t, w_t_star, locality):
     L, T = S.shape[1], S.shape[2]
     return align_scores_general(
         S, len_s, len_t, w_s[: L + 1], w_t[: T + 1], locality,
@@ -572,13 +664,100 @@ def wsb_dp_scores_flat_reference(S, len_s, len_t, w_s, w_t, w_t_star,
     )
 
 
-def wsb_dp_scores_flat(S, len_s, len_t, w_s, w_t, w_t_star, locality):
+def wsb_dp_scores_rows_reference(tokens, rows, qslot, table, V, len_s, len_t,
+                                 w_s, w_t, w_t_star, locality):
+    """Plain torch version of ``wsb_dp_scores_rows``: the gather and the
+    torch WSB scan, then the empty-slice mask."""
+    S = _gather_rows(tokens, rows, qslot, table, V)
+    raw = _wsb_general_scores(S, len_s, len_t, w_s, w_t, w_t_star, locality)
+    return raw.masked_fill(len_s <= 0, NEG)
+
+
+def _wsb_rows_launch(table, tokens, rows, qslot, V, L, len_s, len_t, vecs,
+                     locality, host_costs, route, mask_empty):
+    B, T = len_s.shape[0], table.shape[1]
+    dev = table.device
+    out = torch.empty((B,), dtype=torch.float32, device=dev)
+    if B == 0:
+        return out
+    hs = _register_costs(L, T, table, vecs, host_costs)
+    plan = wsb_launch_plan(B, L, T, registers=hs is not None, route=route,
+                           rows=True)
+    lib = _load("wsb_dp")
+    ptrs = (table.data_ptr(), *_rows_ptrs(tokens, rows, qslot),
+            len_s.data_ptr(), len_t.data_ptr())
+    loc = LOCALITIES.index(locality)
+    scratch = None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if plan.route == "rows_registers":
+            rc = lib.vt_wsb_dp_scores_rows_regs(
+                *ptrs, hs[0].data_ptr(), hs[0].numel(), hs[1].data_ptr(),
+                hs[2].data_ptr(), min(hs[1].numel(), hs[2].numel()),
+                out.data_ptr(), B, L, T, V, loc, int(mask_empty), plan.blocks,
+                stream,
+            )
+        else:
+            scratch, scratch_ptr = _wsb_scratch(dev, plan.floats)
+            rc = lib.vt_wsb_dp_scores_rows(
+                *ptrs, *(w.data_ptr() for w in vecs), out.data_ptr(),
+                scratch_ptr, B, L, T, V, loc, int(mask_empty), plan.blocks,
+                plan.threads, plan.smem, stream,
+            )
+    del scratch
+    _raise_on(rc, "wsb_dp_flat")
+    LAUNCHES["wsb_dp_flat"] += 1
+    WSB_ROUTE_LAUNCHES[plan.route] += 1
+    return out
+
+
+def wsb_dp_scores_rows(tokens, rows, qslot, table, V, len_s, len_t, w_s, w_t,
+                       w_t_star, locality, host_costs=None):
+    """Raw WSB-DP scores [B] f32 of (bucket row, query slot) problems, the
+    gather fused in (inputs as in ``affine_dp_scores_rows``; a problem with
+    len_s <= 0 scores -1e30).  Cost vectors as in ``wsb_dp_scores``
+    (w_s [>= L + 1], w_t and w_t_star [>= Tmax + 1]; ``host_costs`` their
+    host copies for the register route, ``GeneralGaps.host_vecs``).  Routes
+    as ``wsb_launch_plan(..., rows=True)`` picks them."""
+    _check_locality(locality)
+    _, L, T = _check_rows("wsb_dp_scores_rows", tokens, rows, qslot, table,
+                          len_s, len_t)
+    _check_gap_vecs(L, T, w_s, w_t, w_t_star)
+    dev = table.device
+    if dev.type == "cpu":
+        return wsb_dp_scores_rows_reference(
+            tokens, rows, qslot, table, V, len_s, len_t, w_s, w_t, w_t_star,
+            locality,
+        )
+    _check_cuda(
+        "wsb_dp_scores_rows", dev, table=(table, torch.float32),
+        tokens=(tokens, torch.int32), rows=(rows, torch.int32),
+        qslot=(qslot, torch.int32), len_s=(len_s, torch.int32),
+        len_t=(len_t, torch.int32), w_s=(w_s, torch.float32),
+        w_t=(w_t, torch.float32), w_t_star=(w_t_star, torch.float32),
+    )
+    return _wsb_rows_launch(table, tokens, rows, qslot, V, L, len_s, len_t,
+                            (w_s, w_t, w_t_star), locality, host_costs,
+                            None, True)
+
+
+def wsb_dp_scores_flat_reference(S, len_s, len_t, w_s, w_t, w_t_star,
+                                 locality):
+    """Plain torch version of ``wsb_dp_scores_flat``: the torch WSB scan."""
+    return _wsb_general_scores(S, len_s, len_t, w_s, w_t, w_t_star, locality)
+
+
+def wsb_dp_scores_flat(S, len_s, len_t, w_s, w_t, w_t_star, locality,
+                       host_costs=None, _route=None):
     """Raw WSB-DP scores [B] f32 of a flat batch of problems (the port of
-    ``pallas_align_scores_general``).
+    ``pallas_align_scores_general``): the row-gather kernel reading S as
+    its table, row b * L + i.
 
     S [B, L, T] f32, len_s [B] i32 (0 <= len_s <= L: a zero-length problem
     scores its initial value, as the JAX kernel does), len_t [B] i32
-    (1 <= len_t <= T), cost vectors as in ``wsb_dp_scores``."""
+    (1 <= len_t <= T), cost vectors and ``host_costs`` as in
+    ``wsb_dp_scores_rows``; ``_route`` forces a route of
+    ``wsb_launch_plan(..., rows=True)``, for comparing the routes."""
     _check_locality(locality)
     dev = S.device
     if S.dim() != 3:
@@ -597,21 +776,6 @@ def wsb_dp_scores_flat(S, len_s, len_t, w_s, w_t, w_t_star, locality):
         w_s=(w_s, torch.float32), w_t=(w_t, torch.float32),
         w_t_star=(w_t_star, torch.float32),
     )
-    out = torch.empty((B,), dtype=torch.float32, device=dev)
-    if B == 0:
-        return out
-    plan = wsb_launch_plan(B, L, T, registers=False)
-    scratch, scratch_ptr = _wsb_scratch(dev, plan.floats)
-    lib = _load("wsb_dp")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.vt_wsb_dp_scores_flat(
-            S.data_ptr(), len_s.data_ptr(), len_t.data_ptr(), w_s.data_ptr(),
-            w_t.data_ptr(), w_t_star.data_ptr(), out.data_ptr(), scratch_ptr,
-            B, L, T, LOCALITIES.index(locality), plan.blocks, plan.threads,
-            plan.smem, stream,
-        )
-    _raise_on(rc, "wsb_dp_flat")
-    LAUNCHES["wsb_dp_flat"] += 1
-    del scratch
-    return out
+    return _wsb_rows_launch(S.view(B * L, T), None, None, None, B * L, L,
+                            len_s, len_t, (w_s, w_t, w_t_star), locality,
+                            host_costs, _route, False)

@@ -10,8 +10,9 @@ which gathers the stacked [V, Tpad, Q] query table by slice token ids and
 runs the DP for all Q queries; a device top-k fused with the exact f32
 rescore of the selected rows then replaces the bounded min-heap
 (result_set.h:40-60).  The kernel serves every corpus pass, Q=1 ``find``
-included; the score-only rescore of the finalizer's extras round runs the
-flat-batch kernels.
+included; the score-only rescores (the finalizer's extras round, one launch
+a bucket a round, and ``rescore_many`` without flows) run the row-gather
+kernels, which read each problem's rows from the stacked plan table.
 
 Score normalization follows the reference (metric/alignment.h:84-106 +
 match.h:295-336) with the default submatch_weight 0:
@@ -37,9 +38,9 @@ from vectorian_tpu_torch.ops.alignment import (
 )
 from vectorian_tpu_torch.ops.dp_kernels import (
     affine_dp_scores,
-    affine_dp_scores_flat,
+    affine_dp_scores_rows,
     wsb_dp_scores,
-    wsb_dp_scores_flat,
+    wsb_dp_scores_rows,
 )
 from vectorian_tpu_torch.utils import trace
 
@@ -169,16 +170,22 @@ def _mq_matrices_scores(S, ln, lt, gaps, locality, general=None):
     return H, raw.masked_fill(ln <= 0, NEG_SCORE)
 
 
-def _mq_scores(S, ln, lt, gaps, locality, general=None):
-    """Score-only variant of _mq_matrices_scores (same NEG_SCORE mask): the
-    flat-batch DP kernel on the card, its plain version on the CPU."""
-    ln32 = ln.to(torch.int32)
-    lt32 = lt.to(torch.int32)
+def _rows_scores(tokens, rows, qidx, table, V: int, ln, lt, gaps, locality,
+                 general=None):
+    """Score-only variant of _mq_matrices_scores on _mq_similarity's rows
+    (same bits, same NEG_SCORE mask): ONE launch of the row-gather DP
+    kernel, which reads each (row, query slot) problem's similarity rows
+    from the stacked table itself; its plain version on the CPU.
+    ``general``: the GeneralGaps of a non-affine model, else None."""
+    i32 = torch.int32
+    args = (tokens, rows.to(i32), qidx.to(i32), table, V, ln.to(i32), lt.to(i32))
     if general is None:
-        raw = affine_dp_scores_flat(S, ln32, lt32, gaps, locality)
-    else:
-        raw = wsb_dp_scores_flat(S, ln32, lt32, *general, locality)
-    return raw.masked_fill(ln <= 0, NEG_SCORE)
+        return affine_dp_scores_rows(*args, gaps, locality)
+    capacity = int(tokens.shape[1])
+    return wsb_dp_scores_rows(
+        *args, *general.vecs(capacity), locality,
+        host_costs=general.host_vecs(capacity),
+    )
 
 
 def _ec_general(ec, capacity: int):
@@ -228,24 +235,6 @@ def _full_exact_rescore(scores, tokens, ln_all, ec, n: int):
         _ec_general(ec, tokens.shape[1]),
     )
     return scores[:n].T, raw.reshape(Q, n), H, S
-
-
-def _col_above_exact(scores, qi, thresh, tokens, ln_all, ec, n: int, size: int):
-    """Rows of one bucket whose score for query ``qi`` is >= ``thresh``
-    (ascending), their count, and — when the count fits ``size`` — the
-    exact f32 raw DP scores of those rows (else None: the caller reads the
-    whole column)."""
-    idx = torch.nonzero(scores[:n, qi] >= thresh).flatten()
-    cnt = int(idx.numel())
-    if cnt > size:
-        return idx, cnt, None
-    qvec = torch.full_like(idx, qi)
-    S = _mq_similarity(tokens[idx], qvec, ec["table"], ec["V"])
-    raw = _mq_scores(
-        S, ln_all[idx], ec["lt_q"][qvec], ec["gaps"], ec["locality"],
-        _ec_general(ec, tokens.shape[1]),
-    )
-    return idx, cnt, raw
 
 
 def _host(t) -> np.ndarray:
@@ -415,29 +404,68 @@ class BucketTopKSource:
         with trace.span("above.exact"):
             return self._above_exact_many(reqs)
 
-    def _above_exact_many(self, reqs):
+    def _select_bucket(self, bi: int, cols: dict, sel: dict, raws: dict):
+        """The round's selects of bucket ``bi`` ({qi: f32 threshold}): per
+        column the rows with score >= its threshold (ascending) and their
+        exact raw scores, all columns in ONE row-gather launch; a column
+        past ABOVE_CAP rows is read whole instead.  Two waits for the
+        device: the counts, then the results."""
         ec = self.exact_ctx
-        sel, raws = {}, {}
+        db, scores = self._pending[bi]
+        n = db["n"]
+        dev = scores.device
+        qis = list(cols)
+        q_t = torch.as_tensor(qis, dtype=torch.int64, device=dev)
+        thr = torch.as_tensor([cols[q] for q in qis], dtype=torch.float32,
+                              device=dev)
+        mask = scores[:n, q_t].T >= thr[:, None]  # [columns, n]
+        counts = _host(mask.sum(1))
+        fits = counts <= min(self.ABOVE_CAP, n)
+        for c in np.flatnonzero(~fits):
+            self._column(bi, qis[c])
+        keep = np.flatnonzero(fits)
+        total = int(counts[keep].sum())
+        rows_h, raw_h = np.empty((0,), np.int64), np.empty((0,), np.float32)
+        if total:
+            if len(keep) < len(qis):
+                keep_t = torch.as_tensor(keep, dtype=torch.int64, device=dev)
+                mask, q_t = mask[keep_t], q_t[keep_t]
+            # (column, row) pairs, rows ascending within a column; the size
+            # is the fetched count, so nonzero_static does not wait for one
+            nz = torch.nonzero_static(mask, size=total)
+            rows, qidx = nz[:, 1], q_t[nz[:, 0]]
+            raw = _rows_scores(
+                db["tokens"], rows, qidx, ec["table"], ec["V"],
+                db["lengths"][rows], ec["lt_q"][qidx], ec["gaps"],
+                ec["locality"], ec["general"],
+            )
+            rows_h, raw_h = _host(rows), _host(raw)
+        ends = np.cumsum(counts[keep])
+        for c, end in zip(keep, ends):
+            cnt = int(counts[c])
+            sel[(bi, qis[c])] = rows_h[end - cnt : end]
+            raws[(bi, qis[c])] = raw_h[end - cnt : end]
+
+    def _above_exact_many(self, reqs):
+        # the (bucket, query) columns this round selects, with the first
+        # request's threshold of each query
+        want: Dict[int, dict] = {}
         for view, thresh, _ in reqs:
             qi = view.qi
             for bi, b in enumerate(self._buckets):
+                cols = want.setdefault(bi, {})
                 if (
                     b["full"]
                     or float(b["bound"][qi]) < thresh
                     or (bi, qi) in self._col_cache
-                    or (bi, qi) in sel
+                    or qi in cols
                 ):
                     continue
-                db, scores = self._pending[bi]
-                idx, cnt, raw = _col_above_exact(
-                    scores, qi, float(np.float32(thresh)), db["tokens"],
-                    db["lengths"], ec, db["n"], min(self.ABOVE_CAP, db["n"]),
-                )
-                if raw is None:
-                    self._column(bi, qi)
-                else:
-                    sel[(bi, qi)] = _host(idx)
-                    raws[(bi, qi)] = _host(raw)
+                cols[qi] = float(np.float32(thresh))
+        sel, raws = {}, {}
+        for bi, cols in want.items():
+            if cols:
+                self._select_bucket(bi, cols, sel, raws)
         out = []
         for view, thresh, excl in reqs:
             qi = view.qi
@@ -531,15 +559,22 @@ def edge_sims_of(mapping, Su, len_t: int) -> np.ndarray:
 def _stacked_rescore(tokens, rows, qidx, table, ln, lt, gaps, V, locality,
                      want_flows, general=None):
     """Similarity gather + DP for the rescore rows of MANY queries in one
-    pass.  Bit-exact vs the per-query arithmetic: the table rows are copies
-    of each query's compiled plan matrix, and the DP recurrence is
-    column-prefix-causal with (len_s, len_t)-masked reductions, so the pad
-    columns of narrower queries never perturb a real cell's bits."""
+    pass (``general``: the GeneralGaps of a non-affine model).  Bit-exact
+    vs the per-query arithmetic: the table rows are copies of each query's
+    compiled plan matrix, and the DP recurrence is column-prefix-causal
+    with (len_s, len_t)-masked reductions, so the pad columns of narrower
+    queries never perturb a real cell's bits.  Without flows the gather
+    stays inside the row-gather kernel."""
+    if not want_flows:
+        raw = _rows_scores(tokens, rows, qidx, table, V, ln, lt, gaps,
+                           locality, general)
+        return raw, None, None
     S = _mq_similarity(tokens[rows], qidx, table, V)
-    if want_flows:
-        H, raw = _mq_matrices_scores(S, ln, lt, gaps, locality, general)
-        return raw, H, S
-    return _mq_scores(S, ln, lt, gaps, locality, general), None, None
+    H, raw = _mq_matrices_scores(
+        S, ln, lt, gaps, locality,
+        None if general is None else general.vecs(int(tokens.shape[1])),
+    )
+    return raw, H, S
 
 
 class BruteForceEngine:
@@ -727,8 +762,7 @@ class BruteForceEngine:
                 )
                 out = _stacked_rescore(
                     db["tokens"], rows, qix, table, ln, lt, gaps, V,
-                    locality, want_flows,
-                    None if general is None else general.vecs(db["capacity"]),
+                    locality, want_flows, general,
                 )
                 groups.append((db["capacity"], pc, out))
 
