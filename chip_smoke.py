@@ -9,9 +9,10 @@ Phases, each of which raises on failure:
 2. Build: compiles every kernel of the port from the checkout's sources
    (csrc/*.cu, one nvcc per source, all started together; prints each
    ptxas report) and the native host library (native/, the traceback).
-   Fails if an affine template up to T1P = 33 (gather and row-gather) or
-   any kernel of the WSB register route (gather and row-gather) has a
-   stack frame or spills.
+   Fails if an affine template up to T1P = 33 (gather at f32, bf16 and
+   int8 tables, and row-gather) or any kernel of the WSB register route
+   (gather at each table type, and row-gather) has a stack frame or
+   spills.
 3. Kernels against their plain torch versions on the card (random tables,
    tokens and costs from a seeded generator), bit for bit (torch.equal):
    the affine corpus kernel, the WSB corpus kernel (the register route at
@@ -22,17 +23,25 @@ Phases, each of which raises on failure:
    plus L=64 and L=256 buckets; every route), each timed against the
    gather + flat-batch form it replaces and against its bound, and the
    flat-batch wrappers, each in 3 localities and 2 affine gap sets or 3
-   general gap models.
+   general gap models.  3b: both corpus kernels on bf16 and int8 ranking
+   tables (ops/search.stack_query_tables, costs in the table's units):
+   affine_dp at L {16, 32} x Tpad {8, 16} x Q {1, 32}, wsb_dp's register
+   route at the same shapes plus one shared-rows and one scratch shape,
+   bit for bit, each timed against the f32 kernel on the table before
+   quantizing (in turns); a float16 table must raise.
 4. Main path at real size: a 1,000,000-sentence Zipf corpus (9 tokens a
    sentence over 5,000 words, a 5,000 x 300 KeyedVectors), Session(device=
-   "cuda") -> partition("sentence") -> index; find_batch of 32 queries and
-   21 find() calls, under an affine index (4) and, on the same packing,
-   under LocalAlignment(ExponentialGapCost(3.0)) (4b).  The launch counts
-   are set to 0 right before each and read right after; find and
-   find_batch must be byte-identical, and every WSB launch of 4b must take
-   the register route.  At the main path's shapes (Q=32 and the Q=1 of a
-   find) each corpus kernel is held against its plain version and timed;
-   the WSB register route against the one-thread-a-problem route in turns
+   "cuda") -> partition("sentence") -> index; find_batch of 32 queries at
+   the default ranking precision (int8), "bfloat16" and "float32", and 21
+   find() calls, under an affine index (4) and, on the same packing, under
+   LocalAlignment(ExponentialGapCost(3.0)) (4b).  The launch counts are set
+   to 0 right before each and read right after; the three precisions and
+   find must be byte-identical, and every WSB launch of 4b must take the
+   register route.  Per precision: wall time, alignments/s, extras rounds,
+   row-gather launches and the wait for the int8/bf16 scale read.  At the
+   main path's shapes (Q=32 at each table type, and the Q=1 of a find)
+   each corpus kernel is held against its plain version and timed; the
+   WSB register route against the one-thread-a-problem route in turns
    (new, old, old, new).  4c: a small corpus of repeated
    sentences whose ties make every cut unsafe, so the finalizer's extras
    round runs the row-gather kernels (affine and general index; one launch
@@ -44,8 +53,8 @@ Phases, each of which raises on failure:
 
 Prints one JSON line per phase, the card's name and power limit, the
 kernels' line ({"kernels": [...]}) and, last, {"ok": true, "device": ...}.
-torch.profiler traces of one find_batch and one find per main path report
-the device busy time, idle share and top kernels.
+torch.profiler traces of one find_batch at int8 and at f32 and one find per
+main path report the device busy time, idle share and top kernels.
 """
 
 import concurrent.futures
@@ -83,6 +92,10 @@ FLAT_B = 65_536
 ROWS_BATCHES = (700, 8_192, 65_536)
 ROWS_BUCKET = 65_536
 LOCALITIES = ("local", "global", "semiglobal")
+# find_batch's ranking precisions (None: the default, int8) and the
+# quantized table types, with their tags in the kernels' launch counts
+PRECISIONS = (None, "bfloat16", "float32")
+QUANT_TAGS = {"bfloat16": "bf16", "int8": "int8"}
 
 
 def log(msg):
@@ -117,16 +130,21 @@ def phase_device():
     return card
 
 
-_AFFINE_TEMPLATE = re.compile(r"affine_dp_kernelILi(\d+)ELi(\d)ELb([01])ELb([01])E")
+# the table's element type, last template argument: float, unsigned short
+# (bf16 bits), signed char (int8)
+_ELEM = {"f": "f32", "t": "bf16", "a": "int8"}
+_AFFINE_TEMPLATE = re.compile(
+    r"affine_dp_kernel(?:_4b)?ILi(\d+)ELi(\d)ELb([01])ELb([01])E([fta])E")
 _WSB_REGS_TEMPLATE = re.compile(
-    r"wsb_regs_kernelILi(\d+)ELi(\d+)ELi(\d)ELi(\d)ELb([01])E")
+    r"wsb_regs_kernelILi(\d+)ELi(\d+)ELi(\d)ELi(\d)ELb([01])E([fta])E")
 
 
 def ptxas_gate(reports):
     """Each kernel template's registers, stack frame and spills from the
     ptxas reports; raises if an affine template up to T1P = 33 or a kernel
-    of the WSB register route (either entry) has a stack frame or spills,
-    or if the reports lack the gather or row-gather kernels."""
+    of the WSB register route (either entry, any table type) has a stack
+    frame or spills, or if the reports lack the gather kernels of a table
+    type or the row-gather kernels."""
     from vectorian_tpu_torch.ops.dp_kernels import ptxas_entries
 
     rows, bad = [], []
@@ -134,12 +152,12 @@ def ptxas_gate(reports):
         for name, e in ptxas_entries(text).items():
             a, w = _AFFINE_TEMPLATE.search(name), _WSB_REGS_TEMPLATE.search(name)
             if a:
-                label = (f"affine {'rows' if a[3] == '1' else 'gather'} T1P={a[1]} "
-                         f"loc={a[2]}{' vec' if a[4] == '1' else ''}")
+                label = (f"affine {'rows' if a[3] == '1' else 'gather'} {_ELEM[a[5]]} "
+                         f"T1P={a[1]} loc={a[2]}{' vec' if a[4] == '1' else ''}")
                 gated = int(a[1]) <= 33
             elif w:
-                label = (f"wsb_regs {'rows' if w[5] == '1' else 'gather'} L={w[1]} "
-                         f"G={w[2]} loc={w[3]} P={w[4]}")
+                label = (f"wsb_regs {'rows' if w[5] == '1' else 'gather'} {_ELEM[w[6]]} "
+                         f"L={w[1]} G={w[2]} loc={w[3]} P={w[4]}")
                 gated = True
             else:
                 label, gated = f"{source}: {name[:60]}", False
@@ -147,8 +165,9 @@ def ptxas_gate(reports):
                          e["spill_loads"]])
             if gated and (e["stack"] or e["spill_stores"] or e["spill_loads"]):
                 bad.append(label)
-    for kind in ("affine gather", "affine rows", "wsb_regs gather", "wsb_regs rows"):
-        if not any(r[0].startswith(kind) for r in rows):
+    kinds = [f"{k} gather {t}" for k in ("affine", "wsb_regs") for t in _ELEM.values()]
+    for kind in kinds + ["affine rows f32", "wsb_regs rows f32"]:
+        if not any(r[0].startswith(kind + " ") for r in rows):
             raise AssertionError(f"ptxas gate: the reports name no {kind} kernel")
     emit({"phase": "ptxas", "kernels_registers_stack_spill_st_ld": sorted(rows)})
     if bad:
@@ -226,14 +245,14 @@ def _affine_row_ops(lt):
 
 def dp_bound_ms(tokens, len_s, len_t, table):
     """Least time for the affine corpus DP on these inputs: bytes (each
-    input read once, the [n, Q] output written once) against the f32
-    operations the data needs — rows up to each slice's length, columns up
-    to each needle's length."""
+    input read once, the table at its element size, the [n, Q] output
+    written once) against the f32 operations the data needs — rows up to
+    each slice's length, columns up to each needle's length."""
     n, L = tokens.shape
     Q = table.shape[2]
     nbytes = (
         tokens.numel() * 4 + len_s.numel() * 4 + len_t.numel() * 4
-        + table.numel() * 4 + n * Q * 4
+        + table.numel() * table.element_size() + n * Q * 4
     )
     rows = int(len_s.clamp(1, L).sum())
     per_row = sum(_affine_row_ops(lt) for lt in len_t.tolist())
@@ -262,12 +281,12 @@ def _wsb_ops(rows, lt):
 
 def wsb_bound_ms(tokens, len_s, len_t, table):
     """Least time for the WSB corpus DP on these inputs (bytes: token ids,
-    lengths and table in, [n, Q] scores out)."""
+    lengths and table (at its element size) in, [n, Q] scores out)."""
     n, L = tokens.shape
     Q = table.shape[2]
     nbytes = (
         tokens.numel() * 4 + len_s.numel() * 4 + len_t.numel() * 4
-        + table.numel() * 4 + n * Q * 4
+        + table.numel() * table.element_size() + n * Q * 4
     )
     rows = len_s.clamp(1, L).double()
     lt = len_t.double()
@@ -480,6 +499,135 @@ def phase_kernels_general():
     if dp_kernels.WSB_ROUTE_LAUNCHES["registers"] != before["registers"]:
         raise AssertionError("wsb_dp: a negative closure took the register route")
 
+    return worst
+
+
+def _quant_tables(rng, V, Tpad, Q):
+    """Q random [V, Tpad] plans stacked into the f32 serving table and into
+    each quantized one (ops/search.stack_query_tables): {sim_dtype: (table,
+    sim_scale)}, None for f32."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from vectorian_tpu_torch.ops.search import stack_query_tables
+
+    plans = [SimpleNamespace(matrix=torch.as_tensor(
+        rng.uniform(-0.4, 1.0, size=(V, Tpad)).astype(np.float32), device=DEVICE))
+        for _ in range(Q)]
+    out = {}
+    for dt in (None, *QUANT_TAGS):
+        table, scale, _, _ = stack_query_tables(plans, [Tpad] * Q, dt)
+        out[dt] = (table, scale)
+    return out
+
+
+def _expect_value_error(label, fn):
+    try:
+        fn()
+    except ValueError:
+        return
+    raise AssertionError(f"{label} was accepted")
+
+
+def phase_kernels_quant():
+    """3b: affine_dp and wsb_dp on bf16 and int8 ranking tables against their
+    plain versions, bit for bit, the costs in the table's units
+    (ops/search.scaled_costs); each shape timed against the f32 kernel on
+    the table before quantizing, in turns (quantized, f32, f32, quantized).
+    Returns {"affine_dp[bf16]": worst |diff|, ...}."""
+    import numpy as np
+    import torch
+
+    from vectorian_tpu_torch.ops import dp_kernels
+    from vectorian_tpu_torch.ops.alignment import AffineGapParams
+    from vectorian_tpu_torch.ops.search import scaled_costs
+
+    rng = np.random.default_rng(SEED + 5)
+    dev = torch.device(DEVICE)
+    models = _gap_models(rng)
+    gapsets = [(0.0, 0.0, 0.0, 0.0), (0.37, 0.113, 0.29, 0.071)]
+    zero = AffineGapParams.of(0, 0, 0, 0)
+    worst = {f"{k}[{t}]": 0.0 for k in ("affine_dp", "wsb_dp") for t in QUANT_TAGS.values()}
+    shapes = [(L, T, Q, None) for L in (16, 32) for T in (8, 16) for Q in (1, 32)]
+    # the one-thread-a-problem routes at one shape each: shared rows, scratch
+    shapes += [(16, 8, 32, "rows"), (32, 16, 1, "rows")]
+    for L, Tpad, Q, route in shapes:
+        tables = _quant_tables(rng, 5_000, Tpad, Q)
+        f32 = tables[None][0]
+        for kernel in ("affine_dp", "wsb_dp"):
+            if kernel == "affine_dp":
+                if route:
+                    continue
+                n = AFFINE_N
+            else:
+                n = max((WSB_PROBLEMS if route else WSB_REG_PROBLEMS) // Q, 8)
+            _, tokens, len_s, len_t = _wsb_inputs(rng, n, L, Tpad, Q)
+            forced = (dp_kernels.wsb_launch_plan(n * Q, L, Tpad, registers=False).route
+                      if route else None)
+            for dt, tag in QUANT_TAGS.items():
+                table, scale = tables[dt]
+                name = f"{kernel}[{tag}]"
+                if kernel == "affine_dp":
+                    cases = [(scaled_costs(AffineGapParams.of(*gs), None, scale, Tpad, dev)[0],
+                              None, gs) for gs in gapsets]
+                    f32_args = (f32, tokens, len_s, len_t, AffineGapParams.of(*gapsets[1]))
+                else:
+                    cases = [(zero, scaled_costs(zero, (m, m), scale, Tpad, dev)[1], mn)
+                             for mn, m in models.items()]
+                    gg = _wsb_general(models["exponential"], Tpad)
+                    f32_args = (f32, tokens, len_s, len_t, *gg.vecs(L))
+                    f32_kw = {"host_costs": gg.host_vecs(L), "_route": forced}
+                for gaps, gen, what in cases:
+                    for loc in LOCALITIES:
+                        if gen is None:
+                            args = (table, tokens, len_s, len_t, gaps, loc)
+                            got = dp_kernels.affine_dp_scores(*args)
+                            want = dp_kernels.affine_dp_scores_reference(*args)
+                        else:
+                            args = (table, tokens, len_s, len_t, *gen.vecs(L), loc)
+                            got, used = _with_route(lambda: dp_kernels.wsb_dp_scores(
+                                *args, host_costs=gen.host_vecs(L), _route=forced))
+                            want = dp_kernels.wsb_dp_scores_reference(*args)
+                            if used != (forced or "registers"):
+                                raise AssertionError(f"{name}: took {used} at {(L, Tpad, Q)}")
+                        worst[name] = max(worst[name], _check_equal(
+                            name, got, want, (n, L, Tpad, Q, loc, what)))
+                gaps, gen, _ = cases[-1] if kernel == "affine_dp" else cases[0]
+                if kernel == "affine_dp":
+                    args = (table, tokens, len_s, len_t, gaps, "local")
+                    run = lambda: dp_kernels.affine_dp_scores(*args)  # noqa: E731
+                    run32 = lambda: dp_kernels.affine_dp_scores(*f32_args, "local")  # noqa: E731
+                    plain = lambda: dp_kernels.affine_dp_scores_reference(*args)  # noqa: E731
+                    bound, by = dp_bound_ms(tokens, len_s, len_t, table)
+                    reps = 10
+                else:
+                    args = (table, tokens, len_s, len_t, *gen.vecs(L), "local")
+                    kw = {"host_costs": gen.host_vecs(L), "_route": forced}
+                    run = lambda: dp_kernels.wsb_dp_scores(*args, **kw)  # noqa: E731
+                    run32 = lambda: dp_kernels.wsb_dp_scores(  # noqa: E731
+                        *f32_args, "local", **f32_kw)
+                    plain = lambda: dp_kernels.wsb_dp_scores_reference(*args)  # noqa: E731
+                    bound, by = wsb_bound_ms(tokens, len_s, len_t, table)
+                    reps = 5
+                turns = [cuda_ms(run, reps), cuda_ms(run32, reps), cuda_ms(run32, reps),
+                         cuda_ms(run, reps)]
+                emit({"phase": "kernel_quant", "name": name, "n": n, "L": L, "Tpad": Tpad,
+                      "Q": Q, "route": forced or ("registers" if kernel == "wsb_dp"
+                                                  else "thread_per_problem"),
+                      "localities": 3, "cases": len(cases), "max_abs_diff": 0.0,
+                      "kernel_ms": (turns[0] + turns[3]) / 2,
+                      "f32_kernel_ms": (turns[1] + turns[2]) / 2,
+                      "quant_f32_f32_quant_ms": turns, "plain_ms": cuda_ms(plain, 1),
+                      "bound_ms": bound, "bound_by": by})
+    # a table of any other type raises; nothing upcasts it
+    f16 = f32.to(torch.float16)
+    gg = _wsb_general(models["exponential"], Tpad)
+    _expect_value_error("affine_dp_scores: a float16 table", lambda: dp_kernels.affine_dp_scores(
+        f16, tokens, len_s, len_t, zero, "local"))
+    _expect_value_error("wsb_dp_scores: a float16 table", lambda: dp_kernels.wsb_dp_scores(
+        f16, tokens, len_s, len_t, *gg.vecs(L), "local", host_costs=gg.host_vecs(L)))
     return worst
 
 
@@ -737,115 +885,177 @@ def profile_calls(label, fn):
 
 
 def drive_main_path(index, queries, finds, kernel, label, card, n_sents):
-    """find_batch of the queries and one find per ``finds`` entry, with the
-    launch counts set to 0 right before and read right after; ``kernel``
-    must launch in find_batch and in every find.  Then the warm
-    find_batch timings, find == find_batch, and the two profiles."""
+    """find_batch of the queries at each of PRECISIONS and one find per
+    ``finds`` entry, with the launch counts set to 0 right before and read
+    right after; ``kernel`` must launch at every table type in find_batch
+    and (f32) in every find.  Then three warm find_batch calls a precision
+    (wall time, extras rounds, row-gather launches, the scale read's wait),
+    the precisions and find byte-identical, and the profiles."""
     import numpy as np
 
-    from vectorian_tpu_torch.ops import dp_kernels
+    from vectorian_tpu_torch.ops import dp_kernels, search
+    from vectorian_tpu_torch.utils import trace
 
     Q, n, min_score = len(queries), 10, 0.2
     n_slices = index.packed.n_slices
-    # ---- the main path: launch counts from 0, read right after ----
-    dp_kernels.reset_launches()
-    batch = index.find_batch(queries, n=n, min_score=min_score, sim_precision="float32")
-    launches_batch = dp_kernels.LAUNCHES[kernel]
-    if launches_batch == 0:
-        raise AssertionError(f"{label}: find_batch launched no {kernel} kernel")
-    lats = []
-    for q in finds:
-        before = dp_kernels.LAUNCHES[kernel]
-        t = time.perf_counter()
-        r = index.find(q, n=n, min_score=min_score)
-        lats.append(time.perf_counter() - t)
-        if dp_kernels.LAUNCHES[kernel] == before:
-            raise AssertionError(f"{label}: a find launched no {kernel} kernel")
-        check_results([r], n, min_score)
-    launches_find = dp_kernels.LAUNCHES[kernel] - launches_batch
-    pass_times = []
-    for _ in range(3):
-        t = time.perf_counter()
-        batch = index.find_batch(queries, n=n, min_score=min_score, sim_precision="float32")
-        pass_times.append(time.perf_counter() - t)
-    singles = [pairs(index.find(q, n=n, min_score=min_score)) for q in queries[:8]]
-    launches = dict(dp_kernels.LAUNCHES)
-    routes = dict(dp_kernels.WSB_ROUTE_LAUNCHES)
-    # ---- end of the main path ----
+    rows_kernel = kernel + "_flat"
+    variants = [kernel] + [f"{kernel}[{t}]" for t in QUANT_TAGS.values()]
+    real_round = search.BucketTopKSource.above_exact_many
+    rounds = [0]
 
-    check_results(batch, n, min_score)
-    if not any(len(r) for r in batch):
+    def count_round(self, reqs):
+        rounds[0] += 1
+        return real_round(self, reqs)
+
+    def batch_at(prec):
+        return index.find_batch(queries, n=n, min_score=min_score, sim_precision=prec)
+
+    search.BucketTopKSource.above_exact_many = count_round
+    try:
+        # ---- the main path: launch counts from 0, read right after ----
+        dp_kernels.reset_launches()
+        for prec in PRECISIONS:
+            batch_at(prec)
+        launches_batch = dict(dp_kernels.LAUNCHES)
+        for v in variants:
+            if launches_batch[v] == 0:
+                raise AssertionError(f"{label}: find_batch launched no {v} kernel")
+        lats = []
+        for q in finds:
+            before = dp_kernels.LAUNCHES[kernel]
+            t = time.perf_counter()
+            r = index.find(q, n=n, min_score=min_score)
+            lats.append(time.perf_counter() - t)
+            if dp_kernels.LAUNCHES[kernel] == before:
+                raise AssertionError(f"{label}: a find launched no {kernel} kernel")
+            check_results([r], n, min_score)
+        launches_find = dp_kernels.LAUNCHES[kernel] - launches_batch[kernel]
+        per_prec, batches = {}, {}
+        for prec in PRECISIONS:
+            times, extras, rows, waits = [], [], [], []
+            for _ in range(3):
+                r0, l0 = rounds[0], dp_kernels.LAUNCHES[rows_kernel]
+                trace.start()
+                t = time.perf_counter()
+                batches[prec] = batch_at(prec)
+                times.append(time.perf_counter() - t)
+                spans = trace.stop()
+                extras.append(rounds[0] - r0)
+                rows.append(dp_kernels.LAUNCHES[rows_kernel] - l0)
+                waits.append(sum(dt for name, dt in spans if name == "topk.max_abs_read") * 1e3)
+            per_prec[prec or "int8"] = {"times": times, "extras_rounds": extras,
+                                        "row_gather_launches": rows, "scale_read_ms": waits}
+        singles = [pairs(index.find(q, n=n, min_score=min_score)) for q in queries[:8]]
+        launches = dict(dp_kernels.LAUNCHES)
+        routes = dict(dp_kernels.WSB_ROUTE_LAUNCHES)
+        # ---- end of the main path ----
+    finally:
+        search.BucketTopKSource.above_exact_many = real_round
+
+    want = [pairs(r) for r in batches["float32"]]
+    for prec, batch in batches.items():
+        check_results(batch, n, min_score)
+        if [pairs(r) for r in batch] != want:
+            raise AssertionError(f"{label}: find_batch at {prec or 'int8'} differs from float32")
+    if not any(want):
         raise AssertionError(f"{label}: find_batch returned no matches at all")
-    if singles != [pairs(r) for r in batch[:8]]:
+    if singles != want[:8]:
         raise AssertionError(f"{label}: find and find_batch differ")
-    dt_batch = float(np.median(pass_times))
+    for prec, m in per_prec.items():
+        dt_batch = float(np.median(m["times"]))
+        emit({"phase": label, "precision": prec, "card": card, "sentences": n_sents,
+              "slices": n_slices, "find_batch_Q": Q, "find_batch_s": dt_batch,
+              "find_batch_s_all": m["times"], "alignments_per_s": n_slices * Q / dt_batch,
+              "extras_rounds": m["extras_rounds"],
+              "row_gather_launches": m["row_gather_launches"],
+              "scale_read_ms": m["scale_read_ms"]})
     emit({
-        "phase": label, "card": card, "sentences": n_sents,
-        "slices": n_slices,
+        "phase": label, "card": card, "sentences": n_sents, "slices": n_slices,
         "find_p50_ms": float(np.percentile(np.asarray(lats) * 1e3, 50)),
-        "find_batch_Q": Q, "find_batch_s": dt_batch,
-        "alignments_per_s": n_slices * Q / dt_batch,
         "launches_per_find": launches_find / len(finds),
-        "launches_per_find_batch": launches_batch,
+        "launches_per_find_batch": {v: launches_batch[v] for v in variants},
         "launches": launches,
         "wsb_route_launches": routes,
-        "find_equals_find_batch": True,
+        "precisions_and_find_byte_identical": True,
     })
-    profile_calls(f"{label}:find_batch_Q{Q}", lambda: index.find_batch(
-        queries, n=n, min_score=min_score, sim_precision="float32"))
+    for prec in ("float32", None):
+        profile_calls(f"{label}:find_batch_Q{Q}_{prec or 'int8'}", lambda: batch_at(prec))
     profile_calls(f"{label}:find", lambda: index.find(finds[0], n=n, min_score=min_score))
-    return launches[kernel], routes
+    return {v: launches[v] for v in variants}, routes
 
 
 def phase_main_path(session, gap, label, queries, finds, card, n_sents):
     """4 (``gap`` None: zero affine gaps, affine_dp) and 4b (a non-affine
     ``gap``, wsb_dp) on the session's packing; returns the kernel's numbers
-    at the shapes the main path gave it: the Q=32 batch and the Q=1 of a
-    find over every bucket.  wsb_dp is timed on its register route against
-    the one-thread-a-problem route, in turns (new, old, old, new)."""
+    at the shapes the main path gave it: the Q=32 batch at each table type
+    (keys "", "[bf16]", "[int8]") and the Q=1 of a find over every bucket.
+    f32 wsb_dp is timed on its register route against the
+    one-thread-a-problem route, in turns (new, old, old, new); a quantized
+    kernel against the f32 one (quantized, f32, f32, quantized)."""
     import numpy as np
     import torch
 
     from vectorian_tpu_torch.ops import dp_kernels
-    from vectorian_tpu_torch.ops.search import GeneralGaps, stack_query_tables
+    from vectorian_tpu_torch.ops.search import scaled_costs, stack_query_tables
 
     index = make_index(session, gap)
     kernel = "affine_dp" if gap is None else "wsb_dp"
     launches, routes = drive_main_path(index, queries, finds, kernel, label, card, n_sents)
-    if gap is not None and routes["registers"] != launches:
+    if gap is not None and routes["registers"] != sum(launches.values()):
         raise AssertionError(f"{label}: wsb_dp left the register route: {routes}")
     engine = index._engine
-    res = {"launches": launches, "max_abs_err": 0.0,
-           "launch_route": "registers" if gap is not None else "thread_per_problem"}
-    for key, qs in (("", queries), ("_find", finds[:1])):
-        _, plans, len_ts, _ = index._prepare_static_batch(qs, 10, 0.2, {})
-        table, Tpad = stack_query_tables(plans, len_ts)
+    dev = torch.device(DEVICE)
+    out = {}
+    cases = [("", queries, None), ("_find", finds[:1], None)]
+    cases += [(f"[{t}]", queries, dt) for dt, t in QUANT_TAGS.items()]
+    f32_runs = {}
+    for key, qs, dt in cases:
+        _, plans, len_ts, _, _ = index._prepare_static_batch(qs, 10, 0.2, "float32", {})
+        table, scale, _, Tpad = stack_query_tables(plans, len_ts, dt)
+        gaps, general, _ = scaled_costs(index._gaps, index._gap_costs, scale, Tpad, dev)
         lt = torch.as_tensor(np.asarray(len_ts, np.int32), device=DEVICE)
-        general = (None if gap is None
-                   else GeneralGaps(index._gap_costs, Tpad + 1, torch.device(DEVICE)))
-        ms = plain_ms = bound = 0.0
+        name = kernel + (key if dt else "")
+        res = out.setdefault(name, {"launches": launches[name], "max_abs_err": 0.0,
+                                    "launch_route": "registers" if gap is not None
+                                    else "thread_per_problem"})
+        sfx = "_find" if key == "_find" else ""
+        ms = plain_ms = bound = f32_ms = 0.0
         ab = []
         by = "operations"
-        for db in engine._device_buckets:
+        for bi, db in enumerate(engine._device_buckets):
             L, n = db["capacity"], int(db["n"])
             if gap is None:
-                args = (table, db["tokens"], db["lengths"], lt, index._gaps, "local")
-                run = lambda: dp_kernels.affine_dp_scores(*args)  # noqa: E731
+                args = (table, db["tokens"], db["lengths"], lt, gaps, "local")
+                # bound now: the f32 runs are timed again beside the quantized ones
+                run = lambda a=args: dp_kernels.affine_dp_scores(*a)  # noqa: E731
                 plain = lambda: dp_kernels.affine_dp_scores_reference(*args)  # noqa: E731
                 bound_fn, reps = dp_bound_ms, 20
             else:
                 args = (table, db["tokens"], db["lengths"], lt, *general.vecs(L), "local")
                 host = general.host_vecs(L)
                 old = dp_kernels.wsb_launch_plan(n * len(qs), L, Tpad, registers=False).route
-                run = lambda: dp_kernels.wsb_dp_scores(*args, host_costs=host)  # noqa: E731
+                run = lambda a=args, h=host: dp_kernels.wsb_dp_scores(  # noqa: E731
+                    *a, host_costs=h)
                 run_old = lambda: dp_kernels.wsb_dp_scores(  # noqa: E731
                     *args, host_costs=host, _route=old)
                 plain = lambda: dp_kernels.wsb_dp_scores_reference(*args)  # noqa: E731
                 bound_fn, reps = wsb_bound_ms, 5
             want = plain()
+            got, used = _with_route(run)
             res["max_abs_err"] = max(res["max_abs_err"], _check_equal(
-                kernel, run(), want, f"main-path shapes{key}"))
-            if gap is None:
+                name, got, want, f"main-path shapes{key}"))
+            if gap is not None and used != "registers":
+                raise AssertionError(f"{name}: main-path shapes{key} took {used}")
+            if key == "":
+                f32_runs[bi] = run
+            if dt:
+                run32 = f32_runs[bi]
+                turns = [cuda_ms(run, reps), cuda_ms(run32, reps), cuda_ms(run32, reps),
+                         cuda_ms(run, reps)]
+                ab.append({"L": L, "quant_f32_f32_quant_ms": turns})
+                ms += (turns[0] + turns[3]) / 2
+                f32_ms += (turns[1] + turns[2]) / 2
+            elif gap is None:
                 ms += cuda_ms(run, reps)
             else:
                 _check_equal(kernel, run_old(), want, f"main-path shapes{key}, {old} route")
@@ -856,15 +1066,18 @@ def phase_main_path(session, gap, label, queries, finds, card, n_sents):
             plain_ms += cuda_ms(plain, 1)
             b, by = bound_fn(db["tokens"], db["lengths"], lt, table)
             bound += b
-        res.update({f"ms{key}": ms, f"plain_ms{key}": plain_ms,
-                    f"bound_ms{key}": bound, f"bound_by{key}": by})
+        res.update({f"ms{sfx}": ms, f"plain_ms{sfx}": plain_ms,
+                    f"bound_ms{sfx}": bound, f"bound_by{sfx}": by,
+                    f"shapes_n_L_Tpad_Q{sfx}": [
+                        [int(db["n"]), int(db["capacity"]), int(table.shape[1]), len(qs)]
+                        for db in engine._device_buckets]})
+        if dt:
+            res["f32_ms"] = f32_ms
         if ab:
-            res[f"ab{key}"] = ab
-        res[f"shapes_n_L_Tpad_Q{key}"] = [
-            [int(db["n"]), int(db["capacity"]), int(table.shape[1]), len(qs)]
-            for db in engine._device_buckets]
-    emit({"phase": f"{label}_kernel", **res})
-    return res
+            res[f"ab{sfx}"] = ab
+    for name, res in out.items():
+        emit({"phase": f"{label}_kernel", "name": name, **res})
+    return out
 
 
 def compare_with_cpu(label, a, b):
@@ -1085,6 +1298,7 @@ def main():
     worst = phase_kernels()
     worst_general = phase_kernels_general()
     worst_rows = phase_kernels_rows()
+    worst_quant = phase_kernels_quant()
     log("kernels match their plain versions")
 
     rng = np.random.default_rng(SEED)
@@ -1114,9 +1328,9 @@ def main():
     kernels = []
     for name, source, replaces, res, worst_p3 in (
         ("affine_dp", "affine_dp.cu", "vectorian_tpu/ops/pallas_dp.py:369",
-         affine, worst),
+         affine["affine_dp"], worst),
         ("wsb_dp", "wsb_dp.cu", "vectorian_tpu/ops/pallas_dp.py:155",
-         general, worst_general["wsb_dp"]),
+         general["wsb_dp"], worst_general["wsb_dp"]),
     ):
         kernels.append({
             "name": name, "route": "cuda", "launch_route": res["launch_route"],
@@ -1129,6 +1343,24 @@ def main():
             "shapes_n_L_Tpad_Q": res["shapes_n_L_Tpad_Q"],
             "shapes_n_L_Tpad_Q_find": res["shapes_n_L_Tpad_Q_find"], "card": card,
         })
+    # the bf16 / int8 table variants of kernels 1 and 3 (find_batch's
+    # quantized ranking passes; Pallas cast each row as it read it)
+    for base, source, replaces, path in (
+        ("affine_dp", "affine_dp.cu", "vectorian_tpu/ops/pallas_dp.py:369", affine),
+        ("wsb_dp", "wsb_dp.cu", "vectorian_tpu/ops/pallas_dp.py:155", general),
+    ):
+        for tag in QUANT_TAGS.values():
+            name = f"{base}[{tag}]"
+            res = path[name]
+            kernels.append({
+                "name": name, "route": "cuda", "launch_route": res["launch_route"],
+                "source": f"vectorian_tpu_torch/csrc/{source}", "replaces": replaces,
+                "launches": res["launches"],
+                "max_abs_err": max(worst_quant[name], res["max_abs_err"]),
+                "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+                "bound_by": res["bound_by"], "library_ms": None, "f32_ms": res["f32_ms"],
+                "shapes_n_L_Tpad_Q": res["shapes_n_L_Tpad_Q"], "card": card,
+            })
     for name, source, replaces in (
         ("affine_dp_flat", "affine_dp.cu", "vectorian_tpu/ops/pallas_dp.py:44"),
         ("wsb_dp_flat", "wsb_dp.cu", "vectorian_tpu/ops/pallas_dp.py:155"),

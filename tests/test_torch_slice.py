@@ -235,7 +235,7 @@ def test_unported_options_raise(both):
         OptimizedSpanSim(EmbeddingTokenSim(st.embeddings[0]), LocalAlignment())
     )
     with pytest.raises(NotImplementedError):
-        it.find_batch(queries[:2], sim_precision="int8")
+        it.find_batch(queries[:2], mesh=object())
     for opt in ({"bidirectional": True}, {"submatch_weight": 0.5},
                 {"pos_filter": ["DET"]}, {"mesh": object()}):
         with pytest.raises(NotImplementedError):

@@ -10,9 +10,11 @@ csrc/wsb_dp.cu for any other).
 
 Served so far: static embeddings, token similarity metrics and modifier
 trees, local/global/semiglobal alignment with affine or general
-(Waterman-Smith-Beyer) gap models, ``find`` and ``find_batch`` (f32
-tables).  Everything else raises NotImplementedError naming its ROADMAP.md
-port queue item.
+(Waterman-Smith-Beyer) gap models, ``find`` (f32 tables) and
+``find_batch`` (int8 ranking tables by default, as in the JAX package, or
+``sim_precision="bfloat16"`` / ``"float32"``; every precision returns the
+same matches).  Everything else raises NotImplementedError naming its
+ROADMAP.md port queue item.
 """
 
 import sys as _sys

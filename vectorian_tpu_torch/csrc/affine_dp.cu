@@ -1,6 +1,8 @@
 // Affine-gap (Gotoh) alignment DP scores, two entries:
 //   gather: raw[s, q] = best cell of the DP of slice s against query q, where
-//           S[i, j] = table[tokens[s, i], j, q] (the gather is fused in);
+//           S[i, j] = table[tokens[s, i], j, q] (the gather is fused in); the
+//           table is f32, bf16 or int8 (a quantized ranking table: each
+//           element becomes f32 right after its load, exactly);
 //   rows:   raw[b] = best cell of the DP of problem b = (bucket row r =
 //           rows[b], table slot k = qslot[b]), where S[i, j] =
 //           table[k * V + tokens[r, i], j] (the stacked [slots * V, Tmax]
@@ -44,11 +46,15 @@
 // slice's length are skipped (no cell past len_s can change the score).
 // Blocks of 128 threads: at the 64-87 registers ptxas reports for T1P = 9
 // an SM keeps 5-8 of them (20-32 warps), and the small block keeps the tail
-// of a launch short.
+// of a launch short.  A bf16 or int8 table (find_batch's quantized ranking
+// pass, never a find) is read element by element at every Q: its loads
+// move a half or a quarter of the f32 bytes, and the conversion (a shift,
+// or one int-to-float convert) sits beside ~16 f32 operations a cell.
 //
 // Exactness contract: every add, subtract and multiply happens in the JAX
 // reference's order (vectorian_tpu/ops/pallas_dp.py _dp_one_slice), so the
-// scores are bit-equal to it.  The global boundary costs
+// scores are bit-equal to it (a quantized element converts to f32 exactly,
+// as the reference's per-row cast does).  The global boundary costs
 // -(open + (k - 1) * extend) are ONE fused multiply-add (__fmaf_rn): the
 // JAX reference's XLA build contracts them so, and the torch plain version
 // computes the same correctly rounded values on the host.  Everything else
@@ -60,11 +66,23 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr float NEG = -1e30f;
 constexpr int THREADS = 128;
 enum Locality { LOCAL = 0, GLOBAL = 1, SEMIGLOBAL = 2 };
+// the gather entry's table types (its C entry's ``table_dtype``)
+enum TableDtype { F32 = 0, BF16 = 1, INT8 = 2 };
+
+// A table element as f32, exactly: bf16 (its 16 bits) is the high half of
+// the f32 with the same value; int8 is an integer of at most 7 bits.
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(uint16_t x) {
+  return __uint_as_float((uint32_t)x << 16);
+}
+__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
 
 // The doubling steps of a T1P-wide row, shift = SHIFT, 2 * SHIFT, ... <
 // T1P: one instantiation a step, so every loop has a constant trip count
@@ -94,13 +112,15 @@ __device__ __forceinline__ void split_problem(int64_t p, int Q, bool small,
   }
 }
 
-// One similarity row: v[j] = src[j * cs] for j < Tpad, 0 past it.  VEC:
-// cs == 1, src 16-byte aligned and Tpad % 4 == 0 (float4 loads).
-template <int T1P, bool VEC>
+// One similarity row: v[j] = src[j * cs] as f32 for j < Tpad, 0 past it.
+// VEC (f32 only): cs == 1, src 16-byte aligned and Tpad % 4 == 0 (float4
+// loads).
+template <int T1P, bool VEC, typename E>
 __device__ __forceinline__ void load_row(float (&v)[T1P - 1],
-                                         const float* __restrict__ src,
+                                         const E* __restrict__ src,
                                          int64_t cs, int Tpad) {
-  if (VEC) {
+  static_assert(!VEC || std::is_same<E, float>::value, "float4 rows are f32");
+  if constexpr (VEC) {
 #pragma unroll
     for (int c = 0; c < (T1P - 1) / 4; ++c) {
       const float4 x = (4 * c < Tpad)
@@ -114,7 +134,7 @@ __device__ __forceinline__ void load_row(float (&v)[T1P - 1],
   } else {
 #pragma unroll
     for (int j = 0; j < T1P - 1; ++j)
-      v[j] = (j < Tpad) ? __ldg(src + (int64_t)j * cs) : 0.0f;
+      v[j] = (j < Tpad) ? to_f32(__ldg(src + (int64_t)j * cs)) : 0.0f;
   }
 }
 
@@ -169,7 +189,7 @@ __device__ __forceinline__ void dp_row(float (&H)[T1P], float (&Fv)[T1P],
 // The arguments of a launch (both entries); passed by value into the
 // kernel's parameter bank.
 struct Args {
-  const float* table;     // gather: [V, Tpad, Q]; rows: [slots * V, Tpad]
+  const void* table;      // gather: [V, Tpad, Q] of E; rows: [slots * V, Tpad] f32
   const int32_t* tokens;  // [n, L]; rows: null = S itself (row r * L + i)
   const int32_t* prow;    // rows: [B] bucket row of each problem
   const int32_t* pslot;   // rows: [B] table slot of each problem
@@ -184,8 +204,11 @@ struct Args {
   bool mask_empty;        // rows: len_s <= 0 scores NEG
 };
 
-template <int T1P, int LOC, bool ROWS, bool VEC>
-__global__ void __launch_bounds__(THREADS) affine_dp_kernel(const Args a) {
+// One problem a thread.  E: the table's element type (float, uint16_t for
+// bf16, int8_t); the row-gather entry reads the f32 plan table only.
+template <int T1P, int LOC, bool ROWS, bool VEC, typename E>
+__device__ __forceinline__ void affine_dp_body(const Args a) {
+  static_assert(!ROWS || std::is_same<E, float>::value, "rows read f32 tables");
   const int64_t p = (int64_t)blockIdx.x * THREADS + threadIdx.x;
   if (p >= a.n * (int64_t)a.Q) return;
   // Similarity row i is table + tok(i) * rstride, column j at j * cs:
@@ -193,7 +216,7 @@ __global__ void __launch_bounds__(THREADS) affine_dp_kernel(const Args a) {
   // table[slot * V + tokens[r, i], :] (contiguous).
   int64_t s;
   int ln, lt;
-  const float* base;
+  const E* base = static_cast<const E*>(a.table);
   int64_t rstride, cs;
   if (ROWS) {
     s = (a.prow != nullptr) ? (int64_t)a.prow[p] : p;
@@ -201,7 +224,7 @@ __global__ void __launch_bounds__(THREADS) affine_dp_kernel(const Args a) {
     lt = a.len_t[p];
     rstride = a.Tpad;
     cs = 1;
-    base = a.table + (a.pslot != nullptr ? (int64_t)a.pslot[p] * a.V : 0) * rstride;
+    base += (a.pslot != nullptr ? (int64_t)a.pslot[p] * a.V : 0) * rstride;
     // no token ids: the problem's own L rows of S
     if (a.tokens == nullptr) base += s * (int64_t)a.L * rstride;
   } else {
@@ -211,7 +234,7 @@ __global__ void __launch_bounds__(THREADS) affine_dp_kernel(const Args a) {
     lt = a.len_t[q];
     rstride = (int64_t)a.Tpad * a.Q;
     cs = a.Q;
-    base = a.table + q;
+    base += q;
   }
   const int32_t* __restrict__ tok_row =
       (a.tokens != nullptr) ? a.tokens + s * (int64_t)a.L : nullptr;
@@ -270,31 +293,50 @@ __global__ void __launch_bounds__(THREADS) affine_dp_kernel(const Args a) {
   a.out[p] = (ROWS && a.mask_empty && ln <= 0) ? NEG : best;
 }
 
-template <int T1P, bool ROWS, bool VEC>
+template <int T1P, int LOC, bool ROWS, bool VEC, typename E>
+__global__ void __launch_bounds__(THREADS) affine_dp_kernel(const Args a) {
+  affine_dp_body<T1P, LOC, ROWS, VEC, E>(a);
+}
+
+// The same kernel with four blocks an SM asked for: the quantized gather
+// templates at T1P = 17.  Left to itself ptxas keeps a fifth block there (96
+// registers) and spills (bf16, semiglobal); four blocks give it 128.  A bound
+// on every template would change the registers ptxas picks for all of them.
+template <int T1P, int LOC, bool ROWS, bool VEC, typename E>
+__global__ void __launch_bounds__(THREADS, 4) affine_dp_kernel_4b(const Args a) {
+  affine_dp_body<T1P, LOC, ROWS, VEC, E>(a);
+}
+
+template <int T1P, int LOC, bool ROWS, bool VEC, typename E>
+void launch_one(dim3 grid, cudaStream_t stream, const Args& a) {
+  if constexpr (T1P == 17 && !std::is_same<E, float>::value)
+    affine_dp_kernel_4b<T1P, LOC, ROWS, VEC, E><<<grid, THREADS, 0, stream>>>(a);
+  else
+    affine_dp_kernel<T1P, LOC, ROWS, VEC, E><<<grid, THREADS, 0, stream>>>(a);
+}
+
+template <int T1P, bool ROWS, bool VEC, typename E>
 void launch(int locality, dim3 grid, cudaStream_t stream, const Args& a) {
   switch (locality) {
-    case LOCAL:
-      affine_dp_kernel<T1P, LOCAL, ROWS, VEC><<<grid, THREADS, 0, stream>>>(a);
-      break;
-    case GLOBAL:
-      affine_dp_kernel<T1P, GLOBAL, ROWS, VEC><<<grid, THREADS, 0, stream>>>(a);
-      break;
-    default:
-      affine_dp_kernel<T1P, SEMIGLOBAL, ROWS, VEC><<<grid, THREADS, 0, stream>>>(a);
-      break;
+    case LOCAL: launch_one<T1P, LOCAL, ROWS, VEC, E>(grid, stream, a); break;
+    case GLOBAL: launch_one<T1P, GLOBAL, ROWS, VEC, E>(grid, stream, a); break;
+    default: launch_one<T1P, SEMIGLOBAL, ROWS, VEC, E>(grid, stream, a); break;
   }
 }
 
-template <int T1P, bool ROWS>
+template <int T1P, bool ROWS, typename E>
 void launch_vec(bool vec, int locality, dim3 grid, cudaStream_t stream,
                 const Args& a) {
-  if (vec)
-    launch<T1P, ROWS, true>(locality, grid, stream, a);
-  else
-    launch<T1P, ROWS, false>(locality, grid, stream, a);
+  if constexpr (std::is_same<E, float>::value) {
+    if (vec) {
+      launch<T1P, ROWS, true, E>(locality, grid, stream, a);
+      return;
+    }
+  }
+  launch<T1P, ROWS, false, E>(locality, grid, stream, a);
 }
 
-template <bool ROWS>
+template <bool ROWS, typename E>
 int dispatch(Args a, int locality, void* stream) {
   if (a.n <= 0 || a.L <= 0 || a.Q <= 0 || a.Tpad <= 0 || locality < 0 ||
       locality > 2)
@@ -310,15 +352,15 @@ int dispatch(Args a, int locality, void* stream) {
   const bool vec = (ROWS || a.Q == 1) && a.Tpad % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(a.table) % 16 == 0;
   if (a.Tpad <= 8)
-    launch_vec<9, ROWS>(vec, locality, grid, st, a);
+    launch_vec<9, ROWS, E>(vec, locality, grid, st, a);
   else if (a.Tpad <= 16)
-    launch_vec<17, ROWS>(vec, locality, grid, st, a);
+    launch_vec<17, ROWS, E>(vec, locality, grid, st, a);
   else if (a.Tpad <= 32)
-    launch_vec<33, ROWS>(vec, locality, grid, st, a);
+    launch_vec<33, ROWS, E>(vec, locality, grid, st, a);
   else if (a.Tpad <= 64)
-    launch_vec<65, ROWS>(vec, locality, grid, st, a);
+    launch_vec<65, ROWS, E>(vec, locality, grid, st, a);
   else if (a.Tpad <= 128)
-    launch_vec<129, ROWS>(vec, locality, grid, st, a);
+    launch_vec<129, ROWS, E>(vec, locality, grid, st, a);
   else
     return -1;
   return (int)cudaGetLastError();
@@ -328,15 +370,23 @@ int dispatch(Args a, int locality, void* stream) {
 
 // Both entries return the cudaError_t of the launch (0 on success), or -1
 // when the arguments are outside what the kernel takes.
+
+// ``table`` [V, Tpad, Q] of ``table_dtype`` (TableDtype: f32, bf16 bits or
+// int8).
 extern "C" int vt_affine_dp_scores(
-    const float* table, const int32_t* tokens, const int32_t* len_s,
-    const int32_t* len_t, float* out, int64_t n, int L, int Tpad, int Q,
-    float open_s, float ext_s, float open_t, float ext_t, int locality,
-    void* stream) {
+    const void* table, int table_dtype, const int32_t* tokens,
+    const int32_t* len_s, const int32_t* len_t, float* out, int64_t n, int L,
+    int Tpad, int Q, float open_s, float ext_s, float open_t, float ext_t,
+    int locality, void* stream) {
   if (tokens == nullptr) return -1;
   const Args a{table, tokens, nullptr, nullptr, len_s, len_t, out, n, L,
                Tpad, Q, 0, open_s, ext_s, open_t, ext_t, false, false};
-  return dispatch<false>(a, locality, stream);
+  switch (table_dtype) {
+    case F32: return dispatch<false, float>(a, locality, stream);
+    case BF16: return dispatch<false, uint16_t>(a, locality, stream);
+    case INT8: return dispatch<false, int8_t>(a, locality, stream);
+    default: return -1;
+  }
 }
 
 // ``table`` [slots * V, Tmax]; ``tokens`` [n, L] or null (the table is S,
@@ -350,5 +400,5 @@ extern "C" int vt_affine_dp_scores_rows(
     void* stream) {
   const Args a{table, tokens, rows, qslot, len_s, len_t, out, B, L, Tmax, 1,
                V, open_s, ext_s, open_t, ext_t, false, mask_empty != 0};
-  return dispatch<true>(a, locality, stream);
+  return dispatch<true, float>(a, locality, stream);
 }

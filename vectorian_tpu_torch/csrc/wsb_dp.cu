@@ -1,6 +1,8 @@
 // Waterman-Smith-Beyer (general gap cost) alignment DP scores, two entries:
 //   gather: raw[s, q] = best cell of the DP of slice s against query q, where
-//           S[i, j] = table[tokens[s, i], j, q] (the gather is fused in);
+//           S[i, j] = table[tokens[s, i], j, q] (the gather is fused in); the
+//           table is f32, bf16 or int8 (a quantized ranking table: each
+//           element becomes f32 right after its load, exactly);
 //   rows:   raw[b] = best cell of the DP of problem b = (bucket row r =
 //           rows[b], table slot k = qslot[b]), where S[i, j] =
 //           table[k * V + tokens[r, i], j] (the stacked [slots * V, Tmax]
@@ -52,7 +54,10 @@
 // transposes the [V, T, Q] table once per call; the same memory at Q = 1);
 // a row-gather problem's row is already contiguous, lane k reading its
 // element k.  A row's token id and table value are loaded a row ahead of
-// their use.
+// their use.  A bf16 or int8 table (find_batch's quantized ranking pass)
+// keeps both layouts in its own type; a lane converts its element after
+// the load (a shift, or one int-to-float convert, beside ~50 instructions
+// a problem-row).
 //
 // "shared" / "scratch" (longer buckets, wider needles, negative closures):
 // one thread per problem; the rows of a problem live in shared memory when
@@ -71,7 +76,9 @@
 // Exactness contract: the DP is adds, subtractions and maxes only, each
 // candidate one rounding (Hall - w, H_prev + S), so the scores are bit-equal
 // to the JAX reference (pallas_align_scores_general, align_scores_general)
-// in any order of the maxes.  Built with --fmad=false all the same.
+// in any order of the maxes; a quantized element converts to f32 exactly, as
+// the reference's cast of the gathered block does.  Built with --fmad=false
+// all the same.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -83,11 +90,21 @@ namespace {
 constexpr float NEG = -1e30f;
 constexpr int CH = 8;  // columns per register tile
 enum Locality { LOCAL = 0, GLOBAL = 1, SEMIGLOBAL = 2 };
+// the gather entries' table types (their C entries' ``table_dtype``)
+enum TableDtype { F32 = 0, BF16 = 1, INT8 = 2 };
+
+// A table element as f32, exactly: bf16 (its 16 bits) is the high half of
+// the f32 with the same value; int8 is an integer of at most 7 bits.
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(uint16_t x) {
+  return __uint_as_float((uint32_t)x << 16);
+}
+__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
 
 // The arguments of a launch (every entry and route); passed by value into
 // the kernel's parameter bank.
 struct Args {
-  const float* table;     // gather: [V, T, Q] (registers: [V, Q, T]); rows: [slots * V, T]
+  const void* table;      // gather: [V, T, Q] of E (registers: [V, Q, T]); rows: [slots * V, T] f32
   const int32_t* tokens;  // [n, L]; rows: null = the table is S (row r * L + i)
   const int32_t* prow;    // rows: [B] bucket row of each problem, null = b
   const int32_t* pslot;   // rows: [B] table slot of each problem, null = 0
@@ -107,12 +124,15 @@ struct Args {
 
 // THREADS > 0: a block of THREADS threads keeps its rows in shared memory;
 // THREADS == 0: the rows live in ``scratch`` (one slot per thread of the grid).
-template <int LOC, bool GATHER, int THREADS>
+// E: the table's element type (float, uint16_t for bf16, int8_t); the
+// row-gather entry reads the f32 plan table only.
+template <int LOC, bool GATHER, int THREADS, typename E>
 __global__ void __launch_bounds__(128) wsb_dp_kernel(const Args a) {
+  static_assert(GATHER || std::is_same<E, float>::value, "rows read f32 tables");
   // cell (r, j) of this thread's problem at base[r * rs + j * cs]
   using I = typename std::conditional<(THREADS > 0), int, int64_t>::type;
   extern __shared__ float smem[];
-  const float* __restrict__ S = a.table;
+  const E* __restrict__ S = static_cast<const E*>(a.table);
   const int32_t* __restrict__ tokens = a.tokens;
   const float* __restrict__ w_s = a.w_s;
   const float* __restrict__ w_t = a.w_t;
@@ -128,7 +148,7 @@ __global__ void __launch_bounds__(128) wsb_dp_kernel(const Args a) {
   for (int64_t p = tid; p < a.problems; p += nthreads) {
     int64_t s;
     int q, ln, lt;
-    const float* tbase;  // rows: row 0 of the problem's table slot
+    const E* tbase;  // rows: row 0 of the problem's table slot
     if (GATHER) {
       s = p / Q;
       q = (int)(p - s * Q);
@@ -150,7 +170,7 @@ __global__ void __launch_bounds__(128) wsb_dp_kernel(const Args a) {
     const int rows = min(ln, L);
     for (int i = 1; i <= rows; ++i) {
       // similarity row i - 1: column j - 1 at srow[(j - 1) * scs]
-      const float* srow;
+      const E* srow;
       int64_t scs;
       if (GATHER) {
         srow = tbase + (int64_t)tokens[s * L + i - 1] * T * Q;
@@ -176,7 +196,7 @@ __global__ void __launch_bounds__(128) wsb_dp_kernel(const Args a) {
         for (int u = 0; u < CH; ++u) {
           const int j = j0 + u;
           if (j <= lt) {
-            const float m = at(i - 1, j - 1) + __ldg(srow + (j - 1) * scs);
+            const float m = at(i - 1, j - 1) + to_f32(__ldg(srow + (j - 1) * scs));
             float c = fmaxf(m, v[u]);
             if (LOC == LOCAL) c = fmaxf(c, 0.0f);
             at(i, j) = c;
@@ -271,11 +291,13 @@ __device__ __forceinline__ void split_problem(int64_t p, int Q, bool small,
 // P consecutive problems a group.  Gather (ROWS false): queries q .. q + P
 // - 1 of one slice (P = 2 only where Q % 2 == 0), sharing its token ids,
 // table row addresses and row loop.  Rows: one problem a group (each has
-// its own len_t), its row read from table slot q.
-template <int LT, int G, int LOC, int P, bool ROWS>
+// its own len_t), its row read from table slot q.  E: the table's element
+// type, as in wsb_dp_kernel.
+template <int LT, int G, int LOC, int P, bool ROWS, typename E>
 __global__ void __launch_bounds__(REG_THREADS) wsb_regs_kernel(
     const RegCosts<LT, G> costs, const Args a) {
   static_assert(!ROWS || P == 1, "a row-gather group takes one problem");
+  static_assert(!ROWS || std::is_same<E, float>::value, "rows read f32 tables");
   const int64_t gthread = (int64_t)blockIdx.x * REG_THREADS + threadIdx.x;
   const int k = threadIdx.x & (G - 1);  // this lane's column is j = k + 1
   const int j = k + 1;
@@ -338,15 +360,15 @@ __global__ void __launch_bounds__(REG_THREADS) wsb_regs_kernel(
     vstride = (uint32_t)a.Q * T;
     off = (uint32_t)q * T + (uint32_t)k;
   }
-  const float* tcol = a.table + off;
+  const E* tcol = static_cast<const E*>(a.table) + off;
   const bool col_in = k < a.T;
   uint32_t tok_n = (rows >= 2) ? tok_at(1) : 0;
   float sv_n[P];
   {
-    const float* r0 = tcol + tok_at(0) * vstride;
+    const E* r0 = tcol + tok_at(0) * vstride;
 #pragma unroll
     for (int u = 0; u < P; ++u)
-      sv_n[u] = (rows >= 1 && col_in) ? __ldg(r0 + u * T) : 0.0f;
+      sv_n[u] = (rows >= 1 && col_in) ? to_f32(__ldg(r0 + u * T)) : 0.0f;
   }
 
 #pragma unroll
@@ -356,10 +378,10 @@ __global__ void __launch_bounds__(REG_THREADS) wsb_regs_kernel(
 #pragma unroll
     for (int u = 0; u < P; ++u) sv[u] = sv_n[u];
     if (i < LT) {
-      const float* rn = tcol + tok_n * vstride;
+      const E* rn = tcol + tok_n * vstride;
 #pragma unroll
       for (int u = 0; u < P; ++u)
-        sv_n[u] = (i + 1 <= rows && col_in) ? __ldg(rn + u * T) : 0.0f;
+        sv_n[u] = (i + 1 <= rows && col_in) ? to_f32(__ldg(rn + u * T)) : 0.0f;
       if (i + 1 < LT) tok_n = (i + 2 <= rows) ? tok_at(i + 1) : 0;
     }
     const float h_prev0 = (LOC == GLOBAL && i > 1) ? -costs.w_s[i - 1] : 0.0f;
@@ -403,7 +425,7 @@ __global__ void __launch_bounds__(REG_THREADS) wsb_regs_kernel(
   }
 }
 
-template <int LT, int G, int LOC, bool ROWS>
+template <int LT, int G, int LOC, bool ROWS, typename E>
 int launch_regs(const HostCosts& h, int blocks, cudaStream_t stream,
                 const Args& a) {
   // costs past T only reach columns past the needle, or a lane's own C
@@ -418,34 +440,34 @@ int launch_regs(const HostCosts& h, int blocks, cudaStream_t stream,
   // every group
   const int P = (!ROWS && a.Q % 2 == 0) ? 2 : 1;
   if ((int64_t)blocks * (REG_THREADS / G) * P < a.problems) return -1;
-  if (ROWS)
-    wsb_regs_kernel<LT, G, LOC, 1, true><<<blocks, REG_THREADS, 0, stream>>>(c, a);
+  if constexpr (ROWS)
+    wsb_regs_kernel<LT, G, LOC, 1, true, E><<<blocks, REG_THREADS, 0, stream>>>(c, a);
   else if (P == 2)
-    wsb_regs_kernel<LT, G, LOC, 2, false><<<blocks, REG_THREADS, 0, stream>>>(c, a);
+    wsb_regs_kernel<LT, G, LOC, 2, false, E><<<blocks, REG_THREADS, 0, stream>>>(c, a);
   else
-    wsb_regs_kernel<LT, G, LOC, 1, false><<<blocks, REG_THREADS, 0, stream>>>(c, a);
+    wsb_regs_kernel<LT, G, LOC, 1, false, E><<<blocks, REG_THREADS, 0, stream>>>(c, a);
   return (int)cudaGetLastError();
 }
 
-template <int LT, int G, bool ROWS>
+template <int LT, int G, bool ROWS, typename E>
 int regs_locality(int locality, const HostCosts& h, int blocks,
                   cudaStream_t stream, const Args& a) {
   switch (locality) {
-    case LOCAL: return launch_regs<LT, G, LOCAL, ROWS>(h, blocks, stream, a);
-    case GLOBAL: return launch_regs<LT, G, GLOBAL, ROWS>(h, blocks, stream, a);
-    default: return launch_regs<LT, G, SEMIGLOBAL, ROWS>(h, blocks, stream, a);
+    case LOCAL: return launch_regs<LT, G, LOCAL, ROWS, E>(h, blocks, stream, a);
+    case GLOBAL: return launch_regs<LT, G, GLOBAL, ROWS, E>(h, blocks, stream, a);
+    default: return launch_regs<LT, G, SEMIGLOBAL, ROWS, E>(h, blocks, stream, a);
   }
 }
 
-template <int LT, bool ROWS>
+template <int LT, bool ROWS, typename E>
 int regs_width(int locality, const HostCosts& h, int blocks,
                cudaStream_t stream, const Args& a) {
-  if (a.T <= 8) return regs_locality<LT, 8, ROWS>(locality, h, blocks, stream, a);
-  if (a.T <= 16) return regs_locality<LT, 16, ROWS>(locality, h, blocks, stream, a);
-  return regs_locality<LT, 32, ROWS>(locality, h, blocks, stream, a);
+  if (a.T <= 8) return regs_locality<LT, 8, ROWS, E>(locality, h, blocks, stream, a);
+  if (a.T <= 16) return regs_locality<LT, 16, ROWS, E>(locality, h, blocks, stream, a);
+  return regs_locality<LT, 32, ROWS, E>(locality, h, blocks, stream, a);
 }
 
-template <bool ROWS>
+template <bool ROWS, typename E>
 int regs_dispatch(Args a, const HostCosts& h, int n_wt, int locality,
                   int blocks, void* stream) {
   if (a.problems <= 0 || a.Q <= 0 || a.L <= 0 || a.L > 32 || a.T <= 0 ||
@@ -454,9 +476,9 @@ int regs_dispatch(Args a, const HostCosts& h, int n_wt, int locality,
     return -1;
   a.small = a.problems <= 0xffffffffLL;
   cudaStream_t st = (cudaStream_t)stream;
-  if (a.L <= 8) return regs_width<8, ROWS>(locality, h, blocks, st, a);
-  if (a.L <= 16) return regs_width<16, ROWS>(locality, h, blocks, st, a);
-  return regs_width<32, ROWS>(locality, h, blocks, st, a);
+  if (a.L <= 8) return regs_width<8, ROWS, E>(locality, h, blocks, st, a);
+  if (a.L <= 16) return regs_width<16, ROWS, E>(locality, h, blocks, st, a);
+  return regs_width<32, ROWS, E>(locality, h, blocks, st, a);
 }
 
 // ---------------------------------------------------------------------------
@@ -465,19 +487,19 @@ int regs_dispatch(Args a, const HostCosts& h, int n_wt, int locality,
 
 using KernelFn = void (*)(const Args);
 
-template <bool GATHER, int THREADS>
+template <bool GATHER, int THREADS, typename E>
 KernelFn pick(int locality) {
   switch (locality) {
-    case LOCAL: return wsb_dp_kernel<LOCAL, GATHER, THREADS>;
-    case GLOBAL: return wsb_dp_kernel<GLOBAL, GATHER, THREADS>;
-    default: return wsb_dp_kernel<SEMIGLOBAL, GATHER, THREADS>;
+    case LOCAL: return wsb_dp_kernel<LOCAL, GATHER, THREADS, E>;
+    case GLOBAL: return wsb_dp_kernel<GLOBAL, GATHER, THREADS, E>;
+    default: return wsb_dp_kernel<SEMIGLOBAL, GATHER, THREADS, E>;
   }
 }
 
 // ``scratch`` is null for rows in shared memory (smem_bytes per block of
 // 32, 64 or 128 threads), else a buffer of blocks * threads * (L + 1) *
 // (T + 1) floats.
-template <bool GATHER>
+template <bool GATHER, typename E>
 int launch(const Args& a, int locality, int blocks, int threads,
            int smem_bytes, void* stream) {
   if (a.problems <= 0 || a.L <= 0 || a.T <= 0 || a.Q <= 0 || locality < 0 ||
@@ -490,10 +512,10 @@ int launch(const Args& a, int locality, int blocks, int threads,
       (int64_t)smem_bytes < (int64_t)(a.L + 1) * (a.T + 1) * threads * 4)
     return -1;
   KernelFn kernel;
-  if (a.scratch != nullptr) kernel = pick<GATHER, 0>(locality);
-  else if (threads == 32) kernel = pick<GATHER, 32>(locality);
-  else if (threads == 64) kernel = pick<GATHER, 64>(locality);
-  else if (threads == 128) kernel = pick<GATHER, 128>(locality);
+  if (a.scratch != nullptr) kernel = pick<GATHER, 0, E>(locality);
+  else if (threads == 32) kernel = pick<GATHER, 32, E>(locality);
+  else if (threads == 64) kernel = pick<GATHER, 64, E>(locality);
+  else if (threads == 128) kernel = pick<GATHER, 128, E>(locality);
   else return -1;
   if (smem_bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -509,16 +531,25 @@ int launch(const Args& a, int locality, int blocks, int threads,
 // Every entry returns the cudaError_t of the launch (0 on success), or -1
 // when the arguments are outside what the kernel takes.
 
+// Gather entries: ``table`` of ``table_dtype`` (TableDtype: f32, bf16 bits
+// or int8).
+
 // Gather entry, shared / scratch route (``scratch`` as in ``launch``).
 extern "C" int vt_wsb_dp_scores(
-    const float* table, const int32_t* tokens, const int32_t* len_s,
-    const int32_t* len_t, const float* w_s, const float* w_t, const float* w_ts,
-    float* out, float* scratch, int64_t n, int L, int T, int Q, int locality,
-    int blocks, int threads, int smem_bytes, void* stream) {
+    const void* table, int table_dtype, const int32_t* tokens,
+    const int32_t* len_s, const int32_t* len_t, const float* w_s,
+    const float* w_t, const float* w_ts, float* out, float* scratch, int64_t n,
+    int L, int T, int Q, int locality, int blocks, int threads, int smem_bytes,
+    void* stream) {
   if (Q <= 0 || tokens == nullptr) return -1;
   const Args a{table, tokens, nullptr, nullptr, len_s, len_t, w_s, w_t, w_ts,
                out, scratch, n * (int64_t)Q, L, T, Q, 0, false, false};
-  return launch<true>(a, locality, blocks, threads, smem_bytes, stream);
+  switch (table_dtype) {
+    case F32: return launch<true, float>(a, locality, blocks, threads, smem_bytes, stream);
+    case BF16: return launch<true, uint16_t>(a, locality, blocks, threads, smem_bytes, stream);
+    case INT8: return launch<true, int8_t>(a, locality, blocks, threads, smem_bytes, stream);
+    default: return -1;
+  }
 }
 
 // Gather entry, register route (``blocks`` of REG_THREADS threads, G lanes
@@ -526,18 +557,23 @@ extern "C" int vt_wsb_dp_scores(
 // w_s (n_ws >= L + 1 floats), w_t and w_ts (n_wt >= T + 1 floats each) are
 // HOST pointers, copied into the launch's parameters (the buffers may be
 // freed once this returns).  L <= 32, T <= 32, w_ts[1..T - 1] >= 0, and the
-// table holds fewer than 2^32 floats.
+// table holds fewer than 2^32 elements.
 extern "C" int vt_wsb_dp_scores_regs(
-    const float* table, const int32_t* tokens, const int32_t* len_s,
-    const int32_t* len_t, const float* w_s, int n_ws, const float* w_t,
-    const float* w_ts, int n_wt, float* out, int64_t n, int L, int T, int Q,
-    int locality, int blocks, void* stream) {
+    const void* table, int table_dtype, const int32_t* tokens,
+    const int32_t* len_s, const int32_t* len_t, const float* w_s, int n_ws,
+    const float* w_t, const float* w_ts, int n_wt, float* out, int64_t n,
+    int L, int T, int Q, int locality, int blocks, void* stream) {
   if (n <= 0 || Q <= 0 || tokens == nullptr) return -1;
   const Args a{table, tokens, nullptr, nullptr, len_s, len_t, nullptr,
                nullptr, nullptr, out, nullptr, n * (int64_t)Q, L, T, Q, 0,
                false, false};
-  return regs_dispatch<false>(a, HostCosts{w_s, n_ws, w_t, w_ts}, n_wt,
-                              locality, blocks, stream);
+  const HostCosts h{w_s, n_ws, w_t, w_ts};
+  switch (table_dtype) {
+    case F32: return regs_dispatch<false, float>(a, h, n_wt, locality, blocks, stream);
+    case BF16: return regs_dispatch<false, uint16_t>(a, h, n_wt, locality, blocks, stream);
+    case INT8: return regs_dispatch<false, int8_t>(a, h, n_wt, locality, blocks, stream);
+    default: return -1;
+  }
 }
 
 // Row-gather entry, shared / scratch route: ``table`` [slots * V, T];
@@ -552,7 +588,7 @@ extern "C" int vt_wsb_dp_scores_rows(
     int mask_empty, int blocks, int threads, int smem_bytes, void* stream) {
   const Args a{table, tokens, rows, qslot, len_s, len_t, w_s, w_t, w_ts, out,
                scratch, B, L, T, 1, V, false, mask_empty != 0};
-  return launch<false>(a, locality, blocks, threads, smem_bytes, stream);
+  return launch<false, float>(a, locality, blocks, threads, smem_bytes, stream);
 }
 
 // Row-gather entry, register route (one problem a group; costs on the host
@@ -565,6 +601,6 @@ extern "C" int vt_wsb_dp_scores_rows_regs(
     int mask_empty, int blocks, void* stream) {
   const Args a{table, tokens, rows, qslot, len_s, len_t, nullptr, nullptr,
                nullptr, out, nullptr, B, L, T, 1, V, false, mask_empty != 0};
-  return regs_dispatch<true>(a, HostCosts{w_s, n_ws, w_t, w_ts}, n_wt,
-                             locality, blocks, stream);
+  return regs_dispatch<true, float>(a, HostCosts{w_s, n_ws, w_t, w_ts}, n_wt,
+                                    locality, blocks, stream);
 }

@@ -15,6 +15,7 @@ finalizer, so their (slice_id, score) lists are byte-identical.
 
 from __future__ import annotations
 
+import os
 import time
 from collections import namedtuple
 from typing import Dict, List, Optional
@@ -676,27 +677,27 @@ class BruteForceIndex(Index):
         needle tables stack into one [V, Tpad, Q] table, so each bucket is
         one kernel launch for all of them.
 
-        ``sim_precision``: only ``"float32"`` (or None, meaning it) in this
-        slice; the quantized int8/bfloat16 ranking tables of the JAX
-        package wait for a later slice.  Every query reports the
-        finalizer's exact f32 scores under the provable cut, so results
-        are byte-identical to ``find()``."""
+        ``sim_precision``: ``"int8"`` (the default) ranks with a symmetric
+        int8 similarity table (a quarter of the f32 table's bytes),
+        ``"bfloat16"`` with a bf16 one (half), ``"float32"`` with the
+        exact table; an explicit argument wins over the
+        ``VECTORIAN_SIM_PRECISION`` environment default.  The corpus-pass
+        kernels read the quantized table as it is.  Every query reports
+        the finalizer's exact f32 scores under the provable cut, whose
+        slack covers the table's per-entry rounding, so every precision
+        returns byte-identical results, and the same as ``find()``."""
         if mesh is not None:
             raise _not_ported("find_batch(mesh=...)", "7: multi-device serving")
-        if sim_precision not in (None, "float32"):
-            raise _not_ported(
-                f"sim_precision={sim_precision!r}", "2: int8/bfloat16 ranking tables"
-            )
         _check_options(kwargs)
         start_time = time.time()
         with trace.span("batch.prepare"):
-            prepared, plans, len_ts, norm_totals = self._prepare_static_batch(
-                texts, n, min_score, kwargs
+            prepared, plans, len_ts, norm_totals, sim_dtype = (
+                self._prepare_static_batch(texts, n, min_score, sim_precision, kwargs)
             )
         with trace.span("batch.topk"):
-            src = self._engine.score_topk_multi(
+            src, entry_err = self._engine.score_topk_multi(
                 plans, len_ts, self._gaps, self._locality, norm_totals, n + 32,
-                gap_costs=self._gap_costs,
+                gap_costs=self._gap_costs, sim_dtype=sim_dtype, with_err=True,
             )
         items, item_qis = [], []
         for qi, pq in enumerate(prepared):
@@ -705,7 +706,7 @@ class BruteForceIndex(Index):
             items.append((src.qview(qi), plans[qi], pq, norm_totals[qi]))
             item_qis.append(qi)
         per_q = self._finalize_quantized_many(
-            items, self._gaps, self._metric_name, n, min_score, 0.0
+            items, self._gaps, self._metric_name, n, min_score, entry_err
         )
         matches_by_qi = dict(zip(item_qis, per_q))
         elapsed = time.time() - start_time
@@ -716,11 +717,21 @@ class BruteForceIndex(Index):
             for qi in range(len(prepared))
         ]
 
-    def _prepare_static_batch(self, texts, n, min_score, kwargs):
+    def _prepare_static_batch(self, texts, n, min_score, sim_precision, kwargs):
         """find_batch front half: prepare Q queries and compile each plan
         at the SAME padded needle width find() uses (so find()/find_batch()
-        gather identical bits).  Returns (prepared, plans, len_ts,
-        norm_totals)."""
+        gather identical bits), and resolve ``sim_precision`` (None:
+        ``$VECTORIAN_SIM_PRECISION``, else "int8"; ValueError past "int8",
+        "bfloat16" and "float32").  Returns (prepared, plans, len_ts,
+        norm_totals, the ranking table's ``sim_dtype``: None for f32)."""
+        if sim_precision is None:
+            sim_precision = os.environ.get("VECTORIAN_SIM_PRECISION") or "int8"
+        if sim_precision not in ("int8", "bfloat16", "float32"):
+            raise ValueError(f"unknown sim_precision {sim_precision!r}")
+        # quantized ranking needs tag_weights=None (the tag threshold is a
+        # discontinuity no rounding bound survives); tag weights are not
+        # served yet, so every batch here may quantize
+        sim_dtype = None if sim_precision == "float32" else sim_precision
         prepared, plans, len_ts, norm_totals = [], [], [], []
         for text in texts:
             pq = self.make_query(text, n=n, min_score=min_score, **kwargs).prepare(
@@ -730,7 +741,7 @@ class BruteForceIndex(Index):
             plans.append(self._compile_plan(pq))
             len_ts.append(max(pq.n_tokens, 1))
             norm_totals.append(float(max(pq.n_tokens, 1)))
-        return prepared, plans, len_ts, norm_totals
+        return prepared, plans, len_ts, norm_totals, sim_dtype
 
     def _quant_eps(self, entry_err: float, pq, norm_total: float) -> float:
         return max(

@@ -3,16 +3,18 @@ vectorian_tpu/ops/pallas_dp.py), their plain torch versions and launch
 counts.
 
 - ``affine_dp_scores``: the affine corpus pass, the gather of the stacked
-  serving table ``[V, Tpad, Q]`` by each slice's token ids fused with the
-  Gotoh DP (csrc/affine_dp.cu; replaces ``pallas_align_scores_multi_nt``).
+  serving table ``[V, Tpad, Q]`` (f32, or a quantized bf16 / int8 ranking
+  table, read as it is) by each slice's token ids fused with the Gotoh DP
+  (csrc/affine_dp.cu; replaces ``pallas_align_scores_multi_nt``).
 - ``affine_dp_scores_rows``: the affine score-only rescore of (bucket row,
   query slot) problems, each reading its similarity rows from the stacked
   ``[slots * V, Tmax]`` plan table (csrc/affine_dp.cu; replaces
   ``pallas_align_scores`` on the gathered block);
   ``affine_dp_scores_flat`` runs the same kernel on a flat [B, L, T] batch.
 - ``wsb_dp_scores``: the general-gap (Waterman-Smith-Beyer) corpus pass,
-  gather fused as above (csrc/wsb_dp.cu; replaces the corpus-pass use of
-  ``pallas_align_scores_general``).  Three routes (``wsb_launch_plan``):
+  gather fused as above, any of the three table types (csrc/wsb_dp.cu;
+  replaces the corpus-pass use of ``pallas_align_scores_general``).
+  Three routes (``wsb_launch_plan``):
   "registers" (one lane a needle column, column histories in registers)
   for buckets up to WSB_REG_MAX_L tokens and needles up to WSB_REG_MAX_T
   (gap models whose closure is non-negative), else one thread a problem
@@ -82,10 +84,19 @@ WSB_REG_MAX_L = 32
 WSB_REG_MAX_T = 32
 WSB_REG_THREADS = 128
 
+# the table types of the corpus-pass (gather) entries, by the code their C
+# entries take (csrc/*.cu TableDtype); a bf16 or int8 table's launches count
+# under "<kernel>[bf16]" / "<kernel>[int8]"
+TABLE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_DTYPE_TAGS = {torch.float32: "", torch.bfloat16: "[bf16]", torch.int8: "[int8]"}
 # kernel launches since the last reset (one per launch of each kernel: the
 # row-gather entries and their flat-batch wrappers count as "*_flat"), and
 # the launches of the WSB entries by route
-LAUNCHES = {"affine_dp": 0, "affine_dp_flat": 0, "wsb_dp": 0, "wsb_dp_flat": 0}
+LAUNCHES = {
+    "affine_dp": 0, "affine_dp[bf16]": 0, "affine_dp[int8]": 0,
+    "affine_dp_flat": 0,
+    "wsb_dp": 0, "wsb_dp[bf16]": 0, "wsb_dp[int8]": 0, "wsb_dp_flat": 0,
+}
 WSB_ROUTE_LAUNCHES = {
     "registers": 0, "shared": 0, "scratch": 0,
     "rows_registers": 0, "rows_shared": 0, "rows_scratch": 0,
@@ -97,7 +108,7 @@ _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
     "affine_dp": {
         "vt_affine_dp_scores": [
-            _P, _P, _P, _P, _P, _I64, _I, _I, _I, _F, _F, _F, _F, _I, _P,
+            _P, _I, _P, _P, _P, _P, _I64, _I, _I, _I, _F, _F, _F, _F, _I, _P,
         ],
         "vt_affine_dp_scores_rows": [
             _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I64, _F, _F, _F, _F,
@@ -106,12 +117,12 @@ _SIGNATURES = {
     },
     "wsb_dp": {
         "vt_wsb_dp_scores": [
-            _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I,
-            _I, _P,
+            _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I,
+            _I, _I, _P,
         ],
         "vt_wsb_dp_scores_regs": [
-            _P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _I64, _I, _I, _I, _I, _I,
-            _P,
+            _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P, _I64, _I, _I, _I, _I,
+            _I, _P,
         ],
         "vt_wsb_dp_scores_rows": [
             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I64,
@@ -228,14 +239,18 @@ def _check_locality(locality):
 
 def _check_cuda(fn: str, dev, **tensors):
     """Device, contiguity and type checks of a kernel launch's tensors
-    (``name=(tensor, dtype)``)."""
+    (``name=(tensor, dtype)``, or ``(tensor, (dtype, ...))`` where several
+    types are allowed)."""
     if dev.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {dev}")
-    for name, (t, dtype) in tensors.items():
+    for name, (t, dtypes) in tensors.items():
         if t.device != dev:
             raise ValueError(f"{fn}: {name} is on {t.device}, not {dev}")
-        if t.dtype != dtype:
-            raise ValueError(f"{fn}: {name} must be {dtype}, not {t.dtype}")
+        if not isinstance(dtypes, tuple):
+            dtypes = (dtypes,)
+        if t.dtype not in dtypes:
+            want = " or ".join(str(d) for d in dtypes)
+            raise ValueError(f"{fn}: {name} must be {want}, not {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{fn}: {name} must be contiguous")
 
@@ -261,9 +276,10 @@ def _raise_on(rc: int, name: str):
 def affine_dp_scores_reference(
     table, tokens, len_s, len_t, gaps, locality, max_bytes: int = 1 << 29
 ):
-    """Plain torch version of ``affine_dp_scores``: ``table[tokens]`` and
-    the torch scan, chunked over slices so the gathered [c, L, Tpad, Q]
-    block stays under ``max_bytes``."""
+    """Plain torch version of ``affine_dp_scores``: ``table[tokens]``, cast
+    to f32 (a quantized table's exact values, as the JAX corpus pass casts
+    its gathered block), and the torch scan, chunked over slices so the
+    gathered [c, L, Tpad, Q] f32 block stays under ``max_bytes``."""
     n, L = tokens.shape
     _, Tpad, Q = table.shape
     ln1 = torch.clamp_min(len_s, 1)
@@ -272,7 +288,7 @@ def affine_dp_scores_reference(
     for c0 in range(0, n, chunk):
         tok = tokens[c0 : c0 + chunk].long()
         c = tok.shape[0]
-        S = table[tok]  # [c, L, Tpad, Q]
+        S = table[tok].float()  # [c, L, Tpad, Q]
         S2 = S.permute(0, 3, 1, 2).reshape(c * Q, L, Tpad)
         raw = align_scores(
             S2,
@@ -288,11 +304,13 @@ def affine_dp_scores_reference(
 def affine_dp_scores(table, tokens, len_s, len_t, gaps, locality):
     """Raw affine-DP scores [n, Q] f32 of every slice against every query.
 
-    table [V, Tpad, Q] f32 (query q's similarity of vocab row v to its
-    needle token j), tokens [n, L] i32 (< V), len_s [n] i32 (clamped to
-    >= 1, like the JAX corpus pass), len_t [Q] i32 (1 <= len_t <= Tpad),
-    ``gaps`` an AffineGapParams of host floats (passed by value: changing
-    them rebuilds and uploads nothing)."""
+    table [V, Tpad, Q] (query q's similarity of vocab row v to its needle
+    token j) f32, or a quantized ranking table of bf16 or int8 (its units:
+    ``gaps`` must be in them too, ops/search.stack_query_tables), read by
+    the kernel as it is; tokens [n, L] i32 (< V), len_s [n] i32 (clamped
+    to >= 1, like the JAX corpus pass), len_t [Q] i32 (1 <= len_t <=
+    Tpad), ``gaps`` an AffineGapParams of host floats (passed by value:
+    changing them rebuilds and uploads nothing)."""
     _check_locality(locality)
     dev = table.device
     if dev.type == "cpu":
@@ -306,7 +324,7 @@ def affine_dp_scores(table, tokens, len_s, len_t, gaps, locality):
     if tuple(len_s.shape) != (n,) or tuple(len_t.shape) != (Q,):
         raise ValueError("len_s must be [n] and len_t [Q]")
     _check_cuda(
-        "affine_dp_scores", dev, table=(table, torch.float32),
+        "affine_dp_scores", dev, table=(table, tuple(TABLE_DTYPES)),
         tokens=(tokens, torch.int32), len_s=(len_s, torch.int32),
         len_t=(len_t, torch.int32),
     )
@@ -323,13 +341,13 @@ def affine_dp_scores(table, tokens, len_s, len_t, gaps, locality):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.vt_affine_dp_scores(
-            table.data_ptr(), tokens.data_ptr(), ln1.data_ptr(),
-            len_t.data_ptr(), out.data_ptr(), n, L, Tpad, Q,
+            table.data_ptr(), TABLE_DTYPES[table.dtype], tokens.data_ptr(),
+            ln1.data_ptr(), len_t.data_ptr(), out.data_ptr(), n, L, Tpad, Q,
             float(gaps[0]), float(gaps[1]), float(gaps[2]), float(gaps[3]),
             LOCALITIES.index(locality), stream,
         )
     _raise_on(rc, "affine_dp")
-    LAUNCHES["affine_dp"] += 1
+    LAUNCHES["affine_dp" + _DTYPE_TAGS[table.dtype]] += 1
     return out
 
 
@@ -524,9 +542,10 @@ def wsb_launch_plan(problems: int, L: int, T: int, registers: bool = True,
 
 
 def wsb_register_table(table: torch.Tensor) -> torch.Tensor:
-    """The register route's table layout: [V, Tpad, Q] -> [V, Q, Tpad], so
-    the G lanes of a problem (and a warp's consecutive queries) read one
-    contiguous segment.  At Q = 1 it is the same memory, not a copy."""
+    """The register route's table layout: [V, Tpad, Q] -> [V, Q, Tpad] of
+    the same type, so the G lanes of a problem (and a warp's consecutive
+    queries) read one contiguous segment.  At Q = 1 it is the same memory,
+    not a copy."""
     return table.transpose(1, 2).contiguous()
 
 
@@ -540,9 +559,10 @@ def _wsb_scratch(dev, floats: int):
 def _register_costs(L: int, T: int, table, vecs, host_costs):
     """The host cost vectors the register route passes by value, or None
     where the route cannot take the launch: a shape its templates do not
-    take, a table of 2^32 floats or more, or a closure w_t*[1..T] with a
-    negative cost (its shuffles need w_t* >= 0).  Without ``host_costs`` the
-    device vectors are copied back, which waits for the stream."""
+    take, a table (of any type) of 2^32 elements or more, or a closure
+    w_t*[1..T] with a negative cost (its shuffles need w_t* >= 0).  Without
+    ``host_costs`` the device vectors are copied back, which waits for the
+    stream."""
     if not wsb_register_shape(L, T) or table.numel() >= 2**32:
         return None
     hs = host_costs if host_costs is not None else vecs
@@ -556,10 +576,10 @@ def wsb_dp_scores_reference(
     table, tokens, len_s, len_t, w_s, w_t, w_t_star, locality,
     max_bytes: int = 1 << 28,
 ):
-    """Plain torch version of ``wsb_dp_scores``: ``table[tokens]`` and the
-    torch WSB scan, chunked over slices so the scan's resident rows
-    ([L + 1, c * Q, Tpad + 1] f32, about as large as its temporaries) stay
-    under ``max_bytes``."""
+    """Plain torch version of ``wsb_dp_scores``: ``table[tokens]``, cast
+    to f32 (as in ``affine_dp_scores_reference``), and the torch WSB scan,
+    chunked over slices so the scan's resident rows ([L + 1, c * Q, Tpad +
+    1] f32, about as large as its temporaries) stay under ``max_bytes``."""
     n, L = tokens.shape
     _, Tpad, Q = table.shape
     ln1 = torch.clamp_min(len_s, 1)
@@ -568,7 +588,7 @@ def wsb_dp_scores_reference(
     for c0 in range(0, n, chunk):
         tok = tokens[c0 : c0 + chunk].long()
         c = tok.shape[0]
-        S2 = table[tok].permute(0, 3, 1, 2).reshape(c * Q, L, Tpad)
+        S2 = table[tok].float().permute(0, 3, 1, 2).reshape(c * Q, L, Tpad)
         raw = align_scores_general(
             S2,
             ln1[c0 : c0 + c].repeat_interleave(Q),
@@ -586,11 +606,13 @@ def wsb_dp_scores(table, tokens, len_s, len_t, w_s, w_t, w_t_star, locality,
                   host_costs=None, _route=None):
     """Raw WSB-DP scores [n, Q] f32 of every slice against every query.
 
-    table [V, Tpad, Q] f32, tokens [n, L] i32 (< V), len_s [n] i32 (clamped
-    to >= 1, like the JAX corpus pass), len_t [Q] i32 (1 <= len_t <= Tpad);
-    w_s [>= L + 1] raw document-side gap costs, w_t [>= Tpad + 1] raw
-    needle-side costs (the global row 0) and w_t_star their min-plus closure
-    (ops/alignment.gap_cost_closure), all f32 on the table's device.
+    table [V, Tpad, Q] f32, bf16 or int8 (as in ``affine_dp_scores``: the
+    costs in the table's units), tokens [n, L] i32 (< V), len_s [n] i32
+    (clamped to >= 1, like the JAX corpus pass), len_t [Q] i32 (1 <= len_t
+    <= Tpad); w_s [>= L + 1] raw document-side gap costs, w_t [>= Tpad +
+    1] raw needle-side costs (the global row 0) and w_t_star their min-plus
+    closure (ops/alignment.gap_cost_closure), all f32 on the table's
+    device.
     ``host_costs``: the same three vectors on the host (``GeneralGaps.
     host_vecs``); the register route passes the costs by value, and without
     them it copies the device vectors back first, which waits for the
@@ -611,7 +633,7 @@ def wsb_dp_scores(table, tokens, len_s, len_t, w_s, w_t, w_t_star, locality,
     if tuple(len_s.shape) != (n,) or tuple(len_t.shape) != (Q,):
         raise ValueError("len_s must be [n] and len_t [Q]")
     _check_cuda(
-        "wsb_dp_scores", dev, table=(table, torch.float32),
+        "wsb_dp_scores", dev, table=(table, tuple(TABLE_DTYPES)),
         tokens=(tokens, torch.int32), len_s=(len_s, torch.int32),
         len_t=(len_t, torch.int32), w_s=(w_s, torch.float32),
         w_t=(w_t, torch.float32), w_t_star=(w_t_star, torch.float32),
@@ -624,13 +646,14 @@ def wsb_dp_scores(table, tokens, len_s, len_t, w_s, w_t, w_t_star, locality,
     plan = wsb_launch_plan(n * Q, L, Tpad, registers=hs is not None,
                            route=_route, Q=Q)
     lib = _load("wsb_dp")
+    code = TABLE_DTYPES[table.dtype]
     if plan.route == "registers":
         n_wt = min(hs[1].numel(), hs[2].numel())
         tq = wsb_register_table(table)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.vt_wsb_dp_scores_regs(
-                tq.data_ptr(), tokens.data_ptr(), ln1.data_ptr(),
+                tq.data_ptr(), code, tokens.data_ptr(), ln1.data_ptr(),
                 len_t.data_ptr(), hs[0].data_ptr(), hs[0].numel(),
                 hs[1].data_ptr(), hs[2].data_ptr(), n_wt, out.data_ptr(),
                 n, L, Tpad, Q, LOCALITIES.index(locality), plan.blocks, stream,
@@ -643,7 +666,7 @@ def wsb_dp_scores(table, tokens, len_s, len_t, w_s, w_t, w_t_star, locality,
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.vt_wsb_dp_scores(
-                table.data_ptr(), tokens.data_ptr(), ln1.data_ptr(),
+                table.data_ptr(), code, tokens.data_ptr(), ln1.data_ptr(),
                 len_t.data_ptr(), w_s.data_ptr(), w_t.data_ptr(),
                 w_t_star.data_ptr(), out.data_ptr(), scratch_ptr, n, L, Tpad,
                 Q, LOCALITIES.index(locality), plan.blocks, plan.threads,
@@ -651,7 +674,7 @@ def wsb_dp_scores(table, tokens, len_s, len_t, w_s, w_t, w_t_star, locality,
             )
         del scratch
     _raise_on(rc, "wsb_dp")
-    LAUNCHES["wsb_dp"] += 1
+    LAUNCHES["wsb_dp" + _DTYPE_TAGS[table.dtype]] += 1
     WSB_ROUTE_LAUNCHES[plan.route] += 1
     return out
 

@@ -1,8 +1,9 @@
 """Brute-force batched search: similarity table -> alignment DP -> top-k.
 
 Counterpart of vectorian_tpu/ops/search.py for the static path (resident
-buckets, f32 tables, affine or general gap models).  The reference's
-matcher loop (MatcherImpl::match, vectorian/core/cpp/match/
+buckets; f32 ranking tables, or the int8 / bfloat16 ones of
+``find_batch(sim_precision=...)``; affine or general gap models).  The
+reference's matcher loop (MatcherImpl::match, vectorian/core/cpp/match/
 matcher_impl.h:66-176 + ThreadPool fan-out index.py:530-560) becomes, per
 length bucket, ONE launch of a DP kernel (ops/dp_kernels.py) — the affine
 Gotoh kernel, or the Waterman-Smith-Beyer kernel for a general gap model —
@@ -66,20 +67,30 @@ class GeneralGaps:
     computed once on the host), the document side per bucket capacity.
     Each is kept on the host, where it is built, and on ``device``: the
     WSB kernel's register route takes the host copies by value (reading
-    the device copies back would wait for the stream)."""
+    the device copies back would wait for the stream).
 
-    def __init__(self, gap_costs, n1_t: int, device):
+    ``scale`` (np.float32): the vectors in the units of an int8 ranking
+    table, each raw cost divided by it in f32 BEFORE the closure (the JAX
+    package closes ``gap_vec_t / sim_scale``; closure(w / c) is not
+    bitwise closure(w) / c)."""
+
+    def __init__(self, gap_costs, n1_t: int, device, scale=None):
         self.gap_costs = gap_costs
         self.device = device
-        self.w_t_host = torch.from_numpy(gap_vec(gap_costs[1], n1_t))
+        self.scale = scale
+        self.w_t_host = self._host_vec(gap_costs[1], n1_t)
         self.w_t_star_host = gap_cost_closure(self.w_t_host)
         self.w_t = self.w_t_host.to(device)
         self.w_t_star = self.w_t_star_host.to(device)
         self._w_s = {}  # capacity -> (host, device)
 
+    def _host_vec(self, side, n1: int) -> torch.Tensor:
+        w = gap_vec(side, n1)
+        return torch.from_numpy(w if self.scale is None else w / self.scale)
+
     def _w_s_pair(self, capacity: int):
         if capacity not in self._w_s:
-            host = torch.from_numpy(gap_vec(self.gap_costs[0], capacity + 1))
+            host = self._host_vec(self.gap_costs[0], capacity + 1)
             self._w_s[capacity] = (host, host.to(self.device))
         return self._w_s[capacity]
 
@@ -93,19 +104,85 @@ class GeneralGaps:
         return self._w_s_pair(capacity)[0], self.w_t_host, self.w_t_star_host
 
 
-def stack_query_tables(plans, len_ts):
+# the quantized ranking tables of ``find_batch(sim_precision=...)``
+SIM_DTYPES = {"int8": torch.int8, "bfloat16": torch.bfloat16}
+
+
+def stack_query_tables(plans, len_ts, sim_dtype=None):
     """Stack Q static query plans into the serving table [V, Tpad, Q]
     ((T, Q)-minor: a warp of the DP kernel reads one table row's Q
-    consecutive floats).  Tpad is the longest needle rounded up to 8;
-    narrower plans are zero-padded (the DP masks columns past each
-    query's len_t).  Returns (table, Tpad)."""
+    consecutive elements), optionally quantized.  Tpad is the longest
+    needle rounded up to 8; narrower plans are zero-padded (the DP masks
+    columns past each query's len_t).
+
+    ``sim_dtype``: None keeps f32; ``"bfloat16"`` rounds to nearest even;
+    ``"int8"`` is ``round(table / sim_scale)`` (half to even) with the
+    symmetric scale ``sim_scale = max_abs / 127`` in f32, ``max_abs =
+    max(max|table|, 1e-9)`` over the zero-padded stack — max-plus
+    homogeneity runs the quantized units through the unchanged DP with the
+    gap costs divided by ``sim_scale`` (the JAX package's arithmetic, bit
+    for bit).  Quantizing reads ``max_abs`` and ``sim_scale`` back to the
+    host ONCE, after the quantization is enqueued: the kernels take the
+    scaled costs by value, so no corpus pass is queued before it.  Returns
+    (table, sim_scale np.float32 (1.0 unless int8), max_abs (a host float;
+    None for f32), Tpad)."""
     Tmax = max(len_ts)
     Tpad = -(-Tmax // 8) * 8
     mats = [qp.matrix for qp in plans]
     table = torch.stack(
         [F.pad(m, (0, Tpad - int(m.shape[1]))) for m in mats], dim=2
+    ).contiguous()
+    if sim_dtype is None:
+        return table, np.float32(1.0), None, Tpad
+    if sim_dtype not in SIM_DTYPES:
+        raise ValueError(f"unknown sim_dtype {sim_dtype!r}")
+    max_abs = torch.clamp_min(table.abs().amax(), 1e-9)
+    if sim_dtype == "int8":
+        # device tensors on both sides: a CPU-scalar divisor would run as a
+        # multiply by its reciprocal on the card
+        scale = max_abs / torch.full_like(max_abs, 127.0)
+        table = torch.round(table / scale).to(torch.int8)
+    else:
+        scale = torch.ones_like(max_abs)
+        table = table.to(torch.bfloat16)
+    with trace.span("topk.max_abs_read"):
+        max_abs_h, scale_h = torch.stack((max_abs, scale)).tolist()
+    return table, np.float32(scale_h), max_abs_h, Tpad
+
+
+def quantization_entry_err(sim_dtype, max_abs) -> float:
+    """Max per-entry absolute rounding of a quantized table (0.0 exact;
+    ``max_abs`` as ``stack_query_tables`` returns it)."""
+    if max_abs is None:
+        return 0.0
+    max_abs = float(max_abs)
+    if sim_dtype == "int8":
+        return max_abs / 127.0 / 2.0  # round-to-nearest
+    # bf16 RN absolute error: half-ulp of max_abs's binade — the safe
+    # upper bound is 2^-8 * max_abs (2^-9 relative only holds at the
+    # binade's low end)
+    return max_abs * 2.0 ** -8
+
+
+def scaled_costs(gaps, gap_costs, sim_scale, Tpad: int, device):
+    """A corpus pass's costs in its ranking table's units: (the affine
+    ``gaps``, the GeneralGaps of ``gap_costs`` (None: affine), the scale
+    as a 0-d f32 tensor on ``device`` or None).  At an int8 table's
+    ``sim_scale`` the costs are divided by it going in (host f32 division,
+    correctly rounded like the JAX package's device division) and the raw
+    scores are multiplied by the returned tensor coming out; at 1.0 (f32
+    and bf16 tables) nothing is scaled."""
+    scaled = sim_scale != np.float32(1.0)
+    scale_t = None
+    if scaled:
+        gaps = type(gaps)(*(g / sim_scale for g in gaps))
+        scale_t = torch.full((), float(sim_scale), dtype=torch.float32, device=device)
+    general = (
+        None if gap_costs is None
+        else GeneralGaps(gap_costs, Tpad + 1, device,
+                         scale=sim_scale if scaled else None)
     )
-    return table.contiguous(), Tpad
+    return gaps, general, scale_t
 
 
 def order_by_score(packed, ids, scores) -> np.ndarray:
@@ -128,12 +205,16 @@ def order_by_score(packed, ids, scores) -> np.ndarray:
 
 def _bucket_scores_multiquery(
     tokens, lengths, sim_multi, len_t, gaps, norm_total, locality,
-    general=None,
+    general=None, sim_scale=None,
 ):
     """[n, Q] normalized scores of one bucket — Q queries in one corpus
     pass, one kernel launch (the gather of ``sim_multi`` by ``tokens`` is
     fused into the DP kernel).  ``general``: the GeneralGaps of a
-    non-affine gap model (WSB kernel), else None (affine)."""
+    non-affine gap model (WSB kernel), else None (affine).  ``sim_scale``:
+    a 0-d f32 tensor on the device for an int8 table, else None; ``gaps``
+    and ``general`` are then in the table's units (divided by it), and the
+    raw scores are multiplied by it coming out, before the normalization
+    (the JAX package's order)."""
     if general is None:
         raw = affine_dp_scores(sim_multi, tokens, lengths, len_t, gaps, locality)
     else:
@@ -142,6 +223,8 @@ def _bucket_scores_multiquery(
             sim_multi, tokens, lengths, len_t, *general.vecs(capacity),
             locality, host_costs=general.host_vecs(capacity),
         )
+    if sim_scale is not None:
+        raw = raw * sim_scale
     scores = raw / torch.clamp_min(norm_total, 1e-9)[None, :]
     return scores.masked_fill(lengths[:, None] <= 0, NEG_SCORE)
 
@@ -614,17 +697,20 @@ class BruteForceEngine:
         return self._packed.n_slices
 
     def _dispatch_multi(self, plans, len_ts, gaps, locality, norm_totals,
-                        gap_costs=None):
-        """Dispatch half of the multi-query corpus pass: [(bucket, scores
-        [n, Q] left on the device)], one kernel launch per bucket.  The
-        index's gap model is shared by every query in the batch: ONE
-        [L + 1] / [Tpad + 1] cost-vector pair per bucket serves all Q (the
-        DP masks columns past each query's len_t)."""
+                        gap_costs=None, sim_dtype=None):
+        """Dispatch half of the multi-query corpus pass: ([(bucket,
+        scores [n, Q] left on the device)], one kernel launch per bucket;
+        the quantization entry error, 0.0 for f32).  The index's gap model
+        is shared by every query in the batch: ONE [L + 1] / [Tpad + 1]
+        cost-vector pair per bucket serves all Q (the DP masks columns past
+        each query's len_t).  ``sim_dtype``: None (f32), "bfloat16" or
+        "int8" ranking table (``stack_query_tables``)."""
         with trace.span("topk.tables"):
-            sim_multi, Tpad = stack_query_tables(plans, len_ts)
-            general = (
-                None if gap_costs is None
-                else GeneralGaps(gap_costs, Tpad + 1, self.device)
+            sim_multi, sim_scale, max_abs, Tpad = stack_query_tables(
+                plans, len_ts, sim_dtype
+            )
+            gaps, general, scale_t = scaled_costs(
+                gaps, gap_costs, sim_scale, Tpad, self.device
             )
         lt_arr = torch.as_tensor(
             np.asarray(len_ts, np.int32), device=self.device
@@ -638,26 +724,32 @@ class BruteForceEngine:
                 db,
                 _bucket_scores_multiquery(
                     db["tokens"], db["lengths"], sim_multi, lt_arr, gaps,
-                    nt_arr, locality, general,
+                    nt_arr, locality, general, scale_t,
                 ),
             )
             for db in self._device_buckets
             if db["n"] > 0
         ]
         trace.add("topk.dispatch", time.perf_counter() - t_disp0)
-        return pending
+        return pending, quantization_entry_err(sim_dtype, max_abs)
 
     def score_topk_multi(
         self, plans, len_ts: List[int], gaps, locality: str,
-        norm_totals: List[float], k: int, gap_costs=None,
-    ) -> BucketTopKSource:
+        norm_totals: List[float], k: int, gap_costs=None, sim_dtype=None,
+        with_err: bool = False,
+    ):
         """Multi-query corpus pass with DEVICE-SIDE per-bucket top-k: only
         O(buckets * Q * k) (score, id, exact raw) triples reach the host.
         ``gap_costs``: (GapCost_s, GapCost_t) of a non-affine gap model
         (the WSB DP; ``gaps`` is then an unused placeholder), else None.
-        Returns the ``BucketTopKSource`` the finalizer consumes."""
-        pending = self._dispatch_multi(
-            plans, len_ts, gaps, locality, norm_totals, gap_costs
+        ``sim_dtype``: the ranking table's type (None: f32, "bfloat16",
+        "int8"); the fused rescore, the extras round and ``rescore_many``
+        read the f32 plan table all the same, so every score that reaches a
+        ``Match`` is exact.  Returns the ``BucketTopKSource`` the finalizer
+        consumes, and with ``with_err`` also the table's max per-entry
+        rounding (``quantization_entry_err``; the finalizer's slack)."""
+        pending, entry_err = self._dispatch_multi(
+            plans, len_ts, gaps, locality, norm_totals, gap_costs, sim_dtype
         )
         table, V, Tmax = self._stacked_plan_tables(plans)
         exact_ctx = {
@@ -674,7 +766,8 @@ class BruteForceEngine:
             ),
             "locality": locality,
         }
-        return BucketTopKSource(self, pending, len(plans), k, exact_ctx)
+        src = BucketTopKSource(self, pending, len(plans), k, exact_ctx)
+        return (src, entry_err) if with_err else src
 
     @staticmethod
     def _stacked_plan_tables(qps):
