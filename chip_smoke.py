@@ -8,11 +8,12 @@ Phases, each of which raises on failure:
 1. Device: a CUDA card must be present; prints its name and power limit.
 2. Build: compiles every kernel of the port from the checkout's sources
    (csrc/*.cu, one nvcc per source, all started together; prints each
-   ptxas report) and the native host library (native/, the traceback).
-   Fails if an affine template up to T1P = 33 (gather at f32, bf16 and
-   int8 tables, and row-gather) or any kernel of the WSB register route
-   (gather at each table type, and row-gather) has a stack frame or
-   spills.
+   ptxas report) and the native host library (csrc/vectorian_native.cpp,
+   the traceback and fastText encoder).  Fails if an affine template up
+   to T1P = 33 (gather at f32, bf16 and int8 tables, and row-gather), a
+   kernel of the affine wide route or any kernel of the WSB register
+   route (gather at each table type, and row-gather) has a stack frame or
+   spills; prints the T1P = 65 templates' reports on a line of their own.
 3. Kernels against their plain torch versions on the card (random tables,
    tokens and costs from a seeded generator), bit for bit (torch.equal):
    the affine corpus kernel, the WSB corpus kernel (the register route at
@@ -28,7 +29,11 @@ Phases, each of which raises on failure:
    affine_dp at L {16, 32} x Tpad {8, 16} x Q {1, 32}, wsb_dp's register
    route at the same shapes plus one shared-rows and one scratch shape,
    bit for bit, each timed against the f32 kernel on the table before
-   quantizing (in turns); a float16 table must raise.
+   quantizing (in turns); a float16 table must raise.  Wide route: both
+   affine entries at needles padded to 132, 256 and 1,024 (and 2,048, past
+   shared memory: the scratch route), n or B = 8,192, against their plain
+   versions bit for bit and timed against their bounds; the register
+   templates against the wide route at Tpad 64.
 4. Main path at real size: a 1,000,000-sentence Zipf corpus (9 tokens a
    sentence over 5,000 words, a 5,000 x 300 KeyedVectors), Session(device=
    "cuda") -> partition("sentence") -> index; find_batch of 32 queries at
@@ -48,8 +53,26 @@ Phases, each of which raises on failure:
    a bucket a round), held against the port on the CPU; prints the
    launches a round and the round's device ms against the per-column
    gather + flat-batch form it replaced.
+   4 (long queries): on the same packing, an affine find of a 160-token
+   query and a find_batch of 32 queries that holds it (every needle
+   padded to 160: the wide route) at each precision, byte-identical, the
+   wide kernel held against its plain version at those shapes.
+   4d: BASELINE config 1, fastText 300d (a .bin with cc.en.300.bin's
+   arguments, dim 300, n-grams of 5, 2,000,000 buckets, its dictionary the
+   corpus's 2,500 most frequent words, written from the seed into a
+   temporary directory) added to phase 4's session, LocalAlignment with
+   affine gaps, each query holding 2 words outside the corpus: .bin write
+   and load, vocabulary encode, find p50 and find_batch Q=32, byte-identical.
+   Then index.warmup() (and a first find: no compiler may run) and the
+   packed-corpus cache cold (pack and save) against a hit (load), under a
+   VECTORIAN_CACHE_HOME of the run's own, with the same matches.  4c also
+   runs a 135-token query whose extras round takes the row-gather entry's
+   wide route.
 5. The port on the card against the port on the CPU on a small corpus,
-   affine and general-gap indexes.
+   affine and general-gap indexes, and phase 4's long query.
+
+``python3 chip_smoke.py --build-ab`` instead times phase 2's build with and
+without ``--split-compile 0`` and exits.
 
 Prints one JSON line per phase, the card's name and power limit, the
 kernels' line ({"kernels": [...]}) and, last, {"ok": true, "device": ...}.
@@ -60,9 +83,12 @@ main path report the device busy time, idle share and top kernels.
 import concurrent.futures
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -91,6 +117,11 @@ FLAT_B = 65_536
 # phase 3 row-gather cases: problems a launch, and the bucket rows they index
 ROWS_BATCHES = (700, 8_192, 65_536)
 ROWS_BUCKET = 65_536
+# phase 3's wide-route shapes: slices a gather case and problems a
+# row-gather case (the plain version gathers an [n, L, Tpad, Q] f32 block:
+# 8.6 GB at n = 8,192, L = 32, Tpad = 256, Q = 32)
+WIDE_N = 8_192
+WIDE_B = 8_192
 LOCALITIES = ("local", "global", "semiglobal")
 # find_batch's ranking precisions (None: the default, int8) and the
 # quantized table types, with their tags in the kernels' launch counts
@@ -137,24 +168,33 @@ _AFFINE_TEMPLATE = re.compile(
     r"affine_dp_kernel(?:_4b)?ILi(\d+)ELi(\d)ELb([01])ELb([01])E([fta])E")
 _WSB_REGS_TEMPLATE = re.compile(
     r"wsb_regs_kernelILi(\d+)ELi(\d+)ELi(\d)ELi(\d)ELb([01])E([fta])E")
+_AFFINE_WIDE_TEMPLATE = re.compile(
+    r"affine_dp_wide_kernelILi(\d)ELb([01])ELb([01])E([fta])E")
 
 
 def ptxas_gate(reports):
     """Each kernel template's registers, stack frame and spills from the
-    ptxas reports; raises if an affine template up to T1P = 33 or a kernel
-    of the WSB register route (either entry, any table type) has a stack
-    frame or spills, or if the reports lack the gather kernels of a table
-    type or the row-gather kernels."""
+    ptxas reports; raises if an affine template up to T1P = 33, a kernel of
+    the affine wide route or a kernel of the WSB register route (either
+    entry, any table type) has a stack frame or spills, or if the reports
+    lack the gather kernels of a table type or the row-gather kernels.  The
+    affine register templates past T1P = 33 are printed on a line of their
+    own, ungated."""
     from vectorian_tpu_torch.ops.dp_kernels import ptxas_entries
 
     rows, bad = [], []
     for source, text in reports.items():
         for name, e in ptxas_entries(text).items():
             a, w = _AFFINE_TEMPLATE.search(name), _WSB_REGS_TEMPLATE.search(name)
+            aw = _AFFINE_WIDE_TEMPLATE.search(name)
             if a:
                 label = (f"affine {'rows' if a[3] == '1' else 'gather'} {_ELEM[a[5]]} "
                          f"T1P={a[1]} loc={a[2]}{' vec' if a[4] == '1' else ''}")
                 gated = int(a[1]) <= 33
+            elif aw:
+                label = (f"affine_wide {'rows' if aw[2] == '1' else 'gather'} "
+                         f"{_ELEM[aw[4]]} loc={aw[1]}{' scratch' if aw[3] == '1' else ''}")
+                gated = True
             elif w:
                 label = (f"wsb_regs {'rows' if w[5] == '1' else 'gather'} {_ELEM[w[6]]} "
                          f"L={w[1]} G={w[2]} loc={w[3]} P={w[4]}")
@@ -165,11 +205,15 @@ def ptxas_gate(reports):
                          e["spill_loads"]])
             if gated and (e["stack"] or e["spill_stores"] or e["spill_loads"]):
                 bad.append(label)
-    kinds = [f"{k} gather {t}" for k in ("affine", "wsb_regs") for t in _ELEM.values()]
-    for kind in kinds + ["affine rows f32", "wsb_regs rows f32"]:
+    kinds = [f"{k} gather {t}" for k in ("affine", "affine_wide", "wsb_regs")
+             for t in _ELEM.values()]
+    for kind in kinds + ["affine rows f32", "affine_wide rows f32", "wsb_regs rows f32"]:
         if not any(r[0].startswith(kind + " ") for r in rows):
             raise AssertionError(f"ptxas gate: the reports name no {kind} kernel")
     emit({"phase": "ptxas", "kernels_registers_stack_spill_st_ld": sorted(rows)})
+    emit({"phase": "ptxas_wide_register_templates",
+          "kernels_registers_stack_spill_st_ld": sorted(
+              r for r in rows if re.search(r"T1P=65 ", r[0]))})
     if bad:
         raise AssertionError(f"ptxas gate: stack frame or spills in {bad}")
 
@@ -189,6 +233,32 @@ def phase_build():
           "native_traceback": bool(native_ok),
           "seconds": time.perf_counter() - t0})
     ptxas_gate(dp_kernels.PTXAS_REPORTS)
+
+
+def phase_build_ab():
+    """Phase 2's build (both sources, one nvcc each, started together) from
+    an empty build directory with NVCC_FLAGS without and with
+    ``--split-compile 0`` (nvcc splits a source's kernels over the host's
+    cores), each timed.  Run alone: ``python3 chip_smoke.py --build-ab``."""
+    from vectorian_tpu_torch.ops import dp_kernels
+
+    flags = dp_kernels.NVCC_FLAGS
+    base = tuple(f for i, f in enumerate(flags) if f != "--split-compile"
+                 and not (i and flags[i - 1] == "--split-compile"))
+    out = {}
+    try:
+        for label, fl in (("without", base), ("split_compile_0", base + ("--split-compile", "0"))):
+            dp_kernels.NVCC_FLAGS = fl
+            for name in dp_kernels.SOURCES:
+                dp_kernels._library_path(name).unlink(missing_ok=True)
+            t0 = time.perf_counter()
+            libs = dp_kernels.build()
+            out[label] = time.perf_counter() - t0
+            for lib in libs.values():
+                lib.unlink()
+    finally:
+        dp_kernels.NVCC_FLAGS = flags
+    emit({"phase": "build_ab", "seconds": out, "cores": len(os.sched_getaffinity(0))})
 
 
 def cuda_ms(fn, reps):
@@ -398,6 +468,142 @@ def phase_kernels():
                       "Tpad": Tpad, "Q": Q, "localities": 3, "gapsets": len(gapsets),
                       "max_abs_diff": 0.0, "kernel_ms": ms, "plain_ms": plain_ms,
                       "bound_ms": bound, "bound_by": by})
+    return worst
+
+
+def _turns(a, b, reps):
+    """CUDA-event ms of ``a`` and ``b`` in turns (a, b, b, a): (mean of a,
+    mean of b, the four times)."""
+    t = [cuda_ms(a, reps), cuda_ms(b, reps), cuda_ms(b, reps), cuda_ms(a, reps)]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
+
+
+def _affine_gather_inputs(rng, n, L, Tpad, Q, V=5_000):
+    """Random [V, Tpad, Q] table, tokens and lengths of an affine
+    corpus-pass shape; len_s holds 0 and L, len_t Tpad and 1."""
+    import numpy as np
+    import torch
+
+    def put(x):
+        return torch.as_tensor(x, device=DEVICE)
+
+    ln = rng.integers(0, L + 1, size=n).astype(np.int32)
+    ln[:2] = (0, L)
+    lt = rng.integers(1, Tpad + 1, size=Q).astype(np.int32)
+    lt[0] = Tpad
+    if Q > 1:
+        lt[1] = 1
+    return (put(rng.uniform(-0.4, 1.0, size=(V, Tpad, Q)).astype(np.float32)),
+            put(rng.integers(0, V, size=(n, L)).astype(np.int32)), put(ln), put(lt))
+
+
+def phase_kernels_wide():
+    """3 (wide route): both affine entries at needles past the register
+    templates against their plain versions, bit for bit, 3 localities x 2
+    gap sets, each timed against its bound; the scratch route forced at one
+    shape of each entry; the register templates against the wide route at
+    Tpad 64 on the same inputs (bit for bit, timed in turns), and the wide
+    route at Tpad 128.  Returns {"affine_dp[wide]", "affine_dp_flat[wide]":
+    worst |diff|}."""
+    import numpy as np
+
+    from vectorian_tpu_torch.ops import dp_kernels
+    from vectorian_tpu_torch.ops.alignment import AffineGapParams
+
+    rng = np.random.default_rng(SEED + 6)
+    gapsets = [(0.0, 0.0, 0.0, 0.0), (0.37, 0.113, 0.29, 0.071)]
+    aff = AffineGapParams.of(*gapsets[1])
+    worst = {"affine_dp[wide]": 0.0, "affine_dp_flat[wide]": 0.0}
+
+    def gather_case(n, L, Tpad, Q, route=None, ab=None):
+        """Kernel vs plain at one gather shape; ``ab`` a route to time
+        against (in turns) on the same inputs."""
+        args = _affine_gather_inputs(rng, n, L, Tpad, Q)
+        plan = dp_kernels.affine_launch_plan(n * Q, Tpad, route=route)
+        for loc in LOCALITIES:
+            for gs in gapsets:
+                gaps = AffineGapParams.of(*gs)
+                got = dp_kernels.affine_dp_scores(*args, gaps, loc, _route=route)
+                want = dp_kernels.affine_dp_scores_reference(*args, gaps, loc)
+                d = _check_equal("affine_dp", got, want, (n, L, Tpad, Q, plan.route, loc, gs))
+                if plan.route != "registers":
+                    worst["affine_dp[wide]"] = max(worst["affine_dp[wide]"], d)
+                if ab:
+                    _check_equal("affine_dp", dp_kernels.affine_dp_scores(
+                        *args, gaps, loc, _route=ab), want, (n, L, Tpad, Q, ab, loc, gs))
+        run = lambda: dp_kernels.affine_dp_scores(*args, aff, "local", _route=route)  # noqa: E731
+        line = {"phase": "kernel_wide", "name": "affine_dp", "entry": "gather", "n": n,
+                "L": L, "Tpad": Tpad, "Q": Q, "route": plan.route, "shared_bytes": plan.smem,
+                "localities": 3, "gapsets": len(gapsets), "max_abs_diff": 0.0}
+        if ab:
+            other = lambda: dp_kernels.affine_dp_scores(*args, aff, "local", _route=ab)  # noqa: E731
+            ms, ab_ms, t = _turns(run, other, 5)
+            line.update({"kernel_ms": ms, "vs_route": ab, "vs_route_ms": ab_ms,
+                         "turns_ms": t})
+        else:
+            line["kernel_ms"] = cuda_ms(run, 5)
+        line["plain_ms"] = cuda_ms(lambda: dp_kernels.affine_dp_scores_reference(
+            *args, aff, "local"), 1)
+        line["bound_ms"], line["bound_by"] = dp_bound_ms(*args[1:3], args[3], args[0])
+        emit(line)
+
+    def rows_case(B, L, T, slots, route=None, ab=None):
+        args = _rows_inputs(rng, B, L, T, slots, n=8_192)
+        plan = dp_kernels.affine_launch_plan(B, T, rows=True, route=route)
+        for loc in LOCALITIES:
+            for gs in gapsets:
+                gaps = AffineGapParams.of(*gs)
+                got = dp_kernels.affine_dp_scores_rows(*args, gaps, loc, _route=route)
+                want = dp_kernels.affine_dp_scores_rows_reference(*args, gaps, loc)
+                d = _check_equal("affine_dp_scores_rows", got, want,
+                                 (B, L, T, slots, plan.route, loc, gs))
+                if plan.route != "rows_registers":
+                    worst["affine_dp_flat[wide]"] = max(worst["affine_dp_flat[wide]"], d)
+                if ab:
+                    _check_equal("affine_dp_scores_rows", dp_kernels.affine_dp_scores_rows(
+                        *args, gaps, loc, _route=ab), want, (B, L, T, slots, ab, loc, gs))
+        run = lambda: dp_kernels.affine_dp_scores_rows(*args, aff, "local", _route=route)  # noqa: E731
+        line = {"phase": "kernel_wide", "name": "affine_dp_flat", "entry": "rows", "B": B,
+                "L": L, "T": T, "slots": slots, "route": plan.route,
+                "shared_bytes": plan.smem, "localities": 3, "gapsets": len(gapsets),
+                "max_abs_diff": 0.0}
+        if ab:
+            other = lambda: dp_kernels.affine_dp_scores_rows(  # noqa: E731
+                *args, aff, "local", _route=ab)
+            ms, ab_ms, t = _turns(run, other, 10)
+            line.update({"kernel_ms": ms, "vs_route": ab, "vs_route_ms": ab_ms,
+                         "turns_ms": t})
+        else:
+            line["kernel_ms"] = cuda_ms(run, 10)
+        line["queued_kernel_ms"] = device_ms(run, 10)
+        line["plain_ms"] = cuda_ms(lambda: dp_kernels.affine_dp_scores_rows_reference(
+            *args, aff, "local"), 1)
+        line["bound_ms"], line["bound_by"] = rows_bound_ms("affine_dp_flat", *args)
+        emit(line)
+
+    # past the register templates: the wide route, shared rows
+    for Tpad in (132, 256):
+        for L in (16, 32):
+            for Q in (1, 32):
+                gather_case(WIDE_N, L, Tpad, Q)
+            rows_case(WIDE_B, L, Tpad, 12)
+    for L in (16, 32):
+        gather_case(WIDE_N, L, 1_024, 1)
+        rows_case(WIDE_B, L, 1_024, 12)
+    # rows past what shared memory holds: the scratch route, chosen and forced
+    gather_case(1_024, 16, 2_048, 1)
+    gather_case(WIDE_N, 16, 256, 32, route="wide_scratch")
+    rows_case(WIDE_B, 16, 132, 12, route="wide_scratch")
+    # the register templates T1P = 65 against the wide route at Tpad 64,
+    # and Tpad 128, which the wide route serves (the T1P = 129 templates
+    # took as long or longer, and spilled)
+    for L in (16, 32):
+        for Q in (1, 32):
+            n = WIDE_N if Q > 1 else AFFINE_N
+            gather_case(n, L, 64, Q, route="registers", ab="wide_shared")
+            gather_case(n, L, 128, Q)
+        rows_case(WIDE_B, L, 64, 12, route="registers", ab="wide_shared")
+        rows_case(WIDE_B, L, 128, 12)
     return worst
 
 
@@ -823,18 +1029,20 @@ def zipf_corpus(n_sents, rng):
         ids = np.minimum(rng.zipf(1.2, size=(sents_per_doc, 9)), V_words - 1)
         texts.append(" ".join(" ".join(words[i] for i in row) + "." for row in ids))
 
-    def query():
-        return " ".join(words[int(i)] for i in np.minimum(rng.zipf(1.2, size=7), V_words - 1))
+    def query(size=7):
+        return " ".join(words[int(i)] for i in np.minimum(rng.zipf(1.2, size=size), V_words - 1))
 
     return words, texts, query
 
 
-def build_session(texts, words, vectors, device):
+def build_session(texts, words, vectors, device, extra=()):
+    """A Session over ``texts`` whose first embedding is the KeyedVectors
+    "syn" of ``words`` and ``vectors``; ``extra`` embeddings follow it."""
     import vectorian_tpu_torch as vt
 
     emb = vt.KeyedVectors("syn", words, vectors)
     docs = [vt.StringImporter()(t, title=f"d{i}") for i, t in enumerate(texts)]
-    return vt.Session(docs, embeddings=[emb], device=device)
+    return vt.Session(docs, embeddings=[emb, *extra], device=device)
 
 
 def make_index(session, gap=None):
@@ -1080,6 +1288,286 @@ def phase_main_path(session, gap, label, queries, finds, card, n_sents):
     return out
 
 
+def _timed(fn):
+    """(fn(), its CUDA-event ms)."""
+    out = []
+    ms = cuda_ms(lambda: out.append(fn()), 1)
+    return out[0], ms
+
+
+def phase_long_query(session, long_q, queries, card):
+    """4 (long queries): an affine find of a long query and a find_batch of
+    32 queries that holds it (every needle padded to the long one's width:
+    a batch of its own) at each ranking precision on the 1M-slice packing,
+    the launch counts set to 0 right before and read right after.  The wide
+    route must launch (and no register route), and the precisions and find
+    must be byte-identical.  Then the wide kernel against its plain version
+    at the shapes the path gave it (the batch's Q=32 table of each type and
+    the find's Q=1 table), timed at f32.  Returns the kernels-line numbers
+    of "affine_dp[wide]"."""
+    import numpy as np
+    import torch
+
+    from vectorian_tpu_torch.ops import dp_kernels, search
+    from vectorian_tpu_torch.ops.search import scaled_costs, stack_query_tables
+
+    index = make_index(session)
+    batch = [long_q] + queries[:31]
+    # the long needle aligns at most a sentence's 9 of its tokens: scores
+    # stay under 9 / len(long_q)
+    n, min_score = 10, 0.01
+    real_round = search.BucketTopKSource.above_exact_many
+    rounds = [0]
+
+    def count_round(self, reqs):
+        rounds[0] += 1
+        return real_round(self, reqs)
+
+    search.BucketTopKSource.above_exact_many = count_round
+    try:
+        # ---- the main path: launch counts from 0, read right after ----
+        dp_kernels.reset_launches()
+        t = time.perf_counter()
+        single = pairs(index.find(long_q, n=n, min_score=min_score))
+        find_s = time.perf_counter() - t
+        batches, times, extras = {}, {}, {"find": rounds[0]}
+        for prec in PRECISIONS:
+            r0 = rounds[0]
+            t = time.perf_counter()
+            batches[prec] = [pairs(r) for r in index.find_batch(
+                batch, n=n, min_score=min_score, sim_precision=prec)]
+            times[prec or "int8"] = time.perf_counter() - t
+            extras[prec or "int8"] = rounds[0] - r0
+        launches = dict(dp_kernels.LAUNCHES)
+        routes = dict(dp_kernels.AFFINE_ROUTE_LAUNCHES)
+        # ---- end of the main path ----
+    finally:
+        search.BucketTopKSource.above_exact_many = real_round
+    wide = _wide_launches()
+    if wide == 0 or routes["registers"]:
+        raise AssertionError(f"long query: wide route not taken: {routes}")
+    want = batches["float32"]
+    for prec, b in batches.items():
+        if b != want:
+            raise AssertionError(f"long query: find_batch at {prec or 'int8'} differs from float32")
+    shorts = [pairs(index.find(q, n=n, min_score=min_score)) for q in batch[1:4]]
+    if [single] + shorts != want[:4]:
+        raise AssertionError("long query: find and find_batch differ")
+    if not single:
+        raise AssertionError("long query: no matches")
+    emit({"phase": "long_query", "card": card, "needle_tokens": len(long_q.split()),
+          "slices": index.packed.n_slices, "find_s": find_s, "find_batch_Q": len(batch),
+          "find_batch_s": times, "extras_rounds": extras, "wide_launches": wide,
+          "affine_route_launches": routes,
+          "launches": {k: v for k, v in launches.items() if v},
+          "precisions_and_find_byte_identical": True})
+
+    dev = torch.device(DEVICE)
+    res = {"launches": wide, "max_abs_err": 0.0, "launch_route": ""}
+    for key, qs, dt in (("", batch, None), ("[bf16]", batch, "bfloat16"),
+                        ("[int8]", batch, "int8"), ("_find", [long_q], None)):
+        _, plans, len_ts, _, _ = index._prepare_static_batch(qs, n, min_score, "float32", {})
+        table, scale, _, Tpad = stack_query_tables(plans, len_ts, dt)
+        gaps = scaled_costs(index._gaps, None, scale, Tpad, dev)[0]
+        lt = torch.as_tensor(np.asarray(len_ts, np.int32), device=DEVICE)
+        ms = plain_ms = bound = 0.0
+        for db in index._engine._device_buckets:
+            args = (table, db["tokens"], db["lengths"], lt, gaps, "local")
+            plan = dp_kernels.affine_launch_plan(int(db["n"]) * len(qs), Tpad)
+            res["launch_route"] = plan.route
+            want_raw, p_ms = _timed(lambda: dp_kernels.affine_dp_scores_reference(*args))
+            res["max_abs_err"] = max(res["max_abs_err"], _check_equal(
+                "affine_dp[wide]", dp_kernels.affine_dp_scores(*args), want_raw,
+                f"long-query shapes{key}"))
+            if key in ("", "_find"):
+                ms += cuda_ms(lambda: dp_kernels.affine_dp_scores(*args), 3)
+                plain_ms += p_ms
+                b, by = dp_bound_ms(db["tokens"], db["lengths"], lt, table)
+                bound += b
+        if key in ("", "_find"):
+            sfx = "_find" if key else ""
+            res.update({f"ms{sfx}": ms, f"plain_ms{sfx}": plain_ms, f"bound_ms{sfx}": bound,
+                        f"bound_by{sfx}": by, f"shapes_n_L_Tpad_Q{sfx}": [
+                            [int(db["n"]), int(db["capacity"]), Tpad, len(qs)]
+                            for db in index._engine._device_buckets]})
+        del table
+    emit({"phase": "long_query_kernel", "name": "affine_dp[wide]", **res})
+    return res
+
+
+# BASELINE config 1's fastText: cc.en.300.bin's arguments (fasttext.cc, "Word
+# vectors for 157 languages": dim 300, character n-grams of length 5,
+# 2,000,000 buckets); its dictionary is cut to the phase-4 corpus's 2,500
+# most frequent words (rows no lookup reads), so the input matrix is
+# (2,500 + 2,000,000) x 300 f32 = 2.40 GB
+FT_DIM, FT_MINN, FT_MAXN, FT_BUCKET, FT_DICT = 300, 5, 5, 2_000_000, 2_500
+
+
+def fasttext_model(texts, rng, tmp):
+    """4d's model: the .bin written from the seeded ``rng`` into the
+    directory ``tmp`` and loaded through PretrainedFastText; returns (the
+    embedding, {"write_s", "load_s", "bin_bytes", "dictionary"})."""
+    import collections
+
+    import numpy as np
+
+    import vectorian_tpu_torch as vt
+    from vectorian_tpu_torch.embedding.fasttext import FastTextModel
+
+    counts = collections.Counter(w.rstrip(".") for t in texts for w in t.split())
+    top = [w for w, _ in counts.most_common(FT_DICT)]
+    path = Path(tmp) / "cc.en.300.bin"
+    t = time.perf_counter()
+    mat = rng.standard_normal((len(top) + FT_BUCKET, FT_DIM), dtype=np.float32)
+    FastTextModel(top, len(top), FT_DIM, FT_BUCKET, FT_MINN, FT_MAXN, mat).save(path)
+    del mat
+    write_s = time.perf_counter() - t
+    ft = vt.PretrainedFastText("en", path=str(path))
+    t = time.perf_counter()
+    model = ft.model
+    load_s = time.perf_counter() - t
+    if (model.dim, model.bucket, model.minn, model.maxn, model.nwords) != (
+            FT_DIM, FT_BUCKET, FT_MINN, FT_MAXN, FT_DICT):
+        raise AssertionError("fastText .bin: wrong arguments after loading")
+    return ft, {"write_s": write_s, "load_s": load_s, "bin_bytes": path.stat().st_size,
+                "dictionary": len(top)}
+
+
+def oov_words(rng, k):
+    """``k`` alphabetic words outside the corpus's ("w" + letters)."""
+    return ["z" + "".join(chr(97 + int(c)) for c in rng.integers(0, 26, size=6))
+            for _ in range(k)]
+
+
+def phase_fasttext(session, ft, queries, finds, rng, card, info):
+    """4d: BASELINE config 1 on the phase-4 session — fastText 300d (the
+    session's second embedding) and local alignment with affine gaps.  Each
+    query and find holds 2 words outside the corpus, which get vectors from
+    their n-grams.  The vocabulary's encode is timed on its own; find
+    p50 over the finds and find_batch Q=32 at the default precision (three
+    warm calls), launch counts set to 0 right before and read right after;
+    find_batch at the default precision and at float32 and find must be
+    byte-identical."""
+    import numpy as np
+
+    from vectorian_tpu_torch.alignment import AffineGapCost, LocalAlignment
+    from vectorian_tpu_torch.metrics import EmbeddingTokenSim, OptimizedSpanSim
+    from vectorian_tpu_torch.ops import dp_kernels
+
+    def with_oov(q):
+        w = q.split()
+        a, b = oov_words(rng, 2)
+        return " ".join(w[:2] + [a] + w[2:5] + [b] + w[5:])
+
+    queries, finds = [with_oov(q) for q in queries], [with_oov(q) for q in finds]
+    vocab = list(session.vocab.tokens.strings)
+    t = time.perf_counter()
+    ft.create_encoder().encode_tokens(vocab)
+    encode_s = time.perf_counter() - t
+    index = session.partition("sentence").index(OptimizedSpanSim(
+        EmbeddingTokenSim(ft), LocalAlignment(AffineGapCost(0.37, 0.113))))
+    n, min_score = 10, 0.2
+    # ---- the main path: launch counts from 0, read right after ----
+    dp_kernels.reset_launches()
+    first = [pairs(r) for r in index.find_batch(queries, n=n, min_score=min_score)]
+    lats, singles = [], []
+    for q in finds:
+        t = time.perf_counter()
+        singles.append(pairs(index.find(q, n=n, min_score=min_score)))
+        lats.append(time.perf_counter() - t)
+    times = []
+    for _ in range(3):
+        t = time.perf_counter()
+        batch = [pairs(r) for r in index.find_batch(queries, n=n, min_score=min_score)]
+        times.append(time.perf_counter() - t)
+    launches = dict(dp_kernels.LAUNCHES)
+    # ---- end of the main path ----
+    if launches["affine_dp[int8]"] == 0 or launches["affine_dp"] < len(finds):
+        raise AssertionError(f"fastText: the affine kernel did not serve the path: {launches}")
+    f32 = [pairs(r) for r in index.find_batch(queries, n=n, min_score=min_score,
+                                              sim_precision="float32")]
+    if batch != first or f32 != first:
+        raise AssertionError("fastText: find_batch differs between calls or precisions")
+    if [pairs(index.find(q, n=n, min_score=min_score)) for q in queries[:8]] != first[:8]:
+        raise AssertionError("fastText: find and find_batch differ")
+    if not any(first) or not any(singles):
+        raise AssertionError("fastText: no matches at all")
+    n_slices = index.packed.n_slices
+    dt = float(np.median(times))
+    emit({"phase": "fasttext", "card": card, **info, "vocab_encode_s": encode_s,
+          "vocab": len(vocab), "dim": FT_DIM, "bucket": FT_BUCKET, "minn": FT_MINN,
+          "maxn": FT_MAXN, "slices": n_slices, "find_p50_ms": float(np.percentile(
+              np.asarray(lats) * 1e3, 50)), "find_batch_Q": len(queries),
+          "find_batch_s": dt, "find_batch_s_all": times,
+          "alignments_per_s": n_slices * len(queries) / dt,
+          "launches": {k: v for k, v in launches.items() if v},
+          "default_f32_and_find_byte_identical": True})
+
+
+def phase_warmup(session, query, card):
+    """``index.warmup()`` on a new index of the 1M-slice session once the
+    kernels are built, then a first find; neither may run a compiler (every
+    build goes through subprocess.run, which is counted)."""
+    import subprocess
+
+    index = make_index(session)
+    runs = []
+    real = subprocess.run
+
+    def counting(*args, **kwargs):
+        runs.append(args[0][0] if args else kwargs.get("args"))
+        return real(*args, **kwargs)
+
+    subprocess.run = counting
+    try:
+        t = time.perf_counter()
+        index.warmup(max_tokens=12, n=10)
+        warm_s = time.perf_counter() - t
+        during = len(runs)
+        t = time.perf_counter()
+        r = index.find(query, n=10, min_score=0.2)
+        first_s = time.perf_counter() - t
+    finally:
+        subprocess.run = real
+    if runs:
+        raise AssertionError(f"warmup: a compiler ran: {runs}")
+    check_results([r], 10, 0.2)
+    emit({"phase": "warmup", "card": card, "warmup_s": warm_s, "builds_during_warmup": during,
+          "first_find_ms": first_s * 1e3, "builds_during_first_find": len(runs) - during})
+
+
+def phase_packed_cache(session, queries, card):
+    """The packed-corpus cache on the 1M-slice session: the packing saved
+    cold (packed and written) and loaded on a hit, each timed, under a
+    VECTORIAN_CACHE_HOME of this run's own; an index over the loaded
+    packing must return the same matches as before."""
+    from vectorian_tpu_torch.embedding.static import cache_home
+
+    spec = session.partition("sentence").spec
+    n, min_score = 10, 0.2
+    want = [pairs(r) for r in make_index(session).find_batch(
+        queries, n=n, min_score=min_score, sim_precision="float32")]
+    cdir = cache_home() / "packed"
+    for f in cdir.glob("*.npz"):
+        f.unlink()
+    t = time.perf_counter()
+    session._load_or_pack(spec)
+    cold_s = time.perf_counter() - t
+    files = list(cdir.glob("*.npz"))
+    session._packed_cache.clear()
+    session._engine_cache.clear()
+    t = time.perf_counter()
+    packed = session.packed_corpus(spec)
+    hit_s = time.perf_counter() - t
+    got = [pairs(r) for r in make_index(session).find_batch(
+        queries, n=n, min_score=min_score, sim_precision="float32")]
+    if len(files) != 1 or got != want:
+        raise AssertionError("packed cache: the loaded packing gives other matches")
+    emit({"phase": "packed_cache", "card": card, "slices": packed.n_slices,
+          "cold_pack_and_save_s": cold_s, "hit_load_s": hit_s,
+          "file_bytes": files[0].stat().st_size, "same_matches": True})
+
+
 def compare_with_cpu(label, a, b):
     """Card results ``a`` against CPU results ``b``: the same matches, the
     scores within 1e-6 relative (the [V, T] GEMM sums in another order on
@@ -1111,11 +1599,23 @@ def duplicates_corpus(rng):
     return words, texts, queries
 
 
+def _wide_launches(rows=False):
+    """Launches of the affine wide route (either home of its rows) since the
+    counts' last reset."""
+    from vectorian_tpu_torch.ops import dp_kernels
+
+    p = "rows_" if rows else ""
+    return sum(dp_kernels.AFFINE_ROUTE_LAUNCHES[p + r] for r in ("wide_shared", "wide_scratch"))
+
+
 def phase_rescore(card):
     """4c: the finalizer's score-only rescore on the card (the row-gather
     kernels) under an affine and a general-gap index, against the port on
-    the CPU; returns per kernel its launches, the extras rounds, the calls
-    (round, args, kwargs) and the WSB routes the path gave it."""
+    the CPU, and (affine) a long query — sentence A repeated 15 times, 135
+    tokens, padded to 136 — whose extras round takes the row-gather entry's
+    wide route; returns per kernel ("affine_dp_flat[wide]" for the long
+    query) its launches, the extras rounds, the calls (round, args, kwargs)
+    and the routes the path gave it."""
     import numpy as np
 
     from vectorian_tpu_torch.alignment import ExponentialGapCost
@@ -1128,9 +1628,13 @@ def phase_rescore(card):
     on_cpu = build_session(texts, words, vectors, "cpu")
     real_round = search.BucketTopKSource.above_exact_many
     out = {}
-    for kernel, wrapper, gap in (
-        ("affine_dp_flat", "affine_dp_scores_rows", None),
-        ("wsb_dp_flat", "wsb_dp_scores_rows", ExponentialGapCost(3.0)),
+    long_q = " ".join([queries[0]] * 15)
+    for kernel, wrapper, gap, finds, batch, min_score in (
+        ("affine_dp_flat", "affine_dp_scores_rows", None, queries[:4], queries, 0.1),
+        ("wsb_dp_flat", "wsb_dp_scores_rows", ExponentialGapCost(3.0), queries[:4], queries,
+         0.1),
+        ("affine_dp_flat[wide]", "affine_dp_scores_rows", None, [long_q],
+         [long_q] + queries[:3], 0.0),
     ):
         idx_card, idx_cpu = make_index(on_card, gap), make_index(on_cpu, gap)
         real = getattr(search, wrapper)
@@ -1144,32 +1648,37 @@ def phase_rescore(card):
             rounds[0] += 1
             return real_round(self, reqs)
 
-        n, min_score = 10, 0.1
+        n = 10
         setattr(search, wrapper, record)
         search.BucketTopKSource.above_exact_many = count_round
         try:
             # ---- the main path: launch counts from 0, read right after ----
             dp_kernels.reset_launches()
-            got_f = [pairs(idx_card.find(q, n=n, min_score=min_score)) for q in queries[:4]]
-            got_b = [pairs(r) for r in idx_card.find_batch(queries, n=n, min_score=min_score)]
-            launches = dp_kernels.LAUNCHES[kernel]
-            routes = {k: v for k, v in dp_kernels.WSB_ROUTE_LAUNCHES.items() if v}
+            got_f = [pairs(idx_card.find(q, n=n, min_score=min_score)) for q in finds]
+            got_b = [pairs(r) for r in idx_card.find_batch(batch, n=n, min_score=min_score)]
+            if kernel.endswith("[wide]"):
+                launches = _wide_launches(rows=True)
+                routes = {k: v for k, v in dp_kernels.AFFINE_ROUTE_LAUNCHES.items() if v}
+            else:
+                launches = dp_kernels.LAUNCHES[kernel]
+                routes = {k: v for k, v in dp_kernels.WSB_ROUTE_LAUNCHES.items() if v}
             # ---- end of the main path ----
         finally:
             setattr(search, wrapper, real)
             search.BucketTopKSource.above_exact_many = real_round
         if launches == 0:
             raise AssertionError(f"rescore: the extras round launched no {kernel} kernel")
-        want_f = [pairs(idx_cpu.find(q, n=n, min_score=min_score)) for q in queries[:4]]
-        want_b = [pairs(r) for r in idx_cpu.find_batch(queries, n=n, min_score=min_score)]
+        want_f = [pairs(idx_cpu.find(q, n=n, min_score=min_score)) for q in finds]
+        want_b = [pairs(r) for r in idx_cpu.find_batch(batch, n=n, min_score=min_score)]
         worst = max(compare_with_cpu(f"rescore {kernel}", got_f, want_f),
                     compare_with_cpu(f"rescore {kernel}", got_b, want_b))
-        if got_b[:4] != got_f:
+        if got_b[:len(finds)] != got_f:
             raise AssertionError(f"rescore {kernel}: find and find_batch differ")
         per_round = [sum(1 for r, _, _ in seen if r == i) for i in range(1, rounds[0] + 1)]
         emit({"phase": "rescore", "kernel": kernel, "launches": launches,
               "rounds": rounds[0], "launches_per_round": per_round,
-              "calls": len(seen), "wsb_route_launches": routes,
+              "calls": len(seen), "route_launches": routes,
+              "needle_tokens": [len(q.split()) for q in batch][:2],
               "problems_per_call": [int(a[1].shape[0]) for _, a, _ in seen],
               "max_abs_score_diff_vs_cpu": worst, "card": card})
         if max(per_round, default=0) > len(idx_card.packed.buckets):
@@ -1190,7 +1699,7 @@ def _per_column_call(kernel, args, kwargs, sel):
 
     tokens, rows, qslot, table, V, len_s, len_t, *rest = args
     r, q, ln, lt = rows[sel], qslot[sel], len_s[sel], len_t[sel]
-    if kernel == "affine_dp_flat":
+    if kernel.startswith("affine_dp_flat"):
         return lambda: dp_kernels.affine_dp_scores_flat(
             _mq_similarity(tokens[r.long()], q, table, V), ln, lt, *rest
         ).masked_fill(ln <= 0, NEG_SCORE)
@@ -1214,6 +1723,7 @@ def time_row_calls(kernel, res):
     from vectorian_tpu_torch.ops import dp_kernels
 
     entry = "wsb_dp_scores_rows" if kernel == "wsb_dp_flat" else "affine_dp_scores_rows"
+    base = kernel.split("[")[0]
     run = getattr(dp_kernels, entry)
     plain = getattr(dp_kernels, entry + "_reference")
     worst = ms = plain_ms = bound = 0.0
@@ -1230,7 +1740,7 @@ def time_row_calls(kernel, res):
         q_t = device_ms(lambda: run(*args, **kwargs), 20)
         ms += t
         plain_ms += cuda_ms(lambda: plain(*args), 1)
-        b, by = rows_bound_ms(kernel, *args[:7])
+        b, by = rows_bound_ms(base, *args[:7])
         bound += b
         qslot = args[2]
         t_cols = q_cols = 0.0
@@ -1256,9 +1766,10 @@ def time_row_calls(kernel, res):
     return worst, ms, plain_ms, bound, by, after, before, columns, q_after, q_before
 
 
-def phase_small_reference():
+def phase_small_reference(long_q):
     """The port on the card against the port on the CPU, small corpus,
-    affine and general-gap indexes."""
+    affine and general-gap indexes; then phase 4's long query (find, and a
+    find_batch that holds it)."""
     import numpy as np
 
     from vectorian_tpu_torch.alignment import ExponentialGapCost
@@ -1274,7 +1785,16 @@ def phase_small_reference():
         a = [pairs(r) for r in make_index(on_card, gap).find_batch(qs, n=10, min_score=0.1)]
         b = [pairs(r) for r in make_index(on_cpu, gap).find_batch(qs, n=10, min_score=0.1)]
         worst[label] = compare_with_cpu(f"small reference {label}", a, b)
+        card_idx, cpu_idx = make_index(on_card, gap), make_index(on_cpu, gap)
+        a = [pairs(card_idx.find(long_q, n=10, min_score=0.01))] + [
+            pairs(r) for r in card_idx.find_batch([long_q] + qs, n=10, min_score=0.01)]
+        b = [pairs(cpu_idx.find(long_q, n=10, min_score=0.01))] + [
+            pairs(r) for r in cpu_idx.find_batch([long_q] + qs, n=10, min_score=0.01)]
+        if not a[0] or a[0] != a[1]:
+            raise AssertionError(f"small reference {label}: long query find and find_batch differ")
+        worst[f"{label}_long_query"] = compare_with_cpu(f"small reference {label} long", a, b)
     emit({"phase": "small_reference", "queries": len(qs),
+          "long_query_tokens": len(long_q.split()),
           "max_abs_score_diff_vs_cpu": worst})
 
 
@@ -1282,10 +1802,7 @@ def main():
     if not (ROOT / "vectorian_tpu_torch" / "csrc" / "affine_dp.cu").exists():
         raise SystemExit("chip_smoke: run from a checkout of the repository")
     sys.path.insert(0, str(ROOT))
-    import numpy as np
     import torch
-
-    from vectorian_tpu_torch.ops import dp_kernels
 
     t_start = time.perf_counter()
     card = phase_device()
@@ -1293,26 +1810,49 @@ def main():
     log(f"device {card}")
     import vectorian_tpu_torch  # noqa: F401  (sets exact-f32 matmul flags)
 
+    # the packed-corpus cache of this run's own (no earlier run's file counts)
+    cache = tempfile.mkdtemp(prefix="chip_smoke_cache_")
+    os.environ["VECTORIAN_CACHE_HOME"] = cache
+    try:
+        kernels = run_phases(card)
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    log(f"done in {time.perf_counter() - t_start:.0f} s")
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+
+
+def run_phases(card):
+    """Phases 2-5; returns the kernels' line."""
+    import numpy as np
+
     phase_build()
     log("built")
     worst = phase_kernels()
     worst_general = phase_kernels_general()
     worst_rows = phase_kernels_rows()
     worst_quant = phase_kernels_quant()
+    worst_wide = phase_kernels_wide()
     log("kernels match their plain versions")
 
     rng = np.random.default_rng(SEED)
     words, texts, query = zipf_corpus(SENTENCES, rng)
     vectors = rng.normal(size=(len(words), 300)).astype(np.float32)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fasttext_") as tmp:
+        ft, ft_info = fasttext_model(texts, np.random.default_rng(SEED + 7), tmp)
+    log(f"fastText .bin written in {ft_info['write_s']:.1f} s, loaded in {ft_info['load_s']:.1f} s")
     t0 = time.perf_counter()
-    session = build_session(texts, words, vectors, DEVICE)
+    session = build_session(texts, words, vectors, DEVICE, extra=[ft])
     n_slices = make_index(session).packed.n_slices
     t_build = time.perf_counter() - t0
     emit({"phase": "host_build", "sentences": SENTENCES, "slices": n_slices,
-          "host_build_s": t_build})
+          "host_build_s": t_build,
+          "embeddings": [e.name for e in session.embeddings], "packed_cache": "cold"})
     log(f"host build {t_build:.1f} s, {n_slices} slices")
     queries = [query() for _ in range(32)]
     finds = [query() for _ in range(21)]
+    long_q = query(160)
     from vectorian_tpu_torch.alignment import ExponentialGapCost
 
     affine = phase_main_path(session, None, "main_path", queries, finds, card, SENTENCES)
@@ -1320,10 +1860,17 @@ def main():
     general = phase_main_path(session, ExponentialGapCost(3.0), "general_path",
                               queries, finds, card, SENTENCES)
     log("general-gap main path done")
-    del session
+    wide = phase_long_query(session, long_q, queries, card)
+    log("long-query path done")
+    phase_fasttext(session, ft, queries, finds, np.random.default_rng(SEED + 8), card, ft_info)
+    log("fastText path done")
+    phase_warmup(session, finds[0], card)
+    phase_packed_cache(session, queries, card)
+    log("warmup and packed cache done")
+    del session, ft
     rescore = phase_rescore(card)
     log("rescore path done")
-    phase_small_reference()
+    phase_small_reference(long_q)
 
     kernels = []
     for name, source, replaces, res, worst_p3 in (
@@ -1384,11 +1931,43 @@ def main():
             "problems_per_call": [int(a[1].shape[0]) for _, a, _ in res["calls"]],
             "card": card,
         })
-    log(f"done in {time.perf_counter() - t_start:.0f} s")
-    emit({"kernels": kernels})
-    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
-                                 "count": torch.cuda.device_count()}})
+    # the wide route of kernels 1 and 2 (needles past the register
+    # templates): the long query's batch and find, and 4c's long query
+    res = wide
+    kernels.append({
+        "name": "affine_dp[wide]", "route": "cuda", "launch_route": res["launch_route"],
+        "source": "vectorian_tpu_torch/csrc/affine_dp.cu",
+        "replaces": "vectorian_tpu/ops/pallas_dp.py:369", "launches": res["launches"],
+        "max_abs_err": max(worst_wide["affine_dp[wide]"], res["max_abs_err"]),
+        "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+        "bound_by": res["bound_by"], "library_ms": None, "ms_find": res["ms_find"],
+        "plain_ms_find": res["plain_ms_find"], "bound_ms_find": res["bound_ms_find"],
+        "shapes_n_L_Tpad_Q": res["shapes_n_L_Tpad_Q"],
+        "shapes_n_L_Tpad_Q_find": res["shapes_n_L_Tpad_Q_find"], "card": card,
+    })
+    name = "affine_dp_flat[wide]"
+    res = rescore[name]
+    err, ms, plain_ms, bound, by, after, *_ = time_row_calls(name, res)
+    kernels.append({
+        "name": name, "route": "cuda",
+        "launch_route": ",".join(r for r in res["routes"] if r.startswith("rows_wide")),
+        "entry": "affine_dp_scores_rows", "source": "vectorian_tpu_torch/csrc/affine_dp.cu",
+        "replaces": "vectorian_tpu/ops/pallas_dp.py:44", "launches": res["launches"],
+        "max_abs_err": max(err, worst_wide[name]), "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": by, "library_ms": None, "rounds": res["rounds"],
+        "launches_per_round": res["per_round"], "round_ms": after,
+        "problems_per_call": [int(a[1].shape[0]) for _, a, _ in res["calls"]],
+        "card": card,
+    })
+    return kernels
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--build-ab"]:
+        if not (ROOT / "vectorian_tpu_torch" / "csrc" / "affine_dp.cu").exists():
+            raise SystemExit("chip_smoke: run from a checkout of the repository")
+        sys.path.insert(0, str(ROOT))
+        phase_device()
+        phase_build_ab()
+    else:
+        main()

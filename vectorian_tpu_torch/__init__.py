@@ -8,13 +8,16 @@ NVIDIA H100 (``Session(device="cuda")``, the default) or the CPU
 DP kernel (ops/dp_kernels.py: csrc/affine_dp.cu for affine gap models,
 csrc/wsb_dp.cu for any other).
 
-Served so far: static embeddings, token similarity metrics and modifier
-trees, local/global/semiglobal alignment with affine or general
-(Waterman-Smith-Beyer) gap models, ``find`` (f32 tables) and
-``find_batch`` (int8 ranking tables by default, as in the JAX package, or
-``sim_precision="bfloat16"`` / ``"float32"``; every precision returns the
-same matches).  Everything else raises NotImplementedError naming its
-ROADMAP.md port queue item.
+Served so far: static embeddings (KeyedVectors, GloVe, word2vec, fastText
+.bin / .ftz and its product-quantized forms), token similarity metrics and
+modifier trees, local/global/semiglobal alignment with affine or general
+(Waterman-Smith-Beyer) gap models and needles of any length, ``find`` (f32
+tables) and ``find_batch`` (int8 ranking tables by default, as in the
+reference package, or ``sim_precision="bfloat16"`` / ``"float32"``; every
+precision returns the same matches), ``BruteForceIndex.warmup`` and the
+on-disk packed-corpus cache.  Every other public name of the reference
+package exists and raises NotImplementedError naming its ROADMAP.md port
+queue item.
 """
 
 import sys as _sys
@@ -52,8 +55,74 @@ from vectorian_tpu_torch.embedding.static import (  # noqa: E402,F401
     StackedEmbedding,
     Word2VecVectors,
 )
+from vectorian_tpu_torch.embedding.fasttext import (  # noqa: E402,F401
+    CompressedFastTextVectors,
+    PretrainedFastText,
+)
 from vectorian_tpu_torch import alignment, metrics, sim  # noqa: E402,F401
+from vectorian_tpu_torch.index import _not_ported  # noqa: E402
 
 # alias matching the reference's dual naming (__init__.py:24-25)
 similarity = metrics
 _sys.modules[__name__ + ".similarity"] = metrics
+
+
+class _Unported:
+    """A public name of the reference package that the port does not serve
+    yet: calling it, or reading any attribute of it, raises
+    NotImplementedError naming its ROADMAP.md port queue item."""
+
+    def __init__(self, name: str, item: str):
+        self._name, self._item = name, item
+
+    def __call__(self, *args, **kwargs):
+        raise _not_ported(self._name, self._item)
+
+    def __getattr__(self, attr):
+        if attr.startswith("__"):
+            raise AttributeError(attr)
+        raise _not_ported(f"{self._name}.{attr}", self._item)
+
+    def __repr__(self):
+        return f"<{self._name}: not ported yet (ROADMAP.md item {self._item})>"
+
+
+# the unported public names, by ROADMAP.md port queue item
+UNPORTED = {
+    "Corpus": "9", "TemporaryCorpus": "9", "LabSession": "9", "Zoo": "9",
+    "LambdaContextualEmbedding": "5", "TransformerContextualEmbedding": "5",
+    "AggregatedTokenEmbedding": "5", "SentenceEmbedding": "5",
+    "TextSpanEmbedding": "5", "SpacySpanEmbedding": "5",
+    "decompose_nlp": "5", "register_decomposer": "5",
+    "Saliency": "4b", "KeywordSignal": "4b",
+    "MeshSearch": "7", "make_mesh": "7",
+    # the reference's submodules its __init__ binds by importing from them
+    "saliency": "4b", "parallel": "7",
+}
+globals().update({name: _Unported(name, item) for name, item in UNPORTED.items()})
+
+
+def compile():
+    """Build the native host library now (reference's dev compile() hook,
+    __init__.py:5-23; normally built at first use into
+    vectorian_tpu_torch/_build/).  True when it loads."""
+    from vectorian_tpu_torch import native
+
+    return native.available()
+
+
+def backend_build_time():
+    """Build time of the port's native library (reference
+    backend_build_time(), core/cpp/module.cpp:20-34); None if it is not
+    built."""
+    import datetime
+
+    from vectorian_tpu_torch import native
+
+    try:
+        so = native.library_path()
+    except OSError:  # no native source in this installation
+        return None
+    if not so.exists():
+        return None
+    return datetime.datetime.fromtimestamp(so.stat().st_mtime)

@@ -28,9 +28,10 @@
 // at 1M slices of 9 tokens and Q=32 that is ~190 MB against ~40 GFLOP, so
 // the kernel is bound by f32 operations, not bytes.
 //
-// What the design does about it: one thread per problem; in the gather
-// entry threadIdx walks q fastest, so a warp's table reads table[tok, j,
-// q..q+31] coalesce and the token id is a broadcast.  The H/F/E rows live
+// What the design does about it, on the register route (needles up to 64
+// tokens; the wide route below takes any width): one thread per problem; in
+// the gather entry threadIdx walks q fastest, so a warp's table reads
+// table[tok, j, q..q+31] coalesce and the token id is a broadcast.  The H/F/E rows live
 // in registers and nowhere else: T1P is a template parameter, every loop
 // over columns is fully unrolled, and each doubling step is its own
 // template instantiation (a loop over the steps, with the inner loop's
@@ -298,6 +299,183 @@ __global__ void __launch_bounds__(THREADS) affine_dp_kernel(const Args a) {
   affine_dp_body<T1P, LOC, ROWS, VEC, E>(a);
 }
 
+// ---------------------------------------------------------------------------
+// The wide route: needles of any padded width (ops/dp_kernels.py
+// affine_launch_plan picks it past AFFINE_REG_MAX_T).  One warp a (slice,
+// query) problem; its H, F and two E rows (4 x (Tpad + 1) floats) live in
+// shared memory ("wide_shared") or, where too few warps an SM would fit
+// there, in a device scratch buffer sized to the warps in flight
+// ("wide_scratch"; the grid then walks over the problems).  Lane l owns
+// columns l, l + 32, ...: the diagonal's H[j - 1] comes from the lane to
+// the left by a shuffle (lane 0 takes the previous chunk's last column),
+// so the C pass updates H and F in place, each lane on its own columns.
+// The horizontal gap runs the register kernel's doubling, shifts 1, 2, 4,
+// ... with d = decay * (float)shift, each step reading one E row and
+// writing the other (every source read before any write), __syncwarp
+// between steps; shift 1 reads C straight from H.  No column past a
+// needle's length can reach one inside it (the diagonal, the vertical gap
+// and E only move right or down), and a shift past column j leaves E[j] as
+// it was: so a problem computes its needle's len_t + 1 columns only (a
+// short needle in a batch padded to a long one costs its own width), and
+// the columns the register templates pad with (up to T1P) change no score.
+// The two routes are bit-equal, and both equal the plain version.
+//
+// Coalescing: a lane reads one column of the similarity row, and a row's
+// columns are contiguous, so a warp reads 128 contiguous bytes.  Rows of
+// the row-gather entry are contiguous as they are.  In the gather entry's
+// [V, Tpad, Q] table a row's columns lie Q floats apart (each lane would
+// read its own 32-byte sector), so the wrapper hands this route a
+// query-major [V, Q, Tpad] copy (at Q = 1 the same memory): query q's row
+// of vocab entry v starts at (v * Q + q) * Tpad.
+// SCRATCH is a template argument so that the shared-memory variant
+// addresses its rows as shared memory, not through generic pointers.
+// ---------------------------------------------------------------------------
+
+constexpr int WIDE_WARPS = 8;
+constexpr int WIDE_THREADS = 32 * WIDE_WARPS;
+constexpr unsigned FULL = 0xffffffffu;
+
+// A row's token id; a null ``tok_row`` (the flat batch) reads row i itself.
+__device__ __forceinline__ int wide_token(const int32_t* __restrict__ tok_row, int i) {
+  return (tok_row == nullptr) ? i : __ldg(tok_row + i);
+}
+
+// Four blocks an SM asked for (up to 64 registers a thread): left to choose,
+// ptxas held one scratch template at 40 registers and spilled 16 bytes.
+template <int LOC, bool ROWS, bool SCRATCH, typename E>
+__global__ void __launch_bounds__(WIDE_THREADS, 4)
+    affine_dp_wide_kernel(const Args a, float* __restrict__ scratch) {
+  extern __shared__ float smem[];
+  static_assert(!ROWS || std::is_same<E, float>::value, "rows read f32 tables");
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int W = a.Tpad + 1;  // a row's floats in the warp's buffers
+  float* H;
+  if constexpr (SCRATCH)
+    H = scratch + ((int64_t)blockIdx.x * WIDE_WARPS + warp) * 4 * W;
+  else
+    H = smem + warp * 4 * W;
+  float* const Fv = H + W;
+  float* const EA = Fv + W;
+  float* const EB = EA + W;
+  const float open_s = a.open_s, ext_s = a.ext_s, open_t = a.open_t;
+  const float decay = fminf(a.open_t, a.ext_t);
+  const int64_t problems = a.n * (int64_t)a.Q;
+
+  for (int64_t p = (int64_t)blockIdx.x * WIDE_WARPS + warp; p < problems;
+       p += (int64_t)gridDim.x * WIDE_WARPS) {
+    int64_t s;
+    int ln, lt;
+    const E* base = static_cast<const E*>(a.table);
+    int64_t rstride;  // between two vocab entries' rows
+    if (ROWS) {
+      s = (a.prow != nullptr) ? (int64_t)a.prow[p] : p;
+      ln = a.len_s[p];
+      lt = a.len_t[p];
+      rstride = a.Tpad;
+      base += (a.pslot != nullptr ? (int64_t)a.pslot[p] * a.V : 0) * rstride;
+      if (a.tokens == nullptr) base += s * (int64_t)a.L * rstride;
+    } else {
+      int q;
+      split_problem(p, a.Q, a.small, s, q);
+      ln = a.len_s[s];
+      lt = a.len_t[q];
+      // the query-major [V, Q, Tpad] table
+      rstride = (int64_t)a.Tpad * a.Q;
+      base += (int64_t)q * a.Tpad;
+    }
+    const int32_t* __restrict__ tok_row =
+        (a.tokens != nullptr) ? a.tokens + s * (int64_t)a.L : nullptr;
+    // the columns this problem computes (warp-uniform)
+    const int T1 = min(lt, a.Tpad) + 1;
+
+    for (int j = lane; j < T1; j += 32) {
+      float h0 = 0.0f;
+      if (LOC == GLOBAL && j > 0) h0 = -__fmaf_rn((float)j - 1.0f, a.ext_t, a.open_t);
+      H[j] = (j <= lt) ? h0 : NEG;
+      Fv[j] = NEG;
+    }
+    __syncwarp();
+    float best = (LOC == GLOBAL) ? NEG : 0.0f;
+    const int rows = min(ln, a.L);
+    int tok = (rows > 0) ? wide_token(tok_row, 0) : 0;
+    for (int i = 0; i < rows; ++i) {
+      const int dp_i = i + 1;
+      const E* __restrict__ src = base + (int64_t)tok * rstride;
+      if (i + 1 < rows) tok = wide_token(tok_row, i + 1);
+      float init_col = 0.0f;
+      if (LOC == GLOBAL) init_col = -__fmaf_rn((float)dp_i - 1.0f, ext_s, open_s);
+
+      // C (kept in H): diagonal, vertical gap, local floor, boundary column
+      float carry = NEG;  // the old H of the previous chunk's last column
+      for (int j0 = 0; j0 < T1; j0 += 32) {
+        const int j = j0 + lane;
+        float h_old = NEG, f_old = NEG, sv = 0.0f;
+        if (j < T1) {
+          h_old = H[j];
+          f_old = Fv[j];
+          if (j >= 1) sv = to_f32(__ldg(src + (j - 1)));
+        }
+        float h_left = __shfl_up_sync(FULL, h_old, 1);
+        if (lane == 0) h_left = carry;
+        carry = __shfl_sync(FULL, h_old, 31);
+        if (j < T1) {
+          const float m = (j >= 1 ? h_left + sv : NEG + 0.0f);
+          const float f = fmaxf(h_old - open_s, f_old - ext_s);
+          float c = fmaxf(m, f);
+          if (LOC == LOCAL) c = fmaxf(c, 0.0f);
+          if (j == 0) c = init_col;
+          Fv[j] = f;
+          H[j] = c;
+        }
+      }
+      __syncwarp();
+      // Horizontal gap: E = shift_down(C, 1) - open_t, then the decayed
+      // prefix max by doubling; shift 1 reads C from H.
+      const float d1 = decay * 1.0f;
+      for (int j = lane; j < T1; j += 32) {
+        const float e = (j >= 1) ? H[j - 1] - open_t : NEG - open_t;
+        const float e_left = (j >= 2) ? H[j - 2] - open_t : NEG - open_t;
+        EA[j] = (j >= 1) ? fmaxf(e, e_left - d1) : e;
+      }
+      __syncwarp();
+      float* cur = EA;
+      float* nxt = EB;
+      for (int shift = 2; shift < T1; shift *= 2) {
+        const float d = decay * (float)shift;
+        for (int j = lane; j < T1; j += 32)
+          nxt[j] = (j >= shift) ? fmaxf(cur[j], cur[j - shift] - d) : cur[j];
+        __syncwarp();
+        float* t = cur;
+        cur = nxt;
+        nxt = t;
+      }
+      float colmax = NEG, h_end = NEG;
+      for (int j = lane; j < T1; j += 32) {
+        const float h = fmaxf(H[j], cur[j]);
+        H[j] = h;
+        if (j >= 1 && j <= lt) colmax = fmaxf(colmax, h);
+        if (j == lt) h_end = h;
+      }
+#pragma unroll
+      for (int o = 16; o >= 1; o >>= 1)
+        colmax = fmaxf(colmax, __shfl_xor_sync(FULL, colmax, o));
+      h_end = __shfl_sync(FULL, h_end, lt & 31);
+      __syncwarp();
+      // Every row has dp_i <= len_s.
+      if (LOC == LOCAL) {
+        best = fmaxf(best, colmax);
+      } else if (LOC == GLOBAL) {
+        if (dp_i == ln) best = h_end;
+      } else {
+        best = fmaxf(best, h_end);
+        if (dp_i == ln) best = fmaxf(best, colmax);
+      }
+    }
+    if (lane == 0) a.out[p] = (ROWS && a.mask_empty && ln <= 0) ? NEG : best;
+    __syncwarp();
+  }
+}
+
 // The same kernel with four blocks an SM asked for: the quantized gather
 // templates at T1P = 17.  Left to itself ptxas keeps a fifth block there (96
 // registers) and spills (bf16, semiglobal); four blocks give it 128.  A bound
@@ -336,17 +514,59 @@ void launch_vec(bool vec, int locality, dim3 grid, cudaStream_t stream,
   launch<T1P, ROWS, false, E>(locality, grid, stream, a);
 }
 
+// A launch on the wide route: its grid and the shared bytes a block (0 when
+// the rows live in ``scratch``); blocks == 0 is the register route.
+struct Wide {
+  int blocks;
+  int smem;
+  float* scratch;
+};
+
+template <int LOC, bool ROWS, bool SCRATCH, typename E>
+int launch_wide_one(const Wide& w, cudaStream_t st, const Args& a) {
+  auto kern = affine_dp_wide_kernel<LOC, ROWS, SCRATCH, E>;
+  if (w.smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, w.smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kern<<<w.blocks, WIDE_THREADS, w.smem, st>>>(a, w.scratch);
+  return (int)cudaGetLastError();
+}
+
 template <bool ROWS, typename E>
-int dispatch(Args a, int locality, void* stream) {
+int launch_wide(int locality, const Wide& w, cudaStream_t st, const Args& a) {
+  // the rows live in exactly one place: shared memory or the scratch buffer
+  if ((w.scratch == nullptr) != (w.smem > 0) || w.smem < 0) return -1;
+  if (w.scratch != nullptr) {
+    switch (locality) {
+      case LOCAL: return launch_wide_one<LOCAL, ROWS, true, E>(w, st, a);
+      case GLOBAL: return launch_wide_one<GLOBAL, ROWS, true, E>(w, st, a);
+      default: return launch_wide_one<SEMIGLOBAL, ROWS, true, E>(w, st, a);
+    }
+  }
+  switch (locality) {
+    case LOCAL: return launch_wide_one<LOCAL, ROWS, false, E>(w, st, a);
+    case GLOBAL: return launch_wide_one<GLOBAL, ROWS, false, E>(w, st, a);
+    default: return launch_wide_one<SEMIGLOBAL, ROWS, false, E>(w, st, a);
+  }
+}
+
+template <bool ROWS, typename E>
+int dispatch(Args a, int locality, const Wide& w, void* stream) {
   if (a.n <= 0 || a.L <= 0 || a.Q <= 0 || a.Tpad <= 0 || locality < 0 ||
       locality > 2)
     return -1;
   const int64_t problems = a.n * (int64_t)a.Q;
   const int64_t blocks = (problems + THREADS - 1) / THREADS;
   if (blocks > 0x7fffffffLL) return -1;
-  dim3 grid((unsigned)blocks);
   cudaStream_t st = (cudaStream_t)stream;
   a.small = problems <= 0xffffffffLL;
+  if (w.blocks > 0) return launch_wide<ROWS, E>(locality, w, st, a);
+  // the register route's templates end at T1P = 65 (its plan never sends
+  // a wider needle: the wide route takes those)
+  if (a.Tpad > 64) return -1;
+  dim3 grid((unsigned)blocks);
   // a row's Tpad floats are contiguous (rows, or a gather at Q = 1): float4
   // loads when they stay 16-byte aligned
   const bool vec = (ROWS || a.Q == 1) && a.Tpad % 4 == 0 &&
@@ -357,34 +577,36 @@ int dispatch(Args a, int locality, void* stream) {
     launch_vec<17, ROWS, E>(vec, locality, grid, st, a);
   else if (a.Tpad <= 32)
     launch_vec<33, ROWS, E>(vec, locality, grid, st, a);
-  else if (a.Tpad <= 64)
-    launch_vec<65, ROWS, E>(vec, locality, grid, st, a);
-  else if (a.Tpad <= 128)
-    launch_vec<129, ROWS, E>(vec, locality, grid, st, a);
   else
-    return -1;
+    launch_vec<65, ROWS, E>(vec, locality, grid, st, a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Both entries return the cudaError_t of the launch (0 on success), or -1
-// when the arguments are outside what the kernel takes.
+// when the arguments are outside what the kernel takes.  ``wide_blocks`` > 0
+// launches the wide route on that grid, its rows in ``wide_smem`` shared
+// bytes a block or, where that is 0, in ``scratch`` (4 x (Tpad + 1) floats
+// a warp, WIDE_WARPS warps a block); 0 launches the register route.
 
-// ``table`` [V, Tpad, Q] of ``table_dtype`` (TableDtype: f32, bf16 bits or
-// int8).
+// ``table`` of ``table_dtype`` (TableDtype: f32, bf16 bits or int8) is
+// [V, Tpad, Q] on the register route and query-major [V, Q, Tpad] on the
+// wide route.
 extern "C" int vt_affine_dp_scores(
     const void* table, int table_dtype, const int32_t* tokens,
     const int32_t* len_s, const int32_t* len_t, float* out, int64_t n, int L,
     int Tpad, int Q, float open_s, float ext_s, float open_t, float ext_t,
-    int locality, void* stream) {
+    int locality, int wide_blocks, int wide_smem, float* scratch,
+    void* stream) {
   if (tokens == nullptr) return -1;
   const Args a{table, tokens, nullptr, nullptr, len_s, len_t, out, n, L,
                Tpad, Q, 0, open_s, ext_s, open_t, ext_t, false, false};
+  const Wide w{wide_blocks, wide_smem, scratch};
   switch (table_dtype) {
-    case F32: return dispatch<false, float>(a, locality, stream);
-    case BF16: return dispatch<false, uint16_t>(a, locality, stream);
-    case INT8: return dispatch<false, int8_t>(a, locality, stream);
+    case F32: return dispatch<false, float>(a, locality, w, stream);
+    case BF16: return dispatch<false, uint16_t>(a, locality, w, stream);
+    case INT8: return dispatch<false, int8_t>(a, locality, w, stream);
     default: return -1;
   }
 }
@@ -397,8 +619,9 @@ extern "C" int vt_affine_dp_scores_rows(
     const int32_t* qslot, const int32_t* len_s, const int32_t* len_t,
     float* out, int64_t B, int L, int Tmax, int64_t V, float open_s,
     float ext_s, float open_t, float ext_t, int locality, int mask_empty,
-    void* stream) {
+    int wide_blocks, int wide_smem, float* scratch, void* stream) {
   const Args a{table, tokens, rows, qslot, len_s, len_t, out, B, L, Tmax, 1,
                V, open_s, ext_s, open_t, ext_t, false, mask_empty != 0};
-  return dispatch<true, float>(a, locality, stream);
+  const Wide w{wide_blocks, wide_smem, scratch};
+  return dispatch<true, float>(a, locality, w, stream);
 }

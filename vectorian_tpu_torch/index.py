@@ -623,6 +623,35 @@ class BruteForceIndex(Index):
     def gap_costs(self):
         return {"s": self._gap_s, "t": self._gap_t}
 
+    def warmup(self, max_tokens: int = 12, n: int = 10) -> "BruteForceIndex":
+        """Pay now what the first queries would otherwise wait for: on a card
+        the nvcc build of the DP kernels (``dp_kernels.build``, minutes the
+        first time), and the native host library; then one find for every
+        padded needle width up to ``max_tokens`` (needles pad to a multiple
+        of 4), so each width's launches and the finalizer have run.  Pass
+        the ``n`` (max_matches) production queries will use.  Returns self
+        for chaining."""
+        from vectorian_tpu_torch import native
+        from vectorian_tpu_torch.ops import dp_kernels
+
+        if self._session.device.type == "cuda":
+            dp_kernels.build()
+        native.available()
+        vocab_words = [
+            w for w in self._session.vocab.tokens.strings[1:]
+            if w and w.isalpha()  # survives the vanilla normalizer
+        ][: max(max_tokens, 1)]
+        if not vocab_words:
+            return self
+        # cover the width a max_tokens-token query actually pads to
+        top_width = max(4, -(-max(max_tokens, 1) // 4) * 4)
+        for t in range(4, top_width + 1, 4):
+            words = [vocab_words[i % len(vocab_words)] for i in range(t)]
+            # min_score low enough to keep >= 1 candidate: the finalizer
+            # (similarity rows, fused DP matrices, traceback) runs too
+            self.find(" ".join(words), n=n, min_score=-1e30)
+        return self
+
     def _compile_plan(self, pq: PreparedQuery):
         tok_ids_p, strings_p, _ = _pad_needle(pq)
         return compile_plan(

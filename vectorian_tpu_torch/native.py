@@ -1,14 +1,24 @@
-"""ctypes bindings for the native host library (native/vectorian_native.cpp).
+"""ctypes bindings for the native host library (csrc/vectorian_native.cpp,
+the port's own copy of the reference package's native/vectorian_native.cpp).
 
-The library is built lazily with make on first use and cached; every entry
-point has a pure-python fallback, so the package works without a compiler —
-the native paths are the reference's C++-core equivalents for host-side
-byte-crunching (fastText ngram encoding, vocabulary interning)."""
+The port builds the library at first use: ``g++`` compiles the source (with
+native/Makefile's flags) into vectorian_tpu_torch/_build/, named by a hash
+of the source and the flags.  The build holds an exclusive lock on a file there and
+writes a temporary name that it then renames into place, so processes that
+start together all load a whole library: one builds, the others wait and
+load its result.  Every entry point has a pure-python fallback, so the
+package works without a compiler (``available()`` is then False, as it is
+when ``VECTORIAN_NO_NATIVE`` is set) — the native paths are the
+reference's C++-core equivalents for host-side byte-crunching (fastText
+ngram encoding, vocabulary interning, the traceback)."""
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
 import os
+import shutil
 import subprocess
 from pathlib import Path
 from typing import Optional, Sequence
@@ -18,9 +28,63 @@ import numpy as np
 _LIB: Optional[ctypes.CDLL] = None
 _LIB_TRIED = False
 
+_PKG = Path(__file__).resolve().parent
+BUILD_DIR = _PKG / "_build"
+SOURCE = _PKG / "csrc" / "vectorian_native.cpp"
+# native/Makefile's optimized build
+CXXFLAGS = (
+    "-O3", "-march=native", "-fPIC", "-std=c++17", "-ffp-contract=off",
+    "-pthread", "-shared",
+)
 
-def _native_dir() -> Path:
-    return Path(__file__).resolve().parent.parent / "native"
+
+def library_path() -> Path:
+    """Where the build of the checkout's source with CXXFLAGS lives."""
+    digest = hashlib.sha256(
+        SOURCE.read_bytes() + " ".join(CXXFLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"libvectorian_native_{digest}.so"
+
+
+def _build() -> Path:
+    """The library, compiled first if this source has no build yet (under
+    an exclusive lock; the compiler writes a temporary name, renamed into
+    place when whole)."""
+    out = library_path()
+    if out.exists():
+        return out
+    cxx = shutil.which(os.environ.get("CXX", "g++"))
+    if cxx is None:
+        raise FileNotFoundError("no C++ compiler for the native library")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "native.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not out.exists():  # built by another process while this one waited
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            try:
+                subprocess.run(
+                    [cxx, *CXXFLAGS, "-o", str(tmp), str(SOURCE)],
+                    check=True, capture_output=True, timeout=300,
+                )
+                os.replace(tmp, out)
+            finally:
+                tmp.unlink(missing_ok=True)
+    return out
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    lib.vn_ft_hash.restype = ctypes.c_uint32
+    lib.vn_ft_hash.argtypes = [ctypes.c_char_p, ctypes.c_int64]
+    lib.vn_ft_encode_batch.restype = None
+    lib.vn_lexicon_new.restype = ctypes.c_void_p
+    lib.vn_lexicon_free.argtypes = [ctypes.c_void_p]
+    lib.vn_lexicon_size.restype = ctypes.c_int64
+    lib.vn_lexicon_size.argtypes = [ctypes.c_void_p]
+    lib.vn_lexicon_get.restype = ctypes.c_int64
+    lib.vn_pack_fill.restype = None
+    if hasattr(lib, "vn_emd_batch"):
+        lib.vn_emd_batch.restype = None
+    return lib
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -30,65 +94,12 @@ def _load() -> Optional[ctypes.CDLL]:
     _LIB_TRIED = True
     if os.environ.get("VECTORIAN_NO_NATIVE"):
         return None
-    # installed wheels carry the compiled lib inside the package
-    # (setup.py BuildWithNative); dev checkouts lazily make native/
-    packaged = (
-        Path(__file__).resolve().parent / "_native" / "libvectorian_native.so"
-    )
-    if packaged.exists():
-        try:
-            lib = ctypes.CDLL(str(packaged))
-            lib.vn_ft_hash.restype = ctypes.c_uint32
-            lib.vn_ft_hash.argtypes = [ctypes.c_char_p, ctypes.c_int64]
-            lib.vn_ft_encode_batch.restype = None
-            lib.vn_lexicon_new.restype = ctypes.c_void_p
-            lib.vn_lexicon_free.argtypes = [ctypes.c_void_p]
-            lib.vn_lexicon_size.restype = ctypes.c_int64
-            lib.vn_lexicon_size.argtypes = [ctypes.c_void_p]
-            lib.vn_lexicon_get.restype = ctypes.c_int64
-            lib.vn_pack_fill.restype = None
-            if hasattr(lib, "vn_emd_batch"):
-                lib.vn_emd_batch.restype = None
-            _LIB = lib
-            return _LIB
-        except (OSError, AttributeError):
-            pass
-    ndir = _native_dir()
-    so = ndir / "libvectorian_native.so"
-    cpp = ndir / "vectorian_native.cpp"
     try:
-        # rebuild only when the source is present and newer; a prebuilt
-        # .so without sources (deployed package) is used as-is
-        stale = cpp.exists() and (
-            not so.exists() or so.stat().st_mtime < cpp.stat().st_mtime
-        )
-        if stale:
-            subprocess.run(
-                ["make", "-C", str(ndir)],
-                check=True,
-                capture_output=True,
-                timeout=120,
-            )
-        lib = ctypes.CDLL(str(so))
-    except (OSError, subprocess.SubprocessError, FileNotFoundError):
+        _LIB = _bind(ctypes.CDLL(str(_build())))
+    except (OSError, subprocess.SubprocessError, AttributeError):
+        # no source or compiler, a failed build, or a library without
+        # the entry points: the python fallbacks serve
         return None
-
-    try:
-        lib.vn_ft_hash.restype = ctypes.c_uint32
-        lib.vn_ft_hash.argtypes = [ctypes.c_char_p, ctypes.c_int64]
-        lib.vn_ft_encode_batch.restype = None
-        lib.vn_lexicon_new.restype = ctypes.c_void_p
-        lib.vn_lexicon_free.argtypes = [ctypes.c_void_p]
-        lib.vn_lexicon_size.restype = ctypes.c_int64
-        lib.vn_lexicon_size.argtypes = [ctypes.c_void_p]
-        lib.vn_lexicon_get.restype = ctypes.c_int64
-        lib.vn_pack_fill.restype = None
-        if hasattr(lib, "vn_emd_batch"):
-            lib.vn_emd_batch.restype = None
-    except AttributeError:
-        # stale library missing newer entry points — fall back to python
-        return None
-    _LIB = lib
     return _LIB
 
 

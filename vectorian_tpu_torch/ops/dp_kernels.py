@@ -5,11 +5,16 @@ counts.
 - ``affine_dp_scores``: the affine corpus pass, the gather of the stacked
   serving table ``[V, Tpad, Q]`` (f32, or a quantized bf16 / int8 ranking
   table, read as it is) by each slice's token ids fused with the Gotoh DP
-  (csrc/affine_dp.cu; replaces ``pallas_align_scores_multi_nt``).
+  (csrc/affine_dp.cu; replaces ``pallas_align_scores_multi_nt``).  Two
+  routes (``affine_launch_plan``): "registers" (one thread a problem, its
+  rows in registers) for needles up to AFFINE_REG_MAX_T, else "wide" (one
+  warp a problem, its rows in shared memory or a scratch buffer): any
+  width is served.
 - ``affine_dp_scores_rows``: the affine score-only rescore of (bucket row,
   query slot) problems, each reading its similarity rows from the stacked
   ``[slots * V, Tmax]`` plan table (csrc/affine_dp.cu; replaces
-  ``pallas_align_scores`` on the gathered block);
+  ``pallas_align_scores`` on the gathered block), on the same routes
+  ("rows_registers", ...);
   ``affine_dp_scores_flat`` runs the same kernel on a flat [B, L, T] batch.
 - ``wsb_dp_scores``: the general-gap (Waterman-Smith-Beyer) corpus pass,
   gather fused as above, any of the three table types (csrc/wsb_dp.cu;
@@ -62,19 +67,29 @@ SOURCES = {
     "wsb_dp": _PKG / "csrc" / "wsb_dp.cu",
 }
 BUILD_DIR = _PKG / "_build"
+# --split-compile 0: nvcc spreads a source's kernels over the host's cores
+# (about half the build time; chip_smoke.py --build-ab, PERF.md)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "--split-compile", "0",
 )
-# the largest padded needle width the affine kernel's register rows take
-MAX_TPAD = 128
+# the widest padded needle the affine register route takes (its templates
+# end at T1P = 65: past 64 the wide route was as fast or faster, and T1P =
+# 129 spilled); wider needles take the wide route, one warp a problem with
+# its rows in shared memory while one block of AFFINE_WIDE_WARPS warps fits
+# there (up to Tpad 1,815), else in a scratch buffer (csrc/affine_dp.cu
+# WIDE_WARPS)
+AFFINE_REG_MAX_T = 64
+AFFINE_REG_THREADS = 128
+AFFINE_WIDE_WARPS = 8
 # shared memory of an H100 SM (1 KB of it reserved a resident block) and
 # the most one block can have
 SM_SMEM = 228 * 1024
 WSB_SMEM_MAX = 227 * 1024
 # WSB rows stay in shared memory while at least this many threads an SM fit
 # there; past it they live in a device scratch buffer sized to the threads
-# in flight, at most WSB_SCRATCH_MAX bytes
+# in flight, at most WSB_SCRATCH_MAX bytes (the affine wide route's scratch
+# has the same cap)
 WSB_MIN_RESIDENT = 256
 WSB_SCRATCH_MAX = 256 << 20
 WSB_SCRATCH_THREADS = 64
@@ -101,6 +116,10 @@ WSB_ROUTE_LAUNCHES = {
     "registers": 0, "shared": 0, "scratch": 0,
     "rows_registers": 0, "rows_shared": 0, "rows_scratch": 0,
 }
+AFFINE_ROUTE_LAUNCHES = {
+    "registers": 0, "wide_shared": 0, "wide_scratch": 0,
+    "rows_registers": 0, "rows_wide_shared": 0, "rows_wide_scratch": 0,
+}
 # the ptxas report of each source's last verbose build
 PTXAS_REPORTS: Dict[str, str] = {}
 
@@ -108,11 +127,12 @@ _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
     "affine_dp": {
         "vt_affine_dp_scores": [
-            _P, _I, _P, _P, _P, _P, _I64, _I, _I, _I, _F, _F, _F, _F, _I, _P,
+            _P, _I, _P, _P, _P, _P, _I64, _I, _I, _I, _F, _F, _F, _F, _I,
+            _I, _I, _P, _P,
         ],
         "vt_affine_dp_scores_rows": [
             _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I64, _F, _F, _F, _F,
-            _I, _I, _P,
+            _I, _I, _I, _I, _P, _P,
         ],
     },
     "wsb_dp": {
@@ -138,7 +158,7 @@ _libs: Dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, WSB_ROUTE_LAUNCHES):
+    for counts in (LAUNCHES, WSB_ROUTE_LAUNCHES, AFFINE_ROUTE_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -268,9 +288,62 @@ def _raise_on(rc: int, name: str):
         raise RuntimeError(f"{name} kernel launch failed (error {rc})")
 
 
+class LaunchPlan(NamedTuple):
+    """A kernel launch: its route (with a "rows_" prefix for a row-gather
+    entry), grid, block, shared bytes a block and scratch floats."""
+
+    route: str
+    blocks: int
+    threads: int
+    smem: int
+    floats: int
+
+
+def _scratch(dev, floats: int):
+    """A scratch buffer of ``floats`` f32 and its pointer (None, 0 when
+    the launch needs none)."""
+    if floats == 0:
+        return None, 0
+    buf = torch.empty((floats,), dtype=torch.float32, device=dev)
+    return buf, buf.data_ptr()
+
+
 # ---------------------------------------------------------------------------
 # affine DP
 # ---------------------------------------------------------------------------
+
+
+def affine_launch_plan(problems: int, Tpad: int, rows: bool = False,
+                       route=None) -> LaunchPlan:
+    """The launch of an affine DP of ``problems`` problems against needles
+    padded to ``Tpad``; ``rows``: the row-gather entry (routes prefixed
+    "rows_").  ``route`` None picks "registers" up to AFFINE_REG_MAX_T (one
+    thread a problem), else the wide route (one warp a problem, AFFINE_
+    WIDE_WARPS warps a block, its 4 x (Tpad + 1) f32 rows in "wide_shared"
+    memory while a block's rows fit there, else in a "wide_scratch" buffer
+    sized to the warps in flight, the grid walking over the problems).  A width is never refused.  A named
+    ``route`` forces that one (ValueError where it cannot run)."""
+    prefix = "rows_" if rows else ""
+    if route is None and Tpad <= AFFINE_REG_MAX_T:
+        route = "registers"
+    if route == "registers":
+        if Tpad > AFFINE_REG_MAX_T:
+            raise ValueError(f"the register route does not take Tpad={Tpad}")
+        blocks = -(-problems // AFFINE_REG_THREADS)
+        return LaunchPlan(prefix + "registers", blocks, AFFINE_REG_THREADS, 0, 0)
+    if route not in (None, "wide_shared", "wide_scratch"):
+        raise ValueError(f"unknown affine route {route!r}")
+    smem = AFFINE_WIDE_WARPS * 4 * (Tpad + 1) * 4
+    fits = smem <= WSB_SMEM_MAX
+    threads = 32 * AFFINE_WIDE_WARPS
+    blocks = min(-(-problems // AFFINE_WIDE_WARPS), 0x7FFFFFFF)
+    if route == "wide_shared" and not fits:
+        raise ValueError(f"rows of Tpad={Tpad} do not fit in shared memory")
+    if route == "wide_shared" or (route is None and fits):
+        return LaunchPlan(prefix + "wide_shared", blocks, threads, smem, 0)
+    blocks = max(1, min(blocks, WSB_SCRATCH_MAX // smem))
+    return LaunchPlan(prefix + "wide_scratch", blocks, threads, 0,
+                      blocks * smem // 4)
 
 
 def affine_dp_scores_reference(
@@ -301,7 +374,8 @@ def affine_dp_scores_reference(
     return out
 
 
-def affine_dp_scores(table, tokens, len_s, len_t, gaps, locality):
+def affine_dp_scores(table, tokens, len_s, len_t, gaps, locality,
+                     _route=None):
     """Raw affine-DP scores [n, Q] f32 of every slice against every query.
 
     table [V, Tpad, Q] (query q's similarity of vocab row v to its needle
@@ -310,7 +384,10 @@ def affine_dp_scores(table, tokens, len_s, len_t, gaps, locality):
     the kernel as it is; tokens [n, L] i32 (< V), len_s [n] i32 (clamped
     to >= 1, like the JAX corpus pass), len_t [Q] i32 (1 <= len_t <=
     Tpad), ``gaps`` an AffineGapParams of host floats (passed by value:
-    changing them rebuilds and uploads nothing)."""
+    changing them rebuilds and uploads nothing).  Any needle width is
+    served (``affine_launch_plan`` picks the route; the wide route reads a
+    query-major [V, Q, Tpad] copy of the table, whose rows are contiguous).
+    ``_route`` forces a route, for comparing them."""
     _check_locality(locality)
     dev = table.device
     if dev.type == "cpu":
@@ -328,26 +405,30 @@ def affine_dp_scores(table, tokens, len_s, len_t, gaps, locality):
         tokens=(tokens, torch.int32), len_s=(len_s, torch.int32),
         len_t=(len_t, torch.int32),
     )
-    if Tpad > MAX_TPAD:
-        raise ValueError(
-            f"needles padded to {Tpad} > {MAX_TPAD} tokens exceed the "
-            "affine DP kernel's register rows"
-        )
     out = torch.empty((n, Q), dtype=torch.float32, device=dev)
-    if n == 0:
+    if n == 0 or Q == 0:
         return out
     ln1 = torch.clamp_min(len_s, 1)
+    plan = affine_launch_plan(n * Q, Tpad, route=_route)
+    wide = plan.route != "registers"
+    # at Q = 1 the query-major layout is the same memory, not a copy
+    tq = table.transpose(1, 2).contiguous() if wide else table
+    scratch, scratch_ptr = _scratch(dev, plan.floats)
     lib = _load("affine_dp")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.vt_affine_dp_scores(
-            table.data_ptr(), TABLE_DTYPES[table.dtype], tokens.data_ptr(),
+            tq.data_ptr(), TABLE_DTYPES[table.dtype], tokens.data_ptr(),
             ln1.data_ptr(), len_t.data_ptr(), out.data_ptr(), n, L, Tpad, Q,
             float(gaps[0]), float(gaps[1]), float(gaps[2]), float(gaps[3]),
-            LOCALITIES.index(locality), stream,
+            LOCALITIES.index(locality), plan.blocks if wide else 0,
+            plan.smem, scratch_ptr, stream,
         )
+    # the caching allocator orders any reuse of these after the launch
+    del scratch, tq
     _raise_on(rc, "affine_dp")
     LAUNCHES["affine_dp" + _DTYPE_TAGS[table.dtype]] += 1
+    AFFINE_ROUTE_LAUNCHES[plan.route] += 1
     return out
 
 
@@ -383,17 +464,15 @@ def affine_dp_scores_rows_reference(tokens, rows, qslot, table, V, len_s,
 
 
 def _affine_rows_launch(table, tokens, rows, qslot, V, L, len_s, len_t, gaps,
-                        locality, mask_empty):
+                        locality, mask_empty, route=None):
     B, T = len_s.shape[0], table.shape[1]
-    if T > MAX_TPAD:
-        raise ValueError(
-            f"needles of {T} > {MAX_TPAD} tokens exceed the affine DP "
-            "kernel's register rows"
-        )
     dev = table.device
     out = torch.empty((B,), dtype=torch.float32, device=dev)
     if B == 0:
         return out
+    plan = affine_launch_plan(B, T, rows=True, route=route)
+    wide = plan.route != "rows_registers"
+    scratch, scratch_ptr = _scratch(dev, plan.floats)
     lib = _load("affine_dp")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -401,22 +480,26 @@ def _affine_rows_launch(table, tokens, rows, qslot, V, L, len_s, len_t, gaps,
             table.data_ptr(), *_rows_ptrs(tokens, rows, qslot),
             len_s.data_ptr(), len_t.data_ptr(), out.data_ptr(), B, L, T, V,
             float(gaps[0]), float(gaps[1]), float(gaps[2]), float(gaps[3]),
-            LOCALITIES.index(locality), int(mask_empty), stream,
+            LOCALITIES.index(locality), int(mask_empty),
+            plan.blocks if wide else 0, plan.smem, scratch_ptr, stream,
         )
+    del scratch
     _raise_on(rc, "affine_dp_flat")
     LAUNCHES["affine_dp_flat"] += 1
+    AFFINE_ROUTE_LAUNCHES[plan.route] += 1
     return out
 
 
 def affine_dp_scores_rows(tokens, rows, qslot, table, V, len_s, len_t, gaps,
-                          locality):
+                          locality, _route=None):
     """Raw affine-DP scores [B] f32 of (bucket row, query slot) problems,
     the gather fused in: problem b aligns bucket row ``rows[b]`` of
     ``tokens`` [n, L] i32 against table slot ``qslot[b]`` of ``table``
     [slots * V, Tmax] f32 (similarity row i = table[qslot[b] * V +
     tokens[rows[b], i]]); rows, qslot, len_s (0 allowed) and len_t (1 <=
     len_t <= Tmax) [B] i32.  A problem with len_s <= 0 scores -1e30 (the
-    rescore's empty-slice mask)."""
+    rescore's empty-slice mask).  Routes as ``affine_launch_plan(...,
+    rows=True)`` picks them (``_route`` forces one, for comparing them)."""
     _check_locality(locality)
     _, L, _ = _check_rows("affine_dp_scores_rows", tokens, rows, qslot, table,
                           len_s, len_t)
@@ -431,7 +514,7 @@ def affine_dp_scores_rows(tokens, rows, qslot, table, V, len_s, len_t, gaps,
         len_t=(len_t, torch.int32),
     )
     return _affine_rows_launch(table, tokens, rows, qslot, V, L, len_s, len_t,
-                               gaps, locality, True)
+                               gaps, locality, True, _route)
 
 
 def affine_dp_scores_flat_reference(S, len_s, len_t, gaps, locality):
@@ -444,7 +527,7 @@ def affine_dp_scores_flat(S, len_s, len_t, gaps, locality):
     of ``pallas_align_scores``): the row-gather kernel reading S as its
     table, row b * L + i.
 
-    S [B, L, T] f32 (T <= MAX_TPAD), len_s [B] i32 (0 <= len_s <= L: a
+    S [B, L, T] f32, len_s [B] i32 (0 <= len_s <= L: a
     zero-length problem scores its initial value, as the JAX kernel does),
     len_t [B] i32 (1 <= len_t <= T), ``gaps`` an AffineGapParams."""
     _check_locality(locality)
@@ -469,18 +552,6 @@ def affine_dp_scores_flat(S, len_s, len_t, gaps, locality):
 # ---------------------------------------------------------------------------
 
 
-class WsbPlan(NamedTuple):
-    """A WSB launch: its route ("registers", "shared" or "scratch", with a
-    "rows_" prefix for the row-gather entry), grid, block, shared bytes a
-    block and scratch floats."""
-
-    route: str
-    blocks: int
-    threads: int
-    smem: int
-    floats: int
-
-
 def wsb_group_width(T: int) -> int:
     """Lanes a problem takes on the register route: the power of two >= T
     (at least 8)."""
@@ -494,7 +565,7 @@ def wsb_register_shape(L: int, T: int) -> bool:
 
 
 def wsb_launch_plan(problems: int, L: int, T: int, registers: bool = True,
-                    route=None, Q: int = 1, rows: bool = False) -> WsbPlan:
+                    route=None, Q: int = 1, rows: bool = False) -> LaunchPlan:
     """The launch of a WSB DP of ``problems`` problems (``Q`` queries a
     slice), bucket capacity L, needles padded to T; ``rows``: the
     row-gather entry (its routes are named "rows_registers", "rows_shared"
@@ -519,7 +590,7 @@ def wsb_launch_plan(problems: int, L: int, T: int, registers: bool = True,
         threads = WSB_REG_THREADS
         groups = -(-problems // (2 if Q % 2 == 0 and not rows else 1))
         blocks = -(-groups * wsb_group_width(T) // threads)
-        return WsbPlan(prefix + "registers", blocks, threads, 0, 0)
+        return LaunchPlan(prefix + "registers", blocks, threads, 0, 0)
     per = (L + 1) * (T + 1) * 4
     best = (0, 0)  # (resident threads an SM, threads a block)
     for threads in (128, 64, 32):
@@ -532,12 +603,12 @@ def wsb_launch_plan(problems: int, L: int, T: int, registers: bool = True,
     if route == "shared" and resident == 0:
         raise ValueError(f"rows of L={L}, T={T} do not fit in shared memory")
     if route == "shared" or (route is None and resident >= max(WSB_MIN_RESIDENT, 1)):
-        return WsbPlan(prefix + "shared", -(-problems // threads), threads,
+        return LaunchPlan(prefix + "shared", -(-problems // threads), threads,
                        threads * per, 0)
     threads = WSB_SCRATCH_THREADS
     blocks = max(1, min(-(-problems // threads),
                         WSB_SCRATCH_MAX // (threads * per)))
-    return WsbPlan(prefix + "scratch", blocks, threads, 0,
+    return LaunchPlan(prefix + "scratch", blocks, threads, 0,
                    blocks * threads * per // 4)
 
 
@@ -547,13 +618,6 @@ def wsb_register_table(table: torch.Tensor) -> torch.Tensor:
     queries) read one contiguous segment.  At Q = 1 it is the same memory,
     not a copy."""
     return table.transpose(1, 2).contiguous()
-
-
-def _wsb_scratch(dev, floats: int):
-    if floats == 0:
-        return None, 0
-    buf = torch.empty((floats,), dtype=torch.float32, device=dev)
-    return buf, buf.data_ptr()
 
 
 def _register_costs(L: int, T: int, table, vecs, host_costs):
@@ -662,7 +726,7 @@ def wsb_dp_scores(table, tokens, len_s, len_t, w_s, w_t, w_t_star, locality,
         # orders any reuse of a transposed table after it on this stream
         del tq
     else:
-        scratch, scratch_ptr = _wsb_scratch(dev, plan.floats)
+        scratch, scratch_ptr = _scratch(dev, plan.floats)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.vt_wsb_dp_scores(
@@ -721,7 +785,7 @@ def _wsb_rows_launch(table, tokens, rows, qslot, V, L, len_s, len_t, vecs,
                 stream,
             )
         else:
-            scratch, scratch_ptr = _wsb_scratch(dev, plan.floats)
+            scratch, scratch_ptr = _scratch(dev, plan.floats)
             rc = lib.vt_wsb_dp_scores_rows(
                 *ptrs, *(w.data_ptr() for w in vecs), out.data_ptr(),
                 scratch_ptr, B, L, T, V, loc, int(mask_empty), plan.blocks,

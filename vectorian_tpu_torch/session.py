@@ -14,7 +14,10 @@ cached per (level, window_size, window_step).
 
 from __future__ import annotations
 
+import hashlib
+import os
 import time
+import zipfile
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -22,7 +25,12 @@ import torch
 
 from vectorian_tpu_torch.corpus.document import Document, PreparedDocument, prepare_document
 from vectorian_tpu_torch.corpus.packing import Partition as PartitionSpec
-from vectorian_tpu_torch.corpus.packing import PackedCorpus, pack_corpus
+from vectorian_tpu_torch.corpus.packing import (
+    PackedCorpus,
+    load_packed,
+    pack_corpus,
+    save_packed,
+)
 from vectorian_tpu_torch.normalization import VanillaNormalization
 from vectorian_tpu_torch.ops.search import BruteForceEngine
 from vectorian_tpu_torch.ops.simmatrix import CompiledEmbedding
@@ -395,11 +403,52 @@ class Session:
     def partition(self, level: str = "sentence", window_size: int = 1, window_step: int = 1) -> Partition:
         return Partition(self, level, window_size, window_step)
 
+    def _corpus_digest(self) -> str:
+        """Content digest over prepared token ids + flavor ident — keys the
+        on-disk packed-corpus cache."""
+        h = hashlib.sha256()
+        h.update(repr(self._normalization.ident).encode())
+        for pd in self._documents:
+            h.update(pd.token_ids.tobytes())
+            # pos/tag ids are part of the packed arrays the cache stores —
+            # a tagger change with identical token texts must miss
+            h.update(np.ascontiguousarray(pd.pos_ids).tobytes())
+            h.update(np.ascontiguousarray(pd.tag_ids).tobytes())
+            for arr in pd.spans.values():
+                h.update(np.ascontiguousarray(arr).tobytes())
+        return h.hexdigest()[:24]
+
     def packed_corpus(self, spec: PartitionSpec) -> PackedCorpus:
         packed = self._packed_cache.get(spec)
         if packed is None:
-            packed = pack_corpus(self._documents, spec)
+            packed = self._load_or_pack(spec)
             self._packed_cache[spec] = packed
+        return packed
+
+    def _load_or_pack(self, spec: PartitionSpec) -> PackedCorpus:
+        """The packing of ``spec`` from the cache under ``cache_home()``
+        (``$VECTORIAN_CACHE_HOME``), or packed and saved there; a file that
+        does not load is packed again.  The save writes a temporary name
+        and renames it into place, so no process reads a half-written
+        file."""
+        from vectorian_tpu_torch.embedding.static import cache_home
+
+        cdir = cache_home() / "packed"
+        cdir.mkdir(parents=True, exist_ok=True)
+        key = f"{self._corpus_digest()}-{spec.level}-{spec.window_size}-{spec.window_step}"
+        path = cdir / f"{key}.npz"
+        if path.exists():
+            try:
+                return load_packed(path)
+            except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):
+                pass  # not a whole packing: pack it again
+        packed = pack_corpus(self._documents, spec)
+        tmp = cdir / f"{key}.{os.getpid()}.tmp.npz"
+        try:
+            save_packed(packed, tmp)
+            os.replace(tmp, path)
+        except OSError:
+            tmp.unlink(missing_ok=True)
         return packed
 
     def engine(self, spec: PartitionSpec) -> BruteForceEngine:
