@@ -10,10 +10,11 @@ Phases, each of which raises on failure:
    (csrc/*.cu, one nvcc per source, all started together; prints each
    ptxas report) and the native host library (csrc/vectorian_native.cpp,
    the traceback and fastText encoder).  Fails if an affine template up
-   to T1P = 33 (gather at f32, bf16 and int8 tables, and row-gather), a
-   kernel of the affine wide route or any kernel of the WSB register
-   route (gather at each table type, and row-gather) has a stack frame or
-   spills; prints the T1P = 65 templates' reports on a line of their own.
+   to T1P = 33 (gather at f32, bf16 and int8 tables, row-gather, and the
+   tagged f32 family of both entries), a kernel of the affine wide route
+   or any kernel of the WSB register route (gather at each table type,
+   row-gather, tagged or not) has a stack frame or spills; prints the T1P
+   = 65 templates' reports on a line of their own.
 3. Kernels against their plain torch versions on the card (random tables,
    tokens and costs from a seeded generator), bit for bit (torch.equal):
    the affine corpus kernel, the WSB corpus kernel (the register route at
@@ -33,7 +34,14 @@ Phases, each of which raises on failure:
    affine entries at needles padded to 132, 256 and 1,024 (and 2,048, past
    shared memory: the scratch route), n or B = 8,192, against their plain
    versions bit for bit and timed against their bounds; the register
-   templates against the wide route at Tpad 64.
+   templates against the wide route at Tpad 64.  3t: the tagged entries
+   (the tag-weighted block, dp_kernels.TagBlock) of kernels 1-3 on every
+   route — affine registers at T1P 9 / 17 / 33 / 65 and Q = 1 (float4
+   rows), wide shared and scratch; affine row-gather registers and wide;
+   WSB registers (groups of 8, 16, 32 lanes, one and two queries a
+   group), shared, scratch and the L=256 bucket; WSB row-gather
+   registers, shared (a gap bonus) and scratch — in 3 localities, bit for
+   bit, each timed against its untagged self in turns and its bound.
 4. Main path at real size: a 1,000,000-sentence Zipf corpus (9 tokens a
    sentence over 5,000 words, a 5,000 x 300 KeyedVectors), Session(device=
    "cuda") -> partition("sentence") -> index; find_batch of 32 queries at
@@ -67,12 +75,27 @@ Phases, each of which raises on failure:
    packed-corpus cache cold (pack and save) against a hit (load), under a
    VECTORIAN_CACHE_HOME of the run's own, with the same matches.  4c also
    runs a 135-token query whose extras round takes the row-gather entry's
-   wide route.
+   wide route, and an index with tag weights, whose extras rounds run the
+   tagged row-gather kernels (affine and general gaps).
+   4e: the query options on phase 4's session, under the affine and the
+   general-gap index: find_batch of the 32 queries and the 21 finds under
+   tag weights (f32), token_filter + pos_filter and a
+   Saliency(KeywordSignal) booster at int8, bf16 and f32, and
+   bidirectional; find and every precision byte-identical; wall time,
+   alignments/s, extras rounds, Saliency.compile's time; the tagged corpus
+   kernels held against their plain versions at the tagged pass's shapes
+   (Q = 32 and a find's Q = 1) and timed against their untagged selves.
 5. The port on the card against the port on the CPU on a small corpus,
-   affine and general-gap indexes, and phase 4's long query.
+   affine and general-gap indexes, phase 4's long query, and 4e's
+   options at each of their precisions.
 
 ``python3 chip_smoke.py --build-ab`` instead times phase 2's build with and
-without ``--split-compile 0`` and exits.
+without ``--split-compile 0`` and exits.  ``python3 chip_smoke.py
+--tag-check [SASS_DIR]`` runs phase 2, phase 3t and phase 3's general-gap
+kernels alone, then sets the WSB
+shared / scratch route's untagged and tagged templates side by side (ptxas
+report, SASS instruction mix and innermost loops, times in both turn
+orders; ``phase_tag_check``) and exits.
 
 Prints one JSON line per phase, the card's name and power limit, the
 kernels' line ({"kernels": [...]}) and, last, {"ok": true, "device": ...}.
@@ -170,16 +193,22 @@ _WSB_REGS_TEMPLATE = re.compile(
     r"wsb_regs_kernelILi(\d+)ELi(\d+)ELi(\d)ELi(\d)ELb([01])E([fta])E")
 _AFFINE_WIDE_TEMPLATE = re.compile(
     r"affine_dp_wide_kernelILi(\d)ELb([01])ELb([01])E([fta])E")
+# the tagged (f32) families: the same template arguments without the type
+_AFFINE_TAGGED = re.compile(
+    r"affine_dp_tagged_kernel(?:_4b)?ILi(\d+)ELi(\d)ELb([01])ELb([01])EE")
+_AFFINE_WIDE_TAGGED = re.compile(r"affine_dp_wide_tagged_kernelILi(\d)ELb([01])ELb([01])EE")
+_WSB_REGS_TAGGED = re.compile(
+    r"wsb_regs_tagged_kernelILi(\d+)ELi(\d+)ELi(\d)ELi(\d)ELb([01])EE")
 
 
 def ptxas_gate(reports):
     """Each kernel template's registers, stack frame and spills from the
     ptxas reports; raises if an affine template up to T1P = 33, a kernel of
     the affine wide route or a kernel of the WSB register route (either
-    entry, any table type) has a stack frame or spills, or if the reports
-    lack the gather kernels of a table type or the row-gather kernels.  The
-    affine register templates past T1P = 33 are printed on a line of their
-    own, ungated."""
+    entry, any table type, tagged or not) has a stack frame or spills, or
+    if the reports lack the gather kernels of a table type, the row-gather
+    kernels or the tagged ones.  The affine register templates past T1P =
+    33 are printed on a line of their own, ungated."""
     from vectorian_tpu_torch.ops.dp_kernels import ptxas_entries
 
     rows, bad = [], []
@@ -187,7 +216,21 @@ def ptxas_gate(reports):
         for name, e in ptxas_entries(text).items():
             a, w = _AFFINE_TEMPLATE.search(name), _WSB_REGS_TEMPLATE.search(name)
             aw = _AFFINE_WIDE_TEMPLATE.search(name)
-            if a:
+            at, awt = _AFFINE_TAGGED.search(name), _AFFINE_WIDE_TAGGED.search(name)
+            wt = _WSB_REGS_TAGGED.search(name)
+            if at:
+                label = (f"affine {'rows' if at[3] == '1' else 'gather'} tagged "
+                         f"T1P={at[1]} loc={at[2]}{' vec' if at[4] == '1' else ''}")
+                gated = int(at[1]) <= 33
+            elif awt:
+                label = (f"affine_wide {'rows' if awt[2] == '1' else 'gather'} tagged "
+                         f"loc={awt[1]}{' scratch' if awt[3] == '1' else ''}")
+                gated = True
+            elif wt:
+                label = (f"wsb_regs {'rows' if wt[5] == '1' else 'gather'} tagged "
+                         f"L={wt[1]} G={wt[2]} loc={wt[3]} P={wt[4]}")
+                gated = True
+            elif a:
                 label = (f"affine {'rows' if a[3] == '1' else 'gather'} {_ELEM[a[5]]} "
                          f"T1P={a[1]} loc={a[2]}{' vec' if a[4] == '1' else ''}")
                 gated = int(a[1]) <= 33
@@ -205,15 +248,17 @@ def ptxas_gate(reports):
                          e["spill_loads"]])
             if gated and (e["stack"] or e["spill_stores"] or e["spill_loads"]):
                 bad.append(label)
-    kinds = [f"{k} gather {t}" for k in ("affine", "affine_wide", "wsb_regs")
-             for t in _ELEM.values()]
-    for kind in kinds + ["affine rows f32", "affine_wide rows f32", "wsb_regs rows f32"]:
+    kinds = [f"{k} {e} {t}" for k in ("affine", "affine_wide", "wsb_regs")
+             for e in ("gather", "rows") for t in ("f32", "tagged")]
+    kinds += [f"{k} gather {t}" for k in ("affine", "affine_wide", "wsb_regs")
+              for t in ("bf16", "int8")]
+    for kind in kinds:
         if not any(r[0].startswith(kind + " ") for r in rows):
             raise AssertionError(f"ptxas gate: the reports name no {kind} kernel")
     emit({"phase": "ptxas", "kernels_registers_stack_spill_st_ld": sorted(rows)})
     emit({"phase": "ptxas_wide_register_templates",
           "kernels_registers_stack_spill_st_ld": sorted(
-              r for r in rows if re.search(r"T1P=65 ", r[0]))})
+              r for r in rows if re.search(r"T1P=65 ", r[0] + " "))})
     if bad:
         raise AssertionError(f"ptxas gate: stack frame or spills in {bad}")
 
@@ -313,19 +358,36 @@ def _affine_row_ops(lt):
     return (lt + 1) * (8 + 2 * math.ceil(math.log2(lt + 1)))
 
 
-def dp_bound_ms(tokens, len_s, len_t, table):
+# f32 operations the tag rewrite adds a similarity cell: the penalty's
+# subtract, two multiplies, the threshold's compare and its select
+TAG_OPS_PER_CELL = 5
+
+
+def _tag_bytes(tags):
+    """Bytes the tag rewrite reads once: the rows' pos ids and the
+    per-query weights, needle pos ids, penalties and thresholds."""
+    if tags is None:
+        return 0
+    return (tags.pos.numel() + tags.w.numel() * 4 + tags.p.numel()
+            + tags.pen.numel() * 4 + tags.thr.numel() * 4)
+
+
+def dp_bound_ms(tokens, len_s, len_t, table, tags=None):
     """Least time for the affine corpus DP on these inputs: bytes (each
     input read once, the table at its element size, the [n, Q] output
     written once) against the f32 operations the data needs — rows up to
-    each slice's length, columns up to each needle's length."""
+    each slice's length, columns up to each needle's length; ``tags`` (a
+    TagBlock) adds its bytes and TAG_OPS_PER_CELL a cell the DP reads."""
     n, L = tokens.shape
     Q = table.shape[2]
     nbytes = (
         tokens.numel() * 4 + len_s.numel() * 4 + len_t.numel() * 4
-        + table.numel() * table.element_size() + n * Q * 4
+        + table.numel() * table.element_size() + n * Q * 4 + _tag_bytes(tags)
     )
     rows = int(len_s.clamp(1, L).sum())
     per_row = sum(_affine_row_ops(lt) for lt in len_t.tolist())
+    if tags is not None:
+        per_row += TAG_OPS_PER_CELL * int(len_t.sum())
     return _bound(nbytes, rows * per_row)
 
 
@@ -349,21 +411,23 @@ def _wsb_ops(rows, lt):
     return lt * rows * (rows + 1) + rows * lt * (lt + 1) + 4 * rows * lt
 
 
-def wsb_bound_ms(tokens, len_s, len_t, table):
+def wsb_bound_ms(tokens, len_s, len_t, table, tags=None):
     """Least time for the WSB corpus DP on these inputs (bytes: token ids,
-    lengths and table (at its element size) in, [n, Q] scores out)."""
+    lengths and table (at its element size) in, [n, Q] scores out; ``tags``
+    as in ``dp_bound_ms``)."""
     n, L = tokens.shape
     Q = table.shape[2]
     nbytes = (
         tokens.numel() * 4 + len_s.numel() * 4 + len_t.numel() * 4
-        + table.numel() * table.element_size() + n * Q * 4
+        + table.numel() * table.element_size() + n * Q * 4 + _tag_bytes(tags)
     )
     rows = len_s.clamp(1, L).double()
     lt = len_t.double()
     ops = (
         float((rows * (rows + 1)).sum()) * float(lt.sum())
         + float(rows.sum()) * float((lt * (lt + 1)).sum())
-        + 4 * float(rows.sum()) * float(lt.sum())
+        + (4 + (TAG_OPS_PER_CELL if tags is not None else 0))
+        * float(rows.sum()) * float(lt.sum())
     )
     return _bound(nbytes, ops)
 
@@ -375,12 +439,13 @@ def wsb_flat_bound_ms(S, len_s, len_t):
     return _bound(nbytes, ops)
 
 
-def rows_bound_ms(kernel, tokens, rows, qslot, table, V, len_s, len_t):
+def rows_bound_ms(kernel, tokens, rows, qslot, table, V, len_s, len_t, tags=None):
     """Least time for a row-gather DP on these inputs: bytes of the distinct
     table rows the problems read (each problem's first len_s rows), the
     token ids of the bucket rows they touch, rows, qslot, len_s, len_t and
     the [B] output, against the f32 operations of the DP (``kernel``
-    "affine_dp_flat" or "wsb_dp_flat")."""
+    "affine_dp_flat" or "wsb_dp_flat"); ``tags`` adds the touched rows'
+    pos ids, the slots' weight block and TAG_OPS_PER_CELL a cell."""
     import torch
 
     L, T = tokens.shape[1], table.shape[1]
@@ -388,14 +453,17 @@ def rows_bound_ms(kernel, tokens, rows, qslot, table, V, len_s, len_t):
     r = len_s.clamp(0, L).long()
     valid = torch.arange(L, device=r.device)[None, :] < r[:, None]
     ids = (qslot.long()[:, None] * V + tokens[rows.long()].long())[valid]
-    nbytes = (torch.unique(ids).numel() * T * 4
-              + torch.unique(rows).numel() * L * 4 + B * 4 * 4 + B * 4)
+    touched = torch.unique(rows).numel()
+    nbytes = (torch.unique(ids).numel() * T * 4 + touched * L * 4 + B * 4 * 4 + B * 4)
     lt = len_t.double()
-    if kernel == "affine_dp_flat":
+    if kernel.startswith("affine_dp_flat"):
         per_row = (lt + 1) * (8 + 2 * torch.ceil(torch.log2(lt + 1)))
         ops = float((r.double() * per_row).sum())
     else:
         ops = float(_wsb_ops(r.double(), lt).sum())
+    if tags is not None:
+        nbytes += touched * L + _tag_bytes(tags) - tags.pos.numel()
+        ops += TAG_OPS_PER_CELL * float((r.double() * lt).sum())
     return _bound(nbytes, ops)
 
 
@@ -1008,6 +1076,314 @@ def phase_kernels_rows():
     return worst
 
 
+def _tag_block(rng, n, L, Q, T):
+    """A random TagBlock on the card: pos ids [n, L] of 6 values, each of
+    the Q queries' (or slots') weights in [0.2, 1.2), needle pos ids with
+    -1, penalties in [0, 0.5) and thresholds in [-0.1, 0.2)."""
+    import numpy as np
+    import torch
+
+    from vectorian_tpu_torch.ops.dp_kernels import TagBlock
+
+    def put(x):
+        return torch.as_tensor(x, device=DEVICE)
+
+    return TagBlock(
+        put(rng.integers(0, 6, size=(n, L)).astype(np.int8)),
+        put((rng.random((Q, T)) + 0.2).astype(np.float32)),
+        put(rng.integers(-1, 6, size=(Q, T)).astype(np.int8)),
+        put((rng.random(Q) * 0.5).astype(np.float32)),
+        put((rng.random(Q) * 0.3 - 0.1).astype(np.float32)),
+    )
+
+
+def phase_kernels_tagged():
+    """3t: the tagged entries of kernels 1-3 (the tag-weighted block) on
+    every route against their plain versions, bit for bit, in 3 localities
+    (affine: 2 gap sets; WSB: ExponentialGapCost(3.0)); each timed against
+    its untagged self on the same inputs in turns (untagged, tagged,
+    tagged, untagged) and against its bound (the rewrite's pos bytes and
+    TAG_OPS_PER_CELL a cell counted).  Returns the worst |diff| a kernel
+    name."""
+    import numpy as np
+
+    from vectorian_tpu_torch.alignment import ExponentialGapCost
+    from vectorian_tpu_torch.ops import dp_kernels
+    from vectorian_tpu_torch.ops.alignment import AffineGapParams
+
+    rng = np.random.default_rng(SEED + 9)
+    worst = {k: 0.0 for k in ("affine_dp[tagged]", "wsb_dp[tagged]",
+                              "affine_dp_flat[tagged]", "wsb_dp_flat[tagged]")}
+    gapsets = [AffineGapParams.of(0.0, 0.0, 0.0, 0.0),
+               AffineGapParams.of(0.37, 0.113, 0.29, 0.071)]
+
+    def timed(name, plain_tagged, run, run_untagged, bound, **shape):
+        untagged, tagged = _turns(run_untagged, run, 5)[:2]
+        b, by = bound
+        emit({"phase": "kernel_tagged", "name": name, **shape, "localities": 3,
+              "max_abs_diff": 0.0, "kernel_ms": tagged, "untagged_ms": untagged,
+              "plain_ms": cuda_ms(plain_tagged, 1), "bound_ms": b, "bound_by": by})
+
+    # kernel 1's gather entry: the register templates (T1P 9, 17, 33, 65;
+    # Q = 1 reads float4 rows), the wide route's shared and scratch rows
+    for n, L, Tpad, Q, route in (
+        (AFFINE_N, 16, 8, 32, None), (AFFINE_N, 16, 8, 1, None),
+        (AFFINE_N // 4, 16, 16, 3, None), (AFFINE_N // 4, 32, 32, 32, None),
+        (AFFINE_N // 8, 16, 64, 5, None), (WIDE_N, 16, 132, 32, None),
+        (WIDE_N // 8, 16, 132, 3, "wide_scratch"),
+    ):
+        table, tokens, len_s, len_t = _affine_gather_inputs(rng, n, L, Tpad, Q)
+        tags = _tag_block(rng, n, L, Q, Tpad)
+        plan = dp_kernels.affine_launch_plan(n * Q, Tpad, route=route)
+        for loc in LOCALITIES:
+            for gaps in gapsets:
+                got = dp_kernels.affine_dp_scores(table, tokens, len_s, len_t, gaps, loc,
+                                                  tags=tags, _route=route)
+                want = dp_kernels.affine_dp_scores_reference(
+                    table, tokens, len_s, len_t, gaps, loc, tags=tags)
+                worst["affine_dp[tagged]"] = max(worst["affine_dp[tagged]"], _check_equal(
+                    "affine_dp[tagged]", got, want, (n, L, Tpad, Q, plan.route, loc)))
+        gaps = gapsets[1]
+        args = (table, tokens, len_s, len_t, gaps, "local")
+        timed("affine_dp[tagged]",
+              lambda: dp_kernels.affine_dp_scores_reference(*args, tags=tags),
+              lambda: dp_kernels.affine_dp_scores(*args, tags=tags, _route=route),
+              lambda: dp_kernels.affine_dp_scores(*args, _route=route),
+              dp_bound_ms(tokens, len_s, len_t, table, tags),
+              n=n, L=L, Tpad=Tpad, Q=Q, route=plan.route)
+    # kernel 2 (affine row gather): register templates and the wide route
+    for B, L, T, slots in ((FLAT_B, 16, 8, 12), (FLAT_B, 32, 16, 1), (WIDE_B, 16, 132, 12)):
+        tokens, rows, qslot, table, V, len_s, len_t = _rows_inputs(rng, B, L, T, slots)
+        tags = _tag_block(rng, tokens.shape[0], L, slots, T)
+        plan = dp_kernels.affine_launch_plan(B, T, rows=True)
+        for loc in LOCALITIES:
+            for gaps in gapsets:
+                args = (tokens, rows, qslot, table, V, len_s, len_t, gaps, loc)
+                got = dp_kernels.affine_dp_scores_rows(*args, tags=tags)
+                want = dp_kernels.affine_dp_scores_rows_reference(*args, tags=tags)
+                worst["affine_dp_flat[tagged]"] = max(
+                    worst["affine_dp_flat[tagged]"], _check_equal(
+                        "affine_dp_flat[tagged]", got, want, (B, L, T, slots, plan.route, loc)))
+        args = (tokens, rows, qslot, table, V, len_s, len_t, gapsets[1], "local")
+        timed("affine_dp_flat[tagged]",
+              lambda: dp_kernels.affine_dp_scores_rows_reference(*args, tags=tags),
+              lambda: dp_kernels.affine_dp_scores_rows(*args, tags=tags),
+              lambda: dp_kernels.affine_dp_scores_rows(*args),
+              rows_bound_ms("affine_dp_flat", tokens, rows, qslot, table, V, len_s, len_t,
+                            tags),
+              B=B, L=L, T=T, slots=slots, route=plan.route)
+    # kernel 3's gather entry: the register route (group widths 8, 16, 32;
+    # one and two queries a group), shared rows (forced), scratch (forced,
+    # a 64-token bucket, and the L=256 bucket)
+    model = ExponentialGapCost(3.0)
+    for L, Tpad, Q, route in ((16, 8, 32, None), (8, 16, 3, None), (32, 32, 32, None),
+                              (32, 8, 1, None), (16, 8, 32, "shared"), (64, 16, 3, None),
+                              (16, 8, 32, "scratch"), (256, 8, 3, None)):
+        n = WSB_LONG_SLICES if L >= 256 else max(WSB_REG_PROBLEMS // Q, 8)
+        table, tokens, len_s, len_t = _wsb_inputs(rng, n, L, Tpad, Q)
+        tags = _tag_block(rng, n, L, Q, Tpad)
+        gg = _wsb_general(model, Tpad)
+        vecs, host = gg.vecs(L), gg.host_vecs(L)
+        used = None
+        for loc in LOCALITIES:
+            got, used = _with_route(lambda: dp_kernels.wsb_dp_scores(
+                table, tokens, len_s, len_t, *vecs, loc, host_costs=host, tags=tags,
+                _route=route))
+            want = dp_kernels.wsb_dp_scores_reference(table, tokens, len_s, len_t, *vecs,
+                                                      loc, tags=tags)
+            worst["wsb_dp[tagged]"] = max(worst["wsb_dp[tagged]"], _check_equal(
+                "wsb_dp[tagged]", got, want, (n, L, Tpad, Q, used, loc)))
+        args = (table, tokens, len_s, len_t, *vecs, "local")
+        timed("wsb_dp[tagged]",
+              lambda: dp_kernels.wsb_dp_scores_reference(*args, tags=tags),
+              lambda: dp_kernels.wsb_dp_scores(*args, host_costs=host, tags=tags,
+                                               _route=route),
+              lambda: dp_kernels.wsb_dp_scores(*args, host_costs=host, _route=route),
+              wsb_bound_ms(tokens, len_s, len_t, table, tags),
+              n=n, L=L, Tpad=Tpad, Q=Q, route=used)
+    # kernel 3's row-gather entry: rows_registers, rows_shared (a gap bonus,
+    # whose negative closure leaves the register route), rows_scratch
+    from vectorian_tpu_torch.alignment import CustomGapCost
+
+    bonus = CustomGapCost(lambda k: -0.05 * k)
+    for B, L, T, slots, m in ((FLAT_B, 16, 8, 12, model), (FLAT_B, 16, 8, 12, bonus),
+                              (FLAT_B // 8, 64, 16, 12, model),
+                              (WSB_LONG_SLICES * 4, 256, 8, 3, model)):
+        tokens, rows, qslot, table, V, len_s, len_t = _rows_inputs(rng, B, L, T, slots)
+        tags = _tag_block(rng, tokens.shape[0], L, slots, T)
+        gg = _wsb_general(m, T)
+        vecs, host = gg.vecs(L), gg.host_vecs(L)
+        used = None
+        for loc in LOCALITIES:
+            args = (tokens, rows, qslot, table, V, len_s, len_t, *vecs, loc)
+            got, used = _with_route(lambda: dp_kernels.wsb_dp_scores_rows(
+                *args, host_costs=host, tags=tags))
+            want = dp_kernels.wsb_dp_scores_rows_reference(*args, tags=tags)
+            worst["wsb_dp_flat[tagged]"] = max(worst["wsb_dp_flat[tagged]"], _check_equal(
+                "wsb_dp_flat[tagged]", got, want, (B, L, T, slots, used, loc)))
+        args = (tokens, rows, qslot, table, V, len_s, len_t, *vecs, "local")
+        timed("wsb_dp_flat[tagged]",
+              lambda: dp_kernels.wsb_dp_scores_rows_reference(*args, tags=tags),
+              lambda: dp_kernels.wsb_dp_scores_rows(*args, host_costs=host, tags=tags),
+              lambda: dp_kernels.wsb_dp_scores_rows(*args, host_costs=host),
+              rows_bound_ms("wsb_dp_flat", tokens, rows, qslot, table, V, len_s, len_t,
+                            tags),
+              B=B, L=L, T=T, slots=slots, route=used)
+    return worst
+
+
+
+# SASS (cuobjdump -sass): a kernel's name, an instruction (its address and
+# text), a label line (newer cuobjdump writes branch targets as labels)
+_SASS_FN = re.compile(r"Function : (\S+)")
+_SASS_INS = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);")
+_SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+_SASS_BRA = re.compile(r"\bBRA\s+(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))")
+SASS_OPS = ("LDG", "LDL", "STL", "LDS", "STG", "FMNMX", "FADD", "FMUL", "BRA")
+
+
+def sass_functions(lib):
+    """{mangled kernel name: [(address, instruction)]} of a built library,
+    from ``cuobjdump -sass``; None where cuobjdump is not installed."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=600).stdout
+    # a branch to a label defined above it (a loop's) gets its address
+    out, fn, labels, pending = {}, None, {}, []
+    for line in text.splitlines():
+        m = _SASS_FN.search(line)
+        if m:
+            fn = out.setdefault(m.group(1), [])
+            labels, pending = {}, []
+            continue
+        m = _SASS_LABEL.match(line)
+        if m and fn is not None:
+            pending.append(m.group(1))
+            continue
+        m = _SASS_INS.search(line)
+        if m and fn is not None:
+            addr, ins = int(m.group(1), 16), m.group(2).strip()
+            for lab in pending:
+                labels[lab] = addr
+            pending = []
+            b = _SASS_BRA.search(ins)
+            if b and b.group(1) in labels:
+                ins = ins.replace(f"`({b.group(1)})", hex(labels[b.group(1)]))
+            fn.append((addr, ins))
+    return out
+
+
+def _opcode(ins):
+    """The base opcode of a SASS instruction (predicate and modifiers off)."""
+    words = ins.split()
+    if words and words[0].startswith("@"):
+        words = words[1:]
+    return words[0].split(".")[0] if words else ""
+
+
+def sass_loops(code):
+    """The innermost loops of a kernel's SASS (a backward branch and its
+    target, holding no other loop): [start, instructions, {op: count}]."""
+    loops = []
+    for addr, ins in code:
+        m = _SASS_BRA.search(ins)
+        if m and m.group(2) and _opcode(ins) == "BRA":
+            target = int(m.group(2), 16)
+            if target <= addr:
+                loops.append((target, addr))
+    inner = [lp for lp in loops
+             if not any(o != lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
+    out = []
+    for lo, hi in sorted(set(inner)):
+        body = [_opcode(ins) for a, ins in code if lo <= a <= hi]
+        out.append([hex(lo), len(body), {op: body.count(op) for op in SASS_OPS
+                                         if body.count(op)}])
+    return out
+
+
+def phase_tag_check(sass_dir=None):
+    """``--tag-check``: the tagged kernels' quick check (phase 2's build and
+    ptxas gate, then phases 3t and 3's general-gap kernels, every WSB
+    route untagged), and the WSB shared / scratch route's two
+    template families side by side, untagged (wsb_dp_kernel<LOC, GATHER,
+    0, float>) against tagged (wsb_dp_tagged_kernel<LOC, GATHER, 0>): their
+    ptxas registers, stack and spills, their SASS's instruction mix and
+    innermost loops (cuobjdump; the SASS itself into ``sass_dir`` where
+    given), and their times on the scratch route's phase-3t shapes in both
+    turn orders (untagged first, then tagged first)."""
+    import numpy as np
+
+    from vectorian_tpu_torch.alignment import ExponentialGapCost
+    from vectorian_tpu_torch.ops import dp_kernels
+
+    phase_build()
+    log("built")
+    worst = phase_kernels_tagged()
+    worst.update(phase_kernels_general())
+    emit({"phase": "tag_check_kernels", "max_abs_diff": worst})
+
+    templates = {}
+    for name, e in dp_kernels.ptxas_entries(dp_kernels.PTXAS_REPORTS["wsb_dp"]).items():
+        m = re.search(r"wsb_dp_(tagged_)?kernelILi(\d)ELb([01])ELi0E(f?)E", name)
+        if m and (m[1] or m[4]):
+            templates[name] = {"tagged": bool(m[1]), "loc": int(m[2]),
+                               "entry": "gather" if m[3] == "1" else "rows", **e}
+    sass = sass_functions(dp_kernels._library_path("wsb_dp"))
+    for name, t in sorted(templates.items(), key=lambda kv: (kv[1]["entry"], kv[1]["loc"],
+                                                             kv[1]["tagged"])):
+        line = {"phase": "wsb_scratch_template", "name": name, **t}
+        code = (sass or {}).get(name)
+        if code is not None:
+            ops = [_opcode(ins) for _, ins in code]
+            line["instructions"] = len(ops)
+            line["opcodes"] = {op: ops.count(op) for op in SASS_OPS if ops.count(op)}
+            line["innermost_loops"] = sass_loops(code)
+            if sass_dir is not None:
+                Path(sass_dir).mkdir(parents=True, exist_ok=True)
+                (Path(sass_dir) / f"{name[-60:]}.sass").write_text(
+                    "\n".join(f"/*{a:04x}*/ {ins}" for a, ins in code) + "\n")
+        else:
+            line["sass"] = "cuobjdump not found" if sass is None else "no such function"
+        emit(line)
+
+    # the scratch route's shapes of phase 3t, timed in both turn orders
+    rng = np.random.default_rng(SEED + 11)
+    model = ExponentialGapCost(3.0)
+    for L, Tpad, Q in ((64, 16, 3), (256, 8, 3)):
+        n = WSB_LONG_SLICES if L >= 256 else max(WSB_REG_PROBLEMS // Q, 8)
+        table, tokens, len_s, len_t = _wsb_inputs(rng, n, L, Tpad, Q)
+        tags = _tag_block(rng, n, L, Q, Tpad)
+        gg = _wsb_general(model, Tpad)
+        vecs, host = gg.vecs(L), gg.host_vecs(L)
+        args = (table, tokens, len_s, len_t, *vecs, "local")
+        _tag_turns("wsb_dp", dict(n=n, L=L, Tpad=Tpad, Q=Q),
+                   lambda: dp_kernels.wsb_dp_scores(*args, host_costs=host),
+                   lambda: dp_kernels.wsb_dp_scores(*args, host_costs=host, tags=tags))
+    for B, L, T, slots in ((FLAT_B // 8, 64, 16, 12), (WSB_LONG_SLICES * 4, 256, 8, 3)):
+        tokens, rows, qslot, table, V, len_s, len_t = _rows_inputs(rng, B, L, T, slots)
+        tags = _tag_block(rng, tokens.shape[0], L, slots, T)
+        gg = _wsb_general(model, T)
+        vecs, host = gg.vecs(L), gg.host_vecs(L)
+        args = (tokens, rows, qslot, table, V, len_s, len_t, *vecs, "local")
+        _tag_turns("wsb_dp_flat", dict(B=B, L=L, T=T, slots=slots),
+                   lambda: dp_kernels.wsb_dp_scores_rows(*args, host_costs=host),
+                   lambda: dp_kernels.wsb_dp_scores_rows(*args, host_costs=host, tags=tags))
+
+
+def _tag_turns(name, shape, untagged, tagged, reps=10):
+    """One line: ``untagged`` and ``tagged`` timed in turns both ways round
+    (untagged, tagged, tagged, untagged, then tagged, untagged, untagged,
+    tagged), each time the mean of ``reps`` runs."""
+    _, route = _with_route(untagged)
+    a = _turns(untagged, tagged, reps)[2]
+    b = _turns(tagged, untagged, reps)[2]
+    emit({"phase": "wsb_scratch_turns", "name": name, **shape, "route": route, "reps": reps,
+          "untagged_first_ms": a, "tagged_first_ms": b,
+          "untagged_ms": (a[0] + a[3] + b[1] + b[2]) / 4,
+          "tagged_ms": (a[1] + a[2] + b[0] + b[3]) / 4})
+
 def zipf_corpus(n_sents, rng):
     """The bench.py e2e corpus: Zipf(1.2) sentences of 9 tokens over 5,000
     alphabetic words, 2,000 sentences per document."""
@@ -1045,17 +1421,25 @@ def build_session(texts, words, vectors, device, extra=()):
     return vt.Session(docs, embeddings=[emb, *extra], device=device)
 
 
-def make_index(session, gap=None):
+def make_index(session, gap=None, **span_args):
     """Local alignment over the session's sentences: zero affine gaps (the
-    default) or the given gap cost model."""
+    default) or the given gap cost model; ``span_args`` (tag weights) go to
+    the OptimizedSpanSim."""
     from vectorian_tpu_torch.alignment import LocalAlignment
     from vectorian_tpu_torch.metrics import EmbeddingTokenSim, OptimizedSpanSim
 
     emb = session.embeddings[0]
-    if gap is None:
+    if gap is None and not span_args:
         return session.partition("sentence").index(EmbeddingTokenSim(emb))
+    alignment = LocalAlignment() if gap is None else LocalAlignment(gap)
     return session.partition("sentence").index(
-        OptimizedSpanSim(EmbeddingTokenSim(emb), LocalAlignment(gap)))
+        OptimizedSpanSim(EmbeddingTokenSim(emb), alignment, **span_args))
+
+
+# 4e's tag weights: the fine tags SimpleNLP gives the Zipf words (NN for
+# most, VB / JJ / RB by suffix)
+TAG_ARGS = {"tag_weights": {"NN": 0.9, "VB": 0.6, "JJ": 0.5, "RB": 0.8},
+            "pos_mismatch_penalty": 0.2, "similarity_threshold": 0.05}
 
 
 def pairs(result):
@@ -1218,7 +1602,7 @@ def phase_main_path(session, gap, label, queries, finds, card, n_sents):
     cases += [(f"[{t}]", queries, dt) for dt, t in QUANT_TAGS.items()]
     f32_runs = {}
     for key, qs, dt in cases:
-        _, plans, len_ts, _, _ = index._prepare_static_batch(qs, 10, 0.2, "float32", {})
+        _, plans, len_ts, _, _, _ = index._prepare_static_batch(qs, 10, 0.2, "float32", {})
         table, scale, _, Tpad = stack_query_tables(plans, len_ts, dt)
         gaps, general, _ = scaled_costs(index._gaps, index._gap_costs, scale, Tpad, dev)
         lt = torch.as_tensor(np.asarray(len_ts, np.int32), device=DEVICE)
@@ -1285,6 +1669,196 @@ def phase_main_path(session, gap, label, queries, finds, card, n_sents):
             res[f"ab{sfx}"] = ab
     for name, res in out.items():
         emit({"phase": f"{label}_kernel", "name": name, **res})
+    return out
+
+
+def _option_cases(words):
+    """4e's options: (name, index keyword arguments, query keyword arguments,
+    precisions of find_batch).  The filter drops two frequent words and
+    every ADV token; the booster weighs slices holding either of two
+    frequent words up by at most 1.6x."""
+    import vectorian_tpu_torch as vt
+
+    booster = vt.Saliency(strength=0.6).add_signal(vt.KeywordSignal(words[2], words[6]))
+    return [
+        ("tag_weights", TAG_ARGS, {}, ("float32",)),
+        ("filter", {}, {"token_filter": [words[0], words[3]], "pos_filter": ["ADV"]},
+         (None, "bfloat16", "float32")),
+        ("booster", {}, {"booster": booster}, (None, "bfloat16", "float32")),
+        ("bidirectional", {}, {"bidirectional": True}, (None,)),
+    ]
+
+
+def drive_option(index, queries, finds, kernel, name, kw, precisions):
+    """One 4e option: find_batch at each precision and one find a ``finds``
+    entry, the launch counts set to 0 right before and read right after;
+    then three warm find_batch calls a precision (wall time, extras rounds).
+    Every precision and find give the same bytes.  Returns (the launches,
+    {precision: times and extras rounds}, find p50 ms)."""
+    import numpy as np
+
+    from vectorian_tpu_torch.ops import dp_kernels, search
+
+    n, min_score = 10, 0.2
+    real_round = search.BucketTopKSource.above_exact_many
+    rounds = [0]
+
+    def count_round(self, reqs):
+        rounds[0] += 1
+        return real_round(self, reqs)
+
+    search.BucketTopKSource.above_exact_many = count_round
+    try:
+        # ---- the option's path: launch counts from 0, read right after ----
+        dp_kernels.reset_launches()
+        batches = {p: index.find_batch(queries, n=n, min_score=min_score, sim_precision=p,
+                                       **kw) for p in precisions}
+        lats, singles = [], []
+        for q in finds:
+            t = time.perf_counter()
+            singles.append(pairs(index.find(q, n=n, min_score=min_score, **kw)))
+            lats.append(time.perf_counter() - t)
+        launches = {k: v for k, v in dp_kernels.LAUNCHES.items() if v}
+        # ---- end of the option's path ----
+        per_prec = {}
+        for p in precisions:
+            times, extras = [], []
+            for _ in range(3):
+                r0 = rounds[0]
+                t = time.perf_counter()
+                index.find_batch(queries, n=n, min_score=min_score, sim_precision=p, **kw)
+                times.append(time.perf_counter() - t)
+                extras.append(rounds[0] - r0)
+            per_prec[p or "int8"] = {"times": times, "extras_rounds": extras}
+        check = [pairs(index.find(q, n=n, min_score=min_score, **kw)) for q in queries[:8]]
+    finally:
+        search.BucketTopKSource.above_exact_many = real_round
+    want = [pairs(r) for r in batches[precisions[-1]]]
+    for p, batch in batches.items():
+        check_results(batch, n, min_score)
+        if [pairs(r) for r in batch] != want:
+            raise AssertionError(f"4e {name}: find_batch at {p or 'int8'} differs")
+    if not any(want):
+        raise AssertionError(f"4e {name}: find_batch returned no matches at all")
+    if check != want[:8]:
+        raise AssertionError(f"4e {name}: find and find_batch differ")
+    if not any(singles):
+        raise AssertionError(f"4e {name}: no find returned a match")
+    # find ranks with f32; a quantized batch with its table type's kernel
+    variants = {kernel + ("[tagged]" if name == "tag_weights" else "")}
+    for p in precisions:
+        if p != "float32":
+            variants.add(f"{kernel}[{QUANT_TAGS[p or 'int8']}]")
+    for v in variants:
+        if not launches.get(v):
+            raise AssertionError(f"4e {name}: the path launched no {v} kernel: {launches}")
+    return launches, per_prec, float(np.percentile(np.asarray(lats) * 1e3, 50))
+
+
+def tagged_kernel_at_path(index, qs, kernel):
+    """The tagged corpus kernel at the shapes 4e's tag-weighted pass gave
+    it (the batch's f32 table, its tag columns, every bucket's pos ids),
+    held against its plain version and timed against its untagged self in
+    turns (untagged, tagged, tagged, untagged); returns (max |diff|, ms,
+    untagged ms, plain ms, bound ms, bound_by, shapes)."""
+    import numpy as np
+    import torch
+
+    from vectorian_tpu_torch.ops import dp_kernels
+    from vectorian_tpu_torch.ops.dp_kernels import TagBlock
+    from vectorian_tpu_torch.ops.search import (
+        corpus_tag_columns, scaled_costs, stack_query_tables,
+    )
+
+    engine = index._engine
+    dev = torch.device(DEVICE)
+    _, plans, len_ts, _, tagws, _ = index._prepare_static_batch(qs, 10, 0.2, "float32", {})
+    table, scale, _, Tpad = stack_query_tables(plans, len_ts, None)
+    gaps, general, _ = scaled_costs(index._gaps, index._gap_costs, scale, Tpad, dev)
+    cols = [torch.as_tensor(c, device=dev) for c in corpus_tag_columns(tagws, len(qs), Tpad)]
+    lt = torch.as_tensor(np.asarray(len_ts, np.int32), device=dev)
+    worst = ms = untagged = plain_ms = bound = 0.0
+    by, shapes = "operations", []
+    for db in engine._device_buckets:
+        if db["n"] == 0:
+            continue
+        L = db["capacity"]
+        tags = TagBlock(engine._bucket_ids(db, "pos"), *cols)
+        if kernel == "affine_dp":
+            args = (table, db["tokens"], db["lengths"], lt, gaps, "local")
+            run = lambda a=args: dp_kernels.affine_dp_scores(*a, tags=tags)  # noqa: E731
+            run0 = lambda a=args: dp_kernels.affine_dp_scores(*a)  # noqa: E731
+            plain = lambda a=args: dp_kernels.affine_dp_scores_reference(  # noqa: E731
+                *a, tags=tags)
+            b, by = dp_bound_ms(db["tokens"], db["lengths"], lt, table, tags)
+        else:
+            args = (table, db["tokens"], db["lengths"], lt, *general.vecs(L), "local")
+            host = general.host_vecs(L)
+            run = lambda a=args: dp_kernels.wsb_dp_scores(  # noqa: E731
+                *a, host_costs=host, tags=tags)
+            run0 = lambda a=args: dp_kernels.wsb_dp_scores(*a, host_costs=host)  # noqa: E731
+            plain = lambda a=args: dp_kernels.wsb_dp_scores_reference(  # noqa: E731
+                *a, tags=tags)
+            b, by = wsb_bound_ms(db["tokens"], db["lengths"], lt, table, tags)
+        worst = max(worst, _check_equal(kernel + "[tagged]", run(), plain(),
+                                        "4e main-path shapes"))
+        turns = _turns(run0, run, 10 if kernel == "affine_dp" else 5)
+        untagged += turns[0]
+        ms += turns[1]
+        plain_ms += cuda_ms(plain, 1)
+        bound += b
+        shapes.append([int(db["n"]), L, Tpad, len(qs)])
+    return worst, ms, untagged, plain_ms, bound, by, shapes
+
+
+def phase_options(session, words, queries, finds, card):
+    """4e: the query options on phase 4's session (1M slices) under the
+    affine index and the general-gap one (ExponentialGapCost(3.0)): per
+    option find_batch of the 32 queries and the 21 finds (``drive_option``)
+    — tag weights (f32: they force it), token_filter + pos_filter and a
+    Saliency(KeywordSignal) booster at int8, bf16 and f32, bidirectional
+    (Q=32 becomes 64 in the pass) — with the wall times, alignments/s,
+    extras rounds and Saliency.compile's time; the tagged kernels held
+    against their plain versions at the tag-weighted pass's shapes (Q=32
+    and a find's Q=1) and timed against their untagged selves.  Returns
+    {"affine_dp[tagged]": ..., "wsb_dp[tagged]": ...} for the kernels'
+    line."""
+    from vectorian_tpu_torch.alignment import ExponentialGapCost
+
+    n_slices = make_index(session).packed.n_slices
+    out = {}
+    for gap, kernel in ((None, "affine_dp"), (ExponentialGapCost(3.0), "wsb_dp")):
+        for name, span_args, kw, precisions in _option_cases(words):
+            index = make_index(session, gap, **span_args)
+            if name == "booster":
+                compile_s = []
+                for _ in range(3):
+                    t = time.perf_counter()
+                    kw["booster"].compile(session, index.partition)
+                    compile_s.append(time.perf_counter() - t)
+            launches, per_prec, p50 = drive_option(index, queries, finds, kernel, name, kw,
+                                                   precisions)
+            for prec, m in per_prec.items():
+                dt = sorted(m["times"])[1]
+                emit({"phase": "options", "option": name, "kernel": kernel, "card": card,
+                      "precision": prec, "slices": n_slices, "find_batch_Q": len(queries),
+                      "find_batch_s": dt, "find_batch_s_all": m["times"],
+                      "alignments_per_s": n_slices * len(queries) / dt,
+                      "extras_rounds": m["extras_rounds"], "find_p50_ms": p50,
+                      "launches": launches,
+                      **({"saliency_compile_s": compile_s} if name == "booster" else {})})
+            if name == "tag_weights":
+                res = {"launches": launches[kernel + "[tagged]"]}
+                for sfx, qs in (("", queries), ("_find", finds[:1])):
+                    err, ms, ms0, plain_ms, bound, by, shapes = tagged_kernel_at_path(
+                        index, qs, kernel)
+                    res.update({"max_abs_err": max(err, res.get("max_abs_err", 0.0)),
+                                f"ms{sfx}": ms, f"untagged_ms{sfx}": ms0,
+                                f"plain_ms{sfx}": plain_ms, f"bound_ms{sfx}": bound,
+                                f"bound_by{sfx}": by, f"shapes_n_L_Tpad_Q{sfx}": shapes})
+                emit({"phase": "options_kernel", "name": kernel + "[tagged]", "card": card,
+                      **res})
+                out[kernel + "[tagged]"] = res
     return out
 
 
@@ -1366,7 +1940,7 @@ def phase_long_query(session, long_q, queries, card):
     res = {"launches": wide, "max_abs_err": 0.0, "launch_route": ""}
     for key, qs, dt in (("", batch, None), ("[bf16]", batch, "bfloat16"),
                         ("[int8]", batch, "int8"), ("_find", [long_q], None)):
-        _, plans, len_ts, _, _ = index._prepare_static_batch(qs, n, min_score, "float32", {})
+        _, plans, len_ts, _, _, _ = index._prepare_static_batch(qs, n, min_score, "float32", {})
         table, scale, _, Tpad = stack_query_tables(plans, len_ts, dt)
         gaps = scaled_costs(index._gaps, None, scale, Tpad, dev)[0]
         lt = torch.as_tensor(np.asarray(len_ts, np.int32), device=DEVICE)
@@ -1629,14 +2203,19 @@ def phase_rescore(card):
     real_round = search.BucketTopKSource.above_exact_many
     out = {}
     long_q = " ".join([queries[0]] * 15)
-    for kernel, wrapper, gap, finds, batch, min_score in (
-        ("affine_dp_flat", "affine_dp_scores_rows", None, queries[:4], queries, 0.1),
-        ("wsb_dp_flat", "wsb_dp_scores_rows", ExponentialGapCost(3.0), queries[:4], queries,
-         0.1),
+    exp = ExponentialGapCost(3.0)
+    for kernel, wrapper, gap, finds, batch, min_score, span in (
+        ("affine_dp_flat", "affine_dp_scores_rows", None, queries[:4], queries, 0.1, {}),
+        ("wsb_dp_flat", "wsb_dp_scores_rows", exp, queries[:4], queries, 0.1, {}),
         ("affine_dp_flat[wide]", "affine_dp_scores_rows", None, [long_q],
-         [long_q] + queries[:3], 0.0),
+         [long_q] + queries[:3], 0.0, {}),
+        # the tag-weighted rows of an index with tag weights (4e's)
+        ("affine_dp_flat[tagged]", "affine_dp_scores_rows", None, queries[:4], queries,
+         0.1, TAG_ARGS),
+        ("wsb_dp_flat[tagged]", "wsb_dp_scores_rows", exp, queries[:4], queries, 0.1,
+         TAG_ARGS),
     ):
-        idx_card, idx_cpu = make_index(on_card, gap), make_index(on_cpu, gap)
+        idx_card, idx_cpu = make_index(on_card, gap, **span), make_index(on_cpu, gap, **span)
         real = getattr(search, wrapper)
         seen, rounds = [], [0]
 
@@ -1687,6 +2266,33 @@ def phase_rescore(card):
                        "per_round": per_round, "calls": seen,
                        "routes": sorted(routes)}
     return out
+
+
+def time_tagged_row_calls(kernel, res):
+    """A tagged row-gather kernel at the inputs 4c's tag-weighted extras
+    rounds gave it: held against its plain version, timed against the same
+    call without tags, and its bound.  Returns (max |diff|, ms, untagged
+    ms, plain ms, bound ms, bound_by)."""
+    from vectorian_tpu_torch.ops import dp_kernels
+
+    entry = "wsb_dp_scores_rows" if kernel.startswith("wsb") else "affine_dp_scores_rows"
+    run = getattr(dp_kernels, entry)
+    plain = getattr(dp_kernels, entry + "_reference")
+    worst = ms = ms0 = plain_ms = bound = 0.0
+    by = "operations"
+    for _, args, kwargs in res["calls"]:
+        tags = kwargs["tags"]
+        untagged = {k: v for k, v in kwargs.items() if k != "tags"}
+        got = run(*args, **kwargs)
+        worst = max(worst, _check_equal(kernel, got, plain(*args, tags=tags),
+                                        "main-path shapes"))
+        t0, t = _turns(lambda: run(*args, **untagged), lambda: run(*args, **kwargs), 10)[:2]
+        ms += t
+        ms0 += t0
+        plain_ms += cuda_ms(lambda: plain(*args, tags=tags), 1)
+        b, by = rows_bound_ms(kernel, *args[:7], tags=tags)
+        bound += b
+    return worst, ms, ms0, plain_ms, bound, by
 
 
 def _per_column_call(kernel, args, kwargs, sel):
@@ -1793,6 +2399,22 @@ def phase_small_reference(long_q):
         if not a[0] or a[0] != a[1]:
             raise AssertionError(f"small reference {label}: long query find and find_batch differ")
         worst[f"{label}_long_query"] = compare_with_cpu(f"small reference {label} long", a, b)
+        # 4e's options, find_batch at each of their precisions and a find
+        for name, span, kw, precisions in _option_cases(words):
+            card_idx = make_index(on_card, gap, **span)
+            cpu_idx = make_index(on_cpu, gap, **span)
+            for prec in precisions:
+                a = [pairs(r) for r in card_idx.find_batch(
+                    qs, n=10, min_score=0.1, sim_precision=prec, **kw)]
+                b = [pairs(r) for r in cpu_idx.find_batch(
+                    qs, n=10, min_score=0.1, sim_precision=prec, **kw)]
+                a.append(pairs(card_idx.find(qs[0], n=10, min_score=0.1, **kw)))
+                b.append(pairs(cpu_idx.find(qs[0], n=10, min_score=0.1, **kw)))
+                if not any(a) or a[-1] != a[0]:
+                    raise AssertionError(f"small reference {label} {name}: find and "
+                                         "find_batch differ")
+                worst[f"{label}_{name}_{prec or 'int8'}"] = compare_with_cpu(
+                    f"small reference {label} {name}", a, b)
     emit({"phase": "small_reference", "queries": len(qs),
           "long_query_tokens": len(long_q.split()),
           "max_abs_score_diff_vs_cpu": worst})
@@ -1834,6 +2456,7 @@ def run_phases(card):
     worst_rows = phase_kernels_rows()
     worst_quant = phase_kernels_quant()
     worst_wide = phase_kernels_wide()
+    worst_tagged = phase_kernels_tagged()
     log("kernels match their plain versions")
 
     rng = np.random.default_rng(SEED)
@@ -1860,6 +2483,8 @@ def run_phases(card):
     general = phase_main_path(session, ExponentialGapCost(3.0), "general_path",
                               queries, finds, card, SENTENCES)
     log("general-gap main path done")
+    options = phase_options(session, words, queries, finds, card)
+    log("options done")
     wide = phase_long_query(session, long_q, queries, card)
     log("long-query path done")
     phase_fasttext(session, ft, queries, finds, np.random.default_rng(SEED + 8), card, ft_info)
@@ -1945,6 +2570,42 @@ def run_phases(card):
         "shapes_n_L_Tpad_Q": res["shapes_n_L_Tpad_Q"],
         "shapes_n_L_Tpad_Q_find": res["shapes_n_L_Tpad_Q_find"], "card": card,
     })
+    # the tag-weighted block (K1, K2): kernels 1 and 3 at 4e's tagged pass,
+    # the row-gather entries at 4c's tagged extras rounds
+    for name, source, replaces in (
+        ("affine_dp[tagged]", "affine_dp.cu", "vectorian_tpu/ops/pallas_dp.py:369"),
+        ("wsb_dp[tagged]", "wsb_dp.cu", "vectorian_tpu/ops/pallas_dp.py:155"),
+    ):
+        res = options[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"vectorian_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": res["launches"],
+            "max_abs_err": max(worst_tagged[name], res["max_abs_err"]),
+            "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"], "library_ms": None,
+            "untagged_ms": res["untagged_ms"], "ms_find": res["ms_find"],
+            "untagged_ms_find": res["untagged_ms_find"],
+            "plain_ms_find": res["plain_ms_find"], "bound_ms_find": res["bound_ms_find"],
+            "shapes_n_L_Tpad_Q": res["shapes_n_L_Tpad_Q"],
+            "shapes_n_L_Tpad_Q_find": res["shapes_n_L_Tpad_Q_find"], "card": card,
+        })
+    for name, source, replaces in (
+        ("affine_dp_flat[tagged]", "affine_dp.cu", "vectorian_tpu/ops/pallas_dp.py:44"),
+        ("wsb_dp_flat[tagged]", "wsb_dp.cu", "vectorian_tpu/ops/pallas_dp.py:155"),
+    ):
+        res = rescore[name]
+        err, ms, ms0, plain_ms, bound, by = time_tagged_row_calls(name, res)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "entry": name.split("_flat")[0] + "_scores_rows",
+            "source": f"vectorian_tpu_torch/csrc/{source}", "replaces": replaces,
+            "launches": res["launches"], "max_abs_err": max(err, worst_tagged[name]),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None, "untagged_ms": ms0, "rounds": res["rounds"],
+            "launches_per_round": res["per_round"],
+            "problems_per_call": [int(a[1].shape[0]) for _, a, _ in res["calls"]],
+            "card": card,
+        })
     name = "affine_dp_flat[wide]"
     res = rescore[name]
     err, ms, plain_ms, bound, by, after, *_ = time_row_calls(name, res)
@@ -1963,11 +2624,16 @@ def run_phases(card):
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--build-ab"]:
+    if sys.argv[1:2] in (["--build-ab"], ["--tag-check"]):
         if not (ROOT / "vectorian_tpu_torch" / "csrc" / "affine_dp.cu").exists():
             raise SystemExit("chip_smoke: run from a checkout of the repository")
         sys.path.insert(0, str(ROOT))
         phase_device()
-        phase_build_ab()
+        if sys.argv[1] == "--build-ab":
+            phase_build_ab()
+        else:
+            import vectorian_tpu_torch  # noqa: F401  (sets exact-f32 matmul flags)
+
+            phase_tag_check(*sys.argv[2:3])
     else:
         main()

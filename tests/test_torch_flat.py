@@ -112,10 +112,11 @@ def test_stacked_rescore_score_only_matches_flows(locality, model):
         general = search.GeneralGaps((cost, cost), T + 1, torch.device("cpu"))
     args = (_t(tokens), _t(rows).long(), _t(qslot).long(), _t(table),
             _t(len_s).long(), _t(len_t).long(), gaps, V, locality)
-    raw, H, S = search._stacked_rescore(*args, False, general)
-    assert H is None and S is None
-    raw_f, H_f, S_f = search._stacked_rescore(*args, True, general)
+    raw, H, S, Su = search._stacked_rescore(*args, False, general)
+    assert H is None and S is None and Su is None
+    raw_f, H_f, S_f, Su_f = search._stacked_rescore(*args, True, general)
     assert H_f.shape[0] == len(rows) and S_f.shape == (len(rows), L, T)
+    assert Su_f is S_f  # untagged: the DP read the unweighted block
     assert np.array_equal(raw.numpy(), raw_f.numpy())
 
 

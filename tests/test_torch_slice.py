@@ -236,14 +236,14 @@ def test_unported_options_raise(both):
     )
     with pytest.raises(NotImplementedError):
         it.find_batch(queries[:2], mesh=object())
-    for opt in ({"bidirectional": True}, {"submatch_weight": 0.5},
-                {"pos_filter": ["DET"]}, {"mesh": object()}):
+    for opt in ({"submatch_weight": 0.5}, {"debug": print}, {"mesh": object()}):
         with pytest.raises(NotImplementedError):
             it.find(queries[0], **opt)
     with pytest.raises(NotImplementedError):
         vt.Session([], device="cpu", paged=True)
-    # a non-affine gap model is served (the general-gap WSB path); the
-    # query options stay unported on it too
+    # a non-affine gap model is served (the general-gap WSB path), and so
+    # are the query options that ride the batch kernels; submatch_weight
+    # and debug stay unported on it too
     ig = st.partition("sentence").index(
         OptimizedSpanSim(
             EmbeddingTokenSim(st.embeddings[0]),
@@ -252,8 +252,12 @@ def test_unported_options_raise(both):
     )
     assert _pairs(ig.find(queries[0], n=3, min_score=0.1))
     for opt in ({"bidirectional": True}, {"token_filter": ["sun"]}):
-        with pytest.raises(NotImplementedError, match="4b"):
+        assert _pairs(ig.find(queries[0], n=3, min_score=0.1, **opt))
+    for opt in ({"submatch_weight": 0.5}, {"debug": print}):
+        with pytest.raises(NotImplementedError, match="4c"):
             ig.find(queries[0], **opt)
+        with pytest.raises(NotImplementedError, match="4c"):
+            ig.find_batch(queries[:2], **opt)
 
 
 LOCALITY_CLASSES = {

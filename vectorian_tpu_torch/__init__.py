@@ -14,8 +14,10 @@ modifier trees, local/global/semiglobal alignment with affine or general
 (Waterman-Smith-Beyer) gap models and needles of any length, ``find`` (f32
 tables) and ``find_batch`` (int8 ranking tables by default, as in the
 reference package, or ``sim_precision="bfloat16"`` / ``"float32"``; every
-precision returns the same matches), ``BruteForceIndex.warmup`` and the
-on-disk packed-corpus cache.  Every other public name of the reference
+precision returns the same matches; tag weights force f32), the query
+options tag weights, ``pos_filter`` / ``tag_filter`` / ``token_filter``,
+``booster`` (``Saliency``) and ``bidirectional``, ``BruteForceIndex.warmup``
+and the on-disk packed-corpus cache.  Every other public name of the reference
 package exists and raises NotImplementedError naming its ROADMAP.md port
 queue item.
 """
@@ -59,8 +61,9 @@ from vectorian_tpu_torch.embedding.fasttext import (  # noqa: E402,F401
     CompressedFastTextVectors,
     PretrainedFastText,
 )
-from vectorian_tpu_torch import alignment, metrics, sim  # noqa: E402,F401
+from vectorian_tpu_torch import alignment, metrics, saliency, sim  # noqa: E402,F401
 from vectorian_tpu_torch.index import _not_ported  # noqa: E402
+from vectorian_tpu_torch.saliency import KeywordSignal, Saliency  # noqa: E402,F401
 
 # alias matching the reference's dual naming (__init__.py:24-25)
 similarity = metrics
@@ -94,10 +97,9 @@ UNPORTED = {
     "AggregatedTokenEmbedding": "5", "SentenceEmbedding": "5",
     "TextSpanEmbedding": "5", "SpacySpanEmbedding": "5",
     "decompose_nlp": "5", "register_decomposer": "5",
-    "Saliency": "4b", "KeywordSignal": "4b",
     "MeshSearch": "7", "make_mesh": "7",
     # the reference's submodules its __init__ binds by importing from them
-    "saliency": "4b", "parallel": "7",
+    "parallel": "7",
 }
 globals().update({name: _Unported(name, item) for name, item in UNPORTED.items()})
 

@@ -52,6 +52,26 @@
 // move a half or a quarter of the f32 bytes, and the conversion (a shift,
 // or one int-to-float convert) sits beside ~16 f32 operations a cell.
 //
+// Tag weights (TagArgs; f32 tables only): each S value becomes, right
+// before the DP row that consumes it, the JAX package's tag-weighted value
+// (ops/search.py _apply_tag_weights and its batch form in
+// _bucket_scores_multiquery):
+//   w = tw_w[q, j] * (pos[s, i] == tw_p[q, j] ? 1 : 1 - pen[q]),
+//   S' = S * w > thr[q] ? S * w : 0,
+// in that order, each product and difference one rounding (__fmul_rn,
+// __fsub_rn: nothing contracts).  The weights are a small [Q, Tpad] block
+// read through the read-only cache where a row is loaded; a thread keeps
+// none of them in registers across rows (the register route holds a whole
+// row of columns already).  The wide route applies it where a lane loads its
+// column.  A gather query q reads column j of the block at q * qs + j * cs
+// (the wrapper picks the layout per route), a row-gather problem the slot
+// qslot[b]; pos is [n, L] like the tokens (compacted with them where a
+// document-side filter is on).  The tagged kernels are their own template
+// family (affine_dp_tagged_kernel, affine_dp_wide_tagged_kernel), f32 only,
+// with TagArgs a kernel parameter of theirs alone: a runtime flag in the
+// untagged kernels changed the registers ptxas picked for them, quantized
+// ones included, and spilled five of the templates the build's gate checks.
+//
 // Exactness contract: every add, subtract and multiply happens in the JAX
 // reference's order (vectorian_tpu/ops/pallas_dp.py _dp_one_slice), so the
 // scores are bit-equal to it (a quantized element converts to f32 exactly,
@@ -68,6 +88,17 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+// The tag-weighted block's inputs (see the header).  Outside the unnamed
+// namespace: the C entries take a pointer to it.
+struct TagArgs {
+  const int8_t* pos;  // [n, L] pos ids of the rows the tokens index
+  const float* w;     // needle weights: query (slot) q, column j at q * qs + j * cs
+  const int8_t* p;    // needle pos ids, same layout
+  const float* pen;   // [Q] (rows: [slots]) pos-mismatch penalty
+  const float* thr;   // [Q] (rows: [slots]) similarity threshold
+  int qs, cs;
+};
 
 namespace {
 
@@ -98,6 +129,43 @@ __device__ __forceinline__ void doubling(float (&E)[T1P], float decay) {
     for (int j = T1P - 1; j >= SHIFT; --j) E[j] = fmaxf(E[j], E[j - SHIFT] - d);
     doubling<T1P, 2 * SHIFT>(E, decay);
   }
+}
+
+// One tag-weighted similarity: w first, then S * w, then the threshold.
+__device__ __forceinline__ float tag_weight(float s, int pos_s, float w, int pos_t,
+                                            float pen, float thr) {
+  const float sel = (pos_s == pos_t) ? 1.0f : __fsub_rn(1.0f, pen);
+  const float sw = __fmul_rn(s, __fmul_rn(w, sel));
+  return (sw > thr) ? sw : 0.0f;
+}
+
+// An opaque copy of x: what is computed from it stays in the loop it sits
+// in (volatile asm runs where it is written, so nothing derived from its
+// result is loop-invariant).
+__device__ __forceinline__ int opaque(int x) {
+  int y;
+  asm volatile("mov.b32 %0, %1;" : "=r"(y) : "r"(x));
+  return y;
+}
+
+// A similarity row (its first Tpad of N columns) whose slice position has
+// pos id ``ps``, query or table slot k, tag-weighted; the weights are read
+// here, through the read-only cache.  Past 8 columns their addresses
+// derive from an opaque copy of k: the compiler would otherwise hoist the
+// row's 2 x N loads (or their N addresses) out of the row loop into
+// registers, and spill (a 976-byte frame at T1P = 65, 48 bytes at T1P =
+// 33); 8 columns' weights fit beside the double-buffered rows.
+template <int N>
+__device__ __forceinline__ void tag_row(float (&v)[N], const TagArgs& t, int ps,
+                                        int Tpad, int k) {
+  const int kk = (N <= 8) ? k : opaque(k);
+  const float* __restrict__ w = t.w + (int64_t)kk * t.qs;
+  const int8_t* __restrict__ pt = t.p + (int64_t)kk * t.qs;
+  const float pen = __ldg(t.pen + kk), thr = __ldg(t.thr + kk);
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    if (j < Tpad)
+      v[j] = tag_weight(v[j], ps, __ldg(w + j * t.cs), __ldg(pt + j * t.cs), pen, thr);
 }
 
 // problem p -> (slice s, query q), in 32 bits while the problems fit
@@ -207,9 +275,11 @@ struct Args {
 
 // One problem a thread.  E: the table's element type (float, uint16_t for
 // bf16, int8_t); the row-gather entry reads the f32 plan table only.
-template <int T1P, int LOC, bool ROWS, bool VEC, typename E>
-__device__ __forceinline__ void affine_dp_body(const Args a) {
+// TAGGED (f32 only): the rows are tag-weighted by ``t``.
+template <int T1P, int LOC, bool ROWS, bool VEC, typename E, bool TAGGED>
+__device__ __forceinline__ void affine_dp_body(const Args a, const TagArgs t) {
   static_assert(!ROWS || std::is_same<E, float>::value, "rows read f32 tables");
+  static_assert(!TAGGED || std::is_same<E, float>::value, "tags weight f32 tables");
   const int64_t p = (int64_t)blockIdx.x * THREADS + threadIdx.x;
   if (p >= a.n * (int64_t)a.Q) return;
   // Similarity row i is table + tok(i) * rstride, column j at j * cs:
@@ -217,6 +287,7 @@ __device__ __forceinline__ void affine_dp_body(const Args a) {
   // table[slot * V + tokens[r, i], :] (contiguous).
   int64_t s;
   int ln, lt;
+  int k = 0;  // tagged: the query (gather) or table slot (rows)
   const E* base = static_cast<const E*>(a.table);
   int64_t rstride, cs;
   if (ROWS) {
@@ -228,9 +299,11 @@ __device__ __forceinline__ void affine_dp_body(const Args a) {
     base += (a.pslot != nullptr ? (int64_t)a.pslot[p] * a.V : 0) * rstride;
     // no token ids: the problem's own L rows of S
     if (a.tokens == nullptr) base += s * (int64_t)a.L * rstride;
+    if constexpr (TAGGED) k = (a.pslot != nullptr) ? a.pslot[p] : 0;
   } else {
     int q;
     split_problem(p, a.Q, a.small, s, q);
+    if constexpr (TAGGED) k = q;
     ln = a.len_s[s];
     lt = a.len_t[q];
     rstride = (int64_t)a.Tpad * a.Q;
@@ -264,22 +337,32 @@ __device__ __forceinline__ void affine_dp_body(const Args a) {
   // Wider rows load as they go, with the token id one row ahead: at T1P =
   // 17 the second buffer took ptxas past its 128-register choice into
   // spills.
+  // tagged: the pos id of similarity row i, loaded with the row
+  auto pos_at = [&](int i) -> int { return __ldg(t.pos + s * (int64_t)a.L + i); };
   if constexpr (T1P <= 9) {
     float ra[T1P - 1], rb[T1P - 1];
+    int pa = 0, pb = 0;  // tagged: the pos ids of ra's and rb's rows
     int tok_next = 0;  // token id of the row after the one being loaded
-    if (rows > 0) load_row<T1P, VEC>(ra, base + (int64_t)tok_at(0) * rstride, cs, Tpad);
+    if (rows > 0) {
+      load_row<T1P, VEC>(ra, base + (int64_t)tok_at(0) * rstride, cs, Tpad);
+      if constexpr (TAGGED) pa = pos_at(0);
+    }
     if (rows > 1) tok_next = tok_at(1);
     for (int i = 0; i < rows; i += 2) {
       if (i + 1 < rows) {
         load_row<T1P, VEC>(rb, base + (int64_t)tok_next * rstride, cs, Tpad);
+        if constexpr (TAGGED) pb = pos_at(i + 1);
         if (i + 2 < rows) tok_next = tok_at(i + 2);
       }
+      if constexpr (TAGGED) tag_row(ra, t, pa, Tpad, k);
       dp_row<T1P, LOC>(H, Fv, ra, i + 1, ln, lt, open_s, ext_s, open_t, decay, best);
       if (i + 1 >= rows) break;
       if (i + 2 < rows) {
         load_row<T1P, VEC>(ra, base + (int64_t)tok_next * rstride, cs, Tpad);
+        if constexpr (TAGGED) pa = pos_at(i + 2);
         if (i + 3 < rows) tok_next = tok_at(i + 3);
       }
+      if constexpr (TAGGED) tag_row(rb, t, pb, Tpad, k);
       dp_row<T1P, LOC>(H, Fv, rb, i + 2, ln, lt, open_s, ext_s, open_t, decay, best);
     }
   } else {
@@ -287,7 +370,10 @@ __device__ __forceinline__ void affine_dp_body(const Args a) {
     for (int i = 0; i < rows; ++i) {
       float sv[T1P - 1];
       load_row<T1P, VEC>(sv, base + (int64_t)tok * rstride, cs, Tpad);
+      int ps = 0;
+      if constexpr (TAGGED) ps = pos_at(i);
       if (i + 1 < rows) tok = tok_at(i + 1);
+      if constexpr (TAGGED) tag_row(sv, t, ps, Tpad, k);
       dp_row<T1P, LOC>(H, Fv, sv, i + 1, ln, lt, open_s, ext_s, open_t, decay, best);
     }
   }
@@ -296,7 +382,22 @@ __device__ __forceinline__ void affine_dp_body(const Args a) {
 
 template <int T1P, int LOC, bool ROWS, bool VEC, typename E>
 __global__ void __launch_bounds__(THREADS) affine_dp_kernel(const Args a) {
-  affine_dp_body<T1P, LOC, ROWS, VEC, E>(a);
+  affine_dp_body<T1P, LOC, ROWS, VEC, E, false>(a, TagArgs{});
+}
+
+template <int T1P, int LOC, bool ROWS, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+    affine_dp_tagged_kernel(const Args a, const TagArgs t) {
+  affine_dp_body<T1P, LOC, ROWS, VEC, float, true>(a, t);
+}
+
+// The tagged T1P = 17 templates with four blocks an SM asked for, as
+// affine_dp_kernel_4b below: left to itself ptxas kept a fifth block (96
+// registers) and spilled one of them.
+template <int T1P, int LOC, bool ROWS, bool VEC>
+__global__ void __launch_bounds__(THREADS, 4)
+    affine_dp_tagged_kernel_4b(const Args a, const TagArgs t) {
+  affine_dp_body<T1P, LOC, ROWS, VEC, float, true>(a, t);
 }
 
 // ---------------------------------------------------------------------------
@@ -340,13 +441,12 @@ __device__ __forceinline__ int wide_token(const int32_t* __restrict__ tok_row, i
   return (tok_row == nullptr) ? i : __ldg(tok_row + i);
 }
 
-// Four blocks an SM asked for (up to 64 registers a thread): left to choose,
-// ptxas held one scratch template at 40 registers and spilled 16 bytes.
-template <int LOC, bool ROWS, bool SCRATCH, typename E>
-__global__ void __launch_bounds__(WIDE_THREADS, 4)
-    affine_dp_wide_kernel(const Args a, float* __restrict__ scratch) {
+template <int LOC, bool ROWS, bool SCRATCH, typename E, bool TAGGED>
+__device__ __forceinline__ void affine_wide_body(const Args a, float* __restrict__ scratch,
+                                                 const TagArgs t) {
   extern __shared__ float smem[];
   static_assert(!ROWS || std::is_same<E, float>::value, "rows read f32 tables");
+  static_assert(!TAGGED || std::is_same<E, float>::value, "tags weight f32 tables");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int W = a.Tpad + 1;  // a row's floats in the warp's buffers
   float* H;
@@ -365,6 +465,7 @@ __global__ void __launch_bounds__(WIDE_THREADS, 4)
        p += (int64_t)gridDim.x * WIDE_WARPS) {
     int64_t s;
     int ln, lt;
+    int k = 0;  // tagged: the query or table slot
     const E* base = static_cast<const E*>(a.table);
     int64_t rstride;  // between two vocab entries' rows
     if (ROWS) {
@@ -374,9 +475,11 @@ __global__ void __launch_bounds__(WIDE_THREADS, 4)
       rstride = a.Tpad;
       base += (a.pslot != nullptr ? (int64_t)a.pslot[p] * a.V : 0) * rstride;
       if (a.tokens == nullptr) base += s * (int64_t)a.L * rstride;
+      if constexpr (TAGGED) k = (a.pslot != nullptr) ? a.pslot[p] : 0;
     } else {
       int q;
       split_problem(p, a.Q, a.small, s, q);
+      if constexpr (TAGGED) k = q;
       ln = a.len_s[s];
       lt = a.len_t[q];
       // the query-major [V, Q, Tpad] table
@@ -404,6 +507,15 @@ __global__ void __launch_bounds__(WIDE_THREADS, 4)
       if (i + 1 < rows) tok = wide_token(tok_row, i + 1);
       float init_col = 0.0f;
       if (LOC == GLOBAL) init_col = -__fmaf_rn((float)dp_i - 1.0f, ext_s, open_s);
+      // tagged: this row's pos id and the problem's penalty and threshold
+      // (warp-uniform), read once a row
+      int ps = 0;
+      float pen = 0.0f, thr = 0.0f;
+      if constexpr (TAGGED) {
+        ps = __ldg(t.pos + s * (int64_t)a.L + i);
+        pen = __ldg(t.pen + k);
+        thr = __ldg(t.thr + k);
+      }
 
       // C (kept in H): diagonal, vertical gap, local floor, boundary column
       float carry = NEG;  // the old H of the previous chunk's last column
@@ -414,6 +526,12 @@ __global__ void __launch_bounds__(WIDE_THREADS, 4)
           h_old = H[j];
           f_old = Fv[j];
           if (j >= 1) sv = to_f32(__ldg(src + (j - 1)));
+          if constexpr (TAGGED) {
+            if (j >= 1) {
+              const int64_t o = (int64_t)k * t.qs + (int64_t)(j - 1) * t.cs;
+              sv = tag_weight(sv, ps, __ldg(t.w + o), __ldg(t.p + o), pen, thr);
+            }
+          }
         }
         float h_left = __shfl_up_sync(FULL, h_old, 1);
         if (lane == 0) h_left = carry;
@@ -476,17 +594,44 @@ __global__ void __launch_bounds__(WIDE_THREADS, 4)
   }
 }
 
+// Four blocks an SM asked for (up to 64 registers a thread): left to choose,
+// ptxas held one scratch template at 40 registers and spilled 16 bytes.
+template <int LOC, bool ROWS, bool SCRATCH, typename E>
+__global__ void __launch_bounds__(WIDE_THREADS, 4)
+    affine_dp_wide_kernel(const Args a, float* __restrict__ scratch) {
+  affine_wide_body<LOC, ROWS, SCRATCH, E, false>(a, scratch, TagArgs{});
+}
+
+// Three blocks an SM (up to 80 registers a thread): at four, the tagged
+// scratch template spilled.
+template <int LOC, bool ROWS, bool SCRATCH>
+__global__ void __launch_bounds__(WIDE_THREADS, 3)
+    affine_dp_wide_tagged_kernel(const Args a, float* __restrict__ scratch,
+                                 const TagArgs t) {
+  affine_wide_body<LOC, ROWS, SCRATCH, float, true>(a, scratch, t);
+}
+
 // The same kernel with four blocks an SM asked for: the quantized gather
 // templates at T1P = 17.  Left to itself ptxas keeps a fifth block there (96
 // registers) and spills (bf16, semiglobal); four blocks give it 128.  A bound
 // on every template would change the registers ptxas picks for all of them.
 template <int T1P, int LOC, bool ROWS, bool VEC, typename E>
 __global__ void __launch_bounds__(THREADS, 4) affine_dp_kernel_4b(const Args a) {
-  affine_dp_body<T1P, LOC, ROWS, VEC, E>(a);
+  affine_dp_body<T1P, LOC, ROWS, VEC, E, false>(a, TagArgs{});
 }
 
+// ``t`` non-null: the tagged kernel (f32 tables only; the entries check).
 template <int T1P, int LOC, bool ROWS, bool VEC, typename E>
-void launch_one(dim3 grid, cudaStream_t stream, const Args& a) {
+void launch_one(dim3 grid, cudaStream_t stream, const Args& a, const TagArgs* t) {
+  if constexpr (std::is_same<E, float>::value) {
+    if (t != nullptr) {
+      if constexpr (T1P == 17)
+        affine_dp_tagged_kernel_4b<T1P, LOC, ROWS, VEC><<<grid, THREADS, 0, stream>>>(a, *t);
+      else
+        affine_dp_tagged_kernel<T1P, LOC, ROWS, VEC><<<grid, THREADS, 0, stream>>>(a, *t);
+      return;
+    }
+  }
   if constexpr (T1P == 17 && !std::is_same<E, float>::value)
     affine_dp_kernel_4b<T1P, LOC, ROWS, VEC, E><<<grid, THREADS, 0, stream>>>(a);
   else
@@ -494,24 +639,25 @@ void launch_one(dim3 grid, cudaStream_t stream, const Args& a) {
 }
 
 template <int T1P, bool ROWS, bool VEC, typename E>
-void launch(int locality, dim3 grid, cudaStream_t stream, const Args& a) {
+void launch(int locality, dim3 grid, cudaStream_t stream, const Args& a,
+            const TagArgs* t) {
   switch (locality) {
-    case LOCAL: launch_one<T1P, LOCAL, ROWS, VEC, E>(grid, stream, a); break;
-    case GLOBAL: launch_one<T1P, GLOBAL, ROWS, VEC, E>(grid, stream, a); break;
-    default: launch_one<T1P, SEMIGLOBAL, ROWS, VEC, E>(grid, stream, a); break;
+    case LOCAL: launch_one<T1P, LOCAL, ROWS, VEC, E>(grid, stream, a, t); break;
+    case GLOBAL: launch_one<T1P, GLOBAL, ROWS, VEC, E>(grid, stream, a, t); break;
+    default: launch_one<T1P, SEMIGLOBAL, ROWS, VEC, E>(grid, stream, a, t); break;
   }
 }
 
 template <int T1P, bool ROWS, typename E>
 void launch_vec(bool vec, int locality, dim3 grid, cudaStream_t stream,
-                const Args& a) {
+                const Args& a, const TagArgs* t) {
   if constexpr (std::is_same<E, float>::value) {
     if (vec) {
-      launch<T1P, ROWS, true, E>(locality, grid, stream, a);
+      launch<T1P, ROWS, true, E>(locality, grid, stream, a, t);
       return;
     }
   }
-  launch<T1P, ROWS, false, E>(locality, grid, stream, a);
+  launch<T1P, ROWS, false, E>(locality, grid, stream, a, t);
 }
 
 // A launch on the wide route: its grid and the shared bytes a block (0 when
@@ -522,38 +668,51 @@ struct Wide {
   float* scratch;
 };
 
+// Shared bytes past the default 48 KB a block must be asked for.
+template <typename K>
+int allow_smem(K kern, int smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   smem);
+}
+
 template <int LOC, bool ROWS, bool SCRATCH, typename E>
-int launch_wide_one(const Wide& w, cudaStream_t st, const Args& a) {
-  auto kern = affine_dp_wide_kernel<LOC, ROWS, SCRATCH, E>;
-  if (w.smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, w.smem);
-    if (e != cudaSuccess) return (int)e;
+int launch_wide_one(const Wide& w, cudaStream_t st, const Args& a, const TagArgs* t) {
+  if constexpr (std::is_same<E, float>::value) {
+    if (t != nullptr) {
+      auto kern = affine_dp_wide_tagged_kernel<LOC, ROWS, SCRATCH>;
+      if (const int e = allow_smem(kern, w.smem)) return e;
+      kern<<<w.blocks, WIDE_THREADS, w.smem, st>>>(a, w.scratch, *t);
+      return (int)cudaGetLastError();
+    }
   }
+  auto kern = affine_dp_wide_kernel<LOC, ROWS, SCRATCH, E>;
+  if (const int e = allow_smem(kern, w.smem)) return e;
   kern<<<w.blocks, WIDE_THREADS, w.smem, st>>>(a, w.scratch);
   return (int)cudaGetLastError();
 }
 
 template <bool ROWS, typename E>
-int launch_wide(int locality, const Wide& w, cudaStream_t st, const Args& a) {
+int launch_wide(int locality, const Wide& w, cudaStream_t st, const Args& a,
+                const TagArgs* t) {
   // the rows live in exactly one place: shared memory or the scratch buffer
   if ((w.scratch == nullptr) != (w.smem > 0) || w.smem < 0) return -1;
   if (w.scratch != nullptr) {
     switch (locality) {
-      case LOCAL: return launch_wide_one<LOCAL, ROWS, true, E>(w, st, a);
-      case GLOBAL: return launch_wide_one<GLOBAL, ROWS, true, E>(w, st, a);
-      default: return launch_wide_one<SEMIGLOBAL, ROWS, true, E>(w, st, a);
+      case LOCAL: return launch_wide_one<LOCAL, ROWS, true, E>(w, st, a, t);
+      case GLOBAL: return launch_wide_one<GLOBAL, ROWS, true, E>(w, st, a, t);
+      default: return launch_wide_one<SEMIGLOBAL, ROWS, true, E>(w, st, a, t);
     }
   }
   switch (locality) {
-    case LOCAL: return launch_wide_one<LOCAL, ROWS, false, E>(w, st, a);
-    case GLOBAL: return launch_wide_one<GLOBAL, ROWS, false, E>(w, st, a);
-    default: return launch_wide_one<SEMIGLOBAL, ROWS, false, E>(w, st, a);
+    case LOCAL: return launch_wide_one<LOCAL, ROWS, false, E>(w, st, a, t);
+    case GLOBAL: return launch_wide_one<GLOBAL, ROWS, false, E>(w, st, a, t);
+    default: return launch_wide_one<SEMIGLOBAL, ROWS, false, E>(w, st, a, t);
   }
 }
 
 template <bool ROWS, typename E>
-int dispatch(Args a, int locality, const Wide& w, void* stream) {
+int dispatch(Args a, int locality, const Wide& w, const TagArgs* t, void* stream) {
   if (a.n <= 0 || a.L <= 0 || a.Q <= 0 || a.Tpad <= 0 || locality < 0 ||
       locality > 2)
     return -1;
@@ -562,7 +721,7 @@ int dispatch(Args a, int locality, const Wide& w, void* stream) {
   if (blocks > 0x7fffffffLL) return -1;
   cudaStream_t st = (cudaStream_t)stream;
   a.small = problems <= 0xffffffffLL;
-  if (w.blocks > 0) return launch_wide<ROWS, E>(locality, w, st, a);
+  if (w.blocks > 0) return launch_wide<ROWS, E>(locality, w, st, a, t);
   // the register route's templates end at T1P = 65 (its plan never sends
   // a wider needle: the wide route takes those)
   if (a.Tpad > 64) return -1;
@@ -572,20 +731,22 @@ int dispatch(Args a, int locality, const Wide& w, void* stream) {
   const bool vec = (ROWS || a.Q == 1) && a.Tpad % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(a.table) % 16 == 0;
   if (a.Tpad <= 8)
-    launch_vec<9, ROWS, E>(vec, locality, grid, st, a);
+    launch_vec<9, ROWS, E>(vec, locality, grid, st, a, t);
   else if (a.Tpad <= 16)
-    launch_vec<17, ROWS, E>(vec, locality, grid, st, a);
+    launch_vec<17, ROWS, E>(vec, locality, grid, st, a, t);
   else if (a.Tpad <= 32)
-    launch_vec<33, ROWS, E>(vec, locality, grid, st, a);
+    launch_vec<33, ROWS, E>(vec, locality, grid, st, a, t);
   else
-    launch_vec<65, ROWS, E>(vec, locality, grid, st, a);
+    launch_vec<65, ROWS, E>(vec, locality, grid, st, a, t);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Both entries return the cudaError_t of the launch (0 on success), or -1
-// when the arguments are outside what the kernel takes.  ``wide_blocks`` > 0
+// when the arguments are outside what the kernel takes.  ``tag``: a host
+// pointer to the tag-weighted block's inputs (copied into the launch), or
+// null; only an f32 table with token ids takes it.  ``wide_blocks`` > 0
 // launches the wide route on that grid, its rows in ``wide_smem`` shared
 // bytes a block or, where that is 0, in ``scratch`` (4 x (Tpad + 1) floats
 // a warp, WIDE_WARPS warps a block); 0 launches the register route.
@@ -598,30 +759,34 @@ extern "C" int vt_affine_dp_scores(
     const int32_t* len_s, const int32_t* len_t, float* out, int64_t n, int L,
     int Tpad, int Q, float open_s, float ext_s, float open_t, float ext_t,
     int locality, int wide_blocks, int wide_smem, float* scratch,
-    void* stream) {
+    const TagArgs* tag, void* stream) {
   if (tokens == nullptr) return -1;
+  if (tag != nullptr && (table_dtype != F32 || tag->pos == nullptr)) return -1;
   const Args a{table, tokens, nullptr, nullptr, len_s, len_t, out, n, L,
                Tpad, Q, 0, open_s, ext_s, open_t, ext_t, false, false};
   const Wide w{wide_blocks, wide_smem, scratch};
   switch (table_dtype) {
-    case F32: return dispatch<false, float>(a, locality, w, stream);
-    case BF16: return dispatch<false, uint16_t>(a, locality, w, stream);
-    case INT8: return dispatch<false, int8_t>(a, locality, w, stream);
+    case F32: return dispatch<false, float>(a, locality, w, tag, stream);
+    case BF16: return dispatch<false, uint16_t>(a, locality, w, nullptr, stream);
+    case INT8: return dispatch<false, int8_t>(a, locality, w, nullptr, stream);
     default: return -1;
   }
 }
 
 // ``table`` [slots * V, Tmax]; ``tokens`` [n, L] or null (the table is S,
 // [B * L, Tmax]); ``rows`` / ``qslot`` [B] or null (b / 0); ``mask_empty``
-// nonzero: a problem with len_s <= 0 scores -1e30.
+// nonzero: a problem with len_s <= 0 scores -1e30; ``tag``'s pos rows
+// index like ``tokens``, its slots like ``qslot``.
 extern "C" int vt_affine_dp_scores_rows(
     const float* table, const int32_t* tokens, const int32_t* rows,
     const int32_t* qslot, const int32_t* len_s, const int32_t* len_t,
     float* out, int64_t B, int L, int Tmax, int64_t V, float open_s,
     float ext_s, float open_t, float ext_t, int locality, int mask_empty,
-    int wide_blocks, int wide_smem, float* scratch, void* stream) {
+    int wide_blocks, int wide_smem, float* scratch, const TagArgs* tag,
+    void* stream) {
+  if (tag != nullptr && (tokens == nullptr || tag->pos == nullptr)) return -1;
   const Args a{table, tokens, rows, qslot, len_s, len_t, out, B, L, Tmax, 1,
                V, open_s, ext_s, open_t, ext_t, false, mask_empty != 0};
   const Wide w{wide_blocks, wide_smem, scratch};
-  return dispatch<true, float>(a, locality, w, stream);
+  return dispatch<true, float>(a, locality, w, tag, stream);
 }

@@ -68,10 +68,26 @@
 // (scratch); the block size is a template constant, so shared rows take
 // 32-bit shared-memory addresses with immediate column offsets.  Columns
 // are processed in register tiles of CH: per stored row one uniform cost
-// load serves CH candidates.  Rows stop at the slice's length and columns at
-// the needle's (no cell past them can change the score), so the work is
-// what the data needs.  Horizontal gaps run in place over the row, highest
+// load serves CH candidates, and the next stored row's tile is loaded
+// while this one's candidates are maxed in (at the few warps an SM of the
+// scratch route, the loop waits on load latency).  Rows stop at the
+// slice's length and columns at the needle's (no cell past them can change
+// the score), so the work is what the data needs.  Horizontal gaps run in place over the row, highest
 // tile first, so every tile reads C values not yet replaced by H.
+//
+// Tag weights (TagArgs; f32 tables only): on every route each S value
+// becomes, where it is loaded, the JAX package's tag-weighted value
+// (ops/search.py _apply_tag_weights):
+//   w = tw_w[q, j] * (pos[s, i] == tw_p[q, j] ? 1 : 1 - pen[q]),
+//   S' = S * w > thr[q] ? S * w : 0,
+// in that order, each product and difference one rounding (__fmul_rn,
+// __fsub_rn).  The weights and the row's pos id come through the read-only
+// cache at the load.  A gather query q reads column j of the [Q, T] block at
+// q * qs + j * cs, a row-gather problem its slot qslot[b]; pos is [n, L]
+// like the tokens.  The tagged kernels are their own template family
+// (wsb_dp_tagged_kernel, wsb_regs_tagged_kernel), f32 only, with TagArgs a
+// kernel parameter of theirs alone, so the untagged kernels are unchanged
+// (as in csrc/affine_dp.cu).
 //
 // Exactness contract: the DP is adds, subtractions and maxes only, each
 // candidate one rounding (Hall - w, H_prev + S), so the scores are bit-equal
@@ -84,6 +100,17 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+// The tag-weighted block's inputs (see the header).  Outside the unnamed
+// namespace: the C entries take a pointer to it.
+struct TagArgs {
+  const int8_t* pos;  // [n, L] pos ids of the rows the tokens index
+  const float* w;     // needle weights: query (slot) q, column j at q * qs + j * cs
+  const int8_t* p;    // needle pos ids, same layout
+  const float* pen;   // [Q] (rows: [slots]) pos-mismatch penalty
+  const float* thr;   // [Q] (rows: [slots]) similarity threshold
+  int qs, cs;
+};
 
 namespace {
 
@@ -100,6 +127,22 @@ __device__ __forceinline__ float to_f32(uint16_t x) {
   return __uint_as_float((uint32_t)x << 16);
 }
 __device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
+
+// One tag-weighted similarity: w first, then S * w, then the threshold.
+__device__ __forceinline__ float tag_weight(float s, int pos_s, float w, int pos_t,
+                                            float pen, float thr) {
+  const float sel = (pos_s == pos_t) ? 1.0f : __fsub_rn(1.0f, pen);
+  const float sw = __fmul_rn(s, __fmul_rn(w, sel));
+  return (sw > thr) ? sw : 0.0f;
+}
+
+// The first n of CH columns of a stored row (column u at p[u * cs]); NEG
+// past them.
+template <typename I>
+__device__ __forceinline__ void load_tile(float (&h)[CH], const float* p, I cs, int n) {
+#pragma unroll
+  for (int u = 0; u < CH; ++u) h[u] = (u < n) ? p[(I)u * cs] : NEG;
+}
 
 // The arguments of a launch (every entry and route); passed by value into
 // the kernel's parameter bank.
@@ -125,10 +168,12 @@ struct Args {
 // THREADS > 0: a block of THREADS threads keeps its rows in shared memory;
 // THREADS == 0: the rows live in ``scratch`` (one slot per thread of the grid).
 // E: the table's element type (float, uint16_t for bf16, int8_t); the
-// row-gather entry reads the f32 plan table only.
-template <int LOC, bool GATHER, int THREADS, typename E>
-__global__ void __launch_bounds__(128) wsb_dp_kernel(const Args a) {
+// row-gather entry reads the f32 plan table only.  TAGGED (f32 only): the
+// similarities are tag-weighted by ``t``.
+template <int LOC, bool GATHER, int THREADS, typename E, bool TAGGED>
+__device__ __forceinline__ void wsb_dp_body(const Args a, const TagArgs t) {
   static_assert(GATHER || std::is_same<E, float>::value, "rows read f32 tables");
+  static_assert(!TAGGED || std::is_same<E, float>::value, "tags weight f32 tables");
   // cell (r, j) of this thread's problem at base[r * rs + j * cs]
   using I = typename std::conditional<(THREADS > 0), int, int64_t>::type;
   extern __shared__ float smem[];
@@ -172,6 +217,19 @@ __global__ void __launch_bounds__(128) wsb_dp_kernel(const Args a) {
       // similarity row i - 1: column j - 1 at srow[(j - 1) * scs]
       const E* srow;
       int64_t scs;
+      // tagged: the row's pos id, the problem's penalty and threshold, and
+      // column j - 1's weight and pos id at tw[(j - 1) * cs], tp[...]
+      int ps = 0;
+      float pen = 0.0f, thr = 0.0f;
+      const float* tw = nullptr;
+      const int8_t* tp = nullptr;
+      if constexpr (TAGGED) {
+        ps = __ldg(t.pos + s * L + i - 1);
+        pen = __ldg(t.pen + q);
+        thr = __ldg(t.thr + q);
+        tw = t.w + (int64_t)q * t.qs;
+        tp = t.p + (int64_t)q * t.qs;
+      }
       if (GATHER) {
         srow = tbase + (int64_t)tokens[s * L + i - 1] * T * Q;
         scs = Q;
@@ -185,18 +243,36 @@ __global__ void __launch_bounds__(128) wsb_dp_kernel(const Args a) {
         float v[CH];
 #pragma unroll
         for (int u = 0; u < CH; ++u) v[u] = NEG;
+        // row r + 1's tile is loaded before row r's is maxed in, so a
+        // step's CH loads never wait on its arithmetic (left to itself,
+        // ptxas gave the untagged templates 72-80 registers and issued each
+        // load just before its use, two in flight: the scratch route ran at
+        // half the tagged kernel's speed).  The last step reads row i,
+        // not yet written, and never uses it.
+        float h[CH];
+        float w = w_s[i];
+        load_tile(h, &at(0, j0), cs, lt - j0 + 1);
         for (int r = 0; r < i; ++r) {
-          const float w = w_s[i - r];
-          const float* hr = &at(r, j0);
+          float hn[CH];
+          const float wn = w_s[i - r - 1];
+          load_tile(hn, &at(r + 1, j0), cs, lt - j0 + 1);
 #pragma unroll
-          for (int u = 0; u < CH; ++u)
-            if (j0 + u <= lt) v[u] = fmaxf(v[u], hr[(I)u * cs] - w);
+          for (int u = 0; u < CH; ++u) {
+            if (j0 + u <= lt) v[u] = fmaxf(v[u], h[u] - w);
+            h[u] = hn[u];
+          }
+          w = wn;
         }
 #pragma unroll
         for (int u = 0; u < CH; ++u) {
           const int j = j0 + u;
           if (j <= lt) {
-            const float m = at(i - 1, j - 1) + to_f32(__ldg(srow + (j - 1) * scs));
+            float sv = to_f32(__ldg(srow + (j - 1) * scs));
+            if constexpr (TAGGED) {
+              const int o = (j - 1) * t.cs;
+              sv = tag_weight(sv, ps, __ldg(tw + o), __ldg(tp + o), pen, thr);
+            }
+            const float m = at(i - 1, j - 1) + sv;
             float c = fmaxf(m, v[u]);
             if (LOC == LOCAL) c = fmaxf(c, 0.0f);
             at(i, j) = c;
@@ -249,6 +325,16 @@ __global__ void __launch_bounds__(128) wsb_dp_kernel(const Args a) {
   }
 }
 
+template <int LOC, bool GATHER, int THREADS, typename E>
+__global__ void __launch_bounds__(128) wsb_dp_kernel(const Args a) {
+  wsb_dp_body<LOC, GATHER, THREADS, E, false>(a, TagArgs{});
+}
+
+template <int LOC, bool GATHER, int THREADS>
+__global__ void __launch_bounds__(128) wsb_dp_tagged_kernel(const Args a, const TagArgs t) {
+  wsb_dp_body<LOC, GATHER, THREADS, float, true>(a, t);
+}
+
 // ---------------------------------------------------------------------------
 // register route
 // ---------------------------------------------------------------------------
@@ -293,11 +379,13 @@ __device__ __forceinline__ void split_problem(int64_t p, int Q, bool small,
 // table row addresses and row loop.  Rows: one problem a group (each has
 // its own len_t), its row read from table slot q.  E: the table's element
 // type, as in wsb_dp_kernel.
-template <int LT, int G, int LOC, int P, bool ROWS, typename E>
-__global__ void __launch_bounds__(REG_THREADS) wsb_regs_kernel(
-    const RegCosts<LT, G> costs, const Args a) {
+// TAGGED (f32 only): the similarities are tag-weighted by ``t``.
+template <int LT, int G, int LOC, int P, bool ROWS, typename E, bool TAGGED>
+__device__ __forceinline__ void wsb_regs_body(const RegCosts<LT, G> costs, const Args a,
+                                              const TagArgs t) {
   static_assert(!ROWS || P == 1, "a row-gather group takes one problem");
   static_assert(!ROWS || std::is_same<E, float>::value, "rows read f32 tables");
+  static_assert(!TAGGED || std::is_same<E, float>::value, "tags weight f32 tables");
   const int64_t gthread = (int64_t)blockIdx.x * REG_THREADS + threadIdx.x;
   const int k = threadIdx.x & (G - 1);  // this lane's column is j = k + 1
   const int j = k + 1;
@@ -377,6 +465,18 @@ __global__ void __launch_bounds__(REG_THREADS) wsb_regs_kernel(
     float sv[P];
 #pragma unroll
     for (int u = 0; u < P; ++u) sv[u] = sv_n[u];
+    if constexpr (TAGGED) {
+      if (col_in && i <= rows) {
+        // row i - 1's pos id and this lane's column k of each query's block
+        const int ps = __ldg(t.pos + s * (int64_t)a.L + i - 1);
+#pragma unroll
+        for (int u = 0; u < P; ++u) {
+          const int64_t o = (int64_t)(q + u) * t.qs + (int64_t)k * t.cs;
+          sv[u] = tag_weight(sv[u], ps, __ldg(t.w + o), __ldg(t.p + o),
+                             __ldg(t.pen + q + u), __ldg(t.thr + q + u));
+        }
+      }
+    }
     if (i < LT) {
       const E* rn = tcol + tok_n * vstride;
 #pragma unroll
@@ -425,9 +525,21 @@ __global__ void __launch_bounds__(REG_THREADS) wsb_regs_kernel(
   }
 }
 
+template <int LT, int G, int LOC, int P, bool ROWS, typename E>
+__global__ void __launch_bounds__(REG_THREADS) wsb_regs_kernel(
+    const RegCosts<LT, G> costs, const Args a) {
+  wsb_regs_body<LT, G, LOC, P, ROWS, E, false>(costs, a, TagArgs{});
+}
+
+template <int LT, int G, int LOC, int P, bool ROWS>
+__global__ void __launch_bounds__(REG_THREADS) wsb_regs_tagged_kernel(
+    const RegCosts<LT, G> costs, const Args a, const TagArgs t) {
+  wsb_regs_body<LT, G, LOC, P, ROWS, float, true>(costs, a, t);
+}
+
 template <int LT, int G, int LOC, bool ROWS, typename E>
 int launch_regs(const HostCosts& h, int blocks, cudaStream_t stream,
-                const Args& a) {
+                const Args& a, const TagArgs* t) {
   // costs past T only reach columns past the needle, or a lane's own C
   // (c - 0 = c): zero
   RegCosts<LT, G> c;
@@ -440,6 +552,17 @@ int launch_regs(const HostCosts& h, int blocks, cudaStream_t stream,
   // every group
   const int P = (!ROWS && a.Q % 2 == 0) ? 2 : 1;
   if ((int64_t)blocks * (REG_THREADS / G) * P < a.problems) return -1;
+  if constexpr (std::is_same<E, float>::value) {
+    if (t != nullptr) {
+      if constexpr (ROWS)
+        wsb_regs_tagged_kernel<LT, G, LOC, 1, true><<<blocks, REG_THREADS, 0, stream>>>(c, a, *t);
+      else if (P == 2)
+        wsb_regs_tagged_kernel<LT, G, LOC, 2, false><<<blocks, REG_THREADS, 0, stream>>>(c, a, *t);
+      else
+        wsb_regs_tagged_kernel<LT, G, LOC, 1, false><<<blocks, REG_THREADS, 0, stream>>>(c, a, *t);
+      return (int)cudaGetLastError();
+    }
+  }
   if constexpr (ROWS)
     wsb_regs_kernel<LT, G, LOC, 1, true, E><<<blocks, REG_THREADS, 0, stream>>>(c, a);
   else if (P == 2)
@@ -451,34 +574,34 @@ int launch_regs(const HostCosts& h, int blocks, cudaStream_t stream,
 
 template <int LT, int G, bool ROWS, typename E>
 int regs_locality(int locality, const HostCosts& h, int blocks,
-                  cudaStream_t stream, const Args& a) {
+                  cudaStream_t stream, const Args& a, const TagArgs* t) {
   switch (locality) {
-    case LOCAL: return launch_regs<LT, G, LOCAL, ROWS, E>(h, blocks, stream, a);
-    case GLOBAL: return launch_regs<LT, G, GLOBAL, ROWS, E>(h, blocks, stream, a);
-    default: return launch_regs<LT, G, SEMIGLOBAL, ROWS, E>(h, blocks, stream, a);
+    case LOCAL: return launch_regs<LT, G, LOCAL, ROWS, E>(h, blocks, stream, a, t);
+    case GLOBAL: return launch_regs<LT, G, GLOBAL, ROWS, E>(h, blocks, stream, a, t);
+    default: return launch_regs<LT, G, SEMIGLOBAL, ROWS, E>(h, blocks, stream, a, t);
   }
 }
 
 template <int LT, bool ROWS, typename E>
 int regs_width(int locality, const HostCosts& h, int blocks,
-               cudaStream_t stream, const Args& a) {
-  if (a.T <= 8) return regs_locality<LT, 8, ROWS, E>(locality, h, blocks, stream, a);
-  if (a.T <= 16) return regs_locality<LT, 16, ROWS, E>(locality, h, blocks, stream, a);
-  return regs_locality<LT, 32, ROWS, E>(locality, h, blocks, stream, a);
+               cudaStream_t stream, const Args& a, const TagArgs* t) {
+  if (a.T <= 8) return regs_locality<LT, 8, ROWS, E>(locality, h, blocks, stream, a, t);
+  if (a.T <= 16) return regs_locality<LT, 16, ROWS, E>(locality, h, blocks, stream, a, t);
+  return regs_locality<LT, 32, ROWS, E>(locality, h, blocks, stream, a, t);
 }
 
 template <bool ROWS, typename E>
 int regs_dispatch(Args a, const HostCosts& h, int n_wt, int locality,
-                  int blocks, void* stream) {
+                  int blocks, const TagArgs* t, void* stream) {
   if (a.problems <= 0 || a.Q <= 0 || a.L <= 0 || a.L > 32 || a.T <= 0 ||
       a.T > 32 || locality < 0 || locality > 2 || h.n_ws < a.L + 1 ||
       n_wt < a.T + 1 || blocks <= 0)
     return -1;
   a.small = a.problems <= 0xffffffffLL;
   cudaStream_t st = (cudaStream_t)stream;
-  if (a.L <= 8) return regs_width<8, ROWS, E>(locality, h, blocks, st, a);
-  if (a.L <= 16) return regs_width<16, ROWS, E>(locality, h, blocks, st, a);
-  return regs_width<32, ROWS, E>(locality, h, blocks, st, a);
+  if (a.L <= 8) return regs_width<8, ROWS, E>(locality, h, blocks, st, a, t);
+  if (a.L <= 16) return regs_width<16, ROWS, E>(locality, h, blocks, st, a, t);
+  return regs_width<32, ROWS, E>(locality, h, blocks, st, a, t);
 }
 
 // ---------------------------------------------------------------------------
@@ -486,6 +609,7 @@ int regs_dispatch(Args a, const HostCosts& h, int n_wt, int locality,
 // ---------------------------------------------------------------------------
 
 using KernelFn = void (*)(const Args);
+using TaggedFn = void (*)(const Args, const TagArgs);
 
 template <bool GATHER, int THREADS, typename E>
 KernelFn pick(int locality) {
@@ -496,12 +620,38 @@ KernelFn pick(int locality) {
   }
 }
 
+template <bool GATHER, int THREADS>
+TaggedFn pick_tagged(int locality) {
+  switch (locality) {
+    case LOCAL: return wsb_dp_tagged_kernel<LOCAL, GATHER, THREADS>;
+    case GLOBAL: return wsb_dp_tagged_kernel<GLOBAL, GATHER, THREADS>;
+    default: return wsb_dp_tagged_kernel<SEMIGLOBAL, GATHER, THREADS>;
+  }
+}
+
+// The kernel of a launch, tagged or not (``Fn``: KernelFn or TaggedFn).
+template <typename Fn, bool GATHER, typename E>
+Fn pick_kernel(const Args& a, int locality, int threads) {
+  if constexpr (std::is_same<Fn, TaggedFn>::value) {
+    if (a.scratch != nullptr) return pick_tagged<GATHER, 0>(locality);
+    if (threads == 32) return pick_tagged<GATHER, 32>(locality);
+    if (threads == 64) return pick_tagged<GATHER, 64>(locality);
+    if (threads == 128) return pick_tagged<GATHER, 128>(locality);
+  } else {
+    if (a.scratch != nullptr) return pick<GATHER, 0, E>(locality);
+    if (threads == 32) return pick<GATHER, 32, E>(locality);
+    if (threads == 64) return pick<GATHER, 64, E>(locality);
+    if (threads == 128) return pick<GATHER, 128, E>(locality);
+  }
+  return nullptr;
+}
+
 // ``scratch`` is null for rows in shared memory (smem_bytes per block of
 // 32, 64 or 128 threads), else a buffer of blocks * threads * (L + 1) *
 // (T + 1) floats.
 template <bool GATHER, typename E>
 int launch(const Args& a, int locality, int blocks, int threads,
-           int smem_bytes, void* stream) {
+           int smem_bytes, const TagArgs* t, void* stream) {
   if (a.problems <= 0 || a.L <= 0 || a.T <= 0 || a.Q <= 0 || locality < 0 ||
       locality > 2)
     return -1;
@@ -511,12 +661,21 @@ int launch(const Args& a, int locality, int blocks, int threads,
   if (a.scratch == nullptr &&
       (int64_t)smem_bytes < (int64_t)(a.L + 1) * (a.T + 1) * threads * 4)
     return -1;
-  KernelFn kernel;
-  if (a.scratch != nullptr) kernel = pick<GATHER, 0, E>(locality);
-  else if (threads == 32) kernel = pick<GATHER, 32, E>(locality);
-  else if (threads == 64) kernel = pick<GATHER, 64, E>(locality);
-  else if (threads == 128) kernel = pick<GATHER, 128, E>(locality);
-  else return -1;
+  if constexpr (std::is_same<E, float>::value) {
+    if (t != nullptr) {
+      const TaggedFn kernel = pick_kernel<TaggedFn, GATHER, E>(a, locality, threads);
+      if (kernel == nullptr) return -1;
+      if (smem_bytes > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+        if (err != cudaSuccess) return (int)err;
+      }
+      kernel<<<blocks, threads, smem_bytes, (cudaStream_t)stream>>>(a, *t);
+      return (int)cudaGetLastError();
+    }
+  }
+  const KernelFn kernel = pick_kernel<KernelFn, GATHER, E>(a, locality, threads);
+  if (kernel == nullptr) return -1;
   if (smem_bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
@@ -529,7 +688,18 @@ int launch(const Args& a, int locality, int blocks, int threads,
 }  // namespace
 
 // Every entry returns the cudaError_t of the launch (0 on success), or -1
-// when the arguments are outside what the kernel takes.
+// when the arguments are outside what the kernel takes.  ``tag``: a host
+// pointer to the tag-weighted block's inputs (copied into the launch), or
+// null; only an f32 table with token ids takes it (a row-gather entry's tag
+// rows index like ``tokens``, its slots like ``qslot``).
+
+namespace {
+// Whether a launch can take ``tag``.
+bool tag_ok(const TagArgs* tag, int table_dtype, const int32_t* tokens) {
+  return tag == nullptr ||
+         (table_dtype == F32 && tokens != nullptr && tag->pos != nullptr);
+}
+}  // namespace
 
 // Gather entries: ``table`` of ``table_dtype`` (TableDtype: f32, bf16 bits
 // or int8).
@@ -540,14 +710,14 @@ extern "C" int vt_wsb_dp_scores(
     const int32_t* len_s, const int32_t* len_t, const float* w_s,
     const float* w_t, const float* w_ts, float* out, float* scratch, int64_t n,
     int L, int T, int Q, int locality, int blocks, int threads, int smem_bytes,
-    void* stream) {
-  if (Q <= 0 || tokens == nullptr) return -1;
+    const TagArgs* tag, void* stream) {
+  if (Q <= 0 || tokens == nullptr || !tag_ok(tag, table_dtype, tokens)) return -1;
   const Args a{table, tokens, nullptr, nullptr, len_s, len_t, w_s, w_t, w_ts,
                out, scratch, n * (int64_t)Q, L, T, Q, 0, false, false};
   switch (table_dtype) {
-    case F32: return launch<true, float>(a, locality, blocks, threads, smem_bytes, stream);
-    case BF16: return launch<true, uint16_t>(a, locality, blocks, threads, smem_bytes, stream);
-    case INT8: return launch<true, int8_t>(a, locality, blocks, threads, smem_bytes, stream);
+    case F32: return launch<true, float>(a, locality, blocks, threads, smem_bytes, tag, stream);
+    case BF16: return launch<true, uint16_t>(a, locality, blocks, threads, smem_bytes, nullptr, stream);
+    case INT8: return launch<true, int8_t>(a, locality, blocks, threads, smem_bytes, nullptr, stream);
     default: return -1;
   }
 }
@@ -562,16 +732,18 @@ extern "C" int vt_wsb_dp_scores_regs(
     const void* table, int table_dtype, const int32_t* tokens,
     const int32_t* len_s, const int32_t* len_t, const float* w_s, int n_ws,
     const float* w_t, const float* w_ts, int n_wt, float* out, int64_t n,
-    int L, int T, int Q, int locality, int blocks, void* stream) {
-  if (n <= 0 || Q <= 0 || tokens == nullptr) return -1;
+    int L, int T, int Q, int locality, int blocks, const TagArgs* tag,
+    void* stream) {
+  if (n <= 0 || Q <= 0 || tokens == nullptr || !tag_ok(tag, table_dtype, tokens))
+    return -1;
   const Args a{table, tokens, nullptr, nullptr, len_s, len_t, nullptr,
                nullptr, nullptr, out, nullptr, n * (int64_t)Q, L, T, Q, 0,
                false, false};
   const HostCosts h{w_s, n_ws, w_t, w_ts};
   switch (table_dtype) {
-    case F32: return regs_dispatch<false, float>(a, h, n_wt, locality, blocks, stream);
-    case BF16: return regs_dispatch<false, uint16_t>(a, h, n_wt, locality, blocks, stream);
-    case INT8: return regs_dispatch<false, int8_t>(a, h, n_wt, locality, blocks, stream);
+    case F32: return regs_dispatch<false, float>(a, h, n_wt, locality, blocks, tag, stream);
+    case BF16: return regs_dispatch<false, uint16_t>(a, h, n_wt, locality, blocks, nullptr, stream);
+    case INT8: return regs_dispatch<false, int8_t>(a, h, n_wt, locality, blocks, nullptr, stream);
     default: return -1;
   }
 }
@@ -585,10 +757,12 @@ extern "C" int vt_wsb_dp_scores_rows(
     const int32_t* qslot, const int32_t* len_s, const int32_t* len_t,
     const float* w_s, const float* w_t, const float* w_ts, float* out,
     float* scratch, int64_t B, int L, int T, int64_t V, int locality,
-    int mask_empty, int blocks, int threads, int smem_bytes, void* stream) {
+    int mask_empty, int blocks, int threads, int smem_bytes,
+    const TagArgs* tag, void* stream) {
+  if (!tag_ok(tag, F32, tokens)) return -1;
   const Args a{table, tokens, rows, qslot, len_s, len_t, w_s, w_t, w_ts, out,
                scratch, B, L, T, 1, V, false, mask_empty != 0};
-  return launch<false, float>(a, locality, blocks, threads, smem_bytes, stream);
+  return launch<false, float>(a, locality, blocks, threads, smem_bytes, tag, stream);
 }
 
 // Row-gather entry, register route (one problem a group; costs on the host
@@ -598,9 +772,10 @@ extern "C" int vt_wsb_dp_scores_rows_regs(
     const int32_t* qslot, const int32_t* len_s, const int32_t* len_t,
     const float* w_s, int n_ws, const float* w_t, const float* w_ts, int n_wt,
     float* out, int64_t B, int L, int T, int64_t V, int locality,
-    int mask_empty, int blocks, void* stream) {
+    int mask_empty, int blocks, const TagArgs* tag, void* stream) {
+  if (!tag_ok(tag, F32, tokens)) return -1;
   const Args a{table, tokens, rows, qslot, len_s, len_t, nullptr, nullptr,
                nullptr, out, nullptr, B, L, T, 1, V, false, mask_empty != 0};
   return regs_dispatch<true, float>(a, HostCosts{w_s, n_ws, w_t, w_ts}, n_wt,
-                                    locality, blocks, stream);
+                                    locality, blocks, tag, stream);
 }

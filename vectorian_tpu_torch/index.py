@@ -10,30 +10,37 @@ batched device pass per bucket (ops/search.BruteForceEngine); the bounded
 top-k heap becomes a device top-k fused with the exact rescore of the
 selected rows; flows are recomputed for the global top-k only.  ``find`` is
 ``find_batch`` with one query: both run the same corpus pass and the same
-finalizer, so their (slice_id, score) lists are byte-identical.
+finalizer, so their (slice_id, score) lists are byte-identical.  The query
+options tag weights, ``pos_filter`` / ``tag_filter`` / ``token_filter``,
+``booster`` and ``bidirectional`` ride that pass in both.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from collections import namedtuple
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from vectorian_tpu_torch.alignment import resolve_affine_gaps
 from vectorian_tpu_torch.ops.alignment import AffineGapParams
 from vectorian_tpu_torch.ops.search import (
     BruteForceEngine,
+    DocFilterSpec,
+    TagWeightingSpec,
     batch_tracebacks,
     edge_sims_of,
     gap_vec,
     order_by_score,
 )
-from vectorian_tpu_torch.ops.simmatrix import compile_plan
+from vectorian_tpu_torch.ops.simmatrix import QueryPlan, compile_plan
 from vectorian_tpu_torch.session import Result
 from vectorian_tpu_torch.utils import trace
+from vectorian_tpu_torch.vocabulary import UPOS
 
 
 def _not_ported(what: str, item: str):
@@ -43,19 +50,39 @@ def _not_ported(what: str, item: str):
     )
 
 
-_OPTIONS_ITEM = "4b: query options"
-# per-query options of the JAX package that this slice does not serve yet;
+_OPTIONS_ITEM = "4c: submatch_weight, debug and the full-read paths"
+# per-query options of the JAX package that the port does not serve yet;
 # each raises when set to anything but its neutral default
-UNPORTED_OPTIONS = (
-    "submatch_weight", "bidirectional", "booster", "pos_filter",
-    "tag_filter", "token_filter", "debug",
-)
+UNPORTED_OPTIONS = ("submatch_weight", "debug")
 
 
 def _check_options(options: dict) -> None:
     for key in UNPORTED_OPTIONS:
         if options.get(key):
             raise _not_ported(f"query option {key!r}", _OPTIONS_ITEM)
+
+
+def _reverse_plan(qp: QueryPlan, n_tokens: int) -> QueryPlan:
+    """The plan with its first ``n_tokens`` needle columns reversed
+    (bidirectional matching); the padding stays at the tail, so the len_t
+    mask keeps working.  The columns are copies: the same bits."""
+    m = qp.matrix
+    return QueryPlan(
+        matrix=torch.cat([torch.flip(m[:, :n_tokens], dims=(1,)), m[:, n_tokens:]], 1)
+    )
+
+
+def _reverse_tagw(tagw, n_tokens: int):
+    """The TagWeightingSpec of the reversed needle (None stays None)."""
+    if tagw is None:
+        return None
+
+    def rev(v):
+        return np.concatenate([v[:n_tokens][::-1], v[n_tokens:]], axis=0)
+
+    return dataclasses.replace(
+        tagw, t_pos_weights=rev(tagw.t_pos_weights), pos_t=rev(tagw.pos_t)
+    )
 
 
 def _pad_needle(query: "PreparedQuery"):
@@ -126,6 +153,14 @@ class PreparedQuery:
         char_spans = [(t["start"], t["end"]) for t in tokens]
         mask = session.normalization.apply(table)
 
+        # query-side pos/tag filters (reference index.py:78-83): tokens whose
+        # pos/tag is listed are excluded from the needle
+        pos_filter = set(query.options.get("pos_filter") or ())
+        tag_filter = set(query.options.get("tag_filter") or ())
+        for i in range(len(tokens)):
+            if table["pos"][i] in pos_filter or table["tag"][i] in tag_filter:
+                mask[i] = False
+
         keep = np.flatnonzero(mask)
         self.token_strings = [table["text"][i] for i in keep]
         self.token_pos = [table["pos"][i] for i in keep]
@@ -176,13 +211,16 @@ class _FlowResolver:
     matcher_impl.h:172-174; deferring to first access is a latency
     trade)."""
 
-    def __init__(self, index, plan, len_t, gaps, locality, gap_costs):
+    def __init__(self, index, plan, len_t, tagw, gaps, locality, gap_costs,
+                 doc_filter):
         self._index = index
         self._plan = plan
         self._len_t = len_t
+        self._tagw = tagw
         self._gaps = gaps
         self._locality = locality
         self._gap_costs = gap_costs
+        self._doc_filter = doc_filter
         self._members = []  # (match, sid)
         self._done = False
 
@@ -201,12 +239,14 @@ class _FlowResolver:
                     "slice_ids": [sid for _, sid in self._members],
                     "qp": self._plan,
                     "len_t": self._len_t,
+                    "tag_weights": self._tagw,
                     "want_flows": True,
                 }
             ],
             self._gaps,
             self._locality,
             gap_costs=self._gap_costs,
+            doc_filter=self._doc_filter,
         )
         mappings, edge_sims, _raw = res
         for (m, _sid), mp, es in zip(self._members, mappings, edge_sims):
@@ -591,8 +631,6 @@ class BruteForceIndex(Index):
             raise _not_ported(
                 f"the {alignment['algorithm']!r} metric", "6: transport metrics"
             )
-        if args.get("tag_weights"):
-            raise _not_ported("tag weights", _OPTIONS_ITEM)
         self._locality = alignment.get("locality", "local")
         self._gap_s = alignment.get("gap_s")
         self._gap_t = alignment.get("gap_t")
@@ -661,6 +699,59 @@ class BruteForceIndex(Index):
             strings_p,
         )
 
+    def _doc_filter(self, query: PreparedQuery) -> Optional[DocFilterSpec]:
+        """Document-side token filter from the query options: pos_filter /
+        tag_filter drop document tokens by universal POS / fine tag
+        (reference index.py:78-83 + query.cpp:220-257), token_filter by
+        their (normalized) strings; None when no filter is set."""
+        opts = query.options
+        pos_filter = list(opts.get("pos_filter") or ())
+        tag_filter = list(opts.get("tag_filter") or ())
+        token_filter = list(opts.get("token_filter") or ())
+        if not (pos_filter or tag_filter or token_filter):
+            return None
+        vocab = self._session.vocab
+        pos_ex = np.zeros((len(UPOS),), bool)
+        for p in pos_filter:
+            pos_ex[vocab.pos_id(p)] = True
+        tag_ex = np.zeros((max(len(vocab.tags), 1),), bool)
+        for t in tag_filter:
+            i = vocab.tags.get(t)
+            if i >= 0:
+                tag_ex[i] = True
+        tok_ex = np.zeros((max(len(vocab.tokens), 1),), bool)
+        for w in token_filter:
+            nw = self._session.normalization.normalize_word(w)
+            i = vocab.tokens.get(nw if nw else w)
+            if i >= 0:
+                tok_ex[i] = True
+        return DocFilterSpec(pos_ex, tag_ex, tok_ex)
+
+    def _tag_weighting(self, query: PreparedQuery,
+                       width: int) -> Optional[TagWeightingSpec]:
+        """The query's TagWeightingSpec under the index's tag weights (None
+        without them): a needle token's weight is its fine tag's (1.0 for a
+        tag the weights do not name, reference parse_tag_weights,
+        match/instantiate.cpp:10-38); the padded columns up to ``width``
+        get weight 0 and pos -1 (masked by len_t)."""
+        tw = self._args.get("tag_weights")
+        if not tw:
+            return None
+        weights = np.asarray(
+            [float(tw.get(t, 1.0)) for t in query.token_tag], np.float32
+        )
+        pos_t = np.asarray(query.pos_ids, np.int8)
+        if width > len(weights):
+            d = width - len(weights)
+            weights = np.concatenate([weights, np.zeros((d,), np.float32)])
+            pos_t = np.concatenate([pos_t, np.full((d,), -1, np.int8)])
+        return TagWeightingSpec(
+            t_pos_weights=weights,
+            pos_t=pos_t,
+            pos_mismatch_penalty=float(self._args.get("pos_mismatch_penalty", 0.0)),
+            similarity_threshold=float(self._args.get("similarity_threshold", 0.0)),
+        )
+
     def _find(self, query: PreparedQuery) -> List[Match]:
         opts = query.options
         _check_options(opts)
@@ -671,23 +762,78 @@ class BruteForceIndex(Index):
         T = query.n_tokens
         with trace.span("find.plan"):
             qp = self._compile_plan(query)
-        # the serving machinery with Q=1: the fused top-k step returns
-        # candidates WITH their exact f32 raw scores and flow payloads;
-        # boundary ties resolve through tie-bounded device column selects.
-        # find_batch runs the same pass and finalizer, so the two are
-        # byte-identical by construction.
+            tagw = self._tag_weighting(query, _pad_needle(query)[2])
+            norm_total = tagw.total if tagw is not None else float(T)
+            booster = opts.get("booster")
+            boost = None if booster is None else self._compile_booster(booster)
+            doc_filter = self._doc_filter(query)
+        # the serving machinery with Q=1 (Q=2 for bidirectional: the
+        # reversed needle rides the same pass as a second query): the fused
+        # top-k step returns candidates WITH their exact f32 raw scores and
+        # flow payloads; boundary ties resolve through tie-bounded device
+        # column selects.  find_batch runs the same pass and finalizer, so
+        # the two are byte-identical by construction.
+        plans, tagws = [qp], [tagw]
+        if opts.get("bidirectional"):
+            plans.append(_reverse_plan(qp, T))
+            tagws.append(_reverse_tagw(tagw, T))
+        Q = len(plans)
         with trace.span("find.topk"):
             src = self._engine.score_topk_multi(
-                [qp], [T], self._gaps, self._locality, [float(T)], n + 32,
-                gap_costs=self._gap_costs,
+                plans, [T] * Q, self._gaps, self._locality, [norm_total] * Q,
+                n + 32, gap_costs=self._gap_costs,
+                tag_weights=tagws if tagw is not None else None,
+                doc_filter=doc_filter,
+                boosts=[boost] * Q if boost is not None else None,
             )
         if query.query.aborted:
             return []
         with trace.span("find.finalize"):
-            return self._finalize_quantized_many(
-                [(src.qview(0), qp, query, float(T))],
-                self._gaps, self._metric_name, n, min_score, 0.0,
-            )[0]
+            per_q = self._finalize_quantized_many(
+                [(src.qview(qi), plans[qi], query, norm_total, tagws[qi], boost)
+                 for qi in range(Q)],
+                self._gaps, self._metric_name, n, min_score, 0.0, doc_filter,
+            )
+        if Q == 2:
+            return self._merge_bidirectional(per_q[0], per_q[1], query, n)
+        return per_q[0]
+
+    def _compile_booster(self, booster) -> np.ndarray:
+        """The booster's [n_slices] f32 weights (its ``compile`` does not
+        depend on the query: once a call)."""
+        with trace.span("booster.compile"):
+            return np.asarray(
+                booster.compile(self._session, self._partition), np.float32
+            )
+
+    def _merge_bidirectional(self, fwd, rev, pq, n: int) -> List["Match"]:
+        """Exact-score max over the two needle orientations (reference
+        'bidirectional' option, query.cpp:81-84): sorting is a total order
+        ((score desc, doc, slice)), so every combined top-n member appears
+        in its winning orientation's own top-n, and merging the two top-n
+        lists is the combined top-n.  Forward wins score ties; a reversed
+        orientation's mapping and similarities translate back to forward
+        needle positions (``[::-1]``)."""
+        packed = self._engine.packed
+        best = {mt.slice_id: mt for mt in fwd}
+        for mt in rev:
+            cur = best.get(mt.slice_id)
+            if cur is None or mt.score > cur.score:
+                best[mt.slice_id] = Match(
+                    self, pq, slice_id=mt.slice_id, score=mt.score,
+                    metric=mt.metric,
+                    mapping=np.asarray(mt._mapping)[::-1].copy(),
+                    similarities=np.asarray(mt._similarities)[::-1].copy(),
+                )
+        out = sorted(
+            best.values(),
+            key=lambda mt: (
+                -mt.score,
+                int(packed.slice_doc[mt.slice_id]),
+                int(packed.slice_idx[mt.slice_id]),
+            ),
+        )
+        return out[:n]
 
     @property
     def _metric_name(self) -> str:
@@ -714,36 +860,86 @@ class BruteForceIndex(Index):
         kernels read the quantized table as it is.  Every query reports
         the finalizer's exact f32 scores under the provable cut, whose
         slack covers the table's per-entry rounding, so every precision
-        returns byte-identical results, and the same as ``find()``."""
+        returns byte-identical results, and the same as ``find()``.  Tag
+        weights force f32 (the similarity threshold is a discontinuity no
+        rounding bound survives).
+
+        The query options ride the same pass (the JAX package's batch
+        form): the tag-weighted block inside the kernels; a
+        document-side filter (the batch's options are shared) compacts the
+        buckets once; a booster, compiled once, multiplies the ranking and
+        the exact scores alike; ``bidirectional`` appends each query's
+        reversed needle to the batch and merges the two orientations by
+        exact score."""
         if mesh is not None:
             raise _not_ported("find_batch(mesh=...)", "7: multi-device serving")
         _check_options(kwargs)
         start_time = time.time()
         with trace.span("batch.prepare"):
-            prepared, plans, len_ts, norm_totals, sim_dtype = (
+            prepared, plans, len_ts, norm_totals, tagws, sim_dtype = (
                 self._prepare_static_batch(texts, n, min_score, sim_precision, kwargs)
             )
+            booster = kwargs.get("booster")
+            boosts = None
+            if booster is not None:
+                boost = self._compile_booster(booster)
+                boosts = [boost if pq.n_tokens else None for pq in prepared]
+            doc_filter = None
+            live = [pq for pq in prepared if pq.n_tokens]
+            if live:
+                doc_filter = self._doc_filter(live[0])
+            Q0 = len(prepared)
+            if kwargs.get("bidirectional"):
+                plans = plans + [
+                    _reverse_plan(qp, max(pq.n_tokens, 1))
+                    for qp, pq in zip(plans, prepared)
+                ]
+                tagws = tagws + [
+                    _reverse_tagw(tw, max(pq.n_tokens, 1))
+                    for tw, pq in zip(tagws, prepared)
+                ]
+                prepared = prepared + prepared
+                len_ts = len_ts + len_ts
+                norm_totals = norm_totals + norm_totals
+                if boosts is not None:
+                    boosts = boosts + boosts
+        any_tags = any(t is not None for t in tagws)
         with trace.span("batch.topk"):
             src, entry_err = self._engine.score_topk_multi(
                 plans, len_ts, self._gaps, self._locality, norm_totals, n + 32,
                 gap_costs=self._gap_costs, sim_dtype=sim_dtype, with_err=True,
+                tag_weights=tagws if any_tags else None, doc_filter=doc_filter,
+                boosts=boosts,
             )
         items, item_qis = [], []
         for qi, pq in enumerate(prepared):
             if pq.n_tokens == 0:
                 continue
-            items.append((src.qview(qi), plans[qi], pq, norm_totals[qi]))
+            items.append((
+                src.qview(qi), plans[qi], pq, norm_totals[qi], tagws[qi],
+                boosts[qi] if boosts is not None else None,
+            ))
             item_qis.append(qi)
         per_q = self._finalize_quantized_many(
-            items, self._gaps, self._metric_name, n, min_score, entry_err
+            items, self._gaps, self._metric_name, n, min_score, entry_err,
+            doc_filter,
         )
         matches_by_qi = dict(zip(item_qis, per_q))
+        if len(prepared) > Q0:
+            matches_by_qi = {
+                qi: self._merge_bidirectional(
+                    matches_by_qi.get(qi, []), matches_by_qi.get(qi + Q0, []),
+                    prepared[qi], n,
+                )
+                for qi in range(Q0)
+                if qi in matches_by_qi or (qi + Q0) in matches_by_qi
+            }
         elapsed = time.time() - start_time
         return [
             Result(self, matches_by_qi[qi], elapsed)
             if qi in matches_by_qi
             else Result(self, [], 0.0)
-            for qi in range(len(prepared))
+            for qi in range(Q0)
         ]
 
     def _prepare_static_batch(self, texts, n, min_score, sim_precision, kwargs):
@@ -752,16 +948,14 @@ class BruteForceIndex(Index):
         gather identical bits), and resolve ``sim_precision`` (None:
         ``$VECTORIAN_SIM_PRECISION``, else "int8"; ValueError past "int8",
         "bfloat16" and "float32").  Returns (prepared, plans, len_ts,
-        norm_totals, the ranking table's ``sim_dtype``: None for f32)."""
+        norm_totals, tagws (each query's TagWeightingSpec at its padded
+        width, or None), the ranking table's ``sim_dtype``: None for
+        f32)."""
         if sim_precision is None:
             sim_precision = os.environ.get("VECTORIAN_SIM_PRECISION") or "int8"
         if sim_precision not in ("int8", "bfloat16", "float32"):
             raise ValueError(f"unknown sim_precision {sim_precision!r}")
-        # quantized ranking needs tag_weights=None (the tag threshold is a
-        # discontinuity no rounding bound survives); tag weights are not
-        # served yet, so every batch here may quantize
-        sim_dtype = None if sim_precision == "float32" else sim_precision
-        prepared, plans, len_ts, norm_totals = [], [], [], []
+        prepared, plans, len_ts, norm_totals, tagws = [], [], [], [], []
         for text in texts:
             pq = self.make_query(text, n=n, min_score=min_score, **kwargs).prepare(
                 self._nlp
@@ -769,8 +963,18 @@ class BruteForceIndex(Index):
             prepared.append(pq)
             plans.append(self._compile_plan(pq))
             len_ts.append(max(pq.n_tokens, 1))
-            norm_totals.append(float(max(pq.n_tokens, 1)))
-        return prepared, plans, len_ts, norm_totals, sim_dtype
+            tagw = self._tag_weighting(pq, _pad_needle(pq)[2])
+            tagws.append(tagw)
+            norm_totals.append(
+                tagw.total if tagw is not None else float(max(pq.n_tokens, 1))
+            )
+        # quantized ranking needs tag_weights=None (the tag threshold is a
+        # discontinuity no rounding bound survives): tag weights force f32
+        quantize = sim_precision != "float32" and not any(
+            t is not None for t in tagws
+        )
+        sim_dtype = sim_precision if quantize else None
+        return prepared, plans, len_ts, norm_totals, tagws, sim_dtype
 
     def _quant_eps(self, entry_err: float, pq, norm_total: float) -> float:
         return max(
@@ -780,11 +984,15 @@ class BruteForceIndex(Index):
 
     def _finalize_quantized_many(
         self, items, gaps, metric_name, n: int, min_score: float,
-        entry_err: float,
+        entry_err: float, doc_filter=None,
     ) -> List[List["Match"]]:
         """Batched finalizer: ``items`` is one (source view, plan, pq,
-        norm_total) tuple per query; every device round runs ONCE for the
-        whole batch.
+        norm_total, tagw, boost) tuple per query (``tagw`` its
+        TagWeightingSpec or None, ``boost`` the booster's [n_slices]
+        weights or None: an exact score is raw / norm_total * boost, and
+        the slack grows with the largest boost); ``doc_filter`` the batch's
+        DocFilterSpec or None.  Every device round runs ONCE for the whole
+        batch.
 
         The cut is provable: the best device score OUTSIDE the candidate set
         must sit below the exact n-th score minus the drift slack ``eps``
@@ -808,10 +1016,14 @@ class BruteForceIndex(Index):
         # round 1: candidates with exact raw scores
         meta = []
         _t_fin = time.perf_counter()
-        for src, plan, pq, norm_total in items:
+        for src, plan, pq, norm_total, tagw, boost in items:
             eps = self._quant_eps(entry_err, pq, norm_total)
+            if boost is not None:
+                eps = eps * max(1.0, float(np.max(boost)))
             cand, rest_max, raw = src.initial_exact(n + 32, min_score - eps)
             exact = raw / max(norm_total, 1e-9)
+            if boost is not None:
+                exact = exact * boost[np.asarray(cand, np.int64)]
             order = order_by_score(packed, cand, exact)
             keep = [j for j in order if exact[j] > min_score][:n]
             meta.append(
@@ -847,7 +1059,7 @@ class BruteForceIndex(Index):
             for (qi, _, _, _), (ids, rmap) in zip(calls, found):
                 if not ids:
                     continue
-                _, plan, pq, _ = items[qi]
+                _, plan, pq, _, tagw, _ = items[qi]
                 meta[qi]["extra"] = ids
                 meta[qi]["extra_raws"] = rmap
                 missing = [e for e in ids if e not in rmap]
@@ -858,13 +1070,15 @@ class BruteForceIndex(Index):
                             "slice_ids": missing,
                             "qp": plan,
                             "len_t": pq.n_tokens,
+                            "tag_weights": tagw,
                             "want_flows": False,
                         }
                     )
                     extra_qis.append(qi)
         res2 = (
             engine.rescore_many(
-                extra_reqs, gaps, self._locality, gap_costs=self._gap_costs
+                extra_reqs, gaps, self._locality, gap_costs=self._gap_costs,
+                doc_filter=doc_filter,
             )
             if extra_reqs
             else []
@@ -881,12 +1095,14 @@ class BruteForceIndex(Index):
         for qi, m in enumerate(meta):
             entries = [(key_of(sid, s), sid, s) for sid, s in m["first_entries"]]
             if "extra" in m:
-                _, _, _, norm_total = items[qi]
+                _, _, _, norm_total, _, boost = items[qi]
                 extra = m["extra"]
                 raw_extra = np.asarray(
                     [m["extra_raws"][e] for e in extra], np.float32
                 )
                 exact_extra = raw_extra / max(norm_total, 1e-9)
+                if boost is not None:
+                    exact_extra = exact_extra * boost[np.asarray(extra, np.int64)]
                 entries += [
                     (key_of(e, float(exact_extra[i])), e, float(exact_extra[i]))
                     for i, e in enumerate(extra)
@@ -896,8 +1112,8 @@ class BruteForceIndex(Index):
             m["entries"] = entries[:n]
 
         out = []
-        for (src, plan, pq, _), m in zip(items, meta):
-            # fused sources shipped flow payloads (H/S) with the initial
+        for (src, plan, pq, _, tagw, _), m in zip(items, meta):
+            # fused sources shipped flow payloads (H/S/Su) with the initial
             # fetch — traceback host-side, no extra round trip; flows of
             # the others are DEFERRED to one shared resolver per query
             resolver = None
@@ -905,7 +1121,21 @@ class BruteForceIndex(Index):
             for _, sid, score in m["entries"]:
                 pay = src.flows_payload(sid)
                 if pay is not None:
-                    mp, es = self._flows_from_payload(*pay, pq.n_tokens, gaps)
+                    H, Sw, Su, ln = pay
+                    sel = None
+                    if doc_filter is not None:
+                        # the payload holds the compacted slice; the host
+                        # replica of the compaction gives its length and
+                        # translates the mapping to original offsets
+                        sel = engine.filtered_positions(sid, doc_filter)
+                        ln = len(sel)
+                    mp, es = self._flows_from_payload(
+                        H, Sw, Su, ln, pq.n_tokens, gaps
+                    )
+                    if sel is not None:
+                        mp = np.where(mp >= 0, sel[np.maximum(mp, 0)], -1).astype(
+                            np.int32
+                        )
                     merged.append(
                         Match(
                             self, pq, slice_id=sid, score=score,
@@ -915,8 +1145,8 @@ class BruteForceIndex(Index):
                     continue
                 if resolver is None:
                     resolver = _FlowResolver(
-                        self, plan, pq.n_tokens, gaps, self._locality,
-                        self._gap_costs,
+                        self, plan, pq.n_tokens, tagw, gaps, self._locality,
+                        self._gap_costs, doc_filter,
                     )
                 mt = Match(
                     self, pq, slice_id=sid, score=score, metric=metric_name,
@@ -928,19 +1158,20 @@ class BruteForceIndex(Index):
         trace.add("fin.r3", time.perf_counter() - _t_fin)
         return out
 
-    def _flows_from_payload(self, H, S, ln: int, len_t: int, gaps):
+    def _flows_from_payload(self, H, Sw, Su, ln: int, len_t: int, gaps):
         """(mapping, edge_sims) from a fused-fetch flow payload — shares
         rescore_many's unpack helpers (batch_tracebacks/edge_sims_of), so
-        payload and rescored flows are byte-identical.  General gap models
-        pass the index-level cost vectors (prefix-stable under the
-        payload's padded widths)."""
+        payload and rescored flows are byte-identical: the traceback reads
+        the block the DP read (``Sw``), the edge similarities the
+        unweighted one (``Su``).  General gap models pass the index-level
+        cost vectors (prefix-stable under the payload's padded widths)."""
         w_s = w_t = None
         if self._gap_costs is not None:
-            w_s = gap_vec(self._gap_costs[0], S.shape[0] + 1)
-            w_t = gap_vec(self._gap_costs[1], S.shape[1] + 1)
+            w_s = gap_vec(self._gap_costs[0], Sw.shape[0] + 1)
+            w_t = gap_vec(self._gap_costs[1], Sw.shape[1] + 1)
         (mapping,) = batch_tracebacks(
-            H[None], S[None], np.asarray([ln], np.int32),
+            H[None], Sw[None], np.asarray([ln], np.int32),
             np.asarray([len_t], np.int32), gaps, self._locality,
             w_s=w_s, w_t=w_t,
         )
-        return np.asarray(mapping, np.int32), edge_sims_of(mapping, S, len_t)
+        return np.asarray(mapping, np.int32), edge_sims_of(mapping, Su, len_t)

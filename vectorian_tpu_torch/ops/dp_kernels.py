@@ -29,6 +29,12 @@ counts.
   ``wsb_dp_scores_flat`` runs it on a flat [B, L, T] batch (both replace
   ``pallas_align_scores_general``).
 
+The four gather and row-gather entries also read the tag-weighted block
+(``tags``, a ``TagBlock``; f32 tables only): each similarity becomes the JAX
+package's tag-weighted value (ops/search.py ``_apply_tag_weights``) before
+the DP step that consumes it, inside the kernel (``tag_weighted`` is the
+plain version of that rewrite).
+
 A CUDA tensor always goes to the kernel — a build or launch failure raises,
 nothing falls back; only tensors on the CPU take the plain version (the
 ``*_reference`` function beside each wrapper: the torch scans of
@@ -105,12 +111,14 @@ WSB_REG_THREADS = 128
 TABLE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _DTYPE_TAGS = {torch.float32: "", torch.bfloat16: "[bf16]", torch.int8: "[int8]"}
 # kernel launches since the last reset (one per launch of each kernel: the
-# row-gather entries and their flat-batch wrappers count as "*_flat"), and
-# the launches of the WSB entries by route
+# row-gather entries and their flat-batch wrappers count as "*_flat"; a
+# launch on the tag-weighted block as "<kernel>[tagged]"), and the launches
+# of the WSB entries by route
 LAUNCHES = {
     "affine_dp": 0, "affine_dp[bf16]": 0, "affine_dp[int8]": 0,
-    "affine_dp_flat": 0,
-    "wsb_dp": 0, "wsb_dp[bf16]": 0, "wsb_dp[int8]": 0, "wsb_dp_flat": 0,
+    "affine_dp[tagged]": 0, "affine_dp_flat": 0, "affine_dp_flat[tagged]": 0,
+    "wsb_dp": 0, "wsb_dp[bf16]": 0, "wsb_dp[int8]": 0, "wsb_dp[tagged]": 0,
+    "wsb_dp_flat": 0, "wsb_dp_flat[tagged]": 0,
 }
 WSB_ROUTE_LAUNCHES = {
     "registers": 0, "shared": 0, "scratch": 0,
@@ -123,34 +131,47 @@ AFFINE_ROUTE_LAUNCHES = {
 # the ptxas report of each source's last verbose build
 PTXAS_REPORTS: Dict[str, str] = {}
 
+class _TagArgs(ctypes.Structure):
+    """csrc/*.cu ``TagArgs``: the tag-weighted block's device pointers and
+    the layout of its [Q, T] weights (query q, column j at q * qs + j *
+    cs)."""
+
+    _fields_ = [
+        ("pos", ctypes.c_void_p), ("w", ctypes.c_void_p), ("p", ctypes.c_void_p),
+        ("pen", ctypes.c_void_p), ("thr", ctypes.c_void_p),
+        ("qs", ctypes.c_int), ("cs", ctypes.c_int),
+    ]
+
+
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+_T = ctypes.POINTER(_TagArgs)
 _SIGNATURES = {
     "affine_dp": {
         "vt_affine_dp_scores": [
             _P, _I, _P, _P, _P, _P, _I64, _I, _I, _I, _F, _F, _F, _F, _I,
-            _I, _I, _P, _P,
+            _I, _I, _P, _T, _P,
         ],
         "vt_affine_dp_scores_rows": [
             _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I64, _F, _F, _F, _F,
-            _I, _I, _I, _I, _P, _P,
+            _I, _I, _I, _I, _P, _T, _P,
         ],
     },
     "wsb_dp": {
         "vt_wsb_dp_scores": [
             _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I,
-            _I, _I, _P,
+            _I, _I, _T, _P,
         ],
         "vt_wsb_dp_scores_regs": [
             _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P, _I64, _I, _I, _I, _I,
-            _I, _P,
+            _I, _T, _P,
         ],
         "vt_wsb_dp_scores_rows": [
             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I64,
-            _I, _I, _I, _I, _I, _P,
+            _I, _I, _I, _I, _I, _T, _P,
         ],
         "vt_wsb_dp_scores_rows_regs": [
             _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _I64, _I, _I,
-            _I64, _I, _I, _I, _P,
+            _I64, _I, _I, _I, _T, _P,
         ],
     },
 }
@@ -283,6 +304,75 @@ def _check_gap_vecs(L: int, T: int, w_s, w_t, w_t_star):
             raise ValueError(f"{name} must hold at least T + 1 = {T + 1} costs")
 
 
+class TagBlock(NamedTuple):
+    """The tag-weighted similarity block's inputs (the JAX package's
+    ``_apply_tag_weights``): S[i, j] of query (or table slot) q becomes
+    ``S * w`` with ``w = w[q, j] * (1 if pos[r, i] == p[q, j] else 1 -
+    pen[q])``, then 0 wherever ``S * w <= thr[q]``.
+
+    pos [n, L] int8: the pos ids of the rows ``tokens`` holds (compacted
+    with them under a document-side filter); w [Q, T] f32 and p [Q, T]
+    int8: each query's (row-gather: each table slot's) needle weights and
+    pos ids; pen, thr [Q] f32."""
+
+    pos: torch.Tensor
+    w: torch.Tensor
+    p: torch.Tensor
+    pen: torch.Tensor
+    thr: torch.Tensor
+
+
+def tag_weighted(S, pos, w, p, pen, thr):
+    """The plain tag-weight rewrite of a block S [B, L, T] f32 with its
+    rows' pos ids [B, L] and each problem's w, p [B, T] and pen, thr [B]:
+    the JAX package's arithmetic in its order (w first, then S * w, then
+    the threshold)."""
+    sel = torch.where(
+        pos[:, :, None] == p[:, None, :], 1.0, 1.0 - pen[:, None, None]
+    )
+    Sw = S * (w[:, None, :] * sel)
+    return torch.where(Sw > thr[:, None, None], Sw, 0.0)
+
+
+def _check_tags(fn, tags, table, tokens, slots: int, T: int):
+    """Shapes and types of a ``TagBlock`` beside its launch's table
+    (f32 only: tag weights force f32 ranking) and tokens."""
+    if table.dtype != torch.float32:
+        raise ValueError(f"{fn}: tag weights need an f32 table, not {table.dtype}")
+    if tuple(tags.pos.shape) != tuple(tokens.shape):
+        raise ValueError(f"{fn}: tags.pos must be {tuple(tokens.shape)}")
+    for name in ("w", "p"):
+        t = getattr(tags, name)
+        if t.dim() != 2 or t.shape[0] != slots or t.shape[1] < T:
+            raise ValueError(f"{fn}: tags.{name} must be [{slots}, >= {T}]")
+    for name in ("pen", "thr"):
+        if tuple(getattr(tags, name).shape) != (slots,):
+            raise ValueError(f"{fn}: tags.{name} must be [{slots}]")
+
+
+def _tag_args(fn, tags, dev, T: int, query_major: bool):
+    """(the C ``TagArgs`` pointer or None, the tensors it points into):
+    the weights in the layout of the route, [Q, T] (``query_major``: a
+    lane a column) or [T, Q] (a thread a query, consecutive queries in a
+    warp)."""
+    if tags is None:
+        return None, ()
+    w, p = (t[:, :T].contiguous() for t in (tags.w, tags.p))
+    if not query_major:
+        w, p = w.t().contiguous(), p.t().contiguous()
+    held = (tags.pos, w, p, tags.pen, tags.thr)
+    _check_cuda(
+        fn, dev, **{f"tags.{n}": (t, d) for n, t, d in zip(
+            ("pos", "w", "p", "pen", "thr"), held,
+            (torch.int8, torch.float32, torch.int8, torch.float32, torch.float32),
+        )}
+    )
+    Q = tags.w.shape[0]
+    qs, cs = (T, 1) if query_major else (1, Q)
+    args = _TagArgs(*(t.data_ptr() for t in held), qs, cs)
+    return ctypes.pointer(args), held
+
+
 def _raise_on(rc: int, name: str):
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed (error {rc})")
@@ -346,13 +436,31 @@ def affine_launch_plan(problems: int, Tpad: int, rows: bool = False,
                       blocks * smem // 4)
 
 
+def _gathered_block(table, tok, tags, c0):
+    """The corpus pass's similarity problems of slices ``tok`` [c, L]
+    (the ``c0``-th on): ``table[tok]`` cast to f32 (a quantized table's
+    exact values, as the JAX corpus pass casts its gathered block), as [c *
+    Q, L, Tpad] (problem s * Q + q), tag-weighted where ``tags`` is given."""
+    c, L = tok.shape
+    _, Tpad, Q = table.shape
+    S2 = table[tok].float().permute(0, 3, 1, 2).reshape(c * Q, L, Tpad)
+    if tags is None:
+        return S2
+    return tag_weighted(
+        S2, tags.pos[c0 : c0 + c].repeat_interleave(Q, 0),
+        tags.w[:, :Tpad].repeat(c, 1), tags.p[:, :Tpad].repeat(c, 1),
+        tags.pen.repeat(c), tags.thr.repeat(c),
+    )
+
+
 def affine_dp_scores_reference(
-    table, tokens, len_s, len_t, gaps, locality, max_bytes: int = 1 << 29
+    table, tokens, len_s, len_t, gaps, locality, max_bytes: int = 1 << 29,
+    tags=None,
 ):
-    """Plain torch version of ``affine_dp_scores``: ``table[tokens]``, cast
-    to f32 (a quantized table's exact values, as the JAX corpus pass casts
-    its gathered block), and the torch scan, chunked over slices so the
-    gathered [c, L, Tpad, Q] f32 block stays under ``max_bytes``."""
+    """Plain torch version of ``affine_dp_scores``: the gathered block
+    (``table[tokens]`` as f32, tag-weighted with ``tags``) and the torch
+    scan, chunked over slices so the gathered [c, L, Tpad, Q] f32 block
+    stays under ``max_bytes``."""
     n, L = tokens.shape
     _, Tpad, Q = table.shape
     ln1 = torch.clamp_min(len_s, 1)
@@ -361,8 +469,7 @@ def affine_dp_scores_reference(
     for c0 in range(0, n, chunk):
         tok = tokens[c0 : c0 + chunk].long()
         c = tok.shape[0]
-        S = table[tok].float()  # [c, L, Tpad, Q]
-        S2 = S.permute(0, 3, 1, 2).reshape(c * Q, L, Tpad)
+        S2 = _gathered_block(table, tok, tags, c0)
         raw = align_scores(
             S2,
             ln1[c0 : c0 + c].repeat_interleave(Q),
@@ -375,7 +482,7 @@ def affine_dp_scores_reference(
 
 
 def affine_dp_scores(table, tokens, len_s, len_t, gaps, locality,
-                     _route=None):
+                     tags=None, _route=None):
     """Raw affine-DP scores [n, Q] f32 of every slice against every query.
 
     table [V, Tpad, Q] (query q's similarity of vocab row v to its needle
@@ -387,17 +494,21 @@ def affine_dp_scores(table, tokens, len_s, len_t, gaps, locality,
     changing them rebuilds and uploads nothing).  Any needle width is
     served (``affine_launch_plan`` picks the route; the wide route reads a
     query-major [V, Q, Tpad] copy of the table, whose rows are contiguous).
-    ``_route`` forces a route, for comparing them."""
+    ``tags``: a ``TagBlock`` (f32 table; pos [n, L], w and p [Q, >= Tpad],
+    pen and thr [Q]), or None.  ``_route`` forces a route, for comparing
+    them."""
     _check_locality(locality)
     dev = table.device
-    if dev.type == "cpu":
-        return affine_dp_scores_reference(
-            table, tokens, len_s, len_t, gaps, locality
-        )
     if table.dim() != 3 or tokens.dim() != 2:
         raise ValueError("table must be [V, Tpad, Q] and tokens [n, L]")
     n, L = tokens.shape
     _, Tpad, Q = table.shape
+    if tags is not None:
+        _check_tags("affine_dp_scores", tags, table, tokens, Q, Tpad)
+    if dev.type == "cpu":
+        return affine_dp_scores_reference(
+            table, tokens, len_s, len_t, gaps, locality, tags=tags
+        )
     if tuple(len_s.shape) != (n,) or tuple(len_t.shape) != (Q,):
         raise ValueError("len_s must be [n] and len_t [Q]")
     _check_cuda(
@@ -413,6 +524,7 @@ def affine_dp_scores(table, tokens, len_s, len_t, gaps, locality,
     wide = plan.route != "registers"
     # at Q = 1 the query-major layout is the same memory, not a copy
     tq = table.transpose(1, 2).contiguous() if wide else table
+    tag_ptr, held = _tag_args("affine_dp_scores", tags, dev, Tpad, wide)
     scratch, scratch_ptr = _scratch(dev, plan.floats)
     lib = _load("affine_dp")
     with torch.cuda.device(dev):
@@ -422,20 +534,27 @@ def affine_dp_scores(table, tokens, len_s, len_t, gaps, locality,
             ln1.data_ptr(), len_t.data_ptr(), out.data_ptr(), n, L, Tpad, Q,
             float(gaps[0]), float(gaps[1]), float(gaps[2]), float(gaps[3]),
             LOCALITIES.index(locality), plan.blocks if wide else 0,
-            plan.smem, scratch_ptr, stream,
+            plan.smem, scratch_ptr, tag_ptr, stream,
         )
     # the caching allocator orders any reuse of these after the launch
-    del scratch, tq
+    del scratch, tq, held
     _raise_on(rc, "affine_dp")
-    LAUNCHES["affine_dp" + _DTYPE_TAGS[table.dtype]] += 1
+    LAUNCHES["affine_dp" + ("[tagged]" if tags is not None else
+                            _DTYPE_TAGS[table.dtype])] += 1
     AFFINE_ROUTE_LAUNCHES[plan.route] += 1
     return out
 
 
-def _gather_rows(tokens, rows, qslot, table, V: int):
+def _gather_rows(tokens, rows, qslot, table, V: int, tags=None):
     """The similarity blocks [B, L, Tmax] of row-gather problems:
-    ``table[qslot * V + tokens[rows]]`` (the plain versions' gather)."""
-    return table[qslot.long()[:, None] * V + tokens[rows.long()].long()]
+    ``table[qslot * V + tokens[rows]]`` (the plain versions' gather),
+    tag-weighted where ``tags`` is given."""
+    S = table[qslot.long()[:, None] * V + tokens[rows.long()].long()]
+    if tags is None:
+        return S
+    T, k = S.shape[2], qslot.long()
+    return tag_weighted(S, tags.pos[rows.long()], tags.w[k, :T], tags.p[k, :T],
+                        tags.pen[k], tags.thr[k])
 
 
 def _check_rows(fn, tokens, rows, qslot, table, len_s, len_t):
@@ -456,15 +575,15 @@ def _rows_ptrs(tokens, rows, qslot):
 
 
 def affine_dp_scores_rows_reference(tokens, rows, qslot, table, V, len_s,
-                                    len_t, gaps, locality):
-    """Plain torch version of ``affine_dp_scores_rows``: the gather and the
-    torch scan, then the empty-slice mask."""
-    S = _gather_rows(tokens, rows, qslot, table, V)
+                                    len_t, gaps, locality, tags=None):
+    """Plain torch version of ``affine_dp_scores_rows``: the gather (and
+    the tag weights), the torch scan, then the empty-slice mask."""
+    S = _gather_rows(tokens, rows, qslot, table, V, tags)
     return align_scores(S, len_s, len_t, gaps, locality).masked_fill(len_s <= 0, NEG)
 
 
 def _affine_rows_launch(table, tokens, rows, qslot, V, L, len_s, len_t, gaps,
-                        locality, mask_empty, route=None):
+                        locality, mask_empty, route=None, tags=None):
     B, T = len_s.shape[0], table.shape[1]
     dev = table.device
     out = torch.empty((B,), dtype=torch.float32, device=dev)
@@ -472,6 +591,7 @@ def _affine_rows_launch(table, tokens, rows, qslot, V, L, len_s, len_t, gaps,
         return out
     plan = affine_launch_plan(B, T, rows=True, route=route)
     wide = plan.route != "rows_registers"
+    tag_ptr, held = _tag_args("affine_dp_scores_rows", tags, dev, T, True)
     scratch, scratch_ptr = _scratch(dev, plan.floats)
     lib = _load("affine_dp")
     with torch.cuda.device(dev):
@@ -481,31 +601,37 @@ def _affine_rows_launch(table, tokens, rows, qslot, V, L, len_s, len_t, gaps,
             len_s.data_ptr(), len_t.data_ptr(), out.data_ptr(), B, L, T, V,
             float(gaps[0]), float(gaps[1]), float(gaps[2]), float(gaps[3]),
             LOCALITIES.index(locality), int(mask_empty),
-            plan.blocks if wide else 0, plan.smem, scratch_ptr, stream,
+            plan.blocks if wide else 0, plan.smem, scratch_ptr, tag_ptr, stream,
         )
-    del scratch
+    del scratch, held
     _raise_on(rc, "affine_dp_flat")
-    LAUNCHES["affine_dp_flat"] += 1
+    LAUNCHES["affine_dp_flat" + ("[tagged]" if tags is not None else "")] += 1
     AFFINE_ROUTE_LAUNCHES[plan.route] += 1
     return out
 
 
 def affine_dp_scores_rows(tokens, rows, qslot, table, V, len_s, len_t, gaps,
-                          locality, _route=None):
+                          locality, tags=None, _route=None):
     """Raw affine-DP scores [B] f32 of (bucket row, query slot) problems,
     the gather fused in: problem b aligns bucket row ``rows[b]`` of
     ``tokens`` [n, L] i32 against table slot ``qslot[b]`` of ``table``
     [slots * V, Tmax] f32 (similarity row i = table[qslot[b] * V +
     tokens[rows[b], i]]); rows, qslot, len_s (0 allowed) and len_t (1 <=
     len_t <= Tmax) [B] i32.  A problem with len_s <= 0 scores -1e30 (the
-    rescore's empty-slice mask).  Routes as ``affine_launch_plan(...,
-    rows=True)`` picks them (``_route`` forces one, for comparing them)."""
+    rescore's empty-slice mask).  ``tags``: a ``TagBlock`` whose pos rows
+    index like ``tokens`` and whose w, p [slots, >= Tmax], pen, thr
+    [slots] index like the table's slots, or None.  Routes as
+    ``affine_launch_plan(..., rows=True)`` picks them (``_route`` forces
+    one, for comparing them)."""
     _check_locality(locality)
-    _, L, _ = _check_rows("affine_dp_scores_rows", tokens, rows, qslot, table,
+    _, L, T = _check_rows("affine_dp_scores_rows", tokens, rows, qslot, table,
                           len_s, len_t)
+    if tags is not None:
+        _check_tags("affine_dp_scores_rows", tags, table, tokens,
+                    tags.w.shape[0], T)
     if table.device.type == "cpu":
         return affine_dp_scores_rows_reference(
-            tokens, rows, qslot, table, V, len_s, len_t, gaps, locality
+            tokens, rows, qslot, table, V, len_s, len_t, gaps, locality, tags
         )
     _check_cuda(
         "affine_dp_scores_rows", table.device, table=(table, torch.float32),
@@ -514,7 +640,7 @@ def affine_dp_scores_rows(tokens, rows, qslot, table, V, len_s, len_t, gaps,
         len_t=(len_t, torch.int32),
     )
     return _affine_rows_launch(table, tokens, rows, qslot, V, L, len_s, len_t,
-                               gaps, locality, True, _route)
+                               gaps, locality, True, _route, tags)
 
 
 def affine_dp_scores_flat_reference(S, len_s, len_t, gaps, locality):
@@ -638,12 +764,12 @@ def _register_costs(L: int, T: int, table, vecs, host_costs):
 
 def wsb_dp_scores_reference(
     table, tokens, len_s, len_t, w_s, w_t, w_t_star, locality,
-    max_bytes: int = 1 << 28,
+    max_bytes: int = 1 << 28, tags=None,
 ):
-    """Plain torch version of ``wsb_dp_scores``: ``table[tokens]``, cast
-    to f32 (as in ``affine_dp_scores_reference``), and the torch WSB scan,
-    chunked over slices so the scan's resident rows ([L + 1, c * Q, Tpad +
-    1] f32, about as large as its temporaries) stay under ``max_bytes``."""
+    """Plain torch version of ``wsb_dp_scores``: the gathered block (as
+    in ``affine_dp_scores_reference``) and the torch WSB scan, chunked over
+    slices so the scan's resident rows ([L + 1, c * Q, Tpad + 1] f32, about
+    as large as its temporaries) stay under ``max_bytes``."""
     n, L = tokens.shape
     _, Tpad, Q = table.shape
     ln1 = torch.clamp_min(len_s, 1)
@@ -652,7 +778,7 @@ def wsb_dp_scores_reference(
     for c0 in range(0, n, chunk):
         tok = tokens[c0 : c0 + chunk].long()
         c = tok.shape[0]
-        S2 = table[tok].float().permute(0, 3, 1, 2).reshape(c * Q, L, Tpad)
+        S2 = _gathered_block(table, tok, tags, c0)
         raw = align_scores_general(
             S2,
             ln1[c0 : c0 + c].repeat_interleave(Q),
@@ -667,7 +793,7 @@ def wsb_dp_scores_reference(
 
 
 def wsb_dp_scores(table, tokens, len_s, len_t, w_s, w_t, w_t_star, locality,
-                  host_costs=None, _route=None):
+                  host_costs=None, tags=None, _route=None):
     """Raw WSB-DP scores [n, Q] f32 of every slice against every query.
 
     table [V, Tpad, Q] f32, bf16 or int8 (as in ``affine_dp_scores``: the
@@ -680,9 +806,9 @@ def wsb_dp_scores(table, tokens, len_s, len_t, w_s, w_t, w_t_star, locality,
     ``host_costs``: the same three vectors on the host (``GeneralGaps.
     host_vecs``); the register route passes the costs by value, and without
     them it copies the device vectors back first, which waits for the
-    stream.  Any bucket capacity and needle width is served
-    (``wsb_launch_plan`` picks the route; ``_route`` forces one, for
-    comparing the routes)."""
+    stream.  ``tags``: a ``TagBlock`` as in ``affine_dp_scores``, or None.
+    Any bucket capacity and needle width is served (``wsb_launch_plan``
+    picks the route; ``_route`` forces one, for comparing the routes)."""
     _check_locality(locality)
     dev = table.device
     if table.dim() != 3 or tokens.dim() != 2:
@@ -690,9 +816,12 @@ def wsb_dp_scores(table, tokens, len_s, len_t, w_s, w_t, w_t_star, locality,
     n, L = tokens.shape
     _, Tpad, Q = table.shape
     _check_gap_vecs(L, Tpad, w_s, w_t, w_t_star)
+    if tags is not None:
+        _check_tags("wsb_dp_scores", tags, table, tokens, Q, Tpad)
     if dev.type == "cpu":
         return wsb_dp_scores_reference(
-            table, tokens, len_s, len_t, w_s, w_t, w_t_star, locality
+            table, tokens, len_s, len_t, w_s, w_t, w_t_star, locality,
+            tags=tags,
         )
     if tuple(len_s.shape) != (n,) or tuple(len_t.shape) != (Q,):
         raise ValueError("len_s must be [n] and len_t [Q]")
@@ -711,7 +840,10 @@ def wsb_dp_scores(table, tokens, len_s, len_t, w_s, w_t, w_t_star, locality,
                            route=_route, Q=Q)
     lib = _load("wsb_dp")
     code = TABLE_DTYPES[table.dtype]
-    if plan.route == "registers":
+    # lanes a column on the register route, a thread a query elsewhere
+    regs = plan.route == "registers"
+    tag_ptr, held = _tag_args("wsb_dp_scores", tags, dev, Tpad, regs)
+    if regs:
         n_wt = min(hs[1].numel(), hs[2].numel())
         tq = wsb_register_table(table)
         with torch.cuda.device(dev):
@@ -720,7 +852,8 @@ def wsb_dp_scores(table, tokens, len_s, len_t, w_s, w_t, w_t_star, locality,
                 tq.data_ptr(), code, tokens.data_ptr(), ln1.data_ptr(),
                 len_t.data_ptr(), hs[0].data_ptr(), hs[0].numel(),
                 hs[1].data_ptr(), hs[2].data_ptr(), n_wt, out.data_ptr(),
-                n, L, Tpad, Q, LOCALITIES.index(locality), plan.blocks, stream,
+                n, L, Tpad, Q, LOCALITIES.index(locality), plan.blocks,
+                tag_ptr, stream,
             )
         # the costs were copied into the launch; the caching allocator
         # orders any reuse of a transposed table after it on this stream
@@ -734,11 +867,13 @@ def wsb_dp_scores(table, tokens, len_s, len_t, w_s, w_t, w_t_star, locality,
                 len_t.data_ptr(), w_s.data_ptr(), w_t.data_ptr(),
                 w_t_star.data_ptr(), out.data_ptr(), scratch_ptr, n, L, Tpad,
                 Q, LOCALITIES.index(locality), plan.blocks, plan.threads,
-                plan.smem, stream,
+                plan.smem, tag_ptr, stream,
             )
         del scratch
+    del held
     _raise_on(rc, "wsb_dp")
-    LAUNCHES["wsb_dp" + _DTYPE_TAGS[table.dtype]] += 1
+    LAUNCHES["wsb_dp" + ("[tagged]" if tags is not None else
+                         _DTYPE_TAGS[table.dtype])] += 1
     WSB_ROUTE_LAUNCHES[plan.route] += 1
     return out
 
@@ -752,16 +887,16 @@ def _wsb_general_scores(S, len_s, len_t, w_s, w_t, w_t_star, locality):
 
 
 def wsb_dp_scores_rows_reference(tokens, rows, qslot, table, V, len_s, len_t,
-                                 w_s, w_t, w_t_star, locality):
-    """Plain torch version of ``wsb_dp_scores_rows``: the gather and the
-    torch WSB scan, then the empty-slice mask."""
-    S = _gather_rows(tokens, rows, qslot, table, V)
+                                 w_s, w_t, w_t_star, locality, tags=None):
+    """Plain torch version of ``wsb_dp_scores_rows``: the gather (and the
+    tag weights), the torch WSB scan, then the empty-slice mask."""
+    S = _gather_rows(tokens, rows, qslot, table, V, tags)
     raw = _wsb_general_scores(S, len_s, len_t, w_s, w_t, w_t_star, locality)
     return raw.masked_fill(len_s <= 0, NEG)
 
 
 def _wsb_rows_launch(table, tokens, rows, qslot, V, L, len_s, len_t, vecs,
-                     locality, host_costs, route, mask_empty):
+                     locality, host_costs, route, mask_empty, tags=None):
     B, T = len_s.shape[0], table.shape[1]
     dev = table.device
     out = torch.empty((B,), dtype=torch.float32, device=dev)
@@ -774,6 +909,7 @@ def _wsb_rows_launch(table, tokens, rows, qslot, V, L, len_s, len_t, vecs,
     ptrs = (table.data_ptr(), *_rows_ptrs(tokens, rows, qslot),
             len_s.data_ptr(), len_t.data_ptr())
     loc = LOCALITIES.index(locality)
+    tag_ptr, held = _tag_args("wsb_dp_scores_rows", tags, dev, T, True)
     scratch = None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -782,39 +918,43 @@ def _wsb_rows_launch(table, tokens, rows, qslot, V, L, len_s, len_t, vecs,
                 *ptrs, hs[0].data_ptr(), hs[0].numel(), hs[1].data_ptr(),
                 hs[2].data_ptr(), min(hs[1].numel(), hs[2].numel()),
                 out.data_ptr(), B, L, T, V, loc, int(mask_empty), plan.blocks,
-                stream,
+                tag_ptr, stream,
             )
         else:
             scratch, scratch_ptr = _scratch(dev, plan.floats)
             rc = lib.vt_wsb_dp_scores_rows(
                 *ptrs, *(w.data_ptr() for w in vecs), out.data_ptr(),
                 scratch_ptr, B, L, T, V, loc, int(mask_empty), plan.blocks,
-                plan.threads, plan.smem, stream,
+                plan.threads, plan.smem, tag_ptr, stream,
             )
-    del scratch
+    del scratch, held
     _raise_on(rc, "wsb_dp_flat")
-    LAUNCHES["wsb_dp_flat"] += 1
+    LAUNCHES["wsb_dp_flat" + ("[tagged]" if tags is not None else "")] += 1
     WSB_ROUTE_LAUNCHES[plan.route] += 1
     return out
 
 
 def wsb_dp_scores_rows(tokens, rows, qslot, table, V, len_s, len_t, w_s, w_t,
-                       w_t_star, locality, host_costs=None):
+                       w_t_star, locality, host_costs=None, tags=None):
     """Raw WSB-DP scores [B] f32 of (bucket row, query slot) problems, the
     gather fused in (inputs as in ``affine_dp_scores_rows``; a problem with
     len_s <= 0 scores -1e30).  Cost vectors as in ``wsb_dp_scores``
     (w_s [>= L + 1], w_t and w_t_star [>= Tmax + 1]; ``host_costs`` their
-    host copies for the register route, ``GeneralGaps.host_vecs``).  Routes
-    as ``wsb_launch_plan(..., rows=True)`` picks them."""
+    host copies for the register route, ``GeneralGaps.host_vecs``).
+    ``tags`` as in ``affine_dp_scores_rows``.  Routes as
+    ``wsb_launch_plan(..., rows=True)`` picks them."""
     _check_locality(locality)
     _, L, T = _check_rows("wsb_dp_scores_rows", tokens, rows, qslot, table,
                           len_s, len_t)
     _check_gap_vecs(L, T, w_s, w_t, w_t_star)
+    if tags is not None:
+        _check_tags("wsb_dp_scores_rows", tags, table, tokens,
+                    tags.w.shape[0], T)
     dev = table.device
     if dev.type == "cpu":
         return wsb_dp_scores_rows_reference(
             tokens, rows, qslot, table, V, len_s, len_t, w_s, w_t, w_t_star,
-            locality,
+            locality, tags,
         )
     _check_cuda(
         "wsb_dp_scores_rows", dev, table=(table, torch.float32),
@@ -825,7 +965,7 @@ def wsb_dp_scores_rows(tokens, rows, qslot, table, V, len_s, len_t, w_s, w_t,
     )
     return _wsb_rows_launch(table, tokens, rows, qslot, V, L, len_s, len_t,
                             (w_s, w_t, w_t_star), locality, host_costs,
-                            None, True)
+                            None, True, tags)
 
 
 def wsb_dp_scores_flat_reference(S, len_s, len_t, w_s, w_t, w_t_star,

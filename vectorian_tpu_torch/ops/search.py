@@ -17,12 +17,23 @@ kernels, which read each problem's rows from the stacked plan table.
 
 Score normalization follows the reference (metric/alignment.h:84-106 +
 match.h:295-336) with the default submatch_weight 0:
-``score = raw / total`` where ``total`` is the needle length.
+``score = raw / total`` where ``total`` is the needle length (the sum of
+the needle's tag weights under tag weighting), times the slice's boost
+under a booster.
+
+The query options that ride these kernels (the JAX package's batch form,
+ops/search.py there): tag weights rewrite the similarity block inside the
+kernels (``dp_kernels.TagBlock``) and in the fused rescore's torch ops,
+with the same arithmetic; a document-side filter compacts each bucket's
+token and pos ids once per call (``compact_slices``), so every kernel reads
+the filtered slices as they are; a booster multiplies the normalized
+ranking scores after the kernel.
 """
 
 from __future__ import annotations
 
 import time
+from dataclasses import dataclass
 from typing import Dict, List
 
 import numpy as np
@@ -38,8 +49,10 @@ from vectorian_tpu_torch.ops.alignment import (
     traceback_general,
 )
 from vectorian_tpu_torch.ops.dp_kernels import (
+    TagBlock,
     affine_dp_scores,
     affine_dp_scores_rows,
+    tag_weighted,
     wsb_dp_scores,
     wsb_dp_scores_rows,
 )
@@ -102,6 +115,112 @@ class GeneralGaps:
     def host_vecs(self, capacity: int):
         """The same three vectors on the host."""
         return self._w_s_pair(capacity)[0], self.w_t_host, self.w_t_star_host
+
+
+@dataclass
+class TagWeightingSpec:
+    """Tag-weighted similarity of one query (reference TagWeightedSlice,
+    slice/static.h:186-288): S'(i, j) = S(i, j) * t_pos_weights[j] * (1 -
+    penalty * [pos_s(i) != pos_t(j)]), then 0 where it is not above the
+    threshold.  A batch's specs reach the device stacked
+    (``corpus_tag_columns``, ``stack_tag_slots``)."""
+
+    t_pos_weights: np.ndarray  # [T] f32 per needle token
+    pos_t: np.ndarray  # [T] i8 universal pos ids of needle tokens
+    pos_mismatch_penalty: float
+    similarity_threshold: float
+
+    @property
+    def total(self) -> float:
+        return float(np.sum(self.t_pos_weights))
+
+
+@dataclass
+class DocFilterSpec:
+    """Document-side token filtering (reference TokenFilter query.h:8-28 +
+    FilteredSlice slice/static.h:104-184): drop document tokens by universal
+    POS, fine tag, or explicit token string before alignment.  On the
+    device each bucket's rows are compacted with a stable sort
+    (``compact_slices``)."""
+
+    pos_exclude: np.ndarray  # [n_pos] bool
+    tag_exclude: np.ndarray  # [n_tags] bool
+    token_exclude: np.ndarray  # [V] bool
+
+    def device_args(self, device):
+        """The three exclusion masks as bool tensors on ``device``."""
+        return tuple(
+            torch.as_tensor(np.asarray(m, bool), device=device)
+            for m in (self.pos_exclude, self.tag_exclude, self.token_exclude)
+        )
+
+
+def compact_slices(tok, pos, tag, lengths, pos_ex, tag_ex, tok_ex):
+    """Stable-compact the kept tokens of each row of ``tok`` [c, L] to its
+    front (the JAX package's ``_compact_slices``): returns (perm [c, L]
+    int64, the new lengths [c] int32, keep [c, L] bool); ``perm`` gathers
+    original positions, dropped and padded ones go to the end in their
+    order.  A gather commutes with a permutation of the rows, so compacting
+    the token ids before a kernel gives it the block the JAX corpus pass
+    compacts after its gather."""
+    L = tok.shape[1]
+    idx = torch.arange(L, device=tok.device)[None, :]
+    valid = idx < lengths[:, None]
+    # int32 indices: half the temporaries of int64 at 1M x 16 ids
+    keep = (
+        valid & ~pos_ex[pos.int()] & ~tag_ex[tag.int()] & ~tok_ex[tok.int()]
+    )
+    # stable sort: kept positions (key 0) before dropped ones (key 1)
+    key = (~keep).to(torch.int32)
+    perm = torch.sort(key, dim=1, stable=True).indices
+    return perm, keep.sum(1, dtype=torch.int32), keep
+
+
+def corpus_tag_columns(tag_weights, Q: int, Tpad: int):
+    """The corpus pass's per-query tag columns (numpy): weights [Q, Tpad]
+    f32, needle pos ids [Q, Tpad] int8, penalty and threshold [Q] f32.  A
+    query without tag weights stays identity, as in the JAX package:
+    weight 1, pos -1, penalty 0 (the pos never matters), threshold -1 (a
+    similarity of -1 or below becomes 0)."""
+    w = np.ones((Q, Tpad), np.float32)
+    p = np.full((Q, Tpad), -1, np.int8)
+    pen = np.zeros((Q,), np.float32)
+    thr = np.full((Q,), -1.0, np.float32)
+    for qi, tw in enumerate(tag_weights):
+        if tw is None:
+            continue
+        t = len(tw.t_pos_weights)
+        w[qi, :t] = tw.t_pos_weights
+        p[qi, :t] = tw.pos_t
+        pen[qi] = tw.pos_mismatch_penalty
+        thr[qi] = tw.similarity_threshold
+    return w, p, pen, thr
+
+
+def stack_tag_slots(tag_weights, Qp: int, Tmax: int):
+    """The rescores' per-slot tag arrays (numpy, as ``corpus_tag_columns``)
+    for the stacked plan table's ``Qp`` slots: a tagged slot's columns past
+    its needle get weight 0 and pos -1 (the JAX package's ``_stack_tw``); an
+    untagged slot keeps S as it is (weight 1, threshold -inf: S * 1 is S,
+    and every finite S is above -inf)."""
+    w = np.ones((Qp, Tmax), np.float32)
+    p = np.full((Qp, Tmax), -1, np.int8)
+    pen = np.zeros((Qp,), np.float32)
+    thr = np.full((Qp,), -np.inf, np.float32)
+    for si, tg in enumerate(tag_weights):
+        if tg is None:
+            continue
+        T = len(tg.t_pos_weights)
+        w[si] = 0.0
+        w[si, :T] = tg.t_pos_weights
+        p[si, :T] = tg.pos_t
+        pen[si] = tg.pos_mismatch_penalty
+        thr[si] = tg.similarity_threshold
+    return w, p, pen, thr
+
+
+def _put_all(arrays, device):
+    return tuple(torch.as_tensor(a, device=device) for a in arrays)
 
 
 # the quantized ranking tables of ``find_batch(sim_precision=...)``
@@ -205,7 +324,7 @@ def order_by_score(packed, ids, scores) -> np.ndarray:
 
 def _bucket_scores_multiquery(
     tokens, lengths, sim_multi, len_t, gaps, norm_total, locality,
-    general=None, sim_scale=None,
+    general=None, sim_scale=None, tags=None, boost=None,
 ):
     """[n, Q] normalized scores of one bucket — Q queries in one corpus
     pass, one kernel launch (the gather of ``sim_multi`` by ``tokens`` is
@@ -214,18 +333,25 @@ def _bucket_scores_multiquery(
     a 0-d f32 tensor on the device for an int8 table, else None; ``gaps``
     and ``general`` are then in the table's units (divided by it), and the
     raw scores are multiplied by it coming out, before the normalization
-    (the JAX package's order)."""
+    (the JAX package's order).  ``tags``: the tag-weighted block's
+    ``TagBlock`` (the kernel rewrites S), else None; ``boost``: [n, Q] f32
+    multipliers of the normalized scores, else None.  ``tokens`` and
+    ``lengths`` are the compacted ones under a document-side filter: a
+    slice the filter empties scores NEG_SCORE."""
     if general is None:
-        raw = affine_dp_scores(sim_multi, tokens, lengths, len_t, gaps, locality)
+        raw = affine_dp_scores(sim_multi, tokens, lengths, len_t, gaps, locality,
+                               tags=tags)
     else:
         capacity = int(tokens.shape[1])
         raw = wsb_dp_scores(
             sim_multi, tokens, lengths, len_t, *general.vecs(capacity),
-            locality, host_costs=general.host_vecs(capacity),
+            locality, host_costs=general.host_vecs(capacity), tags=tags,
         )
     if sim_scale is not None:
         raw = raw * sim_scale
     scores = raw / torch.clamp_min(norm_total, 1e-9)[None, :]
+    if boost is not None:
+        scores = scores * boost
     return scores.masked_fill(lengths[:, None] <= 0, NEG_SCORE)
 
 
@@ -234,6 +360,20 @@ def _mq_similarity(tok, qidx, table, V: int):
     plan table (shared by the fused top-k rescore, the select-with-rescore
     and the stacked rescore, so their bits agree)."""
     return table[qidx[:, None].long() * V + tok.long()]  # [g, L, Tmax]
+
+
+def _mq_blocks(tok, pos, qidx, table, V: int, tw=None):
+    """``_mq_similarity``'s rows and their tag weights (the same arithmetic
+    as the row-gather kernels' rewrite and its plain version, so their bits
+    agree): (S weighted [g, L, Tmax], S unweighted).  ``tw``: the slots'
+    (w, p, pen, thr) device arrays (``stack_tag_slots``) with ``pos`` [g,
+    L] the rows' pos ids, else None (both are S)."""
+    S = _mq_similarity(tok, qidx, table, V)
+    if tw is None:
+        return S, S
+    w, p, pen, thr = tw
+    q = qidx.long()
+    return tag_weighted(S, pos, w[q], p[q], pen[q], thr[q]), S
 
 
 def _mq_matrices_scores(S, ln, lt, gaps, locality, general=None):
@@ -254,20 +394,22 @@ def _mq_matrices_scores(S, ln, lt, gaps, locality, general=None):
 
 
 def _rows_scores(tokens, rows, qidx, table, V: int, ln, lt, gaps, locality,
-                 general=None):
+                 general=None, pos=None, tw=None):
     """Score-only variant of _mq_matrices_scores on _mq_similarity's rows
     (same bits, same NEG_SCORE mask): ONE launch of the row-gather DP
     kernel, which reads each (row, query slot) problem's similarity rows
-    from the stacked table itself; its plain version on the CPU.
-    ``general``: the GeneralGaps of a non-affine model, else None."""
+    from the stacked table itself, tag-weighted by ``tw`` with ``pos`` [n,
+    L] (the bucket rows' pos ids) where given; its plain version on the
+    CPU.  ``general``: the GeneralGaps of a non-affine model, else None."""
     i32 = torch.int32
     args = (tokens, rows.to(i32), qidx.to(i32), table, V, ln.to(i32), lt.to(i32))
+    tags = None if tw is None else TagBlock(pos, *tw)
     if general is None:
-        return affine_dp_scores_rows(*args, gaps, locality)
+        return affine_dp_scores_rows(*args, gaps, locality, tags=tags)
     capacity = int(tokens.shape[1])
     return wsb_dp_scores_rows(
         *args, *general.vecs(capacity), locality,
-        host_costs=general.host_vecs(capacity),
+        host_costs=general.host_vecs(capacity), tags=tags,
     )
 
 
@@ -278,12 +420,28 @@ def _ec_general(ec, capacity: int):
     return None if gg is None else gg.vecs(capacity)
 
 
-def _topk_exact_rescore(scores, tokens, ln_all, ec, n: int, kk: int, kd: int):
+def _rows_matrices(db, rows, qidx, ec):
+    """The fused rescore of bucket rows ``rows`` against slots ``qidx``:
+    (H, raw, S weighted, S unweighted or None when no query is tagged)."""
+    tokens = db["tokens"]
+    pos = db["pos"][rows] if ec["tw"] is not None else None
+    S, Su = _mq_blocks(tokens[rows], pos, qidx, ec["table"], ec["V"], ec["tw"])
+    H, raw = _mq_matrices_scores(
+        S, db["lengths"][rows], ec["lt_q"][qidx], ec["gaps"], ec["locality"],
+        _ec_general(ec, tokens.shape[1]),
+    )
+    return H, raw, S, (None if ec["tw"] is None else Su)
+
+
+def _topk_exact_rescore(scores, db, ec, n: int, kk: int, kd: int):
     """Per-bucket device top-k FUSED with the exact f32 rescore and the
     traceback DP matrices of the selected rows: candidates reach the host
-    already carrying their exact raw scores and flow payloads (H and the
-    similarity block S).  ``kd`` >= kk deepens the (vals, ids, exact-raw)
-    fetch past the payload depth, so boundary tie groups resolve host-side.
+    already carrying their exact raw scores and flow payloads (H, the
+    similarity block S the DP read, and under tag weights the unweighted
+    block Su the edge similarities read).  ``kd`` >= kk deepens the (vals,
+    ids, exact-raw) fetch past the payload depth, so boundary tie groups
+    resolve host-side.  ``db``: the bucket as the corpus pass read it
+    (compacted under a document-side filter).
 
     ``torch.topk`` promises no order among ties; the design does not need
     one: the (kd+1)-th value bounds every unfetched slice, and
@@ -292,32 +450,27 @@ def _topk_exact_rescore(scores, tokens, ln_all, ec, n: int, kk: int, kd: int):
     Q = idx.shape[0]
     rows = idx[:, :kd].reshape(-1)
     qidx = torch.arange(Q, device=idx.device).repeat_interleave(kd)
-    S = _mq_similarity(tokens[rows], qidx, ec["table"], ec["V"])
-    H, raw = _mq_matrices_scores(
-        S, ln_all[rows], ec["lt_q"][qidx], ec["gaps"], ec["locality"],
-        _ec_general(ec, tokens.shape[1]),
-    )
+    H, raw, S, Su = _rows_matrices(db, rows, qidx, ec)
     if kd > kk:
         # flow payloads ship only to the kk payload depth; the deep tail
         # carries (score, id, raw) triples only
-        H = H.reshape(Q, kd, *H.shape[1:])[:, :kk].reshape(Q * kk, *H.shape[1:])
-        S = S.reshape(Q, kd, *S.shape[1:])[:, :kk].reshape(Q * kk, *S.shape[1:])
-    return vals, idx, raw.reshape(Q, kd), H, S
+        def head(x):
+            return None if x is None else x.reshape(Q, kd, *x.shape[1:])[
+                :, :kk].reshape(Q * kk, *x.shape[1:])
+
+        H, S, Su = head(H), head(S), head(Su)
+    return vals, idx, raw.reshape(Q, kd), H, S, Su
 
 
-def _full_exact_rescore(scores, tokens, ln_all, ec, n: int):
+def _full_exact_rescore(scores, db, ec, n: int):
     """Exact rescore + flow payloads for EVERY row of a small
     (fully-fetched) bucket for all Q queries."""
     Q = ec["lt_q"].shape[0]
-    dev = tokens.device
+    dev = scores.device
     rows = torch.arange(n, device=dev).repeat(Q)
     qidx = torch.arange(Q, device=dev).repeat_interleave(n)
-    S = _mq_similarity(tokens[rows], qidx, ec["table"], ec["V"])
-    H, raw = _mq_matrices_scores(
-        S, ln_all[rows], ec["lt_q"][qidx], ec["gaps"], ec["locality"],
-        _ec_general(ec, tokens.shape[1]),
-    )
-    return scores[:n].T, raw.reshape(Q, n), H, S
+    H, raw, S, Su = _rows_matrices(db, rows, qidx, ec)
+    return scores[:n].T, raw.reshape(Q, n), H, S, Su
 
 
 def _host(t) -> np.ndarray:
@@ -352,10 +505,11 @@ class BucketTopKSource:
     ABOVE_CAP = 8192
 
     def __init__(self, engine, pending, Q: int, k: int, exact_ctx):
-        """``exact_ctx``: {table, V, Tmax, lt_q, gaps, general, locality} —
-        the top-k step also computes each selected row's exact f32 raw DP
-        score (``general``: the GeneralGaps of a non-affine model, else
-        None)."""
+        """``exact_ctx``: {table, V, Tmax, lt_q, gaps, general, locality,
+        tw} — the top-k step also computes each selected row's exact f32 raw
+        DP score (``general``: the GeneralGaps of a non-affine model, else
+        None; ``tw``: the slots' tag arrays, else None).  ``pending``: (the
+        bucket as its corpus pass read it, its [n, Q] scores)."""
         self._engine = engine
         self._pending = pending
         self.Q = Q
@@ -366,31 +520,31 @@ class BucketTopKSource:
         pay_budget = self.PAYLOAD_MAX_BYTES  # WHOLE-FETCH budget
         t_loop0 = time.perf_counter()
         deep = self.DEEP_K if Q <= 8 else self.DEEP_K_LARGE_Q
+        # similarity blocks a payload row carries: S, and Su under tags
+        blocks = 1 if ec["tw"] is None else 2
         for db, scores in pending:
             n = db["n"]
             kk = min(k, n)
             kd = max(kk, min(deep, n - 1))
             pay_bytes = Q * kk * 4 * (
                 (db["capacity"] + 1) * (ec["Tmax"] + 1)
-                + db["capacity"] * ec["Tmax"]
+                + blocks * db["capacity"] * ec["Tmax"]
             )
             with_pay = pay_bytes <= pay_budget
             if with_pay:
                 pay_budget -= pay_bytes
             if kd < n:
-                vals, idx, raw, H, S = _topk_exact_rescore(
-                    scores, db["tokens"], db["lengths"], ec, n, kk, kd
+                vals, idx, raw, H, S, Su = _topk_exact_rescore(
+                    scores, db, ec, n, kk, kd
                 )
                 metas.append({"db": db, "kk": kd, "full": False, "pay": with_pay})
                 refs.extend((vals, idx, raw))
             else:
-                vals, raw, H, S = _full_exact_rescore(
-                    scores, db["tokens"], db["lengths"], ec, n
-                )
+                vals, raw, H, S, Su = _full_exact_rescore(scores, db, ec, n)
                 metas.append({"db": db, "kk": kk, "full": True, "pay": with_pay})
                 refs.extend((vals, raw))
             if with_pay:
-                refs.extend((H, S))
+                refs.extend((H, S) if Su is None else (H, S, Su))
         trace.add("topk.rescore_dispatch", time.perf_counter() - t_loop0)
         with trace.span("topk.fetch"):
             fetched = [_host(r) for r in refs]
@@ -414,17 +568,20 @@ class BucketTopKSource:
             m["exact"] = fetched[pos]  # [Q, kk] raw f32
             pos += 1
             if m["pay"]:
-                m["H"] = fetched[pos].reshape(self.Q, -1, *fetched[pos].shape[1:])
-                m["S"] = fetched[pos + 1].reshape(
-                    self.Q, -1, *fetched[pos + 1].shape[1:]
-                )
-                pos += 2
+                for key in ("H", "S", "Su")[: 1 + blocks]:
+                    m[key] = fetched[pos].reshape(self.Q, -1, *fetched[pos].shape[1:])
+                    pos += 1
+                if blocks == 1:
+                    m["Su"] = m["S"]
             self._buckets.append(m)
         self._col_cache = {}
 
     def flows_payload(self, qi: int, sid: int):
-        """(H [S1, T1], S [L, Tmax], slice_len) for a candidate that was
-        fetched with flow payloads, else None (caller rescores)."""
+        """(H [S1, T1], S [L, Tmax] as the DP read it, Su [L, Tmax]
+        unweighted, slice_len) for a candidate that was fetched with flow
+        payloads, else None (caller rescores).  Under a document-side
+        filter the blocks are the compacted slice's, and its length is the
+        caller's to take (``filtered_positions``)."""
         for m in self._buckets:
             if not m["pay"]:
                 continue
@@ -436,7 +593,7 @@ class BucketTopKSource:
                     # ride the transfer
                     return None
                 ln = int(self._engine.packed.slice_len[sid])
-                return m["H"][qi, p], m["S"][qi, p], ln
+                return m["H"][qi, p], m["S"][qi, p], m["Su"][qi, p], ln
         return None
 
     def qview(self, qi: int) -> "TopKView":
@@ -520,7 +677,7 @@ class BucketTopKSource:
             raw = _rows_scores(
                 db["tokens"], rows, qidx, ec["table"], ec["V"],
                 db["lengths"][rows], ec["lt_q"][qidx], ec["gaps"],
-                ec["locality"], ec["general"],
+                ec["locality"], ec["general"], db.get("pos"), ec["tw"],
             )
             rows_h, raw_h = _host(rows), _host(raw)
         ends = np.cumsum(counts[keep])
@@ -640,29 +797,35 @@ def edge_sims_of(mapping, Su, len_t: int) -> np.ndarray:
 
 
 def _stacked_rescore(tokens, rows, qidx, table, ln, lt, gaps, V, locality,
-                     want_flows, general=None):
-    """Similarity gather + DP for the rescore rows of MANY queries in one
-    pass (``general``: the GeneralGaps of a non-affine model).  Bit-exact
-    vs the per-query arithmetic: the table rows are copies of each query's
-    compiled plan matrix, and the DP recurrence is column-prefix-causal
-    with (len_s, len_t)-masked reductions, so the pad columns of narrower
-    queries never perturb a real cell's bits.  Without flows the gather
-    stays inside the row-gather kernel."""
+                     want_flows, general=None, pos=None, tw=None):
+    """Similarity gather (+ tag weights: ``tw`` the slots' arrays, ``pos``
+    the rows' pos ids [n, L]) + DP for the rescore rows of MANY queries in
+    one pass (``general``: the GeneralGaps of a non-affine model).
+    Bit-exact vs the per-query arithmetic: the table rows are copies of
+    each query's compiled plan matrix, and the DP recurrence is
+    column-prefix-causal with (len_s, len_t)-masked reductions, so the pad
+    columns of narrower queries never perturb a real cell's bits.  Without
+    flows the gather stays inside the row-gather kernel.  Returns (raw, H,
+    S weighted, S unweighted), the last three None without flows."""
     if not want_flows:
         raw = _rows_scores(tokens, rows, qidx, table, V, ln, lt, gaps,
-                           locality, general)
-        return raw, None, None
-    S = _mq_similarity(tokens[rows], qidx, table, V)
+                           locality, general, pos, tw)
+        return raw, None, None, None
+    S, Su = _mq_blocks(
+        tokens[rows], None if tw is None else pos[rows], qidx, table, V, tw
+    )
     H, raw = _mq_matrices_scores(
         S, ln, lt, gaps, locality,
         None if general is None else general.vecs(int(tokens.shape[1])),
     )
-    return raw, H, S
+    return raw, H, S, Su
 
 
 class BruteForceEngine:
     """Scores a PackedCorpus against compiled query plans; the bucket
-    arrays live on ``device`` (resident mode)."""
+    arrays live on ``device`` (resident mode).  The buckets' pos and tag
+    ids go to the device at the first query that needs them (tag weights,
+    a document-side filter)."""
 
     def __init__(self, packed, device="cuda"):
         self._packed = packed
@@ -675,6 +838,7 @@ class BruteForceEngine:
             self._slice_loc[b.slice_index, 1] = np.arange(b.n, dtype=np.int32)
             self._device_buckets.append(
                 {
+                    "bi": bi,
                     "capacity": b.capacity,
                     "slice_index": b.slice_index,
                     "n": b.n,
@@ -688,6 +852,69 @@ class BruteForceEngine:
             np.ascontiguousarray(arr, np.int32), device=self.device
         )
 
+    def _bucket_ids(self, db, key: str) -> torch.Tensor:
+        """The bucket's "pos" (int8) or "tag" (int16) ids [n, L] on the
+        device, uploaded at the first call that needs them."""
+        if key not in db:
+            b = self._packed.buckets[db["bi"]]
+            arr = b.pos_ids if key == "pos" else b.tag_ids
+            db[key] = torch.as_tensor(np.ascontiguousarray(arr), device=self.device)
+        return db[key]
+
+    def _pass_buckets(self, doc_filter=None, with_pos=False):
+        """The non-empty buckets as one call's corpus pass reads them:
+        dicts of the bucket's fields with "tokens", "lengths" and (with
+        ``with_pos``) "pos" compacted under ``doc_filter`` (once a call:
+        every query of a batch shares the filter), else the resident
+        ones."""
+        flt = None if doc_filter is None else doc_filter.device_args(self.device)
+        out = []
+        for db in self._device_buckets:
+            if db["n"] == 0:
+                continue
+            view = dict(db)
+            if with_pos or flt is not None:
+                view["pos"] = self._bucket_ids(db, "pos")
+            if flt is not None:
+                perm, ln, _ = compact_slices(
+                    db["tokens"], view["pos"], self._bucket_ids(db, "tag"),
+                    db["lengths"], *flt,
+                )
+                view["tokens"] = torch.gather(db["tokens"], 1, perm).contiguous()
+                view["pos"] = torch.gather(view["pos"], 1, perm).contiguous()
+                view["lengths"] = ln
+            out.append(view)
+        return out
+
+    def count_tokens(self, mask) -> np.ndarray:
+        """[n_slices] int64: per slice, how many of its tokens ``mask`` ([V]
+        bool over token ids) holds, one gather a bucket where the buckets
+        live (a booster's keyword counts)."""
+        m = torch.as_tensor(np.asarray(mask, bool), device=self.device)
+        out = np.zeros((self.n_slices,), np.int64)
+        for db in self._device_buckets:
+            if db["n"] == 0:
+                continue
+            live = (torch.arange(db["capacity"], device=self.device)[None, :]
+                    < db["lengths"][:, None])
+            out[db["slice_index"]] = _host((m[db["tokens"]] & live).sum(1))
+        return out
+
+    def filtered_positions(self, sid: int, doc_filter) -> np.ndarray:
+        """Host replica of the device compaction for one slice: the
+        original in-slice offsets of its kept tokens."""
+        ln = int(self._packed.slice_len[sid])
+        if doc_filter is None:
+            return np.arange(ln, dtype=np.int32)
+        bi, r = self._slice_loc[sid]
+        b = self._packed.buckets[bi]
+        keep = (
+            ~doc_filter.pos_exclude[b.pos_ids[r, :ln]]
+            & ~doc_filter.tag_exclude[b.tag_ids[r, :ln]]
+            & ~doc_filter.token_exclude[b.token_ids[r, :ln]]
+        )
+        return np.flatnonzero(keep).astype(np.int32)
+
     @property
     def packed(self):
         return self._packed
@@ -697,14 +924,24 @@ class BruteForceEngine:
         return self._packed.n_slices
 
     def _dispatch_multi(self, plans, len_ts, gaps, locality, norm_totals,
-                        gap_costs=None, sim_dtype=None):
-        """Dispatch half of the multi-query corpus pass: ([(bucket,
-        scores [n, Q] left on the device)], one kernel launch per bucket;
-        the quantization entry error, 0.0 for f32).  The index's gap model
-        is shared by every query in the batch: ONE [L + 1] / [Tpad + 1]
-        cost-vector pair per bucket serves all Q (the DP masks columns past
-        each query's len_t).  ``sim_dtype``: None (f32), "bfloat16" or
-        "int8" ranking table (``stack_query_tables``)."""
+                        gap_costs=None, sim_dtype=None, tag_weights=None,
+                        doc_filter=None, boosts=None):
+        """Dispatch half of the multi-query corpus pass: ([(bucket as the
+        pass read it, scores [n, Q] left on the device)], one kernel launch
+        per bucket; the quantization entry error, 0.0 for f32).  The
+        index's gap model is shared by every query in the batch: ONE [L +
+        1] / [Tpad + 1] cost-vector pair per bucket serves all Q (the DP
+        masks columns past each query's len_t).  ``sim_dtype``: None (f32),
+        "bfloat16" or "int8" ranking table (``stack_query_tables``).
+        ``tag_weights``: a TagWeightingSpec or None per query (any set
+        forces f32: ValueError with ``sim_dtype``); ``doc_filter``: the
+        batch's DocFilterSpec; ``boosts``: per query an [n_slices] f32
+        multiplier of its normalized ranking scores, or None."""
+        with_tags = tag_weights is not None and any(
+            tw is not None for tw in tag_weights
+        )
+        if sim_dtype is not None and with_tags:
+            raise ValueError("quantized ranking requires tag_weights=None")
         with trace.span("topk.tables"):
             sim_multi, sim_scale, max_abs, Tpad = stack_query_tables(
                 plans, len_ts, sim_dtype
@@ -718,25 +955,50 @@ class BruteForceEngine:
         nt_arr = torch.as_tensor(
             np.asarray(norm_totals, np.float32), device=self.device
         )
-        t_disp0 = time.perf_counter()
-        pending = [
-            (
-                db,
-                _bucket_scores_multiquery(
-                    db["tokens"], db["lengths"], sim_multi, lt_arr, gaps,
-                    nt_arr, locality, general, scale_t,
-                ),
+        Q = len(plans)
+        tw_cols = None
+        if with_tags:
+            tw_cols = _put_all(
+                corpus_tag_columns(tag_weights, Q, Tpad), self.device
             )
-            for db in self._device_buckets
-            if db["n"] > 0
-        ]
+        t_disp0 = time.perf_counter()
+        pending = []
+        for db in self._pass_buckets(doc_filter, with_pos=with_tags):
+            pending.append((db, _bucket_scores_multiquery(
+                db["tokens"], db["lengths"], sim_multi, lt_arr, gaps, nt_arr,
+                locality, general, scale_t,
+                None if tw_cols is None else TagBlock(db["pos"], *tw_cols),
+                None if boosts is None else self._boost_matrix(db, boosts),
+            )))
         trace.add("topk.dispatch", time.perf_counter() - t_disp0)
         return pending, quantization_entry_err(sim_dtype, max_abs)
+
+    def _boost_matrix(self, db, boosts):
+        """The bucket's [n, Q] boost multipliers: column q is ``boosts[q]``
+        of the bucket's slices, 1 where a query has none (the JAX package's
+        ``bmat[:n, q] = b[slice_index]``).  A booster's weights do not
+        depend on the query, so the queries of a call share one array: one
+        [n] upload a distinct array, spread over its columns on the
+        device."""
+        Q = len(boosts)
+        bmat = torch.ones((db["n"], Q), dtype=torch.float32, device=self.device)
+        done = set()
+        for b in boosts:
+            if b is None or id(b) in done:
+                continue
+            done.add(id(b))
+            cols = [qi for qi, bq in enumerate(boosts) if bq is b]
+            col = torch.as_tensor(
+                np.asarray(b, np.float32)[db["slice_index"]], device=self.device
+            )
+            bmat[:, cols] = col[:, None]
+        return bmat
 
     def score_topk_multi(
         self, plans, len_ts: List[int], gaps, locality: str,
         norm_totals: List[float], k: int, gap_costs=None, sim_dtype=None,
-        with_err: bool = False,
+        with_err: bool = False, tag_weights=None, doc_filter=None,
+        boosts=None,
     ):
         """Multi-query corpus pass with DEVICE-SIDE per-bucket top-k: only
         O(buckets * Q * k) (score, id, exact raw) triples reach the host.
@@ -745,13 +1007,23 @@ class BruteForceEngine:
         ``sim_dtype``: the ranking table's type (None: f32, "bfloat16",
         "int8"); the fused rescore, the extras round and ``rescore_many``
         read the f32 plan table all the same, so every score that reaches a
-        ``Match`` is exact.  Returns the ``BucketTopKSource`` the finalizer
-        consumes, and with ``with_err`` also the table's max per-entry
-        rounding (``quantization_entry_err``; the finalizer's slack)."""
+        ``Match`` is exact.  ``tag_weights``, ``doc_filter`` and ``boosts``
+        as in ``_dispatch_multi``; the fused rescore and the extras round
+        read the same rewritten rows (the boosts stay out of the raw
+        scores: the finalizer applies them).  Returns the
+        ``BucketTopKSource`` the finalizer consumes, and with ``with_err``
+        also the table's max per-entry rounding
+        (``quantization_entry_err``; the finalizer's slack)."""
         pending, entry_err = self._dispatch_multi(
-            plans, len_ts, gaps, locality, norm_totals, gap_costs, sim_dtype
+            plans, len_ts, gaps, locality, norm_totals, gap_costs, sim_dtype,
+            tag_weights, doc_filter, boosts,
         )
         table, V, Tmax = self._stacked_plan_tables(plans)
+        tw = None
+        if tag_weights is not None and any(t is not None for t in tag_weights):
+            tw = _put_all(
+                stack_tag_slots(tag_weights, len(plans), Tmax), self.device
+            )
         exact_ctx = {
             "table": table,
             "V": V,
@@ -765,6 +1037,7 @@ class BruteForceEngine:
                 else GeneralGaps(gap_costs, Tmax + 1, self.device)
             ),
             "locality": locality,
+            "tw": tw,
         }
         src = BucketTopKSource(self, pending, len(plans), k, exact_ctx)
         return (src, entry_err) if with_err else src
@@ -789,18 +1062,24 @@ class BruteForceEngine:
         return table, V, Tmax
 
     def rescore_many(self, requests: List[dict], gaps, locality: str,
-                     chunk: int = 8192, gap_costs=None):
+                     chunk: int = 8192, gap_costs=None, doc_filter=None):
         with trace.span("rescore_many"):
-            return self._rescore_many(requests, gaps, locality, chunk, gap_costs)
+            return self._rescore_many(requests, gaps, locality, chunk,
+                                      gap_costs, doc_filter)
 
-    def _rescore_many(self, requests, gaps, locality, chunk, gap_costs):
+    def _rescore_many(self, requests, gaps, locality, chunk, gap_costs,
+                      doc_filter):
         """Exact f32 rescore for MANY independent candidate sets (one per
         query): one gather + DP per touched bucket for the whole batch
         (``gap_costs`` as in ``score_topk_multi``).
 
-        Each request: {slice_ids, qp, len_t, want_flows}.  Returns
-        per-request (mappings, edge_sims, raw_scores); mappings/edge_sims
-        are -1/0 placeholders for score-only requests."""
+        Each request: {slice_ids, qp, len_t, want_flows, tag_weights (a
+        TagWeightingSpec, or None)}.  ``doc_filter`` (the index-level
+        DocFilterSpec, or None) compacts each slice on the host
+        (``filtered_positions``; a slice it empties scores NEG_SCORE) and
+        its mappings are translated back to original slice offsets.
+        Returns per-request (mappings, edge_sims, raw_scores);
+        mappings/edge_sims are -1/0 placeholders for score-only requests."""
         slot = {}  # request index -> stacked table slot (live requests)
         states = []
         pairs = []  # (request index, candidate position, slice id)
@@ -808,6 +1087,7 @@ class BruteForceEngine:
             slice_ids = [int(s) for s in req["slice_ids"]]
             len_t = req["len_t"]
             k = len(slice_ids)
+            sels = [self.filtered_positions(sid, doc_filter) for sid in slice_ids]
             states.append(
                 {
                     "len_t": len_t,
@@ -815,12 +1095,15 @@ class BruteForceEngine:
                     "mappings": [np.full((len_t,), -1, np.int32) for _ in range(k)],
                     "edge_sims": [np.zeros((len_t,), np.float32) for _ in range(k)],
                     "raw": np.full((k,), NEG_SCORE, np.float32),
+                    "sels": sels,
                 }
             )
             if k == 0:
                 continue
             slot[ri] = len(slot)
-            pairs.extend((ri, j, sid) for j, sid in enumerate(slice_ids))
+            pairs.extend(
+                (ri, j, sid) for j, sid in enumerate(slice_ids) if len(sels[j])
+            )
         if not pairs:
             return [(st["mappings"], st["edge_sims"], st["raw"]) for st in states]
         table, V, Tmax = self._stacked_plan_tables(
@@ -830,6 +1113,10 @@ class BruteForceEngine:
             None if gap_costs is None
             else GeneralGaps(gap_costs, Tmax + 1, self.device)
         )
+        tws = [requests[ri].get("tag_weights") for ri in slot]
+        tw = None
+        if any(t is not None for t in tws):
+            tw = _put_all(stack_tag_slots(tws, len(tws), Tmax), self.device)
         want_flows = any(states[ri]["want_flows"] for ri in slot)
         by_bucket: Dict[int, list] = {}
         for ri, j, sid in pairs:
@@ -837,25 +1124,34 @@ class BruteForceEngine:
             if bi < 0:
                 raise KeyError(sid)
             by_bucket.setdefault(bi, []).append((ri, j, sid))
-        slice_len = self._packed.slice_len
         groups = []
         for bi, plist in by_bucket.items():
             db = self._device_buckets[bi]
             for c0 in range(0, len(plist), chunk):
                 pc = plist[c0 : c0 + chunk]
+                sels = [states[ri]["sels"][j] for ri, j, _ in pc]
                 cols = {
                     "rows": [self._slice_loc[sid, 1] for _, _, sid in pc],
                     "qix": [slot[ri] for ri, _, _ in pc],
-                    "ln": [slice_len[sid] for _, _, sid in pc],
+                    "ln": [len(sel) for sel in sels],
                     "lt": [requests[ri]["len_t"] for ri, _, _ in pc],
                 }
                 rows, qix, ln, lt = (
                     torch.as_tensor(np.asarray(cols[c], np.int64), device=self.device)
                     for c in ("rows", "qix", "ln", "lt")
                 )
+                tokens = db["tokens"]
+                pos = None if tw is None else self._bucket_ids(db, "pos")
+                if doc_filter is not None:
+                    # the compacted rows, gathered on the host: kept tokens
+                    # first, in order (the rows past a slice's length are
+                    # never read)
+                    tokens, pos = self._compacted_rows(bi, cols["rows"], sels,
+                                                       tw is not None)
+                    rows = torch.arange(len(pc), device=self.device)
                 out = _stacked_rescore(
-                    db["tokens"], rows, qix, table, ln, lt, gaps, V,
-                    locality, want_flows, general,
+                    tokens, rows, qix, table, ln, lt, gaps, V,
+                    locality, want_flows, general, pos, tw,
                 )
                 groups.append((db["capacity"], pc, out))
 
@@ -864,10 +1160,12 @@ class BruteForceEngine:
                 (cap, pc, *(None if t is None else _host(t) for t in out))
                 for cap, pc, out in groups
             ]
-        for cap, pc, raw_np, H_np, Sw_np in fetched:
+        for cap, pc, raw_np, H_np, Sw_np, Su_np in fetched:
             maps = None
             if want_flows:
-                lens = np.asarray([slice_len[sid] for _, _, sid in pc], np.int32)
+                lens = np.asarray(
+                    [len(states[ri]["sels"][j]) for ri, j, _ in pc], np.int32
+                )
                 lts = np.asarray([states[ri]["len_t"] for ri, _, _ in pc], np.int32)
                 w_s = w_t = None
                 if gap_costs is not None:
@@ -881,8 +1179,29 @@ class BruteForceEngine:
                 st["raw"][j] = raw_np[pos_i]
                 if not st["want_flows"]:
                     continue
-                st["mappings"][j] = np.asarray(maps[pos_i], np.int32)
-                st["edge_sims"][j] = edge_sims_of(
-                    maps[pos_i], Sw_np[pos_i], st["len_t"]
-                )
+                mapping = maps[pos_i]
+                st["edge_sims"][j] = edge_sims_of(mapping, Su_np[pos_i], st["len_t"])
+                sel = st["sels"][j]
+                st["mappings"][j] = np.where(
+                    mapping >= 0, sel[np.maximum(mapping, 0)], -1
+                ).astype(np.int32)
         return [(st["mappings"], st["edge_sims"], st["raw"]) for st in states]
+
+    def _compacted_rows(self, bi: int, rows, sels, with_pos: bool):
+        """Bucket ``bi``'s ``rows``, each row's kept positions ``sels``
+        gathered to its front (the host compaction of
+        ``filtered_positions``; the tail repeats position 0): (tokens [g,
+        L] int32, pos [g, L] int8 or None) on the device."""
+        b = self._packed.buckets[bi]
+        sel_pad = np.zeros((len(rows), b.capacity), np.int64)
+        for k, sel in enumerate(sels):
+            sel_pad[k, : len(sel)] = sel
+        rows = np.asarray(rows, np.int64)
+        tok = np.take_along_axis(b.token_ids[rows], sel_pad, axis=1)
+        pos = None
+        if with_pos:
+            pos = torch.as_tensor(
+                np.take_along_axis(b.pos_ids[rows], sel_pad, axis=1),
+                device=self.device,
+            )
+        return self._put(tok), pos
