@@ -42,6 +42,10 @@ Phases, each of which raises on failure:
    group), shared, scratch and the L=256 bucket; WSB row-gather
    registers, shared (a gap bonus) and scratch — in 3 localities, bit for
    bit, each timed against its untagged self in turns and its bound.
+   3d: the dense entries of kernels 1 and 3 (the [c, L, Tpad, Q] block a
+   contextual chunk's metric GEMM writes) at the contextual pass's chunk
+   of L 16, Tpad 8, Q 32 and Q 1, at Tpad 132 and (WSB) L 64, in 3
+   localities, bit for bit, timed against their plain versions and bounds.
 4. Main path at real size: a 1,000,000-sentence Zipf corpus (9 tokens a
    sentence over 5,000 words, a 5,000 x 300 KeyedVectors), Session(device=
    "cuda") -> partition("sentence") -> index; find_batch of 32 queries at
@@ -85,12 +89,23 @@ Phases, each of which raises on failure:
    alignments/s, extras rounds, Saliency.compile's time; the tagged corpus
    kernels held against their plain versions at the tagged pass's shapes
    (Q = 32 and a find's Q = 1) and timed against their untagged selves.
+   4g, on phase 4's session: submatch_weight=0.5 through find (p50 of 21)
+   and find_batch Q=32, affine and general gaps, byte-identical; a find
+   with a debug callback counting its hooks; a boosted submatch find.
+   4f: contextual search: 500,000 of phase 4's sentences and a d=256
+   LambdaContextualEmbedding (seeded word vectors plus 0.2 of each
+   neighbour's): ensure_contextual's packing, find p50 (21) and
+   find_batch Q=32 under affine and general gaps, byte-identical, each
+   dense kernel held against its plain version at the pass's shapes, a
+   torch.profiler trace of one find_batch; the card against the CPU on a
+   3,000-sentence cut of the corpus.
 5. The port on the card against the port on the CPU on a small corpus,
    affine and general-gap indexes, phase 4's long query, and 4e's
    options at each of their precisions.
 
 ``python3 chip_smoke.py --build-ab`` instead times phase 2's build with and
-without ``--split-compile 0`` and exits.  ``python3 chip_smoke.py
+without ``--split-compile 0`` and exits; ``--dense-check`` runs phases 2,
+3d and 4f alone.  ``python3 chip_smoke.py
 --tag-check [SASS_DIR]`` runs phase 2, phase 3t and phase 3's general-gap
 kernels alone, then sets the WSB
 shared / scratch route's untagged and tagged templates side by side (ptxas
@@ -199,15 +214,21 @@ _AFFINE_TAGGED = re.compile(
 _AFFINE_WIDE_TAGGED = re.compile(r"affine_dp_wide_tagged_kernelILi(\d)ELb([01])ELb([01])EE")
 _WSB_REGS_TAGGED = re.compile(
     r"wsb_regs_tagged_kernelILi(\d+)ELi(\d+)ELi(\d)ELi(\d)ELb([01])EE")
+# the dense-block (K3) families
+_AFFINE_DENSE = re.compile(r"affine_dp_dense_kernelILi(\d+)ELi(\d)ELb([01])EE")
+_AFFINE_WIDE_DENSE = re.compile(r"affine_dp_wide_dense_kernelILi(\d)ELb([01])EE")
+_WSB_REGS_DENSE = re.compile(r"wsb_regs_dense_kernelILi(\d+)ELi(\d+)ELi(\d)ELi(\d)EE")
+_WSB_DENSE = re.compile(r"wsb_dp_dense_kernelILi(\d)ELi(\d+)EE")
 
 
 def ptxas_gate(reports):
     """Each kernel template's registers, stack frame and spills from the
     ptxas reports; raises if an affine template up to T1P = 33, a kernel of
     the affine wide route or a kernel of the WSB register route (either
-    entry, any table type, tagged or not) has a stack frame or spills, or
-    if the reports lack the gather kernels of a table type, the row-gather
-    kernels or the tagged ones.  The affine register templates past T1P =
+    entry, any table type, tagged or not) or any template of the dense
+    entries has a stack frame or spills, or if the reports lack the gather
+    kernels of a table type, the row-gather kernels, the tagged ones or the
+    dense ones.  The affine register templates past T1P =
     33 are printed on a line of their own, ungated."""
     from vectorian_tpu_torch.ops.dp_kernels import ptxas_entries
 
@@ -218,7 +239,23 @@ def ptxas_gate(reports):
             aw = _AFFINE_WIDE_TEMPLATE.search(name)
             at, awt = _AFFINE_TAGGED.search(name), _AFFINE_WIDE_TAGGED.search(name)
             wt = _WSB_REGS_TAGGED.search(name)
-            if at:
+            ad, awd = _AFFINE_DENSE.search(name), _AFFINE_WIDE_DENSE.search(name)
+            wd, wsd = _WSB_REGS_DENSE.search(name), _WSB_DENSE.search(name)
+            if ad:
+                label = (f"affine dense f32 T1P={ad[1]} loc={ad[2]}"
+                         f"{' vec' if ad[3] == '1' else ''}")
+                gated = True
+            elif wsd:
+                label = f"wsb dense f32 loc={wsd[1]} threads={wsd[2]}"
+                gated = True
+            elif awd:
+                label = (f"affine_wide dense f32 loc={awd[1]}"
+                         f"{' scratch' if awd[2] == '1' else ''}")
+                gated = True
+            elif wd:
+                label = f"wsb_regs dense f32 L={wd[1]} G={wd[2]} loc={wd[3]} P={wd[4]}"
+                gated = True
+            elif at:
                 label = (f"affine {'rows' if at[3] == '1' else 'gather'} tagged "
                          f"T1P={at[1]} loc={at[2]}{' vec' if at[4] == '1' else ''}")
                 gated = int(at[1]) <= 33
@@ -252,6 +289,7 @@ def ptxas_gate(reports):
              for e in ("gather", "rows") for t in ("f32", "tagged")]
     kinds += [f"{k} gather {t}" for k in ("affine", "affine_wide", "wsb_regs")
               for t in ("bf16", "int8")]
+    kinds += [f"{k} dense f32" for k in ("affine", "affine_wide", "wsb_regs", "wsb")]
     for kind in kinds:
         if not any(r[0].startswith(kind + " ") for r in rows):
             raise AssertionError(f"ptxas gate: the reports name no {kind} kernel")
@@ -509,6 +547,9 @@ def phase_kernels():
         for Tpad in (8, 16):
             for Q in (1, 3, 32, 512):
                 dev = DEVICE
+                # Q = 512: the kernel runs on every slice, its plain version
+                # (most of phase 3's time) on the first eighth of them
+                m = AFFINE_N // 8 if Q == 512 else n
                 table = torch.as_tensor(
                     rng.uniform(-0.4, 1.0, size=(V, Tpad, Q)).astype(np.float32), device=dev)
                 tokens = torch.as_tensor(rng.integers(0, V, size=(n, L)).astype(np.int32), device=dev)
@@ -523,19 +564,19 @@ def phase_kernels():
                         gaps = AffineGapParams.of(*gs)
                         got = dp_kernels.affine_dp_scores(table, tokens, len_s, len_t, gaps, loc)
                         want = dp_kernels.affine_dp_scores_reference(
-                            table, tokens, len_s, len_t, gaps, loc)
+                            table, tokens[:m], len_s[:m], len_t, gaps, loc)
                         worst = max(worst, _check_equal(
-                            "affine_dp", got, want, (L, Tpad, Q, loc, gs)))
+                            "affine_dp", got[:m], want, (L, Tpad, Q, loc, gs)))
                 gaps = AffineGapParams.of(*gapsets[1])
                 ms = cuda_ms(lambda: dp_kernels.affine_dp_scores(
                     table, tokens, len_s, len_t, gaps, "local"), 10)
                 plain_ms = cuda_ms(lambda: dp_kernels.affine_dp_scores_reference(
-                    table, tokens, len_s, len_t, gaps, "local"), 1)
+                    table, tokens[:m], len_s[:m], len_t, gaps, "local"), 1)
                 bound, by = dp_bound_ms(tokens, len_s, len_t, table)
                 emit({"phase": "kernel", "name": "affine_dp", "n": n, "L": L,
                       "Tpad": Tpad, "Q": Q, "localities": 3, "gapsets": len(gapsets),
-                      "max_abs_diff": 0.0, "kernel_ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": bound, "bound_by": by})
+                      "max_abs_diff": 0.0, "kernel_ms": ms, "plain_n": m,
+                      "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by})
     return worst
 
 
@@ -563,6 +604,117 @@ def _affine_gather_inputs(rng, n, L, Tpad, Q, V=5_000):
         lt[1] = 1
     return (put(rng.uniform(-0.4, 1.0, size=(V, Tpad, Q)).astype(np.float32)),
             put(rng.integers(0, V, size=(n, L)).astype(np.int32)), put(ln), put(lt))
+
+
+def dense_bound_ms(kernel, S, len_s, len_t):
+    """Least time for a dense DP entry on these inputs: the cells of the
+    [c, L, T, Q] block the DP reads (slice s's rows up to min(max(len_s,
+    1), L) by query q's columns up to len_t[q]: 4 * sum_s rows_s * sum_q
+    len_t[q] bytes), the lengths and the [c, Q] output moved once, against
+    the f32 operations of the DP (``kernel`` "affine_dp[dense]" or
+    "wsb_dp[dense]") on the same rows and columns."""
+    c, L, _, Q = S.shape
+    rows = len_s.clamp(1, L).double()
+    lt = len_t.double()
+    nbytes = 4 * float(rows.sum()) * float(lt.sum()) + (c + Q) * 4 + c * Q * 4
+    if kernel.startswith("affine"):
+        ops = float(rows.sum()) * sum(_affine_row_ops(x) for x in len_t.tolist())
+    else:
+        ops = (float((rows * (rows + 1)).sum()) * float(lt.sum())
+               + float(rows.sum()) * float((lt * (lt + 1)).sum())
+               + 4 * float(rows.sum()) * float(lt.sum()))
+    return _bound(nbytes, ops)
+
+
+# the contextual vectors' dimension of phase 4f (d = 256: a PCA-compressed
+# transformer embedding); it sets the contextual pass's chunk with L, Tpad, Q
+CTX_DIM = 256
+# phase 4f's corpus: 500,000 of phase 4's sentences (4.6 GB of f32 vectors
+# on the host, a 4.1 GB bf16 store on the card)
+CTX_SENTENCES = 500_000
+
+
+def phase_kernels_dense():
+    """3d: both dense entries (K3: the [c, L, Tpad, Q] block a contextual
+    chunk's metric GEMM writes) against their plain versions, bit for bit,
+    in 3 localities x 2 affine gap sets / 2 WSB models: at the contextual
+    pass's chunk (ops/search.ctx_chunk) of L 16, Tpad 8, Q 32 and Q 1, at
+    Tpad 132 (the affine wide route, the WSB scratch rows) and, WSB, at L
+    64; each timed against its plain version and its bound.  Then the
+    routes no default plan of these shapes takes, forced: the affine
+    wide_scratch template at Tpad 132 and the WSB shared template (at L
+    16 and 64, Tpad 8: 32 threads a block), held bit for bit the same way.
+    Returns {name: {"worst": |diff|, (L, Tpad, Q[, route]): {ms, plain_ms,
+    bound_ms, bound_by, c, route}}}."""
+    import numpy as np
+    import torch
+
+    from vectorian_tpu_torch.ops import dp_kernels
+    from vectorian_tpu_torch.ops.alignment import AffineGapParams
+    from vectorian_tpu_torch.ops.search import ctx_chunk
+
+    rng = np.random.default_rng(SEED + 9)
+    gapsets = [(0.0, 0.0, 0.0, 0.0), (0.37, 0.113, 0.29, 0.071)]
+    models = _gap_models(rng)
+    out = {"affine_dp[dense]": {"worst": 0.0}, "wsb_dp[dense]": {"worst": 0.0}}
+
+    def inputs(c, L, Tpad, Q):
+        ln = rng.integers(0, L + 1, size=c).astype(np.int32)
+        ln[:3] = (0, 1, L)
+        lt = rng.integers(1, Tpad + 1, size=Q).astype(np.int32)
+        lt[0] = Tpad
+        if Q > 1:
+            lt[1] = 1
+        S = torch.as_tensor(rng.uniform(-0.4, 1.0, size=(c, L, Tpad, Q)).astype(
+            np.float32), device=DEVICE)
+        return S, torch.as_tensor(ln, device=DEVICE), torch.as_tensor(lt, device=DEVICE)
+
+    def case(kernel, L, Tpad, Q, forced=None):
+        c = ctx_chunk(L, Tpad, Q, CTX_DIM)
+        S, len_s, len_t = inputs(c, L, Tpad, Q)
+        if kernel == "affine_dp[dense]":
+            route = dp_kernels.affine_launch_plan(
+                c * Q, Tpad, route=forced,
+                reg_max_t=dp_kernels.AFFINE_DENSE_REG_MAX_T).route
+            variants = [(f"gaps{i}", (AffineGapParams.of(*gs),), {})
+                        for i, gs in enumerate(gapsets)]
+            fn, ref = dp_kernels.affine_dp_scores_dense, dp_kernels.affine_dp_scores_dense_reference
+        else:
+            variants = []
+            for mname, model in models.items():
+                gg = _wsb_general(model, Tpad)
+                variants.append((mname, gg.vecs(L), {"host_costs": gg.host_vecs(L)}))
+            hs = dp_kernels._register_costs(L, Tpad, S, variants[0][1], variants[0][2]["host_costs"])
+            route = dp_kernels.wsb_launch_plan(c * Q, L, Tpad, registers=hs is not None,
+                                               route=forced, Q=Q).route
+            fn, ref = dp_kernels.wsb_dp_scores_dense, dp_kernels.wsb_dp_scores_dense_reference
+        for loc in LOCALITIES:
+            for vname, args, kw in variants:
+                got = fn(S, len_s, len_t, *args, loc, _route=forced, **kw)
+                want = ref(S, len_s, len_t, *args, loc)
+                out[kernel]["worst"] = max(out[kernel]["worst"], _check_equal(
+                    kernel, got, want, (c, L, Tpad, Q, route, loc, vname)))
+        _, args, kw = variants[-1]
+        ms = cuda_ms(lambda: fn(S, len_s, len_t, *args, "local", _route=forced, **kw), 10)
+        plain_ms = cuda_ms(lambda: ref(S, len_s, len_t, *args, "local"), 1)
+        bound, by = dense_bound_ms(kernel, S, len_s, len_t)
+        line = {"c": c, "route": route, "forced": forced is not None, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
+        out[kernel][(L, Tpad, Q) + ((forced,) if forced else ())] = line
+        emit({"phase": "kernel_dense", "name": kernel, "L": L, "Tpad": Tpad, "Q": Q,
+              "localities": 3, "variants": len(variants), "max_abs_diff": 0.0, **line})
+
+    for kernel in ("affine_dp[dense]", "wsb_dp[dense]"):
+        for Tpad in (8, 132):
+            for Q in (32, 1):
+                case(kernel, 16, Tpad, Q)
+    for Q in (32, 1):
+        case("wsb_dp[dense]", 64, 8, Q)
+    for Q in (32, 1):
+        case("affine_dp[dense]", 16, 132, Q, forced="wide_scratch")
+        case("wsb_dp[dense]", 16, 8, Q, forced="shared")
+        case("wsb_dp[dense]", 64, 8, Q, forced="shared")
+    return out
 
 
 def phase_kernels_wide():
@@ -1457,7 +1609,11 @@ def check_results(results, n, min_score):
 
 def profile_calls(label, fn):
     """Device busy time and top kernels of ``fn`` under torch.profiler
-    (the profiler's own overhead inflates the wall time it sees)."""
+    (the profiler's own overhead inflates the wall time it sees): the
+    device's own events only (kernels, copies) — a host op (aten::...)
+    reports its kernels' time as well, and counting both would double
+    every torch op's share.  Returns [(name, ms, launches)] of every
+    device event."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1467,13 +1623,17 @@ def profile_calls(label, fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    evs = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    evs = [e for e in prof.key_averages() if e.self_device_time_total > 0
+           and e.device_type == torch.autograd.DeviceType.CUDA]
+    if not evs:
+        raise AssertionError(f"profile {label}: no device event traced")
     busy_ms = sum(e.self_device_time_total for e in evs) / 1e3
-    top = sorted(evs, key=lambda e: -e.self_device_time_total)[:8]
+    rows = sorted(([e.key, e.self_device_time_total / 1e3, e.count] for e in evs),
+                  key=lambda r: -r[1])
     emit({"phase": "profile", "call": label, "wall_ms": wall_ms,
           "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
-          "top_kernels_ms_count": [
-              [e.key[:70], e.self_device_time_total / 1e3, e.count] for e in top]})
+          "top_kernels_ms_count": [[k[:70], ms, n] for k, ms, n in rows[:8]]})
+    return rows
 
 
 def drive_main_path(index, queries, finds, kernel, label, card, n_sents):
@@ -2372,6 +2532,236 @@ def time_row_calls(kernel, res):
     return worst, ms, plain_ms, bound, by, after, before, columns, q_after, q_before
 
 
+def phase_submatch_debug(session, queries, finds, card):
+    """4g, on phase 4's session: submatch_weight=0.5 through find (the
+    full-read score_topk branch; p50 of the 21 finds) and find_batch (Q=32,
+    the fused branch's 4n + 32 overfetch; median of 3), affine and general
+    gaps, find = find_batch byte for byte on 4 queries; one find with a
+    debug callback counting its hooks by name; one boosted submatch find.
+    The launch counts are set to 0 right before each run and read right
+    after."""
+    import numpy as np
+
+    import vectorian_tpu_torch as vt
+    from vectorian_tpu_torch.alignment import ExponentialGapCost
+    from vectorian_tpu_torch.ops import dp_kernels
+
+    out = {}
+    for label, gap in (("affine", None), ("general", ExponentialGapCost(3.0))):
+        index = make_index(session, gap)
+        kw = {"n": 10, "min_score": 0.2, "submatch_weight": 0.5}
+        index.find(finds[0], **kw)  # warm
+        dp_kernels.reset_launches()
+        ts, got = [], []
+        for q in finds:
+            t = time.perf_counter()
+            got.append(pairs(index.find(q, **kw)))
+            ts.append((time.perf_counter() - t) * 1e3)
+        find_launches = {k: v for k, v in dp_kernels.LAUNCHES.items() if v}
+        dp_kernels.reset_launches()
+        walls, res = [], None
+        for _ in range(3):
+            t = time.perf_counter()
+            res = index.find_batch(queries, **kw)
+            walls.append((time.perf_counter() - t) * 1e3)
+        batch_launches = {k: v for k, v in dp_kernels.LAUNCHES.items() if v}
+        check_results(res, 10, -1e30)
+        if [pairs(r) for r in res[:4]] != [pairs(index.find(q, **kw)) for q in queries[:4]]:
+            raise AssertionError(f"4g {label}: submatch find and find_batch differ")
+        if not any(got) or not find_launches or not batch_launches:
+            raise AssertionError(f"4g {label}: no matches or no kernel launch")
+        out[label] = {"find_p50_ms": float(np.median(ts)), "find_launches": find_launches,
+                      "find_batch_ms_median": float(np.median(walls)),
+                      "find_batch_ms": walls, "find_batch_launches": batch_launches}
+    index = make_index(session)
+    hooks = {}
+    dp_kernels.reset_launches()
+    t = time.perf_counter()
+    r = index.find(finds[1], n=10, min_score=0.2,
+                   debug=lambda name, payload: hooks.__setitem__(name, hooks.get(name, 0) + 1))
+    debug_ms = (time.perf_counter() - t) * 1e3
+    if not {"static_similarity_matrix", "scores", "document/match_time", "alignment"} <= set(hooks):
+        raise AssertionError(f"4g: debug hooks {hooks}")
+    if pairs(r) != pairs(index.find(finds[1], n=10, min_score=0.2)):
+        raise AssertionError("4g: debug changed the result")
+    sal = vt.Saliency(0.6).add_signal(vt.KeywordSignal(finds[2].split()[0]), 1.0)
+    t = time.perf_counter()
+    rb = index.find(finds[2], n=10, min_score=0.2, submatch_weight=0.5, booster=sal)
+    boosted_ms = (time.perf_counter() - t) * 1e3
+    sb = [m.score for m in rb]
+    if not sb or sb != sorted(sb, reverse=True) or not all(map(math.isfinite, sb)):
+        raise AssertionError(f"4g: boosted submatch scores {sb}")
+    emit({"phase": "submatch_debug", "slices": index.packed.n_slices, "queries": len(queries),
+          "finds": len(finds), "submatch_weight": 0.5, **out, "debug_hooks": hooks,
+          "debug_find_ms": debug_ms, "debug_launches": {
+              k: v for k, v in dp_kernels.LAUNCHES.items() if v},
+          "boosted_submatch_find_ms": boosted_ms, "card": card})
+    return out
+
+
+def _ctx_embedding(words, rng):
+    """A LambdaContextualEmbedding of CTX_DIM: each word a seeded numpy
+    vector, each token's vector its word's plus 0.2 of its neighbours'
+    (tests/test_contextual.py's ctx_fn), zeros for any other token; it
+    stands for a PCA-compressed transformer embedding."""
+    import numpy as np
+
+    import vectorian_tpu_torch as vt
+
+    table = np.concatenate([rng.normal(size=(len(words), CTX_DIM)).astype(np.float32),
+                            np.zeros((1, CTX_DIM), np.float32)])
+    index_of = {w: i for i, w in enumerate(words)}
+
+    def fn(tokens, text):
+        base = table[[index_of.get(text[a:b], len(words)) for a, b in tokens]]
+        out = base.copy()
+        out[1:] += np.float32(0.2) * base[:-1]
+        out[:-1] += np.float32(0.2) * base[1:]
+        return out
+
+    return vt.LambdaContextualEmbedding("ctx", fn, CTX_DIM)
+
+
+def _ctx_kernel_at_path(index, qs, kernel):
+    """The dense entry at the contextual pass's shapes: the first chunk of
+    the largest bucket as find_batch (Q = len(qs)) and find (Q = 1) build
+    it, held against the plain version and timed: {Q: (max |diff|, ms,
+    plain ms, bound ms, bound by, (c, L, Tpad, Q))}."""
+    import torch
+
+    from vectorian_tpu_torch.ops import dp_kernels, search
+    from vectorian_tpu_torch.ops.simmatrix import ctx_similarity
+
+    eng = index._engine
+    db = max(eng._device_buckets, key=lambda b: b["n"])
+    plans = [index._compile_plan(index.make_query(q).prepare(index._nlp), {"ctx"})
+             for q in qs]
+    metric = index._args["metric"]["token_sim"].metric
+    general = index._gap_costs
+    out = {}
+    for Q in (len(qs), 1):
+        lts = [max(index.make_query(q).prepare(index._nlp).n_tokens, 1) for q in qs[:Q]]
+        qv, Tpad = search.stack_ctx_queries([p.ctx_queries[0] for p in plans[:Q]], lts,
+                                            eng.device)
+        c = min(search.ctx_chunk(db["capacity"], Tpad, Q, CTX_DIM), db["n"])
+        S = ctx_similarity(eng._ctx_dev("ctx", db["bi"])[:c], qv, metric).reshape(
+            c, db["capacity"], Tpad, Q)
+        ln = db["lengths"][:c]
+        lt = torch.as_tensor(lts, dtype=torch.int32, device=eng.device)
+        gg = None if general is None else search.GeneralGaps(general, Tpad + 1, eng.device)
+        if kernel == "affine_dp[dense]":
+            args, kw = (index._gaps,), {}
+            fn, ref = dp_kernels.affine_dp_scores_dense, dp_kernels.affine_dp_scores_dense_reference
+        else:
+            args, kw = gg.vecs(db["capacity"]), {"host_costs": gg.host_vecs(db["capacity"])}
+            fn, ref = dp_kernels.wsb_dp_scores_dense, dp_kernels.wsb_dp_scores_dense_reference
+        d = _check_equal(kernel, fn(S, ln, lt, *args, index._locality, **kw),
+                         ref(S, ln, lt, *args, index._locality), (c, Tpad, Q))
+        ms = cuda_ms(lambda: fn(S, ln, lt, *args, index._locality, **kw), 10)
+        plain_ms = cuda_ms(lambda: ref(S, ln, lt, *args, index._locality), 1)
+        bound, by = dense_bound_ms(kernel, S, ln, lt)
+        out[Q] = (d, ms, plain_ms, bound, by, [c, db["capacity"], Tpad, Q])
+    return out
+
+
+def phase_contextual(card):
+    """4f: the contextual path end to end on the card: CTX_SENTENCES of
+    phase 4's generator, a CTX_DIM LambdaContextualEmbedding; the store's
+    packing (ensure_contextual), find p50 (21 queries) and find_batch Q=32
+    (median of 3) under affine gaps and LocalAlignment(ExponentialGapCost(
+    3.0)), find = find_batch byte for byte, the dense kernels at the path's
+    shapes against their plain versions, a torch.profiler trace of one
+    find_batch (the metric GEMM's time beside the dense DP's); then the
+    card against the CPU on a 3,000-sentence cut of the corpus."""
+    import numpy as np
+
+    import vectorian_tpu_torch as vt
+    from vectorian_tpu_torch.alignment import ExponentialGapCost
+    from vectorian_tpu_torch.ops import dp_kernels
+    from vectorian_tpu_torch.utils import trace
+
+    rng = np.random.default_rng(SEED + 10)
+    words, texts, query = zipf_corpus(CTX_SENTENCES, rng)
+    emb = _ctx_embedding(words, np.random.default_rng(SEED + 11))
+    t0 = time.perf_counter()
+    session = vt.Session([vt.StringImporter()(t, title=f"d{i}") for i, t in enumerate(texts)],
+                         embeddings=[emb], device=DEVICE)
+    build_s = time.perf_counter() - t0
+    queries = [query() for _ in range(32)]
+    finds = [query() for _ in range(21)]
+    res, kernels = {}, {}
+    for label, gap, kernel in (("affine", None, "affine_dp[dense]"),
+                               ("general", ExponentialGapCost(3.0), "wsb_dp[dense]")):
+        index = make_index(session, gap)
+        t = time.perf_counter()
+        index._engine.ensure_contextual("ctx", session.documents, session._ctx_dims["ctx"])
+        ensure_s = time.perf_counter() - t
+        index.find(finds[0], n=10, min_score=0.2)  # warm
+        dp_kernels.reset_launches()
+        ts, found = [], []
+        for q in finds:
+            t = time.perf_counter()
+            found.append(pairs(index.find(q, n=10, min_score=0.2)))
+            ts.append((time.perf_counter() - t) * 1e3)
+        find_launches = dp_kernels.LAUNCHES[kernel]
+        dp_kernels.reset_launches()
+        walls, batch = [], None
+        for _ in range(3):
+            t = time.perf_counter()
+            batch = index.find_batch(queries, n=10, min_score=0.2)
+            walls.append((time.perf_counter() - t) * 1e3)
+        launches = dp_kernels.LAUNCHES[kernel]
+        if not launches or not find_launches:
+            raise AssertionError(f"4f {label}: {kernel} was not launched")
+        check_results(batch, 10, 0.2)
+        if not any(found) or [pairs(r) for r in index.find_batch(finds, n=10, min_score=0.2)] != found:
+            raise AssertionError(f"4f {label}: contextual find and find_batch differ")
+        rows = profile_calls(f"contextual find_batch {label}",
+                             lambda: index.find_batch(queries, n=10, min_score=0.2))
+        trace.start()
+        index.find_batch(queries, n=10, min_score=0.2)
+        spans = {}
+        for name, sec in trace.stop():
+            spans[name] = spans.get(name, 0.0) + sec * 1e3
+        emit({"phase": "contextual_split", "gap": label,
+              "gemm_ms": sum(ms for k, ms, _ in rows if "gemm" in k.lower()),
+              "dense_dp_ms": sum(ms for k, ms, _ in rows if "dense" in k),
+              "host_spans_ms": spans})
+        kernels[kernel] = _ctx_kernel_at_path(index, queries, kernel)
+        kernels[kernel]["launches"] = launches
+        n_slices = index.packed.n_slices
+        res[label] = {"ensure_contextual_s": ensure_s, "find_p50_ms": float(np.median(ts)),
+                      "find_launches": find_launches,
+                      "find_batch_ms_median": float(np.median(walls)), "find_batch_ms": walls,
+                      "alignments_per_s": n_slices * len(queries) / (np.median(walls) / 1e3),
+                      "launches": launches}
+    emit({"phase": "contextual", "sentences": CTX_SENTENCES, "slices": n_slices,
+          "dim": CTX_DIM, "session_build_s": build_s, **res, "card": card})
+    del session, index
+
+    # the card against the CPU on a 3,000-sentence cut of the corpus
+    # (9 words a sentence; documents of 2,000 sentences, as the corpus's)
+    items = " ".join(texts).split(" ")[: 9 * 3_000]
+    cut = [" ".join(items[i : i + 9 * 2_000]) for i in range(0, len(items), 9 * 2_000)]
+    on = {}
+    for dev in (DEVICE, "cpu"):
+        on[dev] = vt.Session([vt.StringImporter()(t, title=f"d{i}") for i, t in enumerate(cut)],
+                             embeddings=[emb], device=dev)
+    worst = {}
+    for label, gap in (("affine", None), ("general", ExponentialGapCost(3.0))):
+        got = {}
+        for dev, sess in on.items():
+            ix = make_index(sess, gap)
+            got[dev] = ([pairs(ix.find(q, n=10, min_score=0.1)) for q in finds[:4]]
+                        + [pairs(r) for r in ix.find_batch(queries[:8], n=10, min_score=0.1)])
+        if not any(got[DEVICE]):
+            raise AssertionError(f"4f {label}: no matches on the cut")
+        worst[label] = compare_with_cpu(f"4f cut {label}", got[DEVICE], got["cpu"])
+    emit({"phase": "contextual_vs_cpu", "sentences": 3_000,
+          "max_abs_score_diff_vs_cpu": worst})
+    return kernels
+
+
 def phase_small_reference(long_q):
     """The port on the card against the port on the CPU, small corpus,
     affine and general-gap indexes; then phase 4's long query (find, and a
@@ -2457,6 +2847,7 @@ def run_phases(card):
     worst_quant = phase_kernels_quant()
     worst_wide = phase_kernels_wide()
     worst_tagged = phase_kernels_tagged()
+    worst_dense = phase_kernels_dense()
     log("kernels match their plain versions")
 
     rng = np.random.default_rng(SEED)
@@ -2492,9 +2883,13 @@ def run_phases(card):
     phase_warmup(session, finds[0], card)
     phase_packed_cache(session, queries, card)
     log("warmup and packed cache done")
+    phase_submatch_debug(session, queries, finds, card)
+    log("submatch and debug done")
     del session, ft
     rescore = phase_rescore(card)
     log("rescore path done")
+    dense = phase_contextual(card)
+    log("contextual path done")
     phase_small_reference(long_q)
 
     kernels = []
@@ -2606,6 +3001,25 @@ def run_phases(card):
             "problems_per_call": [int(a[1].shape[0]) for _, a, _ in res["calls"]],
             "card": card,
         })
+    # the dense-block entries (K3): 4f's contextual pass, find_batch (Q=32)
+    # and find (Q=1)
+    for name, source, replaces in (
+        ("affine_dp[dense]", "affine_dp.cu", "vectorian_tpu/ops/pallas_dp.py:369"),
+        ("wsb_dp[dense]", "wsb_dp.cu", "vectorian_tpu/ops/pallas_dp.py:155"),
+    ):
+        res = dense[name]
+        qb = max(q for q in res if q != "launches")
+        (db, ms, plain_ms, bound, by, shape), (df, ms_f, plain_f, bound_f, _, shape_f) = (
+            res[qb], res[1])
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"vectorian_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": res["launches"],
+            "max_abs_err": max(worst_dense[name]["worst"], db, df),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None, "ms_find": ms_f, "plain_ms_find": plain_f,
+            "bound_ms_find": bound_f, "shapes_c_L_Tpad_Q": shape,
+            "shapes_c_L_Tpad_Q_find": shape_f, "card": card,
+        })
     name = "affine_dp_flat[wide]"
     res = rescore[name]
     err, ms, plain_ms, bound, by, after, *_ = time_row_calls(name, res)
@@ -2624,7 +3038,18 @@ def run_phases(card):
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] in (["--build-ab"], ["--tag-check"]):
+    if sys.argv[1:2] == ["--dense-check"]:
+        # phases 2, 3d and 4f alone: the quick check after a dense-entry edit
+        if not (ROOT / "vectorian_tpu_torch" / "csrc" / "affine_dp.cu").exists():
+            raise SystemExit("chip_smoke: run from a checkout of the repository")
+        sys.path.insert(0, str(ROOT))
+        card = phase_device()
+        import vectorian_tpu_torch  # noqa: F401  (sets exact-f32 matmul flags)
+
+        phase_build()
+        phase_kernels_dense()
+        phase_contextual(card)
+    elif sys.argv[1:2] in (["--build-ab"], ["--tag-check"]):
         if not (ROOT / "vectorian_tpu_torch" / "csrc" / "affine_dp.cu").exists():
             raise SystemExit("chip_smoke: run from a checkout of the repository")
         sys.path.insert(0, str(ROOT))

@@ -230,20 +230,21 @@ def test_match_json_matches_jax(both):
 
 
 def test_unported_options_raise(both):
+    """mesh= and paged mode raise NotImplementedError; submatch_weight and
+    debug are served (find's full-read paths; find_batch takes debug query
+    by query through find), under affine and general gap models."""
     _, st, queries = both
     it = st.partition("sentence").index(
         OptimizedSpanSim(EmbeddingTokenSim(st.embeddings[0]), LocalAlignment())
     )
     with pytest.raises(NotImplementedError):
         it.find_batch(queries[:2], mesh=object())
-    for opt in ({"submatch_weight": 0.5}, {"debug": print}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError):
-            it.find(queries[0], **opt)
+    with pytest.raises(NotImplementedError):
+        it.find(queries[0], mesh=object())
     with pytest.raises(NotImplementedError):
         vt.Session([], device="cpu", paged=True)
     # a non-affine gap model is served (the general-gap WSB path), and so
-    # are the query options that ride the batch kernels; submatch_weight
-    # and debug stay unported on it too
+    # are every query option, submatch_weight and debug included
     ig = st.partition("sentence").index(
         OptimizedSpanSim(
             EmbeddingTokenSim(st.embeddings[0]),
@@ -253,11 +254,16 @@ def test_unported_options_raise(both):
     assert _pairs(ig.find(queries[0], n=3, min_score=0.1))
     for opt in ({"bidirectional": True}, {"token_filter": ["sun"]}):
         assert _pairs(ig.find(queries[0], n=3, min_score=0.1, **opt))
-    for opt in ({"submatch_weight": 0.5}, {"debug": print}):
-        with pytest.raises(NotImplementedError, match="4c"):
-            ig.find(queries[0], **opt)
-        with pytest.raises(NotImplementedError, match="4c"):
-            ig.find_batch(queries[:2], **opt)
+    hooks = []
+    for index in (it, ig):
+        for opt in ({"submatch_weight": 0.5},
+                    {"debug": lambda name, payload: hooks.append(name)}):
+            got = [_pairs(index.find(q, n=3, min_score=0.1, **opt))
+                   for q in queries[:2]]
+            assert got[0]
+            batch = index.find_batch(queries[:2], n=3, min_score=0.1, **opt)
+            assert [_pairs(r) for r in batch] == got
+    assert {"static_similarity_matrix", "scores", "alignment"} <= set(hooks)
 
 
 LOCALITY_CLASSES = {

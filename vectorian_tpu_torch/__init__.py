@@ -17,9 +17,13 @@ reference package, or ``sim_precision="bfloat16"`` / ``"float32"``; every
 precision returns the same matches; tag weights force f32), the query
 options tag weights, ``pos_filter`` / ``tag_filter`` / ``token_filter``,
 ``booster`` (``Saliency``) and ``bidirectional``, ``BruteForceIndex.warmup``
-and the on-disk packed-corpus cache.  Every other public name of the reference
-package exists and raises NotImplementedError naming its ROADMAP.md port
-queue item.
+and the on-disk packed-corpus cache, ``submatch_weight`` and ``debug``;
+contextual embeddings (``LambdaContextualEmbedding``,
+``TransformerContextualEmbedding``, their ``.pca(n)``) through ``find``
+(mixed static + contextual trees too) and ``find_batch`` (one contextual
+embedding), whose dense similarity blocks the same DP kernels read.  Every
+other public name of the reference package exists and raises
+NotImplementedError naming its ROADMAP.md port queue item.
 """
 
 import sys as _sys
@@ -57,6 +61,11 @@ from vectorian_tpu_torch.embedding.static import (  # noqa: E402,F401
     StackedEmbedding,
     Word2VecVectors,
 )
+from vectorian_tpu_torch.embedding.contextual import (  # noqa: E402,F401
+    ContextualEmbedding,
+    LambdaContextualEmbedding,
+    TransformerContextualEmbedding,
+)
 from vectorian_tpu_torch.embedding.fasttext import (  # noqa: E402,F401
     CompressedFastTextVectors,
     PretrainedFastText,
@@ -93,10 +102,9 @@ class _Unported:
 # the unported public names, by ROADMAP.md port queue item
 UNPORTED = {
     "Corpus": "9", "TemporaryCorpus": "9", "LabSession": "9", "Zoo": "9",
-    "LambdaContextualEmbedding": "5", "TransformerContextualEmbedding": "5",
-    "AggregatedTokenEmbedding": "5", "SentenceEmbedding": "5",
-    "TextSpanEmbedding": "5", "SpacySpanEmbedding": "5",
-    "decompose_nlp": "5", "register_decomposer": "5",
+    "AggregatedTokenEmbedding": "5b", "SentenceEmbedding": "5b",
+    "TextSpanEmbedding": "5b", "SpacySpanEmbedding": "5b",
+    "decompose_nlp": "5b", "register_decomposer": "5b",
     "MeshSearch": "7", "make_mesh": "7",
     # the reference's submodules its __init__ binds by importing from them
     "parallel": "7",

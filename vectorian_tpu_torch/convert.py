@@ -1,10 +1,13 @@
 """Carry a vectorian_tpu session's state into the port.
 
 The system has no weights: its state is the frequency-ordered vocabulary,
-the compiled [V, d] static embedding matrices and the packed corpus.  The
-JAX package's state, exported as numpy arrays, becomes the port's
-``PackedCorpus`` and ``CompiledEmbedding`` objects on a torch device, so
-both packages can be held to the very same state.
+the compiled [V, d] static embedding matrices, the packed corpus and, for a
+contextual embedding, each document's per-token vectors and the fitted
+arrays of its transforms (PCA).  The JAX package's state, exported as numpy
+arrays, becomes the port's ``PackedCorpus`` and ``CompiledEmbedding``
+objects on a torch device (``state_from_numpy``) and a port session's
+contextual state (``contextual_from_numpy``), so both packages can be held
+to the very same state.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import numpy as np
 
 from vectorian_tpu_torch.corpus.packing import PackedBucket, PackedCorpus, Partition
 from vectorian_tpu_torch.embedding.static import StaticEmbeddingEncoder
+from vectorian_tpu_torch.embedding.transform import LinearProjection
 from vectorian_tpu_torch.ops.simmatrix import CompiledEmbedding
 
 
@@ -66,3 +70,30 @@ def state_from_numpy(
         n_docs=int(arrays["n_docs"]),
     )
     return packed, compiled
+
+
+def contextual_from_numpy(session, name: str, vectors, transforms=()) -> None:
+    """Give the port ``session`` (built with the contextual embedding
+    ``name``) another session's contextual state: ``vectors`` one [m, d]
+    array a prepared document (its kept tokens' vectors, after the
+    transforms: ``PreparedDocument.contextual[name]``), ``transforms`` the
+    fitted (mean, components) pairs of its PCA compressions in order (the
+    needle's vectors replay them).  Device stores packed from the old
+    vectors are dropped."""
+    docs = session.documents
+    if len(vectors) != len(docs):
+        raise ValueError(f"{len(vectors)} vector arrays for {len(docs)} documents")
+    for pd, v in zip(docs, vectors):
+        v = np.asarray(v, np.float32)
+        if len(v) != len(pd.orig_index):
+            raise ValueError(
+                f"document {pd.doc_index}: {len(v)} vectors for "
+                f"{len(pd.orig_index)} tokens"
+            )
+        pd.contextual[name] = v
+    session._ctx_fitted[name] = [LinearProjection(m, c) for m, c in transforms]
+    session._ctx_dims[name] = next(
+        (int(np.asarray(v).shape[1]) for v in vectors if len(v)), 0
+    )
+    for engine in session._engine_cache.values():
+        engine._ctx_stores.pop(name, None)

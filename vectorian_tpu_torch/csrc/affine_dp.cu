@@ -1,4 +1,4 @@
-// Affine-gap (Gotoh) alignment DP scores, two entries:
+// Affine-gap (Gotoh) alignment DP scores, three entries:
 //   gather: raw[s, q] = best cell of the DP of slice s against query q, where
 //           S[i, j] = table[tokens[s, i], j, q] (the gather is fused in); the
 //           table is f32, bf16 or int8 (a quantized ranking table: each
@@ -9,10 +9,15 @@
 //           plan table, read row by row: the gathered S never reaches
 //           device memory), per-problem len_s (0 allowed) and len_t; the
 //           score-only rescore.  A null ``tokens`` reads the table itself
-//           as S ([B * L, Tmax]: row r * L + i), the flat [B, L, T] batch.
+//           as S ([B * L, Tmax]: row r * L + i), the flat [B, L, T] batch;
+//   dense:  raw[s, q] as in the gather entry, where S[i, j] = S[s, i, j, q]
+//           of a dense [c, L, Tpad, Q] f32 block (the layout a contextual
+//           chunk's [c * L, d] x [d, Tpad * Q] metric GEMM writes, query
+//           minor): the gather entry with slice s's row i at "token id"
+//           s * L + i, no copy of the block made.
 //
 // Replaces: _make_multiq_kernel / _dp_one_slice / pallas_align_scores_multi_nt
-// (gather) and _make_kernel / _pallas_call_scores / pallas_align_scores
+// (gather, and dense: the contextual batch's block) and _make_kernel / _pallas_call_scores / pallas_align_scores
 // (rows; the flat batch is its identity case) in
 // vectorian_tpu/ops/pallas_dp.py.  On the TPU the gather stayed in XLA
 // (Mosaic cannot gather inside VMEM) and the kernel read the gathered block;
@@ -276,7 +281,10 @@ struct Args {
 // One problem a thread.  E: the table's element type (float, uint16_t for
 // bf16, int8_t); the row-gather entry reads the f32 plan table only.
 // TAGGED (f32 only): the rows are tag-weighted by ``t``.
-template <int T1P, int LOC, bool ROWS, bool VEC, typename E, bool TAGGED>
+// DENSE: the table is a dense [c, L, Tpad, Q] block, slice s's row i at
+// s * L + i (no token ids).
+template <int T1P, int LOC, bool ROWS, bool VEC, typename E, bool TAGGED,
+          bool DENSE = false>
 __device__ __forceinline__ void affine_dp_body(const Args a, const TagArgs t) {
   static_assert(!ROWS || std::is_same<E, float>::value, "rows read f32 tables");
   static_assert(!TAGGED || std::is_same<E, float>::value, "tags weight f32 tables");
@@ -309,12 +317,13 @@ __device__ __forceinline__ void affine_dp_body(const Args a, const TagArgs t) {
     rstride = (int64_t)a.Tpad * a.Q;
     cs = a.Q;
     base += q;
+    if constexpr (DENSE) base += s * (int64_t)a.L * rstride;
   }
   const int32_t* __restrict__ tok_row =
       (a.tokens != nullptr) ? a.tokens + s * (int64_t)a.L : nullptr;
   // token id of similarity row i
   auto tok_at = [&](int i) -> int {
-    return (ROWS && tok_row == nullptr) ? i : __ldg(tok_row + i);
+    return (DENSE || (ROWS && tok_row == nullptr)) ? i : __ldg(tok_row + i);
   };
   const int Tpad = a.Tpad;
   const float open_s = a.open_s, ext_s = a.ext_s, open_t = a.open_t;
@@ -391,6 +400,13 @@ __global__ void __launch_bounds__(THREADS)
   affine_dp_body<T1P, LOC, ROWS, VEC, float, true>(a, t);
 }
 
+// The dense entry's register route (f32 block, no tags): a family of its
+// own, so the gather templates stay as they are.
+template <int T1P, int LOC, bool VEC>
+__global__ void __launch_bounds__(THREADS) affine_dp_dense_kernel(const Args a) {
+  affine_dp_body<T1P, LOC, false, VEC, float, false, true>(a, TagArgs{});
+}
+
 // The tagged T1P = 17 templates with four blocks an SM asked for, as
 // affine_dp_kernel_4b below: left to itself ptxas kept a fifth block (96
 // registers) and spilled one of them.
@@ -441,7 +457,11 @@ __device__ __forceinline__ int wide_token(const int32_t* __restrict__ tok_row, i
   return (tok_row == nullptr) ? i : __ldg(tok_row + i);
 }
 
-template <int LOC, bool ROWS, bool SCRATCH, typename E, bool TAGGED>
+// DENSE: the [c, L, Tpad, Q] block read in place, a row's columns Q floats
+// apart (each lane its own sector; the wide route is a needle past 64
+// tokens, rare in a contextual batch, so no query-major copy is made).
+template <int LOC, bool ROWS, bool SCRATCH, typename E, bool TAGGED,
+          bool DENSE = false>
 __device__ __forceinline__ void affine_wide_body(const Args a, float* __restrict__ scratch,
                                                  const TagArgs t) {
   extern __shared__ float smem[];
@@ -482,9 +502,11 @@ __device__ __forceinline__ void affine_wide_body(const Args a, float* __restrict
       if constexpr (TAGGED) k = q;
       ln = a.len_s[s];
       lt = a.len_t[q];
-      // the query-major [V, Q, Tpad] table
       rstride = (int64_t)a.Tpad * a.Q;
-      base += (int64_t)q * a.Tpad;
+      if constexpr (DENSE)
+        base += q + s * (int64_t)a.L * rstride;
+      else
+        base += (int64_t)q * a.Tpad;  // the query-major [V, Q, Tpad] table
     }
     const int32_t* __restrict__ tok_row =
         (a.tokens != nullptr) ? a.tokens + s * (int64_t)a.L : nullptr;
@@ -525,7 +547,11 @@ __device__ __forceinline__ void affine_wide_body(const Args a, float* __restrict
         if (j < T1) {
           h_old = H[j];
           f_old = Fv[j];
-          if (j >= 1) sv = to_f32(__ldg(src + (j - 1)));
+          if constexpr (DENSE) {
+            if (j >= 1) sv = __ldg(src + (int64_t)(j - 1) * a.Q);
+          } else {
+            if (j >= 1) sv = to_f32(__ldg(src + (j - 1)));
+          }
           if constexpr (TAGGED) {
             if (j >= 1) {
               const int64_t o = (int64_t)k * t.qs + (int64_t)(j - 1) * t.cs;
@@ -602,6 +628,12 @@ __global__ void __launch_bounds__(WIDE_THREADS, 4)
   affine_wide_body<LOC, ROWS, SCRATCH, E, false>(a, scratch, TagArgs{});
 }
 
+template <int LOC, bool SCRATCH>
+__global__ void __launch_bounds__(WIDE_THREADS, 4)
+    affine_dp_wide_dense_kernel(const Args a, float* __restrict__ scratch) {
+  affine_wide_body<LOC, false, SCRATCH, float, false, true>(a, scratch, TagArgs{});
+}
+
 // Three blocks an SM (up to 80 registers a thread): at four, the tagged
 // scratch template spilled.
 template <int LOC, bool ROWS, bool SCRATCH>
@@ -621,43 +653,54 @@ __global__ void __launch_bounds__(THREADS, 4) affine_dp_kernel_4b(const Args a) 
 }
 
 // ``t`` non-null: the tagged kernel (f32 tables only; the entries check).
-template <int T1P, int LOC, bool ROWS, bool VEC, typename E>
+// DENSE: the dense entry's family.
+template <int T1P, int LOC, bool ROWS, bool VEC, typename E, bool DENSE>
 void launch_one(dim3 grid, cudaStream_t stream, const Args& a, const TagArgs* t) {
-  if constexpr (std::is_same<E, float>::value) {
-    if (t != nullptr) {
-      if constexpr (T1P == 17)
-        affine_dp_tagged_kernel_4b<T1P, LOC, ROWS, VEC><<<grid, THREADS, 0, stream>>>(a, *t);
-      else
-        affine_dp_tagged_kernel<T1P, LOC, ROWS, VEC><<<grid, THREADS, 0, stream>>>(a, *t);
-      return;
+  if constexpr (DENSE) {
+    affine_dp_dense_kernel<T1P, LOC, VEC><<<grid, THREADS, 0, stream>>>(a);
+  } else {
+    if constexpr (std::is_same<E, float>::value) {
+      if (t != nullptr) {
+        if constexpr (T1P == 17)
+          affine_dp_tagged_kernel_4b<T1P, LOC, ROWS, VEC><<<grid, THREADS, 0, stream>>>(a, *t);
+        else
+          affine_dp_tagged_kernel<T1P, LOC, ROWS, VEC><<<grid, THREADS, 0, stream>>>(a, *t);
+        return;
+      }
     }
+    if constexpr (T1P == 17 && !std::is_same<E, float>::value)
+      affine_dp_kernel_4b<T1P, LOC, ROWS, VEC, E><<<grid, THREADS, 0, stream>>>(a);
+    else
+      affine_dp_kernel<T1P, LOC, ROWS, VEC, E><<<grid, THREADS, 0, stream>>>(a);
   }
-  if constexpr (T1P == 17 && !std::is_same<E, float>::value)
-    affine_dp_kernel_4b<T1P, LOC, ROWS, VEC, E><<<grid, THREADS, 0, stream>>>(a);
-  else
-    affine_dp_kernel<T1P, LOC, ROWS, VEC, E><<<grid, THREADS, 0, stream>>>(a);
 }
 
-template <int T1P, bool ROWS, bool VEC, typename E>
+template <int T1P, bool ROWS, bool VEC, typename E, bool DENSE>
 void launch(int locality, dim3 grid, cudaStream_t stream, const Args& a,
             const TagArgs* t) {
   switch (locality) {
-    case LOCAL: launch_one<T1P, LOCAL, ROWS, VEC, E>(grid, stream, a, t); break;
-    case GLOBAL: launch_one<T1P, GLOBAL, ROWS, VEC, E>(grid, stream, a, t); break;
-    default: launch_one<T1P, SEMIGLOBAL, ROWS, VEC, E>(grid, stream, a, t); break;
+    case LOCAL: launch_one<T1P, LOCAL, ROWS, VEC, E, DENSE>(grid, stream, a, t); break;
+    case GLOBAL: launch_one<T1P, GLOBAL, ROWS, VEC, E, DENSE>(grid, stream, a, t); break;
+    default: launch_one<T1P, SEMIGLOBAL, ROWS, VEC, E, DENSE>(grid, stream, a, t); break;
   }
 }
 
-template <int T1P, bool ROWS, typename E>
+template <int T1P, bool ROWS, typename E, bool DENSE>
 void launch_vec(bool vec, int locality, dim3 grid, cudaStream_t stream,
                 const Args& a, const TagArgs* t) {
-  if constexpr (std::is_same<E, float>::value) {
-    if (vec) {
-      launch<T1P, ROWS, true, E>(locality, grid, stream, a, t);
-      return;
+  // the dense entry's strided rows past 32 columns take the wide route
+  // (dispatch); only its float4 rows (Q = 1) have T1P = 65 templates
+  if constexpr (DENSE && T1P == 65) {
+    launch<T1P, ROWS, true, E, DENSE>(locality, grid, stream, a, t);
+  } else {
+    if constexpr (std::is_same<E, float>::value) {
+      if (vec) {
+        launch<T1P, ROWS, true, E, DENSE>(locality, grid, stream, a, t);
+        return;
+      }
     }
+    launch<T1P, ROWS, false, E, DENSE>(locality, grid, stream, a, t);
   }
-  launch<T1P, ROWS, false, E>(locality, grid, stream, a, t);
 }
 
 // A launch on the wide route: its grid and the shared bytes a block (0 when
@@ -676,42 +719,49 @@ int allow_smem(K kern, int smem) {
                                    smem);
 }
 
-template <int LOC, bool ROWS, bool SCRATCH, typename E>
+template <int LOC, bool ROWS, bool SCRATCH, typename E, bool DENSE>
 int launch_wide_one(const Wide& w, cudaStream_t st, const Args& a, const TagArgs* t) {
-  if constexpr (std::is_same<E, float>::value) {
-    if (t != nullptr) {
-      auto kern = affine_dp_wide_tagged_kernel<LOC, ROWS, SCRATCH>;
-      if (const int e = allow_smem(kern, w.smem)) return e;
-      kern<<<w.blocks, WIDE_THREADS, w.smem, st>>>(a, w.scratch, *t);
-      return (int)cudaGetLastError();
+  if constexpr (DENSE) {
+    auto kern = affine_dp_wide_dense_kernel<LOC, SCRATCH>;
+    if (const int e = allow_smem(kern, w.smem)) return e;
+    kern<<<w.blocks, WIDE_THREADS, w.smem, st>>>(a, w.scratch);
+    return (int)cudaGetLastError();
+  } else {
+    if constexpr (std::is_same<E, float>::value) {
+      if (t != nullptr) {
+        auto kern = affine_dp_wide_tagged_kernel<LOC, ROWS, SCRATCH>;
+        if (const int e = allow_smem(kern, w.smem)) return e;
+        kern<<<w.blocks, WIDE_THREADS, w.smem, st>>>(a, w.scratch, *t);
+        return (int)cudaGetLastError();
+      }
     }
+    auto kern = affine_dp_wide_kernel<LOC, ROWS, SCRATCH, E>;
+    if (const int e = allow_smem(kern, w.smem)) return e;
+    kern<<<w.blocks, WIDE_THREADS, w.smem, st>>>(a, w.scratch);
+    return (int)cudaGetLastError();
   }
-  auto kern = affine_dp_wide_kernel<LOC, ROWS, SCRATCH, E>;
-  if (const int e = allow_smem(kern, w.smem)) return e;
-  kern<<<w.blocks, WIDE_THREADS, w.smem, st>>>(a, w.scratch);
-  return (int)cudaGetLastError();
 }
 
-template <bool ROWS, typename E>
+template <bool ROWS, typename E, bool DENSE>
 int launch_wide(int locality, const Wide& w, cudaStream_t st, const Args& a,
                 const TagArgs* t) {
   // the rows live in exactly one place: shared memory or the scratch buffer
   if ((w.scratch == nullptr) != (w.smem > 0) || w.smem < 0) return -1;
   if (w.scratch != nullptr) {
     switch (locality) {
-      case LOCAL: return launch_wide_one<LOCAL, ROWS, true, E>(w, st, a, t);
-      case GLOBAL: return launch_wide_one<GLOBAL, ROWS, true, E>(w, st, a, t);
-      default: return launch_wide_one<SEMIGLOBAL, ROWS, true, E>(w, st, a, t);
+      case LOCAL: return launch_wide_one<LOCAL, ROWS, true, E, DENSE>(w, st, a, t);
+      case GLOBAL: return launch_wide_one<GLOBAL, ROWS, true, E, DENSE>(w, st, a, t);
+      default: return launch_wide_one<SEMIGLOBAL, ROWS, true, E, DENSE>(w, st, a, t);
     }
   }
   switch (locality) {
-    case LOCAL: return launch_wide_one<LOCAL, ROWS, false, E>(w, st, a, t);
-    case GLOBAL: return launch_wide_one<GLOBAL, ROWS, false, E>(w, st, a, t);
-    default: return launch_wide_one<SEMIGLOBAL, ROWS, false, E>(w, st, a, t);
+    case LOCAL: return launch_wide_one<LOCAL, ROWS, false, E, DENSE>(w, st, a, t);
+    case GLOBAL: return launch_wide_one<GLOBAL, ROWS, false, E, DENSE>(w, st, a, t);
+    default: return launch_wide_one<SEMIGLOBAL, ROWS, false, E, DENSE>(w, st, a, t);
   }
 }
 
-template <bool ROWS, typename E>
+template <bool ROWS, typename E, bool DENSE = false>
 int dispatch(Args a, int locality, const Wide& w, const TagArgs* t, void* stream) {
   if (a.n <= 0 || a.L <= 0 || a.Q <= 0 || a.Tpad <= 0 || locality < 0 ||
       locality > 2)
@@ -721,7 +771,7 @@ int dispatch(Args a, int locality, const Wide& w, const TagArgs* t, void* stream
   if (blocks > 0x7fffffffLL) return -1;
   cudaStream_t st = (cudaStream_t)stream;
   a.small = problems <= 0xffffffffLL;
-  if (w.blocks > 0) return launch_wide<ROWS, E>(locality, w, st, a, t);
+  if (w.blocks > 0) return launch_wide<ROWS, E, DENSE>(locality, w, st, a, t);
   // the register route's templates end at T1P = 65 (its plan never sends
   // a wider needle: the wide route takes those)
   if (a.Tpad > 64) return -1;
@@ -730,14 +780,17 @@ int dispatch(Args a, int locality, const Wide& w, const TagArgs* t, void* stream
   // loads when they stay 16-byte aligned
   const bool vec = (ROWS || a.Q == 1) && a.Tpad % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(a.table) % 16 == 0;
+  // the dense entry's T1P = 65 templates read float4 rows only (strided
+  // rows of 65 columns spilled 448-460 bytes): AFFINE_DENSE_REG_MAX_T
+  if (DENSE && a.Tpad > 32 && !vec) return -1;
   if (a.Tpad <= 8)
-    launch_vec<9, ROWS, E>(vec, locality, grid, st, a, t);
+    launch_vec<9, ROWS, E, DENSE>(vec, locality, grid, st, a, t);
   else if (a.Tpad <= 16)
-    launch_vec<17, ROWS, E>(vec, locality, grid, st, a, t);
+    launch_vec<17, ROWS, E, DENSE>(vec, locality, grid, st, a, t);
   else if (a.Tpad <= 32)
-    launch_vec<33, ROWS, E>(vec, locality, grid, st, a, t);
+    launch_vec<33, ROWS, E, DENSE>(vec, locality, grid, st, a, t);
   else
-    launch_vec<65, ROWS, E>(vec, locality, grid, st, a, t);
+    launch_vec<65, ROWS, E, DENSE>(vec, locality, grid, st, a, t);
   return (int)cudaGetLastError();
 }
 
@@ -789,4 +842,19 @@ extern "C" int vt_affine_dp_scores_rows(
                V, open_s, ext_s, open_t, ext_t, false, mask_empty != 0};
   const Wide w{wide_blocks, wide_smem, scratch};
   return dispatch<true, float>(a, locality, w, tag, stream);
+}
+
+// ``S`` is the dense [c, L, Tpad, Q] f32 block on both routes (row i of
+// slice s at (s * L + i) * Tpad * Q, column j of query q at j * Q + q);
+// ``len_s`` [c], >= 1; ``len_t`` [Q].
+extern "C" int vt_affine_dp_scores_dense(
+    const float* S, const int32_t* len_s, const int32_t* len_t, float* out,
+    int64_t c, int L, int Tpad, int Q, float open_s, float ext_s, float open_t,
+    float ext_t, int locality, int wide_blocks, int wide_smem, float* scratch,
+    void* stream) {
+  if (S == nullptr) return -1;
+  const Args a{S, nullptr, nullptr, nullptr, len_s, len_t, out, c, L,
+               Tpad, Q, 0, open_s, ext_s, open_t, ext_t, false, false};
+  const Wide w{wide_blocks, wide_smem, scratch};
+  return dispatch<false, float, true>(a, locality, w, nullptr, stream);
 }

@@ -1,4 +1,4 @@
-// Waterman-Smith-Beyer (general gap cost) alignment DP scores, two entries:
+// Waterman-Smith-Beyer (general gap cost) alignment DP scores, three entries:
 //   gather: raw[s, q] = best cell of the DP of slice s against query q, where
 //           S[i, j] = table[tokens[s, i], j, q] (the gather is fused in); the
 //           table is f32, bf16 or int8 (a quantized ranking table: each
@@ -8,7 +8,14 @@
 //           table[k * V + tokens[r, i], j] (the stacked [slots * V, Tmax]
 //           plan table, read row by row), per-problem len_s (0 allowed) and
 //           len_t; the score-only rescore.  A null ``tokens`` reads the
-//           table itself as S ([B * L, T]: row r * L + i), the flat batch.
+//           table itself as S ([B * L, T]: row r * L + i), the flat batch;
+//   dense:  raw[s, q] as in the gather entry, where S[i, j] = S[s, i, j, q]
+//           of a dense [c, L, T, Q] f32 block (a contextual chunk's metric
+//           GEMM output, query minor), read in place: the gather entry
+//           with slice s's row i at "token id" s * L + i.  On the register
+//           route lane k reads column k of its row Q floats apart (the
+//           gather entry reads a transposed [V, Q, T] copy there; the dense
+//           block is not copied).
 // H[i, j] = max(H[i-1, j-1] + S[i-1, j-1], max_g H[i-g, j] - w_s[g],
 //               max_g H[i, j-g] - w_t[g] [, 0 local]).
 //
@@ -170,7 +177,9 @@ struct Args {
 // E: the table's element type (float, uint16_t for bf16, int8_t); the
 // row-gather entry reads the f32 plan table only.  TAGGED (f32 only): the
 // similarities are tag-weighted by ``t``.
-template <int LOC, bool GATHER, int THREADS, typename E, bool TAGGED>
+// DENSE (gather only): the table is the dense [c, L, T, Q] block.
+template <int LOC, bool GATHER, int THREADS, typename E, bool TAGGED,
+          bool DENSE = false>
 __device__ __forceinline__ void wsb_dp_body(const Args a, const TagArgs t) {
   static_assert(GATHER || std::is_same<E, float>::value, "rows read f32 tables");
   static_assert(!TAGGED || std::is_same<E, float>::value, "tags weight f32 tables");
@@ -231,7 +240,10 @@ __device__ __forceinline__ void wsb_dp_body(const Args a, const TagArgs t) {
         tp = t.p + (int64_t)q * t.qs;
       }
       if (GATHER) {
-        srow = tbase + (int64_t)tokens[s * L + i - 1] * T * Q;
+        if constexpr (DENSE)
+          srow = tbase + (s * L + i - 1) * (int64_t)T * Q;
+        else
+          srow = tbase + (int64_t)tokens[s * L + i - 1] * T * Q;
         scs = Q;
       } else {
         srow = tbase + (int64_t)(tokens != nullptr ? tokens[s * L + i - 1] : i - 1) * T;
@@ -335,6 +347,13 @@ __global__ void __launch_bounds__(128) wsb_dp_tagged_kernel(const Args a, const 
   wsb_dp_body<LOC, GATHER, THREADS, float, true>(a, t);
 }
 
+// The dense entry's shared / scratch route: a family of its own, so the
+// gather templates stay as they are.
+template <int LOC, int THREADS>
+__global__ void __launch_bounds__(128) wsb_dp_dense_kernel(const Args a) {
+  wsb_dp_body<LOC, true, THREADS, float, false, true>(a, TagArgs{});
+}
+
 // ---------------------------------------------------------------------------
 // register route
 // ---------------------------------------------------------------------------
@@ -380,7 +399,9 @@ __device__ __forceinline__ void split_problem(int64_t p, int Q, bool small,
 // its own len_t), its row read from table slot q.  E: the table's element
 // type, as in wsb_dp_kernel.
 // TAGGED (f32 only): the similarities are tag-weighted by ``t``.
-template <int LT, int G, int LOC, int P, bool ROWS, typename E, bool TAGGED>
+// DENSE (gather only): the table is the dense [c, L, T, Q] block.
+template <int LT, int G, int LOC, int P, bool ROWS, typename E, bool TAGGED,
+          bool DENSE = false>
 __device__ __forceinline__ void wsb_regs_body(const RegCosts<LT, G> costs, const Args a,
                                               const TagArgs t) {
   static_assert(!ROWS || P == 1, "a row-gather group takes one problem");
@@ -437,10 +458,17 @@ __device__ __forceinline__ void wsb_regs_body(const RegCosts<LT, G> costs, const
   const uint32_t T = (uint32_t)a.T;
   const int32_t* trow = (a.tokens != nullptr) ? a.tokens + s * (int64_t)a.L : nullptr;
   auto tok_at = [&](int i) -> uint32_t {
-    return (ROWS && trow == nullptr) ? (uint32_t)i : (uint32_t)__ldg(trow + i);
+    return (DENSE || (ROWS && trow == nullptr)) ? (uint32_t)i
+                                                : (uint32_t)__ldg(trow + i);
   };
+  // between the consecutive queries of a group (P = 2)
+  const uint32_t ustride = DENSE ? 1u : T;
   uint32_t vstride, off;
-  if (ROWS) {
+  if constexpr (DENSE) {
+    // row i of slice s at (s * L + i) * T * Q, column k of query q at k * Q + q
+    vstride = (uint32_t)a.Q * T;
+    off = (uint32_t)(s * a.L) * vstride + (uint32_t)q + (uint32_t)k * (uint32_t)a.Q;
+  } else if (ROWS) {
     vstride = T;
     off = ((uint32_t)q * (uint32_t)a.V +
            (trow == nullptr ? (uint32_t)(s * a.L) : 0u)) * T + (uint32_t)k;
@@ -456,7 +484,7 @@ __device__ __forceinline__ void wsb_regs_body(const RegCosts<LT, G> costs, const
     const E* r0 = tcol + tok_at(0) * vstride;
 #pragma unroll
     for (int u = 0; u < P; ++u)
-      sv_n[u] = (rows >= 1 && col_in) ? to_f32(__ldg(r0 + u * T)) : 0.0f;
+      sv_n[u] = (rows >= 1 && col_in) ? to_f32(__ldg(r0 + u * ustride)) : 0.0f;
   }
 
 #pragma unroll
@@ -481,7 +509,7 @@ __device__ __forceinline__ void wsb_regs_body(const RegCosts<LT, G> costs, const
       const E* rn = tcol + tok_n * vstride;
 #pragma unroll
       for (int u = 0; u < P; ++u)
-        sv_n[u] = (i + 1 <= rows && col_in) ? to_f32(__ldg(rn + u * T)) : 0.0f;
+        sv_n[u] = (i + 1 <= rows && col_in) ? to_f32(__ldg(rn + u * ustride)) : 0.0f;
       if (i + 1 < LT) tok_n = (i + 2 <= rows) ? tok_at(i + 1) : 0;
     }
     const float h_prev0 = (LOC == GLOBAL && i > 1) ? -costs.w_s[i - 1] : 0.0f;
@@ -537,7 +565,13 @@ __global__ void __launch_bounds__(REG_THREADS) wsb_regs_tagged_kernel(
   wsb_regs_body<LT, G, LOC, P, ROWS, float, true>(costs, a, t);
 }
 
-template <int LT, int G, int LOC, bool ROWS, typename E>
+template <int LT, int G, int LOC, int P>
+__global__ void __launch_bounds__(REG_THREADS) wsb_regs_dense_kernel(
+    const RegCosts<LT, G> costs, const Args a) {
+  wsb_regs_body<LT, G, LOC, P, false, float, false, true>(costs, a, TagArgs{});
+}
+
+template <int LT, int G, int LOC, bool ROWS, typename E, bool DENSE>
 int launch_regs(const HostCosts& h, int blocks, cudaStream_t stream,
                 const Args& a, const TagArgs* t) {
   // costs past T only reach columns past the needle, or a lane's own C
@@ -552,6 +586,13 @@ int launch_regs(const HostCosts& h, int blocks, cudaStream_t stream,
   // every group
   const int P = (!ROWS && a.Q % 2 == 0) ? 2 : 1;
   if ((int64_t)blocks * (REG_THREADS / G) * P < a.problems) return -1;
+  if constexpr (DENSE) {
+    if (P == 2)
+      wsb_regs_dense_kernel<LT, G, LOC, 2><<<blocks, REG_THREADS, 0, stream>>>(c, a);
+    else
+      wsb_regs_dense_kernel<LT, G, LOC, 1><<<blocks, REG_THREADS, 0, stream>>>(c, a);
+    return (int)cudaGetLastError();
+  }
   if constexpr (std::is_same<E, float>::value) {
     if (t != nullptr) {
       if constexpr (ROWS)
@@ -572,25 +613,25 @@ int launch_regs(const HostCosts& h, int blocks, cudaStream_t stream,
   return (int)cudaGetLastError();
 }
 
-template <int LT, int G, bool ROWS, typename E>
+template <int LT, int G, bool ROWS, typename E, bool DENSE>
 int regs_locality(int locality, const HostCosts& h, int blocks,
                   cudaStream_t stream, const Args& a, const TagArgs* t) {
   switch (locality) {
-    case LOCAL: return launch_regs<LT, G, LOCAL, ROWS, E>(h, blocks, stream, a, t);
-    case GLOBAL: return launch_regs<LT, G, GLOBAL, ROWS, E>(h, blocks, stream, a, t);
-    default: return launch_regs<LT, G, SEMIGLOBAL, ROWS, E>(h, blocks, stream, a, t);
+    case LOCAL: return launch_regs<LT, G, LOCAL, ROWS, E, DENSE>(h, blocks, stream, a, t);
+    case GLOBAL: return launch_regs<LT, G, GLOBAL, ROWS, E, DENSE>(h, blocks, stream, a, t);
+    default: return launch_regs<LT, G, SEMIGLOBAL, ROWS, E, DENSE>(h, blocks, stream, a, t);
   }
 }
 
-template <int LT, bool ROWS, typename E>
+template <int LT, bool ROWS, typename E, bool DENSE>
 int regs_width(int locality, const HostCosts& h, int blocks,
                cudaStream_t stream, const Args& a, const TagArgs* t) {
-  if (a.T <= 8) return regs_locality<LT, 8, ROWS, E>(locality, h, blocks, stream, a, t);
-  if (a.T <= 16) return regs_locality<LT, 16, ROWS, E>(locality, h, blocks, stream, a, t);
-  return regs_locality<LT, 32, ROWS, E>(locality, h, blocks, stream, a, t);
+  if (a.T <= 8) return regs_locality<LT, 8, ROWS, E, DENSE>(locality, h, blocks, stream, a, t);
+  if (a.T <= 16) return regs_locality<LT, 16, ROWS, E, DENSE>(locality, h, blocks, stream, a, t);
+  return regs_locality<LT, 32, ROWS, E, DENSE>(locality, h, blocks, stream, a, t);
 }
 
-template <bool ROWS, typename E>
+template <bool ROWS, typename E, bool DENSE = false>
 int regs_dispatch(Args a, const HostCosts& h, int n_wt, int locality,
                   int blocks, const TagArgs* t, void* stream) {
   if (a.problems <= 0 || a.Q <= 0 || a.L <= 0 || a.L > 32 || a.T <= 0 ||
@@ -599,9 +640,9 @@ int regs_dispatch(Args a, const HostCosts& h, int n_wt, int locality,
     return -1;
   a.small = a.problems <= 0xffffffffLL;
   cudaStream_t st = (cudaStream_t)stream;
-  if (a.L <= 8) return regs_width<8, ROWS, E>(locality, h, blocks, st, a, t);
-  if (a.L <= 16) return regs_width<16, ROWS, E>(locality, h, blocks, st, a, t);
-  return regs_width<32, ROWS, E>(locality, h, blocks, st, a, t);
+  if (a.L <= 8) return regs_width<8, ROWS, E, DENSE>(locality, h, blocks, st, a, t);
+  if (a.L <= 16) return regs_width<16, ROWS, E, DENSE>(locality, h, blocks, st, a, t);
+  return regs_width<32, ROWS, E, DENSE>(locality, h, blocks, st, a, t);
 }
 
 // ---------------------------------------------------------------------------
@@ -610,6 +651,15 @@ int regs_dispatch(Args a, const HostCosts& h, int n_wt, int locality,
 
 using KernelFn = void (*)(const Args);
 using TaggedFn = void (*)(const Args, const TagArgs);
+
+template <int THREADS>
+KernelFn pick_dense(int locality) {
+  switch (locality) {
+    case LOCAL: return wsb_dp_dense_kernel<LOCAL, THREADS>;
+    case GLOBAL: return wsb_dp_dense_kernel<GLOBAL, THREADS>;
+    default: return wsb_dp_dense_kernel<SEMIGLOBAL, THREADS>;
+  }
+}
 
 template <bool GATHER, int THREADS, typename E>
 KernelFn pick(int locality) {
@@ -629,10 +679,16 @@ TaggedFn pick_tagged(int locality) {
   }
 }
 
-// The kernel of a launch, tagged or not (``Fn``: KernelFn or TaggedFn).
-template <typename Fn, bool GATHER, typename E>
+// The kernel of a launch, tagged or not (``Fn``: KernelFn or TaggedFn);
+// DENSE: the dense entry's family.
+template <typename Fn, bool GATHER, typename E, bool DENSE>
 Fn pick_kernel(const Args& a, int locality, int threads) {
-  if constexpr (std::is_same<Fn, TaggedFn>::value) {
+  if constexpr (DENSE) {
+    if (a.scratch != nullptr) return pick_dense<0>(locality);
+    if (threads == 32) return pick_dense<32>(locality);
+    if (threads == 64) return pick_dense<64>(locality);
+    if (threads == 128) return pick_dense<128>(locality);
+  } else if constexpr (std::is_same<Fn, TaggedFn>::value) {
     if (a.scratch != nullptr) return pick_tagged<GATHER, 0>(locality);
     if (threads == 32) return pick_tagged<GATHER, 32>(locality);
     if (threads == 64) return pick_tagged<GATHER, 64>(locality);
@@ -649,7 +705,7 @@ Fn pick_kernel(const Args& a, int locality, int threads) {
 // ``scratch`` is null for rows in shared memory (smem_bytes per block of
 // 32, 64 or 128 threads), else a buffer of blocks * threads * (L + 1) *
 // (T + 1) floats.
-template <bool GATHER, typename E>
+template <bool GATHER, typename E, bool DENSE = false>
 int launch(const Args& a, int locality, int blocks, int threads,
            int smem_bytes, const TagArgs* t, void* stream) {
   if (a.problems <= 0 || a.L <= 0 || a.T <= 0 || a.Q <= 0 || locality < 0 ||
@@ -661,9 +717,9 @@ int launch(const Args& a, int locality, int blocks, int threads,
   if (a.scratch == nullptr &&
       (int64_t)smem_bytes < (int64_t)(a.L + 1) * (a.T + 1) * threads * 4)
     return -1;
-  if constexpr (std::is_same<E, float>::value) {
+  if constexpr (std::is_same<E, float>::value && !DENSE) {
     if (t != nullptr) {
-      const TaggedFn kernel = pick_kernel<TaggedFn, GATHER, E>(a, locality, threads);
+      const TaggedFn kernel = pick_kernel<TaggedFn, GATHER, E, false>(a, locality, threads);
       if (kernel == nullptr) return -1;
       if (smem_bytes > 48 * 1024) {
         const cudaError_t err = cudaFuncSetAttribute(
@@ -674,7 +730,7 @@ int launch(const Args& a, int locality, int blocks, int threads,
       return (int)cudaGetLastError();
     }
   }
-  const KernelFn kernel = pick_kernel<KernelFn, GATHER, E>(a, locality, threads);
+  const KernelFn kernel = pick_kernel<KernelFn, GATHER, E, DENSE>(a, locality, threads);
   if (kernel == nullptr) return -1;
   if (smem_bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -778,4 +834,31 @@ extern "C" int vt_wsb_dp_scores_rows_regs(
                nullptr, out, nullptr, B, L, T, 1, V, false, mask_empty != 0};
   return regs_dispatch<true, float>(a, HostCosts{w_s, n_ws, w_t, w_ts}, n_wt,
                                     locality, blocks, tag, stream);
+}
+
+// Dense entries: ``S`` the [c, L, T, Q] f32 block; ``len_s`` [c], >= 1;
+// ``len_t`` [Q].  Shared / scratch route (arguments as in vt_wsb_dp_scores).
+extern "C" int vt_wsb_dp_scores_dense(
+    const float* S, const int32_t* len_s, const int32_t* len_t,
+    const float* w_s, const float* w_t, const float* w_ts, float* out,
+    float* scratch, int64_t c, int L, int T, int Q, int locality, int blocks,
+    int threads, int smem_bytes, void* stream) {
+  if (S == nullptr || Q <= 0) return -1;
+  const Args a{S, nullptr, nullptr, nullptr, len_s, len_t, w_s, w_t, w_ts,
+               out, scratch, c * (int64_t)Q, L, T, Q, 0, false, false};
+  return launch<true, float, true>(a, locality, blocks, threads, smem_bytes, nullptr, stream);
+}
+
+// Dense entry, register route (costs on the host as in
+// vt_wsb_dp_scores_regs; the block holds fewer than 2^32 floats).
+extern "C" int vt_wsb_dp_scores_dense_regs(
+    const float* S, const int32_t* len_s, const int32_t* len_t,
+    const float* w_s, int n_ws, const float* w_t, const float* w_ts, int n_wt,
+    float* out, int64_t c, int L, int T, int Q, int locality, int blocks,
+    void* stream) {
+  if (S == nullptr || c <= 0 || Q <= 0) return -1;
+  const Args a{S, nullptr, nullptr, nullptr, len_s, len_t, nullptr, nullptr,
+               nullptr, out, nullptr, c * (int64_t)Q, L, T, Q, 0, false, false};
+  return regs_dispatch<false, float, true>(a, HostCosts{w_s, n_ws, w_t, w_ts},
+                                           n_wt, locality, blocks, nullptr, stream);
 }

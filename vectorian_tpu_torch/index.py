@@ -4,15 +4,20 @@ Reference: vectorian/index.py — Query/PreparedQuery (:25-106), Match ABC +
 to_json (:249-292), CoreMatch region reconstruction (:295-379) and
 BruteForceIndex thread fan-out (:509-560).
 
-Port mapping (static slice of vectorian_tpu/index.py, affine and general
-gap models): the per-document ThreadPool disappears — the packed corpus is scored in one
-batched device pass per bucket (ops/search.BruteForceEngine); the bounded
-top-k heap becomes a device top-k fused with the exact rescore of the
-selected rows; flows are recomputed for the global top-k only.  ``find`` is
-``find_batch`` with one query: both run the same corpus pass and the same
-finalizer, so their (slice_id, score) lists are byte-identical.  The query
-options tag weights, ``pos_filter`` / ``tag_filter`` / ``token_filter``,
-``booster`` and ``bidirectional`` ride that pass in both.
+Port mapping (vectorian_tpu/index.py, alignment metrics, affine and
+general gap models): the per-document ThreadPool disappears — the packed
+corpus is scored in one batched device pass per bucket
+(ops/search.BruteForceEngine); the bounded top-k heap becomes a device top-k
+fused with the exact rescore of the selected rows; flows are recomputed for
+the global top-k only.  A static ``find`` is ``find_batch`` with one query:
+both run the same corpus pass and the same finalizer, so their (slice_id,
+score) lists are byte-identical.  The query options tag weights,
+``pos_filter`` / ``tag_filter`` / ``token_filter``, ``booster``,
+``bidirectional`` and ``submatch_weight`` ride that pass in both.
+``debug``, contextual and mixed-tree plans take ``find``'s full-read paths
+(``score_topk`` / ``score_all`` and an exact rescore with flows), a
+contextual ``find_batch`` the batched contextual pass; both report the
+exact rescore's scores under a provable cut, so they too are byte-equal.
 """
 
 from __future__ import annotations
@@ -29,16 +34,25 @@ import torch
 from vectorian_tpu_torch.alignment import resolve_affine_gaps
 from vectorian_tpu_torch.ops.alignment import AffineGapParams
 from vectorian_tpu_torch.ops.search import (
+    NEG_SCORE,
     BruteForceEngine,
     DocFilterSpec,
+    HostVecSource,
     TagWeightingSpec,
     batch_tracebacks,
     edge_sims_of,
     gap_vec,
     order_by_score,
+    reference_score,
 )
-from vectorian_tpu_torch.ops.simmatrix import QueryPlan, compile_plan
+from vectorian_tpu_torch.ops.simmatrix import (
+    QueryPlan,
+    compile_plan,
+    plan_sim_upper,
+    query_vectors,
+)
 from vectorian_tpu_torch.session import Result
+from vectorian_tpu_torch.sim.token import EmbeddingTokenSim
 from vectorian_tpu_torch.utils import trace
 from vectorian_tpu_torch.vocabulary import UPOS
 
@@ -50,25 +64,45 @@ def _not_ported(what: str, item: str):
     )
 
 
-_OPTIONS_ITEM = "4c: submatch_weight, debug and the full-read paths"
-# per-query options of the JAX package that the port does not serve yet;
-# each raises when set to anything but its neutral default
-UNPORTED_OPTIONS = ("submatch_weight", "debug")
+_TREE_ITEM = "5b: mixed trees, contextual tag weights and span embeddings"
+
+# per-query options find_batch serves through find, query by query (the JAX
+# package's BATCH_HARD_OPTIONS): debug's payloads are per-query host
+# diagnostics
+BATCH_HARD_OPTIONS = frozenset({"debug"})
 
 
-def _check_options(options: dict) -> None:
-    for key in UNPORTED_OPTIONS:
-        if options.get(key):
-            raise _not_ported(f"query option {key!r}", _OPTIONS_ITEM)
+def _rev_rows(v, n_tokens: int) -> np.ndarray:
+    """``v`` with its first ``n_tokens`` rows reversed, the rest kept."""
+    v = np.asarray(v)
+    return np.concatenate([v[:n_tokens][::-1], v[n_tokens:]], axis=0)
+
+
+def _reverse_ctx_query(d: dict, n_tokens: int) -> dict:
+    """A contextual needle dict with its first ``n_tokens`` rows reversed
+    (bidirectional matching)."""
+    return {k: _rev_rows(v, n_tokens) for k, v in d.items()}
 
 
 def _reverse_plan(qp: QueryPlan, n_tokens: int) -> QueryPlan:
     """The plan with its first ``n_tokens`` needle columns reversed
-    (bidirectional matching); the padding stays at the tail, so the len_t
-    mask keeps working.  The columns are copies: the same bits."""
-    m = qp.matrix
-    return QueryPlan(
-        matrix=torch.cat([torch.flip(m[:, :n_tokens], dims=(1,)), m[:, n_tokens:]], 1)
+    (bidirectional matching): static matrices' columns and contextual
+    needle rows; the padding stays at the tail, so the len_t mask keeps
+    working.  The columns are copies: the same bits."""
+
+    def rev(m):
+        return torch.cat([torch.flip(m[:, :n_tokens], dims=(1,)), m[:, n_tokens:]], 1)
+
+    if qp.is_static_only:
+        m = rev(qp.matrix)
+        return dataclasses.replace(qp, matrix=m, static_sims=[m])
+    ctx_q = [_reverse_ctx_query(q, n_tokens) for q in qp.ctx_queries]
+    dev = qp.ctx_vectors[0].unmodified.device
+    return dataclasses.replace(
+        qp,
+        static_sims=[rev(m) for m in qp.static_sims],
+        ctx_queries=ctx_q,
+        ctx_vectors=[query_vectors(q, dev) for q in ctx_q],
     )
 
 
@@ -76,20 +110,127 @@ def _reverse_tagw(tagw, n_tokens: int):
     """The TagWeightingSpec of the reversed needle (None stays None)."""
     if tagw is None:
         return None
-
-    def rev(v):
-        return np.concatenate([v[:n_tokens][::-1], v[n_tokens:]], axis=0)
-
     return dataclasses.replace(
-        tagw, t_pos_weights=rev(tagw.t_pos_weights), pos_t=rev(tagw.pos_t)
+        tagw, t_pos_weights=_rev_rows(tagw.t_pos_weights, n_tokens),
+        pos_t=_rev_rows(tagw.pos_t, n_tokens),
     )
 
 
-def _pad_needle(query: "PreparedQuery"):
+def _submatch_upper_bound(device_score, norm_total: float, w: float,
+                          sim_max: float = 1.0):
+    """Upper bound on the submatch-rescored score of any slice whose
+    device-normalized score is <= ``device_score`` (no boost).
+
+    exact = raw / reference_score(total, matched, w) with raw <= matched *
+    sim_max and matched <= total; reference_score(m) = m + ((total - m) /
+    total)^w (total - m) is least at m* = total (1 - (1 + w)^(-1/w)), so the
+    least over m in [raw / sim_max, total] is ref(max(raw / sim_max, m*)):
+    a bound monotone in the device score, which makes device-ranked
+    overfetch + exact rescore provably complete (metric/alignment.h:84-106).
+    """
+    total = max(norm_total, 1e-9)
+    sim_max = max(float(sim_max), 1e-9)
+    d = np.asarray(device_score, np.float64)
+    raw = np.maximum(d, 0.0) * total
+    if w <= 0:
+        return np.where(d < 0, d, np.minimum(d, sim_max))
+    m_star = total * (1.0 - (1.0 / (1.0 + w)) ** (1.0 / w))
+    m = np.minimum(np.maximum(raw / sim_max, m_star), total)
+    ref = np.maximum(reference_score(total, m, w), 1e-12)
+    ub = np.minimum(raw / ref, sim_max)
+    return np.where(d < 0, d, ub)
+
+
+def _bisect_thresh(f, t: float) -> float:
+    """The largest d with f(d) < t for a monotone f with f(d) >= d, by 60
+    bisection steps from [min(-1, t - 1), max(t, lo + 1)]; -inf when f is
+    already >= t there."""
+    lo = min(-1.0, float(t) - 1.0)
+    hi = max(float(t), lo + 1.0)
+    if f(lo) >= t:
+        return -np.inf
+    for _ in range(60):
+        mid = 0.5 * (lo + hi)
+        if f(mid) >= t:
+            hi = mid
+        else:
+            lo = mid
+    return lo
+
+
+def _submatch_fetch_thresh(t: float, norm_total: float, w: float,
+                           sim_max: float, eps_q: float) -> float:
+    """The largest device score provably unable to reach a
+    submatch-rescored score of ``t``: every slice that can reach t has a
+    device score strictly above it (``eps_q`` covers device-vs-exact
+    drift), so fetching everything >= it is a provably complete extras
+    round; -inf when nothing can be excluded."""
+    return _bisect_thresh(
+        lambda d: float(_submatch_upper_bound(d + eps_q, norm_total, w, sim_max)), t
+    )
+
+
+def _submatch_bound_boosted(d, boost, norm_total: float, w: float,
+                            sim_max: float, eps_q: float = 0.0) -> float:
+    """Upper bound on the BOOSTED submatch-rescored score of any slice whose
+    boosted device score is <= ``d``: max over the boost values b present
+    of b * ub(d / b + eps_q) (the boost factors out of the exact score and
+    the device multiply alike).  Non-positive boosts give <= 0; a negative
+    one makes the bound vacuous (+inf: the caller reads everything)."""
+    b = np.unique(np.asarray(boost, np.float64))
+    if b.size and b[0] < 0:
+        return np.inf
+    b = b[b > 0]
+    if not b.size:
+        return 0.0
+    vals = b * _submatch_upper_bound(
+        np.asarray(d, np.float64) / b + eps_q, norm_total, w, sim_max
+    )
+    return float(np.max(vals))
+
+
+def _submatch_fetch_thresh_boosted(t: float, boost, norm_total: float,
+                                   w: float, sim_max: float,
+                                   eps_q: float) -> float:
+    """``_submatch_fetch_thresh`` of boosted scores: the bisected inverse
+    of ``_submatch_bound_boosted``."""
+    b = np.unique(np.asarray(boost, np.float64))
+    if b.size and b[0] < 0:
+        return -np.inf
+    b = b[b > 0]
+    if not b.size:
+        # all-zero boosts: every boosted score is 0
+        return np.inf if t > 0 else -np.inf
+    return _bisect_thresh(
+        lambda d: float(np.max(
+            b * _submatch_upper_bound(d / b + eps_q, norm_total, w, sim_max)
+        )), t,
+    )
+
+
+def _boosted_col(col: np.ndarray, boost) -> np.ndarray:
+    """A host ranking column times its boosts, the NEG_SCORE sentinels
+    kept (the in-kernel boost multiply's f32 arithmetic)."""
+    if boost is None:
+        return col
+    return np.where(col > NEG_SCORE * 0.5, col * boost, col).astype(np.float32)
+
+
+def _metric_ctx_names(token_sim):
+    """Names of the contextual embeddings a token-sim tree uses."""
+    return {
+        e.name for e in token_sim.embeddings
+        if not getattr(e, "is_static", True)
+    }
+
+
+def _pad_needle(query: "PreparedQuery", session=None, ctx_names=()):
     """Pad the needle to a multiple of 4 tokens (at least 4): padded ids
-    are -1, strings empty.  Plans of one padded width give find() and
-    find_batch() the same GEMM shape, hence the same bits.  Returns
-    (token_ids, strings, Tpad)."""
+    are -1, strings empty, contextual rows zero.  Plans of one padded width
+    give find() and find_batch() the same GEMM shape, hence the same bits.
+    ``ctx_names``: the contextual embeddings to encode the needle with
+    (``session``'s).  Returns (token_ids, strings, {name: needle dict},
+    Tpad)."""
     T = query.n_tokens
     Tpad = max(4, -(-T // 4) * 4)
     pad_n = Tpad - T
@@ -97,7 +238,15 @@ def _pad_needle(query: "PreparedQuery"):
         [np.asarray(query.token_ids, np.int32), np.full((pad_n,), -1, np.int32)]
     )
     strings = list(query.token_strings) + [""] * pad_n
-    return tok_ids, strings, Tpad
+    ctx_q = {}
+    if ctx_names:
+        for name, d in query.contextual_vectors(session, names=ctx_names).items():
+            ctx_q[name] = {
+                k: np.pad(np.asarray(v),
+                          ((0, pad_n),) + ((0, 0),) * (np.ndim(v) - 1))
+                for k, v in d.items()
+            }
+    return tok_ids, strings, ctx_q, Tpad
 
 
 class Query:
@@ -142,6 +291,7 @@ class PreparedQuery:
         self._query = query
         session = query.index.session
         doc = nlp(query.text)
+        self._sdoc = doc
         j = doc.to_json() if hasattr(doc, "to_json") else doc
 
         tokens = j["tokens"]
@@ -174,6 +324,20 @@ class PreparedQuery:
         self.pos_ids = np.asarray(
             [session.vocab.pos_id(p) for p in self.token_pos], np.int8
         )
+
+    def contextual_vectors(self, session, names=None) -> dict:
+        """name -> {unmodified, normalized, magnitudes} needle vectors of
+        the session's contextual embeddings (the reference encodes the
+        query through the same encoders, index.py:66-74); ``names``
+        restricts it to the embeddings the metric uses."""
+        out = {}
+        for name in session.contextual_embeddings:
+            if names is not None and name not in names:
+                continue
+            out[name] = session.encode_contextual_query(
+                name, self._sdoc, self.text, self.kept
+            )
+        return out
 
     @property
     def query(self):
@@ -690,14 +854,24 @@ class BruteForceIndex(Index):
             self.find(" ".join(words), n=n, min_score=-1e30)
         return self
 
-    def _compile_plan(self, pq: PreparedQuery):
-        tok_ids_p, strings_p, _ = _pad_needle(pq)
-        return compile_plan(
+    def _compile_plan(self, pq: PreparedQuery, ctx_names=()):
+        """The query's plan at its padded needle width (``qp.width``), the
+        contextual leaves of ``ctx_names`` with the needle's vectors (their
+        device stores packed at first use)."""
+        tok_ids_p, strings_p, ctx_q, _ = _pad_needle(pq, self._session, ctx_names)
+        qp = compile_plan(
             self._args["metric"]["token_sim"],
             self._session.compiled_embeddings,
             tok_ids_p,
             strings_p,
+            ctx_q,
+            device=self._session.device,
         )
+        for name in qp.ctx_names:
+            self._engine.ensure_contextual(
+                name, self._session.documents, self._session._ctx_dims[name]
+            )
+        return qp
 
     def _doc_filter(self, query: PreparedQuery) -> Optional[DocFilterSpec]:
         """Document-side token filter from the query options: pos_filter /
@@ -753,50 +927,296 @@ class BruteForceIndex(Index):
         )
 
     def _find(self, query: PreparedQuery) -> List[Match]:
+        """One query, the JAX package's branches (reference index.py
+        BruteForceIndex._find): a static plan without ``debug`` takes the
+        fused device top-k (with ``bidirectional``, both orientations in
+        one pass; with ``submatch_weight``, its closed-form overfetch); a
+        contextual or mixed plan the full-read ``score_topk`` and an exact
+        rescore with flows; ``debug``, and any cut those cannot prove, the
+        full read of every slice's device score (``score_all``), whose
+        extras are bounded by the exact n-th score."""
         opts = query.options
-        _check_options(opts)
-        if query.n_tokens == 0:
-            return []
+        debug = opts.get("debug")
         n = int(opts.get("max_matches", 100))
         min_score = float(opts.get("min_score", 0.2))
+        submatch_weight = float(opts.get("submatch_weight") or 0.0)
+        booster = opts.get("booster")
+        bidirectional = bool(opts.get("bidirectional"))
+        if query.n_tokens == 0:
+            return []
+        token_sim = self._args["metric"]["token_sim"]
         T = query.n_tokens
+        engine = self._engine
         with trace.span("find.plan"):
-            qp = self._compile_plan(query)
-            tagw = self._tag_weighting(query, _pad_needle(query)[2])
+            qp = self._compile_plan(query, _metric_ctx_names(token_sim))
+        if debug and qp.is_static_only:
+            debug("static_similarity_matrix",
+                  {"similarity": qp.matrix.detach().cpu().numpy()})
+        with trace.span("find.plan"):
+            tagw = self._tag_weighting(query, qp.width)
             norm_total = tagw.total if tagw is not None else float(T)
-            booster = opts.get("booster")
             boost = None if booster is None else self._compile_booster(booster)
             doc_filter = self._doc_filter(query)
-        # the serving machinery with Q=1 (Q=2 for bidirectional: the
-        # reversed needle rides the same pass as a second query): the fused
-        # top-k step returns candidates WITH their exact f32 raw scores and
-        # flow payloads; boundary ties resolve through tie-bounded device
-        # column selects.  find_batch runs the same pass and finalizer, so
-        # the two are byte-identical by construction.
-        plans, tagws = [qp], [tagw]
-        if opts.get("bidirectional"):
-            plans.append(_reverse_plan(qp, T))
-            tagws.append(_reverse_tagw(tagw, T))
-        Q = len(plans)
-        with trace.span("find.topk"):
-            src = self._engine.score_topk_multi(
-                plans, [T] * Q, self._gaps, self._locality, [norm_total] * Q,
-                n + 32, gap_costs=self._gap_costs,
-                tag_weights=tagws if tagw is not None else None,
-                doc_filter=doc_filter,
-                boosts=[boost] * Q if boost is not None else None,
+        gaps, gap_costs = self._gaps, self._gap_costs
+        t_match0 = time.time()
+
+        def _exact_scores(top, raw):
+            # the finalizer's exact f32 rescore in f32 arithmetic (the same
+            # find_batch reports), so find and find_batch agree bit for bit
+            nt = np.float32(max(norm_total, 1e-9))
+            out = {}
+            for j, sid in enumerate(top):
+                sc = np.float32(raw[j]) / nt
+                if boost is not None:
+                    sc = sc * np.float32(boost[sid])
+                out[sid] = float(sc)
+            return out
+
+        def _rescored_matches(top, qp_, tagw_, on_sims=None):
+            mappings, edge_sims, raw = engine.rescore_with_flows(
+                top, qp_, T, gaps, self._locality, tag_weights=tagw_,
+                doc_filter=doc_filter, gap_costs=gap_costs, on_sims=on_sims,
+                with_scores=True,
             )
+            return self._build_matches(
+                query, token_sim, top, mappings, edge_sims,
+                _exact_scores(top, raw).__getitem__, submatch_weight, tagw_,
+                norm_total, min_score, n, debug,
+            )
+
+        if debug is None and qp.is_static_only and (
+            bidirectional or submatch_weight == 0.0
+        ):
+            # the serving machinery with Q=1 (Q=2 bidirectional: the
+            # reversed needle rides the same pass as a second query): the
+            # fused top-k step returns candidates WITH their exact f32 raw
+            # scores (and flow payloads); find_batch runs the same pass and
+            # finalizer, so the two are byte-identical by construction
+            plans, tagws = [qp], [tagw]
+            if bidirectional:
+                plans.append(_reverse_plan(qp, T))
+                tagws.append(_reverse_tagw(tagw, T))
+            Q = len(plans)
+            k_fetch = (4 * n + 32) if submatch_weight != 0.0 else (n + 32)
+            with trace.span("find.topk"):
+                src = engine.score_topk_multi(
+                    plans, [T] * Q, gaps, self._locality, [norm_total] * Q,
+                    k_fetch, gap_costs=gap_costs,
+                    tag_weights=tagws if tagw is not None else None,
+                    doc_filter=doc_filter,
+                    boosts=[boost] * Q if boost is not None else None,
+                )
+            if query.query.aborted:
+                return []
+            items = [(src.qview(qi), plans[qi], query, norm_total, tagws[qi], boost)
+                     for qi in range(Q)]
+            with trace.span("find.finalize"):
+                if submatch_weight != 0.0:
+                    per_q = self._finalize_submatch_many(
+                        items, gaps, n, min_score, 0.0, submatch_weight, doc_filter)
+                else:
+                    per_q = self._finalize_quantized_many(
+                        items, gaps, self._metric_name, n, min_score, 0.0,
+                        doc_filter)
+            if Q == 2:
+                return self._merge_bidirectional(per_q[0], per_q[1], query, n)
+            return per_q[0]
+
+        n_slices = engine.packed.n_slices
+        if debug is None and not bidirectional:
+            # a contextual or mixed plan (a static one without submatch took
+            # the fused path): the device top-k of the full read with a
+            # slack for the ranking's drift from the exact rescore
+            if submatch_weight == 0.0:
+                scale = 1e-6 if qp.is_static_only else self._ctx_floor(qp)
+
+                def ulp(x):
+                    return scale * max(1.0, abs(x))
+
+                with trace.span("find.topk"):
+                    top, _, rest = engine.score_topk(
+                        qp, T, gaps, self._locality, norm_total, k=n + 32,
+                        min_score=min_score - ulp(min_score), boost=boost,
+                        tag_weights=tagw, doc_filter=doc_filter,
+                        gap_costs=gap_costs, with_next=True,
+                    )
+                if query.query.aborted or not top:
+                    return []
+                matches = _rescored_matches(top, qp, tagw)
+                s_n = matches[n - 1].score if len(matches) >= n else min_score
+                if n + 32 >= n_slices or rest < s_n - ulp(s_n):
+                    return matches
+                # an unsafe cut (a boundary tie): the full read below
+            else:
+                # submatch rescoring can lift a slice past device-ranked
+                # candidates: overfetch 4n and prove the cut through the
+                # closed-form bound (scaled by the plan's similarity
+                # ceiling; inf for an unknowable one)
+                sim_max = plan_sim_upper(qp)
+                with trace.span("find.topk"):
+                    top, _, rest = engine.score_topk(
+                        qp, T, gaps, self._locality, norm_total, k=4 * n,
+                        min_score=-1e30, boost=boost, tag_weights=tagw,
+                        doc_filter=doc_filter, gap_costs=gap_costs,
+                        with_next=True,
+                    )
+                if query.query.aborted or not top:
+                    return []
+                matches = _rescored_matches(top, qp, tagw)
+                if 4 * n >= n_slices:
+                    return matches
+                s_n = matches[n - 1].score if len(matches) >= n else min_score
+                if not np.isfinite(sim_max):
+                    ub = np.inf
+                elif boost is not None:
+                    ub = _submatch_bound_boosted(rest, boost, norm_total,
+                                                 submatch_weight, sim_max, eps_q=1e-6)
+                else:
+                    ub = float(_submatch_upper_bound(rest, norm_total,
+                                                     submatch_weight, sim_max))
+                if ub < s_n - 1e-6:
+                    return matches
+                # unsafe: the full read's extras below, bounded over ALL
+                # scores by the closed form
+
+        with trace.span("find.score_all"):
+            scores = engine.score_all(
+                qp, T, gaps, self._locality, norm_total, boost=boost,
+                tag_weights=tagw, doc_filter=doc_filter, gap_costs=gap_costs,
+            )
+        qp_rev = tagw_rev = None
+        if bidirectional:
+            # the reversed needle as well; the better orientation of a slice
+            # is the better FINAL exact score (find_batch's merge)
+            qp_rev = _reverse_plan(qp, T)
+            tagw_rev = _reverse_tagw(tagw, T)
+            scores_rev = engine.score_all(
+                qp_rev, T, gaps, self._locality, norm_total, boost=boost,
+                tag_weights=tagw_rev, doc_filter=doc_filter, gap_costs=gap_costs,
+            )
+            # the max over orientations bounds both exact scores
+            scores = np.maximum(scores, scores_rev)
+        if debug:
+            debug("scores", {"scores": scores})
+            debug("document/match_time",
+                  {"elapsed_us": int((time.time() - t_match0) * 1e6)})
         if query.query.aborted:
             return []
-        with trace.span("find.finalize"):
-            per_q = self._finalize_quantized_many(
-                [(src.qview(qi), plans[qi], query, norm_total, tagws[qi], boost)
-                 for qi in range(Q)],
-                self._gaps, self._metric_name, n, min_score, 0.0, doc_filter,
-            )
-        if Q == 2:
-            return self._merge_bidirectional(per_q[0], per_q[1], query, n)
-        return per_q[0]
+
+        # membership guard: fetch with a plan-scaled slack and verify the
+        # cut after the exact rescore
+        fb_scale = 1e-6 if qp.is_static_only else self._ctx_floor(qp)
+
+        def fb_eps(x):
+            return fb_scale * max(1.0, abs(x))
+
+        if submatch_weight == 0.0:
+            first_top, rest_fb = engine.top_k_with_next(
+                scores, n + 32, min_score - fb_eps(min_score))
+            order0 = order_by_score(engine.packed, first_top, scores[first_top])
+            first_top = [int(c) for c in np.asarray(first_top)[order0]]
+        else:
+            first_top = engine.top_k(scores, 4 * n, min_score=-1e30)
+            rest_fb = None
+        if not first_top:
+            return []
+
+        # the surviving slices' contextual similarity blocks, observed from
+        # the rescore's own evaluation (reference contextual_similarity_
+        # matrix hook, metric/contextual.cpp:77-99; per slice here)
+        on_sims = None
+        if debug and not qp.is_static_only:
+            def on_sims(sid, Sw, Su):
+                debug("contextual_similarity_matrix", {"slice": sid, "similarity": Su})
+
+        def run(top):
+            fwd = _rescored_matches(top, qp, tagw, on_sims)
+            if qp_rev is None:
+                return fwd
+            # bidirectional: every candidate rescored in the reversed
+            # orientation too, the better FINAL score kept
+            rev = _rescored_matches(top, qp_rev, tagw_rev, on_sims)
+            return self._merge_bidirectional(fwd, rev, query, n)
+
+        def merge_cut(a, b):
+            packed = engine.packed
+            return sorted(a + b, key=lambda m: (
+                -m.score, int(packed.slice_doc[m.slice_id]),
+                int(packed.slice_idx[m.slice_id]),
+            ))[:n]
+
+        matches = run(first_top)
+        s_n = matches[n - 1].score if len(matches) >= n else min_score
+        seen = set(first_top)
+        if submatch_weight == 0.0:
+            # completeness: every slice whose device score could reach the
+            # exact n-th (within the slack) must have been rescored
+            thresh = s_n - fb_eps(s_n)
+            extra = []
+            if rest_fb is not None and rest_fb >= thresh:
+                extra = [int(c) for c in np.flatnonzero(scores >= thresh)
+                         if int(c) not in seen]
+        else:
+            # completeness of the rescored ranking: every slice whose
+            # closed-form bound (boosted: with the slice's boost factored
+            # out of its device score) could reach the exact n-th
+            sim_max = plan_sim_upper(qp)
+            if not np.isfinite(sim_max):
+                ub_vec = np.full_like(scores, np.inf)
+            elif boost is not None:
+                b = np.asarray(boost, np.float64)
+                if np.any(b < 0):
+                    ub_vec = np.full_like(scores, np.inf)
+                else:
+                    d_u = scores / np.where(b > 0, b, 1.0)
+                    # 1 ulp for the device boost multiply / host divide
+                    d_u = d_u + 1e-6 * np.maximum(1.0, np.abs(d_u))
+                    ub_vec = np.where(b > 0, b * _submatch_upper_bound(
+                        d_u, norm_total, submatch_weight, sim_max), 0.0)
+            else:
+                ub_vec = _submatch_upper_bound(scores, norm_total,
+                                               submatch_weight, sim_max)
+            extra = [int(c) for c in np.flatnonzero(ub_vec >= s_n - 1e-6)
+                     if int(c) not in seen]
+        if extra:
+            matches = merge_cut(matches, run(extra))
+        return matches
+
+    def _build_matches(self, query, token_sim, top, mappings, edge_sims,
+                       score_of, submatch_weight, tagw, norm_total, min_score,
+                       n, debug) -> List[Match]:
+        """Matches of rescored candidates: their exact scores
+        (``score_of``), under ``submatch_weight`` renormalized by
+        reference_score over the matched needle weight (metric/
+        alignment.h:84-106); each reported to ``debug`` ("alignment");
+        sorted in the reference's order and cut STRICTLY above
+        ``min_score`` (result_set.h:32-38)."""
+        T = query.n_tokens
+        packed = self._engine.packed
+        matches = []
+        for sid, mapping, sims in zip(top, mappings, edge_sims):
+            score = score_of(sid)
+            if submatch_weight != 0.0:
+                # the spec is padded to the needle's width; mappings are
+                # sized by its real token count
+                max_sims = (tagw.t_pos_weights[:T] if tagw is not None
+                            else np.ones((T,), np.float32))
+                matched = float(np.sum(max_sims[mapping >= 0]))
+                total = float(np.sum(max_sims))
+                raw = score * norm_total  # the device normalization undone
+                ref = reference_score(total, matched, submatch_weight)
+                score = raw / ref if ref > 0 else 0.0
+            if debug:
+                debug("alignment", {"slice": sid, "flow": mapping, "score": score})
+            matches.append(Match(
+                self, query, slice_id=sid, score=score, metric=token_sim.name,
+                mapping=mapping, similarities=sims,
+            ))
+        matches.sort(key=lambda m: (
+            -m.score, int(packed.slice_doc[m.slice_id]),
+            int(packed.slice_idx[m.slice_id]),
+        ))
+        return [m for m in matches if m.score > min_score][:n]
 
     def _compile_booster(self, booster) -> np.ndarray:
         """The booster's [n_slices] f32 weights (its ``compile`` does not
@@ -870,10 +1290,27 @@ class BruteForceIndex(Index):
         buckets once; a booster, compiled once, multiplies the ranking and
         the exact scores alike; ``bidirectional`` appends each query's
         reversed needle to the batch and merges the two orientations by
-        exact score."""
+        exact score; ``submatch_weight`` fetches the closed-form-bounded
+        4n + 32 overfetch.  ``debug`` runs ``find`` query by query (its
+        payloads are per-query diagnostics).
+
+        A single contextual embedding's batch runs the contextual pass
+        (``_find_batch_ctx``); mixed static + contextual trees and
+        contextual batches with tag weights are item 5b."""
         if mesh is not None:
             raise _not_ported("find_batch(mesh=...)", "7: multi-device serving")
-        _check_options(kwargs)
+        token_sim = self._args["metric"]["token_sim"]
+        if not all(getattr(e, "is_static", True) for e in token_sim.embeddings):
+            if (isinstance(token_sim, EmbeddingTokenSim)
+                    and not self._args.get("tag_weights")):
+                return self._find_batch_ctx(texts, n, min_score, **kwargs)
+            if not BATCH_HARD_OPTIONS & set(kwargs):
+                raise _not_ported(
+                    "find_batch of a mixed static + contextual tree or of a "
+                    "contextual metric with tag weights", _TREE_ITEM)
+        if BATCH_HARD_OPTIONS & set(kwargs):
+            return [self.find(t, n=n, min_score=min_score, **kwargs) for t in texts]
+        submatch_w = float(kwargs.get("submatch_weight") or 0.0)
         start_time = time.time()
         with trace.span("batch.prepare"):
             prepared, plans, len_ts, norm_totals, tagws, sim_dtype = (
@@ -904,9 +1341,12 @@ class BruteForceIndex(Index):
                 if boosts is not None:
                     boosts = boosts + boosts
         any_tags = any(t is not None for t in tagws)
+        # submatch rescoring can lift slices past device-ranked candidates:
+        # the closed-form-bounded overfetch (find()'s k)
+        k_fetch = (4 * n + 32) if submatch_w != 0.0 else (n + 32)
         with trace.span("batch.topk"):
             src, entry_err = self._engine.score_topk_multi(
-                plans, len_ts, self._gaps, self._locality, norm_totals, n + 32,
+                plans, len_ts, self._gaps, self._locality, norm_totals, k_fetch,
                 gap_costs=self._gap_costs, sim_dtype=sim_dtype, with_err=True,
                 tag_weights=tagws if any_tags else None, doc_filter=doc_filter,
                 boosts=boosts,
@@ -920,10 +1360,14 @@ class BruteForceIndex(Index):
                 boosts[qi] if boosts is not None else None,
             ))
             item_qis.append(qi)
-        per_q = self._finalize_quantized_many(
-            items, self._gaps, self._metric_name, n, min_score, entry_err,
-            doc_filter,
-        )
+        if submatch_w != 0.0:
+            per_q = self._finalize_submatch_many(
+                items, self._gaps, n, min_score, entry_err, submatch_w, doc_filter)
+        else:
+            per_q = self._finalize_quantized_many(
+                items, self._gaps, self._metric_name, n, min_score, entry_err,
+                doc_filter,
+            )
         matches_by_qi = dict(zip(item_qis, per_q))
         if len(prepared) > Q0:
             matches_by_qi = {
@@ -961,9 +1405,10 @@ class BruteForceIndex(Index):
                 self._nlp
             )
             prepared.append(pq)
-            plans.append(self._compile_plan(pq))
+            qp = self._compile_plan(pq)
+            plans.append(qp)
             len_ts.append(max(pq.n_tokens, 1))
-            tagw = self._tag_weighting(pq, _pad_needle(pq)[2])
+            tagw = self._tag_weighting(pq, qp.width)
             tagws.append(tagw)
             norm_totals.append(
                 tagw.total if tagw is not None else float(max(pq.n_tokens, 1))
@@ -976,33 +1421,52 @@ class BruteForceIndex(Index):
         sim_dtype = sim_precision if quantize else None
         return prepared, plans, len_ts, norm_totals, tagws, sim_dtype
 
-    def _quant_eps(self, entry_err: float, pq, norm_total: float) -> float:
+    # contextual plans rank with another GEMM shape than the finalizer's
+    # exact rescore (the reduction over d reorders: ~d * 2^-24 relative), so
+    # their membership slack has a larger floor, scaled with the dimension
+    # by _ctx_floor
+    CTX_SCORE_EPS = 1e-3
+
+    def _ctx_floor(self, qp) -> float:
+        d = max(
+            (int(np.asarray(q["unmodified"]).shape[-1]) for q in qp.ctx_queries),
+            default=0,
+        )
+        return max(self.CTX_SCORE_EPS, 4.0 * d * 2.0 ** -24)
+
+    def _quant_eps(self, entry_err: float, pq, norm_total: float,
+                   plan=None) -> float:
+        floor = (self.QUANT_SCORE_EPS if plan is None or plan.is_static_only
+                 else self._ctx_floor(plan))
         return max(
-            2.0 * entry_err * max(pq.n_tokens, 1) / max(norm_total, 1e-9),
-            self.QUANT_SCORE_EPS,
+            2.0 * entry_err * max(pq.n_tokens, 1) / max(norm_total, 1e-9), floor
         )
 
     def _finalize_quantized_many(
         self, items, gaps, metric_name, n: int, min_score: float,
         entry_err: float, doc_filter=None,
     ) -> List[List["Match"]]:
-        """Batched finalizer: ``items`` is one (source view, plan, pq,
-        norm_total, tagw, boost) tuple per query (``tagw`` its
-        TagWeightingSpec or None, ``boost`` the booster's [n_slices]
-        weights or None: an exact score is raw / norm_total * boost, and
-        the slack grows with the largest boost); ``doc_filter`` the batch's
-        DocFilterSpec or None.  Every device round runs ONCE for the whole
-        batch.
+        """Batched finalizer: ``items`` is one (source, plan, pq,
+        norm_total, tagw, boost) tuple per query (the source a device top-k
+        view, or a host [n_slices] score vector: ``HostVecSource``;
+        ``tagw`` its TagWeightingSpec or None, ``boost`` the booster's
+        [n_slices] weights or None: an exact score is raw / norm_total *
+        boost, and the slack grows with the largest boost); ``doc_filter``
+        the batch's DocFilterSpec or None.  Every device round runs ONCE for
+        the whole batch.
 
         The cut is provable: the best device score OUTSIDE the candidate set
         must sit below the exact n-th score minus the drift slack ``eps``
         (``entry_err`` bounds per-entry table rounding; 0.0 for f32 tables,
-        where the loop only guards (doc, slice) tie-breaks).  Rounds: (1)
-        candidates with their exact raw scores from the fused top-k step,
-        (2) tie-bounded extras for queries whose cut is unsafe — selected
-        and rescored on the device, a score-only rescore for any the select
-        could not rescore, (3) flows for ONLY the final top-n (fetched
-        payloads, else a deferred rescore on first access)."""
+        where the loop only guards (doc, slice) tie-breaks; a contextual
+        plan's floor is ``_ctx_floor``).  Rounds: (1) candidates with their
+        exact raw scores (from the fused top-k step, or one batched rescore
+        with flows of a host source's candidates), (2) tie-bounded extras
+        for queries whose cut is unsafe — selected (and rescored where the
+        select can) on the device, or read from the host vector — and a
+        score-only rescore of the rest, (3) flows for ONLY the final top-n
+        (rescored, fetched payloads, else a deferred rescore on first
+        access)."""
         engine = self._engine
         packed = engine.packed
 
@@ -1015,26 +1479,42 @@ class BruteForceIndex(Index):
 
         # round 1: candidates with exact raw scores
         meta = []
+        reqs, req_qis = [], []
         _t_fin = time.perf_counter()
-        for src, plan, pq, norm_total, tagw, boost in items:
-            eps = self._quant_eps(entry_err, pq, norm_total)
+        for qi, (src, plan, pq, norm_total, tagw, boost) in enumerate(items):
+            if isinstance(src, np.ndarray):
+                src = HostVecSource(engine, src)
+            eps = self._quant_eps(entry_err, pq, norm_total, plan)
             if boost is not None:
                 eps = eps * max(1.0, float(np.max(boost)))
-            cand, rest_max, raw = src.initial_exact(n + 32, min_score - eps)
-            exact = raw / max(norm_total, 1e-9)
+            raw = None
+            if hasattr(src, "initial_exact"):
+                cand, rest_max, raw = src.initial_exact(n + 32, min_score - eps)
+            else:
+                cand, rest_max = src.initial(n + 32, min_score - eps)
+                reqs.append({"slice_ids": cand, "qp": plan, "len_t": pq.n_tokens,
+                             "tag_weights": tagw, "want_flows": True})
+                req_qis.append(qi)
+            meta.append({"eps": eps, "cand": cand, "rest_max": rest_max,
+                         "src": src, "raw": raw, "flows": {}})
+        res1 = (
+            engine.rescore_many(reqs, gaps, self._locality,
+                                gap_costs=self._gap_costs, doc_filter=doc_filter)
+            if reqs else []
+        )
+        for qi, (mappings, edge_sims, raw) in zip(req_qis, res1):
+            m = meta[qi]
+            m["raw"] = raw
+            m["flows"] = {sid: (mp, es) for sid, mp, es in
+                          zip(m["cand"], mappings, edge_sims)}
+        for (src, plan, pq, norm_total, tagw, boost), m in zip(items, meta):
+            cand = m["cand"]
+            exact = m["raw"] / max(norm_total, 1e-9)
             if boost is not None:
                 exact = exact * boost[np.asarray(cand, np.int64)]
             order = order_by_score(packed, cand, exact)
             keep = [j for j in order if exact[j] > min_score][:n]
-            meta.append(
-                {
-                    "eps": eps,
-                    "cand": cand,
-                    "rest_max": rest_max,
-                    "src": src,
-                    "first_entries": [(cand[j], float(exact[j])) for j in keep],
-                }
-            )
+            m["first_entries"] = [(cand[j], float(exact[j])) for j in keep]
         trace.add("fin.r1", time.perf_counter() - _t_fin)
         _t_fin = time.perf_counter()
 
@@ -1053,9 +1533,12 @@ class BruteForceIndex(Index):
         for call in above_calls:
             by_parent.setdefault(id(call[1].parent), []).append(call)
         for calls in by_parent.values():
-            found = calls[0][1].parent.above_exact_many(
-                [(src, thresh, seen) for _, src, thresh, seen in calls]
-            )
+            parent = calls[0][1].parent
+            args = [(src, thresh, seen) for _, src, thresh, seen in calls]
+            if hasattr(parent, "above_exact_many"):
+                found = parent.above_exact_many(args)
+            else:
+                found = [(ids, {}) for ids in parent.above_many(args)]
             for (qi, _, _, _), (ids, rmap) in zip(calls, found):
                 if not ids:
                     continue
@@ -1112,14 +1595,19 @@ class BruteForceIndex(Index):
             m["entries"] = entries[:n]
 
         out = []
-        for (src, plan, pq, _, tagw, _), m in zip(items, meta):
+        for (_, plan, pq, _, tagw, _), m in zip(items, meta):
+            # host sources' candidates were rescored with flows in round 1;
             # fused sources shipped flow payloads (H/S/Su) with the initial
             # fetch — traceback host-side, no extra round trip; flows of
             # the others are DEFERRED to one shared resolver per query
+            src = m["src"]
             resolver = None
             merged = []
             for _, sid, score in m["entries"]:
-                pay = src.flows_payload(sid)
+                flows = m["flows"].get(sid)
+                pay = None
+                if flows is None and hasattr(src, "flows_payload"):
+                    pay = src.flows_payload(sid)
                 if pay is not None:
                     H, Sw, Su, ln = pay
                     sel = None
@@ -1136,10 +1624,13 @@ class BruteForceIndex(Index):
                         mp = np.where(mp >= 0, sel[np.maximum(mp, 0)], -1).astype(
                             np.int32
                         )
+                    flows = (mp, es)
+                if flows is not None:
                     merged.append(
                         Match(
                             self, pq, slice_id=sid, score=score,
-                            metric=metric_name, mapping=mp, similarities=es,
+                            metric=metric_name, mapping=flows[0],
+                            similarities=flows[1],
                         )
                     )
                     continue
@@ -1157,6 +1648,224 @@ class BruteForceIndex(Index):
             out.append(merged)
         trace.add("fin.r3", time.perf_counter() - _t_fin)
         return out
+
+    def _submatch_matches(self, pq, cand, res, tagw, norm_total, submatch_w,
+                          min_score, n, boost=None) -> List["Match"]:
+        """Submatch-rescored matches of one ``rescore_many`` result: find's
+        ``_exact_scores`` + ``_build_matches`` arithmetic (boost multiply
+        included), so find and find_batch stay byte-equal."""
+        mappings, edge_sims, raw = res
+        nt = np.float32(max(norm_total, 1e-9))
+        exact = {}
+        for j, sid in enumerate(cand):
+            sc = np.float32(raw[j]) / nt
+            if boost is not None:
+                sc = sc * np.float32(boost[sid])
+            exact[sid] = float(sc)
+        return self._build_matches(
+            pq, self._args["metric"]["token_sim"], cand, mappings, edge_sims,
+            exact.__getitem__, submatch_w, tagw, norm_total, min_score, n, None,
+        )
+
+    def _submatch_cut_from_rescore(self, res, cand, rest_max, pq, plan, tagw,
+                                   norm_total, n: int, min_score: float,
+                                   eps_q: float, submatch_w: float,
+                                   boost=None) -> Optional[List["Match"]]:
+        """The submatch cut of one rescored candidate set, proved on the
+        rescored scale: the closed-form bound lifts the best device score
+        outside the set (``rest_max``, drift-padded by ``eps_q``; boosted
+        through ``_submatch_bound_boosted``) to a bound on any unfetched
+        slice's rescored score.  The matches, or None when unsafe."""
+        matches = self._submatch_matches(pq, cand, res, tagw, norm_total,
+                                         submatch_w, min_score, n, boost)
+        s_n = matches[n - 1].score if len(matches) >= n else min_score
+        sim_max = plan_sim_upper(plan)
+        if np.isfinite(sim_max):
+            if boost is None:
+                ub = float(_submatch_upper_bound(rest_max + eps_q, norm_total,
+                                                 submatch_w, sim_max))
+            else:
+                ub = _submatch_bound_boosted(rest_max, boost, norm_total,
+                                             submatch_w, sim_max, eps_q)
+            if ub < s_n - 1e-6:
+                return matches
+        return None
+
+    def _finalize_submatch_many(self, items, gaps, n: int, min_score: float,
+                                entry_err: float, submatch_w: float,
+                                doc_filter=None) -> List[List["Match"]]:
+        """Batched finalizer of submatch-rescored queries (w != 0,
+        reference_score semantics, metric/alignment.h:84-106).  Every
+        candidate's exact score needs its flow mapping (the matched weight
+        enters reference_score), so round 1 rescores the 4n + 32 overfetch
+        with flows; the cut is proved through the closed-form bound on the
+        device next-best value, and an unsafe query fetches the extras at
+        the bound's bisected inverse threshold (provably complete) and
+        rescores them with flows.  ``items`` as in
+        ``_finalize_quantized_many``; boosted items prove their cut through
+        the boost-factored bound."""
+        engine = self._engine
+        packed = engine.packed
+        k0 = 4 * n + 32
+        meta, reqs = [], []
+        for (src, plan, pq, norm_total, tagw, boost) in items:
+            if isinstance(src, np.ndarray):
+                src = HostVecSource(engine, src)
+            cand, rest_max = src.initial(k0, -1e30)
+            meta.append({"src": src, "cand": cand, "rest_max": rest_max})
+            reqs.append({"slice_ids": cand, "qp": plan, "len_t": pq.n_tokens,
+                         "tag_weights": tagw, "want_flows": True})
+        res1 = engine.rescore_many(reqs, gaps, self._locality,
+                                   gap_costs=self._gap_costs, doc_filter=doc_filter)
+        above_calls = []
+        for qi, (item, m, res) in enumerate(zip(items, meta, res1)):
+            (_s, plan, pq, norm_total, tagw, boost) = item
+            m["matches"] = self._submatch_matches(
+                pq, m["cand"], res, tagw, norm_total, submatch_w, min_score, n,
+                boost)
+            if m["src"].covers_all(k0):
+                continue
+            matches = m["matches"]
+            s_n = matches[n - 1].score if len(matches) >= n else min_score
+            eps_q = self._quant_eps(entry_err, pq, norm_total, plan)
+            sim_max = plan_sim_upper(plan)
+            if np.isfinite(sim_max):
+                if boost is None:
+                    ub = float(_submatch_upper_bound(
+                        m["rest_max"] + eps_q, norm_total, submatch_w, sim_max))
+                else:
+                    ub = _submatch_bound_boosted(m["rest_max"], boost, norm_total,
+                                                 submatch_w, sim_max, eps_q)
+                if ub < s_n - 1e-6:
+                    continue
+                if boost is None:
+                    thr = _submatch_fetch_thresh(s_n - 1e-6, norm_total,
+                                                 submatch_w, sim_max, eps_q)
+                else:
+                    thr = _submatch_fetch_thresh_boosted(
+                        s_n - 1e-6, boost, norm_total, submatch_w, sim_max, eps_q)
+            else:
+                # unknowable similarity ceiling: every slice (still a
+                # provable cut)
+                thr = -np.inf
+            above_calls.append((qi, m["src"], thr, set(int(c) for c in m["cand"])))
+
+        extra_reqs, extra_qis = [], []
+        by_parent = {}
+        for call in above_calls:
+            by_parent.setdefault(id(call[1].parent), []).append(call)
+        for calls in by_parent.values():
+            found = calls[0][1].parent.above_many(
+                [(src, thr, seen) for _, src, thr, seen in calls])
+            for (qi, _s, _t, _e), ids in zip(calls, found):
+                if ids:
+                    meta[qi]["extra"] = ids
+        for qi, m in enumerate(meta):
+            if "extra" not in m:
+                continue
+            (_s, plan, pq, _nt, tagw, _b) = items[qi]
+            extra_reqs.append({"slice_ids": m["extra"], "qp": plan,
+                               "len_t": pq.n_tokens, "tag_weights": tagw,
+                               "want_flows": True})
+            extra_qis.append(qi)
+        res2 = (
+            engine.rescore_many(extra_reqs, gaps, self._locality,
+                                gap_costs=self._gap_costs, doc_filter=doc_filter)
+            if extra_reqs else []
+        )
+        for qi, res in zip(extra_qis, res2):
+            (_s, plan, pq, norm_total, tagw, boost) = items[qi]
+            more = self._submatch_matches(pq, meta[qi]["extra"], res, tagw,
+                                          norm_total, submatch_w, min_score, n,
+                                          boost)
+            meta[qi]["matches"] = sorted(
+                meta[qi]["matches"] + more,
+                key=lambda mt: (-mt.score, int(packed.slice_doc[mt.slice_id]),
+                                int(packed.slice_idx[mt.slice_id])),
+            )[:n]
+        return [m["matches"] for m in meta]
+
+    def _find_batch_ctx(self, texts, n: int = 100, min_score: float = 0.2,
+                        **kwargs) -> List[Result]:
+        """Batched search over ONE contextual embedding: per chunk of slices
+        one metric GEMM against the Q stacked needles
+        (``BruteForceEngine.score_all_multi_ctx``), the dense DP kernels on
+        its block, then the host finalizer under the contextual membership
+        floor (the batch's GEMM and the finalizer's exact rescore reduce in
+        other orders).  Boosters, document-side filters,
+        ``submatch_weight`` and ``bidirectional`` ride the batch as in the
+        static one; ``debug`` runs ``find`` query by query."""
+        if BATCH_HARD_OPTIONS & set(kwargs):
+            return [self.find(t, n=n, min_score=min_score, **kwargs) for t in texts]
+        submatch_w = float(kwargs.get("submatch_weight") or 0.0)
+        bidirectional = bool(kwargs.get("bidirectional"))
+        booster = kwargs.get("booster")
+        token_sim = self._args["metric"]["token_sim"]
+        name = token_sim.embedding.name
+        start_time = time.time()
+        prepared, plans, len_ts, norm_totals, ctx_qs = [], [], [], [], []
+        order, results = [], [None] * len(texts)
+        with trace.span("batch.prepare"):
+            for ti, text in enumerate(texts):
+                pq = self.make_query(text, n=n, min_score=min_score,
+                                     **kwargs).prepare(self._nlp)
+                if pq.n_tokens == 0:
+                    results[ti] = Result(self, [], 0.0)
+                    continue
+                order.append(ti)
+                prepared.append(pq)
+                # the padded needle, like find(): the plan's width is the
+                # rescore's GEMM shape
+                qp = self._compile_plan(pq, {name})
+                plans.append(qp)
+                ctx_qs.append(qp.ctx_queries[0])
+                len_ts.append(max(pq.n_tokens, 1))
+                norm_totals.append(float(max(pq.n_tokens, 1)))
+        if not prepared:
+            return [r if r is not None else Result(self, [], 0.0) for r in results]
+        boosts = None
+        if booster is not None:
+            boost = self._compile_booster(booster)
+            boosts = [boost] * len(prepared)
+        doc_filter = self._doc_filter(prepared[0])
+        Q0 = len(prepared)
+        if bidirectional:
+            plans = plans + [_reverse_plan(qp, max(pq.n_tokens, 1))
+                             for qp, pq in zip(plans, prepared)]
+            ctx_qs = ctx_qs + [_reverse_ctx_query(d, max(pq.n_tokens, 1))
+                               for d, pq in zip(ctx_qs, prepared)]
+            prepared = prepared + prepared
+            len_ts = len_ts + len_ts
+            norm_totals = norm_totals + norm_totals
+            if boosts is not None:
+                boosts = boosts + boosts
+        with trace.span("batch.topk"):
+            scores = self._engine.score_all_multi_ctx(
+                name, token_sim.metric, ctx_qs, len_ts, self._gaps,
+                self._locality, norm_totals, gap_costs=self._gap_costs,
+                doc_filter=doc_filter,
+            )  # [n_slices, Q]
+        items = [
+            (_boosted_col(scores[:, qi], None if boosts is None else boosts[qi]),
+             plans[qi], pq, norm_totals[qi], None,
+             None if boosts is None else boosts[qi])
+            for qi, pq in enumerate(prepared)
+        ]
+        if submatch_w != 0.0:
+            per_q = self._finalize_submatch_many(
+                items, self._gaps, n, min_score, 0.0, submatch_w, doc_filter)
+        else:
+            per_q = self._finalize_quantized_many(
+                items, self._gaps, self._metric_name, n, min_score, 0.0,
+                doc_filter)
+        if bidirectional:
+            per_q = [self._merge_bidirectional(per_q[qi], per_q[qi + Q0],
+                                               prepared[qi], n)
+                     for qi in range(Q0)]
+        elapsed = time.time() - start_time
+        for qi in range(Q0):
+            results[order[qi]] = Result(self, per_q[qi], elapsed)
+        return [r if r is not None else Result(self, [], 0.0) for r in results]
 
     def _flows_from_payload(self, H, Sw, Su, ln: int, len_t: int, gaps):
         """(mapping, edge_sims) from a fused-fetch flow payload — shares

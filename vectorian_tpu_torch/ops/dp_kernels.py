@@ -16,6 +16,11 @@ counts.
   ``pallas_align_scores`` on the gathered block), on the same routes
   ("rows_registers", ...);
   ``affine_dp_scores_flat`` runs the same kernel on a flat [B, L, T] batch.
+- ``affine_dp_scores_dense``: the affine DP of a dense similarity block
+  ``[c, L, Tpad, Q]`` f32 (a contextual or modifier-tree chunk's evaluated
+  block, read where the metric GEMM wrote it; replaces
+  ``pallas_align_scores_multi_nt`` on the contextual batch's block), on the
+  gather entry's routes.
 - ``wsb_dp_scores``: the general-gap (Waterman-Smith-Beyer) corpus pass,
   gather fused as above, any of the three table types (csrc/wsb_dp.cu;
   replaces the corpus-pass use of ``pallas_align_scores_general``).
@@ -28,6 +33,8 @@ counts.
   slot) problems, on the same three routes ("rows_registers", ...);
   ``wsb_dp_scores_flat`` runs it on a flat [B, L, T] batch (both replace
   ``pallas_align_scores_general``).
+- ``wsb_dp_scores_dense``: the WSB DP of a dense ``[c, L, T, Q]`` f32
+  block, on the gather entry's three routes.
 
 The four gather and row-gather entries also read the tag-weighted block
 (``tags``, a ``TagBlock``; f32 tables only): each similarity becomes the JAX
@@ -86,6 +93,10 @@ NVCC_FLAGS = (
 # there (up to Tpad 1,815), else in a scratch buffer (csrc/affine_dp.cu
 # WIDE_WARPS)
 AFFINE_REG_MAX_T = 64
+# the dense entry's register route ends at 32 columns where a row's columns
+# are Q floats apart (Q > 1: its T1P = 65 templates spilled); float4 rows
+# (Q = 1, Tpad % 4 == 0) go to AFFINE_REG_MAX_T
+AFFINE_DENSE_REG_MAX_T = 32
 AFFINE_REG_THREADS = 128
 AFFINE_WIDE_WARPS = 8
 # shared memory of an H100 SM (1 KB of it reserved a resident block) and
@@ -112,21 +123,25 @@ TABLE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _DTYPE_TAGS = {torch.float32: "", torch.bfloat16: "[bf16]", torch.int8: "[int8]"}
 # kernel launches since the last reset (one per launch of each kernel: the
 # row-gather entries and their flat-batch wrappers count as "*_flat"; a
-# launch on the tag-weighted block as "<kernel>[tagged]"), and the launches
-# of the WSB entries by route
+# launch on the tag-weighted block as "<kernel>[tagged]", on a dense block
+# as "<kernel>[dense]"), and the launches of the entries by route (a dense
+# launch's route prefixed "dense_")
 LAUNCHES = {
     "affine_dp": 0, "affine_dp[bf16]": 0, "affine_dp[int8]": 0,
-    "affine_dp[tagged]": 0, "affine_dp_flat": 0, "affine_dp_flat[tagged]": 0,
+    "affine_dp[tagged]": 0, "affine_dp[dense]": 0, "affine_dp_flat": 0,
+    "affine_dp_flat[tagged]": 0,
     "wsb_dp": 0, "wsb_dp[bf16]": 0, "wsb_dp[int8]": 0, "wsb_dp[tagged]": 0,
-    "wsb_dp_flat": 0, "wsb_dp_flat[tagged]": 0,
+    "wsb_dp[dense]": 0, "wsb_dp_flat": 0, "wsb_dp_flat[tagged]": 0,
 }
 WSB_ROUTE_LAUNCHES = {
     "registers": 0, "shared": 0, "scratch": 0,
     "rows_registers": 0, "rows_shared": 0, "rows_scratch": 0,
+    "dense_registers": 0, "dense_shared": 0, "dense_scratch": 0,
 }
 AFFINE_ROUTE_LAUNCHES = {
     "registers": 0, "wide_shared": 0, "wide_scratch": 0,
     "rows_registers": 0, "rows_wide_shared": 0, "rows_wide_scratch": 0,
+    "dense_registers": 0, "dense_wide_shared": 0, "dense_wide_scratch": 0,
 }
 # the ptxas report of each source's last verbose build
 PTXAS_REPORTS: Dict[str, str] = {}
@@ -155,6 +170,10 @@ _SIGNATURES = {
             _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I64, _F, _F, _F, _F,
             _I, _I, _I, _I, _P, _T, _P,
         ],
+        "vt_affine_dp_scores_dense": [
+            _P, _P, _P, _P, _I64, _I, _I, _I, _F, _F, _F, _F, _I, _I, _I, _P,
+            _P,
+        ],
     },
     "wsb_dp": {
         "vt_wsb_dp_scores": [
@@ -172,6 +191,13 @@ _SIGNATURES = {
         "vt_wsb_dp_scores_rows_regs": [
             _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _I64, _I, _I,
             _I64, _I, _I, _I, _T, _P,
+        ],
+        "vt_wsb_dp_scores_dense": [
+            _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I,
+            _P,
+        ],
+        "vt_wsb_dp_scores_dense_regs": [
+            _P, _P, _P, _P, _I, _P, _P, _I, _P, _I64, _I, _I, _I, _I, _I, _P,
         ],
     },
 }
@@ -404,7 +430,7 @@ def _scratch(dev, floats: int):
 
 
 def affine_launch_plan(problems: int, Tpad: int, rows: bool = False,
-                       route=None) -> LaunchPlan:
+                       route=None, reg_max_t: int = AFFINE_REG_MAX_T) -> LaunchPlan:
     """The launch of an affine DP of ``problems`` problems against needles
     padded to ``Tpad``; ``rows``: the row-gather entry (routes prefixed
     "rows_").  ``route`` None picks "registers" up to AFFINE_REG_MAX_T (one
@@ -412,12 +438,13 @@ def affine_launch_plan(problems: int, Tpad: int, rows: bool = False,
     WIDE_WARPS warps a block, its 4 x (Tpad + 1) f32 rows in "wide_shared"
     memory while a block's rows fit there, else in a "wide_scratch" buffer
     sized to the warps in flight, the grid walking over the problems).  A width is never refused.  A named
-    ``route`` forces that one (ValueError where it cannot run)."""
+    ``route`` forces that one (ValueError where it cannot run);
+    ``reg_max_t`` lowers the register route's widest needle."""
     prefix = "rows_" if rows else ""
-    if route is None and Tpad <= AFFINE_REG_MAX_T:
+    if route is None and Tpad <= reg_max_t:
         route = "registers"
     if route == "registers":
-        if Tpad > AFFINE_REG_MAX_T:
+        if Tpad > reg_max_t:
             raise ValueError(f"the register route does not take Tpad={Tpad}")
         blocks = -(-problems // AFFINE_REG_THREADS)
         return LaunchPlan(prefix + "registers", blocks, AFFINE_REG_THREADS, 0, 0)
@@ -671,6 +698,80 @@ def affine_dp_scores_flat(S, len_s, len_t, gaps, locality):
     )
     return _affine_rows_launch(S.view(B * L, T), None, None, None, B * L, L,
                                len_s, len_t, gaps, locality, False)
+
+
+def _check_dense(fn, S, len_s, len_t):
+    """Shapes of a dense launch; returns (c, L, Tpad, Q)."""
+    if S.dim() != 4:
+        raise ValueError(f"{fn}: S must be a [c, L, Tpad, Q] block")
+    c, L, Tpad, Q = S.shape
+    if tuple(len_s.shape) != (c,) or tuple(len_t.shape) != (Q,):
+        raise ValueError(f"{fn}: len_s must be [c] and len_t [Q]")
+    return c, L, Tpad, Q
+
+
+def _dense_problems(S, len_s, len_t):
+    """The dense block's problems as the JAX contextual batch flattens them:
+    (S [c * Q, L, Tpad], problem s * Q + q; len_s clamped to >= 1 and
+    repeated, len_t tiled)."""
+    c, L, Tpad, Q = S.shape
+    S2 = S.permute(0, 3, 1, 2).reshape(c * Q, L, Tpad)
+    return S2, torch.clamp_min(len_s, 1).repeat_interleave(Q), len_t.repeat(c)
+
+
+def affine_dp_scores_dense_reference(S, len_s, len_t, gaps, locality):
+    """Plain torch version of ``affine_dp_scores_dense``: the torch scan
+    over the block's (slice, query) problems."""
+    c, _, _, Q = S.shape
+    return align_scores(*_dense_problems(S, len_s, len_t), gaps,
+                        locality).reshape(c, Q)
+
+
+def affine_dp_scores_dense(S, len_s, len_t, gaps, locality, _route=None):
+    """Raw affine-DP scores [c, Q] f32 of a dense similarity block.
+
+    S [c, L, Tpad, Q] f32 contiguous (slice s's row i, needle column j of
+    query q at S[s, i, j, q]: the [c * L, Tpad * Q] output of a chunk's
+    metric GEMM, read in place), len_s [c] i32 (clamped to >= 1, like the
+    JAX corpus pass), len_t [Q] i32 (1 <= len_t <= Tpad), ``gaps`` an
+    AffineGapParams of host floats.  The gather entry's routes
+    (``affine_launch_plan``: registers up to Tpad 32, or 64 where a row's
+    columns are contiguous, Q = 1; the wide route reads the block in
+    place, a row's columns Q floats apart); ``_route`` forces one."""
+    _check_locality(locality)
+    c, L, Tpad, Q = _check_dense("affine_dp_scores_dense", S, len_s, len_t)
+    dev = S.device
+    if dev.type == "cpu":
+        return affine_dp_scores_dense_reference(S, len_s, len_t, gaps, locality)
+    _check_cuda(
+        "affine_dp_scores_dense", dev, S=(S, torch.float32),
+        len_s=(len_s, torch.int32), len_t=(len_t, torch.int32),
+    )
+    out = torch.empty((c, Q), dtype=torch.float32, device=dev)
+    if c == 0 or Q == 0:
+        return out
+    ln1 = torch.clamp_min(len_s, 1)
+    vec = Q == 1 and Tpad % 4 == 0 and S.data_ptr() % 16 == 0
+    plan = affine_launch_plan(
+        c * Q, Tpad, route=_route,
+        reg_max_t=AFFINE_REG_MAX_T if vec else AFFINE_DENSE_REG_MAX_T,
+    )
+    wide = plan.route != "registers"
+    scratch, scratch_ptr = _scratch(dev, plan.floats)
+    lib = _load("affine_dp")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.vt_affine_dp_scores_dense(
+            S.data_ptr(), ln1.data_ptr(), len_t.data_ptr(), out.data_ptr(), c,
+            L, Tpad, Q, float(gaps[0]), float(gaps[1]), float(gaps[2]),
+            float(gaps[3]), LOCALITIES.index(locality),
+            plan.blocks if wide else 0, plan.smem, scratch_ptr, stream,
+        )
+    del scratch
+    _raise_on(rc, "affine_dp[dense]")
+    LAUNCHES["affine_dp[dense]"] += 1
+    AFFINE_ROUTE_LAUNCHES["dense_" + plan.route] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1006,3 +1107,66 @@ def wsb_dp_scores_flat(S, len_s, len_t, w_s, w_t, w_t_star, locality,
     return _wsb_rows_launch(S.view(B * L, T), None, None, None, B * L, L,
                             len_s, len_t, (w_s, w_t, w_t_star), locality,
                             host_costs, _route, False)
+
+
+def wsb_dp_scores_dense_reference(S, len_s, len_t, w_s, w_t, w_t_star,
+                                  locality):
+    """Plain torch version of ``wsb_dp_scores_dense``: the torch WSB scan
+    over the block's (slice, query) problems."""
+    c, _, _, Q = S.shape
+    return _wsb_general_scores(*_dense_problems(S, len_s, len_t), w_s, w_t,
+                               w_t_star, locality).reshape(c, Q)
+
+
+def wsb_dp_scores_dense(S, len_s, len_t, w_s, w_t, w_t_star, locality,
+                        host_costs=None, _route=None):
+    """Raw WSB-DP scores [c, Q] f32 of a dense similarity block S [c, L, T,
+    Q] f32 (as in ``affine_dp_scores_dense``); cost vectors and
+    ``host_costs`` as in ``wsb_dp_scores``.  The gather entry's three
+    routes (``wsb_launch_plan``; the register route reads lane k's column
+    Q floats apart, no transposed copy); ``_route`` forces one."""
+    _check_locality(locality)
+    c, L, T, Q = _check_dense("wsb_dp_scores_dense", S, len_s, len_t)
+    _check_gap_vecs(L, T, w_s, w_t, w_t_star)
+    dev = S.device
+    if dev.type == "cpu":
+        return wsb_dp_scores_dense_reference(S, len_s, len_t, w_s, w_t,
+                                             w_t_star, locality)
+    _check_cuda(
+        "wsb_dp_scores_dense", dev, S=(S, torch.float32),
+        len_s=(len_s, torch.int32), len_t=(len_t, torch.int32),
+        w_s=(w_s, torch.float32), w_t=(w_t, torch.float32),
+        w_t_star=(w_t_star, torch.float32),
+    )
+    out = torch.empty((c, Q), dtype=torch.float32, device=dev)
+    if c == 0 or Q == 0:
+        return out
+    ln1 = torch.clamp_min(len_s, 1)
+    hs = _register_costs(L, T, S, (w_s, w_t, w_t_star), host_costs)
+    plan = wsb_launch_plan(c * Q, L, T, registers=hs is not None,
+                           route=_route, Q=Q)
+    lib = _load("wsb_dp")
+    loc = LOCALITIES.index(locality)
+    scratch = None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if plan.route == "registers":
+            rc = lib.vt_wsb_dp_scores_dense_regs(
+                S.data_ptr(), ln1.data_ptr(), len_t.data_ptr(),
+                hs[0].data_ptr(), hs[0].numel(), hs[1].data_ptr(),
+                hs[2].data_ptr(), min(hs[1].numel(), hs[2].numel()),
+                out.data_ptr(), c, L, T, Q, loc, plan.blocks, stream,
+            )
+        else:
+            scratch, scratch_ptr = _scratch(dev, plan.floats)
+            rc = lib.vt_wsb_dp_scores_dense(
+                S.data_ptr(), ln1.data_ptr(), len_t.data_ptr(), w_s.data_ptr(),
+                w_t.data_ptr(), w_t_star.data_ptr(), out.data_ptr(),
+                scratch_ptr, c, L, T, Q, loc, plan.blocks, plan.threads,
+                plan.smem, stream,
+            )
+    del scratch
+    _raise_on(rc, "wsb_dp[dense]")
+    LAUNCHES["wsb_dp[dense]"] += 1
+    WSB_ROUTE_LAUNCHES["dense_" + plan.route] += 1
+    return out

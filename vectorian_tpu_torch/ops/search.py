@@ -28,6 +28,19 @@ with the same arithmetic; a document-side filter compacts each bucket's
 token and pos ids once per call (``compact_slices``), so every kernel reads
 the filtered slices as they are; a booster multiplies the normalized
 ranking scores after the kernel.
+
+Plans with a contextual leaf (and mixed static + contextual trees) have no
+vocab table: each chunk of a bucket's slices evaluates the plan
+(``simmatrix.eval_plan_chunk``: the metric GEMM of the chunk's per-token
+vectors, kept bf16 on the device by ``ensure_contextual``, against the
+needle's), and the dense DP entries (``dp_kernels.affine_dp_scores_dense``
+/ ``wsb_dp_scores_dense``) read the [c, L, T, Q] block where the GEMM wrote
+it.  A chunk holds ``ctx_chunk`` slices, so its block stays in the card's
+L2 between the GEMM and the DP.  The full-read paths (``score_all``,
+``score_topk``, ``HostVecSource``) serve ``find``'s debug, submatch and
+contextual branches; the exact rescore of a contextual plan evaluates its
+candidates' rows in blocks of ``RESCORE_ROWS`` (one GEMM shape), so a
+slice's exact score has the same bits in every call.
 """
 
 from __future__ import annotations
@@ -51,14 +64,71 @@ from vectorian_tpu_torch.ops.alignment import (
 from vectorian_tpu_torch.ops.dp_kernels import (
     TagBlock,
     affine_dp_scores,
+    affine_dp_scores_dense,
     affine_dp_scores_rows,
     tag_weighted,
     wsb_dp_scores,
+    wsb_dp_scores_dense,
     wsb_dp_scores_rows,
+)
+from vectorian_tpu_torch.ops.simmatrix import (
+    _ChunkVectors,
+    ctx_similarity,
+    eval_plan_chunk,
 )
 from vectorian_tpu_torch.utils import trace
 
 NEG_SCORE = -1e30
+
+# a contextual pass's chunk: its [c, L, T, Q] f32 similarity block at most
+# CTX_BLOCK_BYTES (so it stays in an H100's 50 MB L2 between the metric GEMM
+# that writes it and the dense DP that reads it) and its f32 vectors [c, L,
+# d] at most CTX_INPUT_BYTES
+CTX_BLOCK_BYTES = 32 << 20
+CTX_INPUT_BYTES = 128 << 20
+# the exact rescore of a contextual plan evaluates its rows in blocks of
+# this many token rows (one GEMM shape, whatever the call's candidates)
+RESCORE_ROWS = 2048
+
+
+def ctx_chunk(L: int, Tpad: int, Q: int, d: int) -> int:
+    """Slices a chunk of a contextual pass over a bucket of capacity L
+    against Q needles padded to Tpad, vectors of d dimensions."""
+    return max(1, min(CTX_BLOCK_BYTES // (L * Tpad * Q * 4),
+                      CTX_INPUT_BYTES // (L * max(d, 1) * 4)))
+
+
+def stack_ctx_queries(ctx_queries, len_ts, device):
+    """Stack Q contextual needle dicts ({unmodified, normalized,
+    magnitudes} numpy) into [Tpad * Q, d] rows, query minor (row t * Q +
+    q), zero past each needle, Tpad the longest needle rounded up to 8 (the
+    JAX package's layout: the metric GEMM's [c * L, Tpad * Q] output is the
+    [c, L, Tpad, Q] block the dense DP reads).  Returns (the rows as
+    _ChunkVectors on ``device``, Tpad)."""
+    Q = len(ctx_queries)
+    Tpad = -(-max(len_ts) // 8) * 8
+
+    def stack(key):
+        first = np.asarray(ctx_queries[0][key])
+        out = np.zeros((Tpad, Q) + first.shape[1:], np.float32)
+        for q, dq in enumerate(ctx_queries):
+            v = np.asarray(dq[key], np.float32)
+            out[: v.shape[0], q] = v
+        return torch.as_tensor(out.reshape((Tpad * Q,) + out.shape[2:]),
+                               device=device)
+
+    return (_ChunkVectors(stack("unmodified"), stack("normalized"),
+                          stack("magnitudes")), Tpad)
+
+
+def reference_score(total: float, matched: float, submatch_weight: float) -> float:
+    """The submatch normalization (metric/alignment.h:84-106): ``matched``
+    of ``total`` needle weight aligned, the unmatched rest weighted by
+    ((total - matched) / total) ** submatch_weight."""
+    if total <= 0:
+        return 1.0
+    unmatched_weight = ((total - matched) / total) ** submatch_weight
+    return matched + unmatched_weight * (total - matched)
 
 
 def gap_vec(gap_cost_side, n1: int) -> np.ndarray:
@@ -355,6 +425,28 @@ def _bucket_scores_multiquery(
     return scores.masked_fill(lengths[:, None] <= 0, NEG_SCORE)
 
 
+def _dense_raw(S, lengths, len_t, gaps, locality, general=None):
+    """Raw scores [c, Q] of a dense block S [c, L, T, Q] f32 (one launch
+    of a dense DP entry; len_s clamped to >= 1)."""
+    if general is None:
+        return affine_dp_scores_dense(S, lengths, len_t, gaps, locality)
+    L = int(S.shape[1])
+    return wsb_dp_scores_dense(S, lengths, len_t, *general.vecs(L), locality,
+                               host_costs=general.host_vecs(L))
+
+
+def _dense_scores(S, lengths, len_t, gaps, norm_total, locality, general=None,
+                  boost=None):
+    """Normalized scores [c, Q] of a dense block (the JAX contextual pass's
+    order: raw / norm_total, times the boost, NEG_SCORE where a slice is
+    empty)."""
+    raw = _dense_raw(S, lengths, len_t, gaps, locality, general)
+    scores = raw / torch.clamp_min(norm_total, 1e-9)[None, :]
+    if boost is not None:
+        scores = scores * boost
+    return scores.masked_fill(lengths[:, None] <= 0, NEG_SCORE)
+
+
 def _mq_similarity(tok, qidx, table, V: int):
     """Gather of multi-query rescore rows from the stacked [Q * V, Tmax]
     plan table (shared by the fused top-k rescore, the select-with-rescore
@@ -475,6 +567,42 @@ def _full_exact_rescore(scores, db, ec, n: int):
 
 def _host(t) -> np.ndarray:
     return t.detach().cpu().numpy()
+
+
+class HostVecSource:
+    """Candidate source over a complete host-side [n_slices] device-score
+    vector of one query (the full-read passes) — the finalizer's
+    provable-cut protocol, as ``BucketTopKSource`` serves it for the
+    device top-k:
+
+    - ``covers_all(m)``: the initial fetch already covers every slice;
+    - ``initial(m, thresh)`` -> (ids, rest_max): the m best candidates at
+      or above ``thresh`` and an upper bound on every score outside them;
+    - ``parent.above_many([(src, thresh, exclude)])``: the ids with device
+      score >= thresh."""
+
+    def __init__(self, engine, scores: np.ndarray):
+        self._engine = engine
+        self._scores = scores
+
+    @property
+    def parent(self):
+        return self
+
+    def covers_all(self, m: int) -> bool:
+        return m >= self._scores.shape[0]
+
+    def initial(self, m: int, thresh: float):
+        return self._engine.top_k_with_next(self._scores, m, thresh)
+
+    def above_many(self, reqs):
+        out = []
+        for src, thresh, excl in reqs:
+            s = src._scores
+            out.append(
+                [int(c) for c in np.flatnonzero(s >= thresh) if int(c) not in excl]
+            )
+        return out
 
 
 class BucketTopKSource:
@@ -644,6 +772,11 @@ class BucketTopKSource:
         with trace.span("above.exact"):
             return self._above_exact_many(reqs)
 
+    def above_many(self, reqs):
+        """The ids of ``above_exact_many`` alone (the submatch finalizer
+        rescores them with flows)."""
+        return [ids for ids, _ in self.above_exact_many(reqs)]
+
     def _select_bucket(self, bi: int, cols: dict, sel: dict, raws: dict):
         """The round's selects of bucket ``bi`` ({qi: f32 threshold}): per
         column the rows with score >= its threshold (ascending) and their
@@ -752,6 +885,10 @@ class TopKView:
     def covers_all(self, m: int) -> bool:
         return self._src.covers_all(m)
 
+    def initial(self, m: int, thresh: float):
+        """(cand, rest_max) of ``initial_exact``."""
+        return self._src.initial(self.qi, m, thresh)[:2]
+
     def initial_exact(self, m: int, thresh: float):
         """(cand, rest_max, exact raw scores) — the exact scores arrive
         with the fused top-k step."""
@@ -830,6 +967,8 @@ class BruteForceEngine:
     def __init__(self, packed, device="cuda"):
         self._packed = packed
         self.device = torch.device(device)
+        # contextual embedding name -> per bucket [n, L, d] bf16 vectors
+        self._ctx_stores: Dict[str, list] = {}
         self._device_buckets = []
         # slice id -> (bucket index, row) for O(1) rescore lookups
         self._slice_loc = np.full((packed.n_slices, 2), -1, np.int32)
@@ -922,6 +1061,366 @@ class BruteForceEngine:
     @property
     def n_slices(self):
         return self._packed.n_slices
+
+    def ensure_contextual(self, name: str, documents, dim: int):
+        """Pack the per-token contextual vectors of ``name`` into one [n, L,
+        d] store a bucket, bf16 on the device (the reference opens each
+        document's vectors per query, metric/contextual.cpp:26-75); built
+        once.  Every document's vectors concatenate into one flat f32 host
+        matrix; each bucket then fills by one masked gather, a block of
+        rows at a time, rounded to bf16 (nearest even, as the JAX package's
+        store) as it goes up."""
+        if name in self._ctx_stores:
+            return
+        packed = self._packed
+        parts, offs, n_vecs, off = [], [], [], 0
+        for pd in documents:
+            vecs = pd.contextual.get(name)
+            offs.append(off)
+            n_vecs.append(0 if vecs is None else len(vecs))
+            if vecs is not None and len(vecs):
+                parts.append(np.asarray(vecs, np.float32))
+                off += len(vecs)
+        flat = np.concatenate(parts, 0) if parts else np.zeros((1, dim), np.float32)
+        del parts
+        offs = np.asarray(offs or [0], np.int64)
+        n_vecs = np.asarray(n_vecs or [0], np.int64)
+        # a document's vector table must cover its slices' tokens: a
+        # clamped gather would read a neighbour's vectors
+        ends = packed.slice_start + packed.slice_len
+        bad = np.flatnonzero(
+            (n_vecs[packed.slice_doc] > 0) & (ends > n_vecs[packed.slice_doc])
+        )
+        if bad.size:
+            sid = int(bad[0])
+            raise ValueError(
+                f"contextual embedding {name!r}: document "
+                f"{int(packed.slice_doc[sid])} has "
+                f"{int(n_vecs[packed.slice_doc[sid]])} vectors but slice "
+                f"{sid} needs tokens up to {int(ends[sid])}"
+            )
+        has = n_vecs > 0
+        store = []
+        for db in self._device_buckets:
+            L, n = db["capacity"], db["n"]
+            out = torch.empty((n, L, dim), dtype=torch.bfloat16, device=self.device)
+            step = max(1, (64 << 20) // (L * max(dim, 1) * 4))
+            for r0 in range(0, n, step):
+                sids = db["slice_index"][r0 : r0 + step]
+                docs = packed.slice_doc[sids]
+                starts = offs[docs] + packed.slice_start[sids]
+                lens = packed.slice_len[sids] * has[docs]
+                mask = np.arange(L)[None, :] < lens[:, None]
+                idx = np.minimum(
+                    np.where(mask, starts[:, None] + np.arange(L)[None, :], 0),
+                    len(flat) - 1,
+                )
+                block = np.where(mask[:, :, None], flat[idx], np.float32(0.0))
+                out[r0 : r0 + len(sids)] = torch.from_numpy(block).to(
+                    self.device).to(torch.bfloat16)
+            store.append(out)
+        self._ctx_stores[name] = store
+
+    def _ctx_dev(self, name: str, bi: int) -> torch.Tensor:
+        """Bucket ``bi``'s [n, L, d] bf16 store of embedding ``name``."""
+        return self._ctx_stores[name][bi]
+
+    def _dense_pass(self, block, Tpad: int, Q: int, d: int, lt, gaps,
+                    locality: str, nt, general=None, doc_filter=None,
+                    rewrite=None, boost=None):
+        """[(bucket, normalized scores [n, Q] on the device)] of a corpus
+        pass over dense blocks.  Per chunk [c0, c1) of ``ctx_chunk``
+        slices: ``block(db, c0, c1)`` makes its [c, L, Tpad, Q] similarity
+        block; under a document-side filter the block's rows are compacted
+        AFTER it is made (the store's rows stay in slice order, so the
+        metric GEMM sees the JAX package's shapes); ``rewrite(S, pos)``
+        (the tag rewrite) sees the compacted block; then ONE launch of a
+        dense DP entry.  ``boost`` [n_slices] multiplies the scores."""
+        dev = self.device
+        flt = None if doc_filter is None else doc_filter.device_args(dev)
+        out = []
+        for db in self._device_buckets:
+            n, L = db["n"], db["capacity"]
+            if n == 0:
+                continue
+            chunk = ctx_chunk(L, Tpad, Q, d)
+            parts = []
+            for c0 in range(0, n, chunk):
+                c1 = min(c0 + chunk, n)
+                S = block(db, c0, c1)
+                ln = db["lengths"][c0:c1]
+                pos = None
+                if flt is not None or rewrite is not None:
+                    pos = self._bucket_ids(db, "pos")[c0:c1]
+                if flt is not None:
+                    perm, ln, _ = compact_slices(
+                        db["tokens"][c0:c1], pos,
+                        self._bucket_ids(db, "tag")[c0:c1], ln, *flt)
+                    S = torch.gather(
+                        S, 1, perm[:, :, None, None].expand(-1, -1, Tpad, Q))
+                    pos = torch.gather(pos, 1, perm)
+                if rewrite is not None:
+                    S = rewrite(S, pos)
+                b = None
+                if boost is not None:
+                    sids = torch.as_tensor(db["slice_index"][c0:c1], device=dev)
+                    b = boost[sids.long()][:, None]
+                parts.append(_dense_scores(S.contiguous(), ln, lt, gaps, nt,
+                                           locality, general, b))
+            out.append((db, torch.cat(parts)))
+        return out
+
+    def _plan_pass(self, qp, len_t: int, gaps, locality: str,
+                   norm_total: float, gap_costs=None, tag_weights=None,
+                   doc_filter=None, boost=None):
+        """The single-query corpus pass of a plan with a contextual leaf:
+        [(bucket, normalized scores [n] on the device)].  ``_dense_pass``
+        at Q = 1, a chunk's block made by ``eval_plan_chunk`` — the JAX
+        package's ``_bucket_scores`` arithmetic."""
+        dev = self.device
+        T = qp.width
+        general = (None if gap_costs is None
+                   else GeneralGaps(gap_costs, T + 1, dev))
+        lt = torch.as_tensor([len_t], dtype=torch.int32, device=dev)
+        nt = torch.as_tensor([norm_total], dtype=torch.float32, device=dev)
+        rewrite = None
+        if tag_weights is not None:
+            tw = tuple(torch.as_tensor(np.asarray(a), device=dev) for a in (
+                np.asarray(tag_weights.t_pos_weights, np.float32)[:T],
+                np.asarray(tag_weights.pos_t, np.int8)[:T],
+                np.float32(tag_weights.pos_mismatch_penalty),
+                np.float32(tag_weights.similarity_threshold),
+            ))
+
+            def rewrite(S, pos):
+                c = S.shape[0]
+                return tag_weighted(S[..., 0], pos, tw[0].expand(c, T),
+                                    tw[1].expand(c, T), tw[2].expand(c),
+                                    tw[3].expand(c))[..., None]
+
+        def block(db, c0, c1):
+            ctx = tuple(self._ctx_dev(nm, db["bi"])[c0:c1] for nm in qp.ctx_names)
+            return eval_plan_chunk(qp, db["tokens"][c0:c1], ctx)["similarity"][..., None]
+
+        bvec = (None if boost is None else
+                torch.as_tensor(np.asarray(boost, np.float32), device=dev))
+        d = max(int(v.unmodified.shape[1]) for v in qp.ctx_vectors)
+        cols = self._dense_pass(block, T, 1, d, lt, gaps, locality, nt, general,
+                                doc_filter, rewrite, bvec)
+        return [(db, sc[:, 0]) for db, sc in cols]
+
+    def score_all(self, qp, len_t: int, gaps, locality: str,
+                  norm_total: float, boost=None, tag_weights=None,
+                  doc_filter=None, gap_costs=None) -> np.ndarray:
+        """Normalized device score of every slice ([n_slices] f32 on the
+        host; NEG_SCORE for an empty one): one query's full-read corpus
+        pass, on the kernels (a static plan: the gather entries at Q = 1;
+        a contextual or mixed plan: ``_plan_pass``).  ``boost`` [n_slices]
+        multiplies the normalized scores."""
+        with trace.span("score_all"):
+            if qp.is_static_only:
+                return self.score_all_multi(
+                    [qp], [len_t], gaps, locality, [norm_total],
+                    tag_weights=None if tag_weights is None else [tag_weights],
+                    gap_costs=gap_costs, doc_filter=doc_filter,
+                    boosts=None if boost is None else [boost],
+                )[:, 0]
+            cols = self._plan_pass(qp, len_t, gaps, locality, norm_total,
+                                   gap_costs, tag_weights, doc_filter, boost)
+            out = np.full((self.n_slices,), NEG_SCORE, np.float32)
+            for (db, _), col in zip(cols, [_host(c) for _, c in cols]):
+                out[db["slice_index"]] = col
+            return out
+
+    def score_all_multi(self, plans, len_ts, gaps, locality: str, norm_totals,
+                        tag_weights=None, sim_dtype=None, with_err: bool = False,
+                        gap_costs=None, doc_filter=None, boosts=None):
+        """[n_slices, Q] normalized device scores of Q static plans in one
+        corpus pass (``_dispatch_multi``: one kernel launch a bucket),
+        fetched whole (NEG_SCORE for an empty slice); with ``with_err``
+        also the ranking table's per-entry rounding bound."""
+        pending, err = self._dispatch_multi(
+            plans, len_ts, gaps, locality, norm_totals, gap_costs, sim_dtype,
+            tag_weights, doc_filter, boosts,
+        )
+        out = np.full((self.n_slices, len(plans)), NEG_SCORE, np.float32)
+        for (db, _), sc in zip(pending, [_host(sc) for _, sc in pending]):
+            out[db["slice_index"]] = sc
+        return (out, err) if with_err else out
+
+    def score_topk(self, qp, len_t: int, gaps, locality: str,
+                   norm_total: float, k: int, min_score: float = 0.2,
+                   boost=None, tag_weights=None, doc_filter=None,
+                   gap_costs=None, with_next: bool = False):
+        """The k best slices by device score at or above ``min_score``, in
+        the reference's order (score desc, doc, slice), from the full read
+        (``score_all``): (ids, {id: score}); with ``with_next`` also the
+        best device score of every slice NOT returned (-inf if none) — the
+        overfetch-safety bound of the rescoring paths."""
+        scores = self.score_all(qp, len_t, gaps, locality, norm_total, boost,
+                                tag_weights, doc_filter, gap_costs)
+        top = self.top_k(scores, k, min_score)
+        score_map = {i: float(scores[i]) for i in top}
+        if not with_next:
+            return top, score_map
+        rest = scores.copy()
+        rest[np.asarray(top, np.int64)] = -np.inf
+        return top, score_map, float(rest.max()) if rest.size else float("-inf")
+
+    def top_k(self, scores: np.ndarray, k: int, min_score: float = 0.2) -> List[int]:
+        """Deterministic top-k of a host score vector in the reference's
+        order (score desc, doc, slice — match_impl.h:8-42): the pool is
+        EVERY slice scoring >= the k-th largest value, so a tie group at the
+        boundary resolves by the (doc, slice) order."""
+        n = scores.shape[0]
+        if n == 0 or k <= 0:
+            return []
+        k = min(k, n)
+        thr = -np.partition(-scores, k - 1)[k - 1]
+        cand = np.flatnonzero(scores >= max(thr, min_score))
+        order = order_by_score(self._packed, cand, scores[cand])
+        return [int(c) for c in cand[order][:k]]
+
+    def top_k_with_next(self, scores: np.ndarray, m: int, thresh: float):
+        """Unordered candidate ids with score >= ``thresh`` among the m
+        largest, and the best score OUTSIDE the returned set (-inf when the
+        set holds every slice above ``thresh``): any slice not returned
+        scores at most that."""
+        n = scores.shape[0]
+        if m >= n:
+            cand = np.flatnonzero(scores >= thresh)
+            return [int(c) for c in cand], float("-inf")
+        ap = np.argpartition(-scores, m)
+        cand = ap[:m]
+        kept = cand[scores[cand] >= thresh]
+        if len(kept) < m:
+            # the partition's boundary is below thresh: so is everything
+            # it excluded
+            return [int(c) for c in kept], float("-inf")
+        return [int(c) for c in kept], float(scores[ap[m]])
+
+    def score_all_multi_ctx(self, name: str, metric, ctx_queries, len_ts,
+                            gaps, locality: str, norm_totals, gap_costs=None,
+                            doc_filter=None) -> np.ndarray:
+        """[n_slices, Q] normalized scores of Q single-contextual-embedding
+        needles in one corpus pass (the JAX package's
+        ``_bucket_scores_multiquery_ctx``): ``_dense_pass``, a chunk's
+        block made by ONE metric GEMM of its [c * L, d] vectors against
+        the [d, Tpad * Q] stacked needles (``stack_ctx_queries``)."""
+        dev = self.device
+        Q = len(ctx_queries)
+        qv, Tpad = stack_ctx_queries(ctx_queries, len_ts, dev)
+        lt = torch.as_tensor(np.asarray(len_ts, np.int32), device=dev)
+        nt = torch.as_tensor(np.asarray(norm_totals, np.float32), device=dev)
+        general = (None if gap_costs is None
+                   else GeneralGaps(gap_costs, Tpad + 1, dev))
+
+        def block(db, c0, c1):
+            store = self._ctx_dev(name, db["bi"])[c0:c1]
+            return ctx_similarity(store, qv, metric).reshape(
+                c1 - c0, db["capacity"], Tpad, Q)
+
+        with trace.span("ctx.dispatch"):
+            cols = self._dense_pass(block, Tpad, Q, int(qv.unmodified.shape[1]),
+                                    lt, gaps, locality, nt, general, doc_filter)
+        out = np.full((self.n_slices, Q), NEG_SCORE, np.float32)
+        with trace.span("ctx.fetch"):
+            for (db, _), sc in zip(cols, [_host(c) for _, c in cols]):
+                out[db["slice_index"]] = sc
+        return out
+
+    def _plan_rows_similarity(self, bi: int, rows, sels, qp, tag_weights=None):
+        """(S weighted [g, L, T], S unweighted) of bucket ``bi``'s ``rows``
+        under a plan (static or contextual), each row compacted to its kept positions
+        ``sels`` (a document-side filter; None keeps the rows): the exact
+        rescore's evaluation, in blocks of RESCORE_ROWS token rows."""
+        db = self._device_buckets[bi]
+        dev = self.device
+        rows_t = torch.as_tensor(np.asarray(rows, np.int64), device=dev)
+        tok = db["tokens"][rows_t]
+        ctx = [self._ctx_dev(nm, bi)[rows_t] for nm in qp.ctx_names]
+        pos = None if tag_weights is None else self._bucket_ids(db, "pos")[rows_t]
+        if sels is not None:
+            sel_pad = np.zeros((len(sels), db["capacity"]), np.int64)
+            for k, sel in enumerate(sels):
+                sel_pad[k, : len(sel)] = sel
+            sel_t = torch.as_tensor(sel_pad, device=dev)
+            tok = torch.gather(tok, 1, sel_t)
+            ctx = [torch.gather(c, 1, sel_t[:, :, None].expand(-1, -1, c.shape[2]))
+                   for c in ctx]
+            if pos is not None:
+                pos = torch.gather(pos, 1, sel_t)
+        S = eval_plan_chunk(qp, tok, tuple(ctx), rows_block=RESCORE_ROWS)["similarity"]
+        if tag_weights is None:
+            return S, S
+        g, T = S.shape[0], S.shape[2]
+        w, p, pen, thr = (torch.as_tensor(np.asarray(a), device=dev) for a in (
+            np.asarray(tag_weights.t_pos_weights, np.float32)[:T],
+            np.asarray(tag_weights.pos_t, np.int8)[:T],
+            np.float32(tag_weights.pos_mismatch_penalty),
+            np.float32(tag_weights.similarity_threshold),
+        ))
+        return tag_weighted(S, pos, w.expand(g, T), p.expand(g, T), pen.expand(g),
+                            thr.expand(g)), S
+
+    def batch_slice_similarity(self, sids, qp, tag_weights=None, sels=None):
+        """[(S weighted [len_i, T], S unweighted)] host arrays of many
+        slices, one evaluation a touched bucket (``sels``: each slice's
+        kept positions under a document-side filter, else None)."""
+        out = [None] * len(sids)
+        by_bucket: Dict[int, list] = {}
+        for j, sid in enumerate(sids):
+            by_bucket.setdefault(int(self._slice_loc[sid, 0]), []).append(j)
+        for bi, js in by_bucket.items():
+            if bi < 0:
+                raise KeyError(sids[js[0]])
+            rows = [self._slice_loc[sids[j], 1] for j in js]
+            S, Su = self._plan_rows_similarity(
+                bi, rows, None if sels is None else [sels[j] for j in js],
+                qp, tag_weights)
+            S, Su = _host(S), _host(Su)
+            for k, j in enumerate(js):
+                ln = (len(sels[j]) if sels is not None
+                      else int(self._packed.slice_len[sids[j]]))
+                out[j] = (S[k, :ln], Su[k, :ln])
+        return out
+
+    def slice_similarity(self, sid: int, qp, tag_weights=None, sel=None):
+        """(S weighted [len, T], S unweighted) of one slice (``sel``: its
+        kept positions under a document-side filter)."""
+        return self.batch_slice_similarity(
+            [sid], qp, tag_weights, None if sel is None else [sel])[0]
+
+    def rescore_scores(self, slice_ids, qp, len_t: int, gaps, locality: str,
+                       tag_weights=None, doc_filter=None, gap_costs=None):
+        """Exact f32 raw DP scores [k] of the chosen slices without flows —
+        the score-only half of the finalizer; the same bits as
+        ``rescore_with_flows``' scores."""
+        (res,) = self.rescore_many(
+            [{"slice_ids": slice_ids, "qp": qp, "len_t": len_t,
+              "tag_weights": tag_weights, "want_flows": False}],
+            gaps, locality, gap_costs=gap_costs, doc_filter=doc_filter,
+        )
+        return res[2]
+
+    def rescore_with_flows(self, slice_ids, qp, len_t: int, gaps, locality: str,
+                           tag_weights=None, doc_filter=None, gap_costs=None,
+                           on_sims=None, with_scores: bool = False):
+        """The DP matrices of the chosen slices and their injective flows by
+        host traceback (the reference's finalizer pass,
+        matcher_impl.h:172-174); mappings in original in-slice offsets
+        under a document-side filter.  Returns (mappings, per-edge
+        unmodified similarities); with ``with_scores`` also the exact f32
+        raw scores.  ``on_sims(sid, S weighted, S unweighted)`` observes
+        each slice's similarity block (``debug``'s hook)."""
+        (res,) = self.rescore_many(
+            [{"slice_ids": slice_ids, "qp": qp, "len_t": len_t,
+              "tag_weights": tag_weights, "want_flows": True,
+              "on_sims": on_sims}],
+            gaps, locality, gap_costs=gap_costs, doc_filter=doc_filter,
+        )
+        mappings, edge_sims, raw = res
+        return (mappings, edge_sims, raw) if with_scores else (mappings, edge_sims)
 
     def _dispatch_multi(self, plans, len_ts, gaps, locality, norm_totals,
                         gap_costs=None, sim_dtype=None, tag_weights=None,
@@ -1074,12 +1573,16 @@ class BruteForceEngine:
         (``gap_costs`` as in ``score_topk_multi``).
 
         Each request: {slice_ids, qp, len_t, want_flows, tag_weights (a
-        TagWeightingSpec, or None)}.  ``doc_filter`` (the index-level
-        DocFilterSpec, or None) compacts each slice on the host
+        TagWeightingSpec, or None), on_sims (optional observer of each
+        slice's (sid, S weighted, S unweighted))}.  ``doc_filter`` (the
+        index-level DocFilterSpec, or None) compacts each slice on the host
         (``filtered_positions``; a slice it empties scores NEG_SCORE) and
         its mappings are translated back to original slice offsets.
-        Returns per-request (mappings, edge_sims, raw_scores);
-        mappings/edge_sims are -1/0 placeholders for score-only requests."""
+        Static plans stack into one gather table (``_stacked_rescore``); a
+        contextual plan's request evaluates its rows per bucket
+        (``_plan_rows_similarity``) and runs the same DP.  Returns
+        per-request (mappings, edge_sims, raw_scores); mappings/edge_sims
+        are -1/0 placeholders for score-only requests."""
         slot = {}  # request index -> stacked table slot (live requests)
         states = []
         pairs = []  # (request index, candidate position, slice id)
@@ -1092,6 +1595,8 @@ class BruteForceEngine:
                 {
                     "len_t": len_t,
                     "want_flows": req.get("want_flows", True),
+                    "on_sims": req.get("on_sims"),
+                    "slice_ids": slice_ids,
                     "mappings": [np.full((len_t,), -1, np.int32) for _ in range(k)],
                     "edge_sims": [np.zeros((len_t,), np.float32) for _ in range(k)],
                     "raw": np.full((k,), NEG_SCORE, np.float32),
@@ -1106,6 +1611,54 @@ class BruteForceEngine:
             )
         if not pairs:
             return [(st["mappings"], st["edge_sims"], st["raw"]) for st in states]
+        if all(requests[ri]["qp"].is_static_only for ri in slot):
+            groups = self._stacked_groups(requests, states, slot, pairs, gaps,
+                                          locality, chunk, gap_costs, doc_filter)
+        else:
+            groups = self._plan_groups(requests, states, pairs, gaps, locality,
+                                       chunk, gap_costs, doc_filter)
+
+        with trace.span("rescore.fetch"):
+            fetched = [
+                (cap, Tw, pc, *(None if t is None else _host(t) for t in out))
+                for cap, Tw, pc, out in groups
+            ]
+        for cap, Tw, pc, raw_np, H_np, Sw_np, Su_np in fetched:
+            maps = None
+            if H_np is not None:
+                lens = np.asarray(
+                    [len(states[ri]["sels"][j]) for ri, j, _ in pc], np.int32
+                )
+                lts = np.asarray([states[ri]["len_t"] for ri, _, _ in pc], np.int32)
+                w_s = w_t = None
+                if gap_costs is not None:
+                    w_s = gap_vec(gap_costs[0], cap + 1)
+                    w_t = gap_vec(gap_costs[1], Tw + 1)
+                maps = batch_tracebacks(
+                    H_np, Sw_np, lens, lts, gaps, locality, w_s=w_s, w_t=w_t
+                )
+            for pos_i, (ri, j, sid) in enumerate(pc):
+                st = states[ri]
+                st["raw"][j] = raw_np[pos_i]
+                if not st["want_flows"]:
+                    continue
+                sel = st["sels"][j]
+                if st["on_sims"] is not None:
+                    st["on_sims"](sid, Sw_np[pos_i, : len(sel), : st["len_t"]],
+                                  Su_np[pos_i, : len(sel), : st["len_t"]])
+                mapping = maps[pos_i]
+                st["edge_sims"][j] = edge_sims_of(mapping, Su_np[pos_i], st["len_t"])
+                st["mappings"][j] = np.where(
+                    mapping >= 0, sel[np.maximum(mapping, 0)], -1
+                ).astype(np.int32)
+        return [(st["mappings"], st["edge_sims"], st["raw"]) for st in states]
+
+    def _stacked_groups(self, requests, states, slot, pairs, gaps, locality,
+                        chunk, gap_costs, doc_filter):
+        """The static requests' rescore: their plans stacked into one
+        gather table, one gather + DP a touched bucket (a chunk) for all
+        of them: [(capacity, Tmax, pairs, (raw, H, S weighted, S
+        unweighted))]."""
         table, V, Tmax = self._stacked_plan_tables(
             [requests[ri]["qp"] for ri in slot]
         )
@@ -1118,14 +1671,8 @@ class BruteForceEngine:
         if any(t is not None for t in tws):
             tw = _put_all(stack_tag_slots(tws, len(tws), Tmax), self.device)
         want_flows = any(states[ri]["want_flows"] for ri in slot)
-        by_bucket: Dict[int, list] = {}
-        for ri, j, sid in pairs:
-            bi = int(self._slice_loc[sid, 0])
-            if bi < 0:
-                raise KeyError(sid)
-            by_bucket.setdefault(bi, []).append((ri, j, sid))
         groups = []
-        for bi, plist in by_bucket.items():
+        for bi, plist in self._by_bucket(pairs).items():
             db = self._device_buckets[bi]
             for c0 in range(0, len(plist), chunk):
                 pc = plist[c0 : c0 + chunk]
@@ -1153,39 +1700,79 @@ class BruteForceEngine:
                     tokens, rows, qix, table, ln, lt, gaps, V,
                     locality, want_flows, general, pos, tw,
                 )
-                groups.append((db["capacity"], pc, out))
+                groups.append((db["capacity"], Tmax, pc, out))
+        return groups
 
-        with trace.span("rescore.fetch"):
-            fetched = [
-                (cap, pc, *(None if t is None else _host(t) for t in out))
-                for cap, pc, out in groups
-            ]
-        for cap, pc, raw_np, H_np, Sw_np, Su_np in fetched:
-            maps = None
-            if want_flows:
-                lens = np.asarray(
-                    [len(states[ri]["sels"][j]) for ri, j, _ in pc], np.int32
-                )
-                lts = np.asarray([states[ri]["len_t"] for ri, _, _ in pc], np.int32)
-                w_s = w_t = None
-                if gap_costs is not None:
-                    w_s = gap_vec(gap_costs[0], cap + 1)
-                    w_t = gap_vec(gap_costs[1], Tmax + 1)
-                maps = batch_tracebacks(
-                    H_np, Sw_np, lens, lts, gaps, locality, w_s=w_s, w_t=w_t
-                )
-            for pos_i, (ri, j, sid) in enumerate(pc):
-                st = states[ri]
-                st["raw"][j] = raw_np[pos_i]
-                if not st["want_flows"]:
-                    continue
-                mapping = maps[pos_i]
-                st["edge_sims"][j] = edge_sims_of(mapping, Su_np[pos_i], st["len_t"])
-                sel = st["sels"][j]
-                st["mappings"][j] = np.where(
-                    mapping >= 0, sel[np.maximum(mapping, 0)], -1
-                ).astype(np.int32)
-        return [(st["mappings"], st["edge_sims"], st["raw"]) for st in states]
+    def _plan_groups(self, requests, states, pairs, gaps, locality, chunk,
+                     gap_costs, doc_filter):
+        """The rescore of requests with contextual plans: per touched bucket
+        (a chunk of pairs) each request's rows evaluated under its own plan
+        (``_plan_rows_similarity``), zero-padded to the widest plan (the
+        len_t masks keep the pad columns out of every real cell, as in
+        ``_stacked_rescore``), then ONE DP over all of them: matrices and
+        scores (``_mq_matrices_scores``) where a request wants flows, else
+        a dense DP entry's launch a request: [(capacity, Tmax, pairs, (raw,
+        H, S weighted, S unweighted))]."""
+        Tmax = max(requests[ri]["qp"].width for ri in {pr[0] for pr in pairs})
+        general = (None if gap_costs is None
+                   else GeneralGaps(gap_costs, Tmax + 1, self.device))
+        groups = []
+        for bi, plist in self._by_bucket(pairs).items():
+            cap = self._device_buckets[bi]["capacity"]
+            for c0 in range(0, len(plist), chunk):
+                pc = plist[c0 : c0 + chunk]
+                runs = []  # (request, its consecutive pairs of the chunk)
+                for pr in pc:
+                    if runs and runs[-1][0] == pr[0]:
+                        runs[-1][1].append(pr)
+                    else:
+                        runs.append((pr[0], [pr]))
+                blocks = []
+                for ri, run in runs:
+                    req, st = requests[ri], states[ri]
+                    sels = [st["sels"][j] for _, j, _ in run]
+                    Sw, Su = self._plan_rows_similarity(
+                        bi, [self._slice_loc[sid, 1] for _, _, sid in run],
+                        None if doc_filter is None else sels, req["qp"],
+                        req.get("tag_weights"),
+                    )
+                    pad = Tmax - int(Sw.shape[2])
+                    blocks.append((F.pad(Sw, (0, pad)), F.pad(Su, (0, pad))))
+                ln = torch.as_tensor(
+                    [len(states[ri]["sels"][j]) for ri, j, _ in pc],
+                    dtype=torch.int64, device=self.device)
+                lt = torch.as_tensor([requests[ri]["len_t"] for ri, _, _ in pc],
+                                     dtype=torch.int64, device=self.device)
+                Sw = torch.cat([b[0] for b in blocks])
+                if any(states[ri]["want_flows"] for ri, _ in runs):
+                    H, raw = _mq_matrices_scores(
+                        Sw, ln, lt, gaps, locality,
+                        None if general is None else general.vecs(cap),
+                    )
+                    out = (raw, H, Sw, torch.cat([b[1] for b in blocks]))
+                else:
+                    raws, r0 = [], 0
+                    for (ri, run), (bw, _) in zip(runs, blocks):
+                        r1 = r0 + len(run)
+                        lt1 = torch.as_tensor([requests[ri]["len_t"]],
+                                              dtype=torch.int32, device=self.device)
+                        raws.append(_dense_raw(bw[..., None].contiguous(),
+                                               ln[r0:r1].int(), lt1, gaps, locality,
+                                               general)[:, 0])
+                        r0 = r1
+                    out = (torch.cat(raws), None, None, None)
+                groups.append((cap, Tmax, pc, out))
+        return groups
+
+    def _by_bucket(self, pairs) -> Dict[int, list]:
+        """(request, position, slice id) pairs grouped by their bucket."""
+        out: Dict[int, list] = {}
+        for pr in pairs:
+            bi = int(self._slice_loc[pr[2], 0])
+            if bi < 0:
+                raise KeyError(pr[2])
+            out.setdefault(bi, []).append(pr)
+        return out
 
     def _compacted_rows(self, bi: int, rows, sels, with_pos: bool):
         """Bucket ``bi``'s ``rows``, each row's kept positions ``sels``

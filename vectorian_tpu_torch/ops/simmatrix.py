@@ -1,4 +1,4 @@
-"""Query similarity-matrix compiler, static embeddings.
+"""Query similarity-matrix compiler and query plans.
 
 Builds the (vocab x needle) similarity matrix — the replacement for the
 reference's StaticEmbeddingSimilarityMatrixFactory
@@ -8,13 +8,16 @@ reference's StaticEmbeddingSimilarityMatrixFactory
 and a zero PAD row.  Static modifier trees (mixed / extremum / unary chains
 over several embeddings — reference metric/modifier.cpp) fold into ONE
 [V, T] matrix when the plan compiles, so every consumer gathers the same
-bits.
+bits.  A plan with a contextual leaf keeps its tree: each chunk of slices
+evaluates it (``eval_plan_chunk``), the contextual leaf as one metric GEMM
+of the chunk's per-token vectors against the needle's (the reference's
+metric/contextual.cpp:26-99, per document there).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, Sequence
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -131,7 +134,8 @@ def compile_similarity(
     needle_strings: Sequence[str],
     needs_magnitudes: bool = False,
 ) -> dict:
-    """Evaluate a TokenSim tree to {'similarity': [V, T], 'magnitudes_*'}.
+    """Evaluate a static TokenSim tree to {'similarity': [V, T],
+    'magnitudes_*'}.
 
     Mirrors Query::create_strategy's metric compilation walk
     (query.cpp:156-218): modifiers recurse into operands, leaves build
@@ -146,28 +150,108 @@ def compile_similarity(
         ]
         return token_sim.combine(operands)
     if isinstance(token_sim, EmbeddingTokenSim):
-        _require_static(token_sim)
         return _leaf_matrix(
             token_sim, compiled, needle_token_ids, needle_strings, needs_magnitudes
         )
     raise TypeError(f"cannot compile token similarity {token_sim!r}")
 
 
-def _require_static(sim: EmbeddingTokenSim) -> None:
-    if not getattr(sim.embedding, "is_static", True):
-        raise NotImplementedError(
-            "contextual embeddings are not ported yet (ROADMAP.md port "
-            "queue item 5: contextual, tree and span-embedding metrics)"
-        )
+class _ChunkVectors:
+    """AbstractVectors facade over [n, d] tensors of a chunk's rows."""
+
+    def __init__(self, unmodified, normalized, magnitudes):
+        self.unmodified = unmodified
+        self.normalized = normalized
+        self.magnitudes = magnitudes
+
+
+def chunk_vectors(ctx: torch.Tensor) -> _ChunkVectors:
+    """The per-token vectors [c, L, d] (the bf16 store's rows) of a chunk as
+    f32 rows [c * L, d] with their norms and unit rows (the JAX package's
+    eval_plan_chunk arithmetic: x / max(|x|, 1e-9))."""
+    d = ctx.shape[-1]
+    flat = ctx.to(torch.float32).reshape(-1, d)
+    mags = torch.linalg.vector_norm(flat, dim=-1)
+    normed = flat / torch.clamp_min(mags, 1e-9)[:, None]
+    return _ChunkVectors(flat, normed, mags)
+
+
+def query_vectors(d: dict, device) -> _ChunkVectors:
+    """A needle's contextual {unmodified, normalized, magnitudes} (numpy,
+    ``Session.encode_contextual_query``) as f32 tensors on ``device``."""
+    return _ChunkVectors(*(
+        torch.as_tensor(np.asarray(d[k], np.float32), device=device).contiguous()
+        for k in ("unmodified", "normalized", "magnitudes")
+    ))
+
+
+def ctx_similarity(ctx: torch.Tensor, q: _ChunkVectors, metric,
+                   rows_block: Optional[int] = None) -> torch.Tensor:
+    """clip(metric(rows of ``ctx`` [c, L, d], q [W, d]), 0, 1) as [c * L, W]
+    f32 (metric/metric.h:28-30).  ``rows_block``: evaluate the rows in
+    blocks of exactly that many (the last zero-padded), so a row's bits do
+    not depend on how many rows a call holds (the exact rescore's fixed
+    shape); None evaluates the chunk at once (the ranking pass)."""
+    if rows_block is None:
+        return torch.clamp(metric.compute(chunk_vectors(ctx), q), 0.0, 1.0)
+    d = ctx.shape[-1]
+    rows = ctx.reshape(-1, d)
+    n = rows.shape[0]
+    pad = -n % rows_block
+    if pad:
+        rows = torch.cat([rows, rows.new_zeros((pad, d))])
+    out = [
+        torch.clamp(metric.compute(chunk_vectors(rows[r0 : r0 + rows_block]), q),
+                    0.0, 1.0)
+        for r0 in range(0, n + pad, rows_block)
+    ]
+    return torch.cat(out)[:n]
 
 
 @dataclass
 class QueryPlan:
-    """Everything needed to score buckets for one prepared query: the
-    query's ONE folded [V, T] similarity matrix (the JAX package's
-    ("static", 0) plan; contextual leaves are not ported yet)."""
+    """Everything needed to score buckets for one prepared query.
 
-    matrix: torch.Tensor  # [V, T]
+    A static-only plan is ONE folded [V, T] similarity matrix (``matrix``;
+    the JAX package's ("static", 0) plan).  A plan with a contextual leaf
+    keeps its tree (the JAX package's hashable plan tuple): leaves
+    ("static", k) gather ``static_sims[k]`` [V, T], ("ctx", k, metric)
+    evaluate ``metric`` of the chunk's vectors of embedding
+    ``ctx_names[k]`` against the needle's ``ctx_queries[k]`` (numpy dicts;
+    ``ctx_vectors[k]`` the same on the device); nodes ("mixed", children,
+    w_idx), ("max" | "min", children), ("unary", child, kernel)."""
+
+    matrix: Optional[torch.Tensor] = None  # [V, T], static-only plans
+    plan: tuple = ("static", 0)
+    static_sims: List[torch.Tensor] = field(default_factory=list)
+    ctx_names: List[str] = field(default_factory=list)
+    ctx_queries: List[dict] = field(default_factory=list)
+    ctx_vectors: List[_ChunkVectors] = field(default_factory=list)
+    mixed_weights: List[torch.Tensor] = field(default_factory=list)
+    # the largest similarity any cell can take (plan_sim_upper)
+    sim_upper: float = 1.0
+
+    @property
+    def is_static_only(self) -> bool:
+        return not self.ctx_names
+
+    @property
+    def width(self) -> int:
+        """The padded needle width T."""
+        if self.matrix is not None:
+            return int(self.matrix.shape[1])
+        if self.static_sims:
+            return int(self.static_sims[0].shape[1])
+        return int(self.ctx_vectors[0].unmodified.shape[0])
+
+
+def _has_unary(node) -> bool:
+    kind = node[0]
+    if kind == "unary":
+        return True
+    if kind in ("mixed", "max", "min"):
+        return any(_has_unary(c) for c in node[1])
+    return False
 
 
 def compile_plan(
@@ -175,27 +259,100 @@ def compile_plan(
     compiled: Dict[str, CompiledEmbedding],
     needle_token_ids: np.ndarray,
     needle_strings: Sequence[str],
+    query_ctx: Optional[Dict[str, dict]] = None,
+    device=None,
 ) -> QueryPlan:
-    """Compile a static TokenSim tree into a QueryPlan: every leaf is one
-    GEMM, and a modifier tree folds into one combined [V, T] matrix with
-    the JAX package's per-cell ops (mixture weights normalized, extremum
-    by argmax selection, unary kernels applied in order)."""
+    """Compile a TokenSim tree into a QueryPlan.  Static leaves are one
+    GEMM each; a static-only tree folds into one combined [V, T] matrix
+    with the JAX package's per-cell ops (mixture weights normalized,
+    extremum by argmax selection, unary kernels applied in order).  A
+    contextual leaf defers to per-chunk evaluation with the needle's
+    vectors ``query_ctx[name]`` (padded to the needle's width) on
+    ``device`` (default: the first compiled embedding's)."""
+    qp = QueryPlan()
+    if device is None:
+        device = next(iter(compiled.values())).device if compiled else "cpu"
 
-    def walk(node) -> torch.Tensor:
+    def walk(node) -> tuple:
         if isinstance(node, EmbeddingTokenSim):
-            _require_static(node)
-            return _leaf_matrix(
-                node, compiled, needle_token_ids, needle_strings, False
-            )["similarity"]
+            emb = node.embedding
+            if getattr(emb, "is_static", True):
+                qp.static_sims.append(_leaf_matrix(
+                    node, compiled, needle_token_ids, needle_strings, False
+                )["similarity"])
+                return ("static", len(qp.static_sims) - 1)
+            qp.ctx_names.append(emb.name)
+            qp.ctx_queries.append(query_ctx[emb.name])
+            qp.ctx_vectors.append(query_vectors(query_ctx[emb.name], device))
+            return ("ctx", len(qp.ctx_names) - 1, node.metric)
         if isinstance(node, MixedTokenSimilarity):
-            ops = [walk(c) for c in node.operands]
-            w = mixed_weights(node._weights, ops[0].device)
-            return mix(torch.stack(ops, 0), w)
+            children = tuple(walk(c) for c in node.operands)
+            qp.mixed_weights.append(mixed_weights(node._weights, device))
+            return ("mixed", children, len(qp.mixed_weights) - 1)
         if isinstance(node, (MaximumTokenSimilarity, MinimumTokenSimilarity)):
-            sign = 1.0 if isinstance(node, MaximumTokenSimilarity) else -1.0
-            return extremum(torch.stack([walk(c) for c in node.operands], 0), sign)[0]
+            kind = "max" if isinstance(node, MaximumTokenSimilarity) else "min"
+            return (kind, tuple(walk(c) for c in node.operands))
         if isinstance(node, UnaryTokenSimilarityModifier):
-            return node._kernel(walk(node.operands[0]))
+            return ("unary", walk(node.operands[0]), node._kernel)
         raise TypeError(f"cannot compile token similarity {node!r}")
 
-    return QueryPlan(matrix=walk(token_sim).contiguous())
+    qp.plan = walk(token_sim)
+    unary = _has_unary(qp.plan)
+    if qp.is_static_only:
+        # fold: every consumer then reads the same bits of ONE matrix
+        if qp.plan == ("static", 0):
+            matrix = qp.static_sims[0].contiguous()
+        else:
+            tok = torch.arange(qp.static_sims[0].shape[0],
+                               device=qp.static_sims[0].device)[None]
+            matrix = eval_plan_chunk(qp, tok, ())["similarity"][0].contiguous()
+        return QueryPlan(
+            matrix=matrix, static_sims=[matrix],
+            sim_upper=float(matrix.max()) if unary else 1.0,
+        )
+    # a contextual tree with a unary kernel has no known ceiling
+    qp.sim_upper = float("inf") if unary else 1.0
+    return qp
+
+
+def eval_plan_chunk(qp: QueryPlan, tok: torch.Tensor, ctx_chunks,
+                    rows_block: Optional[int] = None) -> dict:
+    """Evaluate a plan's tree on one chunk of slices -> {'similarity': [c,
+    L, T]}.  ``tok`` [c, L] token ids (static leaves gather their rows),
+    ``ctx_chunks`` k -> [c, L, d] the chunk's vectors of ``ctx_names[k]``;
+    ``rows_block`` as in ``ctx_similarity``.  Mirrors the reference's
+    modifier application (metric/modifier.cpp:18-74) and the
+    static-into-contextual broadcast (metric/static.cpp:142-195), with the
+    JAX package's per-cell ops."""
+    c, L = tok.shape
+
+    def rec(node) -> torch.Tensor:
+        kind = node[0]
+        if kind == "static":
+            return qp.static_sims[node[1]][tok.long()]  # [c, L, T]
+        if kind == "ctx":
+            _, k, metric = node
+            S = ctx_similarity(ctx_chunks[k], qp.ctx_vectors[k], metric, rows_block)
+            return S.reshape(c, L, -1)
+        if kind == "mixed":
+            _, children, w_idx = node
+            return mix(torch.stack([rec(ch) for ch in children], 0),
+                       qp.mixed_weights[w_idx])
+        if kind in ("max", "min"):
+            sims = torch.stack([rec(ch) for ch in node[1]], 0)
+            return extremum(sims, 1.0 if kind == "max" else -1.0)[0]
+        if kind == "unary":
+            return node[2](rec(node[1]))
+        raise ValueError(node)
+
+    return {"similarity": rec(qp.plan)}
+
+
+def plan_sim_upper(qp: QueryPlan) -> float:
+    """Largest similarity the plan can yield for any (token, needle) cell:
+    leaves are clipped to [0, 1] and mixed / extremum nodes keep that
+    range, so a plan without unary kernels is bounded by 1.0; a static-only
+    plan with unary kernels by the maximum of its folded matrix; a
+    contextual one with unary kernels is unbounded (inf: callers must not
+    trust closed-form bounds that assume sim <= token weight)."""
+    return qp.sim_upper

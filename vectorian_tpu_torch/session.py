@@ -5,8 +5,10 @@ builds the core Vocabulary/EmbeddingManager and compiles static embeddings
 once (session.py:165-198); Partition carries (level, window_size,
 window_step) with frequencies and index construction (session.py:85-145).
 
-Port mapping: "compiling" an embedding materializes its (vocab x dim)
-matrix as tensors on the session's device (ops/simmatrix.CompiledEmbedding);
+Port mapping: "compiling" a static embedding materializes its (vocab x
+dim) matrix as tensors on the session's device
+(ops/simmatrix.CompiledEmbedding); a contextual one encodes every
+document's per-token vectors once (and fits its PCA transforms on them);
 "preparing" a partition packs the corpus into length-bucketed arrays
 (corpus/packing) plus a BruteForceEngine holding them on the device — both
 cached per (level, window_size, window_step).
@@ -324,13 +326,6 @@ class Session:
         self._vocab = Vocabulary()
 
         self._embeddings = list(embeddings)
-        for emb in self._embeddings:
-            if not emb.is_static:
-                raise NotImplementedError(
-                    f"contextual embedding {emb.name!r}: not ported yet "
-                    "(ROADMAP.md port queue item 5: contextual, tree and "
-                    "span-embedding metrics)"
-                )
 
         self._documents: List[PreparedDocument] = []
         for i, doc in enumerate(_progress(list(docs), desc="preparing docs")):
@@ -340,12 +335,18 @@ class Session:
         self._reorder_vocab_by_frequency()
 
         self._compiled: Dict[str, CompiledEmbedding] = {}
+        self._ctx_embeddings: Dict[str, object] = {}
+        self._ctx_fitted: Dict[str, list] = {}  # name -> fitted transforms
+        self._ctx_dims: Dict[str, int] = {}
         vocab_strings = self._vocab.tokens.strings
         for emb in _progress(self._embeddings, desc="compiling embeddings"):
-            encoder = emb.create_encoder(normalization)
-            self._compiled[emb.name] = CompiledEmbedding(
-                emb.name, encoder, vocab_strings, device=self._device
-            )
+            if emb.is_static:
+                encoder = emb.create_encoder(normalization)
+                self._compiled[emb.name] = CompiledEmbedding(
+                    emb.name, encoder, vocab_strings, device=self._device
+                )
+            else:
+                self._compile_contextual(emb)
 
         self._packed_cache: Dict[PartitionSpec, PackedCorpus] = {}
         self._engine_cache: Dict[PartitionSpec, BruteForceEngine] = {}
@@ -371,6 +372,89 @@ class Session:
         for pd in self._documents:
             pd.token_ids = perm[pd.token_ids].astype(np.int32)
         self._vocab.tokens.reorder(perm)
+
+    def _compile_contextual(self, emb):
+        """Encode the per-document vectors a document lacks (the reference
+        checks doc coverage, session.py:177-182), fit the embedding's PCA
+        transforms on the corpus's vectors, and keep the transformed
+        vectors in the prepared documents (host arrays; the engine packs
+        them into device buckets at the first contextual query)."""
+        self._ctx_embeddings[emb.name] = emb
+        for pd in self._documents:
+            if emb.name not in pd.contextual:
+                sdoc = self._nlp(pd.doc.text)
+                vecs = np.asarray(emb.encode_doc(sdoc, pd.doc.text), np.float32)
+                if len(vecs) != pd.doc.n_tokens:
+                    # pd.orig_index indexes the importer's token table: a
+                    # session NLP that tokenizes differently would assign
+                    # wrong per-token vectors
+                    raise ValueError(
+                        f"contextual embedding {emb.name!r}: session NLP "
+                        f"produced {len(vecs)} token vectors for document "
+                        f"{pd.doc.title!r} but its token table has "
+                        f"{pd.doc.n_tokens} — use the same NLP pipeline for "
+                        "importing and for the Session"
+                    )
+                pd.doc.contextual_embeddings[emb.name] = vecs
+                pd.contextual[emb.name] = vecs[pd.orig_index]
+        fitted = []
+        for tfm in getattr(emb, "transforms", ()):
+            all_vecs = np.concatenate(
+                [
+                    np.asarray(pd.contextual[emb.name], np.float32)
+                    for pd in self._documents
+                    if len(pd.contextual.get(emb.name, ()))
+                ],
+                axis=0,
+            )
+            ft = tfm.fit(all_vecs)
+            for pd in self._documents:
+                if len(pd.contextual.get(emb.name, ())):
+                    pd.contextual[emb.name] = np.asarray(
+                        ft.apply(np.asarray(pd.contextual[emb.name], np.float32)),
+                        np.float32,
+                    )
+            fitted.append(ft)
+        self._ctx_fitted[emb.name] = fitted
+        dim = 0
+        for pd in self._documents:
+            v = pd.contextual.get(emb.name)
+            if v is not None and len(v):
+                dim = int(v.shape[1])
+                break
+        self._ctx_dims[emb.name] = dim
+
+    @property
+    def contextual_embeddings(self):
+        return self._ctx_embeddings
+
+    def cache_contextual_embeddings(self):
+        """Preload every contextual vector (reference
+        Session.cache_contextual_embeddings, session.py:237-239): lazy
+        stored vectors are read, and the device stores of already-built
+        partitions are packed, so the first contextual query pays no
+        load."""
+        for pd in _progress(self._documents, desc="loading vectors"):
+            for name in self._ctx_embeddings:
+                v = pd.contextual.get(name)
+                if v is not None and hasattr(v, "materialize"):
+                    v.materialize()
+        for engine in self._engine_cache.values():
+            for name in self._ctx_embeddings:
+                engine.ensure_contextual(name, self._documents, self._ctx_dims[name])
+
+    def encode_contextual_query(self, name: str, sdoc, text: str, keep) -> dict:
+        """The needle's contextual vectors with the fitted transforms
+        replayed (the reference's transform-on-query path,
+        embedding/vectors.py:89-129): {unmodified, normalized, magnitudes}
+        numpy arrays of the kept tokens."""
+        emb = self._ctx_embeddings[name]
+        vecs = np.asarray(emb.encode_doc(sdoc, text), np.float32)[keep]
+        for ft in self._ctx_fitted.get(name, ()):
+            vecs = np.asarray(ft.apply(vecs), np.float32)
+        mags = np.linalg.norm(vecs, axis=-1)
+        normed = vecs / np.maximum(mags, 1e-9)[:, None]
+        return {"unmodified": vecs, "normalized": normed, "magnitudes": mags}
 
     @property
     def device(self) -> torch.device:

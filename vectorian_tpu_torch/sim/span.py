@@ -102,7 +102,8 @@ class EmbeddedSpanSim(SpanSim):
         approximate recall, documented on ApproximateSpanIndex)."""
         raise NotImplementedError(
             "span-embedding indexes are not ported yet (ROADMAP.md port "
-            "queue item 5: contextual, tree and span-embedding metrics)"
+            "queue item 5b: mixed trees, contextual tag weights and span "
+            "embeddings)"
         )
 
     def to_args(self, index):
