@@ -2622,49 +2622,85 @@ def _ctx_embedding(words, rng):
     return vt.LambdaContextualEmbedding("ctx", fn, CTX_DIM)
 
 
+def _dense_kernel_check(index, kernel, db, S, lts):
+    """The dense entry ``kernel`` on a path's first chunk ``S`` [c, L,
+    Tpad, Q] of bucket ``db`` (needle lengths ``lts``), held against its
+    plain version bit for bit and timed: (max |diff|, ms, plain ms, bound
+    ms, bound by, (c, L, Tpad, Q))."""
+    import torch
+
+    from vectorian_tpu_torch.ops import dp_kernels, search
+
+    eng = index._engine
+    c, L, Tpad, Q = S.shape
+    ln = db["lengths"][:c]
+    lt = torch.as_tensor(lts, dtype=torch.int32, device=eng.device)
+    if kernel == "affine_dp[dense]":
+        args, kw = (index._gaps,), {}
+        fn, ref = dp_kernels.affine_dp_scores_dense, dp_kernels.affine_dp_scores_dense_reference
+    else:
+        gg = search.GeneralGaps(index._gap_costs, Tpad + 1, eng.device)
+        args, kw = gg.vecs(L), {"host_costs": gg.host_vecs(L)}
+        fn, ref = dp_kernels.wsb_dp_scores_dense, dp_kernels.wsb_dp_scores_dense_reference
+    d = _check_equal(kernel, fn(S, ln, lt, *args, index._locality, **kw),
+                     ref(S, ln, lt, *args, index._locality), (c, Tpad, Q))
+    ms = cuda_ms(lambda: fn(S, ln, lt, *args, index._locality, **kw), 10)
+    plain_ms = cuda_ms(lambda: ref(S, ln, lt, *args, index._locality), 1)
+    bound, by = dense_bound_ms(kernel, S, ln, lt)
+    return (d, ms, plain_ms, bound, by, [c, L, Tpad, Q])
+
+
 def _ctx_kernel_at_path(index, qs, kernel):
     """The dense entry at the contextual pass's shapes: the first chunk of
     the largest bucket as find_batch (Q = len(qs)) and find (Q = 1) build
     it, held against the plain version and timed: {Q: (max |diff|, ms,
     plain ms, bound ms, bound by, (c, L, Tpad, Q))}."""
-    import torch
-
-    from vectorian_tpu_torch.ops import dp_kernels, search
+    from vectorian_tpu_torch.ops import search
     from vectorian_tpu_torch.ops.simmatrix import ctx_similarity
 
     eng = index._engine
     db = max(eng._device_buckets, key=lambda b: b["n"])
-    plans = [index._compile_plan(index.make_query(q).prepare(index._nlp), {"ctx"})
-             for q in qs]
+    pqs = [index.make_query(q).prepare(index._nlp) for q in qs]
+    plans = [index._compile_plan(pq, {"ctx"}) for pq in pqs]
     metric = index._args["metric"]["token_sim"].metric
-    general = index._gap_costs
     out = {}
     for Q in (len(qs), 1):
-        lts = [max(index.make_query(q).prepare(index._nlp).n_tokens, 1) for q in qs[:Q]]
+        lts = [max(pq.n_tokens, 1) for pq in pqs[:Q]]
         qv, Tpad = search.stack_ctx_queries([p.ctx_queries[0] for p in plans[:Q]], lts,
                                             eng.device)
         c = min(search.ctx_chunk(db["capacity"], Tpad, Q, CTX_DIM), db["n"])
         S = ctx_similarity(eng._ctx_dev("ctx", db["bi"])[:c], qv, metric).reshape(
             c, db["capacity"], Tpad, Q)
-        ln = db["lengths"][:c]
-        lt = torch.as_tensor(lts, dtype=torch.int32, device=eng.device)
-        gg = None if general is None else search.GeneralGaps(general, Tpad + 1, eng.device)
-        if kernel == "affine_dp[dense]":
-            args, kw = (index._gaps,), {}
-            fn, ref = dp_kernels.affine_dp_scores_dense, dp_kernels.affine_dp_scores_dense_reference
-        else:
-            args, kw = gg.vecs(db["capacity"]), {"host_costs": gg.host_vecs(db["capacity"])}
-            fn, ref = dp_kernels.wsb_dp_scores_dense, dp_kernels.wsb_dp_scores_dense_reference
-        d = _check_equal(kernel, fn(S, ln, lt, *args, index._locality, **kw),
-                         ref(S, ln, lt, *args, index._locality), (c, Tpad, Q))
-        ms = cuda_ms(lambda: fn(S, ln, lt, *args, index._locality, **kw), 10)
-        plain_ms = cuda_ms(lambda: ref(S, ln, lt, *args, index._locality), 1)
-        bound, by = dense_bound_ms(kernel, S, ln, lt)
-        out[Q] = (d, ms, plain_ms, bound, by, [c, db["capacity"], Tpad, Q])
+        out[Q] = _dense_kernel_check(index, kernel, db, S, lts)
     return out
 
 
-def phase_contextual(card):
+def _tree_kernel_at_path(index, qs, kernel):
+    """The dense entry at the tree pass's shapes (4h): the first chunk of
+    the largest bucket as the stacked plans of find_batch (Q = len(qs))
+    and of find (Q = 1) evaluate it (``stack_tree_plans`` +
+    ``eval_plan_chunk``), held against the plain version and timed, as
+    ``_ctx_kernel_at_path``."""
+    from vectorian_tpu_torch.ops import search
+    from vectorian_tpu_torch.ops.simmatrix import eval_plan_chunk
+
+    eng = index._engine
+    db = max(eng._device_buckets, key=lambda b: b["n"])
+    pqs = [index.make_query(q).prepare(index._nlp) for q in qs]
+    plans = [index._compile_plan(pq, {"ctx"}) for pq in pqs]
+    out = {}
+    for Q in (len(qs), 1):
+        lts = [max(pq.n_tokens, 1) for pq in pqs[:Q]]
+        sp, Tpad = search.stack_tree_plans(plans[:Q], lts, eng.device)
+        d = sum(int(v.unmodified.shape[1]) for v in sp.ctx_vectors)
+        c = min(search.ctx_chunk(db["capacity"], Tpad, Q, d), db["n"])
+        S = eval_plan_chunk(sp, db["tokens"][:c], (eng._ctx_dev("ctx", db["bi"])[:c],))
+        S = S["similarity"].reshape(c, db["capacity"], Tpad, Q).contiguous()
+        out[Q] = _dense_kernel_check(index, kernel, db, S, lts)
+    return out
+
+
+def phase_contextual(card, qft=None):
     """4f: the contextual path end to end on the card: CTX_SENTENCES of
     phase 4's generator, a CTX_DIM LambdaContextualEmbedding; the store's
     packing (ensure_contextual), find p50 (21 queries) and find_batch Q=32
@@ -2672,7 +2708,11 @@ def phase_contextual(card):
     3.0)), find = find_batch byte for byte, the dense kernels at the path's
     shapes against their plain versions, a torch.profiler trace of one
     find_batch (the metric GEMM's time beside the dense DP's); then the
-    card against the CPU on a 3,000-sentence cut of the corpus."""
+    card against the CPU on a 3,000-sentence cut of the corpus.  The
+    session (and the cut's) also hold 4h's compressed fastText ``qft``,
+    when given, as a second embedding, so phase 4h shares the session and
+    its contextual store.  Returns (the dense kernels' results, {session, cut sessions by
+    device, queries, finds} for 4h)."""
     import numpy as np
 
     import vectorian_tpu_torch as vt
@@ -2685,7 +2725,7 @@ def phase_contextual(card):
     emb = _ctx_embedding(words, np.random.default_rng(SEED + 11))
     t0 = time.perf_counter()
     session = vt.Session([vt.StringImporter()(t, title=f"d{i}") for i, t in enumerate(texts)],
-                         embeddings=[emb], device=DEVICE)
+                         embeddings=[emb, *([qft] if qft is not None else [])], device=DEVICE)
     build_s = time.perf_counter() - t0
     queries = [query() for _ in range(32)]
     finds = [query() for _ in range(21)]
@@ -2737,16 +2777,13 @@ def phase_contextual(card):
                       "launches": launches}
     emit({"phase": "contextual", "sentences": CTX_SENTENCES, "slices": n_slices,
           "dim": CTX_DIM, "session_build_s": build_s, **res, "card": card})
-    del session, index
+    del index
 
     # the card against the CPU on a 3,000-sentence cut of the corpus
-    # (9 words a sentence; documents of 2,000 sentences, as the corpus's)
-    items = " ".join(texts).split(" ")[: 9 * 3_000]
-    cut = [" ".join(items[i : i + 9 * 2_000]) for i in range(0, len(items), 9 * 2_000)]
-    on = {}
-    for dev in (DEVICE, "cpu"):
-        on[dev] = vt.Session([vt.StringImporter()(t, title=f"d{i}") for i, t in enumerate(cut)],
-                             embeddings=[emb], device=dev)
+    on = {dev: vt.Session([vt.StringImporter()(t, title=f"d{i}")
+                           for i, t in enumerate(corpus_cut(texts))],
+                          embeddings=[emb, *([qft] if qft is not None else [])], device=dev)
+          for dev in (DEVICE, "cpu")}
     worst = {}
     for label, gap in (("affine", None), ("general", ExponentialGapCost(3.0))):
         got = {}
@@ -2759,7 +2796,329 @@ def phase_contextual(card):
         worst[label] = compare_with_cpu(f"4f cut {label}", got[DEVICE], got["cpu"])
     emit({"phase": "contextual_vs_cpu", "sentences": 3_000,
           "max_abs_score_diff_vs_cpu": worst})
+    return kernels, {"session": session, "cut": on, "queries": queries, "finds": finds}
+
+
+def corpus_cut(texts, n_sents=3_000):
+    """The first ``n_sents`` sentences of a phase-4 corpus (9 words a
+    sentence) as documents of 2,000 sentences, as the corpus's."""
+    items = " ".join(texts).split(" ")[: 9 * n_sents]
+    return [" ".join(items[i : i + 9 * 2_000]) for i in range(0, len(items), 9 * 2_000)]
+
+
+# 4h's product quantization of 4d's fastText matrix: 15 subvectors of 20
+# dims, 256 codes each, k-means on a training sample of FT_PQ_TRAIN rows
+FT_PQ_TRAIN, FT_PQ_ITERS = 16_384, 6
+
+
+def compress_fasttext(ft):
+    """4h's static leaf: phase 4d's fastText model (2,000,000 buckets, 300d)
+    product-quantized by the port's QuantizedFastTextModel.compress on a
+    training sample (every row encoded), saved as .npz into a temporary
+    directory and loaded as QuantizedFastText "qft"; returns (the
+    embedding, {"compress_s", "npz_bytes", "load_s"})."""
+    from vectorian_tpu_torch.embedding.fasttext import (
+        QuantizedFastText,
+        QuantizedFastTextModel,
+    )
+
+    t = time.perf_counter()
+    q = QuantizedFastTextModel.compress(ft.model, n_train=FT_PQ_TRAIN, n_iters=FT_PQ_ITERS)
+    compress_s = time.perf_counter() - t
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_qft_") as tmp:
+        path = Path(tmp) / "cc.en.300.quant.npz"
+        q.save(path)
+        qft = QuantizedFastText(path, name="qft")
+        t = time.perf_counter()
+        qft.model  # noqa: B018  (loads the .npz before the directory goes)
+        load_s = time.perf_counter() - t
+        nbytes = path.stat().st_size
+    return qft, {"compress_s": compress_s, "npz_bytes": nbytes, "load_s": load_s,
+                 "pq_train_rows": FT_PQ_TRAIN, "pq_iters": FT_PQ_ITERS}
+
+
+def _device_split(rows):
+    """A profile's device ms by kind: the static leaves' gathers, the metric
+    GEMM, the dense DP kernels and the rest."""
+    split = {"gather_ms": 0.0, "gemm_ms": 0.0, "dense_dp_ms": 0.0, "other_ms": 0.0}
+    for name, ms, _ in rows:
+        k = name.lower()
+        if "dense" in k:
+            split["dense_dp_ms"] += ms
+        elif "gemm" in k or "xmma" in k or "cutlass" in k:
+            split["gemm_ms"] += ms
+        elif "index" in k or "gather" in k:
+            split["gather_ms"] += ms
+        else:
+            split["other_ms"] += ms
+    busy = sum(split.values())
+    split["gemm_share"] = split["gemm_ms"] / busy if busy else 0.0
+    return split
+
+
+def phase_config4(ctx, qft, qft_info, card):
+    """4h: BASELINE config 4 at full width on 4f's session and contextual
+    store (500,000 sentences): MixedTokenSimilarity of the compressed
+    fastText 300d (``qft``) and the d = 256 contextual embedding, weights
+    0.5 / 0.5, under affine gaps and ExponentialGapCost(3.0).  Per gap
+    model: find_batch Q=32 (median of 3) and find p50 of 21, the launch
+    counts set to 0 right before and read right after (each dense entry
+    must have run), find = find_batch byte for byte, a torch.profiler split
+    of one find_batch's device time (leaf gather, GEMM, dense DP), each
+    dense entry held against its plain version on the tree pass's first
+    chunk (Q = 32 and 1); then one tagged contextual find_batch (the tree
+    pass with one leaf); then the card against the CPU on 4f's
+    3,000-sentence cut.  Returns the dense kernels' results at the tree
+    pass."""
+    import numpy as np
+
+    from vectorian_tpu_torch.alignment import ExponentialGapCost, LocalAlignment
+    from vectorian_tpu_torch.metrics import EmbeddingTokenSim, OptimizedSpanSim
+    from vectorian_tpu_torch.ops import dp_kernels
+    from vectorian_tpu_torch.sim.modifier import MixedTokenSimilarity
+
+    session, queries, finds = ctx["session"], ctx["queries"], ctx["finds"]
+
+    def tree_index(sess, gap):
+        c, q = sess.embeddings
+        mixed = MixedTokenSimilarity([EmbeddingTokenSim(q), EmbeddingTokenSim(c)], [0.5, 0.5])
+        return sess.partition("sentence").index(OptimizedSpanSim(
+            mixed, LocalAlignment() if gap is None else LocalAlignment(gap)))
+
+    res, kernels = {}, {}
+    for label, gap, kernel in (("affine", None, "affine_dp[dense]"),
+                               ("general", ExponentialGapCost(3.0), "wsb_dp[dense]")):
+        index = tree_index(session, gap)
+        index.find_batch(queries[:2], n=10, min_score=0.2)  # warm
+        # ---- the main path: launch counts from 0, read right after ----
+        dp_kernels.reset_launches()
+        walls, batch = [], None
+        for _ in range(3):
+            t = time.perf_counter()
+            batch = index.find_batch(queries, n=10, min_score=0.2)
+            walls.append((time.perf_counter() - t) * 1e3)
+        ts, found = [], []
+        for q in finds:
+            t = time.perf_counter()
+            found.append(pairs(index.find(q, n=10, min_score=0.2)))
+            ts.append((time.perf_counter() - t) * 1e3)
+        launches = dp_kernels.LAUNCHES[kernel]
+        # ---- end of the main path ----
+        if not launches:
+            raise AssertionError(f"4h {label}: {kernel} was not launched")
+        check_results(batch, 10, 0.2)
+        if not any(found) or [pairs(r) for r in index.find_batch(finds, n=10, min_score=0.2)] != found:
+            raise AssertionError(f"4h {label}: mixed-tree find and find_batch differ")
+        rows = profile_calls(f"config4 find_batch {label}",
+                             lambda: index.find_batch(queries, n=10, min_score=0.2))
+        split = _device_split(rows)
+        emit({"phase": "config4_split", "gap": label, **split})
+        kernels[kernel] = _tree_kernel_at_path(index, queries, kernel)
+        kernels[kernel]["launches"] = launches
+        n_slices = index.packed.n_slices
+        res[label] = {"find_batch_ms_median": float(np.median(walls)), "find_batch_ms": walls,
+                      "alignments_per_s": n_slices * len(queries) / (np.median(walls) / 1e3),
+                      "find_p50_ms": float(np.median(ts)), "launches": launches,
+                      "gemm_share": split["gemm_share"]}
+    # a contextual metric with tag weights: its batch takes the tree pass
+    index = make_index(session, None, **TAG_ARGS)
+    index.find_batch(queries[:2], n=10, min_score=0.2)  # warm
+    dp_kernels.reset_launches()
+    t = time.perf_counter()
+    tagged = index.find_batch(queries, n=10, min_score=0.2)
+    tagged_ms = (time.perf_counter() - t) * 1e3
+    tagged_launches = dp_kernels.LAUNCHES["affine_dp[dense]"]
+    check_results(tagged, 10, 0.2)
+    if not tagged_launches or [pairs(r) for r in tagged[:4]] != [
+            pairs(index.find(q, n=10, min_score=0.2)) for q in queries[:4]]:
+        raise AssertionError("4h: the tagged contextual find_batch is not find's")
+    emit({"phase": "config4", "sentences": CTX_SENTENCES, "slices": n_slices,
+          "static": {"bucket": FT_BUCKET, "dim": FT_DIM, **qft_info}, "ctx_dim": CTX_DIM,
+          "weights": [0.5, 0.5], **res, "tagged_ctx_find_batch_ms": tagged_ms,
+          "tagged_ctx_launches": tagged_launches, "card": card})
+
+    worst = {}
+    for label, gap in (("affine", None), ("general", ExponentialGapCost(3.0))):
+        got = {}
+        for dev, sess in ctx["cut"].items():
+            ix = tree_index(sess, gap)
+            got[dev] = ([pairs(ix.find(q, n=10, min_score=0.1)) for q in finds[:4]]
+                        + [pairs(r) for r in ix.find_batch(queries[:8], n=10, min_score=0.1)])
+        if not any(got[DEVICE]):
+            raise AssertionError(f"4h {label}: no matches on the cut")
+        worst[label] = compare_with_cpu(f"4h cut {label}", got[DEVICE], got["cpu"])
+    emit({"phase": "config4_vs_cpu", "sentences": 3_000, "max_abs_score_diff_vs_cpu": worst})
     return kernels
+
+
+def _transport_metrics():
+    from vectorian_tpu_torch.alignment import WordMoversDistance, WordRotatorsDistance
+
+    return (("rwmd", WordMoversDistance()), ("wmd", WordMoversDistance(relaxed=False)),
+            ("wrd", WordRotatorsDistance()))
+
+
+def _transport_index(session, metric):
+    from vectorian_tpu_torch.metrics import EmbeddingTokenSim, OptimizedSpanSim
+
+    return session.partition("sentence").index(
+        OptimizedSpanSim(EmbeddingTokenSim(session.embeddings[0]), metric))
+
+
+def phase_transport(session, finds, cut, card):
+    """4i: the transport metrics' find on phase 4's 1M-slice session:
+    WordMoversDistance() (relaxed, the default), WordMoversDistance(
+    relaxed=False) and WordRotatorsDistance(), find p50 of 21 each, with
+    the trace spans of the device ranking pass (``wmd.rank``: its enqueue)
+    and the host rescore (``wmd.host_rescore``: the fetch, the host
+    arithmetic and the exact solves), the candidates rescored a find (the
+    relaxed pool, or the exact EMD solves), and the ranking pass alone
+    timed on the card (CUDA events).  Then on the 3,000-sentence cut
+    (``cut``: sessions by device) the card against the CPU, and full WMD
+    and WRD against the exhaustive exact-EMD oracle (find(q, n=n_slices +
+    8, min_score=-1.0) solves every slice)."""
+    import numpy as np
+
+    from vectorian_tpu_torch.ops import wmd
+    from vectorian_tpu_torch.utils import trace
+
+    solved = {"n": 0}
+    orig = {name: getattr(wmd.WMDEngine, name)
+            for name in ("_host_rescore", "_relaxed_finalize")}
+
+    def counted(name):
+        def fn(self, index, query, qp, state, top, *a, **kw):
+            solved["n"] += len(top)
+            return orig[name](self, index, query, qp, state, top, *a, **kw)
+        return fn
+
+    out = {}
+    try:
+        for name in orig:
+            setattr(wmd.WMDEngine, name, counted(name))
+        for label, metric in _transport_metrics():
+            index = _transport_index(session, metric)
+            index.find(finds[0], n=10, min_score=0.2)  # warm
+            ts, rank_ms, host_ms, per_find, found = [], [], [], [], []
+            for q in finds:
+                solved["n"] = 0
+                trace.start()
+                t = time.perf_counter()
+                found.append(index.find(q, n=10, min_score=0.2))
+                ts.append((time.perf_counter() - t) * 1e3)
+                spans = trace.stop()
+                rank_ms.append(sum(s for k, s in spans if k == "wmd.rank") * 1e3)
+                host_ms.append(sum(s for k, s in spans if k == "wmd.host_rescore") * 1e3)
+                per_find.append(solved["n"])
+            check_results(found, 10, 0.2)
+            if not any(len(r) for r in found):
+                raise AssertionError(f"4i {label}: no matches")
+            pq = index.make_query(finds[1]).prepare(index._nlp)
+            qp = index._compile_plan(pq, (), needs_magnitudes=label == "wrd")
+            eng = wmd.WMDEngine(index._engine, index._args["alignment"])
+            rank_device_ms = cuda_ms(lambda: eng._score(index, pq, qp, device=True), 3)
+            out[label] = {"find_p50_ms": float(np.median(ts)),
+                          "rank_span_ms_p50": float(np.median(rank_ms)),
+                          "host_rescore_span_ms_p50": float(np.median(host_ms)),
+                          "rank_pass_device_ms": rank_device_ms,
+                          "rescored_per_find_median": float(np.median(per_find)),
+                          "rescored_per_find_max": int(max(per_find))}
+        emit({"phase": "transport", "slices": session.packed_corpus(
+            session.partition("sentence").spec).n_slices, "finds": len(finds), **out,
+            "card": card})
+
+        worst, oracle = {}, {}
+        for label, metric in _transport_metrics():
+            got = {dev: [pairs(_transport_index(sess, metric).find(q, n=10, min_score=0.2))
+                         for q in finds[:4]] for dev, sess in cut.items()}
+            if not any(got[DEVICE]):
+                raise AssertionError(f"4i {label}: no matches on the cut")
+            worst[label] = compare_with_cpu(f"4i cut {label}", got[DEVICE], got["cpu"])
+            if label == "rwmd":
+                continue
+            ix = _transport_index(cut[DEVICE], metric)
+            n_slices = ix.packed.n_slices
+            for q, g in zip(finds[:2], got[DEVICE]):
+                solved["n"] = 0
+                exhaustive = pairs(ix.find(q, n=n_slices + 8, min_score=-1.0))
+                if solved["n"] < n_slices:
+                    raise AssertionError(f"4i {label}: the oracle solved {solved['n']} slices")
+                want = [p for p in exhaustive if p[1] > 0.2][:10]
+                if g != want:
+                    raise AssertionError(f"4i {label}: find {g} != the exhaustive oracle {want}")
+            oracle[label] = "equal"
+        emit({"phase": "transport_vs_cpu", "sentences": 3_000,
+              "max_abs_score_diff_vs_cpu": worst, "exhaustive_oracle": oracle})
+    finally:
+        for name, fn in orig.items():
+            setattr(wmd.WMDEngine, name, fn)
+    return out
+
+
+def phase_span(session, queries, finds, cut, card):
+    """4j: span embeddings on phase 4's 1M slices: SentenceEmbedding of the
+    300d KeyedVectors ("mean") through EmbeddedSpanSim's exact index (the
+    corpus encode on the card, find p50 of 21, find_batch Q=32 median of 3)
+    and with approximate={"nlist": 64, "nprobe": 8} (the JAX package's
+    default: the k-means training, find p50, find_batch, recall@10 of the
+    32 queries against the exact index); then the exact index on the card
+    against the CPU on the 3,000-sentence cut."""
+    import numpy as np
+    import torch
+
+    import vectorian_tpu_torch as vt
+    from vectorian_tpu_torch.sim.span import EmbeddedSpanSim
+
+    def span_index(sess, **kw):
+        return sess.partition("sentence").index(
+            EmbeddedSpanSim(vt.SentenceEmbedding(sess.embeddings[0], "mean")), **kw)
+
+    def drive(index):
+        index.find(finds[0], n=10, min_score=0.2)  # warm
+        ts = []
+        for q in finds:
+            t = time.perf_counter()
+            index.find(q, n=10, min_score=0.2)
+            ts.append((time.perf_counter() - t) * 1e3)
+        walls, batch = [], None
+        for _ in range(3):
+            t = time.perf_counter()
+            batch = index.find_batch(queries, n=10, min_score=-1.0)
+            walls.append((time.perf_counter() - t) * 1e3)
+        check_results(batch, 10, -1.0)
+        return batch, {"find_p50_ms": float(np.median(ts)),
+                       "find_batch_ms_median": float(np.median(walls)), "find_batch_ms": walls}
+
+    exact = span_index(session)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    vecs = exact._corpus_vectors()
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t
+    if not bool(torch.isfinite(vecs.unmodified).all()):
+        raise AssertionError("4j: non-finite span vectors")
+    want, res_exact = drive(exact)
+    approx = span_index(session, approximate={"nlist": 64, "nprobe": 8})
+    approx._corpus_vecs = vecs  # the same encoder output: no second encode
+    t = time.perf_counter()
+    approx._train()
+    kmeans_s = time.perf_counter() - t
+    got, res_approx = drive(approx)
+    recall = [len({s for s, _ in pairs(g)} & {s for s, _ in pairs(w)}) / max(len(w), 1)
+              for g, w in zip(got, want)]
+    emit({"phase": "span", "slices": vecs.size, "dim": int(vecs.unmodified.shape[1]),
+          "encode_s": encode_s, "exact": res_exact,
+          "approximate": {"nlist": 64, "nprobe": 8, "kmeans_s": kmeans_s,
+                          "recall_at_10_mean": float(np.mean(recall)),
+                          "recall_at_10_min": float(np.min(recall)), **res_approx},
+          "card": card})
+    got_cut = {dev: [pairs(span_index(sess).find(q, n=10, min_score=0.2)) for q in finds[:4]]
+               for dev, sess in cut.items()}
+    if not any(got_cut[DEVICE]):
+        raise AssertionError("4j: no matches on the cut")
+    emit({"phase": "span_vs_cpu", "sentences": 3_000, "max_abs_score_diff_vs_cpu":
+          compare_with_cpu("4j cut", got_cut[DEVICE], got_cut["cpu"])})
+    return {"encode_s": encode_s, "kmeans_s": kmeans_s, **res_exact}
 
 
 def phase_small_reference(long_q):
@@ -2880,16 +3239,26 @@ def run_phases(card):
     log("long-query path done")
     phase_fasttext(session, ft, queries, finds, np.random.default_rng(SEED + 8), card, ft_info)
     log("fastText path done")
+    qft, qft_info = compress_fasttext(ft)
+    log(f"fastText compressed in {qft_info['compress_s']:.1f} s")
     phase_warmup(session, finds[0], card)
     phase_packed_cache(session, queries, card)
     log("warmup and packed cache done")
     phase_submatch_debug(session, queries, finds, card)
     log("submatch and debug done")
-    del session, ft
+    cut = {dev: build_session(corpus_cut(texts), words, vectors, dev) for dev in (DEVICE, "cpu")}
+    phase_transport(session, finds, cut, card)
+    log("transport path done")
+    phase_span(session, queries, finds, cut, card)
+    log("span path done")
+    del session, ft, cut
     rescore = phase_rescore(card)
     log("rescore path done")
-    dense = phase_contextual(card)
+    dense, ctx = phase_contextual(card, qft)
     log("contextual path done")
+    tree = phase_config4(ctx, qft, qft_info, card)
+    del ctx
+    log("config 4 path done")
     phase_small_reference(long_q)
 
     kernels = []
@@ -3002,7 +3371,7 @@ def run_phases(card):
             "card": card,
         })
     # the dense-block entries (K3): 4f's contextual pass, find_batch (Q=32)
-    # and find (Q=1)
+    # and find (Q=1); and 4h's tree pass (the "tree_" keys)
     for name, source, replaces in (
         ("affine_dp[dense]", "affine_dp.cu", "vectorian_tpu/ops/pallas_dp.py:369"),
         ("wsb_dp[dense]", "wsb_dp.cu", "vectorian_tpu/ops/pallas_dp.py:155"),
@@ -3011,14 +3380,19 @@ def run_phases(card):
         qb = max(q for q in res if q != "launches")
         (db, ms, plain_ms, bound, by, shape), (df, ms_f, plain_f, bound_f, _, shape_f) = (
             res[qb], res[1])
+        tr = tree[name]
+        (dt, ms_t, plain_t, bound_t, by_t, shape_t) = tr[qb]
         kernels.append({
             "name": name, "route": "cuda", "source": f"vectorian_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": res["launches"],
-            "max_abs_err": max(worst_dense[name]["worst"], db, df),
+            "max_abs_err": max(worst_dense[name]["worst"], db, df, dt, tr[1][0]),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": None, "ms_find": ms_f, "plain_ms_find": plain_f,
             "bound_ms_find": bound_f, "shapes_c_L_Tpad_Q": shape,
-            "shapes_c_L_Tpad_Q_find": shape_f, "card": card,
+            "shapes_c_L_Tpad_Q_find": shape_f, "tree_launches": tr["launches"],
+            "tree_ms": ms_t, "tree_plain_ms": plain_t, "tree_bound_ms": bound_t,
+            "tree_bound_by": by_t, "tree_ms_find": tr[1][1],
+            "tree_shapes_c_L_Tpad_Q": shape_t, "card": card,
         })
     name = "affine_dp_flat[wide]"
     res = rescore[name]

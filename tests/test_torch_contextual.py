@@ -34,7 +34,7 @@ from vectorian_tpu.sim.token import EmbeddingTokenSim as JaxTokenSim
 from vectorian_tpu_torch.alignment import ExponentialGapCost, LocalAlignment
 from vectorian_tpu_torch.convert import contextual_from_numpy
 from vectorian_tpu_torch.ops import dp_kernels
-from vectorian_tpu_torch.ops.simmatrix import eval_plan_chunk
+from vectorian_tpu_torch.ops.simmatrix import QueryPlan, eval_plan_chunk
 from vectorian_tpu_torch.sim.modifier import MaximumTokenSimilarity, MixedTokenSimilarity
 from vectorian_tpu_torch.sim.span import OptimizedSpanSim
 from vectorian_tpu_torch.sim.token import EmbeddingTokenSim
@@ -164,9 +164,10 @@ def test_plan_chunk_evaluation_matches_jax(both, tree):
 
 @pytest.mark.parametrize("general", [False, True])
 def test_batched_contextual_pass_matches_jax(both, general):
-    """score_all_multi_ctx: the [n_slices, Q] ranking scores of the batched
-    pass (one GEMM against the stacked needles, the dense DP kernels'
-    plain versions) against the JAX package's (1e-6)."""
+    """The [n_slices, Q] ranking scores of the batched contextual pass
+    (the port's tree pass over the one-leaf plan ("ctx", 0, metric): one
+    GEMM against the stacked needles, the dense DP kernels' plain
+    versions) against the JAX package's score_all_multi_ctx (1e-6)."""
     sj, st = both
     ij, it = _ctx_indexes(sj, st, general=general)
     qj = [ij.make_query(q).prepare(ij._nlp) for q in QUERIES]
@@ -187,9 +188,12 @@ def test_batched_contextual_pass_matches_jax(both, general):
     want = ij._engine.score_all_multi_ctx(
         "ctx", ij._args["metric"]["token_sim"].metric, ctx_j, lts, gaps_j, "local",
         [float(x) for x in lts], **args_j)
-    got = it._engine.score_all_multi_ctx(
-        "ctx", it._args["metric"]["token_sim"].metric, ctx_t, lts, it._gaps, "local",
-        [float(x) for x in lts], gap_costs=it._gap_costs)
+    metric_t = it._args["metric"]["token_sim"].metric
+    plans_t = [QueryPlan(plan=("ctx", 0, metric_t), ctx_names=["ctx"], ctx_queries=[c])
+               for c in ctx_t]
+    got = it._engine.score_all_multi_tree(
+        plans_t, lts, it._gaps, "local", [float(x) for x in lts],
+        gap_costs=it._gap_costs)
     assert got.shape == want.shape == (it._engine.n_slices, len(QUERIES))
     assert np.allclose(got, want, rtol=1e-6, atol=1e-6)
     # tensors on the CPU take the plain versions: no launch counted
@@ -275,15 +279,18 @@ def test_mixed_tree_find_matches_jax(both, tree, general):
 
 
 def test_find_batch_of_trees_and_tag_weights_is_item_5b(both):
+    """The two batches item 5b ported: a mixed static + contextual tree and
+    a contextual metric with tag weights, each against the JAX package's
+    batch and the port's find (byte for byte); debug makes find_batch run
+    find query by query."""
     sj, st = both
-    _, it = _ctx_indexes(sj, st, tree="mixed")
-    with pytest.raises(NotImplementedError, match="5b"):
-        it.find_batch(QUERIES[:2], n=3)
-    _, it = _ctx_indexes(sj, st, tag_weights={"NN": 1.0, "VB": 0.5})
-    with pytest.raises(NotImplementedError, match="5b"):
-        it.find_batch(QUERIES[:2], n=3)
-    # find serves both; debug makes find_batch run find query by query
-    assert _pairs(it.find(QUERIES[0], n=3, min_score=0.1))
+    for kw in ({"tree": "mixed"}, {"tag_weights": {"NN": 1.0, "VB": 0.5}}):
+        ij, it = _ctx_indexes(sj, st, **kw)
+        got = [_pairs(r) for r in it.find_batch(QUERIES[:2], n=3, min_score=0.1)]
+        assert got == [_pairs(it.find(q, n=3, min_score=0.1)) for q in QUERIES[:2]]
+        assert all(got)
+        for w, g in zip(ij.find_batch(QUERIES[:2], n=3, min_score=0.1), got):
+            _assert_same_ranking(_pairs(w), g, 0.1)
     got = it.find_batch(QUERIES[:2], n=3, min_score=0.1, debug=lambda *a: None)
     assert [_pairs(r) for r in got] == [
         _pairs(it.find(q, n=3, min_score=0.1)) for q in QUERIES[:2]]

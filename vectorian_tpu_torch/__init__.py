@@ -19,11 +19,15 @@ options tag weights, ``pos_filter`` / ``tag_filter`` / ``token_filter``,
 ``booster`` (``Saliency``) and ``bidirectional``, ``BruteForceIndex.warmup``
 and the on-disk packed-corpus cache, ``submatch_weight`` and ``debug``;
 contextual embeddings (``LambdaContextualEmbedding``,
-``TransformerContextualEmbedding``, their ``.pca(n)``) through ``find``
-(mixed static + contextual trees too) and ``find_batch`` (one contextual
-embedding), whose dense similarity blocks the same DP kernels read.  Every
-other public name of the reference package exists and raises
-NotImplementedError naming its ROADMAP.md port queue item.
+``TransformerContextualEmbedding``, their ``.pca(n)``) and mixed static +
+contextual modifier trees through ``find`` and ``find_batch``, whose dense
+similarity blocks the same DP kernels read; span embeddings
+(``SentenceEmbedding``, ``TextSpanEmbedding``, ``SpacySpanEmbedding``)
+through ``EmbeddedSpanSim``'s exact and approximate indexes; the transport
+metrics (``WordMoversDistance``, relaxed or full, and
+``WordRotatorsDistance``) through ``find``.  Every other public name of the
+reference package exists and raises NotImplementedError naming its
+ROADMAP.md port queue item.
 """
 
 import sys as _sys
@@ -70,6 +74,16 @@ from vectorian_tpu_torch.embedding.fasttext import (  # noqa: E402,F401
     CompressedFastTextVectors,
     PretrainedFastText,
 )
+from vectorian_tpu_torch.embedding.span import (  # noqa: E402,F401
+    AggregatedTokenEmbedding,
+    SentenceEmbedding,
+    TextSpanEmbedding,
+)
+from vectorian_tpu_torch.embedding.pipeline import (  # noqa: E402,F401
+    SpacySpanEmbedding,
+    decompose_nlp,
+    register_decomposer,
+)
 from vectorian_tpu_torch import alignment, metrics, saliency, sim  # noqa: E402,F401
 from vectorian_tpu_torch.index import _not_ported  # noqa: E402
 from vectorian_tpu_torch.saliency import KeywordSignal, Saliency  # noqa: E402,F401
@@ -102,9 +116,6 @@ class _Unported:
 # the unported public names, by ROADMAP.md port queue item
 UNPORTED = {
     "Corpus": "9", "TemporaryCorpus": "9", "LabSession": "9", "Zoo": "9",
-    "AggregatedTokenEmbedding": "5b", "SentenceEmbedding": "5b",
-    "TextSpanEmbedding": "5b", "SpacySpanEmbedding": "5b",
-    "decompose_nlp": "5b", "register_decomposer": "5b",
     "MeshSearch": "7", "make_mesh": "7",
     # the reference's submodules its __init__ binds by importing from them
     "parallel": "7",

@@ -15,9 +15,12 @@ score) lists are byte-identical.  The query options tag weights,
 ``pos_filter`` / ``tag_filter`` / ``token_filter``, ``booster``,
 ``bidirectional`` and ``submatch_weight`` ride that pass in both.
 ``debug``, contextual and mixed-tree plans take ``find``'s full-read paths
-(``score_topk`` / ``score_all`` and an exact rescore with flows), a
-contextual ``find_batch`` the batched contextual pass; both report the
-exact rescore's scores under a provable cut, so they too are byte-equal.
+(``score_topk`` / ``score_all`` and an exact rescore with flows), their
+``find_batch`` the batched contextual or tree pass; both report the exact
+rescore's scores under a provable cut, so they too are byte-equal.  The
+transport metrics' ``find`` runs ops/wmd (a ranking pass on the device,
+the reported scores on the host); span embeddings have indexes of their
+own (``SpanEncoderIndex``, ``ApproximateSpanIndex``).
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from vectorian_tpu_torch.ops.search import (
     DocFilterSpec,
     HostVecSource,
     TagWeightingSpec,
+    _host,
     batch_tracebacks,
     edge_sims_of,
     gap_vec,
@@ -52,7 +56,6 @@ from vectorian_tpu_torch.ops.simmatrix import (
     query_vectors,
 )
 from vectorian_tpu_torch.session import Result
-from vectorian_tpu_torch.sim.token import EmbeddingTokenSim
 from vectorian_tpu_torch.utils import trace
 from vectorian_tpu_torch.vocabulary import UPOS
 
@@ -63,8 +66,6 @@ def _not_ported(what: str, item: str):
         f"queue item {item})"
     )
 
-
-_TREE_ITEM = "5b: mixed trees, contextual tag weights and span embeddings"
 
 # per-query options find_batch serves through find, query by query (the JAX
 # package's BATCH_HARD_OPTIONS): debug's payloads are per-query host
@@ -791,13 +792,15 @@ class BruteForceIndex(Index):
         args = span_sim.to_args(self)
         self._args = args
         alignment = args["alignment"]
-        if alignment["algorithm"] != "alignment":
-            raise _not_ported(
-                f"the {alignment['algorithm']!r} metric", "6: transport metrics"
-            )
+        # "alignment", or a transport metric ("word-movers-distance",
+        # "word-rotators-distance": ops/wmd's WMDEngine)
+        self._algorithm = alignment["algorithm"]
         self._locality = alignment.get("locality", "local")
         self._gap_s = alignment.get("gap_s")
         self._gap_t = alignment.get("gap_t")
+        if self._algorithm != "alignment":
+            self._gap_costs, self._gaps = None, None
+            return
         gaps = self._affine_gaps()
         if gaps is None:
             # non-affine gap model: the general-gap WSB DP takes per-length
@@ -823,6 +826,8 @@ class BruteForceIndex(Index):
         return self._span_sim
 
     def gap_costs(self):
+        if self._gap_s is None:
+            return None
         return {"s": self._gap_s, "t": self._gap_t}
 
     def warmup(self, max_tokens: int = 12, n: int = 10) -> "BruteForceIndex":
@@ -854,10 +859,12 @@ class BruteForceIndex(Index):
             self.find(" ".join(words), n=n, min_score=-1e30)
         return self
 
-    def _compile_plan(self, pq: PreparedQuery, ctx_names=()):
+    def _compile_plan(self, pq: PreparedQuery, ctx_names=(),
+                      needs_magnitudes: bool = False):
         """The query's plan at its padded needle width (``qp.width``), the
         contextual leaves of ``ctx_names`` with the needle's vectors (their
-        device stores packed at first use)."""
+        device stores packed at first use); ``needs_magnitudes`` as in
+        ``compile_plan``."""
         tok_ids_p, strings_p, ctx_q, _ = _pad_needle(pq, self._session, ctx_names)
         qp = compile_plan(
             self._args["metric"]["token_sim"],
@@ -866,6 +873,7 @@ class BruteForceIndex(Index):
             strings_p,
             ctx_q,
             device=self._session.device,
+            needs_magnitudes=needs_magnitudes,
         )
         for name in qp.ctx_names:
             self._engine.ensure_contextual(
@@ -944,6 +952,8 @@ class BruteForceIndex(Index):
         bidirectional = bool(opts.get("bidirectional"))
         if query.n_tokens == 0:
             return []
+        if self._algorithm != "alignment":
+            return self._find_transport(query)
         token_sim = self._args["metric"]["token_sim"]
         T = query.n_tokens
         engine = self._engine
@@ -1294,20 +1304,22 @@ class BruteForceIndex(Index):
         4n + 32 overfetch.  ``debug`` runs ``find`` query by query (its
         payloads are per-query diagnostics).
 
-        A single contextual embedding's batch runs the contextual pass
-        (``_find_batch_ctx``); mixed static + contextual trees and
-        contextual batches with tag weights are item 5b."""
+        A batch of plans with a contextual leaf (one contextual
+        embedding, or a mixed static + contextual tree, with or without
+        tag weights) runs the tree pass, ``_find_batch_dense`` (every leaf
+        of the stacked plans a chunk, then each query's tag rewrite).  A
+        transport metric's batch is item 6b."""
         if mesh is not None:
             raise _not_ported("find_batch(mesh=...)", "7: multi-device serving")
+        if self._algorithm != "alignment":
+            raise _not_ported(f"find_batch of the {self._algorithm!r} metric",
+                              "6b: the transport find_batch")
         token_sim = self._args["metric"]["token_sim"]
         if not all(getattr(e, "is_static", True) for e in token_sim.embeddings):
-            if (isinstance(token_sim, EmbeddingTokenSim)
-                    and not self._args.get("tag_weights")):
-                return self._find_batch_ctx(texts, n, min_score, **kwargs)
-            if not BATCH_HARD_OPTIONS & set(kwargs):
-                raise _not_ported(
-                    "find_batch of a mixed static + contextual tree or of a "
-                    "contextual metric with tag weights", _TREE_ITEM)
+            if BATCH_HARD_OPTIONS & set(kwargs):
+                return [self.find(t, n=n, min_score=min_score, **kwargs)
+                        for t in texts]
+            return self._find_batch_dense(texts, n, min_score, **kwargs)
         if BATCH_HARD_OPTIONS & set(kwargs):
             return [self.find(t, n=n, min_score=min_score, **kwargs) for t in texts]
         submatch_w = float(kwargs.get("submatch_weight") or 0.0)
@@ -1785,25 +1797,27 @@ class BruteForceIndex(Index):
             )[:n]
         return [m["matches"] for m in meta]
 
-    def _find_batch_ctx(self, texts, n: int = 100, min_score: float = 0.2,
-                        **kwargs) -> List[Result]:
-        """Batched search over ONE contextual embedding: per chunk of slices
-        one metric GEMM against the Q stacked needles
-        (``BruteForceEngine.score_all_multi_ctx``), the dense DP kernels on
-        its block, then the host finalizer under the contextual membership
-        floor (the batch's GEMM and the finalizer's exact rescore reduce in
+    def _find_batch_dense(self, texts, n: int, min_score: float,
+                          **kwargs) -> List[Result]:
+        """Batched search over contextual plans (one contextual embedding
+        or a mixed tree, tagged or not): per chunk of slices the stacked
+        plans' leaves (a contextual leaf is one metric GEMM against the Q
+        stacked needles) and each query's tag rewrite
+        (``BruteForceEngine.score_all_multi_tree``, the JAX package's
+        ``_find_batch_tree`` and ``_find_batch_ctx``).  The dense DP
+        kernels score the block; the
+        host finalizer reports the exact rescore under the contextual
+        membership floor (the batch's GEMM and the rescore's reduce in
         other orders).  Boosters, document-side filters,
         ``submatch_weight`` and ``bidirectional`` ride the batch as in the
-        static one; ``debug`` runs ``find`` query by query."""
-        if BATCH_HARD_OPTIONS & set(kwargs):
-            return [self.find(t, n=n, min_score=min_score, **kwargs) for t in texts]
+        static one."""
         submatch_w = float(kwargs.get("submatch_weight") or 0.0)
         bidirectional = bool(kwargs.get("bidirectional"))
         booster = kwargs.get("booster")
         token_sim = self._args["metric"]["token_sim"]
-        name = token_sim.embedding.name
+        ctx_names = _metric_ctx_names(token_sim)
         start_time = time.time()
-        prepared, plans, len_ts, norm_totals, ctx_qs = [], [], [], [], []
+        prepared, plans, len_ts, norm_totals, tagws = [], [], [], [], []
         order, results = [], [None] * len(texts)
         with trace.span("batch.prepare"):
             for ti, text in enumerate(texts):
@@ -1816,11 +1830,13 @@ class BruteForceIndex(Index):
                 prepared.append(pq)
                 # the padded needle, like find(): the plan's width is the
                 # rescore's GEMM shape
-                qp = self._compile_plan(pq, {name})
+                qp = self._compile_plan(pq, ctx_names)
                 plans.append(qp)
-                ctx_qs.append(qp.ctx_queries[0])
+                tagw = self._tag_weighting(pq, qp.width)
+                tagws.append(tagw)
                 len_ts.append(max(pq.n_tokens, 1))
-                norm_totals.append(float(max(pq.n_tokens, 1)))
+                norm_totals.append(tagw.total if tagw is not None
+                                   else float(max(pq.n_tokens, 1)))
         if not prepared:
             return [r if r is not None else Result(self, [], 0.0) for r in results]
         boosts = None
@@ -1832,22 +1848,22 @@ class BruteForceIndex(Index):
         if bidirectional:
             plans = plans + [_reverse_plan(qp, max(pq.n_tokens, 1))
                              for qp, pq in zip(plans, prepared)]
-            ctx_qs = ctx_qs + [_reverse_ctx_query(d, max(pq.n_tokens, 1))
-                               for d, pq in zip(ctx_qs, prepared)]
+            tagws = tagws + [_reverse_tagw(tw, max(pq.n_tokens, 1))
+                             for tw, pq in zip(tagws, prepared)]
             prepared = prepared + prepared
             len_ts = len_ts + len_ts
             norm_totals = norm_totals + norm_totals
             if boosts is not None:
                 boosts = boosts + boosts
         with trace.span("batch.topk"):
-            scores = self._engine.score_all_multi_ctx(
-                name, token_sim.metric, ctx_qs, len_ts, self._gaps,
-                self._locality, norm_totals, gap_costs=self._gap_costs,
-                doc_filter=doc_filter,
+            scores = self._engine.score_all_multi_tree(
+                plans, len_ts, self._gaps, self._locality, norm_totals,
+                gap_costs=self._gap_costs, doc_filter=doc_filter,
+                tag_weights=tagws if any(t is not None for t in tagws) else None,
             )  # [n_slices, Q]
         items = [
             (_boosted_col(scores[:, qi], None if boosts is None else boosts[qi]),
-             plans[qi], pq, norm_totals[qi], None,
+             plans[qi], pq, norm_totals[qi], tagws[qi],
              None if boosts is None else boosts[qi])
             for qi, pq in enumerate(prepared)
         ]
@@ -1867,6 +1883,20 @@ class BruteForceIndex(Index):
             results[order[qi]] = Result(self, per_q[qi], elapsed)
         return [r if r is not None else Result(self, [], 0.0) for r in results]
 
+    def _find_transport(self, query: PreparedQuery) -> List[Match]:
+        """A transport metric's find (the JAX package's
+        ``_find_transport``): the needle padded like an alignment's (the
+        transport passes mask its zero-mass columns), its plan (with the
+        vocabulary's magnitudes for the Word Rotator's Distance), then
+        ``ops/wmd.WMDEngine.find``."""
+        from vectorian_tpu_torch.ops.wmd import WMDEngine
+
+        token_sim = self._args["metric"]["token_sim"]
+        qp = self._compile_plan(
+            query, _metric_ctx_names(token_sim),
+            needs_magnitudes=self._algorithm == "word-rotators-distance")
+        return WMDEngine(self._engine, self._args["alignment"]).find(self, query, qp)
+
     def _flows_from_payload(self, H, Sw, Su, ln: int, len_t: int, gaps):
         """(mapping, edge_sims) from a fused-fetch flow payload — shares
         rescore_many's unpack helpers (batch_tracebacks/edge_sims_of), so
@@ -1884,3 +1914,204 @@ class BruteForceIndex(Index):
             w_s=w_s, w_t=w_t,
         )
         return np.asarray(mapping, np.int32), edge_sims_of(mapping, Su, len_t)
+
+
+class SpanEncoderIndex(Index):
+    """Span-embedding search: encode all slices once, then a query = one
+    metric GEMM + top-k (reference SpanEncoderIndex index.py:679-730; also
+    subsumes FaissCosineIndex :733-767).  The [n_slices, d] span matrix
+    lives on the session's device (``embedding/span.SpanVectors``)."""
+
+    def __init__(self, partition, span_sim, nlp=None, **kwargs):
+        super().__init__(partition, nlp=nlp)
+        self._span_sim = span_sim
+        self._encoder = span_sim.embedding.create_encoder(self._session)
+        self._corpus_vecs = None
+
+    def _corpus_vectors(self):
+        if self._corpus_vecs is None:
+            with trace.span("span.encode_corpus"):
+                self._corpus_vecs = self._encoder.encode_corpus(
+                    self._session, self._partition)
+        return self._corpus_vecs
+
+    def _provenance(self):
+        return (
+            str(self._session._corpus_digest()),
+            [self._partition.level, str(self._partition.window_size),
+             str(self._partition.window_step)],
+            str(getattr(self._encoder, "name", "")),
+        )
+
+    def save(self, path):
+        """Persist the encoded corpus vectors WITH provenance metadata
+        (reference SpanEncoderIndex.save npy dump, index.py:638-658; ``load``
+        validates the dump against the live corpus, so a stale or foreign
+        file is never searched)."""
+        digest, partition, encoder = self._provenance()
+        np.savez(path, vectors=self._corpus_vectors().numpy(),
+                 corpus_digest=np.asarray(digest),
+                 partition=np.asarray(partition), encoder=np.asarray(encoder))
+
+    def load(self, path):
+        from vectorian_tpu_torch.embedding.span import SpanVectors
+
+        data = np.load(path, allow_pickle=False)
+        if hasattr(data, "files"):  # .npz with provenance
+            want = self._provenance()
+            got = (
+                str(data["corpus_digest"]),
+                [str(x) for x in data["partition"]],
+                str(data["encoder"]),
+            )
+            if got != want:
+                raise ValueError(
+                    f"span-index dump {path} does not match this index: "
+                    f"saved {got}, live {want}"
+                )
+            vecs = data["vectors"]
+        else:  # legacy raw .npy array
+            vecs = data
+        if vecs.shape[0] != self.packed.n_slices:
+            raise ValueError(
+                f"span-index dump has {vecs.shape[0]} rows, corpus has "
+                f"{self.packed.n_slices} slices"
+            )
+        self._corpus_vecs = SpanVectors(torch.as_tensor(
+            np.asarray(vecs, np.float32), device=self._session.device))
+        return self
+
+    def _find(self, query: PreparedQuery) -> List[Match]:
+        opts = query.options
+        n = int(opts.get("max_matches", 100))
+        min_score = float(opts.get("min_score", 0.2))
+        qv = self._encoder.encode_text(query.text)  # Vectors [1, d]
+        return self._topk_from_query_vectors(qv, [query], n, min_score)[0]
+
+    def _matches(self, query, ids, col, n: int, min_score: float) -> List[Match]:
+        """Matches of candidate ``ids`` with scores ``col`` in the
+        reference's order (score desc, doc, slice), cut strictly above
+        ``min_score`` and to ``n``."""
+        out = []
+        for j in order_by_score(self.packed, ids, col):
+            score = float(col[j])
+            if score <= min_score:  # strict, like the reference
+                continue
+            out.append(Match(self, query, slice_id=int(ids[j]), score=score,
+                             metric=self._span_sim.vector_sim.name, level="span"))
+        return out[:n]
+
+    def _topk_from_query_vectors(self, qv, queries, n, min_score):
+        """One [S, Q] metric GEMM on the device, then per query the pool of
+        every slice scoring >= its k-th largest value (boundary ties
+        resolve by the reference's (doc, slice) order, as
+        ``BruteForceEngine.top_k``); only the pool reaches the host."""
+        sims = self._span_sim.vector_sim.compute(self._corpus_vectors(), qv)  # [S, Q]
+        k = min(n, int(sims.shape[0]))
+        if k <= 0:
+            return [[] for _ in queries]
+        thr = torch.topk(sims, k, dim=0).values[k - 1]  # [Q]
+        rows, cols = torch.nonzero(sims >= thr[None, :], as_tuple=True)
+        rows_h, cols_h, vals_h = (_host(t) for t in (rows, cols, sims[rows, cols]))
+        out_all = []
+        for qi, query in enumerate(queries):
+            sel = cols_h == qi
+            out_all.append(self._matches(query, rows_h[sel], vals_h[sel], n, min_score))
+        return out_all
+
+    def find_batch(
+        self, texts: List[str], n: int = 100, min_score: float = 0.2, **kwargs
+    ) -> List[Result]:
+        """Batched span-encoder search: Q query spans encode and score in
+        ONE corpus GEMM (the span-level analogue of the brute-force
+        multi-query batching)."""
+        from vectorian_tpu_torch.embedding.vectors import Vectors
+
+        start_time = time.time()
+        prepared, qvs = [], []
+        for text in texts:
+            q = self.make_query(text, n=n, min_score=min_score, **kwargs)
+            prepared.append(q.prepare(self._nlp))
+            qvs.append(self._encoder.encode_text(text))
+        stacked = Vectors(
+            np.concatenate([np.asarray(v.unmodified) for v in qvs], axis=0)
+        )
+        matches = self._topk_from_query_vectors(stacked, prepared, n, min_score)
+        return [Result(self, ms, time.time() - start_time) for ms in matches]
+
+
+class ApproximateSpanIndex(SpanEncoderIndex):
+    """IVF-style sub-linear span search (the reference's Faiss factory
+    option, index.py:753-765, rebuilt without faiss): k-means coarse
+    centroids over the normalized span vectors; a query scores the
+    ``nlist`` centroids, takes the ``nprobe`` nearest lists, and exactly
+    rescores ONLY their members with the configured vector metric.
+
+    APPROXIMATE by construction — a true neighbor assigned to an unprobed
+    list is missed (recall rises with nprobe; nprobe=nlist degenerates to
+    exact).  The spherical k-means is the JAX package's (its initial
+    centroids drawn by ``default_rng(0)``, 10 iterations), run on the
+    device; each centroid the normalized sum of its members."""
+
+    def __init__(
+        self, partition, span_sim, nlp=None, nlist: int = 64,
+        nprobe: int = 8, **kwargs,
+    ):
+        super().__init__(partition, span_sim, nlp=nlp, **kwargs)
+        self._nlist = int(nlist)
+        self._nprobe = int(nprobe)
+        self._centroids = None  # [nlist, d] L2-normalized, host
+        self._invlists = None  # list of np.ndarray slice ids
+
+    def _train(self):
+        if self._centroids is not None:
+            return
+        with trace.span("span.kmeans"):
+            vecs = self._corpus_vectors().normalized  # [S, d] on the device
+            S = int(vecs.shape[0])
+            nlist = max(1, min(self._nlist, S))
+            rng = np.random.default_rng(0)
+            init = torch.as_tensor(rng.choice(S, size=nlist, replace=False),
+                                   device=vecs.device)
+            cent = vecs[init].clone()
+            for _ in range(10):  # spherical k-means (cosine coarse quantizer)
+                assign = torch.argmax(vecs @ cent.T, dim=1)
+                onehot = torch.nn.functional.one_hot(assign, nlist).to(vecs.dtype)
+                sums = onehot.T @ vecs  # [nlist, d], a GEMM: deterministic
+                counts = onehot.sum(0)
+                norms = torch.clamp_min(torch.linalg.vector_norm(sums, dim=1), 1e-9)
+                cent = torch.where(counts[:, None] > 0, sums / norms[:, None], cent)
+            assign = _host(torch.argmax(vecs @ cent.T, dim=1))
+            self._centroids = _host(cent)
+            self._invlists = [np.flatnonzero(assign == c).astype(np.int64)
+                              for c in range(nlist)]
+
+    def _shortlist(self, q_normed: np.ndarray) -> np.ndarray:
+        self._train()
+        nprobe = max(1, min(self._nprobe, len(self._invlists)))
+        sims = self._centroids @ q_normed
+        probes = np.argpartition(-sims, nprobe - 1)[:nprobe]
+        lists = [self._invlists[int(c)] for c in probes]
+        return np.concatenate(lists) if lists else np.zeros((0,), np.int64)
+
+    def _topk_from_query_vectors(self, qv, queries, n, min_score):
+        from vectorian_tpu_torch.embedding.span import SpanVectors
+        from vectorian_tpu_torch.embedding.vectors import Vectors
+
+        corpus = self._corpus_vectors().unmodified
+        q_norm = np.asarray(qv.normalized, np.float32)
+        q_unmod = np.asarray(qv.unmodified)
+        out_all = []
+        for qi, query in enumerate(queries):
+            cand = self._shortlist(q_norm[qi])
+            if cand.size == 0:
+                out_all.append([])
+                continue
+            sub = SpanVectors(corpus[torch.as_tensor(cand, device=corpus.device)])
+            col = _host(self._span_sim.vector_sim.compute(
+                sub, Vectors(q_unmod[qi : qi + 1])))[:, 0]
+            k = min(n, col.shape[0])
+            thr = -np.partition(-col, k - 1)[k - 1]
+            keep = np.flatnonzero(col >= thr)
+            out_all.append(self._matches(query, cand[keep], col[keep], n, min_score))
+        return out_all

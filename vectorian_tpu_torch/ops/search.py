@@ -72,8 +72,8 @@ from vectorian_tpu_torch.ops.dp_kernels import (
     wsb_dp_scores_rows,
 )
 from vectorian_tpu_torch.ops.simmatrix import (
+    QueryPlan,
     _ChunkVectors,
-    ctx_similarity,
     eval_plan_chunk,
 )
 from vectorian_tpu_torch.utils import trace
@@ -119,6 +119,53 @@ def stack_ctx_queries(ctx_queries, len_ts, device):
 
     return (_ChunkVectors(stack("unmodified"), stack("normalized"),
                           stack("magnitudes")), Tpad)
+
+
+def stack_tree_plans(plans, len_ts, device):
+    """Stack Q plans of one modifier tree (static and contextual leaves)
+    into one plan over a Q-minor needle axis (the JAX package's
+    ``stack_tree_plans``): each static leaf a [V, Tpad * Q] table (column t
+    * Q + q, copies of each plan's columns, zero past its width), each
+    contextual leaf the [Tpad * Q, d] rows of ``stack_ctx_queries``.  Every
+    node of ``eval_plan_chunk`` is elementwise over the needle axis, so the
+    stacked plan evaluates all Q needles of a chunk at once; its [c, L,
+    Tpad * Q] block is the [c, L, Tpad, Q] block the dense DP reads.
+    Returns (the stacked QueryPlan, Tpad)."""
+    p0 = plans[0]
+    if any(qp.plan != p0.plan for qp in plans):
+        raise ValueError("stack_tree_plans: the plans' trees differ")
+    Q = len(plans)
+    Tpad = -(-max(len_ts) // 8) * 8
+    statics = []
+    for k in range(len(p0.static_sims)):
+        V = int(p0.static_sims[k].shape[0])
+        out = torch.zeros((V, Tpad, Q), dtype=torch.float32, device=device)
+        for q, qp in enumerate(plans):
+            m = qp.static_sims[k]
+            out[:, : m.shape[1], q] = m
+        statics.append(out.reshape(V, Tpad * Q))
+    ctxs = []
+    for k in range(len(p0.ctx_names)):
+        qv, tp = stack_ctx_queries([qp.ctx_queries[k] for qp in plans], len_ts, device)
+        if tp != Tpad:
+            raise ValueError("stack_tree_plans: contextual width differs")
+        ctxs.append(qv)
+    stacked = QueryPlan(plan=p0.plan, static_sims=statics,
+                        ctx_names=list(p0.ctx_names), ctx_vectors=ctxs,
+                        mixed_weights=list(p0.mixed_weights))
+    return stacked, Tpad
+
+
+def tag_weighted_multi(S, pos, w, p, pen, thr):
+    """The tag-weight rewrite of a multi-query block S [c, L, T, Q] with
+    its rows' pos ids [c, L] and per query w, p [T, Q], pen, thr [Q] (the
+    JAX package's ``_bucket_scores_multiquery_tree`` arithmetic in its
+    order: w first, then S * w, then the threshold; a query without tag
+    weights has w 1, penalty 0 and threshold -1, the identity)."""
+    sel = torch.where(pos[:, :, None, None] == p[None, None], 1.0,
+                      1.0 - pen[None, None, None, :])
+    Sw = S * (w[None, None] * sel)
+    return torch.where(Sw > thr[None, None, None, :], Sw, 0.0)
 
 
 def reference_score(total: float, matched: float, submatch_weight: float) -> float:
@@ -632,17 +679,23 @@ class BucketTopKSource:
     # usually small; beyond it the whole column is read
     ABOVE_CAP = 8192
 
-    def __init__(self, engine, pending, Q: int, k: int, exact_ctx):
+    def __init__(self, engine, pending, Q: int, k: int, exact_ctx=None):
         """``exact_ctx``: {table, V, Tmax, lt_q, gaps, general, locality,
         tw} — the top-k step also computes each selected row's exact f32 raw
         DP score (``general``: the GeneralGaps of a non-affine model, else
-        None; ``tw``: the slots' tag arrays, else None).  ``pending``: (the
-        bucket as its corpus pass read it, its [n, Q] scores)."""
+        None; ``tw``: the slots' tag arrays, else None); None (the
+        transport metrics, which rescore on the host) fetches the device
+        values alone.  ``pending``: (the bucket as its corpus pass read it,
+        its [n, Q] scores)."""
         self._engine = engine
         self._pending = pending
         self.Q = Q
         self.k = k
         self.exact_ctx = ec = exact_ctx
+        self._col_cache = {}
+        if ec is None:
+            self._init_values(pending, k)
+            return
         refs = []
         metas = []
         pay_budget = self.PAYLOAD_MAX_BYTES  # WHOLE-FETCH budget
@@ -702,7 +755,103 @@ class BucketTopKSource:
                 if blocks == 1:
                     m["Su"] = m["S"]
             self._buckets.append(m)
-        self._col_cache = {}
+
+    def _init_values(self, pending, k: int):
+        """The per-bucket fetch without an exact rescore: the [Q, k + 1]
+        best device values and their ids of a bucket (its (k+1)-th value
+        bounds the rest), or the whole bucket where it holds at most k."""
+        refs, metas = [], []
+        for db, scores in pending:
+            n = db["n"]
+            kk = min(k, n)
+            if kk < n:
+                vals, idx = torch.topk(scores[:n].T, kk + 1, dim=1)
+                metas.append({"db": db, "kk": kk, "full": False})
+                refs.extend((vals, idx))
+            else:
+                metas.append({"db": db, "kk": kk, "full": True})
+                refs.append(scores[:n].T)
+        with trace.span("topk.fetch"):
+            fetched = [_host(r) for r in refs]
+        self._buckets = []
+        pos = 0
+        for m in metas:
+            db = m["db"]
+            if m["full"]:
+                m["vals"] = fetched[pos]
+                m["sids"] = np.broadcast_to(db["slice_index"][None, :], m["vals"].shape)
+                m["bound"] = np.full((self.Q,), -np.inf, np.float32)
+                pos += 1
+            else:
+                vals, idx = fetched[pos], fetched[pos + 1]
+                pos += 2
+                m["vals"] = vals[:, : m["kk"]]
+                m["sids"] = db["slice_index"][idx[:, : m["kk"]]]
+                m["bound"] = vals[:, m["kk"]].astype(np.float32)
+            self._buckets.append(m)
+
+    def score_map(self, qi: int, thresh: float):
+        """({sid: device score} over the fetched entries >= ``thresh``, an
+        upper bound on every unfetched score) of query ``qi``."""
+        smap = {}
+        bound = float("-inf")
+        for b in self._buckets:
+            vq = b["vals"][qi]
+            keep = vq >= thresh
+            for sid, sc in zip(b["sids"][qi][keep], vq[keep]):
+                smap[int(sid)] = float(sc)
+            bound = max(bound, float(b["bound"][qi]))
+        return smap, bound
+
+    def top_k_exactly_many(self, qis, k: int, min_score: float,
+                           slack: float = 0.0, pool: bool = False):
+        """[(top ids, {sid: device score})] per query with
+        ``BruteForceEngine.top_k``'s tie-complete semantics over the
+        device score matrices: the pool is every slice scoring >= the k-th
+        largest value less ``slack`` (and >= ``min_score``).  A pool the
+        per-bucket fetch may have truncated is completed by ONE select
+        round (``above_vals_many``) for all such queries; fetching
+        everything >= the provisional cut can only raise the k-th value,
+        so the completed pool covers every slice >= the true cut.
+        ``pool=True`` returns (the whole ordered pool, smap, an inclusive
+        upper bound on every slice outside smap) instead."""
+        smaps, cuts, bounds, unsafe = {}, {}, {}, []
+        for qi in qis:
+            smap, bound = self.score_map(qi, min_score)
+            smaps[qi] = smap
+            bounds[qi] = bound
+            if smap:
+                vals = np.fromiter(smap.values(), np.float32, len(smap))
+                thr = (float(-np.partition(-vals, k - 1)[k - 1]) - slack
+                       if len(vals) >= k else min_score)
+                cuts[qi] = max(thr, min_score)
+            else:
+                cuts[qi] = min_score
+            if bound >= cuts[qi]:
+                unsafe.append(qi)
+        # unfetched <= rest: the completion below fetches everything >= cut
+        rests = {qi: min(bounds[qi], cuts[qi]) for qi in qis}
+        if unsafe:
+            found = self.above_vals_many(
+                [(self.qview(qi), cuts[qi], set(smaps[qi])) for qi in unsafe])
+            for qi, (_ids, vmap) in zip(unsafe, found):
+                smaps[qi].update(vmap)
+                vals = np.fromiter(smaps[qi].values(), np.float32, len(smaps[qi]))
+                if len(vals) >= k:
+                    cuts[qi] = max(float(-np.partition(-vals, k - 1)[k - 1]) - slack,
+                                   min_score)
+        out = []
+        for qi in qis:
+            smap, cut = smaps[qi], cuts[qi]
+            cand = np.asarray([sid for sid, sc in smap.items() if sc >= cut], np.int64)
+            if cand.size == 0:
+                out.append(([], smap, rests[qi]) if pool else ([], smap))
+                continue
+            cvals = np.asarray([smap[int(c)] for c in cand], np.float32)
+            order = order_by_score(self._engine.packed, cand, cvals)
+            ids = [int(c) for c in cand[order]]
+            out.append((ids, smap, rests[qi]) if pool else (ids[:k], smap))
+        return out
 
     def flows_payload(self, qi: int, sid: int):
         """(H [S1, T1], S [L, Tmax] as the DP read it, Su [L, Tmax]
@@ -775,14 +924,25 @@ class BucketTopKSource:
     def above_many(self, reqs):
         """The ids of ``above_exact_many`` alone (the submatch finalizer
         rescores them with flows)."""
-        return [ids for ids, _ in self.above_exact_many(reqs)]
+        found = (self.above_exact_many(reqs) if self.exact_ctx is not None
+                 else self.above_vals_many(reqs))
+        return [ids for ids, _ in found]
 
-    def _select_bucket(self, bi: int, cols: dict, sel: dict, raws: dict):
+    def above_vals_many(self, reqs):
+        """Like ``above_exact_many``, with {sid: device score} for every id
+        (the map is complete: a column read whole has the values too) — for
+        callers that rank on the device values (the transport metrics)."""
+        with trace.span("above.vals"):
+            return self._above_select(reqs, "vals")
+
+    def _select_bucket(self, bi: int, cols: dict, sel: dict, raws: dict,
+                       mode: str = "exact"):
         """The round's selects of bucket ``bi`` ({qi: f32 threshold}): per
         column the rows with score >= its threshold (ascending) and their
-        exact raw scores, all columns in ONE row-gather launch; a column
-        past ABOVE_CAP rows is read whole instead.  Two waits for the
-        device: the counts, then the results."""
+        exact raw scores (``mode`` "exact", all columns in ONE row-gather
+        launch) or their device scores ("vals"); a column past ABOVE_CAP
+        rows is read whole instead.  Two waits for the device: the counts,
+        then the results."""
         ec = self.exact_ctx
         db, scores = self._pending[bi]
         n = db["n"]
@@ -807,11 +967,14 @@ class BucketTopKSource:
             # is the fetched count, so nonzero_static does not wait for one
             nz = torch.nonzero_static(mask, size=total)
             rows, qidx = nz[:, 1], q_t[nz[:, 0]]
-            raw = _rows_scores(
-                db["tokens"], rows, qidx, ec["table"], ec["V"],
-                db["lengths"][rows], ec["lt_q"][qidx], ec["gaps"],
-                ec["locality"], ec["general"], db.get("pos"), ec["tw"],
-            )
+            if mode == "vals":
+                raw = scores[rows, qidx]
+            else:
+                raw = _rows_scores(
+                    db["tokens"], rows, qidx, ec["table"], ec["V"],
+                    db["lengths"][rows], ec["lt_q"][qidx], ec["gaps"],
+                    ec["locality"], ec["general"], db.get("pos"), ec["tw"],
+                )
             rows_h, raw_h = _host(rows), _host(raw)
         ends = np.cumsum(counts[keep])
         for c, end in zip(keep, ends):
@@ -820,6 +983,9 @@ class BucketTopKSource:
             raws[(bi, qis[c])] = raw_h[end - cnt : end]
 
     def _above_exact_many(self, reqs):
+        return self._above_select(reqs, "exact")
+
+    def _above_select(self, reqs, mode: str):
         # the (bucket, query) columns this round selects, with the first
         # request's threshold of each query
         want: Dict[int, dict] = {}
@@ -838,7 +1004,7 @@ class BucketTopKSource:
         sel, raws = {}, {}
         for bi, cols in want.items():
             if cols:
-                self._select_bucket(bi, cols, sel, raws)
+                self._select_bucket(bi, cols, sel, raws, mode)
         out = []
         for view, thresh, excl in reqs:
             qi = view.qi
@@ -854,11 +1020,14 @@ class BucketTopKSource:
                         hit_raws = raws[(bi, qi)]
                     else:
                         col = self._column(bi, qi)
-                        hit = db["slice_index"][np.flatnonzero(col >= thresh)]
+                        pos_hit = np.flatnonzero(col >= thresh)
+                        hit = db["slice_index"][pos_hit]
+                        if mode == "vals":
+                            hit_raws = col[pos_hit]
                 else:
                     keep = b["vals"][qi] >= thresh
                     hit = b["sids"][qi][keep]
-                    hit_raws = b["exact"][qi][keep]
+                    hit_raws = b["vals" if mode == "vals" else "exact"][qi][keep]
                 for p, c in enumerate(hit):
                     c = int(c)
                     if c not in seen:
@@ -1299,32 +1468,59 @@ class BruteForceEngine:
             return [int(c) for c in kept], float("-inf")
         return [int(c) for c in kept], float(scores[ap[m]])
 
-    def score_all_multi_ctx(self, name: str, metric, ctx_queries, len_ts,
-                            gaps, locality: str, norm_totals, gap_costs=None,
-                            doc_filter=None) -> np.ndarray:
-        """[n_slices, Q] normalized scores of Q single-contextual-embedding
-        needles in one corpus pass (the JAX package's
-        ``_bucket_scores_multiquery_ctx``): ``_dense_pass``, a chunk's
-        block made by ONE metric GEMM of its [c * L, d] vectors against
-        the [d, Tpad * Q] stacked needles (``stack_ctx_queries``)."""
+    def score_all_multi_tree(self, plans, len_ts, gaps, locality: str,
+                             norm_totals, gap_costs=None, doc_filter=None,
+                             tag_weights=None) -> np.ndarray:
+        """[n_slices, Q] normalized scores of Q plans of one modifier tree
+        with a contextual leaf (one contextual embedding, or mixed static +
+        contextual leaves) in one corpus pass (the JAX package's
+        ``score_all_multi_tree``, and its ``score_all_multi_ctx`` for the
+        one-leaf plan ("ctx", 0, metric): the same single GEMM a chunk):
+        ``_dense_pass``, a chunk's block the
+        stacked plan's evaluation (``stack_tree_plans``: every static leaf
+        gathers its [V, Tpad * Q] table, every contextual leaf is one
+        metric GEMM against its [Tpad * Q, d] stacked needles), compacted
+        under ``doc_filter``, then each query's tag rewrite of the
+        combined similarity (``tag_weights``: a TagWeightingSpec or None a
+        query).  The contextual stores must be packed already; a chunk's
+        vectors count every contextual leaf's width."""
         dev = self.device
-        Q = len(ctx_queries)
-        qv, Tpad = stack_ctx_queries(ctx_queries, len_ts, dev)
+        Q = len(plans)
+        sp, Tpad = stack_tree_plans(plans, len_ts, dev)
         lt = torch.as_tensor(np.asarray(len_ts, np.int32), device=dev)
         nt = torch.as_tensor(np.asarray(norm_totals, np.float32), device=dev)
         general = (None if gap_costs is None
                    else GeneralGaps(gap_costs, Tpad + 1, dev))
+        rewrite = None
+        if tag_weights is not None and any(t is not None for t in tag_weights):
+            tw_w = np.ones((Tpad, Q), np.float32)
+            tw_p = np.full((Tpad, Q), -1, np.int8)
+            tw_pen = np.zeros((Q,), np.float32)
+            tw_thr = np.full((Q,), -1.0, np.float32)
+            for qi, tw in enumerate(tag_weights):
+                if tw is None:
+                    continue
+                t = min(len(tw.t_pos_weights), Tpad)
+                tw_w[:t, qi] = tw.t_pos_weights[:t]
+                tw_p[:t, qi] = tw.pos_t[:t]
+                tw_pen[qi] = tw.pos_mismatch_penalty
+                tw_thr[qi] = tw.similarity_threshold
+            tw_args = _put_all((tw_w, tw_p, tw_pen, tw_thr), dev)
+
+            def rewrite(S, pos):
+                return tag_weighted_multi(S, pos, *tw_args)
 
         def block(db, c0, c1):
-            store = self._ctx_dev(name, db["bi"])[c0:c1]
-            return ctx_similarity(store, qv, metric).reshape(
+            ctx = tuple(self._ctx_dev(nm, db["bi"])[c0:c1] for nm in sp.ctx_names)
+            return eval_plan_chunk(sp, db["tokens"][c0:c1], ctx)["similarity"].reshape(
                 c1 - c0, db["capacity"], Tpad, Q)
 
-        with trace.span("ctx.dispatch"):
-            cols = self._dense_pass(block, Tpad, Q, int(qv.unmodified.shape[1]),
-                                    lt, gaps, locality, nt, general, doc_filter)
+        d = sum(int(v.unmodified.shape[1]) for v in sp.ctx_vectors)
+        with trace.span("tree.dispatch"):
+            cols = self._dense_pass(block, Tpad, Q, d, lt, gaps, locality, nt,
+                                    general, doc_filter, rewrite)
         out = np.full((self.n_slices, Q), NEG_SCORE, np.float32)
-        with trace.span("ctx.fetch"):
+        with trace.span("tree.fetch"):
             for (db, _), sc in zip(cols, [_host(c) for _, c in cols]):
                 out[db["slice_index"]] = sc
         return out

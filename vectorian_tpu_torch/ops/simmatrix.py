@@ -224,6 +224,9 @@ class QueryPlan:
     matrix: Optional[torch.Tensor] = None  # [V, T], static-only plans
     plan: tuple = ("static", 0)
     static_sims: List[torch.Tensor] = field(default_factory=list)
+    # k -> the vocabulary's magnitudes [V] of static leaf k (plans compiled
+    # with needs_magnitudes: the Word Rotator's Distance masses)
+    static_mags: List[torch.Tensor] = field(default_factory=list)
     ctx_names: List[str] = field(default_factory=list)
     ctx_queries: List[dict] = field(default_factory=list)
     ctx_vectors: List[_ChunkVectors] = field(default_factory=list)
@@ -261,6 +264,7 @@ def compile_plan(
     needle_strings: Sequence[str],
     query_ctx: Optional[Dict[str, dict]] = None,
     device=None,
+    needs_magnitudes: bool = False,
 ) -> QueryPlan:
     """Compile a TokenSim tree into a QueryPlan.  Static leaves are one
     GEMM each; a static-only tree folds into one combined [V, T] matrix
@@ -268,7 +272,10 @@ def compile_plan(
     extremum by argmax selection, unary kernels applied in order).  A
     contextual leaf defers to per-chunk evaluation with the needle's
     vectors ``query_ctx[name]`` (padded to the needle's width) on
-    ``device`` (default: the first compiled embedding's)."""
+    ``device`` (default: the first compiled embedding's).
+    ``needs_magnitudes`` (the Word Rotator's Distance) keeps each static
+    leaf's vocabulary magnitudes and the tree unfolded, as the JAX
+    package does, so ``eval_plan_chunk`` can combine the magnitudes."""
     qp = QueryPlan()
     if device is None:
         device = next(iter(compiled.values())).device if compiled else "cpu"
@@ -280,6 +287,8 @@ def compile_plan(
                 qp.static_sims.append(_leaf_matrix(
                     node, compiled, needle_token_ids, needle_strings, False
                 )["similarity"])
+                if needs_magnitudes:
+                    qp.static_mags.append(compiled[emb.name].magnitudes)
                 return ("static", len(qp.static_sims) - 1)
             qp.ctx_names.append(emb.name)
             qp.ctx_queries.append(query_ctx[emb.name])
@@ -298,6 +307,11 @@ def compile_plan(
 
     qp.plan = walk(token_sim)
     unary = _has_unary(qp.plan)
+    if qp.is_static_only and needs_magnitudes:
+        if qp.plan == ("static", 0):
+            qp.matrix = qp.static_sims[0].contiguous()
+        qp.sim_upper = float("inf") if unary else 1.0
+        return qp
     if qp.is_static_only:
         # fold: every consumer then reads the same bits of ONE matrix
         if qp.plan == ("static", 0):
@@ -316,36 +330,62 @@ def compile_plan(
 
 
 def eval_plan_chunk(qp: QueryPlan, tok: torch.Tensor, ctx_chunks,
-                    rows_block: Optional[int] = None) -> dict:
+                    rows_block: Optional[int] = None,
+                    needs_magnitudes: bool = False) -> dict:
     """Evaluate a plan's tree on one chunk of slices -> {'similarity': [c,
     L, T]}.  ``tok`` [c, L] token ids (static leaves gather their rows),
     ``ctx_chunks`` k -> [c, L, d] the chunk's vectors of ``ctx_names[k]``;
     ``rows_block`` as in ``ctx_similarity``.  Mirrors the reference's
     modifier application (metric/modifier.cpp:18-74) and the
     static-into-contextual broadcast (metric/static.cpp:142-195), with the
-    JAX package's per-cell ops."""
+    JAX package's per-cell ops.  ``needs_magnitudes`` (a plan compiled
+    with it) also returns 'magnitudes_s' [c, L]: a static leaf's
+    vocabulary magnitudes, a contextual leaf's vector norms, mixed by the
+    mixture weights, an extremum's averaged over the needle cells each
+    operand won (the JAX package's arithmetic)."""
     c, L = tok.shape
 
-    def rec(node) -> torch.Tensor:
+    def rec(node):
         kind = node[0]
         if kind == "static":
-            return qp.static_sims[node[1]][tok.long()]  # [c, L, T]
+            k = node[1]
+            mag = qp.static_mags[k][tok.long()] if needs_magnitudes else None
+            return qp.static_sims[k][tok.long()], mag  # [c, L, T]
         if kind == "ctx":
             _, k, metric = node
             S = ctx_similarity(ctx_chunks[k], qp.ctx_vectors[k], metric, rows_block)
-            return S.reshape(c, L, -1)
+            mag = None
+            if needs_magnitudes:
+                mag = torch.linalg.vector_norm(ctx_chunks[k].to(torch.float32), dim=-1)
+            return S.reshape(c, L, -1), mag
         if kind == "mixed":
             _, children, w_idx = node
-            return mix(torch.stack([rec(ch) for ch in children], 0),
-                       qp.mixed_weights[w_idx])
+            ops = [rec(ch) for ch in children]
+            w = qp.mixed_weights[w_idx]
+            mag = (mix(torch.stack([o[1] for o in ops], 0), w)
+                   if needs_magnitudes else None)
+            return mix(torch.stack([o[0] for o in ops], 0), w), mag
         if kind in ("max", "min"):
-            sims = torch.stack([rec(ch) for ch in node[1]], 0)
-            return extremum(sims, 1.0 if kind == "max" else -1.0)[0]
+            ops = [rec(ch) for ch in node[1]]
+            sims = torch.stack([o[0] for o in ops], 0)
+            S, sel = extremum(sims, 1.0 if kind == "max" else -1.0)
+            mag = None
+            if needs_magnitudes:
+                counts = torch.stack([(sel == k).sum(-1) for k in range(len(ops))],
+                                     0).to(torch.float32)  # [K, c, L]
+                mags = torch.stack([o[1] for o in ops], 0)
+                mag = (mags * counts).sum(0) / torch.clamp_min(counts.sum(0), 1.0)
+            return S, mag
         if kind == "unary":
-            return node[2](rec(node[1]))
+            S, mag = rec(node[1])
+            return node[2](S), mag
         raise ValueError(node)
 
-    return {"similarity": rec(qp.plan)}
+    S, mag = rec(qp.plan)
+    out = {"similarity": S}
+    if needs_magnitudes:
+        out["magnitudes_s"] = mag
+    return out
 
 
 def plan_sim_upper(qp: QueryPlan) -> float:

@@ -100,11 +100,13 @@ class EmbeddedSpanSim(SpanSim):
         : ..}`` selects the IVF-style shortlist index for very large span
         sets (the reference's Faiss factory option, index.py:753-765 —
         approximate recall, documented on ApproximateSpanIndex)."""
-        raise NotImplementedError(
-            "span-embedding indexes are not ported yet (ROADMAP.md port "
-            "queue item 5b: mixed trees, contextual tag weights and span "
-            "embeddings)"
-        )
+        from vectorian_tpu_torch.index import ApproximateSpanIndex, SpanEncoderIndex
+
+        if approximate is not None:
+            return ApproximateSpanIndex(
+                partition, self, **{**approximate, **kwargs}
+            )
+        return SpanEncoderIndex(partition, self, **kwargs)
 
     def to_args(self, index):
         return None
