@@ -99,6 +99,19 @@ Phases, each of which raises on failure:
    dense kernel held against its plain version at the pass's shapes, a
    torch.profiler trace of one find_batch; the card against the CPU on a
    3,000-sentence cut of the corpus.
+   4k: the transport find_batch on phase 4's session (WordMoversDistance()
+   relaxed, relaxed=False and WordRotatorsDistance(), Q=32 of 7 tokens):
+   wall ms, alignments/s, the ranking pass's device ms, host spans,
+   consume rounds, exact solves and fused-fetch pairs a batch; on the
+   3,000-sentence cut the card against the CPU, find = find_batch bytes and
+   full WMD / WRD = the exhaustive oracle; after 4h one relaxed-WMD batch of
+   the mixed tree.  4l: paged serving (Session(paged=True)'s engine) over
+   phase 4's packing (affine and general find p50 and find_batch at int8, a
+   relaxed-WMD batch), 4c's tie-heavy corpus (extras rounds re-page
+   buckets) and 4f's packing and store (pinned host bf16): paged = resident
+   byte for byte, peak device memory and host -> device bytes a pass, a
+   torch.profiler split of the copies under kernels, each kernel's first
+   launch on a paged bucket bit for bit against its plain version.
 5. The port on the card against the port on the CPU on a small corpus,
    affine and general-gap indexes, phase 4's long query, and 4e's
    options at each of their precisions.
@@ -2700,6 +2713,26 @@ def _tree_kernel_at_path(index, qs, kernel):
     return out
 
 
+def ctx_corpus(qft=None):
+    """4f's corpus: (texts, the contextual embedding, the session over
+    CTX_SENTENCES of phase 4's generator (with ``qft`` as a second
+    embedding when given), 32 batch queries, 21 finds, the build s)."""
+    import numpy as np
+
+    import vectorian_tpu_torch as vt
+
+    rng = np.random.default_rng(SEED + 10)
+    words, texts, query = zipf_corpus(CTX_SENTENCES, rng)
+    emb = _ctx_embedding(words, np.random.default_rng(SEED + 11))
+    t0 = time.perf_counter()
+    session = vt.Session([vt.StringImporter()(t, title=f"d{i}") for i, t in enumerate(texts)],
+                         embeddings=[emb, *([qft] if qft is not None else [])], device=DEVICE)
+    build_s = time.perf_counter() - t0
+    queries = [query() for _ in range(32)]
+    finds = [query() for _ in range(21)]
+    return texts, emb, session, queries, finds, build_s
+
+
 def phase_contextual(card, qft=None):
     """4f: the contextual path end to end on the card: CTX_SENTENCES of
     phase 4's generator, a CTX_DIM LambdaContextualEmbedding; the store's
@@ -2720,15 +2753,7 @@ def phase_contextual(card, qft=None):
     from vectorian_tpu_torch.ops import dp_kernels
     from vectorian_tpu_torch.utils import trace
 
-    rng = np.random.default_rng(SEED + 10)
-    words, texts, query = zipf_corpus(CTX_SENTENCES, rng)
-    emb = _ctx_embedding(words, np.random.default_rng(SEED + 11))
-    t0 = time.perf_counter()
-    session = vt.Session([vt.StringImporter()(t, title=f"d{i}") for i, t in enumerate(texts)],
-                         embeddings=[emb, *([qft] if qft is not None else [])], device=DEVICE)
-    build_s = time.perf_counter() - t0
-    queries = [query() for _ in range(32)]
-    finds = [query() for _ in range(21)]
+    texts, emb, session, queries, finds, build_s = ctx_corpus(qft)
     res, kernels = {}, {}
     for label, gap, kernel in (("affine", None, "affine_dp[dense]"),
                                ("general", ExponentialGapCost(3.0), "wsb_dp[dense]")):
@@ -3121,6 +3146,614 @@ def phase_span(session, queries, finds, cut, card):
     return {"encode_s": encode_s, "kmeans_s": kmeans_s, **res_exact}
 
 
+class _TransportCounts:
+    """Counters of a transport batch, installed on WMDEngine for a block:
+    the exact solves (``_host_rescore``'s candidates) and relaxed rescores
+    (``_relaxed_finalize``'s pools), the consume rounds (one a call of the
+    host-rescore loop's window), the (slice, query) pairs the fused
+    similarity fetch gathered, and the ranking passes' device ms (CUDA
+    events around each ``_buckets_pass``)."""
+
+    def __init__(self):
+        from vectorian_tpu_torch.ops import wmd
+
+        self.wmd = wmd
+        self.names = ("_host_rescore", "_relaxed_finalize", "_sims_many_static_dispatch",
+                      "_sims_many_plan", "_buckets_pass")
+        self.orig = {n: getattr(wmd.WMDEngine, n) for n in self.names}
+        self.reset()
+
+    def reset(self):
+        self.solves = self.relaxed = self.rounds = self.pairs = 0
+        self.events = []
+
+    def __enter__(self):
+        import torch
+
+        orig, cnt = self.orig, self
+
+        def host_rescore(eng, index, query, qp, state, top, *a, **kw):
+            cnt.solves += len(top)
+            cnt.rounds += 1
+            return orig["_host_rescore"](eng, index, query, qp, state, top, *a, **kw)
+
+        def relaxed(eng, index, query, qp, state, top, *a, **kw):
+            cnt.relaxed += len(top)
+            return orig["_relaxed_finalize"](eng, index, query, qp, state, top, *a, **kw)
+
+        def pairs_static(eng, items, *a, **kw):
+            cnt.pairs += sum(len(s) for _, s in items)
+            return orig["_sims_many_static_dispatch"](eng, items, *a, **kw)
+
+        def pairs_plan(eng, items, *a, **kw):
+            cnt.pairs += sum(len(s) for _, s in items)
+            return orig["_sims_many_plan"](eng, items, *a, **kw)
+
+        def buckets_pass(eng, fn):
+            if eng._engine.device.type != "cuda":
+                return orig["_buckets_pass"](eng, fn)
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            out = orig["_buckets_pass"](eng, fn)
+            end.record()
+            cnt.events.append((start, end))
+            return out
+
+        for name, fn in zip(self.names, (host_rescore, relaxed, pairs_static, pairs_plan,
+                                         buckets_pass)):
+            setattr(self.wmd.WMDEngine, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.wmd.WMDEngine, name, fn)
+
+    def rank_ms(self):
+        """The ranking passes' device ms since the last reset (each pass
+        queues every bucket before the top-k reads them; paged passes
+        include their uploads)."""
+        import torch
+
+        if not self.events:
+            return None
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+def _drive_transport_batch(index, queries, counts, reps=3, loop=False):
+    """Median-of-``reps`` wall ms of ``index.find_batch(queries)`` and, per
+    batch, the ranking passes' device ms, the trace spans (ms), exact
+    solves, relaxed rescores, consume rounds and fetched pairs; the last
+    batch.  With ``loop`` also a loop of ``index.find`` over the same
+    queries, in turns with the batch (batch, loop, loop, batch, ...),
+    its results held equal to the batch's: {"batch": ..., "loop": ...}."""
+    import numpy as np
+
+    from vectorian_tpu_torch.utils import trace
+
+    modes = {"batch": lambda: index.find_batch(queries, n=10, min_score=0.2),
+             "loop": lambda: [index.find(q, n=10, min_score=0.2) for q in queries]}
+    order = ["batch", "loop", "loop", "batch"] * reps if loop else ["batch"] * reps
+    walls = {m: [] for m in modes}
+    per = {m: [] for m in modes}
+    got = {}
+    for mode in order:
+        if len(walls[mode]) == reps:
+            continue
+        counts.reset()
+        trace.start()
+        t = time.perf_counter()
+        got[mode] = modes[mode]()
+        walls[mode].append((time.perf_counter() - t) * 1e3)
+        spans = {}
+        for k, sec in trace.stop():
+            if k.startswith("wmd."):
+                spans[k] = spans.get(k, 0.0) + sec * 1e3
+        per[mode].append({"rank_pass_device_ms": counts.rank_ms(), "spans_ms": spans,
+                          "exact_solves": counts.solves, "relaxed_rescored": counts.relaxed,
+                          "consume_rounds": counts.rounds, "fetched_pairs": counts.pairs})
+    batch = got["batch"]
+    check_results(batch, 10, 0.2)
+    if not any(len(r) for r in batch):
+        raise AssertionError("transport find_batch: no matches")
+    if loop and [pairs(r) for r in got["loop"]] != [pairs(r) for r in batch]:
+        raise AssertionError("transport find_batch: not the bytes of a loop of find")
+    res = {m: (float(np.median(walls[m])), walls[m], per[m]) for m in modes if walls[m]}
+    return res, batch
+
+
+def phase_transport_batch(session, queries, cut, card):
+    """4k: the transport find_batch on phase 4's 1M-slice session:
+    WordMoversDistance() (relaxed), WordMoversDistance(relaxed=False) and
+    WordRotatorsDistance(), each on the Q=32 queries of 7 tokens: wall ms
+    (median of 3), alignments/s (slices x Q / s), the ranking pass's CUDA-
+    event ms, the host spans (``wmd.rank``: pass and top-k reads;
+    ``wmd.sims_fetch``; ``wmd.host_rescore``), the consume rounds and exact
+    solves a batch and the pairs the fused fetch gathered.  Then on the
+    3,000-sentence cut: the card against the CPU, each query's find bytes
+    equal to the batch's, full WMD and WRD equal to the exhaustive oracle."""
+    n_slices = session.packed_corpus(session.partition("sentence").spec).n_slices
+    out = {}
+    with _TransportCounts() as counts:
+        for label, metric in _transport_metrics():
+            index = _transport_index(session, metric)
+            index.find_batch(queries[:2], n=10, min_score=0.2)  # warm
+            res, _ = _drive_transport_batch(index, queries, counts, loop=True)
+            med, walls, per = res["batch"]
+            lmed, lwalls, lper = res["loop"]
+            out[label] = {"find_batch_ms_median": med, "find_batch_ms": walls,
+                          "alignments_per_s": n_slices * len(queries) / (med / 1e3),
+                          "per_batch": per, "find_loop_ms_median": lmed,
+                          "find_loop_ms": lwalls, "per_loop": lper}
+        emit({"phase": "transport_batch", "slices": n_slices, "queries": len(queries),
+              **out, "card": card})
+        worst, oracle = {}, {}
+        for label, metric in _transport_metrics():
+            got = {}
+            for dev, sess in cut.items():
+                ix = _transport_index(sess, metric)
+                got[dev] = [pairs(r) for r in ix.find_batch(queries[:8], n=10, min_score=0.2)]
+                if dev == DEVICE:
+                    finds = [pairs(ix.find(q, n=10, min_score=0.2)) for q in queries[:8]]
+                    if got[dev] != finds:
+                        raise AssertionError(f"4k {label}: find_batch is not find's bytes")
+            if not any(got[DEVICE]):
+                raise AssertionError(f"4k {label}: no matches on the cut")
+            worst[label] = compare_with_cpu(f"4k cut {label}", got[DEVICE], got["cpu"])
+            if label == "rwmd":
+                continue
+            ix = _transport_index(cut[DEVICE], metric)
+            n_cut = ix.packed.n_slices
+            for q, g in zip(queries[:3], got[DEVICE]):
+                exhaustive = pairs(ix.find(q, n=n_cut + 8, min_score=-1.0))
+                if g != [p for p in exhaustive if p[1] > 0.2][:10]:
+                    raise AssertionError(f"4k {label}: the batch is not the exhaustive oracle")
+            oracle[label] = "equal"
+    emit({"phase": "transport_batch_vs_cpu", "sentences": 3_000,
+          "max_abs_score_diff_vs_cpu": worst, "exhaustive_oracle": oracle})
+    return out
+
+
+def phase_transport_tree(ctx, card):
+    """4k on 4h's mixed tree (500,000 sentences, 4f's session and store):
+    one relaxed-WMD find_batch Q=32 of MixedTokenSimilarity([qft, ctx],
+    [0.5, 0.5]) beside a loop of find over the same queries (median of 3
+    each, in turns; the loop's bytes equal to the batch's)."""
+    from vectorian_tpu_torch.alignment import WordMoversDistance
+    from vectorian_tpu_torch.metrics import EmbeddingTokenSim, OptimizedSpanSim
+    from vectorian_tpu_torch.sim.modifier import MixedTokenSimilarity
+
+    session, queries = ctx["session"], ctx["queries"]
+    c, q = session.embeddings
+    index = session.partition("sentence").index(OptimizedSpanSim(MixedTokenSimilarity(
+        [EmbeddingTokenSim(q), EmbeddingTokenSim(c)], [0.5, 0.5]), WordMoversDistance()))
+    with _TransportCounts() as counts:
+        index.find_batch(queries[:2], n=10, min_score=0.2)  # warm
+        res, _ = _drive_transport_batch(index, queries, counts, loop=True)
+    med, walls, per = res["batch"]
+    lmed, lwalls, lper = res["loop"]
+    n_slices = index.packed.n_slices
+    res = {"find_batch_ms_median": med, "find_batch_ms": walls,
+           "alignments_per_s": n_slices * len(queries) / (med / 1e3), "per_batch": per,
+           "find_loop_ms_median": lmed, "find_loop_ms": lwalls, "per_loop": lper}
+    emit({"phase": "transport_batch_tree", "slices": n_slices, "rwmd": res, "card": card})
+    return res
+
+
+# the wrappers a paged pass launches its kernels through (imported into
+# ops/search), held against their plain versions on their first call
+PAGED_WRAPPERS = ("affine_dp_scores", "wsb_dp_scores", "affine_dp_scores_dense",
+                  "wsb_dp_scores_dense", "affine_dp_scores_rows", "wsb_dp_scores_rows")
+
+
+class _FirstCalls:
+    """Records the first call of each of ``PAGED_WRAPPERS`` made through
+    ops/search while installed (its tensors cloned: a paged bucket's are
+    evicted after its pass) — the first bucket a paged pass launched a
+    kernel on."""
+
+    def __init__(self):
+        from vectorian_tpu_torch.ops import search
+
+        self.search = search
+        self.orig = {n: getattr(search, n) for n in PAGED_WRAPPERS}
+        self.calls = {}
+
+    def __enter__(self):
+        import torch
+
+        def keep(x):
+            return x.clone() if isinstance(x, torch.Tensor) else x
+
+        def wrap(name, real):
+            def fn(*args, **kw):
+                if name not in self.calls:
+                    tags = kw.get("tags")
+                    if tags is not None:
+                        tags = type(tags)(*(keep(t) for t in tags))
+                    self.calls[name] = ([keep(a) for a in args],
+                                        {**{k: keep(v) for k, v in kw.items()},
+                                         **({"tags": tags} if "tags" in kw else {})})
+                return real(*args, **kw)
+            return fn
+
+        for name, real in self.orig.items():
+            setattr(self.search, name, wrap(name, real))
+        return self
+
+    def __exit__(self, *exc):
+        for name, real in self.orig.items():
+            setattr(self.search, name, real)
+
+    def check(self, label):
+        """Each recorded launch again, the kernel against its plain version
+        bit for bit: {wrapper: max |diff|}."""
+        from vectorian_tpu_torch.ops import dp_kernels
+
+        if not self.calls:
+            raise AssertionError(f"{label}: the paged pass launched no kernel")
+        out = {}
+        for name, (args, kw) in self.calls.items():
+            ref_kw = {k: v for k, v in kw.items() if k not in ("host_costs", "_route")}
+            got = getattr(dp_kernels, name)(*args, **kw)
+            want = getattr(dp_kernels, name + "_reference")(*args, **ref_kw)
+            out[name] = _check_equal(f"{label} {name}", got, want, tuple(got.shape))
+        return out
+
+
+def peak_and_bytes(engine, fn):
+    """(fn's result, the device memory its call peaked at above what was
+    allocated before it, bytes, and the host -> device bytes it uploaded)."""
+    import torch
+
+    torch.cuda.synchronize()
+    # frees the blocks an earlier call released behind stream events
+    # (record_stream), which the allocator would count until its next malloc
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    up = engine.uploaded_bytes
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base, engine.uploaded_bytes - up
+
+
+def _union(intervals):
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def htod_overlap(label, fn):
+    """A torch.profiler trace of ``fn`` (device activity only): the host ->
+    device copies' device ms, the part of it that ran while a kernel ran
+    (on the compute stream), the kernels' busy ms, the wall ms, the events
+    by category and the longest copies."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    # the copies' device ms as key_averages sums them, beside the trace's
+    htod_avg = sum(e.self_device_time_total for e in prof.key_averages()
+                   if "HtoD" in e.key) / 1e3
+    with tempfile.NamedTemporaryFile(suffix=".json") as f:
+        prof.export_chrome_trace(f.name)
+        events = json.load(open(f.name)).get("traceEvents", [])
+    copies, kernels, cats, longest = [], [], {}, []
+    for e in events:
+        if "dur" not in e:
+            continue
+        cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+        span = (float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+        if e.get("cat") == "kernel":
+            kernels.append(span)
+        elif "memcpy" in str(e.get("cat")).lower():
+            longest.append((float(e["dur"]) / 1e3, e.get("name", "")[:40]))
+            if "HtoD" in e.get("name", ""):
+                copies.append(span)
+    busy = _union(kernels)
+    over = sum(max(0.0, min(b, kb) - max(a, ka)) for a, b in copies for ka, kb in busy)
+    htod = sum(b - a for a, b in copies)
+    res = {"call": label, "wall_ms": wall_ms, "htod_copies": len(copies),
+           "htod_ms": htod / 1e3, "htod_under_kernels_ms": over / 1e3,
+           "htod_under_kernels_share": over / htod if htod else None,
+           "kernel_busy_ms": sum(b - a for a, b in busy) / 1e3,
+           "events_by_category": cats, "longest_copies_ms": sorted(longest)[-3:],
+           "htod_ms_key_averages": htod_avg}
+    emit({"phase": "paged_profile", **res})
+    return res
+
+
+def paged_twin(session, make):
+    """``make()``'s index bound to a paged engine over the session's own
+    packing of its sentences (no new packing); the session keeps its
+    resident engine."""
+    from vectorian_tpu_torch.ops.search import BruteForceEngine
+
+    spec = session.partition("sentence").spec
+    resident = session.engine(spec)
+    session._engine_cache[spec] = BruteForceEngine(
+        session.packed_corpus(spec), DEVICE, paged=True)
+    try:
+        return make()
+    finally:
+        session._engine_cache[spec] = resident
+
+
+# 4l's multi-bucket corpora: each bucket of a packing cut into this many
+# row ranges of the same capacity (phase 4's and 4f's 9-token sentences
+# pack into one bucket each, which bypasses the double buffering)
+SPLIT_BUCKETS = 8
+
+
+def split_packing(packed, k):
+    """(``packed`` with each bucket cut into ``k`` row ranges of its
+    capacity, the (bucket, r0, r1) of each new bucket): the same slices
+    and arrays in ``k`` times the buckets."""
+    import dataclasses
+
+    import numpy as np
+
+    buckets, ranges = [], []
+    for bi, b in enumerate(packed.buckets):
+        edges = np.linspace(0, b.n, k + 1).astype(np.int64)
+        for r0, r1 in zip(edges[:-1].tolist(), edges[1:].tolist()):
+            if r1 > r0:
+                buckets.append(dataclasses.replace(
+                    b, token_ids=b.token_ids[r0:r1], pos_ids=b.pos_ids[r0:r1],
+                    tag_ids=b.tag_ids[r0:r1], lengths=b.lengths[r0:r1],
+                    slice_index=b.slice_index[r0:r1]))
+                ranges.append((bi, r0, r1))
+    return dataclasses.replace(packed, buckets=buckets), ranges
+
+
+def split_twins(session, make, stores=None):
+    """(resident, paged) indexes of ``make()`` bound to engines over the
+    session's packing cut by ``split_packing`` into SPLIT_BUCKETS buckets a
+    length; ``stores``: {paged: {name: per-bucket stores}} of engines over
+    the uncut packing, whose row ranges become the new engines' stores (no
+    second build)."""
+    from vectorian_tpu_torch.ops.search import BruteForceEngine
+
+    spec = session.partition("sentence").spec
+    split, ranges = split_packing(session.packed_corpus(spec), SPLIT_BUCKETS)
+    own = session.engine(spec)
+    out = []
+    for paged in (False, True):
+        eng = BruteForceEngine(split, DEVICE, paged=paged)
+        for name, parts in (stores or {}).get(paged, {}).items():
+            eng._ctx_stores[name] = [parts[bi][r0:r1] for bi, r0, r1 in ranges]
+        session._engine_cache[spec] = eng
+        try:
+            out.append(make())
+        finally:
+            session._engine_cache[spec] = own
+    return tuple(out)
+
+
+def _paged_split(label, session, make, queries, finds, precision=None, stores=None):
+    """4l over several buckets: ``_paged_vs_resident`` of ``split_twins``
+    and a torch.profiler split of a paged find_batch (the share of the
+    copies under kernels, which the double buffering exists for); with
+    ``stores``, the paged pass's peak above the resident one's in units
+    of the largest bucket's store (about two when bucket i+1 is paged in
+    while bucket i is read)."""
+    resident, paged = split_twins(session, make, stores)
+    res = _paged_vs_resident(label, resident, paged, queries, finds, precision)
+    res["buckets"] = len(paged._engine._device_buckets)
+    res["profile"] = htod_overlap(f"paged {label} find_batch", lambda: (
+        paged.find_batch(queries, n=10, min_score=0.2, sim_precision=precision)))
+    if stores:
+        largest = max(sum(st[db["bi"]].numel() * st[db["bi"]].element_size()
+                          for st in paged._engine._ctx_stores.values())
+                      for db in paged._engine._device_buckets)
+        res["largest_bucket_store_bytes"] = largest
+        res["peak_over_resident_in_buckets"] = (
+            res["paged"]["peak_bytes_find_batch"]
+            - res["resident"]["peak_bytes_find_batch"]) / largest
+    return res
+
+
+def _paged_vs_resident(label, resident, paged, queries, finds, precision=None, reps=3):
+    """find p50 (of the finds) and find_batch ms (median of ``reps``) of a
+    resident and a paged index in the same call, byte for byte equal; the
+    paged engine's peak device memory and uploaded bytes a find_batch, and
+    a resident find_batch's peak; the paged kernels' launches (counts from
+    0) and each first launch against its plain version."""
+    import numpy as np
+
+    from vectorian_tpu_torch.ops import dp_kernels
+
+    res = {}
+    got = {}
+    for name, ix in (("resident", resident), ("paged", paged)):
+        ix.find_batch(queries[:2], n=10, min_score=0.2, sim_precision=precision)  # warm
+        walls, ts, found = [], [], []
+        dp_kernels.reset_launches()
+        with _FirstCalls() as first:
+            for _ in range(reps):
+                t = time.perf_counter()
+                batch = ix.find_batch(queries, n=10, min_score=0.2, sim_precision=precision)
+                walls.append((time.perf_counter() - t) * 1e3)
+            for q in finds:
+                t = time.perf_counter()
+                found.append(pairs(ix.find(q, n=10, min_score=0.2)))
+                ts.append((time.perf_counter() - t) * 1e3)
+        launches = {k: v for k, v in dp_kernels.LAUNCHES.items() if v}
+        got[name] = [pairs(r) for r in batch] + found
+        _, peak, up = peak_and_bytes(ix._engine, lambda: ix.find_batch(
+            queries, n=10, min_score=0.2, sim_precision=precision))
+        res[name] = {"find_batch_ms_median": float(np.median(walls)), "find_batch_ms": walls,
+                     "find_p50_ms": float(np.median(ts)) if ts else None,
+                     "peak_bytes_find_batch": peak, "htod_bytes_find_batch": up}
+        if name == "paged":
+            if not launches:
+                raise AssertionError(f"4l {label}: the paged path launched no kernel")
+            res[name]["launches"] = launches
+            res[name]["first_bucket_vs_plain"] = first.check(f"4l {label}")
+    if got["paged"] != got["resident"] or not any(got["paged"]):
+        raise AssertionError(f"4l {label}: paged != resident")
+    res["paged_equals_resident"] = True
+    return res
+
+
+def phase_paged_static(session, queries, finds, card):
+    """4l (static): a paged engine over phase 4's packed corpus (1M
+    slices) against the resident one in the same call: affine and general
+    find p50 (of 21) and find_batch Q=32 at int8, byte for byte; peak device
+    memory and host -> device bytes a pass; each kernel's first launch on
+    the paged path against its plain version; a torch.profiler split of a
+    paged find_batch (how much of the copies ran under kernels); one
+    relaxed-WMD find_batch paged against resident.  Returns the paged
+    launches by kernel."""
+    from vectorian_tpu_torch.alignment import ExponentialGapCost, WordMoversDistance
+
+    res, launches = {}, {}
+    for label, gap in (("affine", None), ("general", ExponentialGapCost(3.0))):
+        resident = make_index(session, gap)
+        paged = paged_twin(session, lambda: make_index(session, gap))
+        res[label] = _paged_vs_resident(label, resident, paged, queries, finds, "int8")
+        for k, v in res[label]["paged"]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        res[label]["profile"] = htod_overlap(f"paged find_batch {label}", lambda: (
+            paged.find_batch(queries, n=10, min_score=0.2)))
+    # one relaxed-WMD batch a mode (4k times the resident one in 3)
+    resident = _transport_index(session, WordMoversDistance())
+    paged = paged_twin(session, lambda: _transport_index(session, WordMoversDistance()))
+    out = {}
+    for name, ix in (("resident", resident), ("paged", paged)):
+        (batch, wall), peak, up = peak_and_bytes(ix._engine, lambda: _timed(
+            lambda: ix.find_batch(queries, n=10, min_score=0.2)))
+        out[name] = {"find_batch_ms": wall, "peak_bytes": peak, "htod_bytes": up,
+                     "pairs": [pairs(r) for r in batch]}
+    if out["paged"].pop("pairs") != out["resident"].pop("pairs"):
+        raise AssertionError("4l rwmd: paged != resident")
+    res["rwmd"] = out
+    # its profile on 8 queries (a Q=32 batch's trace is ~70,000 kernels)
+    res["rwmd"]["profile_q8"] = htod_overlap("paged rwmd find_batch Q=8", lambda: (
+        paged.find_batch(queries[:8], n=10, min_score=0.2)))
+    res["split"] = _paged_split(f"split{SPLIT_BUCKETS} affine", session,
+                                lambda: make_index(session), queries, finds, "int8")
+    for k, v in res["split"]["paged"]["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    emit({"phase": "paged", "corpus": "phase 4 (1M slices)", **res, "card": card})
+    return launches
+
+
+def phase_paged_contextual(ctx, card):
+    """4l (contextual): a paged engine over 4f's packing (500,000
+    sentences) with its bf16 store in pinned host memory, against 4f's
+    resident engine in the same call: find_batch Q=32 (affine and
+    general), byte for byte, the peak device memory and uploaded bytes a
+    pass beside the resident store's bytes, the dense kernels' first
+    launches against their plain versions, and a torch.profiler split of a
+    paged find_batch.  Returns the paged launches by kernel."""
+    import torch
+
+    from vectorian_tpu_torch.alignment import ExponentialGapCost
+
+    session, queries, finds = ctx["session"], ctx["queries"], ctx["finds"]
+    res, launches = {}, {}
+    for label, gap in (("affine", None), ("general", ExponentialGapCost(3.0))):
+        resident = make_index(session, gap)
+        paged = paged_twin(session, lambda: make_index(session, gap))
+        if label == "affine":
+            t = time.perf_counter()
+            paged._engine.ensure_contextual("ctx", session.documents, session._ctx_dims["ctx"])
+            res["paged_store_build_s"] = time.perf_counter() - t
+            store = paged._engine._ctx_stores["ctx"]
+            if DEVICE != "cpu" and any(t.is_cuda or not t.is_pinned() for t in store):
+                raise AssertionError("4l: a paged store is not in pinned host memory")
+            res["store_bytes"] = sum(t.numel() * t.element_size() for t in store)
+            res["largest_bucket_store_bytes"] = max(t.numel() * t.element_size() for t in store)
+        res[label] = _paged_vs_resident(f"ctx {label}", resident, paged, queries, finds[:4])
+        for k, v in res[label]["paged"]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        res[label]["profile"] = htod_overlap(f"paged ctx find_batch {label}", lambda: (
+            paged.find_batch(queries, n=10, min_score=0.2)))
+        torch.cuda.empty_cache()
+    # several buckets: the stores' row ranges, resident and pinned
+    stores = {False: resident._engine._ctx_stores, True: paged._engine._ctx_stores}
+    res["split"] = _paged_split(f"ctx split{SPLIT_BUCKETS} affine", session,
+                                lambda: make_index(session), queries, finds[:4],
+                                stores=stores)
+    for k, v in res["split"]["paged"]["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    torch.cuda.empty_cache()
+    emit({"phase": "paged_contextual", "sentences": CTX_SENTENCES, **res, "card": card})
+    return launches
+
+
+def phase_paged_ties(card):
+    """4l (ties): 4c's tie-heavy corpus on a paged engine: every cut is
+    unsafe, so the extras round selects columns of buckets already
+    released and pages them in again; the results are the resident
+    engine's bytes (affine and general gaps, int8 and f32 find_batch, and
+    find) and, within 1e-6, the CPU's; the re-pages counted, each kernel's
+    first launch on the paged path against its plain version."""
+    import numpy as np
+
+    from vectorian_tpu_torch.alignment import ExponentialGapCost
+    from vectorian_tpu_torch.ops import dp_kernels, search
+
+    rng = np.random.default_rng(SEED + 3)
+    words, texts, queries = duplicates_corpus(rng)
+    vectors = rng.normal(size=(len(words), 300)).astype(np.float32)
+    session = build_session(texts, words, vectors, DEVICE)
+    on_cpu = build_session(texts, words, vectors, "cpu")
+    real = search.BucketTopKSource._bucket_scores
+    repaged = [0]
+
+    def counted(self, bi):
+        if isinstance(self._pending[bi][1], search._LazyScores):
+            repaged[0] += 1
+        return real(self, bi)
+
+    res, launches = {}, {}
+    search.BucketTopKSource._bucket_scores = counted
+    try:
+        for label, gap in (("affine", None), ("general", ExponentialGapCost(3.0))):
+            resident = make_index(session, gap)
+            paged = paged_twin(session, lambda: make_index(session, gap))
+            got = {}
+            for name, ix in (("resident", resident), ("paged", paged),
+                             ("cpu", make_index(on_cpu, gap))):
+                repaged[0] = 0
+                dp_kernels.reset_launches()
+                with _FirstCalls() as first:
+                    got[name] = [pairs(r) for prec in ("int8", "float32") for r in
+                                 ix.find_batch(queries, n=10, min_score=0.1,
+                                               sim_precision=prec)]
+                    got[name] += [pairs(ix.find(q, n=10, min_score=0.1)) for q in queries[:4]]
+                if name == "paged":
+                    res[label] = {"repaged_buckets": repaged[0],
+                                  "launches": {k: v for k, v in dp_kernels.LAUNCHES.items()
+                                               if v},
+                                  "first_bucket_vs_plain": first.check(f"4l ties {label}")}
+            if got["paged"] != got["resident"] or not any(got["paged"]):
+                raise AssertionError(f"4l ties {label}: paged != resident")
+            res[label]["max_abs_score_diff_vs_cpu"] = compare_with_cpu(
+                f"4l ties {label}", got["paged"], got["cpu"])
+            if not res[label]["repaged_buckets"]:
+                raise AssertionError(f"4l ties {label}: no extras round re-paged a bucket")
+            for k, v in res[label]["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    finally:
+        search.BucketTopKSource._bucket_scores = real
+    emit({"phase": "paged_ties", "sentences": 3_000, **res, "card": card})
+    return launches
+
+
 def phase_small_reference(long_q):
     """The port on the card against the port on the CPU, small corpus,
     affine and general-gap indexes; then phase 4's long query (find, and a
@@ -3249,16 +3882,26 @@ def run_phases(card):
     cut = {dev: build_session(corpus_cut(texts), words, vectors, dev) for dev in (DEVICE, "cpu")}
     phase_transport(session, finds, cut, card)
     log("transport path done")
+    phase_transport_batch(session, queries, cut, card)
+    log("transport batch done")
     phase_span(session, queries, finds, cut, card)
     log("span path done")
+    paged_static = phase_paged_static(session, queries, finds, card)
+    log("paged static path done")
     del session, ft, cut
     rescore = phase_rescore(card)
     log("rescore path done")
+    paged_ties = phase_paged_ties(card)
+    log("paged ties done")
     dense, ctx = phase_contextual(card, qft)
     log("contextual path done")
     tree = phase_config4(ctx, qft, qft_info, card)
-    del ctx
     log("config 4 path done")
+    phase_transport_tree(ctx, card)
+    log("transport tree batch done")
+    paged_ctx = phase_paged_contextual(ctx, card)
+    del ctx
+    log("paged contextual path done")
     phase_small_reference(long_q)
 
     kernels = []
@@ -3408,7 +4051,47 @@ def run_phases(card):
         "problems_per_call": [int(a[1].shape[0]) for _, a, _ in res["calls"]],
         "card": card,
     })
+    # 4l: each kernel's launches on the paged paths (counts from 0 before
+    # each path; every first launch held against its plain version there)
+    for k in kernels:
+        k["paged_launches"] = sum(d.get(k["name"], 0)
+                                  for d in (paged_static, paged_ties, paged_ctx))
     return kernels
+
+
+def batch_check(card):
+    """``--batch-check``: phases 4k and 4l alone (their sessions built as
+    the full run builds them), in a packed-corpus cache of their own."""
+    import numpy as np
+
+    import vectorian_tpu_torch  # noqa: F401  (sets exact-f32 matmul flags)
+
+    cache = tempfile.mkdtemp(prefix="chip_smoke_cache_")
+    os.environ["VECTORIAN_CACHE_HOME"] = cache
+    try:
+        phase_build()
+        rng = np.random.default_rng(SEED)
+        words, texts, query = zipf_corpus(SENTENCES, rng)
+        vectors = rng.normal(size=(len(words), 300)).astype(np.float32)
+        session = build_session(texts, words, vectors, DEVICE)
+        queries = [query() for _ in range(32)]
+        finds = [query() for _ in range(21)]
+        cut = {dev: build_session(corpus_cut(texts), words, vectors, dev)
+               for dev in (DEVICE, "cpu")}
+        phase_transport_batch(session, queries, cut, card)
+        phase_paged_static(session, queries, finds, card)
+        del session, cut
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_fasttext_") as tmp:
+            ft, _ = fasttext_model(texts, np.random.default_rng(SEED + 7), tmp)
+        qft, _ = compress_fasttext(ft)
+        del ft
+        _, _, session, queries, finds, _ = ctx_corpus(qft)
+        ctx = {"session": session, "queries": queries, "finds": finds}
+        phase_transport_tree(ctx, card)
+        phase_paged_contextual(ctx, card)
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    log("batch check done")
 
 
 if __name__ == "__main__":
@@ -3423,6 +4106,14 @@ if __name__ == "__main__":
         phase_build()
         phase_kernels_dense()
         phase_contextual(card)
+    elif sys.argv[1:2] == ["--batch-check"]:
+        # 4k's batches (static and 4h's tree) beside a loop of find, and
+        # 4l over one bucket and over SPLIT_BUCKETS, alone: the quick
+        # check after a paging or transport-batch edit
+        if not (ROOT / "vectorian_tpu_torch" / "csrc" / "affine_dp.cu").exists():
+            raise SystemExit("chip_smoke: run from a checkout of the repository")
+        sys.path.insert(0, str(ROOT))
+        batch_check(phase_device())
     elif sys.argv[1:2] in (["--build-ab"], ["--tag-check"]):
         if not (ROOT / "vectorian_tpu_torch" / "csrc" / "affine_dp.cu").exists():
             raise SystemExit("chip_smoke: run from a checkout of the repository")

@@ -201,7 +201,8 @@ def test_doc_filters_match_jax(both, flt, gap):
     assert sum(map(len, got)) > 0
     pq = it.make_query(both[2][0], **kw).prepare(it._nlp)
     spec = it._doc_filter(pq)
-    views = it._engine._pass_buckets(spec)
+    flt = spec.device_args(it._engine.device)
+    views = [it._engine._pass_view(db, flt, False) for db in it._engine._live_buckets()]
     emptied = np.concatenate([
         v["slice_index"][(v["lengths"] == 0).numpy()] for v in views
     ])

@@ -230,9 +230,10 @@ def test_match_json_matches_jax(both):
 
 
 def test_unported_options_raise(both):
-    """mesh= and paged mode raise NotImplementedError; submatch_weight and
-    debug are served (find's full-read paths; find_batch takes debug query
-    by query through find), under affine and general gap models."""
+    """mesh= raises NotImplementedError; paged mode (Session(paged=True))
+    serves the bytes of resident mode; submatch_weight and debug are
+    served (find's full-read paths; find_batch takes debug query by query
+    through find), under affine and general gap models."""
     _, st, queries = both
     it = st.partition("sentence").index(
         OptimizedSpanSim(EmbeddingTokenSim(st.embeddings[0]), LocalAlignment())
@@ -241,8 +242,19 @@ def test_unported_options_raise(both):
         it.find_batch(queries[:2], mesh=object())
     with pytest.raises(NotImplementedError):
         it.find(queries[0], mesh=object())
-    with pytest.raises(NotImplementedError):
-        vt.Session([], device="cpu", paged=True)
+    words, mat, texts, _ = _corpus()
+    sp = vt.Session(
+        [vt.StringImporter()(t, title=f"d{i}") for i, t in enumerate(texts)],
+        embeddings=[vt.KeyedVectors("toy", words, mat)], device="cpu", paged=True,
+    )
+    ip = sp.partition("sentence").index(
+        OptimizedSpanSim(EmbeddingTokenSim(sp.embeddings[0]), LocalAlignment())
+    )
+    assert ip._engine.paged
+    assert [_pairs(ip.find(q, n=3, min_score=0.1)) for q in queries] == [
+        _pairs(it.find(q, n=3, min_score=0.1)) for q in queries]
+    assert [_pairs(r) for r in ip.find_batch(queries, n=3, min_score=0.1)] == [
+        _pairs(r) for r in it.find_batch(queries, n=3, min_score=0.1)]
     # a non-affine gap model is served (the general-gap WSB path), and so
     # are every query option, submatch_weight and debug included
     ig = st.partition("sentence").index(

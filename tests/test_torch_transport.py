@@ -11,7 +11,7 @@ reports the scores is bit-equal given equal inputs (``rwmd_score_host``,
 the native SSP EMD, ``order_by_score``); full WMD and WRD ``find`` return
 the exhaustive exact-EMD oracle's top-k (``find(q, n=n_slices + 8,
 min_score=-1.0)`` solves every slice, as tests/test_wmd_provable_cut.py
-drives it).  A transport index's ``find_batch`` raises naming item 6b.
+drives it).  ``find_batch`` is held in tests/test_torch_transport_batch.py.
 """
 
 import itertools
@@ -393,10 +393,21 @@ def test_transport_match_json_and_regions(cut):
 
 
 def test_transport_find_batch_is_item_6b(cut):
-    _, st, queries = cut
-    for mk in (WordMoversDistance, WordRotatorsDistance):
+    """The batches this test once expected to raise (item 6b, now served):
+    WordMoversDistance() and WordRotatorsDistance() batches, with and
+    without debug, against the JAX package's batch (the ranking rule) and
+    the port's find (bytes)."""
+    sj, st, queries = cut
+    for mk_j, mk in ((JaxWMD, WordMoversDistance), (JaxWRD, WordRotatorsDistance)):
+        ij = sj.partition("sentence").index(JaxSpanSim(
+            JaxTokenSim(sj.embeddings[0]), mk_j()))
         ix = st.partition("sentence").index(OptimizedSpanSim(
             EmbeddingTokenSim(st.embeddings[0]), mk()))
         for kw in ({}, {"debug": lambda *a: None}):
-            with pytest.raises(NotImplementedError, match="6b"):
-                ix.find_batch(queries, n=3, **kw)
+            bj = ij.find_batch(queries, n=3, **kw)
+            bt = ix.find_batch(queries, n=3, **kw)
+            assert any(len(r) for r in bt)
+            for rj, rt in zip(bj, bt):
+                _assert_same_ranking(_pairs(rj), _pairs(rt), 0.2)
+            assert [_pairs(r) for r in bt] == [
+                _pairs(ix.find(q, n=3, **kw)) for q in queries]

@@ -90,6 +90,22 @@ class AggregatedTokenEmbedding(SpanEmbedding):
         return AggregatedSpanEncoder(self, session)
 
 
+def _block(engine, db, table, name: str, rows: slice):
+    """(vectors [r, L, d], lengths [r]) of a block of bucket ``db``'s rows:
+    the static table gathered by their token ids (``table``), else the
+    contextual store ``name``'s rows; a paged engine uploads the block's
+    host rows, never the whole bucket."""
+    if engine.paged:
+        bi = db["bi"]
+        ln = engine.rows_to_device(bi, "lengths", rows)
+        if table is not None:
+            return table[engine.rows_to_device(bi, "tokens", rows).long()], ln
+        return engine.rows_to_device(bi, ("ctx", name), rows), ln
+    if table is not None:
+        return table[db["tokens"][rows].long()], db["lengths"][rows]
+    return engine._ctx_dev(name, db["bi"])[rows], db["lengths"][rows]
+
+
 def _aggregate(vecs: torch.Tensor, lengths: torch.Tensor, agg: str) -> torch.Tensor:
     """agg over each row's first ``lengths`` vectors of ``vecs`` [n, L, d]
     -> [n, d] f32.  The sum keeps ``vecs``' type (the JAX package sums the
@@ -145,11 +161,8 @@ class AggregatedSpanEncoder:
                                    device=engine.device)
             for r0 in range(0, n, step):
                 r1 = min(r0 + step, n)
-                if table is not None:
-                    vecs = table[db["tokens"][r0:r1].long()]
-                else:
-                    vecs = engine._ctx_dev(emb.name, db["bi"])[r0:r1]
-                out[sids[r0:r1]] = _aggregate(vecs, db["lengths"][r0:r1], agg)
+                out[sids[r0:r1]] = _aggregate(*_block(engine, db, table, emb.name,
+                                                      slice(r0, r1)), agg)
         result = SpanVectors(out)
         self._cache[key] = result
         return result

@@ -1308,12 +1308,13 @@ class BruteForceIndex(Index):
         embedding, or a mixed static + contextual tree, with or without
         tag weights) runs the tree pass, ``_find_batch_dense`` (every leaf
         of the stacked plans a chunk, then each query's tag rewrite).  A
-        transport metric's batch is item 6b."""
+        transport metric's batch runs ``_find_batch_transport`` (one
+        ranking pass for the batch, each query's host rescore;
+        ``sim_precision`` does not apply)."""
         if mesh is not None:
             raise _not_ported("find_batch(mesh=...)", "7: multi-device serving")
         if self._algorithm != "alignment":
-            raise _not_ported(f"find_batch of the {self._algorithm!r} metric",
-                              "6b: the transport find_batch")
+            return self._find_batch_transport(texts, n, min_score, **kwargs)
         token_sim = self._args["metric"]["token_sim"]
         if not all(getattr(e, "is_static", True) for e in token_sim.embeddings):
             if BATCH_HARD_OPTIONS & set(kwargs):
@@ -1881,6 +1882,56 @@ class BruteForceIndex(Index):
         elapsed = time.time() - start_time
         for qi in range(Q0):
             results[order[qi]] = Result(self, per_q[qi], elapsed)
+        return [r if r is not None else Result(self, [], 0.0) for r in results]
+
+    def _find_batch_transport(self, texts, n: int, min_score: float,
+                              **kwargs) -> List[Result]:
+        """A transport metric's batch (the JAX package's
+        ``_find_batch_transport``): Q queries share one ranking pass
+        (``ops/wmd.WMDEngine.find_batch``) over static plans, contextual
+        plans and mixed trees alike; tag weights, a booster and a
+        document-side filter ride it.  ``debug`` (its payloads are
+        per-query diagnostics) and a token similarity that is neither an
+        ``EmbeddingTokenSim`` nor a modifier tree run ``find`` query by
+        query."""
+        from vectorian_tpu_torch.ops.wmd import WMDEngine
+        from vectorian_tpu_torch.sim.modifier import TokenSimilarityModifier
+        from vectorian_tpu_torch.sim.token import EmbeddingTokenSim
+
+        token_sim = self._args["metric"]["token_sim"]
+        if (not isinstance(token_sim, (EmbeddingTokenSim, TokenSimilarityModifier))
+                or BATCH_HARD_OPTIONS & set(kwargs)):
+            return [self.find(t, n=n, min_score=min_score, **kwargs) for t in texts]
+        ctx_names = _metric_ctx_names(token_sim)
+        start_time = time.time()
+        booster = kwargs.get("booster")
+        queries, plans, tagws, order = [], [], [], []
+        results: List[Optional[Result]] = [None] * len(texts)
+        with trace.span("batch.prepare"):
+            for ti, text in enumerate(texts):
+                pq = self.make_query(text, n=n, min_score=min_score,
+                                     **kwargs).prepare(self._nlp)
+                if pq.n_tokens == 0:
+                    results[ti] = Result(self, [], 0.0)
+                    continue
+                qp = self._compile_plan(
+                    pq, ctx_names,
+                    needs_magnitudes=self._algorithm == "word-rotators-distance")
+                queries.append(pq)
+                plans.append(qp)
+                tagws.append(self._tag_weighting(pq, qp.width))
+                order.append(ti)
+        if queries:
+            # a booster's weights do not depend on the query: one compile
+            boost = None if booster is None else self._compile_booster(booster)
+            match_lists = WMDEngine(self._engine, self._args["alignment"]).find_batch(
+                self, queries, plans, n, min_score, tagws=tagws,
+                boosts=None if boost is None else [boost] * len(queries),
+                doc_filter=self._doc_filter(queries[0]),
+            )
+            elapsed = time.time() - start_time
+            for ti, ml in zip(order, match_lists):
+                results[ti] = Result(self, ml, elapsed)
         return [r if r is not None else Result(self, [], 0.0) for r in results]
 
     def _find_transport(self, query: PreparedQuery) -> List[Match]:

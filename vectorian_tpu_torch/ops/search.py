@@ -126,7 +126,8 @@ def stack_tree_plans(plans, len_ts, device):
     into one plan over a Q-minor needle axis (the JAX package's
     ``stack_tree_plans``): each static leaf a [V, Tpad * Q] table (column t
     * Q + q, copies of each plan's columns, zero past its width), each
-    contextual leaf the [Tpad * Q, d] rows of ``stack_ctx_queries``.  Every
+    contextual leaf the [Tpad * Q, d] rows of ``stack_ctx_queries`` (the
+    vocabulary magnitudes of a WRD plan's static leaves as they are).  Every
     node of ``eval_plan_chunk`` is elementwise over the needle axis, so the
     stacked plan evaluates all Q needles of a chunk at once; its [c, L,
     Tpad * Q] block is the [c, L, Tpad, Q] block the dense DP reads.
@@ -151,6 +152,7 @@ def stack_tree_plans(plans, len_ts, device):
             raise ValueError("stack_tree_plans: contextual width differs")
         ctxs.append(qv)
     stacked = QueryPlan(plan=p0.plan, static_sims=statics,
+                        static_mags=list(p0.static_mags),
                         ctx_names=list(p0.ctx_names), ctx_vectors=ctxs,
                         mixed_weights=list(p0.mixed_weights))
     return stacked, Tpad
@@ -616,6 +618,207 @@ def _host(t) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+class _HostCopies:
+    """Device -> host copies of some tensors, queued now and waited on by
+    ``wait()``: on a card each lands in pinned memory by a non_blocking
+    copy behind an event, so the host can queue more work (a paged
+    pass's next bucket) before it waits."""
+
+    def __init__(self, tensors):
+        self._event = None
+        self._bufs = [t.detach() for t in tensors]
+        if any(t.is_cuda for t in self._bufs):
+            bufs = []
+            for t in self._bufs:
+                b = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                b.copy_(t, non_blocking=True)
+                bufs.append(b)
+            self._bufs = bufs
+            self._event = torch.cuda.Event()
+            self._event.record()
+
+    def wait(self) -> List[np.ndarray]:
+        if self._event is not None:
+            self._event.synchronize()
+        return [b.numpy() for b in self._bufs]
+
+
+class _Pager:
+    """The host -> device copies of a paged engine.  Host copies live in
+    pinned memory (``pin``, once, when the engine is built); ``upload``
+    queues a non_blocking copy on a copy stream of its own, makes the
+    compute stream wait on an event recorded after it, and records the
+    new tensor on the compute stream, so the caching allocator does not
+    hand its memory out again while a read queued there is pending.  On
+    the CPU the host tensor is the device tensor.  ``bytes`` counts what
+    was uploaded."""
+
+    def __init__(self, device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        self.bytes = 0
+
+    def pin(self, arr) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        return t.pin_memory() if self.stream is not None else t
+
+    def empty(self, shape, dtype) -> torch.Tensor:
+        return torch.empty(shape, dtype=dtype, pin_memory=self.stream is not None)
+
+    def upload(self, host: torch.Tensor) -> torch.Tensor:
+        self.bytes += host.numel() * host.element_size()
+        if self.stream is None:
+            return host
+        compute = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self.stream):
+            dev = host.to(self.device, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(self.stream)
+        compute.wait_event(ready)
+        dev.record_stream(compute)
+        return dev
+
+
+def _widen_u16(t: torch.Tensor) -> torch.Tensor:
+    """int32 ids from the int16 bits of uint16 ones (torch's uint16 has
+    few CUDA ops)."""
+    return t.to(torch.int32) & 0xFFFF
+
+
+def _widen_u8(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.int16)
+
+
+def narrow_planes(bucket, pager):
+    """{key: (pinned host tensor, widen fn or None)} of a packed bucket's
+    device keys (the JAX package's narrow upload planes): token ids that
+    all fit under 65,536 travel as 16 bits and tag ids under 256 as 8
+    bits, widened on the device after the copy; pos ids (int8) and
+    lengths (int32) as they are."""
+    tok = np.ascontiguousarray(bucket.token_ids, np.int32)
+    tag = np.ascontiguousarray(bucket.tag_ids, np.int16)
+    planes = {
+        "lengths": (pager.pin(np.asarray(bucket.lengths, np.int32)), None),
+        "pos": (pager.pin(np.asarray(bucket.pos_ids, np.int8)), None),
+    }
+    if tok.size == 0 or (tok.min() >= 0 and tok.max() < 1 << 16):
+        planes["tokens"] = (pager.pin(tok.astype(np.uint16).view(np.int16)), _widen_u16)
+    else:
+        planes["tokens"] = (pager.pin(tok), None)
+    if tag.size == 0 or (tag.min() >= 0 and tag.max() < 1 << 8):
+        planes["tag"] = (pager.pin(tag.astype(np.uint8)), _widen_u8)
+    else:
+        planes["tag"] = (pager.pin(tag), None)
+    return planes
+
+
+class _PagedBucket(dict):
+    """A length bucket of a paged engine (the JAX package's
+    ``_PagedBucket``): its host fields (bi, capacity, n, slice_index) are
+    entries of the dict; its device keys — "tokens", "lengths", "pos",
+    "tag" — upload from their pinned host planes (``narrow_planes``) at
+    first touch, as does a contextual store through ``page``; ``evict``
+    drops every uploaded tensor again."""
+
+    DEVICE_KEYS = ("tokens", "lengths", "pos", "tag")
+
+    def __init__(self, fields, planes, pager):
+        super().__init__(fields)
+        self._planes = planes
+        self._pager = pager
+        self._paged = []
+
+    def __missing__(self, key):
+        if key not in self.DEVICE_KEYS:
+            raise KeyError(key)
+        return self.page(key, *self._planes[key])
+
+    def page(self, key, host: torch.Tensor, widen=None) -> torch.Tensor:
+        """The device copy of ``host`` under ``key``, uploaded (and
+        widened) at the first call until ``evict``."""
+        if dict.__contains__(self, key):
+            return dict.__getitem__(self, key)
+        val = self._pager.upload(host)
+        if widen is not None:
+            val = widen(val)
+        dict.__setitem__(self, key, val)
+        self._paged.append(key)
+        return val
+
+    def evict(self) -> None:
+        for key in self._paged:
+            dict.pop(self, key, None)
+        self._paged = []
+
+
+class _LazyScores:
+    """A paged corpus pass's deferred bucket (the JAX package's
+    ``_LazyScores``): ``get()`` pages the bucket in and dispatches its
+    scoring, -> (the bucket as the pass read it, its scores on the
+    device); ``release()`` drops both and evicts the bucket.  A consumer
+    reads what it needs of the scores to the host before it releases
+    them; ``get()`` after ``release()`` pages the bucket in again."""
+
+    __slots__ = ("_db", "_fn", "_out")
+
+    def __init__(self, db: _PagedBucket, fn):
+        self._db = db
+        self._fn = fn
+        self._out = None
+
+    def get(self):
+        if self._out is None:
+            self._out = self._fn()
+        return self._out
+
+    def release(self) -> None:
+        self._out = None
+        self._db.evict()
+
+
+def _drain(pending, read, span: str = "pass.fetch", dispatch_span=None) -> list:
+    """The host arrays of ``read(view, scores)`` (a list of device tensors)
+    for every entry of a corpus pass's pending list, in order; the waits
+    for the device are traced as ``span``, and the time before the first
+    wait as ``dispatch_span`` (when given).  Resident entries were
+    dispatched together; their reads are fetched at the end.  A lazy
+    (paged) entry is dispatched when it is reached, its reads are
+    queued, then the next lazy entry's upload and dispatch, before the
+    host waits for this one's copies and releases it: bucket i+1's upload
+    and kernels run while the host waits for bucket i, and the device
+    holds about two buckets at a time."""
+    t0 = time.perf_counter()
+
+    def wait():
+        nonlocal dispatch_span
+        if dispatch_span is not None:
+            trace.add(dispatch_span, time.perf_counter() - t0)
+            dispatch_span = None
+        return trace.span(span)
+
+    out = []
+    for i, (db, s) in enumerate(pending):
+        if not isinstance(s, _LazyScores):
+            out.append(read(db, s))
+            continue
+        copies = _HostCopies(read(*s.get()))
+        if i + 1 < len(pending) and isinstance(pending[i + 1][1], _LazyScores):
+            pending[i + 1][1].get()
+        with wait():
+            out.append(copies.wait())
+        s.release()
+    with wait():
+        return [[r if isinstance(r, np.ndarray) else _host(r) for r in refs]
+                for refs in out]
+
+
+def _pending_entry(db, fn, paged: bool):
+    """One bucket's entry of a corpus pass's pending list: ``fn()`` ->
+    (the bucket as the pass read it, its scores) dispatched now, or (the
+    paged bucket, a ``_LazyScores`` of ``fn``)."""
+    return (db, _LazyScores(db, fn)) if paged else fn()
+
+
 class HostVecSource:
     """Candidate source over a complete host-side [n_slices] device-score
     vector of one query (the full-read passes) — the finalizer's
@@ -696,14 +899,16 @@ class BucketTopKSource:
         if ec is None:
             self._init_values(pending, k)
             return
-        refs = []
         metas = []
         pay_budget = self.PAYLOAD_MAX_BYTES  # WHOLE-FETCH budget
-        t_loop0 = time.perf_counter()
         deep = self.DEEP_K if Q <= 8 else self.DEEP_K_LARGE_Q
         # similarity blocks a payload row carries: S, and Su under tags
         blocks = 1 if ec["tw"] is None else 2
-        for db, scores in pending:
+
+        def read(db, scores):
+            # ``db`` is the bucket as the pass read it (the fused rescore
+            # reads its rows while a paged bucket is on the device)
+            nonlocal pay_budget
             n = db["n"]
             kk = min(k, n)
             kd = max(kk, min(deep, n - 1))
@@ -714,21 +919,24 @@ class BucketTopKSource:
             with_pay = pay_bytes <= pay_budget
             if with_pay:
                 pay_budget -= pay_bytes
+            meta = {"db": pending[len(metas)][0], "pay": with_pay}
+            metas.append(meta)
             if kd < n:
                 vals, idx, raw, H, S, Su = _topk_exact_rescore(
                     scores, db, ec, n, kk, kd
                 )
-                metas.append({"db": db, "kk": kd, "full": False, "pay": with_pay})
-                refs.extend((vals, idx, raw))
+                meta.update(kk=kd, full=False)
+                refs = [vals, idx, raw]
             else:
                 vals, raw, H, S, Su = _full_exact_rescore(scores, db, ec, n)
-                metas.append({"db": db, "kk": kk, "full": True, "pay": with_pay})
-                refs.extend((vals, raw))
+                meta.update(kk=kk, full=True)
+                refs = [vals, raw]
             if with_pay:
                 refs.extend((H, S) if Su is None else (H, S, Su))
-        trace.add("topk.rescore_dispatch", time.perf_counter() - t_loop0)
-        with trace.span("topk.fetch"):
-            fetched = [_host(r) for r in refs]
+            return refs
+
+        fetched = [r for refs in _drain(pending, read, "topk.fetch",
+                                        "topk.rescore_dispatch") for r in refs]
         self._buckets = []
         pos = 0
         for m in metas:
@@ -760,19 +968,18 @@ class BucketTopKSource:
         """The per-bucket fetch without an exact rescore: the [Q, k + 1]
         best device values and their ids of a bucket (its (k+1)-th value
         bounds the rest), or the whole bucket where it holds at most k."""
-        refs, metas = [], []
-        for db, scores in pending:
+        metas = []
+
+        def read(db, scores):
             n = db["n"]
             kk = min(k, n)
-            if kk < n:
-                vals, idx = torch.topk(scores[:n].T, kk + 1, dim=1)
-                metas.append({"db": db, "kk": kk, "full": False})
-                refs.extend((vals, idx))
-            else:
-                metas.append({"db": db, "kk": kk, "full": True})
-                refs.append(scores[:n].T)
-        with trace.span("topk.fetch"):
-            fetched = [_host(r) for r in refs]
+            full = kk >= n
+            metas.append({"db": pending[len(metas)][0], "kk": kk, "full": full})
+            if full:
+                return [scores[:n].T]
+            return list(torch.topk(scores[:n].T, kk + 1, dim=1))
+
+        fetched = [r for refs in _drain(pending, read, "topk.fetch") for r in refs]
         self._buckets = []
         pos = 0
         for m in metas:
@@ -906,11 +1113,24 @@ class BucketTopKSource:
             vk, ik, ek = vk[ap[:m]], ik[ap[:m]], ek[ap[:m]]
         return [int(c) for c in ik], rest_max, ek
 
+    def _bucket_scores(self, bi: int):
+        """(the bucket as its pass read it, its scores, a release fn) of
+        pending entry ``bi``: a paged bucket is paged in again and its
+        scores recomputed (the JAX package's re-paging fallback, correct
+        and memory-bounded at the price of a bucket's pass); the caller
+        reads what it needs to the host, then releases."""
+        db, s = self._pending[bi]
+        if isinstance(s, _LazyScores):
+            view, scores = s.get()
+            return view, scores, s.release
+        return db, s, lambda: None
+
     def _column(self, bi: int, qi: int):
         key = (bi, qi)
         if key not in self._col_cache:
-            db, scores = self._pending[bi]
+            db, scores, release = self._bucket_scores(bi)
             self._col_cache[key] = _host(scores[: db["n"], qi])
+            release()
         return self._col_cache[key]
 
     def above_exact_many(self, reqs):
@@ -943,8 +1163,14 @@ class BucketTopKSource:
         launch) or their device scores ("vals"); a column past ABOVE_CAP
         rows is read whole instead.  Two waits for the device: the counts,
         then the results."""
+        db, scores, release = self._bucket_scores(bi)
+        try:
+            self._select_in(bi, db, scores, cols, sel, raws, mode)
+        finally:
+            release()
+
+    def _select_in(self, bi, db, scores, cols, sel, raws, mode):
         ec = self.exact_ctx
-        db, scores = self._pending[bi]
         n = db["n"]
         dev = scores.device
         qis = list(cols)
@@ -955,7 +1181,9 @@ class BucketTopKSource:
         counts = _host(mask.sum(1))
         fits = counts <= min(self.ABOVE_CAP, n)
         for c in np.flatnonzero(~fits):
-            self._column(bi, qis[c])
+            # a column past the cap is read whole (from these scores: a
+            # paged bucket is on the device now)
+            self._col_cache[(bi, qis[c])] = _host(scores[:n, qis[c]])
         keep = np.flatnonzero(fits)
         total = int(counts[keep].sum())
         rows_h, raw_h = np.empty((0,), np.int64), np.empty((0,), np.float32)
@@ -1128,15 +1356,29 @@ def _stacked_rescore(tokens, rows, qidx, table, ln, lt, gaps, V, locality,
 
 
 class BruteForceEngine:
-    """Scores a PackedCorpus against compiled query plans; the bucket
-    arrays live on ``device`` (resident mode).  The buckets' pos and tag
-    ids go to the device at the first query that needs them (tag weights,
-    a document-side filter)."""
+    """Scores a PackedCorpus against compiled query plans.  Resident mode
+    keeps the bucket arrays on ``device``; their pos and tag ids go there
+    at the first query that needs them (tag weights, a document-side
+    filter).
 
-    def __init__(self, packed, device="cuda"):
+    ``paged=True`` (the JAX package's paged mode, for corpora whose arrays
+    pass the card's memory) keeps every bucket's arrays, and the
+    contextual stores, in pinned host memory and streams them through the
+    device one bucket at a time: each corpus pass uploads a bucket,
+    dispatches its scoring, reads what it needs to the host and evicts it
+    (``_PagedBucket``, ``_LazyScores``, ``_drain``), bucket i+1's upload
+    and dispatch issued before the host waits for bucket i.  The row paths
+    (rescores, similarity rows, span encodes) upload the host rows they
+    read and never a whole bucket.  Results are byte-identical to resident
+    mode: the arrays and kernels are the same."""
+
+    def __init__(self, packed, device="cuda", paged: bool = False):
         self._packed = packed
         self.device = torch.device(device)
+        self.paged = bool(paged)
+        self._pager = _Pager(self.device) if self.paged else None
         # contextual embedding name -> per bucket [n, L, d] bf16 vectors
+        # (pinned host tensors when paged)
         self._ctx_stores: Dict[str, list] = {}
         self._device_buckets = []
         # slice id -> (bucket index, row) for O(1) rescore lookups
@@ -1144,69 +1386,101 @@ class BruteForceEngine:
         for bi, b in enumerate(packed.buckets):
             self._slice_loc[b.slice_index, 0] = bi
             self._slice_loc[b.slice_index, 1] = np.arange(b.n, dtype=np.int32)
-            self._device_buckets.append(
-                {
-                    "bi": bi,
-                    "capacity": b.capacity,
-                    "slice_index": b.slice_index,
-                    "n": b.n,
-                    "tokens": self._put(b.token_ids),
-                    "lengths": self._put(b.lengths),
-                }
-            )
+            fields = {"bi": bi, "capacity": b.capacity,
+                      "slice_index": b.slice_index, "n": b.n}
+            if self.paged:
+                self._device_buckets.append(
+                    _PagedBucket(fields, narrow_planes(b, self._pager), self._pager))
+            else:
+                fields.update(tokens=self._put(b.token_ids), lengths=self._put(b.lengths))
+                self._device_buckets.append(fields)
 
     def _put(self, arr) -> torch.Tensor:
         return torch.as_tensor(
             np.ascontiguousarray(arr, np.int32), device=self.device
         )
 
+    @property
+    def uploaded_bytes(self) -> int:
+        """Host -> device bytes a paged engine has uploaded (0 resident)."""
+        return 0 if self._pager is None else self._pager.bytes
+
     def _bucket_ids(self, db, key: str) -> torch.Tensor:
         """The bucket's "pos" (int8) or "tag" (int16) ids [n, L] on the
-        device, uploaded at the first call that needs them."""
+        device, uploaded at the first call that needs them (a paged
+        bucket's until it is evicted)."""
+        if isinstance(db, _PagedBucket):
+            return db[key]
         if key not in db:
             b = self._packed.buckets[db["bi"]]
             arr = b.pos_ids if key == "pos" else b.tag_ids
             db[key] = torch.as_tensor(np.ascontiguousarray(arr), device=self.device)
         return db[key]
 
-    def _pass_buckets(self, doc_filter=None, with_pos=False):
-        """The non-empty buckets as one call's corpus pass reads them:
-        dicts of the bucket's fields with "tokens", "lengths" and (with
-        ``with_pos``) "pos" compacted under ``doc_filter`` (once a call:
-        every query of a batch shares the filter), else the resident
-        ones."""
-        flt = None if doc_filter is None else doc_filter.device_args(self.device)
-        out = []
-        for db in self._device_buckets:
-            if db["n"] == 0:
-                continue
-            view = dict(db)
-            if with_pos or flt is not None:
-                view["pos"] = self._bucket_ids(db, "pos")
-            if flt is not None:
-                perm, ln, _ = compact_slices(
-                    db["tokens"], view["pos"], self._bucket_ids(db, "tag"),
-                    db["lengths"], *flt,
-                )
-                view["tokens"] = torch.gather(db["tokens"], 1, perm).contiguous()
-                view["pos"] = torch.gather(view["pos"], 1, perm).contiguous()
-                view["lengths"] = ln
-            out.append(view)
+    def _live_buckets(self):
+        return [db for db in self._device_buckets if db["n"]]
+
+    def _pass_view(self, db, flt, with_pos: bool) -> dict:
+        """The bucket as one call's corpus pass reads it: its fields with
+        "tokens", "lengths" and (with ``with_pos``) "pos", compacted under
+        the filter's device masks ``flt`` (once a call: every query of a
+        batch shares the filter)."""
+        view = {k: db[k] for k in ("bi", "capacity", "slice_index", "n",
+                                   "tokens", "lengths")}
+        if with_pos or flt is not None:
+            view["pos"] = self._bucket_ids(db, "pos")
+        if flt is not None:
+            perm, ln, _ = compact_slices(
+                view["tokens"], view["pos"], self._bucket_ids(db, "tag"),
+                view["lengths"], *flt,
+            )
+            view["tokens"] = torch.gather(view["tokens"], 1, perm).contiguous()
+            view["pos"] = torch.gather(view["pos"], 1, perm).contiguous()
+            view["lengths"] = ln
+        return view
+
+    def collect(self, pending, Q: int = 1) -> np.ndarray:
+        """[n_slices, Q] host scores of a corpus pass's pending list of [n,
+        Q] (or, Q = 1, [n]) scores, NEG_SCORE for an empty slice; paged
+        buckets drained one at a time (the JAX package's
+        ``_collect_pending``)."""
+        out = np.full((self.n_slices, Q), NEG_SCORE, np.float32)
+        for (db, _), (sc,) in zip(pending, _drain(pending, lambda db, sc: [sc])):
+            out[db["slice_index"]] = sc.reshape(-1, Q)
         return out
 
     def count_tokens(self, mask) -> np.ndarray:
         """[n_slices] int64: per slice, how many of its tokens ``mask`` ([V]
         bool over token ids) holds, one gather a bucket where the buckets
-        live (a booster's keyword counts)."""
+        live (a booster's keyword counts; a paged bucket is paged in and
+        evicted)."""
         m = torch.as_tensor(np.asarray(mask, bool), device=self.device)
         out = np.zeros((self.n_slices,), np.int64)
-        for db in self._device_buckets:
-            if db["n"] == 0:
-                continue
+        for db in self._live_buckets():
             live = (torch.arange(db["capacity"], device=self.device)[None, :]
                     < db["lengths"][:, None])
             out[db["slice_index"]] = _host((m[db["tokens"]] & live).sum(1))
+            if self.paged:
+                db.evict()
         return out
+
+    def rows_to_device(self, bi: int, key, rows) -> torch.Tensor:
+        """Bucket ``bi``'s ``rows`` (host indices or a slice) of "tokens"
+        (int32), "lengths", "pos", "tag" or ("ctx", name) uploaded from the
+        host copies: the row paths of a paged engine, which never page a
+        whole bucket for a few rows."""
+        if isinstance(key, tuple):
+            host = self._ctx_stores[key[1]][bi]
+            idx = rows if isinstance(rows, slice) else torch.as_tensor(
+                np.asarray(rows, np.int64))
+            return host[idx].to(self.device)
+        b = self._packed.buckets[bi]
+        arr = {"tokens": b.token_ids, "lengths": b.lengths, "pos": b.pos_ids,
+               "tag": b.tag_ids}[key]
+        out = arr[rows] if isinstance(rows, slice) else arr[np.asarray(rows, np.int64)]
+        if key in ("tokens", "lengths"):
+            out = out.astype(np.int32)
+        return torch.as_tensor(np.ascontiguousarray(out), device=self.device)
 
     def filtered_positions(self, sid: int, doc_filter) -> np.ndarray:
         """Host replica of the device compaction for one slice: the
@@ -1272,7 +1546,12 @@ class BruteForceEngine:
         store = []
         for db in self._device_buckets:
             L, n = db["capacity"], db["n"]
-            out = torch.empty((n, L, dim), dtype=torch.bfloat16, device=self.device)
+            if self.paged:
+                # pinned host bf16 (round to nearest even, as the card's
+                # conversion: paged = resident bit for bit)
+                out = self._pager.empty((n, L, dim), torch.bfloat16)
+            else:
+                out = torch.empty((n, L, dim), dtype=torch.bfloat16, device=self.device)
             step = max(1, (64 << 20) // (L * max(dim, 1) * 4))
             for r0 in range(0, n, step):
                 sids = db["slice_index"][r0 : r0 + step]
@@ -1284,21 +1563,26 @@ class BruteForceEngine:
                     np.where(mask, starts[:, None] + np.arange(L)[None, :], 0),
                     len(flat) - 1,
                 )
-                block = np.where(mask[:, :, None], flat[idx], np.float32(0.0))
-                out[r0 : r0 + len(sids)] = torch.from_numpy(block).to(
-                    self.device).to(torch.bfloat16)
+                block = torch.from_numpy(
+                    np.where(mask[:, :, None], flat[idx], np.float32(0.0)))
+                out[r0 : r0 + len(sids)] = block.to(out.device).to(torch.bfloat16)
             store.append(out)
         self._ctx_stores[name] = store
 
     def _ctx_dev(self, name: str, bi: int) -> torch.Tensor:
-        """Bucket ``bi``'s [n, L, d] bf16 store of embedding ``name``."""
-        return self._ctx_stores[name][bi]
+        """Bucket ``bi``'s [n, L, d] bf16 store of embedding ``name`` on the
+        device: a paged engine uploads it fresh, evicted with the bucket."""
+        store = self._ctx_stores[name][bi]
+        if self.paged:
+            return self._device_buckets[bi].page(("ctx", name), store)
+        return store
 
     def _dense_pass(self, block, Tpad: int, Q: int, d: int, lt, gaps,
                     locality: str, nt, general=None, doc_filter=None,
                     rewrite=None, boost=None):
-        """[(bucket, normalized scores [n, Q] on the device)] of a corpus
-        pass over dense blocks.  Per chunk [c0, c1) of ``ctx_chunk``
+        """The pending list [(bucket, normalized scores [n, Q] on the
+        device)] of a corpus pass over dense blocks (lazy entries when
+        paged).  Per chunk [c0, c1) of ``ctx_chunk``
         slices: ``block(db, c0, c1)`` makes its [c, L, Tpad, Q] similarity
         block; under a document-side filter the block's rows are compacted
         AFTER it is made (the store's rows stay in slice order, so the
@@ -1307,45 +1591,49 @@ class BruteForceEngine:
         dense DP entry.  ``boost`` [n_slices] multiplies the scores."""
         dev = self.device
         flt = None if doc_filter is None else doc_filter.device_args(dev)
-        out = []
-        for db in self._device_buckets:
-            n, L = db["n"], db["capacity"]
-            if n == 0:
-                continue
-            chunk = ctx_chunk(L, Tpad, Q, d)
-            parts = []
-            for c0 in range(0, n, chunk):
-                c1 = min(c0 + chunk, n)
-                S = block(db, c0, c1)
-                ln = db["lengths"][c0:c1]
-                pos = None
-                if flt is not None or rewrite is not None:
-                    pos = self._bucket_ids(db, "pos")[c0:c1]
-                if flt is not None:
-                    perm, ln, _ = compact_slices(
-                        db["tokens"][c0:c1], pos,
-                        self._bucket_ids(db, "tag")[c0:c1], ln, *flt)
-                    S = torch.gather(
-                        S, 1, perm[:, :, None, None].expand(-1, -1, Tpad, Q))
-                    pos = torch.gather(pos, 1, perm)
-                if rewrite is not None:
-                    S = rewrite(S, pos)
-                b = None
-                if boost is not None:
-                    sids = torch.as_tensor(db["slice_index"][c0:c1], device=dev)
-                    b = boost[sids.long()][:, None]
-                parts.append(_dense_scores(S.contiguous(), ln, lt, gaps, nt,
-                                           locality, general, b))
-            out.append((db, torch.cat(parts)))
-        return out
+        return [_pending_entry(db, lambda db=db: (db, self._dense_bucket(
+                    db, block, Tpad, Q, d, lt, gaps, locality, nt, general, flt,
+                    rewrite, boost)), self.paged)
+                for db in self._live_buckets()]
+
+    def _dense_bucket(self, db, block, Tpad, Q, d, lt, gaps, locality, nt,
+                      general, flt, rewrite, boost):
+        """One bucket's chunks of ``_dense_pass``: its scores [n, Q]."""
+        dev = self.device
+        n, L = db["n"], db["capacity"]
+        chunk = ctx_chunk(L, Tpad, Q, d)
+        parts = []
+        for c0 in range(0, n, chunk):
+            c1 = min(c0 + chunk, n)
+            S = block(db, c0, c1)
+            ln = db["lengths"][c0:c1]
+            pos = None
+            if flt is not None or rewrite is not None:
+                pos = self._bucket_ids(db, "pos")[c0:c1]
+            if flt is not None:
+                perm, ln, _ = compact_slices(
+                    db["tokens"][c0:c1], pos,
+                    self._bucket_ids(db, "tag")[c0:c1], ln, *flt)
+                S = torch.gather(
+                    S, 1, perm[:, :, None, None].expand(-1, -1, Tpad, Q))
+                pos = torch.gather(pos, 1, perm)
+            if rewrite is not None:
+                S = rewrite(S, pos)
+            b = None
+            if boost is not None:
+                sids = torch.as_tensor(db["slice_index"][c0:c1], device=dev)
+                b = boost[sids.long()][:, None]
+            parts.append(_dense_scores(S.contiguous(), ln, lt, gaps, nt,
+                                       locality, general, b))
+        return torch.cat(parts)
 
     def _plan_pass(self, qp, len_t: int, gaps, locality: str,
                    norm_total: float, gap_costs=None, tag_weights=None,
                    doc_filter=None, boost=None):
         """The single-query corpus pass of a plan with a contextual leaf:
-        [(bucket, normalized scores [n] on the device)].  ``_dense_pass``
-        at Q = 1, a chunk's block made by ``eval_plan_chunk`` — the JAX
-        package's ``_bucket_scores`` arithmetic."""
+        the pending list of ``_dense_pass`` at Q = 1 (scores [n, 1]), a
+        chunk's block made by ``eval_plan_chunk`` — the JAX package's
+        ``_bucket_scores`` arithmetic."""
         dev = self.device
         T = qp.width
         general = (None if gap_costs is None
@@ -1374,9 +1662,8 @@ class BruteForceEngine:
         bvec = (None if boost is None else
                 torch.as_tensor(np.asarray(boost, np.float32), device=dev))
         d = max(int(v.unmodified.shape[1]) for v in qp.ctx_vectors)
-        cols = self._dense_pass(block, T, 1, d, lt, gaps, locality, nt, general,
+        return self._dense_pass(block, T, 1, d, lt, gaps, locality, nt, general,
                                 doc_filter, rewrite, bvec)
-        return [(db, sc[:, 0]) for db, sc in cols]
 
     def score_all(self, qp, len_t: int, gaps, locality: str,
                   norm_total: float, boost=None, tag_weights=None,
@@ -1394,12 +1681,9 @@ class BruteForceEngine:
                     gap_costs=gap_costs, doc_filter=doc_filter,
                     boosts=None if boost is None else [boost],
                 )[:, 0]
-            cols = self._plan_pass(qp, len_t, gaps, locality, norm_total,
-                                   gap_costs, tag_weights, doc_filter, boost)
-            out = np.full((self.n_slices,), NEG_SCORE, np.float32)
-            for (db, _), col in zip(cols, [_host(c) for _, c in cols]):
-                out[db["slice_index"]] = col
-            return out
+            return self.collect(self._plan_pass(
+                qp, len_t, gaps, locality, norm_total, gap_costs, tag_weights,
+                doc_filter, boost))[:, 0]
 
     def score_all_multi(self, plans, len_ts, gaps, locality: str, norm_totals,
                         tag_weights=None, sim_dtype=None, with_err: bool = False,
@@ -1412,9 +1696,7 @@ class BruteForceEngine:
             plans, len_ts, gaps, locality, norm_totals, gap_costs, sim_dtype,
             tag_weights, doc_filter, boosts,
         )
-        out = np.full((self.n_slices, len(plans)), NEG_SCORE, np.float32)
-        for (db, _), sc in zip(pending, [_host(sc) for _, sc in pending]):
-            out[db["slice_index"]] = sc
+        out = self.collect(pending, len(plans))
         return (out, err) if with_err else out
 
     def score_topk(self, qp, len_t: int, gaps, locality: str,
@@ -1519,11 +1801,8 @@ class BruteForceEngine:
         with trace.span("tree.dispatch"):
             cols = self._dense_pass(block, Tpad, Q, d, lt, gaps, locality, nt,
                                     general, doc_filter, rewrite)
-        out = np.full((self.n_slices, Q), NEG_SCORE, np.float32)
         with trace.span("tree.fetch"):
-            for (db, _), sc in zip(cols, [_host(c) for _, c in cols]):
-                out[db["slice_index"]] = sc
-        return out
+            return self.collect(cols, Q)
 
     def _plan_rows_similarity(self, bi: int, rows, sels, qp, tag_weights=None):
         """(S weighted [g, L, T], S unweighted) of bucket ``bi``'s ``rows``
@@ -1532,10 +1811,15 @@ class BruteForceEngine:
         rescore's evaluation, in blocks of RESCORE_ROWS token rows."""
         db = self._device_buckets[bi]
         dev = self.device
-        rows_t = torch.as_tensor(np.asarray(rows, np.int64), device=dev)
-        tok = db["tokens"][rows_t]
-        ctx = [self._ctx_dev(nm, bi)[rows_t] for nm in qp.ctx_names]
-        pos = None if tag_weights is None else self._bucket_ids(db, "pos")[rows_t]
+        if self.paged:
+            tok = self.rows_to_device(bi, "tokens", rows)
+            ctx = [self.rows_to_device(bi, ("ctx", nm), rows) for nm in qp.ctx_names]
+            pos = None if tag_weights is None else self.rows_to_device(bi, "pos", rows)
+        else:
+            rows_t = torch.as_tensor(np.asarray(rows, np.int64), device=dev)
+            tok = db["tokens"][rows_t]
+            ctx = [self._ctx_dev(nm, bi)[rows_t] for nm in qp.ctx_names]
+            pos = None if tag_weights is None else self._bucket_ids(db, "pos")[rows_t]
         if sels is not None:
             sel_pad = np.zeros((len(sels), db["capacity"]), np.int64)
             for k, sel in enumerate(sels):
@@ -1656,15 +1940,20 @@ class BruteForceEngine:
             tw_cols = _put_all(
                 corpus_tag_columns(tag_weights, Q, Tpad), self.device
             )
-        t_disp0 = time.perf_counter()
-        pending = []
-        for db in self._pass_buckets(doc_filter, with_pos=with_tags):
-            pending.append((db, _bucket_scores_multiquery(
-                db["tokens"], db["lengths"], sim_multi, lt_arr, gaps, nt_arr,
+        flt = None if doc_filter is None else doc_filter.device_args(self.device)
+
+        def run(db):
+            view = self._pass_view(db, flt, with_tags)
+            return view, _bucket_scores_multiquery(
+                view["tokens"], view["lengths"], sim_multi, lt_arr, gaps, nt_arr,
                 locality, general, scale_t,
-                None if tw_cols is None else TagBlock(db["pos"], *tw_cols),
+                None if tw_cols is None else TagBlock(view["pos"], *tw_cols),
                 None if boosts is None else self._boost_matrix(db, boosts),
-            )))
+            )
+
+        t_disp0 = time.perf_counter()
+        pending = [_pending_entry(db, lambda db=db: run(db), self.paged)
+                   for db in self._live_buckets()]
         trace.add("topk.dispatch", time.perf_counter() - t_disp0)
         return pending, quantization_entry_err(sim_dtype, max_abs)
 
@@ -1883,8 +2172,6 @@ class BruteForceEngine:
                     torch.as_tensor(np.asarray(cols[c], np.int64), device=self.device)
                     for c in ("rows", "qix", "ln", "lt")
                 )
-                tokens = db["tokens"]
-                pos = None if tw is None else self._bucket_ids(db, "pos")
                 if doc_filter is not None:
                     # the compacted rows, gathered on the host: kept tokens
                     # first, in order (the rows past a slice's length are
@@ -1892,6 +2179,15 @@ class BruteForceEngine:
                     tokens, pos = self._compacted_rows(bi, cols["rows"], sels,
                                                        tw is not None)
                     rows = torch.arange(len(pc), device=self.device)
+                elif self.paged:
+                    # the candidates' host rows, never the whole bucket
+                    tokens = self.rows_to_device(bi, "tokens", cols["rows"])
+                    pos = (None if tw is None
+                           else self.rows_to_device(bi, "pos", cols["rows"]))
+                    rows = torch.arange(len(pc), device=self.device)
+                else:
+                    tokens = db["tokens"]
+                    pos = None if tw is None else self._bucket_ids(db, "pos")
                 out = _stacked_rescore(
                     tokens, rows, qix, table, ln, lt, gaps, V,
                     locality, want_flows, general, pos, tw,

@@ -382,6 +382,10 @@ def eval_plan_chunk(qp: QueryPlan, tok: torch.Tensor, ctx_chunks,
         raise ValueError(node)
 
     S, mag = rec(qp.plan)
+    # ``rec`` is a recursive closure (a reference cycle holding the chunk's
+    # tensors until a garbage collection): break it, so a paged bucket's
+    # store frees when the pass evicts it
+    del rec
     out = {"similarity": S}
     if needs_magnitudes:
         out["magnitudes_s"] = mag

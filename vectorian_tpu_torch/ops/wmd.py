@@ -1,13 +1,17 @@
-"""Word Mover's / Word Rotator's Distance ``find`` over packed corpora.
+"""Word Mover's / Word Rotator's Distance ``find`` and ``find_batch`` over
+packed corpora.
 
 Reference: vectorian/core/cpp/alignment/wmd.h + wrd.h + bow.h.
 
-The port of vectorian_tpu/ops/wmd.py's single-query half: the device
-ranking passes and the host rescore behind ``WMDEngine.find``.  The JAX
-package computes its ranking passes with jnp (no Pallas kernel), so the
-port computes them with torch ops on the session's device, chunk by chunk
-of each bucket, and evaluates the query's plan with ``eval_plan_chunk``
-(static, contextual and mixed trees alike).
+The port of vectorian_tpu/ops/wmd.py without its multi-device methods:
+the device ranking passes and the host rescore behind ``WMDEngine.find``
+and ``WMDEngine.find_batch``.  The JAX package computes its ranking passes
+with jnp (no Pallas kernel), so the port computes them with torch ops on
+the session's device, chunk by chunk of each bucket: a query's plan
+through ``eval_plan_chunk`` (static, contextual and mixed trees alike); a
+batch's Q queries a chunk at once, the [c, L, T, Q] block gathered from
+the static plans' stacked [V, T, Q] table or evaluated from the stacked
+tree plan (``search.stack_tree_plans``).
 
 * BOW dedup (BOWBuilder::build, bow.h:204-275) is a masked-mass
   formulation: every slice position keeps its token, but only the first
@@ -26,8 +30,10 @@ of each bucket, and evaluates the query's plan with ``eval_plan_chunk``
   below the n-th exact score, so the top-k is the exhaustive exact-EMD
   oracle's.
 
-The batch (``find_batch``) and multi-device halves of the JAX module are
-not ported here.
+The batch serves Q queries with one corpus pass; each query's host
+rescore then runs as ``find``'s does, on similarity rows fetched for the
+whole batch at once (``_sims_many_static`` / ``_sims_many_plan``), so a
+batch reports, query by query, the bytes of ``find``.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from typing import List
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from vectorian_tpu_torch.ops.dp_kernels import tag_weighted
 from vectorian_tpu_torch.ops.emd_exact import emd_score_batch
@@ -43,8 +50,12 @@ from vectorian_tpu_torch.ops.search import (
     CTX_INPUT_BYTES,
     NEG_SCORE,
     BucketTopKSource,
+    _HostCopies,
     _host,
+    _pending_entry,
     order_by_score,
+    stack_tree_plans,
+    tag_weighted_multi,
 )
 from vectorian_tpu_torch.ops.simmatrix import eval_plan_chunk
 from vectorian_tpu_torch.utils import trace
@@ -201,12 +212,14 @@ def _emd_score_bound(m_t, m_s, Dts):
     return 1.0 - g / torch.clamp_min(flow, 1e-9)
 
 
-def _transport_chunk(L: int, T: int, d: int) -> int:
-    """Slices a chunk of a transport pass evaluates at once: the greedy
-    fill's comparison block within TRANSPORT_BLOCK_BYTES, its contextual
-    vectors within CTX_INPUT_BYTES."""
+def _transport_chunk(L: int, T: int, d: int, Q: int = 1) -> int:
+    """Slices a chunk of a transport pass over Q queries evaluates at once:
+    the greedy fill's [c * Q, n1, n2, n2] comparison block within
+    TRANSPORT_BLOCK_BYTES, the chunk's contextual vectors within
+    CTX_INPUT_BYTES.  (The JAX package halves its chunk until chunk x Q <=
+    4096, a TPU rule; the byte budget is the port's.)"""
     n2 = max(L, T)
-    per = 4 * T * L * (n2 if n2 <= 128 else 8)
+    per = 4 * T * L * (n2 if n2 <= 128 else 8) * Q
     return max(1, min(TRANSPORT_BLOCK_BYTES // per,
                       CTX_INPUT_BYTES // (L * max(d, 1) * 4)))
 
@@ -219,9 +232,13 @@ class _ChunkArgs:
     def __init__(self, engine, qp, tagw, doc_filter, T: int):
         self.engine = engine
         self.qp = qp
+        self.ctx_names = list(qp.ctx_names)
         self.tw = WMDEngine._tagw_args(tagw, T, engine.device)
         self.df = WMDEngine._df_args(doc_filter, engine.device)
         self.d = sum(int(v.unmodified.shape[1]) for v in qp.ctx_vectors)
+
+    def _step(self, L: int) -> int:
+        return _transport_chunk(L, self.qp.width, self.d)
 
     def chunks(self, db, with_tag: bool):
         """(tok, pos, tag, ln, ctx) of each chunk of bucket ``db``: pos and
@@ -231,7 +248,7 @@ class _ChunkArgs:
         n, L = db["n"], db["capacity"]
         need_pos = self.tw is not None or self.df is not None
         need_tag = with_tag or self.df is not None
-        step = _transport_chunk(L, self.qp.width, self.d)
+        step = self._step(L)
         for c0 in range(0, n, step):
             c1 = min(c0 + step, n)
             yield (
@@ -239,7 +256,7 @@ class _ChunkArgs:
                 eng._bucket_ids(db, "pos")[c0:c1] if need_pos else None,
                 eng._bucket_ids(db, "tag")[c0:c1] if need_tag else None,
                 db["lengths"][c0:c1],
-                tuple(eng._ctx_dev(nm, db["bi"])[c0:c1] for nm in self.qp.ctx_names),
+                tuple(eng._ctx_dev(nm, db["bi"])[c0:c1] for nm in self.ctx_names),
             )
 
     def similarity(self, tok, pos, ctx, needs_magnitudes=False):
@@ -349,6 +366,182 @@ def _bucket_emd_scores(args: _ChunkArgs, db, mass_t, use_magnitudes: bool,
     return torch.cat(out)
 
 
+class _MultiChunkArgs(_ChunkArgs):
+    """``_ChunkArgs`` with a query axis: a batch's [c, L, T, Q] similarity
+    block a chunk, and each query's tag rewrite.  The block is gathered
+    from the static plans' stacked [V, T, Q] ``table`` by the chunk's
+    token ids (the JAX package's ``_bucket_*_scores_multi``), else
+    evaluated from the stacked tree plan ``sp`` (``stack_tree_plans``;
+    its ``_bucket_*_scores_multi_plan``).  ``tw``: the [T, Q] / [Q] tag
+    columns (``WMDEngine._tagw_args_multi``) or None; ``mags``: the
+    vocabulary's magnitudes [V] of a static WRD batch."""
+
+    def __init__(self, engine, table, sp, T: int, Q: int, tw, doc_filter,
+                 mags=None):
+        self.engine = engine
+        self.table = table
+        self.qp = sp
+        self.ctx_names = [] if sp is None else list(sp.ctx_names)
+        self.T, self.Q = T, Q
+        self.tw = tw
+        self.df = WMDEngine._df_args(doc_filter, engine.device)
+        self.mags = mags
+        self.d = (0 if sp is None
+                  else sum(int(v.unmodified.shape[1]) for v in sp.ctx_vectors))
+
+    def _step(self, L: int) -> int:
+        return _transport_chunk(L, self.T, self.d, self.Q)
+
+    def similarity(self, tok, pos, ctx, needs_magnitudes=False):
+        c, L = tok.shape
+        if self.table is not None:
+            S = self.table[tok.long()]  # [c, L, T, Q]
+            mags = self.mags[tok.long()] if needs_magnitudes else None
+        else:
+            out = eval_plan_chunk(self.qp, tok, ctx, needs_magnitudes=needs_magnitudes)
+            S = out["similarity"].reshape(c, L, self.T, self.Q)
+            mags = out.get("magnitudes_s")
+        if self.tw is not None:
+            S = tag_weighted_multi(S, pos, *self.tw)
+        return S, mags
+
+
+def _rwmd_chunk_scores_multi(S, tok, ln, tag, keep, mass_t, len_t, max_score_t,
+                             injective: bool, symmetric: bool,
+                             normalize_bow: bool, unique: bool, tagged: bool):
+    """[c, Q] relaxed-WMD scores of one chunk against Q queries (the JAX
+    package's ``_rwmd_chunk_scores_multi``): S [c, L, T, Q] the chunk's
+    (tag-rewritten) block, ``keep`` the filter's mask or None, mass_t [T,
+    Q] the queries' masses, len_t [Q] their lengths, max_score_t [Q] their
+    bow-mode maximum costs.  Problem b = slice * Q + query."""
+    c, L, T, Q = S.shape
+    valid = torch.arange(L, device=S.device)[None, :] < ln[:, None]
+    if unique:
+        mass_s = (keep if keep is not None else valid).to(torch.float32)
+    else:
+        mass_s = _device_masses(tok, ln, tag if tagged else None, keep=keep)
+    eff_len = (keep.sum(1) if keep is not None else ln).to(torch.float32)
+    w_sum_s = torch.clamp_min(eff_len, 1e-9)  # [c]
+    w_sum_t = torch.clamp_min(len_t.to(torch.float32), 1e-9)  # [Q]
+    if normalize_bow:
+        m_s = mass_s / w_sum_s[:, None]
+        m_t = mass_t / w_sum_t[None, :]
+    else:
+        m_s, m_t = mass_s, mass_t
+    D = torch.clamp_min(MAX_SIMILARITY - S, 0.0)
+    Dts = D.permute(0, 3, 2, 1).reshape(c * Q, T, L)
+    m_t_b = m_t.T[None].expand(c, Q, T).reshape(c * Q, T)
+    m_s_b = m_s.repeat_interleave(Q, dim=0)  # [c * Q, L]
+    acc0 = _greedy_fill_cost(m_t_b, Dts, m_s_b, injective)
+    if not normalize_bow:
+        acc0 = acc0 / w_sum_t.repeat(c)
+    if symmetric:
+        Dst = D.permute(0, 3, 1, 2).reshape(c * Q, L, T)
+        acc1 = _greedy_fill_cost(m_s_b, Dst, m_t_b, injective)
+        if not normalize_bow:
+            acc1 = acc1 / w_sum_s.repeat_interleave(Q)
+        cost = torch.maximum(acc0, acc1)
+    else:
+        cost = acc0
+    # cost_to_score (wmd.h:139-141): max_cost 1 (nbow), else the bow
+    # mode's max_sum_of_similarities (wmd.h:411-412)
+    max_cost = 1.0 if normalize_bow else torch.clamp_min(max_score_t, 1e-9).repeat(c)
+    score = ((max_cost - cost) / max_cost).reshape(c, Q)
+    return torch.where(eff_len[:, None] > 0, score, NEG_SCORE)
+
+
+def _emd_chunk_scores_multi(S, mags_s, tok, ln, tag, keep, mass_t,
+                            use_magnitudes: bool, normalize_mass: bool,
+                            unique: bool, tagged: bool):
+    """[c, Q] full-WMD / WRD score bounds of one chunk against Q queries
+    (the JAX package's ``_emd_chunk_scores_multi``): the masses mirror the
+    host rescore's (the same normalization, (id, tag) identity and filter
+    exclusions), so ``_emd_score_bound``'s guarantee carries to the
+    reported scores.  ``mags_s`` [c, L]: the WRD document masses."""
+    c, L, T, Q = S.shape
+    valid = torch.arange(L, device=S.device)[None, :] < ln[:, None]
+    if keep is not None:
+        valid = keep
+    if use_magnitudes:
+        m_s = torch.where(valid, mags_s, 0.0)
+    elif unique:
+        m_s = valid.to(torch.float32)
+    else:
+        m_s = _device_masses(tok, ln, tag if tagged else None, keep=keep)
+    m_t = mass_t.T[None].expand(c, Q, T).reshape(c * Q, T)
+    m_s_b = m_s.repeat_interleave(Q, dim=0)
+    if normalize_mass:
+        m_s_b = m_s_b / torch.clamp_min(m_s_b.sum(1, keepdim=True), 1e-9)
+        m_t = m_t / torch.clamp_min(m_t.sum(1, keepdim=True), 1e-9)
+    D = torch.clamp_min(MAX_SIMILARITY - S, 0.0)
+    Dts = D.permute(0, 3, 2, 1).reshape(c * Q, T, L)
+    score = _emd_score_bound(m_t, m_s_b, Dts).reshape(c, Q)
+    return torch.where((valid.sum(1) > 0)[:, None], score, NEG_SCORE)
+
+
+def _boosted(scores, boost):
+    """Valid scores times their slices' boosts ([n, Q] or None), the
+    NEG_SCORE sentinels kept (the JAX package's arithmetic)."""
+    if boost is None:
+        return scores
+    return torch.where(scores > NEG_SCORE * 0.5, scores * boost, NEG_SCORE)
+
+
+def _bucket_rwmd_scores_multi(args: _MultiChunkArgs, db, mass_t, len_t, max_score_t,
+                              injective: bool, symmetric: bool, normalize_bow: bool,
+                              unique: bool, tagged: bool, boost=None) -> torch.Tensor:
+    """[n, Q] relaxed-WMD scores of bucket ``db`` for a batch of Q queries
+    in one pass (the JAX package's ``_bucket_rwmd_scores_multi`` and
+    ``_bucket_rwmd_scores_multi_plan``), times ``boost`` [n, Q]."""
+    out = []
+    L = db["capacity"]
+    for tok, pos, tag, ln, ctx in args.chunks(db, tagged):
+        S, _ = args.similarity(tok, pos, ctx)
+        valid = torch.arange(L, device=tok.device)[None, :] < ln[:, None]
+        out.append(_rwmd_chunk_scores_multi(
+            S, tok, ln, tag, args.keep(tok, pos, tag, valid), mass_t, len_t,
+            max_score_t, injective, symmetric, normalize_bow, unique, tagged))
+    return _boosted(torch.cat(out), boost)
+
+
+def _bucket_emd_scores_multi(args: _MultiChunkArgs, db, mass_t, use_magnitudes: bool,
+                             normalize_mass: bool, unique: bool, tagged: bool,
+                             boost=None) -> torch.Tensor:
+    """[n, Q] full-WMD / WRD score bounds of bucket ``db`` for a batch
+    (the JAX package's ``_bucket_emd_scores_multi`` and
+    ``_bucket_emd_scores_multi_plan``); a boost multiplies the bounds
+    (bound * b >= exact * b for b >= 0: the cut stays provable)."""
+    out = []
+    L = db["capacity"]
+    for tok, pos, tag, ln, ctx in args.chunks(db, tagged):
+        S, mags = args.similarity(tok, pos, ctx, needs_magnitudes=use_magnitudes)
+        valid = torch.arange(L, device=tok.device)[None, :] < ln[:, None]
+        out.append(_emd_chunk_scores_multi(
+            S, mags, tok, ln, tag, args.keep(tok, pos, tag, valid), mass_t,
+            use_magnitudes, normalize_mass, unique, tagged))
+    return _boosted(torch.cat(out), boost)
+
+
+def _pairs_sims_static(tok, pos, qidx, table, tw):
+    """(S weighted [p, L, T], S unweighted) of (slice, query) pairs: the
+    rows ``tok`` [p, L] of the static plans' stacked [V, T, Q] ``table``
+    at each pair's query ``qidx`` [p], tag-weighted with the pair's own
+    column of ``tw`` (pos [p, L]) where given — the gather selects exact
+    elements and the rewrite is ``tag_weighted``'s arithmetic, so the rows
+    have the bits of ``find``'s (the JAX package's ``_pairs_sims_static``,
+    which gathers from a [Q * V, T] stack of the table: indexing the table
+    itself copies nothing)."""
+    S = table[tok.long(), :, qidx.long()[:, None]]  # [p, L, T]
+    if tw is None:
+        return S, S
+    w, p, pen, thr = tw
+    q = qidx.long()
+    sel = torch.where(pos[:, :, None] == p.T[q][:, None, :], 1.0,
+                      1.0 - pen[q][:, None, None])
+    Sw = S * (w.T[q][:, None, :] * sel)
+    return torch.where(Sw > thr[q][:, None, None], Sw, 0.0), S
+
+
 def _greedy_cost_host(w1, D, cap) -> float:
     """f64 host greedy fill cost for ONE slice (mirrors
     ``_greedy_fill_cost``, same stable index tie-break): each source moves
@@ -449,8 +642,9 @@ def rwmd_flow_host(m_t, m_s, D_ts, injective: bool, normalize_bow: bool = True):
 
 
 class WMDEngine:
-    """Transport-metric search over a BruteForceEngine's packed buckets
-    (``find``; the batch is the JAX package's item 6b)."""
+    """Transport-metric search over a BruteForceEngine's packed buckets:
+    ``find`` and ``find_batch`` (the JAX package's without its mesh
+    methods)."""
 
     def __init__(self, engine, alignment_args: dict):
         self._engine = engine
@@ -558,6 +752,366 @@ class WMDEngine:
                 index, query, qp, state, smap, rest, n, min_score,
                 fetch_all=fetch_all, debug=debug,
             )
+
+    def find_batch(self, index, queries, qps, n: int, min_score: float,
+                   tagws=None, boosts=None, doc_filter=None) -> List[List]:
+        """Q queries in one corpus pass (the JAX package's ``find_batch``
+        without ``mesh``), then each query's host rescore as ``find``'s —
+        every score a match reports is the host's (``rwmd_score_host``, or
+        the exact EMD), so each query gets the bytes of its ``find``.
+
+        ``qps``: each query's plan at its padded width; static plans
+        (("static", 0)) stack into one [V, T, Q] table, any other tree
+        stacks per leaf (``stack_tree_plans``).  ``tagws``: per query a
+        TagWeightingSpec or None (the rewrite, and the (id, tag) BOW
+        identity); ``boosts``: per query an [n_slices] multiplier or None
+        (ranking and reported scores); ``doc_filter``: the batch's
+        document-side filter (excluded tokens carry no mass)."""
+        engine = self._engine
+        a = self._args
+        dev = engine.device
+        Q = len(queries)
+        tagws = list(tagws) if tagws is not None else [None] * Q
+        widths = [qp.width for qp in qps]
+        is_static = all(qp.plan == ("static", 0) for qp in qps)
+        # a contextual operand anywhere in the tree: position-unique BOW
+        # entries (reference metric/alignment.h:551-576), as in find
+        unique = not qps[0].is_static_only
+        if is_static:
+            Tmax = max(widths)
+            table = torch.stack([F.pad(qp.static_sims[0], (0, Tmax - w))
+                                 for qp, w in zip(qps, widths)], dim=2)  # [V, T, Q]
+            sp = None
+        else:
+            sp, Tmax = stack_tree_plans(qps, [max(q.n_tokens, 1) for q in queries], dev)
+            table = None
+        with_tags = any(tw is not None for tw in tagws)
+        tagged = with_tags and not unique
+        mass_t = np.zeros((Tmax, Q), np.float32)
+        max_score_t = np.zeros((Q,), np.float32)
+        states = []
+        for qi, (query, qp) in enumerate(zip(queries, qps)):
+            m = (np.ones((query.n_tokens,), np.float32) if unique
+                 else self._query_masses(query, tagged=tagged))
+            mass_t[: len(m), qi] = m
+            tw = tagws[qi]
+            max_score_t[qi] = tw.total if tw is not None else float(query.n_tokens)
+            states.append({
+                "mass_t": np.pad(m, (0, max(widths[qi] - len(m), 0))),
+                "mass_t_mag": None, "tagw": tw, "tagged": tagged, "unique": unique,
+                "T": query.n_tokens, "doc_filter": doc_filter,
+                "boost": None if boosts is None else boosts[qi],
+            })
+        tw_args = self._tagw_args_multi(tagws, Tmax, Q, dev) if with_tags else None
+        with_boost = boosts is not None and any(b is not None for b in boosts)
+        mags = None
+        if self._algorithm == "word-rotators-distance" and is_static:
+            mags = qps[0].static_mags[0]
+        args = _MultiChunkArgs(engine, table, sp, Tmax, Q, tw_args, doc_filter, mags)
+
+        def boost_of(db):
+            return engine._boost_matrix(db, boosts) if with_boost else None
+
+        fetch = (table, tw_args) if is_static else None
+        if not (self._algorithm == "word-movers-distance" and a["relaxed"]):
+            return self._find_batch_emd(index, queries, qps, states, args, mass_t,
+                                        unique, tagged, boost_of, n, min_score, fetch)
+        m_t = torch.as_tensor(mass_t, device=dev)
+        lt = torch.as_tensor([q.n_tokens for q in queries], dtype=torch.int32, device=dev)
+        ms = torch.as_tensor(max_score_t, device=dev)
+        with trace.span("wmd.rank"):
+            pending = self._buckets_pass(lambda db: _bucket_rwmd_scores_multi(
+                args, db, m_t, lt, ms, bool(a["injective"]), bool(a["symmetric"]),
+                bool(a["normalize_bow"]), unique, tagged, boost_of(db)))
+            # the device top-k a bucket: only the pools reach the host;
+            # their slack makes them tie-complete for the host's scores
+            src = BucketTopKSource(engine, pending, Q, n + 32)
+            eps = RWMD_RANK_EPS * (max(1.0, max(float(np.max(b)) for b in boosts
+                                                if b is not None))
+                                   if with_boost else 1.0)
+            tops = src.top_k_exactly_many(range(Q), n, min_score - eps,
+                                          slack=3 * eps, pool=True)
+        with trace.span("wmd.sims_fetch"):
+            sims_all = self._sims_many([(qi, tops[qi][0]) for qi in range(Q)],
+                                       qps, states, fetch)
+        results = []
+        with trace.span("wmd.host_rescore"):
+            for qi, (query, qp) in enumerate(zip(queries, qps)):
+                top, smap, _rest = tops[qi]
+                states[qi]["scores"] = smap
+                results.append(self._relaxed_finalize(
+                    index, query, qp, states[qi], top, n, min_score, None,
+                    sims_map=sims_all[qi]))
+        return results
+
+    def _batch_emd_masses(self, index, queries, qps, states, Tmax: int, mass_t):
+        """(the bound pass's masses [Tmax, Q], normalize, is_wrd) of a full
+        WMD / WRD batch: the WRD needle magnitudes (a contextual plan's
+        vector norms, else ``_static_needle_magnitudes``, also set as each
+        state's "mass_t_mag"), else the bow counts ``mass_t`` — the exact
+        rescore's masses (the provable cut needs them equal)."""
+        a = self._args
+        if self._algorithm != "word-rotators-distance":
+            return mass_t, bool(a["normalize_bow"]), False
+        mass = np.zeros((Tmax, len(queries)), np.float32)
+        for qi, (query, qp) in enumerate(zip(queries, qps)):
+            if qp.ctx_queries and not qp.is_static_only:
+                mm = np.asarray(qp.ctx_queries[0]["magnitudes"], np.float32)
+            else:
+                mm = self._static_needle_magnitudes(qp, query, index)
+            k = min(len(mm), Tmax)
+            mass[:k, qi] = mm[:k]
+            states[qi]["mass_t_mag"] = mm
+        return mass, bool(a.get("normalize_magnitudes", True)), True
+
+    def _find_batch_emd(self, index, queries, qps, states, args, mass_t, unique,
+                        tagged, boost_of, n: int, min_score: float, fetch):
+        """Full WMD / WRD batch: one pass ranks Q queries by their provable
+        bounds, then ``_rescore_with_cut_many`` solves each query's exact
+        EMDs under its cut — the exhaustive exact-EMD oracle's top-k, the
+        bytes of ``find``."""
+        engine = self._engine
+        Q = len(queries)
+        mass, normalize, is_wrd = self._batch_emd_masses(
+            index, queries, qps, states, args.T, mass_t)
+        m_t = torch.as_tensor(mass, device=engine.device)
+        with trace.span("wmd.rank"):
+            pending = self._buckets_pass(lambda db: _bucket_emd_scores_multi(
+                args, db, m_t, is_wrd, normalize, unique, tagged, boost_of(db)))
+            src = BucketTopKSource(engine, pending, Q, n + 32)
+        return self._rescore_with_cut_many(index, queries, qps, states, src, n,
+                                           min_score, fetch)
+
+    def _rescore_with_cut_many(self, index, queries, qps, states, src, n: int,
+                               min_score: float, fetch) -> List[List]:
+        """The batch's provable cut (the JAX package's
+        ``_rescore_with_cut_many``): each query consumes its fetched bound
+        candidates in rounds (``_consume_rounds_many``); the queries whose
+        unfetched bound can still reach their n-th exact score share ONE
+        completion select, whose new candidates are consumed the same way."""
+        packed = self._engine.packed
+        Q = len(queries)
+        # boosted bounds carry boost-scaled drift: the slack scales with it
+        eps_q = [CUT_EPS * (max(1.0, float(np.max(st["boost"])))
+                            if st.get("boost") is not None else 1.0)
+                 for st in states]
+        smaps, rests, cand_lists = [], [], []
+        for qi in range(Q):
+            rank_min = min_score - eps_q[qi]
+            smap, rest = src.score_map(qi, rank_min)
+            states[qi]["scores"] = smap
+            smaps.append(smap)
+            rests.append(rest)
+            cand_lists.append(self._ordered_by_bound(
+                {s: v for s, v in smap.items() if v >= rank_min}))
+        sims_all = [dict() for _ in range(Q)]
+        per_q = [[] for _ in range(Q)]
+        pos = [0] * Q
+        consume = (index, queries, qps, states, smaps, cand_lists, per_q, pos, n,
+                   min_score, eps_q, sims_all, fetch)
+        self._consume_rounds_many(*consume)
+        unsafe, cuts = [], {}
+        for qi in range(Q):
+            cut = max(self._nth_cut(per_q[qi], n, min_score) - eps_q[qi],
+                      min_score - eps_q[qi])
+            if rests[qi] >= cut:
+                unsafe.append(qi)
+                cuts[qi] = cut
+        if unsafe:
+            with trace.span("wmd.rank"):
+                found = src.above_vals_many(
+                    [(src.qview(qi), cuts[qi], set(smaps[qi])) for qi in unsafe])
+            for qi, (_ids, vmap) in zip(unsafe, found):
+                new = {int(s): float(v) for s, v in vmap.items()
+                       if int(s) not in smaps[qi] and v >= cuts[qi]}
+                smaps[qi].update({int(s): float(v) for s, v in vmap.items()})
+                # the consumed prefix's tail stayed below a cut that only
+                # rises: only the new candidates need consuming
+                cand_lists[qi] = self._ordered_by_bound(new)
+                pos[qi] = 0
+            self._consume_rounds_many(*consume, active=unsafe)
+        results = []
+        for matches in per_q:
+            matches.sort(key=lambda m: (-m.score, int(packed.slice_doc[m.slice_id]),
+                                        int(packed.slice_idx[m.slice_id])))
+            results.append(matches[:n])
+        return results
+
+    def _consume_rounds_many(self, index, queries, qps, states, smaps, cand_lists,
+                             per_q, pos, n, min_score, eps_q, sims_all, fetch,
+                             active=None) -> None:
+        """Batched ``_consume_ordered``: every active query advances one
+        bound-ordered window a round, and the round's missing similarity
+        rows of every query are fetched together; a query retires when its
+        next candidate's bound is provably below its n-th exact score.
+        Windows double up to ``step_cap`` (fewer rounds; an overshoot only
+        costs host solves).
+
+        Static plans (``fetch`` the stacked table and tag columns) keep the
+        JAX package's speculation: the next window's rows are dispatched
+        before this round's host solves and collected at the next round
+        (the window assumes no query retires, so it is a superset of what
+        the next round reads), and the handle left when the loop ends is
+        collected.  Tree plans fetch at collect time, from the queries
+        left after retirement (no speculation: their fetch is serial
+        anyway), so they fetch no window of a retired query.  The windows
+        consumed, and so the results, are the same either way."""
+        step = max(2 * n, 32)
+        step_cap = max(8 * step, 256)
+        if active is None:
+            active = range(len(queries))
+        active = [qi for qi in active if pos[qi] < len(cand_lists[qi])]
+
+        def build_items(act, start, stp):
+            items = []
+            for qi in act:
+                window = cand_lists[qi][start(qi): start(qi) + stp]
+                missing = [s for s in window if int(s) not in sims_all[qi]]
+                if missing:
+                    items.append((qi, missing))
+            return items
+
+        def retire(act):
+            return [qi for qi in act if not (
+                len(per_q[qi]) >= n and pos[qi] < len(cand_lists[qi])
+                and smaps[qi][cand_lists[qi][pos[qi]]]
+                < self._nth_cut(per_q[qi], n, min_score) - eps_q[qi])]
+
+        def collect(fetched, items):
+            for (qi, _), sm in zip(items, fetched):
+                sims_all[qi].update(sm)
+
+        active = retire(active)
+        handle = None
+        if fetch is not None and active:
+            handle = self._sims_many_static_dispatch(
+                build_items(active, lambda qi: pos[qi], step), *fetch)
+        while active:
+            with trace.span("wmd.sims_fetch"):
+                if fetch is not None:
+                    collect(*self._sims_many_static_collect(handle))
+                    handle = None
+                    nstep = min(2 * step, step_cap)
+                    spec = [qi for qi in active if pos[qi] + step < len(cand_lists[qi])]
+                    handle = self._sims_many_static_dispatch(
+                        build_items(spec, lambda qi: pos[qi] + step, nstep), *fetch)
+                else:
+                    items = build_items(active, lambda qi: pos[qi], step)
+                    collect(self._sims_many_plan(items, qps, states), items)
+            nxt = []
+            with trace.span("wmd.host_rescore"):
+                for qi in active:
+                    cand = cand_lists[qi]
+                    per_q[qi].extend(self._host_rescore(
+                        index, queries[qi], qps[qi], states[qi],
+                        cand[pos[qi]: pos[qi] + step], min_score, None,
+                        sims_map=sims_all[qi]))
+                    pos[qi] += step
+                    if pos[qi] < len(cand):
+                        nxt.append(qi)
+            step = min(2 * step, step_cap)
+            active = retire(nxt)
+        if handle is not None:
+            # the last speculative window: collected (its rows may serve a
+            # completion round), not left queued
+            collect(*self._sims_many_static_collect(handle))
+
+    def _sims_many(self, items, qps, states, fetch):
+        """{sid: (Sw, Su)} per (qi, sids) item: the static plans' fused
+        fetch, or the tree plans' (``_sims_many_plan``)."""
+        if fetch is None:
+            return self._sims_many_plan(items, qps, states)
+        return self._sims_many_static_collect(
+            self._sims_many_static_dispatch(items, *fetch))[0]
+
+    def _sims_many_static_dispatch(self, items, table, tw):
+        """Dispatch half of the static batch's fused similarity fetch (the
+        JAX package's ``_sims_many_static_dispatch``): ``items`` [(qi,
+        sids)] become (slice, query) pairs, one ``_pairs_sims_static`` a
+        touched bucket on the rows gathered from the host copies (a paged
+        engine pages nothing in for them), and their device -> host copies
+        are queued.  Slices are gathered by token id in bucket order; the
+        JAX package's sorted gather streams (a TPU gather-locality trick)
+        change only the order of the memory reads, never a value.
+        Returns the handle ``_sims_many_static_collect`` waits on."""
+        engine = self._engine
+        dev = engine.device
+        refs, metas = [], []
+        if items:
+            sid_arr = np.concatenate([np.asarray(sids, np.int64) for _, sids in items])
+            ii_arr = np.concatenate([np.full(len(sids), ii, np.int64)
+                                     for ii, (_, sids) in enumerate(items)])
+            qi_arr = np.concatenate([np.full(len(sids), qi, np.int64)
+                                     for qi, sids in items])
+            locs = engine._slice_loc[sid_arr]
+            order = np.argsort(locs[:, 0], kind="stable")
+            b_sorted = locs[order, 0]
+            starts = np.flatnonzero(np.concatenate(([True], b_sorted[1:] != b_sorted[:-1])))
+            for gi, g0 in enumerate(starts):
+                g1 = starts[gi + 1] if gi + 1 < len(starts) else len(order)
+                sel = order[g0:g1]
+                b = engine.packed.buckets[int(b_sorted[g0])]
+                rows = locs[sel, 1]
+                tok = torch.as_tensor(b.token_ids[rows].astype(np.int32), device=dev)
+                pos = (None if tw is None
+                       else torch.as_tensor(b.pos_ids[rows], device=dev))
+                qidx = torch.as_tensor(qi_arr[sel], device=dev)
+                Sw, Su = _pairs_sims_static(tok, pos, qidx, table, tw)
+                refs.extend((Sw,) if tw is None else (Sw, Su))
+                metas.append((ii_arr[sel], sid_arr[sel]))
+        # the copies start now: the collect only waits out what is left
+        # of them after the host solves they ran under
+        return {"copies": _HostCopies(refs), "metas": metas,
+                "tagged": tw is not None, "items": items}
+
+    def _sims_many_static_collect(self, handle):
+        """The blocking half: (one {sid: (Sw, Su)} per item, the items)."""
+        items = handle["items"]
+        out = [dict() for _ in items]
+        fetched = handle["copies"].wait()
+        slice_len = self._engine.packed.slice_len
+        k = 0
+        for ii_sel, sid_sel in handle["metas"]:
+            Sw = fetched[k]
+            Su = fetched[k + 1] if handle["tagged"] else Sw
+            k += 2 if handle["tagged"] else 1
+            for r, (ii, sid) in enumerate(zip(ii_sel.tolist(), sid_sel.tolist())):
+                ln = int(slice_len[sid])
+                out[ii][sid] = (Sw[r, :ln], Su[r, :ln])
+        return out, items
+
+    def _sims_many_plan(self, items, qps, states):
+        """The similarity rows of tree-plan batches: each (qi, sids) item
+        through ``batch_slice_similarity`` under its own plan (the stacked
+        pair table exists for static plans only); {sid: (Sw, Su)} maps."""
+        engine = self._engine
+        out = []
+        for qi, sids in items:
+            sids = list(sids)
+            sims = engine.batch_slice_similarity(sids, qps[qi],
+                                                 tag_weights=states[qi]["tagw"])
+            out.append({int(s): sm for s, sm in zip(sids, sims)})
+        return out
+
+    @staticmethod
+    def _tagw_args_multi(tagws, Tmax: int, Q: int, device):
+        """The batch's tag columns on the device: weights and needle pos ids
+        [Tmax, Q], penalty and threshold [Q]; a query without tag weights
+        gets the identity columns (weight 1, pos -1, penalty 0, threshold
+        -1), as in the JAX package."""
+        tw_w = np.ones((Tmax, Q), np.float32)
+        tw_p = np.full((Tmax, Q), -1, np.int8)
+        pen = np.zeros((Q,), np.float32)
+        thr = np.full((Q,), -1.0, np.float32)
+        for qi, tw in enumerate(tagws):
+            if tw is None:
+                continue
+            t = len(tw.t_pos_weights)
+            tw_w[:t, qi] = tw.t_pos_weights
+            tw_p[:t, qi] = tw.pos_t
+            pen[qi] = tw.pos_mismatch_penalty
+            thr[qi] = tw.similarity_threshold
+        return tuple(torch.as_tensor(x, device=device) for x in (tw_w, tw_p, pen, thr))
 
     @staticmethod
     def _nth_cut(matches, n: int, min_score: float) -> float:
@@ -723,10 +1277,19 @@ class WMDEngine:
             "doc_filter": doc_filter,
         }
 
-    def _fetch_slice_sims(self, top, qp, tagw):
-        """[(Sw, Su)] per sid: one batched evaluation a touched bucket (the
-        JAX package's prefetched map of the batch is item 6b's)."""
-        return self._engine.batch_slice_similarity(top, qp, tag_weights=tagw)
+    def _fetch_slice_sims(self, top, qp, tagw, sims_map=None):
+        """[(Sw, Su)] per sid: one batched evaluation a touched bucket, or
+        from ``sims_map`` ({sid: (Sw, Su)}, a batch's fused fetch), whose
+        missing sids are evaluated and added to it."""
+        engine = self._engine
+        if sims_map is None:
+            return engine.batch_slice_similarity(top, qp, tag_weights=tagw)
+        missing = [sid for sid in top if int(sid) not in sims_map]
+        if missing:
+            for sid, sims in zip(missing, engine.batch_slice_similarity(
+                    missing, qp, tag_weights=tagw)):
+                sims_map[int(sid)] = sims
+        return [sims_map[int(sid)] for sid in top]
 
     def _slice_row(self, sid: int):
         """(the slice's bucket on the host, its row)."""
@@ -765,6 +1328,7 @@ class WMDEngine:
 
     def _relaxed_finalize(
         self, index, query, qp, state, pool, n, min_score, debug,
+        sims_map=None,
     ) -> List:
         """Relaxed-WMD finalize: REPORTED scores for the whole candidate
         pool via ``rwmd_score_host`` (the single shape-independent home —
@@ -772,7 +1336,8 @@ class WMDEngine:
         order, then Match + flow extraction for the kept top-n ONLY (pools
         carry boundary slack, so building flows for every member would pay
         the python flow loops for candidates the order drops).  Returns
-        the final ordered, min_score-filtered, n-truncated match list."""
+        the final ordered, min_score-filtered, n-truncated match list;
+        ``sims_map`` as in ``_fetch_slice_sims``."""
         from vectorian_tpu_torch.index import Match
 
         packed = self._engine.packed
@@ -784,7 +1349,7 @@ class WMDEngine:
         T = state["T"]
         token_sim_name = index._args["metric"]["token_sim"].name
         max_score = tagw.total if tagw is not None else float(T)
-        sims_list = self._fetch_slice_sims(pool, qp, tagw)
+        sims_list = self._fetch_slice_sims(pool, qp, tagw, sims_map)
         boost = state.get("boost")
         scores_arr = np.empty(len(pool), np.float64)
         per = {}
@@ -836,11 +1401,12 @@ class WMDEngine:
         return matches
 
     def _host_rescore(
-        self, index, query, qp, state, top, min_score, debug,
+        self, index, query, qp, state, top, min_score, debug, sims_map=None,
     ) -> List:
         """Exact host EMD rescore + flow extraction for the chosen slices
-        (their similarities evaluated in one batch a touched bucket;
-        relaxed WMD finalizes in ``_relaxed_finalize`` instead)."""
+        (their similarities evaluated in one batch a touched bucket, or
+        from a batch's ``sims_map``; relaxed WMD finalizes in
+        ``_relaxed_finalize`` instead)."""
         from vectorian_tpu_torch.index import Match
 
         a = self._args
@@ -851,7 +1417,7 @@ class WMDEngine:
 
         matches = []
         token_sim_name = index._args["metric"]["token_sim"].name
-        sims_list = self._fetch_slice_sims(top, qp, tagw)
+        sims_list = self._fetch_slice_sims(top, qp, tagw, sims_map)
         # phase 1: per-candidate problem prep (masses + cost matrices)
         specs = []
         for sid, (Sw, Su) in zip(top, sims_list):
@@ -930,8 +1496,11 @@ class WMDEngine:
                 self._static_mags_np = _host(qp.static_mags[0])
             return self._static_mags_np[self._slice_token_ids(sid, ln)].astype(np.float64)
         bi, r = self._engine._slice_loc[sid]
-        ctx = self._engine._ctx_dev(qp.ctx_names[0], bi)[r, :ln].float()
-        return np.linalg.norm(_host(ctx), axis=-1).astype(np.float64)
+        eng = self._engine
+        # a paged engine's store is on the host: read its row there
+        store = (eng._ctx_stores[qp.ctx_names[0]][bi] if eng.paged
+                 else eng._ctx_dev(qp.ctx_names[0], bi))
+        return np.linalg.norm(_host(store[r, :ln].float()), axis=-1).astype(np.float64)
 
     @staticmethod
     def _tagw_args(tagw, T: int, device):
@@ -953,36 +1522,32 @@ class WMDEngine:
         tensors; None without a filter."""
         return None if doc_filter is None else doc_filter.device_args(device)
 
-    def _buckets_pass(self, fn, device: bool):
-        """``fn(db)`` -> [n] device scores of every non-empty bucket: the
-        pending list of BucketTopKSource (``device``), else the [n_slices]
-        host vector (NEG_SCORE where empty)."""
+    def _buckets_pass(self, fn):
+        """``fn(db)`` -> [n, Q] device scores of every non-empty bucket: the
+        pending list of BucketTopKSource (lazy entries when paged:
+        ``_pending_entry``)."""
         engine = self._engine
-        pending = [(db, fn(db)) for db in engine._device_buckets if db["n"]]
-        if device:
-            return [(db, scores[:, None]) for db, scores in pending]
-        out = np.full((engine.packed.n_slices,), NEG_SCORE, np.float32)
-        for db, scores in pending:
-            out[db["slice_index"]] = _host(scores)
-        return out
+        return [_pending_entry(db, lambda db=db: (db, fn(db)), engine.paged)
+                for db in engine._live_buckets()]
 
     def _score_buckets_rwmd(self, qp, mass_t, len_t, injective, symmetric,
                             normalize_bow, unique, tagw=None, tagged=False,
                             doc_filter=None, device=False):
+        """One query's pass: the pending list of its [n, 1] scores, or
+        (``device`` False) the [n_slices] host vector."""
         args = _ChunkArgs(self._engine, qp, tagw, doc_filter, qp.width)
         max_score_t = tagw.total if tagw is not None else float(len_t)
         m_t = torch.as_tensor(np.asarray(mass_t, np.float32), device=self._engine.device)
-        return self._buckets_pass(
-            lambda db: _bucket_rwmd_scores(
-                args, db, m_t, len_t, max_score_t, injective, symmetric,
-                normalize_bow, unique, tagged),
-            device)
+        pending = self._buckets_pass(lambda db: _bucket_rwmd_scores(
+            args, db, m_t, len_t, max_score_t, injective, symmetric, normalize_bow,
+            unique, tagged)[:, None])
+        return pending if device else self._engine.collect(pending)[:, 0]
 
     def _score_buckets_emd(self, qp, mass_t, use_magnitudes, normalize, unique,
                            tagw=None, tagged=False, doc_filter=None, device=False):
+        """As ``_score_buckets_rwmd``, of the full WMD / WRD bounds."""
         args = _ChunkArgs(self._engine, qp, tagw, doc_filter, qp.width)
         m_t = torch.as_tensor(np.asarray(mass_t, np.float32), device=self._engine.device)
-        return self._buckets_pass(
-            lambda db: _bucket_emd_scores(args, db, m_t, use_magnitudes, normalize,
-                                          unique, tagged),
-            device)
+        pending = self._buckets_pass(lambda db: _bucket_emd_scores(
+            args, db, m_t, use_magnitudes, normalize, unique, tagged)[:, None])
+        return pending if device else self._engine.collect(pending)[:, 0]

@@ -296,8 +296,12 @@ class Session:
 
     ``device``: where the compiled embeddings, the packed corpus and every
     corpus pass live — ``"cuda"`` (the default) needs a CUDA card and
-    raises without one; pass ``device="cpu"`` to run on the CPU.  The
-    buckets stay resident on the device (``paged`` mode is not ported)."""
+    raises without one; pass ``device="cpu"`` to run on the CPU.
+    ``paged=True`` keeps every partition's length buckets (and contextual
+    stores) in pinned host memory and streams them through the device a
+    bucket at a time during each corpus pass, for corpora whose arrays
+    pass the card's memory (``ops/search.BruteForceEngine``); results are
+    byte-identical to resident mode."""
 
     def __init__(
         self,
@@ -306,13 +310,9 @@ class Session:
         normalization=None,
         nlp=None,
         device="cuda",
-        paged=None,
+        paged: bool = False,
     ):
-        if paged:
-            raise NotImplementedError(
-                "paged mode is not ported yet (ROADMAP.md port queue item 8: "
-                "paged mode)"
-            )
+        self._paged = bool(paged)
         self._device = torch.device(device)
         if self._device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -538,7 +538,8 @@ class Session:
     def engine(self, spec: PartitionSpec) -> BruteForceEngine:
         eng = self._engine_cache.get(spec)
         if eng is None:
-            eng = BruteForceEngine(self.packed_corpus(spec), self._device)
+            eng = BruteForceEngine(self.packed_corpus(spec), self._device,
+                                   paged=self._paged)
             self._engine_cache[spec] = eng
         return eng
 
