@@ -11,10 +11,11 @@ Phases, each of which raises on failure:
    ptxas report) and the native host library (csrc/vectorian_native.cpp,
    the traceback and fastText encoder).  Fails if an affine template up
    to T1P = 33 (gather at f32, bf16 and int8 tables, row-gather, and the
-   tagged f32 family of both entries), a kernel of the affine wide route
-   or any kernel of the WSB register route (gather at each table type,
+   tagged f32 family of both entries), a kernel of either affine wide
+   route (the register-resident one at 4, 8 and 16 columns a lane) or any
+   kernel of the WSB register route (gather at each table type,
    row-gather, tagged or not) has a stack frame or spills; prints the T1P
-   = 65 templates' reports on a line of their own.
+   = 65 templates' reports and the wide_regs ones on lines of their own.
 3. Kernels against their plain torch versions on the card (random tables,
    tokens and costs from a seeded generator), bit for bit (torch.equal):
    the affine corpus kernel, the WSB corpus kernel (the register route at
@@ -30,11 +31,16 @@ Phases, each of which raises on failure:
    affine_dp at L {16, 32} x Tpad {8, 16} x Q {1, 32}, wsb_dp's register
    route at the same shapes plus one shared-rows and one scratch shape,
    bit for bit, each timed against the f32 kernel on the table before
-   quantizing (in turns); a float16 table must raise.  Wide route: both
-   affine entries at needles padded to 132, 256 and 1,024 (and 2,048, past
-   shared memory: the scratch route), n or B = 8,192, against their plain
-   versions bit for bit and timed against their bounds; the register
-   templates against the wide route at Tpad 64.  3t: the tagged entries
+   quantizing (in turns); a float16 table must raise.  Wide routes: the
+   affine gather (f32, bf16, int8, tagged), rows (f32, tagged) and dense
+   entries at needles padded to 132 and 256 on the register-resident wide
+   route (wide_regs), against their plain versions bit for bit and timed
+   in turns against the shared-memory wide route on the same inputs, the
+   gather's default call (split by needle width) beside them, each against
+   its bound; the shared-memory route where the plan
+   keeps it (1,024; 2,048, past shared memory: the scratch route); the
+   register templates against wide_regs at Tpad 64, wide_regs at 128.
+   3t: the tagged entries
    (the tag-weighted block, dp_kernels.TagBlock) of kernels 1-3 on every
    route — affine registers at T1P 9 / 17 / 33 / 65 and Q = 1 (float4
    rows), wide shared and scratch; affine row-gather registers and wide;
@@ -67,8 +73,12 @@ Phases, each of which raises on failure:
    gather + flat-batch form it replaced.
    4 (long queries): on the same packing, an affine find of a 160-token
    query and a find_batch of 32 queries that holds it (every needle
-   padded to 160: the wide route) at each precision, byte-identical, the
-   wide kernel held against its plain version at those shapes.
+   padded to 160) at each precision, byte-identical; the batch's pass
+   splits by needle width, so its 31 short needles take the register
+   route and the long one wide_regs (as the find does); the whole batch's
+   call and the long needle's launch held against their plain versions
+   at those shapes and timed with their bounds, the launch in turns
+   against the shared-memory wide route.
    4d: BASELINE config 1, fastText 300d (a .bin with cc.en.300.bin's
    arguments, dim 300, n-grams of 5, 2,000,000 buckets, its dictionary the
    corpus's 2,500 most frequent words, written from the seed into a
@@ -118,7 +128,8 @@ Phases, each of which raises on failure:
 
 ``python3 chip_smoke.py --build-ab`` instead times phase 2's build with and
 without ``--split-compile 0`` and exits; ``--dense-check`` runs phases 2,
-3d and 4f alone.  ``python3 chip_smoke.py
+3d and 4f alone; ``--wide-check`` phase 2, phase 3's wide cases and the
+long-query phase (on phase 4's session).  ``python3 chip_smoke.py
 --tag-check [SASS_DIR]`` runs phase 2, phase 3t and phase 3's general-gap
 kernels alone, then sets the WSB
 shared / scratch route's untagged and tagged templates side by side (ptxas
@@ -230,6 +241,11 @@ _WSB_REGS_TAGGED = re.compile(
 # the dense-block (K3) families
 _AFFINE_DENSE = re.compile(r"affine_dp_dense_kernelILi(\d+)ELi(\d)ELb([01])EE")
 _AFFINE_WIDE_DENSE = re.compile(r"affine_dp_wide_dense_kernelILi(\d)ELb([01])EE")
+# the register-resident wide route (CPL: DP columns a lane)
+_AFFINE_WIDE_REGS = re.compile(r"affine_dp_wide_regs_kernelILi(\d+)ELi(\d)ELb([01])E([fta])E")
+_AFFINE_WIDE_REGS_TAGGED = re.compile(
+    r"affine_dp_wide_regs_tagged_kernelILi(\d+)ELi(\d)ELb([01])EE")
+_AFFINE_WIDE_REGS_DENSE = re.compile(r"affine_dp_wide_regs_dense_kernelILi(\d+)ELi(\d)EE")
 _WSB_REGS_DENSE = re.compile(r"wsb_regs_dense_kernelILi(\d+)ELi(\d+)ELi(\d)ELi(\d)EE")
 _WSB_DENSE = re.compile(r"wsb_dp_dense_kernelILi(\d)ELi(\d+)EE")
 
@@ -237,12 +253,13 @@ _WSB_DENSE = re.compile(r"wsb_dp_dense_kernelILi(\d)ELi(\d+)EE")
 def ptxas_gate(reports):
     """Each kernel template's registers, stack frame and spills from the
     ptxas reports; raises if an affine template up to T1P = 33, a kernel of
-    the affine wide route or a kernel of the WSB register route (either
-    entry, any table type, tagged or not) or any template of the dense
-    entries has a stack frame or spills, or if the reports lack the gather
-    kernels of a table type, the row-gather kernels, the tagged ones or the
-    dense ones.  The affine register templates past T1P =
-    33 are printed on a line of their own, ungated."""
+    either affine wide route (the register-resident one at every CPL) or
+    a kernel of the WSB register route (either entry, any table type,
+    tagged or not) or any template of the dense entries has a stack frame
+    or spills, or if the reports lack the gather kernels of a table type,
+    the row-gather kernels, the tagged ones or the dense ones.  The affine
+    register templates past T1P = 33 are printed on a line of their own,
+    ungated, and so are the wide_regs templates."""
     from vectorian_tpu_torch.ops.dp_kernels import ptxas_entries
 
     rows, bad = [], []
@@ -254,7 +271,20 @@ def ptxas_gate(reports):
             wt = _WSB_REGS_TAGGED.search(name)
             ad, awd = _AFFINE_DENSE.search(name), _AFFINE_WIDE_DENSE.search(name)
             wd, wsd = _WSB_REGS_DENSE.search(name), _WSB_DENSE.search(name)
-            if ad:
+            ar, art = _AFFINE_WIDE_REGS.search(name), _AFFINE_WIDE_REGS_TAGGED.search(name)
+            ard = _AFFINE_WIDE_REGS_DENSE.search(name)
+            if ar:
+                label = (f"affine_wide_regs {'rows' if ar[3] == '1' else 'gather'} "
+                         f"{_ELEM[ar[4]]} CPL={ar[1]} loc={ar[2]}")
+                gated = True
+            elif art:
+                label = (f"affine_wide_regs {'rows' if art[3] == '1' else 'gather'} tagged "
+                         f"CPL={art[1]} loc={art[2]}")
+                gated = True
+            elif ard:
+                label = f"affine_wide_regs dense f32 CPL={ard[1]} loc={ard[2]}"
+                gated = True
+            elif ad:
                 label = (f"affine dense f32 T1P={ad[1]} loc={ad[2]}"
                          f"{' vec' if ad[3] == '1' else ''}")
                 gated = True
@@ -298,11 +328,13 @@ def ptxas_gate(reports):
                          e["spill_loads"]])
             if gated and (e["stack"] or e["spill_stores"] or e["spill_loads"]):
                 bad.append(label)
-    kinds = [f"{k} {e} {t}" for k in ("affine", "affine_wide", "wsb_regs")
+    kinds = [f"{k} {e} {t}" for k in ("affine", "affine_wide", "affine_wide_regs", "wsb_regs")
              for e in ("gather", "rows") for t in ("f32", "tagged")]
-    kinds += [f"{k} gather {t}" for k in ("affine", "affine_wide", "wsb_regs")
+    kinds += [f"{k} gather {t}" for k in ("affine", "affine_wide", "affine_wide_regs",
+                                          "wsb_regs")
               for t in ("bf16", "int8")]
-    kinds += [f"{k} dense f32" for k in ("affine", "affine_wide", "wsb_regs", "wsb")]
+    kinds += [f"{k} dense f32" for k in ("affine", "affine_wide", "affine_wide_regs",
+                                         "wsb_regs", "wsb")]
     for kind in kinds:
         if not any(r[0].startswith(kind + " ") for r in rows):
             raise AssertionError(f"ptxas gate: the reports name no {kind} kernel")
@@ -310,6 +342,9 @@ def ptxas_gate(reports):
     emit({"phase": "ptxas_wide_register_templates",
           "kernels_registers_stack_spill_st_ld": sorted(
               r for r in rows if re.search(r"T1P=65 ", r[0] + " "))})
+    emit({"phase": "ptxas_wide_regs_templates",
+          "kernels_registers_stack_spill_st_ld": sorted(
+              r for r in rows if r[0].startswith("affine_wide_regs "))})
     if bad:
         raise AssertionError(f"ptxas gate: stack frame or spills in {bad}")
 
@@ -730,113 +765,225 @@ def phase_kernels_dense():
     return out
 
 
+def _shared_wide_route(Tpad):
+    """The route the shared-memory wide body takes at Tpad: rows in shared memory
+    while a block's fit, else scratch."""
+    from vectorian_tpu_torch.ops import dp_kernels
+
+    fits = dp_kernels.AFFINE_WIDE_WARPS * 16 * (Tpad + 1) <= dp_kernels.WSB_SMEM_MAX
+    return "wide_shared" if fits else "wide_scratch"
+
+
+def _quantized(table, variant):
+    """The f32 ``table`` as ``variant`` ("f32", "bf16", "int8", "tagged":
+    f32) the way stack_query_tables quantizes it."""
+    import torch
+
+    if variant == "bf16":
+        return table.to(torch.bfloat16)
+    if variant == "int8":
+        max_abs = torch.clamp_min(table.abs().amax(), 1e-9)
+        return torch.round(table / (max_abs / torch.full_like(max_abs, 127.0))).to(torch.int8)
+    return table
+
+
 def phase_kernels_wide():
-    """3 (wide route): both affine entries at needles past the register
+    """3 (wide routes): the affine entries at needles past the register
     templates against their plain versions, bit for bit, 3 localities x 2
-    gap sets, each timed against its bound; the scratch route forced at one
-    shape of each entry; the register templates against the wide route at
-    Tpad 64 on the same inputs (bit for bit, timed in turns), and the wide
-    route at Tpad 128.  Returns {"affine_dp[wide]", "affine_dp_flat[wide]":
-    worst |diff|}."""
+    gap sets: the gather entry (f32, bf16 and int8 tables, tagged), the
+    rows entry (f32, tagged) and the dense entry, at Tpad 132 and 256 (L
+    16 and 32; Q 1 and 32; B 8,192, 12 slots), each on the register-
+    resident wide route (wide_regs) timed in turns against the
+    shared-memory route on the same inputs (old, new, new, old), and the
+    gather's default call, which splits the launch by needle width, held
+    and timed beside them; each time beside its bound.  Then the shared /
+    scratch route where the plan
+    takes it (Tpad 1,024, 2,048; scratch forced), the register templates
+    against wide_regs at Tpad 64, and wide_regs against the shared-memory
+    route at Tpad 128.  Returns
+    {"affine_dp[wide]", "affine_dp_flat[wide]": worst |diff|, "cases":
+    [the emitted lines]}."""
     import numpy as np
+    import torch
 
     from vectorian_tpu_torch.ops import dp_kernels
     from vectorian_tpu_torch.ops.alignment import AffineGapParams
+    from vectorian_tpu_torch.ops.search import ctx_chunk
 
     rng = np.random.default_rng(SEED + 6)
     gapsets = [(0.0, 0.0, 0.0, 0.0), (0.37, 0.113, 0.29, 0.071)]
     aff = AffineGapParams.of(*gapsets[1])
-    worst = {"affine_dp[wide]": 0.0, "affine_dp_flat[wide]": 0.0}
+    worst = {"affine_dp[wide]": 0.0, "affine_dp_flat[wide]": 0.0, "cases": []}
 
-    def gather_case(n, L, Tpad, Q, route=None, ab=None):
-        """Kernel vs plain at one gather shape; ``ab`` a route to time
-        against (in turns) on the same inputs."""
-        args = _affine_gather_inputs(rng, n, L, Tpad, Q)
-        plan = dp_kernels.affine_launch_plan(n * Q, Tpad, route=route)
-        for loc in LOCALITIES:
-            for gs in gapsets:
-                gaps = AffineGapParams.of(*gs)
-                got = dp_kernels.affine_dp_scores(*args, gaps, loc, _route=route)
-                want = dp_kernels.affine_dp_scores_reference(*args, gaps, loc)
-                d = _check_equal("affine_dp", got, want, (n, L, Tpad, Q, plan.route, loc, gs))
-                if plan.route != "registers":
-                    worst["affine_dp[wide]"] = max(worst["affine_dp[wide]"], d)
-                if ab:
-                    _check_equal("affine_dp", dp_kernels.affine_dp_scores(
-                        *args, gaps, loc, _route=ab), want, (n, L, Tpad, Q, ab, loc, gs))
-        run = lambda: dp_kernels.affine_dp_scores(*args, aff, "local", _route=route)  # noqa: E731
-        line = {"phase": "kernel_wide", "name": "affine_dp", "entry": "gather", "n": n,
-                "L": L, "Tpad": Tpad, "Q": Q, "route": plan.route, "shared_bytes": plan.smem,
-                "localities": 3, "gapsets": len(gapsets), "max_abs_diff": 0.0}
+    def held(key, name, runs, want, shape):
+        """Each of ``runs`` ({label: fn}) bit for bit against ``want``."""
+        for label, fn in runs.items():
+            d = _check_equal(name, fn(), want, shape + (label,))
+            worst[key] = max(worst[key], d)
+
+    def timed(line, runs, route, ab):
+        """The line's times: ``route`` against ``ab`` in turns (ab, route,
+        route, ab), the gather's default (split) call once more where it
+        splits; each also with the host's enqueue hidden (``device_ms``)."""
         if ab:
-            other = lambda: dp_kernels.affine_dp_scores(*args, aff, "local", _route=ab)  # noqa: E731
-            ms, ab_ms, t = _turns(run, other, 5)
-            line.update({"kernel_ms": ms, "vs_route": ab, "vs_route_ms": ab_ms,
+            old, new, t = _turns(runs[ab], runs[route], 5)
+            line.update({"kernel_ms": new, "vs_route": ab, "vs_route_ms": old,
                          "turns_ms": t})
         else:
-            line["kernel_ms"] = cuda_ms(run, 5)
-        line["plain_ms"] = cuda_ms(lambda: dp_kernels.affine_dp_scores_reference(
-            *args, aff, "local"), 1)
-        line["bound_ms"], line["bound_by"] = dp_bound_ms(*args[1:3], args[3], args[0])
+            line["kernel_ms"] = cuda_ms(runs[route], 5)
+        line["queued_kernel_ms"] = device_ms(runs[route], 10)
+        if "split" in runs:
+            line["split_ms"] = cuda_ms(runs["split"], 5)
+            line["queued_split_ms"] = device_ms(runs["split"], 10)
+        worst["cases"].append(line)
         emit(line)
 
-    def rows_case(B, L, T, slots, route=None, ab=None):
-        args = _rows_inputs(rng, B, L, T, slots, n=8_192)
-        plan = dp_kernels.affine_launch_plan(B, T, rows=True, route=route)
+    def gather_case(n, L, Tpad, Q, route=None, ab=None, variant="f32"):
+        """Kernel vs plain at one gather shape; ``ab`` a route to time
+        against (in turns) on the same inputs; the default call too where
+        it splits."""
+        table, tokens, len_s, len_t = _affine_gather_inputs(rng, n, L, Tpad, Q)
+        table = _quantized(table, variant)
+        tags = _tag_block(rng, n, L, Q, Tpad) if variant == "tagged" else None
+        lt_host = len_t.tolist()
+        plan = dp_kernels.affine_launch_plan(n * Q, Tpad, route=route)
+        split = route == "wide_regs" and dp_kernels.needle_split(lt_host, Tpad) is not None
+
+        def runs(gaps, loc):
+            def call(r=None):
+                return lambda: dp_kernels.affine_dp_scores(
+                    table, tokens, len_s, len_t, gaps, loc, tags=tags, len_t_host=lt_host,
+                    _route=r)
+            out = {plan.route: call(route)}
+            if ab:
+                out[ab] = call(ab)
+            if split:
+                out["split"] = call()
+            return out
+
         for loc in LOCALITIES:
             for gs in gapsets:
                 gaps = AffineGapParams.of(*gs)
-                got = dp_kernels.affine_dp_scores_rows(*args, gaps, loc, _route=route)
-                want = dp_kernels.affine_dp_scores_rows_reference(*args, gaps, loc)
-                d = _check_equal("affine_dp_scores_rows", got, want,
-                                 (B, L, T, slots, plan.route, loc, gs))
-                if plan.route != "rows_registers":
-                    worst["affine_dp_flat[wide]"] = max(worst["affine_dp_flat[wide]"], d)
-                if ab:
-                    _check_equal("affine_dp_scores_rows", dp_kernels.affine_dp_scores_rows(
-                        *args, gaps, loc, _route=ab), want, (B, L, T, slots, ab, loc, gs))
-        run = lambda: dp_kernels.affine_dp_scores_rows(*args, aff, "local", _route=route)  # noqa: E731
-        line = {"phase": "kernel_wide", "name": "affine_dp_flat", "entry": "rows", "B": B,
-                "L": L, "T": T, "slots": slots, "route": plan.route,
+                want = dp_kernels.affine_dp_scores_reference(table, tokens, len_s, len_t,
+                                                             gaps, loc, tags=tags)
+                held("affine_dp[wide]", "affine_dp", runs(gaps, loc), want,
+                     (n, L, Tpad, Q, variant, loc, gs))
+        r = runs(aff, "local")
+        line = {"phase": "kernel_wide", "name": "affine_dp", "entry": "gather",
+                "variant": variant, "n": n, "L": L, "Tpad": Tpad, "Q": Q,
+                "route": plan.route, "shared_bytes": plan.smem,
+                "cpl": dp_kernels.affine_wide_cpl(Tpad) if plan.route == "wide_regs" else 0,
+                "localities": 3, "gapsets": len(gapsets), "max_abs_diff": 0.0}
+        timed(line, r, plan.route, ab)
+        line["plain_ms"] = cuda_ms(lambda: dp_kernels.affine_dp_scores_reference(
+            table, tokens, len_s, len_t, aff, "local", tags=tags), 1)
+        line["bound_ms"], line["bound_by"] = dp_bound_ms(tokens, len_s, len_t, table, tags)
+        emit({"phase": "kernel_wide_plain", "entry": "gather", "variant": variant, "L": L,
+              "Tpad": Tpad, "Q": Q, "route": plan.route, "plain_ms": line["plain_ms"],
+              "bound_ms": line["bound_ms"], "bound_by": line["bound_by"]})
+
+    def rows_case(B, L, T, slots, route=None, ab=None, tagged=False):
+        args = _rows_inputs(rng, B, L, T, slots, n=8_192)
+        tags = _tag_block(rng, 8_192, L, slots, T) if tagged else None
+        plan = dp_kernels.affine_launch_plan(B, T, rows=True, route=route)
+
+        def runs(gaps, loc):
+            def call(r=None):
+                return lambda: dp_kernels.affine_dp_scores_rows(*args, gaps, loc, tags=tags,
+                                                                _route=r)
+            out = {plan.route: call(route)}
+            if ab:
+                out["rows_" + ab] = call(ab)
+            return out
+
+        for loc in LOCALITIES:
+            for gs in gapsets:
+                gaps = AffineGapParams.of(*gs)
+                want = dp_kernels.affine_dp_scores_rows_reference(*args, gaps, loc, tags=tags)
+                held("affine_dp_flat[wide]", "affine_dp_scores_rows", runs(gaps, loc), want,
+                     (B, L, T, slots, tagged, loc, gs))
+        r = runs(aff, "local")
+        line = {"phase": "kernel_wide", "name": "affine_dp_flat", "entry": "rows",
+                "variant": "tagged" if tagged else "f32", "B": B, "L": L, "T": T,
+                "slots": slots, "route": plan.route,
+                "cpl": dp_kernels.affine_wide_cpl(T) if plan.route == "rows_wide_regs" else 0,
                 "shared_bytes": plan.smem, "localities": 3, "gapsets": len(gapsets),
                 "max_abs_diff": 0.0}
-        if ab:
-            other = lambda: dp_kernels.affine_dp_scores_rows(  # noqa: E731
-                *args, aff, "local", _route=ab)
-            ms, ab_ms, t = _turns(run, other, 10)
-            line.update({"kernel_ms": ms, "vs_route": ab, "vs_route_ms": ab_ms,
-                         "turns_ms": t})
-        else:
-            line["kernel_ms"] = cuda_ms(run, 10)
-        line["queued_kernel_ms"] = device_ms(run, 10)
+        timed(line, r, plan.route, ab and "rows_" + ab)
         line["plain_ms"] = cuda_ms(lambda: dp_kernels.affine_dp_scores_rows_reference(
-            *args, aff, "local"), 1)
-        line["bound_ms"], line["bound_by"] = rows_bound_ms("affine_dp_flat", *args)
-        emit(line)
+            *args, aff, "local", tags=tags), 1)
+        line["bound_ms"], line["bound_by"] = rows_bound_ms("affine_dp_flat", *args, tags=tags)
+        emit({"phase": "kernel_wide_plain", "entry": "rows", "variant": line["variant"],
+              "L": L, "T": T, "route": plan.route, "queued_kernel_ms": line["queued_kernel_ms"],
+              "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"],
+              "bound_by": line["bound_by"]})
 
-    # past the register templates: the wide route, shared rows
+    def dense_case(L, Tpad, Q):
+        c = ctx_chunk(L, Tpad, Q, CTX_DIM)
+        ln = rng.integers(0, L + 1, size=c).astype(np.int32)
+        ln[:3] = (0, 1, L)
+        lt = rng.integers(1, Tpad + 1, size=Q).astype(np.int32)
+        lt[0] = Tpad
+        if Q > 1:
+            lt[1] = 1
+        S = torch.as_tensor(rng.uniform(-0.4, 1.0, size=(c, L, Tpad, Q)).astype(np.float32),
+                            device=DEVICE)
+        len_s, len_t = torch.as_tensor(ln, device=DEVICE), torch.as_tensor(lt, device=DEVICE)
+        old = _shared_wide_route(Tpad)
+
+        def runs(gaps, loc):
+            def call(r=None):
+                return lambda: dp_kernels.affine_dp_scores_dense(S, len_s, len_t, gaps, loc,
+                                                                 _route=r)
+            return {"wide_regs": call("wide_regs"), old: call(old)}
+
+        for loc in LOCALITIES:
+            for gs in gapsets:
+                gaps = AffineGapParams.of(*gs)
+                want = dp_kernels.affine_dp_scores_dense_reference(S, len_s, len_t, gaps, loc)
+                held("affine_dp[wide]", "affine_dp[dense]", runs(gaps, loc), want,
+                     (c, L, Tpad, Q, loc, gs))
+        line = {"phase": "kernel_wide", "name": "affine_dp[dense]", "entry": "dense",
+                "variant": "f32", "c": c, "L": L, "Tpad": Tpad, "Q": Q, "route": "wide_regs",
+                "cpl": dp_kernels.affine_wide_cpl(Tpad),
+                "localities": 3, "gapsets": len(gapsets), "max_abs_diff": 0.0}
+        timed(line, runs(aff, "local"), "wide_regs", old)
+        line["plain_ms"] = cuda_ms(lambda: dp_kernels.affine_dp_scores_dense_reference(
+            S, len_s, len_t, aff, "local"), 1)
+        line["bound_ms"], line["bound_by"] = dense_bound_ms("affine_dp[dense]", S, len_s, len_t)
+        emit({"phase": "kernel_wide_plain", "entry": "dense", "L": L, "Tpad": Tpad, "Q": Q,
+              "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"],
+              "bound_by": line["bound_by"]})
+
+    # the register-resident wide route against the shared-memory one, at every shape
     for Tpad in (132, 256):
+        old = _shared_wide_route(Tpad)
         for L in (16, 32):
             for Q in (1, 32):
-                gather_case(WIDE_N, L, Tpad, Q)
-            rows_case(WIDE_B, L, Tpad, 12)
+                gather_case(WIDE_N, L, Tpad, Q, route="wide_regs", ab=old)
+                for variant in ("bf16", "int8", "tagged"):
+                    gather_case(WIDE_N // 8, L, Tpad, Q, route="wide_regs", ab=old,
+                                variant=variant)
+            rows_case(WIDE_B, L, Tpad, 12, route="wide_regs", ab=old)
+            rows_case(WIDE_B // 4, L, Tpad, 12, route="wide_regs", ab=old, tagged=True)
+        for Q in (1, 32):
+            dense_case(16, Tpad, Q)
+    # past wide_regs' 512 columns the plan takes the shared rows, then scratch
     for L in (16, 32):
         gather_case(WIDE_N, L, 1_024, 1)
         rows_case(WIDE_B, L, 1_024, 12)
-    # rows past what shared memory holds: the scratch route, chosen and forced
     gather_case(1_024, 16, 2_048, 1)
     gather_case(WIDE_N, 16, 256, 32, route="wide_scratch")
     rows_case(WIDE_B, 16, 132, 12, route="wide_scratch")
-    # the register templates T1P = 65 against the wide route at Tpad 64,
-    # and Tpad 128, which the wide route serves (the T1P = 129 templates
-    # took as long or longer, and spilled)
+    # the register templates T1P = 65 against wide_regs at Tpad 64, and
+    # Tpad 128 (wide_regs with 4 columns a lane) against the shared-memory route
     for L in (16, 32):
         for Q in (1, 32):
             n = WIDE_N if Q > 1 else AFFINE_N
-            gather_case(n, L, 64, Q, route="registers", ab="wide_shared")
-            gather_case(n, L, 128, Q)
-        rows_case(WIDE_B, L, 64, 12, route="registers", ab="wide_shared")
-        rows_case(WIDE_B, L, 128, 12)
+            gather_case(n, L, 64, Q, route="registers", ab="wide_regs")
+            gather_case(n, L, 128, Q, route="wide_regs", ab="wide_shared")
+        rows_case(WIDE_B, L, 64, 12, route="registers", ab="wide_regs")
+        rows_case(WIDE_B, L, 128, 12, route="wide_regs", ab="wide_shared")
     return worst
 
 
@@ -2042,16 +2189,57 @@ def _timed(fn):
     return out[0], ms
 
 
+def long_query_profile(index, batch, n, min_score):
+    """Where the long-query batch's time goes, at int8 (the default) and
+    f32: a torch.profiler trace (device busy, idle share, top device
+    events), then the host spans (utils/trace) of one more call, summed by
+    name, beside its wall time and its launches by kernel and route."""
+    import torch
+
+    from vectorian_tpu_torch.ops import dp_kernels
+    from vectorian_tpu_torch.utils import trace
+
+    for prec in (None, "float32"):
+        label = f"long_query find_batch Q={len(batch)} {prec or 'int8'}"
+
+        def run():
+            return index.find_batch(batch, n=n, min_score=min_score, sim_precision=prec)
+
+        profile_calls(label, run)
+        dp_kernels.reset_launches()
+        trace.start()
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+        spans = {}
+        for name, dt in trace.stop():
+            ms, count = spans.get(name, (0.0, 0))
+            spans[name] = (ms + dt * 1e3, count + 1)
+        emit({"phase": "long_query_spans", "call": label, "wall_ms": wall_ms,
+              "spans_ms_count": {k: [ms, c] for k, (ms, c) in
+                                 sorted(spans.items(), key=lambda kv: -kv[1][0])},
+              "launches": {k: v for k, v in dp_kernels.LAUNCHES.items() if v},
+              "routes": {k: v for k, v in dp_kernels.AFFINE_ROUTE_LAUNCHES.items() if v}})
+
+
 def phase_long_query(session, long_q, queries, card):
     """4 (long queries): an affine find of a long query and a find_batch of
-    32 queries that holds it (every needle padded to the long one's width:
-    a batch of its own) at each ranking precision on the 1M-slice packing,
-    the launch counts set to 0 right before and read right after.  The wide
-    route must launch (and no register route), and the precisions and find
-    must be byte-identical.  Then the wide kernel against its plain version
-    at the shapes the path gave it (the batch's Q=32 table of each type and
-    the find's Q=1 table), timed at f32.  Returns the kernels-line numbers
-    of "affine_dp[wide]"."""
+    32 queries that holds it (every needle padded to the long one's width)
+    at each ranking precision on the 1M-slice packing, the launch counts
+    set to 0 right before and read right after.  The batch's corpus pass
+    splits by needle width: the 31 short needles must take the register
+    route and the long one the register-resident wide route (wide_regs),
+    as must the find; the shared-memory wide route must not launch.  The precisions
+    and find must be byte-identical.  Then, at the shapes the path gave
+    the kernels (the batch's Q=32 table of each type and the find's Q=1
+    table): the whole batch's call (both launches and the split's copies),
+    the same launches on the pass's prepared table (``affine_table``, made
+    once a pass) and the long needle's wide_regs launch alone, each held against its
+    plain version and timed with its bound, the launch in turns against
+    the shared-memory route on the same inputs (old, new, new, old); and where the
+    batch's wall time goes at int8 and f32 (``long_query_profile``).
+    Returns the kernels-line numbers of "affine_dp[wide]"."""
     import numpy as np
     import torch
 
@@ -2077,6 +2265,7 @@ def phase_long_query(session, long_q, queries, card):
         t = time.perf_counter()
         single = pairs(index.find(long_q, n=n, min_score=min_score))
         find_s = time.perf_counter() - t
+        find_routes = dict(dp_kernels.AFFINE_ROUTE_LAUNCHES)
         batches, times, extras = {}, {}, {"find": rounds[0]}
         for prec in PRECISIONS:
             r0 = rounds[0]
@@ -2090,9 +2279,11 @@ def phase_long_query(session, long_q, queries, card):
         # ---- end of the main path ----
     finally:
         search.BucketTopKSource.above_exact_many = real_round
-    wide = _wide_launches()
-    if wide == 0 or routes["registers"]:
-        raise AssertionError(f"long query: wide route not taken: {routes}")
+    wide = routes["wide_regs"]
+    if (find_routes["wide_regs"] == 0 or find_routes["registers"] or wide <= find_routes["wide_regs"]
+            or routes["registers"] == 0 or routes["wide_shared"] or routes["wide_scratch"]):
+        raise AssertionError(f"long query: routes {routes} (find {find_routes}): the short "
+                             "needles must take registers, the long one wide_regs")
     want = batches["float32"]
     for prec, b in batches.items():
         if b != want:
@@ -2105,39 +2296,71 @@ def phase_long_query(session, long_q, queries, card):
     emit({"phase": "long_query", "card": card, "needle_tokens": len(long_q.split()),
           "slices": index.packed.n_slices, "find_s": find_s, "find_batch_Q": len(batch),
           "find_batch_s": times, "extras_rounds": extras, "wide_launches": wide,
-          "affine_route_launches": routes,
+          "affine_route_launches": routes, "find_route_launches": find_routes,
           "launches": {k: v for k, v in launches.items() if v},
           "precisions_and_find_byte_identical": True})
+    long_query_profile(index, batch, n, min_score)
 
     dev = torch.device(DEVICE)
-    res = {"launches": wide, "max_abs_err": 0.0, "launch_route": ""}
+    res = {"launches": wide, "max_abs_err": 0.0, "launch_route": "wide_regs"}
     for key, qs, dt in (("", batch, None), ("[bf16]", batch, "bfloat16"),
                         ("[int8]", batch, "int8"), ("_find", [long_q], None)):
         _, plans, len_ts, _, _, _ = index._prepare_static_batch(qs, n, min_score, "float32", {})
         table, scale, _, Tpad = stack_query_tables(plans, len_ts, dt)
         gaps = scaled_costs(index._gaps, None, scale, Tpad, dev)[0]
         lt = torch.as_tensor(np.asarray(len_ts, np.int32), device=DEVICE)
-        ms = plain_ms = bound = 0.0
+        # the long needles' columns of the table: the wide_regs launch's input
+        long_q_idx = [q for q, x in enumerate(len_ts) if x > dp_kernels.AFFINE_REG_MAX_T]
+        qi = torch.as_tensor(long_q_idx, device=DEVICE)
+        t_long, lt_long = table[..., qi].contiguous(), lt[qi]
+        prepared = dp_kernels.affine_table(table, lt, len_ts)
+        acc = {"ms": 0.0, "old_ms": 0.0, "turns": [], "plain_ms": 0.0, "bound": 0.0,
+               "batch_ms": 0.0, "batch_launches_ms": 0.0, "batch_plain_ms": 0.0,
+               "batch_bound": 0.0}
         for db in index._engine._device_buckets:
-            args = (table, db["tokens"], db["lengths"], lt, gaps, "local")
-            plan = dp_kernels.affine_launch_plan(int(db["n"]) * len(qs), Tpad)
-            res["launch_route"] = plan.route
-            want_raw, p_ms = _timed(lambda: dp_kernels.affine_dp_scores_reference(*args))
-            res["max_abs_err"] = max(res["max_abs_err"], _check_equal(
-                "affine_dp[wide]", dp_kernels.affine_dp_scores(*args), want_raw,
-                f"long-query shapes{key}"))
+            tok, ln = db["tokens"], db["lengths"]
+            whole = (table, tok, ln, lt, gaps, "local")
+            part = (t_long, tok, ln, lt_long, gaps, "local")
+            new = lambda: dp_kernels.affine_dp_scores(*part, _route="wide_regs")  # noqa: E731
+            old = lambda: dp_kernels.affine_dp_scores(*part, _route="wide_shared")  # noqa: E731
+            call = lambda: dp_kernels.affine_dp_scores(*whole, len_t_host=len_ts)  # noqa: E731
+            launched = lambda: dp_kernels.affine_dp_scores(prepared, *whole[1:])  # noqa: E731
+            want_raw, p_ms = _timed(lambda: dp_kernels.affine_dp_scores_reference(*whole))
+            for fn, label in ((call, ""), (launched, " prepared")):
+                res["max_abs_err"] = max(res["max_abs_err"], _check_equal(
+                    "affine_dp[wide]", fn(), want_raw, f"long-query shapes{key}{label}"))
+            want_long, pl_ms = _timed(lambda: dp_kernels.affine_dp_scores_reference(*part))
+            if not torch.equal(want_long, want_raw[:, qi]):
+                raise AssertionError(f"long query{key}: the plain version of the long "
+                                     "needle's columns differs from the batch's")
+            for fn, label in ((new, "wide_regs"), (old, "wide_shared")):
+                res["max_abs_err"] = max(res["max_abs_err"], _check_equal(
+                    "affine_dp[wide]", fn(), want_long, f"long-query shapes{key} {label}"))
             if key in ("", "_find"):
-                ms += cuda_ms(lambda: dp_kernels.affine_dp_scores(*args), 3)
-                plain_ms += p_ms
-                b, by = dp_bound_ms(db["tokens"], db["lengths"], lt, table)
-                bound += b
+                o_ms, n_ms, t = _turns(old, new, 3)
+                acc["ms"] += n_ms
+                acc["old_ms"] += o_ms
+                acc["turns"].append(t)
+                acc["plain_ms"] += pl_ms
+                acc["bound"] += dp_bound_ms(tok, ln, lt_long, t_long)[0]
+                acc["batch_ms"] += cuda_ms(call, 3)
+                acc["batch_launches_ms"] += cuda_ms(launched, 3)
+                acc["batch_plain_ms"] += p_ms
+                acc["batch_bound"] += dp_bound_ms(tok, ln, lt, table)[0]
         if key in ("", "_find"):
-            sfx = "_find" if key else ""
-            res.update({f"ms{sfx}": ms, f"plain_ms{sfx}": plain_ms, f"bound_ms{sfx}": bound,
-                        f"bound_by{sfx}": by, f"shapes_n_L_Tpad_Q{sfx}": [
-                            [int(db["n"]), int(db["capacity"]), Tpad, len(qs)]
+            sfx = key
+            res.update({f"ms{sfx}": acc["ms"], f"old_route_ms{sfx}": acc["old_ms"],
+                        f"old_new_new_old_ms{sfx}": acc["turns"],
+                        f"plain_ms{sfx}": acc["plain_ms"], f"bound_ms{sfx}": acc["bound"],
+                        f"bound_by{sfx}": "operations",
+                        f"batch_ms{sfx}": acc["batch_ms"],
+                        f"batch_launches_ms{sfx}": acc["batch_launches_ms"],
+                        f"batch_plain_ms{sfx}": acc["batch_plain_ms"],
+                        f"batch_bound_ms{sfx}": acc["batch_bound"],
+                        f"shapes_n_L_Tpad_Q{sfx}": [
+                            [int(db["n"]), int(db["capacity"]), Tpad, len(long_q_idx)]
                             for db in index._engine._device_buckets]})
-        del table
+        del table, t_long, prepared
     emit({"phase": "long_query_kernel", "name": "affine_dp[wide]", **res})
     return res
 
@@ -2347,12 +2570,13 @@ def duplicates_corpus(rng):
 
 
 def _wide_launches(rows=False):
-    """Launches of the affine wide route (either home of its rows) since the
-    counts' last reset."""
+    """Launches of the affine wide routes (registers, or rows in shared
+    memory or scratch) since the counts' last reset."""
     from vectorian_tpu_torch.ops import dp_kernels
 
     p = "rows_" if rows else ""
-    return sum(dp_kernels.AFFINE_ROUTE_LAUNCHES[p + r] for r in ("wide_shared", "wide_scratch"))
+    return sum(dp_kernels.AFFINE_ROUTE_LAUNCHES[p + r]
+               for r in ("wide_regs", "wide_shared", "wide_scratch"))
 
 
 def phase_rescore(card):
@@ -3395,9 +3619,15 @@ class _FirstCalls:
             raise AssertionError(f"{label}: the paged pass launched no kernel")
         out = {}
         for name, (args, kw) in self.calls.items():
-            ref_kw = {k: v for k, v in kw.items() if k not in ("host_costs", "_route")}
+            ref_kw = {k: v for k, v in kw.items()
+                      if k not in ("host_costs", "_route", "len_t_host")}
+            ref_args = args
+            if isinstance(args[0], dp_kernels.AffineTable):
+                # the pass's prepared table reads the len_t it was made from
+                args = [args[0], *args[1:3], args[0].len_t, *args[4:]]
+                ref_args = [args[0].table, *args[1:]]
             got = getattr(dp_kernels, name)(*args, **kw)
-            want = getattr(dp_kernels, name + "_reference")(*args, **ref_kw)
+            want = getattr(dp_kernels, name + "_reference")(*ref_args, **ref_kw)
             out[name] = _check_equal(f"{label} {name}", got, want, tuple(got.shape))
         return out
 
@@ -3964,7 +4194,9 @@ def run_phases(card):
             "card": card,
         })
     # the wide route of kernels 1 and 2 (needles past the register
-    # templates): the long query's batch and find, and 4c's long query
+    # templates; wide_regs): the long needle's launch of the long query's
+    # batch and its find (the whole batch's call beside it), and 4c's long
+    # query
     res = wide
     kernels.append({
         "name": "affine_dp[wide]", "route": "cuda", "launch_route": res["launch_route"],
@@ -3974,6 +4206,9 @@ def run_phases(card):
         "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
         "bound_by": res["bound_by"], "library_ms": None, "ms_find": res["ms_find"],
         "plain_ms_find": res["plain_ms_find"], "bound_ms_find": res["bound_ms_find"],
+        "old_route_ms": res["old_route_ms"], "old_route_ms_find": res["old_route_ms_find"],
+        "batch_ms": res["batch_ms"], "batch_plain_ms": res["batch_plain_ms"],
+        "batch_bound_ms": res["batch_bound_ms"],
         "shapes_n_L_Tpad_Q": res["shapes_n_L_Tpad_Q"],
         "shapes_n_L_Tpad_Q_find": res["shapes_n_L_Tpad_Q_find"], "card": card,
     })
@@ -4059,6 +4294,31 @@ def run_phases(card):
     return kernels
 
 
+def wide_check(card):
+    """``--wide-check``: phase 2 (build, ptxas gate), phase 3's wide cases
+    and the long-query phase on phase 4's 1M-slice session, in a
+    packed-corpus cache of its own."""
+    import numpy as np
+
+    import vectorian_tpu_torch  # noqa: F401  (sets exact-f32 matmul flags)
+
+    cache = tempfile.mkdtemp(prefix="chip_smoke_cache_")
+    os.environ["VECTORIAN_CACHE_HOME"] = cache
+    try:
+        phase_build()
+        phase_kernels_wide()
+        rng = np.random.default_rng(SEED)
+        words, texts, query = zipf_corpus(SENTENCES, rng)
+        vectors = rng.normal(size=(len(words), 300)).astype(np.float32)
+        session = build_session(texts, words, vectors, DEVICE)
+        queries = [query() for _ in range(32)]
+        [query() for _ in range(21)]  # the full run's finds: the same long query after them
+        phase_long_query(session, query(160), queries, card)
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    log("wide check done")
+
+
 def batch_check(card):
     """``--batch-check``: phases 4k and 4l alone (their sessions built as
     the full run builds them), in a packed-corpus cache of their own."""
@@ -4106,6 +4366,13 @@ if __name__ == "__main__":
         phase_build()
         phase_kernels_dense()
         phase_contextual(card)
+    elif sys.argv[1:2] == ["--wide-check"]:
+        # the build and ptxas gate, phase 3's wide cases and the long-query
+        # phase alone: the quick check after a wide-route edit
+        if not (ROOT / "vectorian_tpu_torch" / "csrc" / "affine_dp.cu").exists():
+            raise SystemExit("chip_smoke: run from a checkout of the repository")
+        sys.path.insert(0, str(ROOT))
+        wide_check(phase_device())
     elif sys.argv[1:2] == ["--batch-check"]:
         # 4k's batches (static and 4h's tree) beside a loop of find, and
         # 4l over one bucket and over SPLIT_BUCKETS, alone: the quick

@@ -2,9 +2,9 @@
 end at 64): the port's plain affine DP against the JAX package's Pallas kernel
 (interpret mode) bit for bit, find and find_batch of a 129-token query
 against the JAX package, and the route function that sends such needles to
-the wide route (csrc/affine_dp.cu ``affine_dp_wide_kernel``), which the
-card holds bit for bit against the same plain version (chip_smoke.py
-phase 3).
+the wide routes (csrc/affine_dp.cu ``affine_dp_wide_regs_kernel``, then
+``affine_dp_wide_kernel``), which the card holds bit for bit against the
+same plain version (chip_smoke.py phase 3).
 """
 
 import numpy as np
@@ -61,17 +61,31 @@ def test_plain_dp_bit_equal_to_pallas_past_128(locality, Tp):
 
 @pytest.mark.parametrize("Tpad", [4, 8, 64, 128, 132, 256, 1_024, 1_815, 1_816, 4_096, 100_000])
 def test_route_serves_every_width(Tpad):
-    """Registers up to AFFINE_REG_MAX_T, the wide route past it: rows in
-    shared memory while a block of them fits with enough warps an SM, else
-    a scratch buffer within its cap.  No width raises."""
+    """Registers up to AFFINE_REG_MAX_T; past it the register-resident wide
+    route (a lane's columns in registers) up to AFFINE_WIDE_REGS_MAX_T;
+    past that the wide route's rows in shared memory while a block of them
+    fits with enough warps an SM, else a scratch buffer within its cap.  No
+    width raises, and any can be forced onto the scratch route."""
     for rows in (False, True):
         prefix = "rows_" if rows else ""
         for problems in (1, 700, 1 << 25):
             plan = dp_kernels.affine_launch_plan(problems, Tpad, rows=rows)
             per_warp = 16 * (Tpad + 1)
+            forced = dp_kernels.affine_launch_plan(problems, Tpad, rows=rows,
+                                                   route="wide_scratch")
+            assert forced.route == prefix + "wide_scratch"
             if Tpad <= dp_kernels.AFFINE_REG_MAX_T:
                 assert plan.route == prefix + "registers"
                 assert plan.blocks * plan.threads >= problems
+                continue
+            if Tpad <= dp_kernels.AFFINE_WIDE_REGS_MAX_T:
+                assert plan.route == prefix + "wide_regs"
+                assert plan.threads == 32 * dp_kernels.AFFINE_WIDE_REGS_WARPS
+                assert plan.smem == 0 and plan.floats == 0
+                cpl = dp_kernels.affine_wide_cpl(Tpad)
+                assert cpl in dp_kernels.AFFINE_WIDE_CPL and 32 * cpl >= Tpad
+                assert cpl == dp_kernels.AFFINE_WIDE_CPL[0] or 16 * cpl < Tpad
+                assert plan.blocks * dp_kernels.AFFINE_WIDE_REGS_WARPS >= problems
                 continue
             assert plan.threads == 32 * dp_kernels.AFFINE_WIDE_WARPS
             if plan.route == prefix + "wide_shared":
@@ -86,13 +100,14 @@ def test_route_serves_every_width(Tpad):
                                               dp_kernels.AFFINE_WIDE_WARPS * per_warp)
             fits = dp_kernels.AFFINE_WIDE_WARPS * per_warp <= dp_kernels.WSB_SMEM_MAX
             assert (plan.route == prefix + "wide_shared") == fits
-            # any width can be forced onto the scratch route
-            forced = dp_kernels.affine_launch_plan(problems, Tpad, rows=rows,
-                                                   route="wide_scratch")
-            assert forced.route == prefix + "wide_scratch"
     if Tpad > dp_kernels.AFFINE_REG_MAX_T:
         with pytest.raises(ValueError):
             dp_kernels.affine_launch_plan(8, Tpad, route="registers")
+    if Tpad > dp_kernels.AFFINE_WIDE_REGS_MAX_T:
+        with pytest.raises(ValueError):
+            dp_kernels.affine_launch_plan(8, Tpad, route="wide_regs")
+    else:
+        assert dp_kernels.affine_launch_plan(8, Tpad, route="wide_regs").route == "wide_regs"
     if Tpad >= 1_816:
         with pytest.raises(ValueError):
             dp_kernels.affine_launch_plan(8, Tpad, route="wide_shared")

@@ -34,7 +34,11 @@
 // the kernel is bound by f32 operations, not bytes.
 //
 // What the design does about it, on the register route (needles up to 64
-// tokens; the wide route below takes any width): one thread per problem; in
+// tokens; the wide routes below take wider ones, "wide_regs" up to 512
+// columns, then "wide_shared" / "wide_scratch" at any width; the gather
+// entry's wrapper splits a launch so that each needle takes the route of
+// its own width):
+// one thread per problem; in
 // the gather entry threadIdx walks q fastest, so a warp's table reads
 // table[tok, j, q..q+31] coalesce and the token id is a broadcast.  The H/F/E rows live
 // in registers and nowhere else: T1P is a template parameter, every loop
@@ -418,7 +422,8 @@ __global__ void __launch_bounds__(THREADS, 4)
 
 // ---------------------------------------------------------------------------
 // The wide route: needles of any padded width (ops/dp_kernels.py
-// affine_launch_plan picks it past AFFINE_REG_MAX_T).  One warp a (slice,
+// affine_launch_plan picks it past AFFINE_WIDE_REGS_MAX_T; below that the
+// register-resident wide route further down).  One warp a (slice,
 // query) problem; its H, F and two E rows (4 x (Tpad + 1) floats) live in
 // shared memory ("wide_shared") or, where too few warps an SM would fit
 // there, in a device scratch buffer sized to the warps in flight
@@ -643,6 +648,334 @@ __global__ void __launch_bounds__(WIDE_THREADS, 3)
   affine_wide_body<LOC, ROWS, SCRATCH, float, true>(a, scratch, t);
 }
 
+// ---------------------------------------------------------------------------
+// The register-resident wide route ("wide_regs"): needles of 65 up to 32 x
+// WIDE_CPL_MAX columns, the default past the register templates
+// (ops/dp_kernels.py affine_launch_plan); wider needles keep the route
+// above.  Replaces the same TPU kernels as the rest of this file:
+// _make_multiq_kernel (:369) / _dp_one_slice (:416) for the gather and
+// dense entries, and _make_kernel (:44) for the rows entry, in
+// vectorian_tpu/ops/pallas_dp.py.
+//
+// What bounds it: f32 operations, ~8 + 2 * log2(T1) a cell (the doubling
+// steps dominate past 64 columns), against bytes that are the token ids
+// and the scores.  The route above spent most of a row on the shared-
+// memory protocol instead: the C pass, the E init, every doubling step and
+// the final max each read and wrote the rows in shared memory (or device
+// scratch) with a __syncwarp between them, ~55 warp-passes a row at T1 =
+// 161, and a lane loaded its similarity as one 4-byte scalar.
+//
+// What the design does about it: one warp a problem, lane l owns the CPL
+// contiguous DP columns 1 + l * CPL ... (l + 1) * CPL (CPL = 4, 8 or 16, a
+// template parameter: every loop over a lane's columns is unrolled), and H,
+// F and E live in registers.  Column 0 is held by every lane as a scalar:
+// its H is the boundary value (0, then max(init_col, E[0]) after each row)
+// and its E never changes from NEG - open_t.  The lane's similarities are
+// columns l * CPL ... of the row, read 4 at a time (16 bytes of f32, 8 of
+// bf16, 4 of int8) where a row is contiguous: the query-major gather table,
+// the rows entry, a dense block at Q = 1.  The diagonal H[j - 1] is the
+// lane's own register, or lane l - 1's last by one __shfl_up_sync.  The
+// horizontal gap keeps the reference's doubling, E = max(E, E[j - shift] -
+// decay * shift) for shifts 1, 2, 4, ... < T1: a shift below CPL reads the
+// lane's own registers (updated in descending order, so each step reads
+// only old values) and, for its first ``shift`` registers, those of lane l
+// - 1; a shift of m * CPL reads register r of lane l - m, one shuffle a
+// register.  A column with no source subtracts +inf (max(E, -inf) is E,
+// bit for bit).  No shared memory, no __syncwarp.  The score's maxes
+// (local: every row's columns; semiglobal: every row's end column and the
+// last row's columns) run per lane, and the warp's xor reduction once a
+// problem; the global score's end column comes from the lane that holds
+// it, at the last row.  Row i + 1's similarities (and row i + 2's token
+// id) are loaded before row i's arithmetic (past 4 columns a lane).
+// ``vec`` nonzero allows the 4-element loads.
+// ---------------------------------------------------------------------------
+
+constexpr int WIDE_CPL_MAX = 16;
+// Blocks of 4 warps: at the 72-91 registers ptxas gives the 8-column
+// templates an SM keeps 5-7 of them (20-28 warps), where 8-warp blocks
+// kept 2-3 (16-24).
+constexpr int WIDE_REGS_WARPS = 4;
+constexpr int WIDE_REGS_THREADS = 32 * WIDE_REGS_WARPS;
+
+// Four contiguous table elements as f32, exactly (16 bytes of f32, 8 of
+// bf16, 4 of int8).
+__device__ __forceinline__ void load4(float* v, const float* p) {
+  const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = x.x;
+  v[1] = x.y;
+  v[2] = x.z;
+  v[3] = x.w;
+}
+__device__ __forceinline__ void load4(float* v, const uint16_t* p) {
+  const uint2 x = __ldg(reinterpret_cast<const uint2*>(p));
+  v[0] = __uint_as_float(x.x << 16);
+  v[1] = __uint_as_float(x.x & 0xffff0000u);
+  v[2] = __uint_as_float(x.y << 16);
+  v[3] = __uint_as_float(x.y & 0xffff0000u);
+}
+__device__ __forceinline__ void load4(float* v, const int8_t* p) {
+  const uint32_t x = (uint32_t)__ldg(reinterpret_cast<const int*>(p));
+#pragma unroll
+  for (int k = 0; k < 4; ++k) v[k] = (float)(int8_t)(uint8_t)(x >> (8 * k));
+}
+
+// Similarity columns c0 ... c0 + CPL - 1 of a row (0 past Tpad); ``vec``:
+// 4 at a time (Tpad % 4 == 0, rows aligned to 4 elements, cs == 1).
+template <int CPL, typename E>
+__device__ __forceinline__ void wide_row(float (&v)[CPL], const E* __restrict__ src,
+                                         int c0, int Tpad, int64_t cs, bool vec) {
+  if (vec) {
+#pragma unroll
+    for (int g = 0; g < CPL; g += 4) {
+      if (c0 + g < Tpad) {
+        load4(&v[g], src + c0 + g);
+      } else {
+        v[g] = v[g + 1] = v[g + 2] = v[g + 3] = 0.0f;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < CPL; ++r)
+      v[r] = (c0 + r < Tpad) ? to_f32(__ldg(src + (int64_t)(c0 + r) * cs)) : 0.0f;
+  }
+}
+
+// The doubling steps SHIFT, 2 * SHIFT, ... < T1 of a row held as CPL
+// registers a lane (columns 1 + lane * CPL + r); ``e0`` is E[0].  One
+// instantiation a step, so every register index is a constant.  A column
+// with no source (j < SHIFT) subtracts +inf from whatever its shuffle
+// brought (a lane with none to its left gets its own value back): max(E,
+// -inf) leaves E as it is, bit for bit, with no select a register.
+template <int CPL, int SHIFT>
+__device__ __forceinline__ void wide_doubling(float (&E)[CPL], float decay, float e0,
+                                              int T1, int lane) {
+  if constexpr (SHIFT < 32 * CPL) {
+    if (SHIFT >= T1) return;  // warp-uniform
+    const float d = decay * (float)SHIFT;
+    const float pinf = __uint_as_float(0x7f800000u);
+    if constexpr (SHIFT < CPL) {
+      // registers r < SHIFT read lane l - 1's register CPL - SHIFT + r;
+      // lane 0's register SHIFT - 1 reads column 0, its others nothing
+      const float dl = (lane >= 1) ? d : pinf;
+      float src[SHIFT];
+#pragma unroll
+      for (int r = 0; r < SHIFT; ++r) src[r] = __shfl_up_sync(FULL, E[CPL - SHIFT + r], 1);
+      if (lane == 0) src[SHIFT - 1] = e0;
+#pragma unroll
+      for (int r = CPL - 1; r >= SHIFT; --r) E[r] = fmaxf(E[r], E[r - SHIFT] - d);
+#pragma unroll
+      for (int r = 0; r < SHIFT - 1; ++r) E[r] = fmaxf(E[r], src[r] - dl);
+      E[SHIFT - 1] = fmaxf(E[SHIFT - 1], src[SHIFT - 1] - d);
+    } else {
+      // register r of lane l - M; lane M - 1's last register reads column 0
+      constexpr int M = SHIFT / CPL;
+      const float dl = (lane >= M) ? d : pinf;
+#pragma unroll
+      for (int r = 0; r < CPL - 1; ++r)
+        E[r] = fmaxf(E[r], __shfl_up_sync(FULL, E[r], M) - dl);
+      const float o = __shfl_up_sync(FULL, E[CPL - 1], M);
+      const bool at0 = lane == M - 1;
+      E[CPL - 1] = fmaxf(E[CPL - 1], (at0 ? e0 : o) - (at0 ? d : dl));
+    }
+    wide_doubling<CPL, 2 * SHIFT>(E, decay, e0, T1, lane);
+  }
+}
+
+template <int CPL, int LOC, bool ROWS, typename E, bool TAGGED, bool DENSE = false>
+__device__ __forceinline__ void affine_wide_regs_body(const Args a, const TagArgs t,
+                                                      const int vec_ok) {
+  static_assert(!ROWS || std::is_same<E, float>::value, "rows read f32 tables");
+  static_assert(!TAGGED || std::is_same<E, float>::value, "tags weight f32 tables");
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c0 = lane * CPL;  // the lane's first similarity column
+  const int Tpad = a.Tpad;
+  const float open_s = a.open_s, ext_s = a.ext_s, open_t = a.open_t;
+  const float decay = fminf(a.open_t, a.ext_t);
+  const float e0 = NEG - open_t;  // E[0]: no doubling step changes it
+  const bool vec = vec_ok != 0;
+  const int64_t problems = a.n * (int64_t)a.Q;
+
+  for (int64_t p = (int64_t)blockIdx.x * WIDE_REGS_WARPS + warp; p < problems;
+       p += (int64_t)gridDim.x * WIDE_REGS_WARPS) {
+    int64_t s, po;  // po: the problem's output
+    int ln, lt;
+    int k = 0;  // tagged: the query or table slot
+    const E* base = static_cast<const E*>(a.table);
+    int64_t rstride, cs;
+    if (ROWS) {
+      s = (a.prow != nullptr) ? (int64_t)a.prow[p] : p;
+      po = p;
+      ln = a.len_s[p];
+      lt = a.len_t[p];
+      rstride = Tpad;
+      cs = 1;
+      base += (a.pslot != nullptr ? (int64_t)a.pslot[p] * a.V : 0) * rstride;
+      if (a.tokens == nullptr) base += s * (int64_t)a.L * rstride;
+      if constexpr (TAGGED) k = (a.pslot != nullptr) ? a.pslot[p] : 0;
+    } else {
+      int q;
+      split_problem(p, a.Q, a.small, s, q);
+      po = s * a.Q + q;
+      if constexpr (TAGGED) k = q;
+      ln = a.len_s[s];
+      lt = a.len_t[q];
+      rstride = (int64_t)Tpad * a.Q;
+      if constexpr (DENSE) {
+        base += q + s * (int64_t)a.L * rstride;
+        cs = a.Q;
+      } else {
+        base += (int64_t)q * Tpad;  // the query-major [V, Q, Tpad] table
+        cs = 1;
+      }
+    }
+    const int32_t* __restrict__ tok_row =
+        (a.tokens != nullptr) ? a.tokens + s * (int64_t)a.L : nullptr;
+    const int T1 = min(lt, Tpad) + 1;  // the columns that reach the score
+
+    float H[CPL], Fv[CPL];
+#pragma unroll
+    for (int r = 0; r < CPL; ++r) {
+      const int j = c0 + 1 + r;
+      float h0 = 0.0f;
+      if (LOC == GLOBAL) h0 = -__fmaf_rn((float)j - 1.0f, a.ext_t, a.open_t);
+      H[r] = (j <= lt) ? h0 : NEG;
+      Fv[r] = NEG;
+    }
+    float h0col = 0.0f;  // H[0]
+    float best = (LOC == GLOBAL) ? NEG : 0.0f;
+    // the lane that holds column lt (lt == 0: column 0, every lane's)
+    const int end_lane = (lt >= 1) ? (lt - 1) / CPL : 0;
+    // this lane's part of the score: local, the max of every row's columns
+    // 1..lt; semiglobal, of every row's column lt and the last row's
+    // columns 1..lt.  The warp reduces it once, after the last row (max is
+    // exact in any order).
+    float acc = NEG;
+    float pen = 0.0f, thr = 0.0f;
+    if constexpr (TAGGED) {
+      pen = __ldg(t.pen + k);
+      thr = __ldg(t.thr + k);
+    }
+    const int rows = min(ln, a.L);
+    // Past 4 columns a lane, row i + 1's similarities load before row i's
+    // arithmetic; at 4, ptxas held the global templates at 64 registers
+    // and spilled with the second buffer, so they load as they go, the
+    // token id a row ahead.
+    constexpr bool PREFETCH = CPL > 4;
+    float v[CPL];
+    int tok_next = 0;
+    if (rows > 0) {
+      if (PREFETCH)
+        wide_row<CPL>(v, base + (int64_t)wide_token(tok_row, 0) * rstride, c0, Tpad, cs, vec);
+      else
+        tok_next = wide_token(tok_row, 0);
+      if (PREFETCH && rows > 1) tok_next = wide_token(tok_row, 1);
+    }
+    for (int i = 0; i < rows; ++i) {
+      const int dp_i = i + 1;
+      float vn[CPL];
+      if (!PREFETCH) {
+        wide_row<CPL>(v, base + (int64_t)tok_next * rstride, c0, Tpad, cs, vec);
+        if (i + 1 < rows) tok_next = wide_token(tok_row, i + 1);
+      } else if (i + 1 < rows) {
+        wide_row<CPL>(vn, base + (int64_t)tok_next * rstride, c0, Tpad, cs, vec);
+        if (i + 2 < rows) tok_next = wide_token(tok_row, i + 2);
+      }
+      if constexpr (TAGGED) {
+        const int ps = __ldg(t.pos + s * (int64_t)a.L + i);
+#pragma unroll
+        for (int r = 0; r < CPL; ++r) {
+          if (c0 + r < Tpad) {
+            const int64_t ow = (int64_t)k * t.qs + (int64_t)(c0 + r) * t.cs;
+            v[r] = tag_weight(v[r], ps, __ldg(t.w + ow), __ldg(t.p + ow), pen, thr);
+          }
+        }
+      }
+      float init_col = 0.0f;
+      if (LOC == GLOBAL) init_col = -__fmaf_rn((float)dp_i - 1.0f, ext_s, open_s);
+
+      // C (kept in H): diagonal, vertical gap, local floor.  Descending r
+      // reads H[r - 1] of the previous row before it is replaced; register
+      // 0's diagonal is lane l - 1's last column (lane 0: column 0).
+      const float h_up = __shfl_up_sync(FULL, H[CPL - 1], 1);
+      const float h_left = (lane == 0) ? h0col : h_up;
+#pragma unroll
+      for (int r = CPL - 1; r >= 0; --r) {
+        const float m = ((r >= 1) ? H[r - 1] : h_left) + v[r];
+        const float f = fmaxf(H[r] - open_s, Fv[r] - ext_s);
+        float c = fmaxf(m, f);
+        if (LOC == LOCAL) c = fmaxf(c, 0.0f);
+        Fv[r] = f;
+        H[r] = c;
+      }
+      // Horizontal gap: E = shift_down(C, 1) - open_t (column 1 reads C[0]
+      // = init_col), then the decayed prefix max by doubling.
+      const float c_up = __shfl_up_sync(FULL, H[CPL - 1], 1);
+      float Ev[CPL];
+#pragma unroll
+      for (int r = CPL - 1; r >= 1; --r) Ev[r] = H[r - 1] - open_t;
+      Ev[0] = ((lane == 0) ? init_col : c_up) - open_t;
+      wide_doubling<CPL, 1>(Ev, decay, e0, T1, lane);
+      float colmax = NEG, h_end = NEG;  // this lane's columns
+#pragma unroll
+      for (int r = 0; r < CPL; ++r) {
+        const int j = c0 + 1 + r;
+        const float h = fmaxf(H[r], Ev[r]);
+        H[r] = h;
+        if (j <= lt) colmax = fmaxf(colmax, h);
+        if (j == lt) h_end = h;
+      }
+      h0col = fmaxf(init_col, e0);
+      if (lt == 0) h_end = h0col;
+      // Every row has dp_i <= len_s.
+      if (LOC == LOCAL) {
+        acc = fmaxf(acc, colmax);
+      } else if (LOC == GLOBAL) {
+        if (dp_i == ln) best = __shfl_sync(FULL, h_end, end_lane);
+      } else {
+        acc = fmaxf(acc, h_end);
+        if (dp_i == ln) acc = fmaxf(acc, colmax);
+      }
+      if (PREFETCH && i + 1 < rows) {
+#pragma unroll
+        for (int r = 0; r < CPL; ++r) v[r] = vn[r];
+      }
+    }
+    if (LOC != GLOBAL) {
+#pragma unroll
+      for (int w = 16; w >= 1; w >>= 1) acc = fmaxf(acc, __shfl_xor_sync(FULL, acc, w));
+      best = fmaxf(best, acc);
+    }
+    if (lane == 0) a.out[po] = (ROWS && a.mask_empty && ln <= 0) ? NEG : best;
+  }
+}
+
+// Blocks an SM each template is built for: left to choose, ptxas held
+// some templates at an occupancy step (64, 96 or 128 registers) and
+// spilled 4 bytes; these bounds leave it room above the registers the
+// templates take (56-80 at 4 columns a lane, 80-128 at 8, 128-255 at 16).
+template <int CPL>
+constexpr int wide_regs_min_blocks() {
+  return CPL >= 16 ? 2 : 4;
+}
+
+template <int CPL, int LOC, bool ROWS, typename E>
+__global__ void __launch_bounds__(WIDE_REGS_THREADS, wide_regs_min_blocks<CPL>())
+    affine_dp_wide_regs_kernel(const Args a, const int vec) {
+  affine_wide_regs_body<CPL, LOC, ROWS, E, false>(a, TagArgs{}, vec);
+}
+
+template <int CPL, int LOC, bool ROWS>
+__global__ void __launch_bounds__(WIDE_REGS_THREADS, wide_regs_min_blocks<CPL>())
+    affine_dp_wide_regs_tagged_kernel(const Args a, const TagArgs t, const int vec) {
+  affine_wide_regs_body<CPL, LOC, ROWS, float, true>(a, t, vec);
+}
+
+template <int CPL, int LOC>
+__global__ void __launch_bounds__(WIDE_REGS_THREADS, wide_regs_min_blocks<CPL>())
+    affine_dp_wide_regs_dense_kernel(const Args a, const int vec) {
+  affine_wide_regs_body<CPL, LOC, false, float, false, true>(a, TagArgs{}, vec);
+}
+
 // The same kernel with four blocks an SM asked for: the quantized gather
 // templates at T1P = 17.  Left to itself ptxas keeps a fifth block there (96
 // registers) and spills (bf16, semiglobal); four blocks give it 128.  A bound
@@ -703,12 +1036,15 @@ void launch_vec(bool vec, int locality, dim3 grid, cudaStream_t stream,
   }
 }
 
-// A launch on the wide route: its grid and the shared bytes a block (0 when
-// the rows live in ``scratch``); blocks == 0 is the register route.
+// A launch on a wide route: its grid, and either the register-resident
+// body's columns a lane (cpl > 0) or the shared bytes a block (0 when the
+// rows live in ``scratch``); blocks == 0 is the register route.
 struct Wide {
   int blocks;
+  int cpl;
   int smem;
   float* scratch;
+  int vec;  // the register-resident body's 4-element loads (launch_wide_regs)
 };
 
 // Shared bytes past the default 48 KB a block must be asked for.
@@ -761,6 +1097,50 @@ int launch_wide(int locality, const Wide& w, cudaStream_t st, const Args& a,
   }
 }
 
+template <int CPL, int LOC, bool ROWS, typename E, bool DENSE>
+int launch_wide_regs_one(const Wide& w, cudaStream_t st, const Args& a, const TagArgs* t) {
+  if constexpr (DENSE) {
+    affine_dp_wide_regs_dense_kernel<CPL, LOC><<<w.blocks, WIDE_REGS_THREADS, 0, st>>>(a, w.vec);
+  } else {
+    if constexpr (std::is_same<E, float>::value) {
+      if (t != nullptr) {
+        affine_dp_wide_regs_tagged_kernel<CPL, LOC, ROWS>
+            <<<w.blocks, WIDE_REGS_THREADS, 0, st>>>(a, *t, w.vec);
+        return (int)cudaGetLastError();
+      }
+    }
+    affine_dp_wide_regs_kernel<CPL, LOC, ROWS, E><<<w.blocks, WIDE_REGS_THREADS, 0, st>>>(a, w.vec);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int CPL, bool ROWS, typename E, bool DENSE>
+int launch_wide_regs_cpl(int locality, const Wide& w, cudaStream_t st, const Args& a,
+                         const TagArgs* t) {
+  switch (locality) {
+    case LOCAL: return launch_wide_regs_one<CPL, LOCAL, ROWS, E, DENSE>(w, st, a, t);
+    case GLOBAL: return launch_wide_regs_one<CPL, GLOBAL, ROWS, E, DENSE>(w, st, a, t);
+    default: return launch_wide_regs_one<CPL, SEMIGLOBAL, ROWS, E, DENSE>(w, st, a, t);
+  }
+}
+
+// The register-resident wide body: a lane's CPL columns must hold the
+// needle (Tpad <= 32 * CPL); the 4-element loads need contiguous rows
+// aligned to 4 elements.
+template <bool ROWS, typename E, bool DENSE>
+int launch_wide_regs(int locality, Wide w, cudaStream_t st, const Args& a,
+                     const TagArgs* t) {
+  if (w.smem != 0 || w.scratch != nullptr || a.Tpad > 32 * w.cpl) return -1;
+  w.vec = (!DENSE || a.Q == 1) && a.Tpad % 4 == 0 &&
+               reinterpret_cast<uintptr_t>(a.table) % (4 * sizeof(E)) == 0;
+  switch (w.cpl) {
+    case 4: return launch_wide_regs_cpl<4, ROWS, E, DENSE>(locality, w, st, a, t);
+    case 8: return launch_wide_regs_cpl<8, ROWS, E, DENSE>(locality, w, st, a, t);
+    case WIDE_CPL_MAX: return launch_wide_regs_cpl<WIDE_CPL_MAX, ROWS, E, DENSE>(locality, w, st, a, t);
+    default: return -1;
+  }
+}
+
 template <bool ROWS, typename E, bool DENSE = false>
 int dispatch(Args a, int locality, const Wide& w, const TagArgs* t, void* stream) {
   if (a.n <= 0 || a.L <= 0 || a.Q <= 0 || a.Tpad <= 0 || locality < 0 ||
@@ -771,6 +1151,7 @@ int dispatch(Args a, int locality, const Wide& w, const TagArgs* t, void* stream
   if (blocks > 0x7fffffffLL) return -1;
   cudaStream_t st = (cudaStream_t)stream;
   a.small = problems <= 0xffffffffLL;
+  if (w.blocks > 0 && w.cpl > 0) return launch_wide_regs<ROWS, E, DENSE>(locality, w, st, a, t);
   if (w.blocks > 0) return launch_wide<ROWS, E, DENSE>(locality, w, st, a, t);
   // the register route's templates end at T1P = 65 (its plan never sends
   // a wider needle: the wide route takes those)
@@ -800,24 +1181,26 @@ int dispatch(Args a, int locality, const Wide& w, const TagArgs* t, void* stream
 // when the arguments are outside what the kernel takes.  ``tag``: a host
 // pointer to the tag-weighted block's inputs (copied into the launch), or
 // null; only an f32 table with token ids takes it.  ``wide_blocks`` > 0
-// launches the wide route on that grid, its rows in ``wide_smem`` shared
-// bytes a block or, where that is 0, in ``scratch`` (4 x (Tpad + 1) floats
-// a warp, WIDE_WARPS warps a block); 0 launches the register route.
+// launches a wide route on that grid: with ``wide_cpl`` > 0 (4, 8 or
+// WIDE_CPL_MAX columns a lane, 32 * wide_cpl >= Tpad) the register-resident
+// body, else the rows in ``wide_smem`` shared bytes a block or, where that
+// is 0, in ``scratch`` (4 x (Tpad + 1) floats a warp, WIDE_WARPS warps a
+// block); 0 launches the register route.
 
 // ``table`` of ``table_dtype`` (TableDtype: f32, bf16 bits or int8) is
 // [V, Tpad, Q] on the register route and query-major [V, Q, Tpad] on the
-// wide route.
+// wide routes.
 extern "C" int vt_affine_dp_scores(
     const void* table, int table_dtype, const int32_t* tokens,
     const int32_t* len_s, const int32_t* len_t, float* out, int64_t n, int L,
     int Tpad, int Q, float open_s, float ext_s, float open_t, float ext_t,
-    int locality, int wide_blocks, int wide_smem, float* scratch,
+    int locality, int wide_blocks, int wide_cpl, int wide_smem, float* scratch,
     const TagArgs* tag, void* stream) {
   if (tokens == nullptr) return -1;
   if (tag != nullptr && (table_dtype != F32 || tag->pos == nullptr)) return -1;
   const Args a{table, tokens, nullptr, nullptr, len_s, len_t, out, n, L,
                Tpad, Q, 0, open_s, ext_s, open_t, ext_t, false, false};
-  const Wide w{wide_blocks, wide_smem, scratch};
+  const Wide w{wide_blocks, wide_cpl, wide_smem, scratch, 0};
   switch (table_dtype) {
     case F32: return dispatch<false, float>(a, locality, w, tag, stream);
     case BF16: return dispatch<false, uint16_t>(a, locality, w, nullptr, stream);
@@ -835,12 +1218,12 @@ extern "C" int vt_affine_dp_scores_rows(
     const int32_t* qslot, const int32_t* len_s, const int32_t* len_t,
     float* out, int64_t B, int L, int Tmax, int64_t V, float open_s,
     float ext_s, float open_t, float ext_t, int locality, int mask_empty,
-    int wide_blocks, int wide_smem, float* scratch, const TagArgs* tag,
-    void* stream) {
+    int wide_blocks, int wide_cpl, int wide_smem, float* scratch,
+    const TagArgs* tag, void* stream) {
   if (tag != nullptr && (tokens == nullptr || tag->pos == nullptr)) return -1;
   const Args a{table, tokens, rows, qslot, len_s, len_t, out, B, L, Tmax, 1,
                V, open_s, ext_s, open_t, ext_t, false, mask_empty != 0};
-  const Wide w{wide_blocks, wide_smem, scratch};
+  const Wide w{wide_blocks, wide_cpl, wide_smem, scratch, 0};
   return dispatch<true, float>(a, locality, w, tag, stream);
 }
 
@@ -850,11 +1233,11 @@ extern "C" int vt_affine_dp_scores_rows(
 extern "C" int vt_affine_dp_scores_dense(
     const float* S, const int32_t* len_s, const int32_t* len_t, float* out,
     int64_t c, int L, int Tpad, int Q, float open_s, float ext_s, float open_t,
-    float ext_t, int locality, int wide_blocks, int wide_smem, float* scratch,
-    void* stream) {
+    float ext_t, int locality, int wide_blocks, int wide_cpl, int wide_smem,
+    float* scratch, void* stream) {
   if (S == nullptr) return -1;
   const Args a{S, nullptr, nullptr, nullptr, len_s, len_t, out, c, L,
                Tpad, Q, 0, open_s, ext_s, open_t, ext_t, false, false};
-  const Wide w{wide_blocks, wide_smem, scratch};
+  const Wide w{wide_blocks, wide_cpl, wide_smem, scratch, 0};
   return dispatch<false, float, true>(a, locality, w, nullptr, stream);
 }

@@ -5,11 +5,16 @@ counts.
 - ``affine_dp_scores``: the affine corpus pass, the gather of the stacked
   serving table ``[V, Tpad, Q]`` (f32, or a quantized bf16 / int8 ranking
   table, read as it is) by each slice's token ids fused with the Gotoh DP
-  (csrc/affine_dp.cu; replaces ``pallas_align_scores_multi_nt``).  Two
-  routes (``affine_launch_plan``): "registers" (one thread a problem, its
-  rows in registers) for needles up to AFFINE_REG_MAX_T, else "wide" (one
-  warp a problem, its rows in shared memory or a scratch buffer): any
-  width is served.
+  (csrc/affine_dp.cu; replaces ``pallas_align_scores_multi_nt``).  Routes
+  (``affine_launch_plan``): "registers" (one thread a problem, its rows in
+  registers) for needles up to AFFINE_REG_MAX_T; past it "wide_regs" (one
+  warp a problem, its columns in the lanes' registers) up to
+  AFFINE_WIDE_REGS_MAX_T, and "wide_shared" / "wide_scratch" (one warp a
+  problem, its rows in shared memory or a scratch buffer) past that: any
+  width is served.  A launch is split by each needle's own width
+  (``needle_split``, ``affine_table`` once a corpus pass): the short
+  needles of a batch padded to a long one take the register route, only
+  the long ones a wide route.
 - ``affine_dp_scores_rows``: the affine score-only rescore of (bucket row,
   query slot) problems, each reading its similarity rows from the stacked
   ``[slots * V, Tmax]`` plan table (csrc/affine_dp.cu; replaces
@@ -63,7 +68,7 @@ import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -93,6 +98,13 @@ NVCC_FLAGS = (
 # there (up to Tpad 1,815), else in a scratch buffer (csrc/affine_dp.cu
 # WIDE_WARPS)
 AFFINE_REG_MAX_T = 64
+# the register-resident wide route ("wide_regs"): one warp a problem, a
+# lane's AFFINE_WIDE_CPL columns in its registers (csrc/affine_dp.cu
+# WIDE_CPL_MAX), so needles up to 32 x 16 = 512 columns; past that the
+# shared / scratch rows
+AFFINE_WIDE_CPL = (4, 8, 16)
+AFFINE_WIDE_REGS_MAX_T = 32 * AFFINE_WIDE_CPL[-1]
+AFFINE_WIDE_REGS_WARPS = 4
 # the dense entry's register route ends at 32 columns where a row's columns
 # are Q floats apart (Q > 1: its T1P = 65 templates spilled); float4 rows
 # (Q = 1, Tpad % 4 == 0) go to AFFINE_REG_MAX_T
@@ -139,9 +151,11 @@ WSB_ROUTE_LAUNCHES = {
     "dense_registers": 0, "dense_shared": 0, "dense_scratch": 0,
 }
 AFFINE_ROUTE_LAUNCHES = {
-    "registers": 0, "wide_shared": 0, "wide_scratch": 0,
-    "rows_registers": 0, "rows_wide_shared": 0, "rows_wide_scratch": 0,
-    "dense_registers": 0, "dense_wide_shared": 0, "dense_wide_scratch": 0,
+    "registers": 0, "wide_regs": 0, "wide_shared": 0, "wide_scratch": 0,
+    "rows_registers": 0, "rows_wide_regs": 0, "rows_wide_shared": 0,
+    "rows_wide_scratch": 0,
+    "dense_registers": 0, "dense_wide_regs": 0, "dense_wide_shared": 0,
+    "dense_wide_scratch": 0,
 }
 # the ptxas report of each source's last verbose build
 PTXAS_REPORTS: Dict[str, str] = {}
@@ -164,15 +178,15 @@ _SIGNATURES = {
     "affine_dp": {
         "vt_affine_dp_scores": [
             _P, _I, _P, _P, _P, _P, _I64, _I, _I, _I, _F, _F, _F, _F, _I,
-            _I, _I, _P, _T, _P,
+            _I, _I, _I, _P, _T, _P,
         ],
         "vt_affine_dp_scores_rows": [
             _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I64, _F, _F, _F, _F,
-            _I, _I, _I, _I, _P, _T, _P,
+            _I, _I, _I, _I, _I, _P, _T, _P,
         ],
         "vt_affine_dp_scores_dense": [
-            _P, _P, _P, _P, _I64, _I, _I, _I, _F, _F, _F, _F, _I, _I, _I, _P,
-            _P,
+            _P, _P, _P, _P, _I64, _I, _I, _I, _F, _F, _F, _F, _I, _I, _I, _I,
+            _P, _P,
         ],
     },
     "wsb_dp": {
@@ -433,27 +447,37 @@ def affine_launch_plan(problems: int, Tpad: int, rows: bool = False,
                        route=None, reg_max_t: int = AFFINE_REG_MAX_T) -> LaunchPlan:
     """The launch of an affine DP of ``problems`` problems against needles
     padded to ``Tpad``; ``rows``: the row-gather entry (routes prefixed
-    "rows_").  ``route`` None picks "registers" up to AFFINE_REG_MAX_T (one
-    thread a problem), else the wide route (one warp a problem, AFFINE_
-    WIDE_WARPS warps a block, its 4 x (Tpad + 1) f32 rows in "wide_shared"
-    memory while a block's rows fit there, else in a "wide_scratch" buffer
-    sized to the warps in flight, the grid walking over the problems).  A width is never refused.  A named
-    ``route`` forces that one (ValueError where it cannot run);
-    ``reg_max_t`` lowers the register route's widest needle."""
+    "rows_").  ``route`` None picks "registers" up to ``reg_max_t`` (one
+    thread a problem), else "wide_regs" up to AFFINE_WIDE_REGS_MAX_T (one
+    warp a problem, AFFINE_WIDE_REGS_WARPS warps a block, a lane's
+    ``affine_wide_cpl(Tpad)`` columns in its registers), else the wide
+    route (AFFINE_WIDE_WARPS warps a block) with its 4 x (Tpad + 1) f32
+    rows in "wide_shared" memory while a block's rows fit there, else in a
+    "wide_scratch" buffer sized to the warps in flight (the grid walking
+    over the problems).  A width is never refused.  A named ``route``
+    forces that one (ValueError where it cannot run)."""
     prefix = "rows_" if rows else ""
     if route is None and Tpad <= reg_max_t:
         route = "registers"
+    if route is None and Tpad <= AFFINE_WIDE_REGS_MAX_T:
+        route = "wide_regs"
     if route == "registers":
         if Tpad > reg_max_t:
             raise ValueError(f"the register route does not take Tpad={Tpad}")
         blocks = -(-problems // AFFINE_REG_THREADS)
         return LaunchPlan(prefix + "registers", blocks, AFFINE_REG_THREADS, 0, 0)
+    if route == "wide_regs":
+        if Tpad > AFFINE_WIDE_REGS_MAX_T:
+            raise ValueError(f"the wide_regs route does not take Tpad={Tpad}")
+        blocks = min(-(-problems // AFFINE_WIDE_REGS_WARPS), 0x7FFFFFFF)
+        return LaunchPlan(prefix + "wide_regs", blocks, 32 * AFFINE_WIDE_REGS_WARPS,
+                          0, 0)
+    threads = 32 * AFFINE_WIDE_WARPS
+    blocks = min(-(-problems // AFFINE_WIDE_WARPS), 0x7FFFFFFF)
     if route not in (None, "wide_shared", "wide_scratch"):
         raise ValueError(f"unknown affine route {route!r}")
     smem = AFFINE_WIDE_WARPS * 4 * (Tpad + 1) * 4
     fits = smem <= WSB_SMEM_MAX
-    threads = 32 * AFFINE_WIDE_WARPS
-    blocks = min(-(-problems // AFFINE_WIDE_WARPS), 0x7FFFFFFF)
     if route == "wide_shared" and not fits:
         raise ValueError(f"rows of Tpad={Tpad} do not fit in shared memory")
     if route == "wide_shared" or (route is None and fits):
@@ -461,6 +485,69 @@ def affine_launch_plan(problems: int, Tpad: int, rows: bool = False,
     blocks = max(1, min(blocks, WSB_SCRATCH_MAX // smem))
     return LaunchPlan(prefix + "wide_scratch", blocks, threads, 0,
                       blocks * smem // 4)
+
+
+def affine_wide_cpl(Tpad: int) -> int:
+    """The DP columns a lane holds on the wide_regs route: the least of
+    AFFINE_WIDE_CPL that covers a needle padded to ``Tpad``."""
+    return next(c for c in AFFINE_WIDE_CPL if 32 * c >= Tpad)
+
+
+def _wide_args(plan: LaunchPlan, Tpad: int):
+    """(blocks, columns a lane, shared bytes) of a launch for the C
+    entries: blocks 0 on the register route, columns 0 off wide_regs."""
+    wide = not plan.route.endswith("registers")
+    cpl = affine_wide_cpl(Tpad) if plan.route.endswith("wide_regs") else 0
+    return (plan.blocks if wide else 0), cpl, plan.smem
+
+
+class NeedleSplit(NamedTuple):
+    """A launch's queries by their own needle width: ``short`` (len_t <=
+    the register route's widest needle) read the table at ``short_T``
+    columns on the register route; ``long`` take a wide route at the full
+    padded width.  Either may be empty, not both."""
+
+    short: list
+    short_T: int
+    long: list
+
+
+def needle_split(len_t, Tpad: int):
+    """The split of a launch whose needles ``len_t`` (host ints) are padded
+    to ``Tpad``, or None where one launch serves them all as they are
+    (Tpad within the register route, or every needle past it).  A problem's
+    score depends only on its needle's columns up to its len_t (csrc/
+    affine_dp.cu), so each group reads a narrower or smaller table and
+    returns the bits of the unsplit launch; ``short_T`` is the short
+    needles' longest rounded up to 8 (at least 8, at most Tpad)."""
+    if Tpad <= AFFINE_REG_MAX_T:
+        return None
+    short = [q for q, lt in enumerate(len_t) if lt <= AFFINE_REG_MAX_T]
+    if not short:
+        return None
+    long = [q for q, lt in enumerate(len_t) if lt > AFFINE_REG_MAX_T]
+    widest = max(len_t[q] for q in short)
+    short_T = min(Tpad, max(8, -(-widest // 8) * 8))
+    return NeedleSplit(short, short_T, long)
+
+
+def _split_index(len_t, split: NeedleSplit):
+    """The split's (short, long) query indices as long tensors beside
+    ``len_t``, ascending: a stable sort of its long flags, so no index list
+    is copied to the card (a blocking copy waits for the stream)."""
+    perm = torch.argsort((len_t > AFFINE_REG_MAX_T).to(torch.int32), stable=True)
+    return perm[:len(split.short)], perm[len(split.short):]
+
+
+def _host_lengths(len_t, len_t_host):
+    """The needle lengths as host ints: ``len_t_host`` where the caller
+    has them, else one read of ``len_t`` (a wait for the device)."""
+    if len_t_host is None:
+        return [int(x) for x in len_t.tolist()]
+    host = [int(x) for x in len_t_host]
+    if len(host) != len_t.shape[0]:
+        raise ValueError(f"len_t_host holds {len(host)} lengths, len_t {len_t.shape[0]}")
+    return host
 
 
 def _gathered_block(table, tok, tags, c0):
@@ -508,23 +595,131 @@ def affine_dp_scores_reference(
     return out
 
 
+class _GatherGroup(NamedTuple):
+    """One launch of the gather entry over a group of a pass's queries:
+    their columns of the [n, Q] output (``qi``, None for all of them),
+    their table in the layout of the ``route`` (the [V, T, Qg] columns on
+    the register route and on the CPU, a query-major [V, Qg, T] copy on
+    the card's wide routes, whose rows are contiguous) and their
+    ``len_t``."""
+
+    qi: Optional[torch.Tensor]
+    table: torch.Tensor
+    len_t: torch.Tensor
+    route: str
+
+
+class AffineTable(NamedTuple):
+    """A corpus pass's ranking ``table`` [V, Tpad, Q] as the gather
+    entry's launches read it (``affine_table``): made once a pass and
+    passed to ``affine_dp_scores`` for each bucket, so the split's sort
+    and the groups' tables are not remade a bucket.  ``len_t`` is the
+    tensor it was made from."""
+
+    table: torch.Tensor
+    len_t: torch.Tensor
+    groups: tuple
+
+
+def _gather_group(qi, table, len_t, route) -> _GatherGroup:
+    route = affine_launch_plan(1, table.shape[1], route=route).route
+    if table.device.type != "cpu" and route != "registers":
+        # at Q = 1 the query-major layout is the same memory, not a copy
+        table = table.transpose(1, 2)
+    return _GatherGroup(qi, table.contiguous(), len_t, route)
+
+
+def affine_table(table, len_t, len_t_host=None, route=None) -> AffineTable:
+    """The gather entry's launches of a [V, Tpad, Q] ``table`` against
+    needles ``len_t`` [Q] i32: one over the whole table, or, past the
+    register route's width, split by each query's own needle
+    (``needle_split``, on the CPU too) — the short ones on the register
+    route over their first ``short_T`` columns, the long ones on a wide
+    route.  ``len_t_host`` (len_t as host ints) spares a read of len_t;
+    ``route`` forces one launch on that route."""
+    _, Tpad, Q = table.shape
+    split = None
+    if route is None and Tpad > AFFINE_REG_MAX_T and Q:
+        split = needle_split(_host_lengths(len_t, len_t_host), Tpad)
+    if split is None:
+        return AffineTable(table, len_t, (_gather_group(None, table, len_t, route),))
+    qs = _split_index(len_t, split)
+    groups = tuple(
+        _gather_group(qi, table[:, :T, qi], len_t[qi], None)
+        for qi, T, k in zip(qs, (split.short_T, Tpad), (split.short, split.long)) if k
+    )
+    return AffineTable(table, len_t, groups)
+
+
+def _affine_gather_launch(group: _GatherGroup, tokens, len_s, gaps, locality, tags):
+    """One launch of the gather entry (its plain version for CPU
+    tensors)."""
+    table, len_t = group.table, group.len_t
+    dev = table.device
+    n, L = tokens.shape
+    if dev.type == "cpu":
+        return affine_dp_scores_reference(
+            table, tokens, len_s, len_t, gaps, locality, tags=tags
+        )
+    wide = group.route != "registers"
+    if wide:
+        _, Q, Tpad = table.shape
+    else:
+        _, Tpad, Q = table.shape
+    out = torch.empty((n, Q), dtype=torch.float32, device=dev)
+    if n == 0 or Q == 0:
+        return out
+    ln1 = torch.clamp_min(len_s, 1)
+    plan = affine_launch_plan(n * Q, Tpad, route=group.route)
+    tag_ptr, held = _tag_args("affine_dp_scores", tags, dev, Tpad, wide)
+    scratch, scratch_ptr = _scratch(dev, plan.floats)
+    lib = _load("affine_dp")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.vt_affine_dp_scores(
+            table.data_ptr(), TABLE_DTYPES[table.dtype], tokens.data_ptr(),
+            ln1.data_ptr(), len_t.data_ptr(), out.data_ptr(), n, L, Tpad, Q,
+            float(gaps[0]), float(gaps[1]), float(gaps[2]), float(gaps[3]),
+            LOCALITIES.index(locality), *_wide_args(plan, Tpad), scratch_ptr,
+            tag_ptr, stream,
+        )
+    # the caching allocator orders any reuse of these after the launch
+    del scratch, held
+    _raise_on(rc, "affine_dp")
+    LAUNCHES["affine_dp" + ("[tagged]" if tags is not None else
+                            _DTYPE_TAGS[table.dtype])] += 1
+    AFFINE_ROUTE_LAUNCHES[plan.route] += 1
+    return out
+
+
 def affine_dp_scores(table, tokens, len_s, len_t, gaps, locality,
-                     tags=None, _route=None):
+                     tags=None, len_t_host=None, _route=None):
     """Raw affine-DP scores [n, Q] f32 of every slice against every query.
 
     table [V, Tpad, Q] (query q's similarity of vocab row v to its needle
     token j) f32, or a quantized ranking table of bf16 or int8 (its units:
     ``gaps`` must be in them too, ops/search.stack_query_tables), read by
-    the kernel as it is; tokens [n, L] i32 (< V), len_s [n] i32 (clamped
-    to >= 1, like the JAX corpus pass), len_t [Q] i32 (1 <= len_t <=
-    Tpad), ``gaps`` an AffineGapParams of host floats (passed by value:
-    changing them rebuilds and uploads nothing).  Any needle width is
-    served (``affine_launch_plan`` picks the route; the wide route reads a
-    query-major [V, Q, Tpad] copy of the table, whose rows are contiguous).
-    ``tags``: a ``TagBlock`` (f32 table; pos [n, L], w and p [Q, >= Tpad],
-    pen and thr [Q]), or None.  ``_route`` forces a route, for comparing
-    them."""
+    the kernel as it is, or the ``AffineTable`` made from it and this
+    ``len_t`` (a corpus pass's buckets share one); tokens [n, L] i32 (<
+    V), len_s [n] i32 (clamped to >= 1, like the JAX corpus pass), len_t
+    [Q] i32 (1 <= len_t <= Tpad), ``gaps`` an AffineGapParams of host
+    floats (passed by value: changing them rebuilds and uploads nothing).
+    Any needle width is served (``affine_launch_plan`` picks the route;
+    the wide routes read a query-major [V, Q, Tpad] copy of the table,
+    whose rows are contiguous).  Past the register route's width the
+    queries split by their own needle (``affine_table``, on the CPU too):
+    the short ones on the register route over their columns of the table,
+    the long ones on a wide route; ``len_t_host`` (len_t as host ints)
+    spares the split a read of len_t.  ``tags``: a ``TagBlock`` (f32
+    table; pos [n, L], w and p [Q, >= Tpad], pen and thr [Q]), or None.
+    ``_route`` forces one launch on a route, for comparing them."""
     _check_locality(locality)
+    prepared = table if isinstance(table, AffineTable) else None
+    if prepared is not None:
+        if prepared.len_t is not len_t or _route is not None:
+            raise ValueError("an AffineTable is read with the len_t it was made "
+                             "from, on the routes it chose")
+        table = prepared.table
     dev = table.device
     if table.dim() != 3 or tokens.dim() != 2:
         raise ValueError("table must be [V, Tpad, Q] and tokens [n, L]")
@@ -532,43 +727,25 @@ def affine_dp_scores(table, tokens, len_s, len_t, gaps, locality,
     _, Tpad, Q = table.shape
     if tags is not None:
         _check_tags("affine_dp_scores", tags, table, tokens, Q, Tpad)
-    if dev.type == "cpu":
-        return affine_dp_scores_reference(
-            table, tokens, len_s, len_t, gaps, locality, tags=tags
+    if dev.type != "cpu":
+        if tuple(len_s.shape) != (n,) or tuple(len_t.shape) != (Q,):
+            raise ValueError("len_s must be [n] and len_t [Q]")
+        _check_cuda(
+            "affine_dp_scores", dev, table=(table, tuple(TABLE_DTYPES)),
+            tokens=(tokens, torch.int32), len_s=(len_s, torch.int32),
+            len_t=(len_t, torch.int32),
         )
-    if tuple(len_s.shape) != (n,) or tuple(len_t.shape) != (Q,):
-        raise ValueError("len_s must be [n] and len_t [Q]")
-    _check_cuda(
-        "affine_dp_scores", dev, table=(table, tuple(TABLE_DTYPES)),
-        tokens=(tokens, torch.int32), len_s=(len_s, torch.int32),
-        len_t=(len_t, torch.int32),
-    )
+    if prepared is None:
+        prepared = affine_table(table, len_t, len_t_host, _route)
+    first = prepared.groups[0]
+    if first.qi is None:
+        return _affine_gather_launch(first, tokens, len_s, gaps, locality, tags)
+    # each group's scores written into its columns
     out = torch.empty((n, Q), dtype=torch.float32, device=dev)
-    if n == 0 or Q == 0:
-        return out
-    ln1 = torch.clamp_min(len_s, 1)
-    plan = affine_launch_plan(n * Q, Tpad, route=_route)
-    wide = plan.route != "registers"
-    # at Q = 1 the query-major layout is the same memory, not a copy
-    tq = table.transpose(1, 2).contiguous() if wide else table
-    tag_ptr, held = _tag_args("affine_dp_scores", tags, dev, Tpad, wide)
-    scratch, scratch_ptr = _scratch(dev, plan.floats)
-    lib = _load("affine_dp")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.vt_affine_dp_scores(
-            tq.data_ptr(), TABLE_DTYPES[table.dtype], tokens.data_ptr(),
-            ln1.data_ptr(), len_t.data_ptr(), out.data_ptr(), n, L, Tpad, Q,
-            float(gaps[0]), float(gaps[1]), float(gaps[2]), float(gaps[3]),
-            LOCALITIES.index(locality), plan.blocks if wide else 0,
-            plan.smem, scratch_ptr, tag_ptr, stream,
-        )
-    # the caching allocator orders any reuse of these after the launch
-    del scratch, tq, held
-    _raise_on(rc, "affine_dp")
-    LAUNCHES["affine_dp" + ("[tagged]" if tags is not None else
-                            _DTYPE_TAGS[table.dtype])] += 1
-    AFFINE_ROUTE_LAUNCHES[plan.route] += 1
+    for g in prepared.groups:
+        tg = None if tags is None else TagBlock(
+            tags.pos, tags.w[g.qi], tags.p[g.qi], tags.pen[g.qi], tags.thr[g.qi])
+        out.index_copy_(1, g.qi, _affine_gather_launch(g, tokens, len_s, gaps, locality, tg))
     return out
 
 
@@ -617,7 +794,6 @@ def _affine_rows_launch(table, tokens, rows, qslot, V, L, len_s, len_t, gaps,
     if B == 0:
         return out
     plan = affine_launch_plan(B, T, rows=True, route=route)
-    wide = plan.route != "rows_registers"
     tag_ptr, held = _tag_args("affine_dp_scores_rows", tags, dev, T, True)
     scratch, scratch_ptr = _scratch(dev, plan.floats)
     lib = _load("affine_dp")
@@ -627,8 +803,8 @@ def _affine_rows_launch(table, tokens, rows, qslot, V, L, len_s, len_t, gaps,
             table.data_ptr(), *_rows_ptrs(tokens, rows, qslot),
             len_s.data_ptr(), len_t.data_ptr(), out.data_ptr(), B, L, T, V,
             float(gaps[0]), float(gaps[1]), float(gaps[2]), float(gaps[3]),
-            LOCALITIES.index(locality), int(mask_empty),
-            plan.blocks if wide else 0, plan.smem, scratch_ptr, tag_ptr, stream,
+            LOCALITIES.index(locality), int(mask_empty), *_wide_args(plan, T),
+            scratch_ptr, tag_ptr, stream,
         )
     del scratch, held
     _raise_on(rc, "affine_dp_flat")
@@ -649,7 +825,9 @@ def affine_dp_scores_rows(tokens, rows, qslot, table, V, len_s, len_t, gaps,
     index like ``tokens`` and whose w, p [slots, >= Tmax], pen, thr
     [slots] index like the table's slots, or None.  Routes as
     ``affine_launch_plan(..., rows=True)`` picks them (``_route`` forces
-    one, for comparing them)."""
+    one, for comparing them): one launch at the table's width, its
+    problems not split by their own len_t (the split measured slower than
+    one wide_regs launch, PERF.md)."""
     _check_locality(locality)
     _, L, T = _check_rows("affine_dp_scores_rows", tokens, rows, qslot, table,
                           len_s, len_t)
@@ -736,8 +914,10 @@ def affine_dp_scores_dense(S, len_s, len_t, gaps, locality, _route=None):
     JAX corpus pass), len_t [Q] i32 (1 <= len_t <= Tpad), ``gaps`` an
     AffineGapParams of host floats.  The gather entry's routes
     (``affine_launch_plan``: registers up to Tpad 32, or 64 where a row's
-    columns are contiguous, Q = 1; the wide route reads the block in
-    place, a row's columns Q floats apart); ``_route`` forces one."""
+    columns are contiguous, Q = 1; the wide routes read the block in
+    place, a row's columns Q floats apart), one launch whose queries are
+    not split by their own needle (the split measured slower than one
+    wide_regs launch, PERF.md); ``_route`` forces one."""
     _check_locality(locality)
     c, L, Tpad, Q = _check_dense("affine_dp_scores_dense", S, len_s, len_t)
     dev = S.device
@@ -756,7 +936,6 @@ def affine_dp_scores_dense(S, len_s, len_t, gaps, locality, _route=None):
         c * Q, Tpad, route=_route,
         reg_max_t=AFFINE_REG_MAX_T if vec else AFFINE_DENSE_REG_MAX_T,
     )
-    wide = plan.route != "registers"
     scratch, scratch_ptr = _scratch(dev, plan.floats)
     lib = _load("affine_dp")
     with torch.cuda.device(dev):
@@ -764,8 +943,8 @@ def affine_dp_scores_dense(S, len_s, len_t, gaps, locality, _route=None):
         rc = lib.vt_affine_dp_scores_dense(
             S.data_ptr(), ln1.data_ptr(), len_t.data_ptr(), out.data_ptr(), c,
             L, Tpad, Q, float(gaps[0]), float(gaps[1]), float(gaps[2]),
-            float(gaps[3]), LOCALITIES.index(locality),
-            plan.blocks if wide else 0, plan.smem, scratch_ptr, stream,
+            float(gaps[3]), LOCALITIES.index(locality), *_wide_args(plan, Tpad),
+            scratch_ptr, stream,
         )
     del scratch
     _raise_on(rc, "affine_dp[dense]")

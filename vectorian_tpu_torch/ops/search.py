@@ -66,6 +66,7 @@ from vectorian_tpu_torch.ops.dp_kernels import (
     affine_dp_scores,
     affine_dp_scores_dense,
     affine_dp_scores_rows,
+    affine_table,
     tag_weighted,
     wsb_dp_scores,
     wsb_dp_scores_dense,
@@ -448,7 +449,8 @@ def _bucket_scores_multiquery(
     """[n, Q] normalized scores of one bucket — Q queries in one corpus
     pass, one kernel launch (the gather of ``sim_multi`` by ``tokens`` is
     fused into the DP kernel).  ``general``: the GeneralGaps of a
-    non-affine gap model (WSB kernel), else None (affine).  ``sim_scale``:
+    non-affine gap model (WSB kernel), else None (affine: ``sim_multi`` may
+    be the pass's ``AffineTable`` made from it and ``len_t``).  ``sim_scale``:
     a 0-d f32 tensor on the device for an int8 table, else None; ``gaps``
     and ``general`` are then in the table's units (divided by it), and the
     raw scores are multiplied by it coming out, before the normalization
@@ -1928,9 +1930,12 @@ class BruteForceEngine:
             gaps, general, scale_t = scaled_costs(
                 gaps, gap_costs, sim_scale, Tpad, self.device
             )
-        lt_arr = torch.as_tensor(
-            np.asarray(len_ts, np.int32), device=self.device
-        )
+            lt_arr = torch.as_tensor(
+                np.asarray(len_ts, np.int32), device=self.device
+            )
+            if general is None:
+                # the affine launches' per-needle split, once a pass
+                sim_multi = affine_table(sim_multi, lt_arr, len_ts)
         nt_arr = torch.as_tensor(
             np.asarray(norm_totals, np.float32), device=self.device
         )
