@@ -50,8 +50,12 @@ Phases, each of which raises on failure:
    bit, each timed against its untagged self in turns and its bound.
    3d: the dense entries of kernels 1 and 3 (the [c, L, Tpad, Q] block a
    contextual chunk's metric GEMM writes) at the contextual pass's chunk
-   of L 16, Tpad 8, Q 32 and Q 1, at Tpad 132 and (WSB) L 64, in 3
-   localities, bit for bit, timed against their plain versions and bounds.
+   of L 16 / 8 / 16 / 32 against Tpad 8 / 8 / 16 / 32, each at Q 32 and
+   Q 1 (every route the dense plans take there, forced, each timed on the
+   device in turns against the old design), at Tpad 132 and (WSB) L 64,
+   in 3 localities, bit for bit, timed against their plain versions and
+   bounds; then the affine plan's two routes in turns at the problem
+   counts its threshold is read at, on bucket 16's length mix.
 4. Main path at real size: a 1,000,000-sentence Zipf corpus (9 tokens a
    sentence over 5,000 words, a 5,000 x 300 KeyedVectors), Session(device=
    "cuda") -> partition("sentence") -> index; find_batch of 32 queries at
@@ -112,10 +116,11 @@ Phases, each of which raises on failure:
    4k: the transport find_batch on phase 4's session (WordMoversDistance()
    relaxed, relaxed=False and WordRotatorsDistance(), Q=32 of 7 tokens):
    wall ms, alignments/s, the ranking pass's device ms, host spans,
-   consume rounds, exact solves and fused-fetch pairs a batch; on the
+   consume rounds, exact solves and fused-fetch pairs a batch, an untimed
+   loop of find over the 32 queries = the batch's bytes; on the
    3,000-sentence cut the card against the CPU, find = find_batch bytes and
    full WMD / WRD = the exhaustive oracle; after 4h one relaxed-WMD batch of
-   the mixed tree.  4l: paged serving (Session(paged=True)'s engine) over
+   the mixed tree, = a loop of find's bytes.  4l: paged serving (Session(paged=True)'s engine) over
    phase 4's packing (affine and general find p50 and find_batch at int8, a
    relaxed-WMD batch), 4c's tie-heavy corpus (extras rounds re-page
    buckets) and 4f's packing and store (pinned host bf16): paged = resident
@@ -248,6 +253,8 @@ _AFFINE_WIDE_REGS_TAGGED = re.compile(
 _AFFINE_WIDE_REGS_DENSE = re.compile(r"affine_dp_wide_regs_dense_kernelILi(\d+)ELi(\d)EE")
 _WSB_REGS_DENSE = re.compile(r"wsb_regs_dense_kernelILi(\d+)ELi(\d+)ELi(\d)ELi(\d)EE")
 _WSB_DENSE = re.compile(r"wsb_dp_dense_kernelILi(\d)ELi(\d+)EE")
+# the affine dense entry's own lane route
+_AFFINE_DENSE_LANES = re.compile(r"affine_dp_dense_lanes_kernelILi(\d+)ELi(\d+)ELi(\d)EE")
 
 
 def ptxas_gate(reports):
@@ -273,7 +280,11 @@ def ptxas_gate(reports):
             wd, wsd = _WSB_REGS_DENSE.search(name), _WSB_DENSE.search(name)
             ar, art = _AFFINE_WIDE_REGS.search(name), _AFFINE_WIDE_REGS_TAGGED.search(name)
             ard = _AFFINE_WIDE_REGS_DENSE.search(name)
-            if ar:
+            adl = _AFFINE_DENSE_LANES.search(name)
+            if adl:
+                label = f"affine dense_lanes f32 L={adl[1]} G={adl[2]} loc={adl[3]}"
+                gated = True
+            elif ar:
                 label = (f"affine_wide_regs {'rows' if ar[3] == '1' else 'gather'} "
                          f"{_ELEM[ar[4]]} CPL={ar[1]} loc={ar[2]}")
                 gated = True
@@ -335,6 +346,7 @@ def ptxas_gate(reports):
               for t in ("bf16", "int8")]
     kinds += [f"{k} dense f32" for k in ("affine", "affine_wide", "affine_wide_regs",
                                          "wsb_regs", "wsb")]
+    kinds += ["affine dense_lanes f32"]
     for kind in kinds:
         if not any(r[0].startswith(kind + " ") for r in rows):
             raise AssertionError(f"ptxas gate: the reports name no {kind} kernel")
@@ -345,6 +357,9 @@ def ptxas_gate(reports):
     emit({"phase": "ptxas_wide_regs_templates",
           "kernels_registers_stack_spill_st_ld": sorted(
               r for r in rows if r[0].startswith("affine_wide_regs "))})
+    emit({"phase": "ptxas_dense_templates",
+          "kernels_registers_stack_spill_st_ld": sorted(
+              r for r in rows if " dense" in r[0])})
     if bad:
         raise AssertionError(f"ptxas gate: stack frame or spills in {bad}")
 
@@ -427,6 +442,21 @@ def device_ms(fn, reps, sleep_s=0.05):
     if host_s > sleep_s:
         raise AssertionError(f"device_ms: queueing took {host_s:.4f} s > the {sleep_s} s sleep")
     return start.elapsed_time(end) / reps
+
+
+def host_ms(fn, reps):
+    """Host wall ms a call of ``fn``: ``reps`` calls, then a synchronize
+    (for a launch of a few microseconds of device work, the host's cost of
+    the call; ``device_ms`` times the device's)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3 / reps
 
 
 def _bound(nbytes, ops):
@@ -682,18 +712,81 @@ CTX_DIM = 256
 CTX_SENTENCES = 500_000
 
 
+# the dense entries' routes a plan can pick at a register shape, forced
+# one at a time for the bit-for-bit checks; "registers" is the design the
+# dense entries share with the gather entry
+DENSE_ROUTES = {"affine_dp[dense]": ("lanes", "registers"),
+                "wsb_dp[dense]": ("registers",)}
+
+
+def old_dense(run_registers, len_s):
+    """The old dense design's device work, the old side of the turns: the
+    wrapper's launch that clamped len_s to >= 1 (the kernels clamp it now),
+    then the gather entry's register route."""
+    import torch
+
+    def fn():
+        torch.clamp_min(len_s, 1)
+        run_registers()
+    return fn
+
+
+def dense_routes(kernel, S, registers=True):
+    """(the route the dense plan picks for the block S [c, L, Tpad, Q],
+    the other routes of ``DENSE_ROUTES[kernel]`` it takes there);
+    ``registers``: the WSB register routes may run, as
+    ``dp_kernels._register_costs`` decides."""
+    from vectorian_tpu_torch.ops import dp_kernels
+
+    c, L, Tpad, Q = S.shape
+    if kernel == "affine_dp[dense]":
+        vec = Q == 1 and Tpad % 4 == 0 and S.data_ptr() % 16 == 0
+
+        def plan(route):
+            return dp_kernels.affine_dense_plan(c, L, Tpad, Q, vec, route=route).route
+    else:
+        def plan(route):
+            return dp_kernels.wsb_launch_plan(c * Q, L, Tpad, registers, route=route,
+                                              Q=Q).route
+    picked, others = plan(None), []
+    for route in DENSE_ROUTES[kernel]:
+        try:
+            plan(route)
+        except ValueError:
+            continue
+        if route != picked:
+            others.append(route)
+    return picked, others
+
+
+def device_turns(runs, reps):
+    """``device_ms`` of each of ``runs`` ({name: fn}) in turns, the order
+    and then its reverse (old, new, new, old for two): {name: mean ms},
+    and the times in the order taken."""
+    names = list(runs)
+    order = names + names[::-1]
+    times = [(n, device_ms(runs[n], reps)) for n in order]
+    return {n: sum(t for m, t in times if m == n) / 2 for n in names}, times
+
+
 def phase_kernels_dense():
     """3d: both dense entries (K3: the [c, L, Tpad, Q] block a contextual
     chunk's metric GEMM writes) against their plain versions, bit for bit,
-    in 3 localities x 2 affine gap sets / 2 WSB models: at the contextual
-    pass's chunk (ops/search.ctx_chunk) of L 16, Tpad 8, Q 32 and Q 1, at
-    Tpad 132 (the affine wide route, the WSB scratch rows) and, WSB, at L
-    64; each timed against its plain version and its bound.  Then the
-    routes no default plan of these shapes takes, forced: the affine
-    wide_scratch template at Tpad 132 and the WSB shared template (at L
-    16 and 64, Tpad 8: 32 threads a block), held bit for bit the same way.
-    Returns {name: {"worst": |diff|, (L, Tpad, Q[, route]): {ms, plain_ms,
-    bound_ms, bound_by, c, route}}}."""
+    in 3 localities x 2 affine gap sets / 2 WSB models, at the contextual
+    pass's chunk (ops/search.ctx_chunk, d = CTX_DIM) of L 16, Tpad 8, of
+    L 8, Tpad 8, of L 16, Tpad 16 and of L 32, Tpad 32, each at Q 32 and
+    Q 1: the plan's route and every
+    route of ``DENSE_ROUTES`` the plan takes there, forced, each timed on
+    the device (``device_ms``) in turns against the old design
+    (``old_dense``: old, new, ..., new, old) beside its bound, the plan's
+    route also on the host (``host_ms``, a call's wall time).  Then Tpad
+    132 (the affine wide route, the WSB scratch rows) and, WSB, L 64, and
+    the routes no default plan of these shapes takes, forced: the affine
+    wide_scratch template at Tpad 132 and the WSB shared template (at L 16
+    and 64, Tpad 8: 32 threads a block).  Returns {name: {"worst": |diff|,
+    (L, Tpad, Q[, route]): {ms, host_ms, old_ms, route_ms, plain_ms,
+    bound_ms, bound_by, c, route}}, "crossover": [...]} (the
+    ``dense_crossover`` points)."""
     import numpy as np
     import torch
 
@@ -717,52 +810,120 @@ def phase_kernels_dense():
             np.float32), device=DEVICE)
         return S, torch.as_tensor(ln, device=DEVICE), torch.as_tensor(lt, device=DEVICE)
 
-    def case(kernel, L, Tpad, Q, forced=None):
+    def case(kernel, L, Tpad, Q, forced=None, routes=False):
         c = ctx_chunk(L, Tpad, Q, CTX_DIM)
         S, len_s, len_t = inputs(c, L, Tpad, Q)
         if kernel == "affine_dp[dense]":
-            route = dp_kernels.affine_launch_plan(
-                c * Q, Tpad, route=forced,
-                reg_max_t=dp_kernels.AFFINE_DENSE_REG_MAX_T).route
             variants = [(f"gaps{i}", (AffineGapParams.of(*gs),), {})
                         for i, gs in enumerate(gapsets)]
             fn, ref = dp_kernels.affine_dp_scores_dense, dp_kernels.affine_dp_scores_dense_reference
+            registers = True
         else:
             variants = []
             for mname, model in models.items():
                 gg = _wsb_general(model, Tpad)
                 variants.append((mname, gg.vecs(L), {"host_costs": gg.host_vecs(L)}))
-            hs = dp_kernels._register_costs(L, Tpad, S, variants[0][1], variants[0][2]["host_costs"])
-            route = dp_kernels.wsb_launch_plan(c * Q, L, Tpad, registers=hs is not None,
-                                               route=forced, Q=Q).route
+            registers = dp_kernels._register_costs(
+                L, Tpad, S, variants[0][1], variants[0][2]["host_costs"]) is not None
             fn, ref = dp_kernels.wsb_dp_scores_dense, dp_kernels.wsb_dp_scores_dense_reference
+        picked, others = dense_routes(kernel, S, registers)
+        route = forced or picked
+        forcings = [forced] + (others if routes else [])
         for loc in LOCALITIES:
             for vname, args, kw in variants:
-                got = fn(S, len_s, len_t, *args, loc, _route=forced, **kw)
                 want = ref(S, len_s, len_t, *args, loc)
-                out[kernel]["worst"] = max(out[kernel]["worst"], _check_equal(
-                    kernel, got, want, (c, L, Tpad, Q, route, loc, vname)))
+                for f in forcings:
+                    got = fn(S, len_s, len_t, *args, loc, _route=f, **kw)
+                    out[kernel]["worst"] = max(out[kernel]["worst"], _check_equal(
+                        kernel, got, want, (c, L, Tpad, Q, f or route, loc, vname)))
         _, args, kw = variants[-1]
-        ms = cuda_ms(lambda: fn(S, len_s, len_t, *args, "local", _route=forced, **kw), 10)
-        plain_ms = cuda_ms(lambda: ref(S, len_s, len_t, *args, "local"), 1)
-        bound, by = dense_bound_ms(kernel, S, len_s, len_t)
-        line = {"c": c, "route": route, "forced": forced is not None, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
+
+        def run(f):
+            return lambda: fn(S, len_s, len_t, *args, "local", _route=f, **kw)
+
+        line = {"c": c, "route": route, "forced": forced is not None}
+        if routes:
+            # the old design, then the plan's route and every other route
+            # it takes, in turns
+            runs = {"old": old_dense(run("registers"), len_s), route: run(None)}
+            runs.update({f: run(f) for f in forcings[1:]})
+            means, times = device_turns(runs, 50)
+            line.update(ms=means[route], old_ms=means["old"], route_ms=means, turns=times)
+        else:
+            line["ms"] = device_ms(run(forced), 50)
+        line["host_ms"] = host_ms(run(forced), 10)
+        line["plain_ms"] = cuda_ms(lambda: ref(S, len_s, len_t, *args, "local"), 1)
+        line["bound_ms"], line["bound_by"] = dense_bound_ms(kernel, S, len_s, len_t)
         out[kernel][(L, Tpad, Q) + ((forced,) if forced else ())] = line
         emit({"phase": "kernel_dense", "name": kernel, "L": L, "Tpad": Tpad, "Q": Q,
-              "localities": 3, "variants": len(variants), "max_abs_diff": 0.0, **line})
+              "localities": 3, "variants": len(variants), "max_abs_diff": 0.0,
+              "routes_checked": [f or route for f in forcings], **line})
 
     for kernel in ("affine_dp[dense]", "wsb_dp[dense]"):
-        for Tpad in (8, 132):
+        for L, Tpad in ((16, 8), (8, 8), (16, 16), (32, 32)):
             for Q in (32, 1):
-                case(kernel, 16, Tpad, Q)
+                case(kernel, L, Tpad, Q, routes=True)
+        for Q in (32, 1):
+            case(kernel, 16, 132, Q)
     for Q in (32, 1):
         case("wsb_dp[dense]", 64, 8, Q)
     for Q in (32, 1):
         case("affine_dp[dense]", 16, 132, Q, forced="wide_scratch")
         case("wsb_dp[dense]", 16, 8, Q, forced="shared")
         case("wsb_dp[dense]", 64, 8, Q, forced="shared")
+    out["crossover"] = dense_crossover(rng)
     return out
+
+
+# the problem counts the affine dense plan's threshold
+# (dp_kernels.AFFINE_DENSE_LANES_MAX_PROBLEMS) is read at: the chunk of a
+# bucket of capacity 16 against needles padded to 8 at Q 32 (c = 2,048 is
+# a batch's chunk, fewer a bucket's last) and at Q 1 (c = 8,192 is a
+# find's chunk)
+CROSSOVER_SLICES = {32: (256, 512, 1_024, 2_048, 4_096), 1: (8_192, 32_768, 131_072)}
+
+
+def dense_crossover(rng):
+    """The affine dense plan's two routes (``DENSE_ROUTES``) at L 16, Tpad
+    8, both forced, timed on the device in turns (lanes, registers,
+    registers, lanes; ``device_ms`` of 50 launches) at each problem count
+    of ``CROSSOVER_SLICES``, on a bucket of capacity 16's length mix:
+    slices of 9-16 tokens (the sentences ``DEFAULT_BUCKETS`` puts there)
+    and needles of 1-8, seeded; each route bit for bit against the plain
+    version (local) first.  Returns the points [{c, Q, problems, ms:
+    {route: ms}, plan}]."""
+    import numpy as np
+    import torch
+
+    from vectorian_tpu_torch.ops import dp_kernels
+    from vectorian_tpu_torch.ops.alignment import AffineGapParams
+
+    kernel, L, Tpad = "affine_dp[dense]", 16, 8
+    gaps = AffineGapParams.of(0.37, 0.113, 0.29, 0.071)
+    fn = dp_kernels.affine_dp_scores_dense
+    points = []
+    for Q, slices in CROSSOVER_SLICES.items():
+        for c in slices:
+            S = torch.as_tensor(rng.uniform(-0.4, 1.0, size=(c, L, Tpad, Q)).astype(
+                np.float32), device=DEVICE)
+            len_s = torch.as_tensor(rng.integers(9, L + 1, size=c).astype(np.int32),
+                                    device=DEVICE)
+            len_t = torch.as_tensor(rng.integers(1, Tpad + 1, size=Q).astype(np.int32),
+                                    device=DEVICE)
+            want = dp_kernels.affine_dp_scores_dense_reference(S, len_s, len_t, gaps, "local")
+            runs = {}
+            for r in DENSE_ROUTES[kernel]:
+                _check_equal(kernel, fn(S, len_s, len_t, gaps, "local", _route=r), want,
+                             (c, L, Tpad, Q, r, "crossover"))
+                runs[r] = (lambda r=r: fn(S, len_s, len_t, gaps, "local", _route=r))
+            means, _ = device_turns(runs, 50)
+            point = {"c": c, "Q": Q, "problems": c * Q, "ms": means,
+                     "plan": dense_routes(kernel, S)[0]}
+            points.append(point)
+            emit({"phase": "kernel_dense_crossover", "name": kernel, "L": L, "Tpad": Tpad,
+                  "len_s": "9-16", "len_t": "1-8", **point})
+            del S
+    return points
 
 
 def _shared_wide_route(Tpad):
@@ -2861,9 +3022,13 @@ def _ctx_embedding(words, rng):
 
 def _dense_kernel_check(index, kernel, db, S, lts):
     """The dense entry ``kernel`` on a path's first chunk ``S`` [c, L,
-    Tpad, Q] of bucket ``db`` (needle lengths ``lts``), held against its
-    plain version bit for bit and timed: (max |diff|, ms, plain ms, bound
-    ms, bound by, (c, L, Tpad, Q))."""
+    Tpad, Q] of bucket ``db`` (needle lengths ``lts``): the plan's route
+    and every other route of ``DENSE_ROUTES`` the plan takes there, forced,
+    held against the plain version bit for bit; timed on the device in
+    turns against the old design (``old_dense``: old, new, ..., new, old)
+    and on the host: (max |diff|, ms, plain ms, bound ms, bound by,
+    (c, L, Tpad, Q), {"route", "old_ms", "route_ms", "host_ms",
+    "launch_floor_ms"})."""
     import torch
 
     from vectorian_tpu_torch.ops import dp_kernels, search
@@ -2875,16 +3040,35 @@ def _dense_kernel_check(index, kernel, db, S, lts):
     if kernel == "affine_dp[dense]":
         args, kw = (index._gaps,), {}
         fn, ref = dp_kernels.affine_dp_scores_dense, dp_kernels.affine_dp_scores_dense_reference
+        registers = True
     else:
         gg = search.GeneralGaps(index._gap_costs, Tpad + 1, eng.device)
         args, kw = gg.vecs(L), {"host_costs": gg.host_vecs(L)}
         fn, ref = dp_kernels.wsb_dp_scores_dense, dp_kernels.wsb_dp_scores_dense_reference
-    d = _check_equal(kernel, fn(S, ln, lt, *args, index._locality, **kw),
-                     ref(S, ln, lt, *args, index._locality), (c, Tpad, Q))
-    ms = cuda_ms(lambda: fn(S, ln, lt, *args, index._locality, **kw), 10)
+        registers = dp_kernels._register_costs(L, Tpad, S, args, kw["host_costs"]) is not None
+    route, others = dense_routes(kernel, S, registers)
+    want = ref(S, ln, lt, *args, index._locality)
+
+    def run(f):
+        return lambda: fn(S, ln, lt, *args, index._locality, _route=f, **kw)
+
+    d = _check_equal(kernel, run(None)(), want, (c, Tpad, Q, route))
+    runs = {"old": old_dense(run("registers"), ln), route: run(None)}
+    for f in others:
+        d = max(d, _check_equal(kernel, run(f)(), want, (c, Tpad, Q, f)))
+        runs[f] = run(f)
+    means, times = device_turns(runs, 50)
+    h_ms = host_ms(run(None), 10)
     plain_ms = cuda_ms(lambda: ref(S, ln, lt, *args, index._locality), 1)
     bound, by = dense_bound_ms(kernel, S, ln, lt)
-    return (d, ms, plain_ms, bound, by, [c, L, Tpad, Q])
+    # a launch of almost no work on the same stream (the old clamp alone):
+    # the device time any launch takes
+    extra = {"route": route, "old_ms": means["old"], "route_ms": means,
+             "host_ms": h_ms, "launch_floor_ms": device_ms(lambda: torch.clamp_min(ln, 1), 50)}
+    emit({"phase": "kernel_dense_at_path", "name": kernel, "c_L_Tpad_Q": [c, L, Tpad, Q],
+          "ms": means[route], **extra, "turns": times, "plain_ms": plain_ms,
+          "bound_ms": bound})
+    return (d, means[route], plain_ms, bound, by, [c, L, Tpad, Q], extra)
 
 
 def _ctx_kernel_at_path(index, qs, kernel):
@@ -3445,46 +3629,38 @@ class _TransportCounts:
         return sum(a.elapsed_time(b) for a, b in self.events)
 
 
-def _drive_transport_batch(index, queries, counts, reps=3, loop=False):
+def _drive_transport_batch(index, queries, counts, reps=3):
     """Median-of-``reps`` wall ms of ``index.find_batch(queries)`` and, per
     batch, the ranking passes' device ms, the trace spans (ms), exact
-    solves, relaxed rescores, consume rounds and fetched pairs; the last
-    batch.  With ``loop`` also a loop of ``index.find`` over the same
-    queries, in turns with the batch (batch, loop, loop, batch, ...),
-    its results held equal to the batch's: {"batch": ..., "loop": ...}."""
+    solves, relaxed rescores, consume rounds and fetched pairs: (median,
+    walls, per batch), the last batch.  Then one untimed loop of
+    ``index.find`` over the same queries, its bytes held equal to the last
+    batch's."""
     import numpy as np
 
     from vectorian_tpu_torch.utils import trace
 
-    modes = {"batch": lambda: index.find_batch(queries, n=10, min_score=0.2),
-             "loop": lambda: [index.find(q, n=10, min_score=0.2) for q in queries]}
-    order = ["batch", "loop", "loop", "batch"] * reps if loop else ["batch"] * reps
-    walls = {m: [] for m in modes}
-    per = {m: [] for m in modes}
-    got = {}
-    for mode in order:
-        if len(walls[mode]) == reps:
-            continue
+    walls, per, batch = [], [], None
+    for _ in range(reps):
         counts.reset()
         trace.start()
         t = time.perf_counter()
-        got[mode] = modes[mode]()
-        walls[mode].append((time.perf_counter() - t) * 1e3)
+        batch = index.find_batch(queries, n=10, min_score=0.2)
+        walls.append((time.perf_counter() - t) * 1e3)
         spans = {}
         for k, sec in trace.stop():
             if k.startswith("wmd."):
                 spans[k] = spans.get(k, 0.0) + sec * 1e3
-        per[mode].append({"rank_pass_device_ms": counts.rank_ms(), "spans_ms": spans,
-                          "exact_solves": counts.solves, "relaxed_rescored": counts.relaxed,
-                          "consume_rounds": counts.rounds, "fetched_pairs": counts.pairs})
-    batch = got["batch"]
+        per.append({"rank_pass_device_ms": counts.rank_ms(), "spans_ms": spans,
+                    "exact_solves": counts.solves, "relaxed_rescored": counts.relaxed,
+                    "consume_rounds": counts.rounds, "fetched_pairs": counts.pairs})
     check_results(batch, 10, 0.2)
     if not any(len(r) for r in batch):
         raise AssertionError("transport find_batch: no matches")
-    if loop and [pairs(r) for r in got["loop"]] != [pairs(r) for r in batch]:
+    if [pairs(index.find(q, n=10, min_score=0.2)) for q in queries] != [
+            pairs(r) for r in batch]:
         raise AssertionError("transport find_batch: not the bytes of a loop of find")
-    res = {m: (float(np.median(walls[m])), walls[m], per[m]) for m in modes if walls[m]}
-    return res, batch
+    return (float(np.median(walls)), walls, per), batch
 
 
 def phase_transport_batch(session, queries, cut, card):
@@ -3494,7 +3670,8 @@ def phase_transport_batch(session, queries, cut, card):
     (median of 3), alignments/s (slices x Q / s), the ranking pass's CUDA-
     event ms, the host spans (``wmd.rank``: pass and top-k reads;
     ``wmd.sims_fetch``; ``wmd.host_rescore``), the consume rounds and exact
-    solves a batch and the pairs the fused fetch gathered.  Then on the
+    solves a batch and the pairs the fused fetch gathered; a loop of find
+    over the 32 queries, untimed, is the last batch's bytes.  Then on the
     3,000-sentence cut: the card against the CPU, each query's find bytes
     equal to the batch's, full WMD and WRD equal to the exhaustive oracle."""
     n_slices = session.packed_corpus(session.partition("sentence").spec).n_slices
@@ -3503,13 +3680,10 @@ def phase_transport_batch(session, queries, cut, card):
         for label, metric in _transport_metrics():
             index = _transport_index(session, metric)
             index.find_batch(queries[:2], n=10, min_score=0.2)  # warm
-            res, _ = _drive_transport_batch(index, queries, counts, loop=True)
-            med, walls, per = res["batch"]
-            lmed, lwalls, lper = res["loop"]
+            (med, walls, per), _ = _drive_transport_batch(index, queries, counts)
             out[label] = {"find_batch_ms_median": med, "find_batch_ms": walls,
                           "alignments_per_s": n_slices * len(queries) / (med / 1e3),
-                          "per_batch": per, "find_loop_ms_median": lmed,
-                          "find_loop_ms": lwalls, "per_loop": lper}
+                          "per_batch": per}
         emit({"phase": "transport_batch", "slices": n_slices, "queries": len(queries),
               **out, "card": card})
         worst, oracle = {}, {}
@@ -3541,9 +3715,9 @@ def phase_transport_batch(session, queries, cut, card):
 
 def phase_transport_tree(ctx, card):
     """4k on 4h's mixed tree (500,000 sentences, 4f's session and store):
-    one relaxed-WMD find_batch Q=32 of MixedTokenSimilarity([qft, ctx],
-    [0.5, 0.5]) beside a loop of find over the same queries (median of 3
-    each, in turns; the loop's bytes equal to the batch's)."""
+    relaxed-WMD find_batch Q=32 of MixedTokenSimilarity([qft, ctx], [0.5,
+    0.5]) (median of 3), its bytes equal to a loop of find's over the 32
+    queries."""
     from vectorian_tpu_torch.alignment import WordMoversDistance
     from vectorian_tpu_torch.metrics import EmbeddingTokenSim, OptimizedSpanSim
     from vectorian_tpu_torch.sim.modifier import MixedTokenSimilarity
@@ -3554,13 +3728,10 @@ def phase_transport_tree(ctx, card):
         [EmbeddingTokenSim(q), EmbeddingTokenSim(c)], [0.5, 0.5]), WordMoversDistance()))
     with _TransportCounts() as counts:
         index.find_batch(queries[:2], n=10, min_score=0.2)  # warm
-        res, _ = _drive_transport_batch(index, queries, counts, loop=True)
-    med, walls, per = res["batch"]
-    lmed, lwalls, lper = res["loop"]
+        (med, walls, per), _ = _drive_transport_batch(index, queries, counts)
     n_slices = index.packed.n_slices
     res = {"find_batch_ms_median": med, "find_batch_ms": walls,
-           "alignments_per_s": n_slices * len(queries) / (med / 1e3), "per_batch": per,
-           "find_loop_ms_median": lmed, "find_loop_ms": lwalls, "per_loop": lper}
+           "alignments_per_s": n_slices * len(queries) / (med / 1e3), "per_batch": per}
     emit({"phase": "transport_batch_tree", "slices": n_slices, "rwmd": res, "card": card})
     return res
 
@@ -3569,6 +3740,10 @@ def phase_transport_tree(ctx, card):
 # ops/search), held against their plain versions on their first call
 PAGED_WRAPPERS = ("affine_dp_scores", "wsb_dp_scores", "affine_dp_scores_dense",
                   "wsb_dp_scores_dense", "affine_dp_scores_rows", "wsb_dp_scores_rows")
+
+
+_DENSE_WRAPPERS = {"affine_dp_scores_dense": "affine_dp[dense]",
+                   "wsb_dp_scores_dense": "wsb_dp[dense]"}
 
 
 class _FirstCalls:
@@ -3612,7 +3787,8 @@ class _FirstCalls:
 
     def check(self, label):
         """Each recorded launch again, the kernel against its plain version
-        bit for bit: {wrapper: max |diff|}."""
+        bit for bit (a dense entry's on every route its plan takes there):
+        {wrapper: max |diff|}."""
         from vectorian_tpu_torch.ops import dp_kernels
 
         if not self.calls:
@@ -3626,9 +3802,20 @@ class _FirstCalls:
                 # the pass's prepared table reads the len_t it was made from
                 args = [args[0], *args[1:3], args[0].len_t, *args[4:]]
                 ref_args = [args[0].table, *args[1:]]
-            got = getattr(dp_kernels, name)(*args, **kw)
+            fn = getattr(dp_kernels, name)
             want = getattr(dp_kernels, name + "_reference")(*ref_args, **ref_kw)
-            out[name] = _check_equal(f"{label} {name}", got, want, tuple(got.shape))
+            out[name] = _check_equal(f"{label} {name}", fn(*args, **kw), want,
+                                     tuple(want.shape))
+            kernel = _DENSE_WRAPPERS.get(name)
+            if kernel is not None:
+                # every other route the dense plan takes at this block, forced
+                S = args[0]
+                registers = kernel.startswith("affine") or dp_kernels._register_costs(
+                    S.shape[1], S.shape[2], S, args[3:6], kw.get("host_costs")) is not None
+                for f in dense_routes(kernel, S, registers)[1]:
+                    got = fn(*args, **{**kw, "_route": f})
+                    out[name] = max(out[name], _check_equal(
+                        f"{label} {name} {f}", got, want, tuple(want.shape)))
         return out
 
 
@@ -4256,20 +4443,24 @@ def run_phases(card):
     ):
         res = dense[name]
         qb = max(q for q in res if q != "launches")
-        (db, ms, plain_ms, bound, by, shape), (df, ms_f, plain_f, bound_f, _, shape_f) = (
-            res[qb], res[1])
+        (db, ms, plain_ms, bound, by, shape, x), (df, ms_f, plain_f, bound_f, _, shape_f,
+                                                   xf) = res[qb], res[1]
         tr = tree[name]
-        (dt, ms_t, plain_t, bound_t, by_t, shape_t) = tr[qb]
+        (dt, ms_t, plain_t, bound_t, by_t, shape_t, xt), xtf = tr[qb], tr[1][6]
         kernels.append({
             "name": name, "route": "cuda", "source": f"vectorian_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": res["launches"],
             "max_abs_err": max(worst_dense[name]["worst"], db, df, dt, tr[1][0]),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": None, "ms_find": ms_f, "plain_ms_find": plain_f,
-            "bound_ms_find": bound_f, "shapes_c_L_Tpad_Q": shape,
-            "shapes_c_L_Tpad_Q_find": shape_f, "tree_launches": tr["launches"],
-            "tree_ms": ms_t, "tree_plain_ms": plain_t, "tree_bound_ms": bound_t,
-            "tree_bound_by": by_t, "tree_ms_find": tr[1][1],
+            "library_ms": None, "launch_route": x["route"], "old_ms": x["old_ms"],
+            "host_ms": x["host_ms"], "launch_floor_ms": x["launch_floor_ms"],
+            "ms_find": ms_f, "plain_ms_find": plain_f,
+            "bound_ms_find": bound_f, "launch_route_find": xf["route"],
+            "old_ms_find": xf["old_ms"], "host_ms_find": xf["host_ms"],
+            "shapes_c_L_Tpad_Q": shape, "shapes_c_L_Tpad_Q_find": shape_f,
+            "tree_launches": tr["launches"], "tree_ms": ms_t, "tree_old_ms": xt["old_ms"],
+            "tree_plain_ms": plain_t, "tree_bound_ms": bound_t, "tree_bound_by": by_t,
+            "tree_ms_find": tr[1][1], "tree_old_ms_find": xtf["old_ms"],
             "tree_shapes_c_L_Tpad_Q": shape_t, "card": card,
         })
     name = "affine_dp_flat[wide]"
@@ -4374,8 +4565,8 @@ if __name__ == "__main__":
         sys.path.insert(0, str(ROOT))
         wide_check(phase_device())
     elif sys.argv[1:2] == ["--batch-check"]:
-        # 4k's batches (static and 4h's tree) beside a loop of find, and
-        # 4l over one bucket and over SPLIT_BUCKETS, alone: the quick
+        # 4k's batches (static and 4h's tree) and 4l over one bucket and
+        # over SPLIT_BUCKETS, alone: the quick
         # check after a paging or transport-batch edit
         if not (ROOT / "vectorian_tpu_torch" / "csrc" / "affine_dp.cu").exists():
             raise SystemExit("chip_smoke: run from a checkout of the repository")

@@ -206,7 +206,7 @@ def test_wsb_launch_plan_serves_every_bucket_shape(L, T):
     per = (L + 1) * (T + 1) * 4
     assert rows.route in ("shared", "scratch")
     if L <= dp_kernels.WSB_REG_MAX_L and T <= dp_kernels.WSB_REG_MAX_T:
-        G = dp_kernels.wsb_group_width(T)
+        G = dp_kernels.lane_group_width(T)
         assert G in (8, 16, 32) and T <= G
         threads = dp_kernels.WSB_REG_THREADS
         assert plan == ("registers", -(-problems * G // threads), threads, 0, 0)

@@ -61,6 +61,20 @@
 // move a half or a quarter of the f32 bytes, and the conversion (a shift,
 // or one int-to-float convert) sits beside ~16 f32 operations a cell.
 //
+// The dense entry (ops/dp_kernels.affine_dense_plan): what bounds it is
+// the block's bytes, ~16.5 MB read once at a contextual batch's chunk (c =
+// 2,048, L 16, Tpad 8, Q 32: 5.0 us), 2 MB at a find's (c = 8,192, Q = 1:
+// 0.64 us, under the ~2 us any launch takes on the device).  At one thread
+// a problem a find's chunk is 64 blocks on 132 SMs, each thread walking its
+// whole row chain alone, and the wrapper clamped len_s with a launch of its
+// own.  What the design does about it: a launch of at most
+// AFFINE_DENSE_LANES_MAX_PROBLEMS (8,192) problems takes "dense_lanes"
+// (affine_dp_dense_lanes_kernel below: a group of lanes a problem, 2,048
+// warps at a find's chunk, every row loaded before the first); a larger one
+// keeps the register route, which the lanes lost to from 16,384 problems
+// on (measured, PERF.md); every dense kernel clamps len_s to >= 1 itself,
+// so a call is one launch.
+//
 // Tag weights (TagArgs; f32 tables only): each S value becomes, right
 // before the DP row that consumes it, the JAX package's tag-weighted value
 // (ops/search.py _apply_tag_weights and its batch form in
@@ -316,7 +330,7 @@ __device__ __forceinline__ void affine_dp_body(const Args a, const TagArgs t) {
     int q;
     split_problem(p, a.Q, a.small, s, q);
     if constexpr (TAGGED) k = q;
-    ln = a.len_s[s];
+    ln = DENSE ? max(a.len_s[s], 1) : a.len_s[s];  // the dense block's len_s is raw
     lt = a.len_t[q];
     rstride = (int64_t)a.Tpad * a.Q;
     cs = a.Q;
@@ -409,6 +423,115 @@ __global__ void __launch_bounds__(THREADS)
 template <int T1P, int LOC, bool VEC>
 __global__ void __launch_bounds__(THREADS) affine_dp_dense_kernel(const Args a) {
   affine_dp_body<T1P, LOC, false, VEC, float, false, true>(a, TagArgs{});
+}
+
+// The dense entry's lane route ("dense_lanes"): a group of G lanes (8, 16
+// or 32, the power of two >= Tpad) a problem, lane l holding DP column l +
+// 1, for launches too few to fill the card one thread a problem (a find's
+// Q = 1 chunk: 8,192 problems are 64 blocks of AFFINE_REG_THREADS on 132
+// SMs, each thread walking its whole row chain alone).  The wide_regs body
+// at one column a lane, over a group instead of a warp: column 0 a per-lane
+// scalar, the diagonal's H[j - 1] and E's C[j - 1] one __shfl_up_sync each,
+// the doubling's step ``shift`` one more (a lane below shift - 1 has no
+// source and subtracts +inf; lane shift - 1 reads column 0's E), the steps
+// stopping at the warp's widest needle.  Every row's similarity of the
+// lane's column is loaded before the first row, so the row chain waits on
+// no load.  The score's maxes run per lane and reduce once a problem; the
+// global score comes from the lane holding column len_t.
+template <int G, int SHIFT>
+__device__ __forceinline__ void lane_doubling(float& E, float decay, float e0, int T1,
+                                              int lane) {
+  if constexpr (SHIFT <= G) {
+    if (SHIFT >= T1) return;  // warp-uniform
+    const float d = decay * (float)SHIFT;
+    float src = __shfl_up_sync(0xffffffffu, E, SHIFT, G);
+    if (lane == SHIFT - 1) src = e0;
+    const float dl = (lane >= SHIFT - 1) ? d : __uint_as_float(0x7f800000u);
+    E = fmaxf(E, src - dl);
+    lane_doubling<G, 2 * SHIFT>(E, decay, e0, T1, lane);
+  }
+}
+
+template <int LT, int G, int LOC>
+__global__ void __launch_bounds__(THREADS) affine_dp_dense_lanes_kernel(const Args a) {
+  constexpr unsigned ALL = 0xffffffffu;
+  const int64_t gthread = (int64_t)blockIdx.x * THREADS + threadIdx.x;
+  const int lane = threadIdx.x & (G - 1);
+  const int j = lane + 1;  // this lane's DP column
+  const int64_t problems = a.n * (int64_t)a.Q;
+  const int64_t p_raw = gthread / G;
+  const bool valid = p_raw < problems;
+  const int64_t p = valid ? p_raw : 0;  // a tail group computes, stores nothing
+  int64_t s;
+  int q;
+  split_problem(p, a.Q, a.small, s, q);
+  const int ln = max(a.len_s[s], 1);  // clamped here, not by a launch
+  const int lt = a.len_t[q];
+  const int rows = valid ? min(ln, a.L) : 0;
+  // uniform bounds of the warp: its longest slice, its widest needle's
+  // columns that reach a score
+  const int rows_warp = __reduce_max_sync(ALL, rows);
+  const int T1 = __reduce_max_sync(ALL, valid ? min(lt, a.Tpad) + 1 : 1);
+  const float open_s = a.open_s, ext_s = a.ext_s, open_t = a.open_t;
+  const float decay = fminf(a.open_t, a.ext_t);
+  const float e0 = NEG - open_t;  // E[0]: no doubling step changes it
+
+  // row i of slice s at (s * L + i) * Tpad * Q, column l of query q at l * Q + q
+  const int64_t rstride = (int64_t)a.Tpad * a.Q;
+  const float* __restrict__ col = static_cast<const float*>(a.table) +
+                                  s * (int64_t)a.L * rstride + q + (int64_t)lane * a.Q;
+  float sv[LT];
+#pragma unroll
+  for (int i = 0; i < LT; ++i)
+    sv[i] = (i < rows && lane < a.Tpad) ? __ldg(col + i * rstride) : 0.0f;
+
+  float H = NEG;
+  if (j <= lt) H = (LOC == GLOBAL) ? -__fmaf_rn((float)j - 1.0f, a.ext_t, a.open_t) : 0.0f;
+  float Fv = NEG;
+  float h0col = 0.0f;  // H[0]
+  float acc = NEG;     // this lane's part of the score (as affine_wide_regs_body)
+#pragma unroll
+  for (int i = 0; i < LT; ++i) {
+    if (i >= rows_warp) break;
+    const int dp_i = i + 1;
+    float init_col = 0.0f;
+    if (LOC == GLOBAL) init_col = -__fmaf_rn((float)dp_i - 1.0f, ext_s, open_s);
+    // C: diagonal (lane l - 1's H of the previous row; lane 0: column 0),
+    // vertical gap, local floor
+    const float h_up = __shfl_up_sync(ALL, H, 1, G);
+    const float m = ((lane == 0) ? h0col : h_up) + sv[i];
+    const float f = fmaxf(H - open_s, Fv - ext_s);
+    float c = fmaxf(m, f);
+    if (LOC == LOCAL) c = fmaxf(c, 0.0f);
+    Fv = f;
+    // horizontal gap: E = shift_down(C, 1) - open_t, then the doubling
+    const float c_up = __shfl_up_sync(ALL, c, 1, G);
+    float E = ((lane == 0) ? init_col : c_up) - open_t;
+    lane_doubling<G, 1>(E, decay, e0, T1, lane);
+    const float h = fmaxf(c, E);
+    H = h;
+    h0col = fmaxf(init_col, e0);
+    if (dp_i <= rows) {
+      // every counted row has dp_i <= len_s
+      if (LOC == LOCAL) {
+        if (j <= lt) acc = fmaxf(acc, h);
+      } else if (LOC == GLOBAL) {
+        if (dp_i == ln && j == lt) acc = h;
+      } else {
+        if (j == lt) acc = fmaxf(acc, h);
+        if (dp_i == ln && j <= lt) acc = fmaxf(acc, h);
+      }
+    }
+  }
+  float best;
+  if (LOC == GLOBAL) {
+    best = __shfl_sync(ALL, acc, lt - 1, G);
+  } else {
+#pragma unroll
+    for (int o = G / 2; o >= 1; o >>= 1) acc = fmaxf(acc, __shfl_xor_sync(ALL, acc, o, G));
+    best = fmaxf(0.0f, acc);
+  }
+  if (valid && lane == 0) a.out[p] = best;
 }
 
 // The tagged T1P = 17 templates with four blocks an SM asked for, as
@@ -505,7 +628,7 @@ __device__ __forceinline__ void affine_wide_body(const Args a, float* __restrict
       int q;
       split_problem(p, a.Q, a.small, s, q);
       if constexpr (TAGGED) k = q;
-      ln = a.len_s[s];
+      ln = DENSE ? max(a.len_s[s], 1) : a.len_s[s];  // the dense block's len_s is raw
       lt = a.len_t[q];
       rstride = (int64_t)a.Tpad * a.Q;
       if constexpr (DENSE)
@@ -817,7 +940,7 @@ __device__ __forceinline__ void affine_wide_regs_body(const Args a, const TagArg
       split_problem(p, a.Q, a.small, s, q);
       po = s * a.Q + q;
       if constexpr (TAGGED) k = q;
-      ln = a.len_s[s];
+      ln = DENSE ? max(a.len_s[s], 1) : a.len_s[s];  // the dense block's len_s is raw
       lt = a.len_t[q];
       rstride = (int64_t)Tpad * a.Q;
       if constexpr (DENSE) {
@@ -1175,6 +1298,23 @@ int dispatch(Args a, int locality, const Wide& w, const TagArgs* t, void* stream
   return (int)cudaGetLastError();
 }
 
+template <int LT, int G>
+int launch_dense_lanes(int locality, int blocks, cudaStream_t st, const Args& a) {
+  switch (locality) {
+    case LOCAL: affine_dp_dense_lanes_kernel<LT, G, LOCAL><<<blocks, THREADS, 0, st>>>(a); break;
+    case GLOBAL: affine_dp_dense_lanes_kernel<LT, G, GLOBAL><<<blocks, THREADS, 0, st>>>(a); break;
+    default: affine_dp_dense_lanes_kernel<LT, G, SEMIGLOBAL><<<blocks, THREADS, 0, st>>>(a); break;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int LT>
+int dense_lanes_width(int locality, int blocks, cudaStream_t st, const Args& a) {
+  if (a.Tpad <= 8) return launch_dense_lanes<LT, 8>(locality, blocks, st, a);
+  if (a.Tpad <= 16) return launch_dense_lanes<LT, 16>(locality, blocks, st, a);
+  return launch_dense_lanes<LT, 32>(locality, blocks, st, a);
+}
+
 }  // namespace
 
 // Both entries return the cudaError_t of the launch (0 on success), or -1
@@ -1229,7 +1369,7 @@ extern "C" int vt_affine_dp_scores_rows(
 
 // ``S`` is the dense [c, L, Tpad, Q] f32 block on both routes (row i of
 // slice s at (s * L + i) * Tpad * Q, column j of query q at j * Q + q);
-// ``len_s`` [c], >= 1; ``len_t`` [Q].
+// ``len_s`` [c] (raw: every dense kernel clamps it to >= 1); ``len_t`` [Q].
 extern "C" int vt_affine_dp_scores_dense(
     const float* S, const int32_t* len_s, const int32_t* len_t, float* out,
     int64_t c, int L, int Tpad, int Q, float open_s, float ext_s, float open_t,
@@ -1240,4 +1380,26 @@ extern "C" int vt_affine_dp_scores_dense(
                Tpad, Q, 0, open_s, ext_s, open_t, ext_t, false, false};
   const Wide w{wide_blocks, wide_cpl, wide_smem, scratch, 0};
   return dispatch<false, float, true>(a, locality, w, nullptr, stream);
+}
+
+// The dense entry's lane route ("dense_lanes": L <= 32, Tpad <= 32;
+// ``blocks`` of THREADS threads, G = the power of two >= Tpad (at least 8)
+// lanes a problem); arguments as in vt_affine_dp_scores_dense.
+extern "C" int vt_affine_dp_scores_dense_lanes(
+    const float* S, const int32_t* len_s, const int32_t* len_t, float* out,
+    int64_t c, int L, int Tpad, int Q, float open_s, float ext_s, float open_t,
+    float ext_t, int locality, int blocks, void* stream) {
+  if (S == nullptr || c <= 0 || Q <= 0 || L <= 0 || L > 32 || Tpad <= 0 || Tpad > 32 ||
+      locality < 0 || locality > 2 || blocks <= 0)
+    return -1;
+  Args a{S, nullptr, nullptr, nullptr, len_s, len_t, out, c, L,
+         Tpad, Q, 0, open_s, ext_s, open_t, ext_t, false, false};
+  const int64_t problems = c * (int64_t)Q;
+  const int G = Tpad <= 8 ? 8 : Tpad <= 16 ? 16 : 32;
+  if ((int64_t)blocks * (THREADS / G) < problems) return -1;
+  a.small = problems <= 0xffffffffLL;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (L <= 8) return dense_lanes_width<8>(locality, blocks, st, a);
+  if (L <= 16) return dense_lanes_width<16>(locality, blocks, st, a);
+  return dense_lanes_width<32>(locality, blocks, st, a);
 }

@@ -82,6 +82,21 @@
 // the score), so the work is what the data needs.  Horizontal gaps run in place over the row, highest
 // tile first, so every tile reads C values not yet replaced by H.
 //
+// The dense entry (ops/dp_kernels.wsb_dp_scores_dense) takes the gather
+// entry's routes on the [c, L, T, Q] block in place.  What bounds it: a
+// contextual batch's chunk (c = 2,048 slices of bucket capacity 16 against
+// Q = 32 needles padded to 8) reads ~16.5 MB of the block once, 5.0 us at
+// the HBM rate, against ~2.7 us of f32 instructions; a find's chunk (c =
+// 8,192, Q = 1) 0.64 us, under the ~2 us any launch takes on the device.
+// The lane groups spend ~45 instructions a lane a problem-row whatever the
+// needle (G - 1 = 7 horizontal shuffles) and run at ~3x the bytes bound.
+// A thread a problem (its 16 x 8 column histories in registers, a warp one
+// slice's 32 queries) beat them only where every slice had one length: on
+// a bucket's mix of 9-16 tokens it ran 1.04-1.49x their time at 65,536
+// problems and more, so the groups stay.  What the design does: every
+// dense kernel clamps len_s to >= 1 itself, where the wrapper took a
+// launch of its own for it (~2 us of device time), so a call is one launch.
+//
 // Tag weights (TagArgs; f32 tables only): on every route each S value
 // becomes, where it is loaded, the JAX package's tag-weighted value
 // (ops/search.py _apply_tag_weights):
@@ -206,7 +221,7 @@ __device__ __forceinline__ void wsb_dp_body(const Args a, const TagArgs t) {
     if (GATHER) {
       s = p / Q;
       q = (int)(p - s * Q);
-      ln = a.len_s[s];
+      ln = DENSE ? max(a.len_s[s], 1) : a.len_s[s];  // the dense block's len_s is raw
       lt = a.len_t[q];
       tbase = S + q;
     } else {
@@ -423,7 +438,7 @@ __device__ __forceinline__ void wsb_regs_body(const RegCosts<LT, G> costs, const
     lt[0] = a.len_t[p];
   } else {
     split_problem(p, a.Q, a.small, s, q);
-    ln = a.len_s[s];
+    ln = DENSE ? max(a.len_s[s], 1) : a.len_s[s];  // the dense block's len_s is raw
 #pragma unroll
     for (int u = 0; u < P; ++u) lt[u] = a.len_t[q + u];
   }
@@ -836,8 +851,8 @@ extern "C" int vt_wsb_dp_scores_rows_regs(
                                     locality, blocks, tag, stream);
 }
 
-// Dense entries: ``S`` the [c, L, T, Q] f32 block; ``len_s`` [c], >= 1;
-// ``len_t`` [Q].  Shared / scratch route (arguments as in vt_wsb_dp_scores).
+// Dense entries: ``S`` the [c, L, T, Q] f32 block; ``len_s`` [c] (raw: every
+// dense kernel clamps it to >= 1); ``len_t`` [Q].  Shared / scratch route (arguments as in vt_wsb_dp_scores).
 extern "C" int vt_wsb_dp_scores_dense(
     const float* S, const int32_t* len_s, const int32_t* len_t,
     const float* w_s, const float* w_t, const float* w_ts, float* out,

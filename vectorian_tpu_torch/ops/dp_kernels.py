@@ -24,8 +24,9 @@ counts.
 - ``affine_dp_scores_dense``: the affine DP of a dense similarity block
   ``[c, L, Tpad, Q]`` f32 (a contextual or modifier-tree chunk's evaluated
   block, read where the metric GEMM wrote it; replaces
-  ``pallas_align_scores_multi_nt`` on the contextual batch's block), on the
-  gather entry's routes.
+  ``pallas_align_scores_multi_nt`` on the contextual batch's block):
+  "lanes" (a group of lanes a problem) for launches of few problems, else
+  the gather entry's routes (``affine_dense_plan``).
 - ``wsb_dp_scores``: the general-gap (Waterman-Smith-Beyer) corpus pass,
   gather fused as above, any of the three table types (csrc/wsb_dp.cu;
   replaces the corpus-pass use of ``pallas_align_scores_general``).
@@ -127,6 +128,16 @@ WSB_SCRATCH_THREADS = 64
 WSB_REG_MAX_L = 32
 WSB_REG_MAX_T = 32
 WSB_REG_THREADS = 128
+# the affine dense entry's lane route (csrc/affine_dp.cu "dense_lanes", a
+# group of lanes a problem, a lane a column): buckets and padded needles up
+# to 32, for launches of at most AFFINE_DENSE_LANES_MAX_PROBLEMS problems.
+# Timed against a thread a problem on the device (chip_smoke.py 3d, bucket
+# 16's length mix and its random lengths, PERF.md): the lanes took
+# 0.69-0.94x its time at 8,192 problems, 0.93x (L 16) and 1.24x (L 8) at
+# 16,384, 1.23-1.82x at 32,768.
+AFFINE_LANES_MAX_L = 32
+AFFINE_LANES_MAX_T = 32
+AFFINE_DENSE_LANES_MAX_PROBLEMS = 8_192
 
 # the table types of the corpus-pass (gather) entries, by the code their C
 # entries take (csrc/*.cu TableDtype); a bf16 or int8 table's launches count
@@ -154,8 +165,8 @@ AFFINE_ROUTE_LAUNCHES = {
     "registers": 0, "wide_regs": 0, "wide_shared": 0, "wide_scratch": 0,
     "rows_registers": 0, "rows_wide_regs": 0, "rows_wide_shared": 0,
     "rows_wide_scratch": 0,
-    "dense_registers": 0, "dense_wide_regs": 0, "dense_wide_shared": 0,
-    "dense_wide_scratch": 0,
+    "dense_lanes": 0, "dense_registers": 0, "dense_wide_regs": 0,
+    "dense_wide_shared": 0, "dense_wide_scratch": 0,
 }
 # the ptxas report of each source's last verbose build
 PTXAS_REPORTS: Dict[str, str] = {}
@@ -187,6 +198,9 @@ _SIGNATURES = {
         "vt_affine_dp_scores_dense": [
             _P, _P, _P, _P, _I64, _I, _I, _I, _F, _F, _F, _F, _I, _I, _I, _I,
             _P, _P,
+        ],
+        "vt_affine_dp_scores_dense_lanes": [
+            _P, _P, _P, _P, _I64, _I, _I, _I, _F, _F, _F, _F, _I, _I, _P,
         ],
     },
     "wsb_dp": {
@@ -427,6 +441,13 @@ class LaunchPlan(NamedTuple):
     threads: int
     smem: int
     floats: int
+
+
+def lane_group_width(T: int) -> int:
+    """Lanes a problem takes where a group of lanes holds a needle's columns
+    (the WSB register routes, the affine dense "lanes" route): the power of
+    two >= T (at least 8)."""
+    return 8 if T <= 8 else 16 if T <= 16 else 32
 
 
 def _scratch(dev, floats: int):
@@ -905,23 +926,60 @@ def affine_dp_scores_dense_reference(S, len_s, len_t, gaps, locality):
                         locality).reshape(c, Q)
 
 
+def affine_lanes_shape(L: int, Tpad: int) -> bool:
+    """Whether the affine dense entry's lane route takes a bucket of
+    capacity L against needles padded to Tpad."""
+    return 1 <= L <= AFFINE_LANES_MAX_L and 1 <= Tpad <= AFFINE_LANES_MAX_T
+
+
+def affine_dense_plan(c: int, L: int, Tpad: int, Q: int, vec: bool = False,
+                      route=None) -> LaunchPlan:
+    """The launch of the affine dense entry on a [c, L, Tpad, Q] block.
+    ``route`` None picks "lanes" (a group of ``lane_group_width(Tpad)``
+    lanes a problem, AFFINE_REG_THREADS threads a block) for at most
+    AFFINE_DENSE_LANES_MAX_PROBLEMS problems where ``affine_lanes_shape``
+    holds, else the gather entry's routes (``affine_launch_plan``: "registers",
+    one thread a problem, up to AFFINE_DENSE_REG_MAX_T columns, or
+    AFFINE_REG_MAX_T where ``vec``: a row's columns are contiguous and
+    16-byte aligned, Q = 1; then the wide routes).  A named ``route``
+    forces that one (ValueError where it cannot run)."""
+    problems = c * Q
+    if (route is None and problems <= AFFINE_DENSE_LANES_MAX_PROBLEMS
+            and affine_lanes_shape(L, Tpad)):
+        route = "lanes"
+    if route == "lanes":
+        if not affine_lanes_shape(L, Tpad):
+            raise ValueError(f"the lanes route does not take L={L}, Tpad={Tpad}")
+        blocks = -(-problems * lane_group_width(Tpad) // AFFINE_REG_THREADS)
+        return LaunchPlan("lanes", blocks, AFFINE_REG_THREADS, 0, 0)
+    return affine_launch_plan(
+        problems, Tpad, route=route,
+        reg_max_t=AFFINE_REG_MAX_T if vec else AFFINE_DENSE_REG_MAX_T,
+    )
+
+
 def affine_dp_scores_dense(S, len_s, len_t, gaps, locality, _route=None):
     """Raw affine-DP scores [c, Q] f32 of a dense similarity block.
 
     S [c, L, Tpad, Q] f32 contiguous (slice s's row i, needle column j of
     query q at S[s, i, j, q]: the [c * L, Tpad * Q] output of a chunk's
     metric GEMM, read in place), len_s [c] i32 (clamped to >= 1, like the
-    JAX corpus pass), len_t [Q] i32 (1 <= len_t <= Tpad), ``gaps`` an
-    AffineGapParams of host floats.  The gather entry's routes
-    (``affine_launch_plan``: registers up to Tpad 32, or 64 where a row's
+    JAX corpus pass: inside the kernel, so a call is one launch), len_t
+    [Q] i32 (1 <= len_t <= Tpad), ``gaps`` an AffineGapParams of host
+    floats.  Routes as ``affine_dense_plan`` picks them: "lanes" for a
+    launch of few problems (a find's Q = 1 chunk), else the gather
+    entry's (registers up to Tpad 32, or 64 where a row's
     columns are contiguous, Q = 1; the wide routes read the block in
     place, a row's columns Q floats apart), one launch whose queries are
     not split by their own needle (the split measured slower than one
-    wide_regs launch, PERF.md); ``_route`` forces one."""
+    wide_regs launch, PERF.md); ``_route`` forces one (refused where it
+    cannot run, on the CPU too)."""
     _check_locality(locality)
     c, L, Tpad, Q = _check_dense("affine_dp_scores_dense", S, len_s, len_t)
     dev = S.device
     if dev.type == "cpu":
+        if _route is not None:
+            affine_dense_plan(c, L, Tpad, Q, route=_route)
         return affine_dp_scores_dense_reference(S, len_s, len_t, gaps, locality)
     _check_cuda(
         "affine_dp_scores_dense", dev, S=(S, torch.float32),
@@ -930,22 +988,24 @@ def affine_dp_scores_dense(S, len_s, len_t, gaps, locality, _route=None):
     out = torch.empty((c, Q), dtype=torch.float32, device=dev)
     if c == 0 or Q == 0:
         return out
-    ln1 = torch.clamp_min(len_s, 1)
     vec = Q == 1 and Tpad % 4 == 0 and S.data_ptr() % 16 == 0
-    plan = affine_launch_plan(
-        c * Q, Tpad, route=_route,
-        reg_max_t=AFFINE_REG_MAX_T if vec else AFFINE_DENSE_REG_MAX_T,
-    )
+    plan = affine_dense_plan(c, L, Tpad, Q, vec, route=_route)
     scratch, scratch_ptr = _scratch(dev, plan.floats)
     lib = _load("affine_dp")
+    gap_args = (float(gaps[0]), float(gaps[1]), float(gaps[2]), float(gaps[3]),
+                LOCALITIES.index(locality))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.vt_affine_dp_scores_dense(
-            S.data_ptr(), ln1.data_ptr(), len_t.data_ptr(), out.data_ptr(), c,
-            L, Tpad, Q, float(gaps[0]), float(gaps[1]), float(gaps[2]),
-            float(gaps[3]), LOCALITIES.index(locality), *_wide_args(plan, Tpad),
-            scratch_ptr, stream,
-        )
+        if plan.route == "lanes":
+            rc = lib.vt_affine_dp_scores_dense_lanes(
+                S.data_ptr(), len_s.data_ptr(), len_t.data_ptr(), out.data_ptr(), c,
+                L, Tpad, Q, *gap_args, plan.blocks, stream,
+            )
+        else:
+            rc = lib.vt_affine_dp_scores_dense(
+                S.data_ptr(), len_s.data_ptr(), len_t.data_ptr(), out.data_ptr(), c,
+                L, Tpad, Q, *gap_args, *_wide_args(plan, Tpad), scratch_ptr, stream,
+            )
     del scratch
     _raise_on(rc, "affine_dp[dense]")
     LAUNCHES["affine_dp[dense]"] += 1
@@ -956,12 +1016,6 @@ def affine_dp_scores_dense(S, len_s, len_t, gaps, locality, _route=None):
 # ---------------------------------------------------------------------------
 # general-gap (WSB) DP
 # ---------------------------------------------------------------------------
-
-
-def wsb_group_width(T: int) -> int:
-    """Lanes a problem takes on the register route: the power of two >= T
-    (at least 8)."""
-    return 8 if T <= 8 else 16 if T <= 16 else 32
 
 
 def wsb_register_shape(L: int, T: int) -> bool:
@@ -978,7 +1032,7 @@ def wsb_launch_plan(problems: int, L: int, T: int, registers: bool = True,
     and "rows_scratch").  ``route`` None picks: "registers" where
     ``registers`` allows it (a closure of non-negative costs and a table
     under 2^32 floats) and ``wsb_register_shape`` holds (a group of G =
-    ``wsb_group_width(T)`` lanes takes one problem — two consecutive
+    ``lane_group_width(T)`` lanes takes one problem — two consecutive
     queries of a slice in the gather entry where Q is even;
     WSB_REG_THREADS threads a block); else a problem's (L + 1) x (T + 1)
     rows go to "shared" memory when blocks of 32, 64 or 128 threads keep at
@@ -995,7 +1049,7 @@ def wsb_launch_plan(problems: int, L: int, T: int, registers: bool = True,
             raise ValueError(f"the register route does not take L={L}, T={T}")
         threads = WSB_REG_THREADS
         groups = -(-problems // (2 if Q % 2 == 0 and not rows else 1))
-        blocks = -(-groups * wsb_group_width(T) // threads)
+        blocks = -(-groups * lane_group_width(T) // threads)
         return LaunchPlan(prefix + "registers", blocks, threads, 0, 0)
     per = (L + 1) * (T + 1) * 4
     best = (0, 0)  # (resident threads an SM, threads a block)
@@ -1303,12 +1357,17 @@ def wsb_dp_scores_dense(S, len_s, len_t, w_s, w_t, w_t_star, locality,
     Q] f32 (as in ``affine_dp_scores_dense``); cost vectors and
     ``host_costs`` as in ``wsb_dp_scores``.  The gather entry's three
     routes (``wsb_launch_plan``; the register route reads lane k's column
-    Q floats apart, no transposed copy); ``_route`` forces one."""
+    Q floats apart, no transposed copy; len_s is clamped to >= 1 inside
+    the kernels, so a call is one launch); ``_route`` forces one (refused
+    where it cannot run, on the CPU too)."""
     _check_locality(locality)
     c, L, T, Q = _check_dense("wsb_dp_scores_dense", S, len_s, len_t)
     _check_gap_vecs(L, T, w_s, w_t, w_t_star)
     dev = S.device
     if dev.type == "cpu":
+        if _route is not None:
+            hs = _register_costs(L, T, S, (w_s, w_t, w_t_star), host_costs)
+            wsb_launch_plan(c * Q, L, T, registers=hs is not None, route=_route, Q=Q)
         return wsb_dp_scores_dense_reference(S, len_s, len_t, w_s, w_t,
                                              w_t_star, locality)
     _check_cuda(
@@ -1320,7 +1379,6 @@ def wsb_dp_scores_dense(S, len_s, len_t, w_s, w_t, w_t_star, locality,
     out = torch.empty((c, Q), dtype=torch.float32, device=dev)
     if c == 0 or Q == 0:
         return out
-    ln1 = torch.clamp_min(len_s, 1)
     hs = _register_costs(L, T, S, (w_s, w_t, w_t_star), host_costs)
     plan = wsb_launch_plan(c * Q, L, T, registers=hs is not None,
                            route=_route, Q=Q)
@@ -1331,7 +1389,7 @@ def wsb_dp_scores_dense(S, len_s, len_t, w_s, w_t, w_t_star, locality,
         stream = torch.cuda.current_stream(dev).cuda_stream
         if plan.route == "registers":
             rc = lib.vt_wsb_dp_scores_dense_regs(
-                S.data_ptr(), ln1.data_ptr(), len_t.data_ptr(),
+                S.data_ptr(), len_s.data_ptr(), len_t.data_ptr(),
                 hs[0].data_ptr(), hs[0].numel(), hs[1].data_ptr(),
                 hs[2].data_ptr(), min(hs[1].numel(), hs[2].numel()),
                 out.data_ptr(), c, L, T, Q, loc, plan.blocks, stream,
@@ -1339,7 +1397,7 @@ def wsb_dp_scores_dense(S, len_s, len_t, w_s, w_t, w_t_star, locality,
         else:
             scratch, scratch_ptr = _scratch(dev, plan.floats)
             rc = lib.vt_wsb_dp_scores_dense(
-                S.data_ptr(), ln1.data_ptr(), len_t.data_ptr(), w_s.data_ptr(),
+                S.data_ptr(), len_s.data_ptr(), len_t.data_ptr(), w_s.data_ptr(),
                 w_t.data_ptr(), w_t_star.data_ptr(), out.data_ptr(),
                 scratch_ptr, c, L, T, Q, loc, plan.blocks, plan.threads,
                 plan.smem, stream,
