@@ -131,15 +131,23 @@ Phases, each of which raises on failure:
    affine and general-gap indexes, phase 4's long query, and 4e's
    options at each of their precisions.
 
+``--old-tree DIR`` (with the full run or ``--tag-check``) loads the
+dp_kernels module of the checkout in DIR (a ``git archive`` of the parent
+commit) beside this one, builds its kernels from DIR's sources, and times
+every tagged launch of phases 3t, 4e and 4c, and its untagged self, in
+turns against that tree's (``tag_turns``).
+
 ``python3 chip_smoke.py --build-ab`` instead times phase 2's build with and
 without ``--split-compile 0`` and exits; ``--dense-check`` runs phases 2,
 3d and 4f alone; ``--wide-check`` phase 2, phase 3's wide cases and the
 long-query phase (on phase 4's session).  ``python3 chip_smoke.py
 --tag-check [SASS_DIR]`` runs phase 2, phase 3t and phase 3's general-gap
-kernels alone, then sets the WSB
-shared / scratch route's untagged and tagged templates side by side (ptxas
-report, SASS instruction mix and innermost loops, times in both turn
-orders; ``phase_tag_check``) and exits.
+kernels alone, both tagged corpus kernels at 4e's shapes
+(``tag_path_shapes``), the tagged register templates of both kernels beside
+their untagged selves (``register_templates``: ptxas report, SASS
+instruction mix and innermost loops), then the WSB shared / scratch
+route's untagged and tagged templates side by side (also their times in
+both turn orders; ``phase_tag_check``) and exits.
 
 Prints one JSON line per phase, the card's name and power limit, the
 kernels' line ({"kernels": [...]}) and, last, {"ok": true, "device": ...}.
@@ -172,6 +180,10 @@ F32_INSTR_RATE = None
 SM_HZ = None  # the SM clock (phase 1), for the sleep of ``device_ms``
 SEED = 0
 DEVICE = "cuda"
+# the parent's dp_kernels module (``--old-tree DIR``, a ``git archive`` of the
+# parent commit), built from that tree's sources: the old design that phases
+# 3t, 4e and 4c time in turns against this one; None: no such comparison
+OLD = None
 SENTENCES = 1_000_000  # the bench.py e2e corpus size
 # phase 3 sizes of the general-gap kernels: problems a corpus-pass shape,
 # slices of the long (scratch-route) bucket, and flat batch size — the
@@ -239,7 +251,7 @@ _AFFINE_WIDE_TEMPLATE = re.compile(
     r"affine_dp_wide_kernelILi(\d)ELb([01])ELb([01])E([fta])E")
 # the tagged (f32) families: the same template arguments without the type
 _AFFINE_TAGGED = re.compile(
-    r"affine_dp_tagged_kernel(?:_4b)?ILi(\d+)ELi(\d)ELb([01])ELb([01])EE")
+    r"affine_dp_tagged_kernel(?:_4b|_6b)?ILi(\d+)ELi(\d)ELb([01])ELb([01])EE")
 _AFFINE_WIDE_TAGGED = re.compile(r"affine_dp_wide_tagged_kernelILi(\d)ELb([01])ELb([01])EE")
 _WSB_REGS_TAGGED = re.compile(
     r"wsb_regs_tagged_kernelILi(\d+)ELi(\d+)ELi(\d)ELi(\d)ELb([01])EE")
@@ -364,19 +376,40 @@ def ptxas_gate(reports):
         raise AssertionError(f"ptxas gate: stack frame or spills in {bad}")
 
 
-def phase_build():
+def load_old_tree(path):
+    """The dp_kernels module of the checkout at ``path`` under a name of
+    its own (``old_dp_kernels``): its wrappers, and its kernels built from
+    that tree's sources into that tree's build directory (it imports the
+    rest of the package from this checkout)."""
+    import importlib.util
+
+    src = Path(path).resolve() / "vectorian_tpu_torch" / "ops" / "dp_kernels.py"
+    if not src.exists():
+        raise SystemExit(f"chip_smoke: --old-tree {path} holds no vectorian_tpu_torch")
+    spec = importlib.util.spec_from_file_location("old_dp_kernels", src)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_build(old_reports=False):
+    """The build and ptxas gate; with ``--old-tree`` the parent's kernels
+    too (``old_reports``: with their ptxas reports, printed)."""
     from vectorian_tpu_torch import native
     from vectorian_tpu_torch.ops import dp_kernels
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
         kernels = pool.submit(dp_kernels.build, True)  # prints ptxas reports
         host = pool.submit(native.available)
+        old = pool.submit(OLD.build, old_reports) if OLD is not None else None
         libs = kernels.result()
         native_ok = host.result()
+        if old is not None:
+            old.result()
     emit({"phase": "build",
           "libraries": {k: str(v.relative_to(ROOT)) for k, v in libs.items()},
-          "native_traceback": bool(native_ok),
+          "native_traceback": bool(native_ok), "old_tree": OLD is not None,
           "seconds": time.perf_counter() - t0})
     ptxas_gate(dp_kernels.PTXAS_REPORTS)
 
@@ -1550,34 +1583,60 @@ def phase_kernels_rows():
 
 
 def _tag_block(rng, n, L, Q, T):
-    """A random TagBlock on the card: pos ids [n, L] of 6 values, each of
-    the Q queries' (or slots') weights in [0.2, 1.2), needle pos ids with
-    -1, penalties in [0, 0.5) and thresholds in [-0.1, 0.2)."""
+    """A random TagBlock on the card, with the weight table its kernels
+    read (``dp_kernels.tag_table``, as a corpus pass builds it): pos ids
+    [n, L] of 0-5 and, one in eight, -1, 127 or -128 (every int8 value
+    must weight as the plain rewrite does), each of the Q queries' (or
+    slots') weights in [0.2, 1.2), needle pos ids of -1-5, penalties in
+    [0, 0.5) and thresholds in [-0.1, 0.2)."""
     import numpy as np
     import torch
 
-    from vectorian_tpu_torch.ops.dp_kernels import TagBlock
+    from vectorian_tpu_torch.ops import dp_kernels
 
     def put(x):
         return torch.as_tensor(x, device=DEVICE)
 
-    return TagBlock(
-        put(rng.integers(0, 6, size=(n, L)).astype(np.int8)),
-        put((rng.random((Q, T)) + 0.2).astype(np.float32)),
-        put(rng.integers(-1, 6, size=(Q, T)).astype(np.int8)),
-        put((rng.random(Q) * 0.5).astype(np.float32)),
-        put((rng.random(Q) * 0.3 - 0.1).astype(np.float32)),
-    )
+    pos = rng.integers(0, 6, size=(n, L)).astype(np.int8)
+    odd = rng.random((n, L)) < 0.125
+    pos[odd] = rng.choice(np.asarray([-1, 127, -128], np.int8), size=int(odd.sum()))
+    cols = ((rng.random((Q, T)) + 0.2).astype(np.float32),
+            rng.integers(-1, 6, size=(Q, T)).astype(np.int8),
+            (rng.random(Q) * 0.5).astype(np.float32),
+            (rng.random(Q) * 0.3 - 0.1).astype(np.float32))
+    return dp_kernels.TagBlock(put(pos), *(put(x) for x in cols + dp_kernels.tag_table(
+        *cols[:3])))
+
+
+def tag_turns(call, reps=5):
+    """A tagged launch and its untagged self timed on the device in turns
+    (``device_turns``: untagged, tagged, tagged, untagged; with the
+    parent's design loaded (``--old-tree``), its tagged and untagged
+    launches between them: untagged, tagged, old tagged, old untagged,
+    then back), and the host's wall ms a tagged call.  ``call(module,
+    tagged)`` runs the entry of a dp_kernels module on the inputs.
+    Returns {"ms", "untagged_ms"[, "old_ms", "old_untagged_ms"],
+    "host_ms", "turns"}."""
+    from vectorian_tpu_torch.ops import dp_kernels
+
+    runs = {"untagged_ms": lambda: call(dp_kernels, False),
+            "ms": lambda: call(dp_kernels, True)}
+    if OLD is not None:
+        runs.update(old_ms=lambda: call(OLD, True),
+                    old_untagged_ms=lambda: call(OLD, False))
+    means, times = device_turns(runs, reps)
+    return {**means, "host_ms": host_ms(runs["ms"], reps),
+            "turns": [[n, t] for n, t in times]}
 
 
 def phase_kernels_tagged():
     """3t: the tagged entries of kernels 1-3 (the tag-weighted block) on
     every route against their plain versions, bit for bit, in 3 localities
-    (affine: 2 gap sets; WSB: ExponentialGapCost(3.0)); each timed against
-    its untagged self on the same inputs in turns (untagged, tagged,
-    tagged, untagged) and against its bound (the rewrite's pos bytes and
-    TAG_OPS_PER_CELL a cell counted).  Returns the worst |diff| a kernel
-    name."""
+    (affine: 2 gap sets; WSB: ExponentialGapCost(3.0)); each timed on the
+    device against its untagged self on the same inputs in turns
+    (``tag_turns``: with ``--old-tree`` the parent's design too) and
+    against its bound (the rewrite's pos bytes and TAG_OPS_PER_CELL a cell
+    counted).  Returns the worst |diff| a kernel name."""
     import numpy as np
 
     from vectorian_tpu_torch.alignment import ExponentialGapCost
@@ -1590,11 +1649,11 @@ def phase_kernels_tagged():
     gapsets = [AffineGapParams.of(0.0, 0.0, 0.0, 0.0),
                AffineGapParams.of(0.37, 0.113, 0.29, 0.071)]
 
-    def timed(name, plain_tagged, run, run_untagged, bound, **shape):
-        untagged, tagged = _turns(run_untagged, run, 5)[:2]
+    def timed(name, plain_tagged, call, bound, **shape):
+        t = tag_turns(call, 3)
         b, by = bound
         emit({"phase": "kernel_tagged", "name": name, **shape, "localities": 3,
-              "max_abs_diff": 0.0, "kernel_ms": tagged, "untagged_ms": untagged,
+              "max_abs_diff": 0.0, "kernel_ms": t.pop("ms"), **t,
               "plain_ms": cuda_ms(plain_tagged, 1), "bound_ms": b, "bound_by": by})
 
     # kernel 1's gather entry: the register templates (T1P 9, 17, 33, 65;
@@ -1603,7 +1662,7 @@ def phase_kernels_tagged():
         (AFFINE_N, 16, 8, 32, None), (AFFINE_N, 16, 8, 1, None),
         (AFFINE_N // 4, 16, 16, 3, None), (AFFINE_N // 4, 32, 32, 32, None),
         (AFFINE_N // 8, 16, 64, 5, None), (WIDE_N, 16, 132, 32, None),
-        (WIDE_N // 8, 16, 132, 3, "wide_scratch"),
+        (WIDE_N // 8, 16, 132, 3, "wide_shared"), (WIDE_N // 8, 16, 132, 3, "wide_scratch"),
     ):
         table, tokens, len_s, len_t = _affine_gather_inputs(rng, n, L, Tpad, Q)
         tags = _tag_block(rng, n, L, Q, Tpad)
@@ -1618,10 +1677,11 @@ def phase_kernels_tagged():
                     "affine_dp[tagged]", got, want, (n, L, Tpad, Q, plan.route, loc)))
         gaps = gapsets[1]
         args = (table, tokens, len_s, len_t, gaps, "local")
+        lt_host = len_t.tolist()  # no read of len_t inside the timed calls
         timed("affine_dp[tagged]",
               lambda: dp_kernels.affine_dp_scores_reference(*args, tags=tags),
-              lambda: dp_kernels.affine_dp_scores(*args, tags=tags, _route=route),
-              lambda: dp_kernels.affine_dp_scores(*args, _route=route),
+              lambda m, tagged: m.affine_dp_scores(
+                  *args, tags=tags if tagged else None, len_t_host=lt_host, _route=route),
               dp_bound_ms(tokens, len_s, len_t, table, tags),
               n=n, L=L, Tpad=Tpad, Q=Q, route=plan.route)
     # kernel 2 (affine row gather): register templates and the wide route
@@ -1640,8 +1700,7 @@ def phase_kernels_tagged():
         args = (tokens, rows, qslot, table, V, len_s, len_t, gapsets[1], "local")
         timed("affine_dp_flat[tagged]",
               lambda: dp_kernels.affine_dp_scores_rows_reference(*args, tags=tags),
-              lambda: dp_kernels.affine_dp_scores_rows(*args, tags=tags),
-              lambda: dp_kernels.affine_dp_scores_rows(*args),
+              lambda m, tagged: m.affine_dp_scores_rows(*args, tags=tags if tagged else None),
               rows_bound_ms("affine_dp_flat", tokens, rows, qslot, table, V, len_s, len_t,
                             tags),
               B=B, L=L, T=T, slots=slots, route=plan.route)
@@ -1669,9 +1728,8 @@ def phase_kernels_tagged():
         args = (table, tokens, len_s, len_t, *vecs, "local")
         timed("wsb_dp[tagged]",
               lambda: dp_kernels.wsb_dp_scores_reference(*args, tags=tags),
-              lambda: dp_kernels.wsb_dp_scores(*args, host_costs=host, tags=tags,
-                                               _route=route),
-              lambda: dp_kernels.wsb_dp_scores(*args, host_costs=host, _route=route),
+              lambda m, tagged: m.wsb_dp_scores(*args, host_costs=host,
+                                                tags=tags if tagged else None, _route=route),
               wsb_bound_ms(tokens, len_s, len_t, table, tags),
               n=n, L=L, Tpad=Tpad, Q=Q, route=used)
     # kernel 3's row-gather entry: rows_registers, rows_shared (a gap bonus,
@@ -1697,8 +1755,8 @@ def phase_kernels_tagged():
         args = (tokens, rows, qslot, table, V, len_s, len_t, *vecs, "local")
         timed("wsb_dp_flat[tagged]",
               lambda: dp_kernels.wsb_dp_scores_rows_reference(*args, tags=tags),
-              lambda: dp_kernels.wsb_dp_scores_rows(*args, host_costs=host, tags=tags),
-              lambda: dp_kernels.wsb_dp_scores_rows(*args, host_costs=host),
+              lambda m, tagged: m.wsb_dp_scores_rows(*args, host_costs=host,
+                                                     tags=tags if tagged else None),
               rows_bound_ms("wsb_dp_flat", tokens, rows, qslot, table, V, len_s, len_t,
                             tags),
               B=B, L=L, T=T, slots=slots, route=used)
@@ -1779,7 +1837,9 @@ def sass_loops(code):
 def phase_tag_check(sass_dir=None):
     """``--tag-check``: the tagged kernels' quick check (phase 2's build and
     ptxas gate, then phases 3t and 3's general-gap kernels, every WSB
-    route untagged), and the WSB shared / scratch route's two
+    route untagged; both tagged kernels at 4e's shapes; the tagged
+    register templates beside their untagged selves, and with
+    ``--old-tree`` the parent's), and the WSB shared / scratch route's two
     template families side by side, untagged (wsb_dp_kernel<LOC, GATHER,
     0, float>) against tagged (wsb_dp_tagged_kernel<LOC, GATHER, 0>): their
     ptxas registers, stack and spills, their SASS's instruction mix and
@@ -1791,11 +1851,15 @@ def phase_tag_check(sass_dir=None):
     from vectorian_tpu_torch.alignment import ExponentialGapCost
     from vectorian_tpu_torch.ops import dp_kernels
 
-    phase_build()
+    phase_build(old_reports=True)
     log("built")
     worst = phase_kernels_tagged()
     worst.update(phase_kernels_general())
     emit({"phase": "tag_check_kernels", "max_abs_diff": worst})
+    tag_path_shapes()
+    for mod, tree in ((dp_kernels, "new"), (OLD, "old")):
+        if mod is not None:
+            register_templates(mod, tree, sass_dir)
 
     templates = {}
     for name, e in dp_kernels.ptxas_entries(dp_kernels.PTXAS_REPORTS["wsb_dp"]).items():
@@ -1843,6 +1907,102 @@ def phase_tag_check(sass_dir=None):
         _tag_turns("wsb_dp_flat", dict(B=B, L=L, T=T, slots=slots),
                    lambda: dp_kernels.wsb_dp_scores_rows(*args, host_costs=host),
                    lambda: dp_kernels.wsb_dp_scores_rows(*args, host_costs=host, tags=tags))
+
+
+# the register templates ``--tag-check`` reports, tagged and untagged, at
+# the main path's locality (local) and shapes: affine T1P 9 and 33 (gather,
+# float4 rows, row-gather), WSB bucket 16 against needles of 8 (one and two
+# queries a group, row-gather); the f32 table's untagged templates end in
+# "fE"
+_REGISTER_TEMPLATES = {
+    "affine_dp": re.compile(
+        r"affine_dp_(tagged_)?kernel(?:_4b|_6b)?ILi(9|33)ELi0ELb([01])ELb([01])E(f?)E"),
+    "wsb_dp": re.compile(r"wsb_regs_(tagged_)?kernelILi16ELi8ELi0ELi([12])ELb([01])E(f?)E"),
+}
+
+
+def register_templates(mod, tree, sass_dir=None):
+    """The tagged register templates of kernels 1 and 3 beside their
+    untagged selves (``_REGISTER_TEMPLATES``) in the library of the
+    dp_kernels module ``mod`` (``tree``: "new", or "old" for
+    ``--old-tree``): ptxas registers, stack and spills, and the SASS's
+    instruction mix and innermost loops (cuobjdump; the SASS into
+    ``sass_dir/<tree>`` where given)."""
+    for lib, pattern in _REGISTER_TEMPLATES.items():
+        entries = mod.ptxas_entries(mod.PTXAS_REPORTS.get(lib, ""))
+        sass = sass_functions(mod._library_path(lib))
+        for name, e in sorted(entries.items()):
+            m = pattern.search(name)
+            if not m or not (m[1] or m[m.lastindex]):
+                continue
+            line = {"phase": "register_template", "tree": tree, "name": name,
+                    "tagged": bool(m[1]), **e}
+            code = (sass or {}).get(name)
+            if code is not None:
+                ops = [_opcode(ins) for _, ins in code]
+                line["instructions"] = len(ops)
+                line["opcodes"] = {op: ops.count(op) for op in SASS_OPS if ops.count(op)}
+                line["innermost_loops"] = sass_loops(code)
+                if sass_dir is not None:
+                    out = Path(sass_dir) / tree
+                    out.mkdir(parents=True, exist_ok=True)
+                    (out / f"{name[-60:]}.sass").write_text(
+                        "\n".join(f"/*{a:04x}*/ {ins}" for a, ins in code) + "\n")
+            emit(line)
+
+
+def tag_path_shapes():
+    """Both tagged corpus kernels at 4e's tag-weighted pass's shapes on
+    random data (the full run times the path's own inputs): SENTENCES
+    slices of 9 tokens in a bucket of 16, needles of 7 padded to 8, Q 32
+    and a find's Q 1; held against the plain version (local) and timed on
+    the device in turns (``tag_turns``) beside the bound."""
+    import numpy as np
+    import torch
+
+    from vectorian_tpu_torch.alignment import ExponentialGapCost
+    from vectorian_tpu_torch.ops import dp_kernels
+    from vectorian_tpu_torch.ops.alignment import AffineGapParams
+
+    rng = np.random.default_rng(SEED + 12)
+    n, L, Tpad = SENTENCES, 16, 8
+    gaps = AffineGapParams.of(0.37, 0.113, 0.29, 0.071)
+    gg = _wsb_general(ExponentialGapCost(3.0), Tpad)
+    vecs, host = gg.vecs(L), gg.host_vecs(L)
+    tokens = torch.as_tensor(rng.integers(0, 5_000, size=(n, L)).astype(np.int32),
+                             device=DEVICE)
+    len_s = torch.full((n,), 9, dtype=torch.int32, device=DEVICE)
+    for Q in (32, 1):
+        table = torch.as_tensor(rng.uniform(-0.4, 1.0, size=(5_000, Tpad, Q)).astype(
+            np.float32), device=DEVICE)
+        len_t = torch.full((Q,), 7, dtype=torch.int32, device=DEVICE)
+        lt_host = [7] * Q
+        tags = _tag_block(rng, n, L, Q, Tpad)
+        for kernel in ("affine_dp", "wsb_dp"):
+            if kernel == "affine_dp":
+                args = (table, tokens, len_s, len_t, gaps, "local")
+
+                def call(m, tagged, args=args):
+                    return m.affine_dp_scores(*args, tags=tags if tagged else None,
+                                              len_t_host=lt_host)
+                plain = dp_kernels.affine_dp_scores_reference(*args, tags=tags)
+                bound = dp_bound_ms(tokens, len_s, len_t, table, tags)
+            else:
+                args = (table, tokens, len_s, len_t, *vecs, "local")
+
+                def call(m, tagged, args=args):
+                    return m.wsb_dp_scores(*args, host_costs=host,
+                                           tags=tags if tagged else None)
+                plain = dp_kernels.wsb_dp_scores_reference(*args, tags=tags)
+                bound = wsb_bound_ms(tokens, len_s, len_t, table, tags)
+            _, route = _with_route(lambda: call(dp_kernels, True))
+            err = _check_equal(kernel + "[tagged]", call(dp_kernels, True), plain,
+                               ("path", n, L, Tpad, Q))
+            del plain
+            emit({"phase": "tag_path_shape", "name": kernel + "[tagged]", "n": n, "L": L,
+                  "len_s": 9, "Tpad": Tpad, "len_t": 7, "Q": Q, "route": route,
+                  "max_abs_diff": err, **tag_turns(call, 5), "bound_ms": bound[0],
+                  "bound_by": bound[1]})
 
 
 def _tag_turns(name, shape, untagged, tagged, reps=10):
@@ -2238,17 +2398,19 @@ def drive_option(index, queries, finds, kernel, name, kw, precisions):
 
 def tagged_kernel_at_path(index, qs, kernel):
     """The tagged corpus kernel at the shapes 4e's tag-weighted pass gave
-    it (the batch's f32 table, its tag columns, every bucket's pos ids),
-    held against its plain version and timed against its untagged self in
-    turns (untagged, tagged, tagged, untagged); returns (max |diff|, ms,
-    untagged ms, plain ms, bound ms, bound_by, shapes)."""
+    it (the batch's f32 table, its tag columns and weight table, every
+    bucket's pos ids), held against its plain version and timed on the
+    device against its untagged self in turns (``tag_turns``; with
+    ``--old-tree`` the parent's design too); returns (max |diff|, {"ms",
+    "untagged_ms", "host_ms"[, "old_ms", "old_untagged_ms"]} summed over
+    the buckets, plain ms, bound ms, bound_by, shapes)."""
     import numpy as np
     import torch
 
     from vectorian_tpu_torch.ops import dp_kernels
     from vectorian_tpu_torch.ops.dp_kernels import TagBlock
     from vectorian_tpu_torch.ops.search import (
-        corpus_tag_columns, scaled_costs, stack_query_tables,
+        corpus_tag_columns, scaled_costs, stack_query_tables, tag_arrays,
     )
 
     engine = index._engine
@@ -2256,9 +2418,11 @@ def tagged_kernel_at_path(index, qs, kernel):
     _, plans, len_ts, _, tagws, _ = index._prepare_static_batch(qs, 10, 0.2, "float32", {})
     table, scale, _, Tpad = stack_query_tables(plans, len_ts, None)
     gaps, general, _ = scaled_costs(index._gaps, index._gap_costs, scale, Tpad, dev)
-    cols = [torch.as_tensor(c, device=dev) for c in corpus_tag_columns(tagws, len(qs), Tpad)]
+    cols = [torch.as_tensor(c, device=dev)
+            for c in tag_arrays(corpus_tag_columns(tagws, len(qs), Tpad))]
     lt = torch.as_tensor(np.asarray(len_ts, np.int32), device=dev)
-    worst = ms = untagged = plain_ms = bound = 0.0
+    worst = plain_ms = bound = 0.0
+    times = {}
     by, shapes = "operations", []
     for db in engine._device_buckets:
         if db["n"] == 0:
@@ -2267,29 +2431,29 @@ def tagged_kernel_at_path(index, qs, kernel):
         tags = TagBlock(engine._bucket_ids(db, "pos"), *cols)
         if kernel == "affine_dp":
             args = (table, db["tokens"], db["lengths"], lt, gaps, "local")
-            run = lambda a=args: dp_kernels.affine_dp_scores(*a, tags=tags)  # noqa: E731
-            run0 = lambda a=args: dp_kernels.affine_dp_scores(*a)  # noqa: E731
-            plain = lambda a=args: dp_kernels.affine_dp_scores_reference(  # noqa: E731
-                *a, tags=tags)
+            call = lambda m, tagged, a=args, tg=tags: m.affine_dp_scores(  # noqa: E731
+                *a, tags=tg if tagged else None, len_t_host=len_ts)
+            plain = lambda a=args, tg=tags: dp_kernels.affine_dp_scores_reference(  # noqa: E731
+                *a, tags=tg)
             b, by = dp_bound_ms(db["tokens"], db["lengths"], lt, table, tags)
         else:
             args = (table, db["tokens"], db["lengths"], lt, *general.vecs(L), "local")
             host = general.host_vecs(L)
-            run = lambda a=args: dp_kernels.wsb_dp_scores(  # noqa: E731
-                *a, host_costs=host, tags=tags)
-            run0 = lambda a=args: dp_kernels.wsb_dp_scores(*a, host_costs=host)  # noqa: E731
-            plain = lambda a=args: dp_kernels.wsb_dp_scores_reference(  # noqa: E731
-                *a, tags=tags)
+            call = lambda m, tagged, a=args, h=host, tg=tags: m.wsb_dp_scores(  # noqa: E731
+                *a, host_costs=h, tags=tg if tagged else None)
+            plain = lambda a=args, tg=tags: dp_kernels.wsb_dp_scores_reference(  # noqa: E731
+                *a, tags=tg)
             b, by = wsb_bound_ms(db["tokens"], db["lengths"], lt, table, tags)
-        worst = max(worst, _check_equal(kernel + "[tagged]", run(), plain(),
+        worst = max(worst, _check_equal(kernel + "[tagged]", call(dp_kernels, True), plain(),
                                         "4e main-path shapes"))
-        turns = _turns(run0, run, 10 if kernel == "affine_dp" else 5)
-        untagged += turns[0]
-        ms += turns[1]
+        t = tag_turns(call, 5)
+        for key, v in t.items():
+            if key != "turns":
+                times[key] = times.get(key, 0.0) + v
         plain_ms += cuda_ms(plain, 1)
         bound += b
         shapes.append([int(db["n"]), L, Tpad, len(qs)])
-    return worst, ms, untagged, plain_ms, bound, by, shapes
+    return worst, times, plain_ms, bound, by, shapes
 
 
 def phase_options(session, words, queries, finds, card):
@@ -2299,9 +2463,10 @@ def phase_options(session, words, queries, finds, card):
     — tag weights (f32: they force it), token_filter + pos_filter and a
     Saliency(KeywordSignal) booster at int8, bf16 and f32, bidirectional
     (Q=32 becomes 64 in the pass) — with the wall times, alignments/s,
-    extras rounds and Saliency.compile's time; the tagged kernels held
-    against their plain versions at the tag-weighted pass's shapes (Q=32
-    and a find's Q=1) and timed against their untagged selves.  Returns
+    extras rounds and Saliency.compile's time; a torch.profiler trace of
+    the tag-weighted f32 batch; the tagged kernels held against their
+    plain versions at the tag-weighted pass's shapes (Q=32 and a find's
+    Q=1) and timed against their untagged selves.  Returns
     {"affine_dp[tagged]": ..., "wsb_dp[tagged]": ...} for the kernels'
     line."""
     from vectorian_tpu_torch.alignment import ExponentialGapCost
@@ -2329,12 +2494,16 @@ def phase_options(session, words, queries, finds, card):
                       "launches": launches,
                       **({"saliency_compile_s": compile_s} if name == "booster" else {})})
             if name == "tag_weights":
+                # where the tagged batch's time goes (PERF.md section 5)
+                profile_calls(f"4e tag_weights {kernel} find_batch_Q{len(queries)}_float32",
+                              lambda: index.find_batch(queries, n=10, min_score=0.2,
+                                                       sim_precision="float32", **kw))
                 res = {"launches": launches[kernel + "[tagged]"]}
                 for sfx, qs in (("", queries), ("_find", finds[:1])):
-                    err, ms, ms0, plain_ms, bound, by, shapes = tagged_kernel_at_path(
+                    err, times, plain_ms, bound, by, shapes = tagged_kernel_at_path(
                         index, qs, kernel)
                     res.update({"max_abs_err": max(err, res.get("max_abs_err", 0.0)),
-                                f"ms{sfx}": ms, f"untagged_ms{sfx}": ms0,
+                                **{k + sfx: v for k, v in times.items()},
                                 f"plain_ms{sfx}": plain_ms, f"bound_ms{sfx}": bound,
                                 f"bound_by{sfx}": by, f"shapes_n_L_Tpad_Q{sfx}": shapes})
                 emit({"phase": "options_kernel", "name": kernel + "[tagged]", "card": card,
@@ -2828,29 +2997,35 @@ def phase_rescore(card):
 
 def time_tagged_row_calls(kernel, res):
     """A tagged row-gather kernel at the inputs 4c's tag-weighted extras
-    rounds gave it: held against its plain version, timed against the same
-    call without tags, and its bound.  Returns (max |diff|, ms, untagged
-    ms, plain ms, bound ms, bound_by)."""
+    rounds gave it: held against its plain version, timed on the device
+    against the same call without tags in turns (``tag_turns``; with
+    ``--old-tree`` the parent's design too), and its bound.  Returns (max
+    |diff|, {"ms", "untagged_ms", "host_ms"[, "old_ms",
+    "old_untagged_ms"]} summed over the calls, plain ms, bound ms,
+    bound_by)."""
     from vectorian_tpu_torch.ops import dp_kernels
 
     entry = "wsb_dp_scores_rows" if kernel.startswith("wsb") else "affine_dp_scores_rows"
-    run = getattr(dp_kernels, entry)
     plain = getattr(dp_kernels, entry + "_reference")
-    worst = ms = ms0 = plain_ms = bound = 0.0
+    worst = plain_ms = bound = 0.0
+    times = {}
     by = "operations"
     for _, args, kwargs in res["calls"]:
         tags = kwargs["tags"]
         untagged = {k: v for k, v in kwargs.items() if k != "tags"}
-        got = run(*args, **kwargs)
-        worst = max(worst, _check_equal(kernel, got, plain(*args, tags=tags),
-                                        "main-path shapes"))
-        t0, t = _turns(lambda: run(*args, **untagged), lambda: run(*args, **kwargs), 10)[:2]
-        ms += t
-        ms0 += t0
+
+        def call(m, tagged, args=args, kwargs=kwargs, untagged=untagged):
+            return getattr(m, entry)(*args, **(kwargs if tagged else untagged))
+
+        worst = max(worst, _check_equal(kernel, call(dp_kernels, True),
+                                        plain(*args, tags=tags), "main-path shapes"))
+        for key, v in tag_turns(call, 10).items():
+            if key != "turns":
+                times[key] = times.get(key, 0.0) + v
         plain_ms += cuda_ms(lambda: plain(*args, tags=tags), 1)
         b, by = rows_bound_ms(kernel, *args[:7], tags=tags)
         bound += b
-    return worst, ms, ms0, plain_ms, bound, by
+    return worst, times, plain_ms, bound, by
 
 
 def _per_column_call(kernel, args, kwargs, sel):
@@ -4219,12 +4394,15 @@ def phase_small_reference(long_q):
           "max_abs_score_diff_vs_cpu": worst})
 
 
-def main():
+def main(old_tree=None):
     if not (ROOT / "vectorian_tpu_torch" / "csrc" / "affine_dp.cu").exists():
         raise SystemExit("chip_smoke: run from a checkout of the repository")
     sys.path.insert(0, str(ROOT))
     import torch
 
+    global OLD
+    if old_tree is not None:
+        OLD = load_old_tree(old_tree)
     t_start = time.perf_counter()
     card = phase_device()
     kind = torch.cuda.get_device_name(0)
@@ -4412,8 +4590,9 @@ def run_phases(card):
             "max_abs_err": max(worst_tagged[name], res["max_abs_err"]),
             "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"], "library_ms": None,
-            "untagged_ms": res["untagged_ms"], "ms_find": res["ms_find"],
-            "untagged_ms_find": res["untagged_ms_find"],
+            **{k: res[k] for k in ("untagged_ms", "host_ms", "old_ms", "old_untagged_ms",
+                                   "ms_find", "untagged_ms_find", "host_ms_find",
+                                   "old_ms_find", "old_untagged_ms_find") if k in res},
             "plain_ms_find": res["plain_ms_find"], "bound_ms_find": res["bound_ms_find"],
             "shapes_n_L_Tpad_Q": res["shapes_n_L_Tpad_Q"],
             "shapes_n_L_Tpad_Q_find": res["shapes_n_L_Tpad_Q_find"], "card": card,
@@ -4423,14 +4602,14 @@ def run_phases(card):
         ("wsb_dp_flat[tagged]", "wsb_dp.cu", "vectorian_tpu/ops/pallas_dp.py:155"),
     ):
         res = rescore[name]
-        err, ms, ms0, plain_ms, bound, by = time_tagged_row_calls(name, res)
+        err, times, plain_ms, bound, by = time_tagged_row_calls(name, res)
         kernels.append({
             "name": name, "route": "cuda",
             "entry": name.split("_flat")[0] + "_scores_rows",
             "source": f"vectorian_tpu_torch/csrc/{source}", "replaces": replaces,
             "launches": res["launches"], "max_abs_err": max(err, worst_tagged[name]),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": None, "untagged_ms": ms0, "rounds": res["rounds"],
+            **times, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None, "rounds": res["rounds"],
             "launches_per_round": res["per_round"],
             "problems_per_call": [int(a[1].shape[0]) for _, a, _ in res["calls"]],
             "card": card,
@@ -4546,6 +4725,12 @@ def batch_check(card):
 
 
 if __name__ == "__main__":
+    old_tree = None
+    if "--old-tree" in sys.argv[1:]:
+        # the parent's tree, for the tagged kernels' old-against-new turns
+        i = sys.argv.index("--old-tree")
+        old_tree = sys.argv[i + 1]
+        del sys.argv[i : i + 2]
     if sys.argv[1:2] == ["--dense-check"]:
         # phases 2, 3d and 4f alone: the quick check after a dense-entry edit
         if not (ROOT / "vectorian_tpu_torch" / "csrc" / "affine_dp.cu").exists():
@@ -4582,6 +4767,8 @@ if __name__ == "__main__":
         else:
             import vectorian_tpu_torch  # noqa: F401  (sets exact-f32 matmul flags)
 
+            if old_tree is not None:
+                OLD = load_old_tree(old_tree)
             phase_tag_check(*sys.argv[2:3])
     else:
-        main()
+        main(old_tree)

@@ -82,15 +82,35 @@
 //   w = tw_w[q, j] * (pos[s, i] == tw_p[q, j] ? 1 : 1 - pen[q]),
 //   S' = S * w > thr[q] ? S * w : 0,
 // in that order, each product and difference one rounding (__fmul_rn,
-// __fsub_rn: nothing contracts).  The weights are a small [Q, Tpad] block
-// read through the read-only cache where a row is loaded; a thread keeps
-// none of them in registers across rows (the register route holds a whole
-// row of columns already).  The wide route applies it where a lane loads its
-// column.  A gather query q reads column j of the block at q * qs + j * cs
-// (the wrapper picks the layout per route), a row-gather problem the slot
-// qslot[b]; pos is [n, L] like the tokens (compacted with them where a
-// document-side filter is on).  The tagged kernels are their own template
-// family (affine_dp_tagged_kernel, affine_dp_wide_tagged_kernel), f32 only,
+// __fsub_rn: nothing contracts).  What bounded the tagged register route:
+// it rebuilt w in every cell from the needle's weight and pos id (compare,
+// select, two multiplies beside the threshold's compare and select: ~6
+// instructions on ~16 a cell), and past 8 columns the weights could not
+// stay in registers beside the row (hoisted, they spilled: a 976-byte frame
+// at T1P = 65), so every row re-read 2 x Tpad of them (3.3-3.5x the
+// untagged kernel's time there, 1.8x at T1P = 9).  What the design does
+// about it: w depends on the row only through its pos id, so the wrapper
+// hands the kernel a weight table, built once a corpus pass on the host
+// (ops/dp_kernels.tag_table: W[r, q, j], one row r for each distinct needle
+// pos id and one for every other, and rmap, the row of each of the 256 pos
+// ids; exact for any pos id, with the same two roundings).  A row then
+// costs one lookup of its pos id's table row and Tpad / 4 float4 loads
+// (its (row, query) columns are contiguous and 16-byte aligned, so their
+// addresses are immediate offsets; a first layout with the queries
+// contiguous cost an address computation a column, and ran 0.88x the old
+// design at 1.8x the untagged kernel), and a cell one multiply, a compare
+// and a select.  The table's rows are read through the read-only cache:
+// the rows of the pos ids that occur are a few KB, hot in L1, and a
+// block's share of the table (R x its 32 queries x Tpad) is as many floats
+// as it reads, so staging it in shared memory would cost what it saves.
+// The row-gather entry reads its slot's row of the table.  At T1P = 9 the
+// local gather templates are held to 80 registers (six blocks an SM, as
+// the untagged ones run; affine_dp_tagged_kernel_6b).  The wide routes (a
+// lane a column, 1.0-1.1x their untagged selves) keep the per-cell form,
+// with the needle's weights and pos ids [Q, Tpad] read in place.  pos is
+// [n, L] like the tokens (compacted with them where a document-side
+// filter is on).  The tagged kernels are their own template family
+// (affine_dp_tagged_kernel, affine_dp_wide_tagged_kernel, ...), f32 only,
 // with TagArgs a kernel parameter of theirs alone: a runtime flag in the
 // untagged kernels changed the registers ptxas picked for them, quantized
 // ones included, and spilled five of the templates the build's gate checks.
@@ -115,12 +135,14 @@
 // The tag-weighted block's inputs (see the header).  Outside the unnamed
 // namespace: the C entries take a pointer to it.
 struct TagArgs {
-  const int8_t* pos;  // [n, L] pos ids of the rows the tokens index
-  const float* w;     // needle weights: query (slot) q, column j at q * qs + j * cs
-  const int8_t* p;    // needle pos ids, same layout
-  const float* pen;   // [Q] (rows: [slots]) pos-mismatch penalty
-  const float* thr;   // [Q] (rows: [slots]) similarity threshold
-  int qs, cs;
+  const int8_t* pos;    // [n, L] pos ids of the rows the tokens index
+  const float* w;       // needle weights: query (slot) q, column j at q * qs + j
+  const int8_t* p;      // needle pos ids, same layout
+  const float* pen;     // [Q] (rows: [slots]) pos-mismatch penalty
+  const float* thr;     // [Q] (rows: [slots]) similarity threshold
+  const float* wt;      // weight table W: row r, query (slot) q, column j at r * wr + q * wq + j
+  const int32_t* rmap;  // [256] W's row of each pos id (indexed by its 8 bits)
+  int qs, wr, wq;       // wt 16-byte aligned, wr and wq multiples of 4
 };
 
 namespace {
@@ -154,41 +176,44 @@ __device__ __forceinline__ void doubling(float (&E)[T1P], float decay) {
   }
 }
 
-// One tag-weighted similarity: w first, then S * w, then the threshold.
-__device__ __forceinline__ float tag_weight(float s, int pos_s, float w, int pos_t,
-                                            float pen, float thr) {
-  const float sel = (pos_s == pos_t) ? 1.0f : __fsub_rn(1.0f, pen);
-  const float sw = __fmul_rn(s, __fmul_rn(w, sel));
+// One tag-weighted similarity from its weight ``wv`` (w, or w * (1 -
+// pen), already rounded): S * w, then the threshold.
+__device__ __forceinline__ float tag_apply(float s, float wv, float thr) {
+  const float sw = __fmul_rn(s, wv);
   return (sw > thr) ? sw : 0.0f;
 }
 
-// An opaque copy of x: what is computed from it stays in the loop it sits
-// in (volatile asm runs where it is written, so nothing derived from its
-// result is loop-invariant).
-__device__ __forceinline__ int opaque(int x) {
-  int y;
-  asm volatile("mov.b32 %0, %1;" : "=r"(y) : "r"(x));
-  return y;
+// One tag-weighted similarity from the needle column's weight and pos id:
+// w first, then S * w, then the threshold.
+__device__ __forceinline__ float tag_weight(float s, int pos_s, float w, int pos_t,
+                                            float pen, float thr) {
+  const float sel = (pos_s == pos_t) ? 1.0f : __fsub_rn(1.0f, pen);
+  return tag_apply(s, __fmul_rn(w, sel), thr);
 }
 
-// A similarity row (its first Tpad of N columns) whose slice position has
-// pos id ``ps``, query or table slot k, tag-weighted; the weights are read
-// here, through the read-only cache.  Past 8 columns their addresses
-// derive from an opaque copy of k: the compiler would otherwise hoist the
-// row's 2 x N loads (or their N addresses) out of the row loop into
-// registers, and spill (a 976-byte frame at T1P = 65, 48 bytes at T1P =
-// 33); 8 columns' weights fit beside the double-buffered rows.
+// The weight-table row of a similarity row whose pos id is ``ps``, at
+// query or table slot k: its columns, contiguous and 16-byte aligned.
+__device__ __forceinline__ const float* tag_table_row(const TagArgs& t, int ps, int k) {
+  return t.wt + (int64_t)__ldg(t.rmap + (uint8_t)ps) * t.wr + (int64_t)k * t.wq;
+}
+
+// A similarity row (its first Tpad of N columns, N a multiple of 4)
+// tag-weighted by its weight-table row ``wrow``, read 16 bytes at a time
+// through the read-only cache.
 template <int N>
-__device__ __forceinline__ void tag_row(float (&v)[N], const TagArgs& t, int ps,
-                                        int Tpad, int k) {
-  const int kk = (N <= 8) ? k : opaque(k);
-  const float* __restrict__ w = t.w + (int64_t)kk * t.qs;
-  const int8_t* __restrict__ pt = t.p + (int64_t)kk * t.qs;
-  const float pen = __ldg(t.pen + kk), thr = __ldg(t.thr + kk);
+__device__ __forceinline__ void tag_row(float (&v)[N], const float* __restrict__ wrow,
+                                        int Tpad, float thr) {
+  static_assert(N % 4 == 0, "rows of whole float4s");
 #pragma unroll
-  for (int j = 0; j < N; ++j)
-    if (j < Tpad)
-      v[j] = tag_weight(v[j], ps, __ldg(w + j * t.cs), __ldg(pt + j * t.cs), pen, thr);
+  for (int c = 0; c < N / 4; ++c) {
+    if (4 * c < Tpad) {
+      const float4 x = __ldg(reinterpret_cast<const float4*>(wrow) + c);
+      v[4 * c] = tag_apply(v[4 * c], x.x, thr);
+      v[4 * c + 1] = tag_apply(v[4 * c + 1], x.y, thr);
+      v[4 * c + 2] = tag_apply(v[4 * c + 2], x.z, thr);
+      v[4 * c + 3] = tag_apply(v[4 * c + 3], x.w, thr);
+    }
+  }
 }
 
 // problem p -> (slice s, query q), in 32 bits while the problems fit
@@ -346,6 +371,13 @@ __device__ __forceinline__ void affine_dp_body(const Args a, const TagArgs t) {
   const int Tpad = a.Tpad;
   const float open_s = a.open_s, ext_s = a.ext_s, open_t = a.open_t;
   const float decay = fminf(a.open_t, a.ext_t);
+  // tagged: the threshold of query / slot k, and each similarity row
+  // weighted by its pos id's row of the weight table
+  float thr = 0.0f;
+  if constexpr (TAGGED) thr = __ldg(t.thr + k);
+  auto tag = [&](float (&v)[T1P - 1], int ps) {
+    tag_row<T1P - 1>(v, tag_table_row(t, ps, k), Tpad, thr);
+  };
 
   float H[T1P], Fv[T1P];
 #pragma unroll
@@ -381,7 +413,7 @@ __device__ __forceinline__ void affine_dp_body(const Args a, const TagArgs t) {
         if constexpr (TAGGED) pb = pos_at(i + 1);
         if (i + 2 < rows) tok_next = tok_at(i + 2);
       }
-      if constexpr (TAGGED) tag_row(ra, t, pa, Tpad, k);
+      if constexpr (TAGGED) tag(ra, pa);
       dp_row<T1P, LOC>(H, Fv, ra, i + 1, ln, lt, open_s, ext_s, open_t, decay, best);
       if (i + 1 >= rows) break;
       if (i + 2 < rows) {
@@ -389,7 +421,7 @@ __device__ __forceinline__ void affine_dp_body(const Args a, const TagArgs t) {
         if constexpr (TAGGED) pa = pos_at(i + 2);
         if (i + 3 < rows) tok_next = tok_at(i + 3);
       }
-      if constexpr (TAGGED) tag_row(rb, t, pb, Tpad, k);
+      if constexpr (TAGGED) tag(rb, pb);
       dp_row<T1P, LOC>(H, Fv, rb, i + 2, ln, lt, open_s, ext_s, open_t, decay, best);
     }
   } else {
@@ -400,7 +432,7 @@ __device__ __forceinline__ void affine_dp_body(const Args a, const TagArgs t) {
       int ps = 0;
       if constexpr (TAGGED) ps = pos_at(i);
       if (i + 1 < rows) tok = tok_at(i + 1);
-      if constexpr (TAGGED) tag_row(sv, t, ps, Tpad, k);
+      if constexpr (TAGGED) tag(sv, ps);
       dp_row<T1P, LOC>(H, Fv, sv, i + 1, ln, lt, open_s, ext_s, open_t, decay, best);
     }
   }
@@ -543,6 +575,17 @@ __global__ void __launch_bounds__(THREADS, 4)
   affine_dp_body<T1P, LOC, ROWS, VEC, float, true>(a, t);
 }
 
+// The tagged T1P = 9 local gather templates (the corpus pass's) with six
+// blocks an SM asked for, at most 80 registers as the untagged ones take:
+// left to itself ptxas gave them 96, five blocks (20 warps an SM against
+// 24-28).  The other localities and the row-gather entry spilled 4-12
+// bytes at six blocks and keep the default.
+template <int T1P, int LOC, bool ROWS, bool VEC>
+__global__ void __launch_bounds__(THREADS, 6)
+    affine_dp_tagged_kernel_6b(const Args a, const TagArgs t) {
+  affine_dp_body<T1P, LOC, ROWS, VEC, float, true>(a, t);
+}
+
 // ---------------------------------------------------------------------------
 // The wide route: needles of any padded width (ops/dp_kernels.py
 // affine_launch_plan picks it past AFFINE_WIDE_REGS_MAX_T; below that the
@@ -682,7 +725,7 @@ __device__ __forceinline__ void affine_wide_body(const Args a, float* __restrict
           }
           if constexpr (TAGGED) {
             if (j >= 1) {
-              const int64_t o = (int64_t)k * t.qs + (int64_t)(j - 1) * t.cs;
+              const int64_t o = (int64_t)k * t.qs + (j - 1);
               sv = tag_weight(sv, ps, __ldg(t.w + o), __ldg(t.p + o), pen, thr);
             }
           }
@@ -1008,7 +1051,7 @@ __device__ __forceinline__ void affine_wide_regs_body(const Args a, const TagArg
 #pragma unroll
         for (int r = 0; r < CPL; ++r) {
           if (c0 + r < Tpad) {
-            const int64_t ow = (int64_t)k * t.qs + (int64_t)(c0 + r) * t.cs;
+            const int64_t ow = (int64_t)k * t.qs + (c0 + r);
             v[r] = tag_weight(v[r], ps, __ldg(t.w + ow), __ldg(t.p + ow), pen, thr);
           }
         }
@@ -1119,6 +1162,8 @@ void launch_one(dim3 grid, cudaStream_t stream, const Args& a, const TagArgs* t)
       if (t != nullptr) {
         if constexpr (T1P == 17)
           affine_dp_tagged_kernel_4b<T1P, LOC, ROWS, VEC><<<grid, THREADS, 0, stream>>>(a, *t);
+        else if constexpr (T1P == 9 && LOC == LOCAL && !ROWS)
+          affine_dp_tagged_kernel_6b<T1P, LOC, ROWS, VEC><<<grid, THREADS, 0, stream>>>(a, *t);
         else
           affine_dp_tagged_kernel<T1P, LOC, ROWS, VEC><<<grid, THREADS, 0, stream>>>(a, *t);
         return;
@@ -1315,6 +1360,14 @@ int dense_lanes_width(int locality, int blocks, cudaStream_t st, const Args& a) 
   return launch_dense_lanes<LT, 32>(locality, blocks, st, a);
 }
 
+// Whether a launch can take the tag-weighted block ``t``: every array
+// given, the weight table's rows 16-byte aligned.
+bool tag_ok(const TagArgs& t) {
+  return t.pos != nullptr && t.w != nullptr && t.p != nullptr && t.pen != nullptr &&
+         t.thr != nullptr && t.wt != nullptr && t.rmap != nullptr &&
+         reinterpret_cast<uintptr_t>(t.wt) % 16 == 0 && t.wr % 4 == 0 && t.wq % 4 == 0;
+}
+
 }  // namespace
 
 // Both entries return the cudaError_t of the launch (0 on success), or -1
@@ -1337,7 +1390,7 @@ extern "C" int vt_affine_dp_scores(
     int locality, int wide_blocks, int wide_cpl, int wide_smem, float* scratch,
     const TagArgs* tag, void* stream) {
   if (tokens == nullptr) return -1;
-  if (tag != nullptr && (table_dtype != F32 || tag->pos == nullptr)) return -1;
+  if (tag != nullptr && (table_dtype != F32 || !tag_ok(*tag))) return -1;
   const Args a{table, tokens, nullptr, nullptr, len_s, len_t, out, n, L,
                Tpad, Q, 0, open_s, ext_s, open_t, ext_t, false, false};
   const Wide w{wide_blocks, wide_cpl, wide_smem, scratch, 0};
@@ -1360,7 +1413,7 @@ extern "C" int vt_affine_dp_scores_rows(
     float ext_s, float open_t, float ext_t, int locality, int mask_empty,
     int wide_blocks, int wide_cpl, int wide_smem, float* scratch,
     const TagArgs* tag, void* stream) {
-  if (tag != nullptr && (tokens == nullptr || tag->pos == nullptr)) return -1;
+  if (tag != nullptr && (tokens == nullptr || !tag_ok(*tag))) return -1;
   const Args a{table, tokens, rows, qslot, len_s, len_t, out, B, L, Tmax, 1,
                V, open_s, ext_s, open_t, ext_t, false, mask_empty != 0};
   const Wide w{wide_blocks, wide_cpl, wide_smem, scratch, 0};

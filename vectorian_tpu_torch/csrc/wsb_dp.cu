@@ -103,10 +103,31 @@
 //   w = tw_w[q, j] * (pos[s, i] == tw_p[q, j] ? 1 : 1 - pen[q]),
 //   S' = S * w > thr[q] ? S * w : 0,
 // in that order, each product and difference one rounding (__fmul_rn,
-// __fsub_rn).  The weights and the row's pos id come through the read-only
-// cache at the load.  A gather query q reads column j of the [Q, T] block at
-// q * qs + j * cs, a row-gather problem its slot qslot[b]; pos is [n, L]
-// like the tokens.  The tagged kernels are their own template family
+// __fsub_rn).  What bounded the tagged register route (1.1-1.5x the
+// untagged one): every row, every lane issued nine loads for it at P = 2
+// (the row's pos id and each problem's w, p, pen and thr) where the
+// untagged body issues three, under a guard that kept the eight that never
+// change within a problem from leaving the row loop, and rebuilt w in every
+// cell.  What the design does about it: a lane's column of each problem is
+// fixed, so its weights leave the row loop, loaded once a problem — w on a
+// row of the needle token's pos id, w * (1 - pen) (the same single
+// rounding) on any other, the needle's pos id and the threshold — and the
+// row's pos id loads one row ahead with its similarities.  A cell then
+// costs a compare, a select, one multiply, a compare and a select, with no
+// load; the rewrite runs on every lane and row, since a column past the
+// needle or a row past the slice reaches no cell that counts.  The shared /
+// scratch route (a thread a problem) reads the weight table the wrapper
+// builds once a corpus pass (ops/dp_kernels.tag_table: W[r, q, j], one row
+// r for each distinct needle pos id and one for every other, and rmap, the
+// row of each of the 256 pos ids): a row looks up its pos id's table row
+// once, a tile of CH cells loads its weights from it as two float4 (a
+// thread's columns are contiguous) before its vertical gaps, where each
+// cell loaded the needle's weight and pos id and rebuilt w (one scalar load
+// a cell from the table ran 1.02-1.05x the old design: a warp's 32 threads
+// read 32 rows, 8 cache lines a load).
+// A gather query q reads column j of the needle's [Q, T] weights at q * qs
+// + j, a row-gather problem its slot qslot[b]; pos is [n, L] like the
+// tokens.  The tagged kernels are their own template family
 // (wsb_dp_tagged_kernel, wsb_regs_tagged_kernel), f32 only, with TagArgs a
 // kernel parameter of theirs alone, so the untagged kernels are unchanged
 // (as in csrc/affine_dp.cu).
@@ -126,12 +147,14 @@
 // The tag-weighted block's inputs (see the header).  Outside the unnamed
 // namespace: the C entries take a pointer to it.
 struct TagArgs {
-  const int8_t* pos;  // [n, L] pos ids of the rows the tokens index
-  const float* w;     // needle weights: query (slot) q, column j at q * qs + j * cs
-  const int8_t* p;    // needle pos ids, same layout
-  const float* pen;   // [Q] (rows: [slots]) pos-mismatch penalty
-  const float* thr;   // [Q] (rows: [slots]) similarity threshold
-  int qs, cs;
+  const int8_t* pos;    // [n, L] pos ids of the rows the tokens index
+  const float* w;       // needle weights: query (slot) q, column j at q * qs + j
+  const int8_t* p;      // needle pos ids, same layout
+  const float* pen;     // [Q] (rows: [slots]) pos-mismatch penalty
+  const float* thr;     // [Q] (rows: [slots]) similarity threshold
+  const float* wt;      // weight table W: row r, query (slot) q, column j at r * wr + q * wq + j
+  const int32_t* rmap;  // [256] W's row of each pos id (indexed by its 8 bits)
+  int qs, wr, wq;       // wt 16-byte aligned, wr and wq multiples of 4
 };
 
 namespace {
@@ -150,11 +173,10 @@ __device__ __forceinline__ float to_f32(uint16_t x) {
 }
 __device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
 
-// One tag-weighted similarity: w first, then S * w, then the threshold.
-__device__ __forceinline__ float tag_weight(float s, int pos_s, float w, int pos_t,
-                                            float pen, float thr) {
-  const float sel = (pos_s == pos_t) ? 1.0f : __fsub_rn(1.0f, pen);
-  const float sw = __fmul_rn(s, __fmul_rn(w, sel));
+// One tag-weighted similarity from its weight ``wv`` (w, or w * (1 -
+// pen), already rounded): S * w, then the threshold.
+__device__ __forceinline__ float tag_apply(float s, float wv, float thr) {
+  const float sw = __fmul_rn(s, wv);
   return (sw > thr) ? sw : 0.0f;
 }
 
@@ -231,6 +253,8 @@ __device__ __forceinline__ void wsb_dp_body(const Args a, const TagArgs t) {
       lt = a.len_t[p];
       tbase = S + ((int64_t)q * a.V + (tokens != nullptr ? 0 : s * L)) * T;
     }
+    float thr = 0.0f;  // tagged: the problem's threshold
+    if constexpr (TAGGED) thr = __ldg(t.thr + q);
 
     for (int j = 0; j <= lt; ++j)
       at(0, j) = (LOC == GLOBAL && j > 0) ? -w_t[j] : 0.0f;
@@ -241,18 +265,12 @@ __device__ __forceinline__ void wsb_dp_body(const Args a, const TagArgs t) {
       // similarity row i - 1: column j - 1 at srow[(j - 1) * scs]
       const E* srow;
       int64_t scs;
-      // tagged: the row's pos id, the problem's penalty and threshold, and
-      // column j - 1's weight and pos id at tw[(j - 1) * cs], tp[...]
-      int ps = 0;
-      float pen = 0.0f, thr = 0.0f;
-      const float* tw = nullptr;
-      const int8_t* tp = nullptr;
+      // tagged: the weight-table row of this row's pos id at the problem's
+      // query / slot, column j - 1 at wrow[j - 1]
+      const float* wrow = nullptr;
       if constexpr (TAGGED) {
-        ps = __ldg(t.pos + s * L + i - 1);
-        pen = __ldg(t.pen + q);
-        thr = __ldg(t.thr + q);
-        tw = t.w + (int64_t)q * t.qs;
-        tp = t.p + (int64_t)q * t.qs;
+        const uint8_t ps = (uint8_t)__ldg(t.pos + s * L + i - 1);
+        wrow = t.wt + (int64_t)__ldg(t.rmap + ps) * t.wr + (int64_t)q * t.wq;
       }
       if (GATHER) {
         if constexpr (DENSE)
@@ -276,6 +294,21 @@ __device__ __forceinline__ void wsb_dp_body(const Args a, const TagArgs t) {
         // load just before its use, two in flight: the scratch route ran at
         // half the tagged kernel's speed).  The last step reads row i,
         // not yet written, and never uses it.
+        // tagged: the tile's weights, columns j0 - 1 ... j0 + CH - 2 of the
+        // table row, 16 bytes at a time (j0 - 1 is a multiple of CH and the
+        // rows are 16-byte aligned), in flight while the vertical gaps run
+        float wv[CH];
+        if constexpr (TAGGED) {
+#pragma unroll
+          for (int c = 0; c < CH / 4; ++c) {
+            float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            if (j0 - 1 + 4 * c < lt) x = __ldg(reinterpret_cast<const float4*>(wrow + j0 - 1) + c);
+            wv[4 * c] = x.x;
+            wv[4 * c + 1] = x.y;
+            wv[4 * c + 2] = x.z;
+            wv[4 * c + 3] = x.w;
+          }
+        }
         float h[CH];
         float w = w_s[i];
         load_tile(h, &at(0, j0), cs, lt - j0 + 1);
@@ -295,10 +328,7 @@ __device__ __forceinline__ void wsb_dp_body(const Args a, const TagArgs t) {
           const int j = j0 + u;
           if (j <= lt) {
             float sv = to_f32(__ldg(srow + (j - 1) * scs));
-            if constexpr (TAGGED) {
-              const int o = (j - 1) * t.cs;
-              sv = tag_weight(sv, ps, __ldg(tw + o), __ldg(tp + o), pen, thr);
-            }
+            if constexpr (TAGGED) sv = tag_apply(sv, wv[u], thr);
             const float m = at(i - 1, j - 1) + sv;
             float c = fmaxf(m, v[u]);
             if (LOC == LOCAL) c = fmaxf(c, 0.0f);
@@ -457,6 +487,23 @@ __device__ __forceinline__ void wsb_regs_body(const RegCosts<LT, G> costs, const
   }
   // horizontal candidate from column 0 (C[i][0] = 0) outside global
   const float e0 = 0.0f - wts_lane;
+  const bool col_in = k < a.T;
+  // tagged: this lane's column of each problem's tag weights, out of the
+  // row loop — its weight on a row of the needle token's pos id (w) and on
+  // any other (w * (1 - pen), rounded as the plain rewrite rounds it), the
+  // needle's pos id, the threshold
+  float tw_m[P], tw_x[P], tw_thr[P];
+  int tw_p[P];
+  if constexpr (TAGGED) {
+#pragma unroll
+    for (int u = 0; u < P; ++u) {
+      const int64_t o = (int64_t)(q + u) * t.qs + k;
+      tw_m[u] = col_in ? __ldg(t.w + o) : 0.0f;
+      tw_x[u] = __fmul_rn(tw_m[u], __fsub_rn(1.0f, __ldg(t.pen + q + u)));
+      tw_p[u] = col_in ? (int)__ldg(t.p + o) : 0;
+      tw_thr[u] = __ldg(t.thr + q + u);
+    }
+  }
 
   float hist[P][LT + 1];  // H[r][j] of each problem, r = 0..i
   float acc[P];
@@ -492,8 +539,14 @@ __device__ __forceinline__ void wsb_regs_body(const RegCosts<LT, G> costs, const
     off = (uint32_t)q * T + (uint32_t)k;
   }
   const E* tcol = static_cast<const E*>(a.table) + off;
-  const bool col_in = k < a.T;
   uint32_t tok_n = (rows >= 2) ? tok_at(1) : 0;
+  // tagged: the pos id of the row sv_n holds, loaded with it
+  const int8_t* pos_row = nullptr;
+  int ps_n = 0;
+  if constexpr (TAGGED) {
+    pos_row = t.pos + s * (int64_t)a.L;
+    if (rows >= 1) ps_n = __ldg(pos_row);
+  }
   float sv_n[P];
   {
     const E* r0 = tcol + tok_at(0) * vstride;
@@ -509,22 +562,18 @@ __device__ __forceinline__ void wsb_regs_body(const RegCosts<LT, G> costs, const
 #pragma unroll
     for (int u = 0; u < P; ++u) sv[u] = sv_n[u];
     if constexpr (TAGGED) {
-      if (col_in && i <= rows) {
-        // row i - 1's pos id and this lane's column k of each query's block
-        const int ps = __ldg(t.pos + s * (int64_t)a.L + i - 1);
+      // every lane and row: a column past the needle or a row past the
+      // slice reaches no cell that counts
 #pragma unroll
-        for (int u = 0; u < P; ++u) {
-          const int64_t o = (int64_t)(q + u) * t.qs + (int64_t)k * t.cs;
-          sv[u] = tag_weight(sv[u], ps, __ldg(t.w + o), __ldg(t.p + o),
-                             __ldg(t.pen + q + u), __ldg(t.thr + q + u));
-        }
-      }
+      for (int u = 0; u < P; ++u)
+        sv[u] = tag_apply(sv[u], (ps_n == tw_p[u]) ? tw_m[u] : tw_x[u], tw_thr[u]);
     }
     if (i < LT) {
       const E* rn = tcol + tok_n * vstride;
 #pragma unroll
       for (int u = 0; u < P; ++u)
         sv_n[u] = (i + 1 <= rows && col_in) ? to_f32(__ldg(rn + u * ustride)) : 0.0f;
+      if constexpr (TAGGED) ps_n = (i + 1 <= rows) ? (int)__ldg(pos_row + i) : 0;
       if (i + 1 < LT) tok_n = (i + 2 <= rows) ? tok_at(i + 1) : 0;
     }
     const float h_prev0 = (LOC == GLOBAL && i > 1) ? -costs.w_s[i - 1] : 0.0f;
@@ -765,10 +814,15 @@ int launch(const Args& a, int locality, int blocks, int threads,
 // rows index like ``tokens``, its slots like ``qslot``).
 
 namespace {
-// Whether a launch can take ``tag``.
+// Whether a launch can take ``tag``: every array given, the weight table's
+// rows 16-byte aligned.
 bool tag_ok(const TagArgs* tag, int table_dtype, const int32_t* tokens) {
   return tag == nullptr ||
-         (table_dtype == F32 && tokens != nullptr && tag->pos != nullptr);
+         (table_dtype == F32 && tokens != nullptr && tag->pos != nullptr &&
+          tag->w != nullptr && tag->p != nullptr && tag->pen != nullptr &&
+          tag->thr != nullptr && tag->wt != nullptr && tag->rmap != nullptr &&
+          reinterpret_cast<uintptr_t>(tag->wt) % 16 == 0 && tag->wr % 4 == 0 &&
+          tag->wq % 4 == 0);
 }
 }  // namespace
 

@@ -46,7 +46,8 @@ The four gather and row-gather entries also read the tag-weighted block
 (``tags``, a ``TagBlock``; f32 tables only): each similarity becomes the JAX
 package's tag-weighted value (ops/search.py ``_apply_tag_weights``) before
 the DP step that consumes it, inside the kernel (``tag_weighted`` is the
-plain version of that rewrite).
+plain version of that rewrite); the thread-a-problem routes read the
+block's weight table (``tag_table``, made once a corpus pass).
 
 A CUDA tensor always goes to the kernel — a build or launch failure raises,
 nothing falls back; only tensors on the CPU take the plain version (the
@@ -172,14 +173,16 @@ AFFINE_ROUTE_LAUNCHES = {
 PTXAS_REPORTS: Dict[str, str] = {}
 
 class _TagArgs(ctypes.Structure):
-    """csrc/*.cu ``TagArgs``: the tag-weighted block's device pointers and
-    the layout of its [Q, T] weights (query q, column j at q * qs + j *
-    cs)."""
+    """csrc/*.cu ``TagArgs``: the tag-weighted block's device pointers (a
+    ``TagBlock``'s), the row stride ``qs`` of its [Q, T] weights and needle
+    pos ids, and the strides of its weight table (row r, query k, column j
+    at r * wr + k * wq + j)."""
 
     _fields_ = [
         ("pos", ctypes.c_void_p), ("w", ctypes.c_void_p), ("p", ctypes.c_void_p),
-        ("pen", ctypes.c_void_p), ("thr", ctypes.c_void_p),
-        ("qs", ctypes.c_int), ("cs", ctypes.c_int),
+        ("pen", ctypes.c_void_p), ("thr", ctypes.c_void_p), ("wt", ctypes.c_void_p),
+        ("rmap", ctypes.c_void_p), ("qs", ctypes.c_int), ("wr", ctypes.c_int),
+        ("wq", ctypes.c_int),
     ]
 
 
@@ -367,13 +370,46 @@ class TagBlock(NamedTuple):
     pos [n, L] int8: the pos ids of the rows ``tokens`` holds (compacted
     with them under a document-side filter); w [Q, T] f32 and p [Q, T]
     int8: each query's (row-gather: each table slot's) needle weights and
-    pos ids; pen, thr [Q] f32."""
+    pos ids; pen, thr [Q] f32.  ``wt`` [R, Q, >= T] f32 and ``rmap`` [256]
+    int32: the same weights as a table (``tag_table``), which the kernels
+    of the thread-a-problem routes read; made once a corpus pass, needed
+    on the card only (the plain versions read w, p and pen)."""
 
     pos: torch.Tensor
     w: torch.Tensor
     p: torch.Tensor
     pen: torch.Tensor
     thr: torch.Tensor
+    wt: Optional[torch.Tensor] = None
+    rmap: Optional[torch.Tensor] = None
+
+
+def tag_table(w, p, pen):
+    """The weight table of needle weights ``w`` [Q, T] f32, needle pos ids
+    ``p`` [Q, T] int8 and penalties ``pen`` [Q] f32 (numpy, on the host,
+    once a corpus pass): (W [R, Q, T4] f32, rmap [256] int32) with W[rmap[v
+    & 255], q, j] = ``w[q, j] * (1 if v == p[q, j] else 1 - pen[q])`` for
+    every int8 pos id v, each product and difference rounded once in f32,
+    as ``tag_weighted`` rounds them (w * 1 is w).  R - 1 rows hold the
+    distinct values of ``p`` and the last one every other pos id, so the
+    table is exact for any pos id and small (R = 2 ... Q * T + 1; the
+    needles' pos ids, a few tags, in practice).  A (row, query)'s columns
+    are contiguous, T4 = T rounded up to 4 (zeros past T): the kernels
+    read them 16 bytes at a time."""
+    import numpy as np
+
+    w = np.asarray(w, np.float32)
+    p = np.asarray(p, np.int8)
+    pen = np.asarray(pen, np.float32)
+    vals = np.unique(p)
+    Q, T = w.shape
+    off = w * (np.float32(1.0) - pen)[:, None]  # [Q, T], f32 throughout
+    W = np.zeros((len(vals) + 1, Q, -(-T // 4) * 4), np.float32)
+    W[:-1, :, :T] = np.where(p[None] == vals[:, None, None], w[None], off[None])
+    W[-1, :, :T] = off
+    rmap = np.full((256,), len(vals), np.int32)
+    rmap[vals.astype(np.uint8)] = np.arange(len(vals), dtype=np.int32)
+    return W, rmap
 
 
 def tag_weighted(S, pos, w, p, pen, thr):
@@ -402,28 +438,42 @@ def _check_tags(fn, tags, table, tokens, slots: int, T: int):
     for name in ("pen", "thr"):
         if tuple(getattr(tags, name).shape) != (slots,):
             raise ValueError(f"{fn}: tags.{name} must be [{slots}]")
+    if tags.wt is not None:
+        wt = tags.wt
+        if wt.dim() != 3 or wt.shape[1] != slots or wt.shape[2] < T:
+            raise ValueError(f"{fn}: tags.wt must be [R, {slots}, >= {T}]")
+        if tags.rmap is None or tuple(tags.rmap.shape) != (256,):
+            raise ValueError(f"{fn}: tags.rmap must be [256] beside tags.wt")
 
 
-def _tag_args(fn, tags, dev, T: int, query_major: bool):
-    """(the C ``TagArgs`` pointer or None, the tensors it points into):
-    the weights in the layout of the route, [Q, T] (``query_major``: a
-    lane a column) or [T, Q] (a thread a query, consecutive queries in a
-    warp)."""
+def _tag_args(fn, tags, dev):
+    """(the C ``TagArgs`` pointer or None, the tensors it points into),
+    read where they lie: w and p as rows of stride ``qs`` (the same for
+    both), the weight table's (row, query) columns as 16-byte aligned
+    rows.  A TagBlock on the card must hold its weight table
+    (``tag_table``, made once a pass)."""
     if tags is None:
         return None, ()
-    w, p = (t[:, :T].contiguous() for t in (tags.w, tags.p))
-    if not query_major:
-        w, p = w.t().contiguous(), p.t().contiguous()
-    held = (tags.pos, w, p, tags.pen, tags.thr)
-    _check_cuda(
-        fn, dev, **{f"tags.{n}": (t, d) for n, t, d in zip(
-            ("pos", "w", "p", "pen", "thr"), held,
-            (torch.int8, torch.float32, torch.int8, torch.float32, torch.float32),
-        )}
-    )
-    Q = tags.w.shape[0]
-    qs, cs = (T, 1) if query_major else (1, Q)
-    args = _TagArgs(*(t.data_ptr() for t in held), qs, cs)
+    if tags.wt is None:
+        raise ValueError(f"{fn}: a TagBlock on the card needs its weight table "
+                         "(tags.wt, tags.rmap: dp_kernels.tag_table)")
+    held = tuple(tags)
+    _check_cuda(fn, dev, **{f"tags.{n}": (getattr(tags, n), d) for n, d in (
+        ("pos", torch.int8), ("pen", torch.float32), ("thr", torch.float32),
+        ("rmap", torch.int32))})
+    for name, t, dtype in (("w", tags.w, torch.float32), ("p", tags.p, torch.int8),
+                           ("wt", tags.wt, torch.float32)):
+        if t.device != dev or t.dtype != dtype:
+            raise ValueError(f"{fn}: tags.{name} must be {dtype} on {dev}")
+        if t.shape[-1] > 1 and t.stride(-1) != 1:
+            raise ValueError(f"{fn}: tags.{name}'s last dimension must be contiguous")
+    if tags.w.stride(0) != tags.p.stride(0):
+        raise ValueError(f"{fn}: tags.w and tags.p must share a row stride")
+    wt = tags.wt
+    if wt.data_ptr() % 16 or wt.stride(0) % 4 or wt.stride(1) % 4:
+        raise ValueError(f"{fn}: tags.wt's rows must be 16-byte aligned")
+    args = _TagArgs(*(t.data_ptr() for t in held), tags.w.stride(0), wt.stride(0),
+                    wt.stride(1))
     return ctypes.pointer(args), held
 
 
@@ -692,7 +742,7 @@ def _affine_gather_launch(group: _GatherGroup, tokens, len_s, gaps, locality, ta
         return out
     ln1 = torch.clamp_min(len_s, 1)
     plan = affine_launch_plan(n * Q, Tpad, route=group.route)
-    tag_ptr, held = _tag_args("affine_dp_scores", tags, dev, Tpad, wide)
+    tag_ptr, held = _tag_args("affine_dp_scores", tags, dev)
     scratch, scratch_ptr = _scratch(dev, plan.floats)
     lib = _load("affine_dp")
     with torch.cuda.device(dev):
@@ -765,7 +815,8 @@ def affine_dp_scores(table, tokens, len_s, len_t, gaps, locality,
     out = torch.empty((n, Q), dtype=torch.float32, device=dev)
     for g in prepared.groups:
         tg = None if tags is None else TagBlock(
-            tags.pos, tags.w[g.qi], tags.p[g.qi], tags.pen[g.qi], tags.thr[g.qi])
+            tags.pos, tags.w[g.qi], tags.p[g.qi], tags.pen[g.qi], tags.thr[g.qi],
+            None if tags.wt is None else tags.wt.index_select(1, g.qi), tags.rmap)
         out.index_copy_(1, g.qi, _affine_gather_launch(g, tokens, len_s, gaps, locality, tg))
     return out
 
@@ -815,7 +866,7 @@ def _affine_rows_launch(table, tokens, rows, qslot, V, L, len_s, len_t, gaps,
     if B == 0:
         return out
     plan = affine_launch_plan(B, T, rows=True, route=route)
-    tag_ptr, held = _tag_args("affine_dp_scores_rows", tags, dev, T, True)
+    tag_ptr, held = _tag_args("affine_dp_scores_rows", tags, dev)
     scratch, scratch_ptr = _scratch(dev, plan.floats)
     lib = _load("affine_dp")
     with torch.cuda.device(dev):
@@ -1174,10 +1225,8 @@ def wsb_dp_scores(table, tokens, len_s, len_t, w_s, w_t, w_t_star, locality,
                            route=_route, Q=Q)
     lib = _load("wsb_dp")
     code = TABLE_DTYPES[table.dtype]
-    # lanes a column on the register route, a thread a query elsewhere
-    regs = plan.route == "registers"
-    tag_ptr, held = _tag_args("wsb_dp_scores", tags, dev, Tpad, regs)
-    if regs:
+    tag_ptr, held = _tag_args("wsb_dp_scores", tags, dev)
+    if plan.route == "registers":
         n_wt = min(hs[1].numel(), hs[2].numel())
         tq = wsb_register_table(table)
         with torch.cuda.device(dev):
@@ -1243,7 +1292,7 @@ def _wsb_rows_launch(table, tokens, rows, qslot, V, L, len_s, len_t, vecs,
     ptrs = (table.data_ptr(), *_rows_ptrs(tokens, rows, qslot),
             len_s.data_ptr(), len_t.data_ptr())
     loc = LOCALITIES.index(locality)
-    tag_ptr, held = _tag_args("wsb_dp_scores_rows", tags, dev, T, True)
+    tag_ptr, held = _tag_args("wsb_dp_scores_rows", tags, dev)
     scratch = None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

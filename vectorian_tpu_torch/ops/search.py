@@ -67,6 +67,7 @@ from vectorian_tpu_torch.ops.dp_kernels import (
     affine_dp_scores_dense,
     affine_dp_scores_rows,
     affine_table,
+    tag_table,
     tag_weighted,
     wsb_dp_scores,
     wsb_dp_scores_dense,
@@ -339,6 +340,14 @@ def stack_tag_slots(tag_weights, Qp: int, Tmax: int):
     return w, p, pen, thr
 
 
+def tag_arrays(cols):
+    """A pass's tag columns (``corpus_tag_columns`` or ``stack_tag_slots``)
+    and their weight table (``dp_kernels.tag_table``: the kernels' layout,
+    built once a pass on the host, uploaded with the columns): the arrays
+    of a ``TagBlock`` after its pos ids."""
+    return tuple(cols) + tag_table(*cols[:3])
+
+
 def _put_all(arrays, device):
     return tuple(torch.as_tensor(a, device=device) for a in arrays)
 
@@ -509,12 +518,13 @@ def _mq_blocks(tok, pos, qidx, table, V: int, tw=None):
     """``_mq_similarity``'s rows and their tag weights (the same arithmetic
     as the row-gather kernels' rewrite and its plain version, so their bits
     agree): (S weighted [g, L, Tmax], S unweighted).  ``tw``: the slots'
-    (w, p, pen, thr) device arrays (``stack_tag_slots``) with ``pos`` [g,
-    L] the rows' pos ids, else None (both are S)."""
+    (w, p, pen, thr) device arrays (``stack_tag_slots``; ``tag_arrays``
+    adds the kernels' weight table after them) with ``pos`` [g, L] the
+    rows' pos ids, else None (both are S)."""
     S = _mq_similarity(tok, qidx, table, V)
     if tw is None:
         return S, S
-    w, p, pen, thr = tw
+    w, p, pen, thr = tw[:4]
     q = qidx.long()
     return tag_weighted(S, pos, w[q], p[q], pen[q], thr[q]), S
 
@@ -1942,9 +1952,8 @@ class BruteForceEngine:
         Q = len(plans)
         tw_cols = None
         if with_tags:
-            tw_cols = _put_all(
-                corpus_tag_columns(tag_weights, Q, Tpad), self.device
-            )
+            tw_cols = _put_all(tag_arrays(
+                corpus_tag_columns(tag_weights, Q, Tpad)), self.device)
         flt = None if doc_filter is None else doc_filter.device_args(self.device)
 
         def run(db):
@@ -2010,9 +2019,8 @@ class BruteForceEngine:
         table, V, Tmax = self._stacked_plan_tables(plans)
         tw = None
         if tag_weights is not None and any(t is not None for t in tag_weights):
-            tw = _put_all(
-                stack_tag_slots(tag_weights, len(plans), Tmax), self.device
-            )
+            tw = _put_all(tag_arrays(
+                stack_tag_slots(tag_weights, len(plans), Tmax)), self.device)
         exact_ctx = {
             "table": table,
             "V": V,
@@ -2159,7 +2167,8 @@ class BruteForceEngine:
         tws = [requests[ri].get("tag_weights") for ri in slot]
         tw = None
         if any(t is not None for t in tws):
-            tw = _put_all(stack_tag_slots(tws, len(tws), Tmax), self.device)
+            tw = _put_all(tag_arrays(stack_tag_slots(tws, len(tws), Tmax)),
+                          self.device)
         want_flows = any(states[ri]["want_flows"] for ri in slot)
         groups = []
         for bi, plist in self._by_bucket(pairs).items():
