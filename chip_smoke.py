@@ -127,6 +127,20 @@ Phases, each of which raises on failure:
    byte for byte, peak device memory and host -> device bytes a pass, a
    torch.profiler split of the copies under kernels, each kernel's first
    launch on a paged bucket bit for bit against its plain version.
+   4m: multi-device serving over a mesh of four shards on the card
+   (``make_mesh(["cuda:0"] * 4)``; ``make_mesh()``'s device count printed
+   first): on phase 4's session find_batch Q=32 at int8, bf16 and f32
+   under the affine and the general index, 4e's tag weights under both,
+   and 21 find(mesh=); 4k's relaxed, full WMD and WRD batches; 4f's
+   contextual batch (affine and general) and 4h's tree batch; each
+   byte-identical to the same call without a mesh (4k's own last batch
+   for the transport metrics), its launch counts set to 0 right before
+   and read right after, then its wall beside its twin's (in turns: mesh,
+   single, single, mesh; the transport batches only under
+   ``--mesh-check``), the merge's host time; kernels 1 and 3 on one
+   shard's inputs (each table type, tagged, dense) bit for bit against
+   their plain versions, the four shards' launches timed against the
+   bucket's one launch.
 5. The port on the card against the port on the CPU on a small corpus,
    affine and general-gap indexes, phase 4's long query, and 4e's
    options at each of their precisions.
@@ -140,7 +154,9 @@ turns against that tree's (``tag_turns``).
 ``python3 chip_smoke.py --build-ab`` instead times phase 2's build with and
 without ``--split-compile 0`` and exits; ``--dense-check`` runs phases 2,
 3d and 4f alone; ``--wide-check`` phase 2, phase 3's wide cases and the
-long-query phase (on phase 4's session).  ``python3 chip_smoke.py
+long-query phase (on phase 4's session); ``--mesh-check`` phase 2, 4k
+and 4m.  ``--transport-reps N`` (with any of them) times 4k's static
+batches N times a metric instead of once.  ``python3 chip_smoke.py
 --tag-check [SASS_DIR]`` runs phase 2, phase 3t and phase 3's general-gap
 kernels alone, both tagged corpus kernels at 4e's shapes
 (``tag_path_shapes``), the tagged register templates of both kernels beside
@@ -205,6 +221,9 @@ LOCALITIES = ("local", "global", "semiglobal")
 # find_batch's ranking precisions (None: the default, int8) and the
 # quantized table types, with their tags in the kernels' launch counts
 PRECISIONS = (None, "bfloat16", "float32")
+# 4k's timed static transport batches a metric (``--transport-reps N``; one,
+# so that 4m's mesh batches fit the run's time)
+TRANSPORT_REPS = 1
 QUANT_TAGS = {"bfloat16": "bf16", "int8": "int8"}
 
 
@@ -3842,24 +3861,32 @@ def phase_transport_batch(session, queries, cut, card):
     """4k: the transport find_batch on phase 4's 1M-slice session:
     WordMoversDistance() (relaxed), WordMoversDistance(relaxed=False) and
     WordRotatorsDistance(), each on the Q=32 queries of 7 tokens: wall ms
-    (median of 3), alignments/s (slices x Q / s), the ranking pass's CUDA-
+    (``TRANSPORT_REPS`` batches), the seconds of those batches' loop
+    (warm calls and the loop of find included), alignments/s
+    (slices x Q / s), the ranking pass's CUDA-
     event ms, the host spans (``wmd.rank``: pass and top-k reads;
     ``wmd.sims_fetch``; ``wmd.host_rescore``), the consume rounds and exact
     solves a batch and the pairs the fused fetch gathered; a loop of find
     over the 32 queries, untimed, is the last batch's bytes.  Then on the
     3,000-sentence cut: the card against the CPU, each query's find bytes
-    equal to the batch's, full WMD and WRD equal to the exhaustive oracle."""
+    equal to the batch's, full WMD and WRD equal to the exhaustive oracle.
+    Returns {metric: the last batch's (slice_id, score) lists} (4m's
+    twins)."""
     n_slices = session.packed_corpus(session.partition("sentence").spec).n_slices
-    out = {}
+    out, batches = {}, {}
     with _TransportCounts() as counts:
+        t0 = time.perf_counter()
         for label, metric in _transport_metrics():
             index = _transport_index(session, metric)
             index.find_batch(queries[:2], n=10, min_score=0.2)  # warm
-            (med, walls, per), _ = _drive_transport_batch(index, queries, counts)
+            (med, walls, per), batch = _drive_transport_batch(index, queries, counts,
+                                                              reps=TRANSPORT_REPS)
             out[label] = {"find_batch_ms_median": med, "find_batch_ms": walls,
                           "alignments_per_s": n_slices * len(queries) / (med / 1e3),
                           "per_batch": per}
+            batches[label] = [pairs(r) for r in batch]
         emit({"phase": "transport_batch", "slices": n_slices, "queries": len(queries),
+              "reps": TRANSPORT_REPS, "batches_s": time.perf_counter() - t0,
               **out, "card": card})
         worst, oracle = {}, {}
         for label, metric in _transport_metrics():
@@ -3885,7 +3912,7 @@ def phase_transport_batch(session, queries, cut, card):
             oracle[label] = "equal"
     emit({"phase": "transport_batch_vs_cpu", "sentences": 3_000,
           "max_abs_score_diff_vs_cpu": worst, "exhaustive_oracle": oracle})
-    return out
+    return batches
 
 
 def phase_transport_tree(ctx, card):
@@ -3909,6 +3936,280 @@ def phase_transport_tree(ctx, card):
            "alignments_per_s": n_slices * len(queries) / (med / 1e3), "per_batch": per}
     emit({"phase": "transport_batch_tree", "slices": n_slices, "rwmd": res, "card": card})
     return res
+
+
+# 4m: a mesh of four shards on the run's one card (a port mesh is a list of
+# torch devices, and a device may repeat: the code path that serves four
+# cards)
+MESH_DEVICES = ["cuda:0"] * 4
+
+
+def _mesh_ms():
+    import vectorian_tpu_torch as vt
+
+    return vt.MeshSearch(vt.make_mesh(MESH_DEVICES))
+
+
+def _mesh_twins(label, mesh, single, want=None, turns=1):
+    """A mesh call against its single-device twin: ``mesh()`` with the
+    launch counts set to 0 right before and read right after (the mesh
+    path's launches and routes), its (slice_id, score) lists held equal to
+    ``single()``'s (or to ``want``, an earlier phase's lists of the same
+    call); then wall ms in turns (mesh, single, single, mesh) x
+    ``turns``.  Emits and returns {launches, routes, the first call's wall,
+    with ``turns`` mesh_ms, single_ms (medians), their runs and their
+    ratio, the mesh call's host spans: mesh.dispatch (queueing every
+    shard's pass), topk.fetch (waiting for the shards' top-k), topk.merge
+    (the host merge), rescore_many, and its extras selects on the
+    shards}."""
+    import numpy as np
+
+    from vectorian_tpu_torch.ops import dp_kernels
+    from vectorian_tpu_torch.utils import trace
+
+    dp_kernels.reset_launches()
+    trace.start()
+    t = time.perf_counter()
+    got = mesh()
+    first_ms = (time.perf_counter() - t) * 1e3
+    spans = trace.stop()
+    launches = {k: v for k, v in dp_kernels.LAUNCHES.items() if v}
+    routes = {**{f"affine:{k}": v for k, v in dp_kernels.AFFINE_ROUTE_LAUNCHES.items() if v},
+              **{f"wsb:{k}": v for k, v in dp_kernels.WSB_ROUTE_LAUNCHES.items() if v}}
+    got = [pairs(r) for r in got]
+    if want is None:
+        want = [pairs(r) for r in single()]
+    if got != want:
+        raise AssertionError(f"4m {label}: the mesh's lists differ from the single device's")
+    if not any(got):
+        raise AssertionError(f"4m {label}: no matches")
+    walls = {"mesh": [], "single": []}
+    for _ in range(turns):
+        for which in ("mesh", "single", "single", "mesh"):
+            t = time.perf_counter()
+            (mesh if which == "mesh" else single)()
+            walls[which].append((time.perf_counter() - t) * 1e3)
+
+    def span(name):
+        return sum(sec for n, sec in spans if n == name) * 1e3
+
+    res = {"launches": launches, "routes": routes, "first_call_ms": first_ms,
+           "dispatch_host_ms": span("mesh.dispatch"), "fetch_host_ms": span("topk.fetch"),
+           "merge_host_ms": span("topk.merge"), "rescore_many_ms": span("rescore_many"),
+           "extras_selects": sum(1 for n, _ in spans if n == "above.vals")}
+    if turns:
+        res.update(mesh_ms=float(np.median(walls["mesh"])),
+                   single_ms=float(np.median(walls["single"])),
+                   mesh_ms_all=walls["mesh"], single_ms_all=walls["single"])
+        res["mesh_over_single"] = res["mesh_ms"] / res["single_ms"]
+    emit({"phase": "mesh", "call": label, **res})
+    return res
+
+
+def _mesh_gather_check(index, ms, qs, kernel, dt, tagged=False):
+    """Kernel 1 or 3 on one shard's inputs as the static mesh pass gives
+    them (shard 0 of the largest bucket: its token ids, lengths and pos
+    ids on its device, the batch's table at ``dt``), held against the
+    plain version bit for bit; and at f32 untagged the four shards'
+    launches, one after another, timed on the device against the
+    unsharded bucket's one launch (CUDA events): (max |diff|, timing or
+    None)."""
+    import numpy as np
+    import torch
+
+    from vectorian_tpu_torch.ops import dp_kernels
+    from vectorian_tpu_torch.ops.dp_kernels import TagBlock
+    from vectorian_tpu_torch.ops.search import (
+        corpus_tag_columns, scaled_costs, stack_query_tables, tag_arrays,
+    )
+
+    dev = torch.device(MESH_DEVICES[0])
+    _, plans, len_ts, _, tagws, _ = index._prepare_static_batch(qs, 10, 0.2, "float32", {})
+    table, scale, _, Tpad = stack_query_tables(plans, len_ts, dt)
+    gaps, general, _ = scaled_costs(index._gaps, index._gap_costs, scale, Tpad, dev)
+    lt = torch.as_tensor(np.asarray(len_ts, np.int32), device=dev)
+    db, (tok, ln, pos, _) = max(ms.bucket_shards(index._engine), key=lambda e: e[0]["n"])
+    L = db["capacity"]
+    tags = None
+    if tagged:
+        cols = [torch.as_tensor(c, device=dev)
+                for c in tag_arrays(corpus_tag_columns(tagws, len(qs), Tpad))]
+        tags = lambda i: TagBlock(pos.parts[i], *cols)  # noqa: E731
+
+    def call(t, n, i=None):
+        tg = None if tags is None else tags(i)
+        if kernel == "affine_dp":
+            args = (table, t, n, lt, gaps, "local")
+            return (dp_kernels.affine_dp_scores(*args, tags=tg),
+                    lambda: dp_kernels.affine_dp_scores_reference(*args, tags=tg))
+        args = (table, t, n, lt, *general.vecs(L), "local")
+        return (dp_kernels.wsb_dp_scores(*args, host_costs=general.host_vecs(L), tags=tg),
+                lambda: dp_kernels.wsb_dp_scores_reference(*args, tags=tg))
+
+    got, plain = call(tok.parts[0], ln.parts[0], 0)
+    err = _check_equal(f"{kernel} mesh shard", got, plain(),
+                       [int(tok.parts[0].shape[0]), L, Tpad, len(qs), dt or "f32"])
+    if dt is not None or tagged:
+        return err, None
+
+    def shards():
+        for i in range(len(tok.parts)):
+            call(tok.parts[i], ln.parts[i], i)
+
+    def whole():
+        call(db["tokens"], db["lengths"])
+
+    turns = [cuda_ms(shards, 5), cuda_ms(whole, 5), cuda_ms(whole, 5), cuda_ms(shards, 5)]
+    return err, {"shards_ms": (turns[0] + turns[3]) / 2, "unsharded_ms": (turns[1] + turns[2]) / 2,
+                 "shards_whole_whole_shards_ms": turns, "bucket_rows": int(db["n"]),
+                 "shard_rows": [int(p.shape[0]) for p in tok.parts]}
+
+
+def phase_mesh_static(session, queries, finds, card):
+    """4m, static: on phase 4's session (1M slices) find_batch Q=32 over a
+    mesh of MESH_DEVICES at int8, bf16 and f32 under zero affine gaps and
+    ExponentialGapCost(3.0), 4e's tag weights (f32) under both, and 21
+    ``find(mesh=)`` calls, each byte-identical to the same call without a
+    mesh and timed against it in turns (``_mesh_twins``); kernels 1 and 3
+    on one shard's inputs (each table type, tagged) against their plain
+    versions, and the shards' launches against the unsharded one.
+    Returns {"launches": kernel -> the mesh path's launches, "err": kernel
+    -> max |diff| on a shard, "shard_ms": kernel -> the timing}."""
+    import vectorian_tpu_torch as vt
+    from vectorian_tpu_torch.alignment import ExponentialGapCost
+
+    try:
+        n_cards = len(vt.make_mesh().devices)
+    except RuntimeError:
+        n_cards = 0
+    ms = _mesh_ms()
+    emit({"phase": "mesh_devices", "make_mesh_devices": n_cards,
+          "mesh": [str(d) for d in ms.mesh.devices]})
+    out = {"launches": {}, "err": {}, "shard_ms": {}}
+
+    def add(launches):
+        for k, v in launches.items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+
+    kw = dict(n=10, min_score=0.2)
+    for label, gap, kernel in (("affine", None, "affine_dp"),
+                               ("general", ExponentialGapCost(3.0), "wsb_dp")):
+        index = make_index(session, gap)
+        for prec in PRECISIONS:
+            p = {"sim_precision": prec}
+            r = _mesh_twins(f"static {label} {prec or 'int8'}",
+                            lambda: index.find_batch(queries, mesh=ms, **kw, **p),
+                            lambda: index.find_batch(queries, **kw, **p))
+            name = kernel + ("" if prec == "float32" else f"[{QUANT_TAGS[prec or 'int8']}]")
+            if not r["launches"].get(name):
+                raise AssertionError(f"4m {label} {prec}: the mesh launched no {name}")
+            add(r["launches"])
+            dt = None if prec == "float32" else (prec or "int8")
+            err, timing = _mesh_gather_check(index, ms, queries, kernel, dt)
+            out["err"][name] = err
+            if timing is not None:
+                out["shard_ms"][kernel] = timing
+                emit({"phase": "mesh_shard_launches", "kernel": kernel, **timing,
+                      "card": card})
+        if gap is None:
+            r = _mesh_twins("static affine find x21",
+                            lambda: [index.find(q, mesh=ms, **kw) for q in finds],
+                            lambda: [index.find(q, **kw) for q in finds])
+            add(r["launches"])
+        tagged = make_index(session, gap, **TAG_ARGS)
+        r = _mesh_twins(f"static {label} tag weights",
+                        lambda: tagged.find_batch(queries, mesh=ms, **kw),
+                        lambda: tagged.find_batch(queries, **kw))
+        if not r["launches"].get(kernel + "[tagged]"):
+            raise AssertionError(f"4m {label} tag weights: the mesh launched no tagged kernel")
+        add(r["launches"])
+        out["err"][kernel + "[tagged]"], _ = _mesh_gather_check(
+            tagged, ms, queries, kernel, None, tagged=True)
+    return out
+
+
+def phase_mesh_transport(session, queries, batches, turns=0):
+    """4m, transport: 4k's find_batch (relaxed, full WMD, WRD; Q=32 on
+    phase 4's 1M slices) over the mesh, once each, its lists = 4k's last
+    batch's; with ``turns`` (``--mesh-check``), after that first (warm)
+    call, its wall in turns against the same batch without a mesh (three
+    metrics x 4 batches of 4-9 s: the full run leaves them out for its
+    time)."""
+    ms = _mesh_ms()
+    for label, metric in _transport_metrics():
+        index = _transport_index(session, metric)
+        _mesh_twins(f"transport {label}",
+                    lambda: index.find_batch(queries, n=10, min_score=0.2, mesh=ms),
+                    lambda: index.find_batch(queries, n=10, min_score=0.2),
+                    want=batches[label], turns=turns)
+
+
+def _mesh_dense_check(index, ms, qs, kernel, tree):
+    """The dense entry of kernel 1 or 3 on one shard's inputs as the
+    contextual (or tree) mesh pass gives them: the first chunk of shard 0
+    of the largest bucket (a row view of the engine's store), its block
+    made by the pass's ``TreePass`` on the shard's device, held against
+    the plain version bit for bit."""
+    import torch
+
+    from vectorian_tpu_torch.ops import dp_kernels, search
+
+    dev = torch.device(MESH_DEVICES[0])
+    pqs = [index.make_query(q).prepare(index._nlp) for q in qs]
+    plans = [index._compile_plan(pq, {"ctx"}) for pq in pqs]
+    lts = [max(pq.n_tokens, 1) for pq in pqs]
+    tp = search.TreePass(plans, lts, index._gaps, index._locality,
+                         [float(x) for x in lts], dev, index._gap_costs)
+    db, (tok, ln, _, _) = max(ms.bucket_shards(index._engine), key=lambda e: e[0]["n"])
+    ctx = ms.ctx_shards(index._engine, "ctx")[db["bi"]]
+    c = min(search.ctx_chunk(db["capacity"], tp.Tpad, tp.Q, tp.d), int(tok.parts[0].shape[0]))
+    view = {"tokens": tok.parts[0], "ctx": {"ctx": ctx.parts[0]}}
+    S = tp.block(view, 0, c).contiguous()
+    n = ln.parts[0][:c]
+    if kernel == "affine_dp[dense]":
+        args, kw = (index._gaps,), {}
+        fn, ref = dp_kernels.affine_dp_scores_dense, dp_kernels.affine_dp_scores_dense_reference
+    else:
+        L = db["capacity"]
+        args, kw = tp.general.vecs(L), {"host_costs": tp.general.host_vecs(L)}
+        fn, ref = dp_kernels.wsb_dp_scores_dense, dp_kernels.wsb_dp_scores_dense_reference
+    return _check_equal(f"{kernel} mesh shard{' tree' if tree else ''}",
+                        fn(S, n, tp.lt, *args, index._locality, **kw),
+                        ref(S, n, tp.lt, *args, index._locality), list(S.shape))
+
+
+def phase_mesh_dense(ctx, card):
+    """4m, contextual and tree: 4f's contextual find_batch Q=32 (affine
+    and ExponentialGapCost(3.0)) and 4h's mixed tree (affine) on the
+    500,000-sentence session over the mesh, each byte-identical to its
+    single-device batch and timed against it in turns; the dense entries
+    on one shard's inputs against their plain versions.  Returns as
+    ``phase_mesh_static``."""
+    from vectorian_tpu_torch.alignment import ExponentialGapCost, LocalAlignment
+    from vectorian_tpu_torch.metrics import EmbeddingTokenSim, OptimizedSpanSim
+    from vectorian_tpu_torch.sim.modifier import MixedTokenSimilarity
+
+    session, queries = ctx["session"], ctx["queries"]
+    ms = _mesh_ms()
+    out = {"launches": {}, "err": {}}
+    c, q = session.embeddings
+    mixed = MixedTokenSimilarity([EmbeddingTokenSim(q), EmbeddingTokenSim(c)], [0.5, 0.5])
+    cases = (("contextual affine", make_index(session), "affine_dp[dense]", False),
+             ("contextual general", make_index(session, ExponentialGapCost(3.0)),
+              "wsb_dp[dense]", False),
+             ("tree affine", session.partition("sentence").index(
+                 OptimizedSpanSim(mixed, LocalAlignment())), "affine_dp[dense]", True))
+    kw = dict(n=10, min_score=0.2)
+    for label, index, kernel, tree in cases:
+        r = _mesh_twins(label, lambda: index.find_batch(queries, mesh=ms, **kw),
+                        lambda: index.find_batch(queries, **kw))
+        if not r["launches"].get(kernel):
+            raise AssertionError(f"4m {label}: the mesh launched no {kernel}")
+        for k, v in r["launches"].items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+        err = _mesh_dense_check(index, ms, queries, kernel, tree)
+        out["err"][kernel] = max(out["err"].get(kernel, 0.0), err)
+    return out
 
 
 # the wrappers a paged pass launches its kernels through (imported into
@@ -4477,8 +4778,11 @@ def run_phases(card):
     cut = {dev: build_session(corpus_cut(texts), words, vectors, dev) for dev in (DEVICE, "cpu")}
     phase_transport(session, finds, cut, card)
     log("transport path done")
-    phase_transport_batch(session, queries, cut, card)
+    tb = phase_transport_batch(session, queries, cut, card)
     log("transport batch done")
+    mesh = phase_mesh_static(session, queries, finds, card)
+    phase_mesh_transport(session, queries, tb)
+    log("mesh static and transport done")
     phase_span(session, queries, finds, cut, card)
     log("span path done")
     paged_static = phase_paged_static(session, queries, finds, card)
@@ -4494,6 +4798,8 @@ def run_phases(card):
     log("config 4 path done")
     phase_transport_tree(ctx, card)
     log("transport tree batch done")
+    mesh_dense = phase_mesh_dense(ctx, card)
+    log("mesh contextual and tree done")
     paged_ctx = phase_paged_contextual(ctx, card)
     del ctx
     log("paged contextual path done")
@@ -4661,6 +4967,16 @@ def run_phases(card):
     for k in kernels:
         k["paged_launches"] = sum(d.get(k["name"], 0)
                                   for d in (paged_static, paged_ties, paged_ctx))
+    # 4m: each kernel's launches on the mesh paths (counts from 0 before each
+    # mesh call) and, where 4m held it on a shard's inputs, its equality
+    for k in kernels:
+        k["mesh_launches"] = sum(d["launches"].get(k["name"], 0) for d in (mesh, mesh_dense))
+        err = {**mesh["err"], **mesh_dense["err"]}.get(k["name"])
+        if err is not None:
+            k["mesh_max_abs_err"] = err
+            k["mesh_equal"] = True
+        if k["name"] in mesh["shard_ms"]:
+            k["mesh_shard_launches"] = mesh["shard_ms"][k["name"]]
     return kernels
 
 
@@ -4708,7 +5024,8 @@ def batch_check(card):
         finds = [query() for _ in range(21)]
         cut = {dev: build_session(corpus_cut(texts), words, vectors, dev)
                for dev in (DEVICE, "cpu")}
-        phase_transport_batch(session, queries, cut, card)
+        tb = phase_transport_batch(session, queries, cut, card)
+        phase_mesh_transport(session, queries, tb)
         phase_paged_static(session, queries, finds, card)
         del session, cut
         with tempfile.TemporaryDirectory(prefix="chip_smoke_fasttext_") as tmp:
@@ -4724,8 +5041,50 @@ def batch_check(card):
     log("batch check done")
 
 
+def mesh_check(card):
+    """``--mesh-check``: phase 4m alone, on the sessions and 4k's batches
+    the full run builds before it (4k runs too), in a packed-corpus cache
+    of its own."""
+    import numpy as np
+
+    import vectorian_tpu_torch  # noqa: F401  (sets exact-f32 matmul flags)
+
+    cache = tempfile.mkdtemp(prefix="chip_smoke_cache_")
+    os.environ["VECTORIAN_CACHE_HOME"] = cache
+    try:
+        phase_build()
+        rng = np.random.default_rng(SEED)
+        words, texts, query = zipf_corpus(SENTENCES, rng)
+        vectors = rng.normal(size=(len(words), 300)).astype(np.float32)
+        session = build_session(texts, words, vectors, DEVICE)
+        queries = [query() for _ in range(32)]
+        finds = [query() for _ in range(21)]
+        cut = {dev: build_session(corpus_cut(texts), words, vectors, dev)
+               for dev in (DEVICE, "cpu")}
+        tb = phase_transport_batch(session, queries, cut, card)
+        mesh = phase_mesh_static(session, queries, finds, card)
+        phase_mesh_transport(session, queries, tb, turns=1)
+        del session, cut
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_fasttext_") as tmp:
+            ft, _ = fasttext_model(texts, np.random.default_rng(SEED + 7), tmp)
+        qft, _ = compress_fasttext(ft)
+        del ft
+        _, _, session, queries, finds, _ = ctx_corpus(qft)
+        mesh_dense = phase_mesh_dense({"session": session, "queries": queries}, card)
+        emit({"phase": "mesh_kernels", "launches": [mesh["launches"], mesh_dense["launches"]],
+              "max_abs_err": {**mesh["err"], **mesh_dense["err"]},
+              "shard_launches": mesh["shard_ms"]})
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    log("mesh check done")
+
+
 if __name__ == "__main__":
     old_tree = None
+    if "--transport-reps" in sys.argv[1:]:
+        i = sys.argv.index("--transport-reps")
+        TRANSPORT_REPS = int(sys.argv[i + 1])
+        del sys.argv[i : i + 2]
     if "--old-tree" in sys.argv[1:]:
         # the parent's tree, for the tagged kernels' old-against-new turns
         i = sys.argv.index("--old-tree")
@@ -4757,6 +5116,13 @@ if __name__ == "__main__":
             raise SystemExit("chip_smoke: run from a checkout of the repository")
         sys.path.insert(0, str(ROOT))
         batch_check(phase_device())
+    elif sys.argv[1:2] == ["--mesh-check"]:
+        # phase 4m (and the 4k batches it is held against) alone: the quick
+        # check after a mesh edit
+        if not (ROOT / "vectorian_tpu_torch" / "csrc" / "affine_dp.cu").exists():
+            raise SystemExit("chip_smoke: run from a checkout of the repository")
+        sys.path.insert(0, str(ROOT))
+        mesh_check(phase_device())
     elif sys.argv[1:2] in (["--build-ab"], ["--tag-check"]):
         if not (ROOT / "vectorian_tpu_torch" / "csrc" / "affine_dp.cu").exists():
             raise SystemExit("chip_smoke: run from a checkout of the repository")

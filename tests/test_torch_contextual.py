@@ -191,9 +191,9 @@ def test_batched_contextual_pass_matches_jax(both, general):
     metric_t = it._args["metric"]["token_sim"].metric
     plans_t = [QueryPlan(plan=("ctx", 0, metric_t), ctx_names=["ctx"], ctx_queries=[c])
                for c in ctx_t]
-    got = it._engine.score_all_multi_tree(
+    got = it._engine.collect(it._engine.tree_pass(
         plans_t, lts, it._gaps, "local", [float(x) for x in lts],
-        gap_costs=it._gap_costs)
+        gap_costs=it._gap_costs), len(QUERIES))
     assert got.shape == want.shape == (it._engine.n_slices, len(QUERIES))
     assert np.allclose(got, want, rtol=1e-6, atol=1e-6)
     # tensors on the CPU take the plain versions: no launch counted

@@ -158,10 +158,6 @@ def test_submatch_bounds_equal_jax(w, sim_max):
     for total, matched in ((4.0, 0.0), (4.0, 2.5), (4.0, 4.0), (0.0, 0.0)):
         assert search.reference_score(total, matched, w) == jax_reference_score(
             total, matched, w)
-    col = np.asarray([0.5, -1e30, 0.25], np.float32)
-    b = np.asarray([2.0, 3.0, 0.5], np.float32)
-    assert np.array_equal(port_index._boosted_col(col, b),
-                          jax_index._boosted_col(col, b))
 
 
 @pytest.fixture(scope="module")
@@ -181,7 +177,7 @@ def both():
 
 def test_host_top_k_equals_jax(both):
     """top_k (the reference's tie order) and top_k_with_next on one score
-    vector with ties, and HostVecSource's candidates."""
+    vector with ties."""
     sj, st, _ = both
     ej = sj.engine(sj.partition("sentence").spec)
     et = st.engine(st.partition("sentence").spec)
@@ -195,10 +191,6 @@ def test_host_top_k_equals_jax(both):
             a, ra = et.top_k_with_next(scores, m, thr)
             b, rb = JaxEngine.top_k_with_next(ej, scores, m, thr)
             assert sorted(a) == sorted(b) and ra == rb
-    src = search.HostVecSource(et, scores)
-    assert src.parent is src and src.covers_all(et.n_slices)
-    assert src.above_many([(src, 0.75, {0, 1})]) == [
-        [int(c) for c in np.flatnonzero(scores >= 0.75) if c not in (0, 1)]]
 
 
 def _indexes(sj, st, general):

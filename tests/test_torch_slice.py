@@ -230,7 +230,8 @@ def test_match_json_matches_jax(both):
 
 
 def test_unported_options_raise(both):
-    """mesh= raises NotImplementedError; paged mode (Session(paged=True))
+    """mesh= (a make_mesh of CPU devices) returns the unsharded bytes and a
+    non-mesh object raises TypeError; paged mode (Session(paged=True))
     serves the bytes of resident mode; submatch_weight and debug are
     served (find's full-read paths; find_batch takes debug query by query
     through find), under affine and general gap models."""
@@ -238,9 +239,13 @@ def test_unported_options_raise(both):
     it = st.partition("sentence").index(
         OptimizedSpanSim(EmbeddingTokenSim(st.embeddings[0]), LocalAlignment())
     )
-    with pytest.raises(NotImplementedError):
+    mesh = vt.make_mesh(["cpu"] * 2)
+    assert [_pairs(r) for r in it.find_batch(queries[:2], mesh=mesh)] == [
+        _pairs(r) for r in it.find_batch(queries[:2])]
+    assert _pairs(it.find(queries[0], mesh=mesh)) == _pairs(it.find(queries[0]))
+    with pytest.raises(TypeError):
         it.find_batch(queries[:2], mesh=object())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         it.find(queries[0], mesh=object())
     words, mat, texts, _ = _corpus()
     sp = vt.Session(

@@ -342,13 +342,17 @@ def test_consume_loop_fetches_no_more_than_jax(cut, ctx, monkeypatch, name, plan
 
 
 def test_empty_and_mesh_queries(cut):
-    """An empty query returns an empty result in its place; mesh= raises
-    naming item 7."""
+    """An empty query returns an empty result in its place; mesh= (a
+    make_mesh of CPU devices) returns the unsharded bytes, and a non-mesh
+    object raises TypeError."""
     _, st, queries = cut
     ix = st.partition("sentence").index(OptimizedSpanSim(
         EmbeddingTokenSim(st.embeddings[0]), WordMoversDistance()))
     res = ix.find_batch(["", queries[0], "..."], n=3, min_score=0.1)
     assert len(res) == 3 and not len(res[0]) and not len(res[2])
     assert _pairs(res[1]) == _pairs(ix.find(queries[0], n=3, min_score=0.1))
-    with pytest.raises(NotImplementedError, match="7"):
+    mesh = vt.make_mesh(["cpu"] * 3)
+    assert [_pairs(r) for r in ix.find_batch(queries, n=3, min_score=0.1, mesh=mesh)] == [
+        _pairs(r) for r in ix.find_batch(queries, n=3, min_score=0.1)]
+    with pytest.raises(TypeError):
         ix.find_batch(queries, mesh=object())

@@ -5,7 +5,7 @@ tests/test_torch_contextual.py's fixture (a static and a contextual
 embedding over a few hundred sentences) under MixedTokenSimilarity and
 MaximumTokenSimilarity trees, affine and general gaps: the stacked plans'
 evaluation (``stack_tree_plans``) and the tree pass's [n_slices, Q] scores
-(``score_all_multi_tree``, the dense DP kernels' plain versions) within
+(``tree_pass``, the dense DP kernels' plain versions) within
 1e-6 of the JAX package's; then ``find`` and ``find_batch`` with a booster,
 a document-side filter, ``submatch_weight`` and ``bidirectional``, and a
 contextual metric with tag weights.  Tolerance: scores within 1e-6
@@ -101,7 +101,7 @@ def test_stacked_plans_evaluate_as_jax(both, tree):
 @pytest.mark.parametrize("tree", ["mixed", "max"])
 @pytest.mark.parametrize("general", [False, True])
 def test_tree_pass_scores_match_jax(both, tree, general, tags):
-    """score_all_multi_tree: the [n_slices, Q] ranking scores of the tree
+    """tree_pass: the [n_slices, Q] ranking scores of the tree
     pass (tag rewrite on the combined similarity; a query without tags
     stays the identity) against the JAX package's (1e-6); on the CPU the
     dense entries take their plain versions and count no launch."""
@@ -121,9 +121,9 @@ def test_tree_pass_scores_match_jax(both, tree, general, tags):
         plans_j, lts, gaps_j, "local", nts,
         gap_costs=(ij._gap_s, ij._gap_t) if general else None,
         tag_weights=tw_j if tags else None)
-    got = it._engine.score_all_multi_tree(
+    got = it._engine.collect(it._engine.tree_pass(
         plans_t, lts, it._gaps, "local", nts, gap_costs=it._gap_costs,
-        tag_weights=tw_t if tags else None)
+        tag_weights=tw_t if tags else None), len(QUERIES))
     assert got.shape == want.shape == (it._engine.n_slices, len(QUERIES))
     assert np.allclose(got, want, rtol=1e-6, atol=1e-6)
     assert not any(dp_kernels.LAUNCHES.values())
@@ -173,14 +173,14 @@ def test_tree_batch_runs_the_tree_pass(both, monkeypatch):
     sj, st = both
     calls = {"tree": 0, "Q": []}
     eng_cls = type(_ctx_indexes(sj, st)[1]._engine)
-    orig_tree = eng_cls.score_all_multi_tree
+    orig_tree = eng_cls.tree_pass
 
     def tree(self, plans, *a, **kw):
         calls["tree"] += 1
         calls["Q"].append(len(plans))
         return orig_tree(self, plans, *a, **kw)
 
-    monkeypatch.setattr(eng_cls, "score_all_multi_tree", tree)
+    monkeypatch.setattr(eng_cls, "tree_pass", tree)
     for kind, span in ((None, {}), (None, TAGS), ("mixed", {})):
         calls.update(tree=0, Q=[])
         _, it = _ctx_indexes(sj, st, tree=kind, **span)

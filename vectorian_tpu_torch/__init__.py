@@ -25,7 +25,10 @@ similarity blocks the same DP kernels read; span embeddings
 (``SentenceEmbedding``, ``TextSpanEmbedding``, ``SpacySpanEmbedding``)
 through ``EmbeddedSpanSim``'s exact and approximate indexes; the transport
 metrics (``WordMoversDistance``, relaxed or full, and
-``WordRotatorsDistance``) through ``find``.  Every other public name of the
+``WordRotatorsDistance``) through ``find`` and ``find_batch``; paged
+serving (``Session(paged=True)``); multi-device serving (``make_mesh``,
+``MeshSearch``: ``find_batch(mesh=)`` and ``find(mesh=)`` on every batch
+path, with the single-device bytes).  Every other public name of the
 reference package exists and raises NotImplementedError naming its
 ROADMAP.md port queue item.
 """
@@ -87,6 +90,7 @@ from vectorian_tpu_torch.embedding.pipeline import (  # noqa: E402,F401
 from vectorian_tpu_torch import alignment, metrics, saliency, sim  # noqa: E402,F401
 from vectorian_tpu_torch.index import _not_ported  # noqa: E402
 from vectorian_tpu_torch.saliency import KeywordSignal, Saliency  # noqa: E402,F401
+from vectorian_tpu_torch.parallel.mesh import MeshSearch, make_mesh  # noqa: E402,F401
 
 # alias matching the reference's dual naming (__init__.py:24-25)
 similarity = metrics
@@ -116,9 +120,6 @@ class _Unported:
 # the unported public names, by ROADMAP.md port queue item
 UNPORTED = {
     "Corpus": "9", "TemporaryCorpus": "9", "LabSession": "9", "Zoo": "9",
-    "MeshSearch": "7", "make_mesh": "7",
-    # the reference's submodules its __init__ binds by importing from them
-    "parallel": "7",
 }
 globals().update({name: _Unported(name, item) for name, item in UNPORTED.items()})
 

@@ -20,7 +20,9 @@ score) lists are byte-identical.  The query options tag weights,
 rescore's scores under a provable cut, so they too are byte-equal.  The
 transport metrics' ``find`` runs ops/wmd (a ranking pass on the device,
 the reported scores on the host); span embeddings have indexes of their
-own (``SpanEncoderIndex``, ``ApproximateSpanIndex``).
+own (``SpanEncoderIndex``, ``ApproximateSpanIndex``).  ``mesh=`` shards
+each batch path's corpus pass over a ``parallel.mesh`` mesh of devices
+and returns the single-device bytes (``MeshSearch.pending``).
 """
 
 from __future__ import annotations
@@ -37,17 +39,19 @@ import torch
 from vectorian_tpu_torch.alignment import resolve_affine_gaps
 from vectorian_tpu_torch.ops.alignment import AffineGapParams
 from vectorian_tpu_torch.ops.search import (
-    NEG_SCORE,
     BruteForceEngine,
+    BucketTopKSource,
     DocFilterSpec,
-    HostVecSource,
     TagWeightingSpec,
     _host,
     batch_tracebacks,
+    corpus_tag_columns,
     edge_sims_of,
     gap_vec,
     order_by_score,
+    quantization_entry_err,
     reference_score,
+    stack_query_tables,
 )
 from vectorian_tpu_torch.ops.simmatrix import (
     QueryPlan,
@@ -55,6 +59,7 @@ from vectorian_tpu_torch.ops.simmatrix import (
     plan_sim_upper,
     query_vectors,
 )
+from vectorian_tpu_torch.parallel.mesh import MeshSearch
 from vectorian_tpu_torch.session import Result
 from vectorian_tpu_torch.utils import trace
 from vectorian_tpu_torch.vocabulary import UPOS
@@ -207,14 +212,6 @@ def _submatch_fetch_thresh_boosted(t: float, boost, norm_total: float,
             b * _submatch_upper_bound(d / b + eps_q, norm_total, w, sim_max)
         )), t,
     )
-
-
-def _boosted_col(col: np.ndarray, boost) -> np.ndarray:
-    """A host ranking column times its boosts, the NEG_SCORE sentinels
-    kept (the in-kernel boost multiply's f32 arithmetic)."""
-    if boost is None:
-        return col
-    return np.where(col > NEG_SCORE * 0.5, col * boost, col).astype(np.float32)
 
 
 def _metric_ctx_names(token_sim):
@@ -756,9 +753,12 @@ class Index:
         mesh=None,
         **kwargs,
     ) -> Result:
-        """reference index.py:479-501."""
+        """reference index.py:479-501.  ``mesh`` (a ``parallel.mesh.Mesh``
+        or ``MeshSearch``): a ``BruteForceIndex`` serves the query over the
+        mesh's devices; the span indexes' search is one GEMM on the
+        session's device, which a mesh (checked) leaves as it is."""
         if mesh is not None:
-            raise _not_ported("find(mesh=...)", "7: multi-device serving")
+            MeshSearch.of(mesh)
         start_time = time.time()
         with trace.span("find.prep"):
             query = self.make_query(
@@ -829,6 +829,23 @@ class BruteForceIndex(Index):
         if self._gap_s is None:
             return None
         return {"s": self._gap_s, "t": self._gap_t}
+
+    def find(self, text: str, n: int = 100, min_score: float = 0.2, debug=None,
+             disable_progress=False, run_task=None, mesh=None, **kwargs) -> Result:
+        """reference index.py:479-501.  ``mesh`` (a ``parallel.mesh.Mesh`` or
+        ``MeshSearch``) serves this ONE query with every device of the
+        mesh: it is ``find_batch([text], mesh=mesh)``, ``run_task`` and
+        ``disable_progress`` forwarded, whose (slice_id, score) lists are
+        the single-device ``find``'s bytes.  A ``debug`` query stays on the
+        session's device (its payloads are host-side diagnostics)."""
+        if mesh is not None and debug is None:
+            return self.find_batch(
+                [text], n=n, min_score=min_score, mesh=mesh,
+                disable_progress=disable_progress, run_task=run_task, **kwargs,
+            )[0]
+        return super().find(text, n=n, min_score=min_score, debug=debug,
+                            disable_progress=disable_progress, run_task=run_task,
+                            mesh=mesh, **kwargs)
 
     def warmup(self, max_tokens: int = 12, n: int = 10) -> "BruteForceIndex":
         """Pay now what the first queries would otherwise wait for: on a card
@@ -1276,6 +1293,8 @@ class BruteForceIndex(Index):
         min_score: float = 0.2,
         sim_precision: Optional[str] = None,
         mesh=None,
+        disable_progress=False,
+        run_task=None,
         **kwargs,
     ) -> List[Result]:
         """Batched search: score Q queries in one corpus pass — the Q
@@ -1310,17 +1329,25 @@ class BruteForceIndex(Index):
         of the stacked plans a chunk, then each query's tag rewrite).  A
         transport metric's batch runs ``_find_batch_transport`` (one
         ranking pass for the batch, each query's host rescore;
-        ``sim_precision`` does not apply)."""
-        if mesh is not None:
-            raise _not_ported("find_batch(mesh=...)", "7: multi-device serving")
+        ``sim_precision`` does not apply).
+
+        ``mesh`` (a ``parallel.mesh.Mesh`` or ``MeshSearch``; TypeError
+        for anything else) shards the corpus pass over the mesh's devices
+        on every path — static under every option above, contextual,
+        tree and transport — and each query's (slice_id, score) list is
+        the single-device batch's, byte for byte (``_find_batch_mesh``,
+        ``MeshSearch.pending``, ``WMDEngine.find_batch``).  ``debug`` stays on the
+        session's device.  ``disable_progress`` and ``run_task`` are
+        ``find``'s (the port draws no progress)."""
+        ms = None if mesh is None else MeshSearch.of(mesh)
         if self._algorithm != "alignment":
-            return self._find_batch_transport(texts, n, min_score, **kwargs)
+            return self._find_batch_transport(texts, n, min_score, mesh=ms, **kwargs)
         token_sim = self._args["metric"]["token_sim"]
         if not all(getattr(e, "is_static", True) for e in token_sim.embeddings):
             if BATCH_HARD_OPTIONS & set(kwargs):
                 return [self.find(t, n=n, min_score=min_score, **kwargs)
                         for t in texts]
-            return self._find_batch_dense(texts, n, min_score, **kwargs)
+            return self._find_batch_dense(texts, n, min_score, mesh=ms, **kwargs)
         if BATCH_HARD_OPTIONS & set(kwargs):
             return [self.find(t, n=n, min_score=min_score, **kwargs) for t in texts]
         submatch_w = float(kwargs.get("submatch_weight") or 0.0)
@@ -1358,12 +1385,17 @@ class BruteForceIndex(Index):
         # the closed-form-bounded overfetch (find()'s k)
         k_fetch = (4 * n + 32) if submatch_w != 0.0 else (n + 32)
         with trace.span("batch.topk"):
-            src, entry_err = self._engine.score_topk_multi(
-                plans, len_ts, self._gaps, self._locality, norm_totals, k_fetch,
-                gap_costs=self._gap_costs, sim_dtype=sim_dtype, with_err=True,
-                tag_weights=tagws if any_tags else None, doc_filter=doc_filter,
-                boosts=boosts,
-            )
+            if ms is None:
+                src, entry_err = self._engine.score_topk_multi(
+                    plans, len_ts, self._gaps, self._locality, norm_totals, k_fetch,
+                    gap_costs=self._gap_costs, sim_dtype=sim_dtype, with_err=True,
+                    tag_weights=tagws if any_tags else None, doc_filter=doc_filter,
+                    boosts=boosts,
+                )
+            else:
+                src, entry_err = self._find_batch_mesh(
+                    ms, plans, len_ts, norm_totals, tagws if any_tags else None,
+                    sim_dtype, k_fetch, boosts, doc_filter)
         items, item_qis = [], []
         for qi, pq in enumerate(prepared):
             if pq.n_tokens == 0:
@@ -1398,6 +1430,34 @@ class BruteForceIndex(Index):
             else Result(self, [], 0.0)
             for qi in range(Q0)
         ]
+
+    def _find_batch_mesh(self, ms, plans, len_ts, norm_totals, tag_weights,
+                         sim_dtype, k: int, boosts, doc_filter):
+        """The static batch's corpus pass over a mesh (the JAX package's
+        ``_find_batch_mesh``): the batch's table at ``sim_dtype`` (int8,
+        bf16 or f32; tag weights, a general gap model, boosts and a
+        document-side filter ride it as they ride the single-device pass),
+        each shard's launch of kernel 1 or 3 over its rows
+        (``MeshSearch.static_scores``).  Returns what
+        ``BruteForceEngine.score_topk_multi`` does with ``with_err``: the
+        ``BucketTopKSource`` of the shards (``MeshSearch.pending``), values
+        only, and the table's per-entry rounding."""
+        with trace.span("topk.tables"):
+            table, sim_scale, max_abs, Tpad = stack_query_tables(plans, len_ts, sim_dtype)
+        tw_cols = (None if tag_weights is None
+                   else corpus_tag_columns(tag_weights, len(plans), Tpad))
+        cache = {}
+
+        def scores_of(db, shards, boost, _ctx):
+            tok, ln, pos, tag = shards
+            return ms.static_scores(
+                tok, ln, table, len_ts, self._gaps, norm_totals, self._locality,
+                sim_scale, pos, tag, tw_cols, self._gap_costs, boost, doc_filter,
+                cache)
+
+        return (BucketTopKSource(self._engine, ms.pending(self._engine, scores_of, boosts),
+                                 len(plans), k),
+                quantization_entry_err(sim_dtype, max_abs))
 
     def _prepare_static_batch(self, texts, n, min_score, sim_precision, kwargs):
         """find_batch front half: prepare Q queries and compile each plan
@@ -1460,10 +1520,10 @@ class BruteForceIndex(Index):
         entry_err: float, doc_filter=None,
     ) -> List[List["Match"]]:
         """Batched finalizer: ``items`` is one (source, plan, pq,
-        norm_total, tagw, boost) tuple per query (the source a device top-k
-        view, or a host [n_slices] score vector: ``HostVecSource``;
-        ``tagw`` its TagWeightingSpec or None, ``boost`` the booster's
-        [n_slices] weights or None: an exact score is raw / norm_total *
+        norm_total, tagw, boost) tuple per query (the source a
+        ``BucketTopKSource`` view; ``tagw`` its TagWeightingSpec or None,
+        ``boost`` the booster's [n_slices] weights or None: an exact score
+        is raw / norm_total *
         boost, and the slack grows with the largest boost); ``doc_filter``
         the batch's DocFilterSpec or None.  Every device round runs ONCE for
         the whole batch.
@@ -1474,10 +1534,9 @@ class BruteForceIndex(Index):
         where the loop only guards (doc, slice) tie-breaks; a contextual
         plan's floor is ``_ctx_floor``).  Rounds: (1) candidates with their
         exact raw scores (from the fused top-k step, or one batched rescore
-        with flows of a host source's candidates), (2) tie-bounded extras
-        for queries whose cut is unsafe — selected (and rescored where the
-        select can) on the device, or read from the host vector — and a
-        score-only rescore of the rest, (3) flows for ONLY the final top-n
+        with flows of a values-only source's candidates), (2) tie-bounded
+        extras for queries whose cut is unsafe — selected (and rescored
+        where the select can) on the device — and a score-only rescore of the rest, (3) flows for ONLY the final top-n
         (rescored, fetched payloads, else a deferred rescore on first
         access)."""
         engine = self._engine
@@ -1495,16 +1554,11 @@ class BruteForceIndex(Index):
         reqs, req_qis = [], []
         _t_fin = time.perf_counter()
         for qi, (src, plan, pq, norm_total, tagw, boost) in enumerate(items):
-            if isinstance(src, np.ndarray):
-                src = HostVecSource(engine, src)
             eps = self._quant_eps(entry_err, pq, norm_total, plan)
             if boost is not None:
                 eps = eps * max(1.0, float(np.max(boost)))
-            raw = None
-            if hasattr(src, "initial_exact"):
-                cand, rest_max, raw = src.initial_exact(n + 32, min_score - eps)
-            else:
-                cand, rest_max = src.initial(n + 32, min_score - eps)
+            cand, rest_max, raw = src.initial_exact(n + 32, min_score - eps)
+            if raw is None:
                 reqs.append({"slice_ids": cand, "qp": plan, "len_t": pq.n_tokens,
                              "tag_weights": tagw, "want_flows": True})
                 req_qis.append(qi)
@@ -1546,12 +1600,8 @@ class BruteForceIndex(Index):
         for call in above_calls:
             by_parent.setdefault(id(call[1].parent), []).append(call)
         for calls in by_parent.values():
-            parent = calls[0][1].parent
-            args = [(src, thresh, seen) for _, src, thresh, seen in calls]
-            if hasattr(parent, "above_exact_many"):
-                found = parent.above_exact_many(args)
-            else:
-                found = [(ids, {}) for ids in parent.above_many(args)]
+            found = calls[0][1].parent.above_exact_many(
+                [(src, thresh, seen) for _, src, thresh, seen in calls])
             for (qi, _, _, _), (ids, rmap) in zip(calls, found):
                 if not ids:
                     continue
@@ -1609,17 +1659,18 @@ class BruteForceIndex(Index):
 
         out = []
         for (_, plan, pq, _, tagw, _), m in zip(items, meta):
-            # host sources' candidates were rescored with flows in round 1;
-            # fused sources shipped flow payloads (H/S/Su) with the initial
-            # fetch — traceback host-side, no extra round trip; flows of
-            # the others are DEFERRED to one shared resolver per query
+            # values-only sources' candidates were rescored with flows in
+            # round 1; fused sources shipped flow payloads (H/S/Su) with the
+            # initial fetch — traceback host-side, no extra round trip;
+            # flows of the others are DEFERRED to one shared resolver per
+            # query
             src = m["src"]
             resolver = None
             merged = []
             for _, sid, score in m["entries"]:
                 flows = m["flows"].get(sid)
                 pay = None
-                if flows is None and hasattr(src, "flows_payload"):
+                if flows is None:
                     pay = src.flows_payload(sid)
                 if pay is not None:
                     H, Sw, Su, ln = pay
@@ -1722,8 +1773,6 @@ class BruteForceIndex(Index):
         k0 = 4 * n + 32
         meta, reqs = [], []
         for (src, plan, pq, norm_total, tagw, boost) in items:
-            if isinstance(src, np.ndarray):
-                src = HostVecSource(engine, src)
             cand, rest_max = src.initial(k0, -1e30)
             meta.append({"src": src, "cand": cand, "rest_max": rest_max})
             reqs.append({"slice_ids": cand, "qp": plan, "len_t": pq.n_tokens,
@@ -1798,20 +1847,28 @@ class BruteForceIndex(Index):
             )[:n]
         return [m["matches"] for m in meta]
 
-    def _find_batch_dense(self, texts, n: int, min_score: float,
+    def _find_batch_dense(self, texts, n: int, min_score: float, mesh=None,
                           **kwargs) -> List[Result]:
         """Batched search over contextual plans (one contextual embedding
         or a mixed tree, tagged or not): per chunk of slices the stacked
         plans' leaves (a contextual leaf is one metric GEMM against the Q
         stacked needles) and each query's tag rewrite
-        (``BruteForceEngine.score_all_multi_tree``, the JAX package's
+        (``BruteForceEngine.tree_pass``, the JAX package's
         ``_find_batch_tree`` and ``_find_batch_ctx``).  The dense DP
-        kernels score the block; the
-        host finalizer reports the exact rescore under the contextual
+        kernels score the block, and each bucket's per-query top-k is taken
+        on the device (``BucketTopKSource``, values only); the host
+        finalizer reports the exact rescore under the contextual
         membership floor (the batch's GEMM and the rescore's reduce in
-        other orders).  Boosters, document-side filters,
-        ``submatch_weight`` and ``bidirectional`` ride the batch as in the
-        static one."""
+        other orders).  Boosters (multiplied on the device), document-side
+        filters, ``submatch_weight`` and ``bidirectional`` ride the batch
+        as in the static one.  ``mesh`` (a MeshSearch) shards the pass:
+        every bucket's rows and contextual stores over the mesh's devices
+        (``MeshSearch.bucket_shards``, ``ctx_shards``), each shard the
+        single-device pass over its rows (``MeshSearch.tree_scores``:
+        chunks of ``ctx_chunk`` rows, the dense entries of kernels 1 and
+        3) and a pending entry of the same source (``MeshSearch.pending``;
+        the JAX package's ``_find_batch_tree_mesh`` and
+        ``_find_batch_ctx_mesh`` in one)."""
         submatch_w = float(kwargs.get("submatch_weight") or 0.0)
         bidirectional = bool(kwargs.get("bidirectional"))
         booster = kwargs.get("booster")
@@ -1856,15 +1913,30 @@ class BruteForceIndex(Index):
             norm_totals = norm_totals + norm_totals
             if boosts is not None:
                 boosts = boosts + boosts
+        tree_tags = tagws if any(t is not None for t in tagws) else None
         with trace.span("batch.topk"):
-            scores = self._engine.score_all_multi_tree(
-                plans, len_ts, self._gaps, self._locality, norm_totals,
-                gap_costs=self._gap_costs, doc_filter=doc_filter,
-                tag_weights=tagws if any(t is not None for t in tagws) else None,
-            )  # [n_slices, Q]
+            if mesh is None:
+                pending = self._engine.tree_pass(
+                    plans, len_ts, self._gaps, self._locality, norm_totals,
+                    gap_costs=self._gap_costs, doc_filter=doc_filter,
+                    tag_weights=tree_tags, boosts=boosts)
+            else:
+                cache = {}
+
+                def scores_of(db, shards, boost, ctx):
+                    tok, ln, pos, tag = shards
+                    return mesh.tree_scores(
+                        plans, tok, ln, ctx, len_ts, self._gaps, norm_totals,
+                        self._locality, self._gap_costs, boost, pos, tag, doc_filter,
+                        tree_tags, cache)
+
+                pending = mesh.pending(self._engine, scores_of, boosts,
+                                       plans[0].ctx_names)
+            src = BucketTopKSource(self._engine, pending, len(plans),
+                                   (4 * n + 32) if submatch_w != 0.0 else (n + 32))
+        cols = [src.qview(qi) for qi in range(len(prepared))]
         items = [
-            (_boosted_col(scores[:, qi], None if boosts is None else boosts[qi]),
-             plans[qi], pq, norm_totals[qi], tagws[qi],
+            (cols[qi], plans[qi], pq, norm_totals[qi], tagws[qi],
              None if boosts is None else boosts[qi])
             for qi, pq in enumerate(prepared)
         ]
@@ -1884,13 +1956,14 @@ class BruteForceIndex(Index):
             results[order[qi]] = Result(self, per_q[qi], elapsed)
         return [r if r is not None else Result(self, [], 0.0) for r in results]
 
-    def _find_batch_transport(self, texts, n: int, min_score: float,
+    def _find_batch_transport(self, texts, n: int, min_score: float, mesh=None,
                               **kwargs) -> List[Result]:
         """A transport metric's batch (the JAX package's
         ``_find_batch_transport``): Q queries share one ranking pass
         (``ops/wmd.WMDEngine.find_batch``) over static plans, contextual
         plans and mixed trees alike; tag weights, a booster and a
-        document-side filter ride it.  ``debug`` (its payloads are
+        document-side filter ride it, and ``mesh`` shards its ranking pass.
+        ``debug`` (its payloads are
         per-query diagnostics) and a token similarity that is neither an
         ``EmbeddingTokenSim`` nor a modifier tree run ``find`` query by
         query."""
@@ -1927,7 +2000,7 @@ class BruteForceIndex(Index):
             match_lists = WMDEngine(self._engine, self._args["alignment"]).find_batch(
                 self, queries, plans, n, min_score, tagws=tagws,
                 boosts=None if boost is None else [boost] * len(queries),
-                doc_filter=self._doc_filter(queries[0]),
+                doc_filter=self._doc_filter(queries[0]), mesh=mesh,
             )
             elapsed = time.time() - start_time
             for ti, ml in zip(order, match_lists):

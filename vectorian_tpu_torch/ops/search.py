@@ -37,8 +37,7 @@ needle's), and the dense DP entries (``dp_kernels.affine_dp_scores_dense``
 / ``wsb_dp_scores_dense``) read the [c, L, T, Q] block where the GEMM wrote
 it.  A chunk holds ``ctx_chunk`` slices, so its block stays in the card's
 L2 between the GEMM and the DP.  The full-read paths (``score_all``,
-``score_topk``, ``HostVecSource``) serve ``find``'s debug, submatch and
-contextual branches; the exact rescore of a contextual plan evaluates its
+``score_topk``) serve ``find``'s debug, submatch and contextual branches; the exact rescore of a contextual plan evaluates its
 candidates' rows in blocks of ``RESCORE_ROWS`` (one GEMM shape), so a
 slice's exact score has the same bits in every call.
 """
@@ -154,9 +153,9 @@ def stack_tree_plans(plans, len_ts, device):
             raise ValueError("stack_tree_plans: contextual width differs")
         ctxs.append(qv)
     stacked = QueryPlan(plan=p0.plan, static_sims=statics,
-                        static_mags=list(p0.static_mags),
+                        static_mags=[m.to(device) for m in p0.static_mags],
                         ctx_names=list(p0.ctx_names), ctx_vectors=ctxs,
-                        mixed_weights=list(p0.mixed_weights))
+                        mixed_weights=[w.to(device) for w in p0.mixed_weights])
     return stacked, Tpad
 
 
@@ -295,6 +294,17 @@ def compact_slices(tok, pos, tag, lengths, pos_ex, tag_ex, tok_ex):
     key = (~keep).to(torch.int32)
     perm = torch.sort(key, dim=1, stable=True).indices
     return perm, keep.sum(1, dtype=torch.int32), keep
+
+
+def compact_rows(tokens, pos, tag, lengths, flt):
+    """(tokens, pos, lengths) of rows compacted under a document-side
+    filter's device masks ``flt`` (``compact_slices``): what a static pass's
+    kernels read; ``pos`` None stays None."""
+    perm, ln, _ = compact_slices(tokens, pos, tag, lengths, *flt)
+    tokens = torch.gather(tokens, 1, perm).contiguous()
+    if pos is not None:
+        pos = torch.gather(pos, 1, perm).contiguous()
+    return tokens, pos, ln
 
 
 def corpus_tag_columns(tag_weights, Q: int, Tpad: int):
@@ -485,6 +495,40 @@ def _bucket_scores_multiquery(
     return scores.masked_fill(lengths[:, None] <= 0, NEG_SCORE)
 
 
+class MultiQueryPass:
+    """What a multi-query corpus pass over static plans holds on one
+    device: the stacked ranking ``table`` (``stack_query_tables``; made the
+    pass's ``AffineTable`` on the affine path), the costs in its units
+    (``scaled_costs``), the needles' lengths and norms, and the tag columns
+    with their weight table (``corpus_tag_columns``, or None).  The
+    single-device pass builds one on the engine's device; a mesh builds one
+    per distinct device of its shards (``parallel/mesh.MeshSearch``)."""
+
+    def __init__(self, table, sim_scale, len_ts, gaps, gap_costs, norm_totals,
+                 device, tag_cols=None):
+        Tpad = int(table.shape[1])
+        self.gaps, self.general, self.scale_t = scaled_costs(
+            gaps, gap_costs, sim_scale, Tpad, device)
+        self.lt = torch.as_tensor(np.asarray(len_ts, np.int32), device=device)
+        table = table.to(device)
+        if self.general is None:
+            # the affine launches' per-needle split, once a pass
+            table = affine_table(table, self.lt, len_ts)
+        self.table = table
+        self.nt = torch.as_tensor(np.asarray(norm_totals, np.float32), device=device)
+        self.tw = None if tag_cols is None else _put_all(tag_arrays(tag_cols), device)
+
+    def scores(self, tokens, lengths, locality: str, pos=None, boost=None):
+        """[n, Q] normalized scores of n rows (a bucket, or a mesh shard):
+        one launch of kernel 1 or 3 (``_bucket_scores_multiquery``); ``pos``
+        the rows' pos ids under tag weights."""
+        return _bucket_scores_multiquery(
+            tokens, lengths, self.table, self.lt, self.gaps, self.nt, locality,
+            self.general, self.scale_t,
+            None if self.tw is None else TagBlock(pos, *self.tw), boost,
+        )
+
+
 def _dense_raw(S, lengths, len_t, gaps, locality, general=None):
     """Raw scores [c, Q] of a dense block S [c, L, T, Q] f32 (one launch
     of a dense DP entry; len_s clamped to >= 1)."""
@@ -505,6 +549,99 @@ def _dense_scores(S, lengths, len_t, gaps, norm_total, locality, general=None,
     if boost is not None:
         scores = scores * boost
     return scores.masked_fill(lengths[:, None] <= 0, NEG_SCORE)
+
+
+def dense_scores(view, block, Tpad: int, Q: int, d: int, lt, gaps, locality: str,
+                 nt, general=None, flt=None, rewrite=None, boost=None):
+    """[n, Q] normalized scores of the rows of ``view`` (a bucket as a
+    dense pass reads it, ``BruteForceEngine._dense_view``, or a mesh
+    shard's rows: "tokens", "lengths", and "pos" / "tag" where the filter
+    or the rewrite reads them), chunk by chunk of ``ctx_chunk`` rows:
+    ``block(view, c0, c1)`` makes the chunk's [c, L, Tpad, Q] similarity
+    block; under a document-side filter (``flt``: its exclusion masks on
+    the rows' device) the block's rows are compacted AFTER it is made (the
+    store's rows stay in slice order, so the metric GEMM sees the JAX
+    package's shapes); ``rewrite(S, pos)`` (the tag rewrite) sees the
+    compacted block; then ONE launch of a dense DP entry.  ``boost`` [n, Q]
+    or [n, 1] multiplies the scores."""
+    n, L = int(view["tokens"].shape[0]), int(view["tokens"].shape[1])
+    chunk = ctx_chunk(L, Tpad, Q, d)
+    parts = []
+    for c0 in range(0, n, chunk):
+        c1 = min(c0 + chunk, n)
+        S = block(view, c0, c1)
+        ln = view["lengths"][c0:c1]
+        pos = None
+        if flt is not None or rewrite is not None:
+            pos = view["pos"][c0:c1]
+        if flt is not None:
+            perm, ln, _ = compact_slices(view["tokens"][c0:c1], pos,
+                                         view["tag"][c0:c1], ln, *flt)
+            S = torch.gather(S, 1, perm[:, :, None, None].expand(-1, -1, Tpad, Q))
+            pos = torch.gather(pos, 1, perm)
+        if rewrite is not None:
+            S = rewrite(S, pos)
+        parts.append(_dense_scores(S.contiguous(), ln, lt, gaps, nt, locality,
+                                   general, None if boost is None else boost[c0:c1]))
+    return torch.cat(parts)
+
+
+class TreePass:
+    """What a multi-query pass of Q plans of one modifier tree with a
+    contextual leaf holds on one device: the plans stacked
+    (``stack_tree_plans``: every static leaf gathers its [V, Tpad * Q]
+    table, every contextual leaf is one metric GEMM against its [Tpad * Q,
+    d] stacked needles), the needles' lengths and norms, the general gap
+    model's vectors, the document-side filter's masks and each query's tag
+    rewrite of the combined similarity (``tag_weights``: a
+    TagWeightingSpec or None a query).  ``scores(view)`` is one bucket's,
+    or one mesh shard's, [n, Q] scores (``dense_scores``); a chunk's
+    vectors count every contextual leaf's width.  The single-device pass
+    builds one on the engine's device, a mesh one per distinct device of
+    its shards."""
+
+    def __init__(self, plans, len_ts, gaps, locality: str, norm_totals, device,
+                 gap_costs=None, doc_filter=None, tag_weights=None):
+        Q = len(plans)
+        self.Q, self.gaps, self.locality = Q, gaps, locality
+        self.sp, self.Tpad = sp, Tpad = stack_tree_plans(plans, len_ts, device)
+        self.lt = torch.as_tensor(np.asarray(len_ts, np.int32), device=device)
+        self.nt = torch.as_tensor(np.asarray(norm_totals, np.float32), device=device)
+        self.general = (None if gap_costs is None
+                        else GeneralGaps(gap_costs, Tpad + 1, device))
+        self.flt = None if doc_filter is None else doc_filter.device_args(device)
+        self.rewrite = None
+        if tag_weights is not None and any(t is not None for t in tag_weights):
+            tw_w = np.ones((Tpad, Q), np.float32)
+            tw_p = np.full((Tpad, Q), -1, np.int8)
+            tw_pen = np.zeros((Q,), np.float32)
+            tw_thr = np.full((Q,), -1.0, np.float32)
+            for qi, tw in enumerate(tag_weights):
+                if tw is None:
+                    continue
+                t = min(len(tw.t_pos_weights), Tpad)
+                tw_w[:t, qi] = tw.t_pos_weights[:t]
+                tw_p[:t, qi] = tw.pos_t[:t]
+                tw_pen[qi] = tw.pos_mismatch_penalty
+                tw_thr[qi] = tw.similarity_threshold
+            tw_args = _put_all((tw_w, tw_p, tw_pen, tw_thr), device)
+
+            def rewrite(S, pos):
+                return tag_weighted_multi(S, pos, *tw_args)
+
+            self.rewrite = rewrite
+        self.with_pos = self.flt is not None or self.rewrite is not None
+        self.d = sum(int(v.unmodified.shape[1]) for v in sp.ctx_vectors)
+
+    def block(self, view, c0: int, c1: int):
+        ctx = tuple(view["ctx"][nm][c0:c1] for nm in self.sp.ctx_names)
+        S = eval_plan_chunk(self.sp, view["tokens"][c0:c1], ctx)["similarity"]
+        return S.reshape(c1 - c0, int(view["tokens"].shape[1]), self.Tpad, self.Q)
+
+    def scores(self, view, boost=None):
+        return dense_scores(view, self.block, self.Tpad, self.Q, self.d, self.lt,
+                            self.gaps, self.locality, self.nt, self.general,
+                            self.flt, self.rewrite, boost)
 
 
 def _mq_similarity(tok, qidx, table, V: int):
@@ -831,42 +968,6 @@ def _pending_entry(db, fn, paged: bool):
     return (db, _LazyScores(db, fn)) if paged else fn()
 
 
-class HostVecSource:
-    """Candidate source over a complete host-side [n_slices] device-score
-    vector of one query (the full-read passes) — the finalizer's
-    provable-cut protocol, as ``BucketTopKSource`` serves it for the
-    device top-k:
-
-    - ``covers_all(m)``: the initial fetch already covers every slice;
-    - ``initial(m, thresh)`` -> (ids, rest_max): the m best candidates at
-      or above ``thresh`` and an upper bound on every score outside them;
-    - ``parent.above_many([(src, thresh, exclude)])``: the ids with device
-      score >= thresh."""
-
-    def __init__(self, engine, scores: np.ndarray):
-        self._engine = engine
-        self._scores = scores
-
-    @property
-    def parent(self):
-        return self
-
-    def covers_all(self, m: int) -> bool:
-        return m >= self._scores.shape[0]
-
-    def initial(self, m: int, thresh: float):
-        return self._engine.top_k_with_next(self._scores, m, thresh)
-
-    def above_many(self, reqs):
-        out = []
-        for src, thresh, excl in reqs:
-            s = src._scores
-            out.append(
-                [int(c) for c in np.flatnonzero(s >= thresh) if int(c) not in excl]
-            )
-        return out
-
-
 class BucketTopKSource:
     """Device-side per-bucket top-k candidate source for a multi-query
     corpus pass: fetches only [Q, k+1] (value, id) pairs per bucket with
@@ -1011,15 +1112,17 @@ class BucketTopKSource:
 
     def score_map(self, qi: int, thresh: float):
         """({sid: device score} over the fetched entries >= ``thresh``, an
-        upper bound on every unfetched score) of query ``qi``."""
+        upper bound on every unfetched score) of query ``qi``: the host
+        merge of the entries' top-k."""
         smap = {}
         bound = float("-inf")
-        for b in self._buckets:
-            vq = b["vals"][qi]
-            keep = vq >= thresh
-            for sid, sc in zip(b["sids"][qi][keep], vq[keep]):
-                smap[int(sid)] = float(sc)
-            bound = max(bound, float(b["bound"][qi]))
+        with trace.span("topk.merge"):
+            for b in self._buckets:
+                vq = b["vals"][qi]
+                keep = vq >= thresh
+                for sid, sc in zip(b["sids"][qi][keep], vq[keep]):
+                    smap[int(sid)] = float(sc)
+                bound = max(bound, float(b["bound"][qi]))
         return smap, bound
 
     def top_k_exactly_many(self, qis, k: int, min_score: float,
@@ -1079,7 +1182,7 @@ class BucketTopKSource:
         filter the blocks are the compacted slice's, and its length is the
         caller's to take (``filtered_positions``)."""
         for m in self._buckets:
-            if not m["pay"]:
+            if not m.get("pay"):
                 continue
             hit = np.flatnonzero(m["sids"][qi] == sid)
             if hit.size:
@@ -1106,24 +1209,29 @@ class BucketTopKSource:
 
     def initial(self, qi: int, m: int, thresh: float):
         """(candidate ids >= thresh among the m best, upper bound on every
-        score outside them, their exact raw scores)."""
-        vals = np.concatenate([b["vals"][qi] for b in self._buckets])
-        sids = np.concatenate([b["sids"][qi] for b in self._buckets])
-        exact = np.concatenate([b["exact"][qi] for b in self._buckets])
-        bound = max(
-            (float(b["bound"][qi]) for b in self._buckets),
-            default=float("-inf"),
-        )
-        keep = vals >= thresh
-        vk, ik, ek = vals[keep], sids[keep], exact[keep]
-        rest_max = bound
-        if len(vals) > len(vk):
-            rest_max = max(rest_max, float(np.max(vals[~keep])))
-        if len(vk) > m:
-            ap = np.argpartition(-vk, m)
-            rest_max = max(rest_max, float(vk[ap[m]]))
-            vk, ik, ek = vk[ap[:m]], ik[ap[:m]], ek[ap[:m]]
-        return [int(c) for c in ik], rest_max, ek
+        score outside them, their exact raw scores, or None from a source
+        without an exact rescore) — the host merge of every entry's
+        fetched top-k and (k+1)-th value."""
+        with trace.span("topk.merge"):
+            vals = np.concatenate([b["vals"][qi] for b in self._buckets])
+            sids = np.concatenate([b["sids"][qi] for b in self._buckets])
+            exact = (None if self.exact_ctx is None
+                     else np.concatenate([b["exact"][qi] for b in self._buckets]))
+            bound = max(
+                (float(b["bound"][qi]) for b in self._buckets),
+                default=float("-inf"),
+            )
+            keep = vals >= thresh
+            sel = np.flatnonzero(keep)
+            rest_max = bound
+            if len(vals) > len(sel):
+                rest_max = max(rest_max, float(np.max(vals[~keep])))
+            if len(sel) > m:
+                ap = np.argpartition(-vals[sel], m)
+                rest_max = max(rest_max, float(vals[sel[ap[m]]]))
+                sel = sel[ap[:m]]
+            return ([int(c) for c in sids[sel]], rest_max,
+                    None if exact is None else exact[sel])
 
     def _bucket_scores(self, bi: int):
         """(the bucket as its pass read it, its scores, a release fn) of
@@ -1149,16 +1257,17 @@ class BucketTopKSource:
         """Per request (view, thresh, exclude): the ids with device score
         >= thresh not in ``exclude``, and {sid: exact raw f32 DP score} for
         the ids the select rescored.  Ids missing from the map (tie groups
-        past ABOVE_CAP) still need the finalizer's rescore."""
+        past ABOVE_CAP; every id of a source without an exact rescore)
+        still need the finalizer's rescore."""
+        if self.exact_ctx is None:
+            return [(ids, {}) for ids, _ in self.above_vals_many(reqs)]
         with trace.span("above.exact"):
             return self._above_exact_many(reqs)
 
     def above_many(self, reqs):
         """The ids of ``above_exact_many`` alone (the submatch finalizer
         rescores them with flows)."""
-        found = (self.above_exact_many(reqs) if self.exact_ctx is not None
-                 else self.above_vals_many(reqs))
-        return [ids for ids, _ in found]
+        return [ids for ids, _ in self.above_exact_many(reqs)]
 
     def above_vals_many(self, reqs):
         """Like ``above_exact_many``, with {sid: device score} for every id
@@ -1300,7 +1409,7 @@ class TopKView:
 
     def initial_exact(self, m: int, thresh: float):
         """(cand, rest_max, exact raw scores) — the exact scores arrive
-        with the fused top-k step."""
+        with the fused top-k step (None from a source without one)."""
         return self._src.initial(self.qi, m, thresh)
 
     def flows_payload(self, sid: int):
@@ -1392,6 +1501,9 @@ class BruteForceEngine:
         # contextual embedding name -> per bucket [n, L, d] bf16 vectors
         # (pinned host tensors when paged)
         self._ctx_stores: Dict[str, list] = {}
+        # the buckets' rows and stores sharded over a mesh, per device set
+        # (MeshSearch.bucket_shards, ctx_shards)
+        self.mesh_shards: dict = {}
         self._device_buckets = []
         # slice id -> (bucket index, row) for O(1) rescore lookups
         self._slice_loc = np.full((packed.n_slices, 2), -1, np.int32)
@@ -1442,13 +1554,9 @@ class BruteForceEngine:
         if with_pos or flt is not None:
             view["pos"] = self._bucket_ids(db, "pos")
         if flt is not None:
-            perm, ln, _ = compact_slices(
+            view["tokens"], view["pos"], view["lengths"] = compact_rows(
                 view["tokens"], view["pos"], self._bucket_ids(db, "tag"),
-                view["lengths"], *flt,
-            )
-            view["tokens"] = torch.gather(view["tokens"], 1, perm).contiguous()
-            view["pos"] = torch.gather(view["pos"], 1, perm).contiguous()
-            view["lengths"] = ln
+                view["lengths"], flt)
         return view
 
     def collect(self, pending, Q: int = 1) -> np.ndarray:
@@ -1589,55 +1697,27 @@ class BruteForceEngine:
             return self._device_buckets[bi].page(("ctx", name), store)
         return store
 
-    def _dense_pass(self, block, Tpad: int, Q: int, d: int, lt, gaps,
-                    locality: str, nt, general=None, doc_filter=None,
-                    rewrite=None, boost=None):
+    def _dense_view(self, db, ctx_names, with_pos: bool, with_tag: bool) -> dict:
+        """The bucket as a dense pass reads it (``dense_scores``' view): its
+        fields, its contextual stores of ``ctx_names`` under "ctx", and its
+        pos and tag ids where the pass reads them (a paged bucket pages
+        each in)."""
+        view = {k: db[k] for k in ("bi", "capacity", "slice_index", "n",
+                                   "tokens", "lengths")}
+        view["ctx"] = {nm: self._ctx_dev(nm, db["bi"]) for nm in ctx_names}
+        if with_pos:
+            view["pos"] = self._bucket_ids(db, "pos")
+        if with_tag:
+            view["tag"] = self._bucket_ids(db, "tag")
+        return view
+
+    def _dense_pass(self, run, ctx_names, with_pos: bool, with_tag: bool):
         """The pending list [(bucket, normalized scores [n, Q] on the
         device)] of a corpus pass over dense blocks (lazy entries when
-        paged).  Per chunk [c0, c1) of ``ctx_chunk``
-        slices: ``block(db, c0, c1)`` makes its [c, L, Tpad, Q] similarity
-        block; under a document-side filter the block's rows are compacted
-        AFTER it is made (the store's rows stay in slice order, so the
-        metric GEMM sees the JAX package's shapes); ``rewrite(S, pos)``
-        (the tag rewrite) sees the compacted block; then ONE launch of a
-        dense DP entry.  ``boost`` [n_slices] multiplies the scores."""
-        dev = self.device
-        flt = None if doc_filter is None else doc_filter.device_args(dev)
-        return [_pending_entry(db, lambda db=db: (db, self._dense_bucket(
-                    db, block, Tpad, Q, d, lt, gaps, locality, nt, general, flt,
-                    rewrite, boost)), self.paged)
+        paged): ``run(view)`` of each live bucket's ``_dense_view``."""
+        return [_pending_entry(db, lambda db=db: (db, run(self._dense_view(
+                    db, ctx_names, with_pos, with_tag))), self.paged)
                 for db in self._live_buckets()]
-
-    def _dense_bucket(self, db, block, Tpad, Q, d, lt, gaps, locality, nt,
-                      general, flt, rewrite, boost):
-        """One bucket's chunks of ``_dense_pass``: its scores [n, Q]."""
-        dev = self.device
-        n, L = db["n"], db["capacity"]
-        chunk = ctx_chunk(L, Tpad, Q, d)
-        parts = []
-        for c0 in range(0, n, chunk):
-            c1 = min(c0 + chunk, n)
-            S = block(db, c0, c1)
-            ln = db["lengths"][c0:c1]
-            pos = None
-            if flt is not None or rewrite is not None:
-                pos = self._bucket_ids(db, "pos")[c0:c1]
-            if flt is not None:
-                perm, ln, _ = compact_slices(
-                    db["tokens"][c0:c1], pos,
-                    self._bucket_ids(db, "tag")[c0:c1], ln, *flt)
-                S = torch.gather(
-                    S, 1, perm[:, :, None, None].expand(-1, -1, Tpad, Q))
-                pos = torch.gather(pos, 1, perm)
-            if rewrite is not None:
-                S = rewrite(S, pos)
-            b = None
-            if boost is not None:
-                sids = torch.as_tensor(db["slice_index"][c0:c1], device=dev)
-                b = boost[sids.long()][:, None]
-            parts.append(_dense_scores(S.contiguous(), ln, lt, gaps, nt,
-                                       locality, general, b))
-        return torch.cat(parts)
 
     def _plan_pass(self, qp, len_t: int, gaps, locality: str,
                    norm_total: float, gap_costs=None, tag_weights=None,
@@ -1667,15 +1747,25 @@ class BruteForceEngine:
                                     tw[1].expand(c, T), tw[2].expand(c),
                                     tw[3].expand(c))[..., None]
 
-        def block(db, c0, c1):
-            ctx = tuple(self._ctx_dev(nm, db["bi"])[c0:c1] for nm in qp.ctx_names)
-            return eval_plan_chunk(qp, db["tokens"][c0:c1], ctx)["similarity"][..., None]
+        def block(view, c0, c1):
+            ctx = tuple(view["ctx"][nm][c0:c1] for nm in qp.ctx_names)
+            return eval_plan_chunk(qp, view["tokens"][c0:c1], ctx)["similarity"][..., None]
 
         bvec = (None if boost is None else
                 torch.as_tensor(np.asarray(boost, np.float32), device=dev))
         d = max(int(v.unmodified.shape[1]) for v in qp.ctx_vectors)
-        return self._dense_pass(block, T, 1, d, lt, gaps, locality, nt, general,
-                                doc_filter, rewrite, bvec)
+        flt = None if doc_filter is None else doc_filter.device_args(dev)
+
+        def run(view):
+            b = None
+            if bvec is not None:
+                sids = torch.as_tensor(view["slice_index"], device=dev)
+                b = bvec[sids.long()][:, None]
+            return dense_scores(view, block, T, 1, d, lt, gaps, locality, nt,
+                                general, flt, rewrite, b)
+
+        return self._dense_pass(run, qp.ctx_names,
+                                flt is not None or rewrite is not None, flt is not None)
 
     def score_all(self, qp, len_t: int, gaps, locality: str,
                   norm_total: float, boost=None, tag_weights=None,
@@ -1762,59 +1852,27 @@ class BruteForceEngine:
             return [int(c) for c in kept], float("-inf")
         return [int(c) for c in kept], float(scores[ap[m]])
 
-    def score_all_multi_tree(self, plans, len_ts, gaps, locality: str,
-                             norm_totals, gap_costs=None, doc_filter=None,
-                             tag_weights=None) -> np.ndarray:
-        """[n_slices, Q] normalized scores of Q plans of one modifier tree
-        with a contextual leaf (one contextual embedding, or mixed static +
-        contextual leaves) in one corpus pass (the JAX package's
-        ``score_all_multi_tree``, and its ``score_all_multi_ctx`` for the
-        one-leaf plan ("ctx", 0, metric): the same single GEMM a chunk):
-        ``_dense_pass``, a chunk's block the
-        stacked plan's evaluation (``stack_tree_plans``: every static leaf
-        gathers its [V, Tpad * Q] table, every contextual leaf is one
-        metric GEMM against its [Tpad * Q, d] stacked needles), compacted
-        under ``doc_filter``, then each query's tag rewrite of the
-        combined similarity (``tag_weights``: a TagWeightingSpec or None a
-        query).  The contextual stores must be packed already; a chunk's
-        vectors count every contextual leaf's width."""
-        dev = self.device
-        Q = len(plans)
-        sp, Tpad = stack_tree_plans(plans, len_ts, dev)
-        lt = torch.as_tensor(np.asarray(len_ts, np.int32), device=dev)
-        nt = torch.as_tensor(np.asarray(norm_totals, np.float32), device=dev)
-        general = (None if gap_costs is None
-                   else GeneralGaps(gap_costs, Tpad + 1, dev))
-        rewrite = None
-        if tag_weights is not None and any(t is not None for t in tag_weights):
-            tw_w = np.ones((Tpad, Q), np.float32)
-            tw_p = np.full((Tpad, Q), -1, np.int8)
-            tw_pen = np.zeros((Q,), np.float32)
-            tw_thr = np.full((Q,), -1.0, np.float32)
-            for qi, tw in enumerate(tag_weights):
-                if tw is None:
-                    continue
-                t = min(len(tw.t_pos_weights), Tpad)
-                tw_w[:t, qi] = tw.t_pos_weights[:t]
-                tw_p[:t, qi] = tw.pos_t[:t]
-                tw_pen[qi] = tw.pos_mismatch_penalty
-                tw_thr[qi] = tw.similarity_threshold
-            tw_args = _put_all((tw_w, tw_p, tw_pen, tw_thr), dev)
+    def tree_pass(self, plans, len_ts, gaps, locality: str, norm_totals,
+                  gap_costs=None, doc_filter=None, tag_weights=None, boosts=None):
+        """The pending list [(bucket, [n, Q] normalized scores on the
+        device)] of Q plans of one modifier tree with a contextual leaf (one
+        contextual embedding, or mixed static + contextual leaves) in one
+        corpus pass (the JAX package's ``score_all_multi_tree``, and its
+        ``score_all_multi_ctx`` for the one-leaf plan ("ctx", 0, metric):
+        the same single GEMM a chunk, before the fetch):
+        ``_dense_pass`` of a ``TreePass`` on the engine's device, the
+        scores multiplied by ``boosts`` (as in ``_dispatch_multi``).  The
+        contextual stores must be packed already."""
+        tp = TreePass(plans, len_ts, gaps, locality, norm_totals, self.device,
+                      gap_costs, doc_filter, tag_weights)
 
-            def rewrite(S, pos):
-                return tag_weighted_multi(S, pos, *tw_args)
+        def run(view):
+            return tp.scores(view, None if boosts is None
+                             else self._boost_matrix(view, boosts))
 
-        def block(db, c0, c1):
-            ctx = tuple(self._ctx_dev(nm, db["bi"])[c0:c1] for nm in sp.ctx_names)
-            return eval_plan_chunk(sp, db["tokens"][c0:c1], ctx)["similarity"].reshape(
-                c1 - c0, db["capacity"], Tpad, Q)
-
-        d = sum(int(v.unmodified.shape[1]) for v in sp.ctx_vectors)
         with trace.span("tree.dispatch"):
-            cols = self._dense_pass(block, Tpad, Q, d, lt, gaps, locality, nt,
-                                    general, doc_filter, rewrite)
-        with trace.span("tree.fetch"):
-            return self.collect(cols, Q)
+            return self._dense_pass(run, tp.sp.ctx_names, tp.with_pos,
+                                    tp.flt is not None)
 
     def _plan_rows_similarity(self, bi: int, rows, sels, qp, tag_weights=None):
         """(S weighted [g, L, T], S unweighted) of bucket ``bi``'s ``rows``
@@ -1937,31 +1995,17 @@ class BruteForceEngine:
             sim_multi, sim_scale, max_abs, Tpad = stack_query_tables(
                 plans, len_ts, sim_dtype
             )
-            gaps, general, scale_t = scaled_costs(
-                gaps, gap_costs, sim_scale, Tpad, self.device
+            mp = MultiQueryPass(
+                sim_multi, sim_scale, len_ts, gaps, gap_costs, norm_totals,
+                self.device,
+                corpus_tag_columns(tag_weights, len(plans), Tpad) if with_tags else None,
             )
-            lt_arr = torch.as_tensor(
-                np.asarray(len_ts, np.int32), device=self.device
-            )
-            if general is None:
-                # the affine launches' per-needle split, once a pass
-                sim_multi = affine_table(sim_multi, lt_arr, len_ts)
-        nt_arr = torch.as_tensor(
-            np.asarray(norm_totals, np.float32), device=self.device
-        )
-        Q = len(plans)
-        tw_cols = None
-        if with_tags:
-            tw_cols = _put_all(tag_arrays(
-                corpus_tag_columns(tag_weights, Q, Tpad)), self.device)
         flt = None if doc_filter is None else doc_filter.device_args(self.device)
 
         def run(db):
             view = self._pass_view(db, flt, with_tags)
-            return view, _bucket_scores_multiquery(
-                view["tokens"], view["lengths"], sim_multi, lt_arr, gaps, nt_arr,
-                locality, general, scale_t,
-                None if tw_cols is None else TagBlock(view["pos"], *tw_cols),
+            return view, mp.scores(
+                view["tokens"], view["lengths"], locality, view.get("pos"),
                 None if boosts is None else self._boost_matrix(db, boosts),
             )
 

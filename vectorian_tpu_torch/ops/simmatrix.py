@@ -16,6 +16,7 @@ metric/contextual.cpp:26-99, per document there).
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
@@ -246,6 +247,23 @@ class QueryPlan:
         if self.static_sims:
             return int(self.static_sims[0].shape[1])
         return int(self.ctx_vectors[0].unmodified.shape[0])
+
+
+def plan_to(qp: QueryPlan, device) -> QueryPlan:
+    """``qp`` with its tensors on ``device`` (a tensor already there is
+    shared, not copied)."""
+    def mv(t):
+        return t.to(device)
+
+    return dataclasses.replace(
+        qp,
+        matrix=None if qp.matrix is None else mv(qp.matrix),
+        static_sims=[mv(t) for t in qp.static_sims],
+        static_mags=[mv(t) for t in qp.static_mags],
+        ctx_vectors=[_ChunkVectors(mv(v.unmodified), mv(v.normalized), mv(v.magnitudes))
+                     for v in qp.ctx_vectors],
+        mixed_weights=[mv(t) for t in qp.mixed_weights],
+    )
 
 
 def _has_unary(node) -> bool:

@@ -3,10 +3,11 @@ packed corpora.
 
 Reference: vectorian/core/cpp/alignment/wmd.h + wrd.h + bow.h.
 
-The port of vectorian_tpu/ops/wmd.py without its multi-device methods:
-the device ranking passes and the host rescore behind ``WMDEngine.find``
-and ``WMDEngine.find_batch``.  The JAX package computes its ranking passes
-with jnp (no Pallas kernel), so the port computes them with torch ops on
+The port of vectorian_tpu/ops/wmd.py: the device ranking passes and the
+host rescore behind ``WMDEngine.find`` and ``WMDEngine.find_batch``, whose
+ranking pass a mesh shards (``WMDEngine._ranking_source``).  The JAX
+package computes its ranking passes with jnp (no Pallas kernel), so the
+port computes them with torch ops on
 the session's device, chunk by chunk of each bucket: a query's plan
 through ``eval_plan_chunk`` (static, contextual and mixed trees alike); a
 batch's Q queries a chunk at once, the [c, L, T, Q] block gathered from
@@ -38,6 +39,8 @@ batch reports, query by query, the bytes of ``find``.
 
 from __future__ import annotations
 
+import copy
+import functools
 from typing import List
 
 import numpy as np
@@ -57,7 +60,8 @@ from vectorian_tpu_torch.ops.search import (
     stack_tree_plans,
     tag_weighted_multi,
 )
-from vectorian_tpu_torch.ops.simmatrix import eval_plan_chunk
+from vectorian_tpu_torch.ops.simmatrix import eval_plan_chunk, plan_to
+from vectorian_tpu_torch.parallel.mesh import MeshSearch
 from vectorian_tpu_torch.utils import trace
 
 MAX_SIMILARITY = 1.0
@@ -244,20 +248,28 @@ class _ChunkArgs:
         """(tok, pos, tag, ln, ctx) of each chunk of bucket ``db``: pos and
         tag ids only where the tag rewrite, the (id, tag) BOW or the filter
         read them."""
-        eng = self.engine
         n, L = db["n"], db["capacity"]
         need_pos = self.tw is not None or self.df is not None
         need_tag = with_tag or self.df is not None
+        pos = self._ids(db, "pos") if need_pos else None
+        tag = self._ids(db, "tag") if need_tag else None
+        ctx = tuple(db["ctx"][nm] if "ctx" in db else self.engine._ctx_dev(nm, db["bi"])
+                    for nm in self.ctx_names)
         step = self._step(L)
         for c0 in range(0, n, step):
             c1 = min(c0 + step, n)
             yield (
                 db["tokens"][c0:c1],
-                eng._bucket_ids(db, "pos")[c0:c1] if need_pos else None,
-                eng._bucket_ids(db, "tag")[c0:c1] if need_tag else None,
+                None if pos is None else pos[c0:c1],
+                None if tag is None else tag[c0:c1],
                 db["lengths"][c0:c1],
-                tuple(eng._ctx_dev(nm, db["bi"])[c0:c1] for nm in self.ctx_names),
+                tuple(c[c0:c1] for c in ctx),
             )
+
+    def _ids(self, db, key: str):
+        """The rows' "pos" or "tag" ids: a mesh shard's view carries them,
+        an engine bucket uploads them at first use."""
+        return db[key] if key in db else self.engine._bucket_ids(db, key)
 
     def similarity(self, tok, pos, ctx, needs_magnitudes=False):
         out = eval_plan_chunk(self.qp, tok, ctx, needs_magnitudes=needs_magnitudes)
@@ -377,17 +389,33 @@ class _MultiChunkArgs(_ChunkArgs):
     vocabulary's magnitudes [V] of a static WRD batch."""
 
     def __init__(self, engine, table, sp, T: int, Q: int, tw, doc_filter,
-                 mags=None):
+                 mags=None, device=None):
         self.engine = engine
+        self.device = torch.device(device) if device is not None else engine.device
         self.table = table
         self.qp = sp
         self.ctx_names = [] if sp is None else list(sp.ctx_names)
         self.T, self.Q = T, Q
         self.tw = tw
-        self.df = WMDEngine._df_args(doc_filter, engine.device)
+        self.df = WMDEngine._df_args(doc_filter, self.device)
         self.mags = mags
         self.d = (0 if sp is None
                   else sum(int(v.unmodified.shape[1]) for v in sp.ctx_vectors))
+
+    def to(self, device) -> "_MultiChunkArgs":
+        """These arguments with every tensor on ``device`` (a mesh shard's;
+        itself on its own device)."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        out = copy.copy(self)
+        out.device = device
+        out.table = None if self.table is None else self.table.to(device)
+        out.qp = None if self.qp is None else plan_to(self.qp, device)
+        out.tw = None if self.tw is None else tuple(t.to(device) for t in self.tw)
+        out.df = None if self.df is None else tuple(t.to(device) for t in self.df)
+        out.mags = None if self.mags is None else self.mags.to(device)
+        return out
 
     def _step(self, L: int) -> int:
         return _transport_chunk(L, self.T, self.d, self.Q)
@@ -643,8 +671,8 @@ def rwmd_flow_host(m_t, m_s, D_ts, injective: bool, normalize_bow: bool = True):
 
 class WMDEngine:
     """Transport-metric search over a BruteForceEngine's packed buckets:
-    ``find`` and ``find_batch`` (the JAX package's without its mesh
-    methods)."""
+    ``find`` and ``find_batch`` (the JAX package's; ``find_batch(mesh=)``
+    shards the ranking pass)."""
 
     def __init__(self, engine, alignment_args: dict):
         self._engine = engine
@@ -754,11 +782,14 @@ class WMDEngine:
             )
 
     def find_batch(self, index, queries, qps, n: int, min_score: float,
-                   tagws=None, boosts=None, doc_filter=None) -> List[List]:
-        """Q queries in one corpus pass (the JAX package's ``find_batch``
-        without ``mesh``), then each query's host rescore as ``find``'s —
-        every score a match reports is the host's (``rwmd_score_host``, or
-        the exact EMD), so each query gets the bytes of its ``find``.
+                   tagws=None, boosts=None, doc_filter=None, mesh=None) -> List[List]:
+        """Q queries in one corpus pass (the JAX package's ``find_batch``),
+        then each query's host rescore as ``find``'s — every score a match
+        reports is the host's (``rwmd_score_host``, or the exact EMD), so
+        each query gets the bytes of its ``find``.  ``mesh`` (a
+        ``parallel.mesh.Mesh`` or ``MeshSearch``) shards the ranking pass
+        over its devices (``_ranking_source``); the host rescore, the consume
+        rounds and the exact cut stay the single-device batch's.
 
         ``qps``: each query's plan at its padded width; static plans
         (("static", 0)) stack into one [V, T, Q] table, any other tree
@@ -769,6 +800,7 @@ class WMDEngine:
         document-side filter (excluded tokens carry no mass)."""
         engine = self._engine
         a = self._args
+        mesh = None if mesh is None else MeshSearch.of(mesh)
         dev = engine.device
         Q = len(queries)
         tagws = list(tagws) if tagws is not None else [None] * Q
@@ -809,23 +841,27 @@ class WMDEngine:
             mags = qps[0].static_mags[0]
         args = _MultiChunkArgs(engine, table, sp, Tmax, Q, tw_args, doc_filter, mags)
 
-        def boost_of(db):
-            return engine._boost_matrix(db, boosts) if with_boost else None
-
+        boosts = boosts if with_boost else None
         fetch = (table, tw_args) if is_static else None
         if not (self._algorithm == "word-movers-distance" and a["relaxed"]):
             return self._find_batch_emd(index, queries, qps, states, args, mass_t,
-                                        unique, tagged, boost_of, n, min_score, fetch)
-        m_t = torch.as_tensor(mass_t, device=dev)
-        lt = torch.as_tensor([q.n_tokens for q in queries], dtype=torch.int32, device=dev)
-        ms = torch.as_tensor(max_score_t, device=dev)
+                                        unique, tagged, boosts, n, min_score, fetch,
+                                        mesh)
+        lt = np.asarray([q.n_tokens for q in queries], np.int32)
+
+        @functools.cache
+        def consts(device):
+            return tuple(torch.as_tensor(x, device=device) for x in (mass_t, lt, max_score_t))
+
+        def score(args, view, boost):
+            return _bucket_rwmd_scores_multi(
+                args, view, *consts(args.device), bool(a["injective"]),
+                bool(a["symmetric"]), bool(a["normalize_bow"]), unique, tagged, boost)
+
         with trace.span("wmd.rank"):
-            pending = self._buckets_pass(lambda db: _bucket_rwmd_scores_multi(
-                args, db, m_t, lt, ms, bool(a["injective"]), bool(a["symmetric"]),
-                bool(a["normalize_bow"]), unique, tagged, boost_of(db)))
             # the device top-k a bucket: only the pools reach the host;
             # their slack makes them tie-complete for the host's scores
-            src = BucketTopKSource(engine, pending, Q, n + 32)
+            src = self._ranking_source(mesh, args, score, boosts, n + 32)
             eps = RWMD_RANK_EPS * (max(1.0, max(float(np.max(b)) for b in boosts
                                                 if b is not None))
                                    if with_boost else 1.0)
@@ -865,20 +901,25 @@ class WMDEngine:
         return mass, bool(a.get("normalize_magnitudes", True)), True
 
     def _find_batch_emd(self, index, queries, qps, states, args, mass_t, unique,
-                        tagged, boost_of, n: int, min_score: float, fetch):
+                        tagged, boosts, n: int, min_score: float, fetch, mesh=None):
         """Full WMD / WRD batch: one pass ranks Q queries by their provable
-        bounds, then ``_rescore_with_cut_many`` solves each query's exact
-        EMDs under its cut — the exhaustive exact-EMD oracle's top-k, the
-        bytes of ``find``."""
-        engine = self._engine
-        Q = len(queries)
+        bounds (``_emd_score_bound``: an upper bound on every exact score,
+        on every shard of a mesh too), then ``_rescore_with_cut_many``
+        solves each query's exact EMDs under its cut — the exhaustive
+        exact-EMD oracle's top-k, the bytes of ``find``."""
         mass, normalize, is_wrd = self._batch_emd_masses(
             index, queries, qps, states, args.T, mass_t)
-        m_t = torch.as_tensor(mass, device=engine.device)
+
+        @functools.cache
+        def mass_on(device):
+            return torch.as_tensor(mass, device=device)
+
+        def score(args, view, boost):
+            return _bucket_emd_scores_multi(args, view, mass_on(args.device), is_wrd,
+                                            normalize, unique, tagged, boost)
+
         with trace.span("wmd.rank"):
-            pending = self._buckets_pass(lambda db: _bucket_emd_scores_multi(
-                args, db, m_t, is_wrd, normalize, unique, tagged, boost_of(db)))
-            src = BucketTopKSource(engine, pending, Q, n + 32)
+            src = self._ranking_source(mesh, args, score, boosts, n + 32)
         return self._rescore_with_cut_many(index, queries, qps, states, src, n,
                                            min_score, fetch)
 
@@ -1521,6 +1562,29 @@ class WMDEngine:
         """The document filter's exclusion masks (pos, tag, token) as bool
         tensors; None without a filter."""
         return None if doc_filter is None else doc_filter.device_args(device)
+
+    def _ranking_source(self, mesh, args, score, boosts, k: int):
+        """The batch's ranking pass as its ``BucketTopKSource`` (the
+        per-entry top-k fetch): ``score(args, view, boost)`` -> the [n, Q]
+        ranking scores of every live bucket on the engine's device (boost
+        its [n, Q] multipliers, or None), or, with ``mesh`` (a
+        MeshSearch), of every shard of every bucket on the shard's device
+        (``MeshSearch.transport_scores``: ``args.to(device)``; each shard
+        a pending entry of its own, ``MeshSearch.pending``, so the source
+        merges the shards' local top-k and its completion selects read the
+        shards' scores where they lie: the JAX package's
+        ``_find_batch_mesh_rwmd`` / ``_find_batch_mesh_emd`` shard pass
+        and merge)."""
+        engine = self._engine
+        if mesh is None:
+            pending = self._buckets_pass(lambda db: score(
+                args, db, None if boosts is None else engine._boost_matrix(db, boosts)))
+        else:
+            pending = mesh.pending(
+                engine,
+                lambda db, sh, boost, ctx: mesh.transport_scores(args, score, *sh, boost, ctx),
+                boosts, args.ctx_names)
+        return BucketTopKSource(engine, pending, args.Q, k)
 
     def _buckets_pass(self, fn):
         """``fn(db)`` -> [n, Q] device scores of every non-empty bucket: the
