@@ -141,6 +141,29 @@ Phases, each of which raises on failure:
    shard's inputs (each table type, tagged, dense) bit for bit against
    their plain versions, the four shards' launches timed against the
    bucket's one launch.
+   4n: the storage and notebook layer.  On phase 4's session,
+   ``Result.format("excerpt +tags +metric, flow, matrix")._repr_html_()``
+   of the 21 affine ``find`` results, of one int8 ``find_batch`` of the 32
+   queries under the affine and the ``ExponentialGapCost(3.0)`` index, and
+   of 21 relaxed-WMD ``find`` results (sparse flows): per result one
+   excerpt and one flow box a match, the flow SVG's paths = the match's
+   flow edges, one matrix spec a match, each match's slice text in its
+   excerpt; host ms a result (p50, max).  A ``LabSession`` over the
+   3,000-sentence cut: ``run_query`` = the plain ``Session``'s lists byte
+   for byte, kernel 1 launched.  Where ipywidgets is installed,
+   ``InteractiveQuery`` on the cut's card session: ``run`` under an affine
+   and a general-gap configuration = the index's ``find`` byte for byte
+   (kernel 1, then kernel 3, launched), ``QueryWidget.search_html()``.
+   After phase 4's session is dropped, where h5py is installed: a
+   ``TemporaryCorpus`` of phase 4's first CORPUS_SENTENCES sentences, a
+   cold ``Session(corpus)`` (prepare, store the flavor, pack) and a
+   second session over ``Corpus(path)`` (the flavor hit: no
+   ``prepare_document`` call), ``find`` p50 (21) and an int8
+   ``find_batch`` Q=32 on both, byte-identical; the add, cold and reopen
+   seconds beside phase 4's host build.  A part whose package (h5py,
+   ipywidgets) is not installed does not run: a line names it and why;
+   with holoviews installed the flow renders take its branch and the SVG
+   path count is not checked (a line says so).
 5. The port on the card against the port on the CPU on a small corpus,
    affine and general-gap indexes, phase 4's long query, and 4e's
    options at each of their precisions.
@@ -155,7 +178,9 @@ turns against that tree's (``tag_turns``).
 without ``--split-compile 0`` and exits; ``--dense-check`` runs phases 2,
 3d and 4f alone; ``--wide-check`` phase 2, phase 3's wide cases and the
 long-query phase (on phase 4's session); ``--mesh-check`` phase 2, 4k
-and 4m.  ``--transport-reps N`` (with any of them) times 4k's static
+and 4m; ``--notebook-check`` phase 2 and 4n on the 3,000-sentence cut
+(its renders, LabSession and InteractiveQuery, and a stored corpus of the
+cut's sentences).  ``--transport-reps N`` (with any of them) times 4k's static
 batches N times a metric instead of once.  ``python3 chip_smoke.py
 --tag-check [SASS_DIR]`` runs phase 2, phase 3t and phase 3's general-gap
 kernels alone, both tagged corpus kernels at 4e's shapes
@@ -172,6 +197,7 @@ main path report the device busy time, idle share and top kernels.
 """
 
 import concurrent.futures
+import importlib.util
 import json
 import math
 import os
@@ -2063,14 +2089,15 @@ def zipf_corpus(n_sents, rng):
     return words, texts, query
 
 
-def build_session(texts, words, vectors, device, extra=()):
-    """A Session over ``texts`` whose first embedding is the KeyedVectors
-    "syn" of ``words`` and ``vectors``; ``extra`` embeddings follow it."""
+def build_session(texts, words, vectors, device, extra=(), cls=None):
+    """A Session (or ``cls``) over ``texts`` whose first embedding is the
+    KeyedVectors "syn" of ``words`` and ``vectors``; ``extra`` embeddings
+    follow it."""
     import vectorian_tpu_torch as vt
 
     emb = vt.KeyedVectors("syn", words, vectors)
     docs = [vt.StringImporter()(t, title=f"d{i}") for i, t in enumerate(texts)]
-    return vt.Session(docs, embeddings=[emb, *extra], device=device)
+    return (cls or vt.Session)(docs, embeddings=[emb, *extra], device=device)
 
 
 def make_index(session, gap=None, **span_args):
@@ -4695,6 +4722,248 @@ def phase_small_reference(long_q):
           "max_abs_score_diff_vs_cpu": worst})
 
 
+# 4n: the renders' spec, and the stored corpus's size in the full run (the
+# first CORPUS_SENTENCES of phase 4's sentences: the full run takes about
+# 930 s of the 1,200 s limit on an H100 at 700 W without this part, which
+# costs about one more host build, so it is cut to a quarter of phase 4's
+# corpus)
+RENDER_SPEC = "excerpt +tags +metric, flow, matrix"
+CORPUS_SENTENCES = 250_000
+
+
+def missing(package):
+    """True, after a line that names what does not run and why, when
+    ``package`` is not installed; nothing else is caught."""
+    if importlib.util.find_spec(package) is not None:
+        return False
+    emit({"phase": "notebook", "not_run": f"{package} not installed",
+          "part": {"h5py": "the stored corpus (Corpus / TemporaryCorpus)",
+                   "ipywidgets": "InteractiveQuery; LabSession without its progress bar"}[
+                       package]})
+    log(f"4n: {package} is not installed; its part does not run")
+    return True
+
+
+def _slice_tokens(match):
+    pd = match.prepared_doc
+    doc = pd.doc
+    start, length = match.slice_span
+    return [doc.text[doc.idx[o] : doc.idx[o] + doc.len_[o]]
+            for o in pd.orig_index[start : start + length]]
+
+
+def render_check(label, results, card, svg):
+    """4n: ``Result.format(RENDER_SPEC)._repr_html_()`` of each result, timed
+    on the host (the card does no work in a render); per result one excerpt
+    box and one flow box a match, the flow SVG's paths = the match's flow
+    edges (``flow_edges``), one matrix spec a match, and each match's
+    excerpt, holding its slice's text, in the page.  ``svg``: the flow
+    renders take the inline SVG branch (holoviews is not installed)."""
+    import html as html_mod
+
+    import numpy as np
+
+    from vectorian_tpu_torch.render import ExcerptRenderer, flow_edges
+
+    ms, n_matches, n_edges = [], 0, 0
+    for r in results:
+        t = time.perf_counter()
+        page = r.format(RENDER_SPEC)._repr_html_()
+        ms.append((time.perf_counter() - t) * 1e3)
+        body = html_mod.unescape(page)  # the srcdoc's page
+        edges = sum(len(list(flow_edges(m.flow))) for m in r)
+        if body.count("<div class='box'>") != 2 * len(r):
+            raise AssertionError(f"render {label}: not one excerpt and one flow box a match")
+        if svg and body.count("<path ") != edges:
+            raise AssertionError(f"render {label}: {body.count('<path ')} SVG paths, "
+                                 f"{edges} flow edges")
+        if body.count("vegaEmbed('#vtpu-matrix-") != len(r):
+            raise AssertionError(f"render {label}: not one matrix spec a match")
+        for m in r:
+            box = ExcerptRenderer("tags", "metric").render_match(m.to_json(10), m.doc.title)
+            if box not in body or not all(html_mod.escape(w) in box for w in _slice_tokens(m)):
+                raise AssertionError(f"render {label}: slice {m.slice_id}'s text is not "
+                                     "in its excerpt")
+        n_matches += len(r)
+        n_edges += edges
+    if not n_matches:
+        raise AssertionError(f"render {label}: no match rendered")
+    emit({"phase": "notebook_render", "results": label, "card": card, "n": len(results),
+          "matches": n_matches, "flow_edges": n_edges, "spec": RENDER_SPEC,
+          "svg_paths_checked": svg, "host_ms_per_result_p50": float(np.percentile(ms, 50)),
+          "host_ms_per_result_max": max(ms)})
+
+
+def phase_notebook_render(session, queries, finds, card):
+    """4n, on phase 4's session: the renders of the 21 affine ``find``
+    results, of one int8 ``find_batch`` of the 32 queries under the affine
+    and the ``ExponentialGapCost(3.0)`` index, and of 4i's relaxed-WMD
+    ``find`` results (sparse flows); the kernels' launch counts set to 0
+    right before the searches and read right after."""
+    from vectorian_tpu_torch.alignment import ExponentialGapCost, WordMoversDistance
+    from vectorian_tpu_torch.ops import dp_kernels
+
+    n, min_score = 10, 0.2
+    affine, general = make_index(session), make_index(session, ExponentialGapCost(3.0))
+    rwmd = _transport_index(session, WordMoversDistance())
+    dp_kernels.reset_launches()
+    groups = {
+        "find_affine": [affine.find(q, n=n, min_score=min_score) for q in finds],
+        "find_batch_int8_affine": affine.find_batch(queries, n=n, min_score=min_score),
+        "find_batch_int8_general": general.find_batch(queries, n=n, min_score=min_score),
+        "find_relaxed_wmd": [rwmd.find(q, n=n, min_score=min_score) for q in finds],
+    }
+    launches = {k: v for k, v in dp_kernels.LAUNCHES.items() if v}
+    for kernel in ("affine_dp", "affine_dp[int8]", "wsb_dp[int8]"):
+        if not launches.get(kernel):
+            raise AssertionError(f"4n: the searches launched no {kernel} kernel")
+    svg = importlib.util.find_spec("holoviews") is None
+    if not svg:
+        emit({"phase": "notebook", "not_run": "the SVG path count: holoviews renders the flows"})
+    for label, results in groups.items():
+        check_results(results, n, min_score)
+        render_check(label, results, card, svg)
+    emit({"phase": "notebook_searches", "card": card, "launches": launches})
+
+
+def phase_lab_session(texts, words, vectors, plain, finds, card):
+    """4n: a ``LabSession`` over the 3,000-sentence cut on the card:
+    ``run_query(find, q)`` returns the plain ``Session``'s (slice_id, score)
+    lists byte for byte, and kernel 1 launched (counts from 0)."""
+    import vectorian_tpu_torch as vt
+    from vectorian_tpu_torch.ops import dp_kernels
+
+    lab = build_session(corpus_cut(texts), words, vectors, DEVICE, cls=vt.LabSession)
+    lab_index, plain_index = make_index(lab), make_index(plain)
+    dp_kernels.reset_launches()
+    got = [pairs(lab.run_query(lambda q: lab_index.find(q, n=10, min_score=0.2), q))
+           for q in finds]
+    launched = dp_kernels.LAUNCHES["affine_dp"]
+    want = [pairs(plain.run_query(lambda q: plain_index.find(q, n=10, min_score=0.2), q))
+            for q in finds]
+    if not launched:
+        raise AssertionError("LabSession.run_query launched no affine_dp kernel")
+    if got != want or not any(got):
+        raise AssertionError("LabSession.run_query differs from Session.run_query")
+    emit({"phase": "notebook_lab_session", "card": card, "queries": len(finds),
+          "affine_dp_launches": launched, "byte_identical": True,
+          "progress_bar": not missing("ipywidgets")})
+
+
+def phase_interactive(session, finds, card):
+    """4n, where ipywidgets is installed: ``InteractiveQuery`` on the cut's
+    card session; ``run`` under an affine and a general-gap configuration
+    equals the configured index's ``find`` byte for byte (kernel 1, then
+    kernel 3, launched), and ``QueryWidget.search_html()`` renders."""
+    if missing("ipywidgets"):
+        return
+    from vectorian_tpu_torch.interact import InteractiveQuery
+    from vectorian_tpu_torch.ops import dp_kernels
+
+    iq = InteractiveQuery(session)
+    for gap, kernel in (("constant", "affine_dp"), ("exponential", "wsb_dp")):
+        iq._alignment._gap_s._kind.value = gap
+        iq._alignment._gap_t._kind.value = gap
+        dp_kernels.reset_launches()
+        got = [pairs(iq.run(q, n=10)) for q in finds]
+        launched = dp_kernels.LAUNCHES[kernel]
+        index = iq.make_index()
+        if not launched or got != [pairs(index.find(q, n=10)) for q in finds]:
+            raise AssertionError(f"InteractiveQuery.run ({gap} gaps) differs from find "
+                                 f"or launched no {kernel} kernel")
+        emit({"phase": "notebook_interactive", "card": card, "gap": gap,
+              "description": iq.describe(), "launches": {kernel: launched},
+              "byte_identical": True})
+    iq._query._text.value = finds[0]
+    page = iq._query.search_html()
+    if "<iframe" not in page:
+        raise AssertionError("QueryWidget.search_html rendered no page")
+    emit({"phase": "notebook_interactive", "card": card, "search_html_chars": len(page)})
+
+
+def phase_corpus(texts, words, vectors, build, queries, finds, card, n_sents):
+    """4n, where h5py is installed: a ``TemporaryCorpus`` of the first
+    ``n_sents`` sentences of ``texts`` (documents of 2,000 sentences), a
+    cold ``Session(corpus)`` (prepare, store the flavor, pack) and a second
+    session over the same directory reopened as ``Corpus(path)`` (the flavor
+    hit: ``prepare_document`` counted and required to be 0; the packing from
+    the packed-corpus cache); ``find`` p50 (21) and an int8 ``find_batch``
+    Q=32 on both, byte-identical; add, cold and reopen seconds beside
+    ``build``, the (sentences, seconds) of the run's host build."""
+    if missing("h5py"):
+        return
+    import numpy as np
+
+    import vectorian_tpu_torch as vt
+    import vectorian_tpu_torch.session as session_mod
+    from vectorian_tpu_torch.ops import dp_kernels
+
+    emb = vt.KeyedVectors("syn", words, vectors)
+    real, prepared = session_mod.prepare_document, [0]
+
+    def counting(*args, **kwargs):
+        prepared[0] += 1
+        return real(*args, **kwargs)
+
+    def searches(session):
+        index = make_index(session)
+        dp_kernels.reset_launches()
+        lats, found = [], []
+        for q in finds:
+            t = time.perf_counter()
+            found.append(pairs(index.find(q, n=10, min_score=0.2)))
+            lats.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        batch = [pairs(r) for r in index.find_batch(queries, n=10, min_score=0.2)]
+        batch_ms = (time.perf_counter() - t) * 1e3
+        launches = {k: dp_kernels.LAUNCHES[k] for k in ("affine_dp", "affine_dp[int8]")}
+        if not all(launches.values()) or not any(batch):
+            raise AssertionError(f"4n corpus: the searches launched {launches}")
+        return found + batch, float(np.percentile(lats, 50)), batch_ms, launches
+
+    docs = corpus_cut(texts, n_sents)
+    session_mod.prepare_document = counting
+    try:
+        with vt.TemporaryCorpus() as corpus:
+            t = time.perf_counter()
+            importer = vt.StringImporter()
+            for i, text in enumerate(docs):
+                corpus.add_doc(importer(text, title=f"d{i}"))
+            add_s = time.perf_counter() - t
+            t = time.perf_counter()
+            cold = vt.Session(corpus, embeddings=[emb], device=DEVICE)
+            make_index(cold).packed
+            cold_s = time.perf_counter() - t
+            cold_prepared = prepared[0]
+            want = searches(cold)
+            del cold
+            with vt.Corpus(corpus.path) as again:
+                prepared[0] = 0
+                t = time.perf_counter()
+                warm = vt.Session(again, embeddings=[emb], device=DEVICE)
+                reopen_session_s = time.perf_counter() - t
+                make_index(warm).packed
+                reopen_s = time.perf_counter() - t
+                if prepared[0]:
+                    raise AssertionError(f"4n corpus: the reopened corpus prepared "
+                                         f"{prepared[0]} documents (no flavor hit)")
+                got = searches(warm)
+                del warm
+    finally:
+        session_mod.prepare_document = real
+    if got[0] != want[0]:
+        raise AssertionError("4n corpus: the reopened session's lists differ from the cold one's")
+    emit({"phase": "notebook_corpus", "card": card, "sentences": n_sents, "documents": len(docs),
+          "add_s": add_s, "cold_s": cold_s, "cold_prepared_documents": cold_prepared,
+          "reopen_s": reopen_s, "reopen_session_s": reopen_session_s,
+          "reopen_prepared_documents": 0, "host_build_sentences": build[0],
+          "host_build_s": build[1],
+          "reopen_share_of_cold": reopen_s / cold_s,
+          "find_p50_ms": {"cold": want[1], "reopened": got[1]},
+          "find_batch_int8_ms": {"cold": want[2], "reopened": got[2]},
+          "launches": {"cold": want[3], "reopened": got[3]}, "byte_identical": True})
+
+
 def main(old_tree=None):
     if not (ROOT / "vectorian_tpu_torch" / "csrc" / "affine_dp.cu").exists():
         raise SystemExit("chip_smoke: run from a checkout of the repository")
@@ -4787,7 +5056,14 @@ def run_phases(card):
     log("span path done")
     paged_static = phase_paged_static(session, queries, finds, card)
     log("paged static path done")
+    phase_notebook_render(session, queries, finds, card)
+    phase_lab_session(texts, words, vectors, cut[DEVICE], finds, card)
+    phase_interactive(cut[DEVICE], finds, card)
+    log("renders, LabSession and InteractiveQuery done")
     del session, ft, cut
+    phase_corpus(texts, words, vectors, (SENTENCES, t_build), queries, finds, card,
+                 CORPUS_SENTENCES)
+    log("stored corpus done")
     rescore = phase_rescore(card)
     log("rescore path done")
     paged_ties = phase_paged_ties(card)
@@ -5041,6 +5317,38 @@ def batch_check(card):
     log("batch check done")
 
 
+def notebook_check(card):
+    """``--notebook-check``: phase 2 and 4n alone, on the 3,000-sentence
+    cut of phase 4's corpus (its renders, LabSession and InteractiveQuery,
+    and a stored corpus of the cut's sentences), in a packed-corpus cache
+    of its own."""
+    import numpy as np
+
+    import vectorian_tpu_torch  # noqa: F401  (sets exact-f32 matmul flags)
+
+    cache = tempfile.mkdtemp(prefix="chip_smoke_cache_")
+    os.environ["VECTORIAN_CACHE_HOME"] = cache
+    try:
+        phase_build()
+        rng = np.random.default_rng(SEED)
+        words, texts, query = zipf_corpus(SENTENCES, rng)
+        vectors = rng.normal(size=(len(words), 300)).astype(np.float32)
+        queries = [query() for _ in range(32)]
+        finds = [query() for _ in range(21)]
+        n_cut = 3_000
+        t = time.perf_counter()
+        session = build_session(corpus_cut(texts, n_cut), words, vectors, DEVICE)
+        make_index(session).packed
+        t_build = time.perf_counter() - t
+        phase_notebook_render(session, queries, finds, card)
+        phase_lab_session(texts, words, vectors, session, finds, card)
+        phase_interactive(session, finds, card)
+        phase_corpus(texts, words, vectors, (n_cut, t_build), queries, finds, card, n_cut)
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    log("notebook check done")
+
+
 def mesh_check(card):
     """``--mesh-check``: phase 4m alone, on the sessions and 4k's batches
     the full run builds before it (4k runs too), in a packed-corpus cache
@@ -5116,6 +5424,13 @@ if __name__ == "__main__":
             raise SystemExit("chip_smoke: run from a checkout of the repository")
         sys.path.insert(0, str(ROOT))
         batch_check(phase_device())
+    elif sys.argv[1:2] == ["--notebook-check"]:
+        # phase 4n alone on a 3,000-sentence cut: the quick check after an
+        # edit of the storage or notebook layer
+        if not (ROOT / "vectorian_tpu_torch" / "csrc" / "affine_dp.cu").exists():
+            raise SystemExit("chip_smoke: run from a checkout of the repository")
+        sys.path.insert(0, str(ROOT))
+        notebook_check(phase_device())
     elif sys.argv[1:2] == ["--mesh-check"]:
         # phase 4m (and the 4k batches it is held against) alone: the quick
         # check after a mesh edit

@@ -1,5 +1,5 @@
 """The rest of the port's public surface: the reference package's public
-names, ``compile`` / ``backend_build_time``, ``BruteForceIndex.warmup``,
+names (every one a port object), ``compile`` / ``backend_build_time``, ``BruteForceIndex.warmup``,
 the on-disk packed-corpus cache and the native library's loader."""
 
 import ast
@@ -39,21 +39,15 @@ def _reference_public_names():
     return sorted(n for n in names if not n.startswith("_"))
 
 
-@pytest.mark.parametrize("name", sorted(vt.UNPORTED))
-def test_unported_name_raises_naming_its_item(name):
-    stub = getattr(vt, name)
-    item = vt.UNPORTED[name]
-    with pytest.raises(NotImplementedError, match=rf"port queue item {item}\b"):
-        stub()
-    with pytest.raises(NotImplementedError, match=rf"{name}\.load .* item {item}\b"):
-        stub.load("anything")
-
-
 def test_every_public_name_of_the_reference_exists():
     names = _reference_public_names()
     assert {"Session", "PretrainedFastText", "compile", "Zoo", "make_mesh"} <= set(names)
     assert not [n for n in names if not hasattr(vt, n)]
-    assert set(vt.UNPORTED) <= set(dir(vj))
+    # the storage and notebook layer's names are the port's own classes
+    for name in ("Corpus", "TemporaryCorpus", "LabSession", "Zoo"):
+        obj = getattr(vt, name)
+        assert isinstance(obj, type) and obj.__module__.startswith("vectorian_tpu_torch."), name
+    assert not hasattr(vt, "UNPORTED") and not hasattr(vt, "_Unported")
 
 
 def test_compile_and_backend_build_time():
@@ -208,3 +202,17 @@ def test_no_library_without_compiler_or_when_disabled(tmp_path):
                              capture_output=True, text=True, timeout=120, env={**clean, **env})
         assert res.stdout.strip() == "UNAVAILABLE", res.stderr[-2000:]
     assert not list(pkg.rglob("*.so"))
+
+
+def test_transformer_embedding_defaults_to_the_card(monkeypatch):
+    """TransformerContextualEmbedding runs on the card unless asked for the
+    CPU: with no card its default raises naming ``device="cpu"``, as
+    ``Session`` does; ``device="cpu"`` constructs (no weights are read)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match=r"device='cpu'"):
+        vt.TransformerContextualEmbedding("some/model")
+    with pytest.raises(RuntimeError, match=r"device='cpu'"):
+        vt.TransformerContextualEmbedding("some/model", device="cuda:0")
+    emb = vt.TransformerContextualEmbedding("some/model", device="cpu")
+    assert emb.name == "trf-some-model" and not emb.is_static
+    assert emb.pca(8).transforms[-1].__class__.__name__ == "PCACompression"

@@ -28,9 +28,12 @@ metrics (``WordMoversDistance``, relaxed or full, and
 ``WordRotatorsDistance``) through ``find`` and ``find_batch``; paged
 serving (``Session(paged=True)``); multi-device serving (``make_mesh``,
 ``MeshSearch``: ``find_batch(mesh=)`` and ``find(mesh=)`` on every batch
-path, with the single-device bytes).  Every other public name of the
-reference package exists and raises NotImplementedError naming its
-ROADMAP.md port queue item.
+path, with the single-device bytes); stored corpora (``Corpus``,
+``TemporaryCorpus``: a ``Session`` over a reopened corpus restores its
+stored normalization flavor), ``Result.format`` and the HTML renderers
+(``render/``), ``LabSession``, the notebook query builder
+(``interact.InteractiveQuery``) and the embedding registry ``Zoo``.  Every
+public name of the reference package is served.
 """
 
 import sys as _sys
@@ -45,7 +48,7 @@ _torch.set_float32_matmul_precision("highest")
 
 __version__ = "0.1.0"
 
-from vectorian_tpu_torch.session import Partition, Result, Session  # noqa: E402
+from vectorian_tpu_torch.session import LabSession, Partition, Result, Session  # noqa: E402,F401
 from vectorian_tpu_torch.normalization import (  # noqa: E402
     LowercaseNormalization,
     Normalization,
@@ -61,6 +64,7 @@ from vectorian_tpu_torch.importers import (  # noqa: E402
     TextImporter,
 )
 from vectorian_tpu_torch.utils.progress import set_verbose  # noqa: E402
+from vectorian_tpu_torch.corpus.corpus import Corpus, TemporaryCorpus  # noqa: E402,F401
 from vectorian_tpu_torch.embedding.static import (  # noqa: E402,F401
     KeyedVectors,
     OneHotEncoding,
@@ -87,41 +91,14 @@ from vectorian_tpu_torch.embedding.pipeline import (  # noqa: E402,F401
     decompose_nlp,
     register_decomposer,
 )
+from vectorian_tpu_torch.embedding.zoo import Zoo  # noqa: E402,F401
 from vectorian_tpu_torch import alignment, metrics, saliency, sim  # noqa: E402,F401
-from vectorian_tpu_torch.index import _not_ported  # noqa: E402
 from vectorian_tpu_torch.saliency import KeywordSignal, Saliency  # noqa: E402,F401
 from vectorian_tpu_torch.parallel.mesh import MeshSearch, make_mesh  # noqa: E402,F401
 
 # alias matching the reference's dual naming (__init__.py:24-25)
 similarity = metrics
 _sys.modules[__name__ + ".similarity"] = metrics
-
-
-class _Unported:
-    """A public name of the reference package that the port does not serve
-    yet: calling it, or reading any attribute of it, raises
-    NotImplementedError naming its ROADMAP.md port queue item."""
-
-    def __init__(self, name: str, item: str):
-        self._name, self._item = name, item
-
-    def __call__(self, *args, **kwargs):
-        raise _not_ported(self._name, self._item)
-
-    def __getattr__(self, attr):
-        if attr.startswith("__"):
-            raise AttributeError(attr)
-        raise _not_ported(f"{self._name}.{attr}", self._item)
-
-    def __repr__(self):
-        return f"<{self._name}: not ported yet (ROADMAP.md item {self._item})>"
-
-
-# the unported public names, by ROADMAP.md port queue item
-UNPORTED = {
-    "Corpus": "9", "TemporaryCorpus": "9", "LabSession": "9", "Zoo": "9",
-}
-globals().update({name: _Unported(name, item) for name, item in UNPORTED.items()})
 
 
 def compile():

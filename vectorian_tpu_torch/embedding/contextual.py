@@ -14,7 +14,9 @@ bucket arrays (bf16 on the session's device) so the per-document GIL-held
 python metric of the reference (metric/contextual.cpp:26-75) becomes one
 batched metric GEMM per chunk of slices (ops/simmatrix.eval_plan_chunk and
 the batch form in ops/search).  The transformer encoder runs on its own
-``device`` argument ("cpu" by default), apart from the session's.
+``device`` argument, apart from the session's: ``"cuda"`` by default,
+which needs a CUDA card and raises without one; ``device="cpu"`` runs it
+on the CPU.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import numpy as np
+import torch
 
 from vectorian_tpu_torch.embedding.static import TokenEmbedding
 from vectorian_tpu_torch.embedding.transform import PCACompression
@@ -94,8 +97,14 @@ class TransformerContextualEmbedding(ContextualEmbedding):
     char-offset alignment (the reference's trf_data alignment averaging,
     contextual.py:58-87, without spaCy)."""
 
-    def __init__(self, model_name: str, layer: int = -1, device: str = "cpu",
+    def __init__(self, model_name: str, layer: int = -1, device: str = "cuda",
                  max_length: int = 512, transforms=()):
+        if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "TransformerContextualEmbedding(device='cuda') needs a CUDA "
+                "device and none is available; pass device='cpu' to run on "
+                "the CPU"
+            )
         super().__init__(f"trf-{model_name.replace('/', '-')}", transforms)
         self._model_name = model_name
         self._layer = layer
@@ -119,8 +128,6 @@ class TransformerContextualEmbedding(ContextualEmbedding):
         return int(self._model.config.hidden_size)
 
     def encode_doc(self, sdoc, text: str) -> np.ndarray:
-        import torch
-
         self._ensure_model()
         j = sdoc.to_json() if hasattr(sdoc, "to_json") else sdoc
         words = [(t["start"], t["end"]) for t in j["tokens"]]

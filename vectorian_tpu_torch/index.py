@@ -65,13 +65,6 @@ from vectorian_tpu_torch.utils import trace
 from vectorian_tpu_torch.vocabulary import UPOS
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to vectorian_tpu_torch yet (ROADMAP.md port "
-        f"queue item {item})"
-    )
-
-
 # per-query options find_batch serves through find, query by query (the JAX
 # package's BATCH_HARD_OPTIONS): debug's payloads are per-query host
 # diagnostics

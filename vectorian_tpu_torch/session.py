@@ -25,6 +25,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from vectorian_tpu_torch.corpus.corpus import Corpus
 from vectorian_tpu_torch.corpus.document import Document, PreparedDocument, prepare_document
 from vectorian_tpu_torch.corpus.packing import Partition as PartitionSpec
 from vectorian_tpu_torch.corpus.packing import (
@@ -154,6 +155,45 @@ class Result:
 
     def to_json(self, context_size=10):
         return [m.to_json(context_size) for m in self._matches]
+
+    def format(self, render_spec) -> "Result":
+        """The same matches with renderers picked by a spec string
+        (reference LabResult.format, session.py:339-389): comma-separated
+        names ("excerpt", "flow", "matrix") with '+annotation' arguments,
+        e.g. "excerpt +tags, flow" — or a list of renderer instances.  An
+        argument without '+' raises ValueError."""
+        from vectorian_tpu_torch.render.excerpt import ExcerptRenderer
+        from vectorian_tpu_torch.render.matrix import MatrixRenderer
+        from vectorian_tpu_torch.render.sankey import FlowRenderer
+
+        if isinstance(render_spec, (list, tuple)):
+            renderers = list(render_spec)
+        else:
+            lookup = {
+                "excerpt": ExcerptRenderer,
+                "flow": FlowRenderer,
+                "matrix": MatrixRenderer,
+            }
+            renderers = []
+            for desc in render_spec.split(","):
+                parts = desc.split()
+                if not parts:
+                    continue
+                klass = lookup[parts[0]]
+                for part in parts[1:]:
+                    if not part.startswith("+"):
+                        raise ValueError(part)
+                renderers.append(klass(*(part[1:] for part in parts[1:])))
+        out = Result(self._index, self._matches, self._duration)
+        out._renderers = renderers
+        return out
+
+    def _repr_html_(self):
+        """Notebook HTML: the renderers of ``format`` (an excerpt if none)
+        in an isolated srcdoc iframe (render/render.py)."""
+        from vectorian_tpu_torch.render.render import Renderer
+
+        return Renderer(getattr(self, "_renderers", None)).to_html(self)
 
 
 class Frequencies:
@@ -301,11 +341,16 @@ class Session:
     stores) in pinned host memory and streams them through the device a
     bucket at a time during each corpus pass, for corpora whose arrays
     pass the card's memory (``ops/search.BruteForceEngine``); results are
-    byte-identical to resident mode."""
+    byte-identical to resident mode.
+
+    ``docs`` is a sequence of documents or a ``Corpus``.  A corpus whose
+    stored flavor for ``normalization`` matches its documents restores the
+    prepared arrays (no normalization or interning); otherwise the session
+    prepares the documents and stores the flavor in the corpus."""
 
     def __init__(
         self,
-        docs: Sequence[Document],
+        docs: "Sequence[Document] | Corpus",
         embeddings=(),
         normalization=None,
         nlp=None,
@@ -328,11 +373,17 @@ class Session:
         self._embeddings = list(embeddings)
 
         self._documents: List[PreparedDocument] = []
-        for i, doc in enumerate(_progress(list(docs), desc="preparing docs")):
-            self._documents.append(
-                prepare_document(doc, i, normalization, self._vocab)
-            )
-        self._reorder_vocab_by_frequency()
+        corpus = docs if isinstance(docs, Corpus) else None
+        if corpus is not None:
+            docs = corpus.docs
+            flavor = corpus.load_flavor(normalization.ident)
+            if flavor is not None and flavor["uids"] == [d.unique_id for d in docs]:
+                self._restore_flavor(docs, flavor)
+            else:
+                self._prepare(docs)
+                self._save_flavor(corpus, docs)
+        else:
+            self._prepare(list(docs))
 
         self._compiled: Dict[str, CompiledEmbedding] = {}
         self._ctx_embeddings: Dict[str, object] = {}
@@ -350,6 +401,45 @@ class Session:
 
         self._packed_cache: Dict[PartitionSpec, PackedCorpus] = {}
         self._engine_cache: Dict[PartitionSpec, BruteForceEngine] = {}
+
+    def _prepare(self, docs):
+        """Normalize and intern every document (ids in frequency order)."""
+        for i, doc in enumerate(_progress(docs, desc="preparing docs")):
+            self._documents.append(
+                prepare_document(doc, i, self._normalization, self._vocab)
+            )
+        self._reorder_vocab_by_frequency()
+
+    def _restore_flavor(self, docs, flavor):
+        """A stored corpus's persisted flavor (reference FlavorBuilder,
+        corpus.py:68-192): the vocabulary, ids, keep masks and spans as
+        saved — after the frequency reorder, so none runs here — with no
+        normalization or interning; stored contextual vectors stay lazy."""
+        from vectorian_tpu_torch.embedding.vectors import LazyVectors
+
+        self._vocab = Vocabulary.from_strings(flavor["tokens"], flavor["tags"])
+        for i, (doc, d) in enumerate(zip(docs, flavor["docs"])):
+            contextual = {
+                name: LazyVectors(vecs, d["orig_index"])
+                for name, vecs in doc.contextual_embeddings.items()
+                if len(vecs)
+            }
+            self._documents.append(PreparedDocument(
+                doc=doc, doc_index=i, token_ids=d["token_ids"], pos_ids=d["pos_ids"],
+                tag_ids=d["tag_ids"], orig_index=d["orig_index"], spans=d["spans"],
+                contextual=contextual,
+            ))
+
+    def _save_flavor(self, corpus, docs):
+        corpus.save_flavor(
+            self._normalization.ident,
+            [d.unique_id for d in docs],
+            self._vocab.tokens.strings,
+            self._vocab.tags.strings,
+            [{"token_ids": pd.token_ids, "pos_ids": pd.pos_ids, "tag_ids": pd.tag_ids,
+              "orig_index": pd.orig_index, "spans": pd.spans}
+             for pd in self._documents],
+        )
 
     def _reorder_vocab_by_frequency(self):
         """Assign token ids by descending corpus frequency (PAD stays 0):
@@ -568,4 +658,26 @@ class Session:
     def run_query(self, find, query):
         start = time.time()
         matches = find(query)
+        return Result(None, matches, time.time() - start)
+
+
+class LabSession(Session):
+    """Session with a notebook progress display (reference
+    session.py:398-459): ``run_query`` shows an ipywidgets progress bar
+    while the query runs where ipywidgets and IPython import, and is
+    ``Session.run_query`` elsewhere."""
+
+    def run_query(self, find, query):
+        try:
+            import ipywidgets
+            from IPython.display import display
+        except ImportError:
+            return super().run_query(find, query)
+        start = time.time()
+        progress = ipywidgets.FloatProgress(value=0, min=0, max=1, description="")
+        display(progress)
+        try:
+            matches = find(query)
+        finally:
+            progress.close()
         return Result(None, matches, time.time() - start)
