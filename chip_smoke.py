@@ -28,10 +28,15 @@ Phases, each of which raises on failure:
    flat-batch wrappers, each in 3 localities and 2 affine gap sets or 3
    general gap models.  3b: both corpus kernels on bf16 and int8 ranking
    tables (ops/search.stack_query_tables, costs in the table's units):
-   affine_dp at L {16, 32} x Tpad {8, 16} x Q {1, 32}, wsb_dp's register
-   route at the same shapes plus one shared-rows and one scratch shape,
-   bit for bit, each timed against the f32 kernel on the table before
-   quantizing (in turns); a float16 table must raise.  Wide routes: the
+   affine_dp at L {16, 32} x Tpad {8, 16} x Q {1, 32}, L 16 x Tpad 32, 64
+   at Q 32 and Tpad 12 at Q 3 (padded to whole 8-column chunks), wsb_dp's
+   register route at the same shapes plus one shared-rows and one scratch
+   shape, bit for bit, each timed against the f32 kernel on the table
+   before quantizing (in turns); a float16 table must raise.  Then
+   ``quant_turns``: each quantized launch's device time in turns against
+   its f32 self (and, with ``--old-tree``, the parent's kernel) at the main
+   path's shape, a find's Q 1, Tpad 16 / 32 / 64 and kernel 1's wide_regs
+   at Tpad 132, beside its bound.  Wide routes: the
    affine gather (f32, bf16, int8, tagged), rows (f32, tagged) and dense
    entries at needles padded to 132 and 256 on the register-resident wide
    route (wide_regs), against their plain versions bit for bit and timed
@@ -168,14 +173,18 @@ Phases, each of which raises on failure:
    affine and general-gap indexes, phase 4's long query, and 4e's
    options at each of their precisions.
 
-``--old-tree DIR`` (with the full run or ``--tag-check``) loads the
-dp_kernels module of the checkout in DIR (a ``git archive`` of the parent
-commit) beside this one, builds its kernels from DIR's sources, and times
-every tagged launch of phases 3t, 4e and 4c, and its untagged self, in
-turns against that tree's (``tag_turns``).
+``--old-tree DIR`` (with the full run, ``--tag-check`` or
+``--quant-check``) loads the dp_kernels module of the checkout in DIR (a
+``git archive`` of the parent commit) beside this one, builds its kernels
+from DIR's sources, and times every tagged launch of phases 3t, 4e and 4c,
+and its untagged self, in turns against that tree's (``tag_turns``), and
+every quantized launch of 3b's ``quant_turns``.
 
 ``python3 chip_smoke.py --build-ab`` instead times phase 2's build with and
-without ``--split-compile 0`` and exits; ``--dense-check`` runs phases 2,
+without ``--split-compile 0`` and exits; ``--quant-check [SASS_DIR]`` runs
+phase 2, the quantized register templates' ptxas reports and SASS
+instruction mix beside their f32 selves (both trees with ``--old-tree``),
+phase 3b and phases 4 / 4b alone; ``--dense-check`` runs phases 2,
 3d and 4f alone; ``--wide-check`` phase 2, phase 3's wide cases and the
 long-query phase (on phase 4's session); ``--mesh-check`` phase 2, 4k
 and 4m; ``--notebook-check`` phase 2 and 4n on the 3,000-sentence cut
@@ -292,6 +301,7 @@ _AFFINE_TEMPLATE = re.compile(
     r"affine_dp_kernel(?:_4b)?ILi(\d+)ELi(\d)ELb([01])ELb([01])E([fta])E")
 _WSB_REGS_TEMPLATE = re.compile(
     r"wsb_regs_kernelILi(\d+)ELi(\d+)ELi(\d)ELi(\d)ELb([01])E([fta])E")
+_WSB_REGS_PAIRED = re.compile(r"wsb_regs_paired_kernelILi(\d+)ELi(\d+)ELi(\d)E([ta])E")
 _AFFINE_WIDE_TEMPLATE = re.compile(
     r"affine_dp_wide_kernelILi(\d)ELb([01])ELb([01])E([fta])E")
 # the tagged (f32) families: the same template arguments without the type
@@ -338,7 +348,12 @@ def ptxas_gate(reports):
             ar, art = _AFFINE_WIDE_REGS.search(name), _AFFINE_WIDE_REGS_TAGGED.search(name)
             ard = _AFFINE_WIDE_REGS_DENSE.search(name)
             adl = _AFFINE_DENSE_LANES.search(name)
-            if adl:
+            wp = _WSB_REGS_PAIRED.search(name)
+            if wp:
+                label = (f"wsb_regs gather {_ELEM[wp[4]]} paired L={wp[1]} G={wp[2]} "
+                         f"loc={wp[3]} P=2")
+                gated = True
+            elif adl:
                 label = f"affine dense_lanes f32 L={adl[1]} G={adl[2]} loc={adl[3]}"
                 gated = True
             elif ar:
@@ -1344,7 +1359,8 @@ def _quant_tables(rng, V, Tpad, Q):
     out = {}
     for dt in (None, *QUANT_TAGS):
         table, scale, _, _ = stack_query_tables(plans, [Tpad] * Q, dt)
-        out[dt] = (table, scale)
+        # a Tpad off the stack's multiple of 8: its first Tpad columns
+        out[dt] = (table[:, :Tpad].contiguous(), scale)
     return out
 
 
@@ -1378,14 +1394,18 @@ def phase_kernels_quant():
     shapes = [(L, T, Q, None) for L in (16, 32) for T in (8, 16) for Q in (1, 32)]
     # the one-thread-a-problem routes at one shape each: shared rows, scratch
     shapes += [(16, 8, 32, "rows"), (32, 16, 1, "rows")]
+    # kernel 1's packed rows at T1P 33 and 65 (kernel 3: registers at 32
+    # columns, its scratch route at 64), and a Tpad the affine wrapper pads
+    # to whole 8-column chunks (Q 3: kernel 3's one-query groups)
+    shapes += [(16, 32, 32, None), (16, 64, 32, "wide"), (16, 12, 3, None)]
     for L, Tpad, Q, route in shapes:
         tables = _quant_tables(rng, 5_000, Tpad, Q)
         f32 = tables[None][0]
         for kernel in ("affine_dp", "wsb_dp"):
             if kernel == "affine_dp":
-                if route:
+                if route == "rows":
                     continue
-                n = AFFINE_N
+                n = AFFINE_N if Tpad <= 16 else AFFINE_N // 8
             else:
                 n = max((WSB_PROBLEMS if route else WSB_REG_PROBLEMS) // Q, 8)
             _, tokens, len_s, len_t = _wsb_inputs(rng, n, L, Tpad, Q)
@@ -1439,8 +1459,8 @@ def phase_kernels_quant():
                 turns = [cuda_ms(run, reps), cuda_ms(run32, reps), cuda_ms(run32, reps),
                          cuda_ms(run, reps)]
                 emit({"phase": "kernel_quant", "name": name, "n": n, "L": L, "Tpad": Tpad,
-                      "Q": Q, "route": forced or ("registers" if kernel == "wsb_dp"
-                                                  else "thread_per_problem"),
+                      "Q": Q, "route": (forced if kernel == "wsb_dp" else None) or (
+                          "registers" if kernel == "wsb_dp" else "thread_per_problem"),
                       "localities": 3, "cases": len(cases), "max_abs_diff": 0.0,
                       "kernel_ms": (turns[0] + turns[3]) / 2,
                       "f32_kernel_ms": (turns[1] + turns[2]) / 2,
@@ -1454,6 +1474,156 @@ def phase_kernels_quant():
     _expect_value_error("wsb_dp_scores: a float16 table", lambda: dp_kernels.wsb_dp_scores(
         f16, tokens, len_s, len_t, *gg.vecs(L), "local", host_costs=gg.host_vecs(L)))
     return worst
+
+
+# 3b's device-time shapes (``quant_turns``): (slices, bucket capacity,
+# each slice's length or None for random lengths, Tpad, each needle's
+# length, Q).  The main path's (SENTENCES slices of 9 tokens in a bucket of
+# 16, needles of 7 padded to 8) at Q 32 and a find's Q 1, then one shape
+# each at Tpad 16, 32 and 64 (kernel 3 takes its scratch route past 32
+# columns, at fewer slices) and, for kernel 1, its wide_regs route at Tpad
+# 132.
+QUANT_WIDE_N = 262_144
+QUANT_WSB_SCRATCH_N = 16_384
+QUANT_WIDE_REGS_N = 32_768
+
+
+def quant_shapes(kernel):
+    shapes = [("main", SENTENCES, 16, 9, 8, 7, 32), ("find", SENTENCES, 16, 9, 8, 7, 1)]
+    for T in (16, 32, 64):
+        n = QUANT_WSB_SCRATCH_N if kernel == "wsb_dp" and T > 32 else QUANT_WIDE_N
+        shapes.append((f"Tpad{T}", n, 16, None, T, T - 1, 32))
+    if kernel == "affine_dp":
+        shapes.append(("Tpad132", QUANT_WIDE_REGS_N, 16, None, 132, 131, 32))
+    return shapes
+
+
+def quant_turns():
+    """3b's device time: each quantized launch of kernels 1 and 3 at
+    ``quant_shapes`` against its f32 self on the table before quantizing
+    and, with ``--old-tree``, against the parent's kernel on the same
+    table, in turns (``device_turns``: new, f32[, old], then back).  Each
+    launch is held bit for bit against its plain version on the first
+    4,096 slices and against the old one in full.  Returns {name: {shape
+    label: line}}."""
+    import numpy as np
+    import torch
+
+    from vectorian_tpu_torch.alignment import ExponentialGapCost
+    from vectorian_tpu_torch.ops import dp_kernels
+    from vectorian_tpu_torch.ops.alignment import AffineGapParams
+    from vectorian_tpu_torch.ops.search import scaled_costs
+
+    rng = np.random.default_rng(SEED + 13)
+    dev = torch.device(DEVICE)
+    model = ExponentialGapCost(3.0)
+    affine = AffineGapParams.of(0.37, 0.113, 0.29, 0.071)
+    out = {}
+    for kernel in ("affine_dp", "wsb_dp"):
+        for label, n, L, ln, Tpad, lt, Q in quant_shapes(kernel):
+            tables = _quant_tables(rng, 5_000, Tpad, Q)
+            tokens = torch.as_tensor(rng.integers(0, 5_000, size=(n, L)).astype(np.int32),
+                                     device=dev)
+            lens = (np.full(n, ln) if ln else rng.integers(1, L + 1, size=n)).astype(np.int32)
+            len_s = torch.as_tensor(lens, device=dev)
+            len_t = torch.full((Q,), lt, dtype=torch.int32, device=dev)
+            m = 4_096
+            for dt, tag in QUANT_TAGS.items():
+                table, scale = tables[dt]
+                name = f"{kernel}[{tag}]"
+                if kernel == "affine_dp":
+                    gaps = scaled_costs(affine, None, scale, Tpad, dev)[0]
+
+                    # the lengths on the host: a wide launch's needle split
+                    # reads none back (device_ms queues behind a sleep)
+                    def call(mod, t=table, g=gaps, tok=tokens, ls=len_s):
+                        return mod.affine_dp_scores(t, tok, ls, len_t, g, "local",
+                                                    len_t_host=[lt] * Q)
+                    run32 = lambda: dp_kernels.affine_dp_scores(  # noqa: E731
+                        tables[None][0], tokens, len_s, len_t, affine, "local",
+                        len_t_host=[lt] * Q)
+                    plain = dp_kernels.affine_dp_scores_reference(
+                        table, tokens[:m], len_s[:m], len_t, gaps, "local")
+                    bound = dp_bound_ms(tokens, len_s, len_t, table)
+                else:
+                    gen = scaled_costs(AffineGapParams.of(0, 0, 0, 0), (model, model), scale,
+                                       Tpad, dev)[1]
+                    vecs, host = gen.vecs(L), gen.host_vecs(L)
+                    g32 = _wsb_general(model, Tpad)
+
+                    def call(mod, t=table, v=vecs, h=host, tok=tokens, ls=len_s):
+                        return mod.wsb_dp_scores(t, tok, ls, len_t, *v, "local",
+                                                 host_costs=h)
+                    run32 = lambda: dp_kernels.wsb_dp_scores(  # noqa: E731
+                        tables[None][0], tokens, len_s, len_t, *g32.vecs(L), "local",
+                        host_costs=g32.host_vecs(L))
+                    plain = dp_kernels.wsb_dp_scores_reference(
+                        table, tokens[:m], len_s[:m], len_t, *vecs, "local")
+                    bound = wsb_bound_ms(tokens, len_s, len_t, table)
+                got, route = _with_route(lambda: call(dp_kernels))
+                if kernel == "affine_dp":
+                    route = dp_kernels.affine_launch_plan(n * Q, Tpad).route
+                err = _check_equal(name, got[:m], plain, (label, n, L, Tpad, Q))
+                runs = {"ms": lambda: call(dp_kernels), "f32_ms": run32}
+                if OLD is not None:
+                    _check_equal(name + " against the parent's", got, call(OLD),
+                                 (label, n, L, Tpad, Q))
+                    runs["ms_old"] = lambda: call(OLD)
+                del got, plain
+                means, times = device_turns(runs, 5)
+                line = {"phase": "quant_turns", "name": name, "shape": label, "n": n,
+                        "L": L, "len_s": ln or "random", "Tpad": Tpad, "len_t": lt, "Q": Q,
+                        "route": route or "registers", "max_abs_diff": err, **means,
+                        "turns_ms": [[k, t] for k, t in times], "bound_ms": bound[0],
+                        "bound_by": bound[1]}
+                emit(line)
+                out.setdefault(name, {})[label] = line
+            del tables, tokens
+    return out
+
+
+_QUANT_TEMPLATES = {
+    "affine_dp": re.compile(r"affine_dp_kernel(?:_4b)?ILi(9|17|33)ELi0ELb0ELb([01])E([fta])E"),
+    "wsb_dp": re.compile(r"wsb_regs_(?:kernelILi16ELi8ELi0ELi([12])ELb0E|paired_kernel"
+                         r"ILi16ELi8ELi0E)([fta])E"),
+}
+
+
+def quant_register_templates(mod, tree, sass_dir=None):
+    """The register templates of kernels 1 and 3 at the main path's
+    locality (local) and shapes at each table type (``_QUANT_TEMPLATES``:
+    affine T1P 9, 17 and 33 gather; WSB bucket 16 against needles of 8,
+    one and two queries a group, and the paired loads) in the library of
+    the dp_kernels module ``mod`` (``tree`` "new", or "old" for
+    ``--old-tree``): ptxas registers, stack and spills, the SASS's
+    instruction mix (I2F / I2FP: the int-to-float converts), its
+    converts inside innermost loops, and its innermost loops."""
+    for lib, pattern in _QUANT_TEMPLATES.items():
+        entries = mod.ptxas_entries(mod.PTXAS_REPORTS.get(lib, ""))
+        sass = sass_functions(mod._library_path(lib))
+        for name, e in sorted(entries.items()):
+            m = pattern.search(name)
+            if not m:
+                continue
+            line = {"phase": "quant_register_template", "tree": tree, "name": name,
+                    "table": _ELEM[m[m.lastindex]], **e}
+            code = (sass or {}).get(name)
+            if code is not None:
+                ops = [_opcode(ins) for _, ins in code]
+                loops = sass_loops(code)
+                line["instructions"] = len(ops)
+                line["opcodes"] = {op: ops.count(op) for op in SASS_OPS if ops.count(op)}
+                line["converts_in_loops"] = sum(c.get("I2F", 0) + c.get("I2FP", 0)
+                                                for _, _, c in loops)
+                line["innermost_loops"] = loops
+                if sass_dir is not None:
+                    out = Path(sass_dir) / tree
+                    out.mkdir(parents=True, exist_ok=True)
+                    (out / f"{name[-60:]}.sass").write_text(
+                        "\n".join(f"/*{a:04x}*/ {ins}" for a, ins in code) + "\n")
+            else:
+                line["sass"] = "cuobjdump not found" if sass is None else "no such function"
+            emit(line)
 
 
 def _rows_inputs(rng, B, L, T, slots, n=ROWS_BUCKET, V=5_000):
@@ -1815,7 +1985,8 @@ _SASS_FN = re.compile(r"Function : (\S+)")
 _SASS_INS = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);")
 _SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
 _SASS_BRA = re.compile(r"\bBRA\s+(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))")
-SASS_OPS = ("LDG", "LDL", "STL", "LDS", "STG", "FMNMX", "FADD", "FMUL", "BRA")
+SASS_OPS = ("LDG", "LDL", "STL", "LDS", "STG", "FMNMX", "FADD", "FMUL", "BRA", "I2F", "I2FP",
+            "PRMT")
 
 
 def sass_functions(lib):
@@ -5002,6 +5173,7 @@ def run_phases(card):
     worst_general = phase_kernels_general()
     worst_rows = phase_kernels_rows()
     worst_quant = phase_kernels_quant()
+    quant = quant_turns()
     worst_wide = phase_kernels_wide()
     worst_tagged = phase_kernels_tagged()
     worst_dense = phase_kernels_dense()
@@ -5115,6 +5287,10 @@ def run_phases(card):
                 "max_abs_err": max(worst_quant[name], res["max_abs_err"]),
                 "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
                 "bound_by": res["bound_by"], "library_ms": None, "f32_ms": res["f32_ms"],
+                "ms_old": quant[name]["main"].get("ms_old"),
+                "device_turns": {label: {k: line.get(k) for k in (
+                    "ms", "f32_ms", "ms_old", "bound_ms", "Tpad", "Q")}
+                    for label, line in quant[name].items()},
                 "shapes_n_L_Tpad_Q": res["shapes_n_L_Tpad_Q"], "card": card,
             })
     for name, source, replaces in (
@@ -5254,6 +5430,46 @@ def run_phases(card):
         if k["name"] in mesh["shard_ms"]:
             k["mesh_shard_launches"] = mesh["shard_ms"][k["name"]]
     return kernels
+
+
+def quant_check(card, sass_dir=None):
+    """``--quant-check``: phase 2 (build and ptxas gate; with ``--old-tree``
+    the parent's kernels too), the quantized register templates' ptxas
+    report and SASS instruction mix beside their f32 selves in each tree
+    (``quant_register_templates``; the SASS into ``sass_dir`` where
+    given), phase 3b (every shape, locality and gap model bit for bit,
+    then ``quant_turns``) and phases 4 / 4b on the 1M-slice session
+    (find_batch at int8, bf16 and f32 byte-identical to find, each
+    quantized kernel at the path's shapes against its plain version and
+    its f32 self), in a packed-corpus cache of its own."""
+    import numpy as np
+
+    import vectorian_tpu_torch  # noqa: F401  (sets exact-f32 matmul flags)
+    from vectorian_tpu_torch.alignment import ExponentialGapCost
+    from vectorian_tpu_torch.ops import dp_kernels
+
+    cache = tempfile.mkdtemp(prefix="chip_smoke_cache_")
+    os.environ["VECTORIAN_CACHE_HOME"] = cache
+    try:
+        phase_build(old_reports=OLD is not None)
+        for mod, tree in ((dp_kernels, "new"), (OLD, "old")):
+            if mod is not None:
+                quant_register_templates(mod, tree, sass_dir)
+        emit({"phase": "quant_check_kernels", "max_abs_diff": phase_kernels_quant()})
+        quant_turns()
+        log("3b done")
+        rng = np.random.default_rng(SEED)
+        words, texts, query = zipf_corpus(SENTENCES, rng)
+        vectors = rng.normal(size=(len(words), 300)).astype(np.float32)
+        session = build_session(texts, words, vectors, DEVICE)
+        queries = [query() for _ in range(32)]
+        finds = [query() for _ in range(21)]
+        phase_main_path(session, None, "main_path", queries, finds, card, SENTENCES)
+        phase_main_path(session, ExponentialGapCost(3.0), "general_path", queries, finds,
+                        card, SENTENCES)
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    log("quant check done")
 
 
 def wide_check(card):
@@ -5409,6 +5625,16 @@ if __name__ == "__main__":
         phase_build()
         phase_kernels_dense()
         phase_contextual(card)
+    elif sys.argv[1:2] == ["--quant-check"]:
+        # the quantized tables' kernels alone: the build and ptxas gate,
+        # their templates' SASS, phase 3b and phases 4 / 4b
+        if not (ROOT / "vectorian_tpu_torch" / "csrc" / "affine_dp.cu").exists():
+            raise SystemExit("chip_smoke: run from a checkout of the repository")
+        sys.path.insert(0, str(ROOT))
+        card = phase_device()
+        if old_tree is not None:
+            OLD = load_old_tree(old_tree)
+        quant_check(card, *sys.argv[2:3])
     elif sys.argv[1:2] == ["--wide-check"]:
         # the build and ptxas gate, phase 3's wide cases and the long-query
         # phase alone: the quick check after a wide-route edit

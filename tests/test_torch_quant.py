@@ -139,7 +139,26 @@ def test_corpus_pass_on_quantized_tables_matches_jax(precision, locality, gap_mo
     raw scores times sim_scale, the normalization) returns the JAX
     package's jnp corpus pass's ranking scores bit for bit, and its entry
     error."""
-    mats = _random_mats(2)
+    _check_corpus_pass(precision, locality, gap_model, _random_mats(2))
+
+
+# needles padded to 32 and 64 columns: the widths where kernel 1's packed
+# quantized rows take its T1P = 33 and 65 templates (16 above)
+WIDE_NEEDLES = {32: (29, 3, 17, 1, 25), 64: (57, 3, 40, 1, 64)}
+
+
+@pytest.mark.parametrize("gap_model", ["affine", "exponential"])
+@pytest.mark.parametrize("locality", ["local", "semiglobal"])
+@pytest.mark.parametrize("precision", PRECISIONS)
+@pytest.mark.parametrize("Tpad", sorted(WIDE_NEEDLES))
+def test_corpus_pass_on_wide_quantized_tables_matches_jax(Tpad, precision, locality,
+                                                          gap_model):
+    """Exact, as above, at needles padded to 32 and 64 columns."""
+    _check_corpus_pass(precision, locality, gap_model,
+                       _random_mats(Tpad, widths=WIDE_NEEDLES[Tpad]), Tpad)
+
+
+def _check_corpus_pass(precision, locality, gap_model, mats, want_Tpad=16):
     port_plans, jax_plans = _plans(mats)
     len_ts = [m.shape[1] for m in mats]
     Q, V = len(mats), mats[0].shape[0]
@@ -160,6 +179,7 @@ def test_corpus_pass_on_quantized_tables_matches_jax(precision, locality, gap_mo
     (_, got), = pending
 
     sim_multi, sim_scale, max_abs, Tpad = jax_stack(jax_plans, len_ts, precision)
+    assert Tpad == want_Tpad
     zeros = np.zeros((n, L), np.int32)
     want = jax_bucket_scores(
         jnp.asarray(tokens), jnp.asarray(zeros.astype(np.int8)),

@@ -1,8 +1,9 @@
 // Affine-gap (Gotoh) alignment DP scores, three entries:
 //   gather: raw[s, q] = best cell of the DP of slice s against query q, where
 //           S[i, j] = table[tokens[s, i], j, q] (the gather is fused in); the
-//           table is f32, bf16 or int8 (a quantized ranking table: each
-//           element becomes f32 right after its load, exactly);
+//           table is f32, bf16 or int8 (a quantized ranking table, read
+//           packed in its own type; each element becomes f32 exactly right
+//           before the DP row that consumes it);
 //   rows:   raw[b] = best cell of the DP of problem b = (bucket row r =
 //           rows[b], table slot k = qslot[b]), where S[i, j] =
 //           table[k * V + tokens[r, i], j] (the stacked [slots * V, Tmax]
@@ -56,10 +57,29 @@
 // slice's length are skipped (no cell past len_s can change the score).
 // Blocks of 128 threads: at the 64-87 registers ptxas reports for T1P = 9
 // an SM keeps 5-8 of them (20-32 warps), and the small block keeps the tail
-// of a launch short.  A bf16 or int8 table (find_batch's quantized ranking
-// pass, never a find) is read element by element at every Q: its loads
-// move a half or a quarter of the f32 bytes, and the conversion (a shift,
-// or one int-to-float convert) sits beside ~16 f32 operations a cell.
+// of a launch short.
+//
+// A bf16 or int8 table (find_batch's quantized ranking pass, never a find).
+// What bounded it: in the [V, Tpad, Q] table a thread's row of Tpad columns
+// lies Q elements apart, so a row of 8 columns cost 8 byte or half-word
+// loads (each with its own address step) and, for int8, 8 int-to-float
+// converts (I2F, a pipe at a fraction of the f32 rate) beside ~150 f32
+// operations; the rows sat in f32 registers, so the T1P = 9 templates took
+// 80 registers and wider rows could not be double-buffered.  It ran slower
+// than the f32 kernel whose bytes it quarters or halves (PERF.md).
+// What the design does about it: the kernel reads a query-major [V, Q,
+// Tpad] copy (ops/dp_kernels.affine_kernel_table, made once a call or a
+// corpus pass; at Q = 1 the table itself), so a problem's row is contiguous
+// and loads packed, 8 columns a load (8 bytes of int8, 16 of bf16): a
+// warp's 32 queries of one slice read 256 / 512 contiguous bytes of one
+// token's rows.  The words stay packed (2-16 registers a row) until the DP
+// row that consumes them: row i + 1's are loaded before row i's arithmetic
+// up to T1P = 33 (QUANT_PREFETCH_T1P; at 65 the second buffer spilled).  A
+// bf16 column is then a shift or a mask of its word, an int8 column a byte
+// permute and one f32 subtract (int8_byte_f32), with no convert (on the
+// card this times the same as the convert would here: PERF.md).  The T1P =
+// 17 templates keep four blocks an SM (affine_dp_kernel_4b).  The wide
+// routes keep their int8 convert (load4).
 //
 // The dense entry (ops/dp_kernels.affine_dense_plan): what bounds it is
 // the block's bytes, ~16.5 MB read once at a contextual batch's chunk (c =
@@ -149,6 +169,9 @@ namespace {
 
 constexpr float NEG = -1e30f;
 constexpr int THREADS = 128;
+// the widest quantized register templates whose next row is loaded before
+// the current one's arithmetic (affine_dp_body)
+constexpr int QUANT_PREFETCH_T1P = 33;
 enum Locality { LOCAL = 0, GLOBAL = 1, SEMIGLOBAL = 2 };
 // the gather entry's table types (its C entry's ``table_dtype``)
 enum TableDtype { F32 = 0, BF16 = 1, INT8 = 2 };
@@ -160,6 +183,72 @@ __device__ __forceinline__ float to_f32(uint16_t x) {
   return __uint_as_float((uint32_t)x << 16);
 }
 __device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
+
+// Byte k of packed int8 bytes as f32, exactly, without the convert
+// instruction (I2F, which issues at a fraction of the f32 rate): ``wx`` is
+// the word xor 0x80808080, so byte k is b + 128 (0 ... 255); one byte
+// permute puts it under the upper three bytes of 12,582,912.0f's bits
+// (0x4B400000), the f32 12,582,912 + b + 128, and one f32 subtract of
+// 12,583,040.0f leaves b.  Every value is an integer below 2^24, so neither
+// step rounds.
+constexpr uint32_t INT8_BIAS_BITS = 0x4B400000u;
+constexpr float INT8_BIAS = 12583040.0f;
+__device__ __forceinline__ float int8_byte_f32(uint32_t wx, int k) {
+  return __uint_as_float(__byte_perm(wx, INT8_BIAS_BITS, 0x7650 | k)) - INT8_BIAS;
+}
+
+// Quantized similarity rows (bf16 or int8 tables, read query-major: a
+// problem's row of Tpad elements is contiguous) move as packed 32-bit words
+// from the load to the DP row: ROW_WORDS<N, E> words hold N columns.
+template <int N, typename E>
+constexpr int ROW_WORDS = N * (int)sizeof(E) / 4;
+
+// The first Tpad of N columns of a quantized row (Tpad a multiple of 8,
+// ``src`` aligned to 16 bytes where its offset is a multiple of 8 elements),
+// 8 columns a load: one 8-byte load (int8) or one 16-byte load (bf16);
+// zero words past Tpad (zero columns).
+template <int N, typename E>
+__device__ __forceinline__ void load_packed(uint32_t (&w)[ROW_WORDS<N, E>],
+                                            const E* __restrict__ src, int Tpad) {
+  static_assert(N % 8 == 0 && sizeof(E) <= 2, "quantized rows of whole 8-column chunks");
+#pragma unroll
+  for (int c = 0; c < N / 8; ++c) {
+    if constexpr (sizeof(E) == 1) {
+      const uint2 x = (8 * c < Tpad) ? __ldg(reinterpret_cast<const uint2*>(src) + c)
+                                     : make_uint2(0u, 0u);
+      w[2 * c] = x.x;
+      w[2 * c + 1] = x.y;
+    } else {
+      const uint4 x = (8 * c < Tpad) ? __ldg(reinterpret_cast<const uint4*>(src) + c)
+                                     : make_uint4(0u, 0u, 0u, 0u);
+      w[4 * c] = x.x;
+      w[4 * c + 1] = x.y;
+      w[4 * c + 2] = x.z;
+      w[4 * c + 3] = x.w;
+    }
+  }
+}
+
+// A packed row as the DP row's f32 similarities, exactly: a bf16 column is
+// a shift or a mask of its word, an int8 column a byte permute and a
+// subtract (int8_byte_f32).
+template <int N, typename E>
+__device__ __forceinline__ void unpack_row(float (&v)[N], const uint32_t (&w)[ROW_WORDS<N, E>]) {
+  if constexpr (sizeof(E) == 2) {
+#pragma unroll
+    for (int c = 0; c < N / 2; ++c) {
+      v[2 * c] = __uint_as_float(w[c] << 16);
+      v[2 * c + 1] = __uint_as_float(w[c] & 0xffff0000u);
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < N / 4; ++c) {
+      const uint32_t wx = w[c] ^ 0x80808080u;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[4 * c + k] = int8_byte_f32(wx, k);
+    }
+  }
+}
 
 // The doubling steps of a T1P-wide row, shift = SHIFT, 2 * SHIFT, ... <
 // T1P: one instantiation a step, so every loop has a constant trip count
@@ -303,6 +392,19 @@ __device__ __forceinline__ void dp_row(float (&H)[T1P], float (&Fv)[T1P],
   }
 }
 
+// DP row dp_i from a packed quantized similarity row, unpacked right before
+// the arithmetic that consumes it.
+template <int T1P, int LOC, typename E>
+__device__ __forceinline__ void packed_dp_row(float (&H)[T1P], float (&Fv)[T1P],
+                                              const uint32_t (&w)[ROW_WORDS<T1P - 1, E>],
+                                              int dp_i, int ln, int lt, float open_s,
+                                              float ext_s, float open_t, float decay,
+                                              float& best) {
+  float sv[T1P - 1];
+  unpack_row<T1P - 1, E>(sv, w);
+  dp_row<T1P, LOC>(H, Fv, sv, dp_i, ln, lt, open_s, ext_s, open_t, decay, best);
+}
+
 // The arguments of a launch (both entries); passed by value into the
 // kernel's parameter bank.
 struct Args {
@@ -331,11 +433,16 @@ template <int T1P, int LOC, bool ROWS, bool VEC, typename E, bool TAGGED,
 __device__ __forceinline__ void affine_dp_body(const Args a, const TagArgs t) {
   static_assert(!ROWS || std::is_same<E, float>::value, "rows read f32 tables");
   static_assert(!TAGGED || std::is_same<E, float>::value, "tags weight f32 tables");
+  // a quantized (bf16 / int8) gather table is query-major and its rows
+  // load packed (see the header)
+  constexpr bool PACKED = !std::is_same<E, float>::value;
+  static_assert(!PACKED || VEC, "quantized rows load packed");
   const int64_t p = (int64_t)blockIdx.x * THREADS + threadIdx.x;
   if (p >= a.n * (int64_t)a.Q) return;
   // Similarity row i is table + tok(i) * rstride, column j at j * cs:
-  // gather table[tokens[s, i], :, q] (column stride Q), rows
-  // table[slot * V + tokens[r, i], :] (contiguous).
+  // gather table[tokens[s, i], :, q] (column stride Q; a quantized table
+  // [V, Q, Tpad], contiguous), rows table[slot * V + tokens[r, i], :]
+  // (contiguous).
   int64_t s;
   int ln, lt;
   int k = 0;  // tagged: the query (gather) or table slot (rows)
@@ -358,8 +465,8 @@ __device__ __forceinline__ void affine_dp_body(const Args a, const TagArgs t) {
     ln = DENSE ? max(a.len_s[s], 1) : a.len_s[s];  // the dense block's len_s is raw
     lt = a.len_t[q];
     rstride = (int64_t)a.Tpad * a.Q;
-    cs = a.Q;
-    base += q;
+    cs = PACKED ? 1 : a.Q;
+    base += PACKED ? (int64_t)q * a.Tpad : (int64_t)q;
     if constexpr (DENSE) base += s * (int64_t)a.L * rstride;
   }
   const int32_t* __restrict__ tok_row =
@@ -398,7 +505,42 @@ __device__ __forceinline__ void affine_dp_body(const Args a, const TagArgs t) {
   // spills.
   // tagged: the pos id of similarity row i, loaded with the row
   auto pos_at = [&](int i) -> int { return __ldg(t.pos + s * (int64_t)a.L + i); };
-  if constexpr (T1P <= 9) {
+  if constexpr (PACKED) {
+    // Quantized rows stay packed until the DP row that consumes them: up to
+    // T1P = QUANT_PREFETCH_T1P row i + 1's words (and row i + 2's token id)
+    // are loaded before row i's arithmetic, in 2-16 registers where f32
+    // rows needed 8-32; wider rows load as they go, the token id a row
+    // ahead.
+    constexpr int N = T1P - 1;
+    constexpr int W = ROW_WORDS<N, E>;
+    if constexpr (T1P <= QUANT_PREFETCH_T1P) {
+      uint32_t wa[W], wb[W];
+      int tok_next = 0;
+      if (rows > 0) load_packed<N>(wa, base + (int64_t)tok_at(0) * rstride, Tpad);
+      if (rows > 1) tok_next = tok_at(1);
+      for (int i = 0; i < rows; i += 2) {
+        if (i + 1 < rows) {
+          load_packed<N>(wb, base + (int64_t)tok_next * rstride, Tpad);
+          if (i + 2 < rows) tok_next = tok_at(i + 2);
+        }
+        packed_dp_row<T1P, LOC, E>(H, Fv, wa, i + 1, ln, lt, open_s, ext_s, open_t, decay, best);
+        if (i + 1 >= rows) break;
+        if (i + 2 < rows) {
+          load_packed<N>(wa, base + (int64_t)tok_next * rstride, Tpad);
+          if (i + 3 < rows) tok_next = tok_at(i + 3);
+        }
+        packed_dp_row<T1P, LOC, E>(H, Fv, wb, i + 2, ln, lt, open_s, ext_s, open_t, decay, best);
+      }
+    } else {
+      int tok = (rows > 0) ? tok_at(0) : 0;
+      for (int i = 0; i < rows; ++i) {
+        uint32_t w[W];
+        load_packed<N>(w, base + (int64_t)tok * rstride, Tpad);
+        if (i + 1 < rows) tok = tok_at(i + 1);
+        packed_dp_row<T1P, LOC, E>(H, Fv, w, i + 1, ln, lt, open_s, ext_s, open_t, decay, best);
+      }
+    }
+  } else if constexpr (T1P <= 9) {
     float ra[T1P - 1], rb[T1P - 1];
     int pa = 0, pb = 0;  // tagged: the pos ids of ra's and rb's rows
     int tok_next = 0;  // token id of the row after the one being loaded
@@ -879,6 +1021,8 @@ __device__ __forceinline__ void load4(float* v, const uint16_t* p) {
   v[2] = __uint_as_float(x.y << 16);
   v[3] = __uint_as_float(x.y & 0xffff0000u);
 }
+// int8 by the convert (as to_f32): the register route's byte permute and
+// subtract ran this route slower (PERF.md)
 __device__ __forceinline__ void load4(float* v, const int8_t* p) {
   const uint32_t x = (uint32_t)__ldg(reinterpret_cast<const int*>(p));
 #pragma unroll
@@ -1143,9 +1287,11 @@ __global__ void __launch_bounds__(WIDE_REGS_THREADS, wide_regs_min_blocks<CPL>()
 }
 
 // The same kernel with four blocks an SM asked for: the quantized gather
-// templates at T1P = 17.  Left to itself ptxas keeps a fifth block there (96
-// registers) and spills (bf16, semiglobal); four blocks give it 128.  A bound
-// on every template would change the registers ptxas picks for all of them.
+// templates at T1P = 17.  With f32 row buffers ptxas, left to itself, kept a
+// fifth block there (96 registers) and spilled (bf16, semiglobal).  The
+// packed rows no longer spill without the bound, but ptxas's own choice then
+// ran the int8 templates slower on the card, so the bound stays.  A bound on
+// every template would change the registers ptxas picks for all of them.
 template <int T1P, int LOC, bool ROWS, bool VEC, typename E>
 __global__ void __launch_bounds__(THREADS, 4) affine_dp_kernel_4b(const Args a) {
   affine_dp_body<T1P, LOC, ROWS, VEC, E, false>(a, TagArgs{});
@@ -1194,13 +1340,13 @@ void launch_vec(bool vec, int locality, dim3 grid, cudaStream_t stream,
   if constexpr (DENSE && T1P == 65) {
     launch<T1P, ROWS, true, E, DENSE>(locality, grid, stream, a, t);
   } else {
-    if constexpr (std::is_same<E, float>::value) {
-      if (vec) {
-        launch<T1P, ROWS, true, E, DENSE>(locality, grid, stream, a, t);
-        return;
-      }
+    // quantized rows always load packed (dispatch checks they can)
+    if (vec || !std::is_same<E, float>::value) {
+      launch<T1P, ROWS, true, E, DENSE>(locality, grid, stream, a, t);
+      return;
     }
-    launch<T1P, ROWS, false, E, DENSE>(locality, grid, stream, a, t);
+    if constexpr (std::is_same<E, float>::value)
+      launch<T1P, ROWS, false, E, DENSE>(locality, grid, stream, a, t);
   }
 }
 
@@ -1329,6 +1475,11 @@ int dispatch(Args a, int locality, const Wide& w, const TagArgs* t, void* stream
   // loads when they stay 16-byte aligned
   const bool vec = (ROWS || a.Q == 1) && a.Tpad % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(a.table) % 16 == 0;
+  // a quantized table's rows load packed, 8 columns a load: whole chunks,
+  // aligned (the wrapper pads and copies the query-major table so)
+  if (!std::is_same<E, float>::value &&
+      (a.Tpad % 8 != 0 || reinterpret_cast<uintptr_t>(a.table) % 16 != 0))
+    return -1;
   // the dense entry's T1P = 65 templates read float4 rows only (strided
   // rows of 65 columns spilled 448-460 bytes): AFFINE_DENSE_REG_MAX_T
   if (DENSE && a.Tpad > 32 && !vec) return -1;

@@ -61,10 +61,21 @@
 // transposes the [V, T, Q] table once per call; the same memory at Q = 1);
 // a row-gather problem's row is already contiguous, lane k reading its
 // element k.  A row's token id and table value are loaded a row ahead of
-// their use.  A bf16 or int8 table (find_batch's quantized ranking pass)
-// keeps both layouts in its own type; a lane converts its element after
-// the load (a shift, or one int-to-float convert, beside ~50 instructions
-// a problem-row).
+// their use.
+//
+// A bf16 or int8 table (find_batch's quantized ranking pass) stays in its
+// own type.  What bounded it: a lane's two queries read their elements of
+// a column with two loads a row, each converted after its load (a shift, or
+// one int-to-float convert), beside ~50 instructions a problem-row; the
+// quantized launch ran within 1% of the f32 one, so its gap to the bound
+// is the register route's own (PERF.md).  What the design does about it:
+// where Q is even the wrapper hands the kernel a paired copy, [V, Q / 2, T,
+// 2] (ops/dp_kernels.wsb_register_table), the two queries' elements of a
+// column side by side, so a lane loads both with one 2-byte (int8) or
+// 4-byte (bf16) load (wsb_regs_paired_kernel).  An int8 element keeps its
+// convert (I2F), which issues on a pipe of its own: the exact integer form
+// of csrc/affine_dp.cu takes two issue slots of the f32 maxes and adds that
+// bound this route, and ran slower here.
 //
 // "shared" / "scratch" (longer buckets, wider needles, negative closures):
 // one thread per problem; the rows of a problem live in shared memory when
@@ -166,12 +177,28 @@ enum Locality { LOCAL = 0, GLOBAL = 1, SEMIGLOBAL = 2 };
 enum TableDtype { F32 = 0, BF16 = 1, INT8 = 2 };
 
 // A table element as f32, exactly: bf16 (its 16 bits) is the high half of
-// the f32 with the same value; int8 is an integer of at most 7 bits.
+// the f32 with the same value; int8 is an integer of at most 7 bits (its
+// convert issues on a pipe of its own; see the header).
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(uint16_t x) {
   return __uint_as_float((uint32_t)x << 16);
 }
 __device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
+
+// Two consecutive queries' elements of one column, side by side in a
+// paired table, as f32, exactly; 0 where not ``ok``.
+template <typename E>
+__device__ __forceinline__ void load_pair(float (&v)[2], const E* p, bool ok) {
+  if constexpr (sizeof(E) == 1) {
+    const uint32_t w = ok ? (uint32_t)__ldg(reinterpret_cast<const unsigned short*>(p)) : 0u;
+    v[0] = (float)(int8_t)(uint8_t)w;
+    v[1] = (float)(int8_t)(uint8_t)(w >> 8);
+  } else {
+    const uint32_t w = ok ? __ldg(reinterpret_cast<const unsigned int*>(p)) : 0u;
+    v[0] = __uint_as_float(w << 16);
+    v[1] = __uint_as_float(w & 0xffff0000u);
+  }
+}
 
 // One tag-weighted similarity from its weight ``wv`` (w, or w * (1 -
 // pen), already rounded): S * w, then the threshold.
@@ -445,11 +472,15 @@ __device__ __forceinline__ void split_problem(int64_t p, int Q, bool small,
 // type, as in wsb_dp_kernel.
 // TAGGED (f32 only): the similarities are tag-weighted by ``t``.
 // DENSE (gather only): the table is the dense [c, L, T, Q] block.
+// PAIRED (quantized gather, P = 2): the table is [V, Q / 2, T, 2], the two
+// queries' elements of a column side by side, one load for both.
 template <int LT, int G, int LOC, int P, bool ROWS, typename E, bool TAGGED,
-          bool DENSE = false>
+          bool DENSE = false, bool PAIRED = false>
 __device__ __forceinline__ void wsb_regs_body(const RegCosts<LT, G> costs, const Args a,
                                               const TagArgs t) {
   static_assert(!ROWS || P == 1, "a row-gather group takes one problem");
+  static_assert(!PAIRED || (P == 2 && !ROWS && !DENSE && sizeof(E) <= 2),
+                "paired loads are a quantized gather group's two queries");
   static_assert(!ROWS || std::is_same<E, float>::value, "rows read f32 tables");
   static_assert(!TAGGED || std::is_same<E, float>::value, "tags weight f32 tables");
   const int64_t gthread = (int64_t)blockIdx.x * REG_THREADS + threadIdx.x;
@@ -536,7 +567,8 @@ __device__ __forceinline__ void wsb_regs_body(const RegCosts<LT, G> costs, const
            (trow == nullptr ? (uint32_t)(s * a.L) : 0u)) * T + (uint32_t)k;
   } else {
     vstride = (uint32_t)a.Q * T;
-    off = (uint32_t)q * T + (uint32_t)k;
+    // paired: query q (even) and q + 1's column k side by side at q * T + 2k
+    off = (uint32_t)q * T + (uint32_t)k * (PAIRED ? 2u : 1u);
   }
   const E* tcol = static_cast<const E*>(a.table) + off;
   uint32_t tok_n = (rows >= 2) ? tok_at(1) : 0;
@@ -548,7 +580,9 @@ __device__ __forceinline__ void wsb_regs_body(const RegCosts<LT, G> costs, const
     if (rows >= 1) ps_n = __ldg(pos_row);
   }
   float sv_n[P];
-  {
+  if constexpr (PAIRED) {
+    load_pair(sv_n, tcol + tok_at(0) * vstride, rows >= 1 && col_in);
+  } else {
     const E* r0 = tcol + tok_at(0) * vstride;
 #pragma unroll
     for (int u = 0; u < P; ++u)
@@ -570,9 +604,13 @@ __device__ __forceinline__ void wsb_regs_body(const RegCosts<LT, G> costs, const
     }
     if (i < LT) {
       const E* rn = tcol + tok_n * vstride;
+      if constexpr (PAIRED) {
+        load_pair(sv_n, rn, i + 1 <= rows && col_in);
+      } else {
 #pragma unroll
-      for (int u = 0; u < P; ++u)
-        sv_n[u] = (i + 1 <= rows && col_in) ? to_f32(__ldg(rn + u * ustride)) : 0.0f;
+        for (int u = 0; u < P; ++u)
+          sv_n[u] = (i + 1 <= rows && col_in) ? to_f32(__ldg(rn + u * ustride)) : 0.0f;
+      }
       if constexpr (TAGGED) ps_n = (i + 1 <= rows) ? (int)__ldg(pos_row + i) : 0;
       if (i + 1 < LT) tok_n = (i + 2 <= rows) ? tok_at(i + 1) : 0;
     }
@@ -629,6 +667,12 @@ __global__ void __launch_bounds__(REG_THREADS) wsb_regs_tagged_kernel(
   wsb_regs_body<LT, G, LOC, P, ROWS, float, true>(costs, a, t);
 }
 
+template <int LT, int G, int LOC, typename E>
+__global__ void __launch_bounds__(REG_THREADS) wsb_regs_paired_kernel(
+    const RegCosts<LT, G> costs, const Args a) {
+  wsb_regs_body<LT, G, LOC, 2, false, E, false, false, true>(costs, a, TagArgs{});
+}
+
 template <int LT, int G, int LOC, int P>
 __global__ void __launch_bounds__(REG_THREADS) wsb_regs_dense_kernel(
     const RegCosts<LT, G> costs, const Args a) {
@@ -668,12 +712,19 @@ int launch_regs(const HostCosts& h, int blocks, cudaStream_t stream,
       return (int)cudaGetLastError();
     }
   }
-  if constexpr (ROWS)
+  if constexpr (ROWS) {
     wsb_regs_kernel<LT, G, LOC, 1, true, E><<<blocks, REG_THREADS, 0, stream>>>(c, a);
-  else if (P == 2)
+  } else if constexpr (!std::is_same<E, float>::value) {
+    // a quantized table at an even Q is paired: one load a row for both
+    if (P == 2)
+      wsb_regs_paired_kernel<LT, G, LOC, E><<<blocks, REG_THREADS, 0, stream>>>(c, a);
+    else
+      wsb_regs_kernel<LT, G, LOC, 1, false, E><<<blocks, REG_THREADS, 0, stream>>>(c, a);
+  } else if (P == 2) {
     wsb_regs_kernel<LT, G, LOC, 2, false, E><<<blocks, REG_THREADS, 0, stream>>>(c, a);
-  else
+  } else {
     wsb_regs_kernel<LT, G, LOC, 1, false, E><<<blocks, REG_THREADS, 0, stream>>>(c, a);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -852,7 +903,9 @@ extern "C" int vt_wsb_dp_scores(
 // w_s (n_ws >= L + 1 floats), w_t and w_ts (n_wt >= T + 1 floats each) are
 // HOST pointers, copied into the launch's parameters (the buffers may be
 // freed once this returns).  L <= 32, T <= 32, w_ts[1..T - 1] >= 0, and the
-// table holds fewer than 2^32 elements.
+// table holds fewer than 2^32 elements.  A bf16 or int8 table at an even Q
+// is paired instead: [V, Q / 2, T, 2], element (v, q, j) at ((v * Q / 2 + q
+// / 2) * T + j) * 2 + q % 2.
 extern "C" int vt_wsb_dp_scores_regs(
     const void* table, int table_dtype, const int32_t* tokens,
     const int32_t* len_s, const int32_t* len_t, const float* w_s, int n_ws,

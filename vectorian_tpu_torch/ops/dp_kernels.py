@@ -4,7 +4,9 @@ counts.
 
 - ``affine_dp_scores``: the affine corpus pass, the gather of the stacked
   serving table ``[V, Tpad, Q]`` (f32, or a quantized bf16 / int8 ranking
-  table, read as it is) by each slice's token ids fused with the Gotoh DP
+  table, read in its own type from a query-major copy, packed rows of 8
+  columns a load: ``affine_kernel_table``) by each slice's token ids fused
+  with the Gotoh DP
   (csrc/affine_dp.cu; replaces ``pallas_align_scores_multi_nt``).  Routes
   (``affine_launch_plan``): "registers" (one thread a problem, its rows in
   registers) for needles up to AFFINE_REG_MAX_T; past it "wide_regs" (one
@@ -669,9 +671,8 @@ def affine_dp_scores_reference(
 class _GatherGroup(NamedTuple):
     """One launch of the gather entry over a group of a pass's queries:
     their columns of the [n, Q] output (``qi``, None for all of them),
-    their table in the layout of the ``route`` (the [V, T, Qg] columns on
-    the register route and on the CPU, a query-major [V, Qg, T] copy on
-    the card's wide routes, whose rows are contiguous) and their
+    their table as the kernel of the ``route`` reads it (the [V, T, Qg]
+    columns on the CPU; on the card ``affine_kernel_table``) and their
     ``len_t``."""
 
     qi: Optional[torch.Tensor]
@@ -692,11 +693,32 @@ class AffineTable(NamedTuple):
     groups: tuple
 
 
+def affine_kernel_table(table, route: str = "registers"):
+    """A [V, Tpad, Q] ``table`` as the gather entry's kernel reads it on
+    ``route``: an f32 table on the register route as it is (a warp's
+    consecutive queries read one row's Q consecutive elements); any other
+    query-major, [V, Q, Tpad] (a (vocab row, query)'s Tpad elements
+    contiguous; at Q = 1 the same memory, not a copy).  A bf16 or int8
+    table on the register route loads its rows packed, 8 columns a load
+    (csrc/affine_dp.cu ``load_packed``): its columns are padded with zeros
+    to a multiple of 8 (the kernel reads columns past Tpad as zeros
+    anyway) and its start is 16-byte aligned."""
+    packed = route == "registers" and table.dtype != torch.float32
+    if route == "registers" and not packed:
+        return table.contiguous()
+    if packed and table.shape[1] % 8:
+        V, Tpad, Q = table.shape
+        table = torch.cat([table, table.new_zeros((V, -Tpad % 8, Q))], dim=1)
+    out = table.transpose(1, 2).contiguous()
+    if packed and out.data_ptr() % 16:
+        out = out.clone()
+    return out
+
+
 def _gather_group(qi, table, len_t, route) -> _GatherGroup:
     route = affine_launch_plan(1, table.shape[1], route=route).route
-    if table.device.type != "cpu" and route != "registers":
-        # at Q = 1 the query-major layout is the same memory, not a copy
-        table = table.transpose(1, 2)
+    if table.device.type != "cpu":
+        table = affine_kernel_table(table, route)
     return _GatherGroup(qi, table.contiguous(), len_t, route)
 
 
@@ -732,9 +754,8 @@ def _affine_gather_launch(group: _GatherGroup, tokens, len_s, gaps, locality, ta
         return affine_dp_scores_reference(
             table, tokens, len_s, len_t, gaps, locality, tags=tags
         )
-    wide = group.route != "registers"
-    if wide:
-        _, Q, Tpad = table.shape
+    if group.route != "registers" or table.dtype != torch.float32:
+        _, Q, Tpad = table.shape  # query-major (affine_kernel_table)
     else:
         _, Tpad, Q = table.shape
     out = torch.empty((n, Q), dtype=torch.float32, device=dev)
@@ -770,7 +791,9 @@ def affine_dp_scores(table, tokens, len_s, len_t, gaps, locality,
     table [V, Tpad, Q] (query q's similarity of vocab row v to its needle
     token j) f32, or a quantized ranking table of bf16 or int8 (its units:
     ``gaps`` must be in them too, ops/search.stack_query_tables), read by
-    the kernel as it is, or the ``AffineTable`` made from it and this
+    the kernel in its own type (``affine_kernel_table``: a quantized table
+    from a query-major copy made once a call, or once a pass where the
+    ``AffineTable`` is made), or the ``AffineTable`` made from it and this
     ``len_t`` (a corpus pass's buckets share one); tokens [n, L] i32 (<
     V), len_s [n] i32 (clamped to >= 1, like the JAX corpus pass), len_t
     [Q] i32 (1 <= len_t <= Tpad), ``gaps`` an AffineGapParams of host
@@ -1127,8 +1150,15 @@ def wsb_register_table(table: torch.Tensor) -> torch.Tensor:
     """The register route's table layout: [V, Tpad, Q] -> [V, Q, Tpad] of
     the same type, so the G lanes of a problem (and a warp's consecutive
     queries) read one contiguous segment.  At Q = 1 it is the same memory,
-    not a copy."""
-    return table.transpose(1, 2).contiguous()
+    not a copy.  A bf16 or int8 table at an even Q is paired instead, [V, Q
+    / 2, Tpad, 2]: queries 2m and 2m + 1's elements of a column side by
+    side, so a lane group of the two reads both with one load."""
+    V, T, Q = table.shape
+    if table.dtype == torch.float32 or Q % 2:
+        return table.transpose(1, 2).contiguous()
+    out = table.permute(0, 2, 1).reshape(V, Q // 2, 2, T).transpose(2, 3).contiguous()
+    # a pair loads as one 2- or 4-byte word (at T = 1 the table's own memory)
+    return out.clone() if out.data_ptr() % 4 else out
 
 
 def _register_costs(L: int, T: int, table, vecs, host_costs):
