@@ -14,7 +14,8 @@ Phases, each of which raises on failure:
    tagged f32 family of both entries), a kernel of either affine wide
    route (the register-resident one at 4, 8 and 16 columns a lane) or any
    kernel of the WSB register route (gather at each table type,
-   row-gather, tagged or not) has a stack frame or spills; prints the T1P
+   row-gather, tagged or not) or of its long route (gather at each table
+   type, row-gather, dense) has a stack frame or spills; prints the T1P
    = 65 templates' reports and the wide_regs ones on lines of their own.
 3. Kernels against their plain torch versions on the card (random tables,
    tokens and costs from a seeded generator), bit for bit (torch.equal):
@@ -45,6 +46,14 @@ Phases, each of which raises on failure:
    its bound; the shared-memory route where the plan
    keeps it (1,024; 2,048, past shared memory: the scratch route); the
    register templates against wide_regs at Tpad 64, wide_regs at 128.
+   3 (long buckets): kernel 3's long route at bucket capacities 64, 128
+   and 256 x needles padded to 8, 16 and 32 x Q 1, 3 and 32 (f32, bf16
+   and int8 gather tables, the row-gather and dense entries, 3
+   localities, ExponentialGapCost(3.0) and a CustomGapCost) bit for bit,
+   each launch timed in turns against the old thread-a-problem body
+   forced (shared / scratch) beside its bound; the shapes the old body
+   still serves (buckets of 512 and 1,024, a 40-column needle, a gap
+   bonus, a tagged launch) held and timed once.
    3t: the tagged entries
    (the tag-weighted block, dp_kernels.TagBlock) of kernels 1-3 on every
    route — affine registers at T1P 9 / 17 / 33 / 65 and Q = 1 (float4
@@ -111,7 +120,7 @@ Phases, each of which raises on failure:
    4g, on phase 4's session: submatch_weight=0.5 through find (p50 of 21)
    and find_batch Q=32, affine and general gaps, byte-identical; a find
    with a debug callback counting its hooks; a boosted submatch find.
-   4f: contextual search: 500,000 of phase 4's sentences and a d=256
+   4f: contextual search: 250,000 of phase 4's sentences and a d=256
    LambdaContextualEmbedding (seeded word vectors plus 0.2 of each
    neighbour's): ensure_contextual's packing, find p50 (21) and
    find_batch Q=32 under affine and general gaps, byte-identical, each
@@ -146,6 +155,14 @@ Phases, each of which raises on failure:
    shard's inputs (each table type, tagged, dense) bit for bit against
    their plain versions, the four shards' launches timed against the
    bucket's one launch.
+   4r (after 4n): a length-mixed corpus, 250,000 sentences of log-normal
+   lengths (median 18 tokens, sigma 0.55, 3-250) over phase 4's
+   vocabulary and vectors, LocalAlignment(ExponentialGapCost(3.0)):
+   find_batch Q=32 at each precision and 21 finds as in 4b, byte-identical,
+   every bucket up to 32 tokens on the register route and every one of
+   64-256 on the long route; per bucket the kernel against its plain
+   version on the path's tables, its device ms in one pass, the long
+   buckets in turns against the old body.
    4n: the storage and notebook layer.  On phase 4's session,
    ``Result.format("excerpt +tags +metric, flow, matrix")._repr_html_()``
    of the 21 affine ``find`` results, of one int8 ``find_batch`` of the 32
@@ -184,7 +201,10 @@ every quantized launch of 3b's ``quant_turns``.
 without ``--split-compile 0`` and exits; ``--quant-check [SASS_DIR]`` runs
 phase 2, the quantized register templates' ptxas reports and SASS
 instruction mix beside their f32 selves (both trees with ``--old-tree``),
-phase 3b and phases 4 / 4b alone; ``--dense-check`` runs phases 2,
+phase 3b and phases 4 / 4b alone; ``--long-check`` runs phase 2, phase
+3's long-bucket shapes with every gap model on every table, the old body's
+shared / scratch crossover (``wsb_shared_crossover``) and 4r alone;
+``--dense-check`` runs phases 2,
 3d and 4f alone; ``--wide-check`` phase 2, phase 3's wide cases and the
 long-query phase (on phase 4's session); ``--mesh-check`` phase 2, 4k
 and 4m; ``--notebook-check`` phase 2 and 4n on the 3,000-sentence cut
@@ -320,6 +340,10 @@ _AFFINE_WIDE_REGS_TAGGED = re.compile(
 _AFFINE_WIDE_REGS_DENSE = re.compile(r"affine_dp_wide_regs_dense_kernelILi(\d+)ELi(\d)EE")
 _WSB_REGS_DENSE = re.compile(r"wsb_regs_dense_kernelILi(\d+)ELi(\d+)ELi(\d)ELi(\d)EE")
 _WSB_DENSE = re.compile(r"wsb_dp_dense_kernelILi(\d)ELi(\d+)EE")
+# kernel 3's long route (G, rows, type; the dense family; the locality is
+# a kernel argument)
+_WSB_LONG = re.compile(r"wsb_long_kernelILi(\d+)ELb([01])E([fta])E")
+_WSB_LONG_DENSE = re.compile(r"wsb_long_dense_kernelILi(\d+)EE")
 # the affine dense entry's own lane route
 _AFFINE_DENSE_LANES = re.compile(r"affine_dp_dense_lanes_kernelILi(\d+)ELi(\d+)ELi(\d)EE")
 
@@ -328,8 +352,8 @@ def ptxas_gate(reports):
     """Each kernel template's registers, stack frame and spills from the
     ptxas reports; raises if an affine template up to T1P = 33, a kernel of
     either affine wide route (the register-resident one at every CPL) or
-    a kernel of the WSB register route (either entry, any table type,
-    tagged or not) or any template of the dense entries has a stack frame
+    a kernel of the WSB register or long route (either entry, any table
+    type, tagged or not) or any template of the dense entries has a stack frame
     or spills, or if the reports lack the gather kernels of a table type,
     the row-gather kernels, the tagged ones or the dense ones.  The affine
     register templates past T1P = 33 are printed on a line of their own,
@@ -349,7 +373,15 @@ def ptxas_gate(reports):
             ard = _AFFINE_WIDE_REGS_DENSE.search(name)
             adl = _AFFINE_DENSE_LANES.search(name)
             wp = _WSB_REGS_PAIRED.search(name)
-            if wp:
+            wl, wld = _WSB_LONG.search(name), _WSB_LONG_DENSE.search(name)
+            if wl:
+                label = (f"wsb_long {'rows' if wl[2] == '1' else 'gather'} {_ELEM[wl[3]]} "
+                         f"G={wl[1]}")
+                gated = True
+            elif wld:
+                label = f"wsb_long dense f32 G={wld[1]}"
+                gated = True
+            elif wp:
                 label = (f"wsb_regs gather {_ELEM[wp[4]]} paired L={wp[1]} G={wp[2]} "
                          f"loc={wp[3]} P=2")
                 gated = True
@@ -419,6 +451,8 @@ def ptxas_gate(reports):
     kinds += [f"{k} dense f32" for k in ("affine", "affine_wide", "affine_wide_regs",
                                          "wsb_regs", "wsb")]
     kinds += ["affine dense_lanes f32"]
+    kinds += [f"wsb_long {e}" for e in ("gather f32", "gather bf16", "gather int8",
+                                        "rows f32", "dense f32")]
     for kind in kinds:
         if not any(r[0].startswith(kind + " ") for r in rows):
             raise AssertionError(f"ptxas gate: the reports name no {kind} kernel")
@@ -432,6 +466,9 @@ def ptxas_gate(reports):
     emit({"phase": "ptxas_dense_templates",
           "kernels_registers_stack_spill_st_ld": sorted(
               r for r in rows if " dense" in r[0])})
+    emit({"phase": "ptxas_long_templates",
+          "kernels_registers_stack_spill_st_ld": sorted(
+              r for r in rows if r[0].startswith("wsb_long "))})
     if bad:
         raise AssertionError(f"ptxas gate: stack frame or spills in {bad}")
 
@@ -459,16 +496,22 @@ def phase_build(old_reports=False):
     from vectorian_tpu_torch.ops import dp_kernels
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
-        kernels = pool.submit(dp_kernels.build, True)  # prints ptxas reports
+
+    def one(name):  # one nvcc a source, its own wall time
+        t = time.perf_counter()
+        return dp_kernels._build_one(name, True), time.perf_counter() - t  # prints ptxas
+
+    with concurrent.futures.ThreadPoolExecutor(len(dp_kernels.SOURCES) + 2) as pool:
+        kernels = {name: pool.submit(one, name) for name in dp_kernels.SOURCES}
         host = pool.submit(native.available)
         old = pool.submit(OLD.build, old_reports) if OLD is not None else None
-        libs = kernels.result()
+        built = {name: f.result() for name, f in kernels.items()}
         native_ok = host.result()
         if old is not None:
             old.result()
     emit({"phase": "build",
-          "libraries": {k: str(v.relative_to(ROOT)) for k, v in libs.items()},
+          "libraries": {k: str(v.relative_to(ROOT)) for k, (v, _) in built.items()},
+          "source_seconds": {k: t for k, (_, t) in built.items()},
           "native_traceback": bool(native_ok), "old_tree": OLD is not None,
           "seconds": time.perf_counter() - t0})
     ptxas_gate(dp_kernels.PTXAS_REPORTS)
@@ -800,9 +843,10 @@ def dense_bound_ms(kernel, S, len_s, len_t):
 # the contextual vectors' dimension of phase 4f (d = 256: a PCA-compressed
 # transformer embedding); it sets the contextual pass's chunk with L, Tpad, Q
 CTX_DIM = 256
-# phase 4f's corpus: 500,000 of phase 4's sentences (4.6 GB of f32 vectors
-# on the host, a 4.1 GB bf16 store on the card)
-CTX_SENTENCES = 500_000
+# phase 4f's corpus: 250,000 of phase 4's sentences (2.3 GB of f32 vectors
+# on the host, a 2.0 GB bf16 store on the card): the size at which the
+# run's 1,200 s also hold phase 4r on a slow host
+CTX_SENTENCES = 250_000
 
 
 # the dense entries' routes a plan can pick at a register shape, forced
@@ -1286,10 +1330,11 @@ def phase_kernels_general():
     shapes = [(L, T, Q, None) for L in (8, 16, 32) for T in (8, 16, 24, 32)
               for Q in (1, 3, 32)]
     # the one-thread-a-problem routes: what their rule picks at two
-    # register-route shapes (shared rows at the main path's, scratch), and
-    # the buckets and needles the register route does not take (scratch)
-    shapes += [(16, 8, 32, "rows"), (32, 16, 1, "rows"), (64, 8, 32, None),
-               (64, 16, 3, None), (16, 40, 3, None), (256, 64, 32, None)]
+    # register-route shapes (shared rows at the main path's, scratch) and at
+    # two long-route shapes (phase_kernels_long holds the long route), and
+    # the needles the lane routes do not take (scratch)
+    shapes += [(16, 8, 32, "rows"), (32, 16, 1, "rows"), (64, 8, 32, "rows"),
+               (64, 16, 3, "rows"), (16, 40, 3, None), (256, 64, 32, None)]
     for L, Tpad, Q, route in shapes:
         if L >= 256:
             n = WSB_LONG_SLICES
@@ -1340,6 +1385,319 @@ def phase_kernels_general():
         raise AssertionError("wsb_dp: a negative closure took the register route")
 
     return worst
+
+
+# phase 3's long-route shapes: slices a bucket capacity, each searched by
+# Q = 32 queries (and by the first 3 and the first 1 of them: one plain
+# version holds the three launches); the plain version's torch scan takes
+# L steps over them, in one chunk
+LONG_SLICES = {64: 256, 128: 128, 256: 64}
+# True (``--long-check``): every gap model on every table type and the
+# shared / scratch crossover; else the custom model on f32 tables only
+LONG_ALL_MODELS = False
+# the old body's shapes the shared / scratch crossover is read at: a gap
+# bonus at the lane routes' shapes (its closure keeps it off them) and
+# needles past 32 columns, from 352 down to 32 threads resident an SM; each
+# at one and two waves of resident blocks and at CROSSOVER_PROBLEMS
+CROSSOVER_SHAPES = ((16, 8), (32, 8), (32, 16), (64, 8), (64, 16), (128, 8),
+                    (16, 40), (32, 40), (16, 64))
+CROSSOVER_PROBLEMS = 65_536
+
+
+# the shapes kernel 3 still sends to the thread-a-problem body, each held
+# and timed once (``old_body_shapes``): (label, L, Tpad, Q, slices, gap
+# model, tagged)
+OLD_BODY_SHAPES = (
+    ("bucket 512", 512, 8, 32, 16, "exponential", False),
+    ("bucket 1024", 1024, 8, 32, 4, "exponential", False),
+    ("needle 40", 64, 40, 32, 64, "exponential", False),
+    ("gap bonus", 64, 8, 32, 64, "gap_bonus", False),
+    ("tagged", 64, 8, 32, 64, "exponential", True),
+)
+
+
+def old_body_shapes(rng):
+    """Kernel 3's gather entry at each of OLD_BODY_SHAPES (the buckets past
+    the long route, a needle past 32 columns, a negative closure, a tagged
+    launch past the register route): the plan must leave the lane routes;
+    bit for bit against the plain version (local), its device ms beside
+    ``wsb_bound_ms``.  Returns [line]."""
+    from vectorian_tpu_torch.alignment import CustomGapCost
+    from vectorian_tpu_torch.ops import dp_kernels
+
+    models = dict(_gap_models(rng), gap_bonus=CustomGapCost(lambda k: -0.05 * k))
+    lines, worst = [], 0.0
+    for label, L, Tpad, Q, n, mname, tagged in OLD_BODY_SHAPES:
+        table, tokens, len_s, len_t = _wsb_inputs(rng, n, L, Tpad, Q)
+        tags = _tag_block(rng, n, L, Q, Tpad) if tagged else None
+        gg = _wsb_general(models[mname], Tpad)
+        vecs, host = gg.vecs(L), gg.host_vecs(L)
+        args = (table, tokens, len_s, len_t, *vecs, "local")
+        run = lambda: dp_kernels.wsb_dp_scores(*args, host_costs=host, tags=tags)  # noqa: E731
+        got, used = _with_route(run)
+        if used not in ("shared", "scratch"):
+            raise AssertionError(f"wsb_dp {label}: took {used!r}, not the old body")
+        want, plain_ms = _timed_plain(
+            lambda: dp_kernels.wsb_dp_scores_reference(*args, tags=tags))
+        worst = max(worst, _check_equal("wsb_dp " + label, got, want, (n, L, Tpad, Q)))
+        bound, by = wsb_bound_ms(tokens, len_s, len_t, table, tags)
+        line = {"label": label, "n": n, "L": L, "Tpad": Tpad, "Q": Q, "model": mname,
+                "tagged": tagged, "route": used, "ms": device_ms(run, _turn_reps({"r": run})),
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
+        lines.append(line)
+        emit({"phase": "kernel_old_body", "name": "wsb_dp", "max_abs_diff": 0.0, **line})
+        del table, tokens
+    return lines, worst
+
+
+def _turn_reps(runs, target_ms=40.0):
+    """Launches a ``device_turns`` turn: about ``target_ms`` of the slowest
+    run's device time, 2 to 50."""
+    slowest = max(cuda_ms(fn, 1) for fn in runs.values())
+    return max(2, min(50, int(target_ms / max(slowest, 1e-3))))
+
+
+def _long_old_routes(problems, L, T):
+    """The old body's routes at (L, T): shared where a block's rows fit,
+    and scratch."""
+    from vectorian_tpu_torch.ops import dp_kernels
+
+    out = ["scratch"]
+    try:
+        dp_kernels.wsb_launch_plan(problems, L, T, registers=False, route="shared")
+        out.insert(0, "shared")
+    except ValueError:
+        pass
+    return out
+
+
+def _timed_plain(fn):
+    """(fn(), its device ms by CUDA events)."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase_kernels_long():
+    """3 (long buckets): kernel 3's long route (lane groups, column
+    histories in shared memory) against its plain version, bit for bit, at
+    bucket capacities 64, 128 and 256 x needles padded to 8, 16 and 32 x Q
+    1, 3 and 32 (LONG_SLICES slices; slice lengths 0, 1, L and random;
+    needle lengths 1 and Tpad among random ones; the Q 3 and Q 1 launches
+    read the first queries of the Q 32 table, so one plain version holds
+    all three), in 3 localities, ExponentialGapCost(3.0) on f32, bf16 and
+    int8 gather tables and a non-decreasing CustomGapCost on f32 (every
+    table with LONG_ALL_MODELS); each f32 launch timed on the device in
+    turns (``device_turns``) against the old body forced ("shared" where a
+    block's rows fit, "scratch"), beside ``wsb_bound_ms``.  The row-gather
+    entry at the same L x T (B = 32 LONG_SLICES problems, 12 slots) and
+    the dense entry at Q 32 and Q 1 (its first query) the same way, the
+    custom model in one locality (every locality with LONG_ALL_MODELS),
+    the dense entry in turns too.  Then ``wsb_shared_crossover`` (with
+    LONG_ALL_MODELS) and ``old_body_shapes``.  Returns {"worst": |diff|, "turns": [line a
+    gather launch], "rows": [...], "dense": [...], "crossover": [...],
+    "old_body": [...]}."""
+    import numpy as np
+    import torch
+
+    from vectorian_tpu_torch.ops import dp_kernels
+
+    rng = np.random.default_rng(SEED + 11)
+    models = _gap_models(rng)
+    out = {"worst": 0.0, "turns": [], "rows": [], "dense": []}
+
+    def held(label, fn, want, route, shape):
+        got, used = _with_route(fn)
+        if used != route:
+            raise AssertionError(f"{label}: took {used!r}, not {route} at {shape}")
+        out["worst"] = max(out["worst"], _check_equal(label, got, want, shape))
+
+    def checks(variant, custom_locs):
+        """(model name, locality) pairs a table type or entry is held at:
+        the custom model on f32 in ``custom_locs`` only, unless
+        LONG_ALL_MODELS."""
+        return [(m, loc) for m in models for loc in LOCALITIES
+                if LONG_ALL_MODELS or m == "exponential" or (
+                    variant == "f32" and loc in custom_locs)]
+
+    for L in (64, 128, 256):
+        for Tpad in (8, 16, 32):
+            n, Qs = LONG_SLICES[L], (32, 3, 1)
+            table, tokens, len_s, len_t = _wsb_inputs(rng, n, L, Tpad, 32)
+            plain_ms = None
+            for variant in ("f32", "bf16", "int8"):
+                tab = _quantized(table, variant)
+                for mname, loc in checks(variant, LOCALITIES):
+                    gg = _wsb_general(models[mname], Tpad)
+                    vecs, host = gg.vecs(L), gg.host_vecs(L)
+                    want, ms = _timed_plain(lambda: dp_kernels.wsb_dp_scores_reference(
+                        tab, tokens, len_s, len_t, *vecs, loc))
+                    if (variant, mname, loc) == ("f32", "exponential", "local"):
+                        plain_ms = ms
+                    for Q in Qs:
+                        tq = tab[:, :, :Q].contiguous()
+                        held("wsb_dp long", lambda: dp_kernels.wsb_dp_scores(
+                            tq, tokens, len_s, len_t[:Q], *vecs, loc, host_costs=host),
+                            want[:, :Q], "long", (n, L, Tpad, Q, variant, mname, loc))
+            gg = _wsb_general(models["exponential"], Tpad)
+            vecs, host = gg.vecs(L), gg.host_vecs(L)
+            for Q in Qs:
+                args = (table[:, :, :Q].contiguous(), tokens, len_s, len_t[:Q], *vecs,
+                        "local")
+                runs = {"long": lambda: dp_kernels.wsb_dp_scores(*args, host_costs=host)}
+                first = runs["long"]()
+                for r in _long_old_routes(n * Q, L, Tpad):
+                    runs[r] = (lambda r=r: dp_kernels.wsb_dp_scores(
+                        *args, host_costs=host, _route=r))
+                    held("wsb_dp " + r, runs[r], first, r, (n, L, Tpad, Q, "old"))
+                means, times = device_turns(runs, _turn_reps(runs))
+                old = dp_kernels.wsb_launch_plan(n * Q, L, Tpad, registers=False).route
+                bound, by = wsb_bound_ms(tokens, len_s, len_t[:Q], args[0])
+                line = {"n": n, "L": L, "Tpad": Tpad, "Q": Q, "ms": means["long"],
+                        "old_route": old, "old_ms": means[old], "route_ms": means,
+                        "ratio_old": means["long"] / means[old], "turns": times,
+                        "bound_ms": bound, "bound_by": by,
+                        "threads": dp_kernels.wsb_launch_plan(n * Q, L, Tpad, Q=Q).threads}
+                if Q == 32:
+                    line["plain_ms"] = plain_ms
+                out["turns"].append(line)
+                emit({"phase": "kernel_long", "name": "wsb_dp", "entry": "gather",
+                      "tables": ["f32", "bf16", "int8"], "all_models": LONG_ALL_MODELS,
+                      "localities": 3, "max_abs_diff": 0.0, **line})
+            del table, tokens
+
+            # the row-gather entry at this (L, T)
+            B = 32 * n
+            args = _rows_inputs(rng, B, L, Tpad, 12, n=4_096)
+            plain_ms = None
+            for mname, loc in checks("f32", ("local",)):
+                gg = _wsb_general(models[mname], Tpad)
+                vecs, host = gg.vecs(L), gg.host_vecs(L)
+                want, ms = _timed_plain(lambda: dp_kernels.wsb_dp_scores_rows_reference(
+                    *args, *vecs, loc))
+                plain_ms = plain_ms or ms
+                held("wsb_dp_scores_rows long", lambda: dp_kernels.wsb_dp_scores_rows(
+                    *args, *vecs, loc, host_costs=host), want, "rows_long",
+                    (B, L, Tpad, mname, loc))
+            gg = _wsb_general(models["exponential"], Tpad)
+            vecs, host = gg.vecs(L), gg.host_vecs(L)
+            run = lambda: dp_kernels.wsb_dp_scores_rows(  # noqa: E731
+                *args, *vecs, "local", host_costs=host)
+            bound, by = rows_bound_ms("wsb_dp_flat", *args)
+            line = {"B": B, "L": L, "T": Tpad, "slots": 12, "ms": device_ms(run, 10),
+                    "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
+            out["rows"].append(line)
+            emit({"phase": "kernel_long", "name": "wsb_dp_flat", "entry": "rows",
+                  "route": "rows_long", "all_models": LONG_ALL_MODELS, "localities": 3,
+                  "max_abs_diff": 0.0, **line})
+            del args
+
+            # the dense entry at this (L, T): Q 32, and its first query (Q 1)
+            c = n
+            S = torch.as_tensor(rng.uniform(-0.4, 1.0, size=(c, L, Tpad, 32)).astype(
+                np.float32), device=DEVICE)
+            ln = rng.integers(0, L + 1, size=c).astype(np.int32)
+            ln[:3] = (0, 1, L)
+            lt = rng.integers(1, Tpad + 1, size=32).astype(np.int32)
+            lt[:2] = (Tpad, 1)
+            len_s, len_t = (torch.as_tensor(x, device=DEVICE) for x in (ln, lt))
+            blocks = {32: (S, len_t), 1: (S[..., :1].contiguous(), len_t[:1])}
+            plain_ms = None
+            for mname, loc in checks("f32", ("local",)):
+                gg = _wsb_general(models[mname], Tpad)
+                vecs, host = gg.vecs(L), gg.host_vecs(L)
+                want, ms = _timed_plain(lambda: dp_kernels.wsb_dp_scores_dense_reference(
+                    S, len_s, len_t, *vecs, loc))
+                plain_ms = plain_ms or ms
+                for Q, (SQ, ltQ) in blocks.items():
+                    held("wsb_dp[dense] long", lambda: dp_kernels.wsb_dp_scores_dense(
+                        SQ, len_s, ltQ, *vecs, loc, host_costs=host), want[:, :Q],
+                        "dense_long", (c, L, Tpad, Q, mname, loc))
+            gg = _wsb_general(models["exponential"], Tpad)
+            vecs, host = gg.vecs(L), gg.host_vecs(L)
+            for Q, (SQ, ltQ) in blocks.items():
+                dargs = (SQ, len_s, ltQ, *vecs, "local")
+                runs = {"long": lambda: dp_kernels.wsb_dp_scores_dense(
+                    *dargs, host_costs=host)}
+                for r in _long_old_routes(c * Q, L, Tpad):
+                    runs[r] = (lambda r=r: dp_kernels.wsb_dp_scores_dense(
+                        *dargs, host_costs=host, _route=r))
+                means, times = device_turns(runs, _turn_reps(runs))
+                old = dp_kernels.wsb_launch_plan(c * Q, L, Tpad, registers=False).route
+                bound, by = dense_bound_ms("wsb_dp[dense]", SQ, len_s, ltQ)
+                line = {"c": c, "L": L, "Tpad": Tpad, "Q": Q, "ms": means["long"],
+                        "old_route": old, "old_ms": means[old], "route_ms": means,
+                        "turns": times, "bound_ms": bound, "bound_by": by}
+                if Q == 32:
+                    line["plain_ms"] = plain_ms
+                out["dense"].append(line)
+                emit({"phase": "kernel_long", "name": "wsb_dp[dense]", "entry": "dense",
+                      "all_models": LONG_ALL_MODELS, "localities": 3, "max_abs_diff": 0.0,
+                      **line})
+            del S, blocks
+    # the crossover WSB_MIN_RESIDENT and the one-wave rule were read at
+    # (``--long-check``; the full run holds the old body's routes at
+    # old_body_shapes and phases 3, 3t, 3b)
+    out["crossover"] = wsb_shared_crossover(rng) if LONG_ALL_MODELS else []
+    out["old_body"], worst = old_body_shapes(rng)
+    out["worst"] = max(out["worst"], worst)
+    return out
+
+
+def wsb_shared_crossover(rng):
+    """The old body's two routes ("shared" rows, "scratch") at each of
+    CROSSOVER_SHAPES, both forced, each bit for bit against the plain
+    version (local) on the largest launch, then timed on the device in
+    turns (shared, scratch, scratch, shared) at Q 32 on one wave of the
+    shared plan's resident blocks (its resident threads an SM x
+    ``dp_kernels.WSB_SMS``), two waves and CROSSOVER_PROBLEMS problems: the
+    points ``dp_kernels.WSB_MIN_RESIDENT`` and the one-wave rule are read
+    at.  Returns the points [{L, T, problems, resident, ms: {route: ms},
+    plan}]."""
+    from vectorian_tpu_torch.alignment import CustomGapCost
+    from vectorian_tpu_torch.ops import dp_kernels
+
+    bonus = CustomGapCost(lambda k: -0.05 * k)
+    expo = _gap_models(rng)["exponential"]
+    points = []
+    Q = 32
+    for L, T in CROSSOVER_SHAPES:
+        shared = dp_kernels.wsb_launch_plan(CROSSOVER_PROBLEMS, L, T, registers=False,
+                                            route="shared")
+        resident = dp_kernels._resident(shared.smem, shared.threads)
+        wave = resident * dp_kernels.WSB_SMS
+        counts = sorted({max(wave // Q, 1) * Q, 2 * wave // Q * Q, CROSSOVER_PROBLEMS})
+        n = counts[-1] // Q
+        table, tokens, len_s, len_t = _wsb_inputs(rng, n, L, T, Q)
+        gg = _wsb_general(bonus if T <= 32 else expo, T)
+        vecs, host = gg.vecs(L), gg.host_vecs(L)
+        want = dp_kernels.wsb_dp_scores_reference(table, tokens, len_s, len_t, *vecs, "local")
+        for problems in counts:
+            m = problems // Q
+            args = (table, tokens[:m], len_s[:m], len_t, *vecs, "local")
+            runs = {}
+            for r in ("shared", "scratch"):
+                runs[r] = (lambda r=r: dp_kernels.wsb_dp_scores(*args, host_costs=host,
+                                                                _route=r))
+                if problems == counts[-1]:
+                    got, used = _with_route(runs[r])
+                    if used != r:
+                        raise AssertionError(f"crossover: took {used!r}, not {r} at {(L, T)}")
+                    _check_equal("wsb_dp " + r, got, want, (n, L, T, Q, "crossover"))
+            means, _ = device_turns(runs, _turn_reps(runs))
+            point = {"L": L, "T": T, "problems": problems, "shared_threads": shared.threads,
+                     "resident": resident, "waves": problems / wave, "ms": means,
+                     "shared_over_scratch": means["shared"] / means["scratch"],
+                     "plan": dp_kernels.wsb_launch_plan(problems, L, T, registers=False).route}
+            points.append(point)
+            emit({"phase": "kernel_wsb_crossover", "name": "wsb_dp", **point})
+        del table, tokens
+    return points
 
 
 def _quant_tables(rng, V, Tpad, Q):
@@ -1702,9 +2060,10 @@ def phase_kernels_rows():
                 want = dp_kernels.wsb_dp_scores_rows_reference(*args, *vecs, loc)
                 worst["wsb_dp_flat"] = max(worst["wsb_dp_flat"], _check_equal(
                     "wsb_dp_scores_rows", got, want, (*shape, loc, name, routes[name])))
-        register = dp_kernels.wsb_register_shape(L, T)
-        if (routes["exponential"] == "rows_registers") != register or (
-                routes["gap_bonus"] == "rows_registers"):
+        lane = ("rows_registers" if dp_kernels.wsb_register_shape(L, T) else
+                "rows_long" if dp_kernels.wsb_long_shape(L, T) else None)
+        if (lane is not None and routes["exponential"] != lane) or (
+                routes["gap_bonus"] in ("rows_registers", "rows_long")):
             raise AssertionError(f"wsb_dp_scores_rows: wrong routes {routes} at {shape}")
         gg = _wsb_general(models["exponential"], T)
         vecs, host = gg.vecs(L), gg.host_vecs(L)
@@ -1921,12 +2280,15 @@ def phase_kernels_tagged():
               B=B, L=L, T=T, slots=slots, route=plan.route)
     # kernel 3's gather entry: the register route (group widths 8, 16, 32;
     # one and two queries a group), shared rows (forced), scratch (forced,
-    # a 64-token bucket, and the L=256 bucket)
+    # a 64-token bucket, and the L=256 bucket: "old", the route a tagged
+    # launch takes there, so its untagged self runs the same body)
     model = ExponentialGapCost(3.0)
     for L, Tpad, Q, route in ((16, 8, 32, None), (8, 16, 3, None), (32, 32, 32, None),
-                              (32, 8, 1, None), (16, 8, 32, "shared"), (64, 16, 3, None),
-                              (16, 8, 32, "scratch"), (256, 8, 3, None)):
+                              (32, 8, 1, None), (16, 8, 32, "shared"), (64, 16, 3, "old"),
+                              (16, 8, 32, "scratch"), (256, 8, 3, "old")):
         n = WSB_LONG_SLICES if L >= 256 else max(WSB_REG_PROBLEMS // Q, 8)
+        if route == "old":
+            route = dp_kernels.wsb_launch_plan(n * Q, L, Tpad, registers=False).route
         table, tokens, len_s, len_t = _wsb_inputs(rng, n, L, Tpad, Q)
         tags = _tag_block(rng, n, L, Q, Tpad)
         gg = _wsb_general(model, Tpad)
@@ -2233,13 +2595,8 @@ def _tag_turns(name, shape, untagged, tagged, reps=10):
           "untagged_ms": (a[0] + a[3] + b[1] + b[2]) / 4,
           "tagged_ms": (a[1] + a[2] + b[0] + b[3]) / 4})
 
-def zipf_corpus(n_sents, rng):
-    """The bench.py e2e corpus: Zipf(1.2) sentences of 9 tokens over 5,000
-    alphabetic words, 2,000 sentences per document."""
-    import numpy as np
-
-    V_words = 5_000
-
+def zipf_words(V_words=5_000):
+    """The corpora's vocabulary: ``V_words`` alphabetic words."""
     def word(i):
         s, i = "", i + 1
         while i:
@@ -2247,7 +2604,16 @@ def zipf_corpus(n_sents, rng):
             i //= 26
         return "w" + s
 
-    words = [word(i) for i in range(V_words)]
+    return [word(i) for i in range(V_words)]
+
+
+def zipf_corpus(n_sents, rng):
+    """The bench.py e2e corpus: Zipf(1.2) sentences of 9 tokens over 5,000
+    alphabetic words, 2,000 sentences per document."""
+    import numpy as np
+
+    words = zipf_words()
+    V_words = len(words)
     sents_per_doc = min(2_000, n_sents)
     texts = []
     for _ in range(max(n_sents // sents_per_doc, 1)):
@@ -2334,7 +2700,7 @@ def profile_calls(label, fn):
     return rows
 
 
-def drive_main_path(index, queries, finds, kernel, label, card, n_sents):
+def drive_main_path(index, queries, finds, kernel, label, card, n_sents, profiles=None):
     """find_batch of the queries at each of PRECISIONS and one find per
     ``finds`` entry, with the launch counts set to 0 right before and read
     right after; ``kernel`` must launch at every table type in find_batch
@@ -2428,9 +2794,14 @@ def drive_main_path(index, queries, finds, kernel, label, card, n_sents):
         "wsb_route_launches": routes,
         "precisions_and_find_byte_identical": True,
     })
+    traced = {}
     for prec in ("float32", None):
-        profile_calls(f"{label}:find_batch_Q{Q}_{prec or 'int8'}", lambda: batch_at(prec))
-    profile_calls(f"{label}:find", lambda: index.find(finds[0], n=n, min_score=min_score))
+        call = f"find_batch_Q{Q}_{prec or 'int8'}"
+        traced[call] = profile_calls(f"{label}:{call}", lambda: batch_at(prec))
+    traced["find"] = profile_calls(f"{label}:find",
+                                   lambda: index.find(finds[0], n=n, min_score=min_score))
+    if profiles is not None:
+        profiles.update(traced)
     return {v: launches[v] for v in variants}, routes
 
 
@@ -2527,6 +2898,172 @@ def phase_main_path(session, gap, label, queries, finds, card, n_sents):
             res[f"ab{sfx}"] = ab
     for name, res in out.items():
         emit({"phase": f"{label}_kernel", "name": name, **res})
+    return out
+
+
+# 4r: a length-mixed corpus: LONG_SENTENCES sentences of log-normal lengths
+# (median LONG_MEDIAN tokens, sigma LONG_SIGMA, clipped to LONG_CLIP) over
+# phase 4's vocabulary, so kernel 3's buckets 64-256 hold slices
+LONG_SENTENCES = 250_000
+LONG_MEDIAN = 18
+LONG_SIGMA = 0.55
+LONG_CLIP = (3, 250)
+
+
+def lognormal_corpus(words, n_sents, rng):
+    """``n_sents`` sentences over ``words``, each of rint(lognormal(log(
+    LONG_MEDIAN), LONG_SIGMA)) tokens clipped to LONG_CLIP, its words drawn
+    Zipf(1.2) as in ``zipf_corpus``; 2,000 sentences a document.  Returns
+    (texts, a 7-token query maker, the lengths)."""
+    import numpy as np
+
+    V_words = len(words)
+    lengths = np.clip(np.rint(rng.lognormal(math.log(LONG_MEDIAN), LONG_SIGMA, size=n_sents)),
+                      *LONG_CLIP).astype(np.int64)
+    ids = np.minimum(rng.zipf(1.2, size=int(lengths.sum())), V_words - 1)
+    ends = np.cumsum(lengths)
+    sents = [" ".join(words[i] for i in ids[e - n:e]) + "." for e, n in zip(ends, lengths)]
+    texts = [" ".join(sents[i:i + 2_000]) for i in range(0, n_sents, 2_000)]
+
+    def query(size=7):
+        return " ".join(words[int(i)] for i in np.minimum(rng.zipf(1.2, size=size), V_words - 1))
+
+    return texts, query, lengths
+
+
+def launch_device_ms(fns, sleep_s=0.05):
+    """Device ms of each of ``fns`` run once in order, by CUDA events around
+    each (a warm run first; a sleep kernel holds the stream while the host
+    queues them all, so a gap of host time never counts).  Raises if the
+    host took longer to queue than the sleep lasted."""
+    import torch
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    evs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+           for _ in fns]
+    torch.cuda._sleep(int(sleep_s * SM_HZ))
+    t = time.perf_counter()
+    for (start, end), fn in zip(evs, fns):
+        start.record()
+        fn()
+        end.record()
+    host_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    if host_s > sleep_s:
+        raise AssertionError(f"launch_device_ms: queueing took {host_s:.4f} s")
+    return [start.elapsed_time(end) for start, end in evs]
+
+
+def phase_long_path(words, vectors, card):
+    """4r: the general-gap path on a length-mixed corpus.  LONG_SENTENCES
+    sentences (``lognormal_corpus``) over phase 4's vocabulary and vectors,
+    Session(device="cuda") -> partition("sentence") ->
+    LocalAlignment(ExponentialGapCost(3.0)); ``drive_main_path``: find_batch
+    Q=32 at int8, bf16 and f32 (median of 3), 21 finds (p50), the launch
+    counts set to 0 right before and read right after, byte-identical.
+    Every bucket up to 32 tokens must take the register route and every
+    one of 33-256 the long route, each at least once.  Per bucket, for the
+    Q=32 batch at f32 and int8 and a find's Q=1: the kernel against its
+    plain version bit for bit on the path's own tables and tokens, its
+    launch's device ms in one pass (``launch_device_ms``; a torch.profiler
+    trace of the pass beside it gives each kernel template's device ms and
+    launches: its per-event list dropped launches on the card), each long
+    bucket's launch in turns against the old body forced on the same
+    tensors (``device_turns``), beside its bound.
+    Returns the kernel line's numbers of the long route."""
+    import numpy as np
+    import torch
+
+    from vectorian_tpu_torch.alignment import ExponentialGapCost
+    from vectorian_tpu_torch.ops import dp_kernels
+    from vectorian_tpu_torch.ops.search import scaled_costs, stack_query_tables
+
+    rng = np.random.default_rng(SEED + 12)
+    texts, query, lengths = lognormal_corpus(words, LONG_SENTENCES, rng)
+    t0 = time.perf_counter()
+    session = build_session(texts, words, vectors, DEVICE)
+    index = make_index(session, ExponentialGapCost(3.0))
+    t_build = time.perf_counter() - t0
+    engine = index._engine
+    buckets = [(int(db["capacity"]), int(db["n"])) for db in engine._device_buckets]
+    emit({"phase": "long_path_build", "sentences": LONG_SENTENCES,
+          "slices": index.packed.n_slices, "host_build_s": t_build,
+          "length_mean": float(lengths.mean()), "length_median": float(np.median(lengths)),
+          "buckets_capacity_slices": buckets})
+    log(f"4r host build {t_build:.1f} s, buckets {buckets}")
+    queries = [query() for _ in range(32)]
+    finds = [query() for _ in range(21)]
+    traced = {}
+    launches, routes = drive_main_path(index, queries, finds, "wsb_dp", "long_path", card,
+                                       LONG_SENTENCES, profiles=traced)
+    log("4r main path done")
+    want_routes = {"registers" if L <= dp_kernels.WSB_REG_MAX_L else "long"
+                   for L, _ in buckets}
+    # extras rounds, where a cut is unsafe, take the row-gather twins
+    if not all(routes[r] for r in want_routes) or any(
+            v for r, v in routes.items() if r.removeprefix("rows_") not in want_routes):
+        raise AssertionError(f"long_path: routes {routes}, want {sorted(want_routes)}")
+
+    dev = torch.device(DEVICE)
+    # each kernel 3 template's device ms and launches in the traced calls
+    # (the long buckets share one template; a trace of one pass alone, a
+    # few ms, came back without device events on the card)
+    out = {"launches": routes["long"], "launches_by_route": routes,
+           "launches_by_table": launches, "buckets": [], "max_abs_err": 0.0,
+           "profiler": {call: {k: [ms, c] for k, ms, c in rows if "wsb_" in k}
+                        for call, rows in traced.items()}}
+    for key, qs, dt in (("Q32", queries, None), ("Q32_int8", queries, "int8"),
+                        ("Q1", finds[:1], None)):
+        _, plans, len_ts, _, _, _ = index._prepare_static_batch(qs, 10, 0.2, "float32", {})
+        table, scale, _, Tpad = stack_query_tables(plans, len_ts, dt)
+        _, general, _ = scaled_costs(index._gaps, index._gap_costs, scale, Tpad, dev)
+        lt = torch.as_tensor(np.asarray(len_ts, np.int32), device=DEVICE)
+        calls = []
+        for db in engine._device_buckets:
+            L = int(db["capacity"])
+            args = (table, db["tokens"], db["lengths"], lt, *general.vecs(L), "local")
+            calls.append((L, int(db["n"]), args, general.host_vecs(L)))
+
+        fns = [lambda a=a, h=h: dp_kernels.wsb_dp_scores(*a, host_costs=h)
+               for _, _, a, h in calls]
+        pass_ms = launch_device_ms(fns)
+        for (L, n, args, host), launch_ms in zip(calls, pass_ms):
+            route = "registers" if L <= dp_kernels.WSB_REG_MAX_L else "long"
+            run = lambda a=args, h=host: dp_kernels.wsb_dp_scores(*a, host_costs=h)  # noqa: E731
+            plain = lambda a=args: dp_kernels.wsb_dp_scores_reference(*a)  # noqa: E731
+            got, used = _with_route(run)
+            if used != route:
+                raise AssertionError(f"long_path {key}: bucket {L} took {used}")
+            # the register route at the int8 and Q 1 shapes is held in 3b
+            # and 4b; here at f32 Q 32
+            held = route == "long" or key == "Q32"
+            if held:
+                want = plain()
+                err = _check_equal("wsb_dp", got, want, f"long_path {key}, bucket {L}")
+                out["max_abs_err"] = max(out["max_abs_err"], err)
+            line = {"case": key, "L": L, "n": n, "Tpad": int(table.shape[1]), "Q": len(qs),
+                    "table": str(table.dtype).replace("torch.", ""), "route": route,
+                    "pass_ms": launch_ms}
+            if route == "long":
+                old = dp_kernels.wsb_launch_plan(n * len(qs), L, Tpad, registers=False).route
+                run_old = lambda a=args, h=host, o=old: dp_kernels.wsb_dp_scores(  # noqa: E731
+                    *a, host_costs=h, _route=o)
+                _check_equal("wsb_dp", run_old(), want, f"long_path {key}, bucket {L}, {old}")
+                runs = {"long": run, old: run_old}
+                means, times = device_turns(runs, _turn_reps(runs, 100.0))
+                line.update(ms=means["long"], old_route=old, old_ms=means[old],
+                            ratio_old=means["long"] / means[old], turns=times)
+            else:
+                line["ms"] = device_ms(run, _turn_reps({"r": run}, 100.0))
+            line["plain_ms"] = cuda_ms(plain, 1) if held else None
+            line["bound_ms"], line["bound_by"] = wsb_bound_ms(args[1], args[2], lt, table)
+            out["buckets"].append(line)
+            emit({"phase": "long_path_bucket", "card": card, **line})
+        log(f"4r buckets at {key} done")
+        del calls, table
+    del index, session
     return out
 
 
@@ -3683,7 +4220,7 @@ def _device_split(rows):
 
 def phase_config4(ctx, qft, qft_info, card):
     """4h: BASELINE config 4 at full width on 4f's session and contextual
-    store (500,000 sentences): MixedTokenSimilarity of the compressed
+    store (CTX_SENTENCES sentences): MixedTokenSimilarity of the compressed
     fastText 300d (``qft``) and the d = 256 contextual embedding, weights
     0.5 / 0.5, under affine gaps and ExponentialGapCost(3.0).  Per gap
     model: find_batch Q=32 (median of 3) and find p50 of 21, the launch
@@ -4114,7 +4651,7 @@ def phase_transport_batch(session, queries, cut, card):
 
 
 def phase_transport_tree(ctx, card):
-    """4k on 4h's mixed tree (500,000 sentences, 4f's session and store):
+    """4k on 4h's mixed tree (CTX_SENTENCES sentences, 4f's session and store):
     relaxed-WMD find_batch Q=32 of MixedTokenSimilarity([qft, ctx], [0.5,
     0.5]) (median of 3), its bytes equal to a loop of find's over the 32
     queries."""
@@ -4379,7 +4916,7 @@ def _mesh_dense_check(index, ms, qs, kernel, tree):
 def phase_mesh_dense(ctx, card):
     """4m, contextual and tree: 4f's contextual find_batch Q=32 (affine
     and ExponentialGapCost(3.0)) and 4h's mixed tree (affine) on the
-    500,000-sentence session over the mesh, each byte-identical to its
+    CTX_SENTENCES-sentence session over the mesh, each byte-identical to its
     single-device batch and timed against it in turns; the dense entries
     on one shard's inputs against their plain versions.  Returns as
     ``phase_mesh_static``."""
@@ -4742,7 +5279,7 @@ def phase_paged_static(session, queries, finds, card):
 
 
 def phase_paged_contextual(ctx, card):
-    """4l (contextual): a paged engine over 4f's packing (500,000
+    """4l (contextual): a paged engine over 4f's packing (CTX_SENTENCES
     sentences) with its bf16 store in pinned host memory, against 4f's
     resident engine in the same call: find_batch Q=32 (affine and
     general), byte for byte, the peak device memory and uploaded bytes a
@@ -5171,6 +5708,7 @@ def run_phases(card):
     log("built")
     worst = phase_kernels()
     worst_general = phase_kernels_general()
+    long = phase_kernels_long()
     worst_rows = phase_kernels_rows()
     worst_quant = phase_kernels_quant()
     quant = quant_turns()
@@ -5236,6 +5774,8 @@ def run_phases(card):
     phase_corpus(texts, words, vectors, (SENTENCES, t_build), queries, finds, card,
                  CORPUS_SENTENCES)
     log("stored corpus done")
+    long_path = phase_long_path(words, vectors, card)
+    log("length-mixed path done")
     rescore = phase_rescore(card)
     log("rescore path done")
     paged_ties = phase_paged_ties(card)
@@ -5271,6 +5811,10 @@ def run_phases(card):
             "shapes_n_L_Tpad_Q": res["shapes_n_L_Tpad_Q"],
             "shapes_n_L_Tpad_Q_find": res["shapes_n_L_Tpad_Q_find"], "card": card,
         })
+    # kernel 3's long route (buckets of 33-256 tokens): 4r's length-mixed
+    # corpus; ms / plain / bound: its long buckets' launches of the f32
+    # batch (Q 32), summed; the int8 batch and a find's Q 1 beside them
+    kernels.append(long_route_line(long, long_path, card))
     # the bf16 / int8 table variants of kernels 1 and 3 (find_batch's
     # quantized ranking passes; Pallas cast each row as it read it)
     for base, source, replaces, path in (
@@ -5430,6 +5974,68 @@ def run_phases(card):
         if k["name"] in mesh["shard_ms"]:
             k["mesh_shard_launches"] = mesh["shard_ms"][k["name"]]
     return kernels
+
+
+def long_route_line(long, long_path, card):
+    """The kernels line's entry of kernel 3's long route: phase 3's long
+    shapes (``phase_kernels_long``) and 4r (``phase_long_path``)."""
+    def total(case, key):
+        return sum(b[key] for b in long_path["buckets"]
+                   if b["case"] == case and b["route"] == "long")
+
+    per_bucket = [{k: b.get(k) for k in ("case", "L", "n", "Q", "table", "ms", "old_route",
+                                         "old_ms", "pass_ms", "plain_ms", "bound_ms")}
+                  for b in long_path["buckets"] if b["route"] == "long"]
+    biggest = max((b for b in long_path["buckets"] if b["case"] == "Q32" and b["route"] == "long"),
+                  key=lambda b: b["bound_ms"])
+    return {
+        "name": "wsb_dp[long]", "route": "cuda", "launch_route": "long",
+        "entry": "wsb_dp_scores (gather; rows and dense entries in phase 3)",
+        "source": "vectorian_tpu_torch/csrc/wsb_dp.cu",
+        "replaces": "vectorian_tpu/ops/pallas_dp.py:155",
+        "launches": long_path["launches"],
+        "max_abs_err": max(long["worst"], long_path["max_abs_err"]),
+        "ms": total("Q32", "ms"), "plain_ms": total("Q32", "plain_ms"),
+        "bound_ms": total("Q32", "bound_ms"), "bound_by": biggest["bound_by"],
+        "library_ms": None, "old_ms": total("Q32", "old_ms"),
+        "ms_int8": total("Q32_int8", "ms"), "old_ms_int8": total("Q32_int8", "old_ms"),
+        "bound_ms_int8": total("Q32_int8", "bound_ms"),
+        "ms_find": total("Q1", "ms"), "old_ms_find": total("Q1", "old_ms"),
+        "bound_ms_find": total("Q1", "bound_ms"), "plain_ms_find": total("Q1", "plain_ms"),
+        "buckets": per_bucket, "launches_by_route": long_path["launches_by_route"],
+        "profiler_ms_launches": long_path["profiler"],
+        "phase3_ratio_old": [[t["L"], t["Tpad"], t["Q"], t["ratio_old"]]
+                             for t in long["turns"]],
+        "card": card,
+    }
+
+
+def long_check(card):
+    """``--long-check``: phase 2 (build, ptxas gate), phase 3's long shapes
+    with every gap model on every table type (LONG_ALL_MODELS) and the
+    shared / scratch crossover (``phase_kernels_long``) and 4r on
+    the length-mixed corpus (phase 4's vocabulary, its vectors drawn from
+    the seed here), in a packed-corpus cache of its own; then the long
+    route's kernels line."""
+    global LONG_ALL_MODELS
+    import numpy as np
+
+    import vectorian_tpu_torch  # noqa: F401  (sets exact-f32 matmul flags)
+
+    LONG_ALL_MODELS = True
+    cache = tempfile.mkdtemp(prefix="chip_smoke_cache_")
+    os.environ["VECTORIAN_CACHE_HOME"] = cache
+    try:
+        phase_build()
+        long = phase_kernels_long()
+        log("long shapes match their plain versions")
+        words = zipf_words()
+        vectors = np.random.default_rng(SEED).normal(size=(len(words), 300)).astype(np.float32)
+        long_path = phase_long_path(words, vectors, card)
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    emit({"kernels": [long_route_line(long, long_path, card)]})
+    log("long check done")
 
 
 def quant_check(card, sass_dir=None):
@@ -5635,6 +6241,13 @@ if __name__ == "__main__":
         if old_tree is not None:
             OLD = load_old_tree(old_tree)
         quant_check(card, *sys.argv[2:3])
+    elif sys.argv[1:2] == ["--long-check"]:
+        # the build and ptxas gate, phase 3's long shapes and 4r alone: the
+        # quick check after an edit of kernel 3's long route
+        if not (ROOT / "vectorian_tpu_torch" / "csrc" / "affine_dp.cu").exists():
+            raise SystemExit("chip_smoke: run from a checkout of the repository")
+        sys.path.insert(0, str(ROOT))
+        long_check(phase_device())
     elif sys.argv[1:2] == ["--wide-check"]:
         # the build and ptxas gate, phase 3's wide cases and the long-query
         # phase alone: the quick check after a wide-route edit

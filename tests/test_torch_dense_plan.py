@@ -139,19 +139,27 @@ def test_affine_dense_plan_threshold():
     (1_024, 16, 16, 32, True, "registers"),
     (256, 32, 32, 32, True, "registers"),
     (2_048, 16, 8, 32, False, "shared"),    # a negative closure
-    (512, 64, 8, 32, True, "scratch"),      # past the register shapes
+    (512, 64, 8, 32, True, "long"),         # past the register shapes
+    (512, 128, 8, 32, True, "long"),
+    (2_048, 256, 16, 1, True, "long"),
+    (512, 64, 40, 32, True, "scratch"),     # past the lane routes' needles
+    (512, 512, 8, 32, True, "scratch"),     # past the long route's buckets
 ])
 def test_wsb_dense_plan_at_path_shapes(c, Lc, T, Q, registers, route):
     """The WSB dense entry takes the gather entry's plan on its c * Q
-    problems: two queries a lane group where Q is even."""
+    problems: two queries a lane group where Q is even on the register
+    route, one on the long route."""
     plan = dp_kernels.wsb_launch_plan(c * Q, Lc, T, registers=registers, Q=Q)
     assert plan.route == route
     assert "dense_" + plan.route in dp_kernels.WSB_ROUTE_LAUNCHES
+    G = dp_kernels.lane_group_width(T)
     if route == "registers":
         groups = c * Q // 2 if Q % 2 == 0 else c * Q
-        G = dp_kernels.lane_group_width(T)
         assert plan.threads == dp_kernels.WSB_REG_THREADS
         assert plan.blocks == -(-groups * G // plan.threads)
+    elif route == "long":
+        assert plan.blocks == -(-c * Q * G // plan.threads)
+        assert plan.smem == dp_kernels.wsb_long_smem(Lc, plan.threads)
 
 
 # ---- forced routes ----------------------------------------------------------
@@ -187,6 +195,8 @@ def test_affine_forced_route_accepted_or_refused(route, Lc, Tpad, ok):
     ("registers", 64, 8, "exp", False), ("registers", 16, 8, "bonus", False),
     ("shared", 16, 8, "bonus", True), ("scratch", 64, 8, "exp", True),
     ("wide_regs", 16, 8, "exp", False),
+    ("long", 64, 8, "exp", True), ("long", 16, 8, "exp", True),
+    ("long", 64, 8, "bonus", False), ("long", 64, 40, "exp", False),
 ])
 def test_wsb_forced_route_accepted_or_refused(route, Lc, T, kind, ok):
     S, len_s, len_t = _block(4, 5, Lc, T, 2)

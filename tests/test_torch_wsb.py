@@ -197,16 +197,19 @@ def test_traceback_general_matches_jax(locality):
 def test_wsb_launch_plan_serves_every_bucket_shape(L, T):
     """Each (capacity, width) has exactly one route: "registers" for the
     gather entry where its templates take the shape (every default bucket
-    up to WSB_REG_MAX_L x needles up to WSB_REG_MAX_T), else shared memory
-    where a block of rows fits, else a scratch buffer sized to the threads
-    in flight — never sized to all problems."""
+    up to WSB_REG_MAX_L x needles up to WSB_REG_MAX_T), "long" for the
+    buckets past it up to WSB_LONG_MAX_L against the same needles (lane
+    groups, a block's column histories in shared memory), else the
+    thread-a-problem body: shared memory where blocks of rows keep
+    WSB_MIN_RESIDENT threads resident an SM, else a scratch buffer sized to
+    the threads in flight — never sized to all problems."""
     problems = 1_000_000 * 32 if L <= 32 else 1_000_000
     plan = dp_kernels.wsb_launch_plan(problems, L, T)
     rows = dp_kernels.wsb_launch_plan(problems, L, T, registers=False)
     per = (L + 1) * (T + 1) * 4
     assert rows.route in ("shared", "scratch")
+    G = dp_kernels.lane_group_width(T)
     if L <= dp_kernels.WSB_REG_MAX_L and T <= dp_kernels.WSB_REG_MAX_T:
-        G = dp_kernels.lane_group_width(T)
         assert G in (8, 16, 32) and T <= G
         threads = dp_kernels.WSB_REG_THREADS
         assert plan == ("registers", -(-problems * G // threads), threads, 0, 0)
@@ -216,10 +219,26 @@ def test_wsb_launch_plan_serves_every_bucket_shape(L, T):
             paired = dp_kernels.wsb_launch_plan(problems + Q, L, T, Q=Q)
             assert paired.blocks == -(-(problems + Q) // 2 * G // threads)
             assert paired.blocks * (threads // G) * 2 >= problems + Q
+    elif L <= dp_kernels.WSB_LONG_MAX_L and T <= dp_kernels.WSB_REG_MAX_T:
+        assert plan.route == "long" and plan.floats == 0 and T <= G
+        assert plan.threads in (32, 64, 128) and plan.threads % G == 0
+        assert plan.smem == dp_kernels.wsb_long_smem(L, plan.threads) <= dp_kernels.WSB_SMEM_MAX
+        assert plan.blocks == -(-problems * G // plan.threads)
+        # one problem a group whatever Q
+        assert dp_kernels.wsb_launch_plan(problems, L, T, Q=32) == plan
+        assert dp_kernels.wsb_launch_plan(problems, L, T, route="long") == plan
+        with pytest.raises(ValueError, match="register route"):
+            dp_kernels.wsb_launch_plan(problems, L, T, route="registers")
     else:
         assert plan == rows
         with pytest.raises(ValueError, match="register route"):
             dp_kernels.wsb_launch_plan(problems, L, T, route="registers")
+        with pytest.raises(ValueError, match="long route"):
+            dp_kernels.wsb_launch_plan(problems, L, T, route="long")
+    # the thread-a-problem body: shared rows by the measured crossover
+    resident = max(dp_kernels._resident(t * per, t) for t in (32, 64, 128))
+    assert (rows.route == "shared") == (resident > 0 and (
+        resident >= dp_kernels.WSB_MIN_RESIDENT or problems <= resident * dp_kernels.WSB_SMS))
     if rows.route == "shared":
         assert rows.floats == 0 and per * rows.threads == rows.smem
         assert rows.smem <= dp_kernels.WSB_SMEM_MAX
@@ -228,11 +247,11 @@ def test_wsb_launch_plan_serves_every_bucket_shape(L, T):
         assert rows.smem == 0 and rows.floats == rows.blocks * rows.threads * per // 4
         assert rows.floats * 4 <= dp_kernels.WSB_SCRATCH_MAX and rows.blocks >= 1
     # the row-gather entry: the same routes under "rows_" names, one problem
-    # a register group whatever Q (each has its own needle length)
+    # a lane group whatever Q (each has its own needle length)
     for Q in (1, 2, 32):
         got = dp_kernels.wsb_launch_plan(problems, L, T, Q=Q, rows=True)
-        if plan.route == "registers":
-            assert got == ("rows_registers", plan.blocks, *plan[2:])
+        if plan.route in ("registers", "long"):
+            assert got == ("rows_" + plan.route, plan.blocks, *plan[2:])
         else:
             assert got == ("rows_" + rows.route, *rows[1:])
     assert dp_kernels.wsb_launch_plan(problems, L, T, registers=False, rows=True) == (
@@ -244,13 +263,57 @@ def test_wsb_launch_plan_serves_every_bucket_shape(L, T):
             dp_kernels.wsb_launch_plan(problems, L, T, route="shared")
 
 
-@pytest.mark.parametrize("capacity", [8, 16, 32])
+@pytest.mark.parametrize("L,T", [(16, 8), (32, 16), (64, 8), (64, 16), (128, 8), (16, 40)])
+def test_wsb_shared_rows_by_the_measured_crossover(L, T):
+    """The thread-a-problem body keeps its rows in shared memory where
+    blocks of them keep WSB_MIN_RESIDENT threads resident an SM, or where
+    the launch fits in one wave of resident blocks; past both, scratch."""
+    per = (L + 1) * (T + 1) * 4
+    resident, threads = max((dp_kernels._resident(t * per, t), t) for t in (128, 64, 32))
+    wave = resident * dp_kernels.WSB_SMS
+    for problems in (max(wave, 1), wave + 1, 65_536, 1_000_000):
+        plan = dp_kernels.wsb_launch_plan(problems, L, T, registers=False)
+        shared = resident >= dp_kernels.WSB_MIN_RESIDENT or (0 < problems <= wave)
+        assert plan.route == ("shared" if shared else "scratch"), problems
+        if shared:
+            assert plan.threads == threads and plan.blocks == -(-problems // threads)
+            assert plan.blocks <= -(-wave // threads) or resident >= dp_kernels.WSB_MIN_RESIDENT
+
+
+@pytest.mark.parametrize("L", [16, 64, 128, 256, 512])
+@pytest.mark.parametrize("kind", ["exp", "bonus", "tagged"])
+def test_wsb_lane_routes_refuse_negative_closures_and_tags(kind, L):
+    """``_register_costs`` lets a launch onto the lane routes only with a
+    closure w_t* >= 0 and, tagged, only at the register route's shapes (the
+    long route has no tagged kernels); a negative closure (a gap bonus) and
+    a tagged long bucket stay on the thread-a-problem body, and so does
+    every bucket past WSB_LONG_MAX_L."""
+    T = 8
+    table = torch.zeros((5, T, 2))
+    w = np.arange(max(L, T) + 1, dtype=np.float32) * (-0.05 if kind == "bonus" else 0.1)
+    vecs = tuple(_t(w) for w in (w[: L + 1], w[: T + 1], w[: T + 1]))
+    hs = dp_kernels._register_costs(L, T, table, vecs, vecs, tagged=kind == "tagged")
+    lanes = (kind == "exp" and L <= dp_kernels.WSB_LONG_MAX_L) or (
+        kind == "tagged" and L <= dp_kernels.WSB_REG_MAX_L)
+    assert (hs is not None) == lanes
+    plan = dp_kernels.wsb_launch_plan(64, L, T, registers=hs is not None, Q=2)
+    if lanes:
+        assert plan.route == ("registers" if L <= dp_kernels.WSB_REG_MAX_L else "long")
+    else:
+        assert plan.route in ("shared", "scratch")
+        for route, says in (("registers", "register route"), ("long", "long route")):
+            with pytest.raises(ValueError, match=says):
+                dp_kernels.wsb_launch_plan(64, L, T, registers=hs is not None, route=route)
+
+
+@pytest.mark.parametrize("capacity", [8, 16, 32, 64, 128, 256])
 @pytest.mark.parametrize("kind", ["exp", "custom"])
 def test_general_gaps_host_vecs_match_device_and_jax(kind, capacity):
-    """The host copies the register route passes by value are the device
-    vectors' bits, and the JAX package's gap_vec / gap_cost_closure."""
+    """The host copies the lane routes decide on (the register route passes
+    them by value) are the device vectors' bits, and the JAX package's
+    gap_vec / gap_cost_closure, at every capacity the lane routes take."""
     rng = np.random.default_rng(capacity)
-    steps = np.cumsum(rng.uniform(0.0, 0.35, size=64)).astype(np.float32)
+    steps = np.cumsum(rng.uniform(0.0, 0.35, size=300)).astype(np.float32)
     cost = (ExponentialGapCost(3.0) if kind == "exp"
             else CustomGapCost(lambda k: float(steps[int(k)])))
     Tpad = 8 if capacity == 8 else 24

@@ -35,7 +35,7 @@
 // operations (and, in this simple form, by the loads of the stored rows that
 // feed them).
 //
-// Two designs, picked per launch by ops/dp_kernels.wsb_launch_plan:
+// Three designs, picked per launch by ops/dp_kernels.wsb_launch_plan:
 //
 // "registers" (bucket capacity L <= 32 and needle width T <= 32, closure
 // w_t* >= 0: every corpus pass and rescore of the default buckets up to 32
@@ -77,8 +77,28 @@
 // of csrc/affine_dp.cu takes two issue slots of the f32 maxes and adds that
 // bound this route, and ran slower here.
 //
-// "shared" / "scratch" (longer buckets, wider needles, negative closures):
-// one thread per problem; the rows of a problem live in shared memory when
+// "long" (bucket capacity 33-256, the register route's needles and gap
+// models: the buckets of 64, 128 and 256 tokens).  What bounded them on the
+// thread-a-problem body below: one thread walks a problem, every vertical
+// candidate one load of a stored row (L^2 T / 2 of them a problem), the
+// rows in a scratch buffer wherever too few threads fit in shared memory,
+// and a few warps an SM each on a chain of dependent steps (20-2,000x the
+// bound).  What the design does about it: the register route's lane groups
+// (the diagonal one shuffle, the horizontal gaps G - 1 shuffles against
+// w_t*, no stored row read for either); each lane keeps its column's
+// history in shared memory, and the rows run in blocks of LONG_R: before a
+// block, a lane streams its stored rows once, 16 bytes and 4 rows a load,
+// into the block's LONG_R vertical accumulators (LONG_R candidates a
+// loaded value, LONG_R independent max chains), the costs of a stored
+// block read as warp-wide broadcasts; inside the block the candidates of
+// its own rows come from registers.  The f32 maxes and subtracts the data
+// needs (~2 i a cell) then dominate.  A block's history is (L rounded up
+// to LONG_R) floats a thread, so at L 256 six warps an SM fit.  Tag
+// weights and closures with a negative cost stay on the body below.
+//
+// "shared" / "scratch" (buckets past 256, needles past 32 columns,
+// negative closures, tagged launches past the register route): one thread
+// per problem; the rows of a problem live in shared memory when
 // enough threads a block fit there, else in a device scratch buffer the
 // wrapper allocates for the threads in flight (the grid then walks over the
 // problems).  Both go through one pointer and stride, with the thread index
@@ -761,10 +781,258 @@ int regs_dispatch(Args a, const HostCosts& h, int n_wt, int locality,
 }
 
 // ---------------------------------------------------------------------------
-// shared / scratch route
+// long route
 // ---------------------------------------------------------------------------
 
 using KernelFn = void (*)(const Args);
+
+constexpr int LONG_R = 8;         // DP rows a row block
+constexpr int LONG_MAX_L = 256;   // the largest bucket capacity it takes
+
+// Lane groups as on the register route (P = 1), the column history in
+// shared memory.  Rows go in blocks of LONG_R.  Before a block, each lane
+// streams its column's stored rows once and folds every one of them into
+// the block's LONG_R vertical-gap accumulators (row b + u takes H[r] -
+// w_s[b + u - r]): one 16-byte load serves 4 rows x LONG_R candidates, in
+// LONG_R independent max chains, the costs of a stored block (2 LONG_R - 1
+// of them, the same for the whole warp) read as broadcasts.  Inside the
+// block the rows run as on the register route: the candidates of the
+// block's own earlier rows from registers (costs w_s[1 .. LONG_R - 1]),
+// the diagonal one shuffle, the horizontal gaps G - 1 shuffles against
+// w_t*.  The block's rows are stored after it, 16 bytes a lane and 4
+// rows: lane t's rows 4m .. 4m + 3 at hist4[m * blockDim.x + t], so a
+// warp's loads and stores are contiguous.  Shared memory holds w_s[1 ..]
+// (ncw floats, zero past L) and then the history, L rounded up to
+// LONG_R rows a thread.
+// The locality ``loc`` is a kernel argument (uniform branches), not a
+// template one: a third of the templates to build.
+template <int G, bool ROWS, typename E, bool DENSE>
+__device__ __forceinline__ void wsb_long_body(const Args a, const int loc) {
+  static_assert(!ROWS || std::is_same<E, float>::value, "rows read f32 tables");
+  static_assert(!(ROWS && DENSE), "a dense block has no row gather");
+  extern __shared__ float4 smem4[];
+  const int Lr = (a.L + LONG_R - 1) / LONG_R * LONG_R;
+  const int ncw = Lr + LONG_R;
+  float* const wsh = reinterpret_cast<float*>(smem4);  // wsh[x] = w_s[x + 1]
+  for (int x = threadIdx.x; x < ncw; x += blockDim.x)
+    wsh[x] = (x < a.L) ? __ldg(a.w_s + x + 1) : 0.0f;
+  float4* const hist4 = smem4 + ncw / 4 + threadIdx.x;
+  const int hstride = blockDim.x;
+  __syncthreads();
+
+  const int64_t gthread = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int k = threadIdx.x & (G - 1);  // this lane's column is j = k + 1
+  const int j = k + 1;
+  const int64_t p_raw = gthread / G;
+  const bool valid = p_raw < a.problems;
+  const int64_t p = valid ? p_raw : 0;  // a tail group computes, stores nothing
+  int64_t s;
+  int q, ln, lt;
+  if (ROWS) {
+    s = (a.prow != nullptr) ? (int64_t)a.prow[p] : p;
+    q = (a.pslot != nullptr) ? a.pslot[p] : 0;
+    ln = a.len_s[p];
+    lt = a.len_t[p];
+  } else {
+    split_problem(p, a.Q, a.small, s, q);
+    ln = DENSE ? max(a.len_s[s], 1) : a.len_s[s];  // the dense block's len_s is raw
+    lt = a.len_t[q];
+  }
+  const int rows = valid ? min(ln, a.L) : 0;
+  // uniform bound of the warp: its longest slice
+  const int rows_warp = __reduce_max_sync(FULL, rows);
+
+  // costs past the needle are zero, as on the register route
+  const bool col_in = k < a.T;
+  const float wt_lane = col_in ? __ldg(a.w_t + j) : 0.0f;
+  const float wts_lane = col_in ? __ldg(a.w_ts + j) : 0.0f;
+  float wts[G];
+#pragma unroll
+  for (int g = 1; g < G; ++g) wts[g] = (g <= a.T) ? __ldg(a.w_ts + g) : 0.0f;
+  float wsin[LONG_R];  // w_s[1 .. LONG_R - 1]: gaps inside a block
+#pragma unroll
+  for (int d = 1; d < LONG_R; ++d) wsin[d] = wsh[d - 1];
+  const bool global = loc == GLOBAL, local = loc == LOCAL;
+  const float e0 = 0.0f - wts_lane;
+  const float h0 = global ? -wt_lane : 0.0f;  // H[0][j]
+
+  const uint32_t T = (uint32_t)a.T;
+  const int32_t* trow = (a.tokens != nullptr) ? a.tokens + s * (int64_t)a.L : nullptr;
+  auto tok_at = [&](int i) -> uint32_t {
+    return (DENSE || (ROWS && trow == nullptr)) ? (uint32_t)i
+                                                : (uint32_t)__ldg(trow + i);
+  };
+  uint32_t vstride, off;
+  if constexpr (DENSE) {
+    vstride = (uint32_t)a.Q * T;
+    off = (uint32_t)(s * a.L) * vstride + (uint32_t)q + (uint32_t)k * (uint32_t)a.Q;
+  } else if (ROWS) {
+    vstride = T;
+    off = ((uint32_t)q * (uint32_t)a.V +
+           (trow == nullptr ? (uint32_t)(s * a.L) : 0u)) * T + (uint32_t)k;
+  } else {
+    vstride = (uint32_t)a.Q * T;
+    off = (uint32_t)q * T + (uint32_t)k;
+  }
+  const E* tcol = static_cast<const E*>(a.table) + off;
+
+  float hprev = h0;  // H[i - 1][j]
+  float acc = global ? NEG : 0.0f;
+  const int last = (j <= lt) ? rows : 0;  // rows whose cell counts (local)
+
+  for (int b = 1; b <= rows_warp; b += LONG_R) {
+    // the block's similarities, in flight while the stored rows stream
+    float sv[LONG_R];
+#pragma unroll
+    for (int u = 0; u < LONG_R; ++u) {
+      const bool in = b + u <= rows;
+      const uint32_t tok = in ? tok_at(b + u - 1) : 0u;
+      sv[u] = (in && col_in) ? to_f32(__ldg(tcol + tok * vstride)) : 0.0f;
+    }
+    // vertical candidates from row 0 and from every stored block
+    float vacc[LONG_R];
+    {
+      const float4* c4 = reinterpret_cast<const float4*>(wsh + b - 1);
+#pragma unroll
+      for (int u4 = 0; u4 < LONG_R / 4; ++u4) {
+        const float4 c = c4[u4];
+        vacc[4 * u4] = h0 - c.x;
+        vacc[4 * u4 + 1] = h0 - c.y;
+        vacc[4 * u4 + 2] = h0 - c.z;
+        vacc[4 * u4 + 3] = h0 - c.w;
+      }
+    }
+    for (int rb = 1; rb < b; rb += LONG_R) {
+      float hr[LONG_R];  // rows rb .. rb + LONG_R - 1
+#pragma unroll
+      for (int m4 = 0; m4 < LONG_R / 4; ++m4) {
+        const float4 h = hist4[((rb - 1) / 4 + m4) * hstride];
+        hr[4 * m4] = h.x;
+        hr[4 * m4 + 1] = h.y;
+        hr[4 * m4 + 2] = h.z;
+        hr[4 * m4 + 3] = h.w;
+      }
+      // row rb + m feeds row b + u at gap d0 + u - m: cw[u - m + LONG_R - 1]
+      const int d0 = b - rb;
+      float cw[2 * LONG_R];
+      const float4* c4 = reinterpret_cast<const float4*>(wsh + d0 - LONG_R);
+#pragma unroll
+      for (int y4 = 0; y4 < LONG_R / 2; ++y4) {
+        const float4 c = c4[y4];
+        cw[4 * y4] = c.x;
+        cw[4 * y4 + 1] = c.y;
+        cw[4 * y4 + 2] = c.z;
+        cw[4 * y4 + 3] = c.w;
+      }
+#pragma unroll
+      for (int m = 0; m < LONG_R; ++m) {
+#pragma unroll
+        for (int u = 0; u < LONG_R; ++u)
+          vacc[u] = fmaxf(vacc[u], hr[m] - cw[u - m + LONG_R - 1]);
+      }
+    }
+    float hb[LONG_R];
+#pragma unroll
+    for (int u = 0; u < LONG_R; ++u) hb[u] = 0.0f;
+#pragma unroll
+    for (int u = 0; u < LONG_R; ++u) {
+      const int i = b + u;
+      if (i > rows_warp) break;
+      float v = vacc[u];
+#pragma unroll
+      for (int m = 0; m < u; ++m) v = fmaxf(v, hb[m] - wsin[u - m]);
+      // diagonal: H[i - 1][j - 1] + S[i - 1][j - 1]
+      const float up = __shfl_up_sync(FULL, hprev, 1, G);
+      const float h_prev0 = (global && i > 1) ? -wsh[i - 2] : 0.0f;
+      const float dg = ((k == 0) ? h_prev0 : up) + sv[u];
+      float c = fmaxf(dg, v);
+      if (local) c = fmaxf(c, 0.0f);
+      // horizontal gaps, as on the register route (w_t* >= 0)
+      float e = global ? -wsh[i - 1] - wts_lane : e0;
+#pragma unroll
+      for (int g = 1; g < G; ++g)
+        e = fmaxf(e, __shfl_up_sync(FULL, c, g, G) - wts[g]);
+      const float h = fmaxf(c, e);
+      hb[u] = h;
+      hprev = h;
+      if (local) {
+        if (i <= last) acc = fmaxf(acc, h);
+      } else if (global) {
+        if (i == ln && j == lt) acc = h;
+      } else {
+        if (i <= rows && j == lt) acc = fmaxf(acc, h);
+        if (i == ln && j <= lt) acc = fmaxf(acc, h);
+      }
+    }
+    if (b + LONG_R <= rows_warp) {  // a later block reads these rows
+#pragma unroll
+      for (int m4 = 0; m4 < LONG_R / 4; ++m4)
+        hist4[((b - 1) / 4 + m4) * hstride] =
+            make_float4(hb[4 * m4], hb[4 * m4 + 1], hb[4 * m4 + 2], hb[4 * m4 + 3]);
+    }
+  }
+#pragma unroll
+  for (int off2 = G / 2; off2 > 0; off2 >>= 1)
+    acc = fmaxf(acc, __shfl_xor_sync(FULL, acc, off2, G));
+  if (valid && k == 0)
+    a.out[p] = (ROWS && a.mask_empty && ln <= 0) ? NEG : acc;
+}
+
+template <int G, bool ROWS, typename E>
+__global__ void __launch_bounds__(128) wsb_long_kernel(const Args a, const int loc) {
+  wsb_long_body<G, ROWS, E, false>(a, loc);
+}
+
+template <int G>
+__global__ void __launch_bounds__(128) wsb_long_dense_kernel(const Args a, const int loc) {
+  wsb_long_body<G, false, float, true>(a, loc);
+}
+
+// The shared bytes a block of ``threads`` threads needs at capacity L.
+int64_t long_smem_bytes(int L, int threads) {
+  const int64_t Lr = (L + LONG_R - 1) / LONG_R * LONG_R;
+  return (Lr + LONG_R + Lr * threads) * 4;
+}
+
+using LongFn = void (*)(const Args, const int);
+
+template <int G, bool ROWS, typename E, bool DENSE>
+LongFn pick_long() {
+  if constexpr (DENSE)
+    return wsb_long_dense_kernel<G>;
+  else
+    return wsb_long_kernel<G, ROWS, E>;
+}
+
+// blocks of ``threads`` (32, 64 or 128) threads, G lanes a problem,
+// ``smem_bytes`` at least long_smem_bytes(L, threads); the table holds fewer
+// than 2^32 elements
+template <bool ROWS, typename E, bool DENSE = false>
+int long_dispatch(Args a, int locality, int blocks, int threads, int smem_bytes,
+                  void* stream) {
+  if (a.problems <= 0 || a.Q <= 0 || a.L <= 0 || a.L > LONG_MAX_L || a.T <= 0 ||
+      a.T > 32 || locality < 0 || locality > 2 || blocks <= 0 ||
+      (threads != 32 && threads != 64 && threads != 128) ||
+      (int64_t)smem_bytes < long_smem_bytes(a.L, threads))
+    return -1;
+  const int G = a.T <= 8 ? 8 : a.T <= 16 ? 16 : 32;
+  if ((int64_t)blocks * (threads / G) < a.problems) return -1;
+  a.small = a.problems <= 0xffffffffLL;
+  const LongFn kernel = G == 8 ? pick_long<8, ROWS, E, DENSE>()
+                        : G == 16 ? pick_long<16, ROWS, E, DENSE>()
+                                  : pick_long<32, ROWS, E, DENSE>();
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<blocks, threads, smem_bytes, (cudaStream_t)stream>>>(a, locality);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// shared / scratch route
+// ---------------------------------------------------------------------------
 using TaggedFn = void (*)(const Args, const TagArgs);
 
 template <int THREADS>
@@ -983,4 +1251,50 @@ extern "C" int vt_wsb_dp_scores_dense_regs(
                nullptr, out, nullptr, c * (int64_t)Q, L, T, Q, 0, false, false};
   return regs_dispatch<false, float, true>(a, HostCosts{w_s, n_ws, w_t, w_ts},
                                            n_wt, locality, blocks, nullptr, stream);
+}
+
+// Long route (bucket capacity L <= 256, T <= 32, w_ts[1..T - 1] >= 0;
+// ``blocks`` of ``threads`` threads with ``smem_bytes`` of shared memory
+// each, as ops/dp_kernels.wsb_launch_plan sizes them; the table or block
+// holds fewer than 2^32 elements).  w_s (L + 1 floats), w_t and w_ts (T + 1
+// each) are device pointers.  Gather: ``table`` [V, Q, T] of
+// ``table_dtype`` (unpaired at any Q).
+extern "C" int vt_wsb_dp_scores_long(
+    const void* table, int table_dtype, const int32_t* tokens,
+    const int32_t* len_s, const int32_t* len_t, const float* w_s,
+    const float* w_t, const float* w_ts, float* out, int64_t n, int L, int T,
+    int Q, int locality, int blocks, int threads, int smem_bytes, void* stream) {
+  if (n <= 0 || Q <= 0 || tokens == nullptr) return -1;
+  const Args a{table, tokens, nullptr, nullptr, len_s, len_t, w_s, w_t, w_ts,
+               out, nullptr, n * (int64_t)Q, L, T, Q, 0, false, false};
+  switch (table_dtype) {
+    case F32: return long_dispatch<false, float>(a, locality, blocks, threads, smem_bytes, stream);
+    case BF16: return long_dispatch<false, uint16_t>(a, locality, blocks, threads, smem_bytes, stream);
+    case INT8: return long_dispatch<false, int8_t>(a, locality, blocks, threads, smem_bytes, stream);
+    default: return -1;
+  }
+}
+
+// Row-gather entry, long route (arguments as in vt_wsb_dp_scores_rows).
+extern "C" int vt_wsb_dp_scores_rows_long(
+    const float* table, const int32_t* tokens, const int32_t* rows,
+    const int32_t* qslot, const int32_t* len_s, const int32_t* len_t,
+    const float* w_s, const float* w_t, const float* w_ts, float* out,
+    int64_t B, int L, int T, int64_t V, int locality, int mask_empty,
+    int blocks, int threads, int smem_bytes, void* stream) {
+  const Args a{table, tokens, rows, qslot, len_s, len_t, w_s, w_t, w_ts, out,
+               nullptr, B, L, T, 1, V, false, mask_empty != 0};
+  return long_dispatch<true, float>(a, locality, blocks, threads, smem_bytes, stream);
+}
+
+// Dense entry, long route (arguments as in vt_wsb_dp_scores_dense).
+extern "C" int vt_wsb_dp_scores_dense_long(
+    const float* S, const int32_t* len_s, const int32_t* len_t,
+    const float* w_s, const float* w_t, const float* w_ts, float* out,
+    int64_t c, int L, int T, int Q, int locality, int blocks, int threads,
+    int smem_bytes, void* stream) {
+  if (S == nullptr || c <= 0 || Q <= 0) return -1;
+  const Args a{S, nullptr, nullptr, nullptr, len_s, len_t, w_s, w_t, w_ts,
+               out, nullptr, c * (int64_t)Q, L, T, Q, 0, false, false};
+  return long_dispatch<false, float, true>(a, locality, blocks, threads, smem_bytes, stream);
 }

@@ -32,17 +32,20 @@ counts.
 - ``wsb_dp_scores``: the general-gap (Waterman-Smith-Beyer) corpus pass,
   gather fused as above, any of the three table types (csrc/wsb_dp.cu;
   replaces the corpus-pass use of ``pallas_align_scores_general``).
-  Three routes (``wsb_launch_plan``):
+  Four routes (``wsb_launch_plan``):
   "registers" (one lane a needle column, column histories in registers)
   for buckets up to WSB_REG_MAX_L tokens and needles up to WSB_REG_MAX_T
-  (gap models whose closure is non-negative), else one thread a problem
-  with its rows in "shared" memory or in a "scratch" buffer.
+  (gap models whose closure is non-negative), "long" (the same lane
+  groups, column histories in shared memory, rows in blocks) for buckets
+  up to WSB_LONG_MAX_L against the same needles and gap models, else one
+  thread a problem with its rows in "shared" memory or in a "scratch"
+  buffer.
 - ``wsb_dp_scores_rows``: the WSB score-only rescore of (bucket row, query
-  slot) problems, on the same three routes ("rows_registers", ...);
+  slot) problems, on the same four routes ("rows_registers", ...);
   ``wsb_dp_scores_flat`` runs it on a flat [B, L, T] batch (both replace
   ``pallas_align_scores_general``).
 - ``wsb_dp_scores_dense``: the WSB DP of a dense ``[c, L, T, Q]`` f32
-  block, on the gather entry's three routes.
+  block, on the gather entry's four routes.
 
 The four gather and row-gather entries also read the tag-weighted block
 (``tags``, a ``TagBlock``; f32 tables only): each similarity becomes the JAX
@@ -119,11 +122,18 @@ AFFINE_WIDE_WARPS = 8
 # the most one block can have
 SM_SMEM = 228 * 1024
 WSB_SMEM_MAX = 227 * 1024
-# WSB rows stay in shared memory while at least this many threads an SM fit
-# there; past it they live in a device scratch buffer sized to the threads
-# in flight, at most WSB_SCRATCH_MAX bytes (the affine wide route's scratch
-# has the same cap)
+# WSB rows of the thread-a-problem body stay in shared memory while at least
+# WSB_MIN_RESIDENT threads an SM fit there, or while the launch's problems
+# fit in one wave of resident blocks on WSB_SMS SMs; past both they live in
+# a device scratch buffer sized to the threads in flight, at most
+# WSB_SCRATCH_MAX bytes (the affine wide route's scratch has the same cap).
+# Measured on an H100 (chip_smoke.py phase 3's ``wsb_shared_crossover`` and
+# long-shape turns, PERF.md): shared rows ran 0.73x scratch's time at 352
+# threads resident, 1.006x at 192 and 1.19-2.71x at 96 and fewer over
+# 65,536 problems (several waves: scratch keeps more threads in flight),
+# but 0.59-0.86x at 96 and 32 resident where every block fit in one wave.
 WSB_MIN_RESIDENT = 256
+WSB_SMS = 132
 WSB_SCRATCH_MAX = 256 << 20
 WSB_SCRATCH_THREADS = 64
 # the register route of the WSB entries: bucket capacities and padded
@@ -131,6 +141,10 @@ WSB_SCRATCH_THREADS = 64
 WSB_REG_MAX_L = 32
 WSB_REG_MAX_T = 32
 WSB_REG_THREADS = 128
+# the long route (csrc/wsb_dp.cu LONG_MAX_L, LONG_R): bucket capacities up
+# to 256 against the register route's needles; DP rows a row block
+WSB_LONG_MAX_L = 256
+WSB_LONG_R = 8
 # the affine dense entry's lane route (csrc/affine_dp.cu "dense_lanes", a
 # group of lanes a problem, a lane a column): buckets and padded needles up
 # to 32, for launches of at most AFFINE_DENSE_LANES_MAX_PROBLEMS problems.
@@ -160,9 +174,9 @@ LAUNCHES = {
     "wsb_dp[dense]": 0, "wsb_dp_flat": 0, "wsb_dp_flat[tagged]": 0,
 }
 WSB_ROUTE_LAUNCHES = {
-    "registers": 0, "shared": 0, "scratch": 0,
-    "rows_registers": 0, "rows_shared": 0, "rows_scratch": 0,
-    "dense_registers": 0, "dense_shared": 0, "dense_scratch": 0,
+    "registers": 0, "long": 0, "shared": 0, "scratch": 0,
+    "rows_registers": 0, "rows_long": 0, "rows_shared": 0, "rows_scratch": 0,
+    "dense_registers": 0, "dense_long": 0, "dense_shared": 0, "dense_scratch": 0,
 }
 AFFINE_ROUTE_LAUNCHES = {
     "registers": 0, "wide_regs": 0, "wide_shared": 0, "wide_scratch": 0,
@@ -231,6 +245,17 @@ _SIGNATURES = {
         ],
         "vt_wsb_dp_scores_dense_regs": [
             _P, _P, _P, _P, _I, _P, _P, _I, _P, _I64, _I, _I, _I, _I, _I, _P,
+        ],
+        "vt_wsb_dp_scores_long": [
+            _P, _I, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I,
+            _I, _P,
+        ],
+        "vt_wsb_dp_scores_rows_long": [
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I64, _I,
+            _I, _I, _I, _I, _P,
+        ],
+        "vt_wsb_dp_scores_dense_long": [
+            _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I, _P,
         ],
     },
 }
@@ -1098,26 +1123,56 @@ def wsb_register_shape(L: int, T: int) -> bool:
     return 1 <= L <= WSB_REG_MAX_L and 1 <= T <= WSB_REG_MAX_T
 
 
+def wsb_long_shape(L: int, T: int) -> bool:
+    """Whether the long route takes a bucket of capacity L against needles
+    padded to T (any capacity the register route takes, too)."""
+    return 1 <= L <= WSB_LONG_MAX_L and 1 <= T <= WSB_REG_MAX_T
+
+
+def wsb_long_smem(L: int, threads: int) -> int:
+    """Shared bytes a block of the long route needs: w_s[1 ..] and each
+    thread's column history, L rounded up to WSB_LONG_R rows
+    (csrc/wsb_dp.cu long_smem_bytes)."""
+    Lr = -(-L // WSB_LONG_R) * WSB_LONG_R
+    return (Lr + WSB_LONG_R + Lr * threads) * 4
+
+
+def _resident(smem: int, threads: int) -> int:
+    """Threads of blocks of ``threads`` threads and ``smem`` shared bytes
+    resident an SM (1 KB reserved a block, at most 32 blocks and 2,048
+    threads); 0 where one block does not fit."""
+    if smem > WSB_SMEM_MAX:
+        return 0
+    return min(min(SM_SMEM // (smem + 1024), 32) * threads, 2048)
+
+
 def wsb_launch_plan(problems: int, L: int, T: int, registers: bool = True,
                     route=None, Q: int = 1, rows: bool = False) -> LaunchPlan:
     """The launch of a WSB DP of ``problems`` problems (``Q`` queries a
     slice), bucket capacity L, needles padded to T; ``rows``: the
-    row-gather entry (its routes are named "rows_registers", "rows_shared"
-    and "rows_scratch").  ``route`` None picks: "registers" where
-    ``registers`` allows it (a closure of non-negative costs and a table
-    under 2^32 floats) and ``wsb_register_shape`` holds (a group of G =
-    ``lane_group_width(T)`` lanes takes one problem — two consecutive
-    queries of a slice in the gather entry where Q is even;
-    WSB_REG_THREADS threads a block); else a problem's (L + 1) x (T + 1)
-    rows go to "shared" memory when blocks of 32, 64 or 128 threads keep at
-    least WSB_MIN_RESIDENT threads resident an SM (the block size that keeps
-    the most), else to a "scratch" buffer sized to the threads in flight
-    (the grid then walks over the problems).  A named ``route`` ("registers",
-    "shared" or "scratch") forces that one (ValueError where it cannot
-    run)."""
+    row-gather entry (its routes are named "rows_registers", "rows_long",
+    "rows_shared" and "rows_scratch").  ``registers``: the lane routes may
+    run (a closure of non-negative costs and a table under 2^32 elements).
+    ``route`` None picks: "registers" where ``wsb_register_shape`` holds (a
+    group of G = ``lane_group_width(T)`` lanes takes one problem — two
+    consecutive queries of a slice in the gather entry where Q is even;
+    WSB_REG_THREADS threads a block); else "long" where ``wsb_long_shape``
+    holds (a group of G lanes a problem, its column histories in shared
+    memory: the block size of 32, 64 or 128 threads that keeps the most
+    threads resident an SM); else a problem's (L + 1) x (T + 1) rows go to
+    "shared" memory when blocks of 32, 64 or 128 threads keep at least
+    WSB_MIN_RESIDENT threads resident an SM or hold every problem in one
+    wave on WSB_SMS SMs (the block size that keeps the most), else to a
+    "scratch" buffer sized to the threads in flight (the grid then walks
+    over the problems).  A named ``route`` ("registers",
+    "long", "shared" or "scratch") forces that one (ValueError where it
+    cannot run)."""
     prefix = "rows_" if rows else ""
-    if route is None and registers and wsb_register_shape(L, T):
-        route = "registers"
+    if route is None and registers:
+        if wsb_register_shape(L, T):
+            route = "registers"
+        elif wsb_long_shape(L, T):
+            route = "long"
     if route == "registers":
         if not (registers and wsb_register_shape(L, T)):
             raise ValueError(f"the register route does not take L={L}, T={T}")
@@ -1125,18 +1180,20 @@ def wsb_launch_plan(problems: int, L: int, T: int, registers: bool = True,
         groups = -(-problems // (2 if Q % 2 == 0 and not rows else 1))
         blocks = -(-groups * lane_group_width(T) // threads)
         return LaunchPlan(prefix + "registers", blocks, threads, 0, 0)
+    if route == "long":
+        if not (registers and wsb_long_shape(L, T)):
+            raise ValueError(f"the long route does not take L={L}, T={T}")
+        _, threads = max((_resident(wsb_long_smem(L, t), t), t) for t in (128, 64, 32))
+        blocks = -(-problems * lane_group_width(T) // threads)
+        return LaunchPlan(prefix + "long", blocks, threads, wsb_long_smem(L, threads), 0)
     per = (L + 1) * (T + 1) * 4
-    best = (0, 0)  # (resident threads an SM, threads a block)
-    for threads in (128, 64, 32):
-        if threads * per <= WSB_SMEM_MAX:
-            resident = min(SM_SMEM // (threads * per + 1024), 32) * threads
-            best = max(best, (min(resident, 2048), threads))
-    resident, threads = best
+    resident, threads = max((_resident(t * per, t), t) for t in (128, 64, 32))
     if route not in (None, "shared", "scratch"):
         raise ValueError(f"unknown WSB route {route!r}")
     if route == "shared" and resident == 0:
         raise ValueError(f"rows of L={L}, T={T} do not fit in shared memory")
-    if route == "shared" or (route is None and resident >= max(WSB_MIN_RESIDENT, 1)):
+    if route == "shared" or (route is None and resident > 0 and (
+            resident >= WSB_MIN_RESIDENT or problems <= resident * WSB_SMS)):
         return LaunchPlan(prefix + "shared", -(-problems // threads), threads,
                        threads * per, 0)
     threads = WSB_SCRATCH_THREADS
@@ -1161,14 +1218,17 @@ def wsb_register_table(table: torch.Tensor) -> torch.Tensor:
     return out.clone() if out.data_ptr() % 4 else out
 
 
-def _register_costs(L: int, T: int, table, vecs, host_costs):
+def _register_costs(L: int, T: int, table, vecs, host_costs, tagged: bool = False):
     """The host cost vectors the register route passes by value, or None
-    where the route cannot take the launch: a shape its templates do not
-    take, a table (of any type) of 2^32 elements or more, or a closure
-    w_t*[1..T] with a negative cost (its shuffles need w_t* >= 0).  Without
-    ``host_costs`` the device vectors are copied back, which waits for the
-    stream."""
-    if not wsb_register_shape(L, T) or table.numel() >= 2**32:
+    where neither lane route ("registers", "long") can take the launch: a
+    shape they do not take, a table (of any type) of 2^32 elements or more,
+    a closure w_t*[1..T] with a negative cost (their shuffles need w_t* >=
+    0), or (``tagged``) a tag-weighted launch past the register route's
+    shapes (the long route has no tagged kernels).  Without ``host_costs``
+    the device vectors are copied back, which waits for the stream."""
+    if not (wsb_register_shape(L, T) if tagged else wsb_long_shape(L, T)):
+        return None
+    if table.numel() >= 2**32:
         return None
     hs = host_costs if host_costs is not None else vecs
     hs = [w.detach().to("cpu", torch.float32).contiguous() for w in hs]
@@ -1250,7 +1310,8 @@ def wsb_dp_scores(table, tokens, len_s, len_t, w_s, w_t, w_t_star, locality,
     if n == 0 or Q == 0:
         return out
     ln1 = torch.clamp_min(len_s, 1)
-    hs = _register_costs(L, Tpad, table, (w_s, w_t, w_t_star), host_costs)
+    hs = _register_costs(L, Tpad, table, (w_s, w_t, w_t_star), host_costs,
+                         tagged=tags is not None)
     plan = wsb_launch_plan(n * Q, L, Tpad, registers=hs is not None,
                            route=_route, Q=Q)
     lib = _load("wsb_dp")
@@ -1270,6 +1331,18 @@ def wsb_dp_scores(table, tokens, len_s, len_t, w_s, w_t, w_t_star, locality,
             )
         # the costs were copied into the launch; the caching allocator
         # orders any reuse of a transposed table after it on this stream
+        del tq
+    elif plan.route == "long":
+        tq = table.transpose(1, 2).contiguous()  # [V, Q, Tpad], unpaired
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.vt_wsb_dp_scores_long(
+                tq.data_ptr(), code, tokens.data_ptr(), ln1.data_ptr(),
+                len_t.data_ptr(), w_s.data_ptr(), w_t.data_ptr(),
+                w_t_star.data_ptr(), out.data_ptr(), n, L, Tpad, Q,
+                LOCALITIES.index(locality), plan.blocks, plan.threads,
+                plan.smem, stream,
+            )
         del tq
     else:
         scratch, scratch_ptr = _scratch(dev, plan.floats)
@@ -1315,7 +1388,7 @@ def _wsb_rows_launch(table, tokens, rows, qslot, V, L, len_s, len_t, vecs,
     out = torch.empty((B,), dtype=torch.float32, device=dev)
     if B == 0:
         return out
-    hs = _register_costs(L, T, table, vecs, host_costs)
+    hs = _register_costs(L, T, table, vecs, host_costs, tagged=tags is not None)
     plan = wsb_launch_plan(B, L, T, registers=hs is not None, route=route,
                            rows=True)
     lib = _load("wsb_dp")
@@ -1332,6 +1405,12 @@ def _wsb_rows_launch(table, tokens, rows, qslot, V, L, len_s, len_t, vecs,
                 hs[2].data_ptr(), min(hs[1].numel(), hs[2].numel()),
                 out.data_ptr(), B, L, T, V, loc, int(mask_empty), plan.blocks,
                 tag_ptr, stream,
+            )
+        elif plan.route == "rows_long":
+            rc = lib.vt_wsb_dp_scores_rows_long(
+                *ptrs, *(w.data_ptr() for w in vecs), out.data_ptr(), B, L,
+                T, V, loc, int(mask_empty), plan.blocks, plan.threads,
+                plan.smem, stream,
             )
         else:
             scratch, scratch_ptr = _scratch(dev, plan.floats)
@@ -1472,6 +1551,12 @@ def wsb_dp_scores_dense(S, len_s, len_t, w_s, w_t, w_t_star, locality,
                 hs[0].data_ptr(), hs[0].numel(), hs[1].data_ptr(),
                 hs[2].data_ptr(), min(hs[1].numel(), hs[2].numel()),
                 out.data_ptr(), c, L, T, Q, loc, plan.blocks, stream,
+            )
+        elif plan.route == "long":
+            rc = lib.vt_wsb_dp_scores_dense_long(
+                S.data_ptr(), len_s.data_ptr(), len_t.data_ptr(), w_s.data_ptr(),
+                w_t.data_ptr(), w_t_star.data_ptr(), out.data_ptr(), c, L, T, Q,
+                loc, plan.blocks, plan.threads, plan.smem, stream,
             )
         else:
             scratch, scratch_ptr = _scratch(dev, plan.floats)
