@@ -15,8 +15,9 @@ Phases, each of which raises on failure:
    route (the register-resident one at 4, 8 and 16 columns a lane) or any
    kernel of the WSB register route (gather at each table type,
    row-gather, tagged or not) or of its long route (gather at each table
-   type, row-gather, dense) has a stack frame or spills; prints the T1P
-   = 65 templates' reports and the wide_regs ones on lines of their own.
+   type, row-gather, dense) or of its wide route (the same entries, 2, 4,
+   8 and 16 slots a lane) has a stack frame or spills; prints the T1P = 65
+   templates' reports and the wide_regs ones on lines of their own.
 3. Kernels against their plain torch versions on the card (random tables,
    tokens and costs from a seeded generator), bit for bit (torch.equal):
    the affine corpus kernel, the WSB corpus kernel (the register route at
@@ -52,8 +53,16 @@ Phases, each of which raises on failure:
    localities, ExponentialGapCost(3.0) and a CustomGapCost) bit for bit,
    each launch timed in turns against the old thread-a-problem body
    forced (shared / scratch) beside its bound; the shapes the old body
-   still serves (buckets of 512 and 1,024, a 40-column needle, a gap
-   bonus, a tagged launch) held and timed once.
+   still serves (buckets of 512 and 1,024, a needle of 256 columns past
+   the wide route's shared memory, a gap bonus, a tagged launch) held and
+   timed once.
+   3 (wide needles): kernel 3's wide route at bucket capacities 8, 16 and
+   64 x needles padded to 40, 64, 136, 256 and 512 (where its shared
+   memory holds the bucket) x Q 1, 3 and 32 (f32, bf16 and int8 gather
+   tables, forced and split by needle, 3 localities,
+   ExponentialGapCost(3.0) and a concave CustomGapCost), the row-gather
+   entry and the dense entry at 4f's chunk, bit for bit, each launch timed
+   in turns against the old body forced beside its bound.
    3t: the tagged entries
    (the tag-weighted block, dp_kernels.TagBlock) of kernels 1-3 on every
    route — affine registers at T1P 9 / 17 / 33 / 65 and Q = 1 (float4
@@ -97,6 +106,14 @@ Phases, each of which raises on failure:
    call and the long needle's launch held against their plain versions
    at those shapes and timed with their bounds, the launch in turns
    against the shared-memory wide route.
+   4 (long queries, general gaps): the same 160-token find and batch
+   under LocalAlignment(ExponentialGapCost(3.0)) at each precision,
+   byte-identical; the batch's short needles must take the register route
+   and the long one kernel 3's wide route (as the find does), no
+   thread-a-problem launch; the find's p50, a profile of the int8 and f32
+   batches; at the path's shapes each group's launch held against its
+   plain version on 65,536 slices a bucket, timed there in turns against
+   the old body, and on the whole packing beside its bound.
    4d: BASELINE config 1, fastText 300d (a .bin with cc.en.300.bin's
    arguments, dim 300, n-grams of 5, 2,000,000 buckets, its dictionary the
    corpus's 2,500 most frequent words, written from the seed into a
@@ -120,7 +137,7 @@ Phases, each of which raises on failure:
    4g, on phase 4's session: submatch_weight=0.5 through find (p50 of 21)
    and find_batch Q=32, affine and general gaps, byte-identical; a find
    with a debug callback counting its hooks; a boosted submatch find.
-   4f: contextual search: 250,000 of phase 4's sentences and a d=256
+   4f: contextual search: 125,000 of phase 4's sentences and a d=256
    LambdaContextualEmbedding (seeded word vectors plus 0.2 of each
    neighbour's): ensure_contextual's packing, find p50 (21) and
    find_batch Q=32 under affine and general gaps, byte-identical, each
@@ -155,12 +172,15 @@ Phases, each of which raises on failure:
    shard's inputs (each table type, tagged, dense) bit for bit against
    their plain versions, the four shards' launches timed against the
    bucket's one launch.
-   4r (after 4n): a length-mixed corpus, 250,000 sentences of log-normal
+   4r (after 4n): a length-mixed corpus, 125,000 sentences of log-normal
    lengths (median 18 tokens, sigma 0.55, 3-250) over phase 4's
    vocabulary and vectors, LocalAlignment(ExponentialGapCost(3.0)):
    find_batch Q=32 at each precision and 21 finds as in 4b, byte-identical,
    every bucket up to 32 tokens on the register route and every one of
-   64-256 on the long route; per bucket the kernel against its plain
+   64-256 on the long route; a find_batch of 32 prose-length queries
+   (4r's length law; at least one past 32 tokens) at each precision, its
+   pass split by needle width as planned (the wide route on the path),
+   byte-identical to its finds; per bucket the kernel against its plain
    version on the path's tables, its device ms in one pass, the long
    buckets in turns against the old body.
    4n: the storage and notebook layer.  On phase 4's session,
@@ -204,6 +224,9 @@ instruction mix beside their f32 selves (both trees with ``--old-tree``),
 phase 3b and phases 4 / 4b alone; ``--long-check`` runs phase 2, phase
 3's long-bucket shapes with every gap model on every table, the old body's
 shared / scratch crossover (``wsb_shared_crossover``) and 4r alone;
+``--wide-general-check`` runs phase 2, phase 3's wide general-gap shapes
+with every gap model on every table, the old body's shapes, the general
+long query (phase 4's session) and 4r's prose-length batch alone;
 ``--dense-check`` runs phases 2,
 3d and 4f alone; ``--wide-check`` phase 2, phase 3's wide cases and the
 long-query phase (on phase 4's session); ``--mesh-check`` phase 2, 4k
@@ -344,6 +367,9 @@ _WSB_DENSE = re.compile(r"wsb_dp_dense_kernelILi(\d)ELi(\d+)EE")
 # a kernel argument)
 _WSB_LONG = re.compile(r"wsb_long_kernelILi(\d+)ELb([01])E([fta])E")
 _WSB_LONG_DENSE = re.compile(r"wsb_long_dense_kernelILi(\d+)EE")
+# kernel 3's wide route (slots a lane, rows, type; the dense family)
+_WSB_WIDE = re.compile(r"wsb_wide_kernelILi(\d+)ELb([01])E([fta])E")
+_WSB_WIDE_DENSE = re.compile(r"wsb_wide_dense_kernelILi(\d+)EE")
 # the affine dense entry's own lane route
 _AFFINE_DENSE_LANES = re.compile(r"affine_dp_dense_lanes_kernelILi(\d+)ELi(\d+)ELi(\d)EE")
 
@@ -352,7 +378,7 @@ def ptxas_gate(reports):
     """Each kernel template's registers, stack frame and spills from the
     ptxas reports; raises if an affine template up to T1P = 33, a kernel of
     either affine wide route (the register-resident one at every CPL) or
-    a kernel of the WSB register or long route (either entry, any table
+    a kernel of the WSB register, long or wide route (any entry, any table
     type, tagged or not) or any template of the dense entries has a stack frame
     or spills, or if the reports lack the gather kernels of a table type,
     the row-gather kernels, the tagged ones or the dense ones.  The affine
@@ -374,7 +400,15 @@ def ptxas_gate(reports):
             adl = _AFFINE_DENSE_LANES.search(name)
             wp = _WSB_REGS_PAIRED.search(name)
             wl, wld = _WSB_LONG.search(name), _WSB_LONG_DENSE.search(name)
-            if wl:
+            ww, wwd = _WSB_WIDE.search(name), _WSB_WIDE_DENSE.search(name)
+            if ww:
+                label = (f"wsb_wide {'rows' if ww[2] == '1' else 'gather'} {_ELEM[ww[3]]} "
+                         f"CPL={ww[1]}")
+                gated = True
+            elif wwd:
+                label = f"wsb_wide dense f32 CPL={wwd[1]}"
+                gated = True
+            elif wl:
                 label = (f"wsb_long {'rows' if wl[2] == '1' else 'gather'} {_ELEM[wl[3]]} "
                          f"G={wl[1]}")
                 gated = True
@@ -451,8 +485,8 @@ def ptxas_gate(reports):
     kinds += [f"{k} dense f32" for k in ("affine", "affine_wide", "affine_wide_regs",
                                          "wsb_regs", "wsb")]
     kinds += ["affine dense_lanes f32"]
-    kinds += [f"wsb_long {e}" for e in ("gather f32", "gather bf16", "gather int8",
-                                        "rows f32", "dense f32")]
+    kinds += [f"{k} {e}" for k in ("wsb_long", "wsb_wide")
+              for e in ("gather f32", "gather bf16", "gather int8", "rows f32", "dense f32")]
     for kind in kinds:
         if not any(r[0].startswith(kind + " ") for r in rows):
             raise AssertionError(f"ptxas gate: the reports name no {kind} kernel")
@@ -469,6 +503,9 @@ def ptxas_gate(reports):
     emit({"phase": "ptxas_long_templates",
           "kernels_registers_stack_spill_st_ld": sorted(
               r for r in rows if r[0].startswith("wsb_long "))})
+    emit({"phase": "ptxas_wide_general_templates",
+          "kernels_registers_stack_spill_st_ld": sorted(
+              r for r in rows if r[0].startswith("wsb_wide "))})
     if bad:
         raise AssertionError(f"ptxas gate: stack frame or spills in {bad}")
 
@@ -843,10 +880,11 @@ def dense_bound_ms(kernel, S, len_s, len_t):
 # the contextual vectors' dimension of phase 4f (d = 256: a PCA-compressed
 # transformer embedding); it sets the contextual pass's chunk with L, Tpad, Q
 CTX_DIM = 256
-# phase 4f's corpus: 250,000 of phase 4's sentences (2.3 GB of f32 vectors
-# on the host, a 2.0 GB bf16 store on the card): the size at which the
-# run's 1,200 s also hold phase 4r on a slow host
-CTX_SENTENCES = 250_000
+# phase 4f's corpus: 125,000 of phase 4's sentences (1.2 GB of f32 vectors
+# on the host, a 1.0 GB bf16 store on the card): the size at which the
+# run's 1,200 s also hold phases 4r and the general long query on a slow
+# host (250,000 before them)
+CTX_SENTENCES = 125_000
 
 
 # the dense entries' routes a plan can pick at a register shape, forced
@@ -917,7 +955,7 @@ def phase_kernels_dense():
     the device (``device_ms``) in turns against the old design
     (``old_dense``: old, new, ..., new, old) beside its bound, the plan's
     route also on the host (``host_ms``, a call's wall time).  Then Tpad
-    132 (the affine wide route, the WSB scratch rows) and, WSB, L 64, and
+    132 (the affine and the WSB wide routes) and, WSB, L 64, and
     the routes no default plan of these shapes takes, forced: the affine
     wide_scratch template at Tpad 132 and the WSB shared template (at L 16
     and 64, Tpad 8: 32 threads a block).  Returns {name: {"worst": |diff|,
@@ -1406,11 +1444,12 @@ CROSSOVER_PROBLEMS = 65_536
 
 # the shapes kernel 3 still sends to the thread-a-problem body, each held
 # and timed once (``old_body_shapes``): (label, L, Tpad, Q, slices, gap
-# model, tagged)
+# model, tagged); needles past 32 columns take the wide route where its
+# shared memory holds the bucket (phase_kernels_wide_general)
 OLD_BODY_SHAPES = (
     ("bucket 512", 512, 8, 32, 16, "exponential", False),
     ("bucket 1024", 1024, 8, 32, 4, "exponential", False),
-    ("needle 40", 64, 40, 32, 64, "exponential", False),
+    ("wide past shared", 64, 256, 32, 64, "exponential", False),
     ("gap bonus", 64, 8, 32, 64, "gap_bonus", False),
     ("tagged", 64, 8, 32, 64, "exponential", True),
 )
@@ -1418,9 +1457,11 @@ OLD_BODY_SHAPES = (
 
 def old_body_shapes(rng):
     """Kernel 3's gather entry at each of OLD_BODY_SHAPES (the buckets past
-    the long route, a needle past 32 columns, a negative closure, a tagged
-    launch past the register route): the plan must leave the lane routes;
-    bit for bit against the plain version (local), its device ms beside
+    the long route, needles past 32 columns where the wide route's shared
+    memory does not hold the bucket (every needle past 32, so the launch
+    does not split), a negative closure, a tagged launch past the register
+    route): the plan must take the thread-a-problem body; bit for bit
+    against the plain version (local), its device ms beside
     ``wsb_bound_ms``.  Returns [line]."""
     from vectorian_tpu_torch.alignment import CustomGapCost
     from vectorian_tpu_torch.ops import dp_kernels
@@ -1429,11 +1470,15 @@ def old_body_shapes(rng):
     lines, worst = [], 0.0
     for label, L, Tpad, Q, n, mname, tagged in OLD_BODY_SHAPES:
         table, tokens, len_s, len_t = _wsb_inputs(rng, n, L, Tpad, Q)
+        if Tpad > dp_kernels.WSB_REG_MAX_T:
+            len_t = len_t.clamp_min(dp_kernels.WSB_REG_MAX_T + 1)
+        lt_host = len_t.tolist()
         tags = _tag_block(rng, n, L, Q, Tpad) if tagged else None
         gg = _wsb_general(models[mname], Tpad)
         vecs, host = gg.vecs(L), gg.host_vecs(L)
         args = (table, tokens, len_s, len_t, *vecs, "local")
-        run = lambda: dp_kernels.wsb_dp_scores(*args, host_costs=host, tags=tags)  # noqa: E731
+        run = lambda: dp_kernels.wsb_dp_scores(  # noqa: E731
+            *args, host_costs=host, tags=tags, len_t_host=lt_host)
         got, used = _with_route(run)
         if used not in ("shared", "scratch"):
             raise AssertionError(f"wsb_dp {label}: took {used!r}, not the old body")
@@ -1649,6 +1694,206 @@ def phase_kernels_long():
     return out
 
 
+# phase 3's wide-needle shapes (kernel 3's wide route): WIDE_SLICES
+# slices a shape, each searched by Q = 32 queries (and by the first 3 and
+# the first 1 of them: one plain version holds the three launches); the
+# plain version's torch scan takes L x Tpad steps over them in one chunk.
+# Shapes past the route's shared memory (L 64 x Tpad 256, 512) are the old
+# body's and are held in old_body_shapes.
+WIDE_SLICES = 256
+WIDE_L = (8, 16, 64)
+WIDE_T = (40, 64, 136, 256, 512)
+# the dense entry at 4f's chunk (c 2,048 slices of bucket 16, Q 32; its
+# first query, Q 1) against needles padded to WIDE_DENSE_T
+WIDE_DENSE_C = 2_048
+WIDE_DENSE_T = (40, 160, 512)
+# True (``--wide-general-check``): every gap model on every table type in
+# every locality and the rows and dense entries at every width; else each
+# table type and locality once a shape (``checks``), the rows and dense
+# entries at Tpad 160
+WIDE_ALL_MODELS = False
+
+
+def phase_kernels_wide_general():
+    """3 (wide needles): kernel 3's wide route (a warp a problem, its
+    columns in register slots, its column history in shared memory)
+    against its plain version, bit for bit, at bucket capacities WIDE_L x
+    needles padded to WIDE_T x Q 32, 3 and 1 where ``wsb_wide_shape`` holds
+    (WIDE_SLICES slices; slice lengths 0, 1, L and random; needle lengths
+    1 and Tpad among random ones, so the forced launch meets short needles
+    too), ExponentialGapCost(3.0) on f32, bf16 and int8 gather tables in
+    "local" and a concave CustomGapCost on f32 in "global" and
+    "semiglobal" (every model, table and locality with WIDE_ALL_MODELS),
+    forced (``_route="wide"``) and through the default
+    call (split by needle: the short needles on the lane routes); each f32
+    launch timed on the device in turns (``device_turns``) against the old
+    body forced ("shared" where a block's rows fit, "scratch") beside
+    ``wsb_bound_ms``.  The row-gather entry at L 16 x the same widths (B =
+    32 WIDE_SLICES problems, 12 slots) and the dense entry at 4f's chunk
+    (WIDE_DENSE_C slices of bucket 16, Q 32 and its first query) x
+    WIDE_DENSE_T, each in turns against the old body.  Returns {"worst":
+    |diff|, "turns": [line a gather launch], "rows": [...], "dense":
+    [...], "old_body_shapes": [(L, Tpad)]}."""
+    import numpy as np
+    import torch
+
+    from vectorian_tpu_torch.ops import dp_kernels
+
+    rng = np.random.default_rng(SEED + 19)
+    models = _gap_models(rng)
+    out = {"worst": 0.0, "turns": [], "rows": [], "dense": [], "old_body_shapes": []}
+
+    def held(label, fn, want, route, shape):
+        got, used = _with_route(fn)
+        if used != route:
+            raise AssertionError(f"{label}: took {used!r}, not {route} at {shape}")
+        out["worst"] = max(out["worst"], _check_equal(label, got, want, shape))
+
+    def checks(variant):
+        """(model name, locality) pairs a table type or entry is held at:
+        every pair with WIDE_ALL_MODELS, else the exponential model in
+        "local" on every table and the custom one on f32 in the other two
+        localities (each table type and locality once a shape)."""
+        return [(m, loc) for m in models for loc in LOCALITIES
+                if WIDE_ALL_MODELS or (m == "exponential" and loc == "local") or (
+                    m != "exponential" and variant == "f32" and loc != "local")]
+
+    def old_turns(runs, problems, L, T, call, prefix=""):
+        """Add the old body's forced routes to ``runs``, each held against
+        the first run's output; then the turns."""
+        first = runs["wide"]()
+        for r in _long_old_routes(problems, L, T):
+            runs[r] = (lambda r=r: call(r))
+            held("wsb_dp " + r, runs[r], first, prefix + r, (L, T, "old"))
+        means, times = device_turns(runs, _turn_reps(runs))
+        old = dp_kernels.wsb_launch_plan(problems, L, T, registers=False, wide=False).route
+        return means, times, old
+
+    for L in WIDE_L:
+        for Tpad in WIDE_T:
+            if not dp_kernels.wsb_wide_shape(L, Tpad):
+                out["old_body_shapes"].append((L, Tpad))
+                continue
+            n = WIDE_SLICES
+            table, tokens, len_s, len_t = _wsb_inputs(rng, n, L, Tpad, 32)
+            lt_host = len_t.tolist()
+            plain_ms = None
+            for variant in ("f32", "bf16", "int8"):
+                tab = _quantized(table, variant)
+                for mname, loc in checks(variant):
+                    gg = _wsb_general(models[mname], Tpad)
+                    vecs, host = gg.vecs(L), gg.host_vecs(L)
+                    want, ms = _timed_plain(lambda: dp_kernels.wsb_dp_scores_reference(
+                        tab, tokens, len_s, len_t, *vecs, loc))
+                    if (variant, mname, loc) == ("f32", "exponential", "local"):
+                        plain_ms = ms
+                    for Q in (32, 3, 1):
+                        tq = tab[:, :, :Q].contiguous()
+                        held("wsb_dp wide", lambda: dp_kernels.wsb_dp_scores(
+                            tq, tokens, len_s, len_t[:Q], *vecs, loc, host_costs=host,
+                            _route="wide"), want[:, :Q], "wide",
+                            (n, L, Tpad, Q, variant, mname, loc))
+                    # the default call: the split's groups
+                    got = dp_kernels.wsb_dp_scores(tab, tokens, len_s, len_t, *vecs, loc,
+                                                   host_costs=host, len_t_host=lt_host)
+                    out["worst"] = max(out["worst"], _check_equal(
+                        "wsb_dp split", got, want, (n, L, Tpad, 32, variant, mname, loc)))
+            gg = _wsb_general(models["exponential"], Tpad)
+            vecs, host = gg.vecs(L), gg.host_vecs(L)
+            for Q in (32, 3, 1):
+                args = (table[:, :, :Q].contiguous(), tokens, len_s, len_t[:Q], *vecs,
+                        "local")
+                runs = {"wide": lambda: dp_kernels.wsb_dp_scores(
+                    *args, host_costs=host, _route="wide")}
+                means, times, old = old_turns(
+                    runs, n * Q, L, Tpad,
+                    lambda r: dp_kernels.wsb_dp_scores(*args, host_costs=host, _route=r))
+                bound, by = wsb_bound_ms(tokens, len_s, len_t[:Q], args[0])
+                line = {"n": n, "L": L, "Tpad": Tpad, "Q": Q, "ms": means["wide"],
+                        "old_route": old, "old_ms": means[old], "route_ms": means,
+                        "ratio_old": means["wide"] / means[old], "turns": times,
+                        "bound_ms": bound, "bound_by": by,
+                        "threads": dp_kernels.wsb_launch_plan(n * Q, L, Tpad, Q=Q).threads}
+                if Q == 32:
+                    line["plain_ms"] = plain_ms
+                out["turns"].append(line)
+                emit({"phase": "kernel_wide_general", "name": "wsb_dp", "entry": "gather",
+                      "tables": ["f32", "bf16", "int8"], "all_models": WIDE_ALL_MODELS,
+                      "localities": 3, "max_abs_diff": 0.0, **line})
+            del table, tokens
+
+    # the row-gather entry at L 16: one launch at the table's width
+    for Tpad in (WIDE_T if WIDE_ALL_MODELS else (160,)):
+        L, B = 16, 32 * WIDE_SLICES
+        args = _rows_inputs(rng, B, L, Tpad, 12, n=4_096)
+        plain_ms = None
+        for mname, loc in checks("f32"):
+            gg = _wsb_general(models[mname], Tpad)
+            vecs, host = gg.vecs(L), gg.host_vecs(L)
+            want, ms = _timed_plain(lambda: dp_kernels.wsb_dp_scores_rows_reference(
+                *args, *vecs, loc))
+            plain_ms = plain_ms or ms
+            held("wsb_dp_scores_rows wide", lambda: dp_kernels.wsb_dp_scores_rows(
+                *args, *vecs, loc, host_costs=host), want, "rows_wide",
+                (B, L, Tpad, mname, loc))
+        gg = _wsb_general(models["exponential"], Tpad)
+        vecs, host = gg.vecs(L), gg.host_vecs(L)
+        run = lambda: dp_kernels.wsb_dp_scores_rows(  # noqa: E731
+            *args, *vecs, "local", host_costs=host)
+        bound, by = rows_bound_ms("wsb_dp_flat", *args)
+        line = {"B": B, "L": L, "T": Tpad, "slots": 12, "ms": device_ms(run, 10),
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
+        out["rows"].append(line)
+        emit({"phase": "kernel_wide_general", "name": "wsb_dp_flat", "entry": "rows",
+              "route": "rows_wide", "all_models": WIDE_ALL_MODELS, "localities": 3,
+              "max_abs_diff": 0.0, **line})
+        del args
+
+    # the dense entry at 4f's chunk: Q 32, and its first query (Q 1)
+    for Tpad in (WIDE_DENSE_T if WIDE_ALL_MODELS else (160,)):
+        c, L = WIDE_DENSE_C, 16
+        S = torch.as_tensor(rng.uniform(-0.4, 1.0, size=(c, L, Tpad, 32)).astype(
+            np.float32), device=DEVICE)
+        ln = rng.integers(0, L + 1, size=c).astype(np.int32)
+        ln[:3] = (0, 1, L)
+        lt = rng.integers(1, Tpad + 1, size=32).astype(np.int32)
+        lt[:2] = (Tpad, 1)
+        len_s, len_t = (torch.as_tensor(x, device=DEVICE) for x in (ln, lt))
+        blocks = {32: (S, len_t), 1: (S[..., :1].contiguous(), len_t[:1])}
+        plain_ms = None
+        for mname, loc in checks("f32"):
+            gg = _wsb_general(models[mname], Tpad)
+            vecs, host = gg.vecs(L), gg.host_vecs(L)
+            want, ms = _timed_plain(lambda: dp_kernels.wsb_dp_scores_dense_reference(
+                S, len_s, len_t, *vecs, loc))
+            plain_ms = plain_ms or ms
+            for Q, (SQ, ltQ) in blocks.items():
+                held("wsb_dp[dense] wide", lambda: dp_kernels.wsb_dp_scores_dense(
+                    SQ, len_s, ltQ, *vecs, loc, host_costs=host), want[:, :Q],
+                    "dense_wide", (c, L, Tpad, Q, mname, loc))
+        gg = _wsb_general(models["exponential"], Tpad)
+        vecs, host = gg.vecs(L), gg.host_vecs(L)
+        for Q, (SQ, ltQ) in blocks.items():
+            dargs = (SQ, len_s, ltQ, *vecs, "local")
+            runs = {"wide": lambda: dp_kernels.wsb_dp_scores_dense(*dargs, host_costs=host)}
+            means, times, old = old_turns(
+                runs, c * Q, L, Tpad,
+                lambda r: dp_kernels.wsb_dp_scores_dense(*dargs, host_costs=host, _route=r),
+                "dense_")
+            bound, by = dense_bound_ms("wsb_dp[dense]", SQ, len_s, ltQ)
+            line = {"c": c, "L": L, "Tpad": Tpad, "Q": Q, "ms": means["wide"],
+                    "old_route": old, "old_ms": means[old], "route_ms": means,
+                    "turns": times, "bound_ms": bound, "bound_by": by}
+            if Q == 32:
+                line["plain_ms"] = plain_ms
+            out["dense"].append(line)
+            emit({"phase": "kernel_wide_general", "name": "wsb_dp[dense]", "entry": "dense",
+                  "all_models": WIDE_ALL_MODELS, "localities": 3, "max_abs_diff": 0.0,
+                  **line})
+        del S, blocks
+    return out
+
+
 def wsb_shared_crossover(rng):
     """The old body's two routes ("shared" rows, "scratch") at each of
     CROSSOVER_SHAPES, both forced, each bit for bit against the plain
@@ -1753,7 +1998,7 @@ def phase_kernels_quant():
     # the one-thread-a-problem routes at one shape each: shared rows, scratch
     shapes += [(16, 8, 32, "rows"), (32, 16, 1, "rows")]
     # kernel 1's packed rows at T1P 33 and 65 (kernel 3: registers at 32
-    # columns, its scratch route at 64), and a Tpad the affine wrapper pads
+    # columns, its wide route at 64), and a Tpad the affine wrapper pads
     # to whole 8-column chunks (Q 3: kernel 3's one-query groups)
     shapes += [(16, 32, 32, None), (16, 64, 32, "wide"), (16, 12, 3, None)]
     for L, Tpad, Q, route in shapes:
@@ -1838,9 +2083,9 @@ def phase_kernels_quant():
 # each slice's length or None for random lengths, Tpad, each needle's
 # length, Q).  The main path's (SENTENCES slices of 9 tokens in a bucket of
 # 16, needles of 7 padded to 8) at Q 32 and a find's Q 1, then one shape
-# each at Tpad 16, 32 and 64 (kernel 3 takes its scratch route past 32
-# columns, at fewer slices) and, for kernel 1, its wide_regs route at Tpad
-# 132.
+# each at Tpad 16, 32 and 64 (kernel 3 takes its wide route past 32
+# columns, at the slices the scratch route took there before it) and, for
+# kernel 1, its wide_regs route at Tpad 132.
 QUANT_WIDE_N = 262_144
 QUANT_WSB_SCRATCH_N = 16_384
 QUANT_WIDE_REGS_N = 32_768
@@ -1909,12 +2154,15 @@ def quant_turns():
                     vecs, host = gen.vecs(L), gen.host_vecs(L)
                     g32 = _wsb_general(model, Tpad)
 
+                    # the lengths on the host past 32 columns, as above (the
+                    # parent's wrapper takes no len_t_host: it does not split)
                     def call(mod, t=table, v=vecs, h=host, tok=tokens, ls=len_s):
+                        kw = {"len_t_host": [lt] * Q} if mod is dp_kernels else {}
                         return mod.wsb_dp_scores(t, tok, ls, len_t, *v, "local",
-                                                 host_costs=h)
+                                                 host_costs=h, **kw)
                     run32 = lambda: dp_kernels.wsb_dp_scores(  # noqa: E731
                         tables[None][0], tokens, len_s, len_t, *g32.vecs(L), "local",
-                        host_costs=g32.host_vecs(L))
+                        host_costs=g32.host_vecs(L), len_t_host=[lt] * Q)
                     plain = dp_kernels.wsb_dp_scores_reference(
                         table, tokens[:m], len_s[:m], len_t, *vecs, "local")
                     bound = wsb_bound_ms(tokens, len_s, len_t, table)
@@ -2903,8 +3151,9 @@ def phase_main_path(session, gap, label, queries, finds, card, n_sents):
 
 # 4r: a length-mixed corpus: LONG_SENTENCES sentences of log-normal lengths
 # (median LONG_MEDIAN tokens, sigma LONG_SIGMA, clipped to LONG_CLIP) over
-# phase 4's vocabulary, so kernel 3's buckets 64-256 hold slices
-LONG_SENTENCES = 250_000
+# phase 4's vocabulary, so kernel 3's buckets 64-256 hold slices (125,000:
+# the run's 1,200 s hold the wide route's phases too; 250,000 before them)
+LONG_SENTENCES = 125_000
 LONG_MEDIAN = 18
 LONG_SIGMA = 0.55
 LONG_CLIP = (3, 250)
@@ -2956,6 +3205,83 @@ def launch_device_ms(fns, sleep_s=0.05):
     return [start.elapsed_time(end) for start, end in evs]
 
 
+def prose_queries(words, k=32):
+    """``k`` queries of prose length: rint(lognormal(log(LONG_MEDIAN),
+    LONG_SIGMA)) tokens clipped to LONG_CLIP, as 4r's sentences, their
+    words drawn Zipf(1.2) over ``words``, from a generator of their own
+    (seed SEED + 20)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 20)
+    lengths = np.clip(np.rint(rng.lognormal(math.log(LONG_MEDIAN), LONG_SIGMA, size=k)),
+                      *LONG_CLIP).astype(np.int64)
+    return [" ".join(words[int(i)] for i in np.minimum(rng.zipf(1.2, size=int(n)),
+                                                        len(words) - 1)) for n in lengths]
+
+
+def phase_prose_batch(index, words, card):
+    """4r, prose-length queries: one find_batch of 32 ``prose_queries`` on
+    4r's general-gap index at each ranking precision, the launch counts
+    set to 0 right before and read right after.  At least one query is
+    longer than WSB_REG_MAX_T tokens, so the pass splits by needle width:
+    each bucket's gather launches must be the split's two groups on the
+    routes ``wsb_launch_plan`` gives them (the short needles on the lane
+    routes over their own columns, the wide ones on the wide route where
+    it takes the bucket, else the old body), one launch a group a bucket a
+    batch; every precision byte-identical, and to the ``find`` of each wide
+    query and of four short ones.
+    Returns the wide route's launches and the batches' wall ms."""
+    import numpy as np
+
+    from vectorian_tpu_torch.ops import dp_kernels
+    from vectorian_tpu_torch.ops.search import stack_query_tables
+
+    qs = prose_queries(words)
+    _, plans, len_ts, _, _, _ = index._prepare_static_batch(qs, 10, 0.01, "float32", {})
+    Tpad = stack_query_tables(plans, len_ts)[3]
+    split = dp_kernels.needle_split(len_ts, Tpad, dp_kernels.WSB_REG_MAX_T)
+    if max(len_ts) <= dp_kernels.WSB_REG_MAX_T or split is None or not split.long:
+        raise AssertionError(f"prose batch: needles {len_ts} hold none past 32 tokens")
+    want = {}
+    for L, nb in ((int(db["capacity"]), int(db["n"])) for db in index._engine._live_buckets()):
+        if nb == 0:
+            continue
+        for group, T in ((split.short, split.short_T), (split.long, Tpad)):
+            Q = len(group)
+            r = dp_kernels.wsb_launch_plan(nb * Q, L, T, Q=Q).route
+            want[r] = want.get(r, 0) + len(PRECISIONS)
+    n, min_score = 10, 0.01
+    # ---- the main path: launch counts from 0, read right after ----
+    dp_kernels.reset_launches()
+    batches, wall = {}, {}
+    for prec in PRECISIONS:
+        t = time.perf_counter()
+        batches[prec] = [pairs(r) for r in index.find_batch(qs, n=n, min_score=min_score,
+                                                             sim_precision=prec)]
+        wall[prec or "int8"] = (time.perf_counter() - t) * 1e3
+    routes = dict(dp_kernels.WSB_ROUTE_LAUNCHES)
+    # ---- end of the main path ----
+    got = {r: v for r, v in routes.items() if v and not r.startswith("rows_")}
+    if got != want:
+        raise AssertionError(f"prose batch: gather launches {got}, planned {want}")
+    for prec, b in batches.items():
+        if b != batches["float32"]:
+            raise AssertionError(f"prose batch: find_batch at {prec or 'int8'} differs from f32")
+    # each wide query's find and four short ones' (a find a query: ~0.8 s)
+    held = split.long + split.short[:4]
+    finds = [pairs(index.find(qs[q], n=n, min_score=min_score)) for q in held]
+    if finds != [batches["float32"][q] for q in held]:
+        raise AssertionError("prose batch: find and find_batch differ")
+    if not all(batches["float32"]):
+        raise AssertionError("prose batch: a query without matches")
+    emit({"phase": "prose_batch", "card": card, "needle_tokens": len_ts, "Tpad": Tpad,
+          "short_T": split.short_T, "wide_queries": len(split.long), "find_batch_ms": wall,
+          "route_launches": {k: v for k, v in routes.items() if v},
+          "planned_gather_launches": want, "precisions_and_find_byte_identical": True})
+    return {"launches": routes["wide"], "find_batch_ms": wall, "needle_tokens": len_ts,
+            "route_launches": {k: v for k, v in routes.items() if v}}
+
+
 def phase_long_path(words, vectors, card):
     """4r: the general-gap path on a length-mixed corpus.  LONG_SENTENCES
     sentences (``lognormal_corpus``) over phase 4's vocabulary and vectors,
@@ -2971,8 +3297,11 @@ def phase_long_path(words, vectors, card):
     trace of the pass beside it gives each kernel template's device ms and
     launches: its per-event list dropped launches on the card), each long
     bucket's launch in turns against the old body forced on the same
-    tensors (``device_turns``), beside its bound.
-    Returns the kernel line's numbers of the long route."""
+    tensors (``device_turns``), beside its bound.  Between the two, the
+    prose-length batch (``phase_prose_batch``: a needle past 32 tokens
+    splits the pass, the wide route on the path).
+    Returns the kernel line's numbers of the long route (the prose batch's
+    under "prose")."""
     import numpy as np
     import torch
 
@@ -2999,6 +3328,8 @@ def phase_long_path(words, vectors, card):
     launches, routes = drive_main_path(index, queries, finds, "wsb_dp", "long_path", card,
                                        LONG_SENTENCES, profiles=traced)
     log("4r main path done")
+    prose = phase_prose_batch(index, words, card)
+    log("4r prose-length batch done")
     want_routes = {"registers" if L <= dp_kernels.WSB_REG_MAX_L else "long"
                    for L, _ in buckets}
     # extras rounds, where a cut is unsafe, take the row-gather twins
@@ -3012,6 +3343,7 @@ def phase_long_path(words, vectors, card):
     # few ms, came back without device events on the card)
     out = {"launches": routes["long"], "launches_by_route": routes,
            "launches_by_table": launches, "buckets": [], "max_abs_err": 0.0,
+           "prose": prose,
            "profiler": {call: {k: [ms, c] for k, ms, c in rows if "wsb_" in k}
                         for call, rows in traced.items()}}
     for key, qs, dt in (("Q32", queries, None), ("Q32_int8", queries, "int8"),
@@ -3273,18 +3605,20 @@ def _timed(fn):
     return out[0], ms
 
 
-def long_query_profile(index, batch, n, min_score):
+def long_query_profile(index, batch, n, min_score, counts=None, prefix="long_query"):
     """Where the long-query batch's time goes, at int8 (the default) and
     f32: a torch.profiler trace (device busy, idle share, top device
     events), then the host spans (utils/trace) of one more call, summed by
-    name, beside its wall time and its launches by kernel and route."""
+    name, beside its wall time and its launches by kernel and by route
+    (``counts``: the kernel's route counts, the affine ones by default)."""
     import torch
 
     from vectorian_tpu_torch.ops import dp_kernels
     from vectorian_tpu_torch.utils import trace
 
+    counts = dp_kernels.AFFINE_ROUTE_LAUNCHES if counts is None else counts
     for prec in (None, "float32"):
-        label = f"long_query find_batch Q={len(batch)} {prec or 'int8'}"
+        label = f"{prefix} find_batch Q={len(batch)} {prec or 'int8'}"
 
         def run():
             return index.find_batch(batch, n=n, min_score=min_score, sim_precision=prec)
@@ -3300,11 +3634,11 @@ def long_query_profile(index, batch, n, min_score):
         for name, dt in trace.stop():
             ms, count = spans.get(name, (0.0, 0))
             spans[name] = (ms + dt * 1e3, count + 1)
-        emit({"phase": "long_query_spans", "call": label, "wall_ms": wall_ms,
+        emit({"phase": f"{prefix}_spans", "call": label, "wall_ms": wall_ms,
               "spans_ms_count": {k: [ms, c] for k, (ms, c) in
                                  sorted(spans.items(), key=lambda kv: -kv[1][0])},
               "launches": {k: v for k, v in dp_kernels.LAUNCHES.items() if v},
-              "routes": {k: v for k, v in dp_kernels.AFFINE_ROUTE_LAUNCHES.items() if v}})
+              "routes": {k: v for k, v in counts.items() if v}})
 
 
 def phase_long_query(session, long_q, queries, card):
@@ -3319,7 +3653,8 @@ def phase_long_query(session, long_q, queries, card):
     the kernels (the batch's Q=32 table of each type and the find's Q=1
     table): the whole batch's call (both launches and the split's copies),
     the same launches on the pass's prepared table (``affine_table``, made
-    once a pass) and the long needle's wide_regs launch alone, each held against its
+    once a pass; these two held on WIDE_CUT slices a bucket) and the long
+    needle's wide_regs launch alone, each held against its
     plain version and timed with its bound, the launch in turns against
     the shared-memory route on the same inputs (old, new, new, old); and where the
     batch's wall time goes at int8 and f32 (``long_query_profile``).
@@ -3386,7 +3721,8 @@ def phase_long_query(session, long_q, queries, card):
     long_query_profile(index, batch, n, min_score)
 
     dev = torch.device(DEVICE)
-    res = {"launches": wide, "max_abs_err": 0.0, "launch_route": "wide_regs"}
+    res = {"launches": wide, "max_abs_err": 0.0, "launch_route": "wide_regs",
+           "batch_plain_slices_a_bucket": WIDE_CUT}
     for key, qs, dt in (("", batch, None), ("[bf16]", batch, "bfloat16"),
                         ("[int8]", batch, "int8"), ("_find", [long_q], None)):
         _, plans, len_ts, _, _, _ = index._prepare_static_batch(qs, n, min_score, "float32", {})
@@ -3409,12 +3745,16 @@ def phase_long_query(session, long_q, queries, card):
             old = lambda: dp_kernels.affine_dp_scores(*part, _route="wide_shared")  # noqa: E731
             call = lambda: dp_kernels.affine_dp_scores(*whole, len_t_host=len_ts)  # noqa: E731
             launched = lambda: dp_kernels.affine_dp_scores(prepared, *whole[1:])  # noqa: E731
-            want_raw, p_ms = _timed(lambda: dp_kernels.affine_dp_scores_reference(*whole))
-            for fn, label in ((call, ""), (launched, " prepared")):
+            # the whole batch's plain version on WIDE_CUT slices (~14 s at 1M)
+            cut = (table, tok[:WIDE_CUT], ln[:WIDE_CUT], lt, gaps, "local")
+            want_raw, p_ms = _timed(lambda: dp_kernels.affine_dp_scores_reference(*cut))
+            for fn, label in (
+                    (lambda: dp_kernels.affine_dp_scores(*cut, len_t_host=len_ts), ""),
+                    (lambda: dp_kernels.affine_dp_scores(prepared, *cut[1:]), " prepared")):
                 res["max_abs_err"] = max(res["max_abs_err"], _check_equal(
                     "affine_dp[wide]", fn(), want_raw, f"long-query shapes{key}{label}"))
             want_long, pl_ms = _timed(lambda: dp_kernels.affine_dp_scores_reference(*part))
-            if not torch.equal(want_long, want_raw[:, qi]):
+            if not torch.equal(want_long[:WIDE_CUT], want_raw[:, qi]):
                 raise AssertionError(f"long query{key}: the plain version of the long "
                                      "needle's columns differs from the batch's")
             for fn, label in ((new, "wide_regs"), (old, "wide_shared")):
@@ -3446,6 +3786,260 @@ def phase_long_query(session, long_q, queries, card):
                             for db in index._engine._device_buckets]})
         del table, t_long, prepared
     emit({"phase": "long_query_kernel", "name": "affine_dp[wide]", **res})
+    return res
+
+
+# the slices of each bucket the old body and the plain versions run on at
+# the general long query's shapes (the old body takes ~0.1 s a launch of
+# 65,536 slices there, the plain version's scan a chunk of ~24,500
+# slices at a time); the wide route runs the whole packing too
+WIDE_CUT = 65_536
+
+
+def _general_long_inputs(index, qs, dt):
+    """The general-gap pass's inputs at the long query's shapes: queries
+    ``qs`` at table type ``dt`` (None: f32) as ``find_batch`` stacks them.
+    Returns (table, len_ts, len_t, GeneralGaps in the table's units, the
+    wide needles' and the short needles' (columns, table, len_t) (None
+    where a group is empty), the pass's ``WsbTable``)."""
+    import numpy as np
+    import torch
+
+    from vectorian_tpu_torch.ops import dp_kernels
+    from vectorian_tpu_torch.ops.search import scaled_costs, stack_query_tables
+
+    dev = torch.device(DEVICE)
+    _, plans, len_ts, _, _, _ = index._prepare_static_batch(qs, 10, 0.01, "float32", {})
+    table, scale, _, Tpad = stack_query_tables(plans, len_ts, dt)
+    general = scaled_costs(index._gaps, index._gap_costs, scale, Tpad, dev)[1]
+    lt = torch.as_tensor(np.asarray(len_ts, np.int32), device=DEVICE)
+    split = dp_kernels.needle_split(len_ts, Tpad, dp_kernels.WSB_REG_MAX_T)
+    groups = []
+    for sel, T in (((split.long, Tpad), (split.short, split.short_T)) if split
+                   else ((list(range(len(qs))), Tpad), ([], 0))):
+        if not sel:
+            groups.append(None)
+            continue
+        qi = torch.as_tensor(sel, device=DEVICE)
+        groups.append((qi, table[:, :T, qi].contiguous(), lt[qi]))
+    return (table, len_ts, lt, general, *groups,
+            dp_kernels.wsb_table(table, lt, len_ts))
+
+
+def old_body_at_long_query(session, long_q, queries):
+    """The old body (the thread-a-problem body kernel 3 took for a needle
+    past 32 columns before the wide route) at the general long query's
+    shapes on WIDE_CUT slices of each bucket, forced: the long needle's
+    launch (a find's, and the wide group's of the Q = 32 batch at f32 and
+    int8) and the whole batch at Tpad 160 (the one launch before the
+    split); device ms, bound ms.  Prints one line a shape."""
+    from vectorian_tpu_torch.alignment import ExponentialGapCost
+    from vectorian_tpu_torch.ops import dp_kernels
+
+    index = make_index(session, ExponentialGapCost(3.0))
+    batch = [long_q] + queries[:31]
+    for key, qs, dt in (("_find", [long_q], None), ("", batch, None), ("[int8]", batch, "int8")):
+        table, _, lt, general, wide, _, _ = _general_long_inputs(index, qs, dt)
+        Tpad = int(table.shape[1])
+        for db in index._engine._device_buckets:
+            L, tok, ln = int(db["capacity"]), db["tokens"][:WIDE_CUT], db["lengths"][:WIDE_CUT]
+            vecs, host = general.vecs(L), general.host_vecs(L)
+            cases = [("wide_group", wide[1], wide[2])]
+            if len(qs) > 1:
+                cases.append(("whole_batch", table, lt))
+            for label, t, ltq in cases:
+                Q = int(t.shape[2])
+                old = dp_kernels.wsb_launch_plan(tok.shape[0] * Q, L, Tpad, registers=False,
+                                                 wide=False).route
+                run = (lambda t=t, ltq=ltq, old=old: dp_kernels.wsb_dp_scores(
+                    t, tok, ln, ltq, *vecs, "local", host_costs=host, _route=old))
+                bound, by = wsb_bound_ms(tok, ln, ltq, t)
+                emit({"phase": "long_query_general_old_body", "shape": key, "launch": label,
+                      "slices": int(tok.shape[0]), "L": L, "Tpad": Tpad, "Q": Q,
+                      "table": str(t.dtype).replace("torch.", ""), "old_route": old,
+                      "old_ms": device_ms(run, _turn_reps({"r": run})), "bound_ms": bound,
+                      "bound_by": by})
+
+
+def phase_long_query_general(session, long_q, queries, card):
+    """4 (long queries, general gaps): a ``LocalAlignment(ExponentialGapCost(
+    3.0))`` find of phase 4's 160-token query and a find_batch of 32
+    queries that holds it (every needle padded to 160) at each ranking
+    precision on the 1M-slice packing, the launch counts set to 0 right
+    before and read right after: the batch's pass splits by needle width,
+    so its 31 short needles must take the register route and the long one
+    the wide route (as the find does); the thread-a-problem body (shared,
+    scratch) must not launch, nor the long route.  The precisions and find
+    must be byte-identical.  Then the long query's ``find`` p50 (5 more),
+    a torch.profiler trace of its int8 and f32 batches
+    (``long_query_profile``), and, at the shapes the path gave the kernel
+    (the batch's Q=32 table at f32, int8 and bf16, and the find's Q=1):
+    each group's launch held bit for bit against its plain version and the
+    pass's launches (``wsb_table``) against both on WIDE_CUT slices of each
+    bucket; on that cut the wide launch in turns against the old body
+    forced, and the pass's launches against the whole batch on the old
+    body (the one launch before the split); on the whole packing the wide
+    launch, the short group's and the pass's, each beside its bound.
+    Returns the kernels-line numbers of "wsb_dp[wide]"."""
+    import numpy as np
+
+    from vectorian_tpu_torch.alignment import ExponentialGapCost
+    from vectorian_tpu_torch.ops import dp_kernels, search
+
+    index = make_index(session, ExponentialGapCost(3.0))
+    batch = [long_q] + queries[:31]
+    n, min_score = 10, 0.01
+    real_round = search.BucketTopKSource.above_exact_many
+    rounds = [0]
+
+    def count_round(self, reqs):
+        rounds[0] += 1
+        return real_round(self, reqs)
+
+    search.BucketTopKSource.above_exact_many = count_round
+    try:
+        # ---- the main path: launch counts from 0, read right after ----
+        dp_kernels.reset_launches()
+        t = time.perf_counter()
+        single = pairs(index.find(long_q, n=n, min_score=min_score))
+        find_s = time.perf_counter() - t
+        find_routes = dict(dp_kernels.WSB_ROUTE_LAUNCHES)
+        batches, times, extras = {}, {}, {"find": rounds[0]}
+        for prec in PRECISIONS:
+            r0 = rounds[0]
+            t = time.perf_counter()
+            batches[prec] = [pairs(r) for r in index.find_batch(
+                batch, n=n, min_score=min_score, sim_precision=prec)]
+            times[prec or "int8"] = time.perf_counter() - t
+            extras[prec or "int8"] = rounds[0] - r0
+        launches = dict(dp_kernels.LAUNCHES)
+        routes = dict(dp_kernels.WSB_ROUTE_LAUNCHES)
+        # ---- end of the main path ----
+    finally:
+        search.BucketTopKSource.above_exact_many = real_round
+    wide = routes["wide"]
+    old = {r: v for r, v in routes.items()
+           if v and r.removeprefix("rows_") in ("shared", "scratch", "long")}
+    if (find_routes["wide"] == 0 or find_routes["registers"] or wide <= find_routes["wide"]
+            or routes["registers"] == 0 or old):
+        raise AssertionError(f"general long query: routes {routes} (find {find_routes}): "
+                             "the short needles must take registers, the long one wide")
+    want = batches["float32"]
+    for prec, b in batches.items():
+        if b != want:
+            raise AssertionError(f"general long query: find_batch at {prec or 'int8'} "
+                                 "differs from float32")
+    shorts = [pairs(index.find(q, n=n, min_score=min_score)) for q in batch[1:4]]
+    if [single] + shorts != want[:4]:
+        raise AssertionError("general long query: find and find_batch differ")
+    if not single:
+        raise AssertionError("general long query: no matches")
+    p50 = []
+    for _ in range(5):
+        t = time.perf_counter()
+        if pairs(index.find(long_q, n=n, min_score=min_score)) != single:
+            raise AssertionError("general long query: find differs between calls")
+        p50.append(time.perf_counter() - t)
+    emit({"phase": "long_query_general", "card": card, "needle_tokens": len(long_q.split()),
+          "slices": index.packed.n_slices, "first_find_s": find_s,
+          "find_p50_ms": float(np.median(p50)) * 1e3, "find_batch_Q": len(batch),
+          "find_batch_s": times, "extras_rounds": extras, "wide_launches": wide,
+          "wsb_route_launches": {k: v for k, v in routes.items() if v},
+          "find_route_launches": {k: v for k, v in find_routes.items() if v},
+          "launches": {k: v for k, v in launches.items() if v},
+          "precisions_and_find_byte_identical": True})
+    long_query_profile(index, batch, n, min_score, dp_kernels.WSB_ROUTE_LAUNCHES,
+                       "long_query_general")
+
+    res = {"launches": wide, "max_abs_err": 0.0, "launch_route": "wide",
+           "find_p50_ms": float(np.median(p50)) * 1e3,
+           "find_batch_ms": {k: v * 1e3 for k, v in times.items()}}
+    for key, qs, dt in (("", batch, None), ("[int8]", batch, "int8"),
+                        ("[bf16]", batch, "bfloat16"), ("_find", [long_q], None)):
+        table, len_ts, lt, general, wide_g, short_g, prepared = _general_long_inputs(
+            index, qs, dt)
+        Tpad = int(table.shape[1])
+        acc = {}
+
+        def add(k, v):
+            acc[k] = acc.get(k, 0.0) + v
+
+        for db in index._engine._device_buckets:
+            L, tok, ln = int(db["capacity"]), db["tokens"], db["lengths"]
+            tok_c, ln_c = tok[:WIDE_CUT], ln[:WIDE_CUT]
+            vecs, host = general.vecs(L), general.host_vecs(L)
+            qi, t_wide, lt_wide = wide_g
+            plain_wide, p_ms = _timed_plain(lambda: dp_kernels.wsb_dp_scores_reference(
+                t_wide, tok_c, ln_c, lt_wide, *vecs, "local"))
+            want_c = plain_wide
+            if short_g is not None:
+                qs_i, t_short, lt_short = short_g
+                plain_short, ps_ms = _timed_plain(lambda: dp_kernels.wsb_dp_scores_reference(
+                    t_short, tok_c, ln_c, lt_short, *vecs, "local"))
+                want_c = plain_wide.new_empty((tok_c.shape[0], len(qs)))
+                want_c[:, qi], want_c[:, qs_i] = plain_wide, plain_short
+                add("plain_ms_short", ps_ms)
+            add("plain_ms", p_ms)
+
+            def wide_at(tk, lnk, route="wide"):
+                return lambda: dp_kernels.wsb_dp_scores(t_wide, tk, lnk, lt_wide, *vecs, "local",
+                                                        host_costs=host, _route=route)
+
+            def pass_at(tk, lnk):
+                return lambda: dp_kernels.wsb_dp_scores(prepared, tk, lnk, lt, *vecs, "local",
+                                                        host_costs=host)
+
+            label = f"general long-query shapes{key}, bucket {L}"
+            res["max_abs_err"] = max(
+                res["max_abs_err"],
+                _check_equal("wsb_dp[wide]", _with_route(wide_at(tok_c, ln_c))[0], plain_wide,
+                             label + " wide"),
+                _check_equal("wsb_dp[wide]", pass_at(tok_c, ln_c)(), want_c, label + " pass"))
+            old = dp_kernels.wsb_launch_plan(tok_c.shape[0] * len(qi), L, Tpad, registers=False,
+                                             wide=False).route
+            _check_equal("wsb_dp old body", wide_at(tok_c, ln_c, old)(), plain_wide, label)
+            if key == "[bf16]":
+                continue
+            runs = {"wide": wide_at(tok_c, ln_c), old: wide_at(tok_c, ln_c, old)}
+            means, turns = device_turns(runs, _turn_reps(runs))
+            add("ms_cut", means["wide"])
+            add("old_ms_cut", means[old])
+            add("bound_ms_cut", wsb_bound_ms(tok_c, ln_c, lt_wide, t_wide)[0])
+            acc.setdefault("turns_cut", []).append(turns)
+            full = wide_at(tok, ln)
+            add("ms", device_ms(full, _turn_reps({"r": full}, 100.0)))
+            add("bound_ms", wsb_bound_ms(tok, ln, lt_wide, t_wide)[0])
+            if short_g is not None:
+                short = (lambda: dp_kernels.wsb_dp_scores(
+                    t_short, tok, ln, lt_short, *vecs, "local", host_costs=host))
+                if _with_route(short)[1] != "registers":
+                    raise AssertionError(f"{label}: the short group left the register route")
+                add("short_ms", device_ms(short, _turn_reps({"r": short}, 100.0)))
+                add("short_bound_ms", wsb_bound_ms(tok, ln, lt_short, t_short)[0])
+                whole = pass_at(tok, ln)
+                add("pass_ms", device_ms(whole, _turn_reps({"r": whole}, 100.0)))
+                add("pass_bound_ms", wsb_bound_ms(tok, ln, lt, table)[0])
+                # the whole batch on the old body (its one launch before the
+                # split) against the pass's launches, on the cut
+                old_whole = dp_kernels.wsb_launch_plan(tok_c.shape[0] * len(qs), L, Tpad,
+                                                       registers=False, wide=False).route
+                runs = {"pass": pass_at(tok_c, ln_c),
+                        old_whole: lambda: dp_kernels.wsb_dp_scores(
+                            table, tok_c, ln_c, lt, *vecs, "local", host_costs=host,
+                            _route=old_whole)}
+                _check_equal("wsb_dp old body", runs[old_whole](), want_c, label + " whole")
+                means, turns = device_turns(runs, _turn_reps(runs))
+                add("pass_ms_cut", means["pass"])
+                add("old_pass_ms_cut", means[old_whole])
+                acc.setdefault("pass_turns_cut", []).append(turns)
+        shapes = [[int(db["n"]), int(db["capacity"]), Tpad, len(wide_g[0])]
+                  for db in index._engine._device_buckets]
+        res.update({f"{k}{key}": v for k, v in acc.items()})
+        res[f"shapes_n_L_Tpad_Q{key}"] = shapes
+        emit({"phase": "long_query_general_kernel", "shape": key or "Q32", "card": card,
+              "cut_slices": WIDE_CUT, **acc, "shapes_n_L_Tpad_Q": shapes})
+        del table, prepared, wide_g, short_g
+    res["bound_by"] = "operations"
     return res
 
 
@@ -5009,7 +5603,7 @@ class _FirstCalls:
             ref_kw = {k: v for k, v in kw.items()
                       if k not in ("host_costs", "_route", "len_t_host")}
             ref_args = args
-            if isinstance(args[0], dp_kernels.AffineTable):
+            if isinstance(args[0], (dp_kernels.AffineTable, dp_kernels.WsbTable)):
                 # the pass's prepared table reads the len_t it was made from
                 args = [args[0], *args[1:3], args[0].len_t, *args[4:]]
                 ref_args = [args[0].table, *args[1:]]
@@ -5709,9 +6303,13 @@ def run_phases(card):
     worst = phase_kernels()
     worst_general = phase_kernels_general()
     long = phase_kernels_long()
+    log("phase 3 long shapes done")
+    wide_general = phase_kernels_wide_general()
+    log("phase 3 wide general-gap shapes done")
     worst_rows = phase_kernels_rows()
     worst_quant = phase_kernels_quant()
     quant = quant_turns()
+    log("phase 3 rows and 3b done")
     worst_wide = phase_kernels_wide()
     worst_tagged = phase_kernels_tagged()
     worst_dense = phase_kernels_dense()
@@ -5745,6 +6343,8 @@ def run_phases(card):
     log("options done")
     wide = phase_long_query(session, long_q, queries, card)
     log("long-query path done")
+    wide_path = phase_long_query_general(session, long_q, queries, card)
+    log("general long-query path done")
     phase_fasttext(session, ft, queries, finds, np.random.default_rng(SEED + 8), card, ft_info)
     log("fastText path done")
     qft, qft_info = compress_fasttext(ft)
@@ -5815,6 +6415,9 @@ def run_phases(card):
     # corpus; ms / plain / bound: its long buckets' launches of the f32
     # batch (Q 32), summed; the int8 batch and a find's Q 1 beside them
     kernels.append(long_route_line(long, long_path, card))
+    # kernel 3's wide route (needles past 32 columns): the general long
+    # query's pass on phase 4's 1M slices and 4r's prose-length batch
+    kernels.append(wide_route_line(wide_general, wide_path, long_path["prose"], card))
     # the bf16 / int8 table variants of kernels 1 and 3 (find_batch's
     # quantized ranking passes; Pallas cast each row as it read it)
     for base, source, replaces, path in (
@@ -5875,6 +6478,7 @@ def run_phases(card):
         "plain_ms_find": res["plain_ms_find"], "bound_ms_find": res["bound_ms_find"],
         "old_route_ms": res["old_route_ms"], "old_route_ms_find": res["old_route_ms_find"],
         "batch_ms": res["batch_ms"], "batch_plain_ms": res["batch_plain_ms"],
+        "batch_plain_slices_a_bucket": res["batch_plain_slices_a_bucket"],
         "batch_bound_ms": res["batch_bound_ms"],
         "shapes_n_L_Tpad_Q": res["shapes_n_L_Tpad_Q"],
         "shapes_n_L_Tpad_Q_find": res["shapes_n_L_Tpad_Q_find"], "card": card,
@@ -6010,6 +6614,40 @@ def long_route_line(long, long_path, card):
     }
 
 
+def wide_route_line(phase3, path, prose, card):
+    """The kernels line's entry of kernel 3's wide route: phase 3's wide
+    shapes (``phase_kernels_wide_general``), the general long query
+    (``phase_long_query_general``: ms / bound the long needle's find
+    launch on the whole packing, plain ms on its WIDE_CUT slices a bucket)
+    and 4r's prose-length batch (``phase_prose_batch``)."""
+    keys = ("ms", "bound_ms", "ms_cut", "old_ms_cut", "bound_ms_cut", "plain_ms",
+            "short_ms", "short_bound_ms", "pass_ms", "pass_bound_ms", "pass_ms_cut",
+            "old_pass_ms_cut", "turns_cut", "pass_turns_cut", "shapes_n_L_Tpad_Q")
+    return {
+        "name": "wsb_dp[wide]", "route": "cuda", "launch_route": "wide",
+        "entry": "wsb_dp_scores (gather; rows and dense entries in phase 3)",
+        "source": "vectorian_tpu_torch/csrc/wsb_dp.cu",
+        "replaces": "vectorian_tpu/ops/pallas_dp.py:155",
+        "launches": path["launches"] + prose["launches"],
+        "launches_long_query": path["launches"], "launches_prose_batch": prose["launches"],
+        "max_abs_err": max(phase3["worst"], path["max_abs_err"]),
+        "ms": path["ms_find"], "plain_ms": path["plain_ms_find"],
+        "plain_slices_a_bucket": WIDE_CUT, "bound_ms": path["bound_ms_find"],
+        "bound_by": path["bound_by"], "library_ms": None,
+        "old_ms_cut": path["old_ms_cut_find"], "ms_cut": path["ms_cut_find"],
+        "bound_ms_cut": path["bound_ms_cut_find"],
+        "batch": {k: path.get(k) for k in keys},
+        "batch_int8": {k: path.get(k + "[int8]") for k in keys},
+        "find_p50_ms": path["find_p50_ms"], "find_batch_ms": path["find_batch_ms"],
+        "prose_batch_ms": prose["find_batch_ms"],
+        "prose_route_launches": prose["route_launches"],
+        "phase3_ratio_old": [[t["L"], t["Tpad"], t["Q"], t["ratio_old"]]
+                             for t in phase3["turns"]],
+        "phase3_old_body_shapes": phase3["old_body_shapes"],
+        "card": card,
+    }
+
+
 def long_check(card):
     """``--long-check``: phase 2 (build, ptxas gate), phase 3's long shapes
     with every gap model on every table type (LONG_ALL_MODELS) and the
@@ -6101,6 +6739,47 @@ def wide_check(card):
     finally:
         shutil.rmtree(cache, ignore_errors=True)
     log("wide check done")
+
+
+def wide_general_check(card):
+    """``--wide-general-check``: phase 2 (build, ptxas gate), phase 3's wide
+    shapes with every gap model on every table type and the rows and dense
+    entries at every width (WIDE_ALL_MODELS), the old body's shapes
+    (``old_body_shapes``), the general long query on phase 4's 1M-slice
+    session (``phase_long_query_general``) and 4r's prose-length batch on
+    4r's corpus (``phase_prose_batch``), in a packed-corpus cache of its
+    own; then the wide route's kernels line."""
+    global WIDE_ALL_MODELS
+    import numpy as np
+
+    import vectorian_tpu_torch  # noqa: F401  (sets exact-f32 matmul flags)
+    from vectorian_tpu_torch.alignment import ExponentialGapCost
+
+    WIDE_ALL_MODELS = True
+    cache = tempfile.mkdtemp(prefix="chip_smoke_cache_")
+    os.environ["VECTORIAN_CACHE_HOME"] = cache
+    try:
+        phase_build()
+        phase3 = phase_kernels_wide_general()
+        old_body_shapes(np.random.default_rng(SEED + 11))
+        log("wide shapes match their plain versions")
+        rng = np.random.default_rng(SEED)
+        words, texts, query = zipf_corpus(SENTENCES, rng)
+        vectors = rng.normal(size=(len(words), 300)).astype(np.float32)
+        session = build_session(texts, words, vectors, DEVICE)
+        queries = [query() for _ in range(32)]
+        [query() for _ in range(21)]  # the full run's finds: the same long query after them
+        path = phase_long_query_general(session, query(160), queries, card)
+        del session
+        log("general long query done")
+        texts, _, _ = lognormal_corpus(words, LONG_SENTENCES, np.random.default_rng(SEED + 12))
+        session = build_session(texts, words, vectors, DEVICE)
+        prose = phase_prose_batch(make_index(session, ExponentialGapCost(3.0)), words, card)
+        del session
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    emit({"kernels": [wide_route_line(phase3, path, prose, card)]})
+    log("wide general check done")
 
 
 def batch_check(card):
@@ -6255,6 +6934,14 @@ if __name__ == "__main__":
             raise SystemExit("chip_smoke: run from a checkout of the repository")
         sys.path.insert(0, str(ROOT))
         wide_check(phase_device())
+    elif sys.argv[1:2] == ["--wide-general-check"]:
+        # the build and ptxas gate, phase 3's wide general-gap shapes, the
+        # general long query and 4r's prose-length batch alone: the quick
+        # check after an edit of kernel 3's wide route or its split
+        if not (ROOT / "vectorian_tpu_torch" / "csrc" / "affine_dp.cu").exists():
+            raise SystemExit("chip_smoke: run from a checkout of the repository")
+        sys.path.insert(0, str(ROOT))
+        wide_general_check(phase_device())
     elif sys.argv[1:2] == ["--batch-check"]:
         # 4k's batches (static and 4h's tree) and 4l over one bucket and
         # over SPLIT_BUCKETS, alone: the quick

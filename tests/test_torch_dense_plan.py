@@ -142,13 +142,15 @@ def test_affine_dense_plan_threshold():
     (512, 64, 8, 32, True, "long"),         # past the register shapes
     (512, 128, 8, 32, True, "long"),
     (2_048, 256, 16, 1, True, "long"),
-    (512, 64, 40, 32, True, "scratch"),     # past the lane routes' needles
+    (512, 64, 40, 32, True, "wide"),        # past the lane routes' needles
+    (512, 64, 40, 32, False, "wide"),       # ... any closure
+    (512, 64, 256, 32, True, "scratch"),    # past the wide route's shared memory
     (512, 512, 8, 32, True, "scratch"),     # past the long route's buckets
 ])
 def test_wsb_dense_plan_at_path_shapes(c, Lc, T, Q, registers, route):
     """The WSB dense entry takes the gather entry's plan on its c * Q
     problems: two queries a lane group where Q is even on the register
-    route, one on the long route."""
+    route, one on the long route, a warp a problem on the wide route."""
     plan = dp_kernels.wsb_launch_plan(c * Q, Lc, T, registers=registers, Q=Q)
     assert plan.route == route
     assert "dense_" + plan.route in dp_kernels.WSB_ROUTE_LAUNCHES
@@ -160,6 +162,9 @@ def test_wsb_dense_plan_at_path_shapes(c, Lc, T, Q, registers, route):
     elif route == "long":
         assert plan.blocks == -(-c * Q * G // plan.threads)
         assert plan.smem == dp_kernels.wsb_long_smem(Lc, plan.threads)
+    elif route == "wide":
+        assert plan.blocks == -(-c * Q // (plan.threads // 32))
+        assert plan.smem == dp_kernels.wsb_wide_smem(Lc, T, plan.threads // 32)
 
 
 # ---- forced routes ----------------------------------------------------------

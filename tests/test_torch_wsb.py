@@ -199,13 +199,15 @@ def test_wsb_launch_plan_serves_every_bucket_shape(L, T):
     gather entry where its templates take the shape (every default bucket
     up to WSB_REG_MAX_L x needles up to WSB_REG_MAX_T), "long" for the
     buckets past it up to WSB_LONG_MAX_L against the same needles (lane
-    groups, a block's column histories in shared memory), else the
-    thread-a-problem body: shared memory where blocks of rows keep
-    WSB_MIN_RESIDENT threads resident an SM, else a scratch buffer sized to
-    the threads in flight — never sized to all problems."""
+    groups, a block's column histories in shared memory), "wide" for
+    needles past WSB_REG_MAX_T where a warp's column history leaves
+    WSB_WIDE_MIN_WARPS warps resident an SM, else the thread-a-problem
+    body: shared memory where blocks of rows keep WSB_MIN_RESIDENT threads
+    resident an SM, else a scratch buffer sized to the threads in flight —
+    never sized to all problems."""
     problems = 1_000_000 * 32 if L <= 32 else 1_000_000
     plan = dp_kernels.wsb_launch_plan(problems, L, T)
-    rows = dp_kernels.wsb_launch_plan(problems, L, T, registers=False)
+    rows = dp_kernels.wsb_launch_plan(problems, L, T, registers=False, wide=False)
     per = (L + 1) * (T + 1) * 4
     assert rows.route in ("shared", "scratch")
     G = dp_kernels.lane_group_width(T)
@@ -229,12 +231,22 @@ def test_wsb_launch_plan_serves_every_bucket_shape(L, T):
         assert dp_kernels.wsb_launch_plan(problems, L, T, route="long") == plan
         with pytest.raises(ValueError, match="register route"):
             dp_kernels.wsb_launch_plan(problems, L, T, route="registers")
+    elif dp_kernels.wsb_wide_shape(L, T):
+        assert plan.route == "wide" and plan.floats == 0 and plan.threads in (32, 64, 128)
+        assert plan.smem == dp_kernels.wsb_wide_smem(L, T, plan.threads // 32)
+        assert plan.blocks == -(-problems // (plan.threads // 32))
+        # any closure (no host costs needed) and any Q
+        assert dp_kernels.wsb_launch_plan(problems, L, T, registers=False, Q=32) == plan
+        with pytest.raises(ValueError, match="long route"):
+            dp_kernels.wsb_launch_plan(problems, L, T, route="long")
     else:
         assert plan == rows
         with pytest.raises(ValueError, match="register route"):
             dp_kernels.wsb_launch_plan(problems, L, T, route="registers")
         with pytest.raises(ValueError, match="long route"):
             dp_kernels.wsb_launch_plan(problems, L, T, route="long")
+        with pytest.raises(ValueError, match="wide route"):
+            dp_kernels.wsb_launch_plan(problems, L, T, route="wide")
     # the thread-a-problem body: shared rows by the measured crossover
     resident = max(dp_kernels._resident(t * per, t) for t in (32, 64, 128))
     assert (rows.route == "shared") == (resident > 0 and (
@@ -250,12 +262,12 @@ def test_wsb_launch_plan_serves_every_bucket_shape(L, T):
     # a lane group whatever Q (each has its own needle length)
     for Q in (1, 2, 32):
         got = dp_kernels.wsb_launch_plan(problems, L, T, Q=Q, rows=True)
-        if plan.route in ("registers", "long"):
+        if plan.route in ("registers", "long", "wide"):
             assert got == ("rows_" + plan.route, plan.blocks, *plan[2:])
         else:
             assert got == ("rows_" + rows.route, *rows[1:])
-    assert dp_kernels.wsb_launch_plan(problems, L, T, registers=False, rows=True) == (
-        "rows_" + rows.route, *rows[1:])
+    assert dp_kernels.wsb_launch_plan(problems, L, T, registers=False, wide=False,
+                                      rows=True) == ("rows_" + rows.route, *rows[1:])
     scratch = dp_kernels.wsb_launch_plan(problems, L, T, route="scratch")
     assert scratch.route == "scratch" and scratch.floats > 0
     if per * 32 > dp_kernels.WSB_SMEM_MAX:
@@ -272,7 +284,7 @@ def test_wsb_shared_rows_by_the_measured_crossover(L, T):
     resident, threads = max((dp_kernels._resident(t * per, t), t) for t in (128, 64, 32))
     wave = resident * dp_kernels.WSB_SMS
     for problems in (max(wave, 1), wave + 1, 65_536, 1_000_000):
-        plan = dp_kernels.wsb_launch_plan(problems, L, T, registers=False)
+        plan = dp_kernels.wsb_launch_plan(problems, L, T, registers=False, wide=False)
         shared = resident >= dp_kernels.WSB_MIN_RESIDENT or (0 < problems <= wave)
         assert plan.route == ("shared" if shared else "scratch"), problems
         if shared:

@@ -35,7 +35,7 @@
 // operations (and, in this simple form, by the loads of the stored rows that
 // feed them).
 //
-// Three designs, picked per launch by ops/dp_kernels.wsb_launch_plan:
+// Five designs, picked per launch by ops/dp_kernels.wsb_launch_plan:
 //
 // "registers" (bucket capacity L <= 32 and needle width T <= 32, closure
 // w_t* >= 0: every corpus pass and rescore of the default buckets up to 32
@@ -96,8 +96,34 @@
 // to LONG_R) floats a thread, so at L 256 six warps an SM fit.  Tag
 // weights and closures with a negative cost stay on the body below.
 //
-// "shared" / "scratch" (buckets past 256, needles past 32 columns,
-// negative closures, tagged launches past the register route): one thread
+// "wide" (needles padded to 33-512 columns, untagged, wherever a warp's
+// column history of L x T floats leaves at least 4 warps resident an SM:
+// a find or a batch group of long queries against the default buckets).
+// What bounded them on the thread-a-problem body below: one thread walks a
+// problem whose (L + 1) x (T + 1) rows (11 KB at L 16, T 160) fit only a
+// scratch buffer, ~24,500 threads in flight for the card, every vertical
+// and horizontal candidate a load of that buffer.  What the design does
+// about it: one warp a problem, DP column j = 32c + lane + 1 at lane
+// ``lane``, register slot c (CPL slots, a template constant of 2, 4, 8 or
+// 16; only the slots the needle reaches run), so a slot's table reads are
+// 32 consecutive elements of the query-major [V, Q, T] copy.  The diagonal
+// is one shuffle a slot (lane 0 takes lane 31's value of the slot below).
+// Vertical gaps: each lane keeps its columns' history in shared memory,
+// row r at hist[(r - 1) * T + column], and streams it once a row against
+// broadcast costs.  Horizontal gaps (E[j] = max_k C[k] - w_t*[j - k], the
+// bulk of the work past 32 columns): the row's C goes to a shared row of
+// the warp; each slot walks k up to its last column, four C values a step
+// as one broadcast and its four costs w_t*[j - k] from a shared copy at
+// consecutive addresses across the warp (no bank conflict).  The copy holds
+// +inf where j - k <= 0 or past
+// T, so every k may meet every column: one pass, exact for any closure (a
+// gap bonus too), no shuffle a candidate.  What bounds it then: one shared
+// load a candidate (32 lanes' 4 bytes each, the shared memory's width a
+// clock) and a broadcast a four, beside two f32 operations a candidate.
+//
+// "shared" / "scratch" (buckets past 256, shapes past the wide route's
+// shared memory, negative closures at needles of at most 32 columns,
+// tagged launches past the register route): one thread
 // per problem; the rows of a problem live in shared memory when
 // enough threads a block fit there, else in a device scratch buffer the
 // wrapper allocates for the threads in flight (the grid then walks over the
@@ -1031,6 +1057,244 @@ int long_dispatch(Args a, int locality, int blocks, int threads, int smem_bytes,
 }
 
 // ---------------------------------------------------------------------------
+// wide route
+// ---------------------------------------------------------------------------
+
+constexpr int WIDE_MAX_T = 512;  // the widest padded needle it takes (16 slots)
+constexpr int WIDE_XP = 36;      // +inf costs left of gap 1 in the cost copy
+
+// Floats of shared memory a block of ``warps`` warps takes at (L, T)
+// (ops/dp_kernels.wsb_wide_smem mirrors it): the closure's copy (WIDE_XP
+// +inf, w_t*[1 .. Tc], 4 more; Tc = T rounded up to 32), w_s[0 .. L] (to
+// a multiple of 4), then per warp its C row (Tc + 4) and its column
+// history (L rows of T floats, to a multiple of 4).  Every region starts on
+// 16 bytes.
+int64_t wide_smem_floats(int L, int T, int warps) {
+  const int64_t tc = (int64_t)(T + 31) / 32 * 32;
+  const int64_t per_warp = tc + 4 + ((int64_t)L * T + 3) / 4 * 4;
+  return (WIDE_XP + tc + 4) + ((int64_t)L + 4) / 4 * 4 + warps * per_warp;
+}
+
+// One warp a problem; DP column j = 32c + lane + 1 at register slot c of
+// lane ``lane`` (CPL slots; the problem's ncs = ceil(len_t / 32) run, a
+// uniform bound of the warp).  Rows run one at a time: the vertical gaps
+// against the warp's shared history (own columns only: no lane reads
+// another's), the diagonal one shuffle a slot, C into the warp's shared
+// row, then the horizontal gaps in one walk over k (see the header).  A
+// column at or past len_t computes from zeros and reaches no cell that
+// counts.  The locality ``loc`` is a kernel argument, as on the long route.
+template <int CPL, bool ROWS, typename E, bool DENSE>
+__device__ __forceinline__ void wsb_wide_body(const Args a, const int loc) {
+  static_assert(!ROWS || std::is_same<E, float>::value, "rows read f32 tables");
+  static_assert(!(ROWS && DENSE), "a dense block has no row gather");
+  extern __shared__ float4 smem4[];
+  float* const sm = reinterpret_cast<float*>(smem4);
+  const float inf = __int_as_float(0x7f800000);
+  const int L = a.L, T = a.T;
+  const int tc = (T + 31) / 32 * 32;
+  const int nwx = WIDE_XP + tc + 4, nws = (L + 4) / 4 * 4;
+  float* const wx = sm;         // wx[WIDE_XP + g] = w_t*[g] for 1 <= g <= T, +inf elsewhere
+  float* const wsh = sm + nwx;  // wsh[d] = w_s[d], d <= L
+  for (int x = threadIdx.x; x < nwx; x += blockDim.x) {
+    const int g = x - WIDE_XP;
+    wx[x] = (g >= 1 && g <= T) ? __ldg(a.w_ts + g) : inf;
+  }
+  for (int x = threadIdx.x; x < nws; x += blockDim.x)
+    wsh[x] = (x <= L) ? __ldg(a.w_s + x) : 0.0f;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* const crow = sm + nwx + nws + warp * (tc + 4 + (L * T + 3) / 4 * 4);
+  float* const hist = crow + tc + 4;  // row r (1 ..) of column x at hist[(r - 1) * T + x]
+  __syncthreads();
+
+  const int64_t p = (int64_t)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (p >= a.problems) return;  // a whole warp; no block barrier follows
+  int64_t s;
+  int q, ln, lt;
+  if (ROWS) {
+    s = (a.prow != nullptr) ? (int64_t)a.prow[p] : p;
+    q = (a.pslot != nullptr) ? a.pslot[p] : 0;
+    ln = a.len_s[p];
+    lt = a.len_t[p];
+  } else {
+    split_problem(p, a.Q, a.small, s, q);
+    ln = DENSE ? max(a.len_s[s], 1) : a.len_s[s];  // the dense block's len_s is raw
+    lt = a.len_t[q];
+  }
+  const int rows = min(ln, L);
+  const int ncs = min((lt + 31) >> 5, CPL);
+  const bool global = loc == GLOBAL, local = loc == LOCAL;
+
+  // row i (0-based) of the problem's similarities at row_at(i), column x
+  // at x * xs
+  const E* const tab = static_cast<const E*>(a.table);
+  const int32_t* const trow = (a.tokens != nullptr) ? a.tokens + s * (int64_t)L : nullptr;
+  int64_t rstride, base, xs = 1;
+  if constexpr (DENSE) {
+    // row i of slice s at (s * L + i) * T * Q, column x of query q at x * Q + q
+    rstride = (int64_t)T * a.Q;
+    base = s * L * rstride + q;
+    xs = a.Q;
+  } else if (ROWS) {
+    rstride = T;
+    base = ((int64_t)q * a.V + (trow == nullptr ? s * L : 0)) * T;
+  } else {
+    rstride = (int64_t)a.Q * T;  // the query-major [V, Q, T] copy
+    base = (int64_t)q * T;
+  }
+  auto row_at = [&](int i) -> const E* {
+    const int64_t r = (DENSE || trow == nullptr) ? (int64_t)i : (int64_t)__ldg(trow + i);
+    return tab + base + r * rstride;
+  };
+  auto load_row = [&](float (&v)[CPL], int i) {
+    const E* const r = row_at(i);
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      const int x = 32 * c + lane;
+      v[c] = (c < ncs && x < lt) ? to_f32(__ldg(r + x * xs)) : 0.0f;
+    }
+  };
+
+  float h0[CPL], hp[CPL], sv[CPL];  // H[0][j], H[i - 1][j], row i's similarities
+#pragma unroll
+  for (int c = 0; c < CPL; ++c) {
+    const int j = 32 * c + lane + 1;
+    h0[c] = (global && j <= T) ? -__ldg(a.w_t + j) : 0.0f;
+    hp[c] = h0[c];
+    sv[c] = 0.0f;
+  }
+  if (rows >= 1) load_row(sv, 0);
+  float acc = global ? NEG : 0.0f;
+
+  for (int i = 1; i <= rows; ++i) {
+    float cur[CPL];
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) cur[c] = sv[c];
+    if (i < rows) load_row(sv, i);  // the next row's, in flight through this one
+
+    // vertical gaps: H[r][j] - w_s[i - r] over r < i (row 0 in registers)
+    float cc[CPL];
+    {
+      const float w = wsh[i];
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) cc[c] = h0[c] - w;
+    }
+    for (int r = 1; r < i; ++r) {
+      const float w = wsh[i - r];
+      const float* const hr = hist + (r - 1) * T + lane;
+#pragma unroll
+      for (int c = 0; c < CPL; ++c)
+        if (c < ncs && 32 * c + lane < lt) cc[c] = fmaxf(cc[c], hr[32 * c] - w);
+    }
+    // diagonal H[i - 1][j - 1] + S[i - 1][j - 1]: lane 0 of slot c reads
+    // column 32c, lane 31's of slot c - 1 (its own rotated value there)
+    float below = (global && i > 1) ? -wsh[i - 1] : 0.0f;
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      if (c < ncs) {
+        const float rot = __shfl_sync(FULL, hp[c], (lane + 31) & 31);
+        float v = fmaxf(((lane == 0) ? below : rot) + cur[c], cc[c]);
+        if (local) v = fmaxf(v, 0.0f);
+        cc[c] = v;
+        crow[32 * c + lane + 1] = v;
+        below = rot;
+      }
+    }
+    if (lane == 0) crow[0] = global ? -wsh[i] : 0.0f;
+    __syncwarp();
+
+    // horizontal gaps: E[j] = max_k C[k] - w_t*[j - k], a slot at a time,
+    // its walk ending at its last column, four k a step (one walk over k
+    // for all slots, each slot's step predicated, issued every slot's
+    // instructions at every step: 50.1 ms against this form's 29.8 at phase
+    // 4's 160-token find, PERF.md)
+    float e[CPL];
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      e[c] = NEG;
+      if (c < ncs) {
+        const int kend = min(lt, 32 * c + 32);
+        const float* const wc = wx + WIDE_XP + 1 + lane + 32 * c;  // gap j - k at k = 0
+        float ec = NEG;
+#pragma unroll 2
+        for (int k0 = 0; k0 < kend; k0 += 4) {
+          const float4 c4 = *reinterpret_cast<const float4*>(crow + k0);
+          const float* const w = wc - k0;
+          ec = fmaxf(ec, fmaxf(fmaxf(c4.x - w[0], c4.y - w[-1]),
+                               fmaxf(c4.z - w[-2], c4.w - w[-3])));
+        }
+        e[c] = ec;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      if (c < ncs) {
+        const int x = 32 * c + lane, j = x + 1;
+        const float h = fmaxf(cc[c], e[c]);
+        hp[c] = h;
+        if (i < rows && x < lt) hist[(i - 1) * T + x] = h;
+        if (local) {
+          if (j <= lt) acc = fmaxf(acc, h);
+        } else if (global) {
+          if (i == ln && j == lt) acc = h;
+        } else {
+          if (j == lt) acc = fmaxf(acc, h);
+          if (i == ln && j <= lt) acc = fmaxf(acc, h);
+        }
+      }
+    }
+    __syncwarp();  // the next row rewrites the C row
+  }
+#pragma unroll
+  for (int off2 = 16; off2 > 0; off2 >>= 1)
+    acc = fmaxf(acc, __shfl_xor_sync(FULL, acc, off2));
+  if (lane == 0) a.out[p] = (ROWS && a.mask_empty && ln <= 0) ? NEG : acc;
+}
+
+template <int CPL, bool ROWS, typename E>
+__global__ void __launch_bounds__(128) wsb_wide_kernel(const Args a, const int loc) {
+  wsb_wide_body<CPL, ROWS, E, false>(a, loc);
+}
+
+template <int CPL>
+__global__ void __launch_bounds__(128) wsb_wide_dense_kernel(const Args a, const int loc) {
+  wsb_wide_body<CPL, false, float, true>(a, loc);
+}
+
+template <int CPL, bool ROWS, typename E, bool DENSE>
+LongFn pick_wide() {
+  if constexpr (DENSE)
+    return wsb_wide_dense_kernel<CPL>;
+  else
+    return wsb_wide_kernel<CPL, ROWS, E>;
+}
+
+// blocks of ``threads`` (32, 64 or 128) threads, one warp a problem,
+// ``smem_bytes`` at least 4 * wide_smem_floats(L, T, threads / 32); the
+// slots a lane holds: the least of 2, 4, 8, 16 that covers T
+template <bool ROWS, typename E, bool DENSE = false>
+int wide_dispatch(Args a, int locality, int blocks, int threads, int smem_bytes,
+                  void* stream) {
+  if (a.problems <= 0 || a.Q <= 0 || a.L <= 0 || a.T <= 32 || a.T > WIDE_MAX_T ||
+      locality < 0 || locality > 2 || blocks <= 0 ||
+      (threads != 32 && threads != 64 && threads != 128) ||
+      (int64_t)smem_bytes < 4 * wide_smem_floats(a.L, a.T, threads / 32))
+    return -1;
+  if ((int64_t)blocks * (threads / 32) < a.problems) return -1;
+  a.small = a.problems <= 0xffffffffLL;
+  const LongFn kernel = a.T <= 64    ? pick_wide<2, ROWS, E, DENSE>()
+                        : a.T <= 128 ? pick_wide<4, ROWS, E, DENSE>()
+                        : a.T <= 256 ? pick_wide<8, ROWS, E, DENSE>()
+                                     : pick_wide<16, ROWS, E, DENSE>();
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<blocks, threads, smem_bytes, (cudaStream_t)stream>>>(a, locality);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // shared / scratch route
 // ---------------------------------------------------------------------------
 using TaggedFn = void (*)(const Args, const TagArgs);
@@ -1297,4 +1561,50 @@ extern "C" int vt_wsb_dp_scores_dense_long(
   const Args a{S, nullptr, nullptr, nullptr, len_s, len_t, w_s, w_t, w_ts,
                out, nullptr, c * (int64_t)Q, L, T, Q, 0, false, false};
   return long_dispatch<false, float, true>(a, locality, blocks, threads, smem_bytes, stream);
+}
+
+// Wide route (needles padded to 33-512 columns, any closure, no tags;
+// ``blocks`` of ``threads`` threads, one warp a problem, ``smem_bytes`` of
+// shared memory each, as ops/dp_kernels.wsb_launch_plan sizes them).  w_s
+// (L + 1 floats), w_t and w_ts (T + 1 each) are device pointers.  Gather:
+// ``table`` [V, Q, T] of ``table_dtype`` (query-major, as the long route
+// reads it).
+extern "C" int vt_wsb_dp_scores_wide(
+    const void* table, int table_dtype, const int32_t* tokens,
+    const int32_t* len_s, const int32_t* len_t, const float* w_s,
+    const float* w_t, const float* w_ts, float* out, int64_t n, int L, int T,
+    int Q, int locality, int blocks, int threads, int smem_bytes, void* stream) {
+  if (n <= 0 || Q <= 0 || tokens == nullptr) return -1;
+  const Args a{table, tokens, nullptr, nullptr, len_s, len_t, w_s, w_t, w_ts,
+               out, nullptr, n * (int64_t)Q, L, T, Q, 0, false, false};
+  switch (table_dtype) {
+    case F32: return wide_dispatch<false, float>(a, locality, blocks, threads, smem_bytes, stream);
+    case BF16: return wide_dispatch<false, uint16_t>(a, locality, blocks, threads, smem_bytes, stream);
+    case INT8: return wide_dispatch<false, int8_t>(a, locality, blocks, threads, smem_bytes, stream);
+    default: return -1;
+  }
+}
+
+// Row-gather entry, wide route (arguments as in vt_wsb_dp_scores_rows).
+extern "C" int vt_wsb_dp_scores_rows_wide(
+    const float* table, const int32_t* tokens, const int32_t* rows,
+    const int32_t* qslot, const int32_t* len_s, const int32_t* len_t,
+    const float* w_s, const float* w_t, const float* w_ts, float* out,
+    int64_t B, int L, int T, int64_t V, int locality, int mask_empty,
+    int blocks, int threads, int smem_bytes, void* stream) {
+  const Args a{table, tokens, rows, qslot, len_s, len_t, w_s, w_t, w_ts, out,
+               nullptr, B, L, T, 1, V, false, mask_empty != 0};
+  return wide_dispatch<true, float>(a, locality, blocks, threads, smem_bytes, stream);
+}
+
+// Dense entry, wide route (arguments as in vt_wsb_dp_scores_dense).
+extern "C" int vt_wsb_dp_scores_dense_wide(
+    const float* S, const int32_t* len_s, const int32_t* len_t,
+    const float* w_s, const float* w_t, const float* w_ts, float* out,
+    int64_t c, int L, int T, int Q, int locality, int blocks, int threads,
+    int smem_bytes, void* stream) {
+  if (S == nullptr || c <= 0 || Q <= 0) return -1;
+  const Args a{S, nullptr, nullptr, nullptr, len_s, len_t, w_s, w_t, w_ts,
+               out, nullptr, c * (int64_t)Q, L, T, Q, 0, false, false};
+  return wide_dispatch<false, float, true>(a, locality, blocks, threads, smem_bytes, stream);
 }

@@ -32,20 +32,25 @@ counts.
 - ``wsb_dp_scores``: the general-gap (Waterman-Smith-Beyer) corpus pass,
   gather fused as above, any of the three table types (csrc/wsb_dp.cu;
   replaces the corpus-pass use of ``pallas_align_scores_general``).
-  Four routes (``wsb_launch_plan``):
+  Five routes (``wsb_launch_plan``):
   "registers" (one lane a needle column, column histories in registers)
   for buckets up to WSB_REG_MAX_L tokens and needles up to WSB_REG_MAX_T
   (gap models whose closure is non-negative), "long" (the same lane
   groups, column histories in shared memory, rows in blocks) for buckets
-  up to WSB_LONG_MAX_L against the same needles and gap models, else one
+  up to WSB_LONG_MAX_L against the same needles and gap models, "wide"
+  (one warp a problem, a lane's columns in register slots, the column
+  histories in shared memory) for needles of WSB_REG_MAX_T + 1 to
+  WSB_WIDE_MAX_T columns where they fit (``wsb_wide_shape``), else one
   thread a problem with its rows in "shared" memory or in a "scratch"
-  buffer.
+  buffer.  A launch is split by each needle's own width (``wsb_table``,
+  once a corpus pass): the short needles of a batch padded to a long one
+  take the lane routes over their own columns, only the long ones "wide".
 - ``wsb_dp_scores_rows``: the WSB score-only rescore of (bucket row, query
-  slot) problems, on the same four routes ("rows_registers", ...);
+  slot) problems, on the same five routes ("rows_registers", ...);
   ``wsb_dp_scores_flat`` runs it on a flat [B, L, T] batch (both replace
   ``pallas_align_scores_general``).
 - ``wsb_dp_scores_dense``: the WSB DP of a dense ``[c, L, T, Q]`` f32
-  block, on the gather entry's four routes.
+  block, on the gather entry's five routes.
 
 The four gather and row-gather entries also read the tag-weighted block
 (``tags``, a ``TagBlock``; f32 tables only): each similarity becomes the JAX
@@ -145,6 +150,13 @@ WSB_REG_THREADS = 128
 # to 256 against the register route's needles; DP rows a row block
 WSB_LONG_MAX_L = 256
 WSB_LONG_R = 8
+# the wide route (csrc/wsb_dp.cu WIDE_MAX_T, WIDE_XP): padded needles of 33
+# to 512 columns, 2, 4, 8 or 16 register slots a lane; it takes a shape
+# while a warp's column history (L x T floats) and C row leave at least
+# WSB_WIDE_MIN_WARPS warps resident an SM
+WSB_WIDE_MAX_T = 512
+WSB_WIDE_XP = 36
+WSB_WIDE_MIN_WARPS = 4
 # the affine dense entry's lane route (csrc/affine_dp.cu "dense_lanes", a
 # group of lanes a problem, a lane a column): buckets and padded needles up
 # to 32, for launches of at most AFFINE_DENSE_LANES_MAX_PROBLEMS problems.
@@ -174,9 +186,11 @@ LAUNCHES = {
     "wsb_dp[dense]": 0, "wsb_dp_flat": 0, "wsb_dp_flat[tagged]": 0,
 }
 WSB_ROUTE_LAUNCHES = {
-    "registers": 0, "long": 0, "shared": 0, "scratch": 0,
-    "rows_registers": 0, "rows_long": 0, "rows_shared": 0, "rows_scratch": 0,
-    "dense_registers": 0, "dense_long": 0, "dense_shared": 0, "dense_scratch": 0,
+    "registers": 0, "long": 0, "wide": 0, "shared": 0, "scratch": 0,
+    "rows_registers": 0, "rows_long": 0, "rows_wide": 0, "rows_shared": 0,
+    "rows_scratch": 0,
+    "dense_registers": 0, "dense_long": 0, "dense_wide": 0, "dense_shared": 0,
+    "dense_scratch": 0,
 }
 AFFINE_ROUTE_LAUNCHES = {
     "registers": 0, "wide_regs": 0, "wide_shared": 0, "wide_scratch": 0,
@@ -259,6 +273,10 @@ _SIGNATURES = {
         ],
     },
 }
+# the wide entries take the long entries' arguments
+_SIGNATURES["wsb_dp"].update({
+    f"vt_wsb_dp_scores{e}_wide": _SIGNATURES["wsb_dp"][f"vt_wsb_dp_scores{e}_long"]
+    for e in ("", "_rows", "_dense")})
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
@@ -601,39 +619,41 @@ def _wide_args(plan: LaunchPlan, Tpad: int):
 
 class NeedleSplit(NamedTuple):
     """A launch's queries by their own needle width: ``short`` (len_t <=
-    the register route's widest needle) read the table at ``short_T``
-    columns on the register route; ``long`` take a wide route at the full
-    padded width.  Either may be empty, not both."""
+    the short routes' widest needle) read the table at ``short_T`` columns
+    (kernel 1's register route, kernel 3's lane routes); ``long`` take a
+    wide route at the full padded width.  Either may be empty, not both."""
 
     short: list
     short_T: int
     long: list
 
 
-def needle_split(len_t, Tpad: int):
+def needle_split(len_t, Tpad: int, max_t: int = AFFINE_REG_MAX_T):
     """The split of a launch whose needles ``len_t`` (host ints) are padded
     to ``Tpad``, or None where one launch serves them all as they are
-    (Tpad within the register route, or every needle past it).  A problem's
-    score depends only on its needle's columns up to its len_t (csrc/
-    affine_dp.cu), so each group reads a narrower or smaller table and
-    returns the bits of the unsplit launch; ``short_T`` is the short
-    needles' longest rounded up to 8 (at least 8, at most Tpad)."""
-    if Tpad <= AFFINE_REG_MAX_T:
+    (Tpad within ``max_t``, the widest needle of the short routes:
+    AFFINE_REG_MAX_T for kernel 1, WSB_REG_MAX_T for kernel 3; or every
+    needle past it).  A problem's score depends only on its needle's
+    columns up to its len_t (csrc/affine_dp.cu, csrc/wsb_dp.cu), so each
+    group reads a narrower or smaller table and returns the bits of the
+    unsplit launch; ``short_T`` is the short needles' longest rounded up to
+    8 (at least 8, at most Tpad)."""
+    if Tpad <= max_t:
         return None
-    short = [q for q, lt in enumerate(len_t) if lt <= AFFINE_REG_MAX_T]
+    short = [q for q, lt in enumerate(len_t) if lt <= max_t]
     if not short:
         return None
-    long = [q for q, lt in enumerate(len_t) if lt > AFFINE_REG_MAX_T]
+    long = [q for q, lt in enumerate(len_t) if lt > max_t]
     widest = max(len_t[q] for q in short)
     short_T = min(Tpad, max(8, -(-widest // 8) * 8))
     return NeedleSplit(short, short_T, long)
 
 
-def _split_index(len_t, split: NeedleSplit):
+def _split_index(len_t, split: NeedleSplit, max_t: int = AFFINE_REG_MAX_T):
     """The split's (short, long) query indices as long tensors beside
     ``len_t``, ascending: a stable sort of its long flags, so no index list
     is copied to the card (a blocking copy waits for the stream)."""
-    perm = torch.argsort((len_t > AFFINE_REG_MAX_T).to(torch.int32), stable=True)
+    perm = torch.argsort((len_t > max_t).to(torch.int32), stable=True)
     return perm[:len(split.short)], perm[len(split.short):]
 
 
@@ -1146,33 +1166,67 @@ def _resident(smem: int, threads: int) -> int:
     return min(min(SM_SMEM // (smem + 1024), 32) * threads, 2048)
 
 
+def wsb_wide_smem(L: int, T: int, warps: int) -> int:
+    """Shared bytes a block of ``warps`` warps of the wide route needs: the
+    closure's copy (WSB_WIDE_XP +inf costs, then T rounded up to 32, 4
+    more), w_s[0 .. L] (to a multiple of 4), and each warp's C row and
+    column history (L x T floats) (csrc/wsb_dp.cu wide_smem_floats)."""
+    tc = -(-T // 32) * 32
+    per_warp = tc + 4 + -(-(L * T) // 4) * 4
+    return (WSB_WIDE_XP + tc + 4 + (L + 4) // 4 * 4 + warps * per_warp) * 4
+
+
+def _wide_block(L: int, T: int):
+    """(threads resident an SM, threads a block) of the wide route's block
+    size (32, 64 or 128 threads) that keeps the most resident."""
+    return max((_resident(wsb_wide_smem(L, T, t // 32), t), t) for t in (128, 64, 32))
+
+
+def wsb_wide_shape(L: int, T: int) -> bool:
+    """Whether the wide route takes a bucket of capacity L against needles
+    padded to T: 33 to WSB_WIDE_MAX_T columns, while blocks of its column
+    histories keep at least WSB_WIDE_MIN_WARPS warps resident an SM (L 16
+    x T 512, L 64 x T 160 and L 256 x T 48 do; L 64 x T 256 does not)."""
+    return (L >= 1 and WSB_REG_MAX_T < T <= WSB_WIDE_MAX_T
+            and _wide_block(L, T)[0] >= 32 * WSB_WIDE_MIN_WARPS)
+
+
 def wsb_launch_plan(problems: int, L: int, T: int, registers: bool = True,
-                    route=None, Q: int = 1, rows: bool = False) -> LaunchPlan:
+                    route=None, Q: int = 1, rows: bool = False,
+                    wide: bool = True) -> LaunchPlan:
     """The launch of a WSB DP of ``problems`` problems (``Q`` queries a
     slice), bucket capacity L, needles padded to T; ``rows``: the
     row-gather entry (its routes are named "rows_registers", "rows_long",
-    "rows_shared" and "rows_scratch").  ``registers``: the lane routes may
-    run (a closure of non-negative costs and a table under 2^32 elements).
+    "rows_wide", "rows_shared" and "rows_scratch").  ``registers``: the
+    lane routes may run (a closure of non-negative costs and a table under
+    2^32 elements); ``wide``: the wide route may run (an untagged launch).
     ``route`` None picks: "registers" where ``wsb_register_shape`` holds (a
     group of G = ``lane_group_width(T)`` lanes takes one problem — two
     consecutive queries of a slice in the gather entry where Q is even;
     WSB_REG_THREADS threads a block); else "long" where ``wsb_long_shape``
     holds (a group of G lanes a problem, its column histories in shared
     memory: the block size of 32, 64 or 128 threads that keeps the most
-    threads resident an SM); else a problem's (L + 1) x (T + 1) rows go to
-    "shared" memory when blocks of 32, 64 or 128 threads keep at least
-    WSB_MIN_RESIDENT threads resident an SM or hold every problem in one
-    wave on WSB_SMS SMs (the block size that keeps the most), else to a
-    "scratch" buffer sized to the threads in flight (the grid then walks
-    over the problems).  A named ``route`` ("registers",
-    "long", "shared" or "scratch") forces that one (ValueError where it
-    cannot run)."""
+    threads resident an SM); else "wide" where ``wsb_wide_shape`` holds (a
+    warp a problem, its column histories in shared memory; the block size
+    that keeps the most warps resident); else a problem's (L + 1) x (T + 1)
+    rows go to "shared" memory when blocks of 32, 64 or 128 threads keep
+    at least WSB_MIN_RESIDENT threads resident an SM or hold every problem
+    in one wave on WSB_SMS SMs (the block size that keeps the most), else
+    to a "scratch" buffer sized to the threads in flight (the grid then
+    walks over the problems): the thread-a-problem body, which keeps
+    buckets past WSB_LONG_MAX_L, shapes past the wide route's shared memory,
+    closures with a negative cost at needles of at most WSB_REG_MAX_T
+    columns and tagged launches past the register route.  A named
+    ``route`` ("registers", "long", "wide", "shared" or "scratch") forces
+    that one (ValueError where it cannot run)."""
     prefix = "rows_" if rows else ""
     if route is None and registers:
         if wsb_register_shape(L, T):
             route = "registers"
         elif wsb_long_shape(L, T):
             route = "long"
+    if route is None and wide and wsb_wide_shape(L, T):
+        route = "wide"
     if route == "registers":
         if not (registers and wsb_register_shape(L, T)):
             raise ValueError(f"the register route does not take L={L}, T={T}")
@@ -1186,6 +1240,13 @@ def wsb_launch_plan(problems: int, L: int, T: int, registers: bool = True,
         _, threads = max((_resident(wsb_long_smem(L, t), t), t) for t in (128, 64, 32))
         blocks = -(-problems * lane_group_width(T) // threads)
         return LaunchPlan(prefix + "long", blocks, threads, wsb_long_smem(L, threads), 0)
+    if route == "wide":
+        if not (wide and wsb_wide_shape(L, T)):
+            raise ValueError(f"the wide route does not take L={L}, T={T}")
+        threads = _wide_block(L, T)[1]
+        blocks = -(-problems // (threads // 32))
+        return LaunchPlan(prefix + "wide", blocks, threads,
+                          wsb_wide_smem(L, T, threads // 32), 0)
     per = (L + 1) * (T + 1) * 4
     resident, threads = max((_resident(t * per, t), t) for t in (128, 64, 32))
     if route not in (None, "shared", "scratch"):
@@ -1267,24 +1328,159 @@ def wsb_dp_scores_reference(
     return out
 
 
+class _WsbGroup(NamedTuple):
+    """One launch of the WSB gather entry over a group of a pass's
+    queries: their columns of the [n, Q] output (``qi``, None for all of
+    them), their [V, T, Qg] table and ``len_t``, and the copies of that
+    table the routes read on the card (``layouts``: "register", the
+    register route's ``wsb_register_table``; "query_major", the long and
+    wide routes' [V, Qg, T]), each made at its first launch and kept for
+    the pass's other buckets."""
+
+    qi: Optional[torch.Tensor]
+    table: torch.Tensor
+    len_t: torch.Tensor
+    layouts: dict
+
+
+class WsbTable(NamedTuple):
+    """A corpus pass's ranking ``table`` [V, Tpad, Q] as kernel 3's gather
+    launches read it (``wsb_table``): made once a pass and passed to
+    ``wsb_dp_scores`` for each bucket, so the split and the groups' tables
+    are not remade a bucket.  ``len_t`` is the tensor it was made from."""
+
+    table: torch.Tensor
+    len_t: torch.Tensor
+    groups: tuple
+
+
+def wsb_table(table, len_t, len_t_host=None, route=None) -> WsbTable:
+    """Kernel 3's gather launches of a [V, Tpad, Q] ``table`` against
+    needles ``len_t`` [Q] i32: one over the whole table, or, past
+    WSB_REG_MAX_T columns, split by each query's own needle
+    (``needle_split``, on the CPU too) — the short ones over their first
+    ``short_T`` columns (the register or long route, by the bucket), the
+    long ones at the full width (the wide route where ``wsb_wide_shape``
+    holds).  Where every needle is short or every one is long, one launch.
+    ``len_t_host`` (len_t as host ints) spares a read of len_t; ``route``
+    forces one launch (no split)."""
+    _, Tpad, Q = table.shape
+    split = None
+    if route is None and Tpad > WSB_REG_MAX_T and Q:
+        split = needle_split(_host_lengths(len_t, len_t_host), Tpad, WSB_REG_MAX_T)
+    if split is None:
+        return WsbTable(table, len_t, (_WsbGroup(None, table, len_t, {}),))
+    qs = _split_index(len_t, split, WSB_REG_MAX_T)
+    groups = tuple(
+        _WsbGroup(qi, table[:, :T, qi], len_t[qi], {})
+        for qi, T, k in zip(qs, (split.short_T, Tpad), (split.short, split.long)) if k
+    )
+    return WsbTable(table, len_t, groups)
+
+
+def _group_layout(group: _WsbGroup, kind: str):
+    """The group's table as the route reads it (made once, then kept)."""
+    out = group.layouts.get(kind)
+    if out is None:
+        out = (wsb_register_table(group.table) if kind == "register"
+               else group.table.transpose(1, 2).contiguous())
+        group.layouts[kind] = out
+    return out
+
+
+def _wsb_gather_launch(group: _WsbGroup, tokens, len_s, vecs, locality,
+                       host_costs, tags, route):
+    """One launch of the WSB gather entry over a group (its plain version
+    for CPU tensors)."""
+    table, len_t = group.table, group.len_t
+    w_s, w_t, w_t_star = vecs
+    dev = table.device
+    if dev.type == "cpu":
+        return wsb_dp_scores_reference(
+            table, tokens, len_s, len_t, w_s, w_t, w_t_star, locality, tags=tags,
+        )
+    n, L = tokens.shape
+    _, Tpad, Q = table.shape
+    out = torch.empty((n, Q), dtype=torch.float32, device=dev)
+    if n == 0 or Q == 0:
+        return out
+    ln1 = torch.clamp_min(len_s, 1)
+    hs = _register_costs(L, Tpad, table, vecs, host_costs, tagged=tags is not None)
+    plan = wsb_launch_plan(n * Q, L, Tpad, registers=hs is not None,
+                           route=route, Q=Q, wide=tags is None)
+    lib = _load("wsb_dp")
+    code = TABLE_DTYPES[table.dtype]
+    loc = LOCALITIES.index(locality)
+    tag_ptr, held = _tag_args("wsb_dp_scores", tags, dev)
+    scratch = None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if plan.route == "registers":
+            tq = _group_layout(group, "register")
+            rc = lib.vt_wsb_dp_scores_regs(
+                tq.data_ptr(), code, tokens.data_ptr(), ln1.data_ptr(),
+                len_t.data_ptr(), hs[0].data_ptr(), hs[0].numel(),
+                hs[1].data_ptr(), hs[2].data_ptr(), min(hs[1].numel(), hs[2].numel()),
+                out.data_ptr(), n, L, Tpad, Q, loc, plan.blocks, tag_ptr, stream,
+            )
+        elif plan.route in ("long", "wide"):
+            tq = _group_layout(group, "query_major")  # [V, Q, Tpad], unpaired
+            entry = (lib.vt_wsb_dp_scores_long if plan.route == "long"
+                     else lib.vt_wsb_dp_scores_wide)
+            rc = entry(
+                tq.data_ptr(), code, tokens.data_ptr(), ln1.data_ptr(),
+                len_t.data_ptr(), w_s.data_ptr(), w_t.data_ptr(),
+                w_t_star.data_ptr(), out.data_ptr(), n, L, Tpad, Q, loc,
+                plan.blocks, plan.threads, plan.smem, stream,
+            )
+        else:
+            scratch, scratch_ptr = _scratch(dev, plan.floats)
+            rc = lib.vt_wsb_dp_scores(
+                table.data_ptr(), code, tokens.data_ptr(), ln1.data_ptr(),
+                len_t.data_ptr(), w_s.data_ptr(), w_t.data_ptr(),
+                w_t_star.data_ptr(), out.data_ptr(), scratch_ptr, n, L, Tpad,
+                Q, loc, plan.blocks, plan.threads, plan.smem, tag_ptr, stream,
+            )
+    # the host costs were copied into the launch; the caching allocator
+    # orders any reuse of the scratch buffer after it on this stream
+    del scratch, held
+    _raise_on(rc, "wsb_dp")
+    LAUNCHES["wsb_dp" + ("[tagged]" if tags is not None else
+                         _DTYPE_TAGS[table.dtype])] += 1
+    WSB_ROUTE_LAUNCHES[plan.route] += 1
+    return out
+
+
 def wsb_dp_scores(table, tokens, len_s, len_t, w_s, w_t, w_t_star, locality,
-                  host_costs=None, tags=None, _route=None):
+                  host_costs=None, tags=None, len_t_host=None, _route=None):
     """Raw WSB-DP scores [n, Q] f32 of every slice against every query.
 
     table [V, Tpad, Q] f32, bf16 or int8 (as in ``affine_dp_scores``: the
-    costs in the table's units), tokens [n, L] i32 (< V), len_s [n] i32
-    (clamped to >= 1, like the JAX corpus pass), len_t [Q] i32 (1 <= len_t
-    <= Tpad); w_s [>= L + 1] raw document-side gap costs, w_t [>= Tpad +
-    1] raw needle-side costs (the global row 0) and w_t_star their min-plus
-    closure (ops/alignment.gap_cost_closure), all f32 on the table's
-    device.
+    costs in the table's units), or the ``WsbTable`` made from it and this
+    ``len_t`` (a corpus pass's buckets share one); tokens [n, L] i32 (<
+    V), len_s [n] i32 (clamped to >= 1, like the JAX corpus pass), len_t
+    [Q] i32 (1 <= len_t <= Tpad); w_s [>= L + 1] raw document-side gap
+    costs, w_t [>= Tpad + 1] raw needle-side costs (the global row 0) and
+    w_t_star their min-plus closure (ops/alignment.gap_cost_closure), all
+    f32 on the table's device.
     ``host_costs``: the same three vectors on the host (``GeneralGaps.
     host_vecs``); the register route passes the costs by value, and without
     them it copies the device vectors back first, which waits for the
     stream.  ``tags``: a ``TagBlock`` as in ``affine_dp_scores``, or None.
     Any bucket capacity and needle width is served (``wsb_launch_plan``
-    picks the route; ``_route`` forces one, for comparing the routes)."""
+    picks the route).  Past WSB_REG_MAX_T columns the queries split by
+    their own needle (``wsb_table``, on the CPU too): the short ones on the
+    lane routes over their columns of the table, the long ones on the wide
+    route; ``len_t_host`` (len_t as host ints) spares the split a read of
+    len_t.  ``_route`` forces one launch on a route, for comparing the
+    routes."""
     _check_locality(locality)
+    prepared = table if isinstance(table, WsbTable) else None
+    if prepared is not None:
+        if prepared.len_t is not len_t or _route is not None:
+            raise ValueError("a WsbTable is read with the len_t it was made from, "
+                             "on the routes it chose")
+        table = prepared.table
     dev = table.device
     if table.dim() != 3 or tokens.dim() != 2:
         raise ValueError("table must be [V, Tpad, Q] and tokens [n, L]")
@@ -1293,74 +1489,30 @@ def wsb_dp_scores(table, tokens, len_s, len_t, w_s, w_t, w_t_star, locality,
     _check_gap_vecs(L, Tpad, w_s, w_t, w_t_star)
     if tags is not None:
         _check_tags("wsb_dp_scores", tags, table, tokens, Q, Tpad)
-    if dev.type == "cpu":
-        return wsb_dp_scores_reference(
-            table, tokens, len_s, len_t, w_s, w_t, w_t_star, locality,
-            tags=tags,
+    if dev.type != "cpu":
+        if tuple(len_s.shape) != (n,) or tuple(len_t.shape) != (Q,):
+            raise ValueError("len_s must be [n] and len_t [Q]")
+        _check_cuda(
+            "wsb_dp_scores", dev, table=(table, tuple(TABLE_DTYPES)),
+            tokens=(tokens, torch.int32), len_s=(len_s, torch.int32),
+            len_t=(len_t, torch.int32), w_s=(w_s, torch.float32),
+            w_t=(w_t, torch.float32), w_t_star=(w_t_star, torch.float32),
         )
-    if tuple(len_s.shape) != (n,) or tuple(len_t.shape) != (Q,):
-        raise ValueError("len_s must be [n] and len_t [Q]")
-    _check_cuda(
-        "wsb_dp_scores", dev, table=(table, tuple(TABLE_DTYPES)),
-        tokens=(tokens, torch.int32), len_s=(len_s, torch.int32),
-        len_t=(len_t, torch.int32), w_s=(w_s, torch.float32),
-        w_t=(w_t, torch.float32), w_t_star=(w_t_star, torch.float32),
-    )
+    if prepared is None:
+        prepared = wsb_table(table, len_t, len_t_host, _route)
+    vecs = (w_s, w_t, w_t_star)
+    first = prepared.groups[0]
+    if first.qi is None:
+        return _wsb_gather_launch(first, tokens, len_s, vecs, locality, host_costs,
+                                  tags, _route)
+    # each group's scores written into its columns
     out = torch.empty((n, Q), dtype=torch.float32, device=dev)
-    if n == 0 or Q == 0:
-        return out
-    ln1 = torch.clamp_min(len_s, 1)
-    hs = _register_costs(L, Tpad, table, (w_s, w_t, w_t_star), host_costs,
-                         tagged=tags is not None)
-    plan = wsb_launch_plan(n * Q, L, Tpad, registers=hs is not None,
-                           route=_route, Q=Q)
-    lib = _load("wsb_dp")
-    code = TABLE_DTYPES[table.dtype]
-    tag_ptr, held = _tag_args("wsb_dp_scores", tags, dev)
-    if plan.route == "registers":
-        n_wt = min(hs[1].numel(), hs[2].numel())
-        tq = wsb_register_table(table)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = lib.vt_wsb_dp_scores_regs(
-                tq.data_ptr(), code, tokens.data_ptr(), ln1.data_ptr(),
-                len_t.data_ptr(), hs[0].data_ptr(), hs[0].numel(),
-                hs[1].data_ptr(), hs[2].data_ptr(), n_wt, out.data_ptr(),
-                n, L, Tpad, Q, LOCALITIES.index(locality), plan.blocks,
-                tag_ptr, stream,
-            )
-        # the costs were copied into the launch; the caching allocator
-        # orders any reuse of a transposed table after it on this stream
-        del tq
-    elif plan.route == "long":
-        tq = table.transpose(1, 2).contiguous()  # [V, Q, Tpad], unpaired
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = lib.vt_wsb_dp_scores_long(
-                tq.data_ptr(), code, tokens.data_ptr(), ln1.data_ptr(),
-                len_t.data_ptr(), w_s.data_ptr(), w_t.data_ptr(),
-                w_t_star.data_ptr(), out.data_ptr(), n, L, Tpad, Q,
-                LOCALITIES.index(locality), plan.blocks, plan.threads,
-                plan.smem, stream,
-            )
-        del tq
-    else:
-        scratch, scratch_ptr = _scratch(dev, plan.floats)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = lib.vt_wsb_dp_scores(
-                table.data_ptr(), code, tokens.data_ptr(), ln1.data_ptr(),
-                len_t.data_ptr(), w_s.data_ptr(), w_t.data_ptr(),
-                w_t_star.data_ptr(), out.data_ptr(), scratch_ptr, n, L, Tpad,
-                Q, LOCALITIES.index(locality), plan.blocks, plan.threads,
-                plan.smem, tag_ptr, stream,
-            )
-        del scratch
-    del held
-    _raise_on(rc, "wsb_dp")
-    LAUNCHES["wsb_dp" + ("[tagged]" if tags is not None else
-                         _DTYPE_TAGS[table.dtype])] += 1
-    WSB_ROUTE_LAUNCHES[plan.route] += 1
+    for g in prepared.groups:
+        tg = None if tags is None else TagBlock(
+            tags.pos, tags.w[g.qi], tags.p[g.qi], tags.pen[g.qi], tags.thr[g.qi],
+            None if tags.wt is None else tags.wt.index_select(1, g.qi), tags.rmap)
+        out.index_copy_(1, g.qi, _wsb_gather_launch(g, tokens, len_s, vecs, locality,
+                                                     host_costs, tg, None))
     return out
 
 
@@ -1390,7 +1542,7 @@ def _wsb_rows_launch(table, tokens, rows, qslot, V, L, len_s, len_t, vecs,
         return out
     hs = _register_costs(L, T, table, vecs, host_costs, tagged=tags is not None)
     plan = wsb_launch_plan(B, L, T, registers=hs is not None, route=route,
-                           rows=True)
+                           rows=True, wide=tags is None)
     lib = _load("wsb_dp")
     ptrs = (table.data_ptr(), *_rows_ptrs(tokens, rows, qslot),
             len_s.data_ptr(), len_t.data_ptr())
@@ -1406,8 +1558,10 @@ def _wsb_rows_launch(table, tokens, rows, qslot, V, L, len_s, len_t, vecs,
                 out.data_ptr(), B, L, T, V, loc, int(mask_empty), plan.blocks,
                 tag_ptr, stream,
             )
-        elif plan.route == "rows_long":
-            rc = lib.vt_wsb_dp_scores_rows_long(
+        elif plan.route in ("rows_long", "rows_wide"):
+            entry = (lib.vt_wsb_dp_scores_rows_long if plan.route == "rows_long"
+                     else lib.vt_wsb_dp_scores_rows_wide)
+            rc = entry(
                 *ptrs, *(w.data_ptr() for w in vecs), out.data_ptr(), B, L,
                 T, V, loc, int(mask_empty), plan.blocks, plan.threads,
                 plan.smem, stream,
@@ -1434,7 +1588,9 @@ def wsb_dp_scores_rows(tokens, rows, qslot, table, V, len_s, len_t, w_s, w_t,
     (w_s [>= L + 1], w_t and w_t_star [>= Tmax + 1]; ``host_costs`` their
     host copies for the register route, ``GeneralGaps.host_vecs``).
     ``tags`` as in ``affine_dp_scores_rows``.  Routes as
-    ``wsb_launch_plan(..., rows=True)`` picks them."""
+    ``wsb_launch_plan(..., rows=True)`` picks them: one launch at the
+    table's width ("rows_wide" past WSB_REG_MAX_T columns, untagged), its
+    problems not split by their own len_t."""
     _check_locality(locality)
     _, L, T = _check_rows("wsb_dp_scores_rows", tokens, rows, qslot, table,
                           len_s, len_t)
@@ -1513,11 +1669,12 @@ def wsb_dp_scores_dense(S, len_s, len_t, w_s, w_t, w_t_star, locality,
                         host_costs=None, _route=None):
     """Raw WSB-DP scores [c, Q] f32 of a dense similarity block S [c, L, T,
     Q] f32 (as in ``affine_dp_scores_dense``); cost vectors and
-    ``host_costs`` as in ``wsb_dp_scores``.  The gather entry's three
-    routes (``wsb_launch_plan``; the register route reads lane k's column
-    Q floats apart, no transposed copy; len_s is clamped to >= 1 inside
-    the kernels, so a call is one launch); ``_route`` forces one (refused
-    where it cannot run, on the CPU too)."""
+    ``host_costs`` as in ``wsb_dp_scores``.  The gather entry's routes
+    (``wsb_launch_plan``; the register route reads lane k's column Q
+    floats apart, the wide route a slot's columns Q floats apart, no
+    transposed copy; len_s is clamped to >= 1 inside the kernels, so a
+    call is one launch, not split by needle); ``_route`` forces one
+    (refused where it cannot run, on the CPU too)."""
     _check_locality(locality)
     c, L, T, Q = _check_dense("wsb_dp_scores_dense", S, len_s, len_t)
     _check_gap_vecs(L, T, w_s, w_t, w_t_star)
@@ -1552,8 +1709,10 @@ def wsb_dp_scores_dense(S, len_s, len_t, w_s, w_t, w_t_star, locality,
                 hs[2].data_ptr(), min(hs[1].numel(), hs[2].numel()),
                 out.data_ptr(), c, L, T, Q, loc, plan.blocks, stream,
             )
-        elif plan.route == "long":
-            rc = lib.vt_wsb_dp_scores_dense_long(
+        elif plan.route in ("long", "wide"):
+            entry = (lib.vt_wsb_dp_scores_dense_long if plan.route == "long"
+                     else lib.vt_wsb_dp_scores_dense_wide)
+            rc = entry(
                 S.data_ptr(), len_s.data_ptr(), len_t.data_ptr(), w_s.data_ptr(),
                 w_t.data_ptr(), w_t_star.data_ptr(), out.data_ptr(), c, L, T, Q,
                 loc, plan.blocks, plan.threads, plan.smem, stream,

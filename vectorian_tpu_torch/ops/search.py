@@ -71,6 +71,7 @@ from vectorian_tpu_torch.ops.dp_kernels import (
     wsb_dp_scores,
     wsb_dp_scores_dense,
     wsb_dp_scores_rows,
+    wsb_table,
 )
 from vectorian_tpu_torch.ops.simmatrix import (
     QueryPlan,
@@ -468,8 +469,8 @@ def _bucket_scores_multiquery(
     """[n, Q] normalized scores of one bucket — Q queries in one corpus
     pass, one kernel launch (the gather of ``sim_multi`` by ``tokens`` is
     fused into the DP kernel).  ``general``: the GeneralGaps of a
-    non-affine gap model (WSB kernel), else None (affine: ``sim_multi`` may
-    be the pass's ``AffineTable`` made from it and ``len_t``).  ``sim_scale``:
+    non-affine gap model (WSB kernel), else None; ``sim_multi`` may be the
+    pass's ``AffineTable`` or ``WsbTable`` made from it and ``len_t``.  ``sim_scale``:
     a 0-d f32 tensor on the device for an int8 table, else None; ``gaps``
     and ``general`` are then in the table's units (divided by it), and the
     raw scores are multiplied by it coming out, before the normalization
@@ -498,7 +499,8 @@ def _bucket_scores_multiquery(
 class MultiQueryPass:
     """What a multi-query corpus pass over static plans holds on one
     device: the stacked ranking ``table`` (``stack_query_tables``; made the
-    pass's ``AffineTable`` on the affine path), the costs in its units
+    pass's ``AffineTable`` on the affine path, its ``WsbTable`` on the
+    general one), the costs in its units
     (``scaled_costs``), the needles' lengths and norms, and the tag columns
     with their weight table (``corpus_tag_columns``, or None).  The
     single-device pass builds one on the engine's device; a mesh builds one
@@ -511,9 +513,11 @@ class MultiQueryPass:
             gaps, gap_costs, sim_scale, Tpad, device)
         self.lt = torch.as_tensor(np.asarray(len_ts, np.int32), device=device)
         table = table.to(device)
+        # the launches' per-needle split, once a pass
         if self.general is None:
-            # the affine launches' per-needle split, once a pass
             table = affine_table(table, self.lt, len_ts)
+        else:
+            table = wsb_table(table, self.lt, len_ts)
         self.table = table
         self.nt = torch.as_tensor(np.asarray(norm_totals, np.float32), device=device)
         self.tw = None if tag_cols is None else _put_all(tag_arrays(tag_cols), device)
